@@ -1,0 +1,263 @@
+"""Driver API (``pdmpflux_tpu/api.py``) for the event-count path.
+
+* ``sample_skeleton(sampler, n_sk, ...)``: fixed-event-count skeleton of a
+  chain batch, through stream fills of K1 and compaction by K2;
+* ``sample_from_skeleton``: skeleton -> equal-time samples (N, dt, N + dt);
+* ``sample``: the two chained.
+
+Every function takes ``device`` (default ``"cuda"``).  On CUDA the fill and
+the compaction run the hand-written kernels; on the CPU the same driver runs
+their plain PyTorch versions, which is the port's reference path.  Asking for
+CUDA without a card raises.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import warnings
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .core.types import EV_INIT, Skeleton, event_from_state
+from .ops.cuda import compact as k2
+from .ops.cuda import driver as k1_driver
+
+DEFAULT_MAX_TRANSITIONS_PER_EVENT = 256
+_DEVICE_BYTES_FALLBACK = 8 << 30
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device`` for ``device``; CUDA without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} asked for CUDA, but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run the plain PyTorch path"
+        )
+    return dev
+
+
+def _device_bytes_budget(dev: torch.device) -> int:
+    """Usable bytes for a fill plus the accumulator: 60% of the card's free
+    memory (``PDMPFLUX_DEVICE_BYTES`` overrides; 8 GiB on the CPU)."""
+    env = os.environ.get("PDMPFLUX_DEVICE_BYTES", "")
+    if env:
+        return int(env)
+    if dev.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(dev)
+        return int(free * 0.6)
+    return int(_DEVICE_BYTES_FALLBACK * 0.6)
+
+
+def _update_fill_ratio(sampler, target, transitions):
+    """Remember the events-per-transition ratio for fill sizing (5%
+    hysteresis, as in the JAX package)."""
+    new = min(1.0, target / max(int(transitions), 1))
+    old = getattr(sampler, "_fill_ratio", None)
+    if old is None or abs(new - old) > 0.05 * old:
+        sampler._fill_ratio = new
+
+
+def _prep_init(sampler, xinit, vinit):
+    """Normalize initial conditions to a (B, d) batch; validate like
+    ``sample.jl:287-311`` (finite values, matching dims)."""
+    x = np.asarray(xinit, float)
+    v = np.asarray(vinit, float)
+    if x.ndim == 0:
+        x = x[None]
+    if v.ndim == 0:
+        v = v[None]
+    squeeze = x.ndim == 1
+    if x.ndim == 1:
+        x, v = x[None, :], v[None, :]
+    if x.shape != v.shape or x.shape[-1] != sampler.dim:
+        raise ValueError(
+            f"xinit and vinit must have the same dimension as pdmp.dim "
+            f"({sampler.dim}). Current shapes: xinit {x.shape}, vinit {v.shape}"
+        )
+    if not (np.all(np.isfinite(x)) and np.all(np.isfinite(v))):
+        raise ValueError("initial values contain NaN, Inf, or -Inf.")
+    return x, v, squeeze
+
+
+def _squeeze_skeleton(skel: Skeleton) -> Skeleton:
+    return Skeleton(*(a[0] for a in skel))
+
+
+def fill_rows(sampler, target: int, B: int, d: int, dtype,
+              dev: torch.device) -> int:
+    """Rows of one stream fill: about 1.8 transitions per event on a cold
+    sampler (1.08x the measured need once a run has finished), aligned,
+    and capped so a fill plus the accumulator fit the memory budget."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    row_bytes = (2 * d + 20) * itemsize + d
+    budget_rows = int((_device_bytes_budget(dev) / max(B * row_bytes, 1)
+                       - (target + 1)) / 1.5)
+    max_rows = max(64, budget_rows // 64 * 64)
+    # the JAX package uses the ratio on the TPU only, where each new fill
+    # size costs a compile; PyTorch runs eagerly, so every device uses it
+    ratio = getattr(sampler, "_fill_ratio", None)
+    margin = 1.8 if not ratio else min(1.8, max(1.08, 1.08 / ratio))
+    align = 256 if target >= 256 else 64
+    t_cap = min(int(-(-int(target * margin + 64) // align) * align), max_rows)
+    return max(t_cap, 64)
+
+
+def sample_skeleton(sampler, n_or_T, xinit, vinit, *, seed=None,
+                    verbose: bool = False, dtype=None, device="cuda",
+                    max_transitions_per_event: int = DEFAULT_MAX_TRANSITIONS_PER_EVENT,
+                    t_cap: Optional[int] = None, chunk: int = 32,
+                    tile: int = 128) -> Skeleton:
+    """Generate a PDMP skeleton of ``n_or_T`` points per chain (the initial
+    state included), as the JAX package's event-count stream path does.
+
+    ``dtype`` defaults to torch's default float.  ``t_cap`` sets the rows of
+    one stream fill (sized from the target and device memory by default);
+    ``chunk`` is the transitions per kernel launch and ``tile`` the RNG lane
+    tile — with equal ``seed``, ``t_cap``, ``chunk`` and ``tile`` the
+    skeleton reproduces the JAX fused-kernel path.  A ``float`` ``n_or_T``
+    (time horizon) is not ported yet.
+    """
+    if not (isinstance(n_or_T, (int, np.integer)) and not isinstance(n_or_T, bool)):
+        raise NotImplementedError(
+            "time-horizon sampling (a float n_or_T) is not ported to "
+            "pdmpflux_tpu_torch yet: ROADMAP Queue 1, 'Time-horizon mode'"
+        )
+    n_sk = int(n_or_T)
+    if n_sk <= 0:
+        raise ValueError(f"n_sk must be positive. Current value: {n_sk}")
+    x, v, squeeze = _prep_init(sampler, xinit, vinit)
+    dev = resolve_device(device)
+    if dtype is None:
+        dtype = torch.get_default_dtype()
+    B, d = x.shape
+    target = n_sk - 1  # events beyond the initial record
+    if t_cap is None:
+        t_cap = fill_rows(sampler, target, B, d, dtype, dev)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    acc_bytes = B * ((2 * d + 20) * itemsize + d) * (target + 1 + t_cap)
+    if acc_bytes > _device_bytes_budget(dev):
+        raise MemoryError(
+            f"the (B={B}, {n_sk}) skeleton plus one fill needs ~{acc_bytes >> 20} "
+            "MiB, beyond the device budget; host accumulation is not ported "
+            "yet (ROADMAP Queue 1)"
+        )
+    runner = k1_driver.make_stream_runner(sampler, t_cap, target, chunk=chunk,
+                                          tile=tile)
+
+    state = sampler.init_state_batch(x, v, seed, dtype, dev)
+    init_ev = event_from_state(state, EV_INIT)
+    counts = torch.zeros((B,), dtype=torch.int32, device=dev)
+    acc = None
+    trans_total = 0
+    max_fills = max(1, (target * int(max_transitions_per_event)) // t_cap + 1)
+    exhausted = True
+    for _ in range(max_fills):
+        prev_counts = counts
+        res = runner(state, counts)
+        state, counts = res.state, res.counts
+        if acc is None:
+            acc = k2.compact_fill(
+                res.fill, k2.empty_rows(B, target + 1, d, dtype, dev),
+                off=torch.ones((B,), dtype=torch.int32, device=dev),
+                init=init_ev)
+        else:
+            # straggler fill: its events go past each chain's earlier ones
+            acc = k2.compact_fill(res.fill, acc, off=1 + prev_counts)
+        trans_total += res.transitions
+        counts_host = counts.cpu().numpy()
+        done = counts_host >= target
+        if verbose:
+            print(f"[sample_skeleton] events {int(counts_host.min())}/{target} "
+                  f"(chains done: {int(done.sum())}/{B})")
+        if done.all():
+            exhausted = False
+            _update_fill_ratio(sampler, target, trans_total)
+            break
+        if res.transitions == 0:
+            exhausted = False
+            break
+    if exhausted:
+        warnings.warn(
+            f"transition budget exhausted after {max_fills} stream fills; "
+            "results contain fewer events than requested."
+        )
+    sampler.state = state
+    skel = acc._replace(
+        n_valid=(1 + torch.clamp_max(counts, target)).to(torch.int32))
+    return _squeeze_skeleton(skel) if squeeze else skel
+
+
+# ---------------------------------------------------------------------------
+# Skeleton -> samples
+# ---------------------------------------------------------------------------
+
+def _interp_times(sampler, skel: Skeleton, tm, discard_vt: bool):
+    """Positions (and optionally velocities and times) along a single-chain
+    skeleton at output times ``tm`` (``sample.jl:475-513``)."""
+    t = skel.t
+    idx = torch.clamp(torch.searchsorted(t, tm, right=True) - 1, 0, t.shape[0] - 1)
+    act = skel.is_active[idx]
+    v_used = torch.where(act, skel.v[idx], torch.zeros_like(skel.v[idx]))
+    xs, vs = sampler.flow(skel.x[idx], v_used, (tm - t[idx])[:, None])
+    if discard_vt:
+        return xs
+    return torch.cat([xs, vs, tm[:, None]], dim=1)
+
+
+def sample_from_skeleton(sampler, n_or_dt, skeleton: Skeleton, *, dt=None,
+                         discard_vt: bool = True):
+    """Equal-time samples from a single-chain skeleton.
+
+    * ``n_or_dt = N`` (int): ``N`` samples at ``dt = t_end / N``;
+    * ``n_or_dt = dt`` (float): samples every ``dt`` up to ``t_end``;
+    * ``n_or_dt = N`` with ``dt=``: the first ``N`` skeleton points, step ``dt``.
+
+    Returns ``(N, d)`` positions, or ``(N, 2d + 1)`` with velocities and
+    times when ``discard_vt=False``.
+    """
+    if skeleton.t.dim() > 1:
+        raise ValueError(
+            "sample_from_skeleton expects a single-chain skeleton; "
+            "use parallel.sample_from_skeleton_batch for chain batches"
+        )
+    t = skeleton.t
+    if isinstance(n_or_dt, (int, np.integer)) and dt is not None:
+        N = int(n_or_dt)
+        sub = Skeleton(*(a[:N] if a.dim() >= 1 else a for a in skeleton))
+        t_end = float(sub.t[-1])
+        n_out = int(math.floor(t_end / float(dt)))
+        tm = torch.arange(1, n_out + 1, dtype=t.dtype, device=t.device) * float(dt)
+        return _interp_times(sampler, sub, tm, discard_vt)
+    if isinstance(n_or_dt, (int, np.integer)):
+        N = int(n_or_dt)
+        if N <= 0:
+            raise ValueError(f"N must be positive. Current value: {N}")
+        step = float(t[-1]) / N
+        tm = torch.arange(1, N + 1, dtype=t.dtype, device=t.device) * step
+        return _interp_times(sampler, skeleton, tm, discard_vt)
+    step = float(n_or_dt)
+    if step <= 0:
+        raise ValueError(f"dt must be positive. Current value: {step}")
+    n_out = int(math.floor(float(t[-1]) / step))
+    tm = torch.arange(1, n_out + 1, dtype=t.dtype, device=t.device) * step
+    return _interp_times(sampler, skeleton, tm, discard_vt)
+
+
+def sample(sampler, N_sk: int, N_samples: int, xinit, vinit, *, seed=None,
+           verbose: bool = False, discard_vt: bool = True, dtype=None,
+           device="cuda"):
+    """``sample_skeleton`` then ``sample_from_skeleton`` (``sample.jl:27-41``);
+    ``(B, d)`` initial conditions return ``(B, N_samples, d)``."""
+    skel = sample_skeleton(sampler, int(N_sk), xinit, vinit, seed=seed,
+                           verbose=verbose, dtype=dtype, device=device)
+    if skel.t.dim() == 2:
+        from .parallel.sharded import sample_from_skeleton_batch
+
+        return sample_from_skeleton_batch(sampler, int(N_samples), skel,
+                                          discard_vt=discard_vt)
+    return sample_from_skeleton(sampler, int(N_samples), skel,
+                                discard_vt=discard_vt)

@@ -1,0 +1,47 @@
+"""Zig-Zag sampler (``pdmpflux_tpu/models/zigzag.py``).
+
+Linear flow, per-coordinate rates ``max(0, dU_i(x_t) v_i)``.  The velocity
+jump (one coordinate flip drawn proportionally to the rates) runs inside the
+fused chunk kernel, ``ops/cuda/zigzag_chunk.py``; the stand-alone
+``velocity_jump`` of the XLA transition engine is not ported yet.
+"""
+
+from __future__ import annotations
+
+from ..ops.flows import linear_flow
+from ..utils.potentials import device_potential_of
+from .base import PDMP, resolve_potential
+
+
+class ZigZag(PDMP):
+    """Zig-Zag sampler, defaults as in ``ZigZagSamplers.jl:58-60``.
+
+    ``device_potential`` names the potential the CUDA kernel evaluates for
+    this sampler (from the tag on ``grad_U`` or ``potential``), or is None
+    when only the plain PyTorch version can run it."""
+
+    def _zigzag_family(self):
+        return True
+
+    def __init__(self, dim, grad_U, *, grid_size=10, tmax=2.0,
+                 refresh_rate=0.0, vectorized_bound=True, signed_bound=True,
+                 adaptive=True, **kw):
+        super().__init__(
+            dim, grad_U, grid_size=grid_size, tmax=tmax,
+            refresh_rate=refresh_rate, vectorized_bound=vectorized_bound,
+            signed_bound=signed_bound, adaptive=adaptive, **kw,
+        )
+        self.device_potential = device_potential_of(grad_U, self.potential)
+
+    def flow(self, x, v, t):
+        return linear_flow(x, v, t)
+
+
+def ZigZagAD(dim, U, **kw):
+    """``ZigZagAD``: build ``grad_U`` from the potential with
+    ``torch.func.grad``."""
+    U_vec, grad_U = resolve_potential(U, dim)
+    sampler = ZigZag(dim, grad_U, potential=U_vec, **kw)
+    if sampler.device_potential is None:
+        sampler.device_potential = device_potential_of(U)
+    return sampler

@@ -1,0 +1,184 @@
+"""K2: event-row compaction of a raw stream fill.
+
+One function takes the place of the JAX package's
+``engine.compact_stream_rows`` / ``compact_stream_rows_with_init`` (XLA
+log-shift at ``d < 128``, Pallas ``compact.compact_field`` at ``d >= 128``)
+and ``engine.merge_stream_at_offsets``: for each chain, the rows whose kind is
+``> 0`` go, in time order, to output columns ``off[b] + j``; columns past the
+chain's events are zeroed, columns below ``off[b]`` are left as they are, and
+an optional init record goes to column 0.
+
+* ``off = 0`` (``None``), no init: ``compact_stream_rows``;
+* ``off = 1`` with the init record: ``compact_stream_rows_with_init``;
+* ``off = 1 + prev_counts`` into the accumulator: ``merge_stream_at_offsets``.
+
+Sources are read in the fill's chain-minor ``(T, F, B)`` layout (any row and
+field stride, chains contiguous); outputs are ``(B, W, F)``.
+:func:`compact_rows` runs the CUDA kernel (``csrc/compact.cu``) for CUDA
+tensors and the plain version, :func:`compact_rows_plain`, for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional, Sequence
+
+import torch
+
+from ...core.types import Event, Skeleton
+from . import build
+from .zigzag_chunk import RawFill
+
+
+class FieldSpec(NamedTuple):
+    """One field to compact: ``src`` ``(T, F, B)`` or None (rows of ones),
+    ``out`` ``(B, W, F)``, ``init`` ``(B, F)`` or None."""
+
+    src: Optional[torch.Tensor]
+    out: torch.Tensor
+    init: Optional[torch.Tensor] = None
+
+
+def compact_rows_plain(kind: torch.Tensor, fields: Sequence[FieldSpec],
+                       off: Optional[torch.Tensor]) -> None:
+    """Plain PyTorch version of K2 (``kind`` is ``(T, B)``)."""
+    T, B = kind.shape
+    W = fields[0].out.shape[1]
+    dev = kind.device
+    keep = (kind > 0).T                                    # (B, T)
+    pos = torch.cumsum(keep.to(torch.int64), dim=1) - 1
+    o = (torch.zeros(B, dtype=torch.int64, device=dev) if off is None
+         else off.to(torch.int64))
+    dest = o[:, None] + pos
+    bi, ti = torch.nonzero(keep & (dest < W), as_tuple=True)
+    ci = dest[bi, ti]
+    col = torch.arange(W, device=dev)[None, :]
+    tail = col >= (o + keep.sum(dim=1))[:, None]           # (B, W)
+    for spec in fields:
+        out = spec.out
+        out[tail] = 0
+        if spec.src is None:
+            out[bi, ci] = 1
+        else:
+            out[bi, ci] = spec.src.permute(2, 0, 1)[bi, ti].to(out.dtype)
+        if spec.init is not None and W > 0:
+            out[:, 0] = spec.init
+
+
+def _check_cuda(kind, fields, off):
+    T, B = kind.shape
+    if kind.dtype != torch.int32 or kind.stride(1) != 1:
+        raise ValueError("kind must be int32 with chains contiguous")
+    if off is not None and (off.dtype != torch.int32 or tuple(off.shape) != (B,)
+                            or not off.is_contiguous()):
+        raise ValueError(f"off must be a contiguous int32 ({B},) tensor")
+    if not 1 <= len(fields) <= 12:
+        raise ValueError("compact_rows takes 1 to 12 fields")
+    W = fields[0].out.shape[1]
+    for spec in fields:
+        out = spec.out
+        F = out.shape[2]
+        if (out.shape[0] != B or out.shape[1] != W or not out.is_contiguous()
+                or out.element_size() not in (1, 4, 8)):
+            raise ValueError(f"out must be a contiguous ({B}, {W}, F) tensor "
+                             "of 1-, 4- or 8-byte elements")
+        if spec.src is not None:
+            s = spec.src
+            if (s.dtype != out.dtype or tuple(s.shape) != (T, F, B)
+                    or s.stride(2) != 1):
+                raise ValueError(f"src must be {out.dtype} ({T}, {F}, {B}) with "
+                                 f"chains contiguous, got {s.dtype} {tuple(s.shape)}")
+        if spec.init is not None and (spec.init.dtype != out.dtype
+                                      or tuple(spec.init.shape) != (B, F)
+                                      or not spec.init.is_contiguous()):
+            raise ValueError(f"init must be a contiguous {out.dtype} ({B}, {F})")
+        for a in (spec.src, spec.init, out):
+            if a is not None and a.device != kind.device:
+                raise ValueError(f"every tensor must lie on {kind.device}")
+
+
+def compact_rows(kind: torch.Tensor, fields: Sequence[FieldSpec],
+                 off: Optional[torch.Tensor] = None) -> None:
+    """Compact every field in place into its ``out`` (see the module
+    docstring); one kernel launch covers all fields."""
+    if not kind.is_cuda:
+        return compact_rows_plain(kind, fields, off)
+    _check_cuda(kind, fields, off)
+    lib = build.library()
+    T, B = kind.shape
+    n = len(fields)
+    ptrs = ctypes.c_void_p * n
+    srcs = ptrs(*[s.src.data_ptr() if s.src is not None else None for s in fields])
+    inits = ptrs(*[s.init.data_ptr() if s.init is not None else None for s in fields])
+    outs = ptrs(*[s.out.data_ptr() for s in fields])
+    longs = ctypes.c_long * n
+    row_strides = longs(*[s.src.stride(0) if s.src is not None else 0 for s in fields])
+    field_strides = longs(*[s.src.stride(1) if s.src is not None else 0 for s in fields])
+    ints = ctypes.c_int * n
+    widths = ints(*[s.out.shape[2] for s in fields])
+    elems = ints(*[s.out.element_size() for s in fields])
+    err = lib.compact_rows_launch(
+        ctypes.c_void_p(kind.data_ptr()), ctypes.c_long(kind.stride(0)),
+        ctypes.c_int(T), ctypes.c_int(B),
+        ctypes.c_void_p(off.data_ptr() if off is not None else None),
+        ctypes.c_int(fields[0].out.shape[1]), ctypes.c_int(n),
+        srcs, row_strides, field_strides, widths, elems, inits, outs,
+        ctypes.c_void_p(torch.cuda.current_stream(kind.device).cuda_stream),
+    )
+    build.check(err, "compact_rows")
+    build.LAUNCHES["compact_rows"] += 1
+
+
+def _fill_sources(fill: RawFill):
+    """Skeleton field -> ``(T, F, B)`` source view of a raw fill (None: the
+    all-true activity rows of a non-sticky fill)."""
+    return {
+        "x": fill.x, "v": fill.v,
+        "t": fill.fs[:, 0:1], "horizon": fill.fs[:, 1:2], "ar": fill.fs[:, 2:3],
+        "is_active": None,
+        "rejected": fill.kind[:, 1:2], "errored_bound": fill.kind[:, 2:3],
+        "hitting_horizon": fill.kind[:, 3:4],
+        "error_value_ar": fill.ring, "kind": fill.kind[:, 0:1],
+    }
+
+
+def empty_rows(B: int, W: int, d: int, dtype, device) -> Skeleton:
+    """Uninitialized ``(B, W, ...)`` skeleton buffers (K2 writes every
+    column of a compaction with ``off`` 0, or 1 plus an init record)."""
+    def f(*s):
+        return torch.empty((B, W) + s, dtype=dtype, device=device)
+
+    def i():
+        return torch.empty((B, W), dtype=torch.int32, device=device)
+
+    return Skeleton(
+        x=f(d), v=f(d), t=f(), horizon=f(), ar=f(),
+        is_active=torch.empty((B, W, d), dtype=torch.bool, device=device),
+        rejected=i(), errored_bound=i(), hitting_horizon=i(),
+        error_value_ar=f(5), kind=i(),
+        n_valid=torch.zeros((B,), dtype=torch.int32, device=device),
+    )
+
+
+def fill_specs(fill: RawFill, out: Skeleton, init: Optional[Event] = None):
+    """``(kind, specs)``: K2's arguments for every ``Skeleton`` field of a
+    raw fill compacted into ``out``."""
+    B = fill.kind.shape[2]
+    specs = []
+    for name, src in _fill_sources(fill).items():
+        o = getattr(out, name)
+        o3 = o if o.dim() == 3 else o.unsqueeze(-1)
+        ini = None
+        if init is not None:
+            ini = getattr(init, name).reshape(B, o3.shape[2]).to(o.dtype).contiguous()
+        specs.append(FieldSpec(src, o3, ini))
+    return fill.kind[:, 0], specs
+
+
+def compact_fill(fill: RawFill, out: Skeleton, off: Optional[torch.Tensor] = None,
+                 init: Optional[Event] = None) -> Skeleton:
+    """K2 over every ``Skeleton`` field of a raw fill, into ``out`` in place
+    (``out.n_valid`` is left to the caller)."""
+    kind, specs = fill_specs(fill, out, init)
+    compact_rows(kind, specs, off)
+    return out

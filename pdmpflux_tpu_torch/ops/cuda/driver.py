@@ -1,0 +1,121 @@
+"""Stream-fill driver around K1 (``pdmpflux_tpu/ops/pallas/driver.py``).
+
+:func:`make_stream_runner` is the port of ``make_pallas_stream_runner`` for
+the non-sticky Zig-Zag in event-count mode: a host loop over chunks, one K1
+launch per chunk, each writing its ``K`` transition rows straight into the
+raw fill at the chunk's row offset, until every chain has its target count
+or the fill is full.  The loop reads the per-chain counts back once per
+chunk, exactly where the JAX ``while_loop`` tests ``any(count < target)``,
+so the number of chunks (and with it the ``fold_in`` key advance) equals
+the JAX driver's.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ...core import rng
+from ...core.types import PDMPState
+from . import zigzag_chunk as zc
+
+PALLAS_CONST_GRID = 9
+"""Grid points the kernel substitutes for a ``grid_size == 0`` request (the
+JAX package's constant, ``driver.py:24``)."""
+
+
+def kernel_kind(sampler):
+    """``"zigzag"`` for a non-sticky Zig-Zag with vectorized bounds, the only
+    family K1 covers so far; None otherwise."""
+    from ...models.zigzag import ZigZag
+
+    if (type(sampler) is ZigZag and sampler.vectorized_bound
+            and not getattr(sampler, "sticky", False)):
+        return "zigzag"
+    return None
+
+
+class StreamResult(NamedTuple):
+    state: PDMPState       # batched final state
+    fill: zc.RawFill       # the rows written, (rows, ..., B) chains minor
+    counts: torch.Tensor   # (B,) int32 events recorded per chain
+    transitions: int       # transitions executed (rows written)
+
+
+def chunk_config(sampler, K: int, cap: int, tile: int) -> zc.ChunkConfig:
+    if kernel_kind(sampler) is None:
+        raise ValueError(
+            f"the fused chunk kernel covers ZigZag with vectorized_bound=True "
+            f"(non-sticky); got {type(sampler).__name__} with "
+            f"vectorized_bound={getattr(sampler, 'vectorized_bound', None)}"
+        )
+    n_grid = sampler.grid_size if sampler.grid_size >= 2 else PALLAS_CONST_GRID
+    potential = getattr(sampler, "device_potential", None)
+    grad, grad_jvp = zc.lane_gradients(sampler.grad_U, potential)
+    return zc.ChunkConfig(
+        n_grid=n_grid, K=K, adaptive=bool(sampler.adaptive),
+        signed=bool(sampler.signed_bound),
+        refresh_rate=float(sampler.refresh_rate), cap=int(cap), tile=int(tile),
+        grad=grad, grad_jvp=grad_jvp, device_potential=potential,
+    )
+
+
+def chunk_state(state: PDMPState, counts: torch.Tensor) -> zc.ChunkState:
+    """A batched ``PDMPState`` in K1's layout (fresh tensors)."""
+    dt = state.x.dtype
+    return zc.ChunkState(
+        x=state.x.T.contiguous(), v=state.v.T.contiguous(),
+        fs=torch.stack([state.t, state.t_comp, state.ts, state.horizon,
+                        state.bound_h, state.exp_rv, state.ar,
+                        state.tt]).to(dt),
+        iscal=torch.stack([state.mode, state.rejected, state.errored_bound,
+                           state.hitting_horizon, counts]).to(torch.int32),
+        ring=state.error_value_ar.T.to(dt).contiguous(),
+    )
+
+
+def key_seed(keys: torch.Tensor) -> int:
+    """The fill's base seed: the uint32 sum of every chain's key words,
+    read as an int32 (``driver.py:535-538``)."""
+    return rng.wrap_int32(int(torch.sum(keys).item()))
+
+
+def make_stream_runner(sampler, t_cap: int, n_events_target: int,
+                       chunk: int = 32, tile: int = 128):
+    """``run(state, counts) -> StreamResult``: one stream fill of at most
+    ``t_cap`` rows.  ``tile`` is the RNG lane tile (the Pallas launch's lane
+    tile), which fixes the random stream, not how the kernel is launched;
+    ``B`` need not be a multiple of it."""
+    if t_cap % chunk:
+        raise ValueError(f"t_cap={t_cap} must be a multiple of chunk={chunk}")
+    cfg = chunk_config(sampler, chunk, n_events_target, tile)
+    n_chunks = t_cap // chunk
+
+    def run(state: PDMPState, counts: torch.Tensor) -> StreamResult:
+        B, d = state.x.shape
+        st = chunk_state(state, counts)
+        fill = zc.empty_fill(t_cap, d, B, state.x.dtype, state.x.device)
+        seed0 = key_seed(state.key)
+        it = 0
+        while it < n_chunks and bool(
+                (st.iscal[zc.I_CNT] < n_events_target).any()):
+            zc.run_chunk(rng.wrap_int32(seed0 + it * 1000003), st, fill,
+                         it * chunk, cfg)
+            it += 1
+        fs = st.fs
+        new_state = state._replace(
+            x=st.x.T, v=st.v.T, t=fs[zc.F_T], t_comp=fs[zc.F_TC],
+            ts=fs[zc.F_TS], horizon=fs[zc.F_H], bound_h=fs[zc.F_BH],
+            exp_rv=fs[zc.F_EXP], ar=fs[zc.F_AR], tt=fs[zc.F_TT],
+            mode=st.iscal[zc.I_MODE], rejected=st.iscal[zc.I_REJ],
+            errored_bound=st.iscal[zc.I_ERR],
+            hitting_horizon=st.iscal[zc.I_HIT],
+            error_value_ar=st.ring.T,
+            key=rng.fold_in(state.key, it),
+        )
+        rows = it * chunk
+        return StreamResult(new_state, fill.head(rows), st.iscal[zc.I_CNT],
+                            rows)
+
+    return run

@@ -1,0 +1,369 @@
+"""K1: a chunk of ``K`` fused Zig-Zag transitions per chain.
+
+Replaces ``pdmpflux_tpu/ops/pallas/zigzag_chunk.py:run_chunk`` with
+``kind="zigzag"``, ``sticky=False`` and ``mode="events"``.  Each of the ``K``
+transitions builds the grid envelope with time tangents, inverts the
+Poisson clock, runs the thinning test, flows, flips one coordinate, commits
+the Kahan clock, adapts the horizon and emits one event row.
+
+Two versions of the same function live here:
+
+* :func:`run_chunk_plain`, plain PyTorch on ``(d, B)`` chain-minor tensors,
+  operation for operation the Pallas body (``_make_kernel``).  It draws the
+  same Threefry counters, so on the same state it reproduces the Pallas
+  kernel trajectory by trajectory.
+* the CUDA kernel in ``csrc/zigzag_chunk.cu``, one thread per chain.
+
+:func:`run_chunk` takes the plain version for CPU tensors only; for CUDA
+tensors it launches the kernel or raises.
+
+Layouts (kernel layout, chains on the minor axis): state ``x``/``v``
+``(d, B)``, ``fs`` ``(8, B)`` float rows ``[t, t_comp, ts, horizon,
+bound_h, exp_rv, ar, tt]``, ``iscal`` ``(5, B)`` int32 rows ``[mode,
+rejected, errored, hitting, count]``, ``ring`` ``(5, B)``.  A
+:class:`RawFill` holds ``T`` event rows: ``kind`` ``(T, 4, B)`` int32
+``[kind, rejected, errored, hitting]``, ``x``/``v`` ``(T, d, B)``, ``fs``
+``(T, 3, B)`` ``[t + ts, horizon, ar]`` and ``ring`` ``(T, 5, B)``.  A
+chunk writes rows ``row0 .. row0 + K - 1``; state tensors update in place.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from ...core import rng
+from ...core.types import (
+    ERROR_RING_SIZE,
+    EV_JUMP,
+    MODE_ERRONEOUS,
+    MODE_FRESH,
+    MODE_REJECTED,
+)
+from ...utils.potentials import DEVICE_POTENTIALS, LANE_POTENTIALS
+from . import build
+
+F_T, F_TC, F_TS, F_H, F_BH, F_EXP, F_AR, F_TT = range(8)
+NF = 8
+I_MODE, I_REJ, I_ERR, I_HIT, I_CNT = range(5)
+NI = 5
+
+HORIZON_GROW = 1.01
+HORIZON_SHRINK = 1.04
+MAX_GRID = 64
+"""Most envelope grid points the CUDA kernel keeps per chain."""
+
+
+class ChunkState(NamedTuple):
+    """Per-chain state in kernel layout (see the module docstring)."""
+
+    x: torch.Tensor
+    v: torch.Tensor
+    fs: torch.Tensor
+    iscal: torch.Tensor
+    ring: torch.Tensor
+
+
+class RawFill(NamedTuple):
+    """``T`` raw transition rows of a stream fill, chains minor."""
+
+    kind: torch.Tensor
+    x: torch.Tensor
+    v: torch.Tensor
+    fs: torch.Tensor
+    ring: torch.Tensor
+
+    @property
+    def rows(self) -> int:
+        return self.kind.shape[0]
+
+    def head(self, rows: int) -> "RawFill":
+        return RawFill(*(a[:rows] for a in self))
+
+
+def empty_fill(T: int, d: int, B: int, dtype, device) -> RawFill:
+    """Uninitialized fill buffers: every row a chunk covers is written."""
+    def f(*s):
+        return torch.empty(s, dtype=dtype, device=device)
+
+    return RawFill(
+        kind=torch.empty((T, 4, B), dtype=torch.int32, device=device),
+        x=f(T, d, B), v=f(T, d, B), fs=f(T, 3, B),
+        ring=f(T, ERROR_RING_SIZE, B),
+    )
+
+
+class ChunkConfig(NamedTuple):
+    """Static parameters of K1 (the Pallas kernel's static arguments)."""
+
+    n_grid: int
+    K: int
+    adaptive: bool
+    signed: bool
+    refresh_rate: float
+    cap: int
+    tile: int
+    grad: Callable                      # (d, B) -> (d, B) gradient
+    grad_jvp: Callable                  # (x, v) -> (grad(x), H(x) v)
+    device_potential: Optional[str]     # potential tag the CUDA kernel takes
+
+
+def lane_gradients(grad_U: Callable, device_potential: Optional[str]):
+    """Chain-minor ``(grad, grad_jvp)`` for K1's plain version: the device
+    potential's own formulas when tagged, else ``torch.func`` on the
+    per-chain ``grad_U``."""
+    if device_potential in LANE_POTENTIALS:
+        return LANE_POTENTIALS[device_potential]
+    grad = torch.func.vmap(grad_U, in_dims=1, out_dims=1)
+    return grad, lambda x, v: torch.func.jvp(grad, (x,), (v,))
+
+
+def _grid_rates(grad_jvp, x, v, step, n_grid, signed):
+    """Per-coordinate rates ``grad(x + v t_j) * v`` at the grid times
+    ``t_j = step * j`` and their time derivatives, ``(n_grid, d, B)`` each,
+    from one gradient call over all grid points.  Unsigned rates take the
+    derivative of ``max(r, 0)`` as JAX's JVP does (half the tangent at
+    ``r == 0``)."""
+    d, B = x.shape
+    js = torch.arange(n_grid, dtype=x.dtype, device=x.device)[:, None, None]
+    xt = x[None] + v[None] * (step[None, None, :] * js)      # (n_grid, d, B)
+    vv = v[None].expand_as(xt)
+    lanes = lambda a: a.permute(1, 0, 2).reshape(d, n_grid * B)  # noqa: E731
+    g, dg = grad_jvp(lanes(xt), lanes(vv))
+    g = g.reshape(d, n_grid, B).permute(1, 0, 2)
+    dg = dg.reshape(d, n_grid, B).permute(1, 0, 2)
+    r = g * v[None]
+    dr = dg * v[None]
+    if signed:
+        return r, dr
+    one, half, zero = (torch.ones_like(r), torch.full_like(r, 0.5),
+                       torch.zeros_like(r))
+    coef = torch.where(r > 0, one, torch.where(r == 0, half, zero))
+    return torch.maximum(r, zero), dr * coef
+
+
+def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
+                    cfg: ChunkConfig) -> None:
+    """Plain PyTorch version of K1; runs on any device."""
+    x, v, fs, iscal, ring = st
+    d, B = x.shape
+    dt = x.dtype
+    n_grid, G = cfg.n_grid, cfg.n_grid - 1
+    grad = cfg.grad
+    seeds = rng.lane_seeds(seed, B, cfg.tile, x.device)
+    iota_d = torch.arange(d, device=x.device)[:, None]
+    zero = torch.zeros((B,), dtype=dt, device=x.device)
+    izero = torch.zeros((B,), dtype=torch.int32, device=x.device)
+
+    for k in range(cfg.K):
+        t_s, tc_s, ts_s, h_s, bh_s, exp_s, ar_s = (fs[i].clone() for i in range(7))
+        mode_s, rej, err, hit, cnt = (iscal[i].clone() for i in range(NI))
+        ring0 = ring.clone()
+        live = cnt < cfg.cap
+
+        # ---- envelope on [0, bh]: tangent-intersection segment maxima ----
+        step = bh_s / G
+        f_all, g_all = _grid_rates(cfg.grad_jvp, x, v, step, n_grid, cfg.signed)
+        box = []
+        f_prev = g_prev = None
+        for j in range(n_grid):
+            f_j, g_j = f_all[j], g_all[j]
+            if j > 0:
+                den = g_j - g_prev
+                num = f_prev - f_j + g_j * step
+                ip = torch.where(den == 0, torch.zeros_like(num),
+                                 num / torch.where(den == 0,
+                                                   torch.ones_like(den), den))
+                ip = torch.where(torch.isnan(ip), torch.zeros_like(ip), ip)
+                ip = torch.minimum(torch.maximum(ip, torch.zeros_like(ip)),
+                                   step.expand_as(ip))
+                inter = f_prev + g_prev * ip
+                seg = torch.maximum(torch.maximum(f_prev, f_j),
+                                    torch.maximum(inter, torch.zeros_like(inter)))
+                box.append(torch.sum(seg, dim=0) + cfg.refresh_rate)
+            f_prev, g_prev = f_j, g_j
+        cum = [zero]
+        for j in range(G):
+            cum.append(cum[-1] + box[j] * step)
+
+        # ---- invert the envelope at the Exp clock ----
+        idx = sum((c < exp_s).to(torch.int32) for c in cum)
+        overflow = idx >= n_grid
+        tp = torch.full((B,), float("inf"), dtype=dt, device=x.device)
+        lam_bar = box[G - 1]
+        for j in range(1, n_grid):
+            sel = idx == j
+            lo, hi = cum[j - 1], cum[j]
+            denom = torch.where(hi == lo, torch.ones_like(hi), hi - lo)
+            tpj = step * (j - 1) + (exp_s - lo) / denom * step
+            tp = torch.where(sel, tpj, tp)
+            lam_bar = torch.where(sel, box[j - 1], lam_bar)
+
+        fresh = mode_s == MODE_FRESH
+        erroneous = mode_s == MODE_ERRONEOUS
+        tp_safe = torch.where(overflow, zero, tp)
+
+        # ---- thinning at tp on the unsigned rate ----
+        lam_t = torch.sum(torch.clamp_min(grad(x + v * tp_safe) * v, 0.0), dim=0)
+        ar_new = lam_t / lam_bar
+
+        beyond = tp > h_s
+        p_moveh = beyond & ~erroneous
+        p_erreset = beyond & erroneous
+        p_ac = ~beyond
+        p_err = p_ac & (ar_new > 1.0)
+        p_proxy = p_ac & ~p_err
+        u_acc = rng.uniform(seeds, k, 1, cfg.tile, dt)
+        u_flip = rng.uniform(seeds, k, 2, cfg.tile, dt)
+        acc = u_acc < ar_new
+        p_acc = p_proxy & acc
+        p_rej = p_proxy & ~acc
+
+        # ---- flow, then the inverse-CDF coordinate flip ----
+        flow_t = torch.where(p_moveh, h_s, torch.where(p_acc, tp_safe, zero))
+        x_new = x + v * flow_t
+        rates_flip = torch.clamp_min(grad(x_new) * v, 0.0)
+        c = torch.cumsum(rates_flip, dim=0)
+        m = torch.sum((c <= (u_flip * c[d - 1])[None, :]).to(torch.int32), dim=0)
+        m = torch.clamp_max(m, d - 1)
+        v_new = torch.where((iota_d == m[None, :]) & p_acc[None, :], -v, v)
+
+        # ---- Kahan time commit, horizon adaptation ----
+        inc = tp_safe + ts_s
+        y = inc - tc_s
+        s_sum = t_s + y
+        tc_k = (s_sum - t_s) - y
+        is_event = p_acc
+        t_new = torch.where(is_event, s_sum, t_s)
+        tc_new = torch.where(is_event, tc_k, tc_s)
+        ts_new = torch.where(is_event, zero,
+                             torch.where(p_moveh, ts_s + h_s, ts_s))
+        h_new = h_s
+        if cfg.adaptive:
+            h_new = torch.where(p_moveh & fresh, h_new * HORIZON_GROW, h_new)
+            h_new = torch.where(p_err, h_new * 0.5, h_new)
+            h_new = torch.where(p_rej, h_new / HORIZON_SHRINK, h_new)
+
+        # ---- counters, error ring, proposal bookkeeping ----
+        hit_new = hit + p_moveh.to(torch.int32)
+        rej_new = rej + p_rej.to(torch.int32)
+        err_new = err + p_err.to(torch.int32)
+        ring_idx = torch.remainder(err_new, ERROR_RING_SIZE)
+        slot = torch.arange(ERROR_RING_SIZE, device=x.device)[:, None]
+        ring_new = torch.where(p_err[None, :] & (ring_idx[None, :] == slot),
+                               ar_new[None, :], ring0)
+        reset = p_moveh | p_erreset | p_acc
+        e_draw = rng.exponential(seeds, 0x80000000 + k, cfg.tile, dt)
+        exp_new = torch.where(reset | p_err, e_draw,
+                              torch.where(p_rej, exp_s + e_draw, exp_s))
+        mode_new = torch.where(
+            reset, MODE_FRESH,
+            torch.where(p_err, MODE_ERRONEOUS,
+                        torch.where(p_rej, MODE_REJECTED, mode_s))).to(torch.int32)
+        bh_new = torch.where(reset, h_new, torch.where(p_err, h_s * 0.5, bh_s))
+        ar_state = torch.where(p_ac, ar_new, ar_s)
+
+        # ---- freeze finished chains ----
+        def keep(new, old):
+            return torch.where(live, new, old)
+
+        lv = live[None, :]
+        x_new = torch.where(lv, x_new, x)
+        v_new = torch.where(lv, v_new, v)
+        ring_new = torch.where(lv, ring_new, ring0)
+        t_new, tc_new, ts_new = keep(t_new, t_s), keep(tc_new, tc_s), keep(ts_new, ts_s)
+        h_new, bh_new = keep(h_new, h_s), keep(bh_new, bh_s)
+        exp_new, ar_state = keep(exp_new, exp_s), keep(ar_state, ar_s)
+        mode_new = keep(mode_new, mode_s)
+        rej_new, err_new, hit_new = keep(rej_new, rej), keep(err_new, err), keep(hit_new, hit)
+        is_event = is_event & live
+        kval = is_event.to(torch.int32) * EV_JUMP
+        cnt_new = cnt + (kval > 0).to(torch.int32)
+
+        # ---- emit the event row ----
+        r = row0 + k
+        fill.kind[r] = torch.stack([kval, rej_new, err_new, hit_new])
+        fill.x[r] = x_new
+        fill.v[r] = v_new
+        fill.fs[r] = torch.stack([t_new + ts_new, h_new, ar_state])
+        fill.ring[r] = ring_new
+
+        # counters reset after a recorded event
+        rej_new = torch.where(is_event, izero, rej_new)
+        err_new = torch.where(is_event, izero, err_new)
+        hit_new = torch.where(is_event, izero, hit_new)
+        ring_new = torch.where(is_event[None, :], torch.zeros_like(ring_new),
+                               ring_new)
+
+        x.copy_(x_new)
+        v.copy_(v_new)
+        fs[:7] = torch.stack([t_new, tc_new, ts_new, h_new, bh_new, exp_new,
+                              ar_state])
+        iscal.copy_(torch.stack([mode_new, rej_new, err_new, hit_new, cnt_new]))
+        ring.copy_(ring_new)
+
+
+def _check_cuda(st: ChunkState, fill: RawFill, row0: int, cfg: ChunkConfig):
+    if cfg.device_potential not in DEVICE_POTENTIALS:
+        raise ValueError(
+            "the CUDA Zig-Zag kernel covers the device potentials "
+            f"{sorted(DEVICE_POTENTIALS)} (utils.potentials: gauss, grad_gauss, "
+            "banana, grad_banana); this sampler's gradient has none — run it "
+            "with device='cpu'"
+        )
+    if not 2 <= cfg.n_grid <= MAX_GRID:
+        raise ValueError(f"n_grid={cfg.n_grid} outside the kernel's [2, {MAX_GRID}]")
+    dtype = st.x.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the CUDA Zig-Zag kernel takes float32/float64, not {dtype}")
+    d, B = st.x.shape
+    want = {
+        "x": (st.x, (d, B), dtype), "v": (st.v, (d, B), dtype),
+        "fs": (st.fs, (NF, B), dtype), "iscal": (st.iscal, (NI, B), torch.int32),
+        "ring": (st.ring, (ERROR_RING_SIZE, B), dtype),
+        "ev_kind": (fill.kind, (fill.rows, 4, B), torch.int32),
+        "ev_x": (fill.x, (fill.rows, d, B), dtype),
+        "ev_v": (fill.v, (fill.rows, d, B), dtype),
+        "ev_fs": (fill.fs, (fill.rows, 3, B), dtype),
+        "ev_ring": (fill.ring, (fill.rows, ERROR_RING_SIZE, B), dtype),
+    }
+    for name, (a, shape, dt) in want.items():
+        if not a.is_cuda or a.device != st.x.device:
+            raise ValueError(f"{name} must lie on {st.x.device}")
+        if tuple(a.shape) != shape or a.dtype != dt or not a.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous {dt} {shape}, got "
+                             f"{a.dtype} {tuple(a.shape)}")
+    if row0 < 0 or row0 + cfg.K > fill.rows:
+        raise ValueError(f"rows {row0}..{row0 + cfg.K} outside the fill's {fill.rows}")
+
+
+def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
+              cfg: ChunkConfig) -> None:
+    """Run ``cfg.K`` transitions: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if not st.x.is_cuda:
+        return run_chunk_plain(seed, st, fill, row0, cfg)
+    _check_cuda(st, fill, row0, cfg)
+    lib = build.library()
+    d, B = st.x.shape
+    p = ctypes.c_void_p
+    r = row0
+    err = lib.zigzag_chunk_launch(
+        ctypes.c_int(1 if st.x.dtype == torch.float64 else 0),
+        ctypes.c_int(DEVICE_POTENTIALS[cfg.device_potential]),
+        ctypes.c_int(d), ctypes.c_int(B), ctypes.c_int(cfg.K),
+        ctypes.c_int(cfg.n_grid), ctypes.c_int(int(cfg.adaptive)),
+        ctypes.c_int(int(cfg.signed)), ctypes.c_double(cfg.refresh_rate),
+        ctypes.c_int(cfg.cap), ctypes.c_int(cfg.tile),
+        ctypes.c_int(rng.wrap_int32(seed)),
+        p(st.x.data_ptr()), p(st.v.data_ptr()), p(st.fs.data_ptr()),
+        p(st.iscal.data_ptr()), p(st.ring.data_ptr()),
+        p(fill.kind[r].data_ptr()), p(fill.x[r].data_ptr()),
+        p(fill.v[r].data_ptr()), p(fill.fs[r].data_ptr()),
+        p(fill.ring[r].data_ptr()),
+        p(torch.cuda.current_stream(st.x.device).cuda_stream),
+    )
+    build.check(err, "zigzag_chunk")
+    build.LAUNCHES["zigzag_chunk"] += 1

@@ -1,0 +1,89 @@
+"""Test potentials (``pdmpflux_tpu/utils/potentials.py``) as torch functions.
+
+Each function below also carries a ``device_potential`` tag naming the
+potential that ``csrc/zigzag_chunk.cu`` implements on the card: the gradient
+and the time derivative of the per-coordinate rate along the linear flow.
+A sampler built from a tagged potential or gradient can run the fused CUDA
+kernel; any other gradient runs only the plain PyTorch version on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+DEVICE_POTENTIALS = {"gauss": 0, "banana": 1}
+"""Tag -> potential id of the CUDA kernel (``Potential`` in the source)."""
+
+
+def _tag(name):
+    def deco(fn):
+        fn.device_potential = name
+        return fn
+    return deco
+
+
+@_tag("gauss")
+def gauss(x):
+    """Isotropic standard Gaussian: ``U(x) = |x|^2 / 2``."""
+    return torch.sum(x * x) / 2.0
+
+
+@_tag("gauss")
+def grad_gauss(x):
+    """Gradient of :func:`gauss`, ``x -> x``."""
+    return x
+
+
+@_tag("banana")
+def banana(x):
+    """Banana target of the reference test suite (needs ``dim >= 2``)."""
+    mean_x2 = x[0] ** 2 - 1.0
+    return -(-x[0] ** 2 - (x[1] - mean_x2) ** 2 - torch.sum(x[2:] ** 2)) / 2.0
+
+
+@_tag("banana")
+def grad_banana(x):
+    """Gradient of :func:`banana`."""
+    r1 = x[1] - (x[0] * x[0] - 1.0)
+    g0 = x[0] - 2.0 * x[0] * r1
+    return torch.cat([torch.stack([g0, r1]), x[2:]])
+
+
+# Chain-minor ((d, B), chains on the last axis) versions of the device
+# potentials, written as the kernel evaluates them: the gradient, and the
+# gradient with its derivative along v (the Hessian-vector product).  The
+# plain version of the kernel uses these for tagged samplers.
+
+def _gauss_lane(x):
+    return x
+
+
+def _gauss_lane_jvp(x, v):
+    return x, v
+
+
+def _banana_lane(x):
+    r1 = x[1] - (x[0] * x[0] - 1.0)
+    return torch.cat([(x[0] - 2.0 * x[0] * r1)[None], r1[None], x[2:]])
+
+
+def _banana_lane_jvp(x, v):
+    x0, v0, v1 = x[0], v[0], v[1]
+    dg0 = (1.0 - 2.0 * (x[1] - (x0 * x0 - 1.0)) + 4.0 * x0 * x0) * v0 - 2.0 * x0 * v1
+    dg1 = v1 - 2.0 * x0 * v0
+    return _banana_lane(x), torch.cat([dg0[None], dg1[None], v[2:]])
+
+
+LANE_POTENTIALS = {
+    "gauss": (_gauss_lane, _gauss_lane_jvp),
+    "banana": (_banana_lane, _banana_lane_jvp),
+}
+
+
+def device_potential_of(*fns):
+    """The first ``device_potential`` tag among ``fns``, or None."""
+    for fn in fns:
+        tag = getattr(fn, "device_potential", None)
+        if tag is not None:
+            return tag
+    return None

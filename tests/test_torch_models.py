@@ -1,0 +1,151 @@
+"""The port's sampler construction against the JAX package's: flag
+resolution, error texts, potential handling, initial states, converters."""
+
+import warnings
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import pdmpflux_tpu as pf  # noqa: E402
+import pdmpflux_tpu_torch as pt  # noqa: E402
+from pdmpflux_tpu_torch import convert  # noqa: E402
+from pdmpflux_tpu_torch.models.base import resolve_potential  # noqa: E402
+from pdmpflux_tpu_torch.ops.cuda import driver as tdrv  # noqa: E402
+
+FLAGS = ("dim", "grid_size", "tmax", "refresh_rate", "vectorized_bound",
+         "signed_bound", "adaptive", "tderiv")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(tmax=0.0, adaptive=False),
+    dict(vectorized_bound=False),
+    dict(grid_size=0, refresh_rate=0.5),
+    dict(AD_backend="FiniteDiff"),
+])
+def test_flag_resolution_matches_jax(kw):
+    with warnings.catch_warnings(record=True) as wj:
+        warnings.simplefilter("always")
+        js = pf.ZigZag(3, lambda x: x, **kw)
+    with warnings.catch_warnings(record=True) as wt:
+        warnings.simplefilter("always")
+        ts = pt.ZigZag(3, pt.potentials.grad_gauss, **kw)
+    assert [str(w.message) for w in wt] == [str(w.message) for w in wj]
+    for f in FLAGS:
+        assert getattr(ts, f) == getattr(js, f), f
+
+
+@pytest.mark.parametrize("kw", [dict(dim=0), dict(dim=2, grid_size=-1)])
+def test_constructor_errors_match_jax(kw):
+    d = kw.pop("dim")
+    with pytest.raises(ValueError) as ej:
+        pf.ZigZag(d, lambda x: x, **kw)
+    with pytest.raises(ValueError) as et:
+        pt.ZigZag(d, pt.potentials.grad_gauss, **kw)
+    assert str(et.value) == str(ej.value)
+
+
+def test_resolve_potential_rules():
+    x = torch.tensor([0.3, -1.2, 2.0], dtype=torch.float64)
+    # a (dim,) output is already a gradient
+    U_vec, g = resolve_potential(lambda z: 2 * z, 3)
+    assert U_vec is None and torch.equal(g(x), 2 * x)
+    # scalar potential: autodiff
+    U_vec, g = resolve_potential(pt.potentials.banana, 3)
+    np.testing.assert_allclose(g(x).numpy(), pt.potentials.grad_banana(x).numpy(),
+                               rtol=1e-14)
+    jg = jax.grad(pf.utils.potentials.banana)(jnp.asarray(x.numpy()))
+    np.testing.assert_allclose(g(x).numpy(), np.asarray(jg), rtol=1e-14)
+    # d = 1: a scalar potential, and a (1,)-output read as a potential,
+    # exactly as the JAX package reads them
+    from pdmpflux_tpu.models.base import resolve_potential as jresolve
+
+    for tU, jU in ((lambda s: torch.sum(s * s) / 2, lambda s: jnp.sum(s * s) / 2),
+                   (lambda s: torch.reshape(3 * s ** 2, (1,)),
+                    lambda s: jnp.reshape(3 * s ** 2, (1,)))):
+        _, g1 = resolve_potential(tU, 1)
+        _, jg1 = jresolve(jU, 1)
+        assert float(g1(torch.tensor([1.5], dtype=torch.float64))[0]) == float(
+            jg1(jnp.asarray([1.5]))[0])
+    with pytest.raises(ValueError, match="Could not interpret potential"):
+        resolve_potential(lambda z: torch.ones(2, 2), 3)
+
+
+def test_device_potential_tags():
+    assert pt.ZigZag(3, pt.potentials.grad_gauss).device_potential == "gauss"
+    assert pt.ZigZagAD(3, pt.potentials.gauss).device_potential == "gauss"
+    assert pt.ZigZagAD(3, pt.potentials.banana).device_potential == "banana"
+    assert pt.ZigZag(3, lambda x: x).device_potential is None
+
+
+def test_kernel_coverage_errors():
+    ok = pt.ZigZag(3, pt.potentials.grad_gauss)
+    assert tdrv.kernel_kind(ok) == "zigzag"
+    with pytest.raises(ValueError, match="vectorized_bound=True"):
+        tdrv.chunk_config(pt.ZigZag(3, pt.potentials.grad_gauss,
+                                    vectorized_bound=False), 32, 10, 128)
+    with pytest.raises(ValueError, match="vectorized_bound=True"):
+        pt.sample_skeleton(pt.ZigZag(3, pt.potentials.grad_gauss,
+                                     vectorized_bound=False),
+                           5, np.zeros(3), np.ones(3), device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_init_state_batch_matches_jax(dtype):
+    B, d = 6, 4
+    rs = np.random.default_rng(0)
+    x0, v0 = rs.normal(size=(B, d)), rs.choice([-1.0, 1.0], size=(B, d))
+    js = pf.ZigZag(d, lambda x: x, tmax=1.5)
+    ts = pt.ZigZag(d, pt.potentials.grad_gauss, tmax=1.5)
+    jst = js.init_state_batch(x0, v0, 17, dtype=getattr(jnp, dtype))
+    tst = ts.init_state_batch(x0, v0, 17, dtype=getattr(torch, dtype))
+    got = convert.state_to_numpy(tst)
+    for f in jst._fields:
+        a = (np.asarray(jax.random.key_data(jst.key)) if f == "key"
+             else np.asarray(getattr(jst, f)))
+        assert got[f].dtype == a.dtype and got[f].shape == a.shape, f
+        if f == "exp_rv":  # XLA's CPU log1p vs a correctly rounded one
+            np.testing.assert_allclose(got[f], a, rtol=1e-6 if dtype == "float32" else 1e-12)
+        else:
+            np.testing.assert_array_equal(got[f], a, err_msg=f)
+    # one chain's init_state equals the batch's chain
+    from pdmpflux_tpu_torch.core import rng
+
+    one = ts.init_state(x0[2], v0[2], rng.split(rng.key(17), B)[2],
+                        dtype=getattr(torch, dtype))
+    assert torch.equal(one.exp_rv, tst.exp_rv[2])
+    # round trip through the converters
+    back = convert.state_to_numpy(convert.state_from_numpy(got))
+    for f in got:
+        np.testing.assert_array_equal(back[f], got[f])
+
+
+def test_types_helpers_match_jax():
+    from pdmpflux_tpu.core import types as jt
+    from pdmpflux_tpu_torch.core import types as tt
+
+    for name in ("MODE_FRESH", "MODE_REJECTED", "MODE_ERRONEOUS", "EV_NONE",
+                 "EV_INIT", "EV_JUMP", "EV_STICK", "EV_THAW", "EV_TERMINAL",
+                 "ERROR_RING_SIZE"):
+        assert getattr(tt, name) == getattr(jt, name), name
+    for name in ("PDMPState", "Event", "Skeleton"):
+        assert getattr(tt, name)._fields == getattr(jt, name)._fields, name
+    js = jt.empty_skeleton(7, 3, jnp.float64, batch_shape=(2,))
+    ts = tt.empty_skeleton(7, 3, torch.float64, batch_shape=(2,))
+    got = convert.skeleton_to_numpy(ts)
+    for f in js._fields:
+        a = np.asarray(getattr(js, f))
+        assert got[f].dtype == a.dtype and got[f].shape == a.shape, f
+        np.testing.assert_array_equal(got[f], a)
+    back = convert.skeleton_to_numpy(convert.skeleton_from_numpy(got))
+    for f in got:
+        np.testing.assert_array_equal(back[f], got[f])
+    tot, comp = np.float32(1.0), np.float32(0.0)
+    s_t, c_t = tt.kahan_add(torch.tensor(tot), torch.tensor(comp), torch.tensor(np.float32(1e-8)))
+    s_j, c_j = jt.kahan_add(jnp.float32(tot), jnp.float32(comp), jnp.float32(1e-8))
+    assert float(s_t) == float(s_j) and float(c_t) == float(c_j)

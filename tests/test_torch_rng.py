@@ -1,0 +1,89 @@
+"""Threefry parity of the PyTorch port with the JAX package.
+
+The port's counter RNG must give the Pallas kernel's words bit for bit
+(``zigzag_chunk._bits2`` / ``_uniform``), its Exp(1) draws within 2 ulp
+(``log`` differs between libraries), and its key handling must equal
+``jax.random`` (``key``, ``split``, ``fold_in``) bit for bit.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from pdmpflux_tpu.ops.pallas import zigzag_chunk as zc  # noqa: E402
+from pdmpflux_tpu_torch.core import rng  # noqa: E402
+
+TILE = 128
+SEEDS = (0, 7, -5, 2**31 - 1, -(2**31))
+SALTS = (0, 3, 0x80000000 + 5, 0xFFFFFFFF)
+DTYPES = ((jnp.float32, torch.float32), (jnp.float64, torch.float64))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_kernel_words_and_uniforms_bit_equal(seed):
+    s = rng.lane_seeds(seed, 2 * TILE, TILE, "cpu")
+    for salt in SALTS:
+        for tile_i in (0, 1):
+            seed_t = rng.wrap_int32(seed + tile_i * 7919)
+            b0, b1 = zc._bits2(jnp.int32(seed_t), jnp.uint32(salt), (4, TILE))
+            lanes = slice(tile_i * TILE, (tile_i + 1) * TILE)
+            for row in range(4):
+                t0, t1 = rng.bits2(s, salt, row, TILE)
+                np.testing.assert_array_equal(np.asarray(b0[row]), t0[lanes].numpy())
+                np.testing.assert_array_equal(np.asarray(b1[row]), t1[lanes].numpy())
+            for jdt, tdt in DTYPES:
+                u = zc._uniform(jnp.int32(seed_t), jnp.uint32(salt), (4, TILE), jdt)
+                for row in (1, 2):
+                    np.testing.assert_array_equal(
+                        np.asarray(u[row]),
+                        rng.uniform(s, salt, row, TILE, tdt)[lanes].numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_kernel_exponential_within_2ulp(seed):
+    s = rng.lane_seeds(seed, TILE, TILE, "cpu")
+    for salt in SALTS:
+        for jdt, tdt in DTYPES:
+            e = np.asarray(zc._exponential(jnp.int32(seed), jnp.uint32(salt),
+                                           (1, TILE), jdt)[0])
+            et = rng.exponential(s, salt, TILE, tdt).numpy()
+            assert et.dtype == e.dtype
+            assert np.all(np.abs(e - et) <= 2 * np.spacing(e))
+
+
+@pytest.mark.parametrize("seed", (0, 1, 2024, -3, 2**40 + 5))
+def test_key_split_fold_in_bit_equal(seed):
+    k = jax.random.key(seed)
+    np.testing.assert_array_equal(np.asarray(jax.random.key_data(k)),
+                                  rng.key(seed).numpy())
+    ks = jax.random.split(k, 7)
+    tks = rng.split(rng.key(seed), 7)
+    np.testing.assert_array_equal(np.asarray(jax.random.key_data(ks)), tks.numpy())
+    # batched split, as init_state_batch splits every chain's key in three
+    ks3 = jax.vmap(lambda kk: jax.random.split(kk, 3))(ks)
+    np.testing.assert_array_equal(np.asarray(jax.random.key_data(ks3)),
+                                  rng.split(tks, 3).numpy())
+    data = np.array([0, 1, 5, 2**31, 2**32 - 1, 77, 3], np.uint32)
+    fk = jax.vmap(jax.random.fold_in)(ks, jnp.asarray(data))
+    np.testing.assert_array_equal(
+        np.asarray(jax.random.key_data(fk)),
+        rng.fold_in(tks, torch.as_tensor(data.astype(np.int64))).numpy())
+    # jax.random.exponential is -log1p(-u): the uniforms must be bit-equal;
+    # the draws within 2 ulp in f32.  In f64, XLA's CPU log1p is off by up
+    # to ~1e2 ulp (e.g. seed 2024, key 5: 124 ulp against a 200-bit
+    # reference), so the port is held to numpy's log1p there and to JAX at
+    # rtol 1e-12.
+    for jdt, tdt in DTYPES:
+        u = np.asarray(jax.vmap(lambda kk: jax.random.uniform(kk, dtype=jdt))(ks))
+        np.testing.assert_array_equal(u, rng.key_uniform(tks, tdt).numpy())
+        e = np.asarray(jax.vmap(lambda kk: jax.random.exponential(kk, dtype=jdt))(ks))
+        et = rng.key_exponential(tks, tdt).numpy()
+        if jdt == jnp.float32:
+            assert np.all(np.abs(e - et) <= 2 * np.spacing(e))
+        else:
+            assert np.all(np.abs(-np.log1p(-u) - et) <= np.spacing(et))
+            np.testing.assert_allclose(et, e, rtol=1e-12)
