@@ -5,8 +5,9 @@
 Needs one CUDA card (Hopper: the kernels build for sm_90a) and ``nvcc``.
 Phases, one line each; any failure raises and exits non-zero:
 
-1. build the kernels (K1 fused Zig-Zag chunk, K2 event-row compaction) from
-   ``pdmpflux_tpu_torch/csrc`` with nvcc;
+1. build the kernels (K1 fused Zig-Zag chunk, K6 its sticky variant, K2
+   event-row compaction) from ``pdmpflux_tpu_torch/csrc`` with nvcc, one
+   compile per source, all started together;
 2. K1 against its plain PyTorch version on the card, float64, from the same
    state: integer outputs equal, floats to rtol 1e-9 (atol 1e-12 for values
    near zero such as the Kahan compensation), at d=10/B=8192 (gauss),
@@ -20,10 +21,33 @@ Phases, one line each; any failure raises and exits non-zero:
    plain version at exactly these shapes and float32 (K2 bit-identical, K1
    as ``k1_compare_f32`` states) and timed beside it;
 5. a large-d run: ZigZag(1000), 256 chains x 512 points, float32, started
-   in stationarity; complete, coordinate-pooled moments in band.
+   in stationarity; complete, coordinate-pooled moments in band;
+6. K6 (the sticky chunk kernel) against its plain version, float64, two
+   K=32 chunks from one state near the axes with some chains capped, at
+   gauss d=10/B=1024, banana d=10/B=1024 and gauss d=1000/B=128: integers
+   and activity equal, floats to rtol 1e-9 (atol 1e-12);
+7. the sticky path at full width: the ``sticky_zigzag_d1000`` deployment,
+   StickyZigZagAD(1000, gauss, kappa=10), 128 chains x 2048 points, float32,
+   x0 = 0.3, v0 = 1, warm then timed; every chain complete, K6 and K2
+   launched, every stick row freezes one coordinate at exactly 0.0, every
+   thaw row releases one, |v| = 1, t non-decreasing, sticks and thaws occur;
+   four more warm calls give the spread and the median wall time;
+   then (7b) its fill and compaction timed apart, K2 checked bit for bit
+   against its plain version on this path's own fill (activity stream and
+   init row included), and one K=32 chunk of K6 checked against its plain
+   version at exactly this shape in float32 (as ``k6_compare_f32`` states:
+   every chain that leaves the plain trajectory must do so at an f32
+   rounding tie), each timed beside its plain version; and (7c) the median
+   warm call split into K6 launches x ms, K2 and the rest (host work, during
+   which the card idles);
+8. a law check: StickyZigZag(10, grad_gauss, kappa=1), 4096 chains x 2048
+   points, float32; the coordinate-pooled frozen fraction of equal-time
+   samples within 0.02 of p(0)/(1+p(0)) = 0.2852, the variance within 0.03
+   of 0.7148.
 
 Then one JSON line of per-kernel results (launches counted in the timed
-main-path run only), the card's name and power limit, and the status line.
+main-path run of each kernel's path: phase 4 for K1 and K2, phase 7 for K6),
+the card's name and power limit, and the status line.
 """
 
 import json
@@ -41,6 +65,7 @@ if not torch.cuda.is_available():
 
 import pdmpflux_tpu_torch as pt  # noqa: E402
 from pdmpflux_tpu_torch import api  # noqa: E402
+from pdmpflux_tpu_torch.core import rng  # noqa: E402
 from pdmpflux_tpu_torch.core.types import EV_INIT, event_from_state  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import build  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import compact as k2  # noqa: E402
@@ -51,6 +76,9 @@ DEV = torch.device("cuda")
 RTOL, ATOL = 1e-9, 1e-12
 MAIN = (10, 8192, 2048)    # d, chains, skeleton points: the bench flagship
 LARGE = (1000, 256, 512)   # the large-d run
+STICKY = (1000, 128, 2048, 10.0)  # d, chains, points, kappa: sticky_zigzag_d1000
+STICKY_CALLS = 5  # timed warm calls of the sticky path
+STICKY_LAW = (10, 4096, 2048, 1.0)
 
 
 def sync():
@@ -78,7 +106,7 @@ def random_state(sampler, B, dtype, seed):
 
 
 def clone_state(st):
-    return k1.ChunkState(*(a.clone() for a in st))
+    return k1.ChunkState(*(None if a is None else a.clone() for a in st))
 
 
 def phase_build():
@@ -91,7 +119,13 @@ def phase_build():
           f"ptxas: {' | '.join(regs)}", flush=True)
 
 
-K1_NAMES = ("x", "v", "fs", "iscal", "ring") + tuple("ev_" + f for f in k1.RawFill._fields)
+K1_NAMES = k1.ChunkState._fields + tuple("ev_" + f for f in k1.RawFill._fields)
+
+
+def chunk_outputs(st, fill):
+    """(name, tensor) of a chunk's state and rows; a non-sticky chunk has no
+    activity tensors."""
+    return [(n, a) for n, a in zip(K1_NAMES, (*st, *fill)) if a is not None]
 
 
 def float_err(what, name, a, b, rtol, atol):
@@ -124,7 +158,7 @@ def k1_compare(d, B, K, n_chunks, pot):
         k1.run_chunk_plain(seed, st_p, fill_p, it * K, cfg)
     sync()
     err = 0.0
-    for name, a, b in zip(K1_NAMES, (*st_k, *fill_k), (*st_p, *fill_p)):
+    for (name, a), (_, b) in zip(chunk_outputs(st_k, fill_k), chunk_outputs(st_p, fill_p)):
         if a.dtype == torch.int32:
             if not torch.equal(a, b):
                 raise AssertionError(f"K1 d={d}: integer output {name} differs "
@@ -148,35 +182,124 @@ def phase_k1():
     return err
 
 
-def k1_compare_f32(st_k, fill_k, st_p, fill_p):
-    """K1 against its plain version from one f32 state: a rounding difference
-    may flip a thinning decision and send a chain down another valid path, so
-    event kinds must agree on at least 99% of (transition, chain) pairs, and
-    the chains whose integer outputs all agree must agree in their floats to
-    rtol 1e-3, atol 1e-4 (f32 rounding order over 32 transitions).  Returns
-    (kind agreement, max abs err on those chains)."""
+def f32_agreement(what, st_k, fill_k, st_p, fill_p, decided_by_v):
+    """Shared part of the f32 checks of a chunk kernel against its plain
+    version: event kinds must agree on at least 99% of (transition, chain)
+    pairs, and the chains whose integer outputs and activity agree (and, with
+    ``decided_by_v``, whose +-1 velocities, which record the flips, agree
+    too) must agree in their floats to rtol 1e-3, atol 1e-4 (f32 rounding
+    order over 32 transitions).  Returns (kind agreement, mask of those
+    chains, max abs err on them)."""
     agree = float((fill_k.kind[:, 0] == fill_p.kind[:, 0]).float().mean())
     if agree < 0.99:
-        raise AssertionError(f"K1 f32: event kinds agree on only {agree:.4f}")
-    same = ((fill_k.kind == fill_p.kind).flatten(0, 1).all(dim=0)
-            & (st_k.iscal == st_p.iscal).all(dim=0))
+        raise AssertionError(f"{what}: event kinds agree on only {agree:.4f}")
+    outs_k, outs_p = chunk_outputs(st_k, fill_k), chunk_outputs(st_p, fill_p)
+    same = torch.ones(st_k.x.shape[1], dtype=torch.bool, device=st_k.x.device)
+    for (name, a), (_, b) in zip(outs_k, outs_p):
+        if not a.is_floating_point() or (decided_by_v and name in ("v", "ev_v")):
+            same &= (a == b).reshape(-1, a.shape[-1]).all(dim=0)
     err = 0.0
-    for name, a, b in zip(K1_NAMES, (*st_k, *fill_k), (*st_p, *fill_p)):
-        if a.dtype != torch.int32:
-            err = max(err, float_err("K1 f32", name, a[..., same], b[..., same],
+    for (name, a), (_, b) in zip(outs_k, outs_p):
+        if a.is_floating_point():
+            err = max(err, float_err(what, name, a[..., same], b[..., same],
                                      1e-3, 1e-4))
+    return agree, same, err
+
+
+def k1_compare_f32(st_k, fill_k, st_p, fill_p):
+    """K1 against its plain version from one f32 state: a rounding difference
+    may flip a thinning decision and send a chain down another valid path
+    (event kinds agree on at least 99%); every chain whose integer outputs
+    agree must agree in its floats, velocities included.  Returns (kind
+    agreement, max abs err on those chains)."""
+    agree, _, err = f32_agreement("K1 f32", st_k, fill_k, st_p, fill_p, False)
     return agree, err
 
 
-def random_fill(T, d, B, dtype, seed):
+F32_EPS = 2.0 ** -24
+K6_F32_SHARE = 0.95
+
+
+def divergence(b, v0, fill_k, fill_p, cfg, seed):
+    """Where chain ``b`` of two f32 fills from one state first takes another
+    decision, and whether f32 rounding explains it.  A flip: recomputed in
+    float64 at the kernel's post-flow x, u * total lies within d * 2**-24 of
+    the total (the rounding bound of a sum of d non-negative f32 terms) from a
+    prefix sum between the two picked coordinates.  An accept against a
+    reject: the uniform lies between the two sides' acceptance ratios, which
+    agree to 1e-4.  Returns (text, explained)."""
+    B, d = fill_k.kind.shape[-1], fill_k.x.shape[1]
+    kk, kp = fill_k.kind[:, 0, b], fill_p.kind[:, 0, b]
+    differs = ((fill_k.kind[:, :, b] != fill_p.kind[:, :, b]).any(1)
+               | (fill_k.v[:, :, b] != fill_p.v[:, :, b]).any(1)
+               | (fill_k.act[:, :, b] != fill_p.act[:, :, b]).any(1))
+    if not bool(differs.any()):
+        return f"chain {b}: no event row differs, only the final state", False
+    k = int(differs.nonzero()[0, 0])
+    at = f"chain {b} transition {k}"
+    seeds = rng.lane_seeds(seed, B, cfg.tile, DEV)
+    if (int(kk[k]) == int(kp[k]) == pt.EV_JUMP
+            and torch.equal(fill_k.act[k, :, b], fill_p.act[k, :, b])):
+        v_prev = (v0 if k == 0 else fill_k.v[k - 1])[:, b]
+        m_k = int((fill_k.v[k, :, b] != v_prev).nonzero()[0, 0])
+        m_p = int((fill_p.v[k, :, b] != v_prev).nonzero()[0, 0])
+        if m_k == m_p:
+            return f"{at}: both flip coordinate {m_k}, yet the rows differ", False
+        va = (v_prev * fill_k.act[k, :, b]).double()   # a jump keeps the mask
+        rates = torch.clamp_min(cfg.grad(fill_k.x[k, :, b, None].double())[:, 0] * va, 0.0)
+        c = torch.cumsum(rates, 0)
+        u = float(rng.uniform(seeds, k, 2, cfg.tile, torch.float32)[b])
+        total = float(c[-1])
+        lo, hi = sorted((m_k, m_p))
+        gap = float((c[lo:hi] - u * total).abs().min()) / total
+        return (f"{at}: flips coordinate {m_k} (kernel) vs {m_p} (plain); in f64, "
+                f"u*total={u * total:.6f} lies {gap:.2e} of total={total:.3f} from a "
+                f"prefix sum between them (bound d*2^-24={d * F32_EPS:.2e})",
+                gap <= d * F32_EPS)
+    if sorted((int(kk[k]), int(kp[k]))) == [0, pt.EV_JUMP]:
+        ar_k, ar_p = float(fill_k.fs[k, 2, b]), float(fill_p.fs[k, 2, b])
+        u = float(rng.uniform(seeds, k, 1, cfg.tile, torch.float32)[b])
+        return (f"{at}: kinds {int(kk[k])} (kernel) vs {int(kp[k])} (plain); u={u:.8f}, "
+                f"acceptance ratios {ar_k:.8f} vs {ar_p:.8f}",
+                (u - ar_k) * (u - ar_p) <= 0 and abs(ar_k - ar_p) <= 1e-4)
+    return (f"{at}: kinds {int(kk[k])} (kernel) vs {int(kp[k])} (plain), or the "
+            "activity differs", False)
+
+
+def k6_compare_f32(v0, st_k, fill_k, st_p, fill_p, cfg, seed):
+    """K6 against its plain version from one f32 state (velocities ``v0``).
+    At d = 1000 the flip draw compares u * total against prefix sums of 1000
+    rates that the two sides add in different orders, so besides a thinning
+    decision a rounding difference may pick another flip coordinate.  Event
+    kinds must agree on at least 99% of (transition, chain) pairs; at least
+    95% of the chains must take identical decisions (integers, activity, +-1
+    velocities) and agree in their floats as :func:`f32_agreement` states;
+    every other chain must have left at a rounding tie (:func:`divergence`).
+    Returns (kind agreement, share, max abs err, divergence texts)."""
+    agree, same, err = f32_agreement("K6 f32", st_k, fill_k, st_p, fill_p, True)
+    share = float(same.float().mean())
+    texts = []
+    for b in (~same).nonzero()[:, 0].tolist():
+        text, explained = divergence(b, v0, fill_k, fill_p, cfg, seed)
+        if not explained:
+            raise AssertionError(f"K6 f32: unexplained divergence, {text}")
+        texts.append(text)
+    if share < K6_F32_SHARE:
+        raise AssertionError(f"K6 f32: only {share:.4f} of the chains took equal "
+                             f"decisions (want >= {K6_F32_SHARE}); {'; '.join(texts)}")
+    return agree, share, err, texts
+
+
+def random_fill(T, d, B, dtype, seed, sticky=False):
     g = torch.Generator(device=DEV).manual_seed(seed)
     kind = torch.where(torch.rand((T, 4, B), generator=g, device=DEV) < 0.6, 2, 0)
     kind[:, 1:] = torch.randint(0, 50, (T, 3, B), generator=g, device=DEV)
     kind = kind.to(torch.int32)
     kind[:, 0, 0] = 0  # a chain without events
     f = lambda *s: torch.randn(s, generator=g, device=DEV, dtype=dtype)  # noqa: E731
+    act = (torch.rand((T, d, B), generator=g, device=DEV) < 0.7) if sticky else None
     return k1.RawFill(kind=kind, x=f(T, d, B), v=f(T, d, B), fs=f(T, 3, B),
-                      ring=f(T, 5, B))
+                      ring=f(T, 5, B), act=act)
 
 
 def random_init(d, B, dtype, seed):
@@ -196,8 +319,8 @@ def k2_outputs_equal(what, out_k, out_p):
     return err
 
 
-def k2_compare(d, B, T, W, dtype):
-    fill = random_fill(T, d, B, dtype, d)
+def k2_compare(d, B, T, W, dtype, sticky=False):
+    fill = random_fill(T, d, B, dtype, d, sticky)
     init = random_init(d, B, dtype, d + 1)
     err = 0.0
     for off, ini in ((torch.ones(B, dtype=torch.int32, device=DEV), init),
@@ -221,9 +344,11 @@ def k2_compare(d, B, T, W, dtype):
 def phase_k2():
     err = max(k2_compare(10, 512, 700, 480, torch.float32),
               k2_compare(10, 256, 300, 200, torch.float64),
-              k2_compare(1000, 64, 300, 200, torch.float32))
-    print("phase 3 K2 vs plain: d=10 (f32, f64) and d=1000 with offsets and "
-          f"init, bit-identical (max_abs_err={err})", flush=True)
+              k2_compare(1000, 64, 300, 200, torch.float32),
+              k2_compare(1000, 64, 300, 200, torch.float32, sticky=True))
+    print("phase 3 K2 vs plain: d=10 (f32, f64) and d=1000 (with and without an "
+          f"activity stream) with offsets and init, bit-identical (max_abs_err={err})",
+          flush=True)
     return err
 
 
@@ -255,7 +380,7 @@ def phase_main(card_name):
     nv = skel.n_valid.cpu()
     if not bool((nv == n_sk).all()):
         raise AssertionError(f"main path incomplete: n_valid min {int(nv.min())}")
-    if min(launches.values()) < 1:
+    if launches["zigzag_chunk"] < 1 or launches["compact_rows"] < 1:
         raise AssertionError(f"main path missed a kernel: {launches}")
     if not bool(torch.isfinite(skel.x).all() and torch.isfinite(skel.t).all()):
         raise AssertionError("main path produced non-finite values")
@@ -316,7 +441,8 @@ def phase_breakdown(sampler):
     print(f"phase 4b breakdown (B={B}, d={d}, f32): fill {fill_s:.4f} s over "
           f"{t_cap} rows ({t_cap // K} K1 launches); K1 chunk (K={K}) "
           f"{k1_ms:.4f} ms vs plain {k1_plain_ms:.4f} ms, kinds agree on "
-          f"{k1_agree:.6f}, max_abs_err {k1_err:.3e} on agreeing chains; K2 "
+          f"{k1_agree:.6f}, max_abs_err {k1_err:.3e} on the chains with equal "
+          f"integer outputs; K2 "
           f"compaction (T={t_cap}, W={target + 1}) {k2_ms:.4f} ms vs plain "
           f"{k2_plain_ms:.4f} ms, bit-identical", flush=True)
     return k1_ms, k1_plain_ms, k2_ms, k2_plain_ms, k2_err
@@ -345,6 +471,219 @@ def phase_large_d():
           f"var={v:.4f}", flush=True)
 
 
+def sticky_config(sampler, K, cap, dtype):
+    cfg = driver.chunk_config(sampler, K, cap, 128)
+    return cfg._replace(kappa=cfg.kappa.to(DEV, dtype))
+
+
+def k6_compare(d, B, pot, kappa, K=32, n_chunks=2):
+    """K6 and its plain version from one f64 state near the axes; returns
+    (max abs err, events, sticks, thaws)."""
+    grad = {"gauss": pt.potentials.grad_gauss, "banana": pt.potentials.grad_banana}[pot]
+    sampler = pt.StickyZigZag(d, grad, np.full(d, kappa))
+    rs = np.random.default_rng(d + B)
+    state = sampler.init_state_batch(rs.normal(size=(B, d)) * 0.3,
+                                     rs.choice([-1.0, 1.0], size=(B, d)),
+                                     d + B, torch.float64, DEV)
+    counts = torch.zeros(B, dtype=torch.int32, device=DEV)
+    counts[::5] = 50  # some chains reach the cap of 64 inside the run
+    cfg = sticky_config(sampler, K, 64, torch.float64)
+    st_k = driver.chunk_state(state, counts, sticky=True)
+    st_p = clone_state(st_k)
+    fill_k, fill_p = (k1.empty_fill(K * n_chunks, d, B, torch.float64, DEV, sticky=True)
+                      for _ in range(2))
+    for it in range(n_chunks):
+        seed = 424242 + it * 1000003
+        k1.run_chunk(seed, st_k, fill_k, it * K, cfg)
+        k1.run_chunk_plain(seed, st_p, fill_p, it * K, cfg)
+    sync()
+    what = f"K6 {pot} d={d}"
+    err = 0.0
+    for (name, a), (_, b) in zip(chunk_outputs(st_k, fill_k), chunk_outputs(st_p, fill_p)):
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: output {name} differs at "
+                                     f"{int((a != b).sum())} places")
+        else:
+            err = max(err, float_err(what, name, a, b, RTOL, ATOL))
+    kinds = fill_k.kind[:, 0]
+    n_ev = int((kinds > 0).sum())
+    n_stick, n_thaw = int((kinds == pt.EV_STICK).sum()), int((kinds == pt.EV_THAW).sum())
+    if n_stick == 0 or n_thaw == 0 or not bool((st_k.iscal[k1.I_CNT] == 64).any()):
+        raise AssertionError(f"{what}: the check saw {n_stick} sticks, {n_thaw} "
+                             "thaws, or no capped chain")
+    return err, n_ev, n_stick, n_thaw
+
+
+def phase_k6():
+    res = {(pot, d, B): k6_compare(d, B, pot, kappa)
+           for pot, d, B, kappa in (("gauss", 10, 1024, 2.0), ("banana", 10, 1024, 2.0),
+                                    ("gauss", 1000, 128, 10.0))}
+    parts = [f"{pot} d={d} B={B} max_abs_err={e:.3e} ({n} events, {ns} sticks, "
+             f"{nt} thaws)" for (pot, d, B), (e, n, ns, nt) in res.items()]
+    print(f"phase 6 K6 vs plain (f64, 2 x K=32): {'; '.join(parts)}; ints and "
+          f"activity equal, rtol {RTOL} atol {ATOL}", flush=True)
+    return max(r[0] for r in res.values())
+
+
+def check_sticky_skeleton(skel, n_sk):
+    """The sticky path's contracts on a complete skeleton; returns the counts
+    of jump, stick and thaw events."""
+    if not bool((skel.n_valid == n_sk).all()):
+        raise AssertionError(f"sticky path incomplete: n_valid min {int(skel.n_valid.min())}")
+    kind, act, x = skel.kind[:, 1:], skel.is_active, skel.x
+    stick, thaw = kind == pt.EV_STICK, kind == pt.EV_THAW
+    dn = act[:, 1:].sum(-1) - act[:, :-1].sum(-1)
+    if not (bool((dn[stick] == -1).all()) and bool((dn[thaw] == 1).all())
+            and bool((dn[~(stick | thaw)] == 0).all())):
+        raise AssertionError("a stick row did not freeze exactly one coordinate, or a "
+                             "thaw row did not release exactly one")
+    newly = act[:, :-1] & ~act[:, 1:]
+    if not bool((x[:, 1:][newly] == 0.0).all()) or not bool((x[~act] == 0.0).all()):
+        raise AssertionError("a frozen coordinate is not exactly at 0.0")
+    if not bool((skel.v.abs() == 1.0).all()):
+        raise AssertionError("|v| != 1 somewhere")
+    if not bool((skel.t[:, 1:] >= skel.t[:, :-1]).all()):
+        raise AssertionError("t decreases somewhere")
+    if not bool(torch.isfinite(x).all()):
+        raise AssertionError("non-finite positions")
+    n_jump, n_stick, n_thaw = (int((kind == k).sum()) for k in (pt.EV_JUMP, pt.EV_STICK,
+                                                                pt.EV_THAW))
+    if n_stick == 0 or n_thaw == 0:
+        raise AssertionError(f"sticky path: {n_stick} sticks, {n_thaw} thaws")
+    return n_jump, n_stick, n_thaw
+
+
+def phase_sticky(card_name):
+    d, B, n_sk, kappa = STICKY
+    sampler = pt.StickyZigZagAD(d, pt.potentials.gauss, np.full(d, kappa))
+    x0, v0 = np.full((B, d), 0.3), np.ones((B, d))
+    kw = dict(seed=0, dtype=torch.float32, device=DEV)
+    pt.sample_skeleton(sampler, n_sk, x0, v0, **kw)  # warm: allocator, fill ratio
+    sync()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    skel = pt.sample_skeleton(sampler, n_sk, x0, v0, **kw)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    if launches["sticky_chunk"] < 1 or launches["compact_rows"] < 1:
+        raise AssertionError(f"sticky path missed a kernel: {launches}")
+    n_jump, n_stick, n_thaw = check_sticky_skeleton(skel, n_sk)
+    events = int(skel.n_valid.sum()) - B
+    frozen = 1.0 - float(skel.is_active[:, -1].float().mean())
+    del skel
+    walls = [wall]
+    for _ in range(STICKY_CALLS - 1):  # the spread of warm calls
+        t0 = time.perf_counter()
+        pt.sample_skeleton(sampler, n_sk, x0, v0, **kw)
+        sync()
+        walls.append(time.perf_counter() - t0)
+    med = float(np.median(walls))
+    print(f"phase 7 sticky path: StickyZigZagAD({d}, gauss, kappa={kappa}) B={B} "
+          f"n_sk={n_sk} f32 wall={wall:.4f} s events={events} "
+          f"events/s={events / wall:.1f} launches={launches} jumps={n_jump} "
+          f"sticks={n_stick} thaws={n_thaw} frozen share at the end={frozen:.4f}; "
+          f"stick/thaw rows change one coordinate, frozen x == 0.0, |v| == 1, "
+          f"t non-decreasing; {STICKY_CALLS} warm calls "
+          f"{' '.join(f'{w:.4f}' for w in walls)} s, median {med:.4f} s "
+          f"({events / med:.1f} events/s) ({card_name})", flush=True)
+    return sampler, launches, med
+
+
+def phase_sticky_breakdown(sampler, k6_launches, wall):
+    """The sticky path's fill and compaction timed apart, and K6 checked and
+    timed against its plain version at exactly this shape; then the median
+    warm call (``wall``, phase 7) split into K6 (its ``k6_launches`` at the
+    timed rate), K2 and the rest (host work, during which the card idles)."""
+    d, B, n_sk, _ = STICKY
+    target = n_sk - 1
+    dtype = torch.float32
+    t_cap = api.fill_rows(sampler, target, B, d, dtype, DEV)
+    state = sampler.init_state_batch(np.full((B, d), 0.3), np.ones((B, d)), 0, dtype, DEV)
+    init = event_from_state(state, EV_INIT)
+    run = driver.make_stream_runner(sampler, t_cap, target)
+    zeros = torch.zeros(B, dtype=torch.int32, device=DEV)
+    sync()
+    t0 = time.perf_counter()
+    res = run(state, zeros)
+    sync()
+    fill_s = time.perf_counter() - t0
+    n_launch = res.transitions // 32
+    off = torch.ones(B, dtype=torch.int32, device=DEV)
+    outs, secs = [], []
+    for fn in (k2.compact_rows, k2.compact_rows_plain):
+        out = k2.empty_rows(B, target + 1, d, dtype, DEV)
+        for a in out[:-1]:
+            a.zero_()  # columns past a short chain's rows stay equal
+        kind, specs = k2.fill_specs(res.fill, out, init)
+        sync()
+        t0 = time.perf_counter()
+        fn(kind, specs, off)
+        sync()
+        secs.append(time.perf_counter() - t0)
+        outs.append(out)
+    k2_err = k2_outputs_equal("sticky path", *outs)
+    del outs, out
+    k2_ms = cuda_ms(lambda: k2.compact_rows(kind, specs, off), 3)
+    k2_plain_ms = cuda_ms(lambda: k2.compact_rows_plain(kind, specs, off), 2)
+    del res, specs, kind
+
+    K, seed = 32, 7
+    cfg = sticky_config(sampler, K, 1 << 30, dtype)
+    st = driver.chunk_state(state, zeros, sticky=True)
+    st_p = clone_state(st)
+    v0 = st.v.clone()
+    fill, fill_p = (k1.empty_fill(K, d, B, dtype, DEV, sticky=True) for _ in range(2))
+    k1.run_chunk(seed, st, fill, 0, cfg)
+    k1.run_chunk_plain(seed, st_p, fill_p, 0, cfg)
+    sync()
+    agree, share, err, texts = k6_compare_f32(v0, st, fill, st_p, fill_p, cfg, seed)
+    del st_p, fill_p
+    k6_ms = cuda_ms(lambda: k1.run_chunk(seed, st, fill, 0, cfg), 20)
+    k6_plain_ms = cuda_ms(lambda: k1.run_chunk_plain(seed, st, fill, 0, cfg), 2)
+    print(f"phase 7b sticky breakdown (B={B}, d={d}, f32): fill {fill_s:.4f} s over "
+          f"{t_cap} rows, {n_launch} K6 launches ({n_launch * k6_ms / 1e3:.4f} s "
+          f"of K6 at the timed rate); K2 compaction (T={t_cap}, W={target + 1}, with "
+          f"the activity stream) {secs[0]:.4f} s wall, {k2_ms:.4f} ms by CUDA events "
+          f"vs plain {k2_plain_ms:.4f} ms ({secs[1]:.4f} s wall), bit-identical; K6 "
+          f"chunk (K={K}) {k6_ms:.4f} ms vs plain {k6_plain_ms:.4f} ms, kinds agree on "
+          f"{agree:.6f}, max_abs_err {err:.3e} on the {share:.4f} of chains with equal "
+          f"decisions (want >= {K6_F32_SHARE}); the others left at f32 rounding ties: "
+          f"{'; '.join(texts) or 'none'}", flush=True)
+    wall_ms, k6_total = wall * 1e3, k6_launches * k6_ms
+    rest = wall_ms - k6_total - k2_ms
+    print(f"phase 7c sticky time split of the median warm call ({wall_ms:.4f} ms): "
+          f"K6 {k6_launches} x {k6_ms:.4f} = {k6_total:.4f} ms "
+          f"({k6_total / wall_ms:.1%}); K2 {k2_ms:.4f} ms ({k2_ms / wall_ms:.1%}); "
+          f"rest (host, card idle) {rest:.4f} ms ({rest / wall_ms:.1%})", flush=True)
+    return k6_ms, k6_plain_ms, k2_ms, k2_plain_ms, k2_err
+
+
+def phase_sticky_law():
+    d, B, n_sk, kappa = STICKY_LAW
+    sampler = pt.StickyZigZag(d, pt.potentials.grad_gauss, np.full(d, kappa))
+    t0 = time.perf_counter()
+    skel = pt.sample_skeleton(sampler, n_sk, np.full((B, d), 0.3), np.ones((B, d)),
+                              seed=2, dtype=torch.float32, device=DEV)
+    sync()
+    wall = time.perf_counter() - t0
+    if not bool((skel.n_valid == n_sk).all()):
+        raise AssertionError("sticky law run incomplete")
+    xs = pt.sample_from_skeleton_batch(sampler, 256, skel).double()
+    phi0 = 1.0 / np.sqrt(2 * np.pi)
+    expected = phi0 / (kappa + phi0)
+    frozen = float((xs == 0.0).mean(dtype=torch.float64))
+    var = float(xs.reshape(-1, d).var(dim=0).mean())
+    if abs(frozen - expected) >= 0.02 or abs(var - (1 - expected)) >= 0.03:
+        raise AssertionError(f"sticky law off: frozen {frozen} (want {expected:.4f} "
+                             f"+- 0.02), var {var} (want {1 - expected:.4f} +- 0.03)")
+    print(f"phase 8 sticky law: StickyZigZag({d}, kappa={kappa}) B={B} n_sk={n_sk} f32 "
+          f"wall={wall:.4f} s (first call); frozen fraction {frozen:.4f} "
+          f"(theory {expected:.4f}), variance {var:.4f} (theory {1 - expected:.4f})",
+          flush=True)
+
+
 def main():
     card_name = card()
     phase_build()
@@ -353,6 +692,11 @@ def main():
     sampler, launches = phase_main(card_name)
     k1_ms, k1_plain_ms, k2_ms, k2_plain_ms, k2_main_err = phase_breakdown(sampler)
     phase_large_d()
+    k6_err = phase_k6()
+    sticky, sticky_launches, sticky_wall = phase_sticky(card_name)
+    k6_ms, k6_plain_ms, _, _, k2_sticky_err = phase_sticky_breakdown(
+        sticky, sticky_launches["sticky_chunk"], sticky_wall)
+    phase_sticky_law()
     kernels = [
         {"name": "zigzag_chunk", "route": "cuda",
          "source": "pdmpflux_tpu_torch/csrc/zigzag_chunk.cu",
@@ -362,8 +706,14 @@ def main():
         {"name": "compact_rows", "route": "cuda",
          "source": "pdmpflux_tpu_torch/csrc/compact.cu",
          "replaces": "pdmpflux_tpu/ops/pallas/compact.py:132",
-         "launches": launches["compact_rows"], "max_abs_err": max(k2_err, k2_main_err),
+         "launches": launches["compact_rows"],
+         "max_abs_err": max(k2_err, k2_main_err, k2_sticky_err),
          "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "sticky_chunk", "route": "cuda",
+         "source": "pdmpflux_tpu_torch/csrc/sticky_chunk.cu",
+         "replaces": "pdmpflux_tpu/ops/pallas/zigzag_chunk.py:854",
+         "launches": sticky_launches["sticky_chunk"], "max_abs_err": k6_err,
+         "ms": k6_ms, "plain_ms": k6_plain_ms},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_name)

@@ -2,9 +2,9 @@
 
 The JAX package ``pdmpflux_tpu`` is the reference; this package mirrors its
 layout (``core``, ``models``, ``ops``, ``parallel``, ``utils``, ``api``) and
-never imports JAX.  Ported so far: the event-count Zig-Zag path, with its two
-hand-written kernels in ``csrc/`` (the fused chunk kernel and event-row
-compaction).
+never imports JAX.  Ported so far: the event-count Zig-Zag and Sticky Zig-Zag
+paths, with their hand-written kernels in ``csrc/`` (the fused chunk kernel,
+its sticky chain-per-CTA variant, and event-row compaction).
 """
 
 from .api import sample, sample_from_skeleton, sample_skeleton  # noqa: F401
@@ -12,11 +12,13 @@ from .core.types import (  # noqa: F401
     EV_INIT,
     EV_JUMP,
     EV_NONE,
+    EV_STICK,
     EV_TERMINAL,
+    EV_THAW,
     Event,
     PDMPState,
     Skeleton,
 )
-from .models import ZigZag, ZigZagAD  # noqa: F401
+from .models import StickyZigZag, StickyZigZagAD, ZigZag, ZigZagAD  # noqa: F401
 from .parallel import pooled_moments, sample_from_skeleton_batch  # noqa: F401
 from .utils import potentials  # noqa: F401

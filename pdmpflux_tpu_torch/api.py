@@ -1,7 +1,8 @@
 """Driver API (``pdmpflux_tpu/api.py``) for the event-count path.
 
 * ``sample_skeleton(sampler, n_sk, ...)``: fixed-event-count skeleton of a
-  chain batch, through stream fills of K1 and compaction by K2;
+  chain batch, through stream fills of K1 (K6 for a Sticky Zig-Zag, whose
+  fills also carry the activity stream) and compaction by K2;
 * ``sample_from_skeleton``: skeleton -> equal-time samples (N, dt, N + dt);
 * ``sample``: the two chained.
 

@@ -29,116 +29,14 @@
 // The gradient cannot be traced into CUDA the way Pallas traces jax.jvp, so
 // the kernel takes a device potential: the gradient component at x + v t and
 // its directional derivative along v (the Hessian-vector product), from
-// which the rate's time derivative follows.  Gauss and Banana are provided.
+// which the rate's time derivative follows.  Gauss and Banana are provided
+// (pdmp_common.cuh, shared with K6).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "pdmp_common.cuh"
 
 namespace {
 
-constexpr int NI = 5, RING = 5, MAXG = 64;
-constexpr int F_T = 0, F_TC = 1, F_TS = 2, F_H = 3, F_BH = 4, F_EXP = 5, F_AR = 6;
-constexpr int I_MODE = 0, I_REJ = 1, I_ERR = 2, I_HIT = 3, I_CNT = 4;
-constexpr int MODE_FRESH = 0, MODE_REJECTED = 1, MODE_ERRONEOUS = 2;
-constexpr int EV_JUMP = 2;
-
-struct Params {
-  int d, B, K, n_grid, adaptive, signed_bound, cap, tile, seed;
-  double refresh;
-};
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// Threefry-2x32, 20 rounds (zigzag_chunk._threefry2x32).
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t& x0, uint32_t& x1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[8] = {13, 15, 26, 6, 17, 29, 16, 24};
-  x0 += ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int block = 0; block < 5; ++block) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x0 += x1;
-      x1 = rotl(x1, rot[(block & 1) * 4 + i]);
-      x1 ^= x0;
-    }
-    x0 += ks[(block + 1) % 3];
-    x1 += ks[(block + 2) % 3] + (uint32_t)(block + 1);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T mant24(uint32_t bits) {
-  return (T)(int)(bits >> 8) * (T)(1.0 / 16777216.0);
-}
-
-// (0, 1) uniform at one counter (zigzag_chunk._uniform).
-template <typename T>
-__device__ __forceinline__ T uniform(uint32_t seed, uint32_t salt, uint32_t counter) {
-  uint32_t b0 = counter, b1 = 0;
-  threefry2x32(seed, salt, b0, b1);
-  return mant24<T>(b0) + (T)(0.5 / 16777216.0);
-}
-
-// Exp(1) with the 48-bit-deep tail (zigzag_chunk._exponential).
-template <typename T>
-__device__ __forceinline__ T exponential(uint32_t seed, uint32_t salt, uint32_t counter) {
-  uint32_t b0 = counter, b1 = 0;
-  threefry2x32(seed, salt, b0, b1);
-  const T u_hi = mant24<T>(b0);
-  const T u_lo = mant24<T>(b1) + (T)(0.5 / 16777216.0);
-  const bool deep = u_hi == (T)0;
-  T u = deep ? u_lo : u_hi + u_lo * (T)(1.0 / 16777216.0);
-  const T top = (T)(1.0 - 1.0 / 16777216.0);
-  u = u < top ? u : top;
-  return (deep ? (T)16.635532333438686 : (T)0) - log(u);
-}
-
-// max that propagates NaN, as jnp.maximum does
-template <typename T>
-__device__ __forceinline__ T nmax(T a, T b) {
-  return (isnan(a) || a > b) ? a : b;
-}
-
-// Device potentials: gradient component i at x + v t and its derivative
-// along v.  x and v point at the chain's column (stride B).
-template <typename T>
-struct Gauss {
-  __device__ static void eval(const T* x, const T* v, int i, T t, long B,
-                              T& g, T& dg) {
-    const T vi = v[i * B];
-    g = x[i * B] + vi * t;
-    dg = vi;
-  }
-};
-
-template <typename T>
-struct Banana {  // U = (x0^2 + (x1 - x0^2 + 1)^2 + sum_{k>=2} x_k^2) / 2
-  __device__ static void eval(const T* x, const T* v, int i, T t, long B,
-                              T& g, T& dg) {
-    if (i >= 2) {
-      const T vi = v[i * B];
-      g = x[i * B] + vi * t;
-      dg = vi;
-      return;
-    }
-    const T v0 = v[0], v1 = v[B];
-    const T x0 = x[0] + v0 * t, x1 = x[B] + v1 * t;
-    const T r1 = x1 - (x0 * x0 - (T)1);
-    if (i == 0) {
-      g = x0 - (T)2 * x0 * r1;
-      dg = ((T)1 - (T)2 * r1 + (T)4 * x0 * x0) * v0 - (T)2 * x0 * v1;
-    } else {
-      g = r1;
-      dg = v1 - (T)2 * x0 * v0;
-    }
-  }
-};
+using namespace pdmp;
 
 template <typename T, class Pot>
 __global__ void zigzag_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__ v,
@@ -181,7 +79,7 @@ __global__ void zigzag_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__
         T f_prev = zero, g_prev = zero;
         for (int j = 0; j < n_grid; ++j) {
           T g, dg;
-          Pot::eval(xb, vb, i, step * (T)j, B, g, dg);
+          Pot::eval(xb, vb, nullptr, B, i, step * (T)j, g, dg);
           T f = g * vi, gd = dg * vi;
           if (!p.signed_bound) {
             // d/dt max(r, 0): JAX's JVP takes half the tangent at r == 0
@@ -228,7 +126,7 @@ __global__ void zigzag_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__
       T lam_t = zero;
       for (int i = 0; i < d; ++i) {
         T g, dg;
-        Pot::eval(xb, vb, i, tp_safe, B, g, dg);
+        Pot::eval(xb, vb, nullptr, B, i, tp_safe, g, dg);
         lam_t += nmax(g * vb[i * B], zero);
       }
       const T ar_new = lam_t / lam_bar;
@@ -253,7 +151,7 @@ __global__ void zigzag_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__
         T total = zero;
         for (int i = 0; i < d; ++i) {
           T g, dg;
-          Pot::eval(xb, vb, i, flow_t, B, g, dg);
+          Pot::eval(xb, vb, nullptr, B, i, flow_t, g, dg);
           total += nmax(g * vb[i * B], zero);
         }
         const T thresh = u_flip * total;
@@ -261,7 +159,7 @@ __global__ void zigzag_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__
         int n_le = 0;
         for (int i = 0; i < d; ++i) {
           T g, dg;
-          Pot::eval(xb, vb, i, flow_t, B, g, dg);
+          Pot::eval(xb, vb, nullptr, B, i, flow_t, g, dg);
           c += nmax(g * vb[i * B], zero);
           n_le += c <= thresh;
         }

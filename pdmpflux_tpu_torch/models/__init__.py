@@ -1,2 +1,4 @@
+from ..core.types import EV_STICK, EV_THAW  # noqa: F401
 from .base import PDMP  # noqa: F401
+from .sticky import StickyZigZag, StickyZigZagAD  # noqa: F401
 from .zigzag import ZigZag, ZigZagAD  # noqa: F401

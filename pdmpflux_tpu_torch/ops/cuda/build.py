@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels and bind them through ``ctypes``.
 
-``nvcc`` compiles every ``csrc/*.cu`` of the package into one shared library
-with a plain C interface, for Hopper (``sm_90a``), at first use.  The library
-lands in ``pdmpflux_tpu_torch/_build/`` (git-ignored) under a name that hashes
-the sources and flags, so an edited source rebuilds and an unchanged one
-loads the library already built.
+``nvcc`` compiles every ``csrc/*.cu`` of the package (they share
+``csrc/pdmp_common.cuh``) for Hopper (``sm_90a``) at first use: one
+``nvcc -c`` per source, all started together, then one link into a shared
+library with a plain C interface.  The library lands in
+``pdmpflux_tpu_torch/_build/`` (git-ignored) under a name that hashes the
+sources and flags, so an edited source rebuilds and an unchanged one loads
+the library already built.
 
 Each kernel wrapper adds one to its entry of :data:`LAUNCHES` where it
 launches its kernel, and checks the error code the C launcher returns
@@ -25,9 +27,9 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
-LAUNCHES = {"zigzag_chunk": 0, "compact_rows": 0}
+LAUNCHES = {"zigzag_chunk": 0, "sticky_chunk": 0, "compact_rows": 0}
 """Kernel launches since the last :func:`reset_launches`."""
 
 BUILD_INFO: dict = {}
@@ -60,6 +62,14 @@ def _declare(lib) -> None:
         + [i] * 3                       # cap, tile, seed
         + [p] * 10 + [p]                # state, event rows, stream
     )
+    lib.sticky_chunk_launch.restype = i
+    lib.sticky_chunk_launch.argtypes = (
+        [i] * 8 + [ctypes.c_double] + [i] * 3
+        + [p] * 7                       # x, v, fs, iscal, ring, act, kappa
+        + [p] * 6 + [p]                 # event rows (act last), stream
+    )
+    lib.sticky_chunk_max_dim.restype = l
+    lib.sticky_chunk_max_dim.argtypes = [i]
     lib.compact_rows_launch.restype = i
     lib.compact_rows_launch.argtypes = [
         p, l, i, i, p, i, i,            # kind, kind row stride, T, B, off, W, n
@@ -83,16 +93,30 @@ def library():
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path = BUILD_DIR / f"libpdmpflux_kernels_{h.hexdigest()[:16]}.so"
     if not path.exists():
-        tmp = path.with_suffix(f".{os.getpid()}.tmp.so")
         t0 = time.perf_counter()
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, path)
-        BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                          log=proc.stdout + proc.stderr)
+        tag = f"{os.getpid()}.tmp"
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+        try:
+            procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)
+                     for src, obj in zip(sources, objs)]
+            log = [proc.communicate()[0] for proc in procs]  # wait for every compile
+            for src, proc, out in zip(sources, procs, log):
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
+            tmp = path.with_suffix(f".{tag}.so")
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                                   *map(str, objs)], capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+            os.replace(tmp, path)
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+        BUILD_INFO.update(seconds=time.perf_counter() - t0, log="".join(log))
     BUILD_INFO["path"] = str(path)
     lib = ctypes.CDLL(str(path))
     _declare(lib)

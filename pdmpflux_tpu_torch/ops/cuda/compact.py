@@ -130,12 +130,13 @@ def compact_rows(kind: torch.Tensor, fields: Sequence[FieldSpec],
 
 
 def _fill_sources(fill: RawFill):
-    """Skeleton field -> ``(T, F, B)`` source view of a raw fill (None: the
-    all-true activity rows of a non-sticky fill)."""
+    """Skeleton field -> ``(T, F, B)`` source view of a raw fill: a sticky
+    fill's activity stream, or None for the all-true activity rows of a
+    non-sticky fill."""
     return {
         "x": fill.x, "v": fill.v,
         "t": fill.fs[:, 0:1], "horizon": fill.fs[:, 1:2], "ar": fill.fs[:, 2:3],
-        "is_active": None,
+        "is_active": fill.act,
         "rejected": fill.kind[:, 1:2], "errored_bound": fill.kind[:, 2:3],
         "hitting_horizon": fill.kind[:, 3:4],
         "error_value_ar": fill.ring, "kind": fill.kind[:, 0:1],

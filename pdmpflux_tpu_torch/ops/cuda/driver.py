@@ -1,13 +1,13 @@
-"""Stream-fill driver around K1 (``pdmpflux_tpu/ops/pallas/driver.py``).
+"""Stream-fill driver around K1 and K6 (``pdmpflux_tpu/ops/pallas/driver.py``).
 
 :func:`make_stream_runner` is the port of ``make_pallas_stream_runner`` for
-the non-sticky Zig-Zag in event-count mode: a host loop over chunks, one K1
-launch per chunk, each writing its ``K`` transition rows straight into the
-raw fill at the chunk's row offset, until every chain has its target count
-or the fill is full.  The loop reads the per-chain counts back once per
-chunk, exactly where the JAX ``while_loop`` tests ``any(count < target)``,
-so the number of chunks (and with it the ``fold_in`` key advance) equals
-the JAX driver's.
+the Zig-Zag and the Sticky Zig-Zag in event-count mode: a host loop over
+chunks, one K1 (K6 when sticky) launch per chunk, each writing its ``K``
+transition rows straight into the raw fill at the chunk's row offset, until
+every chain has its target count or the fill is full.  The loop reads the
+per-chain counts back once per chunk, exactly where the JAX ``while_loop``
+tests ``any(count < target)``, so the number of chunks (and with it the
+``fold_in`` key advance) equals the JAX driver's.
 """
 
 from __future__ import annotations
@@ -26,12 +26,17 @@ JAX package's constant, ``driver.py:24``)."""
 
 
 def kernel_kind(sampler):
-    """``"zigzag"`` for a non-sticky Zig-Zag with vectorized bounds, the only
-    family K1 covers so far; None otherwise."""
+    """``"zigzag"`` for a Zig-Zag or a Sticky Zig-Zag with vectorized bounds,
+    the families K1 and K6 cover so far (JAX ``driver.py:74-79``); None
+    otherwise."""
+    from ...models.sticky import StickyZigZag
     from ...models.zigzag import ZigZag
 
-    if (type(sampler) is ZigZag and sampler.vectorized_bound
-            and not getattr(sampler, "sticky", False)):
+    if getattr(sampler, "sticky", False):
+        if type(sampler) is StickyZigZag and sampler.vectorized_bound:
+            return "zigzag"
+        return None
+    if type(sampler) is ZigZag and sampler.vectorized_bound:
         return "zigzag"
     return None
 
@@ -46,8 +51,8 @@ class StreamResult(NamedTuple):
 def chunk_config(sampler, K: int, cap: int, tile: int) -> zc.ChunkConfig:
     if kernel_kind(sampler) is None:
         raise ValueError(
-            f"the fused chunk kernel covers ZigZag with vectorized_bound=True "
-            f"(non-sticky); got {type(sampler).__name__} with "
+            f"the fused chunk kernels cover ZigZag and StickyZigZag with "
+            f"vectorized_bound=True; got {type(sampler).__name__} with "
             f"vectorized_bound={getattr(sampler, 'vectorized_bound', None)}"
         )
     n_grid = sampler.grid_size if sampler.grid_size >= 2 else PALLAS_CONST_GRID
@@ -58,11 +63,14 @@ def chunk_config(sampler, K: int, cap: int, tile: int) -> zc.ChunkConfig:
         signed=bool(sampler.signed_bound),
         refresh_rate=float(sampler.refresh_rate), cap=int(cap), tile=int(tile),
         grad=grad, grad_jvp=grad_jvp, device_potential=potential,
+        kappa=sampler.kappa if getattr(sampler, "sticky", False) else None,
     )
 
 
-def chunk_state(state: PDMPState, counts: torch.Tensor) -> zc.ChunkState:
-    """A batched ``PDMPState`` in K1's layout (fresh tensors)."""
+def chunk_state(state: PDMPState, counts: torch.Tensor,
+                sticky: bool = False) -> zc.ChunkState:
+    """A batched ``PDMPState`` in the kernels' layout (fresh tensors); a
+    sticky chain also carries its activity mask."""
     dt = state.x.dtype
     return zc.ChunkState(
         x=state.x.T.contiguous(), v=state.v.T.contiguous(),
@@ -72,6 +80,7 @@ def chunk_state(state: PDMPState, counts: torch.Tensor) -> zc.ChunkState:
         iscal=torch.stack([state.mode, state.rejected, state.errored_bound,
                            state.hitting_horizon, counts]).to(torch.int32),
         ring=state.error_value_ar.T.to(dt).contiguous(),
+        act=state.is_active.T.contiguous() if sticky else None,
     )
 
 
@@ -94,14 +103,17 @@ def make_stream_runner(sampler, t_cap: int, n_events_target: int,
 
     def run(state: PDMPState, counts: torch.Tensor) -> StreamResult:
         B, d = state.x.shape
-        st = chunk_state(state, counts)
-        fill = zc.empty_fill(t_cap, d, B, state.x.dtype, state.x.device)
+        st = chunk_state(state, counts, cfg.sticky)
+        fill = zc.empty_fill(t_cap, d, B, state.x.dtype, state.x.device, cfg.sticky)
+        run_cfg = cfg
+        if cfg.sticky:  # kappa in the state's dtype, on its device, once per fill
+            run_cfg = cfg._replace(kappa=cfg.kappa.to(state.x.device, state.x.dtype))
         seed0 = key_seed(state.key)
         it = 0
         while it < n_chunks and bool(
                 (st.iscal[zc.I_CNT] < n_events_target).any()):
             zc.run_chunk(rng.wrap_int32(seed0 + it * 1000003), st, fill,
-                         it * chunk, cfg)
+                         it * chunk, run_cfg)
             it += 1
         fs = st.fs
         new_state = state._replace(
@@ -112,6 +124,7 @@ def make_stream_runner(sampler, t_cap: int, n_events_target: int,
             errored_bound=st.iscal[zc.I_ERR],
             hitting_horizon=st.iscal[zc.I_HIT],
             error_value_ar=st.ring.T,
+            is_active=st.act.T if cfg.sticky else state.is_active,
             key=rng.fold_in(state.key, it),
         )
         rows = it * chunk

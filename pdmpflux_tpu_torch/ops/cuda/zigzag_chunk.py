@@ -1,18 +1,24 @@
-"""K1: a chunk of ``K`` fused Zig-Zag transitions per chain.
+"""K1 and K6: a chunk of ``K`` fused Zig-Zag transitions per chain.
 
 Replaces ``pdmpflux_tpu/ops/pallas/zigzag_chunk.py:run_chunk`` with
-``kind="zigzag"``, ``sticky=False`` and ``mode="events"``.  Each of the ``K``
-transitions builds the grid envelope with time tangents, inverts the
-Poisson clock, runs the thinning test, flows, flips one coordinate, commits
-the Kahan clock, adapts the horizon and emits one event row.
+``kind="zigzag"`` and ``mode="events"``: K1 for ``sticky=False``, K6 for
+``sticky=True``.  Each of the ``K`` transitions builds the grid envelope with
+time tangents, inverts the Poisson clock, runs the thinning test, flows,
+flips one coordinate, commits the Kahan clock, adapts the horizon and emits
+one event row.  The sticky variant also carries the activity mask and the
+thaw clock: rates and flows use the masked velocity, a fresh proposal whose
+flow would cross an axis sticks the first coordinate to reach it, a thaw
+clock below the proposal releases a frozen coordinate drawn in proportion to
+``kappa``, and every row records the activity mask.
 
 Two versions of the same function live here:
 
 * :func:`run_chunk_plain`, plain PyTorch on ``(d, B)`` chain-minor tensors,
-  operation for operation the Pallas body (``_make_kernel``).  It draws the
-  same Threefry counters, so on the same state it reproduces the Pallas
-  kernel trajectory by trajectory.
-* the CUDA kernel in ``csrc/zigzag_chunk.cu``, one thread per chain.
+  operation for operation the Pallas body (``_make_kernel``), sticky branches
+  included.  It draws the same Threefry counters, so on the same state it
+  reproduces the Pallas kernel trajectory by trajectory.
+* the CUDA kernels: ``csrc/zigzag_chunk.cu`` (K1, one thread per chain) and
+  ``csrc/sticky_chunk.cu`` (K6, one CTA per chain).
 
 :func:`run_chunk` takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.
@@ -20,10 +26,11 @@ tensors it launches the kernel or raises.
 Layouts (kernel layout, chains on the minor axis): state ``x``/``v``
 ``(d, B)``, ``fs`` ``(8, B)`` float rows ``[t, t_comp, ts, horizon,
 bound_h, exp_rv, ar, tt]``, ``iscal`` ``(5, B)`` int32 rows ``[mode,
-rejected, errored, hitting, count]``, ``ring`` ``(5, B)``.  A
-:class:`RawFill` holds ``T`` event rows: ``kind`` ``(T, 4, B)`` int32
-``[kind, rejected, errored, hitting]``, ``x``/``v`` ``(T, d, B)``, ``fs``
-``(T, 3, B)`` ``[t + ts, horizon, ar]`` and ``ring`` ``(T, 5, B)``.  A
+rejected, errored, hitting, count]``, ``ring`` ``(5, B)``, and for sticky
+chains ``act`` ``(d, B)`` bool.  A :class:`RawFill` holds ``T`` event rows:
+``kind`` ``(T, 4, B)`` int32 ``[kind, rejected, errored, hitting]``,
+``x``/``v`` ``(T, d, B)``, ``fs`` ``(T, 3, B)`` ``[t + ts, horizon, ar]``,
+``ring`` ``(T, 5, B)`` and, when sticky, ``act`` ``(T, d, B)`` bool.  A
 chunk writes rows ``row0 .. row0 + K - 1``; state tensors update in place.
 """
 
@@ -38,6 +45,8 @@ from ...core import rng
 from ...core.types import (
     ERROR_RING_SIZE,
     EV_JUMP,
+    EV_STICK,
+    EV_THAW,
     MODE_ERRONEOUS,
     MODE_FRESH,
     MODE_REJECTED,
@@ -53,37 +62,41 @@ NI = 5
 HORIZON_GROW = 1.01
 HORIZON_SHRINK = 1.04
 MAX_GRID = 64
-"""Most envelope grid points the CUDA kernel keeps per chain."""
+"""Most envelope grid points the CUDA kernels keep per chain."""
 
 
 class ChunkState(NamedTuple):
-    """Per-chain state in kernel layout (see the module docstring)."""
+    """Per-chain state in kernel layout (see the module docstring); ``act``
+    is None for a non-sticky chain."""
 
     x: torch.Tensor
     v: torch.Tensor
     fs: torch.Tensor
     iscal: torch.Tensor
     ring: torch.Tensor
+    act: Optional[torch.Tensor] = None
 
 
 class RawFill(NamedTuple):
-    """``T`` raw transition rows of a stream fill, chains minor."""
+    """``T`` raw transition rows of a stream fill, chains minor; ``act`` is
+    None for a non-sticky fill (every row all active)."""
 
     kind: torch.Tensor
     x: torch.Tensor
     v: torch.Tensor
     fs: torch.Tensor
     ring: torch.Tensor
+    act: Optional[torch.Tensor] = None
 
     @property
     def rows(self) -> int:
         return self.kind.shape[0]
 
     def head(self, rows: int) -> "RawFill":
-        return RawFill(*(a[:rows] for a in self))
+        return RawFill(*(None if a is None else a[:rows] for a in self))
 
 
-def empty_fill(T: int, d: int, B: int, dtype, device) -> RawFill:
+def empty_fill(T: int, d: int, B: int, dtype, device, sticky: bool = False) -> RawFill:
     """Uninitialized fill buffers: every row a chunk covers is written."""
     def f(*s):
         return torch.empty(s, dtype=dtype, device=device)
@@ -92,11 +105,13 @@ def empty_fill(T: int, d: int, B: int, dtype, device) -> RawFill:
         kind=torch.empty((T, 4, B), dtype=torch.int32, device=device),
         x=f(T, d, B), v=f(T, d, B), fs=f(T, 3, B),
         ring=f(T, ERROR_RING_SIZE, B),
+        act=(torch.empty((T, d, B), dtype=torch.bool, device=device)
+             if sticky else None),
     )
 
 
 class ChunkConfig(NamedTuple):
-    """Static parameters of K1 (the Pallas kernel's static arguments)."""
+    """Static parameters of K1/K6 (the Pallas kernel's static arguments)."""
 
     n_grid: int
     K: int
@@ -107,11 +122,16 @@ class ChunkConfig(NamedTuple):
     tile: int
     grad: Callable                      # (d, B) -> (d, B) gradient
     grad_jvp: Callable                  # (x, v) -> (grad(x), H(x) v)
-    device_potential: Optional[str]     # potential tag the CUDA kernel takes
+    device_potential: Optional[str]     # potential tag the CUDA kernels take
+    kappa: Optional[torch.Tensor] = None  # (d,) thaw rates; None: not sticky
+
+    @property
+    def sticky(self) -> bool:
+        return self.kappa is not None
 
 
 def lane_gradients(grad_U: Callable, device_potential: Optional[str]):
-    """Chain-minor ``(grad, grad_jvp)`` for K1's plain version: the device
+    """Chain-minor ``(grad, grad_jvp)`` for the plain version: the device
     potential's own formulas when tagged, else ``torch.func`` on the
     per-chain ``grad_U``."""
     if device_potential in LANE_POTENTIALS:
@@ -144,10 +164,21 @@ def _grid_rates(grad_jvp, x, v, step, n_grid, signed):
     return torch.maximum(r, zero), dr * coef
 
 
+def _categorical_rows(w, u):
+    """Per-chain inverse-CDF draw over rows, ``P(i) = w[i] / sum(w)``
+    (``zigzag_chunk._categorical_rows``): count ``c <= u * c[d-1]`` over the
+    inclusive prefix sums, clamped to ``d - 1``."""
+    d = w.shape[0]
+    c = torch.cumsum(w, dim=0)
+    m = torch.sum((c <= (u * c[d - 1])[None, :]).to(torch.int32), dim=0)
+    return torch.clamp_max(m, d - 1)
+
+
 def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
                     cfg: ChunkConfig) -> None:
-    """Plain PyTorch version of K1; runs on any device."""
-    x, v, fs, iscal, ring = st
+    """Plain PyTorch version of K1 and K6; runs on any device."""
+    x, v, fs, iscal, ring, act = st
+    sticky = cfg.sticky
     d, B = x.shape
     dt = x.dtype
     n_grid, G = cfg.n_grid, cfg.n_grid - 1
@@ -156,16 +187,23 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
     iota_d = torch.arange(d, device=x.device)[:, None]
     zero = torch.zeros((B,), dtype=dt, device=x.device)
     izero = torch.zeros((B,), dtype=torch.int32, device=x.device)
+    inf = torch.full((B,), float("inf"), dtype=dt, device=x.device)
+    no = torch.zeros((B,), dtype=torch.bool, device=x.device)
+    if sticky:
+        kappa = cfg.kappa.to(device=x.device, dtype=dt)[:, None]   # (d, 1)
 
     for k in range(cfg.K):
-        t_s, tc_s, ts_s, h_s, bh_s, exp_s, ar_s = (fs[i].clone() for i in range(7))
+        t_s, tc_s, ts_s, h_s, bh_s, exp_s, ar_s, tt_s = (fs[i].clone()
+                                                          for i in range(NF))
         mode_s, rej, err, hit, cnt = (iscal[i].clone() for i in range(NI))
         ring0 = ring.clone()
+        act0 = act.clone() if sticky else None
         live = cnt < cfg.cap
+        va = v * act0.to(dt) if sticky else v
 
         # ---- envelope on [0, bh]: tangent-intersection segment maxima ----
         step = bh_s / G
-        f_all, g_all = _grid_rates(cfg.grad_jvp, x, v, step, n_grid, cfg.signed)
+        f_all, g_all = _grid_rates(cfg.grad_jvp, x, va, step, n_grid, cfg.signed)
         box = []
         f_prev = g_prev = None
         for j in range(n_grid):
@@ -191,7 +229,7 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
         # ---- invert the envelope at the Exp clock ----
         idx = sum((c < exp_s).to(torch.int32) for c in cum)
         overflow = idx >= n_grid
-        tp = torch.full((B,), float("inf"), dtype=dt, device=x.device)
+        tp = inf
         lam_bar = box[G - 1]
         for j in range(1, n_grid):
             sel = idx == j
@@ -206,13 +244,35 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
         tp_safe = torch.where(overflow, zero, tp)
 
         # ---- thinning at tp on the unsigned rate ----
-        lam_t = torch.sum(torch.clamp_min(grad(x + v * tp_safe) * v, 0.0), dim=0)
+        lam_t = torch.sum(torch.clamp_min(grad(x + va * tp_safe) * va, 0.0), dim=0)
         ar_new = lam_t / lam_bar
 
-        beyond = tp > h_s
-        p_moveh = beyond & ~erroneous
-        p_erreset = beyond & erroneous
-        p_ac = ~beyond
+        # ---- sticky: thaw clock and the axis crossing at fresh proposals ----
+        if sticky:
+            min_pt = torch.minimum(tp, tt_s)
+            event_time = torch.minimum(min_pt, h_s)
+            x_probe = x + va * event_time
+            any_crossing = torch.sum((x * x_probe < 0).to(dt), dim=0) > 0
+            v_safe = torch.where(va == 0, torch.ones_like(va), va)
+            tj = torch.where(act0 & (x * v < 0) & (va != 0), -x / v_safe,
+                             torch.full_like(x, float("inf")))
+            t_togo = torch.amin(tj, dim=0)
+            i_stick = torch.argmin(tj, dim=0)      # first index on ties
+            p_stick = fresh & any_crossing & torch.isfinite(t_togo)
+        else:
+            min_pt = tp
+            p_stick = no
+
+        beyond = min_pt > h_s
+        p_moveh = ~p_stick & beyond & ~erroneous
+        p_erreset = ~p_stick & beyond & erroneous
+        thin = ~p_stick & ~beyond
+        if sticky:
+            p_thaw = thin & (tt_s <= tp)
+            p_ac = thin & (tp < tt_s)
+        else:
+            p_thaw = no
+            p_ac = thin
         p_err = p_ac & (ar_new > 1.0)
         p_proxy = p_ac & ~p_err
         u_acc = rng.uniform(seeds, k, 1, cfg.tile, dt)
@@ -221,21 +281,39 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
         p_acc = p_proxy & acc
         p_rej = p_proxy & ~acc
 
-        # ---- flow, then the inverse-CDF coordinate flip ----
+        # ---- flow on the masked velocity, then the coordinate flip ----
         flow_t = torch.where(p_moveh, h_s, torch.where(p_acc, tp_safe, zero))
-        x_new = x + v * flow_t
-        rates_flip = torch.clamp_min(grad(x_new) * v, 0.0)
-        c = torch.cumsum(rates_flip, dim=0)
-        m = torch.sum((c <= (u_flip * c[d - 1])[None, :]).to(torch.int32), dim=0)
-        m = torch.clamp_max(m, d - 1)
+        if sticky:
+            flow_t = torch.where(p_stick, t_togo, torch.where(p_thaw, tt_s, flow_t))
+        x_new = x + va * flow_t
+        # the latent v survives the flow; flip rates use the old mask
+        rates_flip = torch.clamp_min(grad(x_new) * va, 0.0)
+        m = _categorical_rows(rates_flip, u_flip)
         v_new = torch.where((iota_d == m[None, :]) & p_acc[None, :], -v, v)
 
+        # ---- sticky activity updates and the fresh thaw clock ----
+        if sticky:
+            w_thaw = torch.where(act0, torch.zeros_like(x), kappa.expand(d, B))
+            i_thaw = _categorical_rows(w_thaw, rng.uniform(seeds, k, 3, cfg.tile, dt))
+            act_new = torch.where(
+                (iota_d == i_stick[None, :]) & p_stick[None, :], False,
+                torch.where((iota_d == i_thaw[None, :]) & p_thaw[None, :], True, act0))
+            rate_thaw = torch.sum(kappa * (1.0 - act_new.to(dt)), dim=0)
+            e_tt = rng.exponential(seeds, 0xC0000000 + k, cfg.tile, dt)
+            tt_fresh = torch.where(
+                rate_thaw > 0,
+                e_tt / torch.where(rate_thaw > 0, rate_thaw, torch.ones_like(rate_thaw)),
+                inf)
+
         # ---- Kahan time commit, horizon adaptation ----
-        inc = tp_safe + ts_s
+        inc_t = tp_safe
+        if sticky:
+            inc_t = torch.where(p_stick, t_togo, torch.where(p_thaw, tt_s, tp_safe))
+        inc = inc_t + ts_s
         y = inc - tc_s
         s_sum = t_s + y
         tc_k = (s_sum - t_s) - y
-        is_event = p_acc
+        is_event = p_acc | p_stick | p_thaw
         t_new = torch.where(is_event, s_sum, t_s)
         tc_new = torch.where(is_event, tc_k, tc_s)
         ts_new = torch.where(is_event, zero,
@@ -254,7 +332,7 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
         slot = torch.arange(ERROR_RING_SIZE, device=x.device)[:, None]
         ring_new = torch.where(p_err[None, :] & (ring_idx[None, :] == slot),
                                ar_new[None, :], ring0)
-        reset = p_moveh | p_erreset | p_acc
+        reset = p_stick | p_moveh | p_erreset | p_thaw | p_acc
         e_draw = rng.exponential(seeds, 0x80000000 + k, cfg.tile, dt)
         exp_new = torch.where(reset | p_err, e_draw,
                               torch.where(p_rej, exp_s + e_draw, exp_s))
@@ -264,6 +342,7 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
                         torch.where(p_rej, MODE_REJECTED, mode_s))).to(torch.int32)
         bh_new = torch.where(reset, h_new, torch.where(p_err, h_s * 0.5, bh_s))
         ar_state = torch.where(p_ac, ar_new, ar_s)
+        tt_new = torch.where(reset, tt_fresh, tt_s) if sticky else tt_s
 
         # ---- freeze finished chains ----
         def keep(new, old):
@@ -273,13 +352,19 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
         x_new = torch.where(lv, x_new, x)
         v_new = torch.where(lv, v_new, v)
         ring_new = torch.where(lv, ring_new, ring0)
+        if sticky:
+            act_new = torch.where(lv, act_new, act0)
         t_new, tc_new, ts_new = keep(t_new, t_s), keep(tc_new, tc_s), keep(ts_new, ts_s)
         h_new, bh_new = keep(h_new, h_s), keep(bh_new, bh_s)
         exp_new, ar_state = keep(exp_new, exp_s), keep(ar_state, ar_s)
+        tt_new = keep(tt_new, tt_s)
         mode_new = keep(mode_new, mode_s)
         rej_new, err_new, hit_new = keep(rej_new, rej), keep(err_new, err), keep(hit_new, hit)
         is_event = is_event & live
-        kval = is_event.to(torch.int32) * EV_JUMP
+        kval = torch.where(p_acc, EV_JUMP,
+                           torch.where(p_stick, EV_STICK,
+                                       torch.where(p_thaw, EV_THAW, 0)))
+        kval = torch.where(is_event, kval, 0).to(torch.int32)
         cnt_new = cnt + (kval > 0).to(torch.int32)
 
         # ---- emit the event row ----
@@ -287,6 +372,8 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
         fill.kind[r] = torch.stack([kval, rej_new, err_new, hit_new])
         fill.x[r] = x_new
         fill.v[r] = v_new
+        if sticky:
+            fill.act[r] = act_new
         fill.fs[r] = torch.stack([t_new + ts_new, h_new, ar_state])
         fill.ring[r] = ring_new
 
@@ -299,16 +386,25 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
 
         x.copy_(x_new)
         v.copy_(v_new)
-        fs[:7] = torch.stack([t_new, tc_new, ts_new, h_new, bh_new, exp_new,
-                              ar_state])
+        if sticky:
+            act.copy_(act_new)
+        fs.copy_(torch.stack([t_new, tc_new, ts_new, h_new, bh_new, exp_new,
+                              ar_state, tt_new]))
         iscal.copy_(torch.stack([mode_new, rej_new, err_new, hit_new, cnt_new]))
         ring.copy_(ring_new)
 
 
+def sticky_max_dim(dtype) -> int:
+    """Largest ``d`` K6 takes: its per-chain copy of x, v, kappa, a scan
+    buffer and the activity bytes must fit one block's shared memory."""
+    return int(build.library().sticky_chunk_max_dim(int(dtype == torch.float64)))
+
+
 def _check_cuda(st: ChunkState, fill: RawFill, row0: int, cfg: ChunkConfig):
+    what = "Sticky Zig-Zag" if cfg.sticky else "Zig-Zag"
     if cfg.device_potential not in DEVICE_POTENTIALS:
         raise ValueError(
-            "the CUDA Zig-Zag kernel covers the device potentials "
+            f"the CUDA {what} kernel covers the device potentials "
             f"{sorted(DEVICE_POTENTIALS)} (utils.potentials: gauss, grad_gauss, "
             "banana, grad_banana); this sampler's gradient has none — run it "
             "with device='cpu'"
@@ -317,7 +413,7 @@ def _check_cuda(st: ChunkState, fill: RawFill, row0: int, cfg: ChunkConfig):
         raise ValueError(f"n_grid={cfg.n_grid} outside the kernel's [2, {MAX_GRID}]")
     dtype = st.x.dtype
     if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"the CUDA Zig-Zag kernel takes float32/float64, not {dtype}")
+        raise ValueError(f"the CUDA {what} kernel takes float32/float64, not {dtype}")
     d, B = st.x.shape
     want = {
         "x": (st.x, (d, B), dtype), "v": (st.v, (d, B), dtype),
@@ -329,20 +425,31 @@ def _check_cuda(st: ChunkState, fill: RawFill, row0: int, cfg: ChunkConfig):
         "ev_fs": (fill.fs, (fill.rows, 3, B), dtype),
         "ev_ring": (fill.ring, (fill.rows, ERROR_RING_SIZE, B), dtype),
     }
+    if cfg.sticky:
+        want.update({
+            "act": (st.act, (d, B), torch.bool),
+            "kappa": (cfg.kappa, (d,), dtype),
+            "ev_act": (fill.act, (fill.rows, d, B), torch.bool),
+        })
     for name, (a, shape, dt) in want.items():
-        if not a.is_cuda or a.device != st.x.device:
+        if a is None or not a.is_cuda or a.device != st.x.device:
             raise ValueError(f"{name} must lie on {st.x.device}")
         if tuple(a.shape) != shape or a.dtype != dt or not a.is_contiguous():
             raise ValueError(f"{name}: expected contiguous {dt} {shape}, got "
                              f"{a.dtype} {tuple(a.shape)}")
     if row0 < 0 or row0 + cfg.K > fill.rows:
         raise ValueError(f"rows {row0}..{row0 + cfg.K} outside the fill's {fill.rows}")
+    if cfg.sticky and d > (max_d := sticky_max_dim(dtype)):
+        raise ValueError(
+            f"d={d} exceeds the sticky kernel's {max_d} for {dtype}: one "
+            "chain's x, v, kappa, scan buffer and activity bytes must fit the "
+            "227 KB of shared memory a block can have")
 
 
 def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
               cfg: ChunkConfig) -> None:
-    """Run ``cfg.K`` transitions: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    """Run ``cfg.K`` transitions: the CUDA kernel (K6 when ``cfg.sticky``,
+    else K1) for CUDA tensors, the plain version for CPU tensors."""
     if not st.x.is_cuda:
         return run_chunk_plain(seed, st, fill, row0, cfg)
     _check_cuda(st, fill, row0, cfg)
@@ -350,7 +457,7 @@ def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
     d, B = st.x.shape
     p = ctypes.c_void_p
     r = row0
-    err = lib.zigzag_chunk_launch(
+    head = (
         ctypes.c_int(1 if st.x.dtype == torch.float64 else 0),
         ctypes.c_int(DEVICE_POTENTIALS[cfg.device_potential]),
         ctypes.c_int(d), ctypes.c_int(B), ctypes.c_int(cfg.K),
@@ -360,10 +467,18 @@ def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
         ctypes.c_int(rng.wrap_int32(seed)),
         p(st.x.data_ptr()), p(st.v.data_ptr()), p(st.fs.data_ptr()),
         p(st.iscal.data_ptr()), p(st.ring.data_ptr()),
-        p(fill.kind[r].data_ptr()), p(fill.x[r].data_ptr()),
-        p(fill.v[r].data_ptr()), p(fill.fs[r].data_ptr()),
-        p(fill.ring[r].data_ptr()),
-        p(torch.cuda.current_stream(st.x.device).cuda_stream),
     )
-    build.check(err, "zigzag_chunk")
-    build.LAUNCHES["zigzag_chunk"] += 1
+    rows = (p(fill.kind[r].data_ptr()), p(fill.x[r].data_ptr()),
+            p(fill.v[r].data_ptr()), p(fill.fs[r].data_ptr()),
+            p(fill.ring[r].data_ptr()))
+    stream = p(torch.cuda.current_stream(st.x.device).cuda_stream)
+    if cfg.sticky:
+        err = lib.sticky_chunk_launch(
+            *head, p(st.act.data_ptr()), p(cfg.kappa.data_ptr()), *rows,
+            p(fill.act[r].data_ptr()), stream)
+        build.check(err, "sticky_chunk")
+        build.LAUNCHES["sticky_chunk"] += 1
+    else:
+        err = lib.zigzag_chunk_launch(*head, *rows, stream)
+        build.check(err, "zigzag_chunk")
+        build.LAUNCHES["zigzag_chunk"] += 1

@@ -1,10 +1,19 @@
 """Test potentials (``pdmpflux_tpu/utils/potentials.py``) as torch functions.
 
 Each function below also carries a ``device_potential`` tag naming the
-potential that ``csrc/zigzag_chunk.cu`` implements on the card: the gradient
+potential that the fused CUDA kernels implement on the card: the gradient
 and the time derivative of the per-coordinate rate along the linear flow.
-A sampler built from a tagged potential or gradient can run the fused CUDA
-kernel; any other gradient runs only the plain PyTorch version on the CPU.
+A sampler built from a tagged potential or gradient can run them; any other
+gradient runs only the plain PyTorch version on the CPU.
+
+The kernels evaluate one coordinate ``i`` at time ``t`` along the flow,
+``g_i(x + v t)`` and ``(H(x + v t) v)_i``, from one definition
+(``csrc/pdmp_common.cuh``) that K1 (``csrc/zigzag_chunk.cu``) calls on the
+chain's column of the ``(d, B)`` state (stride ``B``) and K6
+(``csrc/sticky_chunk.cu``) on its shared-memory copy (stride 1) with the
+masked velocity ``v * act``.  The chain-minor functions at the end of this module
+are the same formulas on whole ``(d, B)`` tensors, for the plain versions;
+the plain K6 passes them the masked velocity.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""On-card checks of the port's kernels (marker ``cuda``).
+"""On-card checks of the port's kernels K1, K2 and K6 (marker ``cuda``).
 
 They skip where ``torch.cuda.is_available()`` is false (the CPU tier-1
 run); on a Hopper card run them with ``python -m pytest tests/test_torch_cuda.py
@@ -36,7 +36,7 @@ def test_k1_kernel_matches_plain_f64(dev, pot, signed):
                                      3, torch.float64, dev)
     cfg = driver.chunk_config(sampler, 16, 20, 128)
     st_k = driver.chunk_state(state, torch.zeros(300, dtype=torch.int32, device=dev))
-    st_p = k1.ChunkState(*(a.clone() for a in st_k))
+    st_p = k1.ChunkState(*(None if a is None else a.clone() for a in st_k))
     fills = [k1.empty_fill(32, 6, 300, torch.float64, dev) for _ in range(2)]
     n0 = build.LAUNCHES["zigzag_chunk"]
     for it in range(2):
@@ -45,6 +45,8 @@ def test_k1_kernel_matches_plain_f64(dev, pot, signed):
     torch.cuda.synchronize()
     assert build.LAUNCHES["zigzag_chunk"] == n0 + 2
     for a, b in zip((*st_k, *fills[0]), (*st_p, *fills[1])):
+        if a is None:  # no activity: not sticky
+            continue
         if a.dtype == torch.int32:
             assert torch.equal(a, b)
         else:
@@ -76,6 +78,72 @@ def test_sample_skeleton_on_card(dev):
     skel = pt.sample_skeleton(sampler, 400, np.zeros((512, 5)), np.ones((512, 5)),
                               seed=0, dtype=torch.float32)
     assert (skel.n_valid == 400).all()
-    assert min(build.LAUNCHES.values()) >= 1
+    assert build.LAUNCHES["zigzag_chunk"] >= 1 and build.LAUNCHES["compact_rows"] >= 1
     mean, var = pt.pooled_moments(skel, sampler, 200)
     assert (mean.abs() < 0.2).all() and ((var - 1).abs() < 0.3).all()
+
+
+@pytest.mark.parametrize("pot,d", [("gauss", 6), ("banana", 6), ("gauss", 200)])
+def test_k6_kernel_matches_plain_f64(dev, pot, d):
+    """K6 against its plain version over two chunks from one f64 state with
+    chains near the axes (sticks and thaws) and some chains capped."""
+    grad = {"gauss": pt.potentials.grad_gauss, "banana": pt.potentials.grad_banana}[pot]
+    B = 300
+    sampler = pt.StickyZigZag(d, grad, np.full(d, 3.0))
+    rs = np.random.default_rng(d)
+    state = sampler.init_state_batch(rs.normal(size=(B, d)) * 0.05,
+                                     rs.choice([-1.0, 1.0], size=(B, d)),
+                                     3, torch.float64, dev)
+    cfg = driver.chunk_config(sampler, 16, 40, 128)
+    cfg = cfg._replace(kappa=cfg.kappa.to(dev))
+    counts = torch.zeros(B, dtype=torch.int32, device=dev)
+    counts[::7] = 37
+    st_k = driver.chunk_state(state, counts, sticky=True)
+    st_p = k1.ChunkState(*(a.clone() for a in st_k))
+    fills = [k1.empty_fill(32, d, B, torch.float64, dev, sticky=True) for _ in range(2)]
+    n0 = build.LAUNCHES["sticky_chunk"]
+    for it in range(2):
+        k1.run_chunk(11 + it * 1000003, st_k, fills[0], 16 * it, cfg)
+        k1.run_chunk_plain(11 + it * 1000003, st_p, fills[1], 16 * it, cfg)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["sticky_chunk"] == n0 + 2
+    for a, b in zip((*st_k, *fills[0]), (*st_p, *fills[1])):
+        if a.dtype in (torch.int32, torch.bool):
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12, equal_nan=True)
+    kinds = fills[0].kind[:, 0]
+    assert (kinds == pt.EV_STICK).any() and (kinds == pt.EV_THAW).any()
+
+
+def test_sticky_sample_skeleton_on_card(dev):
+    kappa = 1.0
+    sampler = pt.StickyZigZag(4, pt.potentials.grad_gauss, np.full(4, kappa))
+    build.reset_launches()
+    skel = pt.sample_skeleton(sampler, 1000, np.full((256, 4), 0.3), np.ones((256, 4)),
+                              seed=0, dtype=torch.float32)
+    assert (skel.n_valid == 1000).all()
+    assert build.LAUNCHES["sticky_chunk"] >= 1 and build.LAUNCHES["compact_rows"] >= 1
+    assert build.LAUNCHES["zigzag_chunk"] == 0
+    assert not bool(skel.is_active.all())
+    xs = pt.sample_from_skeleton_batch(sampler, 500, skel)
+    phi0 = 1.0 / np.sqrt(2 * np.pi)
+    frozen = float((xs == 0.0).double().mean())
+    assert abs(frozen - phi0 / (kappa + phi0)) < 0.05
+
+
+def test_k6_refuses_what_it_cannot_run(dev):
+    """A sticky sampler on CUDA launches K6 or raises: past the shared-memory
+    limit on d, and for a gradient without a device potential."""
+    d = k1.sticky_max_dim(torch.float32) + 1
+    big = pt.StickyZigZag(d, pt.potentials.grad_gauss)
+    state = big.init_state_batch(np.zeros((2, d)), np.ones((2, d)), 0, torch.float32, dev)
+    cfg = driver.chunk_config(big, 4, 10, 128)
+    cfg = cfg._replace(kappa=cfg.kappa.to(dev, torch.float32))
+    st = driver.chunk_state(state, torch.zeros(2, dtype=torch.int32, device=dev), sticky=True)
+    fill = k1.empty_fill(4, d, 2, torch.float32, dev, sticky=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        k1.run_chunk(0, st, fill, 0, cfg)
+    untagged = pt.StickyZigZag(3, lambda x: x)
+    with pytest.raises(ValueError, match="device potentials"):
+        pt.sample_skeleton(untagged, 10, np.zeros((2, 3)), np.ones((2, 3)))

@@ -5,9 +5,9 @@ driver with K1's and K2's plain versions.  The JAX side is composed as its
 one-shot program does it (``api.py:532-553``): ``init_state`` on split keys,
 ``make_pallas_stream_runner(interpret=True)`` and
 ``compact_stream_rows_with_init``; stragglers merge further fills with
-``merge_stream_at_offsets`` (``api.py:725-736``).  Same seed, fill rows,
-chunk and RNG tile, float64: every Skeleton field must agree to 1e-10
-(rounding order only) and ``n_valid`` exactly.
+``merge_stream_at_offsets`` (``api.py:725-736``), in its two steps.  Same
+seed, fill rows, chunk and RNG tile, float64: every Skeleton field must
+agree to 1e-10 (rounding order only) and ``n_valid`` exactly.
 """
 
 import numpy as np
@@ -29,6 +29,19 @@ from pdmpflux_tpu_torch import convert  # noqa: E402
 D, B, N_SK, CHUNK, TILE, SEED = 4, 128, 64, 16, 128, 5
 
 
+def _jax_merge(width):
+    """``engine.merge_stream_at_offsets`` below the gather threshold, as its
+    two steps (``compact_stream_rows``, then ``merge_rows_at_offsets``), each
+    jitted on its own.  Jitted as one program, XLA's CPU backend returns a
+    different result for about one call in ten on the straggler fill of
+    ``t_cap=48`` (chain 0's merged rows), and run op by op it has aborted
+    with heap corruption; the two programs apart gave one result in 1200
+    calls."""
+    rows = jax.jit(lambda s: engine.compact_stream_rows(s, min(s.kind.shape[1], width)))
+    place = jax.jit(lambda a, r, o: engine.merge_rows_at_offsets(a, r, o, width))
+    return lambda acc, stream, off: place(acc, rows(stream), jnp.asarray(off, jnp.int32))
+
+
 def _jax_path(x0, v0, t_cap):
     sampler = pf.ZigZag(D, lambda x: x)
     target = N_SK - 1
@@ -39,7 +52,7 @@ def _jax_path(x0, v0, t_cap):
     run = jax.jit(pdrv.make_pallas_stream_runner(
         sampler, t_cap, target, chunk=CHUNK, tile=TILE, interpret=True))
     compact = jax.jit(lambda s, e: engine.compact_stream_rows_with_init(s, target, e))
-    merge = jax.jit(lambda a, s, o: engine.merge_stream_at_offsets(a, s, o, target + 1))
+    merge = _jax_merge(target + 1)
     counts = jnp.zeros((B,), jnp.int32)
     acc, fills = None, 0
     while True:

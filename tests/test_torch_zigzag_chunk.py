@@ -80,7 +80,7 @@ def _run_both(pot, d, grid, signed, jdt, seed):
     tst = tdrv.chunk_state(tstate, torch.as_tensor(counts0))
     fill = tzc.empty_fill(K, d, B, tst.x.dtype, "cpu")
     tzc.run_chunk(seed, tst, fill, 0, tdrv.chunk_config(ts, K, CAP, TILE))
-    mine = [a.numpy() for a in (*tst, *fill)]
+    mine = [a.numpy() for a in (*tst, *fill) if a is not None]  # no act: not sticky
     return outs, mine
 
 
