@@ -5,9 +5,10 @@
 Needs one CUDA card (Hopper: the kernels build for sm_90a) and ``nvcc``.
 Phases, one line each; any failure raises and exits non-zero:
 
-1. build the kernels (K1 fused Zig-Zag chunk, K6 its sticky variant, K2
-   event-row compaction) from ``pdmpflux_tpu_torch/csrc`` with nvcc, one
-   compile per source, all started together;
+1. build the kernels (K1 fused Zig-Zag chunk, K6 its sticky variant, K3/K5
+   the scalar-rate chunk, K2 event-row compaction) from
+   ``pdmpflux_tpu_torch/csrc`` with nvcc, one compile per source, all started
+   together;
 2. K1 against its plain PyTorch version on the card, float64, from the same
    state: integer outputs equal, floats to rtol 1e-9 (atol 1e-12 for values
    near zero such as the Kahan compensation), at d=10/B=8192 (gauss),
@@ -19,7 +20,8 @@ Phases, one line each; any failure raises and exits non-zero:
    both kernels launched, pooled moments in bench.py's bands; then (4b) the
    fill and the compaction timed apart, and each kernel checked against its
    plain version at exactly these shapes and float32 (K2 bit-identical, K1
-   as ``k1_compare_f32`` states) and timed beside it;
+   as ``compare_f32`` states, at least 99% of chains with equal decisions)
+   and timed beside it;
 5. a large-d run: ZigZag(1000), 256 chains x 512 points, float32, started
    in stationarity; complete, coordinate-pooled moments in band;
 6. K6 (the sticky chunk kernel) against its plain version, float64, two
@@ -35,7 +37,7 @@ Phases, one line each; any failure raises and exits non-zero:
    then (7b) its fill and compaction timed apart, K2 checked bit for bit
    against its plain version on this path's own fill (activity stream and
    init row included), and one K=32 chunk of K6 checked against its plain
-   version at exactly this shape in float32 (as ``k6_compare_f32`` states:
+   version at exactly this shape in float32 (as ``compare_f32`` states:
    every chain that leaves the plain trajectory must do so at an f32
    rounding tie), each timed beside its plain version; and (7c) the median
    warm call split into K6 launches x ms, K2 and the rest (host work, during
@@ -43,11 +45,39 @@ Phases, one line each; any failure raises and exits non-zero:
 8. a law check: StickyZigZag(10, grad_gauss, kappa=1), 4096 chains x 2048
    points, float32; the coordinate-pooled frozen fraction of equal-time
    samples within 0.02 of p(0)/(1+p(0)) = 0.2852, the variance within 0.03
-   of 0.7148.
+   of 0.7148;
+9. K3 (BPS, Boomerang) and K5 (Forward ECMC), the scalar-rate chunk kernel,
+   against its plain version in float64, two K=32 chunks from one random
+   state with some chains capped: BPS gauss d=10 (signed), BPS aniso d=10
+   (unsigned, gaussian_velocity), Boomerang banana d=10, ECMC gauss d=10 in
+   three jump variants (all B=1024) and BPS gauss d=100 (B=256); integers
+   equal, floats to rtol 1e-9 (atol 1e-12);
+10. the ``bps_anisotropic_gauss_d10`` deployment: BPSAD(10,
+   anisotropic_gauss(linspace(0.5, 3, 10)), refresh_rate=0.5), 512 chains x
+   8192 points, float32, x0 = 0, v0 = 1; one warm call, then five timed warm
+   calls (median and spread), the first counted and checked: complete, K3 and
+   K2 launched, t non-decreasing and finite, pooled moments |mean_i| < 0.1
+   s_i and |var_i / s_i^2 - 1| < 0.1; then (10b) its fill and compaction
+   timed apart, K2 checked bit for bit on this fill, one K=32 chunk of K3
+   checked against its plain version at this shape in float32 (as
+   ``compare_f32`` states) and each timed beside its plain version; and
+   (10c) the median call split into K3, K2 and the rest;
+11. ``boomerang_gauss_d10``: Boomerang(10, grad_gauss, refresh_rate=0.5), 512
+   chains x 1024 points; complete, fills counted, moments of N(0, I); one
+   K=32 chunk of K3 checked against its plain version at this shape in
+   float32 (as ``compare_f32`` states);
+12. ``ecmc_gauss_d10``: ForwardECMCAD(10, gauss), 512 chains x 2048 points,
+   x0 ~ N(0, I) (see ``phase_ecmc``), v0 = 1/sqrt(10); complete, K5
+   launched, |v| = 1 on every row within 1e-5, moments of N(0, I); one K=32
+   chunk of K5 checked against its plain version at this shape in float32
+   (as ``compare_f32`` states) and timed beside it.
 
-Then one JSON line of per-kernel results (launches counted in the timed
-main-path run of each kernel's path: phase 4 for K1 and K2, phase 7 for K6),
-the card's name and power limit, and the status line.
+Then one JSON line of per-kernel results (launches counted in the timed run
+of each kernel's path: phase 4 for K1 and K2, phase 7 for K6, phase 10 for
+K3, phase 12 for K5; max_abs_err the largest of the kernel's comparisons
+with its plain version, f64 and f32; the bound of each timed launch computed
+from its shape and this run's data), the card's name and power limit, and
+the status line.
 """
 
 import json
@@ -70,6 +100,7 @@ from pdmpflux_tpu_torch.core.types import EV_INIT, event_from_state  # noqa: E40
 from pdmpflux_tpu_torch.ops.cuda import build  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import compact as k2  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import driver  # noqa: E402
+from pdmpflux_tpu_torch.ops.cuda import scalar_chunk as k3  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import zigzag_chunk as k1  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -79,6 +110,15 @@ LARGE = (1000, 256, 512)   # the large-d run
 STICKY = (1000, 128, 2048, 10.0)  # d, chains, points, kappa: sticky_zigzag_d1000
 STICKY_CALLS = 5  # timed warm calls of the sticky path
 STICKY_LAW = (10, 4096, 2048, 1.0)
+BPS_D10 = (10, 512, 8192, 0.5)    # d, chains, points, refresh: bps_anisotropic_gauss_d10
+BPS_CALLS = 5  # timed warm calls of the BPS path
+BOOMERANG_D10 = (10, 512, 1024, 0.5)  # boomerang_gauss_d10
+ECMC_D10 = (10, 512, 2048)            # ecmc_gauss_d10
+
+H100_BYTES_S = 3.35e12  # HBM3 rate of the H100 SXM (NVIDIA data sheet)
+H100_F32_OPS_S = 67e12  # float32 rate outside the tensor cores (the same sheet)
+THREEFRY_OPS = 115      # one Threefry-2x32 block: 20 rounds of add, rotate, xor + 5 key adds
+MATH_OPS = 40           # a log, sqrt, cos or sin, as instruction sequences
 
 
 def sync():
@@ -96,6 +136,78 @@ def cuda_ms(fn, reps):
     end.record()
     sync()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by, bytes side ms, operations side ms): the least
+    time of a kernel's work on the card, the larger of its bytes over the
+    memory rate and its operations over the float32 rate (integer work,
+    Threefry's included, counted at that rate)."""
+    t_bytes, t_ops = nbytes / H100_BYTES_S * 1e3, ops / H100_F32_OPS_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, t_bytes, t_ops
+
+
+def bound_text(b):
+    return f"{b[0]:.6f} ms ({b[1]}; bytes {b[2]:.6f} ms, operations {b[3]:.6f} ms)"
+
+
+def chunk_bytes(st, fill):
+    """A chunk launch reads the state once and writes it and its rows once."""
+    state = sum(a.numel() * a.element_size() for a in st if a is not None)
+    return 2 * state + sum(a.numel() * a.element_size() for a in fill if a is not None)
+
+
+def chunk_ops(cfg, d, live, jumps):
+    """Operations of ``live`` chain-transitions with ``jumps`` jumps among
+    them, counted from the kernel sources.  Per transition: the envelope
+    (Zig-Zag: per grid point and coordinate the gradient and its tangent, the
+    rate pair and the segment maximum with one divide, ~20; scalar rate: per
+    grid point and coordinate ~8 for the gradient, the two products and the
+    two ordered adds, plus ~15 per grid point for the segment; the elliptic
+    flow adds ~6 per coordinate and a cos and a sin per grid point), the
+    prefix sums and inversion (~3 per grid point), the thinning rate (~6 per
+    coordinate), the flow (2 per coordinate) and two Threefry blocks (the
+    acceptance uniform, the Exp clock).  Per jump: Zig-Zag one Threefry block
+    and two passes over the flip rates (~12 per coordinate); K3 per
+    coordinate one Box-Muller normal (two uniforms, each one Threefry block,
+    and a log, a sqrt and a cos) and ~12 for the gradient, three products and
+    the reflection; K5 per coordinate three normals (``bm(0)``-``bm(2)``) and
+    ~60 for its frame with ``switch``, else two normals and ~30."""
+    n_grid = cfg.n_grid
+    normal = 2 * THREEFRY_OPS + 3 * MATH_OPS
+    per = 3 * n_grid + 8 * d + 2 * THREEFRY_OPS
+    if cfg.kind == "zigzag":
+        per += n_grid * d * 20
+        jump = THREEFRY_OPS + 12 * d
+    else:
+        per += n_grid * (8 * d + 15)
+        if cfg.kind == "boomerang":
+            per += n_grid * (6 * d + 2 * MATH_OPS)
+        if cfg.kind == "ecmc":
+            switch = cfg.ecmc_params[2]
+            jump = d * (3 * normal + 60) if switch else d * (2 * normal + 30)
+        else:
+            jump = d * (normal + 12)
+    return live * per + jumps * jump
+
+
+def chunk_bound(cfg, st, fill, live):
+    jumps = int((fill.kind[:, 0] == pt.EV_JUMP).sum())
+    return bound(chunk_bytes(st, fill), chunk_ops(cfg, st.x.shape[0], live, jumps))
+
+
+def k2_bound(fill, counts, W):
+    """K2 reads every row's event kind, then the kept rows of the fill, and
+    writes them and the init row into the skeleton; the bytes are counted on
+    this fill's kept rows."""
+    T, B = fill.rows, fill.kind.shape[-1]
+    kept = int(torch.clamp_max(counts, W - 1).sum())
+    d, it = fill.x.shape[1], fill.x.element_size()
+    act = d if fill.act is not None else 0
+    row_in = 3 * 4 + (2 * d + 3 + 5) * it + act        # kind rows 1-3, x, v, fs, ring
+    row_out = 4 * 4 + (2 * d + 3 + 5) * it + d          # + is_active bytes
+    return bound(T * B * 4 + kept * row_in + (kept + B) * row_out, 0)
 
 
 def random_state(sampler, B, dtype, seed):
@@ -182,22 +294,25 @@ def phase_k1():
     return err
 
 
-def f32_agreement(what, st_k, fill_k, st_p, fill_p, decided_by_v):
+def f32_agreement(what, st_k, fill_k, st_p, fill_p, v_rtol=0.0):
     """Shared part of the f32 checks of a chunk kernel against its plain
     version: event kinds must agree on at least 99% of (transition, chain)
-    pairs, and the chains whose integer outputs and activity agree (and, with
-    ``decided_by_v``, whose +-1 velocities, which record the flips, agree
-    too) must agree in their floats to rtol 1e-3, atol 1e-4 (f32 rounding
-    order over 32 transitions).  Returns (kind agreement, mask of those
-    chains, max abs err on them)."""
+    pairs, and the chains that take identical decisions (integer outputs and
+    activity equal, and velocities, which record the jumps, equal within
+    ``v_rtol``: 0 for the +-1 Zig-Zag velocities) must agree in their floats
+    to rtol 1e-3, atol 1e-4 (f32 rounding order over 32 transitions).
+    Returns (kind agreement, mask of those chains, max abs err on them)."""
     agree = float((fill_k.kind[:, 0] == fill_p.kind[:, 0]).float().mean())
     if agree < 0.99:
         raise AssertionError(f"{what}: event kinds agree on only {agree:.4f}")
     outs_k, outs_p = chunk_outputs(st_k, fill_k), chunk_outputs(st_p, fill_p)
     same = torch.ones(st_k.x.shape[1], dtype=torch.bool, device=st_k.x.device)
     for (name, a), (_, b) in zip(outs_k, outs_p):
-        if not a.is_floating_point() or (decided_by_v and name in ("v", "ev_v")):
+        if not a.is_floating_point():
             same &= (a == b).reshape(-1, a.shape[-1]).all(dim=0)
+        elif name in ("v", "ev_v"):
+            near = (a - b).abs() <= v_rtol * b.abs()
+            same &= near.reshape(-1, a.shape[-1]).all(dim=0)
     err = 0.0
     for (name, a), (_, b) in zip(outs_k, outs_p):
         if a.is_floating_point():
@@ -206,46 +321,46 @@ def f32_agreement(what, st_k, fill_k, st_p, fill_p, decided_by_v):
     return agree, same, err
 
 
-def k1_compare_f32(st_k, fill_k, st_p, fill_p):
-    """K1 against its plain version from one f32 state: a rounding difference
-    may flip a thinning decision and send a chain down another valid path
-    (event kinds agree on at least 99%); every chain whose integer outputs
-    agree must agree in its floats, velocities included.  Returns (kind
-    agreement, max abs err on those chains)."""
-    agree, _, err = f32_agreement("K1 f32", st_k, fill_k, st_p, fill_p, False)
-    return agree, err
-
-
 F32_EPS = 2.0 ** -24
+K1_F32_SHARE = 0.99
 K6_F32_SHARE = 0.95
+K3_F32_SHARE = 0.95
+K3_V_RTOL = 1e-3
 
 
-def divergence(b, v0, fill_k, fill_p, cfg, seed):
+def divergence(b, v0, fill_k, fill_p, cfg, seed, v_rtol=0.0):
     """Where chain ``b`` of two f32 fills from one state first takes another
-    decision, and whether f32 rounding explains it.  A flip: recomputed in
-    float64 at the kernel's post-flow x, u * total lies within d * 2**-24 of
-    the total (the rounding bound of a sum of d non-negative f32 terms) from a
-    prefix sum between the two picked coordinates.  An accept against a
-    reject: the uniform lies between the two sides' acceptance ratios, which
-    agree to 1e-4.  Returns (text, explained)."""
+    decision, and whether f32 rounding explains it.  A Zig-Zag flip:
+    recomputed in float64 at the kernel's post-flow x, u * total lies within
+    d * 2**-24 of the total (the rounding bound of a sum of d non-negative f32
+    terms) from a prefix sum between the two picked coordinates.  A bounce
+    against a refresh (BPS, linear flow): recomputed in float64, the bounce
+    probability lies within 8 d * 2**-24 of the uniform that decides it.  An
+    accept against a reject: the uniform lies between the two sides'
+    acceptance ratios, which agree to 1e-4.  Velocities count as equal within
+    ``v_rtol``.  Returns (text, explained)."""
     B, d = fill_k.kind.shape[-1], fill_k.x.shape[1]
     kk, kp = fill_k.kind[:, 0, b], fill_p.kind[:, 0, b]
+    vk, vp = fill_k.v[:, :, b], fill_p.v[:, :, b]
     differs = ((fill_k.kind[:, :, b] != fill_p.kind[:, :, b]).any(1)
-               | (fill_k.v[:, :, b] != fill_p.v[:, :, b]).any(1)
-               | (fill_k.act[:, :, b] != fill_p.act[:, :, b]).any(1))
+               | ((vk - vp).abs() > v_rtol * vp.abs()).any(1))
+    if fill_k.act is not None:
+        differs |= (fill_k.act[:, :, b] != fill_p.act[:, :, b]).any(1)
     if not bool(differs.any()):
         return f"chain {b}: no event row differs, only the final state", False
     k = int(differs.nonzero()[0, 0])
     at = f"chain {b} transition {k}"
     seeds = rng.lane_seeds(seed, B, cfg.tile, DEV)
-    if (int(kk[k]) == int(kp[k]) == pt.EV_JUMP
-            and torch.equal(fill_k.act[k, :, b], fill_p.act[k, :, b])):
-        v_prev = (v0 if k == 0 else fill_k.v[k - 1])[:, b]
+    same_act = fill_k.act is None or torch.equal(fill_k.act[k, :, b], fill_p.act[k, :, b])
+    v_prev = (v0 if k == 0 else fill_k.v[k - 1])[:, b]
+    if int(kk[k]) == int(kp[k]) == pt.EV_JUMP and same_act and cfg.kind == "zigzag":
         m_k = int((fill_k.v[k, :, b] != v_prev).nonzero()[0, 0])
         m_p = int((fill_p.v[k, :, b] != v_prev).nonzero()[0, 0])
         if m_k == m_p:
             return f"{at}: both flip coordinate {m_k}, yet the rows differ", False
-        va = (v_prev * fill_k.act[k, :, b]).double()   # a jump keeps the mask
+        va = v_prev.double()
+        if fill_k.act is not None:
+            va = va * fill_k.act[k, :, b]   # a jump keeps the mask
         rates = torch.clamp_min(cfg.grad(fill_k.x[k, :, b, None].double())[:, 0] * va, 0.0)
         c = torch.cumsum(rates, 0)
         u = float(rng.uniform(seeds, k, 2, cfg.tile, torch.float32)[b])
@@ -256,6 +371,15 @@ def divergence(b, v0, fill_k, fill_p, cfg, seed):
                 f"u*total={u * total:.6f} lies {gap:.2e} of total={total:.3f} from a "
                 f"prefix sum between them (bound d*2^-24={d * F32_EPS:.2e})",
                 gap <= d * F32_EPS)
+    if int(kk[k]) == int(kp[k]) == pt.EV_JUMP and cfg.kind == "bps":
+        g = cfg.grad(fill_k.x[k, :, b, None].double())[:, 0]
+        br = max(0.0, float(torch.dot(g, v_prev.double())))
+        prob = br / (br + cfg.refresh_rate) if br + cfg.refresh_rate > 0 else 0.0
+        u = float(rng.uniform(seeds, k, 2, cfg.tile, torch.float32)[b])
+        return (f"{at}: the kernel and the plain version part at the bounce draw; in "
+                f"f64 the bounce probability is {prob:.8f}, the uniform {u:.8f} "
+                f"(bound 8*d*2^-24={8 * d * F32_EPS:.2e})",
+                abs(u - prob) <= 8 * d * F32_EPS)
     if sorted((int(kk[k]), int(kp[k]))) == [0, pt.EV_JUMP]:
         ar_k, ar_p = float(fill_k.fs[k, 2, b]), float(fill_p.fs[k, 2, b])
         u = float(rng.uniform(seeds, k, 1, cfg.tile, torch.float32)[b])
@@ -266,27 +390,27 @@ def divergence(b, v0, fill_k, fill_p, cfg, seed):
             "activity differs", False)
 
 
-def k6_compare_f32(v0, st_k, fill_k, st_p, fill_p, cfg, seed):
-    """K6 against its plain version from one f32 state (velocities ``v0``).
-    At d = 1000 the flip draw compares u * total against prefix sums of 1000
-    rates that the two sides add in different orders, so besides a thinning
-    decision a rounding difference may pick another flip coordinate.  Event
-    kinds must agree on at least 99% of (transition, chain) pairs; at least
-    95% of the chains must take identical decisions (integers, activity, +-1
-    velocities) and agree in their floats as :func:`f32_agreement` states;
-    every other chain must have left at a rounding tie (:func:`divergence`).
-    Returns (kind agreement, share, max abs err, divergence texts)."""
-    agree, same, err = f32_agreement("K6 f32", st_k, fill_k, st_p, fill_p, True)
+def compare_f32(what, v0, st_k, fill_k, st_p, fill_p, cfg, seed, share_min, v_rtol=0.0):
+    """A chunk kernel against its plain version from one f32 state
+    (velocities ``v0``): a rounding difference may flip a decision (thinning,
+    a Zig-Zag flip coordinate, a bounce against a refresh) and send a chain
+    down another valid path.  Event kinds must agree on at least 99% of
+    (transition, chain) pairs; at least ``share_min`` of the chains must take
+    identical decisions and agree in their floats as :func:`f32_agreement`
+    states; every other chain must have left at a rounding tie
+    (:func:`divergence`).  Returns (kind agreement, share, max abs err,
+    divergence texts)."""
+    agree, same, err = f32_agreement(what, st_k, fill_k, st_p, fill_p, v_rtol)
     share = float(same.float().mean())
     texts = []
     for b in (~same).nonzero()[:, 0].tolist():
-        text, explained = divergence(b, v0, fill_k, fill_p, cfg, seed)
+        text, explained = divergence(b, v0, fill_k, fill_p, cfg, seed, v_rtol)
         if not explained:
-            raise AssertionError(f"K6 f32: unexplained divergence, {text}")
+            raise AssertionError(f"{what}: unexplained divergence, {text}")
         texts.append(text)
-    if share < K6_F32_SHARE:
-        raise AssertionError(f"K6 f32: only {share:.4f} of the chains took equal "
-                             f"decisions (want >= {K6_F32_SHARE}); {'; '.join(texts)}")
+    if share < share_min:
+        raise AssertionError(f"{what}: only {share:.4f} of the chains took equal "
+                             f"decisions (want >= {share_min}); {'; '.join(texts)}")
     return agree, share, err, texts
 
 
@@ -424,28 +548,34 @@ def phase_breakdown(sampler):
     del outs, out
     k2_ms = cuda_ms(lambda: k2.compact_rows(kind, specs, off), 5)
     k2_plain_ms = cuda_ms(lambda: k2.compact_rows_plain(kind, specs, off), 2)
+    k2_b = k2_bound(res.fill, res.counts, target + 1)
     del res, specs, kind
 
     K = 32
     cfg = driver.chunk_config(sampler, K, 1 << 30, 128)
     st = driver.chunk_state(state, torch.zeros(B, dtype=torch.int32, device=DEV))
     st_p = clone_state(st)
+    v0 = st.v.clone()
     fill, fill_p = (k1.empty_fill(K, d, B, dtype, DEV) for _ in range(2))
     k1.run_chunk(7, st, fill, 0, cfg)
     k1.run_chunk_plain(7, st_p, fill_p, 0, cfg)
     sync()
-    k1_agree, k1_err = k1_compare_f32(st, fill, st_p, fill_p)
+    k1_agree, k1_share, k1_err, k1_texts = compare_f32(
+        "K1 f32", v0, st, fill, st_p, fill_p, cfg, 7, K1_F32_SHARE)
     del st_p, fill_p
+    k1_b = chunk_bound(cfg, st, fill, K * B)
     k1_ms = cuda_ms(lambda: k1.run_chunk(7, st, fill, 0, cfg), 20)
     k1_plain_ms = cuda_ms(lambda: k1.run_chunk_plain(7, st, fill, 0, cfg), 3)
     print(f"phase 4b breakdown (B={B}, d={d}, f32): fill {fill_s:.4f} s over "
           f"{t_cap} rows ({t_cap // K} K1 launches); K1 chunk (K={K}) "
           f"{k1_ms:.4f} ms vs plain {k1_plain_ms:.4f} ms, kinds agree on "
-          f"{k1_agree:.6f}, max_abs_err {k1_err:.3e} on the chains with equal "
-          f"integer outputs; K2 "
+          f"{k1_agree:.6f}, max_abs_err {k1_err:.3e} on the {k1_share:.4f} of chains "
+          f"with equal decisions (want >= {K1_F32_SHARE}); the others left at f32 "
+          f"rounding ties: {'; '.join(k1_texts) or 'none'}; K2 "
           f"compaction (T={t_cap}, W={target + 1}) {k2_ms:.4f} ms vs plain "
-          f"{k2_plain_ms:.4f} ms, bit-identical", flush=True)
-    return k1_ms, k1_plain_ms, k2_ms, k2_plain_ms, k2_err
+          f"{k2_plain_ms:.4f} ms, bit-identical; bounds: K1 {bound_text(k1_b)}, "
+          f"K2 {bound_text(k2_b)}", flush=True)
+    return k1_ms, k1_plain_ms, k2_ms, k2_plain_ms, k2_err, k1_b, k2_b
 
 
 def phase_large_d():
@@ -638,8 +768,10 @@ def phase_sticky_breakdown(sampler, k6_launches, wall):
     k1.run_chunk(seed, st, fill, 0, cfg)
     k1.run_chunk_plain(seed, st_p, fill_p, 0, cfg)
     sync()
-    agree, share, err, texts = k6_compare_f32(v0, st, fill, st_p, fill_p, cfg, seed)
+    agree, share, err, texts = compare_f32("K6 f32", v0, st, fill, st_p, fill_p, cfg,
+                                           seed, K6_F32_SHARE)
     del st_p, fill_p
+    k6_b = chunk_bound(cfg, st, fill, K * B)
     k6_ms = cuda_ms(lambda: k1.run_chunk(seed, st, fill, 0, cfg), 20)
     k6_plain_ms = cuda_ms(lambda: k1.run_chunk_plain(seed, st, fill, 0, cfg), 2)
     print(f"phase 7b sticky breakdown (B={B}, d={d}, f32): fill {fill_s:.4f} s over "
@@ -650,14 +782,14 @@ def phase_sticky_breakdown(sampler, k6_launches, wall):
           f"chunk (K={K}) {k6_ms:.4f} ms vs plain {k6_plain_ms:.4f} ms, kinds agree on "
           f"{agree:.6f}, max_abs_err {err:.3e} on the {share:.4f} of chains with equal "
           f"decisions (want >= {K6_F32_SHARE}); the others left at f32 rounding ties: "
-          f"{'; '.join(texts) or 'none'}", flush=True)
+          f"{'; '.join(texts) or 'none'}; K6 bound {bound_text(k6_b)}", flush=True)
     wall_ms, k6_total = wall * 1e3, k6_launches * k6_ms
     rest = wall_ms - k6_total - k2_ms
     print(f"phase 7c sticky time split of the median warm call ({wall_ms:.4f} ms): "
           f"K6 {k6_launches} x {k6_ms:.4f} = {k6_total:.4f} ms "
           f"({k6_total / wall_ms:.1%}); K2 {k2_ms:.4f} ms ({k2_ms / wall_ms:.1%}); "
           f"rest (host, card idle) {rest:.4f} ms ({rest / wall_ms:.1%})", flush=True)
-    return k6_ms, k6_plain_ms, k2_ms, k2_plain_ms, k2_err
+    return k6_ms, k6_plain_ms, k2_ms, k2_plain_ms, k2_err, k6_b
 
 
 def phase_sticky_law():
@@ -684,36 +816,352 @@ def phase_sticky_law():
           flush=True)
 
 
+def scalar_sampler(kind, pot, d, **kw):
+    if pot == "aniso":
+        U = pt.potentials.anisotropic_gauss(np.linspace(0.5, 3.0, d))
+        return {"bps": pt.BPSAD, "boomerang": pt.BoomerangAD,
+                "ecmc": pt.ForwardECMCAD}[kind](d, U, **kw)
+    grad = {"gauss": pt.potentials.grad_gauss, "banana": pt.potentials.grad_banana}[pot]
+    return {"bps": pt.BPS, "boomerang": pt.Boomerang, "ecmc": pt.ForwardECMC}[kind](
+        d, grad, **kw)
+
+
+def scalar_config(sampler, K, cap, dtype):
+    cfg = driver.chunk_config(sampler, K, cap, 128)
+    if cfg.pot_params is None:
+        return cfg
+    return cfg._replace(pot_params=cfg.pot_params.to(DEV, dtype))
+
+
+def scalar_f32_check(what, sampler, state, K=32, seed=7):
+    """One K=32 chunk of K3/K5 and of its plain version from one float32
+    ``state`` of a driven path, held as :func:`compare_f32` states (at least
+    ``K3_F32_SHARE`` of the chains with equal decisions).  Returns (config,
+    the kernel's state and fill, for timing, and the comparison's text and
+    max abs err)."""
+    d, B = state.x.shape[1], state.x.shape[0]
+    cfg = scalar_config(sampler, K, 1 << 30, torch.float32)
+    st = driver.chunk_state(state, torch.zeros(B, dtype=torch.int32, device=DEV))
+    st_p = clone_state(st)
+    v0 = st.v.clone()
+    fill, fill_p = (k1.empty_fill(K, d, B, torch.float32, DEV) for _ in range(2))
+    k3.run_chunk(seed, st, fill, 0, cfg)
+    k3.run_chunk_plain(seed, st_p, fill_p, 0, cfg)
+    sync()
+    agree, share, err, texts = compare_f32(what, v0, st, fill, st_p, fill_p, cfg, seed,
+                                           K3_F32_SHARE, K3_V_RTOL)
+    text = (f"kinds agree on {agree:.6f}, max_abs_err {err:.3e} on the {share:.4f} of "
+            f"chains with equal decisions (want >= {K3_F32_SHARE}); the others left at "
+            f"f32 rounding ties: {'; '.join(texts) or 'none'}")
+    return cfg, st, fill, text, err
+
+
+def k3_runs(kind, pot, d, B, kw, K=32, n_chunks=2):
+    """K3/K5 and their plain version, ``n_chunks`` chunks each from one f64
+    state: random positions, unit velocities (Gaussian for the Boomerang),
+    every 13th chain with x parallel to v (ECMC's degenerate frame), every
+    5th capped inside the run.  Returns the kernel's state and fill, then
+    the plain version's."""
+    sampler = scalar_sampler(kind, pot, d, **kw)
+    rs = np.random.default_rng(d + B)
+    x0, v0 = rs.normal(size=(B, d)), rs.normal(size=(B, d))
+    if kind != "boomerang":
+        v0 /= np.linalg.norm(v0, axis=1, keepdims=True)
+    x0[::13] = 0.5 * v0[::13]
+    state = sampler.init_state_batch(x0, v0, d + B, torch.float64, DEV)
+    counts = torch.zeros(B, dtype=torch.int32, device=DEV)
+    counts[::5] = 50  # some chains reach the cap of 64 inside the run
+    cfg = scalar_config(sampler, K, 64, torch.float64)
+    st_k = driver.chunk_state(state, counts)
+    st_p = clone_state(st_k)
+    fill_k, fill_p = (k1.empty_fill(K * n_chunks, d, B, torch.float64, DEV)
+                      for _ in range(2))
+    for it in range(n_chunks):
+        seed = 271828 + it * 1000003
+        k3.run_chunk(seed, st_k, fill_k, it * K, cfg)
+        k3.run_chunk_plain(seed, st_p, fill_p, it * K, cfg)
+    sync()
+    return st_k, fill_k, st_p, fill_p
+
+
+def k3_compare(kind, pot, d, B, kw):
+    """K3/K5 against their plain version (:func:`k3_runs`): integers equal,
+    floats to ``RTOL``/``ATOL``.  Returns (max abs err, events)."""
+    st_k, fill_k, st_p, fill_p = k3_runs(kind, pot, d, B, kw)
+    what = f"{k3.launch_name(kind)} {kind} {pot} d={d} {kw}"
+    err = 0.0
+    for (name, a), (_, b) in zip(chunk_outputs(st_k, fill_k), chunk_outputs(st_p, fill_p)):
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: output {name} differs at "
+                                     f"{int((a != b).sum())} places")
+        else:
+            err = max(err, float_err(what, name, a, b, RTOL, ATOL))
+    n_ev = int((fill_k.kind[:, 0] == pt.EV_JUMP).sum())
+    if n_ev < B or not bool((st_k.iscal[k1.I_CNT] == 64).any()):
+        raise AssertionError(f"{what}: {n_ev} events, or no capped chain")
+    return err, n_ev
+
+
+K3_CASES = [
+    ("bps", "gauss", 10, 1024, {}),
+    ("bps", "aniso", 10, 1024, dict(signed_bound=False, gaussian_velocity=True)),
+    ("boomerang", "banana", 10, 1024, {}),
+    ("ecmc", "gauss", 10, 1024, dict(switch=True, ran_p=False, positive=True, normal=False)),
+    ("ecmc", "gauss", 10, 1024, dict(switch=True, ran_p=True, positive=False, normal=False)),
+    ("ecmc", "gauss", 10, 1024, dict(switch=False, ran_p=False, positive=True, normal=True)),
+    ("bps", "gauss", 100, 256, {}),
+]
+
+
+def phase_k3():
+    parts, errs = [], {"bps_chunk": 0.0, "ecmc_chunk": 0.0}
+    for kind, pot, d, B, kw in K3_CASES:
+        err, n_ev = k3_compare(kind, pot, d, B, kw)
+        name = k3.launch_name(kind)
+        errs[name] = max(errs[name], err)
+        parts.append(f"{kind} {pot} d={d} B={B} {kw or ''} max_abs_err={err:.3e} "
+                     f"({n_ev} events)")
+    print(f"phase 9 K3/K5 vs plain (f64, 2 x K=32): {'; '.join(parts)}; ints equal, "
+          f"rtol {RTOL} atol {ATOL}", flush=True)
+    return errs
+
+
+def bps_deployment():
+    d, B, n_sk, refresh = BPS_D10
+    scales = np.linspace(0.5, 3.0, d)
+    sampler = pt.BPSAD(d, pt.potentials.anisotropic_gauss(scales), refresh_rate=refresh)
+    return sampler, scales, np.zeros((B, d)), np.ones((B, d))
+
+
+def phase_bps(card_name):
+    """The bps_anisotropic_gauss_d10 deployment (benchmarks/run_baselines.py:115-119
+    at scale 1, x0 = 0, v0 = 1 as at :193-200): one warm call, then five timed
+    warm calls, the first of them counted and checked."""
+    d, B, n_sk, refresh = BPS_D10
+    sampler, scales, x0, v0 = bps_deployment()
+    kw = dict(seed=0, dtype=torch.float32, device=DEV)
+    pt.sample_skeleton(sampler, n_sk, x0, v0, **kw)  # warm: allocator, fill ratio
+    sync()
+    walls = []
+    for call in range(BPS_CALLS):
+        if call == 0:
+            build.reset_launches()
+        t0 = time.perf_counter()
+        skel = pt.sample_skeleton(sampler, n_sk, x0, v0, **kw)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        if call == 0:
+            launches = dict(build.LAUNCHES)
+            checked = skel
+    skel = checked
+    if launches["bps_chunk"] < 1 or launches["compact_rows"] < 1:
+        raise AssertionError(f"BPS path missed a kernel: {launches}")
+    if not bool((skel.n_valid == n_sk).all()):
+        raise AssertionError(f"BPS path incomplete: n_valid min {int(skel.n_valid.min())}")
+    if not bool(torch.isfinite(skel.x).all() and torch.isfinite(skel.t).all()):
+        raise AssertionError("BPS path produced non-finite values")
+    if not bool((skel.t[:, 1:] >= skel.t[:, :-1]).all()):
+        raise AssertionError("BPS path: t decreases somewhere")
+    mean, var = (a.double().cpu().numpy() for a in pt.pooled_moments(skel, sampler, 256))
+    rel_var = var / scales ** 2 - 1.0
+    if not (np.all(np.abs(mean) < 0.1 * scales) and np.all(np.abs(rel_var) < 0.1)):
+        raise AssertionError(f"BPS moments off: mean {mean.tolist()} var/s^2 - 1 "
+                             f"{rel_var.tolist()}")
+    events = int(skel.n_valid.sum()) - B
+    del skel, checked
+    med = float(np.median(walls))
+    print(f"phase 10 bps_anisotropic_gauss_d10: BPSAD({d}, anisotropic_gauss(linspace(0.5, "
+          f"3, {d})), refresh_rate={refresh}) B={B} n_sk={n_sk} f32 events={events} "
+          f"launches={launches}; complete, t non-decreasing and finite, "
+          f"max|mean/s|={float(np.max(np.abs(mean) / scales)):.4f} "
+          f"max|var/s^2-1|={float(np.max(np.abs(rel_var))):.4f}; {BPS_CALLS} warm calls "
+          f"{' '.join(f'{w:.4f}' for w in walls)} s, median {med:.4f} s "
+          f"({events / med:.1f} events/s), spread {min(walls):.4f}-{max(walls):.4f} s "
+          f"({card_name})", flush=True)
+    return sampler, launches, med
+
+
+def phase_bps_breakdown(sampler, k3_launches, wall):
+    """The BPS path's fill and compaction timed apart, K2 checked bit for bit
+    on this fill, one K=32 chunk of K3 checked against its plain version at
+    exactly this shape in float32 and each kernel timed beside its plain
+    version; then the median warm call split into K3, K2 and the rest."""
+    d, B, n_sk, _ = BPS_D10
+    target = n_sk - 1
+    dtype = torch.float32
+    _, _, x0, v0 = bps_deployment()
+    t_cap = api.fill_rows(sampler, target, B, d, dtype, DEV)
+    state = sampler.init_state_batch(x0, v0, 0, dtype, DEV)
+    init = event_from_state(state, EV_INIT)
+    run = driver.make_stream_runner(sampler, t_cap, target)
+    zeros = torch.zeros(B, dtype=torch.int32, device=DEV)
+    sync()
+    t0 = time.perf_counter()
+    res = run(state, zeros)
+    sync()
+    fill_s = time.perf_counter() - t0
+    off = torch.ones(B, dtype=torch.int32, device=DEV)
+    outs = []
+    for fn in (k2.compact_rows, k2.compact_rows_plain):
+        out = k2.empty_rows(B, target + 1, d, dtype, DEV)
+        for a in out[:-1]:
+            a.zero_()  # columns past a short chain's rows stay equal
+        kind, specs = k2.fill_specs(res.fill, out, init)
+        fn(kind, specs, off)
+        outs.append(out)
+    sync()
+    k2_err = k2_outputs_equal("BPS path", *outs)
+    del outs, out
+    k2_ms = cuda_ms(lambda: k2.compact_rows(kind, specs, off), 5)
+    k2_plain_ms = cuda_ms(lambda: k2.compact_rows_plain(kind, specs, off), 2)
+    k2_b = k2_bound(res.fill, res.counts, target + 1)
+    complete = int((res.counts >= target).sum())
+    del res, specs, kind
+
+    K, seed = 32, 7
+    cfg, st, fill, f32_text, f32_err = scalar_f32_check("K3 BPS f32", sampler, state, K, seed)
+    k3_b = chunk_bound(cfg, st, fill, K * B)
+    k3_ms = cuda_ms(lambda: k3.run_chunk(seed, st, fill, 0, cfg), 20)
+    k3_plain_ms = cuda_ms(lambda: k3.run_chunk_plain(seed, st, fill, 0, cfg), 2)
+    print(f"phase 10b BPS breakdown (B={B}, d={d}, f32): fill {fill_s:.4f} s over {t_cap} "
+          f"rows ({complete} of {B} chains complete in it); K2 compaction (T={t_cap}, "
+          f"W={target + 1}) {k2_ms:.4f} ms vs plain {k2_plain_ms:.4f} ms, bit-identical, "
+          f"bound {bound_text(k2_b)}; K3 chunk (K={K}) {k3_ms:.4f} ms vs plain "
+          f"{k3_plain_ms:.4f} ms, bound {bound_text(k3_b)}; {f32_text}", flush=True)
+    wall_ms, k3_total = wall * 1e3, k3_launches * k3_ms
+    rest = wall_ms - k3_total - k2_ms
+    print(f"phase 10c BPS time split of the median warm call ({wall_ms:.4f} ms): "
+          f"K3 {k3_launches} x {k3_ms:.4f} = {k3_total:.4f} ms ({k3_total / wall_ms:.1%}); "
+          f"K2 {k2_ms:.4f} ms ({k2_ms / wall_ms:.1%}); rest (host, card idle) "
+          f"{rest:.4f} ms ({rest / wall_ms:.1%})", flush=True)
+    return k3_ms, k3_plain_ms, k3_b, k2_err, f32_err
+
+
+def phase_boomerang(card_name):
+    """boomerang_gauss_d10 (benchmarks/run_baselines.py:120-123): grad U_eff is
+    0 on this target, so the run holds the elliptic flow and the Gaussian
+    refresh; each fill is one K2 launch."""
+    d, B, n_sk, refresh = BOOMERANG_D10
+    sampler = pt.Boomerang(d, pt.potentials.grad_gauss, refresh_rate=refresh)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    skel = pt.sample_skeleton(sampler, n_sk, np.zeros((B, d)), np.ones((B, d)), seed=0,
+                              dtype=torch.float32, device=DEV)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    if not bool((skel.n_valid == n_sk).all()) or launches["bps_chunk"] < 1:
+        raise AssertionError(f"Boomerang path incomplete or off the kernel: {launches}")
+    mean, var = pt.pooled_moments(skel, sampler, 256)
+    if not (bool((mean.abs() < 0.1).all()) and bool(((var - 1).abs() < 0.1).all())):
+        raise AssertionError(f"Boomerang moments off: mean {mean.tolist()} var {var.tolist()}")
+    del skel
+    state = sampler.init_state_batch(np.zeros((B, d)), np.ones((B, d)), 0, torch.float32, DEV)
+    *_, f32_text, f32_err = scalar_f32_check("K3 Boomerang f32", sampler, state)
+    print(f"phase 11 boomerang_gauss_d10: Boomerang({d}, grad_gauss, refresh_rate={refresh}) "
+          f"B={B} n_sk={n_sk} f32 wall={wall:.4f} s (first call) launches={launches} "
+          f"({launches['compact_rows']} fills); complete, max|mean|="
+          f"{float(mean.abs().max()):.4f} max|var-1|={float((var - 1).abs().max()):.4f}; "
+          f"one K=32 chunk of K3 against its plain version at this shape: {f32_text} "
+          f"({card_name})", flush=True)
+    return f32_err
+
+
+def phase_ecmc(card_name):
+    """ecmc_gauss_d10 (benchmarks/run_baselines.py:131-134, v0 = 1/sqrt(10)):
+    the K5 path, counted; then one K=32 chunk of K5 at this shape timed beside
+    its plain version.  x0 is drawn from N(0, I), not 0 as there: from x0 = 0
+    every chain's first event has x parallel to v, and in float32 the
+    orthogonal component is rounding noise above the 1e-10 degenerate
+    threshold, so that jump leaves |v| != 1, in the JAX package as here
+    (ROADMAP Queue 3)."""
+    d, B, n_sk = ECMC_D10
+    sampler = pt.ForwardECMCAD(d, pt.potentials.gauss)
+    x0 = np.random.default_rng(12).normal(size=(B, d))
+    v0 = np.full((B, d), 1.0 / np.sqrt(d))
+    kw = dict(seed=0, dtype=torch.float32, device=DEV)
+    pt.sample_skeleton(sampler, n_sk, x0, v0, **kw)  # warm: allocator, fill ratio
+    sync()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    skel = pt.sample_skeleton(sampler, n_sk, x0, v0, **kw)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    if not bool((skel.n_valid == n_sk).all()) or launches["ecmc_chunk"] < 1:
+        raise AssertionError(f"ECMC path incomplete or off the kernel: {launches}")
+    speed_err = float((torch.linalg.norm(skel.v.double(), dim=-1) - 1.0).abs().max())
+    if speed_err > 1e-5:
+        raise AssertionError(f"ECMC: |v| off 1 by {speed_err}")
+    mean, var = pt.pooled_moments(skel, sampler, 256)
+    if not (bool((mean.abs() < 0.1).all()) and bool(((var - 1).abs() < 0.1).all())):
+        raise AssertionError(f"ECMC moments off: mean {mean.tolist()} var {var.tolist()}")
+    events = int(skel.n_valid.sum()) - B
+    del skel
+
+    K, seed = 32, 7
+    state = sampler.init_state_batch(x0, v0, 0, torch.float32, DEV)
+    cfg, st, fill, f32_text, f32_err = scalar_f32_check("K5 f32", sampler, state, K, seed)
+    k5_b = chunk_bound(cfg, st, fill, K * B)
+    k5_ms = cuda_ms(lambda: k3.run_chunk(seed, st, fill, 0, cfg), 20)
+    k5_plain_ms = cuda_ms(lambda: k3.run_chunk_plain(seed, st, fill, 0, cfg), 2)
+    print(f"phase 12 ecmc_gauss_d10: ForwardECMCAD({d}, gauss) B={B} n_sk={n_sk} f32 "
+          f"wall={wall:.4f} s events={events} ({events / wall:.1f} events/s) "
+          f"launches={launches}; complete, max||v|-1|={speed_err:.2e}, "
+          f"max|mean|={float(mean.abs().max()):.4f} max|var-1|="
+          f"{float((var - 1).abs().max()):.4f}; K5 chunk (K={K}) {k5_ms:.4f} ms vs plain "
+          f"{k5_plain_ms:.4f} ms, bound {bound_text(k5_b)}; {f32_text} ({card_name})",
+          flush=True)
+    return launches, k5_ms, k5_plain_ms, k5_b, f32_err
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b):
+    return {"name": name, "route": "cuda", "source": f"pdmpflux_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+            # no single PyTorch call computes a chunk of PDMP transitions or a
+            # per-chain stable compaction with offsets (see PERF.md)
+            "library_ms": None}
+
+
 def main():
     card_name = card()
     phase_build()
     k1_err = phase_k1()
     k2_err = phase_k2()
     sampler, launches = phase_main(card_name)
-    k1_ms, k1_plain_ms, k2_ms, k2_plain_ms, k2_main_err = phase_breakdown(sampler)
+    (k1_ms, k1_plain_ms, k2_ms, k2_plain_ms, k2_main_err, k1_b,
+     k2_b) = phase_breakdown(sampler)
     phase_large_d()
     k6_err = phase_k6()
     sticky, sticky_launches, sticky_wall = phase_sticky(card_name)
-    k6_ms, k6_plain_ms, _, _, k2_sticky_err = phase_sticky_breakdown(
+    k6_ms, k6_plain_ms, _, _, k2_sticky_err, k6_b = phase_sticky_breakdown(
         sticky, sticky_launches["sticky_chunk"], sticky_wall)
     phase_sticky_law()
+    k35_err = phase_k3()
+    bps, bps_launches, bps_wall = phase_bps(card_name)
+    k3_ms, k3_plain_ms, k3_b, k2_bps_err, k3_bps_f32_err = phase_bps_breakdown(
+        bps, bps_launches["bps_chunk"], bps_wall)
+    k3_boomerang_f32_err = phase_boomerang(card_name)
+    ecmc_launches, k5_ms, k5_plain_ms, k5_b, k5_f32_err = phase_ecmc(card_name)
+    zz = "pdmpflux_tpu/ops/pallas/zigzag_chunk.py:854"
     kernels = [
-        {"name": "zigzag_chunk", "route": "cuda",
-         "source": "pdmpflux_tpu_torch/csrc/zigzag_chunk.cu",
-         "replaces": "pdmpflux_tpu/ops/pallas/zigzag_chunk.py:854",
-         "launches": launches["zigzag_chunk"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "compact_rows", "route": "cuda",
-         "source": "pdmpflux_tpu_torch/csrc/compact.cu",
-         "replaces": "pdmpflux_tpu/ops/pallas/compact.py:132",
-         "launches": launches["compact_rows"],
-         "max_abs_err": max(k2_err, k2_main_err, k2_sticky_err),
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-        {"name": "sticky_chunk", "route": "cuda",
-         "source": "pdmpflux_tpu_torch/csrc/sticky_chunk.cu",
-         "replaces": "pdmpflux_tpu/ops/pallas/zigzag_chunk.py:854",
-         "launches": sticky_launches["sticky_chunk"], "max_abs_err": k6_err,
-         "ms": k6_ms, "plain_ms": k6_plain_ms},
+        kernel_entry("zigzag_chunk", "zigzag_chunk.cu", zz, launches["zigzag_chunk"],
+                     k1_err, k1_ms, k1_plain_ms, k1_b),
+        kernel_entry("compact_rows", "compact.cu", "pdmpflux_tpu/ops/pallas/compact.py:132",
+                     launches["compact_rows"],
+                     max(k2_err, k2_main_err, k2_sticky_err, k2_bps_err),
+                     k2_ms, k2_plain_ms, k2_b),
+        kernel_entry("sticky_chunk", "sticky_chunk.cu", zz, sticky_launches["sticky_chunk"],
+                     k6_err, k6_ms, k6_plain_ms, k6_b),
+        kernel_entry("bps_chunk", "scalar_chunk.cu", zz + ' kind="bps"/"boomerang"',
+                     bps_launches["bps_chunk"],
+                     max(k35_err["bps_chunk"], k3_bps_f32_err, k3_boomerang_f32_err),
+                     k3_ms, k3_plain_ms, k3_b),
+        kernel_entry("ecmc_chunk", "scalar_chunk.cu", zz + ' kind="ecmc"',
+                     ecmc_launches["ecmc_chunk"], max(k35_err["ecmc_chunk"], k5_f32_err),
+                     k5_ms, k5_plain_ms, k5_b),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_name)

@@ -2,9 +2,11 @@
 
 The JAX package ``pdmpflux_tpu`` is the reference; this package mirrors its
 layout (``core``, ``models``, ``ops``, ``parallel``, ``utils``, ``api``) and
-never imports JAX.  Ported so far: the event-count Zig-Zag and Sticky Zig-Zag
-paths, with their hand-written kernels in ``csrc/`` (the fused chunk kernel,
-its sticky chain-per-CTA variant, and event-row compaction).
+never imports JAX.  Ported so far: the event-count paths of the Zig-Zag,
+the Sticky Zig-Zag and the scalar-rate samplers (BPS, Boomerang, Forward
+ECMC), with their hand-written kernels in ``csrc/`` (the fused Zig-Zag chunk
+kernel, its sticky chain-per-CTA variant, the warp-per-chain scalar-rate
+chunk kernel, and event-row compaction).
 """
 
 from .api import sample, sample_from_skeleton, sample_skeleton  # noqa: F401
@@ -19,6 +21,17 @@ from .core.types import (  # noqa: F401
     PDMPState,
     Skeleton,
 )
-from .models import StickyZigZag, StickyZigZagAD, ZigZag, ZigZagAD  # noqa: F401
+from .models import (  # noqa: F401
+    BPS,
+    BPSAD,
+    Boomerang,
+    BoomerangAD,
+    ForwardECMC,
+    ForwardECMCAD,
+    StickyZigZag,
+    StickyZigZagAD,
+    ZigZag,
+    ZigZagAD,
+)
 from .parallel import pooled_moments, sample_from_skeleton_batch  # noqa: F401
 from .utils import potentials  # noqa: F401

@@ -1,8 +1,10 @@
 """Driver API (``pdmpflux_tpu/api.py``) for the event-count path.
 
 * ``sample_skeleton(sampler, n_sk, ...)``: fixed-event-count skeleton of a
-  chain batch, through stream fills of K1 (K6 for a Sticky Zig-Zag, whose
-  fills also carry the activity stream) and compaction by K2;
+  chain batch, through stream fills of the sampler's chunk kernel (K1 for a
+  Zig-Zag, K6 for a Sticky Zig-Zag, whose fills also carry the activity
+  stream, K3 for BPS and the Boomerang, K5 for Forward ECMC) and compaction
+  by K2;
 * ``sample_from_skeleton``: skeleton -> equal-time samples (N, dt, N + dt);
 * ``sample``: the two chained.
 
@@ -22,23 +24,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .core.device import resolve_device
 from .core.types import EV_INIT, Skeleton, event_from_state
 from .ops.cuda import compact as k2
 from .ops.cuda import driver as k1_driver
 
 DEFAULT_MAX_TRANSITIONS_PER_EVENT = 256
 _DEVICE_BYTES_FALLBACK = 8 << 30
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device`` for ``device``; CUDA without a card raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={device!r} asked for CUDA, but torch.cuda.is_available() "
-            "is False; pass device='cpu' to run the plain PyTorch path"
-        )
-    return dev
 
 
 def _device_bytes_budget(dev: torch.device) -> int:

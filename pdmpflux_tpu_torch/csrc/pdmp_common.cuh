@@ -1,7 +1,8 @@
-// Device helpers shared by the fused chunk kernels (zigzag_chunk.cu, K1, and
-// sticky_chunk.cu, K6): the Threefry-2x32 counter RNG of the Pallas kernel
-// (pdmpflux_tpu/ops/pallas/zigzag_chunk.py: _threefry2x32, _mant24,
-// _uniform, _exponential), a NaN-propagating max, and the device potentials.
+// Device helpers shared by the fused chunk kernels (zigzag_chunk.cu, K1,
+// sticky_chunk.cu, K6, and scalar_chunk.cu, K3/K5): the Threefry-2x32 counter
+// RNG of the Pallas kernel (pdmpflux_tpu/ops/pallas/zigzag_chunk.py:
+// _threefry2x32, _mant24, _uniform, _exponential, _box_muller), a
+// NaN-propagating max, and the device potentials.
 
 #pragma once
 
@@ -73,6 +74,14 @@ __device__ __forceinline__ T exponential(uint32_t seed, uint32_t salt, uint32_t 
   return (deep ? (T)16.635532333438686 : (T)0) - log(u);
 }
 
+// A standard normal from two (0, 1) uniforms (zigzag_chunk._box_muller); the
+// angle factor is the double 2 * pi rounded to T, as JAX rounds the Python
+// float.
+template <typename T>
+__device__ __forceinline__ T box_muller(T u1, T u2) {
+  return sqrt((T)-2 * log(u1)) * cos((T)(2.0 * 3.141592653589793) * u2);
+}
+
 // max that propagates NaN, as jnp.maximum does
 template <typename T>
 __device__ __forceinline__ T nmax(T a, T b) {
@@ -118,6 +127,21 @@ struct Banana {  // U = (x0^2 + (x1 - x0^2 + 1)^2 + sum_{k>=2} x_k^2) / 2
       g = r1;
       dg = v1 - (T)2 * x0 * v0;
     }
+  }
+};
+
+// U = sum((x_k / s_k)^2) / 2 with per-coordinate scales s (the "aniso" tag's
+// parameters): jax.grad evaluates (x / s) / s, and its derivative along v is
+// (v / s) / s.
+template <typename T>
+struct Aniso {
+  __device__ __forceinline__ static void eval(const T* x, const T* v, const uint8_t* act,
+                                              long stride, int i, T t, const T* s, T& g,
+                                              T& dg) {
+    const T vi = vel(v, act, stride, i);
+    const T si = s[i];
+    g = (x[i * stride] + vi * t) / si / si;
+    dg = vi / si / si;
   }
 };
 

@@ -13,7 +13,9 @@ from typing import Callable, Optional
 import torch
 
 from ..core import rng
+from ..core.device import resolve_device
 from ..core.types import ERROR_RING_SIZE, MODE_FRESH, PDMPState
+from ..utils.potentials import device_potential_of
 
 
 def as_key(seed_or_key, device="cpu") -> torch.Tensor:
@@ -61,8 +63,21 @@ def resolve_potential(U: Callable, dim: int):
     )
 
 
+def tag_from(sampler, U):
+    """An ``*AD`` constructor's sampler: when its autodiff gradient carries
+    no device potential, take the tag (and parameters) of ``U``."""
+    if sampler.device_potential is None:
+        sampler.device_potential, sampler.device_params = device_potential_of(U)
+    return sampler
+
+
 class PDMP:
-    """Base class of the port's PDMP samplers."""
+    """Base class of the port's PDMP samplers.
+
+    ``device_potential`` names the potential the CUDA kernels evaluate for
+    this sampler (from the tag on ``grad_U`` or ``potential``) and
+    ``device_params`` its parameters; the tag is None when only the plain
+    PyTorch version can run the sampler."""
 
     sticky: bool = False
 
@@ -107,6 +122,8 @@ class PDMP:
         self.ad_backend = ad_backend
         self.kappa = None
         self.state: Optional[PDMPState] = None
+        self.device_potential, self.device_params = device_potential_of(
+            grad_U, potential)
 
         if self.signed_bound and not self.vectorized_bound and self._zigzag_family():
             warnings.warn(
@@ -122,9 +139,11 @@ class PDMP:
         raise NotImplementedError
 
     def init_state(self, xinit, vinit, seed=None, dtype=None,
-                   device="cpu") -> PDMPState:
+                   device="cuda") -> PDMPState:
         """One chain's initial state; the Exp clock is
-        ``jax.random.exponential`` of the second of three split keys."""
+        ``jax.random.exponential`` of the second of three split keys.
+        ``device="cuda"`` without a card raises."""
+        device = resolve_device(device)
         xinit = torch.as_tensor(xinit, dtype=dtype, device=device)
         vinit = torch.as_tensor(vinit, dtype=dtype, device=device)
         if tuple(xinit.shape) != (self.dim,) or tuple(vinit.shape) != (self.dim,):
@@ -138,9 +157,11 @@ class PDMP:
         return PDMPState(*(f[0] for f in batch))
 
     def init_state_batch(self, xinit, vinit, seed=None, dtype=None,
-                         device="cpu", keys=None) -> PDMPState:
+                         device="cuda", keys=None) -> PDMPState:
         """Initialize ``(B, d)`` chains; chain ``b`` gets key ``b`` of
-        ``split(key(seed), B)``, as in the JAX package."""
+        ``split(key(seed), B)``, as in the JAX package.  ``device="cuda"``
+        without a card raises."""
+        device = resolve_device(device)
         x = torch.as_tensor(xinit, dtype=dtype, device=device)
         v = torch.as_tensor(vinit, dtype=dtype, device=device)
         dt = x.dtype

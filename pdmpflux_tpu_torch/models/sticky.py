@@ -11,8 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.potentials import device_potential_of
-from .base import resolve_potential
+from .base import resolve_potential, tag_from
 from .zigzag import ZigZag
 
 
@@ -40,7 +39,4 @@ def StickyZigZagAD(dim, U, kappa=None, **kw):
     """``StickyZigZagAD`` (``StickyZigZagSamplers.jl:117-125``): ``grad_U``
     by ``torch.func.grad``, the device potential from ``U``'s tag."""
     U_vec, grad_U = resolve_potential(U, dim)
-    sampler = StickyZigZag(dim, grad_U, kappa, potential=U_vec, **kw)
-    if sampler.device_potential is None:
-        sampler.device_potential = device_potential_of(U)
-    return sampler
+    return tag_from(StickyZigZag(dim, grad_U, kappa, potential=U_vec, **kw), U)

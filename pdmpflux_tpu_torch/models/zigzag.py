@@ -9,16 +9,11 @@ fused chunk kernel, ``ops/cuda/zigzag_chunk.py``; the stand-alone
 from __future__ import annotations
 
 from ..ops.flows import linear_flow
-from ..utils.potentials import device_potential_of
-from .base import PDMP, resolve_potential
+from .base import PDMP, resolve_potential, tag_from
 
 
 class ZigZag(PDMP):
-    """Zig-Zag sampler, defaults as in ``ZigZagSamplers.jl:58-60``.
-
-    ``device_potential`` names the potential the CUDA kernel evaluates for
-    this sampler (from the tag on ``grad_U`` or ``potential``), or is None
-    when only the plain PyTorch version can run it."""
+    """Zig-Zag sampler, defaults as in ``ZigZagSamplers.jl:58-60``."""
 
     def _zigzag_family(self):
         return True
@@ -31,7 +26,6 @@ class ZigZag(PDMP):
             refresh_rate=refresh_rate, vectorized_bound=vectorized_bound,
             signed_bound=signed_bound, adaptive=adaptive, **kw,
         )
-        self.device_potential = device_potential_of(grad_U, self.potential)
 
     def flow(self, x, v, t):
         return linear_flow(x, v, t)
@@ -41,7 +35,4 @@ def ZigZagAD(dim, U, **kw):
     """``ZigZagAD``: build ``grad_U`` from the potential with
     ``torch.func.grad``."""
     U_vec, grad_U = resolve_potential(U, dim)
-    sampler = ZigZag(dim, grad_U, potential=U_vec, **kw)
-    if sampler.device_potential is None:
-        sampler.device_potential = device_potential_of(U)
-    return sampler
+    return tag_from(ZigZag(dim, grad_U, potential=U_vec, **kw), U)

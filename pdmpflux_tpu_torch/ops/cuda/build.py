@@ -28,8 +28,14 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
+SOURCE_FLAGS = {"scalar_chunk.cu": ["-fmad=false"]}
+"""Flags of one source: K3/K5 round every product as their plain version's
+torch ops do (see the note in ``csrc/scalar_chunk.cu``), so that the two
+agree bit for bit in f64.  ``chip_fmad_ab.py`` measures the cost against
+FMA contraction; PERF.md holds its reading."""
 
-LAUNCHES = {"zigzag_chunk": 0, "sticky_chunk": 0, "compact_rows": 0}
+LAUNCHES = {"zigzag_chunk": 0, "sticky_chunk": 0, "bps_chunk": 0, "ecmc_chunk": 0,
+            "compact_rows": 0}
 """Kernel launches since the last :func:`reset_launches`."""
 
 BUILD_INFO: dict = {}
@@ -70,6 +76,16 @@ def _declare(lib) -> None:
     )
     lib.sticky_chunk_max_dim.restype = l
     lib.sticky_chunk_max_dim.argtypes = [i]
+    lib.scalar_chunk_launch.restype = i
+    lib.scalar_chunk_launch.argtypes = (
+        [i] * 9                         # f64, kind, potential, d, B, K, n_grid, adaptive, signed
+        + [ctypes.c_double]             # refresh rate
+        + [i] * 5                       # cap, tile, seed, gaussian_velocity, ran_p
+        + [ctypes.c_double, i, i, ctypes.c_double, i]  # mix_p, switch, positive, sf, normal
+        + [p] * 11 + [p]                # params, state, event rows, stream
+    )
+    lib.scalar_chunk_max_dim.restype = l
+    lib.scalar_chunk_max_dim.argtypes = [i]
     lib.compact_rows_launch.restype = i
     lib.compact_rows_launch.argtypes = [
         p, l, i, i, p, i, i,            # kind, kind row stride, T, B, off, W, n
@@ -86,7 +102,7 @@ def library():
     if _lib is not None:
         return _lib
     sources = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + repr(SOURCE_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -97,7 +113,8 @@ def library():
         tag = f"{os.getpid()}.tmp"
         objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
         try:
-            procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()),
+                                       "-c", "-o", str(obj), str(src)],
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True)
                      for src, obj in zip(sources, objs)]

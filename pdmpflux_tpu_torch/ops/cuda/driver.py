@@ -1,8 +1,9 @@
-"""Stream-fill driver around K1 and K6 (``pdmpflux_tpu/ops/pallas/driver.py``).
+"""Stream-fill driver around the chunk kernels (``pdmpflux_tpu/ops/pallas/driver.py``).
 
-:func:`make_stream_runner` is the port of ``make_pallas_stream_runner`` for
-the Zig-Zag and the Sticky Zig-Zag in event-count mode: a host loop over
-chunks, one K1 (K6 when sticky) launch per chunk, each writing its ``K``
+:func:`make_stream_runner` is the port of ``make_pallas_stream_runner`` in
+event-count mode for the Zig-Zag (K1), the Sticky Zig-Zag (K6) and the
+scalar-rate samplers BPS and Boomerang (K3) and Forward ECMC (K5): a host
+loop over chunks, one kernel launch per chunk, each writing its ``K``
 transition rows straight into the raw fill at the chunk's row offset, until
 every chain has its target count or the fill is full.  The loop reads the
 per-chain counts back once per chunk, exactly where the JAX ``while_loop``
@@ -18,6 +19,7 @@ import torch
 
 from ...core import rng
 from ...core.types import PDMPState
+from . import scalar_chunk as sc
 from . import zigzag_chunk as zc
 
 PALLAS_CONST_GRID = 9
@@ -26,9 +28,14 @@ JAX package's constant, ``driver.py:24``)."""
 
 
 def kernel_kind(sampler):
-    """``"zigzag"`` for a Zig-Zag or a Sticky Zig-Zag with vectorized bounds,
-    the families K1 and K6 cover so far (JAX ``driver.py:74-79``); None
-    otherwise."""
+    """Which chunk kernel covers the sampler, by exact type (JAX
+    ``driver.py:74-88``): ``"zigzag"`` for a Zig-Zag or a Sticky Zig-Zag
+    with vectorized bounds (K1, K6), ``"bps"`` and ``"boomerang"`` (K3),
+    ``"ecmc"`` (K5); None otherwise (the Speed-Up Zig-Zag and RHMC are not
+    ported)."""
+    from ...models.boomerang import Boomerang
+    from ...models.bps import BPS
+    from ...models.ecmc import ForwardECMC
     from ...models.sticky import StickyZigZag
     from ...models.zigzag import ZigZag
 
@@ -38,7 +45,7 @@ def kernel_kind(sampler):
         return None
     if type(sampler) is ZigZag and sampler.vectorized_bound:
         return "zigzag"
-    return None
+    return {BPS: "bps", Boomerang: "boomerang", ForwardECMC: "ecmc"}.get(type(sampler))
 
 
 class StreamResult(NamedTuple):
@@ -48,22 +55,50 @@ class StreamResult(NamedTuple):
     transitions: int       # transitions executed (rows written)
 
 
+def _effective(grad, grad_jvp):
+    """The Boomerang's gradient-like map ``grad U(x) - x`` from the device
+    potential's ``grad U`` (JAX ``driver.py:450-456``); its derivative
+    along ``v`` is ``H v - v``."""
+    def grad_eff(x):
+        return grad(x) - x
+
+    def grad_eff_jvp(x, v):
+        g, dg = grad_jvp(x, v)
+        return g - x, dg - v
+
+    return grad_eff, grad_eff_jvp
+
+
 def chunk_config(sampler, K: int, cap: int, tile: int) -> zc.ChunkConfig:
-    if kernel_kind(sampler) is None:
+    kind = kernel_kind(sampler)
+    if kind is None:
         raise ValueError(
             f"the fused chunk kernels cover ZigZag and StickyZigZag with "
-            f"vectorized_bound=True; got {type(sampler).__name__} with "
+            f"vectorized_bound=True, BPS, Boomerang and ForwardECMC; got "
+            f"{type(sampler).__name__} with "
             f"vectorized_bound={getattr(sampler, 'vectorized_bound', None)}"
         )
     n_grid = sampler.grid_size if sampler.grid_size >= 2 else PALLAS_CONST_GRID
-    potential = getattr(sampler, "device_potential", None)
-    grad, grad_jvp = zc.lane_gradients(sampler.grad_U, potential)
+    potential, params = sampler.device_potential, sampler.device_params
+    grad_like = sampler._grad_eff if kind == "boomerang" else sampler.grad_U
+    grad, grad_jvp = zc.lane_gradients(grad_like, potential, params)
+    if kind == "boomerang" and potential is not None:
+        grad, grad_jvp = _effective(grad, grad_jvp)
+    ecmc = ()
+    if kind == "ecmc":
+        ecmc = (sampler.ran_p, sampler.mix_p, sampler.switch, sampler.positive,
+                sampler.speed_factor, sampler.normal)
     return zc.ChunkConfig(
         n_grid=n_grid, K=K, adaptive=bool(sampler.adaptive),
         signed=bool(sampler.signed_bound),
         refresh_rate=float(sampler.refresh_rate), cap=int(cap), tile=int(tile),
         grad=grad, grad_jvp=grad_jvp, device_potential=potential,
         kappa=sampler.kappa if getattr(sampler, "sticky", False) else None,
+        kind=kind,
+        # the Boomerang refreshes to N(0, I) (JAX driver.py:100-105)
+        gaussian_velocity=kind == "boomerang" or bool(
+            getattr(sampler, "gaussian_velocity", False)),
+        ecmc_params=ecmc, pot_params=params,
     )
 
 
@@ -99,21 +134,25 @@ def make_stream_runner(sampler, t_cap: int, n_events_target: int,
     if t_cap % chunk:
         raise ValueError(f"t_cap={t_cap} must be a multiple of chunk={chunk}")
     cfg = chunk_config(sampler, chunk, n_events_target, tile)
+    run_chunk = zc.run_chunk if cfg.kind == "zigzag" else sc.run_chunk
     n_chunks = t_cap // chunk
 
     def run(state: PDMPState, counts: torch.Tensor) -> StreamResult:
         B, d = state.x.shape
+        dev, dt = state.x.device, state.x.dtype
         st = chunk_state(state, counts, cfg.sticky)
-        fill = zc.empty_fill(t_cap, d, B, state.x.dtype, state.x.device, cfg.sticky)
-        run_cfg = cfg
-        if cfg.sticky:  # kappa in the state's dtype, on its device, once per fill
-            run_cfg = cfg._replace(kappa=cfg.kappa.to(state.x.device, state.x.dtype))
+        fill = zc.empty_fill(t_cap, d, B, dt, dev, cfg.sticky)
+        # kappa and the potential's parameters in the state's dtype, on its
+        # device, once per fill
+        run_cfg = cfg._replace(
+            kappa=None if cfg.kappa is None else cfg.kappa.to(dev, dt),
+            pot_params=None if cfg.pot_params is None else cfg.pot_params.to(dev, dt))
         seed0 = key_seed(state.key)
         it = 0
         while it < n_chunks and bool(
                 (st.iscal[zc.I_CNT] < n_events_target).any()):
-            zc.run_chunk(rng.wrap_int32(seed0 + it * 1000003), st, fill,
-                         it * chunk, run_cfg)
+            run_chunk(rng.wrap_int32(seed0 + it * 1000003), st, fill,
+                      it * chunk, run_cfg)
             it += 1
         fs = st.fs
         new_state = state._replace(

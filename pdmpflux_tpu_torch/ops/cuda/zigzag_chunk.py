@@ -63,6 +63,8 @@ HORIZON_GROW = 1.01
 HORIZON_SHRINK = 1.04
 MAX_GRID = 64
 """Most envelope grid points the CUDA kernels keep per chain."""
+KERNEL_POTENTIALS = ("banana", "gauss")
+"""Device potentials K1 and K6 implement."""
 
 
 class ChunkState(NamedTuple):
@@ -111,7 +113,9 @@ def empty_fill(T: int, d: int, B: int, dtype, device, sticky: bool = False) -> R
 
 
 class ChunkConfig(NamedTuple):
-    """Static parameters of K1/K6 (the Pallas kernel's static arguments)."""
+    """Static parameters of a chunk kernel (the Pallas kernel's static
+    arguments): K1/K6 for ``kind="zigzag"``, K3/K5 (``scalar_chunk``) for
+    ``"bps"``, ``"boomerang"`` and ``"ecmc"``."""
 
     n_grid: int
     K: int
@@ -124,18 +128,23 @@ class ChunkConfig(NamedTuple):
     grad_jvp: Callable                  # (x, v) -> (grad(x), H(x) v)
     device_potential: Optional[str]     # potential tag the CUDA kernels take
     kappa: Optional[torch.Tensor] = None  # (d,) thaw rates; None: not sticky
+    kind: str = "zigzag"
+    gaussian_velocity: bool = False     # K3: N(0, I) refresh, not unit
+    ecmc_params: tuple = ()             # K5: (ran_p, mix_p, switch, positive, speed_factor, normal)
+    pot_params: Optional[torch.Tensor] = None  # the device potential's parameters
 
     @property
     def sticky(self) -> bool:
         return self.kappa is not None
 
 
-def lane_gradients(grad_U: Callable, device_potential: Optional[str]):
+def lane_gradients(grad_U: Callable, device_potential: Optional[str],
+                   params: Optional[torch.Tensor] = None):
     """Chain-minor ``(grad, grad_jvp)`` for the plain version: the device
     potential's own formulas when tagged, else ``torch.func`` on the
     per-chain ``grad_U``."""
     if device_potential in LANE_POTENTIALS:
-        return LANE_POTENTIALS[device_potential]
+        return LANE_POTENTIALS[device_potential](params)
     grad = torch.func.vmap(grad_U, in_dims=1, out_dims=1)
     return grad, lambda x, v: torch.func.jvp(grad, (x,), (v,))
 
@@ -400,14 +409,17 @@ def sticky_max_dim(dtype) -> int:
     return int(build.library().sticky_chunk_max_dim(int(dtype == torch.float64)))
 
 
-def _check_cuda(st: ChunkState, fill: RawFill, row0: int, cfg: ChunkConfig):
-    what = "Sticky Zig-Zag" if cfg.sticky else "Zig-Zag"
-    if cfg.device_potential not in DEVICE_POTENTIALS:
+def check_cuda(st: ChunkState, fill: RawFill, row0: int, cfg: ChunkConfig,
+               what: str, potentials) -> None:
+    """Raise unless a chunk kernel can run: a device potential in
+    ``potentials``, ``n_grid`` in ``[2, MAX_GRID]``, and every state and
+    fill tensor contiguous, of the right type and shape, on one card."""
+    if cfg.device_potential not in potentials:
         raise ValueError(
             f"the CUDA {what} kernel covers the device potentials "
-            f"{sorted(DEVICE_POTENTIALS)} (utils.potentials: gauss, grad_gauss, "
-            "banana, grad_banana); this sampler's gradient has none — run it "
-            "with device='cpu'"
+            f"{list(potentials)} (utils.potentials: gauss, grad_gauss, banana, "
+            f"grad_banana, anisotropic_gauss); this sampler's is "
+            f"{cfg.device_potential!r} — run it with device='cpu'"
         )
     if not 2 <= cfg.n_grid <= MAX_GRID:
         raise ValueError(f"n_grid={cfg.n_grid} outside the kernel's [2, {MAX_GRID}]")
@@ -431,6 +443,8 @@ def _check_cuda(st: ChunkState, fill: RawFill, row0: int, cfg: ChunkConfig):
             "kappa": (cfg.kappa, (d,), dtype),
             "ev_act": (fill.act, (fill.rows, d, B), torch.bool),
         })
+    if cfg.pot_params is not None:
+        want["pot_params"] = (cfg.pot_params, (d,), dtype)
     for name, (a, shape, dt) in want.items():
         if a is None or not a.is_cuda or a.device != st.x.device:
             raise ValueError(f"{name} must lie on {st.x.device}")
@@ -439,11 +453,6 @@ def _check_cuda(st: ChunkState, fill: RawFill, row0: int, cfg: ChunkConfig):
                              f"{a.dtype} {tuple(a.shape)}")
     if row0 < 0 or row0 + cfg.K > fill.rows:
         raise ValueError(f"rows {row0}..{row0 + cfg.K} outside the fill's {fill.rows}")
-    if cfg.sticky and d > (max_d := sticky_max_dim(dtype)):
-        raise ValueError(
-            f"d={d} exceeds the sticky kernel's {max_d} for {dtype}: one "
-            "chain's x, v, kappa, scan buffer and activity bytes must fit the "
-            "227 KB of shared memory a block can have")
 
 
 def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
@@ -452,9 +461,15 @@ def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
     else K1) for CUDA tensors, the plain version for CPU tensors."""
     if not st.x.is_cuda:
         return run_chunk_plain(seed, st, fill, row0, cfg)
-    _check_cuda(st, fill, row0, cfg)
-    lib = build.library()
+    what = "Sticky Zig-Zag" if cfg.sticky else "Zig-Zag"
+    check_cuda(st, fill, row0, cfg, what, KERNEL_POTENTIALS)
     d, B = st.x.shape
+    if cfg.sticky and d > (max_d := sticky_max_dim(st.x.dtype)):
+        raise ValueError(
+            f"d={d} exceeds the sticky kernel's {max_d} for {st.x.dtype}: one "
+            "chain's x, v, kappa, scan buffer and activity bytes must fit the "
+            "227 KB of shared memory a block can have")
+    lib = build.library()
     p = ctypes.c_void_p
     r = row0
     head = (

@@ -9,24 +9,29 @@ gradient runs only the plain PyTorch version on the CPU.
 The kernels evaluate one coordinate ``i`` at time ``t`` along the flow,
 ``g_i(x + v t)`` and ``(H(x + v t) v)_i``, from one definition
 (``csrc/pdmp_common.cuh``) that K1 (``csrc/zigzag_chunk.cu``) calls on the
-chain's column of the ``(d, B)`` state (stride ``B``) and K6
+chain's column of the ``(d, B)`` state (stride ``B``), K6
 (``csrc/sticky_chunk.cu``) on its shared-memory copy (stride 1) with the
-masked velocity ``v * act``.  The chain-minor functions at the end of this module
-are the same formulas on whole ``(d, B)`` tensors, for the plain versions;
-the plain K6 passes them the masked velocity.
+masked velocity ``v * act``, and K3/K5 (``csrc/scalar_chunk.cu``) on its
+warp's shared-memory copy.  A tag may carry parameters
+(``device_params``, a float64 vector): :func:`anisotropic_gauss` carries
+its scales.  The chain-minor functions at the end of this module are the
+same formulas on whole ``(d, B)`` tensors, for the plain versions; the plain
+K6 passes them the masked velocity.
 """
 
 from __future__ import annotations
 
 import torch
 
-DEVICE_POTENTIALS = {"gauss": 0, "banana": 1}
-"""Tag -> potential id of the CUDA kernel (``Potential`` in the source)."""
+DEVICE_POTENTIALS = {"gauss": 0, "banana": 1, "aniso": 2}
+"""Tag -> potential id of the CUDA kernels (``Potential`` in the source);
+each kernel wrapper names the tags its kernel implements."""
 
 
-def _tag(name):
+def _tag(name, params=None):
     def deco(fn):
         fn.device_potential = name
+        fn.device_params = params
         return fn
     return deco
 
@@ -58,6 +63,19 @@ def grad_banana(x):
     return torch.cat([torch.stack([g0, r1]), x[2:]])
 
 
+def anisotropic_gauss(scales):
+    """Axis-aligned anisotropic Gaussian with marginal standard deviations
+    ``scales``: ``U(x) = sum((x / s)^2) / 2``.  The returned potential
+    carries the tag ``"aniso"`` with the scales as its parameters."""
+    s = torch.as_tensor(scales, dtype=torch.float64).reshape(-1)
+
+    @_tag("aniso", s)
+    def U(x):
+        return torch.sum((x / s.to(x)) ** 2) / 2.0
+
+    return U
+
+
 # Chain-minor ((d, B), chains on the last axis) versions of the device
 # potentials, written as the kernel evaluates them: the gradient, and the
 # gradient with its derivative along v (the Hessian-vector product).  The
@@ -83,16 +101,37 @@ def _banana_lane_jvp(x, v):
     return _banana_lane(x), torch.cat([dg0[None], dg1[None], v[2:]])
 
 
+def _aniso_lanes(scales):
+    """``jax.grad`` of ``sum((x / s)^2) / 2`` evaluates ``(x / s) / s`` (the
+    factors 2 and 1/2 cancel exactly); its derivative along v is
+    ``(v / s) / s``."""
+    def col(x):
+        return scales.to(device=x.device, dtype=x.dtype)[:, None]
+
+    def grad(x):
+        s = col(x)
+        return x / s / s
+
+    def grad_jvp(x, v):
+        s = col(x)
+        return x / s / s, v / s / s
+
+    return grad, grad_jvp
+
+
 LANE_POTENTIALS = {
-    "gauss": (_gauss_lane, _gauss_lane_jvp),
-    "banana": (_banana_lane, _banana_lane_jvp),
+    "gauss": lambda _: (_gauss_lane, _gauss_lane_jvp),
+    "banana": lambda _: (_banana_lane, _banana_lane_jvp),
+    "aniso": _aniso_lanes,
 }
+"""Tag -> ``params -> (grad, grad_jvp)`` on chain-minor tensors."""
 
 
 def device_potential_of(*fns):
-    """The first ``device_potential`` tag among ``fns``, or None."""
+    """The first ``device_potential`` tag among ``fns`` and its parameters,
+    ``(tag, params)``; ``(None, None)`` when none is tagged."""
     for fn in fns:
         tag = getattr(fn, "device_potential", None)
         if tag is not None:
-            return tag
-    return None
+            return tag, getattr(fn, "device_params", None)
+    return None, None

@@ -1,4 +1,4 @@
-"""On-card checks of the port's kernels K1, K2 and K6 (marker ``cuda``).
+"""On-card checks of the port's kernels K1, K2, K3/K5 and K6 (marker ``cuda``).
 
 They skip where ``torch.cuda.is_available()`` is false (the CPU tier-1
 run); on a Hopper card run them with ``python -m pytest tests/test_torch_cuda.py
@@ -14,6 +14,7 @@ import pdmpflux_tpu_torch as pt  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import build  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import compact as k2  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import driver  # noqa: E402
+from pdmpflux_tpu_torch.ops.cuda import scalar_chunk as k3  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import zigzag_chunk as k1  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -147,3 +148,96 @@ def test_k6_refuses_what_it_cannot_run(dev):
     untagged = pt.StickyZigZag(3, lambda x: x)
     with pytest.raises(ValueError, match="device potentials"):
         pt.sample_skeleton(untagged, 10, np.zeros((2, 3)), np.ones((2, 3)))
+
+
+def scalar_sampler(kind, pot, d, **kw):
+    if pot == "aniso":
+        U = pt.potentials.anisotropic_gauss(np.linspace(0.5, 3.0, d))
+        return {"bps": pt.BPSAD, "boomerang": pt.BoomerangAD,
+                "ecmc": pt.ForwardECMCAD}[kind](d, U, **kw)
+    grad = {"gauss": pt.potentials.grad_gauss, "banana": pt.potentials.grad_banana}[pot]
+    return {"bps": pt.BPS, "boomerang": pt.Boomerang, "ecmc": pt.ForwardECMC}[kind](
+        d, grad, **kw)
+
+
+@pytest.mark.parametrize("kind,pot,d,kw", [
+    ("bps", "gauss", 10, {}),
+    ("bps", "aniso", 10, dict(signed_bound=False, gaussian_velocity=True)),
+    ("boomerang", "banana", 10, dict(refresh_rate=0.3)),
+    ("ecmc", "gauss", 10, dict(ran_p=True, positive=False)),
+    ("ecmc", "aniso", 3, dict(switch=False, normal=True)),
+    ("bps", "banana", 70, dict(refresh_rate=0.5)),
+])
+def test_k3_k5_kernel_matches_plain_f64(dev, kind, pot, d, kw):
+    """K3/K5 against their plain version over two chunks from one f64 state,
+    some chains capped, a few starting with x parallel to v."""
+    B = 300
+    sampler = scalar_sampler(kind, pot, d, **kw)
+    rs = np.random.default_rng(d)
+    x0, v0 = rs.normal(size=(B, d)), rs.normal(size=(B, d))
+    if kind != "boomerang":
+        v0 /= np.linalg.norm(v0, axis=1, keepdims=True)
+    x0[::13] = 0.5 * v0[::13]
+    state = sampler.init_state_batch(x0, v0, 3, torch.float64, dev)
+    cfg = driver.chunk_config(sampler, 16, 20, 128)
+    if cfg.pot_params is not None:
+        cfg = cfg._replace(pot_params=cfg.pot_params.to(dev))
+    counts = torch.zeros(B, dtype=torch.int32, device=dev)
+    counts[::7] = 17
+    st_k = driver.chunk_state(state, counts)
+    st_p = k1.ChunkState(*(None if a is None else a.clone() for a in st_k))
+    fills = [k1.empty_fill(32, d, B, torch.float64, dev) for _ in range(2)]
+    name = k3.launch_name(kind)
+    n0 = build.LAUNCHES[name]
+    for it in range(2):
+        k3.run_chunk(11 + it * 1000003, st_k, fills[0], 16 * it, cfg)
+        k3.run_chunk_plain(11 + it * 1000003, st_p, fills[1], 16 * it, cfg)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == n0 + 2
+    for a, b in zip((*st_k, *fills[0]), (*st_p, *fills[1])):
+        if a is None:
+            continue
+        if a.dtype == torch.int32:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12, equal_nan=True)
+    assert int((fills[0].kind[:, 0] == pt.EV_JUMP).sum()) > B
+
+
+def test_scalar_samplers_on_card(dev):
+    """BPS, Boomerang and Forward ECMC through ``sample_skeleton`` on the
+    card: complete, their kernel launched, moments of their targets."""
+    s = np.linspace(0.5, 3.0, 5)
+    cases = [(pt.BPSAD(5, pt.potentials.anisotropic_gauss(s), refresh_rate=0.5), s ** 2, 1.0),
+             (pt.Boomerang(5, pt.potentials.grad_gauss, refresh_rate=0.5), np.ones(5), 1.0),
+             (pt.ForwardECMCAD(5, pt.potentials.gauss), np.ones(5), 1 / np.sqrt(5))]
+    for sampler, var_true, speed in cases:
+        build.reset_launches()
+        skel = pt.sample_skeleton(sampler, 1000, np.zeros((512, 5)),
+                                  np.full((512, 5), speed), seed=0, dtype=torch.float32)
+        assert (skel.n_valid == 1000).all()
+        assert build.LAUNCHES[k3.launch_name(driver.kernel_kind(sampler))] >= 1
+        assert build.LAUNCHES["zigzag_chunk"] == 0 and build.LAUNCHES["compact_rows"] >= 1
+        mean, var = pt.pooled_moments(skel, sampler, 200)
+        rel = (var.cpu().numpy() / var_true) - 1
+        assert (mean.abs().cpu().numpy() < 0.15 * np.sqrt(var_true)).all(), mean
+        assert (np.abs(rel) < 0.15).all(), var
+
+
+def test_k3_k5_refuse_what_they_cannot_run(dev):
+    """On CUDA tensors the scalar-rate kernel launches or raises: an untagged
+    gradient, past the shared-memory limit on d, and K1 refuses a tag it
+    lacks."""
+    untagged = pt.BPS(3, lambda x: x)
+    with pytest.raises(ValueError, match="device potentials"):
+        pt.sample_skeleton(untagged, 10, np.zeros((2, 3)), np.ones((2, 3)))
+    d = k3.scalar_max_dim(torch.float64) + 1
+    big = pt.BPS(d, pt.potentials.grad_gauss)
+    state = big.init_state_batch(np.zeros((2, d)), np.ones((2, d)), 0, torch.float64, dev)
+    st = driver.chunk_state(state, torch.zeros(2, dtype=torch.int32, device=dev))
+    fill = k1.empty_fill(4, d, 2, torch.float64, dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        k3.run_chunk(0, st, fill, 0, driver.chunk_config(big, 4, 10, 128))
+    aniso_zz = pt.ZigZagAD(4, pt.potentials.anisotropic_gauss(np.ones(4)))
+    with pytest.raises(ValueError, match="device potentials"):
+        pt.sample_skeleton(aniso_zz, 10, np.zeros((2, 4)), np.ones((2, 4)))

@@ -103,7 +103,7 @@ def test_init_state_batch_matches_jax(dtype):
     js = pf.ZigZag(d, lambda x: x, tmax=1.5)
     ts = pt.ZigZag(d, pt.potentials.grad_gauss, tmax=1.5)
     jst = js.init_state_batch(x0, v0, 17, dtype=getattr(jnp, dtype))
-    tst = ts.init_state_batch(x0, v0, 17, dtype=getattr(torch, dtype))
+    tst = ts.init_state_batch(x0, v0, 17, dtype=getattr(torch, dtype), device="cpu")
     got = convert.state_to_numpy(tst)
     for f in jst._fields:
         a = (np.asarray(jax.random.key_data(jst.key)) if f == "key"
@@ -117,7 +117,7 @@ def test_init_state_batch_matches_jax(dtype):
     from pdmpflux_tpu_torch.core import rng
 
     one = ts.init_state(x0[2], v0[2], rng.split(rng.key(17), B)[2],
-                        dtype=getattr(torch, dtype))
+                        dtype=getattr(torch, dtype), device="cpu")
     assert torch.equal(one.exp_rv, tst.exp_rv[2])
     # round trip through the converters
     back = convert.state_to_numpy(convert.state_from_numpy(got))
@@ -149,3 +149,15 @@ def test_types_helpers_match_jax():
     s_t, c_t = tt.kahan_add(torch.tensor(tot), torch.tensor(comp), torch.tensor(np.float32(1e-8)))
     s_j, c_j = jt.kahan_add(jnp.float32(tot), jnp.float32(comp), jnp.float32(1e-8))
     assert float(s_t) == float(s_j) and float(c_t) == float(c_j)
+
+
+def test_init_state_defaults_to_the_card():
+    """``init_state`` and ``init_state_batch`` default to ``device="cuda"``,
+    as every entry point of the port does, and raise without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    sampler = pt.BPS(3, pt.potentials.grad_gauss)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        sampler.init_state_batch(np.zeros((2, 3)), np.ones((2, 3)), 0)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        sampler.init_state(np.zeros(3), np.ones(3), 0)

@@ -205,7 +205,7 @@ def test_sticky_constructors_and_init_state_match_jax():
     rs = np.random.default_rng(0)
     x0, v0 = rs.normal(size=(6, 4)), rs.choice([-1.0, 1.0], size=(6, 4))
     jst = js.init_state_batch(x0, v0, 17, dtype=jnp.float64)
-    tst = ts.init_state_batch(x0, v0, 17, dtype=torch.float64)
+    tst = ts.init_state_batch(x0, v0, 17, dtype=torch.float64, device="cpu")
     got = convert.state_to_numpy(tst)
     assert np.isinf(got["tt"]).all() and got["is_active"].all()
     for f in jst._fields:
