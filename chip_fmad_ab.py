@@ -61,7 +61,7 @@ def parity(kind, pot, d, B, kw):
     """Kernel and plain version from ``chip_smoke.k3_runs``'s f64 state:
     (chains with differing integer outputs, max absolute and max relative
     float difference on the others)."""
-    st_k, fill_k, st_p, fill_p = cs.k3_runs(kind, pot, d, B, kw)
+    st_k, fill_k, st_p, fill_p, _ = cs.k3_runs(kind, pot, d, B, kw)
     outs_k, outs_p = cs.chunk_outputs(st_k, fill_k), cs.chunk_outputs(st_p, fill_p)
     same = torch.ones(B, dtype=torch.bool, device=cs.DEV)
     for (_, a), (_, b) in zip(outs_k, outs_p):

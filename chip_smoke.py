@@ -70,11 +70,37 @@ Phases, one line each; any failure raises and exits non-zero:
    x0 ~ N(0, I) (see ``phase_ecmc``), v0 = 1/sqrt(10); complete, K5
    launched, |v| = 1 on every row within 1e-5, moments of N(0, I); one K=32
    chunk of K5 checked against its plain version at this shape in float32
-   (as ``compare_f32`` states) and timed beside it.
+   (as ``compare_f32`` states) and timed beside it;
+13. K7, the horizon mode of the chunk kernels, against the plain version in
+   float64, two K=32 chunks from one random state with some chains capped
+   and the float32 clock target at the median clock an event-count run
+   reaches (about half of the lanes freeze inside): K1 gauss d=10 B=4096, K6
+   gauss d=10 B=1024 and d=1000 B=128, K3 BPS aniso and Boomerang banana, K5
+   ECMC gauss (d=10, B=1024); K1 and K6 to rtol 1e-9 (atol 1e-12) as in
+   phases 2 and 6, K3/K5 bit for bit;
+14. the ``zigzag_gauss_d10_horizon`` deployment: ZigZagAD(10, gauss), 4096
+   chains, T = 500, init_capacity 4096, float32, x0 = 0, v0 = 1; one warm
+   call, then five timed warm calls (median and spread), the first counted
+   and checked: K1 in horizon mode and K2 launched, every chain's last row
+   at t == 500.0 exactly with kind EV_TERMINAL, no kept row past T, t
+   non-decreasing, pooled moments in bench.py's bands, mean events per chain
+   beside the expected 10 / sqrt(2 pi) * 500; then (14b) the fill, K2 and
+   the finalize timed apart, K2 checked bit for bit on this fill, one K=32
+   horizon chunk of K1 checked against its plain version at this shape in
+   float32 (as ``compare_f32`` states) and K1 timed beside its plain
+   version; and (14c) the median call split into K1, K2, finalize and the
+   rest;
+15. time-horizon checks, not timed cells: ``sticky_zigzag_d1000`` (T = 0.5),
+   ``bps_anisotropic_gauss_d10`` (T = 290) and ``ecmc_gauss_d10`` (T = 645),
+   about 256 events per chain each, with the contracts of phase 14 (and
+   frozen coordinates at exactly 0.0 in the sticky terminal rows); each
+   path's horizon-mode kernel timed per K=32 launch at its shape beside its
+   plain version.
 
 Then one JSON line of per-kernel results (launches counted in the timed run
 of each kernel's path: phase 4 for K1 and K2, phase 7 for K6, phase 10 for
-K3, phase 12 for K5; max_abs_err the largest of the kernel's comparisons
+K3, phase 12 for K5, phase 14 for K1 in horizon mode, phase 15 for K6, K3
+and K5 in horizon mode; max_abs_err the largest of the kernel's comparisons
 with its plain version, f64 and f32; the bound of each timed launch computed
 from its shape and this run's data), the card's name and power limit, and
 the status line.
@@ -95,7 +121,7 @@ if not torch.cuda.is_available():
 
 import pdmpflux_tpu_torch as pt  # noqa: E402
 from pdmpflux_tpu_torch import api  # noqa: E402
-from pdmpflux_tpu_torch.core import rng  # noqa: E402
+from pdmpflux_tpu_torch.core import engine, rng  # noqa: E402
 from pdmpflux_tpu_torch.core.types import EV_INIT, event_from_state  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import build  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import compact as k2  # noqa: E402
@@ -114,6 +140,9 @@ BPS_D10 = (10, 512, 8192, 0.5)    # d, chains, points, refresh: bps_anisotropic_
 BPS_CALLS = 5  # timed warm calls of the BPS path
 BOOMERANG_D10 = (10, 512, 1024, 0.5)  # boomerang_gauss_d10
 ECMC_D10 = (10, 512, 2048)            # ecmc_gauss_d10
+HORIZON_D10 = (10, 4096, 500.0, 4096)  # d, chains, T, init_capacity: zigzag_gauss_d10_horizon
+HORIZON_CALLS = 5  # timed warm calls of the horizon path
+HORIZON_CHECK_T = {"sticky": 0.5, "bps": 290.0, "ecmc": 645.0}  # ~256 events per chain
 
 H100_BYTES_S = 3.35e12  # HBM3 rate of the H100 SXM (NVIDIA data sheet)
 H100_F32_OPS_S = 67e12  # float32 rate outside the tensor cores (the same sheet)
@@ -252,8 +281,34 @@ def float_err(what, name, a, b, rtol, atol):
     return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
-def k1_compare(d, B, K, n_chunks, pot):
-    """Kernel and plain version from the same f64 state; returns max abs err."""
+def median_target(run, st, cfg, K, n_chunks, seed0):
+    """The float32 clock target at the median clock that ``n_chunks``
+    event-count chunks of the kernel (checked in that mode by phases 2, 6 and
+    9) reach from ``st``: a horizon run from the same state freezes about
+    half of the lanes inside."""
+    probe = clone_state(st)
+    d, B = st.x.shape
+    fill = k1.empty_fill(K * n_chunks, d, B, st.x.dtype, DEV, st.act is not None)
+    for it in range(n_chunks):
+        run(seed0 + it * 1000003, probe, fill, it * K, cfg)
+    return k1.f32_target(float(probe.fs[k1.F_T].median()))
+
+
+def target_share(st, cfg):
+    """Share of the lanes whose clock reached the horizon target (None in
+    events mode); a horizon check wants it well inside (0, 1)."""
+    if not cfg.horizon:
+        return None
+    share = float((st.fs[k1.F_T] >= cfg.t_target).double().mean())
+    if not 0.2 < share < 0.9:
+        raise AssertionError(f"the horizon target {cfg.t_target} froze {share:.3f} of the "
+                             "lanes; the check wants it inside the run")
+    return share
+
+
+def k1_compare(d, B, K, n_chunks, pot, horizon=False):
+    """Kernel and plain version from the same f64 state, in horizon mode (K7)
+    when asked; returns (max abs err, events, share frozen by the target)."""
     grad = {"gauss": pt.potentials.grad_gauss, "banana": pt.potentials.grad_banana}[pot]
     sampler = pt.ZigZag(d, grad)
     state = random_state(sampler, B, torch.float64, d + B)
@@ -261,6 +316,9 @@ def k1_compare(d, B, K, n_chunks, pot):
     counts[::5] = 40  # some chains freeze inside the run
     cfg = driver.chunk_config(sampler, K, 48, 128)
     st_k = driver.chunk_state(state, counts)
+    if horizon:
+        cfg = cfg._replace(t_target=median_target(k1.run_chunk, st_k, cfg, K, n_chunks,
+                                                  -1234567))
     st_p = clone_state(st_k)
     fill_k = k1.empty_fill(K * n_chunks, d, B, torch.float64, DEV)
     fill_p = k1.empty_fill(K * n_chunks, d, B, torch.float64, DEV)
@@ -280,13 +338,13 @@ def k1_compare(d, B, K, n_chunks, pot):
     n_ev = int((fill_k.kind[:, 0] > 0).sum())
     if n_ev < B:
         raise AssertionError(f"K1 d={d}: only {n_ev} events in the check")
-    return err, n_ev
+    return err, n_ev, target_share(st_k, cfg)
 
 
 def phase_k1():
-    e10, n10 = k1_compare(10, 8192, 32, 3, "gauss")
-    eb, nb = k1_compare(10, 1024, 32, 2, "banana")
-    e1k, n1k = k1_compare(1000, 256, 32, 2, "gauss")
+    e10, n10, _ = k1_compare(10, 8192, 32, 3, "gauss")
+    eb, nb, _ = k1_compare(10, 1024, 32, 2, "banana")
+    e1k, n1k, _ = k1_compare(1000, 256, 32, 2, "gauss")
     err = max(e10, eb, e1k)
     print(f"phase 2 K1 vs plain (f64): d=10 B=8192 max_abs_err={e10:.3e} "
           f"({n10} events); banana d=10 B=1024 {eb:.3e} ({nb}); d=1000 B=256 "
@@ -337,8 +395,10 @@ def divergence(b, v0, fill_k, fill_p, cfg, seed, v_rtol=0.0):
     against a refresh (BPS, linear flow): recomputed in float64, the bounce
     probability lies within 8 d * 2**-24 of the uniform that decides it.  An
     accept against a reject: the uniform lies between the two sides'
-    acceptance ratios, which agree to 1e-4.  Velocities count as equal within
-    ``v_rtol``.  Returns (text, explained)."""
+    acceptance ratios, which agree to 1e-4.  In horizon mode, one side
+    frozen: the two committed clocks agree to 1e-4 and lie on either side of
+    the target.  Velocities count as equal within ``v_rtol``.  Returns
+    (text, explained)."""
     B, d = fill_k.kind.shape[-1], fill_k.x.shape[1]
     kk, kp = fill_k.kind[:, 0, b], fill_p.kind[:, 0, b]
     vk, vp = fill_k.v[:, :, b], fill_p.v[:, :, b]
@@ -380,6 +440,15 @@ def divergence(b, v0, fill_k, fill_p, cfg, seed, v_rtol=0.0):
                 f"f64 the bounce probability is {prob:.8f}, the uniform {u:.8f} "
                 f"(bound 8*d*2^-24={8 * d * F32_EPS:.2e})",
                 abs(u - prob) <= 8 * d * F32_EPS)
+    events = (kk[:k] > 0).nonzero()
+    if cfg.horizon and 0 in (int(kk[k]), int(kp[k])) and len(events):
+        # one side froze at the clock target: both committed clocks are the
+        # last event row's time (ts is 0 there), on either side of it
+        j = int(events[-1, 0])
+        t_k, t_p, tt = float(fill_k.fs[j, 0, b]), float(fill_p.fs[j, 0, b]), cfg.t_target
+        return (f"{at}: one side froze at the clock target {tt!r}: committed clocks "
+                f"{t_k!r} (kernel) vs {t_p!r} (plain)",
+                (t_k >= tt) != (t_p >= tt) and abs(t_k - t_p) <= 1e-4 * max(1.0, tt))
     if sorted((int(kk[k]), int(kp[k]))) == [0, pt.EV_JUMP]:
         ar_k, ar_p = float(fill_k.fs[k, 2, b]), float(fill_p.fs[k, 2, b])
         u = float(rng.uniform(seeds, k, 1, cfg.tile, torch.float32)[b])
@@ -606,9 +675,10 @@ def sticky_config(sampler, K, cap, dtype):
     return cfg._replace(kappa=cfg.kappa.to(DEV, dtype))
 
 
-def k6_compare(d, B, pot, kappa, K=32, n_chunks=2):
-    """K6 and its plain version from one f64 state near the axes; returns
-    (max abs err, events, sticks, thaws)."""
+def k6_compare(d, B, pot, kappa, K=32, n_chunks=2, horizon=False):
+    """K6 and its plain version from one f64 state near the axes, in horizon
+    mode (K7) when asked; returns (max abs err, events, sticks, thaws, share
+    frozen by the target)."""
     grad = {"gauss": pt.potentials.grad_gauss, "banana": pt.potentials.grad_banana}[pot]
     sampler = pt.StickyZigZag(d, grad, np.full(d, kappa))
     rs = np.random.default_rng(d + B)
@@ -619,6 +689,9 @@ def k6_compare(d, B, pot, kappa, K=32, n_chunks=2):
     counts[::5] = 50  # some chains reach the cap of 64 inside the run
     cfg = sticky_config(sampler, K, 64, torch.float64)
     st_k = driver.chunk_state(state, counts, sticky=True)
+    if horizon:
+        cfg = cfg._replace(t_target=median_target(k1.run_chunk, st_k, cfg, K, n_chunks,
+                                                  424242))
     st_p = clone_state(st_k)
     fill_k, fill_p = (k1.empty_fill(K * n_chunks, d, B, torch.float64, DEV, sticky=True)
                       for _ in range(2))
@@ -642,7 +715,7 @@ def k6_compare(d, B, pot, kappa, K=32, n_chunks=2):
     if n_stick == 0 or n_thaw == 0 or not bool((st_k.iscal[k1.I_CNT] == 64).any()):
         raise AssertionError(f"{what}: the check saw {n_stick} sticks, {n_thaw} "
                              "thaws, or no capped chain")
-    return err, n_ev, n_stick, n_thaw
+    return err, n_ev, n_stick, n_thaw, target_share(st_k, cfg)
 
 
 def phase_k6():
@@ -650,7 +723,7 @@ def phase_k6():
            for pot, d, B, kappa in (("gauss", 10, 1024, 2.0), ("banana", 10, 1024, 2.0),
                                     ("gauss", 1000, 128, 10.0))}
     parts = [f"{pot} d={d} B={B} max_abs_err={e:.3e} ({n} events, {ns} sticks, "
-             f"{nt} thaws)" for (pot, d, B), (e, n, ns, nt) in res.items()]
+             f"{nt} thaws)" for (pot, d, B), (e, n, ns, nt, _) in res.items()]
     print(f"phase 6 K6 vs plain (f64, 2 x K=32): {'; '.join(parts)}; ints and "
           f"activity equal, rtol {RTOL} atol {ATOL}", flush=True)
     return max(r[0] for r in res.values())
@@ -856,12 +929,12 @@ def scalar_f32_check(what, sampler, state, K=32, seed=7):
     return cfg, st, fill, text, err
 
 
-def k3_runs(kind, pot, d, B, kw, K=32, n_chunks=2):
+def k3_runs(kind, pot, d, B, kw, K=32, n_chunks=2, horizon=False):
     """K3/K5 and their plain version, ``n_chunks`` chunks each from one f64
     state: random positions, unit velocities (Gaussian for the Boomerang),
     every 13th chain with x parallel to v (ECMC's degenerate frame), every
-    5th capped inside the run.  Returns the kernel's state and fill, then
-    the plain version's."""
+    5th capped inside the run; in horizon mode (K7) when asked.  Returns the
+    kernel's state and fill, then the plain version's, and the config."""
     sampler = scalar_sampler(kind, pot, d, **kw)
     rs = np.random.default_rng(d + B)
     x0, v0 = rs.normal(size=(B, d)), rs.normal(size=(B, d))
@@ -873,6 +946,9 @@ def k3_runs(kind, pot, d, B, kw, K=32, n_chunks=2):
     counts[::5] = 50  # some chains reach the cap of 64 inside the run
     cfg = scalar_config(sampler, K, 64, torch.float64)
     st_k = driver.chunk_state(state, counts)
+    if horizon:
+        cfg = cfg._replace(t_target=median_target(k3.run_chunk, st_k, cfg, K, n_chunks,
+                                                  271828))
     st_p = clone_state(st_k)
     fill_k, fill_p = (k1.empty_fill(K * n_chunks, d, B, torch.float64, DEV)
                       for _ in range(2))
@@ -881,14 +957,16 @@ def k3_runs(kind, pot, d, B, kw, K=32, n_chunks=2):
         k3.run_chunk(seed, st_k, fill_k, it * K, cfg)
         k3.run_chunk_plain(seed, st_p, fill_p, it * K, cfg)
     sync()
-    return st_k, fill_k, st_p, fill_p
+    return st_k, fill_k, st_p, fill_p, cfg
 
 
-def k3_compare(kind, pot, d, B, kw):
+def k3_compare(kind, pot, d, B, kw, horizon=False):
     """K3/K5 against their plain version (:func:`k3_runs`): integers equal,
-    floats to ``RTOL``/``ATOL``.  Returns (max abs err, events)."""
-    st_k, fill_k, st_p, fill_p = k3_runs(kind, pot, d, B, kw)
+    floats to ``RTOL``/``ATOL``, and bit for bit in horizon mode.  Returns
+    (max abs err, events, share frozen by the target)."""
+    st_k, fill_k, st_p, fill_p, cfg = k3_runs(kind, pot, d, B, kw, horizon=horizon)
     what = f"{k3.launch_name(kind)} {kind} {pot} d={d} {kw}"
+    rtol, atol = (0.0, 0.0) if horizon else (RTOL, ATOL)
     err = 0.0
     for (name, a), (_, b) in zip(chunk_outputs(st_k, fill_k), chunk_outputs(st_p, fill_p)):
         if not a.is_floating_point():
@@ -896,11 +974,11 @@ def k3_compare(kind, pot, d, B, kw):
                 raise AssertionError(f"{what}: output {name} differs at "
                                      f"{int((a != b).sum())} places")
         else:
-            err = max(err, float_err(what, name, a, b, RTOL, ATOL))
+            err = max(err, float_err(what, name, a, b, rtol, atol))
     n_ev = int((fill_k.kind[:, 0] == pt.EV_JUMP).sum())
     if n_ev < B or not bool((st_k.iscal[k1.I_CNT] == 64).any()):
         raise AssertionError(f"{what}: {n_ev} events, or no capped chain")
-    return err, n_ev
+    return err, n_ev, target_share(st_k, cfg)
 
 
 K3_CASES = [
@@ -917,7 +995,7 @@ K3_CASES = [
 def phase_k3():
     parts, errs = [], {"bps_chunk": 0.0, "ecmc_chunk": 0.0}
     for kind, pot, d, B, kw in K3_CASES:
-        err, n_ev = k3_compare(kind, pot, d, B, kw)
+        err, n_ev, _ = k3_compare(kind, pot, d, B, kw)
         name = k3.launch_name(kind)
         errs[name] = max(errs[name], err)
         parts.append(f"{kind} {pot} d={d} B={B} {kw or ''} max_abs_err={err:.3e} "
@@ -1116,6 +1194,251 @@ def phase_ecmc(card_name):
     return launches, k5_ms, k5_plain_ms, k5_b, f32_err
 
 
+def phase_k7():
+    """K7, the horizon mode of K1, K6 and K3/K5, against the plain version
+    from one f64 state (K1 and K6 to ``RTOL``/``ATOL``, K3/K5 bit for bit);
+    returns the max abs err of each kernel's horizon mode."""
+    e, n, s = k1_compare(10, 4096, 32, 2, "gauss", horizon=True)
+    errs = {"zigzag_chunk_horizon": e, "sticky_chunk_horizon": 0.0,
+            "bps_chunk_horizon": 0.0, "ecmc_chunk_horizon": 0.0}
+    parts = [f"K1 gauss d=10 B=4096 max_abs_err={e:.3e} ({n} events, {s:.3f} of the "
+             "lanes at the target)"]
+    for pot, d, B, kappa in (("gauss", 10, 1024, 2.0), ("gauss", 1000, 128, 10.0)):
+        e, n, ns, nt, s = k6_compare(d, B, pot, kappa, horizon=True)
+        errs["sticky_chunk_horizon"] = max(errs["sticky_chunk_horizon"], e)
+        parts.append(f"K6 {pot} d={d} B={B} max_abs_err={e:.3e} ({n} events, {ns} sticks, "
+                     f"{nt} thaws, {s:.3f} at the target)")
+    for kind, pot, kw in (("bps", "aniso", dict(signed_bound=False, gaussian_velocity=True)),
+                          ("boomerang", "banana", {}), ("ecmc", "gauss", {})):
+        e, n, s = k3_compare(kind, pot, 10, 1024, kw, horizon=True)
+        name = k3.launch_name(kind) + "_horizon"
+        errs[name] = max(errs[name], e)
+        parts.append(f"{'K5' if kind == 'ecmc' else 'K3'} {kind} {pot} d=10 B=1024 "
+                     f"max_abs_err={e:.3e} ({n} events, {s:.3f} at the target)")
+    print(f"phase 13 K7 (horizon mode) vs plain (f64, 2 x K=32, float32 target at the "
+          f"median clock of an event-count run): {'; '.join(parts)}; ints equal, K1/K6 "
+          f"to rtol {RTOL} atol {ATOL}, K3/K5 bit for bit", flush=True)
+    return errs
+
+
+def check_horizon_skeleton(what, skel, T):
+    """The time-horizon contracts on every chain of a batch skeleton: the
+    last valid row at t == T exactly with kind EV_TERMINAL, no valid row past
+    T, t non-decreasing over the valid rows, x finite.  Returns the events
+    (valid rows besides the initial and the terminal one)."""
+    nv = skel.n_valid.long()
+    B, W = skel.t.shape
+    rows = torch.arange(B, device=nv.device)
+    t = skel.t
+    if not bool((t[rows, nv - 1] == T).all()):
+        raise AssertionError(f"{what}: a chain's last row is not at t == {T}")
+    if not bool((skel.kind[rows, nv - 1] == pt.EV_TERMINAL).all()):
+        raise AssertionError(f"{what}: a chain's last row is not EV_TERMINAL")
+    valid = torch.arange(W, device=t.device)[None, :] < nv[:, None]
+    if not bool((t[valid] <= T).all()):
+        raise AssertionError(f"{what}: a kept row lies past T = {T}")
+    if not bool(((t[:, 1:] >= t[:, :-1]) | ~valid[:, 1:]).all()):
+        raise AssertionError(f"{what}: t decreases somewhere")
+    if not bool(torch.isfinite(skel.x).all()):
+        raise AssertionError(f"{what}: non-finite positions")
+    return int(nv.sum()) - 2 * B
+
+
+def horizon_deployment():
+    """zigzag_gauss_d10_horizon (benchmarks/run_baselines.py:100-104 at scale
+    1, x0 = 0, v0 = 1 as at :193-200)."""
+    d, B, _, _ = HORIZON_D10
+    return pt.ZigZagAD(d, pt.potentials.gauss), np.zeros((B, d)), np.ones((B, d))
+
+
+def phase_horizon(card_name):
+    """The zigzag_gauss_d10_horizon deployment: one warm call, then five
+    timed warm calls, the first of them counted and checked."""
+    d, B, T, cap = HORIZON_D10
+    sampler, x0, v0 = horizon_deployment()
+    kw = dict(seed=0, dtype=torch.float32, device=DEV, init_capacity=cap)
+    pt.sample_skeleton(sampler, T, x0, v0, **kw)  # warm: allocator
+    sync()
+    walls = []
+    for call in range(HORIZON_CALLS):
+        if call == 0:
+            build.reset_launches()
+        t0 = time.perf_counter()
+        skel = pt.sample_skeleton(sampler, T, x0, v0, **kw)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        if call == 0:
+            launches = dict(build.LAUNCHES)
+            checked = skel
+    skel = checked
+    if launches["zigzag_chunk_horizon"] < 1 or launches["compact_rows"] < 1:
+        raise AssertionError(f"horizon path missed a kernel: {launches}")
+    events = check_horizon_skeleton("horizon path", skel, T)
+    mean, var = pt.pooled_moments(skel, sampler, 256)
+    if not moments_ok(mean, var):
+        raise AssertionError(f"horizon path moments off: mean {mean.tolist()} "
+                             f"var {var.tolist()}")
+    width = skel.t.shape[1]
+    del skel, checked
+    per_chain = events / B
+    expected = d / np.sqrt(2 * np.pi) * T  # sum_i E max(0, x_i v_i) = d / sqrt(2 pi)
+    med = float(np.median(walls))
+    print(f"phase 14 zigzag_gauss_d10_horizon: ZigZagAD({d}, gauss) B={B} T={T} "
+          f"init_capacity={cap} f32 events={events} launches={launches}; every chain ends "
+          f"at t == {T} with EV_TERMINAL, no kept row past T, t non-decreasing, width "
+          f"{width}; events per chain {per_chain:.2f} (expected {expected:.2f}, "
+          f"{per_chain / expected - 1:+.3%}); max|mean|={float(mean.abs().max()):.4f} "
+          f"max|var-1|={float((var - 1).abs().max()):.4f}; {HORIZON_CALLS} warm calls "
+          f"{' '.join(f'{w:.4f}' for w in walls)} s, median {med:.4f} s "
+          f"({events / med:.1f} events/s), spread {min(walls):.4f}-{max(walls):.4f} s "
+          f"({card_name})", flush=True)
+    return sampler, launches, med
+
+
+def phase_horizon_breakdown(sampler, launches, wall):
+    """The horizon path's fill, K2 and finalize timed apart (K2 checked bit
+    for bit on this fill), one K=32 horizon chunk of K1 checked against its
+    plain version at this shape in float32 and timed beside it; then the
+    median warm call split into K1, K2, finalize and the rest."""
+    d, B, T, t_cap = HORIZON_D10
+    dtype = torch.float32
+    _, x0, v0 = horizon_deployment()
+    state = sampler.init_state_batch(x0, v0, 0, dtype, DEV)
+    init = event_from_state(state, EV_INIT)
+    run = driver.make_stream_runner(sampler, t_cap, t_cap, mode="horizon")
+    zeros = torch.zeros(B, dtype=torch.int32, device=DEV)
+    sync()
+    t0 = time.perf_counter()
+    res = run(state, zeros, T)
+    sync()
+    fill_s = time.perf_counter() - t0
+    complete = int((res.state.t >= T).sum())
+    off = torch.ones(B, dtype=torch.int32, device=DEV)
+    outs = []
+    for fn in (k2.compact_rows, k2.compact_rows_plain):
+        out = k2.empty_rows(B, 1 + t_cap, d, dtype, DEV)
+        kind, specs = k2.fill_specs(res.fill, out, init)
+        fn(kind, specs, off)
+        outs.append(out)
+    sync()
+    k2_err = k2_outputs_equal("horizon path", *outs)
+    acc = outs[0]._replace(n_valid=(1 + res.counts).to(torch.int32))
+    del outs, out
+    k2_ms = cuda_ms(lambda: k2.compact_rows(kind, specs, off), 3)
+    k2_plain_ms = cuda_ms(lambda: k2.compact_rows_plain(kind, specs, off), 2)
+    k2_b = k2_bound(res.fill, res.counts, 1 + t_cap)
+    out_w = min(t_cap + 2, -(-(2 + int(res.counts.max())) // 256) * 256)
+    fin_ms = cuda_ms(lambda: engine.finalize_horizon_rows(sampler.flow, acc, T, out_w), 3)
+    del res, specs, kind, acc
+
+    K, seed = 32, 7
+    cfg = driver.chunk_config(sampler, K, 1 << 30, 128)
+    st = driver.chunk_state(state, zeros)
+    cfg_c = cfg._replace(t_target=median_target(k1.run_chunk, st, cfg, K, 1, seed))
+    st_p = clone_state(st)
+    v0c = st.v.clone()
+    fill, fill_p = (k1.empty_fill(K, d, B, dtype, DEV) for _ in range(2))
+    k1.run_chunk(seed, st, fill, 0, cfg_c)
+    k1.run_chunk_plain(seed, st_p, fill_p, 0, cfg_c)
+    sync()
+    agree, share, err, texts = compare_f32("K7 K1 f32", v0c, st, fill, st_p, fill_p, cfg_c,
+                                           seed, K1_F32_SHARE)
+    froze = target_share(st, cfg_c)
+    del st_p, fill_p
+    # timed at the path's own target, which no lane reaches in the timing run
+    cfg_t = cfg._replace(t_target=k1.f32_target(T))
+    k1_ms = cuda_ms(lambda: k1.run_chunk(seed, st, fill, 0, cfg_t), 20)
+    k1_b = chunk_bound(cfg_t, st, fill, K * B)
+    k1_plain_ms = cuda_ms(lambda: k1.run_chunk_plain(seed, st, fill, 0, cfg_t), 2)
+    print(f"phase 14b horizon breakdown (B={B}, d={d}, f32): fill {fill_s:.4f} s over "
+          f"{t_cap} rows ({complete} of {B} chains at T in it); K2 compaction "
+          f"(T={t_cap}, W={1 + t_cap}) {k2_ms:.4f} ms vs plain {k2_plain_ms:.4f} ms, "
+          f"bit-identical, bound {bound_text(k2_b)}; finalize (width {out_w}) "
+          f"{fin_ms:.4f} ms; K1 horizon chunk (K={K}) {k1_ms:.4f} ms vs plain "
+          f"{k1_plain_ms:.4f} ms, bound {bound_text(k1_b)}; f32 check at target "
+          f"{cfg_c.t_target!r} ({froze:.3f} of the lanes reach it): kinds agree on "
+          f"{agree:.6f}, max_abs_err {err:.3e} on the {share:.4f} of chains with equal "
+          f"decisions (want >= {K1_F32_SHARE}); the others left at f32 rounding ties: "
+          f"{'; '.join(texts) or 'none'}", flush=True)
+    wall_ms = wall * 1e3
+    k1_total = launches["zigzag_chunk_horizon"] * k1_ms
+    k2_total = launches["compact_rows"] * k2_ms
+    rest = wall_ms - k1_total - k2_total - fin_ms
+    print(f"phase 14c horizon time split of the median warm call ({wall_ms:.4f} ms): K1 "
+          f"{launches['zigzag_chunk_horizon']} x {k1_ms:.4f} = {k1_total:.4f} ms "
+          f"({k1_total / wall_ms:.1%}); K2 {launches['compact_rows']} x {k2_ms:.4f} = "
+          f"{k2_total:.4f} ms ({k2_total / wall_ms:.1%}); finalize {fin_ms:.4f} ms "
+          f"({fin_ms / wall_ms:.1%}); rest (host, card idle) {rest:.4f} ms "
+          f"({rest / wall_ms:.1%})", flush=True)
+    return k1_ms, k1_plain_ms, k1_b, k2_err, err
+
+
+def phase_horizon_checks(card_name):
+    """Time-horizon runs of the sticky, BPS and ECMC deployments (about 256
+    events per chain), their contracts checked; each path's horizon-mode
+    kernel timed per K=32 launch at its shape beside its plain version.
+    Returns {launch name: (launches, ms, plain ms, bound)}."""
+    d_s, B_s, _, kappa = STICKY
+    bps, _, x_b, v_b = bps_deployment()
+    d_e, B_e, _ = ECMC_D10
+    cases = [
+        ("sticky", pt.StickyZigZagAD(d_s, pt.potentials.gauss, np.full(d_s, kappa)),
+         np.full((B_s, d_s), 0.3), np.ones((B_s, d_s))),
+        ("bps", bps, x_b, v_b),
+        ("ecmc", pt.ForwardECMCAD(d_e, pt.potentials.gauss),
+         np.random.default_rng(12).normal(size=(B_e, d_e)), np.full((B_e, d_e), d_e ** -0.5)),
+    ]
+    out, parts = {}, []
+    for name, sampler, x0, v0 in cases:
+        T, sticky = HORIZON_CHECK_T[name], name == "sticky"
+        B, d = x0.shape
+        launch = ("sticky_chunk" if sticky else k3.launch_name(name)) + "_horizon"
+        build.reset_launches()
+        t0 = time.perf_counter()
+        skel = pt.sample_skeleton(sampler, T, x0, v0, seed=0, dtype=torch.float32, device=DEV)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        if launches[launch] < 1 or launches["compact_rows"] < 1:
+            raise AssertionError(f"{name} horizon run missed a kernel: {launches}")
+        events = check_horizon_skeleton(f"{name} horizon", skel, T)
+        extra = ""
+        if sticky:
+            rows, last = torch.arange(B, device=DEV), skel.n_valid.long() - 1
+            stuck = ~skel.is_active[rows, last]
+            if not bool(stuck.any()) or not bool((skel.x[rows, last][stuck] == 0.0).all()):
+                raise AssertionError("sticky horizon: no frozen coordinate at the terminal "
+                                     "rows, or one not at exactly 0.0")
+            extra = f", {int(stuck.sum())} frozen coordinates at exactly 0.0 in the terminal rows"
+        if name == "ecmc":
+            valid = (torch.arange(skel.t.shape[1], device=DEV)[None, :]
+                     < skel.n_valid[:, None])
+            speed = torch.linalg.norm(skel.v.double(), dim=-1)[valid]
+            if float((speed - 1.0).abs().max()) > 1e-5:
+                raise AssertionError("ECMC horizon: |v| off 1")
+            extra = ", |v| == 1 within 1e-5"
+        del skel
+        state = sampler.init_state_batch(x0, v0, 0, torch.float32, DEV)
+        config = sticky_config if sticky else scalar_config
+        # a target no lane reaches in the timing run
+        cfg = config(sampler, 32, 1 << 30, torch.float32)._replace(t_target=k1.f32_target(1e6))
+        st = driver.chunk_state(state, torch.zeros(B, dtype=torch.int32, device=DEV), sticky)
+        fill = k1.empty_fill(32, d, B, torch.float32, DEV, sticky)
+        run, plain = ((k1.run_chunk, k1.run_chunk_plain) if sticky
+                      else (k3.run_chunk, k3.run_chunk_plain))
+        ms = cuda_ms(lambda: run(7, st, fill, 0, cfg), 10)
+        b = chunk_bound(cfg, st, fill, 32 * B)
+        plain_ms = cuda_ms(lambda: plain(7, st, fill, 0, cfg), 1)
+        out[launch] = (launches[launch], ms, plain_ms, b)
+        parts.append(f"{name} d={d} B={B} T={T}: {events / B:.1f} events per chain, "
+                     f"{launches[launch]} {launch} launches, {wall:.4f} s (first call){extra}; "
+                     f"{launch} (K=32) {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
+                     f"{bound_text(b)}")
+    print(f"phase 15 horizon checks (f32; every chain ends at t == T with EV_TERMINAL, no "
+          f"kept row past T, t non-decreasing): {'; '.join(parts)} ({card_name})", flush=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b):
     return {"name": name, "route": "cuda", "source": f"pdmpflux_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -1145,13 +1468,19 @@ def main():
         bps, bps_launches["bps_chunk"], bps_wall)
     k3_boomerang_f32_err = phase_boomerang(card_name)
     ecmc_launches, k5_ms, k5_plain_ms, k5_b, k5_f32_err = phase_ecmc(card_name)
+    k7_errs = phase_k7()
+    hz, hz_launches, hz_wall = phase_horizon(card_name)
+    k7_ms, k7_plain_ms, k7_b, k2_hz_err, k7_f32_err = phase_horizon_breakdown(
+        hz, hz_launches, hz_wall)
+    checks = phase_horizon_checks(card_name)
     zz = "pdmpflux_tpu/ops/pallas/zigzag_chunk.py:854"
+    k7 = 'pdmpflux_tpu/ops/pallas/zigzag_chunk.py:343 mode="horizon"'
     kernels = [
         kernel_entry("zigzag_chunk", "zigzag_chunk.cu", zz, launches["zigzag_chunk"],
                      k1_err, k1_ms, k1_plain_ms, k1_b),
         kernel_entry("compact_rows", "compact.cu", "pdmpflux_tpu/ops/pallas/compact.py:132",
                      launches["compact_rows"],
-                     max(k2_err, k2_main_err, k2_sticky_err, k2_bps_err),
+                     max(k2_err, k2_main_err, k2_sticky_err, k2_bps_err, k2_hz_err),
                      k2_ms, k2_plain_ms, k2_b),
         kernel_entry("sticky_chunk", "sticky_chunk.cu", zz, sticky_launches["sticky_chunk"],
                      k6_err, k6_ms, k6_plain_ms, k6_b),
@@ -1162,7 +1491,15 @@ def main():
         kernel_entry("ecmc_chunk", "scalar_chunk.cu", zz + ' kind="ecmc"',
                      ecmc_launches["ecmc_chunk"], max(k35_err["ecmc_chunk"], k5_f32_err),
                      k5_ms, k5_plain_ms, k5_b),
+        kernel_entry("zigzag_chunk_horizon", "zigzag_chunk.cu", k7,
+                     hz_launches["zigzag_chunk_horizon"],
+                     max(k7_errs["zigzag_chunk_horizon"], k7_f32_err), k7_ms, k7_plain_ms, k7_b),
     ]
+    for name, source in (("sticky_chunk_horizon", "sticky_chunk.cu"),
+                         ("bps_chunk_horizon", "scalar_chunk.cu"),
+                         ("ecmc_chunk_horizon", "scalar_chunk.cu")):
+        n, ms, plain_ms, b = checks[name]
+        kernels.append(kernel_entry(name, source, k7, n, k7_errs[name], ms, plain_ms, b))
     print(json.dumps({"kernels": kernels}))
     print(card_name)
     print(json.dumps({"ok": True, "device": {

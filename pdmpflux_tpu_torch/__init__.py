@@ -2,11 +2,12 @@
 
 The JAX package ``pdmpflux_tpu`` is the reference; this package mirrors its
 layout (``core``, ``models``, ``ops``, ``parallel``, ``utils``, ``api``) and
-never imports JAX.  Ported so far: the event-count paths of the Zig-Zag,
-the Sticky Zig-Zag and the scalar-rate samplers (BPS, Boomerang, Forward
-ECMC), with their hand-written kernels in ``csrc/`` (the fused Zig-Zag chunk
-kernel, its sticky chain-per-CTA variant, the warp-per-chain scalar-rate
-chunk kernel, and event-row compaction).
+never imports JAX.  Ported so far: the event-count and time-horizon paths
+of the Zig-Zag, the Sticky Zig-Zag and the scalar-rate samplers (BPS,
+Boomerang, Forward ECMC), with their hand-written kernels in ``csrc/`` (the
+fused Zig-Zag chunk kernel, its sticky chain-per-CTA variant, the
+warp-per-chain scalar-rate chunk kernel, each with a horizon mode, and
+event-row compaction).
 """
 
 from .api import sample, sample_from_skeleton, sample_skeleton  # noqa: F401

@@ -1,10 +1,12 @@
-"""Driver API (``pdmpflux_tpu/api.py``) for the event-count path.
+"""Driver API (``pdmpflux_tpu/api.py``).
 
 * ``sample_skeleton(sampler, n_sk, ...)``: fixed-event-count skeleton of a
   chain batch, through stream fills of the sampler's chunk kernel (K1 for a
   Zig-Zag, K6 for a Sticky Zig-Zag, whose fills also carry the activity
   stream, K3 for BPS and the Boomerang, K5 for Forward ECMC) and compaction
-  by K2;
+  by K2; ``sample_skeleton(sampler, T, ...)`` with a float ``T``: the
+  time-horizon skeleton, the same kernels in horizon mode (K7) and an exact
+  terminal point at ``t = T`` (``core/engine.finalize_horizon_rows``);
 * ``sample_from_skeleton``: skeleton -> equal-time samples (N, dt, N + dt);
 * ``sample``: the two chained.
 
@@ -25,12 +27,19 @@ import numpy as np
 import torch
 
 from .core.device import resolve_device
+from .core.engine import finalize_horizon_rows, grow_rows, prepend_init_rows
 from .core.types import EV_INIT, Skeleton, event_from_state
 from .ops.cuda import compact as k2
 from .ops.cuda import driver as k1_driver
 
 DEFAULT_MAX_TRANSITIONS_PER_EVENT = 256
 _DEVICE_BYTES_FALLBACK = 8 << 30
+
+
+def _row_bytes(d: int, dtype) -> int:
+    """Bytes of one chain's skeleton row: the floats, the int32 fields and
+    the activity bytes."""
+    return (2 * d + 20) * torch.empty((), dtype=dtype).element_size() + d
 
 
 def _device_bytes_budget(dev: torch.device) -> int:
@@ -85,9 +94,7 @@ def fill_rows(sampler, target: int, B: int, d: int, dtype,
     """Rows of one stream fill: about 1.8 transitions per event on a cold
     sampler (1.08x the measured need once a run has finished), aligned,
     and capped so a fill plus the accumulator fit the memory budget."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    row_bytes = (2 * d + 20) * itemsize + d
-    budget_rows = int((_device_bytes_budget(dev) / max(B * row_bytes, 1)
+    budget_rows = int((_device_bytes_budget(dev) / max(B * _row_bytes(d, dtype), 1)
                        - (target + 1)) / 1.5)
     max_rows = max(64, budget_rows // 64 * 64)
     # the JAX package uses the ratio on the TPU only, where each new fill
@@ -103,22 +110,29 @@ def sample_skeleton(sampler, n_or_T, xinit, vinit, *, seed=None,
                     verbose: bool = False, dtype=None, device="cuda",
                     max_transitions_per_event: int = DEFAULT_MAX_TRANSITIONS_PER_EVENT,
                     t_cap: Optional[int] = None, chunk: int = 32,
-                    tile: int = 128) -> Skeleton:
-    """Generate a PDMP skeleton of ``n_or_T`` points per chain (the initial
-    state included), as the JAX package's event-count stream path does.
+                    tile: int = 128, init_capacity: int = 1024) -> Skeleton:
+    """Generate a PDMP skeleton, as the JAX package's stream paths do.
+
+    ``n_or_T``: an ``int`` asks for that many skeleton points per chain (the
+    initial state included); a ``float`` asks for a time horizon ``T``, with
+    an exact terminal point at ``t = T``.  A chain batch's time-horizon
+    skeleton is as wide as its longest chain rounded up to a multiple of 256
+    (zero past each chain's ``n_valid``); a single chain's is trimmed exactly.
 
     ``dtype`` defaults to torch's default float.  ``t_cap`` sets the rows of
-    one stream fill (sized from the target and device memory by default);
-    ``chunk`` is the transitions per kernel launch and ``tile`` the RNG lane
-    tile — with equal ``seed``, ``t_cap``, ``chunk`` and ``tile`` the
-    skeleton reproduces the JAX fused-kernel path.  A ``float`` ``n_or_T``
-    (time horizon) is not ported yet.
+    one stream fill: by default sized from the target and device memory for
+    a point count, and ``max(64, ceil64(init_capacity))`` for a time horizon
+    (the JAX package's fill width off the TPU, kept fixed so that equal
+    seeds give equal skeletons call after call).  ``chunk`` is the
+    transitions per kernel launch and ``tile`` the RNG lane tile — with equal
+    ``seed``, fill rows, ``chunk`` and ``tile`` the skeleton reproduces the
+    JAX fused-kernel path.
     """
     if not (isinstance(n_or_T, (int, np.integer)) and not isinstance(n_or_T, bool)):
-        raise NotImplementedError(
-            "time-horizon sampling (a float n_or_T) is not ported to "
-            "pdmpflux_tpu_torch yet: ROADMAP Queue 1, 'Time-horizon mode'"
-        )
+        return _sample_skeleton_horizon(
+            sampler, float(n_or_T), xinit, vinit, seed=seed, verbose=verbose,
+            dtype=dtype, device=device, t_cap=t_cap, chunk=chunk, tile=tile,
+            init_capacity=init_capacity)
     n_sk = int(n_or_T)
     if n_sk <= 0:
         raise ValueError(f"n_sk must be positive. Current value: {n_sk}")
@@ -130,8 +144,7 @@ def sample_skeleton(sampler, n_or_T, xinit, vinit, *, seed=None,
     target = n_sk - 1  # events beyond the initial record
     if t_cap is None:
         t_cap = fill_rows(sampler, target, B, d, dtype, dev)
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    acc_bytes = B * ((2 * d + 20) * itemsize + d) * (target + 1 + t_cap)
+    acc_bytes = B * _row_bytes(d, dtype) * (target + 1 + t_cap)
     if acc_bytes > _device_bytes_budget(dev):
         raise MemoryError(
             f"the (B={B}, {n_sk}) skeleton plus one fill needs ~{acc_bytes >> 20} "
@@ -182,6 +195,88 @@ def sample_skeleton(sampler, n_or_T, xinit, vinit, *, seed=None,
     skel = acc._replace(
         n_valid=(1 + torch.clamp_max(counts, target)).to(torch.int32))
     return _squeeze_skeleton(skel) if squeeze else skel
+
+
+def _trim_single(skel: Skeleton) -> Skeleton:
+    """A one-chain batch as a single-chain skeleton of exactly its
+    ``n_valid`` rows."""
+    n0 = int(skel.n_valid[0])
+    return Skeleton(*(a[0, :n0] for a in skel[:-1]), n_valid=skel.n_valid[0])
+
+
+def _sample_skeleton_horizon(sampler, T: float, xinit, vinit, *, seed, verbose,
+                             dtype, device, t_cap, chunk, tile,
+                             init_capacity) -> Skeleton:
+    """Time-horizon skeleton (``sample.jl:323-439``), as the JAX package's
+    on-device stream path builds it (``api.py:1085-1242``): stream fills in
+    horizon mode until every chain's clock reaches ``T``, the first compacted
+    by K2 behind the initial record, each later (straggler) fill merged by K2
+    after its chain's earlier events, the accumulator grown first when a
+    chain would overflow it; then the terminal rows on the device."""
+    if not math.isfinite(T) or T < 0:
+        raise ValueError(f"T must be finite and non-negative. Current value: {T}")
+    x, v, squeeze = _prep_init(sampler, xinit, vinit)
+    dev = resolve_device(device)
+    if dtype is None:
+        dtype = torch.get_default_dtype()
+    B, d = x.shape
+    if t_cap is None:
+        t_cap = max(64, -(-max(2, int(init_capacity)) // 64) * 64)
+    # one fill, the accumulator behind its initial record, and the finalized
+    # skeleton beside the accumulator
+    need = B * _row_bytes(d, dtype) * (2 * t_cap + 3)
+    if need > _device_bytes_budget(dev):
+        raise MemoryError(
+            f"the (B={B}) time-horizon skeleton needs ~{need >> 20} MiB for a fill "
+            f"of {t_cap} rows and its accumulator, beyond the device budget; host "
+            "accumulation is not ported yet (ROADMAP Queue 1)"
+        )
+    state = sampler.init_state_batch(x, v, seed, dtype, dev)
+    init_ev = event_from_state(state, EV_INIT)
+    zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
+    if T == 0.0:  # the initial record alone
+        sampler.state = state
+        skel = prepend_init_rows(k2.empty_rows(B, 0, d, dtype, dev), init_ev, zeros, 0)
+        return _trim_single(skel) if squeeze else skel
+
+    runner = k1_driver.make_stream_runner(sampler, t_cap, t_cap, chunk=chunk,
+                                          tile=tile, mode="horizon")
+    acc = None
+    total = zeros            # events per chain so far, on the card
+    total_host = np.zeros(B, np.int64)
+    while True:
+        res = runner(state, zeros, T)  # counts start at 0 in every fill
+        state, n_tr = res.state, res.transitions
+        counts_host = res.counts.cpu().numpy().astype(np.int64)
+        if acc is None:
+            acc = k2.compact_fill(res.fill, k2.empty_rows(B, 1 + t_cap, d, dtype, dev),
+                                  off=torch.ones((B,), dtype=torch.int32, device=dev),
+                                  init=init_ev)
+        else:
+            width = acc.t.shape[1] - 1
+            need = int((total_host + counts_host).max())
+            if need > width:
+                acc = grow_rows(acc, max(t_cap, need - width))
+            acc = k2.compact_fill(res.fill, acc, off=1 + total)
+        total = total + res.counts
+        total_host += counts_host
+        del res  # the fill's memory goes back before the next fill or finalize
+        t_now = state.t.cpu().numpy()
+        done = t_now >= T
+        if verbose:
+            print(f"[sample_skeleton] t={t_now.min():.4g}/{T} "
+                  f"(chains done: {int(done.sum())}/{B})")
+        if done.all():
+            break
+        if n_tr == 0:
+            raise RuntimeError("time-horizon sampling made no progress")
+    sampler.state = state
+    # n_valid <= 2 + events (init and terminal rows), bucketed to 256
+    out_w = None if squeeze else min(
+        acc.t.shape[1] + 1, -(-(2 + max(1, int(total_host.max()))) // 256) * 256)
+    skel = finalize_horizon_rows(
+        sampler.flow, acc._replace(n_valid=(1 + total).to(torch.int32)), T, out_w)
+    return _trim_single(skel) if squeeze else skel
 
 
 # ---------------------------------------------------------------------------

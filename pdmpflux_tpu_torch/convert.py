@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.device import resolve_device
 from .core.types import PDMPState, Skeleton
 
 
@@ -26,12 +27,16 @@ def state_to_numpy(state: PDMPState) -> dict:
     return out
 
 
-def state_from_numpy(fields: dict, device="cpu") -> PDMPState:
+def state_from_numpy(fields: dict, device="cuda") -> PDMPState:
+    """A state on ``device`` (the card by default, like every entry point;
+    asking for CUDA without a card raises)."""
+    dev = resolve_device(device)
+
     def conv(name, a):
         a = np.asarray(a)
         if name == "key":
             a = a.astype(np.int64)
-        return torch.tensor(a, device=device)
+        return torch.tensor(a, device=dev)
 
     return PDMPState(**{f: conv(f, fields[f]) for f in PDMPState._fields})
 
@@ -40,6 +45,8 @@ def skeleton_to_numpy(skel: Skeleton) -> dict:
     return {f: _to_numpy(getattr(skel, f)) for f in Skeleton._fields}
 
 
-def skeleton_from_numpy(fields: dict, device="cpu") -> Skeleton:
-    return Skeleton(**{f: torch.tensor(np.asarray(fields[f]), device=device)
+def skeleton_from_numpy(fields: dict, device="cuda") -> Skeleton:
+    """A skeleton on ``device`` (the card by default, as above)."""
+    dev = resolve_device(device)
+    return Skeleton(**{f: torch.tensor(np.asarray(fields[f]), device=dev)
                        for f in Skeleton._fields})

@@ -18,10 +18,22 @@ constexpr int I_MODE = 0, I_REJ = 1, I_ERR = 2, I_HIT = 3, I_CNT = 4;
 constexpr int MODE_FRESH = 0, MODE_REJECTED = 1, MODE_ERRONEOUS = 2;
 constexpr int EV_JUMP = 2, EV_STICK = 3, EV_THAW = 4;
 
+// horizon != 0 is mode="horizon": the lane also freezes once its committed
+// clock reaches t_target, the float32 scalar the Pallas kernel reads.
 struct Params {
   int d, B, K, n_grid, adaptive, signed_bound, cap, tile, seed;
   double refresh;
+  int horizon;
+  float t_target;
 };
+
+// Whether a lane runs its next transition (zigzag_chunk.py:341-343): below
+// its event cap and, in horizon mode, its clock below t_target (a NaN clock
+// freezes, as there; events mode never reads the clock).
+template <typename T>
+__device__ __forceinline__ bool lane_live(const Params& p, int cnt, T t) {
+  return cnt < p.cap && (!p.horizon || t < (T)p.t_target);
+}
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));

@@ -1,8 +1,10 @@
 // K3 and K5: K fused scalar-rate transitions per chain, one warp per chain.
 //
 // Replaces pdmpflux_tpu/ops/pallas/zigzag_chunk.py:run_chunk (line 854, body
-// _make_kernel) with mode="events" and kind="bps" or "boomerang" (K3:
-// :349-358, :391-395, :424-432, :587-616) or kind="ecmc" (K5: :520-586).  The
+// _make_kernel) with kind="bps" or "boomerang" (K3: :349-358, :391-395,
+// :424-432, :587-616) or kind="ecmc" (K5: :520-586), in mode "events" and
+// "horizon" (K7: lane_live in pdmp_common.cuh; every lane of a chain's warp
+// reads the same clock, so the freeze stays warp-uniform).  The
 // plain PyTorch version is run_chunk_plain in ops/cuda/scalar_chunk.py; both
 // draw the Pallas kernel's Threefry counters (key (seed + (b / tile) * 7919,
 // k), counter row * tile + b % tile; the Exp clock on salt 0x80000000 + k), so
@@ -181,7 +183,7 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
   };
 
   for (int k = 0; k < p.K; ++k) {
-    const bool live = cnt < p.cap;
+    const bool live = lane_live(p, cnt, t_s);  // t_s is the same in every lane
     int kval = 0;
     if (live) {
       // ---- envelope of the scalar rate on [0, bh] ----
@@ -541,7 +543,8 @@ extern "C" long scalar_chunk_max_dim(int f64) {
 extern "C" int scalar_chunk_launch(int f64, int kind, int potential, int d, int B, int K,
                                    int n_grid, int adaptive, int signed_bound,
                                    double refresh, int cap, int tile, int seed,
-                                   int gaussian_velocity, int ran_p, double mix_p,
+                                   int horizon, float t_target, int gaussian_velocity,
+                                   int ran_p, double mix_p,
                                    int switch_, int positive, double sf, int normal,
                                    const void* prm, void* x, void* v, void* fs, void* iscal,
                                    void* ring, void* ev_kind, void* ev_x, void* ev_v,
@@ -550,7 +553,8 @@ extern "C" int scalar_chunk_launch(int f64, int kind, int potential, int d, int 
       kind > KIND_ECMC || (kind == KIND_ECMC && d < 2))
     return (int)cudaErrorInvalidValue;
   cudaGetLastError();  // clear a stale error so the check below is this launch's
-  Params p{d, B, K, n_grid, adaptive, signed_bound, cap, tile, seed, refresh};
+  Params p{d, B, K, n_grid, adaptive, signed_bound, cap, tile, seed, refresh,
+           horizon, t_target};
   Jump jp{kind, gaussian_velocity, ran_p, switch_, positive, normal, mix_p, sf};
   cudaStream_t s = (cudaStream_t)stream;
   return f64 ? dispatch<double>(potential, p, jp, prm, x, v, fs, iscal, ring, ev_kind, ev_x,

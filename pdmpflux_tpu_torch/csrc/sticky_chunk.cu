@@ -1,7 +1,9 @@
 // K6: K fused Sticky Zig-Zag transitions per chain, one CTA per chain.
 //
 // Replaces pdmpflux_tpu/ops/pallas/zigzag_chunk.py:run_chunk (line 854, body
-// _make_kernel) with kind="zigzag", sticky=True, mode="events".  The plain
+// _make_kernel) with kind="zigzag", sticky=True, in mode "events" and
+// "horizon" (K7: lane_live in pdmp_common.cuh; a frozen chain emits its
+// frozen row, as at the event cap).  The plain
 // PyTorch version is run_chunk_plain in ops/cuda/zigzag_chunk.py (its sticky
 // branches); both draw the Pallas kernel's Threefry counters (key (seed +
 // (b / tile) * 7919, salt), counter row * tile + b % tile; salts k,
@@ -180,7 +182,7 @@ sticky_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__ v, T* __restric
   const T inf = (T)INFINITY, zero = (T)0;
 
   for (int k = 0; k < p.K; ++k) {
-    const bool live = cnt < p.cap;
+    const bool live = lane_live(p, cnt, t_s);  // t_s is the same in every thread
     int kval = 0;
     if (live) {
       // ---- envelope on [0, bh]: tangent-intersection segment maxima ----
@@ -457,14 +459,16 @@ extern "C" long sticky_chunk_max_dim(int f64) {
 
 extern "C" int sticky_chunk_launch(int f64, int potential, int d, int B, int K, int n_grid,
                                    int adaptive, int signed_bound, double refresh, int cap,
-                                   int tile, int seed, void* x, void* v, void* fs,
+                                   int tile, int seed, int horizon, float t_target,
+                                   void* x, void* v, void* fs,
                                    void* iscal, void* ring, void* act, void* kappa,
                                    void* ev_kind, void* ev_x, void* ev_v, void* ev_fs,
                                    void* ev_ring, void* ev_act, void* stream) {
   if (n_grid < 2 || n_grid > MAXG || d < 1 || B < 1 || tile < 1)
     return (int)cudaErrorInvalidValue;
   cudaGetLastError();  // clear a stale error so the check below is this launch's
-  Params p{d, B, K, n_grid, adaptive, signed_bound, cap, tile, seed, refresh};
+  Params p{d, B, K, n_grid, adaptive, signed_bound, cap, tile, seed, refresh,
+           horizon, t_target};
   cudaStream_t s = (cudaStream_t)stream;
   if (f64) {
     if (potential == 0)

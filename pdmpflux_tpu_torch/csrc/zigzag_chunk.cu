@@ -1,7 +1,9 @@
 // K1: K fused Zig-Zag transitions per chain, one thread per chain.
 //
 // Replaces pdmpflux_tpu/ops/pallas/zigzag_chunk.py:run_chunk (body
-// _make_kernel) with kind="zigzag", sticky=False, mode="events".  The plain
+// _make_kernel) with kind="zigzag", sticky=False, in both modes: "events"
+// and "horizon" (K7: a lane also freezes once its committed clock reaches the
+// float32 target, lane_live in pdmp_common.cuh).  The plain
 // PyTorch version is run_chunk_plain in ops/cuda/zigzag_chunk.py; both draw
 // the same Threefry-2x32 counters as the Pallas kernel (key (seed + tile *
 // 7919, salt), counter row * tile + lane), so trajectories agree to rounding.
@@ -14,7 +16,8 @@
 // coordinate's rate and tangent at consecutive grid points give that
 // coordinate's segment maxima, summed into a per-thread box[] of n_grid - 1
 // segments, so no (n_grid, d) array is ever held.  A finished chain (count
-// >= cap) skips the transition and emits its frozen row.  The fill loop over
+// >= cap, or in horizon mode clock >= target) skips the transition and emits
+// its frozen row.  The fill loop over
 // chunks stays on the host (one launch per chunk, one count check between
 // chunks), exactly as the JAX driver loops.
 //
@@ -67,7 +70,7 @@ __global__ void zigzag_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__
   const T inf = (T)INFINITY, zero = (T)0;
 
   for (int k = 0; k < p.K; ++k) {
-    const bool live = cnt < p.cap;
+    const bool live = lane_live(p, cnt, t_s);
     int kval = 0;
     if (live) {
       // ---- envelope on [0, bh]: tangent-intersection segment maxima ----
@@ -266,13 +269,15 @@ void launch(const Params& p, void* x, void* v, void* fs, void* iscal, void* ring
 extern "C" int zigzag_chunk_launch(int f64, int potential, int d, int B, int K,
                                    int n_grid, int adaptive, int signed_bound,
                                    double refresh, int cap, int tile, int seed,
-                                   void* x, void* v, void* fs, void* iscal, void* ring,
+                                   int horizon, float t_target, void* x, void* v,
+                                   void* fs, void* iscal, void* ring,
                                    void* ev_kind, void* ev_x, void* ev_v, void* ev_fs,
                                    void* ev_ring, void* stream) {
   if (n_grid < 2 || n_grid > MAXG || d < 1 || B < 1 || tile < 1)
     return (int)cudaErrorInvalidValue;
   cudaGetLastError();  // clear a stale error so the check below is this launch's
-  Params p{d, B, K, n_grid, adaptive, signed_bound, cap, tile, seed, refresh};
+  Params p{d, B, K, n_grid, adaptive, signed_bound, cap, tile, seed, refresh,
+           horizon, t_target};
   cudaStream_t s = (cudaStream_t)stream;
   if (f64) {
     if (potential == 0)

@@ -35,8 +35,10 @@ agree bit for bit in f64.  ``chip_fmad_ab.py`` measures the cost against
 FMA contraction; PERF.md holds its reading."""
 
 LAUNCHES = {"zigzag_chunk": 0, "sticky_chunk": 0, "bps_chunk": 0, "ecmc_chunk": 0,
-            "compact_rows": 0}
-"""Kernel launches since the last :func:`reset_launches`."""
+            "zigzag_chunk_horizon": 0, "sticky_chunk_horizon": 0,
+            "bps_chunk_horizon": 0, "ecmc_chunk_horizon": 0, "compact_rows": 0}
+"""Kernel launches since the last :func:`reset_launches`; a chunk kernel's
+launches in horizon mode (K7) count under its name with ``_horizon``."""
 
 BUILD_INFO: dict = {}
 """``seconds``, ``path`` and the compiler's ``log`` of the last build."""
@@ -66,11 +68,12 @@ def _declare(lib) -> None:
         [i] * 8                         # f64, potential, d, B, K, n_grid, adaptive, signed
         + [ctypes.c_double]             # refresh rate
         + [i] * 3                       # cap, tile, seed
+        + [i, ctypes.c_float]           # horizon mode, its float32 target
         + [p] * 10 + [p]                # state, event rows, stream
     )
     lib.sticky_chunk_launch.restype = i
     lib.sticky_chunk_launch.argtypes = (
-        [i] * 8 + [ctypes.c_double] + [i] * 3
+        [i] * 8 + [ctypes.c_double] + [i] * 3 + [i, ctypes.c_float]
         + [p] * 7                       # x, v, fs, iscal, ring, act, kappa
         + [p] * 6 + [p]                 # event rows (act last), stream
     )
@@ -80,7 +83,9 @@ def _declare(lib) -> None:
     lib.scalar_chunk_launch.argtypes = (
         [i] * 9                         # f64, kind, potential, d, B, K, n_grid, adaptive, signed
         + [ctypes.c_double]             # refresh rate
-        + [i] * 5                       # cap, tile, seed, gaussian_velocity, ran_p
+        + [i] * 3                       # cap, tile, seed
+        + [i, ctypes.c_float]           # horizon mode, its float32 target
+        + [i] * 2                       # gaussian_velocity, ran_p
         + [ctypes.c_double, i, i, ctypes.c_double, i]  # mix_p, switch, positive, sf, normal
         + [p] * 11 + [p]                # params, state, event rows, stream
     )

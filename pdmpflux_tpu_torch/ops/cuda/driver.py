@@ -1,14 +1,16 @@
 """Stream-fill driver around the chunk kernels (``pdmpflux_tpu/ops/pallas/driver.py``).
 
-:func:`make_stream_runner` is the port of ``make_pallas_stream_runner`` in
-event-count mode for the Zig-Zag (K1), the Sticky Zig-Zag (K6) and the
-scalar-rate samplers BPS and Boomerang (K3) and Forward ECMC (K5): a host
-loop over chunks, one kernel launch per chunk, each writing its ``K``
-transition rows straight into the raw fill at the chunk's row offset, until
-every chain has its target count or the fill is full.  The loop reads the
-per-chain counts back once per chunk, exactly where the JAX ``while_loop``
-tests ``any(count < target)``, so the number of chunks (and with it the
-``fold_in`` key advance) equals the JAX driver's.
+:func:`make_stream_runner` is the port of ``make_pallas_stream_runner`` for
+the Zig-Zag (K1), the Sticky Zig-Zag (K6) and the scalar-rate samplers BPS
+and Boomerang (K3) and Forward ECMC (K5): a host loop over chunks, one
+kernel launch per chunk, each writing its ``K`` transition rows straight
+into the raw fill at the chunk's row offset, until every chain has its
+target count (event-count mode) or has its committed clock at the target
+time (horizon mode, K7), or the fill is full.  The loop reads the per-chain
+counts (or clocks) back once per chunk, exactly where the JAX
+``while_loop`` tests ``any(count < target)`` (``any(t < t_target)``), so the
+number of chunks (and with it the ``fold_in`` key advance) equals the JAX
+driver's.
 """
 
 from __future__ import annotations
@@ -104,18 +106,25 @@ def chunk_config(sampler, K: int, cap: int, tile: int) -> zc.ChunkConfig:
 
 def chunk_state(state: PDMPState, counts: torch.Tensor,
                 sticky: bool = False) -> zc.ChunkState:
-    """A batched ``PDMPState`` in the kernels' layout (fresh tensors); a
-    sticky chain also carries its activity mask."""
+    """A batched ``PDMPState`` in the kernels' layout, in fresh tensors that
+    the kernels update in place; a sticky chain also carries its activity
+    mask.  The copies are explicit: for one chain ``x.T`` is already
+    contiguous, and ``contiguous()`` would hand the kernel the state's own
+    memory (the caller's initial arrays and the initial record)."""
     dt = state.x.dtype
+
+    def fresh(a):
+        return a.T.clone(memory_format=torch.contiguous_format)
+
     return zc.ChunkState(
-        x=state.x.T.contiguous(), v=state.v.T.contiguous(),
+        x=fresh(state.x), v=fresh(state.v),
         fs=torch.stack([state.t, state.t_comp, state.ts, state.horizon,
                         state.bound_h, state.exp_rv, state.ar,
                         state.tt]).to(dt),
         iscal=torch.stack([state.mode, state.rejected, state.errored_bound,
                            state.hitting_horizon, counts]).to(torch.int32),
-        ring=state.error_value_ar.T.to(dt).contiguous(),
-        act=state.is_active.T.contiguous() if sticky else None,
+        ring=fresh(state.error_value_ar.to(dt)),
+        act=fresh(state.is_active) if sticky else None,
     )
 
 
@@ -126,31 +135,46 @@ def key_seed(keys: torch.Tensor) -> int:
 
 
 def make_stream_runner(sampler, t_cap: int, n_events_target: int,
-                       chunk: int = 32, tile: int = 128):
-    """``run(state, counts) -> StreamResult``: one stream fill of at most
-    ``t_cap`` rows.  ``tile`` is the RNG lane tile (the Pallas launch's lane
-    tile), which fixes the random stream, not how the kernel is launched;
-    ``B`` need not be a multiple of it."""
+                       chunk: int = 32, tile: int = 128, mode: str = "events"):
+    """``run(state, counts, t_target=None) -> StreamResult``: one stream fill
+    of at most ``t_cap`` rows.  ``tile`` is the RNG lane tile (the Pallas
+    launch's lane tile), which fixes the random stream, not how the kernel is
+    launched; ``B`` need not be a multiple of it.
+
+    ``mode="horizon"`` (K7) runs chunks until every chain's committed clock
+    reaches the runtime ``t_target``, read as float32 as the JAX driver reads
+    it (``driver.py:539-549``); ``n_events_target`` then only caps a fill's
+    events per chain."""
     if t_cap % chunk:
         raise ValueError(f"t_cap={t_cap} must be a multiple of chunk={chunk}")
+    if mode not in ("events", "horizon"):
+        raise ValueError(f"mode must be 'events' or 'horizon', not {mode!r}")
     cfg = chunk_config(sampler, chunk, n_events_target, tile)
     run_chunk = zc.run_chunk if cfg.kind == "zigzag" else sc.run_chunk
     n_chunks = t_cap // chunk
 
-    def run(state: PDMPState, counts: torch.Tensor) -> StreamResult:
+    def run(state: PDMPState, counts: torch.Tensor,
+            t_target=None) -> StreamResult:
         B, d = state.x.shape
         dev, dt = state.x.device, state.x.dtype
         st = chunk_state(state, counts, cfg.sticky)
         fill = zc.empty_fill(t_cap, d, B, dt, dev, cfg.sticky)
         # kappa and the potential's parameters in the state's dtype, on its
-        # device, once per fill
+        # device, once per fill; the horizon target rounded to float32
         run_cfg = cfg._replace(
             kappa=None if cfg.kappa is None else cfg.kappa.to(dev, dt),
-            pot_params=None if cfg.pot_params is None else cfg.pot_params.to(dev, dt))
+            pot_params=None if cfg.pot_params is None else cfg.pot_params.to(dev, dt),
+            t_target=zc.f32_target(t_target) if mode == "horizon" else None)
+
+        def live_any():
+            # the committed clock fs[F_T], not the row time t + ts
+            if run_cfg.horizon:
+                return bool((st.fs[zc.F_T] < run_cfg.t_target).any())
+            return bool((st.iscal[zc.I_CNT] < n_events_target).any())
+
         seed0 = key_seed(state.key)
         it = 0
-        while it < n_chunks and bool(
-                (st.iscal[zc.I_CNT] < n_events_target).any()):
+        while it < n_chunks and live_any():
             run_chunk(rng.wrap_int32(seed0 + it * 1000003), st, fill,
                       it * chunk, run_cfg)
             it += 1

@@ -1,9 +1,11 @@
 """K3 and K5: a chunk of ``K`` fused scalar-rate transitions per chain.
 
 Replaces ``pdmpflux_tpu/ops/pallas/zigzag_chunk.py:run_chunk`` with
-``mode="events"`` and ``kind="bps"`` or ``"boomerang"`` (K3) or
-``kind="ecmc"`` (K5): the ``vect=False`` branches of ``_make_kernel``.  Each
-of the ``K`` transitions builds the envelope of the scalar rate
+``kind="bps"`` or ``"boomerang"`` (K3) or ``kind="ecmc"`` (K5): the
+``vect=False`` branches of ``_make_kernel``, in ``mode="events"`` and, with
+``ChunkConfig.t_target`` set, ``mode="horizon"`` (K7, as in
+``zigzag_chunk``).  Each of the ``K`` transitions builds the envelope of the
+scalar rate
 ``<g(x_t), v_t>`` on the grid (tangent-intersection segment maxima, the
 refresh rate added once after the max with 0 when signed; unsigned, the rate
 is already ``max(<g, v>, 0) + refresh``), inverts the Poisson clock, thins on
@@ -71,6 +73,8 @@ from .zigzag_chunk import (
     ChunkState,
     RawFill,
     check_cuda,
+    div_once,
+    live_lanes,
 )
 
 KINDS = {"bps": 0, "boomerang": 1, "ecmc": 2}
@@ -123,12 +127,6 @@ def _sum(a):
 
 def _dot(a, b):
     return _sum(a * b)
-
-
-def _div(a, b: float):
-    """``a / b`` rounded once, as the kernel divides: torch's CUDA division
-    by a Python number multiplies by the number's rounded reciprocal."""
-    return a / torch.full_like(a, b)
 
 
 def _normalize(u):
@@ -218,10 +216,10 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
         t_s, tc_s, ts_s, h_s, bh_s, exp_s, ar_s, tt_s = (fs[i].clone() for i in range(8))
         mode_s, rej, err, hit, cnt = (iscal[i].clone() for i in range(5))
         ring0 = ring.clone()
-        live = cnt < cfg.cap
+        live = live_lanes(cnt, t_s, cfg)
 
         # ---- envelope of the scalar rate on [0, bh] ----
-        step = _div(bh_s, G)
+        step = div_once(bh_s, G)
         box = []
         f_prev = g_prev = None
         for j in range(n_grid):
@@ -292,7 +290,7 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
         if cfg.adaptive:
             h_new = torch.where(p_moveh & fresh, h_new * HORIZON_GROW, h_new)
             h_new = torch.where(p_err, h_new * 0.5, h_new)
-            h_new = torch.where(p_rej, _div(h_new, HORIZON_SHRINK), h_new)
+            h_new = torch.where(p_rej, div_once(h_new, HORIZON_SHRINK), h_new)
 
         # ---- counters, error ring, proposal bookkeeping ----
         hit_new = hit + p_moveh.to(torch.int32)
@@ -375,12 +373,13 @@ def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
         False, 0.0, False, False, 1.0, False)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     r = row0
-    name = launch_name(cfg.kind)
+    name = launch_name(cfg.kind) + ("_horizon" if cfg.horizon else "")
     err = build.library().scalar_chunk_launch(
         i(1 if st.x.dtype == torch.float64 else 0), i(KINDS[cfg.kind]),
         i(DEVICE_POTENTIALS[cfg.device_potential]), i(d), i(B), i(cfg.K),
         i(cfg.n_grid), i(int(cfg.adaptive)), i(int(cfg.signed)), f(cfg.refresh_rate),
-        i(cfg.cap), i(cfg.tile), i(rng.wrap_int32(seed)), i(int(cfg.gaussian_velocity)),
+        i(cfg.cap), i(cfg.tile), i(rng.wrap_int32(seed)), *cfg.launch_args(),
+        i(int(cfg.gaussian_velocity)),
         i(int(ran_p)), f(mix_p), i(int(switch)), i(int(positive)), f(sf), i(int(normal)),
         p(0 if cfg.pot_params is None else cfg.pot_params.data_ptr()),
         p(st.x.data_ptr()), p(st.v.data_ptr()), p(st.fs.data_ptr()),

@@ -1,8 +1,10 @@
 """K1 and K6: a chunk of ``K`` fused Zig-Zag transitions per chain.
 
 Replaces ``pdmpflux_tpu/ops/pallas/zigzag_chunk.py:run_chunk`` with
-``kind="zigzag"`` and ``mode="events"``: K1 for ``sticky=False``, K6 for
-``sticky=True``.  Each of the ``K`` transitions builds the grid envelope with
+``kind="zigzag"``: K1 for ``sticky=False``, K6 for ``sticky=True``, in
+``mode="events"`` and, with ``ChunkConfig.t_target`` set, ``mode="horizon"``
+(K7: a lane also freezes once its committed clock reaches the float32
+target).  Each of the ``K`` transitions builds the grid envelope with
 time tangents, inverts the Poisson clock, runs the thinning test, flows,
 flips one coordinate, commits the Kahan clock, adapts the horizon and emits
 one event row.  The sticky variant also carries the activity mask and the
@@ -132,10 +134,44 @@ class ChunkConfig(NamedTuple):
     gaussian_velocity: bool = False     # K3: N(0, I) refresh, not unit
     ecmc_params: tuple = ()             # K5: (ran_p, mix_p, switch, positive, speed_factor, normal)
     pot_params: Optional[torch.Tensor] = None  # the device potential's parameters
+    t_target: Optional[float] = None    # K7: float32 clock target; None: events mode
 
     @property
     def sticky(self) -> bool:
         return self.kappa is not None
+
+    @property
+    def horizon(self) -> bool:
+        """``mode="horizon"`` (K7): a lane also freezes once its committed
+        clock reaches ``t_target``."""
+        return self.t_target is not None
+
+    def launch_args(self) -> tuple:
+        """The horizon flag and float32 target every CUDA chunk launcher
+        takes after the seed."""
+        return (ctypes.c_int(int(self.horizon)),
+                ctypes.c_float(self.t_target if self.horizon else 0.0))
+
+
+def f32_target(T: float) -> float:
+    """``T`` rounded to float32: the Pallas kernel and the JAX driver's chunk
+    loop read the horizon target as a float32 scalar whatever the state's
+    dtype (``zigzag_chunk.py:986``, ``driver.py:539-544``)."""
+    return float(torch.tensor(float(T), dtype=torch.float32))
+
+
+def live_lanes(cnt: torch.Tensor, t: torch.Tensor, cfg: ChunkConfig) -> torch.Tensor:
+    """Lanes that run their next transition (``zigzag_chunk.py:341-343``):
+    below the event cap and, in horizon mode, with the committed clock below
+    the target (a NaN clock freezes, as there)."""
+    live = cnt < cfg.cap
+    return live & (t < cfg.t_target) if cfg.horizon else live
+
+
+def div_once(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` rounded once, as the kernels divide: torch's CUDA division
+    by a Python number multiplies by the number's rounded reciprocal."""
+    return a / torch.full_like(a, b)
 
 
 def lane_gradients(grad_U: Callable, device_potential: Optional[str],
@@ -207,11 +243,11 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
         mode_s, rej, err, hit, cnt = (iscal[i].clone() for i in range(NI))
         ring0 = ring.clone()
         act0 = act.clone() if sticky else None
-        live = cnt < cfg.cap
+        live = live_lanes(cnt, t_s, cfg)
         va = v * act0.to(dt) if sticky else v
 
         # ---- envelope on [0, bh]: tangent-intersection segment maxima ----
-        step = bh_s / G
+        step = div_once(bh_s, G)
         f_all, g_all = _grid_rates(cfg.grad_jvp, x, va, step, n_grid, cfg.signed)
         box = []
         f_prev = g_prev = None
@@ -331,7 +367,7 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
         if cfg.adaptive:
             h_new = torch.where(p_moveh & fresh, h_new * HORIZON_GROW, h_new)
             h_new = torch.where(p_err, h_new * 0.5, h_new)
-            h_new = torch.where(p_rej, h_new / HORIZON_SHRINK, h_new)
+            h_new = torch.where(p_rej, div_once(h_new, HORIZON_SHRINK), h_new)
 
         # ---- counters, error ring, proposal bookkeeping ----
         hit_new = hit + p_moveh.to(torch.int32)
@@ -479,7 +515,7 @@ def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
         ctypes.c_int(cfg.n_grid), ctypes.c_int(int(cfg.adaptive)),
         ctypes.c_int(int(cfg.signed)), ctypes.c_double(cfg.refresh_rate),
         ctypes.c_int(cfg.cap), ctypes.c_int(cfg.tile),
-        ctypes.c_int(rng.wrap_int32(seed)),
+        ctypes.c_int(rng.wrap_int32(seed)), *cfg.launch_args(),
         p(st.x.data_ptr()), p(st.v.data_ptr()), p(st.fs.data_ptr()),
         p(st.iscal.data_ptr()), p(st.ring.data_ptr()),
     )
@@ -487,13 +523,13 @@ def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
             p(fill.v[r].data_ptr()), p(fill.fs[r].data_ptr()),
             p(fill.ring[r].data_ptr()))
     stream = p(torch.cuda.current_stream(st.x.device).cuda_stream)
+    name = ("sticky_chunk" if cfg.sticky else "zigzag_chunk") + (
+        "_horizon" if cfg.horizon else "")
     if cfg.sticky:
         err = lib.sticky_chunk_launch(
             *head, p(st.act.data_ptr()), p(cfg.kappa.data_ptr()), *rows,
             p(fill.act[r].data_ptr()), stream)
-        build.check(err, "sticky_chunk")
-        build.LAUNCHES["sticky_chunk"] += 1
     else:
         err = lib.zigzag_chunk_launch(*head, *rows, stream)
-        build.check(err, "zigzag_chunk")
-        build.LAUNCHES["zigzag_chunk"] += 1
+    build.check(err, name)
+    build.LAUNCHES[name] += 1

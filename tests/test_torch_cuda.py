@@ -1,4 +1,5 @@
-"""On-card checks of the port's kernels K1, K2, K3/K5 and K6 (marker ``cuda``).
+"""On-card checks of the port's kernels K1, K2, K3/K5 and K6, and of their
+horizon mode K7 (marker ``cuda``).
 
 They skip where ``torch.cuda.is_available()`` is false (the CPU tier-1
 run); on a Hopper card run them with ``python -m pytest tests/test_torch_cuda.py
@@ -222,6 +223,82 @@ def test_scalar_samplers_on_card(dev):
         rel = (var.cpu().numpy() / var_true) - 1
         assert (mean.abs().cpu().numpy() < 0.15 * np.sqrt(var_true)).all(), mean
         assert (np.abs(rel) < 0.15).all(), var
+
+
+@pytest.mark.parametrize("kind", ["zigzag", "sticky", "bps", "boomerang", "ecmc"])
+def test_k7_kernels_match_plain_f64(dev, kind):
+    """K1, K6 and K3/K5 in horizon mode (K7) against their plain version over
+    two chunks from one f64 state, the float32 target at the median clock an
+    event-count run reaches, so that about half of the lanes freeze inside;
+    K3/K5 bit for bit, K1/K6 (built with FMA contraction) to rtol 1e-9."""
+    B, d = 300, 6
+    rs = np.random.default_rng(7)
+    x0 = rs.normal(size=(B, d)) * (0.1 if kind == "sticky" else 1.0)
+    if kind in ("zigzag", "sticky"):
+        v0 = rs.choice([-1.0, 1.0], size=(B, d))
+        sampler = (pt.StickyZigZag(d, pt.potentials.grad_gauss, np.full(d, 3.0))
+                   if kind == "sticky" else pt.ZigZag(d, pt.potentials.grad_gauss))
+        run, plain = k1.run_chunk, k1.run_chunk_plain
+    else:
+        v0 = rs.normal(size=(B, d))
+        v0 /= np.linalg.norm(v0, axis=1, keepdims=True)
+        sampler = scalar_sampler(kind, "banana" if kind == "boomerang" else "gauss", d,
+                                 **({} if kind == "ecmc" else dict(refresh_rate=0.3)))
+        run, plain = k3.run_chunk, k3.run_chunk_plain
+    sticky = kind == "sticky"
+    state = sampler.init_state_batch(x0, v0, 3, torch.float64, dev)
+    cfg = driver.chunk_config(sampler, 16, 1 << 30, 128)
+    if sticky:
+        cfg = cfg._replace(kappa=cfg.kappa.to(dev))
+    zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+    probe = driver.chunk_state(state, zeros, sticky)
+    for it in range(2):
+        plain(11 + it * 1000003, probe, k1.empty_fill(16, d, B, torch.float64, dev, sticky),
+              0, cfg)
+    cfg = cfg._replace(t_target=k1.f32_target(float(probe.fs[k1.F_T].median())))
+    st_k = driver.chunk_state(state, zeros, sticky)
+    st_p = k1.ChunkState(*(None if a is None else a.clone() for a in st_k))
+    fills = [k1.empty_fill(32, d, B, torch.float64, dev, sticky) for _ in range(2)]
+    name = ("sticky_chunk" if sticky else "zigzag_chunk" if kind == "zigzag"
+            else k3.launch_name(kind)) + "_horizon"
+    n0 = build.LAUNCHES[name]
+    for it in range(2):
+        run(11 + it * 1000003, st_k, fills[0], 16 * it, cfg)
+        plain(11 + it * 1000003, st_p, fills[1], 16 * it, cfg)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == n0 + 2
+    exact = kind not in ("zigzag", "sticky")
+    for a, b in zip((*st_k, *fills[0]), (*st_p, *fills[1])):
+        if a is None:
+            continue
+        if a.dtype in (torch.int32, torch.bool) or exact:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12, equal_nan=True)
+    froze = float((st_k.fs[k1.F_T] >= cfg.t_target).double().mean())
+    assert 0.2 < froze < 0.9, froze
+
+
+def test_horizon_sample_skeleton_on_card(dev):
+    """A time-horizon skeleton on the card: K1 in horizon mode and K2
+    launched, every chain ends at exactly T with a terminal row, no kept row
+    past T, t non-decreasing, moments of N(0, I)."""
+    T, B, d = 150.0, 512, 5
+    sampler = pt.ZigZag(d, pt.potentials.grad_gauss)
+    build.reset_launches()
+    skel = pt.sample_skeleton(sampler, T, np.zeros((B, d)), np.ones((B, d)), seed=0,
+                              dtype=torch.float32, init_capacity=512)
+    assert build.LAUNCHES["zigzag_chunk_horizon"] >= 1 and build.LAUNCHES["compact_rows"] >= 1
+    assert build.LAUNCHES["zigzag_chunk"] == 0
+    nv = skel.n_valid.long()
+    rows = torch.arange(B, device=dev)
+    assert bool((skel.t[rows, nv - 1] == T).all())
+    assert bool((skel.kind[rows, nv - 1] == pt.EV_TERMINAL).all())
+    valid = torch.arange(skel.t.shape[1], device=dev)[None, :] < nv[:, None]
+    assert bool((skel.t[valid] <= T).all())
+    assert bool(((skel.t[:, 1:] >= skel.t[:, :-1]) | ~valid[:, 1:]).all())
+    mean, var = pt.pooled_moments(skel, sampler, 200)
+    assert (mean.abs() < 0.2).all() and ((var - 1).abs() < 0.3).all()
 
 
 def test_k3_k5_refuse_what_they_cannot_run(dev):

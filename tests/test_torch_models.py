@@ -120,7 +120,7 @@ def test_init_state_batch_matches_jax(dtype):
                         dtype=getattr(torch, dtype), device="cpu")
     assert torch.equal(one.exp_rv, tst.exp_rv[2])
     # round trip through the converters
-    back = convert.state_to_numpy(convert.state_from_numpy(got))
+    back = convert.state_to_numpy(convert.state_from_numpy(got, device="cpu"))
     for f in got:
         np.testing.assert_array_equal(back[f], got[f])
 
@@ -142,7 +142,7 @@ def test_types_helpers_match_jax():
         a = np.asarray(getattr(js, f))
         assert got[f].dtype == a.dtype and got[f].shape == a.shape, f
         np.testing.assert_array_equal(got[f], a)
-    back = convert.skeleton_to_numpy(convert.skeleton_from_numpy(got))
+    back = convert.skeleton_to_numpy(convert.skeleton_from_numpy(got, device="cpu"))
     for f in got:
         np.testing.assert_array_equal(back[f], got[f])
     tot, comp = np.float32(1.0), np.float32(0.0)
@@ -161,3 +161,20 @@ def test_init_state_defaults_to_the_card():
         sampler.init_state_batch(np.zeros((2, 3)), np.ones((2, 3)), 0)
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         sampler.init_state(np.zeros(3), np.ones(3), 0)
+
+
+def test_converters_default_to_the_card():
+    """``convert.state_from_numpy`` and ``skeleton_from_numpy`` carry the JAX
+    package's records onto the card by default, and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    sampler = pt.ZigZag(3, pt.potentials.grad_gauss)
+    state = convert.state_to_numpy(sampler.init_state_batch(
+        np.zeros((2, 3)), np.ones((2, 3)), 0, torch.float64, "cpu"))
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        convert.state_from_numpy(state)
+    from pdmpflux_tpu_torch.core.types import empty_skeleton
+
+    skel = convert.skeleton_to_numpy(empty_skeleton(4, 3, torch.float64))
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        convert.skeleton_from_numpy(skel)

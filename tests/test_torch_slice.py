@@ -112,8 +112,12 @@ def test_errors_match_jax_texts():
         with pytest.raises(ValueError) as et:
             pt.sample_skeleton(sampler, c["n"], c["x"], c["v"], device="cpu")
         assert str(et.value) == str(ej.value)
-    with pytest.raises(NotImplementedError, match="Time-horizon mode"):
-        pt.sample_skeleton(sampler, 3.0, np.zeros(3), np.ones(3), device="cpu")
+    for T in (-1.0, float("inf"), float("nan")):  # time horizons JAX refuses
+        with pytest.raises(ValueError) as ej:
+            pf.sample_skeleton(js, T, np.zeros(3), np.ones(3))
+        with pytest.raises(ValueError) as et:
+            pt.sample_skeleton(sampler, T, np.zeros(3), np.ones(3), device="cpu")
+        assert str(et.value) == str(ej.value)
     with pytest.raises(ValueError) as ej:
         pf.sample_from_skeleton(js, 0, pf.sample_skeleton(js, 5, np.zeros(3), np.ones(3)))
     skel = pt.sample_skeleton(sampler, 5, np.zeros(3), np.ones(3), device="cpu")

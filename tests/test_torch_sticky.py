@@ -60,7 +60,7 @@ def _run_both(pot, d, B, kappa, signed, x_scale, seed):
     st = js.init_state_batch(x0, v0, 11, dtype=jnp.float64)
     fields = {f: np.asarray(getattr(st, f)) for f in st._fields if f != "key"}
     fields["key"] = np.asarray(jax.random.key_data(st.key))
-    tstate = convert.state_from_numpy(fields)
+    tstate = convert.state_from_numpy(fields, device="cpu")
     counts0 = np.zeros(B, np.int32)
     counts0[::7] = CAP - 3  # some chains reach the cap inside the run
 
