@@ -5,8 +5,9 @@
 Needs one CUDA card (Hopper: the kernels build for sm_90a) and ``nvcc``.
 Phases, one line each; any failure raises and exits non-zero:
 
-1. build the kernels (K1 fused Zig-Zag chunk, K6 its sticky variant, K3/K5
-   the scalar-rate chunk, K2 event-row compaction) from
+1. build the kernels (K1 fused Zig-Zag chunk, K6 its sticky variant, K4 the
+   Speed-Up Zig-Zag chunk, K3/K5 the scalar-rate chunk, K2 event-row
+   compaction) from
    ``pdmpflux_tpu_torch/csrc`` with nvcc, one compile per source, all started
    together;
 2. K1 against its plain PyTorch version on the card, float64, from the same
@@ -95,12 +96,29 @@ Phases, one line each; any failure raises and exits non-zero:
    about 256 events per chain each, with the contracts of phase 14 (and
    frozen coordinates at exactly 0.0 in the sticky terminal rows); each
    path's horizon-mode kernel timed per K=32 launch at its shape beside its
-   plain version.
+   plain version;
+16. K4 (the Speed-Up Zig-Zag chunk kernel) against its plain version in
+   float64, two K=32 chunks from one random state with some chains capped, at
+   gauss and banana d=10/B=1024, in events and in horizon mode (target at the
+   median clock): integers equal, floats to rtol 1e-9 (atol 1e-12);
+17. the ``suzz_gauss_d10`` deployment: SpeedUpZigZagAD(10, gauss), 512 chains
+   x 2048 points, float32, x0 = 0, v0 = 1; one warm call, then five timed
+   warm calls (median and spread), the first counted and checked: complete,
+   K4 and K2 launched, t non-decreasing and finite, pooled moments in
+   bench.py's bands; then (17b) its fill and compaction timed apart, K2
+   checked bit for bit on this fill, one K=32 chunk of K4 checked against its
+   plain version at this shape in float32 (as ``compare_f32`` states, at least
+   99% of chains with identical decisions) and each timed beside its plain
+   version; and (17c) the median call split into K4, K2 and the rest;
+18. a time-horizon run of the same deployment, T the median clock of phase
+   17's skeleton at 256 events, with the time-horizon contracts of phase 14;
+   K4's horizon mode timed per K=32 launch beside its plain version.
 
 Then one JSON line of per-kernel results (launches counted in the timed run
 of each kernel's path: phase 4 for K1 and K2, phase 7 for K6, phase 10 for
 K3, phase 12 for K5, phase 14 for K1 in horizon mode, phase 15 for K6, K3
-and K5 in horizon mode; max_abs_err the largest of the kernel's comparisons
+and K5 in horizon mode, phase 17 for K4 and phase 18 for K4 in horizon
+mode; max_abs_err the largest of the kernel's comparisons
 with its plain version, f64 and f32; the bound of each timed launch computed
 from its shape and this run's data), the card's name and power limit, and
 the status line.
@@ -143,6 +161,9 @@ ECMC_D10 = (10, 512, 2048)            # ecmc_gauss_d10
 HORIZON_D10 = (10, 4096, 500.0, 4096)  # d, chains, T, init_capacity: zigzag_gauss_d10_horizon
 HORIZON_CALLS = 5  # timed warm calls of the horizon path
 HORIZON_CHECK_T = {"sticky": 0.5, "bps": 290.0, "ecmc": 645.0}  # ~256 events per chain
+SUZZ_D10 = (10, 512, 2048)  # d, chains, skeleton points: suzz_gauss_d10
+SUZZ_CALLS = 5  # timed warm calls of the Speed-Up Zig-Zag path
+SUZZ_HORIZON_EVENTS = 256  # events per chain phase 18 aims its T at
 
 H100_BYTES_S = 3.35e12  # HBM3 rate of the H100 SXM (NVIDIA data sheet)
 H100_F32_OPS_S = 67e12  # float32 rate outside the tensor cores (the same sheet)
@@ -209,6 +230,15 @@ def chunk_ops(cfg, d, live, jumps):
     if cfg.kind == "zigzag":
         per += n_grid * d * 20
         jump = THREEFRY_OPS + 12 * d
+    elif cfg.kind == "suzz":
+        # per grid point the flow's exp and sqrt(1 + |x_t|^2) and ~15 scalar
+        # operations, per grid point and coordinate ~40 (x_t and its two
+        # sums 8, the gradient 2, the effective rate 4 and its tangent 9 with
+        # three divides, the segment 15); the flow's terms (~6 per
+        # coordinate and a sqrt), and the thinning and final flows (~16 per
+        # coordinate, two exps and two sqrts)
+        per += n_grid * (40 * d + 2 * MATH_OPS + 15) + 22 * d + 5 * MATH_OPS + 30
+        jump = THREEFRY_OPS + 16 * d
     else:
         per += n_grid * (8 * d + 15)
         if cfg.kind == "boomerang":
@@ -306,12 +336,14 @@ def target_share(st, cfg):
     return share
 
 
-def k1_compare(d, B, K, n_chunks, pot, horizon=False):
-    """Kernel and plain version from the same f64 state, in horizon mode (K7)
-    when asked; returns (max abs err, events, share frozen by the target)."""
+def k1_runs(d, B, K, n_chunks, pot, horizon=False, suzz=False, dtype=torch.float64):
+    """K1, or K4 for the Speed-Up Zig-Zag (``suzz``), and its plain version,
+    ``n_chunks`` chunks each from one random state with every fifth chain
+    capped inside the run, in horizon mode (K7) when asked.  Returns the
+    kernel's state and fill, then the plain version's, and the config."""
     grad = {"gauss": pt.potentials.grad_gauss, "banana": pt.potentials.grad_banana}[pot]
-    sampler = pt.ZigZag(d, grad)
-    state = random_state(sampler, B, torch.float64, d + B)
+    sampler = (pt.SpeedUpZigZag if suzz else pt.ZigZag)(d, grad)
+    state = random_state(sampler, B, dtype, d + B)
     counts = torch.zeros(B, dtype=torch.int32, device=DEV)
     counts[::5] = 40  # some chains freeze inside the run
     cfg = driver.chunk_config(sampler, K, 48, 128)
@@ -320,24 +352,33 @@ def k1_compare(d, B, K, n_chunks, pot, horizon=False):
         cfg = cfg._replace(t_target=median_target(k1.run_chunk, st_k, cfg, K, n_chunks,
                                                   -1234567))
     st_p = clone_state(st_k)
-    fill_k = k1.empty_fill(K * n_chunks, d, B, torch.float64, DEV)
-    fill_p = k1.empty_fill(K * n_chunks, d, B, torch.float64, DEV)
+    fill_k = k1.empty_fill(K * n_chunks, d, B, dtype, DEV)
+    fill_p = k1.empty_fill(K * n_chunks, d, B, dtype, DEV)
     for it in range(n_chunks):
         seed = -1234567 + it * 1000003
         k1.run_chunk(seed, st_k, fill_k, it * K, cfg)
         k1.run_chunk_plain(seed, st_p, fill_p, it * K, cfg)
     sync()
+    return st_k, fill_k, st_p, fill_p, cfg
+
+
+def k1_compare(d, B, K, n_chunks, pot, horizon=False, suzz=False):
+    """:func:`k1_runs` in f64, held to rtol ``RTOL`` (atol ``ATOL``) with
+    integers equal; returns (max abs err, events, share frozen by the
+    target)."""
+    what = f"{'K4' if suzz else 'K1'} {pot} d={d}"
+    st_k, fill_k, st_p, fill_p, cfg = k1_runs(d, B, K, n_chunks, pot, horizon, suzz)
     err = 0.0
     for (name, a), (_, b) in zip(chunk_outputs(st_k, fill_k), chunk_outputs(st_p, fill_p)):
         if a.dtype == torch.int32:
             if not torch.equal(a, b):
-                raise AssertionError(f"K1 d={d}: integer output {name} differs "
+                raise AssertionError(f"{what}: integer output {name} differs "
                                      f"at {int((a != b).sum())} places")
         else:
-            err = max(err, float_err(f"K1 d={d}", name, a, b, RTOL, ATOL))
+            err = max(err, float_err(what, name, a, b, RTOL, ATOL))
     n_ev = int((fill_k.kind[:, 0] > 0).sum())
     if n_ev < B:
-        raise AssertionError(f"K1 d={d}: only {n_ev} events in the check")
+        raise AssertionError(f"{what}: only {n_ev} events in the check")
     return err, n_ev, target_share(st_k, cfg)
 
 
@@ -384,11 +425,13 @@ K1_F32_SHARE = 0.99
 K6_F32_SHARE = 0.95
 K3_F32_SHARE = 0.95
 K3_V_RTOL = 1e-3
+K4_F32_SHARE = 0.99
 
 
 def divergence(b, v0, fill_k, fill_p, cfg, seed, v_rtol=0.0):
     """Where chain ``b`` of two f32 fills from one state first takes another
-    decision, and whether f32 rounding explains it.  A Zig-Zag flip:
+    decision, and whether f32 rounding explains it.  A Zig-Zag flip (the
+    Speed-Up Zig-Zag's on its effective gradient):
     recomputed in float64 at the kernel's post-flow x, u * total lies within
     d * 2**-24 of the total (the rounding bound of a sum of d non-negative f32
     terms) from a prefix sum between the two picked coordinates.  A bounce
@@ -413,7 +456,8 @@ def divergence(b, v0, fill_k, fill_p, cfg, seed, v_rtol=0.0):
     seeds = rng.lane_seeds(seed, B, cfg.tile, DEV)
     same_act = fill_k.act is None or torch.equal(fill_k.act[k, :, b], fill_p.act[k, :, b])
     v_prev = (v0 if k == 0 else fill_k.v[k - 1])[:, b]
-    if int(kk[k]) == int(kp[k]) == pt.EV_JUMP and same_act and cfg.kind == "zigzag":
+    if (int(kk[k]) == int(kp[k]) == pt.EV_JUMP and same_act
+            and cfg.kind in ("zigzag", "suzz")):
         m_k = int((fill_k.v[k, :, b] != v_prev).nonzero()[0, 0])
         m_p = int((fill_p.v[k, :, b] != v_prev).nonzero()[0, 0])
         if m_k == m_p:
@@ -421,7 +465,8 @@ def divergence(b, v0, fill_k, fill_p, cfg, seed, v_rtol=0.0):
         va = v_prev.double()
         if fill_k.act is not None:
             va = va * fill_k.act[k, :, b]   # a jump keeps the mask
-        rates = torch.clamp_min(cfg.grad(fill_k.x[k, :, b, None].double())[:, 0] * va, 0.0)
+        rates = torch.clamp_min(
+            k1.flow_and_rates(cfg)[1](fill_k.x[k, :, b, None].double(), va[:, None])[:, 0], 0.0)
         c = torch.cumsum(rates, 0)
         u = float(rng.uniform(seeds, k, 2, cfg.tile, torch.float32)[b])
         total = float(c[-1])
@@ -1439,6 +1484,190 @@ def phase_horizon_checks(card_name):
     return out
 
 
+def phase_k4():
+    """K4, the Speed-Up Zig-Zag chunk kernel, against its plain version from
+    one f64 state (:func:`k1_compare`), in events and in horizon mode (K7);
+    returns the max abs err of each mode."""
+    errs, parts = {}, []
+    for horizon in (False, True):
+        name = "suzz_chunk" + ("_horizon" if horizon else "")
+        errs[name] = 0.0
+        for pot in ("gauss", "banana"):
+            e, n, share = k1_compare(10, 1024, 32, 2, pot, horizon=horizon, suzz=True)
+            errs[name] = max(errs[name], e)
+            at = f", {share:.3f} of the lanes at the target" if horizon else ""
+            parts.append(f"{'horizon' if horizon else 'events'} {pot} d=10 B=1024 "
+                         f"max_abs_err={e:.3e} ({n} events{at})")
+    print(f"phase 16 K4 vs plain (f64, 2 x K=32): {'; '.join(parts)}; ints equal, rtol "
+          f"{RTOL} atol {ATOL}", flush=True)
+    return errs
+
+
+def suzz_deployment():
+    """suzz_gauss_d10 (benchmarks/run_baselines.py:137-140 at scale 1, x0 = 0,
+    v0 = 1 as at :193-200)."""
+    d, B, _ = SUZZ_D10
+    return pt.SpeedUpZigZagAD(d, pt.potentials.gauss), np.zeros((B, d)), np.ones((B, d))
+
+
+def phase_suzz(card_name):
+    """The suzz_gauss_d10 deployment: one warm call, then five timed warm
+    calls, the first of them counted and checked.  Returns the sampler, the
+    counted launches, the median wall time and phase 18's horizon: the median
+    clock at ``SUZZ_HORIZON_EVENTS`` events, to three digits."""
+    d, B, n_sk = SUZZ_D10
+    sampler, x0, v0 = suzz_deployment()
+    kw = dict(seed=0, dtype=torch.float32, device=DEV)
+    pt.sample_skeleton(sampler, n_sk, x0, v0, **kw)  # warm: allocator, fill ratio
+    sync()
+    walls = []
+    for call in range(SUZZ_CALLS):
+        if call == 0:
+            build.reset_launches()
+        t0 = time.perf_counter()
+        skel = pt.sample_skeleton(sampler, n_sk, x0, v0, **kw)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        if call == 0:
+            launches = dict(build.LAUNCHES)
+            checked = skel
+    skel = checked
+    if launches["suzz_chunk"] < 1 or launches["compact_rows"] < 1:
+        raise AssertionError(f"Speed-Up Zig-Zag path missed a kernel: {launches}")
+    if not bool((skel.n_valid == n_sk).all()):
+        raise AssertionError(f"Speed-Up Zig-Zag path incomplete: n_valid min "
+                             f"{int(skel.n_valid.min())}")
+    if not bool(torch.isfinite(skel.x).all() and torch.isfinite(skel.t).all()):
+        raise AssertionError("Speed-Up Zig-Zag path produced non-finite values")
+    if not bool((skel.t[:, 1:] >= skel.t[:, :-1]).all()):
+        raise AssertionError("Speed-Up Zig-Zag path: t decreases somewhere")
+    mean, var = pt.pooled_moments(skel, sampler, 256)
+    if not moments_ok(mean, var):
+        raise AssertionError(f"Speed-Up Zig-Zag moments off: mean {mean.tolist()} "
+                             f"var {var.tolist()}")
+    events = int(skel.n_valid.sum()) - B
+    T = float(f"{float(skel.t[:, SUZZ_HORIZON_EVENTS].median()):.3g}")
+    del skel, checked
+    med = float(np.median(walls))
+    print(f"phase 17 suzz_gauss_d10: SpeedUpZigZagAD({d}, gauss) B={B} n_sk={n_sk} f32 "
+          f"events={events} launches={launches}; complete, t non-decreasing and finite, "
+          f"max|mean|={float(mean.abs().max()):.4f} max|var-1|="
+          f"{float((var - 1).abs().max()):.4f}; {SUZZ_CALLS} warm calls "
+          f"{' '.join(f'{w:.4f}' for w in walls)} s, median {med:.4f} s "
+          f"({events / med:.1f} events/s), spread {min(walls):.4f}-{max(walls):.4f} s "
+          f"({card_name})", flush=True)
+    return sampler, launches, med, T
+
+
+def phase_suzz_breakdown(sampler, launches, wall):
+    """The Speed-Up Zig-Zag path's fill and compaction timed apart, K2
+    checked bit for bit on this fill, one K=32 chunk of K4 checked against
+    its plain version at this shape in float32 (as ``compare_f32`` states) and
+    each kernel timed beside its plain version; then the median warm call
+    (``wall``, phase 17) split into K4, K2 and the rest."""
+    d, B, n_sk = SUZZ_D10
+    target = n_sk - 1
+    dtype = torch.float32
+    _, x0, v0 = suzz_deployment()
+    t_cap = api.fill_rows(sampler, target, B, d, dtype, DEV)
+    state = sampler.init_state_batch(x0, v0, 0, dtype, DEV)
+    init = event_from_state(state, EV_INIT)
+    run = driver.make_stream_runner(sampler, t_cap, target)
+    zeros = torch.zeros(B, dtype=torch.int32, device=DEV)
+    sync()
+    t0 = time.perf_counter()
+    res = run(state, zeros)
+    sync()
+    fill_s = time.perf_counter() - t0
+    n_launch, complete = res.transitions // 32, int((res.counts >= target).sum())
+    off = torch.ones(B, dtype=torch.int32, device=DEV)
+    outs = []
+    for fn in (k2.compact_rows, k2.compact_rows_plain):
+        out = k2.empty_rows(B, target + 1, d, dtype, DEV)
+        for a in out[:-1]:
+            a.zero_()  # columns past a short chain's rows stay equal
+        kind, specs = k2.fill_specs(res.fill, out, init)
+        fn(kind, specs, off)
+        outs.append(out)
+    sync()
+    k2_err = k2_outputs_equal("Speed-Up Zig-Zag path", *outs)
+    del outs, out
+    k2_ms = cuda_ms(lambda: k2.compact_rows(kind, specs, off), 5)
+    k2_plain_ms = cuda_ms(lambda: k2.compact_rows_plain(kind, specs, off), 2)
+    k2_b = k2_bound(res.fill, res.counts, target + 1)
+    del res, specs, kind
+
+    K, seed = 32, 7
+    cfg = driver.chunk_config(sampler, K, 1 << 30, 128)
+    st = driver.chunk_state(state, zeros)
+    st_p = clone_state(st)
+    v0c = st.v.clone()
+    fill, fill_p = (k1.empty_fill(K, d, B, dtype, DEV) for _ in range(2))
+    k1.run_chunk(seed, st, fill, 0, cfg)
+    k1.run_chunk_plain(seed, st_p, fill_p, 0, cfg)
+    sync()
+    agree, share, err, texts = compare_f32("K4 f32", v0c, st, fill, st_p, fill_p, cfg, seed,
+                                           K4_F32_SHARE)
+    del st_p, fill_p
+    k4_b = chunk_bound(cfg, st, fill, K * B)
+    k4_ms = cuda_ms(lambda: k1.run_chunk(seed, st, fill, 0, cfg), 20)
+    k4_plain_ms = cuda_ms(lambda: k1.run_chunk_plain(seed, st, fill, 0, cfg), 2)
+    print(f"phase 17b Speed-Up Zig-Zag breakdown (B={B}, d={d}, f32): fill {fill_s:.4f} s "
+          f"over {t_cap} rows, {n_launch} K4 launches ({complete} of {B} chains complete "
+          f"in it); K2 compaction (T={t_cap}, W={target + 1}) {k2_ms:.4f} ms vs plain "
+          f"{k2_plain_ms:.4f} ms, bit-identical, bound {bound_text(k2_b)}; K4 chunk "
+          f"(K={K}) {k4_ms:.4f} ms vs plain {k4_plain_ms:.4f} ms, bound {bound_text(k4_b)}; "
+          f"kinds agree on {agree:.6f}, max_abs_err {err:.3e} on the {share:.4f} of chains "
+          f"with equal decisions (want >= {K4_F32_SHARE}); the others left at f32 rounding "
+          f"ties: {'; '.join(texts) or 'none'}", flush=True)
+    wall_ms = wall * 1e3
+    k4_total = launches["suzz_chunk"] * k4_ms
+    k2_total = launches["compact_rows"] * k2_ms
+    rest = wall_ms - k4_total - k2_total
+    print(f"phase 17c Speed-Up Zig-Zag time split of the median warm call ({wall_ms:.4f} "
+          f"ms): K4 {launches['suzz_chunk']} x {k4_ms:.4f} = {k4_total:.4f} ms "
+          f"({k4_total / wall_ms:.1%}); K2 {launches['compact_rows']} x {k2_ms:.4f} = "
+          f"{k2_total:.4f} ms ({k2_total / wall_ms:.1%}); rest (host, card idle) "
+          f"{rest:.4f} ms ({rest / wall_ms:.1%})", flush=True)
+    return k4_ms, k4_plain_ms, k4_b, k2_err, err
+
+
+def phase_suzz_horizon(card_name, sampler, T):
+    """A time-horizon run of the suzz_gauss_d10 deployment at phase 17's ``T``
+    (about ``SUZZ_HORIZON_EVENTS`` events per chain) with the time-horizon
+    contracts of phase 14; K4's horizon mode timed per K=32 launch at this
+    shape beside its plain version.  Returns (launches, ms, plain ms,
+    bound)."""
+    d, B, _ = SUZZ_D10
+    _, x0, v0 = suzz_deployment()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    skel = pt.sample_skeleton(sampler, T, x0, v0, seed=0, dtype=torch.float32, device=DEV)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    if launches["suzz_chunk_horizon"] < 1 or launches["compact_rows"] < 1:
+        raise AssertionError(f"Speed-Up Zig-Zag horizon run missed a kernel: {launches}")
+    events = check_horizon_skeleton("Speed-Up Zig-Zag horizon", skel, T)
+    del skel
+    state = sampler.init_state_batch(x0, v0, 0, torch.float32, DEV)
+    # a target no lane reaches in the timing run
+    cfg = driver.chunk_config(sampler, 32, 1 << 30, 128)._replace(t_target=k1.f32_target(1e6))
+    st = driver.chunk_state(state, torch.zeros(B, dtype=torch.int32, device=DEV))
+    fill = k1.empty_fill(32, d, B, torch.float32, DEV)
+    ms = cuda_ms(lambda: k1.run_chunk(7, st, fill, 0, cfg), 10)
+    b = chunk_bound(cfg, st, fill, 32 * B)
+    plain_ms = cuda_ms(lambda: k1.run_chunk_plain(7, st, fill, 0, cfg), 1)
+    n = launches["suzz_chunk_horizon"]
+    print(f"phase 18 suzz_gauss_d10 time horizon: T={T} (phase 17's median clock at "
+          f"{SUZZ_HORIZON_EVENTS} events) B={B} f32: {events / B:.1f} events per chain, "
+          f"{n} suzz_chunk_horizon launches, {launches['compact_rows']} K2, {wall:.4f} s "
+          f"(first call); every chain ends at t == T with EV_TERMINAL, no kept row past T, "
+          f"t non-decreasing; suzz_chunk_horizon (K=32) {ms:.4f} ms vs plain "
+          f"{plain_ms:.4f} ms, bound {bound_text(b)} ({card_name})", flush=True)
+    return n, ms, plain_ms, b
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b):
     return {"name": name, "route": "cuda", "source": f"pdmpflux_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -1473,6 +1702,11 @@ def main():
     k7_ms, k7_plain_ms, k7_b, k2_hz_err, k7_f32_err = phase_horizon_breakdown(
         hz, hz_launches, hz_wall)
     checks = phase_horizon_checks(card_name)
+    k4_errs = phase_k4()
+    suzz, suzz_launches, suzz_wall, suzz_T = phase_suzz(card_name)
+    k4_ms, k4_plain_ms, k4_b, k2_suzz_err, k4_f32_err = phase_suzz_breakdown(
+        suzz, suzz_launches, suzz_wall)
+    k4h_n, k4h_ms, k4h_plain_ms, k4h_b = phase_suzz_horizon(card_name, suzz, suzz_T)
     zz = "pdmpflux_tpu/ops/pallas/zigzag_chunk.py:854"
     k7 = 'pdmpflux_tpu/ops/pallas/zigzag_chunk.py:343 mode="horizon"'
     kernels = [
@@ -1480,7 +1714,8 @@ def main():
                      k1_err, k1_ms, k1_plain_ms, k1_b),
         kernel_entry("compact_rows", "compact.cu", "pdmpflux_tpu/ops/pallas/compact.py:132",
                      launches["compact_rows"],
-                     max(k2_err, k2_main_err, k2_sticky_err, k2_bps_err, k2_hz_err),
+                     max(k2_err, k2_main_err, k2_sticky_err, k2_bps_err, k2_hz_err,
+                         k2_suzz_err),
                      k2_ms, k2_plain_ms, k2_b),
         kernel_entry("sticky_chunk", "sticky_chunk.cu", zz, sticky_launches["sticky_chunk"],
                      k6_err, k6_ms, k6_plain_ms, k6_b),
@@ -1500,6 +1735,13 @@ def main():
                          ("ecmc_chunk_horizon", "scalar_chunk.cu")):
         n, ms, plain_ms, b = checks[name]
         kernels.append(kernel_entry(name, source, k7, n, k7_errs[name], ms, plain_ms, b))
+    kernels += [
+        kernel_entry("suzz_chunk", "suzz_chunk.cu", zz + ' kind="suzz"',
+                     suzz_launches["suzz_chunk"], max(k4_errs["suzz_chunk"], k4_f32_err),
+                     k4_ms, k4_plain_ms, k4_b),
+        kernel_entry("suzz_chunk_horizon", "suzz_chunk.cu", k7, k4h_n,
+                     k4_errs["suzz_chunk_horizon"], k4h_ms, k4h_plain_ms, k4h_b),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(card_name)
     print(json.dumps({"ok": True, "device": {

@@ -3,11 +3,13 @@
 The JAX package ``pdmpflux_tpu`` is the reference; this package mirrors its
 layout (``core``, ``models``, ``ops``, ``parallel``, ``utils``, ``api``) and
 never imports JAX.  Ported so far: the event-count and time-horizon paths
-of the Zig-Zag, the Sticky Zig-Zag and the scalar-rate samplers (BPS,
-Boomerang, Forward ECMC), with their hand-written kernels in ``csrc/`` (the
-fused Zig-Zag chunk kernel, its sticky chain-per-CTA variant, the
+of the Zig-Zag, the Sticky Zig-Zag, the Speed-Up Zig-Zag and the
+scalar-rate samplers (BPS, Boomerang, Forward ECMC), with their hand-written
+kernels in ``csrc/`` (the fused Zig-Zag chunk kernel, its sticky
+chain-per-CTA variant, the Speed-Up Zig-Zag chunk kernel, the
 warp-per-chain scalar-rate chunk kernel, each with a horizon mode, and
-event-row compaction).
+event-row compaction): every Pallas kernel of the JAX package has its
+counterpart.
 """
 
 from .api import sample, sample_from_skeleton, sample_skeleton  # noqa: F401
@@ -29,6 +31,8 @@ from .models import (  # noqa: F401
     BoomerangAD,
     ForwardECMC,
     ForwardECMCAD,
+    SpeedUpZigZag,
+    SpeedUpZigZagAD,
     StickyZigZag,
     StickyZigZagAD,
     ZigZag,

@@ -3,8 +3,8 @@
 * ``sample_skeleton(sampler, n_sk, ...)``: fixed-event-count skeleton of a
   chain batch, through stream fills of the sampler's chunk kernel (K1 for a
   Zig-Zag, K6 for a Sticky Zig-Zag, whose fills also carry the activity
-  stream, K3 for BPS and the Boomerang, K5 for Forward ECMC) and compaction
-  by K2; ``sample_skeleton(sampler, T, ...)`` with a float ``T``: the
+  stream, K4 for a Speed-Up Zig-Zag, K3 for BPS and the Boomerang, K5 for
+  Forward ECMC) and compaction by K2; ``sample_skeleton(sampler, T, ...)`` with a float ``T``: the
   time-horizon skeleton, the same kernels in horizon mode (K7) and an exact
   terminal point at ``t = T`` (``core/engine.finalize_horizon_rows``);
 * ``sample_from_skeleton``: skeleton -> equal-time samples (N, dt, N + dt);

@@ -3,5 +3,6 @@ from .base import PDMP  # noqa: F401
 from .boomerang import Boomerang, BoomerangAD  # noqa: F401
 from .bps import BPS, BPSAD  # noqa: F401
 from .ecmc import ForwardECMC, ForwardECMCAD  # noqa: F401
+from .speedup_zigzag import SpeedUpZigZag, SpeedUpZigZagAD  # noqa: F401
 from .sticky import StickyZigZag, StickyZigZagAD  # noqa: F401
 from .zigzag import ZigZag, ZigZagAD  # noqa: F401

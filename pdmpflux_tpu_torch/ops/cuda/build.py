@@ -28,15 +28,16 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
-SOURCE_FLAGS = {"scalar_chunk.cu": ["-fmad=false"]}
-"""Flags of one source: K3/K5 round every product as their plain version's
-torch ops do (see the note in ``csrc/scalar_chunk.cu``), so that the two
-agree bit for bit in f64.  ``chip_fmad_ab.py`` measures the cost against
-FMA contraction; PERF.md holds its reading."""
+SOURCE_FLAGS = {"scalar_chunk.cu": ["-fmad=false"], "suzz_chunk.cu": ["-fmad=false"]}
+"""Flags of one source: K3/K5 and K4 round every product as their plain
+version's torch ops do (see the notes in ``csrc/scalar_chunk.cu`` and
+``csrc/suzz_chunk.cu``), so that the two round alike.  ``chip_fmad_ab.py``
+measures the cost against FMA contraction; PERF.md holds its reading."""
 
 LAUNCHES = {"zigzag_chunk": 0, "sticky_chunk": 0, "bps_chunk": 0, "ecmc_chunk": 0,
-            "zigzag_chunk_horizon": 0, "sticky_chunk_horizon": 0,
-            "bps_chunk_horizon": 0, "ecmc_chunk_horizon": 0, "compact_rows": 0}
+            "suzz_chunk": 0, "zigzag_chunk_horizon": 0, "sticky_chunk_horizon": 0,
+            "bps_chunk_horizon": 0, "ecmc_chunk_horizon": 0, "suzz_chunk_horizon": 0,
+            "compact_rows": 0}
 """Kernel launches since the last :func:`reset_launches`; a chunk kernel's
 launches in horizon mode (K7) count under its name with ``_horizon``."""
 
@@ -70,6 +71,12 @@ def _declare(lib) -> None:
         + [i] * 3                       # cap, tile, seed
         + [i, ctypes.c_float]           # horizon mode, its float32 target
         + [p] * 10 + [p]                # state, event rows, stream
+    )
+    lib.suzz_chunk_launch.restype = i
+    lib.suzz_chunk_launch.argtypes = (
+        [i] * 8 + [ctypes.c_double] + [i] * 3 + [i, ctypes.c_float]
+        + [p] * 6                       # x, v, fs, iscal, ring, scratch
+        + [p] * 5 + [p]                 # event rows, stream
     )
     lib.sticky_chunk_launch.restype = i
     lib.sticky_chunk_launch.argtypes = (

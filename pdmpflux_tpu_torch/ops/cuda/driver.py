@@ -1,8 +1,9 @@
 """Stream-fill driver around the chunk kernels (``pdmpflux_tpu/ops/pallas/driver.py``).
 
 :func:`make_stream_runner` is the port of ``make_pallas_stream_runner`` for
-the Zig-Zag (K1), the Sticky Zig-Zag (K6) and the scalar-rate samplers BPS
-and Boomerang (K3) and Forward ECMC (K5): a host loop over chunks, one
+the Zig-Zag (K1), the Sticky Zig-Zag (K6), the Speed-Up Zig-Zag (K4) and
+the scalar-rate samplers BPS and Boomerang (K3) and Forward ECMC (K5): a host
+loop over chunks, one
 kernel launch per chunk, each writing its ``K`` transition rows straight
 into the raw fill at the chunk's row offset, until every chain has its
 target count (event-count mode) or has its committed clock at the target
@@ -32,12 +33,14 @@ JAX package's constant, ``driver.py:24``)."""
 def kernel_kind(sampler):
     """Which chunk kernel covers the sampler, by exact type (JAX
     ``driver.py:74-88``): ``"zigzag"`` for a Zig-Zag or a Sticky Zig-Zag
-    with vectorized bounds (K1, K6), ``"bps"`` and ``"boomerang"`` (K3),
-    ``"ecmc"`` (K5); None otherwise (the Speed-Up Zig-Zag and RHMC are not
-    ported)."""
+    with vectorized bounds (K1, K6), ``"suzz"`` for a Speed-Up Zig-Zag with
+    vectorized bounds (K4), ``"bps"`` and ``"boomerang"`` (K3), ``"ecmc"``
+    (K5); None otherwise (RHMC, and a Zig-Zag-family sampler with scalar
+    bounds, which JAX runs on its XLA engine)."""
     from ...models.boomerang import Boomerang
     from ...models.bps import BPS
     from ...models.ecmc import ForwardECMC
+    from ...models.speedup_zigzag import SpeedUpZigZag
     from ...models.sticky import StickyZigZag
     from ...models.zigzag import ZigZag
 
@@ -45,8 +48,10 @@ def kernel_kind(sampler):
         if type(sampler) is StickyZigZag and sampler.vectorized_bound:
             return "zigzag"
         return None
-    if type(sampler) is ZigZag and sampler.vectorized_bound:
-        return "zigzag"
+    if type(sampler) in (ZigZag, SpeedUpZigZag):
+        if not sampler.vectorized_bound:
+            return None
+        return "suzz" if type(sampler) is SpeedUpZigZag else "zigzag"
     return {BPS: "bps", Boomerang: "boomerang", ForwardECMC: "ecmc"}.get(type(sampler))
 
 
@@ -75,13 +80,16 @@ def chunk_config(sampler, K: int, cap: int, tile: int) -> zc.ChunkConfig:
     kind = kernel_kind(sampler)
     if kind is None:
         raise ValueError(
-            f"the fused chunk kernels cover ZigZag and StickyZigZag with "
-            f"vectorized_bound=True, BPS, Boomerang and ForwardECMC; got "
+            f"the fused chunk kernels cover ZigZag, StickyZigZag and "
+            f"SpeedUpZigZag with vectorized_bound=True, BPS, Boomerang and "
+            f"ForwardECMC; got "
             f"{type(sampler).__name__} with "
             f"vectorized_bound={getattr(sampler, 'vectorized_bound', None)}"
         )
     n_grid = sampler.grid_size if sampler.grid_size >= 2 else PALLAS_CONST_GRID
     potential, params = sampler.device_potential, sampler.device_params
+    # K4 and its plain version build the Speed-Up Zig-Zag's effective
+    # gradient and its tangent from grad U themselves (a per-chain sum)
     grad_like = sampler._grad_eff if kind == "boomerang" else sampler.grad_U
     grad, grad_jvp = zc.lane_gradients(grad_like, potential, params)
     if kind == "boomerang" and potential is not None:
@@ -150,7 +158,7 @@ def make_stream_runner(sampler, t_cap: int, n_events_target: int,
     if mode not in ("events", "horizon"):
         raise ValueError(f"mode must be 'events' or 'horizon', not {mode!r}")
     cfg = chunk_config(sampler, chunk, n_events_target, tile)
-    run_chunk = zc.run_chunk if cfg.kind == "zigzag" else sc.run_chunk
+    run_chunk = sc.run_chunk if cfg.kind in sc.KINDS else zc.run_chunk
     n_chunks = t_cap // chunk
 
     def run(state: PDMPState, counts: torch.Tensor,

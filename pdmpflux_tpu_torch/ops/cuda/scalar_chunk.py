@@ -51,7 +51,7 @@ from ...core.types import (
     MODE_REJECTED,
 )
 from ...utils.potentials import DEVICE_POTENTIALS
-from ..flows import boomerang_flow, linear_flow
+from ..flows import boomerang_flow, linear_flow, ordered_sum
 from . import build
 from .zigzag_chunk import (
     F_AR,
@@ -117,12 +117,8 @@ def _box_muller(u1, u2):
 
 def _sum(a):
     """Sum over the coordinate axis, added in coordinate order as the kernel
-    adds it (torch's own reductions order their adds otherwise, on the CPU
-    and on the card), so that both round alike."""
-    s = a[0]
-    for i in range(1, a.shape[0]):
-        s = s + a[i]
-    return s
+    adds it, so that both round alike."""
+    return ordered_sum(a, 0)[0]
 
 
 def _dot(a, b):

@@ -1,26 +1,33 @@
-"""K1 and K6: a chunk of ``K`` fused Zig-Zag transitions per chain.
+"""K1, K6 and K4: a chunk of ``K`` fused Zig-Zag-family transitions per chain.
 
 Replaces ``pdmpflux_tpu/ops/pallas/zigzag_chunk.py:run_chunk`` with
-``kind="zigzag"``: K1 for ``sticky=False``, K6 for ``sticky=True``, in
-``mode="events"`` and, with ``ChunkConfig.t_target`` set, ``mode="horizon"``
-(K7: a lane also freezes once its committed clock reaches the float32
-target).  Each of the ``K`` transitions builds the grid envelope with
-time tangents, inverts the Poisson clock, runs the thinning test, flows,
-flips one coordinate, commits the Kahan clock, adapts the horizon and emits
-one event row.  The sticky variant also carries the activity mask and the
-thaw clock: rates and flows use the masked velocity, a fresh proposal whose
-flow would cross an axis sticks the first coordinate to reach it, a thaw
-clock below the proposal releases a frozen coordinate drawn in proportion to
-``kappa``, and every row records the activity mask.
+``kind="zigzag"``: K1 for ``sticky=False``, K6 for ``sticky=True``; and with
+``kind="suzz"``, the Speed-Up Zig-Zag: K4.  Each runs in ``mode="events"``
+and, with ``ChunkConfig.t_target`` set, ``mode="horizon"`` (K7: a lane also
+freezes once its committed clock reaches the float32 target).  Each of the
+``K`` transitions builds the grid envelope with time tangents, inverts the
+Poisson clock, runs the thinning test, flows, flips one coordinate, commits
+the Kahan clock, adapts the horizon and emits one event row.  The sticky
+variant also carries the activity mask and the thaw clock: rates and flows
+use the masked velocity, a fresh proposal whose flow would cross an axis
+sticks the first coordinate to reach it, a thaw clock below the proposal
+releases a frozen coordinate drawn in proportion to ``kappa``, and every row
+records the activity mask.  The Speed-Up Zig-Zag flows along the closed-form
+speed-change flow (``ops/flows.suzz_flow``, every live lane, at ``t = 0``
+too) and takes its rates and flips on the effective gradient
+``s grad U(x) - x / s``, whose time derivative along the flow is written out
+in closed form (``_suzz_rates``) where JAX takes ``jax.jvp``; its sums over
+coordinates are added in coordinate order, as K4 adds them.
 
 Two versions of the same function live here:
 
 * :func:`run_chunk_plain`, plain PyTorch on ``(d, B)`` chain-minor tensors,
-  operation for operation the Pallas body (``_make_kernel``), sticky branches
-  included.  It draws the same Threefry counters, so on the same state it
-  reproduces the Pallas kernel trajectory by trajectory.
-* the CUDA kernels: ``csrc/zigzag_chunk.cu`` (K1, one thread per chain) and
-  ``csrc/sticky_chunk.cu`` (K6, one CTA per chain).
+  operation for operation the Pallas body (``_make_kernel``), sticky and
+  Speed-Up branches included.  It draws the same Threefry counters, so on
+  the same state it reproduces the Pallas kernel trajectory by trajectory.
+* the CUDA kernels: ``csrc/zigzag_chunk.cu`` (K1, one thread per chain),
+  ``csrc/sticky_chunk.cu`` (K6, one CTA per chain) and
+  ``csrc/suzz_chunk.cu`` (K4, one thread per chain).
 
 :func:`run_chunk` takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.
@@ -54,6 +61,7 @@ from ...core.types import (
     MODE_REJECTED,
 )
 from ...utils.potentials import DEVICE_POTENTIALS, LANE_POTENTIALS
+from ..flows import div_once, ordered_sum, suzz_flow, suzz_flow_tangent
 from . import build
 
 F_T, F_TC, F_TS, F_H, F_BH, F_EXP, F_AR, F_TT = range(8)
@@ -66,7 +74,7 @@ HORIZON_SHRINK = 1.04
 MAX_GRID = 64
 """Most envelope grid points the CUDA kernels keep per chain."""
 KERNEL_POTENTIALS = ("banana", "gauss")
-"""Device potentials K1 and K6 implement."""
+"""Device potentials K1, K6 and K4 implement."""
 
 
 class ChunkState(NamedTuple):
@@ -116,8 +124,10 @@ def empty_fill(T: int, d: int, B: int, dtype, device, sticky: bool = False) -> R
 
 class ChunkConfig(NamedTuple):
     """Static parameters of a chunk kernel (the Pallas kernel's static
-    arguments): K1/K6 for ``kind="zigzag"``, K3/K5 (``scalar_chunk``) for
-    ``"bps"``, ``"boomerang"`` and ``"ecmc"``."""
+    arguments): K1/K6 for ``kind="zigzag"``, K4 for ``"suzz"``, K3/K5
+    (``scalar_chunk``) for ``"bps"``, ``"boomerang"`` and ``"ecmc"``.  K4
+    takes the raw ``grad U`` and its ``H v`` and builds the effective
+    gradient itself."""
 
     n_grid: int
     K: int
@@ -168,12 +178,6 @@ def live_lanes(cnt: torch.Tensor, t: torch.Tensor, cfg: ChunkConfig) -> torch.Te
     return live & (t < cfg.t_target) if cfg.horizon else live
 
 
-def div_once(a: torch.Tensor, b: float) -> torch.Tensor:
-    """``a / b`` rounded once, as the kernels divide: torch's CUDA division
-    by a Python number multiplies by the number's rounded reciprocal."""
-    return a / torch.full_like(a, b)
-
-
 def lane_gradients(grad_U: Callable, device_potential: Optional[str],
                    params: Optional[torch.Tensor] = None):
     """Chain-minor ``(grad, grad_jvp)`` for the plain version: the device
@@ -185,28 +189,66 @@ def lane_gradients(grad_U: Callable, device_potential: Optional[str],
     return grad, lambda x, v: torch.func.jvp(grad, (x,), (v,))
 
 
-def _grid_rates(grad_jvp, x, v, step, n_grid, signed):
-    """Per-coordinate rates ``grad(x + v t_j) * v`` at the grid times
+def _suzz_grad_eff(grad, x):
+    """The Speed-Up Zig-Zag's effective gradient ``s grad U(x) - x / s``,
+    ``s = sqrt(1 + |x|^2)``, of ``(d, N)`` chains."""
+    s = torch.sqrt(1.0 + ordered_sum(x * x, 0))
+    return s * grad(x) - x / s
+
+
+def _suzz_rates(grad_jvp, xt, v, phi):
+    """The Speed-Up Zig-Zag's signed rates ``grad_eff(x_t) v`` of ``(d, N)``
+    chains at ``x_t`` and their time derivatives along the flow, where
+    ``dx_t/dt = phi v``: in closed form,
+    ``d grad_eff / dt = phi (s H v + g (x.v) / s - v / s + x (x.v) / s^3)``
+    at ``x_t``, from the gradient ``g`` and ``H v`` there."""
+    g, hv = grad_jvp(xt, v)
+    s = torch.sqrt(1.0 + ordered_sum(xt * xt, 0))
+    xvs = ordered_sum(xt * v, 0) / s
+    xvs3 = xvs / (s * s)
+    dge = phi * (s * hv + g * xvs - v / s + xt * xvs3)
+    return (s * g - xt / s) * v, dge * v
+
+
+def _grid_rates(cfg, x, v, step, n_grid):
+    """Per-coordinate rates along the flow at the grid times
     ``t_j = step * j`` and their time derivatives, ``(n_grid, d, B)`` each,
-    from one gradient call over all grid points.  Unsigned rates take the
-    derivative of ``max(r, 0)`` as JAX's JVP does (half the tangent at
-    ``r == 0``)."""
+    from one gradient call over all grid points: ``grad(x + v t_j) * v`` on
+    the linear flow, the effective gradient's along the speed-change flow
+    (``kind="suzz"``).  Unsigned rates take the derivative of ``max(r, 0)``
+    as JAX's JVP does (half the tangent at ``r == 0``)."""
     d, B = x.shape
     js = torch.arange(n_grid, dtype=x.dtype, device=x.device)[:, None, None]
-    xt = x[None] + v[None] * (step[None, None, :] * js)      # (n_grid, d, B)
-    vv = v[None].expand_as(xt)
-    lanes = lambda a: a.permute(1, 0, 2).reshape(d, n_grid * B)  # noqa: E731
-    g, dg = grad_jvp(lanes(xt), lanes(vv))
-    g = g.reshape(d, n_grid, B).permute(1, 0, 2)
-    dg = dg.reshape(d, n_grid, B).permute(1, 0, 2)
-    r = g * v[None]
-    dr = dg * v[None]
-    if signed:
+    t = step[None, None, :] * js                                  # (n_grid, 1, B)
+    lanes = lambda a: a.permute(1, 0, 2).reshape(a.shape[1], n_grid * B)  # noqa: E731
+    vl = lanes(v[None].expand(n_grid, d, B))
+    if cfg.kind == "suzz":
+        xt, phi = suzz_flow_tangent(x[None], v[None], t, dim_axis=1)
+        r, dr = _suzz_rates(cfg.grad_jvp, lanes(xt), vl, lanes(phi))
+    else:
+        g, dg = cfg.grad_jvp(lanes(x[None] + v[None] * t), vl)
+        r, dr = g * vl, dg * vl
+    r = r.reshape(d, n_grid, B).permute(1, 0, 2)
+    dr = dr.reshape(d, n_grid, B).permute(1, 0, 2)
+    if cfg.signed:
         return r, dr
     one, half, zero = (torch.ones_like(r), torch.full_like(r, 0.5),
                        torch.zeros_like(r))
     coef = torch.where(r > 0, one, torch.where(r == 0, half, zero))
     return torch.maximum(r, zero), dr * coef
+
+
+def flow_and_rates(cfg):
+    """A zigzag-family kind's ``flow(x, va, t) -> x_t``, its signed flip
+    rates ``rates(x_t, va) -> (d, B)`` and its sum over coordinates: the
+    linear flow on ``grad U`` (K1, K6), or the speed-change flow on the
+    effective gradient with sums in coordinate order (K4)."""
+    if cfg.kind == "suzz":
+        return (lambda x, va, t: suzz_flow(x, va, t, 0)[0],
+                lambda xt, va: _suzz_grad_eff(cfg.grad, xt) * va,
+                lambda a: ordered_sum(a, 0)[0])
+    return (lambda x, va, t: x + va * t, lambda xt, va: cfg.grad(xt) * va,
+            lambda a: torch.sum(a, dim=0))
 
 
 def _categorical_rows(w, u):
@@ -221,13 +263,13 @@ def _categorical_rows(w, u):
 
 def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
                     cfg: ChunkConfig) -> None:
-    """Plain PyTorch version of K1 and K6; runs on any device."""
+    """Plain PyTorch version of K1, K6 and K4; runs on any device."""
     x, v, fs, iscal, ring, act = st
     sticky = cfg.sticky
     d, B = x.shape
     dt = x.dtype
     n_grid, G = cfg.n_grid, cfg.n_grid - 1
-    grad = cfg.grad
+    flow, rates, coord_sum = flow_and_rates(cfg)
     seeds = rng.lane_seeds(seed, B, cfg.tile, x.device)
     iota_d = torch.arange(d, device=x.device)[:, None]
     zero = torch.zeros((B,), dtype=dt, device=x.device)
@@ -248,7 +290,7 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
 
         # ---- envelope on [0, bh]: tangent-intersection segment maxima ----
         step = div_once(bh_s, G)
-        f_all, g_all = _grid_rates(cfg.grad_jvp, x, va, step, n_grid, cfg.signed)
+        f_all, g_all = _grid_rates(cfg, x, va, step, n_grid)
         box = []
         f_prev = g_prev = None
         for j in range(n_grid):
@@ -265,7 +307,7 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
                 inter = f_prev + g_prev * ip
                 seg = torch.maximum(torch.maximum(f_prev, f_j),
                                     torch.maximum(inter, torch.zeros_like(inter)))
-                box.append(torch.sum(seg, dim=0) + cfg.refresh_rate)
+                box.append(coord_sum(seg) + cfg.refresh_rate)
             f_prev, g_prev = f_j, g_j
         cum = [zero]
         for j in range(G):
@@ -289,7 +331,7 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
         tp_safe = torch.where(overflow, zero, tp)
 
         # ---- thinning at tp on the unsigned rate ----
-        lam_t = torch.sum(torch.clamp_min(grad(x + va * tp_safe) * va, 0.0), dim=0)
+        lam_t = coord_sum(torch.clamp_min(rates(flow(x, va, tp_safe), va), 0.0))
         ar_new = lam_t / lam_bar
 
         # ---- sticky: thaw clock and the axis crossing at fresh proposals ----
@@ -330,9 +372,11 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
         flow_t = torch.where(p_moveh, h_s, torch.where(p_acc, tp_safe, zero))
         if sticky:
             flow_t = torch.where(p_stick, t_togo, torch.where(p_thaw, tt_s, flow_t))
-        x_new = x + va * flow_t
+        # every live lane flows, at t = 0 too: the speed-change flow is the
+        # identity there only up to rounding, as in JAX
+        x_new = flow(x, va, flow_t)
         # the latent v survives the flow; flip rates use the old mask
-        rates_flip = torch.clamp_min(grad(x_new) * va, 0.0)
+        rates_flip = torch.clamp_min(rates(x_new, va), 0.0)
         m = _categorical_rows(rates_flip, u_flip)
         v_new = torch.where((iota_d == m[None, :]) & p_acc[None, :], -v, v)
 
@@ -491,13 +535,23 @@ def check_cuda(st: ChunkState, fill: RawFill, row0: int, cfg: ChunkConfig,
         raise ValueError(f"rows {row0}..{row0 + cfg.K} outside the fill's {fill.rows}")
 
 
+def launch_name(cfg: ChunkConfig) -> str:
+    """The :data:`build.LAUNCHES` key of a K1, K6 or K4 launch (with
+    ``_horizon`` in horizon mode)."""
+    base = ("suzz_chunk" if cfg.kind == "suzz" else
+            "sticky_chunk" if cfg.sticky else "zigzag_chunk")
+    return base + ("_horizon" if cfg.horizon else "")
+
+
 def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
               cfg: ChunkConfig) -> None:
-    """Run ``cfg.K`` transitions: the CUDA kernel (K6 when ``cfg.sticky``,
-    else K1) for CUDA tensors, the plain version for CPU tensors."""
+    """Run ``cfg.K`` transitions: the CUDA kernel (K4 for ``kind="suzz"``,
+    K6 when ``cfg.sticky``, else K1) for CUDA tensors, the plain version for
+    CPU tensors."""
     if not st.x.is_cuda:
         return run_chunk_plain(seed, st, fill, row0, cfg)
-    what = "Sticky Zig-Zag" if cfg.sticky else "Zig-Zag"
+    suzz = cfg.kind == "suzz"
+    what = "Speed-Up Zig-Zag" if suzz else "Sticky Zig-Zag" if cfg.sticky else "Zig-Zag"
     check_cuda(st, fill, row0, cfg, what, KERNEL_POTENTIALS)
     d, B = st.x.shape
     if cfg.sticky and d > (max_d := sticky_max_dim(st.x.dtype)):
@@ -523,12 +577,17 @@ def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
             p(fill.v[r].data_ptr()), p(fill.fs[r].data_ptr()),
             p(fill.ring[r].data_ptr()))
     stream = p(torch.cuda.current_stream(st.x.device).cuda_stream)
-    name = ("sticky_chunk" if cfg.sticky else "zigzag_chunk") + (
-        "_horizon" if cfg.horizon else "")
+    name = launch_name(cfg)
     if cfg.sticky:
         err = lib.sticky_chunk_launch(
             *head, p(st.act.data_ptr()), p(cfg.kappa.data_ptr()), *rows,
             p(fill.act[r].data_ptr()), stream)
+    elif suzz:
+        # K4's per-chain scratch: x_t and each coordinate's previous grid
+        # rate and tangent, (3, d, B) chain-minor like x; the launch is
+        # ordered on the stream before any later use of the memory
+        scratch = torch.empty((3, d, B), dtype=st.x.dtype, device=st.x.device)
+        err = lib.suzz_chunk_launch(*head, p(scratch.data_ptr()), *rows, stream)
     else:
         err = lib.zigzag_chunk_launch(*head, *rows, stream)
     build.check(err, name)

@@ -1,11 +1,29 @@
 """Deterministic flows (``pdmpflux_tpu/ops/flows.py``).
 
-The linear flow of the Zig-Zag family, BPS and Forward ECMC, and the
-Boomerang's elliptic flow, written as the JAX package writes them."""
+The linear flow of the Zig-Zag family, BPS and Forward ECMC, the
+Boomerang's elliptic flow and the Speed-Up Zig-Zag's closed-form
+speed-change flow, written as the JAX package writes them."""
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+def div_once(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` rounded once, as the kernels divide: torch's CUDA division
+    by a Python number multiplies by the number's rounded reciprocal."""
+    return a / torch.full_like(a, b)
+
+
+def ordered_sum(a: torch.Tensor, axis: int) -> torch.Tensor:
+    """Sum over ``axis`` (kept with size 1), added in coordinate order as the
+    CUDA kernels add it: torch's own reductions order their adds otherwise."""
+    s = a.narrow(axis, 0, 1)
+    for i in range(1, a.shape[axis]):
+        s = s + a.narrow(axis, i, 1)
+    return s
 
 
 def linear_flow(x, v, t):
@@ -19,3 +37,43 @@ def boomerang_flow(x, v, t):
     t = torch.as_tensor(t, dtype=x.dtype, device=x.device)
     c, s = torch.cos(t), torch.sin(t)
     return x * c + v * s, -x * s + v * c
+
+
+def _suzz_at(x, v, t, dim_axis):
+    """``x_t`` of the speed-change flow and its speed factor ``phi``
+    (``dx_t/dt = phi v``), in ``make_suzz_flow``'s operations; the four
+    per-chain terms ``v0, c / d, a`` and the base ``y0 + sqrt(y0^2 + a)``
+    do not depend on ``t``."""
+    d = x.shape[dim_axis]
+    x0, v0 = x.narrow(dim_axis, 0, 1), v.narrow(dim_axis, 0, 1)
+    y = x - v0 * x0 * v
+    c = v0 * ordered_sum(y * v, dim_axis)
+    a = div_once(1.0 + ordered_sum(y * y, dim_axis), d) - div_once(c * c, d * d)
+    c_d = div_once(c, d)
+    y0 = x0 + c_d
+    # sqrt(float(dim)) is the double rounded to the state's type, as JAX
+    # rounds the Python float
+    b = (y0 + torch.sqrt(y0 * y0 + a)) * torch.exp(
+        torch.full_like(v0, math.sqrt(d)) * v0 * t)
+    x1 = (b * b - a) / (2.0 * b) - c_d
+    # d x1 / dt = sqrt(d) v0 (b^2 + a) / (2 b), and x_t = y + v0 x1 v
+    phi = v0 * (torch.full_like(v0, math.sqrt(d)) * v0 * ((b * b + a) / (2.0 * b)))
+    return y + v0 * x1 * v, phi
+
+
+def suzz_flow(x, v, t, dim_axis: int = -1):
+    """The Speed-Up Zig-Zag's flow under the speed ``s(x) = sqrt(1 + |x|^2)``
+    (``make_suzz_flow``, ``SpeedUpZigZagSamplers.jl:71-79``) for ``v`` in
+    ``{-1, +1}^d``: coordinates along ``dim_axis``, ``t`` broadcasting
+    against ``x`` with that axis of size 1 (``(B,)`` times for ``(d, B)``
+    chains, ``(..., 1)`` for rows).  Every per-chain sum is added in
+    coordinate order.  ``t = 0`` is the identity only up to rounding, as in
+    JAX."""
+    return _suzz_at(x, v, t, dim_axis)[0], v
+
+
+def suzz_flow_tangent(x, v, t, dim_axis: int = -1):
+    """``(x_t, phi)``: :func:`suzz_flow`'s position and its speed factor,
+    ``dx_t/dt = phi v`` with ``phi = v0 sqrt(d) v0 (b_t^2 + a) / (2 b_t)``,
+    in closed form where JAX takes ``jax.jvp`` through the flow."""
+    return _suzz_at(x, v, t, dim_axis)

@@ -2,21 +2,23 @@
 
 Each function below also carries a ``device_potential`` tag naming the
 potential that the fused CUDA kernels implement on the card: the gradient
-and the time derivative of the per-coordinate rate along the linear flow.
-A sampler built from a tagged potential or gradient can run them; any other
-gradient runs only the plain PyTorch version on the CPU.
+and its derivative along the velocity (the Hessian-vector product), from
+which each kernel builds its rates and their time derivatives along its
+flow.  A sampler built from a tagged potential or gradient can run them;
+any other gradient runs only the plain PyTorch version on the CPU.
 
-The kernels evaluate one coordinate ``i`` at time ``t`` along the flow,
-``g_i(x + v t)`` and ``(H(x + v t) v)_i``, from one definition
+The kernels evaluate one coordinate ``i`` at time ``t`` along the linear
+flow, ``g_i(x + v t)`` and ``(H(x + v t) v)_i``, from one definition
 (``csrc/pdmp_common.cuh``) that K1 (``csrc/zigzag_chunk.cu``) calls on the
 chain's column of the ``(d, B)`` state (stride ``B``), K6
 (``csrc/sticky_chunk.cu``) on its shared-memory copy (stride 1) with the
-masked velocity ``v * act``, and K3/K5 (``csrc/scalar_chunk.cu``) on its
-warp's shared-memory copy.  A tag may carry parameters
-(``device_params``, a float64 vector): :func:`anisotropic_gauss` carries
-its scales.  The chain-minor functions at the end of this module are the
-same formulas on whole ``(d, B)`` tensors, for the plain versions; the plain
-K6 passes them the masked velocity.
+masked velocity ``v * act``, K3/K5 (``csrc/scalar_chunk.cu``) on its
+warp's shared-memory copy, and K4 (``csrc/suzz_chunk.cu``) at ``t = 0`` on
+the point ``x_t`` of the Speed-Up Zig-Zag's nonlinear flow.  A tag may carry
+parameters (``device_params``, a float64 vector): :func:`anisotropic_gauss`
+carries its scales.  The chain-minor functions at the end of this module are
+the same formulas on whole ``(d, B)`` tensors, for the plain versions; the
+plain K6 passes them the masked velocity.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""On-card checks of the port's kernels K1, K2, K3/K5 and K6, and of their
-horizon mode K7 (marker ``cuda``).
+"""On-card checks of the port's kernels K1, K2, K3/K5, K4 and K6, and of
+their horizon mode K7 (marker ``cuda``).
 
 They skip where ``torch.cuda.is_available()`` is false (the CPU tier-1
 run); on a Hopper card run them with ``python -m pytest tests/test_torch_cuda.py
@@ -318,3 +318,79 @@ def test_k3_k5_refuse_what_they_cannot_run(dev):
     aniso_zz = pt.ZigZagAD(4, pt.potentials.anisotropic_gauss(np.ones(4)))
     with pytest.raises(ValueError, match="device potentials"):
         pt.sample_skeleton(aniso_zz, 10, np.zeros((2, 4)), np.ones((2, 4)))
+
+
+@pytest.mark.parametrize("pot,signed,horizon", [("gauss", True, False), ("banana", False, False),
+                                                ("gauss", True, True), ("banana", True, True)])
+def test_k4_kernel_matches_plain_f64(dev, pot, signed, horizon):
+    """K4 (the Speed-Up Zig-Zag chunk) against its plain version over two
+    chunks from one f64 state, some chains capped; in horizon mode the
+    float32 target at the median clock an event-count run reaches."""
+    B, d = 300, 6
+    grad = {"gauss": pt.potentials.grad_gauss, "banana": pt.potentials.grad_banana}[pot]
+    sampler = pt.SpeedUpZigZag(d, grad, signed_bound=signed)
+    rs = np.random.default_rng(9)
+    state = sampler.init_state_batch(rs.normal(size=(B, d)), rs.choice([-1.0, 1.0], size=(B, d)),
+                                     3, torch.float64, dev)
+    cfg = driver.chunk_config(sampler, 16, 20, 128)
+    counts = torch.zeros(B, dtype=torch.int32, device=dev)
+    counts[::7] = 17
+    if horizon:
+        probe = driver.chunk_state(state, counts)
+        for it in range(2):
+            k1.run_chunk_plain(11 + it * 1000003, probe,
+                               k1.empty_fill(16, d, B, torch.float64, dev), 0, cfg)
+        cfg = cfg._replace(t_target=k1.f32_target(float(probe.fs[k1.F_T].median())))
+    st_k = driver.chunk_state(state, counts)
+    st_p = k1.ChunkState(*(None if a is None else a.clone() for a in st_k))
+    fills = [k1.empty_fill(32, d, B, torch.float64, dev) for _ in range(2)]
+    name = k1.launch_name(cfg)
+    n0 = build.LAUNCHES[name]
+    for it in range(2):
+        k1.run_chunk(11 + it * 1000003, st_k, fills[0], 16 * it, cfg)
+        k1.run_chunk_plain(11 + it * 1000003, st_p, fills[1], 16 * it, cfg)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == n0 + 2
+    for a, b in zip((*st_k, *fills[0]), (*st_p, *fills[1])):
+        if a is None:
+            continue
+        if a.dtype == torch.int32:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12, equal_nan=True)
+    assert int((fills[0].kind[:, 0] == pt.EV_JUMP).sum()) > B
+    if horizon:
+        froze = float((st_k.fs[k1.F_T] >= cfg.t_target).double().mean())
+        assert 0.2 < froze < 0.9, froze
+
+
+def test_suzz_sample_skeleton_on_card(dev):
+    """The Speed-Up Zig-Zag through ``sample_skeleton`` on the card, in both
+    modes: K4 and K2 launched, moments of N(0, I)."""
+    sampler = pt.SpeedUpZigZagAD(5, pt.potentials.gauss)
+    build.reset_launches()
+    skel = pt.sample_skeleton(sampler, 600, np.zeros((512, 5)), np.ones((512, 5)),
+                              seed=0, dtype=torch.float32)
+    assert (skel.n_valid == 600).all()
+    assert build.LAUNCHES["suzz_chunk"] >= 1 and build.LAUNCHES["compact_rows"] >= 1
+    assert build.LAUNCHES["zigzag_chunk"] == 0
+    mean, var = pt.pooled_moments(skel, sampler, 200)
+    assert (mean.abs() < 0.2).all() and ((var - 1).abs() < 0.3).all()
+    T = 40.0
+    skel = pt.sample_skeleton(sampler, T, np.zeros((512, 5)), np.ones((512, 5)), seed=1,
+                              dtype=torch.float32, init_capacity=512)
+    assert build.LAUNCHES["suzz_chunk_horizon"] >= 1
+    nv = skel.n_valid.long()
+    rows = torch.arange(512, device=dev)
+    assert bool((skel.t[rows, nv - 1] == T).all())
+    assert bool((skel.kind[rows, nv - 1] == pt.EV_TERMINAL).all())
+
+
+def test_k4_refuses_what_it_cannot_run(dev):
+    """On CUDA tensors K4 launches or raises: for a tag it lacks (``aniso``)
+    and for an untagged gradient."""
+    aniso = pt.SpeedUpZigZagAD(4, pt.potentials.anisotropic_gauss(np.ones(4)))
+    untagged = pt.SpeedUpZigZag(4, lambda x: x)
+    for sampler in (aniso, untagged):
+        with pytest.raises(ValueError, match="device potentials"):
+            pt.sample_skeleton(sampler, 10, np.zeros((2, 4)), np.ones((2, 4)))
