@@ -51,8 +51,10 @@ Phases, one line each; any failure raises and exits non-zero:
    against its plain version in float64, two K=32 chunks from one random
    state with some chains capped: BPS gauss d=10 (signed), BPS aniso d=10
    (unsigned, gaussian_velocity), Boomerang banana d=10, ECMC gauss d=10 in
-   three jump variants (all B=1024) and BPS gauss d=100 (B=256); integers
-   equal, floats to rtol 1e-9 (atol 1e-12);
+   three jump variants (all B=1024), BPS gauss d=100 (B=256), and BPS aniso,
+   Boomerang banana and ECMC gauss at grid_size 2, 33 and 64 (B=512, the
+   envelope's edges across the warp's lanes); integers equal, floats bit
+   for bit;
 10. the ``bps_anisotropic_gauss_d10`` deployment: BPSAD(10,
    anisotropic_gauss(linspace(0.5, 3, 10)), refresh_rate=0.5), 512 chains x
    8192 points, float32, x0 = 0, v0 = 1; one warm call, then five timed warm
@@ -100,7 +102,9 @@ Phases, one line each; any failure raises and exits non-zero:
 16. K4 (the Speed-Up Zig-Zag chunk kernel) against its plain version in
    float64, two K=32 chunks from one random state with some chains capped, at
    gauss and banana d=10/B=1024, in events and in horizon mode (target at the
-   median clock): integers equal, floats to rtol 1e-9 (atol 1e-12);
+   median clock), at grid_size 2, 33 and 64 (B=512), and at d=3700 (B=8,
+   K=4), where K4 reads x and v in place: integers equal, floats bit for
+   bit;
 17. the ``suzz_gauss_d10`` deployment: SpeedUpZigZagAD(10, gauss), 512 chains
    x 2048 points, float32, x0 = 0, v0 = 1; one warm call, then five timed
    warm calls (median and spread), the first counted and checked: complete,
@@ -336,13 +340,14 @@ def target_share(st, cfg):
     return share
 
 
-def k1_runs(d, B, K, n_chunks, pot, horizon=False, suzz=False, dtype=torch.float64):
+def k1_runs(d, B, K, n_chunks, pot, horizon=False, suzz=False, dtype=torch.float64, **kw):
     """K1, or K4 for the Speed-Up Zig-Zag (``suzz``), and its plain version,
     ``n_chunks`` chunks each from one random state with every fifth chain
-    capped inside the run, in horizon mode (K7) when asked.  Returns the
-    kernel's state and fill, then the plain version's, and the config."""
+    capped inside the run, in horizon mode (K7) when asked; ``kw`` goes to
+    the sampler.  Returns the kernel's state and fill, then the plain
+    version's, and the config."""
     grad = {"gauss": pt.potentials.grad_gauss, "banana": pt.potentials.grad_banana}[pot]
-    sampler = (pt.SpeedUpZigZag if suzz else pt.ZigZag)(d, grad)
+    sampler = (pt.SpeedUpZigZag if suzz else pt.ZigZag)(d, grad, **kw)
     state = random_state(sampler, B, dtype, d + B)
     counts = torch.zeros(B, dtype=torch.int32, device=DEV)
     counts[::5] = 40  # some chains freeze inside the run
@@ -362,12 +367,13 @@ def k1_runs(d, B, K, n_chunks, pot, horizon=False, suzz=False, dtype=torch.float
     return st_k, fill_k, st_p, fill_p, cfg
 
 
-def k1_compare(d, B, K, n_chunks, pot, horizon=False, suzz=False):
-    """:func:`k1_runs` in f64, held to rtol ``RTOL`` (atol ``ATOL``) with
-    integers equal; returns (max abs err, events, share frozen by the
-    target)."""
-    what = f"{'K4' if suzz else 'K1'} {pot} d={d}"
-    st_k, fill_k, st_p, fill_p, cfg = k1_runs(d, B, K, n_chunks, pot, horizon, suzz)
+def k1_compare(d, B, K, n_chunks, pot, horizon=False, suzz=False, **kw):
+    """:func:`k1_runs` in f64 with integers equal, floats held to rtol
+    ``RTOL`` (atol ``ATOL``) for K1, built with FMA contraction, and bit for
+    bit for K4; returns (max abs err, events, share frozen by the target)."""
+    what = f"{'K4' if suzz else 'K1'} {pot} d={d} {kw or ''}"
+    st_k, fill_k, st_p, fill_p, cfg = k1_runs(d, B, K, n_chunks, pot, horizon, suzz, **kw)
+    rtol, atol = (0.0, 0.0) if suzz else (RTOL, ATOL)
     err = 0.0
     for (name, a), (_, b) in zip(chunk_outputs(st_k, fill_k), chunk_outputs(st_p, fill_p)):
         if a.dtype == torch.int32:
@@ -375,7 +381,7 @@ def k1_compare(d, B, K, n_chunks, pot, horizon=False, suzz=False):
                 raise AssertionError(f"{what}: integer output {name} differs "
                                      f"at {int((a != b).sum())} places")
         else:
-            err = max(err, float_err(what, name, a, b, RTOL, ATOL))
+            err = max(err, float_err(what, name, a, b, rtol, atol))
     n_ev = int((fill_k.kind[:, 0] > 0).sum())
     if n_ev < B:
         raise AssertionError(f"{what}: only {n_ev} events in the check")
@@ -1006,12 +1012,11 @@ def k3_runs(kind, pot, d, B, kw, K=32, n_chunks=2, horizon=False):
 
 
 def k3_compare(kind, pot, d, B, kw, horizon=False):
-    """K3/K5 against their plain version (:func:`k3_runs`): integers equal,
-    floats to ``RTOL``/``ATOL``, and bit for bit in horizon mode.  Returns
-    (max abs err, events, share frozen by the target)."""
+    """K3/K5 against their plain version (:func:`k3_runs`), bit for bit:
+    integers equal, floats to rtol 0, atol 0.  Returns (max abs err, events,
+    share frozen by the target)."""
     st_k, fill_k, st_p, fill_p, cfg = k3_runs(kind, pot, d, B, kw, horizon=horizon)
     what = f"{k3.launch_name(kind)} {kind} {pot} d={d} {kw}"
-    rtol, atol = (0.0, 0.0) if horizon else (RTOL, ATOL)
     err = 0.0
     for (name, a), (_, b) in zip(chunk_outputs(st_k, fill_k), chunk_outputs(st_p, fill_p)):
         if not a.is_floating_point():
@@ -1019,7 +1024,7 @@ def k3_compare(kind, pot, d, B, kw, horizon=False):
                 raise AssertionError(f"{what}: output {name} differs at "
                                      f"{int((a != b).sum())} places")
         else:
-            err = max(err, float_err(what, name, a, b, rtol, atol))
+            err = max(err, float_err(what, name, a, b, 0.0, 0.0))
     n_ev = int((fill_k.kind[:, 0] == pt.EV_JUMP).sum())
     if n_ev < B or not bool((st_k.iscal[k1.I_CNT] == 64).any()):
         raise AssertionError(f"{what}: {n_ev} events, or no capped chain")
@@ -1035,6 +1040,13 @@ K3_CASES = [
     ("ecmc", "gauss", 10, 1024, dict(switch=False, ran_p=False, positive=True, normal=True)),
     ("bps", "gauss", 100, 256, {}),
 ]
+# the envelope's edges: one grid point per lane (2), and lanes owning two
+# grid points with lane 31 handing its pair across (33, 64)
+K3_CASES += [(kind, pot, 10, 512, dict(kw, grid_size=grid))
+             for grid in (2, 33, 64)
+             for kind, pot, kw in (("bps", "aniso", dict(signed_bound=False)),
+                                   ("boomerang", "banana", {}),
+                                   ("ecmc", "gauss", dict(switch=True, ran_p=True)))]
 
 
 def phase_k3():
@@ -1046,7 +1058,7 @@ def phase_k3():
         parts.append(f"{kind} {pot} d={d} B={B} {kw or ''} max_abs_err={err:.3e} "
                      f"({n_ev} events)")
     print(f"phase 9 K3/K5 vs plain (f64, 2 x K=32): {'; '.join(parts)}; ints equal, "
-          f"rtol {RTOL} atol {ATOL}", flush=True)
+          "floats bit for bit", flush=True)
     return errs
 
 
@@ -1484,22 +1496,38 @@ def phase_horizon_checks(card_name):
     return out
 
 
+# the envelope's edges (one grid point per lane; lanes owning two, lane 31
+# handing its pair across); at two grid points the default horizon leaves the
+# envelope so loose that 64 transitions see no event, hence a shorter tmax
+K4_GRID_CASES = [("gauss", dict(grid_size=2, tmax=0.1)), ("banana", dict(grid_size=33)),
+                 ("gauss", dict(grid_size=64, signed_bound=False))]
+# 4 chains' f64 x and v exceed a block's 227 KB of shared memory; at this d the
+# default horizon rejects every proposal of a short run, hence tmax = 0.01
+K4_IN_PLACE_D = 3700
+
+
 def phase_k4():
     """K4, the Speed-Up Zig-Zag chunk kernel, against its plain version from
-    one f64 state (:func:`k1_compare`), in events and in horizon mode (K7);
-    returns the max abs err of each mode."""
+    one f64 state (:func:`k1_compare`, bit for bit), in events and in horizon
+    mode (K7), and at the grid sizes of ``K4_GRID_CASES``; returns the max
+    abs err of each mode."""
     errs, parts = {}, []
-    for horizon in (False, True):
+    cases = [(h, pot, {}, 1024) for h in (False, True) for pot in ("gauss", "banana")]
+    cases += [(False, pot, kw, 512) for pot, kw in K4_GRID_CASES]
+    for horizon, pot, kw, B in cases:
         name = "suzz_chunk" + ("_horizon" if horizon else "")
-        errs[name] = 0.0
-        for pot in ("gauss", "banana"):
-            e, n, share = k1_compare(10, 1024, 32, 2, pot, horizon=horizon, suzz=True)
-            errs[name] = max(errs[name], e)
-            at = f", {share:.3f} of the lanes at the target" if horizon else ""
-            parts.append(f"{'horizon' if horizon else 'events'} {pot} d=10 B=1024 "
-                         f"max_abs_err={e:.3e} ({n} events{at})")
-    print(f"phase 16 K4 vs plain (f64, 2 x K=32): {'; '.join(parts)}; ints equal, rtol "
-          f"{RTOL} atol {ATOL}", flush=True)
+        e, n, share = k1_compare(10, B, 32, 2, pot, horizon=horizon, suzz=True, **kw)
+        errs[name] = max(errs.get(name, 0.0), e)
+        at = f", {share:.3f} of the lanes at the target" if horizon else ""
+        parts.append(f"{'horizon' if horizon else 'events'} {pot} d=10 B={B} {kw or ''} "
+                     f"max_abs_err={e:.3e} ({n} events{at})")
+    # past the shared memory of a block K4 reads x and v in place
+    e, n, _ = k1_compare(K4_IN_PLACE_D, 8, 4, 1, "gauss", suzz=True, tmax=0.01)
+    errs["suzz_chunk"] = max(errs["suzz_chunk"], e)
+    parts.append(f"events gauss d={K4_IN_PLACE_D} B=8 K=4 tmax=0.01 (x and v in place) "
+                 f"max_abs_err={e:.3e} ({n} events)")
+    print(f"phase 16 K4 vs plain (f64, 2 x K=32): {'; '.join(parts)}; ints equal, floats "
+          "bit for bit", flush=True)
     return errs
 
 

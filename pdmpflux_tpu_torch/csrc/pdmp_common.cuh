@@ -1,8 +1,9 @@
 // Device helpers shared by the fused chunk kernels (zigzag_chunk.cu, K1,
-// sticky_chunk.cu, K6, and scalar_chunk.cu, K3/K5): the Threefry-2x32 counter
-// RNG of the Pallas kernel (pdmpflux_tpu/ops/pallas/zigzag_chunk.py:
-// _threefry2x32, _mant24, _uniform, _exponential, _box_muller), a
-// NaN-propagating max, and the device potentials.
+// sticky_chunk.cu, K6, suzz_chunk.cu, K4, and scalar_chunk.cu, K3/K5): the
+// Threefry-2x32 counter RNG of the Pallas kernel (pdmpflux_tpu/ops/pallas/
+// zigzag_chunk.py: _threefry2x32, _mant24, _uniform, _exponential,
+// _box_muller), a NaN-propagating max, the device potentials, and the
+// warp-wide envelope of K3/K5 and K4 (one grid point per lane).
 
 #pragma once
 
@@ -110,19 +111,43 @@ __device__ __forceinline__ T vel(const T* v, const uint8_t* act, long stride, in
 }
 
 // Device potentials (utils/potentials.py tags): gradient component i at
-// x + va t and its derivative along va, the layout as in vel().
+// x + va t and its derivative along va.  at() takes values: coordinate i's
+// own (xi, vi) and coordinates 0 and 1 (Banana reads them), and the
+// potential's parameters (Aniso's scales); eval() reads them from memory in
+// the layout of vel().  Both evaluate the same expressions, so they round
+// alike.
 template <typename T>
 struct Gauss {
+  __device__ __forceinline__ static void at(int, T xi, T vi, T, T, T, T, T t, const T*,
+                                            T& g, T& dg) {
+    g = xi + vi * t;
+    dg = vi;
+  }
   __device__ __forceinline__ static void eval(const T* x, const T* v, const uint8_t* act,
                                               long stride, int i, T t, T& g, T& dg) {
     const T vi = vel(v, act, stride, i);
-    g = x[i * stride] + vi * t;
-    dg = vi;
+    at(i, x[i * stride], vi, vi, vi, vi, vi, t, nullptr, g, dg);
   }
 };
 
 template <typename T>
 struct Banana {  // U = (x0^2 + (x1 - x0^2 + 1)^2 + sum_{k>=2} x_k^2) / 2
+  __device__ __forceinline__ static void at(int i, T xi, T vi, T x0, T v0, T x1, T v1, T t,
+                                            const T*, T& g, T& dg) {
+    if (i >= 2) {
+      Gauss<T>::at(i, xi, vi, x0, v0, x1, v1, t, nullptr, g, dg);
+      return;
+    }
+    const T y0 = x0 + v0 * t, y1 = x1 + v1 * t;
+    const T r1 = y1 - (y0 * y0 - (T)1);
+    if (i == 0) {
+      g = y0 - (T)2 * y0 * r1;
+      dg = ((T)1 - (T)2 * r1 + (T)4 * y0 * y0) * v0 - (T)2 * y0 * v1;
+    } else {
+      g = r1;
+      dg = v1 - (T)2 * y0 * v0;
+    }
+  }
   __device__ __forceinline__ static void eval(const T* x, const T* v, const uint8_t* act,
                                               long stride, int i, T t, T& g, T& dg) {
     if (i >= 2) {
@@ -130,15 +155,7 @@ struct Banana {  // U = (x0^2 + (x1 - x0^2 + 1)^2 + sum_{k>=2} x_k^2) / 2
       return;
     }
     const T v0 = vel(v, act, stride, 0), v1 = vel(v, act, stride, 1);
-    const T x0 = x[0] + v0 * t, x1 = x[stride] + v1 * t;
-    const T r1 = x1 - (x0 * x0 - (T)1);
-    if (i == 0) {
-      g = x0 - (T)2 * x0 * r1;
-      dg = ((T)1 - (T)2 * r1 + (T)4 * x0 * x0) * v0 - (T)2 * x0 * v1;
-    } else {
-      g = r1;
-      dg = v1 - (T)2 * x0 * v0;
-    }
+    at(i, x[0], v0, x[0], v0, x[stride], v1, t, nullptr, g, dg);
   }
 };
 
@@ -147,14 +164,72 @@ struct Banana {  // U = (x0^2 + (x1 - x0^2 + 1)^2 + sum_{k>=2} x_k^2) / 2
 // (v / s) / s.
 template <typename T>
 struct Aniso {
-  __device__ __forceinline__ static void eval(const T* x, const T* v, const uint8_t* act,
-                                              long stride, int i, T t, const T* s, T& g,
-                                              T& dg) {
-    const T vi = vel(v, act, stride, i);
+  __device__ __forceinline__ static void at(int i, T xi, T vi, T, T, T, T, T t, const T* s,
+                                            T& g, T& dg) {
     const T si = s[i];
-    g = (x[i * stride] + vi * t) / si / si;
+    g = (xi + vi * t) / si / si;
     dg = vi / si / si;
   }
 };
+
+// ---- the warp-wide envelope of K3/K5 and K4 ----
+//
+// One warp owns a chain; lane l evaluates the grid points l and l + 32 (for
+// those below n_grid, n_grid <= MAXG = 64).  A value of grid point j lies in
+// lane j % 32, in the lane's first slot for j < 32 and its second above.
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// The value of grid point j (the same j in every lane) from the slots a and b.
+template <typename T>
+__device__ __forceinline__ T at_point(T a, T b, int j) {
+  return __shfl_sync(FULL_MASK, j < 32 ? a : b, j & 31);
+}
+
+// The tangent-intersection maximum of a rate over one grid segment of length
+// step, from its values and time derivatives at both ends (the Pallas
+// kernel's segment maxima).
+template <typename T>
+__device__ __forceinline__ T segment_max(T f_prev, T g_prev, T f, T gd, T step) {
+  const T zero = (T)0;
+  const T den = gd - g_prev;
+  const T num = f_prev - f + gd * step;
+  T ip = den == zero ? zero : num / den;
+  if (isnan(ip)) ip = zero;
+  ip = ip > zero ? ip : zero;
+  ip = ip < step ? ip : step;
+  const T inter = f_prev + g_prev * ip;
+  return nmax(nmax(f_prev, f), nmax(inter, zero));
+}
+
+// The clock inversion of the envelope whose box heights are spread over the
+// warp: box[j - 1] (segment j - 1, ending at grid point j) lies at grid point
+// j in the slots (ba, bb).  Every lane adds cum[j] = cum[j - 1] + box[j - 1] *
+// step in grid order, the plain version's order, and counts idx = #{j :
+// cum[j] < exp}; each lane keeps cum at its own grid points, and the lanes
+// owning idx - 1 and idx hand their values to all.  So tp, lam_bar and the
+// overflow come out the same in every lane and every decision after them
+// stays warp-uniform.  Every lane must call it.
+template <typename T>
+__device__ __forceinline__ void invert_envelope(T ba, T bb, T step, T exp_s, int n_grid,
+                                                int lane, T& tp, T& lam_bar, bool& overflow) {
+  T c = (T)0, ca = (T)0, cb = (T)0;
+  int idx = c < exp_s;
+  for (int j = 1; j < n_grid; ++j) {
+    c = c + at_point(ba, bb, j) * step;
+    idx += c < exp_s;
+    if (j == lane) ca = c;
+    if (j == lane + 32) cb = c;
+  }
+  overflow = idx >= n_grid;
+  tp = (T)INFINITY;
+  lam_bar = at_point(ba, bb, n_grid - 1);
+  if (idx >= 1 && idx < n_grid) {  // idx is the same in every lane
+    const T lo = at_point(ca, cb, idx - 1), hi = at_point(ca, cb, idx);
+    const T denom = hi == lo ? (T)1 : hi - lo;
+    tp = step * (T)(idx - 1) + (exp_s - lo) / denom * step;
+    lam_bar = at_point(ba, bb, idx);
+  }
+}
 
 }  // namespace pdmp

@@ -1,4 +1,5 @@
-// K3 and K5: K fused scalar-rate transitions per chain, one warp per chain.
+// K3 and K5: K fused scalar-rate transitions per chain, one warp per chain,
+// the envelope's grid points across its lanes.
 //
 // Replaces pdmpflux_tpu/ops/pallas/zigzag_chunk.py:run_chunk (line 854, body
 // _make_kernel) with kind="bps" or "boomerang" (K3: :349-358, :391-395,
@@ -23,31 +24,42 @@
 // jump (rows 2-5: radial pair, mix, angle; Box-Muller blocks from row 6).
 //
 // Design.  The repo's deployments of these samplers run a few hundred chains
-// (B = 512 at d = 10): K1's thread per chain would occupy 4 of 132 SMs and walk
-// d serially in every dot product.  Here one warp owns one chain for all K
-// transitions, four chains to a block (B = 512 gives 128 blocks).  Lanes take
-// the coordinates i = lane, lane + 32, ...; the chain's vectors (x, v, the
-// flowed y and w, three reduction rows, ECMC's frame vectors) sit in the warp's
-// slice of shared memory.  Every per-chain scalar is replicated in all 32 lanes.
-// A dot product writes its terms to a reduction row, and after __syncwarp every
-// lane sums the row in coordinate order 0, 1, ..., d - 1: every lane gets the
-// same bits, so every decision (thinning, bounce, degenerate frame, sign) is
-// taken alike without a broadcast.  The plain version adds in the same order,
-// and this file is compiled with -fmad=false (ops/cuda/build.py), so products
-// round before they are added as torch's elementwise ops round them: on the
-// card the kernel and the plain version differ only where a math function
-// does (none of log, cos, sin, sqrt or pow does, as both call CUDA's), which
-// keeps BPS reflections, which amplify any difference along a trajectory,
-// from drifting apart.  Scalar uniforms are drawn by every lane;
-// per-coordinate ones by the lane owning the coordinate.
+// (B = 512 at d = 10): K1's thread per chain would occupy 4 of 132 SMs.  Here
+// one warp owns one chain for all K transitions, four chains to a block
+// (B = 512 gives 128 blocks); the chain's vectors (x, v, the jump's g and
+// normals, three reduction rows, ECMC's frame vectors) sit in the warp's slice
+// of shared memory, and every per-chain scalar is replicated in all 32 lanes.
+// The envelope's grid points are independent until the cumulative sum, so
+// they go across the lanes: lane l evaluates the rate and its derivative at
+// grid points l and l + 32 (pdmp_common.cuh: invert_envelope), adding the
+// coordinates 0, 1, ..., d - 1 in order in registers; takes the previous
+// point's pair from its neighbour by __shfl_up_sync for its segment maximum;
+// then every lane gathers the boxes by __shfl_sync and adds the cumulative sum
+// in grid order, so tp and the envelope's height come out the same in every
+// lane and every decision (thinning, bounce, degenerate frame, sign) is taken
+// alike without a broadcast.  Thinning at tp and the jumps spread the
+// coordinates over the lanes (i = lane, lane + 32, ...): a dot product writes
+// its terms to a reduction row and after __syncwarp every lane sums the row
+// in coordinate order (for thinning this measured 5% faster on the BPS
+// deployment than every lane's own pass, which gives the same bits).  The
+// plain version adds in the same orders, and this file is compiled with
+// -fmad=false (ops/cuda/build.py), so products round before they are added as
+// torch's elementwise ops round them: on the card the kernel and the plain
+// version differ only where a math function does (none of log, cos, sin, sqrt
+// or pow does, as both call CUDA's), which keeps BPS reflections, which
+// amplify any difference along a trajectory, from drifting apart.  Scalar
+// uniforms are drawn by every lane; per-coordinate ones by the lane owning the
+// coordinate.
 //
-// What bounds it on an H100: latency.  Per transition a chain evaluates the
-// gradient at n_grid + 1 times (n_grid + 2 with a jump), each followed by an
-// O(d) ordered sum in every lane; at d = 10 the ~400 dependent shared loads and
-// adds, the IEEE divides of the envelope and three Threefry blocks dominate,
-// against (2 d + 12) * sizeof(T) bytes of event row.  Later work: a shuffle
-// tree where coordinate order need not hold, several chains per warp at small
-// d, and staged row stores (a lane's row store goes to stride B).
+// What bounds it on an H100: latency.  Per transition the critical path is
+// one lane's ordered O(d) pass over its grid point (the gradient, two products
+// and two dependent adds per coordinate), n_grid - 1 dependent shuffles and
+// adds of the cumulative sum, thinning's and the jump's ordered sums through
+// shared memory and three Threefry blocks, against (2 d + 12) *
+// sizeof(T) bytes of event row; the bound (chip_smoke.py) counts the
+// operations.  At n_grid = 10, 22 of the 32 lanes idle in the envelope.
+// Later work: several chains per warp at small d, K5's jump (about twelve
+// ordered sums), staged row stores (a lane's row store goes to stride B).
 //
 // Shared memory: 4 * NVEC * d * sizeof(T) bytes per block must fit the 227 KB
 // a block can have, so d <= scalar_chunk_max_dim(f64): 1210 in f32, 605 in f64.
@@ -69,23 +81,14 @@ struct Jump {
   double mix_p, sf;
 };
 
-// Gradient component i at x + v t and its derivative along v; the "aniso"
-// potential also reads its scales.
+// Gradient component i at x + v t and its derivative along v, x and v the
+// chain's d shared values; the "aniso" potential reads its scales from prm.
 template <typename T, class Pot>
-struct Grad {
-  __device__ __forceinline__ static void at(const T* x, const T* v, int i, T t, const T*,
-                                            T& g, T& dg) {
-    Pot::eval(x, v, nullptr, 1, i, t, g, dg);
-  }
-};
-
-template <typename T>
-struct Grad<T, Aniso<T>> {
-  __device__ __forceinline__ static void at(const T* x, const T* v, int i, T t,
-                                            const T* prm, T& g, T& dg) {
-    Aniso<T>::eval(x, v, nullptr, 1, i, t, prm, g, dg);
-  }
-};
+__device__ __forceinline__ void grad_at(const T* x, const T* v, int d, int i, T t,
+                                        const T* prm, T& g, T& dg) {
+  const int i1 = d > 1 ? 1 : 0;
+  Pot::at(i, x[i], v[i], x[0], v[0], x[i1], v[i1], t, prm, g, dg);
+}
 
 // Sum of r[0..d) in coordinate order, r[0] + r[1] + ..., the same bits in
 // every lane and in the plain version.  The leading __syncwarp publishes the
@@ -117,12 +120,11 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
   const long B = p.B, b = (long)blockIdx.x * WARPS + warp;
   if (b >= B) return;  // a whole warp leaves: no block-wide barrier follows
   const bool elliptic = jp.kind == KIND_BOOMERANG;
-  using G_ = Grad<T, Pot>;
 
   T* X = (T*)smem + (long)warp * NVEC * d;
   T* V = X + d;
-  T* Y = V + d;    // flowed position, then K3's g
-  T* W = Y + d;    // flowed velocity, then K3's refresh normals
+  T* Y = V + d;    // thinning's flowed position, then K3's g
+  T* W = Y + d;    // thinning's flowed velocity, then K3's refresh normals
   T* R0 = W + d;   // reduction rows
   T* R1 = R0 + d;
   T* R2 = R1 + d;
@@ -150,89 +152,111 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
   const uint32_t seed = (uint32_t)p.seed + (uint32_t)(b / p.tile) * 7919u;
   const uint32_t ln = (uint32_t)(b % p.tile);
   const uint32_t tile = (uint32_t)p.tile;
-  const T inf = (T)INFINITY, zero = (T)0, refresh = (T)p.refresh;
+  const T zero = (T)0, refresh = (T)p.refresh;
 
-  // <g(x_t), v_t> (and, with df, its time derivative) at time t.
-  auto rate = [&](T t, T* df) -> T {
+  // <g(x_t), v_t> at time t and its time derivative df, taken by this lane
+  // alone from the shared x and v: per coordinate the gradient at the flowed
+  // state (grad U(y) - y at y = x cos t + v sin t on the elliptic flow, whose
+  // dv_t/dt = -x_t), the products, and the adds in coordinate order, as
+  // row_sum and the plain version add.
+  auto lane_rate = [&](T t, T& df) -> T {
+    T f = zero;
+    df = zero;
     if (elliptic) {
       const T c = cos(t), s = sin(t);
-      for (int i = lane; i < d; i += 32) {
-        Y[i] = X[i] * c + V[i] * s;
-        W[i] = -X[i] * s + V[i] * c;
-      }
-      __syncwarp();
-      for (int i = lane; i < d; i += 32) {
+      const int i1 = d > 1 ? 1 : 0;
+      const T y0 = X[0] * c + V[0] * s, w0 = -X[0] * s + V[0] * c;
+      const T y1 = X[i1] * c + V[i1] * s, w1 = -X[i1] * s + V[i1] * c;
+      for (int i = 0; i < d; ++i) {
+        const T yi = X[i] * c + V[i] * s, wi = -X[i] * s + V[i] * c;
         T g, dg;
-        G_::at(Y, W, i, zero, prm, g, dg);
-        g = g - Y[i];   // grad U_eff = grad U(x) - x
-        dg = dg - W[i];
-        R0[i] = g * W[i];
-        R1[i] = dg * W[i] + g * -Y[i];
+        Pot::at(i, yi, wi, y0, w0, y1, w1, zero, prm, g, dg);
+        g = g - yi;   // grad U_eff = grad U(x) - x
+        dg = dg - wi;
+        const T r0 = g * wi, r1 = dg * wi + g * -yi;
+        f = i == 0 ? r0 : f + r0;
+        df = i == 0 ? r1 : df + r1;
       }
     } else {
-      for (int i = lane; i < d; i += 32) {
+      for (int i = 0; i < d; ++i) {
         T g, dg;
-        G_::at(X, V, i, t, prm, g, dg);
-        R0[i] = g * V[i];
-        R1[i] = dg * V[i];
+        grad_at<T, Pot>(X, V, d, i, t, prm, g, dg);
+        const T r0 = g * V[i], r1 = dg * V[i];
+        f = i == 0 ? r0 : f + r0;
+        df = i == 0 ? r1 : df + r1;
       }
     }
-    const T f = row_sum(R0, d);
-    if (df != nullptr) *df = row_sum(R1, d);
     return f;
+  };
+
+  // The rate pair at grid point j of step (zeros past the grid); unsigned:
+  // max(f, 0) + refresh, JAX's JVP of max taking half the tangent at f == 0.
+  auto grid_pair = [&](int j, T step, T& f, T& gd) {
+    f = gd = zero;
+    if (j >= n_grid) return;
+    f = lane_rate(step * (T)j, gd);
+    if (!p.signed_bound) {
+      const T coef = f > zero ? (T)1 : (f == zero ? (T)0.5 : zero);
+      gd = gd * coef;
+      f = nmax(f, zero) + refresh;
+    }
   };
 
   for (int k = 0; k < p.K; ++k) {
     const bool live = lane_live(p, cnt, t_s);  // t_s is the same in every lane
     int kval = 0;
     if (live) {
-      // ---- envelope of the scalar rate on [0, bh] ----
+      // ---- envelope of the scalar rate on [0, bh], grid points across lanes ----
       const T step = bh_s / (T)G;
-      T box[MAXG];
-      T f_prev = zero, g_prev = zero;
-      for (int j = 0; j < n_grid; ++j) {
-        T gd;
-        T f = rate(step * (T)j, &gd);
-        if (!p.signed_bound) {
-          // max(f, 0) + refresh; JAX's JVP of max takes half the tangent at f == 0
-          const T coef = f > zero ? (T)1 : (f == zero ? (T)0.5 : zero);
-          gd = gd * coef;
-          f = nmax(f, zero) + refresh;
+      const bool two = n_grid > 32;  // the same in every lane
+      T fa, ga, fb = zero, gb = zero;
+      grid_pair(lane, step, fa, ga);
+      T fpa = __shfl_up_sync(FULL_MASK, fa, 1), gpa = __shfl_up_sync(FULL_MASK, ga, 1);
+      // box[j - 1] of this lane's grid point j, read where 1 <= j < n_grid
+      T ba = segment_max(fpa, gpa, fa, ga, step), bb = zero;
+      if (two) {
+        grid_pair(lane + 32, step, fb, gb);
+        T fpb = __shfl_up_sync(FULL_MASK, fb, 1), gpb = __shfl_up_sync(FULL_MASK, gb, 1);
+        const T f31 = __shfl_sync(FULL_MASK, fa, 31), g31 = __shfl_sync(FULL_MASK, ga, 31);
+        if (lane == 0) {  // point 32's predecessor is lane 31's first point
+          fpb = f31;
+          gpb = g31;
         }
-        if (j > 0) {
-          const T den = gd - g_prev;
-          const T num = f_prev - f + gd * step;
-          T ip = den == zero ? zero : num / den;
-          if (isnan(ip)) ip = zero;
-          ip = ip > zero ? ip : zero;
-          ip = ip < step ? ip : step;
-          const T inter = f_prev + g_prev * ip;
-          const T seg = nmax(nmax(f_prev, f), nmax(inter, zero));
-          box[j - 1] = p.signed_bound ? seg + refresh : seg;
-        }
-        f_prev = f;
-        g_prev = gd;
+        bb = segment_max(fpb, gpb, fb, gb, step);
       }
-      T cum[MAXG];
-      cum[0] = zero;
-      for (int j = 0; j < G; ++j) cum[j + 1] = cum[j] + box[j] * step;
+      if (p.signed_bound) {
+        ba = ba + refresh;
+        bb = bb + refresh;
+      }
 
       // ---- invert the envelope at the Exp clock ----
-      int idx = 0;
-      for (int j = 0; j < n_grid; ++j) idx += cum[j] < exp_s;
-      const bool overflow = idx >= n_grid;
-      T tp = inf, lam_bar = box[G - 1];
-      if (idx >= 1 && idx < n_grid) {
-        const T lo = cum[idx - 1], hi = cum[idx];
-        const T denom = hi == lo ? (T)1 : hi - lo;
-        tp = step * (T)(idx - 1) + (exp_s - lo) / denom * step;
-        lam_bar = box[idx - 1];
-      }
+      T tp, lam_bar;
+      bool overflow;
+      invert_envelope(ba, bb, step, exp_s, n_grid, lane, tp, lam_bar, overflow);
       const bool fresh = mode == MODE_FRESH, erroneous = mode == MODE_ERRONEOUS;
       const T tp_safe = overflow ? zero : tp;
 
-      // ---- thinning at tp on max(0, <g, v>) + refresh ----
-      const T lam_t = nmax(zero, rate(tp_safe, nullptr)) + refresh;
+      // ---- thinning at tp on max(0, <g, v>) + refresh, coordinates across lanes ----
+      if (elliptic) {
+        const T c = cos(tp_safe), s = sin(tp_safe);
+        for (int i = lane; i < d; i += 32) {
+          Y[i] = X[i] * c + V[i] * s;
+          W[i] = -X[i] * s + V[i] * c;
+        }
+        __syncwarp();
+        for (int i = lane; i < d; i += 32) {
+          T g, dg;
+          grad_at<T, Pot>(Y, W, d, i, zero, prm, g, dg);
+          R0[i] = (g - Y[i]) * W[i];
+        }
+      } else {
+        for (int i = lane; i < d; i += 32) {
+          T g, dg;
+          grad_at<T, Pot>(X, V, d, i, tp_safe, prm, g, dg);
+          R0[i] = g * V[i];
+        }
+      }
+      const T lam_t = nmax(zero, row_sum(R0, d)) + refresh;
       const T ar_new = lam_t / lam_bar;
 
       const bool beyond = tp > h_s;
@@ -248,6 +272,7 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
 
       // ---- flow (v too on the elliptic flow); flow_t == 0 keeps x, v ----
       const T flow_t = p_moveh ? h_s : (p_acc ? tp_safe : zero);
+      __syncwarp();  // every lane has read x and v before the lanes rewrite them
       if (elliptic) {
         const T c = cos(flow_t), s = sin(flow_t);
         for (int i = lane; i < d; i += 32) {
@@ -265,7 +290,7 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
         // K3: bounce or refresh
         for (int i = lane; i < d; i += 32) {
           T g, dg;
-          G_::at(X, V, i, zero, prm, g, dg);
+          grad_at<T, Pot>(X, V, d, i, zero, prm, g, dg);
           if (elliptic) g = g - X[i];
           const T z = box_muller(uniform<T>(seed, salt, (3u + i) * tile + ln),
                                  uniform<T>(seed, salt, (3u + d + i) * tile + ln));
@@ -297,7 +322,7 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
         };
         for (int i = lane; i < d; i += 32) {
           T g, dg;
-          G_::at(X, V, i, zero, prm, g, dg);
+          grad_at<T, Pot>(X, V, d, i, zero, prm, g, dg);
           N[i] = g;
           R0[i] = g * g;
         }

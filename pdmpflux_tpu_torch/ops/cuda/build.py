@@ -75,7 +75,7 @@ def _declare(lib) -> None:
     lib.suzz_chunk_launch.restype = i
     lib.suzz_chunk_launch.argtypes = (
         [i] * 8 + [ctypes.c_double] + [i] * 3 + [i, ctypes.c_float]
-        + [p] * 6                       # x, v, fs, iscal, ring, scratch
+        + [p] * 5                       # x, v, fs, iscal, ring
         + [p] * 5 + [p]                 # event rows, stream
     )
     lib.sticky_chunk_launch.restype = i

@@ -28,7 +28,8 @@ Two versions of the same function live here:
 * :func:`run_chunk_plain`, plain PyTorch on ``(d, B)`` chain-minor tensors,
   operation for operation the Pallas body on the same Threefry counters, so
   on the same state it reproduces the Pallas kernel trajectory by trajectory;
-* the CUDA kernel ``csrc/scalar_chunk.cu`` (one warp per chain).
+* the CUDA kernel ``csrc/scalar_chunk.cu`` (one warp per chain, the
+  envelope's grid points across its lanes).
 
 :func:`run_chunk` takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.  The layouts are those of

@@ -27,7 +27,8 @@ Two versions of the same function live here:
   the same state it reproduces the Pallas kernel trajectory by trajectory.
 * the CUDA kernels: ``csrc/zigzag_chunk.cu`` (K1, one thread per chain),
   ``csrc/sticky_chunk.cu`` (K6, one CTA per chain) and
-  ``csrc/suzz_chunk.cu`` (K4, one thread per chain).
+  ``csrc/suzz_chunk.cu`` (K4, one warp per chain, the envelope's grid points
+  across its lanes).
 
 :func:`run_chunk` takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.
@@ -583,11 +584,7 @@ def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
             *head, p(st.act.data_ptr()), p(cfg.kappa.data_ptr()), *rows,
             p(fill.act[r].data_ptr()), stream)
     elif suzz:
-        # K4's per-chain scratch: x_t and each coordinate's previous grid
-        # rate and tangent, (3, d, B) chain-minor like x; the launch is
-        # ordered on the stream before any later use of the memory
-        scratch = torch.empty((3, d, B), dtype=st.x.dtype, device=st.x.device)
-        err = lib.suzz_chunk_launch(*head, p(scratch.data_ptr()), *rows, stream)
+        err = lib.suzz_chunk_launch(*head, *rows, stream)
     else:
         err = lib.zigzag_chunk_launch(*head, *rows, stream)
     build.check(err, name)

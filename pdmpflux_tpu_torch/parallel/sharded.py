@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from ..core.types import Skeleton
+from ..ops.flows import div_once
 
 
 def _batch_interp(sampler, skeleton: Skeleton, n_per_chain: int):
@@ -22,8 +23,10 @@ def _batch_interp(sampler, skeleton: Skeleton, n_per_chain: int):
     # search only sees the valid monotone prefix
     col = torch.arange(N, device=t.device)[None, :]
     tb_eff = torch.where(col < nv[:, None], t, torch.full_like(t, float("inf")))
+    # divided, as JAX divides: on CUDA, torch's division by a Python number
+    # multiplies by its rounded reciprocal
     tm = torch.arange(1, n_per_chain + 1, dtype=t.dtype,
-                      device=t.device)[None, :] * (t_end / n_per_chain)
+                      device=t.device)[None, :] * div_once(t_end, n_per_chain)
     idx = torch.searchsorted(tb_eff.contiguous(), tm.contiguous(), right=True) - 1
     idx = torch.minimum(torch.clamp_min(idx, 0), last[:, None])
     i3 = idx[:, :, None].expand(-1, -1, X.shape[2])
@@ -50,6 +53,6 @@ def pooled_moments(skeleton: Skeleton, sampler, n_per_chain: int):
     xs, _, _ = _batch_interp(sampler, skeleton, n_per_chain)
     B = xs.shape[0]
     n_tot = B * n_per_chain
-    mean = torch.sum(torch.sum(xs, dim=1), dim=0) / n_tot
-    var = torch.sum(torch.sum(xs * xs, dim=1), dim=0) / n_tot - mean ** 2
+    mean = div_once(torch.sum(torch.sum(xs, dim=1), dim=0), n_tot)
+    var = div_once(torch.sum(torch.sum(xs * xs, dim=1), dim=0), n_tot) - mean ** 2
     return mean, var

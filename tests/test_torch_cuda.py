@@ -12,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import pdmpflux_tpu_torch as pt  # noqa: E402
+from pdmpflux_tpu_torch import convert  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import build  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import compact as k2  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import driver  # noqa: E402
@@ -172,6 +173,23 @@ def scalar_sampler(kind, pot, d, **kw):
 def test_k3_k5_kernel_matches_plain_f64(dev, kind, pot, d, kw):
     """K3/K5 against their plain version over two chunks from one f64 state,
     some chains capped, a few starting with x parallel to v."""
+    _k3_k5_matches_plain(dev, kind, pot, d, kw)
+
+
+@pytest.mark.parametrize("grid", [2, 33, 64])
+@pytest.mark.parametrize("kind,pot,kw", [
+    ("bps", "aniso", dict(signed_bound=False)),
+    ("boomerang", "banana", dict(refresh_rate=0.3)),
+    ("ecmc", "gauss", dict(ran_p=True)),
+])
+def test_k3_k5_kernel_matches_plain_f64_at_grid_edges(dev, kind, pot, kw, grid):
+    """The envelope's edges across the warp: one grid point per lane (2), and
+    lanes owning two grid points with lane 31 handing its pair across (33,
+    64)."""
+    _k3_k5_matches_plain(dev, kind, pot, 10, dict(kw, grid_size=grid))
+
+
+def _k3_k5_matches_plain(dev, kind, pot, d, kw):
     B = 300
     sampler = scalar_sampler(kind, pot, d, **kw)
     rs = np.random.default_rng(d)
@@ -326,31 +344,50 @@ def test_k4_kernel_matches_plain_f64(dev, pot, signed, horizon):
     """K4 (the Speed-Up Zig-Zag chunk) against its plain version over two
     chunks from one f64 state, some chains capped; in horizon mode the
     float32 target at the median clock an event-count run reaches."""
-    B, d = 300, 6
+    _k4_matches_plain(dev, pot, horizon, signed_bound=signed)
+
+
+@pytest.mark.parametrize("pot,kw", [("gauss", dict(grid_size=2, tmax=0.1)),
+                                    ("banana", dict(grid_size=33)),
+                                    ("gauss", dict(grid_size=64, signed_bound=False)),
+                                    ("banana", dict(grid_size=64))])
+def test_k4_kernel_matches_plain_f64_at_grid_edges(dev, pot, kw):
+    """K4 at the envelope's edges across the warp (see the K3/K5 test); at
+    two grid points a shorter tmax, or a run this short sees no event."""
+    _k4_matches_plain(dev, pot, False, **kw)
+
+
+def test_k4_kernel_reads_x_and_v_in_place_past_shared_memory(dev):
+    """At d = 3700 four chains' f64 x and v exceed a block's shared memory,
+    and K4 reads them in place in the chain-minor state."""
+    _k4_matches_plain(dev, "gauss", False, d=3700, B=8, K=4, n_chunks=1, tmax=0.01)
+
+
+def _k4_matches_plain(dev, pot, horizon, d=6, B=300, K=16, n_chunks=2, **kw):
     grad = {"gauss": pt.potentials.grad_gauss, "banana": pt.potentials.grad_banana}[pot]
-    sampler = pt.SpeedUpZigZag(d, grad, signed_bound=signed)
+    sampler = pt.SpeedUpZigZag(d, grad, **kw)
     rs = np.random.default_rng(9)
     state = sampler.init_state_batch(rs.normal(size=(B, d)), rs.choice([-1.0, 1.0], size=(B, d)),
                                      3, torch.float64, dev)
-    cfg = driver.chunk_config(sampler, 16, 20, 128)
+    cfg = driver.chunk_config(sampler, K, 20, 128)
     counts = torch.zeros(B, dtype=torch.int32, device=dev)
     counts[::7] = 17
     if horizon:
         probe = driver.chunk_state(state, counts)
-        for it in range(2):
+        for it in range(n_chunks):
             k1.run_chunk_plain(11 + it * 1000003, probe,
-                               k1.empty_fill(16, d, B, torch.float64, dev), 0, cfg)
+                               k1.empty_fill(K, d, B, torch.float64, dev), 0, cfg)
         cfg = cfg._replace(t_target=k1.f32_target(float(probe.fs[k1.F_T].median())))
     st_k = driver.chunk_state(state, counts)
     st_p = k1.ChunkState(*(None if a is None else a.clone() for a in st_k))
-    fills = [k1.empty_fill(32, d, B, torch.float64, dev) for _ in range(2)]
+    fills = [k1.empty_fill(K * n_chunks, d, B, torch.float64, dev) for _ in range(2)]
     name = k1.launch_name(cfg)
     n0 = build.LAUNCHES[name]
-    for it in range(2):
-        k1.run_chunk(11 + it * 1000003, st_k, fills[0], 16 * it, cfg)
-        k1.run_chunk_plain(11 + it * 1000003, st_p, fills[1], 16 * it, cfg)
+    for it in range(n_chunks):
+        k1.run_chunk(11 + it * 1000003, st_k, fills[0], K * it, cfg)
+        k1.run_chunk_plain(11 + it * 1000003, st_p, fills[1], K * it, cfg)
     torch.cuda.synchronize()
-    assert build.LAUNCHES[name] == n0 + 2
+    assert build.LAUNCHES[name] == n0 + n_chunks
     for a, b in zip((*st_k, *fills[0]), (*st_p, *fills[1])):
         if a is None:
             continue
@@ -394,3 +431,35 @@ def test_k4_refuses_what_it_cannot_run(dev):
     for sampler in (aniso, untagged):
         with pytest.raises(ValueError, match="device potentials"):
             pt.sample_skeleton(sampler, 10, np.zeros((2, 4)), np.ones((2, 4)))
+
+
+def _batch_skeleton(dtype, device, B=7, N=40, d=3, seed=0):
+    """A padded chain-batch skeleton with irregular clocks and n_valid."""
+    rs = np.random.default_rng(seed)
+    nv = rs.integers(5, N + 1, size=B).astype(np.int32)
+    t = np.cumsum(rs.exponential(0.37, size=(B, N)), axis=1)
+    t[:, 0] = 0.0
+    t[np.arange(N)[None, :] >= nv[:, None]] = 0.0
+    fields = dict(x=rs.normal(size=(B, N, d)), v=rs.choice([-1.0, 1.0], size=(B, N, d)), t=t,
+                  horizon=np.ones((B, N)), ar=np.zeros((B, N)),
+                  is_active=np.ones((B, N, d), bool), rejected=np.zeros((B, N), np.int32),
+                  errored_bound=np.zeros((B, N), np.int32),
+                  hitting_horizon=np.zeros((B, N), np.int32),
+                  error_value_ar=np.zeros((B, N, 5)), kind=np.full((B, N), 2, np.int32),
+                  n_valid=nv)
+    fields = {f: a.astype(dtype) if a.dtype == np.float64 else a for f, a in fields.items()}
+    return convert.skeleton_from_numpy(fields, device=device)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_batch_sample_times_match_cpu_bit_for_bit(dev, dtype):
+    """Equal-time sample times at n = 300 per chain, t_end / 300, are the
+    CPU's bit for bit: the port divides by a tensor, as JAX divides, where
+    torch's CUDA division by a Python number multiplies by its rounded
+    reciprocal."""
+    sampler = pt.ZigZag(3, pt.potentials.grad_gauss)
+    got = pt.sample_from_skeleton_batch(sampler, 300, _batch_skeleton(dtype, dev),
+                                        discard_vt=False)
+    want = pt.sample_from_skeleton_batch(sampler, 300, _batch_skeleton(dtype, "cpu"),
+                                         discard_vt=False)
+    assert torch.equal(got[..., -1].cpu(), want[..., -1])

@@ -142,6 +142,20 @@ def test_plain_k3_k5_match_pallas_f64(kind, pot, d, signed):
     assert_f64_equal(outs, mine)
 
 
+@pytest.mark.parametrize("grid", [2, 33, 64])
+@pytest.mark.parametrize("kind,pot,kw", [
+    ("bps", "aniso", dict(signed_bound=False, refresh_rate=0.3)),
+    ("boomerang", "banana", dict(refresh_rate=0.3)),
+    ("ecmc", "gauss", dict(switch=True, ran_p=True, positive=False)),
+])
+def test_plain_k3_k5_match_pallas_f64_at_grid_edges(kind, pot, kw, grid):
+    """The envelope's edges in the kernel's layout: one grid point per lane
+    (2), and lanes owning two grid points with lane 31 handing its pair
+    across (33, 64)."""
+    outs, mine = run_both(kind, pot, 10, jnp.float64, 2026, grid_size=grid, **kw)
+    assert_f64_equal(outs, mine)
+
+
 def test_plain_k3_gaussian_velocity_matches_pallas_f64():
     outs, mine = run_both("bps", "gauss", 10, jnp.float64, -99,
                           refresh_rate=1.0, gaussian_velocity=True)

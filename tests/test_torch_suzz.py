@@ -49,8 +49,8 @@ B, K, TILE, CAP = 256, 16, 128, 10
 NAMES = ("x", "v", "fs", "iscal", "ring", "ev_kind", "ev_x", "ev_v", "ev_fs", "ev_ring")
 
 
-def _samplers(pot, d, grid=10, signed=True):
-    kw = dict(grid_size=grid, signed_bound=signed)
+def _samplers(pot, d, grid=10, signed=True, **extra):
+    kw = dict(grid_size=grid, signed_bound=signed, **extra)
     if pot == "gauss":
         return (pf.SpeedUpZigZag(d, lambda x: x, **kw),
                 pt.SpeedUpZigZag(d, pt.potentials.grad_gauss, **kw))
@@ -68,11 +68,11 @@ def _to_port(jst):
     return convert.state_from_numpy(fields, device="cpu")
 
 
-def _run_both(pot, d, grid, signed, jdt, seed, horizon=False):
+def _run_both(pot, d, grid, signed, jdt, seed, horizon=False, **extra):
     """The interpreted Pallas ``kind="suzz"`` chunk and K4's plain version
-    from one state; returns both outputs and the float32 target (None in
-    events mode)."""
-    js, ts = _samplers(pot, d, grid, signed)
+    from one state (``extra`` goes to both samplers); returns both outputs
+    and the float32 target (None in events mode)."""
+    js, ts = _samplers(pot, d, grid, signed, **extra)
     assert (ts.device_potential is None) == (pot == "gauss_untagged")
     assert pdrv.kernel_kind(js) == tdrv.kernel_kind(ts) == "suzz"
     rs = np.random.default_rng(d + grid)
@@ -113,15 +113,7 @@ def _run_both(pot, d, grid, signed, jdt, seed, horizon=False):
     return outs, mine, t_target
 
 
-@pytest.mark.parametrize("pot,d,grid,signed,seed,horizon", [
-    ("gauss", 4, 10, True, 12345, False),
-    ("banana", 10, 0, False, -777, False),
-    ("gauss_untagged", 10, 10, False, 99, False),
-    ("gauss", 4, 10, True, 12345, True),
-    ("banana", 10, 0, False, -777, True),
-])
-def test_plain_k4_matches_pallas_f64(pot, d, grid, signed, seed, horizon):
-    outs, mine, t_target = _run_both(pot, d, grid, signed, jnp.float64, seed, horizon)
+def _assert_f64_equal(outs, mine):
     for name, a, b in zip(NAMES, outs, mine):
         assert a.shape == b.shape and a.dtype == b.dtype, name
         if a.dtype.kind == "i":
@@ -131,9 +123,33 @@ def test_plain_k4_matches_pallas_f64(pot, d, grid, signed, seed, horizon):
     kinds, cnt = outs[5][:, 0], outs[3][tzc.I_CNT]
     assert (kinds == 2).sum() > B  # many events
     assert (cnt == CAP).any()  # some chains froze at the cap
+
+
+@pytest.mark.parametrize("pot,d,grid,signed,seed,horizon", [
+    ("gauss", 4, 10, True, 12345, False),
+    ("banana", 10, 0, False, -777, False),
+    ("gauss_untagged", 10, 10, False, 99, False),
+    ("gauss", 4, 10, True, 12345, True),
+    ("banana", 10, 0, False, -777, True),
+])
+def test_plain_k4_matches_pallas_f64(pot, d, grid, signed, seed, horizon):
+    outs, mine, t_target = _run_both(pot, d, grid, signed, jnp.float64, seed, horizon)
+    _assert_f64_equal(outs, mine)
     if horizon:  # the target freezes about half of the lanes
         froze = outs[2][tzc.F_T] >= np.float32(t_target)
         assert 0.3 < froze.mean() < 0.8, froze.mean()
+
+
+@pytest.mark.parametrize("grid", [2, 33, 64])
+@pytest.mark.parametrize("pot", ["gauss", "banana"])
+def test_plain_k4_matches_pallas_f64_at_grid_edges(pot, grid):
+    """The envelope's edges in K4's layout: one grid point per lane (2), and
+    lanes owning two grid points with lane 31 handing its pairs across (33,
+    64).  At two grid points the default horizon leaves the envelope so loose
+    that a chunk sees no event, hence the shorter tmax."""
+    extra = dict(tmax=0.1) if grid == 2 else {}
+    outs, mine, _ = _run_both(pot, 10, grid, pot == "gauss", jnp.float64, 7 * grid, **extra)
+    _assert_f64_equal(outs, mine)
 
 
 @pytest.mark.parametrize("horizon", [False, True], ids=["events", "horizon"])
