@@ -9,11 +9,13 @@ Phases, one line each; any failure raises and exits non-zero:
    Speed-Up Zig-Zag chunk, K3/K5 the scalar-rate chunk, K2 event-row
    compaction) from
    ``pdmpflux_tpu_torch/csrc`` with nvcc, one compile per source, all started
-   together;
+   together; ptxas's registers, stack frame and spills of every kernel, and
+   no stack frame in any instantiation of K1;
 2. K1 against its plain PyTorch version on the card, float64, from the same
    state: integer outputs equal, floats to rtol 1e-9 (atol 1e-12 for values
    near zero such as the Kahan compensation), at d=10/B=8192 (gauss),
-   d=10/B=1024 (banana) and d=1000/B=256;
+   d=10/B=1024 (banana), d=1000/B=256, a ragged B=1001 and grid_size 2, 33
+   and 64 (B=512), each with the lanes per chain K1 takes there;
 3. K2 against its plain version: random fills with offsets and an init
    record at d=10 and d=1000, outputs bit-identical;
 4. the main path: ``sample_skeleton`` of ZigZag(10, grad_gauss), 8192
@@ -27,8 +29,11 @@ Phases, one line each; any failure raises and exits non-zero:
    in stationarity; complete, coordinate-pooled moments in band;
 6. K6 (the sticky chunk kernel) against its plain version, float64, two
    K=32 chunks from one state near the axes with some chains capped, at
-   gauss d=10/B=1024, banana d=10/B=1024 and gauss d=1000/B=128: integers
-   and activity equal, floats to rtol 1e-9 (atol 1e-12);
+   gauss d=10/B=1024, banana d=10/B=1024, gauss d=1000/B=128 (a coordinate
+   per thread), d=1500/B=32 (two tiles), d=1, banana d=33, grid_size 2, 33
+   and 64 (B=512) and the largest d K6 takes in float64 (B=4): integers and
+   activity equal, floats to rtol 1e-9 (atol 1e-12); one coordinate more is
+   refused;
 7. the sticky path at full width: the ``sticky_zigzag_d1000`` deployment,
    StickyZigZagAD(1000, gauss, kappa=10), 128 chains x 2048 points, float32,
    x0 = 0.3, v0 = 1, warm then timed; every chain complete, K6 and K2
@@ -37,7 +42,7 @@ Phases, one line each; any failure raises and exits non-zero:
    four more warm calls give the spread and the median wall time;
    then (7b) its fill and compaction timed apart, K2 checked bit for bit
    against its plain version on this path's own fill (activity stream and
-   init row included), and one K=32 chunk of K6 checked against its plain
+   init row included) with its bound, and one K=32 chunk of K6 checked against its plain
    version at exactly this shape in float32 (as ``compare_f32`` states:
    every chain that leaves the plain trajectory must do so at an f32
    rounding tie), each timed beside its plain version; and (7c) the median
@@ -77,8 +82,9 @@ Phases, one line each; any failure raises and exits non-zero:
 13. K7, the horizon mode of the chunk kernels, against the plain version in
    float64, two K=32 chunks from one random state with some chains capped
    and the float32 clock target at the median clock an event-count run
-   reaches (about half of the lanes freeze inside): K1 gauss d=10 B=4096, K6
-   gauss d=10 B=1024 and d=1000 B=128, K3 BPS aniso and Boomerang banana, K5
+   reaches (about half of the lanes freeze inside): K1 gauss d=10 B=4096 and
+   B=1001, K6 gauss d=10 B=1024, d=1000 B=128 and d=1500 B=32, K3 BPS aniso
+   and Boomerang banana, K5
    ECMC gauss (d=10, B=1024); K1 and K6 to rtol 1e-9 (atol 1e-12) as in
    phases 2 and 6, K3/K5 bit for bit;
 14. the ``zigzag_gauss_d10_horizon`` deployment: ZigZagAD(10, gauss), 4096
@@ -129,6 +135,8 @@ the status line.
 """
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -284,14 +292,45 @@ def clone_state(st):
     return k1.ChunkState(*(None if a is None else a.clone() for a in st))
 
 
+def ptxas_kernels(log):
+    """{kernel: (registers, stack frame bytes, spill store bytes, spill load
+    bytes)} from ``nvcc -Xptxas -v``'s log, names demangled where
+    ``c++filt`` is found and cut to the kernel and its template arguments."""
+    props, regs, entry, fn = {}, {}, None, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "Function properties for" in ln:
+            fn = ln.split("Function properties for")[1].strip()
+        elif "bytes stack frame" in ln and fn:
+            props[fn] = tuple(int(w) for w in re.findall(r"(\d+) bytes", ln))
+        elif (m := re.search(r"Used (\d+) registers", ln)) and entry:
+            regs[entry] = int(m.group(1))
+            entry = None
+    names = list(regs)
+    shown = names
+    if shutil.which("c++filt") and names:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True).stdout.splitlines()
+        if len(out) == len(names):
+            shown = [s.split(">(")[0].replace("void (anonymous namespace)::", "")
+                     .replace("pdmp::", "") + (">" if ">(" in s else "") for s in out]
+    return {s: (regs[n], *props.get(n, (0, 0, 0))) for s, n in zip(shown, names)}
+
+
 def phase_build():
     t0 = time.perf_counter()
     build.library()
     secs = time.perf_counter() - t0
-    regs = [ln.strip() for ln in build.BUILD_INFO.get("log", "").splitlines()
-            if "registers" in ln]
-    print(f"phase 1 build: {secs:.2f} s ({build.BUILD_INFO['path']}); "
-          f"ptxas: {' | '.join(regs)}", flush=True)
+    kernels = ptxas_kernels(build.BUILD_INFO.get("log", ""))
+    framed = [k for k, (_, frame, *_) in kernels.items()
+              if "zigzag_chunk_kernel" in k and frame]
+    if framed:
+        raise AssertionError(f"K1 keeps a stack frame (local memory) in {framed}")
+    text = "; ".join(f"{k}: {r} registers, {f} B stack frame, {st}/{ld} B spill "
+                     f"stores/loads" for k, (r, f, st, ld) in kernels.items())
+    print(f"phase 1 build: {secs:.2f} s ({build.BUILD_INFO['path']}); ptxas: {text}",
+          flush=True)
 
 
 K1_NAMES = k1.ChunkState._fields + tuple("ev_" + f for f in k1.RawFill._fields)
@@ -388,14 +427,32 @@ def k1_compare(d, B, K, n_chunks, pot, horizon=False, suzz=False, **kw):
     return err, n_ev, target_share(st_k, cfg)
 
 
+# K1's edges: the grid's (one segment; segments past a group's lanes), a
+# ragged B (1001 chains leave part of the last warp empty whatever L is),
+# d = 1000, where a lane's run of coordinates is long, and d = 8000, where
+# two chains' f64 x and v exceed a block's shared memory and K1 reads them
+# in place (the default horizon rejects every proposal there, hence tmax)
+K1_CASES = [(10, 8192, 3, "gauss", {}), (10, 1024, 2, "banana", {}),
+            (1000, 256, 2, "gauss", {}), (10, 1001, 2, "gauss", {}),
+            (8000, 3, 1, "gauss", dict(tmax=0.01))]
+K1_CASES += [(10, 512, 2, pot, dict(grid_size=grid))
+             for pot, grid in (("gauss", 2), ("banana", 33), ("gauss", 64))]
+
+
+def lanes(B):
+    """The lanes per chain K1 takes at B chains."""
+    return build.library().zigzag_chunk_lanes(B)
+
+
 def phase_k1():
-    e10, n10, _ = k1_compare(10, 8192, 32, 3, "gauss")
-    eb, nb, _ = k1_compare(10, 1024, 32, 2, "banana")
-    e1k, n1k, _ = k1_compare(1000, 256, 32, 2, "gauss")
-    err = max(e10, eb, e1k)
-    print(f"phase 2 K1 vs plain (f64): d=10 B=8192 max_abs_err={e10:.3e} "
-          f"({n10} events); banana d=10 B=1024 {eb:.3e} ({nb}); d=1000 B=256 "
-          f"{e1k:.3e} ({n1k}); ints equal, rtol {RTOL} atol {ATOL}", flush=True)
+    parts, err = [], 0.0
+    for d, B, n_chunks, pot, kw in K1_CASES:
+        e, n, _ = k1_compare(d, B, 32, n_chunks, pot, **kw)
+        err = max(err, e)
+        parts.append(f"{pot} d={d} B={B} (L={lanes(B)}) {kw or ''} max_abs_err={e:.3e} "
+                     f"({n} events)")
+    print(f"phase 2 K1 vs plain (f64): {'; '.join(parts)}; ints equal, rtol {RTOL} "
+          f"atol {ATOL}", flush=True)
     return err
 
 
@@ -726,12 +783,12 @@ def sticky_config(sampler, K, cap, dtype):
     return cfg._replace(kappa=cfg.kappa.to(DEV, dtype))
 
 
-def k6_compare(d, B, pot, kappa, K=32, n_chunks=2, horizon=False):
+def k6_compare(d, B, pot, kappa, K=32, n_chunks=2, horizon=False, **kw):
     """K6 and its plain version from one f64 state near the axes, in horizon
-    mode (K7) when asked; returns (max abs err, events, sticks, thaws, share
-    frozen by the target)."""
+    mode (K7) when asked; ``kw`` goes to the sampler.  Returns (max abs err,
+    events, sticks, thaws, share frozen by the target)."""
     grad = {"gauss": pt.potentials.grad_gauss, "banana": pt.potentials.grad_banana}[pot]
-    sampler = pt.StickyZigZag(d, grad, np.full(d, kappa))
+    sampler = pt.StickyZigZag(d, grad, np.full(d, kappa), **kw)
     rs = np.random.default_rng(d + B)
     state = sampler.init_state_batch(rs.normal(size=(B, d)) * 0.3,
                                      rs.choice([-1.0, 1.0], size=(B, d)),
@@ -751,7 +808,7 @@ def k6_compare(d, B, pot, kappa, K=32, n_chunks=2, horizon=False):
         k1.run_chunk(seed, st_k, fill_k, it * K, cfg)
         k1.run_chunk_plain(seed, st_p, fill_p, it * K, cfg)
     sync()
-    what = f"K6 {pot} d={d}"
+    what = f"K6 {pot} d={d} {kw or ''}"
     err = 0.0
     for (name, a), (_, b) in zip(chunk_outputs(st_k, fill_k), chunk_outputs(st_p, fill_p)):
         if not a.is_floating_point():
@@ -769,15 +826,41 @@ def k6_compare(d, B, pot, kappa, K=32, n_chunks=2, horizon=False):
     return err, n_ev, n_stick, n_thaw, target_share(st_k, cfg)
 
 
+# K6's edges: the grid's; d = 1 and 33 (one warp, and one lane past it);
+# d = 1000 (a coordinate per thread), 1500 (two tiles of 1024); and the
+# largest d the kernel takes in float64 (seven tiles, the shared memory full)
+K6_CASES = [("gauss", 10, 1024, 2.0, {}), ("banana", 10, 1024, 2.0, {}),
+            ("gauss", 1000, 128, 10.0, {}), ("gauss", 1500, 32, 10.0, {}),
+            ("gauss", 1, 1024, 2.0, {}), ("banana", 33, 512, 2.0, {})]
+K6_CASES += [(pot, 10, 512, 2.0, dict(grid_size=grid))
+             for pot, grid in (("gauss", 2), ("banana", 33), ("gauss", 64))]
+
+
 def phase_k6():
-    res = {(pot, d, B): k6_compare(d, B, pot, kappa)
-           for pot, d, B, kappa in (("gauss", 10, 1024, 2.0), ("banana", 10, 1024, 2.0),
-                                    ("gauss", 1000, 128, 10.0))}
-    parts = [f"{pot} d={d} B={B} max_abs_err={e:.3e} ({n} events, {ns} sticks, "
-             f"{nt} thaws)" for (pot, d, B), (e, n, ns, nt, _) in res.items()]
+    d_max = k1.sticky_max_dim(torch.float64)
+    parts, err = [], 0.0
+    for pot, d, B, kappa, kw in K6_CASES + [("gauss", d_max, 4, 10.0, {})]:
+        e, n, ns, nt, _ = k6_compare(d, B, pot, kappa, **kw)
+        err = max(err, e)
+        parts.append(f"{pot} d={d} B={B} {kw or ''} max_abs_err={e:.3e} ({n} events, "
+                     f"{ns} sticks, {nt} thaws)")
+    # one coordinate more than the shared memory holds: the wrapper raises
+    big = pt.StickyZigZag(d_max + 1, pt.potentials.grad_gauss)
+    state = big.init_state_batch(np.zeros((2, d_max + 1)), np.ones((2, d_max + 1)), 0,
+                                 torch.float64, DEV)
+    st = driver.chunk_state(state, torch.zeros(2, dtype=torch.int32, device=DEV), sticky=True)
+    try:
+        k1.run_chunk(0, st, k1.empty_fill(4, d_max + 1, 2, torch.float64, DEV, True), 0,
+                     sticky_config(big, 4, 10, torch.float64))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"K6 ran d={d_max + 1}, past its sticky_chunk_max_dim")
     print(f"phase 6 K6 vs plain (f64, 2 x K=32): {'; '.join(parts)}; ints and "
-          f"activity equal, rtol {RTOL} atol {ATOL}", flush=True)
-    return max(r[0] for r in res.values())
+          f"activity equal, rtol {RTOL} atol {ATOL}; sticky_chunk_max_dim "
+          f"{k1.sticky_max_dim(torch.float32)} (f32), {d_max} (f64), d={d_max + 1} "
+          f"refused: {refused}", flush=True)
+    return err
 
 
 def check_sticky_skeleton(skel, n_sk):
@@ -881,6 +964,7 @@ def phase_sticky_breakdown(sampler, k6_launches, wall):
     del outs, out
     k2_ms = cuda_ms(lambda: k2.compact_rows(kind, specs, off), 3)
     k2_plain_ms = cuda_ms(lambda: k2.compact_rows_plain(kind, specs, off), 2)
+    k2_b = k2_bound(res.fill, res.counts, target + 1)
     del res, specs, kind
 
     K, seed = 32, 7
@@ -902,7 +986,8 @@ def phase_sticky_breakdown(sampler, k6_launches, wall):
           f"{t_cap} rows, {n_launch} K6 launches ({n_launch * k6_ms / 1e3:.4f} s "
           f"of K6 at the timed rate); K2 compaction (T={t_cap}, W={target + 1}, with "
           f"the activity stream) {secs[0]:.4f} s wall, {k2_ms:.4f} ms by CUDA events "
-          f"vs plain {k2_plain_ms:.4f} ms ({secs[1]:.4f} s wall), bit-identical; K6 "
+          f"vs plain {k2_plain_ms:.4f} ms ({secs[1]:.4f} s wall), bit-identical, bound "
+          f"{bound_text(k2_b)}; K6 "
           f"chunk (K={K}) {k6_ms:.4f} ms vs plain {k6_plain_ms:.4f} ms, kinds agree on "
           f"{agree:.6f}, max_abs_err {err:.3e} on the {share:.4f} of chains with equal "
           f"decisions (want >= {K6_F32_SHARE}); the others left at f32 rounding ties: "
@@ -1255,12 +1340,16 @@ def phase_k7():
     """K7, the horizon mode of K1, K6 and K3/K5, against the plain version
     from one f64 state (K1 and K6 to ``RTOL``/``ATOL``, K3/K5 bit for bit);
     returns the max abs err of each kernel's horizon mode."""
-    e, n, s = k1_compare(10, 4096, 32, 2, "gauss", horizon=True)
-    errs = {"zigzag_chunk_horizon": e, "sticky_chunk_horizon": 0.0,
+    errs = {"zigzag_chunk_horizon": 0.0, "sticky_chunk_horizon": 0.0,
             "bps_chunk_horizon": 0.0, "ecmc_chunk_horizon": 0.0}
-    parts = [f"K1 gauss d=10 B=4096 max_abs_err={e:.3e} ({n} events, {s:.3f} of the "
-             "lanes at the target)"]
-    for pot, d, B, kappa in (("gauss", 10, 1024, 2.0), ("gauss", 1000, 128, 10.0)):
+    parts = []
+    for B in (4096, 1001):
+        e, n, s = k1_compare(10, B, 32, 2, "gauss", horizon=True)
+        errs["zigzag_chunk_horizon"] = max(errs["zigzag_chunk_horizon"], e)
+        parts.append(f"K1 gauss d=10 B={B} (L={lanes(B)}) max_abs_err={e:.3e} ({n} events, "
+                     f"{s:.3f} of the lanes at the target)")
+    for pot, d, B, kappa in (("gauss", 10, 1024, 2.0), ("gauss", 1000, 128, 10.0),
+                             ("gauss", 1500, 32, 10.0)):
         e, n, ns, nt, s = k6_compare(d, B, pot, kappa, horizon=True)
         errs["sticky_chunk_horizon"] = max(errs["sticky_chunk_horizon"], e)
         parts.append(f"K6 {pot} d={d} B={B} max_abs_err={e:.3e} ({n} events, {ns} sticks, "

@@ -2,8 +2,9 @@
 // sticky_chunk.cu, K6, suzz_chunk.cu, K4, and scalar_chunk.cu, K3/K5): the
 // Threefry-2x32 counter RNG of the Pallas kernel (pdmpflux_tpu/ops/pallas/
 // zigzag_chunk.py: _threefry2x32, _mant24, _uniform, _exponential,
-// _box_muller), a NaN-propagating max, the device potentials, and the
-// warp-wide envelope of K3/K5 and K4 (one grid point per lane).
+// _box_muller), a NaN-propagating max, the device potentials, the warp-wide
+// envelope of K3/K5 and K4 (one grid point per lane), and the grid-order
+// clock inversion of K1 and K6 (EnvelopeWalk).
 
 #pragma once
 
@@ -65,19 +66,16 @@ __device__ __forceinline__ T mant24(uint32_t bits) {
   return (T)(int)(bits >> 8) * (T)(1.0 / 16777216.0);
 }
 
-// (0, 1) uniform at one counter (zigzag_chunk._uniform).
+// (0, 1) uniform from a Threefry block's first word (zigzag_chunk._uniform).
 template <typename T>
-__device__ __forceinline__ T uniform(uint32_t seed, uint32_t salt, uint32_t counter) {
-  uint32_t b0 = counter, b1 = 0;
-  threefry2x32(seed, salt, b0, b1);
+__device__ __forceinline__ T uniform_bits(uint32_t b0) {
   return mant24<T>(b0) + (T)(0.5 / 16777216.0);
 }
 
-// Exp(1) with the 48-bit-deep tail (zigzag_chunk._exponential).
+// Exp(1) with the 48-bit-deep tail from a Threefry block
+// (zigzag_chunk._exponential).
 template <typename T>
-__device__ __forceinline__ T exponential(uint32_t seed, uint32_t salt, uint32_t counter) {
-  uint32_t b0 = counter, b1 = 0;
-  threefry2x32(seed, salt, b0, b1);
+__device__ __forceinline__ T exponential_bits(uint32_t b0, uint32_t b1) {
   const T u_hi = mant24<T>(b0);
   const T u_lo = mant24<T>(b1) + (T)(0.5 / 16777216.0);
   const bool deep = u_hi == (T)0;
@@ -85,6 +83,37 @@ __device__ __forceinline__ T exponential(uint32_t seed, uint32_t salt, uint32_t 
   const T top = (T)(1.0 - 1.0 / 16777216.0);
   u = u < top ? u : top;
   return (deep ? (T)16.635532333438686 : (T)0) - log(u);
+}
+
+// (0, 1) uniform at one counter.
+template <typename T>
+__device__ __forceinline__ T uniform(uint32_t seed, uint32_t salt, uint32_t counter) {
+  uint32_t b0 = counter, b1 = 0;
+  threefry2x32(seed, salt, b0, b1);
+  return uniform_bits<T>(b0);
+}
+
+// Exp(1) at one counter.
+template <typename T>
+__device__ __forceinline__ T exponential(uint32_t seed, uint32_t salt, uint32_t counter) {
+  uint32_t b0 = counter, b1 = 0;
+  threefry2x32(seed, salt, b0, b1);
+  return exponential_bits<T>(b0, b1);
+}
+
+// Draw r of a Zig-Zag-family transition k of the chain at RNG lane ln of its
+// tile: r = 0, 1, 2 the uniforms at counters (r + 1) * tile + ln (acceptance,
+// flip coordinate, thaw coordinate), r = 3 the Exp clock (salt 0x80000000 +
+// k), r = 4 the thaw clock (salt 0xC0000000 + k).  Lanes that take different
+// r run one Threefry block each in the same instructions, where one lane
+// drawing all of them would run them one after another.
+template <typename T>
+__device__ __forceinline__ T transition_draw(uint32_t seed, uint32_t k, uint32_t tile,
+                                             uint32_t ln, int r) {
+  const bool unif = r < 3;
+  uint32_t b0 = unif ? (uint32_t)(r + 1) * tile + ln : ln, b1 = 0;
+  threefry2x32(seed, unif ? k : (r == 3 ? 0x80000000u : 0xC0000000u) + k, b0, b1);
+  return unif ? uniform_bits<T>(b0) : exponential_bits<T>(b0, b1);
 }
 
 // A standard normal from two (0, 1) uniforms (zigzag_chunk._box_muller); the
@@ -231,5 +260,48 @@ __device__ __forceinline__ void invert_envelope(T ba, T bb, T step, T exp_s, int
     lam_bar = at_point(ba, bb, idx);
   }
 }
+
+// The clock inversion for a caller that reads every box itself, in grid
+// order (K1 from its group's shared row of boxes, K6 by shuffle after its
+// block reduction): add(box[j]) for j = 0 .. n_grid - 2, then finish().  It adds
+// cum[j + 1] = cum[j] + box[j] * step and counts idx = #{j : cum[j] < exp}
+// as invert_envelope does.  Every box is >= 0 or NaN, so the points below
+// exp are a prefix of the grid: lo = cum[idx - 1] is the last of them, and hi
+// = cum[idx] and lam_bar = box[idx - 1] come from the add that follows it.
+// No array is kept, so nothing lands in local memory.
+template <typename T>
+struct EnvelopeWalk {
+  T step, exp_s, c = (T)0, lo = (T)0, hi = (T)0, lam_at = (T)0, last = (T)0;
+  int idx;
+
+  __device__ __forceinline__ EnvelopeWalk(T step_, T exp_) : step(step_), exp_s(exp_) {
+    idx = c < exp_s;
+  }
+
+  // box[j], the next segment in grid order; j + 1 points are counted so far
+  __device__ __forceinline__ void add(T box, int j) {
+    c = c + box * step;
+    if (idx == j + 1) {  // every point so far lies below exp: cum[j + 1] is hi
+      hi = c;
+      lam_at = box;
+    }
+    if (c < exp_s) {
+      lo = c;
+      ++idx;
+    }
+    last = box;
+  }
+
+  __device__ __forceinline__ void finish(int n_grid, T& tp, T& lam_bar, bool& overflow) const {
+    overflow = idx >= n_grid;
+    tp = (T)INFINITY;
+    lam_bar = last;
+    if (idx >= 1 && idx < n_grid) {
+      const T denom = hi == lo ? (T)1 : hi - lo;
+      tp = step * (T)(idx - 1) + (exp_s - lo) / denom * step;
+      lam_bar = lam_at;
+    }
+  }
+};
 
 }  // namespace pdmp

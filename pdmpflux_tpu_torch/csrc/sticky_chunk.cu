@@ -18,45 +18,57 @@
 // in proportion to kappa over the frozen coordinates; after every reset the
 // thaw clock is redrawn as Exp(1) / sum(kappa[frozen]) (or inf).
 //
-// Design.  K1 runs one thread per chain; the d = 1000 deployment has only
-// B = 128 chains, which would be 4 warps on 132 SMs, each thread walking
-// (n_grid + 2) * d gradient terms per transition.  Here one CTA owns one chain
-// for all K transitions: blockDim = min(256, roundup(d, 32)) threads take the
-// coordinates i = tid, tid + blockDim, ...  x, v, act (a byte) and kappa sit
-// in shared memory, loaded once per launch and written back at the end; a
-// scan buffer of d values beside them holds prefix sums.  The per-chain
-// scalars (clocks, horizon, counters, error ring) are replicated in every
-// thread, and every decision is taken from reduced values that every thread
-// reads from shared memory in the same order, so all threads hold the same
-// bits and the block takes uniform branches.  Per transition the reductions
-// are: the n_grid - 1 segment sums of the envelope (one pass for all
-// segments), the rate sum at tp with the min/argmin of the stick times and
-// the OR of the crossings, then on a jump the flip rates' prefix sum and
-// count, on a thaw the thaw weights' prefix sum and count, and on every reset
-// the sum of kappa over frozen coordinates.  A categorical draw needs the
-// inclusive prefix sum in coordinate order: tiles of blockDim consecutive
-// coordinates (the strided map puts tile q's coordinate q * blockDim + tid in
-// thread tid), each scanned with cub::WarpScan, the warp totals combined
-// across warps, plus a running carry; then c <= u * total is counted and
-// clamped to d - 1, as _categorical_rows does.  Composing the block scan from
-// warp scans lets one instantiation serve every blockDim.
+// What bounds it on an H100: latency.  The d = 1000 deployment runs B = 128
+// chains, one CTA each on 132 SMs, and almost every transition is an event,
+// so a transition's time is its chain of dependent steps and barriers.  The
+// first design ran 256 threads (8 warps per SM, four coordinates a thread,
+// box[] and cum[] in local memory) and about 22 barriers per jump, with
+// serial loops over the warps between them.
 //
-// What bounds it on an H100: latency.  A transition carries about ten
-// __syncthreads-separated reductions whatever d is, and its event row goes
-// out as 4-byte (1-byte for act) stores at stride B per coordinate into the
-// chain-minor (K, d, B) fill that K2 and the driver read, one 32-byte sector
-// per element unless L2 merges the neighbouring chains' stores.  The design
-// keeps everything else on chip (no global traffic inside a transition but
-// the row), keeps the reductions to one warp-shuffle tree plus one shared
-// exchange each, and folds the crossing OR into __syncthreads_or.  Packing
-// several chains per CTA at small d, staging rows for coalesced stores, and
-// CUDA graphs over the chunk loop are later work.
+// Design.  blockDim = min(1024, roundup(d, 32)) threads: up to d = 1024 each
+// thread owns one coordinate, i = tid (32 warps per SM at d = 1000); past
+// it, coordinates i = tid, tid + blockDim, ... (tiles of blockDim).  x, v,
+// act (a byte) and kappa sit in shared memory, loaded once per launch and
+// written back at the end, beside a buffer of d prefix sums.  The per-chain
+// scalars are replicated in every thread.  Every reduction is two levels:
+// a warp's xor butterfly, one shared write per warp, one barrier, then every
+// warp reads the warp partials one per lane and reduces them with the same
+// butterfly, so every thread computes every total from the same values in
+// the same order and holds the same bits, and the block takes uniform
+// branches (a reduction whose order differed between warps would give
+// divergent decisions and a hang at the next barrier).  The rounds:
+//  A  the envelope: per grid segment, the segment maxima of the thread's
+//     coordinates summed by the warp butterfly into the warp's shared row of
+//     segment partials (tile by tile); with them the frozen-kappa sum of the
+//     previous transition's reset (the thaw clock is needed first at this
+//     transition's thinning, so its reduction rides on this barrier); after
+//     the barrier lane l of every warp adds the warp partials of segments l
+//     and l + 32 in warp order (one pass for all segments), and the boxes go
+//     by shuffle, in grid order, into the clock inversion (EnvelopeWalk);
+//  B  thinning: the rate at tp, the min/argmin of the stick times and the OR
+//     of the crossings (__syncthreads_or is the barrier);
+//  C  on a jump (or a thaw) the categorical draw: a warp inclusive scan, the
+//     warp totals scanned by a warp scan in every warp (one barrier per tile
+//     of blockDim coordinates, two buffers alternating), then c <= u * c[d-1]
+//     counted (__syncthreads_count up to d = blockDim, else a two-level sum)
+//     and clamped to d - 1, as _categorical_rows does.
+// A transition so takes 2 barriers (stick, horizon move, rejection), or 4 on
+// a jump or a thaw up to d = blockDim (one more per further tile); the first
+// design took about 22 on a jump.  Only threads 0 and 1 read another
+// coordinate (Banana's y0 and y1), both in warp 0, so the flow and the
+// flip, stick and thaw updates need a __syncwarp, not a barrier.  Warp 0's
+// lanes 0-4 draw the transition's five uniforms and clocks
+// (transition_draw) into shared memory before barrier A, one Threefry block
+// each in the same instructions.
 //
 // Shared memory: d * (4 * sizeof(T) + 1) bytes of dynamic shared memory plus
-// a few KB of reduction scratch must fit the 227 KB a block can have, so
-// d <= sticky_chunk_max_dim(f64): about 13k in float32, 6.8k in float64.
-
-#include <cub/warp/warp_scan.cuh>
+// the static reduction rows (a row of 64 segment partials per warp: 8 KB in
+// float32, 16 KB in float64) must fit the 227 KB a block can have, so
+// d <= sticky_chunk_max_dim(f64), which reads the static size from the
+// built kernel: 13,136 in float32, 6,498 in float64 on the H100.  The
+// event rows go out in the chain-minor (K, d, B) fill that K2 and the
+// driver read, 3 stores per coordinate at stride B; at the d = 1000
+// deployment they take about a quarter of a launch (chip_ab.py --probe).
 
 #include "pdmp_common.cuh"
 
@@ -64,10 +76,8 @@ namespace {
 
 using namespace pdmp;
 
-constexpr int MAXT = 256, MAXW = MAXT / 32;
-constexpr unsigned FULL = 0xffffffffu;
-constexpr long SMEM_BLOCK = 232448;   // bytes of shared memory one block may use
-constexpr long SMEM_STATIC = 8192;    // reserved for the static reduction scratch
+constexpr int MAXT = 1024, MAXW = MAXT / 32;
+constexpr long SMEM_BLOCK = 232448;  // bytes of shared memory one block may use
 
 template <typename T>
 __host__ __device__ constexpr long bytes_per_coord() {
@@ -83,25 +93,44 @@ __device__ __forceinline__ T masked(const T* v, const uint8_t* act, int i) {
 template <typename U>
 __device__ __forceinline__ U warp_sum(U v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
   return v;
 }
 
-// Sum over the block; every thread returns the same bits (per-warp partials
-// added in warp order).  The leading barrier protects red from the previous
-// reduction's readers.
-template <typename U>
-__device__ __forceinline__ U block_sum(U v, U* red, int nw) {
-  v = warp_sum(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  U s = red[0];
-  for (int w = 1; w < nw; ++w) s += red[w];
-  return s;
+// Inclusive prefix sum over the warp's lanes in lane order.
+template <typename T>
+__device__ __forceinline__ T warp_scan(T v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const T y = __shfl_up_sync(FULL_MASK, v, o);
+    if (lane >= o) v += y;
+  }
+  return v;
 }
 
-// (value, index) minimum, the smaller index on equal values.
+// The second level of a block sum: every warp adds the nw warp partials, one
+// per lane, with the same butterfly, so every thread returns the same bits.
+template <typename U>
+__device__ __forceinline__ U across_warps(const U* part, int nw) {
+  return warp_sum((int)(threadIdx.x & 31) < nw ? part[threadIdx.x & 31] : (U)0);
+}
+
+// The block's total of segment j from the warps' rows of segment partials:
+// the nw partials added in warp order, four interleaved sums for latency
+// (zero past the grid).
+template <typename T>
+__device__ __forceinline__ T segment_total(const T* segr, int j, int G, int nw) {
+  if (j >= G) return (T)0;
+  T s[4] = {(T)0, (T)0, (T)0, (T)0};
+#pragma unroll
+  for (int w = 0; w < MAXW; ++w)
+    if (w < nw) s[w & 3] += segr[w * MAXG + j];
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+// (value, index) minimum, the smaller index on equal values; the same result
+// whichever side merges (the values are never NaN).
 template <typename T>
 __device__ __forceinline__ void argmin_merge(T& v, int& i, T ov, int oi) {
   if (ov < v || (ov == v && oi < i)) {
@@ -110,30 +139,59 @@ __device__ __forceinline__ void argmin_merge(T& v, int& i, T ov, int oi) {
   }
 }
 
-// Inclusive prefix sum of sw[0..d) in coordinate order, in place; returns
-// sw[d - 1].  Thread tid owns coordinate q * blockDim + tid of tile q, which
-// it alone reads and writes.
 template <typename T>
-__device__ T block_scan(T* sw, int d, T* wtot, typename cub::WarpScan<T>::TempStorage* ws,
-                        int nw) {
+__device__ __forceinline__ void warp_argmin(T& v, int& i) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    argmin_merge(v, i, __shfl_xor_sync(FULL_MASK, v, o), __shfl_xor_sync(FULL_MASK, i, o));
+}
+
+// Inclusive prefix sums of sw[0..d) in coordinate order, in place; returns
+// c[d - 1], in the same bits as sw[d - 1].  Tile q holds coordinates
+// q * nt .. q * nt + nt - 1, coordinate q * nt + tid in thread tid, which alone
+// reads and writes it.  Within a tile c = carry + (pre_w + incl): incl the
+// warp's inclusive scan, pre_w the scan of the warp totals below warp w; the
+// warp holding the tile's last coordinate posts its incl there, so the tile's
+// total is that coordinate's own sum.  One barrier per tile: the warp totals
+// alternate between two rows.
+template <typename T>
+__device__ T block_scan(T* sw, int d, T (*wtot)[MAXW], int nw) {
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, w = tid >> 5;
   T carry = (T)0;
-  for (int q0 = 0; q0 < d; q0 += nt) {
-    const int i = q0 + tid;
-    T incl, agg;
-    cub::WarpScan<T>(ws[w]).InclusiveSum(i < d ? sw[i] : (T)0, incl, agg);
-    if (lane == 0) wtot[w] = agg;
+  for (int q0 = 0, q = 0; q0 < d; q0 += nt, ++q) {
+    const int i = q0 + tid, last = min(d - q0, nt) - 1, wl = last >> 5;
+    const T incl = warp_scan(i < d ? sw[i] : (T)0);
+    T* wt = wtot[q & 1];
+    if (lane == (w == wl ? (last & 31) : 31)) wt[w] = incl;
     __syncthreads();
-    T pre = carry, tile_end = carry;
-    for (int u = 0; u < nw; ++u) {
-      if (u < w) pre += wtot[u];
-      tile_end += wtot[u];
-    }
-    if (i < d) sw[i] = pre + incl;
-    carry = tile_end;
-    __syncthreads();  // wtot is reused by the next tile; sw[d - 1] is visible
+    const T a = lane < nw ? wt[lane] : (T)0;
+    const T ai = warp_scan(a);
+    const T pre_w = __shfl_sync(FULL_MASK, ai, (w + 31) & 31);  // lane w - 1's
+    const T pre_l = __shfl_sync(FULL_MASK, ai, (wl + 31) & 31);
+    const T tot_l = __shfl_sync(FULL_MASK, a, wl);
+    if (i < d) sw[i] = carry + ((w > 0 ? pre_w : (T)0) + incl);
+    carry = carry + ((wl > 0 ? pre_l : (T)0) + tot_l);
   }
-  return sw[d - 1];
+  return carry;
+}
+
+// Inverse-CDF draw over the prefix sums of sw[0..d) (_categorical_rows):
+// count c <= u * c[d - 1] and clamp to d - 1.
+template <typename T>
+__device__ int categorical(T* sw, int d, T u, T (*wtot)[MAXW], int* red, int nw) {
+  const int nt = blockDim.x;
+  const T thresh = u * block_scan(sw, d, wtot, nw);
+  int n_le = 0;
+  for (int i = threadIdx.x; i < d; i += nt) n_le += sw[i] <= thresh;
+  if (d <= nt) {
+    n_le = __syncthreads_count(n_le);
+  } else {
+    n_le = warp_sum(n_le);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = n_le;
+    __syncthreads();
+    n_le = across_warps(red, nw);
+  }
+  return n_le < d - 1 ? n_le : d - 1;
 }
 
 template <typename T, class Pot>
@@ -145,14 +203,13 @@ sticky_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__ v, T* __restric
                     T* __restrict__ ev_fs, T* __restrict__ ev_ring,
                     uint8_t* __restrict__ ev_act) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ T red[MAXG * MAXW];
-  __shared__ int ired[MAXW];
-  __shared__ T wtot[MAXW];
-  __shared__ typename cub::WarpScan<T>::TempStorage wscan[MAXW];
+  __shared__ T segr[MAXW * MAXG];  // round A: each warp's row of segment partials
+  __shared__ T r_kf[MAXW], r_lam[MAXW], r_min[MAXW], wtot[2][MAXW], draws[5];
+  __shared__ int r_imin[MAXW], r_cnt[MAXW];
 
   const int d = p.d, n_grid = p.n_grid, G = p.n_grid - 1;
   const int tid = threadIdx.x, nt = blockDim.x, nw = nt >> 5;
-  const int lane_w = tid & 31, warp = tid >> 5;
+  const int lane_w = tid & 31, warp = tid >> 5, s1 = d > 1 ? 1 : 0;
   const long B = p.B, b = blockIdx.x;
   T* sx = (T*)smem;
   T* sv = sx + d;
@@ -180,72 +237,84 @@ sticky_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__ v, T* __restric
   const uint32_t seed = (uint32_t)p.seed + (uint32_t)(b / p.tile) * 7919u;
   const uint32_t lane = (uint32_t)(b % p.tile);
   const T inf = (T)INFINITY, zero = (T)0;
+  // the frozen-kappa sum of the current mask, after a thread-local partial
+  // that every thread posts for its warp
+  auto frozen_kappa_partial = [&]() {
+    T kf = zero;
+    for (int i = tid; i < d; i += nt) kf += sact[i] ? zero : skap[i];
+    kf = warp_sum(kf);
+    if (lane_w == 0) r_kf[warp] = kf;
+  };
+  bool redraw_tt = false;  // a reset awaits its thaw clock (next round A)
+  T e_tt = zero;           // the reset's Exp(1) draw
 
   for (int k = 0; k < p.K; ++k) {
     const bool live = lane_live(p, cnt, t_s);  // t_s is the same in every thread
     int kval = 0;
     if (live) {
-      // ---- envelope on [0, bh]: tangent-intersection segment maxima ----
+      if (warp == 0 && lane_w < 5)
+        draws[lane_w] = transition_draw<T>(seed, (uint32_t)k, (uint32_t)p.tile, lane, lane_w);
+      if (redraw_tt) frozen_kappa_partial();
+
+      // ---- round A: envelope on [0, bh], tangent-intersection segment maxima ----
       const T step = bh_s / (T)G;
-      T box[MAXG];
-      for (int j = 0; j < G; ++j) box[j] = zero;
-      for (int i = tid; i < d; i += nt) {
-        const T vi = masked(sv, sact, i);
+      // Banana's coordinates 0 and 1 (masked velocities), read once
+      const T x0 = sx[0], v0 = masked(sv, sact, 0), x1 = sx[s1], v1 = masked(sv, sact, s1);
+      for (int q0 = 0; q0 < d; q0 += nt) {
+        const int i = q0 + tid;
+        const bool on = i < d;
+        const T xi = on ? sx[i] : zero, va = on ? masked(sv, sact, i) : zero;
         T f_prev = zero, g_prev = zero;
         for (int j = 0; j < n_grid; ++j) {
-          T g, dg;
-          Pot::eval(sx, sv, sact, 1, i, step * (T)j, g, dg);
-          T f = g * vi, gd = dg * vi;
-          if (!p.signed_bound) {
-            // d/dt max(r, 0): JAX's JVP takes half the tangent at r == 0
-            const T coef = f > zero ? (T)1 : (f == zero ? (T)0.5 : zero);
-            gd = gd * coef;
-            f = nmax(f, zero);
+          T f = zero, gd = zero;
+          if (on) {
+            T g, dg;
+            Pot::at(i, xi, va, x0, v0, x1, v1, step * (T)j, nullptr, g, dg);
+            f = g * va;
+            gd = dg * va;
+            if (!p.signed_bound) {
+              // d/dt max(r, 0): JAX's JVP takes half the tangent at r == 0
+              const T coef = f > zero ? (T)1 : (f == zero ? (T)0.5 : zero);
+              gd = gd * coef;
+              f = nmax(f, zero);
+            }
           }
           if (j > 0) {
-            const T den = gd - g_prev;
-            const T num = f_prev - f + gd * step;
-            T ip = den == zero ? zero : num / den;
-            if (isnan(ip)) ip = zero;
-            ip = ip > zero ? ip : zero;
-            ip = ip < step ? ip : step;
-            const T inter = f_prev + g_prev * ip;
-            box[j - 1] += nmax(nmax(f_prev, f), nmax(inter, zero));
+            const T seg = warp_sum(on ? segment_max(f_prev, g_prev, f, gd, step) : zero);
+            if (lane_w == 0) {
+              T& r = segr[warp * MAXG + j - 1];
+              r = q0 == 0 ? seg : r + seg;
+            }
           }
           f_prev = f;
           g_prev = gd;
         }
       }
       __syncthreads();
-      for (int j = 0; j < G; ++j) {
-        const T s = warp_sum(box[j]);
-        if (lane_w == 0) red[j * MAXW + warp] = s;
-      }
-      __syncthreads();
-      T cum[MAXG];
-      cum[0] = zero;
-      for (int j = 0; j < G; ++j) {
-        T s = red[j * MAXW];
-        for (int w = 1; w < nw; ++w) s += red[j * MAXW + w];
-        box[j] = s + (T)p.refresh;
-        cum[j + 1] = cum[j] + box[j] * step;
+      // every thread takes the draws now: warp 0 rewrites them after round B
+      const T u_acc = draws[0], u_flip = draws[1], u_thaw = draws[2], e_draw = draws[3];
+      const T e_tt_k = draws[4];
+      if (redraw_tt) {  // the previous reset's thaw clock, on its updated mask
+        const T rate_thaw = across_warps(r_kf, nw);
+        tt_s = rate_thaw > zero ? e_tt / rate_thaw : inf;
+        redraw_tt = false;
       }
 
-      // ---- invert the envelope at the Exp clock ----
-      int idx = 0;
-      for (int j = 0; j < n_grid; ++j) idx += cum[j] < exp_s;
-      const bool overflow = idx >= n_grid;
-      T tp = inf, lam_bar = box[G - 1];
-      if (idx >= 1 && idx < n_grid) {
-        const T lo = cum[idx - 1], hi = cum[idx];
-        const T denom = hi == lo ? (T)1 : hi - lo;
-        tp = step * (T)(idx - 1) + (exp_s - lo) / denom * step;
-        lam_bar = box[idx - 1];
-      }
+      // ---- invert the envelope at the Exp clock, segments in grid order ----
+      // lane l adds the warp partials of segments l and l + 32 in warp order,
+      // the same in every warp; the walk takes them by shuffle
+      const T ta = segment_total(segr, lane_w, G, nw);
+      const T tb = segment_total(segr, lane_w + 32, G, nw);
+      EnvelopeWalk<T> walk(step, exp_s);
+      for (int j = 0; j < G; ++j)
+        walk.add(__shfl_sync(FULL_MASK, j < 32 ? ta : tb, j & 31) + (T)p.refresh, j);
+      T tp, lam_bar;
+      bool overflow;
+      walk.finish(n_grid, tp, lam_bar, overflow);
       const bool fresh = mode == MODE_FRESH, erroneous = mode == MODE_ERRONEOUS;
       const T tp_safe = overflow ? zero : tp;
 
-      // ---- thinning rate at tp; crossing probe and stick times ----
+      // ---- round B: thinning rate at tp; crossing probe and stick times ----
       const T min_pt = tp < tt_s ? tp : tt_s;
       const T event_time = min_pt < h_s ? min_pt : h_s;
       T lam = zero, tmin = inf;
@@ -259,20 +328,18 @@ sticky_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__ v, T* __restric
         const T tj = (sact[i] && xi * vi < zero && va != zero) ? -xi / vi : inf;
         argmin_merge(tmin, imin, tj, i);
       }
-      const T lam_t = block_sum(lam, red, nw);
-      const bool any_cross = __syncthreads_or(cross) != 0;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        argmin_merge(tmin, imin, __shfl_xor_sync(FULL, tmin, o),
-                     __shfl_xor_sync(FULL, imin, o));
+      lam = warp_sum(lam);
+      warp_argmin(tmin, imin);
       if (lane_w == 0) {
-        red[warp] = tmin;
-        ired[warp] = imin;
+        r_lam[warp] = lam;
+        r_min[warp] = tmin;
+        r_imin[warp] = imin;
       }
-      __syncthreads();
-      T t_togo = red[0];
-      int i_stick = ired[0];
-      for (int w = 1; w < nw; ++w) argmin_merge(t_togo, i_stick, red[w], ired[w]);
+      const bool any_cross = __syncthreads_or(cross) != 0;
+      const T lam_t = across_warps(r_lam, nw);
+      T t_togo = lane_w < nw ? r_min[lane_w] : inf;
+      int i_stick = lane_w < nw ? r_imin[lane_w] : 0x7fffffff;
+      warp_argmin(t_togo, i_stick);
       const T ar_new = lam_t / lam_bar;
 
       // ---- decisions (uniform over the block) ----
@@ -285,8 +352,6 @@ sticky_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__ v, T* __restric
       const bool p_ac = thin && tp < tt_s;
       const bool p_err = p_ac && (ar_new > (T)1);
       const bool p_proxy = p_ac && !p_err;
-      const uint32_t salt = (uint32_t)k;
-      const T u_acc = uniform<T>(seed, salt, 1u * p.tile + lane);
       const bool acc = u_acc < ar_new;
       const bool p_acc = p_proxy && acc;
       const bool p_rej = p_proxy && !acc;
@@ -297,34 +362,24 @@ sticky_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__ v, T* __restric
                        : p_moveh ? h_s
                        : p_acc ? tp_safe : zero;
       for (int i = tid; i < d; i += nt) sx[i] = sx[i] + masked(sv, sact, i) * flow_t;
-      __syncthreads();
+      __syncwarp();  // Banana's y0 and y1, flowed by threads 0 and 1
 
-      // ---- inverse-CDF coordinate flip on the masked rates ----
+      // ---- round C: inverse-CDF coordinate flip on the masked rates ----
       if (p_acc) {
-        const T u_flip = uniform<T>(seed, salt, 2u * p.tile + lane);
         for (int i = tid; i < d; i += nt) {
           T g, dg;
           Pot::eval(sx, sv, sact, 1, i, zero, g, dg);
           sw[i] = nmax(g * masked(sv, sact, i), zero);
         }
-        const T thresh = u_flip * block_scan(sw, d, wtot, wscan, nw);
-        int n_le = 0;
-        for (int i = tid; i < d; i += nt) n_le += sw[i] <= thresh;
-        n_le = block_sum(n_le, ired, nw);
-        const int m = n_le < d - 1 ? n_le : d - 1;
+        const int m = categorical(sw, d, u_flip, wtot, r_cnt, nw);
         if (m % nt == tid) sv[m] = -sv[m];
       }
 
       // ---- stick and thaw updates of the activity mask ----
       if (p_stick && i_stick % nt == tid) sact[i_stick] = 0;
       if (p_thaw) {
-        const T u_thaw = uniform<T>(seed, salt, 3u * p.tile + lane);
         for (int i = tid; i < d; i += nt) sw[i] = sact[i] ? zero : skap[i];
-        const T thresh = u_thaw * block_scan(sw, d, wtot, wscan, nw);
-        int n_le = 0;
-        for (int i = tid; i < d; i += nt) n_le += sw[i] <= thresh;
-        n_le = block_sum(n_le, ired, nw);
-        const int i_thaw = n_le < d - 1 ? n_le : d - 1;
+        const int i_thaw = categorical(sw, d, u_thaw, wtot, r_cnt, nw);
         if (i_thaw % nt == tid) sact[i_thaw] = 1;
       }
 
@@ -351,14 +406,11 @@ sticky_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__ v, T* __restric
         if (p_err && ring_idx == r) rg[r] = ar_new;
       const bool reset = p_stick || p_moveh || p_erreset || p_thaw || p_acc;
       if (reset) {
-        // fresh thaw clock Exp(1) / sum(kappa[frozen]) on the updated mask
-        T kf = zero;
-        for (int i = tid; i < d; i += nt) kf += sact[i] ? zero : skap[i];
-        const T rate_thaw = block_sum(kf, red, nw);
-        const T e_tt = exponential<T>(seed, 0xC0000000u + salt, lane);
-        tt_s = rate_thaw > zero ? e_tt / rate_thaw : inf;
+        // a fresh thaw clock Exp(1) / sum(kappa[frozen]) on the updated mask,
+        // reduced in the next round A (or after the last transition)
+        redraw_tt = true;
+        e_tt = e_tt_k;
       }
-      const T e_draw = exponential<T>(seed, 0x80000000u + salt, lane);
       exp_s = (reset || p_err) ? e_draw : (p_rej ? exp_s + e_draw : exp_s);
       mode = reset ? MODE_FRESH
                    : (p_err ? MODE_ERRONEOUS : (p_rej ? MODE_REJECTED : mode));
@@ -374,7 +426,7 @@ sticky_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__ v, T* __restric
       h_s = h_new;
       kval = p_acc ? EV_JUMP : (p_stick ? EV_STICK : (p_thaw ? EV_THAW : 0));
       cnt += kval > 0;
-      __syncthreads();  // v and act updates visible to every thread
+      __syncwarp();  // Banana's v and act of coordinates 0 and 1, for the next envelope
     }
 
     // ---- emit the event row (a finished chain repeats its frozen row) ----
@@ -404,6 +456,12 @@ sticky_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__ v, T* __restric
       for (int r = 0; r < RING; ++r) rg[r] = zero;
     }
   }
+  if (redraw_tt) {  // the last reset's thaw clock
+    frozen_kappa_partial();
+    __syncthreads();
+    const T rate_thaw = across_warps(r_kf, nw);
+    tt_s = rate_thaw > zero ? e_tt / rate_thaw : inf;
+  }
 
   for (int i = tid; i < d; i += nt) {
     x[i * B + b] = sx[i];
@@ -429,9 +487,13 @@ sticky_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__ v, T* __restric
   }
 }
 
+// Largest d whose dynamic shared memory fits beside the kernel's static
+// reduction rows (16 bytes kept for the alignment of the dynamic part).
 template <typename T>
 long max_dim() {
-  return (SMEM_BLOCK - SMEM_STATIC) / bytes_per_coord<T>();
+  cudaFuncAttributes a;
+  if (cudaFuncGetAttributes(&a, sticky_chunk_kernel<T, Gauss<T>>) != cudaSuccess) return 0;
+  return (SMEM_BLOCK - (long)a.sharedSizeBytes - 16) / bytes_per_coord<T>();
 }
 
 template <typename T, class Pot>

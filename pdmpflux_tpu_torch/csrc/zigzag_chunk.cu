@@ -1,39 +1,59 @@
-// K1: K fused Zig-Zag transitions per chain, one thread per chain.
+// K1: K fused Zig-Zag transitions per chain, a group of L lanes per chain.
 //
 // Replaces pdmpflux_tpu/ops/pallas/zigzag_chunk.py:run_chunk (body
 // _make_kernel) with kind="zigzag", sticky=False, in both modes: "events"
-// and "horizon" (K7: a lane also freezes once its committed clock reaches the
-// float32 target, lane_live in pdmp_common.cuh).  The plain
-// PyTorch version is run_chunk_plain in ops/cuda/zigzag_chunk.py; both draw
-// the same Threefry-2x32 counters as the Pallas kernel (key (seed + tile *
-// 7919, salt), counter row * tile + lane), so trajectories agree to rounding.
+// and "horizon" (K7: a chain also freezes once its committed clock reaches
+// the float32 target, lane_live in pdmp_common.cuh).  The plain PyTorch
+// version is run_chunk_plain in ops/cuda/zigzag_chunk.py; both draw the same
+// Threefry-2x32 counters as the Pallas kernel (key (seed + tile * 7919,
+// salt), counter row * tile + lane), so trajectories agree to rounding.
 //
-// Design.  One thread owns one chain for all K transitions: its scalars
-// (clock, horizon, Exp clock, counters, error ring) live in registers; x and
-// v stay in device memory in the (d, B) chain-minor layout and are updated
-// in place, so a warp's loads and the (K, d, B) event-row stores coalesce
-// for every d.  The envelope is built coordinate-outer, grid-inner: each
-// coordinate's rate and tangent at consecutive grid points give that
-// coordinate's segment maxima, summed into a per-thread box[] of n_grid - 1
-// segments, so no (n_grid, d) array is ever held.  A finished chain (count
-// >= cap, or in horizon mode clock >= target) skips the transition and emits
-// its frozen row.  The fill loop over
-// chunks stays on the host (one launch per chunk, one count check between
-// chunks), exactly as the JAX driver loops.
+// What bounds it on an H100: latency and issue.  Per transition a chain
+// evaluates the gradient at 2 (n_grid - 1) + 2 points per coordinate, takes
+// n_grid - 1 segment maxima per coordinate (one IEEE divide each) and draws
+// three Threefry blocks, against (2 d + 12) * sizeof(T) bytes of event row.
+// The first design gave each chain one thread: 100 dependent segment maxima
+// per transition at d = 10, box[] and cum[] in local memory, x and v re-read
+// from device memory, and at B = 8192 two warps per SM (one at B = 4096),
+// too few to hide a dependent chain.
 //
-// What bounds it on an H100: arithmetic and latency, not bytes.  Per
-// transition a thread evaluates the gradient (n_grid + 2) * d times and
-// draws three Threefry blocks (~20 integer rounds each), against
-// (2 d + 12) * sizeof(T) bytes of event row written.  box[]/cum[] are
-// dynamically indexed and sit in local memory (L1); at d = 10 the x/v
-// re-reads hit L1 too.  The first cost to attack is the gradient re-evaluation
-// per grid point (the rate of the linear flow is affine in t for gauss).
+// Design.  A group of L consecutive lanes (L a power of two, 32 / L chains to
+// a warp) owns one chain for all K transitions; the chain's x and v sit in
+// the group's slice of shared memory beside its row of segment boxes (read
+// in place in the (d, B) state where a block's copies pass 227 KB, so d has
+// no limit).  Each lane of a group:
+//  - envelope: takes segments lg, lg + L, ... of the grid; for the linear
+//    flow a segment's two ends are independent evaluations at x + v t_j and
+//    x + v t_{j+1}, so the lane needs nothing from its neighbours; it adds
+//    the segment's maxima over the coordinates in coordinate order, as the
+//    first design did, and posts the box to the row;
+//  - clock inversion: every lane walks the row in grid order, adding the
+//    cumulative sum (EnvelopeWalk in pdmp_common.cuh), so tp, lam_bar and
+//    the overflow, and every decision after them, come out the same in
+//    every lane of the group;
+//  - thinning, the flip's rates and the flow: take a contiguous run of
+//    ceil(d / L) coordinates; sums over the group go by an xor butterfly
+//    (the same bits in every lane), the flip's prefix sums by a group scan of
+//    the lanes' totals, then c <= u * c[d - 1] is counted and clamped to
+//    d - 1, as _categorical_rows does;
+//  - draws: lane 0 draws the acceptance uniform, lane 1 the flip uniform and
+//    lane 2 the Exp clock (transition_draw), one Threefry block in the same
+//    instructions, and shuffles them to the group (L = 2: every lane draws
+//    the clock itself).
+// No array is indexed at run time, so nothing lands in local memory.  Every
+// shuffle and __syncwarp names only the group's lanes, so a group that is
+// frozen, or past B at the ragged end of the last warp, skips its
+// transitions or leaves without stalling the other groups of its warp.  The
+// plain version sums with torch.sum, so the kernel agrees with it to
+// rounding, not bit for bit.
 //
-// The gradient cannot be traced into CUDA the way Pallas traces jax.jvp, so
-// the kernel takes a device potential: the gradient component at x + v t and
-// its directional derivative along v (the Hessian-vector product), from
-// which the rate's time derivative follows.  Gauss and Banana are provided
-// (pdmp_common.cuh, shared with K6).
+// Lanes per chain (lanes_for): the fewest that give the card 12 warps per
+// SM.  Measured per K=32 launch on the H100 (chip_ab.py --lanes), L = 2, 4,
+// 8, 16: B = 8192 (flagship) 0.241, 0.180, 0.183, 0.237 ms; B = 4096
+// (horizon) 0.240, 0.162, 0.140, 0.125 ms.  The rule takes 8 and 16 there,
+// within 2% of the best at B = 8192 and the best at B = 4096; more lanes
+// split the envelope further but repeat the walk, the draws and the
+// scalar tail in more lanes, so past enough warps they cost issue slots.
 
 #include "pdmp_common.cuh"
 
@@ -41,18 +61,66 @@ namespace {
 
 using namespace pdmp;
 
-template <typename T, class Pot>
-__global__ void zigzag_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__ v,
-                                    T* __restrict__ fs, int* __restrict__ iscal,
-                                    T* __restrict__ ring, int* __restrict__ ev_kind,
-                                    T* __restrict__ ev_x, T* __restrict__ ev_v,
-                                    T* __restrict__ ev_fs, T* __restrict__ ev_ring) {
+constexpr long SMEM_BLOCK = 232448;  // bytes of shared memory one block may use
+
+// Sum over the group's L lanes; every lane gets the same bits (each step
+// adds two values that both lanes of the pair hold).
+template <int L, typename U>
+__device__ __forceinline__ U group_sum(U v, unsigned mask) {
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o, L);
+  return v;
+}
+
+// Inclusive prefix sum over the group's lanes in lane order.
+template <int L, typename T>
+__device__ __forceinline__ T group_scan(T v, unsigned mask, int lg) {
+#pragma unroll
+  for (int o = 1; o < L; o <<= 1) {
+    const T y = __shfl_up_sync(mask, v, o, L);
+    if (lg >= o) v += y;
+  }
+  return v;
+}
+
+// Bytes of dynamic shared memory a block of `threads` lanes takes: each
+// chain's box row and, where they fit, its x and v.
+template <typename T, int L>
+long smem_bytes(int d, int threads, bool xv) {
+  return (long)(threads / L) * (MAXG + (xv ? 2L * d : 0)) * (long)sizeof(T);
+}
+
+template <typename T, class Pot, int L>
+__global__ void zigzag_chunk_kernel(Params p, int in_smem, T* __restrict__ x,
+                                    T* __restrict__ v, T* __restrict__ fs,
+                                    int* __restrict__ iscal, T* __restrict__ ring,
+                                    int* __restrict__ ev_kind, T* __restrict__ ev_x,
+                                    T* __restrict__ ev_v, T* __restrict__ ev_fs,
+                                    T* __restrict__ ev_ring) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const long B = p.B;
-  const long b = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const long b = ((long)blockIdx.x * blockDim.x + threadIdx.x) / L;
+  if (b >= B) return;  // a whole group leaves: its shuffles name only its lanes
+  const int lg = threadIdx.x & (L - 1), cg = threadIdx.x / L;
+  const unsigned gmask = ((1u << L) - 1) << ((threadIdx.x & 31) & ~(L - 1));
   const int d = p.d, n_grid = p.n_grid, G = p.n_grid - 1;
-  T* xb = x + b;
-  T* vb = v + b;
+  // the chain's box row, then its x and v: the group's shared copy, or in
+  // place in the (d, B) state at stride B
+  T* box = (T*)smem + (long)cg * (MAXG + (in_smem ? 2 * d : 0));
+  const long sx = in_smem ? 1 : B;
+  T* xb = in_smem ? box + MAXG : x + b;
+  T* vb = in_smem ? xb + d : v + b;
+  const long s1 = d > 1 ? sx : 0;  // coordinate 1's offset (Banana reads it)
+  // this lane's coordinates [i0, i1) for thinning, the flip and the flow
+  const int per = (d + L - 1) / L;
+  const int i0 = min(d, lg * per), i1 = min(d, i0 + per);
+  if (in_smem) {
+    for (int i = i0; i < i1; ++i) {
+      xb[i] = x[i * B + b];
+      vb[i] = v[i * B + b];
+    }
+    __syncwarp(gmask);
+  }
 
   T t_s = fs[F_T * B + b], tc_s = fs[F_TC * B + b], ts_s = fs[F_TS * B + b];
   T h_s = fs[F_H * B + b], bh_s = fs[F_BH * B + b], exp_s = fs[F_EXP * B + b];
@@ -67,71 +135,69 @@ __global__ void zigzag_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__
   // chunk seed + tile * 7919 in int32 (wrapping), as a uint32 key word
   const uint32_t seed = (uint32_t)p.seed + (uint32_t)(b / p.tile) * 7919u;
   const uint32_t lane = (uint32_t)(b % p.tile);
-  const T inf = (T)INFINITY, zero = (T)0;
+  const T zero = (T)0, refresh = (T)p.refresh;
 
   for (int k = 0; k < p.K; ++k) {
-    const bool live = lane_live(p, cnt, t_s);
+    const bool live = lane_live(p, cnt, t_s);  // the same in every lane of the group
     int kval = 0;
     if (live) {
-      // ---- envelope on [0, bh]: tangent-intersection segment maxima ----
+      // ---- the transition's draws, one Threefry block per lane ----
+      const T mine = transition_draw<T>(seed, (uint32_t)k, (uint32_t)p.tile, lane,
+                                        L >= 4 ? (lg < 2 ? lg : 3) : lg);
+      const T u_acc = __shfl_sync(gmask, mine, 0, L);
+      const T u_flip = __shfl_sync(gmask, mine, 1, L);
+      const T e_draw = L >= 4 ? __shfl_sync(gmask, mine, 2, L)
+                              : transition_draw<T>(seed, (uint32_t)k, (uint32_t)p.tile,
+                                                   lane, 3);
+      const T x0 = xb[0], v0 = vb[0], x1 = xb[s1], v1 = vb[s1];
+      // coordinate i's rate along v and its time derivative at time t
+      auto rate = [&](int i, T xi, T vi, T t, T& f, T& gd) {
+        T g, dg;
+        Pot::at(i, xi, vi, x0, v0, x1, v1, t, nullptr, g, dg);
+        f = g * vi;
+        gd = dg * vi;
+      };
+
+      // ---- envelope on [0, bh]: this lane's segments, coordinates in order ----
       const T step = bh_s / (T)G;
-      T box[MAXG];
-      for (int j = 0; j < G; ++j) box[j] = zero;
-      for (int i = 0; i < d; ++i) {
-        const T vi = vb[i * B];
-        T f_prev = zero, g_prev = zero;
-        for (int j = 0; j < n_grid; ++j) {
-          T g, dg;
-          Pot::eval(xb, vb, nullptr, B, i, step * (T)j, g, dg);
-          T f = g * vi, gd = dg * vi;
+      for (int j = lg; j < G; j += L) {  // segment j: grid points j and j + 1
+        const T t0 = step * (T)j, t1 = step * (T)(j + 1);
+        T sum = zero;
+        for (int i = 0; i < d; ++i) {
+          const T xi = xb[i * sx], vi = vb[i * sx];
+          T f0, g0, f1, g1;
+          rate(i, xi, vi, t0, f0, g0);
+          rate(i, xi, vi, t1, f1, g1);
           if (!p.signed_bound) {
             // d/dt max(r, 0): JAX's JVP takes half the tangent at r == 0
-            const T coef = f > zero ? (T)1 : (f == zero ? (T)0.5 : zero);
-            gd = gd * coef;
-            f = nmax(f, zero);
+            g0 = g0 * (f0 > zero ? (T)1 : (f0 == zero ? (T)0.5 : zero));
+            g1 = g1 * (f1 > zero ? (T)1 : (f1 == zero ? (T)0.5 : zero));
+            f0 = nmax(f0, zero);
+            f1 = nmax(f1, zero);
           }
-          if (j > 0) {
-            const T den = gd - g_prev;
-            const T num = f_prev - f + gd * step;
-            T ip = den == zero ? zero : num / den;
-            if (isnan(ip)) ip = zero;
-            ip = ip > zero ? ip : zero;
-            ip = ip < step ? ip : step;
-            const T inter = f_prev + g_prev * ip;
-            box[j - 1] += nmax(nmax(f_prev, f), nmax(inter, zero));
-          }
-          f_prev = f;
-          g_prev = gd;
+          sum += segment_max(f0, g0, f1, g1, step);
         }
+        box[j] = sum + refresh;
       }
-      T cum[MAXG];
-      cum[0] = zero;
-      for (int j = 0; j < G; ++j) {
-        box[j] = box[j] + (T)p.refresh;
-        cum[j + 1] = cum[j] + box[j] * step;
-      }
+      __syncwarp(gmask);  // every box of the chain is in its row
 
-      // ---- invert the envelope at the Exp clock ----
-      int idx = 0;
-      for (int j = 0; j < n_grid; ++j) idx += cum[j] < exp_s;
-      const bool overflow = idx >= n_grid;
-      T tp = inf, lam_bar = box[G - 1];
-      if (idx >= 1 && idx < n_grid) {
-        const T lo = cum[idx - 1], hi = cum[idx];
-        const T denom = hi == lo ? (T)1 : hi - lo;
-        tp = step * (T)(idx - 1) + (exp_s - lo) / denom * step;
-        lam_bar = box[idx - 1];
-      }
+      // ---- invert the envelope at the Exp clock, boxes in grid order ----
+      EnvelopeWalk<T> walk(step, exp_s);
+      for (int j = 0; j < G; ++j) walk.add(box[j], j);
+      T tp, lam_bar;
+      bool overflow;
+      walk.finish(n_grid, tp, lam_bar, overflow);
       const bool fresh = mode == MODE_FRESH, erroneous = mode == MODE_ERRONEOUS;
       const T tp_safe = overflow ? zero : tp;
 
       // ---- thinning at tp on the unsigned rate ----
-      T lam_t = zero;
-      for (int i = 0; i < d; ++i) {
-        T g, dg;
-        Pot::eval(xb, vb, nullptr, B, i, tp_safe, g, dg);
-        lam_t += nmax(g * vb[i * B], zero);
+      T lam = zero;
+      for (int i = i0; i < i1; ++i) {
+        T f, gd;
+        rate(i, xb[i * sx], vb[i * sx], tp_safe, f, gd);
+        lam += nmax(f, zero);
       }
+      const T lam_t = group_sum<L>(lam, gmask);
       const T ar_new = lam_t / lam_bar;
 
       const bool beyond = tp > h_s;
@@ -140,38 +206,44 @@ __global__ void zigzag_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__
       const bool p_ac = !beyond;
       const bool p_err = p_ac && (ar_new > (T)1);
       const bool p_proxy = p_ac && !p_err;
-      const uint32_t salt = (uint32_t)k;
-      const T u_acc = uniform<T>(seed, salt, 1u * p.tile + lane);
       const bool acc = u_acc < ar_new;
       const bool p_acc = p_proxy && acc;
       const bool p_rej = p_proxy && !acc;
 
-      // ---- flow, then the inverse-CDF coordinate flip ----
+      // ---- the inverse-CDF flip coordinate on the rates at flow_t ----
       const T flow_t = p_moveh ? h_s : (p_acc ? tp_safe : zero);
       int m = -1;
-      if (p_acc) {
-        const T u_flip = uniform<T>(seed, salt, 2u * p.tile + lane);
-        T total = zero;
-        for (int i = 0; i < d; ++i) {
-          T g, dg;
-          Pot::eval(xb, vb, nullptr, B, i, flow_t, g, dg);
-          total += nmax(g * vb[i * B], zero);
+      if (p_acc) {  // the same in every lane of the group
+        T own = zero;  // this lane's rates, added in coordinate order
+        for (int i = i0; i < i1; ++i) {
+          T f, gd;
+          rate(i, xb[i * sx], vb[i * sx], flow_t, f, gd);
+          own += nmax(f, zero);
         }
+        // c_i = pre + (this lane's rates up to i): pre sums the lower lanes
+        const T incl = group_scan<L>(own, gmask, lg);
+        T pre = __shfl_up_sync(gmask, incl, 1, L);
+        if (lg == 0) pre = zero;
+        const T total = __shfl_sync(gmask, pre + own, (d - 1) / per, L);  // c[d - 1]
         const T thresh = u_flip * total;
         T c = zero;
         int n_le = 0;
-        for (int i = 0; i < d; ++i) {
-          T g, dg;
-          Pot::eval(xb, vb, nullptr, B, i, flow_t, g, dg);
-          c += nmax(g * vb[i * B], zero);
-          n_le += c <= thresh;
+        for (int i = i0; i < i1; ++i) {
+          T f, gd;
+          rate(i, xb[i * sx], vb[i * sx], flow_t, f, gd);
+          c += nmax(f, zero);
+          n_le += pre + c <= thresh;
         }
+        n_le = group_sum<L>(n_le, gmask);
         m = n_le < d - 1 ? n_le : d - 1;
       }
-      for (int i = 0; i < d; ++i) {
-        const T vi = vb[i * B];
-        xb[i * B] = xb[i * B] + vi * flow_t;
-        if (i == m) vb[i * B] = -vi;
+
+      // ---- flow, then the flip, on this lane's coordinates ----
+      __syncwarp(gmask);  // the group has read x and v for this transition
+      for (int i = i0; i < i1; ++i) {
+        const T vi = vb[i * sx];
+        xb[i * sx] = xb[i * sx] + vi * flow_t;
+        if (i == m) vb[i * sx] = -vi;
       }
 
       // ---- Kahan time commit, horizon adaptation ----
@@ -195,7 +267,6 @@ __global__ void zigzag_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__
       for (int r = 0; r < RING; ++r)
         if (p_err && ring_idx == r) rg[r] = ar_new;
       const bool reset = p_moveh || p_erreset || p_acc;
-      const T e_draw = exponential<T>(seed, 0x80000000u + salt, lane);
       exp_s = (reset || p_err) ? e_draw : (p_rej ? exp_s + e_draw : exp_s);
       mode = reset ? MODE_FRESH
                    : (p_err ? MODE_ERRONEOUS : (p_rej ? MODE_REJECTED : mode));
@@ -215,19 +286,21 @@ __global__ void zigzag_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__
 
     // ---- emit the event row (a finished chain repeats its frozen row) ----
     const long row = (long)k;
-    ev_kind[(row * 4 + 0) * B + b] = kval;
-    ev_kind[(row * 4 + 1) * B + b] = rej;
-    ev_kind[(row * 4 + 2) * B + b] = err;
-    ev_kind[(row * 4 + 3) * B + b] = hit;
-    for (int i = 0; i < d; ++i) {
-      ev_x[(row * d + i) * B + b] = xb[i * B];
-      ev_v[(row * d + i) * B + b] = vb[i * B];
+    for (int i = i0; i < i1; ++i) {
+      ev_x[(row * d + i) * B + b] = xb[i * sx];
+      ev_v[(row * d + i) * B + b] = vb[i * sx];
     }
-    ev_fs[(row * 3 + 0) * B + b] = t_s + ts_s;
-    ev_fs[(row * 3 + 1) * B + b] = h_s;
-    ev_fs[(row * 3 + 2) * B + b] = ar_s;
+    if (lg == 0) {
+      ev_kind[(row * 4 + 0) * B + b] = kval;
+      ev_kind[(row * 4 + 1) * B + b] = rej;
+      ev_kind[(row * 4 + 2) * B + b] = err;
+      ev_kind[(row * 4 + 3) * B + b] = hit;
+      ev_fs[(row * 3 + 0) * B + b] = t_s + ts_s;
+      ev_fs[(row * 3 + 1) * B + b] = h_s;
+      ev_fs[(row * 3 + 2) * B + b] = ar_s;
 #pragma unroll
-    for (int r = 0; r < RING; ++r) ev_ring[(row * RING + r) * B + b] = rg[r];
+      for (int r = 0; r < RING; ++r) ev_ring[(row * RING + r) * B + b] = rg[r];
+    }
 
     // counters reset after a recorded event
     if (kval > 0) {
@@ -235,33 +308,96 @@ __global__ void zigzag_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__
 #pragma unroll
       for (int r = 0; r < RING; ++r) rg[r] = zero;
     }
+    __syncwarp(gmask);  // x and v as the group wrote them, for the next envelope
   }
 
-  fs[F_T * B + b] = t_s;
-  fs[F_TC * B + b] = tc_s;
-  fs[F_TS * B + b] = ts_s;
-  fs[F_H * B + b] = h_s;
-  fs[F_BH * B + b] = bh_s;
-  fs[F_EXP * B + b] = exp_s;
-  fs[F_AR * B + b] = ar_s;
-  iscal[I_MODE * B + b] = mode;
-  iscal[I_REJ * B + b] = rej;
-  iscal[I_ERR * B + b] = err;
-  iscal[I_HIT * B + b] = hit;
-  iscal[I_CNT * B + b] = cnt;
+  if (in_smem) {
+    for (int i = i0; i < i1; ++i) {
+      x[i * B + b] = xb[i];
+      v[i * B + b] = vb[i];
+    }
+  }
+  if (lg == 0) {
+    fs[F_T * B + b] = t_s;
+    fs[F_TC * B + b] = tc_s;
+    fs[F_TS * B + b] = ts_s;
+    fs[F_H * B + b] = h_s;
+    fs[F_BH * B + b] = bh_s;
+    fs[F_EXP * B + b] = exp_s;
+    fs[F_AR * B + b] = ar_s;
+    iscal[I_MODE * B + b] = mode;
+    iscal[I_REJ * B + b] = rej;
+    iscal[I_ERR * B + b] = err;
+    iscal[I_HIT * B + b] = hit;
+    iscal[I_CNT * B + b] = cnt;
 #pragma unroll
-  for (int r = 0; r < RING; ++r) ring[r * B + b] = rg[r];
+    for (int r = 0; r < RING; ++r) ring[r * B + b] = rg[r];
+  }
+}
+
+int forced_lanes = 0;  // zigzag_chunk_set_lanes: 0 keeps the rule
+
+// Lanes per chain: the fewest (from 2, at most 16) with B * L >= 132 * 12 *
+// 32, 12 warps on each of the card's SMs (readings in the note above).
+int lanes_for(int B) {
+  if (forced_lanes) return forced_lanes;
+  int L = 2;
+  while (L < 16 && (long)B * L < 132L * 12 * 32) L *= 2;
+  return L;
+}
+
+template <typename T, class Pot, int L>
+int launch_lanes(const Params& p, void* x, void* v, void* fs, void* iscal, void* ring,
+                 void* ev_kind, void* ev_x, void* ev_v, void* ev_fs, void* ev_ring,
+                 cudaStream_t stream) {
+  const long lanes = (long)p.B * L;
+  // 128-thread blocks where they fill the card's 132 SMs, else one warp each
+  const int threads = lanes >= 132L * 128 ? 128 : 32;
+  const int blocks = (int)((lanes + threads - 1) / threads);
+  const bool in_smem = smem_bytes<T, L>(p.d, threads, true) <= SMEM_BLOCK;
+  const long smem = smem_bytes<T, L>(p.d, threads, in_smem);
+  auto kern = zigzag_chunk_kernel<T, Pot, L>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<blocks, threads, smem, stream>>>(
+      p, (int)in_smem, (T*)x, (T*)v, (T*)fs, (int*)iscal, (T*)ring, (int*)ev_kind,
+      (T*)ev_x, (T*)ev_v, (T*)ev_fs, (T*)ev_ring);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, class Pot>
-void launch(const Params& p, void* x, void* v, void* fs, void* iscal, void* ring,
-            void* ev_kind, void* ev_x, void* ev_v, void* ev_fs, void* ev_ring,
-            cudaStream_t stream) {
-  const int threads = 32;  // spread B = 8192 chains over every SM
-  const int blocks = (p.B + threads - 1) / threads;
-  zigzag_chunk_kernel<T, Pot><<<blocks, threads, 0, stream>>>(
-      p, (T*)x, (T*)v, (T*)fs, (int*)iscal, (T*)ring, (int*)ev_kind, (T*)ev_x,
-      (T*)ev_v, (T*)ev_fs, (T*)ev_ring);
+int launch(const Params& p, void* x, void* v, void* fs, void* iscal, void* ring,
+           void* ev_kind, void* ev_x, void* ev_v, void* ev_fs, void* ev_ring,
+           cudaStream_t s) {
+  switch (lanes_for(p.B)) {
+    case 2:
+      return launch_lanes<T, Pot, 2>(p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v, ev_fs,
+                                     ev_ring, s);
+    case 4:
+      return launch_lanes<T, Pot, 4>(p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v, ev_fs,
+                                     ev_ring, s);
+    case 8:
+      return launch_lanes<T, Pot, 8>(p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v, ev_fs,
+                                     ev_ring, s);
+    case 16:
+      return launch_lanes<T, Pot, 16>(p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v, ev_fs,
+                                      ev_ring, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int dispatch(int potential, const Params& p, void* x, void* v, void* fs, void* iscal,
+             void* ring, void* ev_kind, void* ev_x, void* ev_v, void* ev_fs, void* ev_ring,
+             cudaStream_t s) {
+  if (potential == 0)
+    return launch<T, Gauss<T>>(p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v, ev_fs,
+                               ev_ring, s);
+  if (potential == 1)
+    return launch<T, Banana<T>>(p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v, ev_fs,
+                                ev_ring, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -279,22 +415,22 @@ extern "C" int zigzag_chunk_launch(int f64, int potential, int d, int B, int K,
   Params p{d, B, K, n_grid, adaptive, signed_bound, cap, tile, seed, refresh,
            horizon, t_target};
   cudaStream_t s = (cudaStream_t)stream;
-  if (f64) {
-    if (potential == 0)
-      launch<double, Gauss<double>>(p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v, ev_fs, ev_ring, s);
-    else if (potential == 1)
-      launch<double, Banana<double>>(p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v, ev_fs, ev_ring, s);
-    else
-      return (int)cudaErrorInvalidValue;
-  } else {
-    if (potential == 0)
-      launch<float, Gauss<float>>(p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v, ev_fs, ev_ring, s);
-    else if (potential == 1)
-      launch<float, Banana<float>>(p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v, ev_fs, ev_ring, s);
-    else
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return f64 ? dispatch<double>(potential, p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
+                                ev_fs, ev_ring, s)
+             : dispatch<float>(potential, p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
+                               ev_fs, ev_ring, s);
+}
+
+// The lanes per chain K1 takes at B chains.
+extern "C" int zigzag_chunk_lanes(int B) { return lanes_for(B); }
+
+// Force L lanes per chain (2, 4, 8 or 16; 0 restores the rule), for timing
+// the choices against each other (chip_ab.py); returns the previous setting.
+extern "C" int zigzag_chunk_set_lanes(int L) {
+  if (L != 0 && L != 2 && L != 4 && L != 8 && L != 16) return -1;
+  const int prev = forced_lanes;
+  forced_lanes = L;
+  return prev;
 }
 
 extern "C" const char* pdmpflux_cuda_error_string(int err) {

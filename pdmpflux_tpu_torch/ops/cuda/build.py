@@ -72,6 +72,10 @@ def _declare(lib) -> None:
         + [i, ctypes.c_float]           # horizon mode, its float32 target
         + [p] * 10 + [p]                # state, event rows, stream
     )
+    lib.zigzag_chunk_lanes.restype = i
+    lib.zigzag_chunk_lanes.argtypes = [i]
+    lib.zigzag_chunk_set_lanes.restype = i
+    lib.zigzag_chunk_set_lanes.argtypes = [i]
     lib.suzz_chunk_launch.restype = i
     lib.suzz_chunk_launch.argtypes = (
         [i] * 8 + [ctypes.c_double] + [i] * 3 + [i, ctypes.c_float]

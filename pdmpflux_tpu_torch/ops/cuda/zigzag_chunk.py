@@ -25,8 +25,8 @@ Two versions of the same function live here:
   operation for operation the Pallas body (``_make_kernel``), sticky and
   Speed-Up branches included.  It draws the same Threefry counters, so on
   the same state it reproduces the Pallas kernel trajectory by trajectory.
-* the CUDA kernels: ``csrc/zigzag_chunk.cu`` (K1, one thread per chain),
-  ``csrc/sticky_chunk.cu`` (K6, one CTA per chain) and
+* the CUDA kernels: ``csrc/zigzag_chunk.cu`` (K1, a group of lanes per
+  chain), ``csrc/sticky_chunk.cu`` (K6, one CTA per chain) and
   ``csrc/suzz_chunk.cu`` (K4, one warp per chain, the envelope's grid points
   across its lanes).
 

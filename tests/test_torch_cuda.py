@@ -56,6 +56,46 @@ def test_k1_kernel_matches_plain_f64(dev, pot, signed):
             torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12, equal_nan=True)
 
 
+@pytest.mark.parametrize("pot,d,B,kw", [
+    ("gauss", 10, 512, dict(grid_size=2)),     # one segment
+    ("banana", 10, 512, dict(grid_size=33)),   # segments past a group's lanes
+    ("gauss", 10, 512, dict(grid_size=64, signed_bound=False)),
+    ("gauss", 10, 1001, {}),                   # a ragged last warp
+    ("gauss", 1000, 256, {}),                  # long runs of coordinates per lane
+    ("gauss", 8000, 3, dict(tmax=0.01)),       # x and v read in place
+])
+def test_k1_kernel_matches_plain_f64_at_edges(dev, pot, d, B, kw):
+    """K1's lane groups at the grid's edges, a B that leaves part of the
+    last warp without a chain, d = 1000, and d = 8000, where two chains' f64
+    x and v exceed a block's shared memory and K1 reads them in place,
+    against the plain version over two chunks from one f64 state with some
+    chains capped."""
+    grad = {"gauss": pt.potentials.grad_gauss, "banana": pt.potentials.grad_banana}[pot]
+    sampler = pt.ZigZag(d, grad, **kw)
+    rs = np.random.default_rng(d + B)
+    state = sampler.init_state_batch(rs.normal(size=(B, d)),
+                                     rs.choice([-1.0, 1.0], size=(B, d)), 3, torch.float64, dev)
+    cfg = driver.chunk_config(sampler, 16, 20, 128)
+    counts = torch.zeros(B, dtype=torch.int32, device=dev)
+    counts[::7] = 17
+    st_k = driver.chunk_state(state, counts)
+    st_p = k1.ChunkState(*(None if a is None else a.clone() for a in st_k))
+    fills = [k1.empty_fill(32, d, B, torch.float64, dev) for _ in range(2)]
+    for it in range(2):
+        k1.run_chunk(11 + it * 1000003, st_k, fills[0], 16 * it, cfg)
+        k1.run_chunk_plain(11 + it * 1000003, st_p, fills[1], 16 * it, cfg)
+    torch.cuda.synchronize()
+    for a, b in zip((*st_k, *fills[0]), (*st_p, *fills[1])):
+        if a is None:
+            continue
+        if a.dtype == torch.int32:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12, equal_nan=True)
+    assert int((fills[0].kind[:, 0] == pt.EV_JUMP).sum()) > B
+    assert (st_k.iscal[k1.I_CNT] == 20).any()
+
+
 def test_k2_kernel_matches_plain(dev):
     T, d, B, W = 90, 7, 40, 60
     g = torch.Generator(device=dev).manual_seed(0)
@@ -90,9 +130,44 @@ def test_sample_skeleton_on_card(dev):
 def test_k6_kernel_matches_plain_f64(dev, pot, d):
     """K6 against its plain version over two chunks from one f64 state with
     chains near the axes (sticks and thaws) and some chains capped."""
+    _k6_matches_plain(dev, pot, d)
+
+
+@pytest.mark.parametrize("pot,d,B,kw", [
+    ("gauss", 10, 300, dict(grid_size=2)),
+    ("banana", 10, 300, dict(grid_size=33)),
+    ("gauss", 10, 300, dict(grid_size=64, signed_bound=False)),
+    ("gauss", 1, 300, {}),       # one coordinate
+    ("banana", 33, 300, {}),     # a warp and one lane
+    ("gauss", 1000, 64, {}),     # a coordinate per thread
+    ("gauss", 1500, 16, {}),     # two tiles of 1024 coordinates
+])
+def test_k6_kernel_matches_plain_f64_at_edges(dev, pot, d, B, kw):
+    """K6 at the grid's edges and at the block's: d = 1 and 33, one
+    coordinate per thread of a 1024-thread block (d = 1000), and the strided
+    map past it (d = 1500)."""
+    _k6_matches_plain(dev, pot, d, B, **kw)
+
+
+def test_k6_kernel_runs_at_its_largest_d(dev):
+    """At the largest d whose copy fits a block's shared memory (float64) K6
+    runs and matches its plain version; one coordinate more raises."""
+    d = k1.sticky_max_dim(torch.float64)
+    _k6_matches_plain(dev, "gauss", d, 4, n_chunks=1, events=False)
+    big = pt.StickyZigZag(d + 1, pt.potentials.grad_gauss)
+    state = big.init_state_batch(np.zeros((2, d + 1)), np.ones((2, d + 1)), 0,
+                                 torch.float64, dev)
+    cfg = driver.chunk_config(big, 4, 10, 128)
+    cfg = cfg._replace(kappa=cfg.kappa.to(dev))
+    st = driver.chunk_state(state, torch.zeros(2, dtype=torch.int32, device=dev), sticky=True)
+    fill = k1.empty_fill(4, d + 1, 2, torch.float64, dev, sticky=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        k1.run_chunk(0, st, fill, 0, cfg)
+
+
+def _k6_matches_plain(dev, pot, d, B=300, n_chunks=2, events=True, **kw):
     grad = {"gauss": pt.potentials.grad_gauss, "banana": pt.potentials.grad_banana}[pot]
-    B = 300
-    sampler = pt.StickyZigZag(d, grad, np.full(d, 3.0))
+    sampler = pt.StickyZigZag(d, grad, np.full(d, 3.0), **kw)
     rs = np.random.default_rng(d)
     state = sampler.init_state_batch(rs.normal(size=(B, d)) * 0.05,
                                      rs.choice([-1.0, 1.0], size=(B, d)),
@@ -103,20 +178,23 @@ def test_k6_kernel_matches_plain_f64(dev, pot, d):
     counts[::7] = 37
     st_k = driver.chunk_state(state, counts, sticky=True)
     st_p = k1.ChunkState(*(a.clone() for a in st_k))
-    fills = [k1.empty_fill(32, d, B, torch.float64, dev, sticky=True) for _ in range(2)]
+    fills = [k1.empty_fill(16 * n_chunks, d, B, torch.float64, dev, sticky=True)
+             for _ in range(2)]
     n0 = build.LAUNCHES["sticky_chunk"]
-    for it in range(2):
+    for it in range(n_chunks):
         k1.run_chunk(11 + it * 1000003, st_k, fills[0], 16 * it, cfg)
         k1.run_chunk_plain(11 + it * 1000003, st_p, fills[1], 16 * it, cfg)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["sticky_chunk"] == n0 + 2
+    assert build.LAUNCHES["sticky_chunk"] == n0 + n_chunks
     for a, b in zip((*st_k, *fills[0]), (*st_p, *fills[1])):
         if a.dtype in (torch.int32, torch.bool):
             assert torch.equal(a, b)
         else:
             torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12, equal_nan=True)
     kinds = fills[0].kind[:, 0]
-    assert (kinds == pt.EV_STICK).any() and (kinds == pt.EV_THAW).any()
+    assert (kinds == pt.EV_STICK).any()
+    if events:
+        assert (kinds == pt.EV_THAW).any()
 
 
 def test_sticky_sample_skeleton_on_card(dev):

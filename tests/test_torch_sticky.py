@@ -42,8 +42,8 @@ NAMES = ("x", "v", "fs", "iscal", "ring", "act", "ev_kind", "ev_x", "ev_v",
          "ev_fs", "ev_ring", "ev_act")
 
 
-def _samplers(pot, d, kappa, signed):
-    kw = dict(signed_bound=signed)
+def _samplers(pot, d, kappa, signed, grid=10):
+    kw = dict(signed_bound=signed, grid_size=grid)
     if pot == "gauss":
         return (pf.StickyZigZag(d, lambda x: x, kappa, **kw),
                 pt.StickyZigZag(d, pt.potentials.grad_gauss, kappa, **kw))
@@ -51,8 +51,8 @@ def _samplers(pot, d, kappa, signed):
             pt.StickyZigZagAD(d, pt.potentials.banana, kappa, **kw))
 
 
-def _run_both(pot, d, B, kappa, signed, x_scale, seed):
-    js, ts = _samplers(pot, d, kappa, signed)
+def _run_both(pot, d, B, kappa, signed, x_scale, seed, grid=10):
+    js, ts = _samplers(pot, d, kappa, signed, grid)
     assert ts.device_potential == pot
     rs = np.random.default_rng(d + B)
     x0 = rs.normal(size=(B, d)) * x_scale  # near the axes: sticks come early
@@ -105,6 +105,19 @@ def _run_both(pot, d, B, kappa, signed, x_scale, seed):
 ])
 def test_plain_k6_matches_pallas_f64(pot, d, B, kappa, signed, x_scale, seed):
     ref, mine = _run_both(pot, d, B, np.full(d, kappa), signed, x_scale, seed)
+    _assert_f64_equal(ref, mine)
+
+
+@pytest.mark.parametrize("pot,grid,signed", [("gauss", 2, True), ("banana", 33, False),
+                                             ("gauss", 64, False)])
+def test_plain_k6_matches_pallas_f64_at_grid_edges(pot, grid, signed):
+    """The envelope's edges: a single segment (2), and more segments than a
+    warp has lanes (33, 64), whose totals the kernel reduces one by one."""
+    ref, mine = _run_both(pot, 6, 128, np.full(6, 2.0), signed, 0.1, 11 * grid, grid)
+    _assert_f64_equal(ref, mine)
+
+
+def _assert_f64_equal(ref, mine):
     for name, a, b in zip(NAMES, ref, mine):
         if name in ("act", "ev_act"):  # JAX keeps 0/1 in the state dtype
             assert b.dtype == np.bool_ and a.shape == b.shape, name

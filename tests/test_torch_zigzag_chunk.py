@@ -96,6 +96,19 @@ NAMES = ("x", "v", "fs", "iscal", "ring", "ev_kind", "ev_x", "ev_v", "ev_fs",
 ])
 def test_plain_k1_matches_pallas_f64(pot, d, grid, signed, seed):
     outs, mine = _run_both(pot, d, grid, signed, jnp.float64, seed)
+    _assert_f64_equal(outs, mine)
+
+
+@pytest.mark.parametrize("pot,grid,signed", [("gauss", 2, True), ("banana", 33, False),
+                                             ("gauss", 64, False)])
+def test_plain_k1_matches_pallas_f64_at_grid_edges(pot, grid, signed):
+    """The envelope's edges that the kernel's lane groups split: a single
+    segment (2), and more segments than a group has lanes (33, 64)."""
+    outs, mine = _run_both(pot, 10, grid, signed, jnp.float64, 7 * grid)
+    _assert_f64_equal(outs, mine)
+
+
+def _assert_f64_equal(outs, mine):
     for name, a, b in zip(NAMES, outs, mine):
         assert a.shape == b.shape and a.dtype == b.dtype, name
         if a.dtype.kind == "i":
