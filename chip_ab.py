@@ -1,6 +1,7 @@
-"""Per-launch times of the chunk kernels K1, K6, K3, K5 and K4 of one checkout.
+"""Per-launch times of the chunk kernels K1, K6, K3, K5 and K4 and of the
+compaction K2 of one checkout.
 
-    python3 chip_ab.py [TREE] [--lanes] [--probe]
+    python3 chip_ab.py [TREE] [--lanes] [--probe] [--probe-k2]
 
 Times one K=32 launch (float32, CUDA events, mean of 50 launches after one
 warm launch) of K1 at the flagship's shape (B = 8192, d = 10), K1 in
@@ -8,20 +9,35 @@ horizon mode at ``zigzag_gauss_d10_horizon``'s (B = 4096, target 500), K6 at
 ``sticky_zigzag_d1000``'s (B = 128, d = 1000), K3 at
 ``bps_anisotropic_gauss_d10``'s, K5 at ``ecmc_gauss_d10``'s and K4 at
 ``suzz_gauss_d10``'s, with the kernels and the ``chip_smoke.py`` of TREE: a
-checkout of the repository, this one by default.  With ``--lanes``, K1's
+checkout of the repository, this one by default.  Then K2, one
+``compact_rows`` call (mean of 10 after one warm call), on a real first fill
+of each of the five deployments (the sampler warmed by one
+``sample_skeleton`` call, as in ``chip_smoke.py``'s breakdowns), with its
+bound from TREE's ``chip_smoke.k2_bound``; beside the flagship's and the
+sticky fill's, PyTorch's ``permute(2, 0, 1).contiguous()`` of the fill's
+``x``, as context for what a transposing copy costs on the card.  With ``--lanes``, K1's
 two shapes are also timed at every lane count its kernel offers (2, 4, 8 and
 16 lanes per chain), forced one after another, beside the count its rule
 picks; with ``--probe``, K6 is also timed at other shapes and without its
-event-row stores (``probe_k6``).  To compare two commits on one card, unpack the other with ``git
+event-row stores (``probe_k6``); with ``--probe-k2``, K2 on the flagship's,
+the sticky and the BPS fill is also timed built without its copy's stores and
+without its copy's loads (``probe_k2``).  Last, each of the five
+deployments' ``sample_skeleton`` calls is timed (``call_times``: the median
+of five warm calls, and one call traced by ``torch.profiler`` for the
+card's busy time and K2's kernels inside the call).  To compare two commits on one card, unpack the other with ``git
 archive`` into a git-ignored directory and run parent, change, change,
 parent one after another on that card: each run is its own process and
-builds its own kernels.  Prints one line with the times and the card's name
-and power limit.
+builds its own kernels.  Prints one line with the kernels' times and one
+line per deployment's call, each with the card's name and power limit.
 """
 
+import ctypes
 import os
+import re
 import shutil
+import subprocess
 import sys
+import time
 
 args = [a for a in sys.argv[1:] if not a.startswith("--")]
 TREE = os.path.abspath(args[0] if args else os.path.dirname(__file__))
@@ -37,6 +53,11 @@ from pdmpflux_tpu_torch.ops.cuda import scalar_chunk as k3  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import zigzag_chunk as k1  # noqa: E402
 
 REPS = 50
+CALLS = 5  # timed warm calls of each deployment
+# K2's kernels in a trace, by name: the four of compact.cu, and the one kernel
+# of a tree that predates them (timed as the parent of a comparison)
+K2_KERNELS = {"count_kernel", "scan_kernel", "copy_kernel", "tail_kernel",
+              "compact_rows_kernel"}
 
 
 def launch_ms(sampler, x0, v0, run, config=cs.scalar_config, sticky=False, t_target=None):
@@ -78,6 +99,8 @@ def main():
     times["K5 ECMC"] = launch_ms(ecmc, x_ecmc, np.full((B_e, d_e), d_e ** -0.5), k3.run_chunk)
     times["K4 suzz"] = launch_ms(suzz, x_s, v_s, k1.run_chunk)
     text = "; ".join(f"{k} {v:.5f} ms" for k, v in times.items())
+    text += "; " + k2_times(flagship, (x_f, v_f), sticky, bps, (x0, v0), hz, (x_h, v_h),
+                            suzz, (x_s, v_s))
     lib = build.library()
     if "--lanes" in sys.argv and hasattr(lib, "zigzag_chunk_set_lanes"):
         rule = f"rule: L={lib.zigzag_chunk_lanes(B)} at B={B}, " \
@@ -89,9 +112,179 @@ def main():
             sweep.append(f"L={L}: flagship {f:.5f} horizon {h:.5f}")
         lib.zigzag_chunk_set_lanes(0)
         text += f"; K1 lanes ({rule}): " + ", ".join(sweep)
-    print(f"{TREE}: {text} ms per K=32 launch ({cs.card()})", flush=True)
+    print(f"{TREE}: {text} (chunk kernels per K=32 launch, K2 per call) ({cs.card()})",
+          flush=True)
     if "--probe" in sys.argv:
         probe_k6()
+    if "--probe-k2" in sys.argv:
+        probe_k2(flagship, (x_f, v_f), sticky, bps, (x0, v0))
+    call_times([
+        ("flagship", flagship, cs.MAIN[2], x_f, v_f),
+        ("sticky", sticky, cs.STICKY[2], np.full((B_s, d_s), 0.3), np.ones((B_s, d_s))),
+        ("BPS", bps, cs.BPS_D10[2], x0, v0),
+        ("horizon", hz, T, x_h, v_h),
+        ("Speed-Up", suzz, cs.SUZZ_D10[2], x_s, v_s)])
+
+
+def kernel_name(name):
+    """A trace's kernel name without return type, namespace, template
+    arguments and parameters."""
+    name = re.sub(r"^void |\(anonymous namespace\)::", "", name)
+    return re.split(r"[<(]", name)[0].strip()
+
+
+def call_times(cells):
+    """Each deployment's ``sample_skeleton`` call (float32, seed 0): the
+    wall times of CALLS synchronised warm calls after one warm call, then
+    one more call traced by ``torch.profiler``: its wall time, the card's
+    busy time in it (the sum of the trace's kernels, copies and sets, which
+    run one after another on the one stream) and so its idle share, K2's
+    kernels' time in it and the kernels that took the most.  One line per
+    deployment."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, sampler, n_or_T, x0, v0 in cells:
+        def call():
+            cs.pt.sample_skeleton(sampler, n_or_T, x0, v0, seed=0, dtype=torch.float32,
+                                  device=cs.DEV)
+            cs.sync()
+
+        call()
+        walls = []
+        for _ in range(CALLS):
+            t0 = time.perf_counter()
+            call()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            call()
+            traced = (time.perf_counter() - t0) * 1e3
+        kernels = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                k = kernel_name(e.name)
+                ms, n = kernels.get(k, (0.0, 0))
+                kernels[k] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        busy = sum(ms for ms, _ in kernels.values())
+        k2_ms = sum(ms for k, (ms, _) in kernels.items() if k in K2_KERNELS)
+        med = float(np.median(walls))
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+        print(f"{TREE} call {name}: {CALLS} warm calls "
+              f"{' '.join(f'{w:.3f}' for w in walls)} ms, median "
+              f"{med:.3f} ms; traced call {traced:.3f} ms, card busy {busy:.3f} ms (idle "
+              f"{1 - busy / traced:.1%} of the traced call, {1 - busy / med:.1%} of the "
+              f"median), K2's kernels {k2_ms:.4f} ms; "
+              f"most time: " + ", ".join(f"{k} {ms:.4f} ms x {n}" for k, (ms, n) in top)
+              + f" ({cs.card()})", flush=True)
+
+
+def k2_fill(sampler, x0, v0, n_sk=None, T=None, cap=None):
+    """(kind, specs, off, fill, counts, W): K2's arguments for the first
+    float32 fill of a deployment, an event-count one (``n_sk``) after one
+    warm call, or a time-horizon one (``T``, ``cap`` rows) behind its init
+    row."""
+    B, d = x0.shape
+    dtype = torch.float32
+    state = sampler.init_state_batch(x0, v0, 0, dtype, cs.DEV)
+    zeros = torch.zeros(B, dtype=torch.int32, device=cs.DEV)
+    if T is None:
+        cs.pt.sample_skeleton(sampler, n_sk, x0, v0, seed=0, dtype=dtype, device=cs.DEV)
+        t_cap = cs.api.fill_rows(sampler, n_sk - 1, B, d, dtype, cs.DEV)
+        res = cs.driver.make_stream_runner(sampler, t_cap, n_sk - 1)(state, zeros)
+        W = n_sk
+    else:
+        res = cs.driver.make_stream_runner(sampler, cap, cap, mode="horizon")(state, zeros, T)
+        W = 1 + cap
+    out = cs.k2.empty_rows(B, W, d, dtype, cs.DEV)
+    kind, specs = cs.k2.fill_specs(res.fill, out, cs.event_from_state(state, cs.EV_INIT))
+    return kind, specs, torch.ones(B, dtype=torch.int32, device=cs.DEV), res.fill, res.counts, W
+
+
+def k2_times(flagship, xv_f, sticky, bps, xv_b, hz, xv_h, suzz, xv_s):
+    """K2 per call on the five deployments' real fills, and the context
+    copies; one text."""
+    n_f, n_s, n_b, n_z = cs.MAIN[2], cs.STICKY[2], cs.BPS_D10[2], cs.SUZZ_D10[2]
+    B_s, d_s = cs.STICKY[1], cs.STICKY[0]
+    cells = [
+        ("flagship", lambda: k2_fill(flagship, *xv_f, n_sk=n_f), True),
+        ("sticky", lambda: k2_fill(sticky, np.full((B_s, d_s), 0.3), np.ones((B_s, d_s)),
+                                   n_sk=n_s), True),
+        ("BPS", lambda: k2_fill(bps, *xv_b, n_sk=n_b), False),
+        ("horizon", lambda: k2_fill(hz, *xv_h, T=cs.HORIZON_D10[2], cap=cs.HORIZON_D10[3]),
+         False),
+        ("Speed-Up", lambda: k2_fill(suzz, *xv_s, n_sk=n_z), False),
+    ]
+    texts = []
+    for name, make, context in cells:
+        kind, specs, off, fill, counts, W = make()
+        ms = cs.cuda_ms(lambda: cs.k2.compact_rows(kind, specs, off), 10)
+        b = cs.k2_bound(fill, counts, W)
+        text = (f"K2 {name} (T={fill.rows}, W={W}, B={kind.shape[1]}) {ms:.5f} ms, bound "
+                f"{b[0]:.5f} ms ({b[0] / ms:.1%})")
+        if context:
+            x = fill.x
+            copy_ms = cs.cuda_ms(lambda: x.permute(2, 0, 1).contiguous(), 10)
+            text += f", x.permute(2, 0, 1).contiguous() {copy_ms:.5f} ms"
+        texts.append(text)
+        del kind, specs, fill, counts
+        torch.cuda.empty_cache()
+    return "; ".join(texts)
+
+
+K2_PROBES = {
+    "without the copy's stores": [
+        ("for (int e = first + lane; e < n; e += 32) dst[e] = f.src ? run[e] : (V)1;",
+         "(void)dst;"),
+        ("dst[e + (long)div(e) * gap] = f.src ? run[e] : (V)1;", "(void)e;")],
+    "without the copy's loads": [
+        ("copy_async(d + col, s + col * f.field_stride);", "(void)d;"),
+        ("if (c0 + u < sg.nf) v[u] = s[(c0 + u) * f.field_stride];", "v[u] = (V)u;")],
+}
+
+
+def probe_k2(flagship, xv_f, sticky, bps, xv_b):
+    """K2 per call on the flagship's, the sticky and the BPS deployment's
+    real fills,
+    as built and built (``compact.cu`` alone, in the git-ignored ``_build``
+    directory) without its copy kernel's stores or loads: how the copy's
+    time splits between reading the fill and writing the skeleton."""
+    lib = build.library()
+    src = (build.CSRC / "compact.cu").read_text()
+    variants = {"as built": lib}
+    for name, edits in K2_PROBES.items():
+        text = src
+        for a, b in edits:
+            if a not in text:
+                raise RuntimeError(f"chip_ab --probe-k2: {a!r} is not in compact.cu")
+            text = text.replace(a, b)
+        d = build.BUILD_DIR / f"k2_probe_{len(variants)}"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "compact.cu").write_text(text)
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(d / "k2.so"),
+                        str(d / "compact.cu")], check=True, capture_output=True)
+        k2lib = ctypes.CDLL(str(d / "k2.so"))
+        for fn in ("compact_rows_launch", "compact_rows_scratch"):
+            getattr(k2lib, fn).restype = getattr(lib, fn).restype
+            getattr(k2lib, fn).argtypes = getattr(lib, fn).argtypes
+        k2lib.pdmpflux_cuda_error_string = lib.pdmpflux_cuda_error_string
+        variants[name] = k2lib
+    B_s, d_s, n_s = cs.STICKY[1], cs.STICKY[0], cs.STICKY[2]
+    texts = []
+    for cell, make in (("flagship", lambda: k2_fill(flagship, *xv_f, n_sk=cs.MAIN[2])),
+                       ("sticky", lambda: k2_fill(sticky, np.full((B_s, d_s), 0.3),
+                                                  np.ones((B_s, d_s)), n_sk=n_s)),
+                       ("BPS", lambda: k2_fill(bps, *xv_b, n_sk=cs.BPS_D10[2]))):
+        kind, specs, off, fill, _, _ = make()
+        times = []
+        for name, variant in variants.items():
+            build._lib = variant
+            times.append(f"{name} {cs.cuda_ms(lambda: cs.k2.compact_rows(kind, specs, off), 10):.5f}")
+        build._lib = lib
+        texts.append(f"{cell} (T={fill.rows}): " + ", ".join(times))
+        del kind, specs, fill
+        torch.cuda.empty_cache()
+    print(f"K2 probe, ms per call: {'; '.join(texts)} ({cs.card()})", flush=True)
 
 
 def probe_k6():

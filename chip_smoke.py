@@ -17,7 +17,9 @@ Phases, one line each; any failure raises and exits non-zero:
    d=10/B=1024 (banana), d=1000/B=256, a ragged B=1001 and grid_size 2, 33
    and 64 (B=512), each with the lanes per chain K1 takes there;
 3. K2 against its plain version: random fills with offsets and an init
-   record at d=10 and d=1000, outputs bit-identical;
+   record at d=10 and d=1000 (f32 and f64, with and without an activity
+   stream), a ragged B=1001, W=1 and W below off + kept, outputs
+   bit-identical;
 4. the main path: ``sample_skeleton`` of ZigZag(10, grad_gauss), 8192
    chains x 2048 points, float32, warm then timed; every chain complete,
    both kernels launched, pooled moments in bench.py's bands; then (4b) the
@@ -270,15 +272,19 @@ def chunk_bound(cfg, st, fill, live):
 
 def k2_bound(fill, counts, W):
     """K2 reads every row's event kind, then the kept rows of the fill, and
-    writes them and the init row into the skeleton; the bytes are counted on
-    this fill's kept rows."""
+    writes them behind the init row (column 0, so the kept rows start at
+    column 1), the init row and the zeroed tail (columns 1 + kept to W - 1
+    of each chain) into the skeleton; the bytes are counted on this fill's
+    kept rows."""
     T, B = fill.rows, fill.kind.shape[-1]
-    kept = int(torch.clamp_max(counts, W - 1).sum())
+    kept = torch.clamp_max(counts.long(), W - 1)
+    tail = int((W - 1 - kept).sum())
+    kept = int(kept.sum())
     d, it = fill.x.shape[1], fill.x.element_size()
     act = d if fill.act is not None else 0
     row_in = 3 * 4 + (2 * d + 3 + 5) * it + act        # kind rows 1-3, x, v, fs, ring
     row_out = 4 * 4 + (2 * d + 3 + 5) * it + d          # + is_active bytes
-    return bound(T * B * 4 + kept * row_in + (kept + B) * row_out, 0)
+    return bound(T * B * 4 + kept * row_in + (kept + B + tail) * row_out, 0)
 
 
 def random_state(sampler, B, dtype, seed):
@@ -621,12 +627,16 @@ def k2_outputs_equal(what, out_k, out_p):
 
 
 def k2_compare(d, B, T, W, dtype, sticky=False):
+    """K2 against its plain version on a random fill behind an init record,
+    with no offset, and at random per-chain offsets in [1, max(2, W // 2)),
+    where off + kept passes W for many chains (the clamp)."""
     fill = random_fill(T, d, B, dtype, d, sticky)
     init = random_init(d, B, dtype, d + 1)
     err = 0.0
     for off, ini in ((torch.ones(B, dtype=torch.int32, device=DEV), init),
                      (None, None),
-                     (torch.randint(1, W // 2, (B,), dtype=torch.int32, device=DEV), None)):
+                     (torch.randint(1, max(2, W // 2), (B,), dtype=torch.int32, device=DEV),
+                      None)):
         base = k2.empty_rows(B, W, d, dtype, DEV)
         for a in base[:-1]:
             a.zero_()  # merges keep the columns below the offsets
@@ -638,18 +648,27 @@ def k2_compare(d, B, T, W, dtype, sticky=False):
             outs.append(out)
         sync()
         err = max(err, k2_outputs_equal(
-            f"d={d} off={off is not None} init={ini is not None}", *outs))
+            f"d={d} B={B} T={T} W={W} off={off is not None} init={ini is not None}", *outs))
     return err
 
 
+K2_CASES = [  # d, B, T, W, dtype, sticky
+    (10, 512, 700, 480, torch.float32, False),
+    (10, 256, 300, 200, torch.float64, False),
+    (1000, 64, 300, 200, torch.float32, False),
+    (1000, 64, 300, 200, torch.float32, True),
+    (10, 1001, 333, 150, torch.float32, True),   # a ragged chain group, T not a tile multiple
+    (1000, 48, 300, 200, torch.float64, True),   # f64 d = 1000: 8-byte lines, split fields
+    (10, 33, 70, 1, torch.float32, True),        # W = 1: the init record alone
+    (10, 100, 64, 20, torch.float64, False),     # W far below off + kept
+]
+
+
 def phase_k2():
-    err = max(k2_compare(10, 512, 700, 480, torch.float32),
-              k2_compare(10, 256, 300, 200, torch.float64),
-              k2_compare(1000, 64, 300, 200, torch.float32),
-              k2_compare(1000, 64, 300, 200, torch.float32, sticky=True))
-    print("phase 3 K2 vs plain: d=10 (f32, f64) and d=1000 (with and without an "
-          f"activity stream) with offsets and init, bit-identical (max_abs_err={err})",
-          flush=True)
+    err = max(k2_compare(*c) for c in K2_CASES)
+    print(f"phase 3 K2 vs plain: {len(K2_CASES)} fills (d=10 and 1000, f32 and f64, with "
+          "and without an activity stream, B=1001, W=1 and W clamps) with offsets and "
+          f"init, bit-identical (max_abs_err={err})", flush=True)
     return err
 
 

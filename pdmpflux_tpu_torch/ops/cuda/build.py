@@ -106,8 +106,11 @@ def _declare(lib) -> None:
     lib.compact_rows_launch.argtypes = [
         p, l, i, i, p, i, i,            # kind, kind row stride, T, B, off, W, n
         p, p, p, p, p, p, p,            # srcs, row/field strides, widths, elem, inits, outs
+        p, l,                           # int32 scratch and its length
         p,                              # stream
     ]
+    lib.compact_rows_scratch.restype = l
+    lib.compact_rows_scratch.argtypes = [i, i, i, p, p]  # T, B, n, widths, elems
     lib.pdmpflux_cuda_error_string.restype = ctypes.c_char_p
     lib.pdmpflux_cuda_error_string.argtypes = [i]
 

@@ -85,7 +85,7 @@ def _check_cuda(kind, fields, off):
         if spec.src is not None:
             s = spec.src
             if (s.dtype != out.dtype or tuple(s.shape) != (T, F, B)
-                    or s.stride(2) != 1):
+                    or (s.stride(2) != 1 and s.numel() > 0)):  # T = 0: nothing read
                 raise ValueError(f"src must be {out.dtype} ({T}, {F}, {B}) with "
                                  f"chains contiguous, got {s.dtype} {tuple(s.shape)}")
         if spec.init is not None and (spec.init.dtype != out.dtype
@@ -100,7 +100,8 @@ def _check_cuda(kind, fields, off):
 def compact_rows(kind: torch.Tensor, fields: Sequence[FieldSpec],
                  off: Optional[torch.Tensor] = None) -> None:
     """Compact every field in place into its ``out`` (see the module
-    docstring); one kernel launch covers all fields."""
+    docstring); one call covers all fields and counts as one launch of K2
+    (its four kernels: keep masks, column scan, copy, tail and init)."""
     if not kind.is_cuda:
         return compact_rows_plain(kind, fields, off)
     _check_cuda(kind, fields, off)
@@ -117,12 +118,18 @@ def compact_rows(kind: torch.Tensor, fields: Sequence[FieldSpec],
     ints = ctypes.c_int * n
     widths = ints(*[s.out.shape[2] for s in fields])
     elems = ints(*[s.out.element_size() for s in fields])
+    # per (row tile, chain) keep masks and first columns, and each chain's end
+    words = lib.compact_rows_scratch(T, B, n, widths, elems)
+    if words < 0:
+        raise ValueError(f"compact_rows: no scratch size for T={T}, B={B}, {n} fields")
+    scratch = torch.empty(words, dtype=torch.int32, device=kind.device)
     err = lib.compact_rows_launch(
         ctypes.c_void_p(kind.data_ptr()), ctypes.c_long(kind.stride(0)),
         ctypes.c_int(T), ctypes.c_int(B),
         ctypes.c_void_p(off.data_ptr() if off is not None else None),
         ctypes.c_int(fields[0].out.shape[1]), ctypes.c_int(n),
         srcs, row_strides, field_strides, widths, elems, inits, outs,
+        ctypes.c_void_p(scratch.data_ptr()), ctypes.c_long(words),
         ctypes.c_void_p(torch.cuda.current_stream(kind.device).cuda_stream),
     )
     build.check(err, "compact_rows")

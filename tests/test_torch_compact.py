@@ -21,14 +21,16 @@ from pdmpflux_tpu.ops.pallas import compact as pc  # noqa: E402
 from pdmpflux_tpu_torch.core.types import Event as TEvent  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import compact as k2  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda.zigzag_chunk import RawFill  # noqa: E402
+from test_torch_slice import _jax_merge  # noqa: E402
 
 B, T = 9, 40
 FIELDS = [f for f in JSkeleton._fields if f != "n_valid"]
 
 
-def _stream(d, seed, active="ones"):
+def _stream(d, seed, active="ones", B=B, T=T):
     """A random raw fill (kinds 0 or 2; chain 0 has no event, chain 1 only
-    events) as a JAX stream and as the port's RawFill."""
+    events) as a JAX stream and as the port's RawFill (with the activity
+    stream when it is random)."""
     rs = np.random.default_rng(seed)
     kind = np.where(rs.random((B, T)) < 0.55, 2, 0).astype(np.int32)
     kind[0] = 0
@@ -49,11 +51,12 @@ def _stream(d, seed, active="ones"):
         x=tt(s["x"]), v=tt(s["v"]),
         fs=tt(np.stack([s["t"], s["horizon"], s["ar"]], axis=2)),
         ring=tt(s["error_value_ar"]),
+        act=None if active == "ones" else tt(act),
     )
     return stream, fill, s
 
 
-def _init(d, seed):
+def _init(d, seed, B=B):
     rs = np.random.default_rng(seed + 1)
     e = dict(kind=np.full(B, 1, np.int32), x=rs.normal(size=(B, d)),
              v=rs.normal(size=(B, d)), t=np.zeros(B), horizon=rs.random(B),
@@ -82,29 +85,43 @@ def test_compact_stream_rows(d, n_keep):
     _assert_equal(ref, out)
 
 
+# (B, T, activity stream, merge width, offsets below 1 + this): the base
+# size, and the kernel's edges: 33 chains (a group of 32 and one of 1), 70
+# rows (not a row-tile multiple), a random activity stream, and W below
+# off + kept behind the init record (30 columns for about 38 kept rows) and
+# at per-chain offsets into an accumulator (up to 40 + 70 columns into 56).
+SIZES = {"base": (B, T, "ones", 48, 30), "edge": (33, 70, "random", 56, 40)}
+
+
 @pytest.mark.parametrize("d", [10, 128])
-def test_compact_stream_rows_with_init(d):
-    stream, fill, _ = _stream(d, 3 * d)
-    j_init, t_init = _init(d, d)
+@pytest.mark.parametrize("size", SIZES)
+def test_compact_stream_rows_with_init(d, size):
+    b, t, active, _, _ = SIZES[size]
+    stream, fill, _ = _stream(d, 3 * d, active, b, t)
+    j_init, t_init = _init(d, d, b)
     n_keep = 30
     ref = engine.compact_stream_rows_with_init(stream, n_keep, j_init)
-    out = k2.compact_fill(fill, k2.empty_rows(B, n_keep + 1, d, torch.float64, "cpu"),
-                          off=torch.ones(B, dtype=torch.int32), init=t_init)
+    out = k2.compact_fill(fill, k2.empty_rows(b, n_keep + 1, d, torch.float64, "cpu"),
+                          off=torch.ones(b, dtype=torch.int32), init=t_init)
     _assert_equal(ref, out)
 
 
 @pytest.mark.parametrize("d", [10, 128])
-def test_merge_stream_at_offsets(d):
-    acc_stream, acc_fill, _ = _stream(d, 5 + d)
-    j_init, t_init = _init(d, d)
-    target = 48
+@pytest.mark.parametrize("size", SIZES)
+def test_merge_stream_at_offsets(d, size):
+    b, t, active, target, max_off = SIZES[size]
+    acc_stream, acc_fill, _ = _stream(d, 5 + d, active, b, t)
+    j_init, t_init = _init(d, d, b)
     acc_j = engine.compact_stream_rows_with_init(acc_stream, target - 1, j_init)
-    acc_t = k2.compact_fill(acc_fill, k2.empty_rows(B, target, d, torch.float64, "cpu"),
-                            off=torch.ones(B, dtype=torch.int32), init=t_init)
+    acc_t = k2.compact_fill(acc_fill, k2.empty_rows(b, target, d, torch.float64, "cpu"),
+                            off=torch.ones(b, dtype=torch.int32), init=t_init)
     _assert_equal(acc_j, acc_t)
-    stream, fill, _ = _stream(d, 7 + d)
-    offsets = 1 + np.random.default_rng(d).integers(0, 30, size=B).astype(np.int32)
-    ref = engine.merge_stream_at_offsets(acc_j, stream, jnp.asarray(offsets), target)
+    stream, fill, _ = _stream(d, 7 + d, active, b, t)
+    offsets = 1 + np.random.default_rng(d).integers(0, max_off, size=b).astype(np.int32)
+    if d < engine.GATHER_DIM_THRESHOLD:
+        ref = _jax_merge(target)(acc_j, stream, offsets)
+    else:
+        ref = engine.merge_stream_at_offsets(acc_j, stream, jnp.asarray(offsets), target)
     out = k2.compact_fill(fill, acc_t, off=torch.tensor(offsets))
     _assert_equal(ref, out)
 

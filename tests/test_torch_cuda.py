@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 import pdmpflux_tpu_torch as pt  # noqa: E402
 from pdmpflux_tpu_torch import convert  # noqa: E402
+from pdmpflux_tpu_torch.core.types import EV_INIT, event_from_state  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import build  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import compact as k2  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import driver  # noqa: E402
@@ -96,23 +97,54 @@ def test_k1_kernel_matches_plain_f64_at_edges(dev, pot, d, B, kw):
     assert (st_k.iscal[k1.I_CNT] == 20).any()
 
 
-def test_k2_kernel_matches_plain(dev):
-    T, d, B, W = 90, 7, 40, 60
-    g = torch.Generator(device=dev).manual_seed(0)
+@pytest.mark.parametrize("dtype,act,B,T,d,W,mode", [
+    ("f32", False, 40, 90, 7, 60, "merge"),
+    ("f32", True, 1, 1, 1, 1, "init"),         # W = 1: the init record alone
+    ("f64", False, 31, 33, 10, 20, "merge"),   # off + kept past W: the clamp
+    ("f32", True, 33, 300, 10, 200, "init"),   # a chain group of one chain
+    ("f64", True, 1001, 33, 10, 40, "merge"),
+    ("f32", False, 1001, 300, 1, 250, "zero"),
+    ("f32", True, 33, 33, 1000, 30, "merge"),  # 8-row tiles, fields split
+    ("f64", True, 31, 300, 1000, 320, "init"),  # 8-byte lines at d = 1000, a tail
+    ("f64", False, 1, 300, 1000, 100, "merge"),
+    ("f32", True, 33, 300, 10, 1, "zero"),     # W = 1 without init: a kept row
+    ("f32", False, 1001, 1, 10, 1, "init"),
+    ("f64", True, 33, 33, 1, 50, "zero"),
+])
+def test_k2_kernel_matches_plain(dev, dtype, act, B, T, d, W, mode):
+    """K2 against its plain version, bit for bit in every field: with a
+    null or a real activity source, ragged chain groups and row tiles, W = 1
+    and W below off + kept, behind an init record (``init``), at random
+    per-chain offsets into an accumulator (``merge``) and from column 0
+    (``zero``)."""
+    dt = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    g = torch.Generator(device=dev).manual_seed(T + d + B)
     kind = torch.randint(0, 3, (T, 4, B), generator=g, device=dev, dtype=torch.int32)
-    f = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
-    fill = k1.RawFill(kind, f(T, d, B), f(T, d, B), f(T, 3, B), f(T, 5, B))
-    off = torch.randint(1, 20, (B,), generator=g, device=dev, dtype=torch.int32)
+    f = lambda *s: torch.randn(s, generator=g, device=dev, dtype=dt)  # noqa: E731
+    a = (torch.rand((T, d, B), generator=g, device=dev) < 0.7) if act else None
+    fill = k1.RawFill(kind, f(T, d, B), f(T, d, B), f(T, 3, B), f(T, 5, B), a)
+    init, off = None, None
+    if mode == "init":
+        sampler = pt.ZigZag(d, pt.potentials.grad_gauss)
+        rs = np.random.default_rng(d)
+        state = sampler.init_state_batch(rs.normal(size=(B, d)),
+                                         rs.choice([-1.0, 1.0], size=(B, d)), 1, dt, dev)
+        init = event_from_state(state, EV_INIT)
+        off = torch.ones(B, dtype=torch.int32, device=dev)
+    elif mode == "merge":
+        off = torch.randint(1, max(2, W // 2 + 1), (B,), generator=g, device=dev,
+                            dtype=torch.int32)
+    base = [torch.randint(-3, 3, x.shape, generator=g, device=dev).to(x.dtype)
+            for x in k2.empty_rows(B, W, d, dt, dev)]  # kept below the offsets
     outs = []
     for fn in (k2.compact_rows, k2.compact_rows_plain):
-        out = pt.Skeleton(*(torch.zeros_like(a) for a in
-                            k2.empty_rows(B, W, d, torch.float32, dev)))
-        kind0, specs = k2.fill_specs(fill, out)
+        out = pt.Skeleton(*(x.clone() for x in base))
+        kind0, specs = k2.fill_specs(fill, out, init)
         fn(kind0, specs, off)
         outs.append(out)
     torch.cuda.synchronize()
-    for a, b in zip(*outs):
-        assert torch.equal(a, b)
+    for name, x, y in zip(pt.Skeleton._fields, *outs):
+        assert torch.equal(x, y), name
 
 
 def test_sample_skeleton_on_card(dev):
