@@ -124,23 +124,61 @@ Phases, one line each; any failure raises and exits non-zero:
    version; and (17c) the median call split into K4, K2 and the rest;
 18. a time-horizon run of the same deployment, T the median clock of phase
    17's skeleton at 256 events, with the time-horizon contracts of phase 14;
-   K4's horizon mode timed per K=32 launch beside its plain version.
+   K4's horizon mode timed per K=32 launch beside its plain version;
+19. the ``sticky_zigzag_d1000_streaming`` deployment
+   (``benchmarks/exp_streaming_d1000.py`` defaults): StickyZigZagAD(1000,
+   gauss, kappa=10), 128 chains, x0 = 0.3, v0 = 1, float32; a calibration
+   ``sample_streaming_stats`` run (T = 2048 / 500, 1024 grid points, 16
+   windows, seed 1) gives the event rate, then the gated run to T = 524288 /
+   rate (65536 grid points, 128 windows, seed 2, no early stop), its
+   launches counted from zero, K6's launches and the folds timed by CUDA
+   events inside the run; gates: every chain at T, split-R-hat under 1.02,
+   max |pooled mean| < 0.05, the mean pooled variance within 0.01 of
+   1 - w = 0.9616, the final frozen share within 0.005 of w =
+   p(0) / (kappa + p(0)) = 0.0384; events/s, ESS/s of the worst coordinate,
+   fills and the split (K6 launches x the time one launch takes alone,
+   folds, rest); then one K=32 horizon chunk of K6 checked against its plain
+   version at this shape in float32 (as ``compare_f32`` states);
+20. the ``zigzag_banana_d50_streaming`` deployment
+   (``benchmarks/exp_streaming_banana50.py``): ZigZag(50, grad_banana,
+   grid_size=0), 256 chains, x0 = v0 = 1, float32; calibration at T = 50,
+   ``grid_chunk`` from the script's formula, one warm run (seed 2), then the
+   timed run (seed 3, 32768 grid points, 64 windows, stop_when_converged,
+   check_every=1) counted and split as phase 19; gates: converged, max
+   |pooled mean| < 0.1, the pooled variance within 10% of (1, 3, 1, ...); one
+   K=32 horizon chunk of K1 checked against its plain version in float32;
+21. checkpoint/resume on the card, each run interrupted by
+   ``PDMPFLUX_FAIL_AFTER_FILLS`` (only that error is caught) and resumed
+   from its file, bit for bit against the unbroken run: (a) the sticky d =
+   1000 event-count deployment (128 chains, 2048 points) at 512-row fills,
+   at least four of them, interrupted after 2; (b)
+   ``zigzag_gauss_d10_horizon`` at T = 64 (about 256 events per chain),
+   init_capacity 256, interrupted after 2; (c) a streaming run of phase 19's
+   sampler at about 4096 events per chain (16384 grid points, 64 windows,
+   checkpoint_every=8, at least four groups of 8 fills), interrupted after
+   16 fills: accumulators, events and fills; then (d)
+   ``sample_skeleton_with_diagnostic`` at ``zigzag_gauss_d10_horizon`` (U =
+   gauss, 1000 batches): each chain's RV within rtol 1e-4 of
+   ``RV_diagnostic`` on a host copy of the same skeleton.
 
 Then one JSON line of per-kernel results (launches counted in the timed run
 of each kernel's path: phase 4 for K1 and K2, phase 7 for K6, phase 10 for
 K3, phase 12 for K5, phase 14 for K1 in horizon mode, phase 15 for K6, K3
-and K5 in horizon mode, phase 17 for K4 and phase 18 for K4 in horizon
-mode; max_abs_err the largest of the kernel's comparisons
+and K5 in horizon mode, phase 17 for K4, phase 18 for K4 in horizon mode,
+and phases 19 and 20 for the entries of K6 and K1 in horizon mode named
+after the streaming deployments; max_abs_err the largest of the kernel's comparisons
 with its plain version, f64 and f32; the bound of each timed launch computed
 from its shape and this run's data), the card's name and power limit, and
 the status line.
 """
 
 import json
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -152,7 +190,7 @@ if not torch.cuda.is_available():
     sys.exit(2)
 
 import pdmpflux_tpu_torch as pt  # noqa: E402
-from pdmpflux_tpu_torch import api  # noqa: E402
+from pdmpflux_tpu_torch import api, streaming  # noqa: E402
 from pdmpflux_tpu_torch.core import engine, rng  # noqa: E402
 from pdmpflux_tpu_torch.core.types import EV_INIT, event_from_state  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import build  # noqa: E402
@@ -178,6 +216,16 @@ HORIZON_CHECK_T = {"sticky": 0.5, "bps": 290.0, "ecmc": 645.0}  # ~256 events pe
 SUZZ_D10 = (10, 512, 2048)  # d, chains, skeleton points: suzz_gauss_d10
 SUZZ_CALLS = 5  # timed warm calls of the Speed-Up Zig-Zag path
 SUZZ_HORIZON_EVENTS = 256  # events per chain phase 18 aims its T at
+# sticky_zigzag_d1000_streaming (benchmarks/exp_streaming_d1000.py defaults):
+# chains, d, kappa, calibration events, events per chain, grid points, windows
+STREAM_STICKY = (128, 1000, 10.0, 2048, 524288, 65536, 128)
+# zigzag_banana_d50_streaming (benchmarks/exp_streaming_banana50.py): chains,
+# d, calibration T, events-per-chain budget, grid points, windows
+STREAM_BANANA = (256, 50, 50.0, 65536, 32768, 64)
+CK_STICKY_T_CAP = 512     # phase 21a: fill rows, so the 2047 events take >= 4 fills
+CK_HORIZON = (4096, 64.0, 256)  # 21b: chains, T (~256 events per chain), init_capacity
+CK_STREAM = (4096, 16384, 64, 8, 16)  # 21c: events per chain, grid, windows, every, fail
+RV_BATCHES = 1000         # 21d: RV batches
 
 H100_BYTES_S = 3.35e12  # HBM3 rate of the H100 SXM (NVIDIA data sheet)
 H100_F32_OPS_S = 67e12  # float32 rate outside the tensor cores (the same sheet)
@@ -1803,6 +1851,360 @@ def phase_suzz_horizon(card_name, sampler, T):
           f"{plain_ms:.4f} ms, bound {bound_text(b)} ({card_name})", flush=True)
     return n, ms, plain_ms, b
 
+class DeviceTimes:
+    """CUDA events around every call of ``owner.name`` while the context is
+    open (``fold``: the function ``owner.name`` returns is wrapped instead).
+    The events are recorded on the current stream and read after the run,
+    so the timing adds no synchronisation."""
+
+    def __init__(self, owner, name, fold=False):
+        self.owner, self.name, self.fold, self.pairs = owner, name, fold, []
+
+    def _timed(self, fn):
+        def run(*a, **k):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+
+        return run
+
+    def __enter__(self):
+        self.orig = getattr(self.owner, self.name)
+        if self.fold:
+            setattr(self.owner, self.name,
+                    lambda *a, **k: self._timed(self.orig(*a, **k)))
+        else:
+            setattr(self.owner, self.name, self._timed(self.orig))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+    def total_ms(self):
+        sync()
+        return sum(s.elapsed_time(e) for s, e in self.pairs)
+
+
+def stream_kernel_check(what, sampler, state, share_min, seed=7):
+    """One K=32 horizon chunk of the path's kernel from ``state`` (f32) held
+    against its plain version as :func:`compare_f32` states, the target at
+    the median clock one chunk reaches; then the kernel's time at this shape
+    by CUDA events beside the plain version's, and its bound.  Returns (max
+    abs err, ms, plain ms, bound, text)."""
+    B = state.x.shape[0]
+    cfg = driver.chunk_config(sampler, 32, 1 << 30, 128)
+    if cfg.sticky:
+        cfg = cfg._replace(kappa=cfg.kappa.to(DEV, torch.float32))
+    st = driver.chunk_state(state, torch.zeros(B, dtype=torch.int32, device=DEV), cfg.sticky)
+    cfg_c = cfg._replace(t_target=median_target(k1.run_chunk, st, cfg, 32, 1, seed))
+    st_p = clone_state(st)
+    v0 = st.v.clone()
+    d = st.x.shape[0]
+    fill, fill_p = (k1.empty_fill(32, d, B, torch.float32, DEV, cfg.sticky) for _ in range(2))
+    k1.run_chunk(seed, st, fill, 0, cfg_c)
+    k1.run_chunk_plain(seed, st_p, fill_p, 0, cfg_c)
+    sync()
+    agree, share, err, texts = compare_f32(what, v0, st, fill, st_p, fill_p, cfg_c, seed,
+                                           share_min)
+    froze = target_share(st, cfg_c)
+    del st_p, fill_p
+    cfg_t = cfg._replace(t_target=k1.f32_target(1e6))  # no lane reaches it while timed
+    ms = cuda_ms(lambda: k1.run_chunk(seed, st, fill, 0, cfg_t), 10)
+    b = chunk_bound(cfg_t, st, fill, 32 * B)
+    plain_ms = cuda_ms(lambda: k1.run_chunk_plain(seed, st, fill, 0, cfg_t), 1)
+    text = (f"{what} (K=32, target {cfg_c.t_target!r}, {froze:.3f} of the lanes reach it): "
+            f"kinds agree on {agree:.6f}, max_abs_err {err:.3e} on the {share:.4f} of chains "
+            f"with equal decisions (want >= {share_min}); the others left at f32 rounding "
+            f"ties: {'; '.join(texts) or 'none'}; {ms:.4f} ms alone vs plain {plain_ms:.4f} "
+            f"ms, bound {bound_text(b)}")
+    return err, ms, plain_ms, b, text
+
+
+def timed_stream_run(sampler, T, x0, v0, launch, **kw):
+    """``sample_streaming_stats`` on the card with its launches counted from
+    zero, its kernel's launches and its folds timed by CUDA events in the
+    run.  Returns (run, wall s, launches, kernel ms, fold ms, folds)."""
+    sync()
+    build.reset_launches()
+    with DeviceTimes(k1, "run_chunk") as kt, \
+            DeviceTimes(streaming, "make_fold_chunk", fold=True) as ft:
+        t0 = time.perf_counter()
+        run = pt.sample_streaming_stats(sampler, T, x0, v0, dtype=torch.float32, device=DEV,
+                                        **kw)
+        sync()
+        wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    if launches[launch] < 1:
+        raise AssertionError(f"the streaming run missed {launch}: {launches}")
+    if launches[launch] != len(kt.pairs):
+        raise AssertionError(f"{launch}: {launches[launch]} counted, {len(kt.pairs)} timed")
+    return run, wall, launches, kt.total_ms(), ft.total_ms(), len(ft.pairs)
+
+
+def split_text(wall, launch, n, k_ms, alone_ms, fold_ms, folds):
+    """The call split into the kernel (its launches at the time one launch
+    takes alone), the folds (CUDA events around each fold in the run) and the
+    rest; ``k_ms`` is the kernel's launches timed inside the run, each window
+    also holding the launch's host preparation while the card waits."""
+    wall_ms = wall * 1e3
+    kern = n * alone_ms
+    rest = wall_ms - kern - fold_ms
+    return (f"split of the {wall_ms:.1f} ms call: {launch} {n} x {alone_ms:.4f} = "
+            f"{kern:.1f} ms ({kern / wall_ms:.1%}); fold {folds} x {fold_ms / folds:.4f} = "
+            f"{fold_ms:.1f} ms ({fold_ms / wall_ms:.1%}); rest (host, card idle) "
+            f"{rest:.1f} ms ({rest / wall_ms:.1%}); {launch} windows in the run "
+            f"{k_ms / n:.4f} ms per launch ({k_ms:.1f} ms)")
+
+
+def sticky_stream_deployment():
+    B, d, kappa = STREAM_STICKY[:3]
+    return (pt.StickyZigZagAD(d, pt.potentials.gauss, np.full(d, kappa)),
+            np.full((B, d), 0.3), np.ones((B, d)))
+
+
+def sticky_stream_gates(run, summ, T, kappa):
+    """{gate text: passed} of the gated sticky run: every chain at T, split-R-hat,
+    the pooled mean, the mean pooled variance against 1 - w and the final
+    frozen share against w = p(0) / (kappa + p(0)), p(0) = 1 / sqrt(2 pi)."""
+    w = 1.0 / np.sqrt(2.0 * np.pi) / (kappa + 1.0 / np.sqrt(2.0 * np.pi))
+    frozen = 1.0 - float(run.state.is_active.float().mean())
+    mean_max = float(np.abs(summ["pooled_mean"]).max())
+    var_mean = float(summ["pooled_var"].mean())
+    return {"every chain at T": bool((run.state.t >= np.float32(T)).all()),
+            f"rhat_max {summ['rhat_max']:.4f} < {pt.diagnostics.RHAT_THRESHOLD}":
+            summ["converged"],
+            f"max|pooled mean| {mean_max:.4f} < 0.05": mean_max < 0.05,
+            f"mean pooled var {var_mean:.4f} within 0.01 of 1 - w = {1 - w:.4f}":
+            abs(var_mean - (1 - w)) < 0.01,
+            f"frozen share {frozen:.4f} within 0.005 of w = {w:.4f}": abs(frozen - w) < 0.005}
+
+
+def phase_stream_sticky(card_name):
+    """sticky_zigzag_d1000_streaming: the calibration run, then the gated run
+    to T (no early stop), timed and split; its five gates; then K6's horizon
+    mode checked against its plain version at this shape.  Returns (K6
+    launches, ms per launch in the run, plain ms, max abs err, bound, the
+    calibrated rate)."""
+    B, d, kappa, cal_events, events_goal, n_samples, n_batches = STREAM_STICKY
+    torch.cuda.empty_cache()  # the fill size follows the card's free memory
+    sampler, x0, v0 = sticky_stream_deployment()
+    T_cal = cal_events / (0.5 * d)
+    t0 = time.perf_counter()
+    cal = pt.sample_streaming_stats(sampler, T_cal, x0, v0, n_samples=1024, n_batches=16,
+                                    seed=1, dtype=torch.float32, device=DEV)
+    sync()
+    cal_wall = time.perf_counter() - t0
+    rate = cal.events / B / T_cal
+    T = events_goal / rate
+    sampler, x0, v0 = sticky_stream_deployment()
+    run, wall, launches, k_ms, fold_ms, folds = timed_stream_run(
+        sampler, T, x0, v0, "sticky_chunk_horizon", n_samples=n_samples,
+        n_batches=n_batches, seed=2)
+    summ = pt.streaming_summary(run)
+    gates = sticky_stream_gates(run, summ, T, kappa)
+    failed = [g for g, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"sticky_zigzag_d1000_streaming gates failed: {failed}")
+    n = launches["sticky_chunk_horizon"]
+    err, ms, plain_ms, b, check = stream_kernel_check(
+        "K6 horizon f32", sampler, sampler.init_state_batch(x0, v0, 2, torch.float32, DEV),
+        K6_F32_SHARE)
+    print(f"phase 19 sticky_zigzag_d1000_streaming: StickyZigZagAD({d}, gauss, kappa={kappa}) "
+          f"B={B} f32; calibration T={T_cal:.4g} {cal.events} events {cal.fills} fills "
+          f"{cal_wall:.2f} s, rate {rate:.2f} events per chain per unit time; gated run T={T:.6g} "
+          f"n_samples={n_samples} n_batches={n_batches}: {run.events} events "
+          f"({run.events / B:.0f} per chain), {run.fills} fills, wall {wall:.3f} s, events/s "
+          f"{run.events / wall:.1f}, ESS/s of the worst coordinate "
+          f"{summ['ess_total_worst_coord'] / wall:.2f} (ESS {summ['ess_total_worst_coord']:.1f}); "
+          f"gates: {'; '.join(gates)}; {split_text(wall, 'K6', n, k_ms, ms, fold_ms, folds)}; "
+          f"launches {launches}; {check} ({card_name})", flush=True)
+    return n, ms, plain_ms, err, b, rate
+
+
+def phase_stream_banana(card_name):
+    """zigzag_banana_d50_streaming: calibration at T = 50, grid_chunk from the
+    script's formula, one warm run (seed 2), then the timed run (seed 3) with
+    stop_when_converged and check_every=1, split; its gates; K1's horizon
+    mode checked against its plain version at this shape."""
+    B, d, T_cal, budget, n_samples, n_batches = STREAM_BANANA
+    torch.cuda.empty_cache()
+
+    def make():
+        return pt.ZigZag(d, pt.potentials.grad_banana, grid_size=0)
+
+    x0, v0 = np.ones((B, d)), np.ones((B, d))
+    cal = pt.sample_streaming_stats(make(), T_cal, x0, v0, n_samples=1024, n_batches=16,
+                                    seed=1, dtype=torch.float32, device=DEV)
+    rate = cal.events / B / T_cal
+    T = budget / rate
+    # exp_streaming_banana50.py:82-91: the fold window sized to the grid
+    # points one 8192-row fill covers
+    points_per_fill = n_samples * (8192 / (rate * 1.1)) / T
+    G = int(min(8192, max(512, 1.3 * points_per_fill)))
+    kw = dict(n_samples=n_samples, n_batches=n_batches, stop_when_converged=True,
+              check_every=1, grid_chunk=G)
+    sampler = make()
+    pt.sample_streaming_stats(sampler, T, x0, v0, seed=2, dtype=torch.float32, device=DEV,
+                              **kw)
+    run, wall, launches, k_ms, fold_ms, folds = timed_stream_run(
+        sampler, T, x0, v0, "zigzag_chunk_horizon", seed=3, **kw)
+    summ = pt.streaming_summary(run)
+    truth = np.concatenate([[1.0, 3.0], np.ones(d - 2)])
+    mean_max = float(np.abs(summ["pooled_mean"]).max())
+    var_rel = float(np.abs(summ["pooled_var"] / truth - 1.0).max())
+    if not (summ["converged"] and mean_max < 0.1 and var_rel < 0.1):
+        raise AssertionError(f"zigzag_banana_d50_streaming: converged={summ['converged']} "
+                             f"rhat_max={summ['rhat_max']:.4f} max|mean|={mean_max:.4f} "
+                             f"max|var/truth-1|={var_rel:.4f}")
+    n = launches["zigzag_chunk_horizon"]
+    err, ms, plain_ms, b, check = stream_kernel_check(
+        "K1 horizon f32", sampler, sampler.init_state_batch(x0, v0, 3, torch.float32, DEV),
+        K1_F32_SHARE)
+    print(f"phase 20 zigzag_banana_d50_streaming: ZigZag({d}, grad_banana, grid_size=0) B={B} "
+          f"f32; calibration rate {rate:.3f} events per chain per unit time, T budget "
+          f"{T:.6g}, grid_chunk {G}; timed run (seed 3, stop_when_converged, check_every=1): "
+          f"{run.events} events ({run.events / B:.0f} per chain), {run.fills} fills, wall "
+          f"{wall:.3f} s, events/s {run.events / wall:.1f}, ESS/s of the worst coordinate "
+          f"{summ['ess_total_worst_coord'] / wall:.2f} (ESS "
+          f"{summ['ess_total_worst_coord']:.1f}); converged, rhat_max {summ['rhat_max']:.4f}, "
+          f"max|pooled mean| {mean_max:.4f} < 0.1, max|pooled var / (1, 3, 1, ...) - 1| "
+          f"{var_rel:.4f} < 0.1; {split_text(wall, 'K1', n, k_ms, ms, fold_ms, folds)}; "
+          f"launches {launches}; {check} ({card_name})", flush=True)
+    return n, ms, plain_ms, err, b
+
+
+def injected(fn):
+    """``fn()`` with ``PDMPFLUX_FAIL_AFTER_FILLS`` set by the caller: it must
+    raise the injected failure and nothing else."""
+    try:
+        fn()
+    except RuntimeError as e:
+        if "fault injection" not in str(e):
+            raise
+    else:
+        raise AssertionError("the injected failure did not fire")
+
+
+def resume_check(what, run, every, fail_after, tmp):
+    """``run(checkpoint_path, every)`` unbroken (its launches counted), then
+    interrupted after ``fail_after`` fills, then resumed from its file.
+    Returns the unbroken and the resumed result, the unbroken run's launches
+    and the checkpoint's size in bytes."""
+    build.reset_launches()
+    ref = run(None, every)
+    launches = dict(build.LAUNCHES)
+    path = os.path.join(tmp, f"{what}.npz")
+    os.environ["PDMPFLUX_FAIL_AFTER_FILLS"] = str(fail_after)
+    try:
+        injected(lambda: run(path, every))
+    finally:
+        del os.environ["PDMPFLUX_FAIL_AFTER_FILLS"]
+    size = os.path.getsize(path)
+    return ref, run(path, every), launches, size
+
+
+def skeletons_equal(what, a, b):
+    for f, x, y in zip(pt.Skeleton._fields, a, b):
+        if x.shape != y.shape or not torch.equal(x, y):
+            raise AssertionError(f"{what}: the resumed skeleton's {f} differs")
+
+
+def phase_checkpoints(card_name, rate):
+    """Checkpoint/resume on the card, every resume bit for bit: (a) the
+    sticky d = 1000 event-count deployment at 512-row fills, (b)
+    zigzag_gauss_d10_horizon at ~256 events per chain, (c) a streaming run of
+    phase 19's sampler (at its calibrated ``rate``) interrupted after 16 fills;
+    then (d) sample_skeleton_with_diagnostic's RV against RV_diagnostic on a
+    host copy of its skeleton."""
+    parts = []
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        d, B, n_sk, kappa = STICKY
+        x0, v0 = np.full((B, d), 0.3), np.ones((B, d))
+
+        def sticky_run(path, every):
+            s = pt.StickyZigZagAD(d, pt.potentials.gauss, np.full(d, kappa))
+            return pt.sample_skeleton(s, n_sk, x0, v0, seed=0, dtype=torch.float32,
+                                      device=DEV, t_cap=CK_STICKY_T_CAP,
+                                      checkpoint_path=path, checkpoint_every=every)
+
+        ref, got, launches, size = resume_check("sticky_events", sticky_run, 1, 2, tmp)
+        fills = -(-launches["sticky_chunk"] * 32 // CK_STICKY_T_CAP)
+        skeletons_equal("21a sticky event count", got, ref)
+        if not bool((ref.n_valid == n_sk).all()) or fills < 4:
+            raise AssertionError(f"21a: the unbroken run is incomplete or took {fills} < 4 "
+                                 "fills")
+        parts.append(f"(a) StickyZigZagAD({d}) B={B} n_sk={n_sk} t_cap={CK_STICKY_T_CAP}: "
+                     f"{fills} fills ({launches['sticky_chunk']} K6 launches), interrupted "
+                     f"after 2, resumed bit for bit (checkpoint {size / 2**30:.2f} GiB)")
+        del ref, got
+
+        Bh, T, cap = CK_HORIZON
+        zz = pt.ZigZagAD(10, pt.potentials.gauss)
+        xh, vh = np.zeros((Bh, 10)), np.ones((Bh, 10))
+
+        def horizon_run(path, every):
+            return pt.sample_skeleton(zz, T, xh, vh, seed=0, dtype=torch.float32, device=DEV,
+                                      init_capacity=cap, checkpoint_path=path,
+                                      checkpoint_every=every)
+
+        ref, got, launches, size = resume_check("horizon", horizon_run, 1, 2, tmp)
+        skeletons_equal("21b horizon", got, ref)
+        events = check_horizon_skeleton("21b horizon", ref, T)
+        parts.append(f"(b) zigzag_gauss_d10_horizon B={Bh} T={T} init_capacity={cap}: "
+                     f"{events / Bh:.1f} events per chain ({launches['zigzag_chunk_horizon']} "
+                     f"K1 launches), interrupted after 2 fills, resumed bit for bit "
+                     f"(checkpoint {size / 2**20:.1f} MiB)")
+        del ref, got
+
+        ev, n_samples, n_batches, every, fail = CK_STREAM
+        Ts = ev / rate
+
+        def stream_run(path, every):
+            s, xs, vs = sticky_stream_deployment()
+            return pt.sample_streaming_stats(s, Ts, xs, vs, n_samples=n_samples,
+                                             n_batches=n_batches, seed=4, dtype=torch.float32,
+                                             device=DEV, checkpoint_path=path,
+                                             checkpoint_every=every)
+
+        ref, got, launches, size = resume_check("stream", stream_run, every, fail, tmp)
+        if ref.fills < 4 * every:
+            raise AssertionError(f"21c: the run took {ref.fills} fills, under four groups")
+        for f, a, b in zip(streaming.StreamingStats._fields, got.stats, ref.stats):
+            if not torch.equal(a, b):
+                raise AssertionError(f"21c: the resumed accumulator {f} differs")
+        if (got.events, got.fills) != (ref.events, ref.fills):
+            raise AssertionError(f"21c: events/fills {got.events}/{got.fills} vs "
+                                 f"{ref.events}/{ref.fills}")
+        parts.append(f"(c) streaming StickyZigZagAD({STREAM_STICKY[1]}) T={Ts:.4g} ({ref.events / B:.0f} "
+                     f"events per chain) n_samples={n_samples} n_batches={n_batches} "
+                     f"checkpoint_every={every}: {ref.fills} fills, interrupted after {fail}, "
+                     f"resumed: accumulators, events and fills bit for bit (checkpoint "
+                     f"{size / 2**20:.1f} MiB)")
+        del ref, got
+
+    d, B, T, cap = HORIZON_D10
+    sampler, x0, v0 = horizon_deployment()
+    skel, rv = pt.sample_skeleton_with_diagnostic(
+        sampler, T, x0, v0, pt.potentials.gauss, B=RV_BATCHES, seed=0, dtype=torch.float32,
+        device=DEV, init_capacity=cap)
+    host = pt.Skeleton(*(a.cpu() for a in skel))
+    ref = pt.RV_diagnostic(host, pt.potentials.gauss, RV_BATCHES)
+    if not (rv.device.type == DEV.type and rv.shape == (B,)
+            and bool(torch.isfinite(rv).all())):
+        raise AssertionError("21d: the RV is not a finite (B,) tensor on the card")
+    if not torch.allclose(rv.cpu(), ref, rtol=1e-4, atol=0):
+        raise AssertionError(f"21d: RV off by {float((rv.cpu() / ref - 1).abs().max()):.3e}")
+    parts.append(f"(d) sample_skeleton_with_diagnostic at zigzag_gauss_d10_horizon (B={B}, "
+                 f"T={T}, U=gauss, {RV_BATCHES} batches): RV per chain mean "
+                 f"{float(rv.mean()):.4f}, within rtol 1e-4 of RV_diagnostic on the host copy "
+                 f"(max rel diff {float((rv.cpu() / ref - 1).abs().max()):.2e})")
+    print(f"phase 21 checkpoint/resume and RV on the card (f32): {'; '.join(parts)} "
+          f"({card_name})", flush=True)
+
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b):
     return {"name": name, "route": "cuda", "source": f"pdmpflux_tpu_torch/csrc/{source}",
@@ -1843,6 +2245,9 @@ def main():
     k4_ms, k4_plain_ms, k4_b, k2_suzz_err, k4_f32_err = phase_suzz_breakdown(
         suzz, suzz_launches, suzz_wall)
     k4h_n, k4h_ms, k4h_plain_ms, k4h_b = phase_suzz_horizon(card_name, suzz, suzz_T)
+    k6s_n, k6s_ms, k6s_plain_ms, k6s_err, k6s_b, rate = phase_stream_sticky(card_name)
+    k1s_n, k1s_ms, k1s_plain_ms, k1s_err, k1s_b = phase_stream_banana(card_name)
+    phase_checkpoints(card_name, rate)
     zz = "pdmpflux_tpu/ops/pallas/zigzag_chunk.py:854"
     k7 = 'pdmpflux_tpu/ops/pallas/zigzag_chunk.py:343 mode="horizon"'
     kernels = [
@@ -1877,6 +2282,13 @@ def main():
                      k4_ms, k4_plain_ms, k4_b),
         kernel_entry("suzz_chunk_horizon", "suzz_chunk.cu", k7, k4h_n,
                      k4_errs["suzz_chunk_horizon"], k4h_ms, k4h_plain_ms, k4h_b),
+        # the streaming paths' launches, each timed inside its run
+        kernel_entry("sticky_chunk_horizon[sticky_zigzag_d1000_streaming]", "sticky_chunk.cu",
+                     k7, k6s_n, max(k7_errs["sticky_chunk_horizon"], k6s_err), k6s_ms,
+                     k6s_plain_ms, k6s_b),
+        kernel_entry("zigzag_chunk_horizon[zigzag_banana_d50_streaming]", "zigzag_chunk.cu",
+                     k7, k1s_n, max(k7_errs["zigzag_chunk_horizon"], k1s_err), k1s_ms,
+                     k1s_plain_ms, k1s_b),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_name)

@@ -9,10 +9,19 @@ kernels in ``csrc/`` (the fused Zig-Zag chunk kernel, its sticky
 chain-per-CTA variant, the Speed-Up Zig-Zag chunk kernel, the
 warp-per-chain scalar-rate chunk kernel, each with a horizon mode, and
 event-row compaction): every Pallas kernel of the JAX package has its
-counterpart.
+counterpart.  Also the diagnostics (ESS, split-R-hat, realized volatility),
+checkpoint/resume of ``sample_skeleton`` and streaming statistics
+(``sample_streaming_stats``, which folds horizon-mode fills into O(B * d)
+accumulators).
 """
 
-from .api import sample, sample_from_skeleton, sample_skeleton  # noqa: F401
+from . import diagnostics  # noqa: F401
+from .api import (  # noqa: F401
+    sample,
+    sample_from_skeleton,
+    sample_skeleton,
+    sample_skeleton_with_diagnostic,
+)
 from .core.types import (  # noqa: F401
     EV_INIT,
     EV_JUMP,
@@ -38,5 +47,7 @@ from .models import (  # noqa: F401
     ZigZag,
     ZigZagAD,
 )
+from .diagnostics import RV_diagnostic, diagnostic, ess, ess_per_dim  # noqa: F401
 from .parallel import pooled_moments, sample_from_skeleton_batch  # noqa: F401
+from .streaming import sample_streaming_stats, streaming_summary  # noqa: F401
 from .utils import potentials  # noqa: F401

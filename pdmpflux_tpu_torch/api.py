@@ -8,7 +8,13 @@
   time-horizon skeleton, the same kernels in horizon mode (K7) and an exact
   terminal point at ``t = T`` (``core/engine.finalize_horizon_rows``);
 * ``sample_from_skeleton``: skeleton -> equal-time samples (N, dt, N + dt);
-* ``sample``: the two chained.
+* ``sample``: the two chained;
+* ``sample_skeleton_with_diagnostic``: the time-horizon skeleton and the
+  realized volatility of ``U`` along it.
+
+``sample_skeleton(..., checkpoint_path=...)`` saves the run every
+``checkpoint_every`` fills and resumes from the file (``api.py:236-266``
+of the JAX package, the same file layout and manifest).
 
 Every function takes ``device`` (default ``"cuda"``).  On CUDA the fill and
 the compaction run the hand-written kernels; on the CPU the same driver runs
@@ -29,8 +35,11 @@ import torch
 from .core.device import resolve_device
 from .core.engine import finalize_horizon_rows, grow_rows, prepend_init_rows
 from .core.types import EV_INIT, Skeleton, event_from_state
+from .diagnostics import boundary_u, linspace0
 from .ops.cuda import compact as k2
 from .ops.cuda import driver as k1_driver
+from .ops.flows import div_once
+from .parallel import checkpoint as _ckpt
 
 DEFAULT_MAX_TRANSITIONS_PER_EVENT = 256
 _DEVICE_BYTES_FALLBACK = 8 << 30
@@ -89,6 +98,43 @@ def _squeeze_skeleton(skel: Skeleton) -> Skeleton:
     return Skeleton(*(a[0] for a in skel))
 
 
+def _save_stream_checkpoint(path, mode, target, state, acc, counts_np, fills):
+    """Atomic checkpoint of a stream-loop run: the state, the event
+    accumulator (the counts ride in the skeleton's ``n_valid`` slot) and a
+    manifest naming the run (JAX ``api.py:371-382``)."""
+    acc_save = acc._replace(n_valid=torch.as_tensor(np.asarray(counts_np), dtype=torch.int32))
+    _ckpt.save_checkpoint(path, state, acc_save,
+                          meta={"mode": mode, "target": target, "fills": int(fills)})
+
+
+def _load_stream_checkpoint(path, mode, target, device):
+    """Load and validate a stream-loop checkpoint; ``(state, acc, counts,
+    fills)`` on ``device``, or None when there is no file.  A file for
+    another run (mode or target) raises instead of sampling the wrong
+    thing."""
+    if not os.path.exists(path):
+        return None
+    state, acc, meta = _ckpt.load_checkpoint(path, device)
+    if meta.get("mode") != mode or meta.get("target") != target:
+        raise ValueError(
+            f"checkpoint at {path} is for mode={meta.get('mode')!r} "
+            f"target={meta.get('target')!r}, not this run's mode={mode!r} "
+            f"target={target!r}; delete it to start fresh."
+        )
+    counts = acc.n_valid.cpu().numpy().astype(np.int64)
+    return state, acc, counts, int(meta.get("fills", 0))
+
+
+def _fail_after_fills(fill_no: int):
+    """Fault injection for checkpoint/resume rehearsals: raise after N fills
+    when ``PDMPFLUX_FAIL_AFTER_FILLS=N`` is set."""
+    n = os.environ.get("PDMPFLUX_FAIL_AFTER_FILLS", "")
+    if n and fill_no >= int(n):
+        raise RuntimeError(
+            f"fault injection: PDMPFLUX_FAIL_AFTER_FILLS={n} reached"
+        )
+
+
 def fill_rows(sampler, target: int, B: int, d: int, dtype,
               dev: torch.device) -> int:
     """Rows of one stream fill: about 1.8 transitions per event on a cold
@@ -110,7 +156,9 @@ def sample_skeleton(sampler, n_or_T, xinit, vinit, *, seed=None,
                     verbose: bool = False, dtype=None, device="cuda",
                     max_transitions_per_event: int = DEFAULT_MAX_TRANSITIONS_PER_EVENT,
                     t_cap: Optional[int] = None, chunk: int = 32,
-                    tile: int = 128, init_capacity: int = 1024) -> Skeleton:
+                    tile: int = 128, init_capacity: int = 1024,
+                    checkpoint_path: Optional[str] = None,
+                    checkpoint_every: int = 4) -> Skeleton:
     """Generate a PDMP skeleton, as the JAX package's stream paths do.
 
     ``n_or_T``: an ``int`` asks for that many skeleton points per chain (the
@@ -127,12 +175,22 @@ def sample_skeleton(sampler, n_or_T, xinit, vinit, *, seed=None,
     transitions per kernel launch and ``tile`` the RNG lane tile — with equal
     ``seed``, fill rows, ``chunk`` and ``tile`` the skeleton reproduces the
     JAX fused-kernel path.
+
+    ``checkpoint_path``: atomically save the state and the event
+    accumulator every ``checkpoint_every`` stream fills; if the file exists
+    and matches this run's mode and target, the run resumes from it and
+    continues bit for bit (the counter-based keys live in the saved
+    state; keep ``t_cap``, ``chunk`` and ``tile`` as they were).  Delete
+    the file to start fresh.  ``PDMPFLUX_FAIL_AFTER_FILLS=N`` injects a
+    crash after N fills, for rehearsals.
     """
+    ck = ((checkpoint_path, max(1, int(checkpoint_every)))
+          if checkpoint_path else None)
     if not (isinstance(n_or_T, (int, np.integer)) and not isinstance(n_or_T, bool)):
         return _sample_skeleton_horizon(
             sampler, float(n_or_T), xinit, vinit, seed=seed, verbose=verbose,
             dtype=dtype, device=device, t_cap=t_cap, chunk=chunk, tile=tile,
-            init_capacity=init_capacity)
+            init_capacity=init_capacity, ck=ck)
     n_sk = int(n_or_T)
     if n_sk <= 0:
         raise ValueError(f"n_sk must be positive. Current value: {n_sk}")
@@ -159,9 +217,15 @@ def sample_skeleton(sampler, n_or_T, xinit, vinit, *, seed=None,
     counts = torch.zeros((B,), dtype=torch.int32, device=dev)
     acc = None
     trans_total = 0
+    fills_done = 0
+    if ck is not None:
+        loaded = _load_stream_checkpoint(ck[0], "events", target, dev)
+        if loaded is not None:
+            state, acc, counts_np, fills_done = loaded
+            counts = torch.as_tensor(counts_np, dtype=torch.int32, device=dev)
     max_fills = max(1, (target * int(max_transitions_per_event)) // t_cap + 1)
     exhausted = True
-    for _ in range(max_fills):
+    for fill in range(fills_done, max_fills):
         prev_counts = counts
         res = runner(state, counts)
         state, counts = res.state, res.counts
@@ -176,6 +240,10 @@ def sample_skeleton(sampler, n_or_T, xinit, vinit, *, seed=None,
         trans_total += res.transitions
         counts_host = counts.cpu().numpy()
         done = counts_host >= target
+        if ck is not None and (fill + 1) % ck[1] == 0 and not done.all():
+            _save_stream_checkpoint(ck[0], "events", target, state, acc,
+                                    counts_host, fill + 1)
+        _fail_after_fills(fill + 1)
         if verbose:
             print(f"[sample_skeleton] events {int(counts_host.min())}/{target} "
                   f"(chains done: {int(done.sum())}/{B})")
@@ -206,13 +274,16 @@ def _trim_single(skel: Skeleton) -> Skeleton:
 
 def _sample_skeleton_horizon(sampler, T: float, xinit, vinit, *, seed, verbose,
                              dtype, device, t_cap, chunk, tile,
-                             init_capacity) -> Skeleton:
+                             init_capacity, ck=None) -> Skeleton:
     """Time-horizon skeleton (``sample.jl:323-439``), as the JAX package's
     on-device stream path builds it (``api.py:1085-1242``): stream fills in
     horizon mode until every chain's clock reaches ``T``, the first compacted
     by K2 behind the initial record, each later (straggler) fill merged by K2
     after its chain's earlier events, the accumulator grown first when a
-    chain would overflow it; then the terminal rows on the device."""
+    chain would overflow it; then the terminal rows on the device.
+
+    A checkpoint holds the accumulator without its initial record, as the
+    JAX package's does; a resumed run puts the record back in front."""
     if not math.isfinite(T) or T < 0:
         raise ValueError(f"T must be finite and non-negative. Current value: {T}")
     x, v, squeeze = _prep_init(sampler, xinit, vinit)
@@ -244,6 +315,13 @@ def _sample_skeleton_horizon(sampler, T: float, xinit, vinit, *, seed, verbose,
     acc = None
     total = zeros            # events per chain so far, on the card
     total_host = np.zeros(B, np.int64)
+    fill_no = 0
+    if ck is not None:
+        loaded = _load_stream_checkpoint(ck[0], "horizon", T, dev)
+        if loaded is not None:
+            state, rows, total_host, fill_no = loaded
+            total = torch.as_tensor(total_host, dtype=torch.int32, device=dev)
+            acc = prepend_init_rows(rows, init_ev, total, rows.t.shape[1])
     while True:
         res = runner(state, zeros, T)  # counts start at 0 in every fill
         state, n_tr = res.state, res.transitions
@@ -263,6 +341,12 @@ def _sample_skeleton_horizon(sampler, T: float, xinit, vinit, *, seed, verbose,
         del res  # the fill's memory goes back before the next fill or finalize
         t_now = state.t.cpu().numpy()
         done = t_now >= T
+        fill_no += 1
+        if ck is not None and fill_no % ck[1] == 0 and not done.all():
+            events_only = Skeleton(*(a[:, 1:] for a in acc[:-1]), n_valid=acc.n_valid)
+            _save_stream_checkpoint(ck[0], "horizon", T, state, events_only,
+                                    total_host, fill_no)
+        _fail_after_fills(fill_no)
         if verbose:
             print(f"[sample_skeleton] t={t_now.min():.4g}/{T} "
                   f"(chains done: {int(done.sum())}/{B})")
@@ -349,3 +433,33 @@ def sample(sampler, N_sk: int, N_samples: int, xinit, vinit, *, seed=None,
                                           discard_vt=discard_vt)
     return sample_from_skeleton(sampler, int(N_samples), skel,
                                 discard_vt=discard_vt)
+
+
+def sample_skeleton_with_diagnostic(sampler, T: float, xinit, vinit, U, *, B: int = 1000,
+                                    seed=None, verbose: bool = False, dtype=None,
+                                    init_capacity: int = 1024, device="cuda"):
+    """Time-horizon skeleton and the online realized volatility of ``U``
+    (``sample.jl:75-236``; JAX ``api.py:1543-1611``).
+
+    The reference accumulates the increments of ``U`` event by event
+    between batch boundaries; they telescope to ``U(x(t_b)) - U(x(t_{b-1}))``,
+    so ``U`` (a torch function of one ``(d,)`` position) is evaluated at the
+    ``B + 1`` boundary positions that the sampler's exact flow reconstructs,
+    and the squared differences summed.  A single chain gives a float; a
+    chain batch a ``(Bc,)`` tensor of per-chain values on the skeleton's
+    device, each chain's padded tail masked to +inf out of the boundary
+    search.
+    """
+    T = float(T)
+    skel = sample_skeleton(sampler, T, xinit, vinit, seed=seed, verbose=verbose,
+                           dtype=dtype, init_capacity=init_capacity, device=device)
+    t = skel.t
+    if T == 0.0:
+        return skel, (0.0 if t.dim() == 1 else torch.zeros(t.shape[0], dtype=t.dtype,
+                                                           device=t.device))
+    bounds = linspace0(T, B + 1, t.dtype, t.device)
+    if t.dim() == 1:
+        u = torch.func.vmap(U)(_interp_times(sampler, skel, bounds, True))
+        return skel, float(div_once(torch.sum(torch.diff(u) ** 2), T))
+    u = boundary_u(skel, bounds[None, :].expand(t.shape[0], -1), U, sampler.flow)
+    return skel, div_once(torch.sum(torch.diff(u, dim=1) ** 2, dim=1), T)

@@ -573,3 +573,72 @@ def test_batch_sample_times_match_cpu_bit_for_bit(dev, dtype):
     want = pt.sample_from_skeleton_batch(sampler, 300, _batch_skeleton(dtype, "cpu"),
                                          discard_vt=False)
     assert torch.equal(got[..., -1].cpu(), want[..., -1])
+
+
+def _stream_sampler(kind, d):
+    if kind == "zigzag":
+        return pt.ZigZag(d, pt.potentials.grad_gauss)
+    return pt.StickyZigZag(d, pt.potentials.grad_gauss, np.full(d, 5.0))
+
+
+STREAM_KW = dict(n_samples=512, n_batches=8, seed=7, t_cap=64, grid_chunk=128,
+                 dtype=torch.float64)
+
+
+@pytest.mark.parametrize("kind", ["zigzag", "sticky"])
+def test_streaming_run_on_card_matches_cpu(dev, kind):
+    """A small streaming run on the card (K1 or K6 in horizon mode, the fold
+    in torch on the card) against the same run on the CPU, f64: counts and
+    events equal, sums to rtol 1e-9 (K1 and K6 keep FMA).  The card groups
+    fills by 8 and the CPU by 2; fills past the horizon fold nothing."""
+    d, B = 5, 32
+    rs = np.random.default_rng(1)
+    x0, v0 = rs.normal(size=(B, d)) * 0.4, rs.choice([-1.0, 1.0], size=(B, d))
+    cpu = pt.sample_streaming_stats(_stream_sampler(kind, d), 40.0, x0, v0, device="cpu",
+                                    **STREAM_KW)
+    launch = "zigzag_chunk_horizon" if kind == "zigzag" else "sticky_chunk_horizon"
+    n0 = build.LAUNCHES[launch]
+    gpu = pt.sample_streaming_stats(_stream_sampler(kind, d), 40.0, x0, v0, device=dev,
+                                    **STREAM_KW)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[launch] > n0 and gpu.stats.bsum.is_cuda
+    assert gpu.events == cpu.events and gpu.fills % 8 == 0
+    for f, a, b in zip(pt.streaming.StreamingStats._fields, gpu.stats, cpu.stats):
+        if a.dtype == torch.int32:
+            assert torch.equal(a.cpu(), b), f
+        else:
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-9, atol=1e-12, msg=f)
+
+
+@pytest.mark.parametrize("mode", ["events", "horizon", "streaming"])
+@pytest.mark.parametrize("kind", ["zigzag", "sticky"])
+def test_checkpoint_resume_on_card_is_bit_for_bit(dev, tmp_path, monkeypatch, kind, mode):
+    """A run interrupted by PDMPFLUX_FAIL_AFTER_FILLS and resumed from its
+    file equals the unbroken run on the card bit for bit (float32).  The
+    unbroken run checkpoints too, so that both group fills alike."""
+    d, B = 20, 64
+    x0, v0 = np.full((B, d), 0.3), np.ones((B, d))
+    kw = dict(seed=3, dtype=torch.float32, device=dev)
+
+    def run(path):
+        s = _stream_sampler(kind, d)
+        ck = dict(checkpoint_path=path, checkpoint_every=1)
+        if mode == "events":
+            return pt.sample_skeleton(s, 400, x0, v0, t_cap=64, **ck, **kw)
+        if mode == "horizon":
+            return pt.sample_skeleton(s, 30.0, x0, v0, t_cap=64, **ck, **kw)
+        return pt.sample_streaming_stats(s, 30.0, x0, v0, n_samples=4096, n_batches=16,
+                                         t_cap=256, **ck, **kw)
+
+    ref = run(str(tmp_path / "ref.npz"))
+    path = str(tmp_path / "run.npz")
+    monkeypatch.setenv("PDMPFLUX_FAIL_AFTER_FILLS", "2")
+    with pytest.raises(RuntimeError, match="fault injection"):
+        run(path)
+    monkeypatch.delenv("PDMPFLUX_FAIL_AFTER_FILLS")
+    got = run(path)
+    if mode == "streaming":
+        assert (got.events, got.fills) == (ref.events, ref.fills) and ref.fills > 2
+        got, ref = got.stats, ref.stats
+    for a, b in zip(got, ref):
+        assert a.is_cuda and torch.equal(a, b)
