@@ -159,14 +159,55 @@ Phases, one line each; any failure raises and exits non-zero:
    16 fills: accumulators, events and fills; then (d)
    ``sample_skeleton_with_diagnostic`` at ``zigzag_gauss_d10_horizon`` (U =
    gauss, 1000 batches): each chain's RV within rtol 1e-4 of
-   ``RV_diagnostic`` on a host copy of the same skeleton.
+   ``RV_diagnostic`` on a host copy of the same skeleton;
+22. the transition engine (``core/engine.py``, plain torch) on the card
+   against the engine on the CPU, float64, from one state and keys, 256
+   transitions of 256 chains at d = 10 on the Gaussian, one case per family:
+   the Zig-Zag with scalar and vectorized bounds, ``grid_size=0`` and
+   finite-difference tangents, the Sticky Zig-Zag with scalar and vectorized
+   bounds, the Speed-Up Zig-Zag, BPS, the Boomerang, Forward ECMC in its
+   three jump variants and RHMC: step by step (every CPU input state through
+   the card's transition at once) equal kinds and floats within rtol 1e-9
+   (atol 1e-12), decisions apart only at rounding ties; free-running, at
+   least 99% of the chains take every decision alike with every float of
+   every event row within rtol 1e-9 (1e-6 for finite differences and ECMC's
+   normal variant, see ``phase_engine_agreement``), a parting chain parts at
+   a rounding tie; the card's time per transition and the torch ops one
+   transition dispatches;
+23. the ``rhmc_gauss_d10`` deployment (``benchmarks/run_baselines.py:124-127``
+   at scale 1): RHMCAD(10, gauss, refresh_rate=1.0), 512 chains x 1024
+   points, float32, x0 = 0, v0 = 1; one warm call at 64 points, then three
+   timed calls,
+   the first counted and checked: complete, K2 launched, engine transitions
+   counted, no chunk kernel, pooled moments in bench.py's bands,
+   split-R-hat (``diagnostics.split_rhat``) < 1.02; the median call's events/s
+   and its split (engine chunks by CUDA events, K2 launches x K2's time on
+   this path's first fill, the rest); K2 checked bit for bit on that fill
+   and timed beside its plain version; a time-horizon call at T = 200,
+   every chain at t == T exactly with EV_TERMINAL;
+24. ``zigzag_banana_d10_fd`` and ``zigzag_banana_d10_jvp``
+   (``benchmarks/run_baselines.py:146-158`` at scale 1): ZigZagAD(10,
+   banana) with finite-difference or jvp tangents, ``backend="xla_stream"``,
+   512 chains x 2048 points (cut from the deployment's 4096 so that the
+   script stays near six minutes), float32, x0 = v0 = 1; one timed call each:
+   complete, K2 launched, engine transitions counted, no chunk kernel,
+   |mean_i| < 0.1 and |var_i / truth_i - 1| < 0.1 with truth (1, 3, 1, ...);
+   events/s, the split, K2 checked on the first fill as in phase 23;
+25. routing under ``backend="auto"``: a tagged Zig-Zag launches K1 and runs
+   no engine transition; RHMC and a ``vectorized_bound=False`` Zig-Zag run
+   the engine and no chunk kernel; ``"pallas"`` on RHMC raises; an untagged
+   Zig-Zag raises under ``"auto"`` naming ``backend="xla_stream"`` and runs
+   under it; then an engine ``sample_streaming_stats`` of RHMC at B = 512
+   (T = 300, 4096 grid points, 32 windows) with pooled moments in bench.py's
+   bands.
 
 Then one JSON line of per-kernel results (launches counted in the timed run
 of each kernel's path: phase 4 for K1 and K2, phase 7 for K6, phase 10 for
 K3, phase 12 for K5, phase 14 for K1 in horizon mode, phase 15 for K6, K3
 and K5 in horizon mode, phase 17 for K4, phase 18 for K4 in horizon mode,
-and phases 19 and 20 for the entries of K6 and K1 in horizon mode named
-after the streaming deployments; max_abs_err the largest of the kernel's comparisons
+phases 19 and 20 for the entries of K6 and K1 in horizon mode named
+after the streaming deployments, and phases 23 and 24 for the entries of K2
+named after the engine deployments; max_abs_err the largest of the kernel's comparisons
 with its plain version, f64 and f32; the bound of each timed launch computed
 from its shape and this run's data), the card's name and power limit, and
 the status line.
@@ -183,6 +224,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 if not torch.cuda.is_available():
     print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -2206,6 +2248,467 @@ def phase_checkpoints(card_name, rate):
           f"({card_name})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-25: the transition engine (core/engine.py), plain torch on the
+# card, with K2 compacting every fill
+# ---------------------------------------------------------------------------
+
+ENGINE_AGREE = (256, 10, 256)  # phase 22: chains, d, transitions per family
+ENGINE_SHARE = 0.99            # phase 22: chains that must take every decision alike
+ENGINE_RTOL = {"zigzag_fd": 1e-6, "ecmc_normal": 1e-6}  # phase 22: else 1e-9
+ENGINE_FAMILIES = {            # phase 22: one case per family, f64 on the Gaussian
+    "zigzag_scalar": lambda d: pt.ZigZagAD(d, pt.potentials.gauss, vectorized_bound=False),
+    "zigzag_vect": lambda d: pt.ZigZagAD(d, pt.potentials.gauss),
+    "zigzag_const": lambda d: pt.ZigZagAD(d, pt.potentials.gauss, grid_size=0),
+    "zigzag_fd": lambda d: pt.ZigZagAD(d, pt.potentials.gauss, AD_backend="FiniteDiff"),
+    "sticky_scalar": lambda d: pt.StickyZigZagAD(d, pt.potentials.gauss, np.full(d, 0.7),
+                                                 vectorized_bound=False),
+    "sticky_vect": lambda d: pt.StickyZigZagAD(d, pt.potentials.gauss, np.full(d, 0.7)),
+    "suzz": lambda d: pt.SpeedUpZigZagAD(d, pt.potentials.gauss),
+    "bps": lambda d: pt.BPSAD(d, pt.potentials.gauss, refresh_rate=0.5),
+    "boomerang": lambda d: pt.BoomerangAD(d, pt.potentials.gauss, refresh_rate=0.5),
+    "ecmc_switch": lambda d: pt.ForwardECMCAD(d, pt.potentials.gauss),
+    "ecmc_refresh": lambda d: pt.ForwardECMCAD(d, pt.potentials.gauss, switch=False),
+    "ecmc_normal": lambda d: pt.ForwardECMCAD(d, pt.potentials.gauss, normal=True, ran_p=True),
+    "rhmc": lambda d: pt.RHMCAD(d, pt.potentials.gauss),
+}
+RHMC_D10 = (10, 512, 1024, 1.0)  # d, chains, points, refresh: rhmc_gauss_d10
+RHMC_CALLS = 3                   # timed warm calls of the RHMC path
+RHMC_HORIZON_T = 200.0           # its time-horizon call (~200 events per chain)
+BANANA_D10 = (10, 512, 2048)     # d, chains, points (cut from 4096): zigzag_banana_d10_fd / _jvp
+ROUTE_STREAM = (512, 10, 300.0, 1024, 32)  # phase 25: chains, d, T, grid, windows
+
+
+class OpCount(TorchDispatchMode):
+    """Counts the torch ops dispatched inside it (views included)."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def engine_run(sampler, state, n):
+    """``n`` engine transitions of a batch from ``state``: every event
+    stacked ``(n, B, ...)`` and each transition's input state (on the CPU)."""
+    tr = engine.make_transition(sampler)
+    evs, ins = [], []
+    t_max = None
+    if sampler.flow_takes_bound:  # the runner's host bound, here once for the run
+        t_max = float(torch.maximum(state.horizon, state.bound_h).max()) * (
+            engine.HORIZON_GROW ** n if sampler.adaptive else 1.0)
+    for _ in range(n):
+        if state.x.device.type == "cpu":
+            ins.append(state)
+        state, ev = tr(state, t_max)
+        evs.append(ev)
+    return type(evs[0])(*(torch.stack(f) for f in zip(*evs))), ins
+
+
+def engine_margin(sampler, s, k, b, ev):
+    """The decision margins of chain ``b`` at transition ``k`` from its
+    float64 input state ``s`` (CPU): the thinning uniform against the
+    acceptance ratio, and for a flip the gap between the two best Gumbel
+    scores; a rounding tie makes one of them ~1e-15."""
+    one = type(s)(*(a[b:b + 1] for a in s))
+    keys = rng.split(one.key, 6)
+    u = float(rng.key_uniform(keys[:, 2], torch.float64)[0])
+    ar = float(ev.ar[k, b])
+    margins = [abs(u - ar) / max(abs(ar), 1e-300)]
+    if hasattr(sampler, "_flip_rates"):
+        x_new = ev.x[k, b:b + 1].cpu()
+        lam = sampler._flip_rates(x_new, one.v, one.is_active)[0]
+        u_g = rng.uniform_shaped(keys[:, 3], lam.shape, torch.float64,
+                                 torch.finfo(torch.float64).tiny, 1.0)[0]
+        score = torch.where(lam > 0, torch.log(torch.where(lam > 0, lam, torch.ones_like(lam))),
+                            torch.full_like(lam, -float("inf"))) - torch.log(-torch.log(u_g))
+        top = torch.topk(score, 2).values
+        if bool(torch.isfinite(top).all()):
+            margins.append(float((top[0] - top[1]).abs() / top[0].abs().clamp_min(1.0)))
+    return min(margins)
+
+
+def float_diffs(ev_k, ev_p, rtol):
+    """Per (transition, chain) of two stacked event records: whether a float
+    lies past ``rtol`` (atol 1e-12), the largest relative difference (over
+    magnitudes of at least 1e-3), and per chain the largest absolute one."""
+    n, B = ev_p.t.shape
+    bad = torch.zeros((n, B), dtype=torch.bool)
+    rel = torch.zeros((n, B), dtype=torch.float64)
+    err = torch.zeros(B, dtype=torch.float64)
+    for f in ("x", "v", "t", "horizon", "ar", "error_value_ar"):
+        a, p = getattr(ev_k, f), getattr(ev_p, f)
+        fin = torch.isfinite(p)
+        mag = p.abs().where(fin, torch.zeros_like(p))
+        diff = torch.where(fin, (a - p).abs(), torch.zeros_like(p))
+        ok = (diff <= rtol * mag + 1e-12) & (torch.isfinite(a) == fin)
+        bad |= ~ok.reshape(n, B, -1).all(2)
+        rel = torch.maximum(rel, (diff / mag.clamp_min(1e-3)).reshape(n, B, -1).amax(2))
+        err = torch.maximum(err, diff.reshape(n, B, -1).amax((0, 2)))
+    return bad, rel, err
+
+
+def phase_engine_agreement():
+    """Phase 22: the engine on the card against the engine on the CPU, f64,
+    from one state and keys, ``ENGINE_AGREE`` transitions per family.
+
+    (a) Step by step: every input state of the CPU's run goes through the
+    card's transition at once; each event and next state equals the CPU's,
+    kinds exactly, floats to rtol 1e-9 (atol 1e-12), except where a decision
+    margin below 1e-8 (a rounding tie) lets the card decide otherwise.
+    (b) Free-running: at least ``ENGINE_SHARE`` of the chains take every
+    decision alike (event kinds, activity) with every float of every event
+    row within the family's rtol, and a chain that decides otherwise parts
+    at a rounding tie: its decision margin lies below 1e-8, or below 1e3
+    times the relative difference its floats had reached before.  The rtol
+    is 1e-9, and 1e-6 for two families whose arithmetic widens a last-bit
+    difference between the card's and the CPU's log1p (Exp clocks, normals)
+    over a run: finite-difference tangents (a step of sqrt(eps) max(1, |t|)
+    turns it into a relative envelope difference of about 1e-8) and ECMC's
+    normal variant (its speed sqrt(|v_o|^2 - rho^2) cancels).  Returns the
+    largest float difference of (a)."""
+    B, d, n = ENGINE_AGREE
+    rs = np.random.default_rng(22)
+    texts, worst = [], 0.0
+    for name, make in ENGINE_FAMILIES.items():
+        sampler = make(d)
+        x0 = rs.normal(size=(B, d))
+        if name.startswith(("zigzag", "sticky", "suzz")):
+            v0 = rs.choice([-1.0, 1.0], size=(B, d))
+        else:
+            v0 = rs.normal(size=(B, d))
+            if name.startswith("ecmc"):
+                v0 /= np.linalg.norm(v0, axis=1, keepdims=True)
+        st_cpu = sampler.init_state_batch(x0, v0, 22, torch.float64, "cpu")
+        st_dev = type(st_cpu)(*(a.to(DEV) for a in st_cpu))
+        ev_p, ins = engine_run(sampler, st_cpu, n)
+        t0 = time.perf_counter()
+        ev_k, _ = engine_run(sampler, st_dev, n)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        with OpCount() as ops:
+            engine.make_transition(sampler)(st_dev)
+        sync()
+        ev_k = type(ev_k)(*(a.cpu() for a in ev_k))
+
+        # (a) step by step, every CPU input state through the card at once
+        flat = type(st_cpu)(*(torch.cat(f).to(DEV) for f in zip(*ins)))
+        t_max = None
+        if sampler.flow_takes_bound:
+            t_max = float(torch.maximum(flat.horizon, flat.bound_h).max())
+        _, ev_s = engine.make_transition(sampler)(flat, t_max)
+        ev_s = type(ev_s)(*(a.cpu().reshape((n, B) + a.shape[1:]) for a in ev_s))
+        s_rtol = ENGINE_RTOL.get(name, 1e-9) if name == "ecmc_normal" else 1e-9
+        s_bad, _, s_err = float_diffs(ev_s, ev_p, s_rtol)
+        flips = (ev_s.kind != ev_p.kind) | (ev_s.is_active != ev_p.is_active).any(-1)
+        for k, b in flips.nonzero().tolist():
+            margin = engine_margin(sampler, ins[k], k, b, ev_p)
+            if margin > 1e-8:
+                raise AssertionError(f"phase 22 {name} step by step: transition {k} chain "
+                                     f"{b} decides otherwise with a margin of {margin:.3e}")
+        if bool((s_bad & ~flips).any()):
+            k, b = (s_bad & ~flips).nonzero()[0].tolist()
+            raise AssertionError(f"phase 22 {name} step by step: transition {k} chain {b} "
+                                 f"differs past rtol {s_rtol:g}")
+        worst = max(worst, float(s_err.max()))
+
+        # (b) free-running
+        rtol = ENGINE_RTOL.get(name, 1e-9)
+        bad, rel, err = float_diffs(ev_k, ev_p, rtol)
+        kinds_same = (ev_k.kind == ev_p.kind).all(0) & (ev_k.rejected == ev_p.rejected).all(0)
+        decided = kinds_same & (ev_k.is_active == ev_p.is_active).reshape(n, B, -1).all(2).all(0)
+        same = decided & ~bad.any(0)
+        share = float(same.double().mean())
+        parted, drifted = [], []
+        for b in (~same).nonzero()[:, 0].tolist():
+            if bool(decided[b]):  # every decision alike; floats past the rtol
+                k = int(bad[:, b].nonzero()[0, 0])
+                drifted.append(f"chain {b} from transition {k} (to {float(rel[:, b].max()):.1e})")
+                continue
+            k = int(((ev_k.kind[:, b] != ev_p.kind[:, b])
+                     | (ev_k.is_active[:, b] != ev_p.is_active[:, b]).any(-1)).nonzero()[0, 0])
+            pre = float(rel[:k, b].max()) if k else 0.0
+            margin = engine_margin(sampler, ins[k], k, b, ev_p)
+            if margin > max(1e-8, 1e3 * pre):
+                raise AssertionError(f"phase 22 {name}: chain {b} parts at transition {k} "
+                                     f"with a decision margin of {margin:.3e} after a float "
+                                     f"difference of {pre:.1e}: not a tie")
+            parted.append(f"chain {b} at transition {k} (margin {margin:.1e}, floats {pre:.1e} "
+                          "apart before)")
+        if share < ENGINE_SHARE:
+            raise AssertionError(f"phase 22 {name}: only {share:.4f} of the chains agree at "
+                                 f"rtol {rtol:g}; {'; '.join(parted + drifted)[:2000]}")
+        jumps = int((ev_p.kind == pt.EV_JUMP).sum())
+        texts.append(f"{name}: step by step max_abs_err {float(s_err.max()):.2e} at rtol "
+                     f"{s_rtol:g}, {int(flips.sum())} tie decisions; free-running {share:.4f} "
+                     f"of chains at rtol {rtol:g}, max_abs_err {float(err[same].max()):.2e} "
+                     f"({jumps} jumps; card {ms:.3f} ms per transition, {ops.n} torch ops "
+                     f"dispatched per transition"
+                     f"{'; parted at a tie: ' + ', '.join(parted) if parted else ''}"
+                     f"{'; same decisions, floats apart: ' + ', '.join(drifted) if drifted else ''})")
+    print(f"phase 22 the engine on the card against the engine on the CPU (f64, B={B}, d={d}, "
+          f"{n} transitions from one state and keys, Gaussian) — {'; '.join(texts)}; "
+          f"step-by-step max_abs_err {worst:.3e}", flush=True)
+    return worst
+
+
+def engine_call(sampler, n_or_T, x0, v0, **kw):
+    """One timed ``sample_skeleton`` call with its counts: (skeleton, wall,
+    K2 launches, engine chunks, transitions, engine ms by CUDA events, the
+    arguments of its first K2 call)."""
+    first = []
+    compact_fill = k2.compact_fill
+
+    def spy(fill, out, off=None, init=None):
+        if not first:
+            first.append((fill, out.t.shape[1], off, init))
+        return compact_fill(fill, out, off, init)
+
+    build.reset_launches()
+    engine.reset_counts()
+    engine.CHUNK_EVENTS = []
+    k2.compact_fill = spy
+    sync()
+    try:
+        t0 = time.perf_counter()
+        skel = pt.sample_skeleton(sampler, n_or_T, x0, v0, dtype=torch.float32, device=DEV,
+                                  **kw)
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        k2.compact_fill = compact_fill
+        spans, engine.CHUNK_EVENTS = engine.CHUNK_EVENTS, None
+    eng_ms = sum(a.elapsed_time(b) for a, b in spans)
+    launches = dict(build.LAUNCHES)
+    if any(n for k, n in launches.items() if k != "compact_rows"):
+        raise AssertionError(f"an engine path launched a chunk kernel: {launches}")
+    if launches["compact_rows"] < 1 or engine.COUNTS["transitions"] < 1:
+        raise AssertionError(f"engine path missed K2 or the engine: {launches}, "
+                             f"{dict(engine.COUNTS)}")
+    return (skel, wall, launches["compact_rows"], engine.COUNTS["chunks"],
+            engine.COUNTS["transitions"], eng_ms, first[0])
+
+
+def engine_k2_check(what, first):
+    """K2 on the first fill of an engine call (``engine_call``'s last item):
+    checked bit for bit against its plain version on fresh outputs, timed
+    beside it, and its bound.  Returns (err, ms, plain_ms, bound)."""
+    fill, W, off, init = first
+    B, d = fill.kind.shape[-1], fill.x.shape[1]
+    outs = []
+    for fn in (k2.compact_rows, k2.compact_rows_plain):
+        out = k2.empty_rows(B, W, d, fill.x.dtype, DEV)
+        for a in out[:-1]:
+            a.zero_()  # columns past a short chain's rows stay equal
+        kind, specs = k2.fill_specs(fill, out, init)
+        fn(kind, specs, off)
+        outs.append(out)
+    sync()
+    err = k2_outputs_equal(what, *outs)
+    del outs, out
+    ms = cuda_ms(lambda: k2.compact_rows(kind, specs, off), 5)
+    plain_ms = cuda_ms(lambda: k2.compact_rows_plain(kind, specs, off), 2)
+    counts = (fill.kind[:, 0] > 0).sum(0)
+    return err, ms, plain_ms, k2_bound(fill, counts, W)
+
+
+def check_complete(what, skel, n_sk):
+    if not bool((skel.n_valid == n_sk).all()):
+        raise AssertionError(f"{what} incomplete: n_valid min {int(skel.n_valid.min())}")
+    if not bool(torch.isfinite(skel.x).all() and torch.isfinite(skel.t).all()):
+        raise AssertionError(f"{what} produced non-finite values")
+    if not bool((skel.t[:, 1:] >= skel.t[:, :-1]).all()):
+        raise AssertionError(f"{what}: t decreases somewhere")
+
+
+def engine_split(wall, k2_n, k2_ms, eng_ms):
+    wall_ms = wall * 1e3
+    k2_total = k2_n * k2_ms
+    rest = wall_ms - eng_ms - k2_total
+    return (f"split of {wall_ms:.2f} ms: engine chunks (CUDA events) {eng_ms:.2f} ms "
+            f"({eng_ms / wall_ms:.1%}), K2 {k2_n} x {k2_ms:.4f} = {k2_total:.4f} ms "
+            f"({k2_total / wall_ms:.1%}), rest {rest:.2f} ms ({rest / wall_ms:.1%})")
+
+
+def phase_rhmc(card_name):
+    """Phase 23: ``rhmc_gauss_d10`` (``benchmarks/run_baselines.py:124-127``
+    at scale 1): RHMCAD(10, gauss, refresh_rate=1.0), 512 chains x 1024
+    points, float32, x0 = 0, v0 = 1; one warm call (64 points),
+    ``RHMC_CALLS`` timed calls, the first counted and checked (complete, K2 launched, engine
+    transitions counted, no chunk kernel, pooled moments in bench.py's bands,
+    split-R-hat < 1.02); the median call's split; K2 checked on this path's
+    fill; a time-horizon call at ``RHMC_HORIZON_T``.  Returns the kernels
+    line's K2 entry inputs."""
+    d, B, n_sk, lam = RHMC_D10
+    sampler = pt.RHMCAD(d, pt.potentials.gauss, refresh_rate=lam)
+    x0, v0 = np.zeros((B, d)), np.ones((B, d))
+    # warm at 64 points: the same ops and allocations as a whole call
+    pt.sample_skeleton(sampler, 64, x0, v0, seed=0, dtype=torch.float32, device=DEV)
+    calls = [engine_call(sampler, n_sk, x0, v0, seed=0) for _ in range(RHMC_CALLS)]
+    skel, _, k2_n, chunks, transitions, _, first = calls[0]
+    check_complete("rhmc_gauss_d10", skel, n_sk)
+    mean, var = pt.pooled_moments(skel, sampler, 256)
+    if not moments_ok(mean, var):
+        raise AssertionError(f"rhmc_gauss_d10 moments off: mean {mean.tolist()} "
+                             f"var {var.tolist()}")
+    xs = pt.sample_from_skeleton_batch(sampler, 256, skel).cpu().numpy()
+    rhat = pt.diagnostics.split_rhat(xs)
+    if not (rhat < 1.02).all():
+        raise AssertionError(f"rhmc_gauss_d10 split-R-hat {rhat.tolist()}")
+    events = int(skel.n_valid.sum()) - B
+    del skel, xs
+    walls = [c[1] for c in calls]
+    med_i = int(np.argsort(walls)[len(walls) // 2])
+    _, wall, k2_med, chunks_med, _, eng_ms, _ = calls[med_i]
+    del calls
+    chunk_ms = eng_ms / chunks_med
+    err, ms, plain_ms, b = engine_k2_check("rhmc_gauss_d10", first)
+    del first
+    hz, hz_wall, hz_k2, _, hz_tr, _, _ = engine_call(sampler, RHMC_HORIZON_T, x0, v0, seed=1)
+    last = hz.n_valid.long() - 1
+    rows = torch.arange(B, device=DEV)
+    if not (bool((hz.t[rows, last] == RHMC_HORIZON_T).all())
+            and bool((hz.kind[rows, last] == pt.EV_TERMINAL).all())):
+        raise AssertionError("rhmc_gauss_d10 horizon: a chain does not end at t == T "
+                             "with EV_TERMINAL")
+    hz_events = int(hz.n_valid.sum()) - 2 * B
+    del hz
+    print(f"phase 23 rhmc_gauss_d10: RHMCAD({d}, gauss, refresh_rate={lam}) tmax="
+          f"{sampler.tmax} B={B} n_sk={n_sk} f32 events={events}; complete, finite, t "
+          f"non-decreasing, max|mean|={float(mean.abs().max()):.4f} max|var-1|="
+          f"{float((var - 1).abs().max()):.4f}, split-R-hat max {float(rhat.max()):.5f} < 1.02; "
+          f"first timed call: {k2_n} K2 launches, {chunks} engine chunks, {transitions} "
+          f"transitions, no chunk kernel; {RHMC_CALLS} timed warm calls "
+          f"{' '.join(f'{w:.4f}' for w in walls)} s, median {wall:.4f} s "
+          f"({events / wall:.1f} events/s); {engine_split(wall, k2_med, ms, eng_ms)}; "
+          f"engine {chunk_ms:.3f} ms per chunk of 64 transitions (CUDA events, median call); "
+          f"K2 on its first fill {ms:.4f} ms vs plain {plain_ms:.4f} ms, bit-identical, bound "
+          f"{bound_text(b)}; time horizon T={RHMC_HORIZON_T}: every chain ends at t == T with "
+          f"EV_TERMINAL, {hz_events} events, {hz_tr} transitions, {hz_k2} K2 launches, wall "
+          f"{hz_wall:.4f} s ({card_name})", flush=True)
+    return k2_n, err, ms, plain_ms, b
+
+
+def phase_banana_engine(card_name, tderiv):
+    """Phase 24: ``zigzag_banana_d10_fd`` / ``_jvp``
+    (``benchmarks/run_baselines.py:146-158`` at scale 1): ZigZagAD(10,
+    banana) with finite-difference or jvp tangents, ``backend="xla_stream"``,
+    512 chains x 2048 points (cut from 4096: the script's time), float32,
+    x0 = v0 = 1; one timed call: complete,
+    K2 launched, engine transitions counted, no chunk kernel, |mean_i| < 0.1
+    and |var_i / truth_i - 1| < 0.1 with truth (1, 3, 1, ...); events/s and
+    the split; K2 checked on this path's first fill."""
+    d, B, n_sk = BANANA_D10
+    kw = dict(AD_backend="FiniteDiff") if tderiv == "fd" else {}
+    sampler = pt.ZigZagAD(d, pt.potentials.banana, **kw)
+    name = f"zigzag_banana_d10_{tderiv}"
+    x0, v0 = np.ones((B, d)), np.ones((B, d))
+    skel, wall, k2_n, chunks, transitions, eng_ms, first = engine_call(
+        sampler, n_sk, x0, v0, seed=0, backend="xla_stream")
+    check_complete(name, skel, n_sk)
+    mean, var = pt.pooled_moments(skel, sampler, 1024)
+    truth = torch.tensor([1.0, 3.0] + [1.0] * (d - 2), device=var.device, dtype=var.dtype)
+    mean_max = float(mean.abs().max())
+    var_rel = float((var / truth - 1).abs().max())
+    if not (mean_max < 0.1 and var_rel < 0.1):
+        raise AssertionError(f"{name}: max|mean| {mean_max:.4f}, max|var/truth-1| {var_rel:.4f}")
+    events = int(skel.n_valid.sum()) - B
+    del skel
+    err, ms, plain_ms, b = engine_k2_check(name, first)
+    del first
+    chunk_ms = eng_ms / chunks
+    print(f"phase 24 {name}: ZigZagAD({d}, banana, tderiv={sampler.tderiv!r}) "
+          f"backend='xla_stream' B={B} n_sk={n_sk} (cut from 4096) f32 events={events}; "
+          f"complete, finite, t "
+          f"non-decreasing, max|mean| {mean_max:.4f} < 0.1, max|var / (1, 3, 1, ...) - 1| "
+          f"{var_rel:.4f} < 0.1; {k2_n} K2 launches, {chunks} engine chunks, {transitions} "
+          f"transitions, no chunk kernel; one timed call {wall:.4f} s ({events / wall:.1f} "
+          f"events/s); {engine_split(wall, k2_n, ms, eng_ms)}; engine {chunk_ms:.3f} ms per "
+          f"chunk of 64 transitions (CUDA events); K2 on its first fill "
+          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bit-identical, bound {bound_text(b)} "
+          f"({card_name})", flush=True)
+    return k2_n, err, ms, plain_ms, b
+
+
+def phase_routing(card_name):
+    """Phase 25: ``backend="auto"`` routing on the card.  A tagged Zig-Zag
+    launches K1 and runs no engine transition; RHMC and a
+    ``vectorized_bound=False`` Zig-Zag run the engine (and no chunk kernel);
+    ``"pallas"`` on RHMC raises; an untagged Zig-Zag raises under ``"auto"``
+    naming ``backend="xla_stream"`` and runs under it.  Then an engine
+    ``sample_streaming_stats`` of RHMC at B = 512, pooled moments in bench.py's
+    bands."""
+    d, n_sk = 10, 256
+    x0, v0 = np.zeros((512, d)), np.ones((512, d))
+    kw = dict(seed=5, dtype=torch.float32, device=DEV)
+    texts = []
+
+    def counted(sampler, **extra):
+        build.reset_launches()
+        engine.reset_counts()
+        skel = pt.sample_skeleton(sampler, n_sk, x0, v0, **kw, **extra)
+        sync()
+        if not bool((skel.n_valid == n_sk).all()):
+            raise AssertionError(f"phase 25: {type(sampler).__name__} incomplete")
+        return dict(build.LAUNCHES), engine.COUNTS["transitions"]
+
+    launches, tr = counted(pt.ZigZag(d, pt.potentials.grad_gauss))
+    if launches["zigzag_chunk"] < 1 or tr != 0:
+        raise AssertionError(f"phase 25: a tagged Zig-Zag did not take K1 alone: "
+                             f"{launches}, {tr} engine transitions")
+    texts.append(f"tagged ZigZag: {launches['zigzag_chunk']} K1 launches, 0 engine transitions")
+    for s in (pt.RHMC(d, pt.potentials.grad_gauss),
+              pt.ZigZag(d, pt.potentials.grad_gauss, vectorized_bound=False)):
+        launches, tr = counted(s)
+        chunk = sum(n for k, n in launches.items() if k != "compact_rows")
+        if tr < 1 or chunk or launches["compact_rows"] < 1:
+            raise AssertionError(f"phase 25: {type(s).__name__} did not take the engine: "
+                                 f"{launches}, {tr} transitions")
+        texts.append(f"{type(s).__name__}(vectorized_bound={s.vectorized_bound}): {tr} "
+                     f"engine transitions, {launches['compact_rows']} K2 launches")
+    try:
+        pt.sample_skeleton(pt.RHMC(d, pt.potentials.grad_gauss), n_sk, x0, v0, **kw,
+                           backend="pallas")
+        raise AssertionError("phase 25: backend='pallas' ran RHMC")
+    except ValueError as e:
+        texts.append(f"pallas on RHMC raises ({e})")
+    untagged = pt.ZigZag(d, lambda x: x)
+    try:
+        pt.sample_skeleton(untagged, n_sk, x0, v0, **kw)
+        raise AssertionError("phase 25: an untagged gradient ran under backend='auto'")
+    except ValueError as e:
+        if "backend='xla_stream'" not in str(e):
+            raise
+    launches, tr = counted(untagged, backend="xla_stream")
+    if tr < 1 or launches["compact_rows"] < 1:
+        raise AssertionError(f"phase 25: untagged under xla_stream: {launches}, {tr}")
+    texts.append(f"untagged ZigZag: 'auto' raises naming backend='xla_stream'; "
+                 f"'xla_stream' ran {tr} engine transitions")
+    B, d, T, n_samples, n_batches = ROUTE_STREAM
+    sampler = pt.RHMCAD(d, pt.potentials.gauss)
+    engine.reset_counts()
+    t0 = time.perf_counter()
+    run = pt.sample_streaming_stats(sampler, T, np.zeros((B, d)), np.ones((B, d)),
+                                    n_samples=n_samples, n_batches=n_batches, seed=6,
+                                    dtype=torch.float32, device=DEV)
+    sync()
+    wall = time.perf_counter() - t0
+    summ = pt.streaming_summary(run)
+    mean_max = float(np.abs(summ["pooled_mean"]).max())
+    var_dev = float(np.abs(summ["pooled_var"] - 1.0).max())
+    if not (engine.COUNTS["transitions"] > 0 and mean_max < 0.2 and var_dev < 0.3):
+        raise AssertionError(f"phase 25 streaming RHMC: {dict(engine.COUNTS)}, max|mean| "
+                             f"{mean_max:.4f}, max|var-1| {var_dev:.4f}")
+    texts.append(f"streaming RHMC (B={B}, T={T}): {run.events} events, {run.fills} fills, "
+                 f"{engine.COUNTS['transitions']} engine transitions, wall {wall:.3f} s, "
+                 f"max|mean| {mean_max:.4f}, max|var-1| {var_dev:.4f}, rhat_max "
+                 f"{summ['rhat_max']:.4f}")
+    print(f"phase 25 routing on the card: {'; '.join(texts)} ({card_name})", flush=True)
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b):
     return {"name": name, "route": "cuda", "source": f"pdmpflux_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -2248,6 +2751,11 @@ def main():
     k6s_n, k6s_ms, k6s_plain_ms, k6s_err, k6s_b, rate = phase_stream_sticky(card_name)
     k1s_n, k1s_ms, k1s_plain_ms, k1s_err, k1s_b = phase_stream_banana(card_name)
     phase_checkpoints(card_name, rate)
+    phase_engine_agreement()
+    k2_paths = {"rhmc_gauss_d10": phase_rhmc(card_name)}
+    for tderiv in ("fd", "jvp"):
+        k2_paths[f"zigzag_banana_d10_{tderiv}"] = phase_banana_engine(card_name, tderiv)
+    phase_routing(card_name)
     zz = "pdmpflux_tpu/ops/pallas/zigzag_chunk.py:854"
     k7 = 'pdmpflux_tpu/ops/pallas/zigzag_chunk.py:343 mode="horizon"'
     kernels = [
@@ -2290,6 +2798,11 @@ def main():
                      k7, k1s_n, max(k7_errs["zigzag_chunk_horizon"], k1s_err), k1s_ms,
                      k1s_plain_ms, k1s_b),
     ]
+    # the engine paths' K2 launches, each checked and timed on its own fill
+    for path, (n, err, ms, plain_ms, b) in k2_paths.items():
+        kernels.append(kernel_entry(f"compact_rows[{path}]", "compact.cu",
+                                    "pdmpflux_tpu/ops/pallas/compact.py:132", n, err, ms,
+                                    plain_ms, b))
     print(json.dumps({"kernels": kernels}))
     print(card_name)
     print(json.dumps({"ok": True, "device": {

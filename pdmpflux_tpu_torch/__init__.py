@@ -2,17 +2,19 @@
 
 The JAX package ``pdmpflux_tpu`` is the reference; this package mirrors its
 layout (``core``, ``models``, ``ops``, ``parallel``, ``utils``, ``api``) and
-never imports JAX.  Ported so far: the event-count and time-horizon paths
-of the Zig-Zag, the Sticky Zig-Zag, the Speed-Up Zig-Zag and the
-scalar-rate samplers (BPS, Boomerang, Forward ECMC), with their hand-written
-kernels in ``csrc/`` (the fused Zig-Zag chunk kernel, its sticky
-chain-per-CTA variant, the Speed-Up Zig-Zag chunk kernel, the
-warp-per-chain scalar-rate chunk kernel, each with a horizon mode, and
-event-row compaction): every Pallas kernel of the JAX package has its
-counterpart.  Also the diagnostics (ESS, split-R-hat, realized volatility),
-checkpoint/resume of ``sample_skeleton`` and streaming statistics
-(``sample_streaming_stats``, which folds horizon-mode fills into O(B * d)
-accumulators).
+never imports JAX.  Ported: the event-count and time-horizon paths of
+every sampler of the JAX package (Zig-Zag, Sticky Zig-Zag, Speed-Up
+Zig-Zag, BPS, Boomerang, Forward ECMC and RHMC).  Their stream fills come
+from the hand-written kernels in ``csrc/`` (the fused Zig-Zag chunk kernel,
+its sticky chain-per-CTA variant, the Speed-Up Zig-Zag chunk kernel and the
+warp-per-chain scalar-rate chunk kernel, each with a horizon mode: every
+Pallas kernel of the JAX package has its counterpart) or from the transition
+engine (``core/engine.py``, plain torch on the device: RHMC, scalar bounds,
+finite-difference tangents, untagged gradients with ``backend="xla_stream"``),
+and every fill is compacted by the event-row compaction kernel.  Also the
+diagnostics (ESS, split-R-hat, realized volatility), checkpoint/resume of
+``sample_skeleton`` and streaming statistics (``sample_streaming_stats``,
+which folds horizon-mode fills into O(B * d) accumulators).
 """
 
 from . import diagnostics  # noqa: F401
@@ -40,6 +42,8 @@ from .models import (  # noqa: F401
     BoomerangAD,
     ForwardECMC,
     ForwardECMCAD,
+    RHMC,
+    RHMCAD,
     SpeedUpZigZag,
     SpeedUpZigZagAD,
     StickyZigZag,

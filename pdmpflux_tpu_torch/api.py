@@ -4,9 +4,11 @@
   chain batch, through stream fills of the sampler's chunk kernel (K1 for a
   Zig-Zag, K6 for a Sticky Zig-Zag, whose fills also carry the activity
   stream, K4 for a Speed-Up Zig-Zag, K3 for BPS and the Boomerang, K5 for
-  Forward ECMC) and compaction by K2; ``sample_skeleton(sampler, T, ...)`` with a float ``T``: the
-  time-horizon skeleton, the same kernels in horizon mode (K7) and an exact
-  terminal point at ``t = T`` (``core/engine.finalize_horizon_rows``);
+  Forward ECMC) or of the transition engine (``core/engine.py``: RHMC, the
+  scalar-bound Zig-Zag family, and whatever ``backend`` sends there), and
+  compaction by K2; ``sample_skeleton(sampler, T, ...)`` with a float ``T``: the
+  time-horizon skeleton, the same fills in horizon mode (K7 on the kernels)
+  and an exact terminal point at ``t = T`` (``core/engine.finalize_horizon_rows``);
 * ``sample_from_skeleton``: skeleton -> equal-time samples (N, dt, N + dt);
 * ``sample``: the two chained;
 * ``sample_skeleton_with_diagnostic``: the time-horizon skeleton and the
@@ -19,7 +21,11 @@ of the JAX package, the same file layout and manifest).
 Every function takes ``device`` (default ``"cuda"``).  On CUDA the fill and
 the compaction run the hand-written kernels; on the CPU the same driver runs
 their plain PyTorch versions, which is the port's reference path.  Asking for
-CUDA without a card raises.
+CUDA without a card raises.  ``backend`` picks the fill (:func:`pick_backend`,
+the JAX package's four values): ``"auto"`` takes the chunk kernel wherever one
+covers the sampler and the shape, else the engine; ``"xla"`` and
+``"xla_stream"`` always take the engine; ``"pallas"`` takes the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -32,12 +38,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .core import engine
 from .core.device import resolve_device
 from .core.engine import finalize_horizon_rows, grow_rows, prepend_init_rows
 from .core.types import EV_INIT, Skeleton, event_from_state
 from .diagnostics import boundary_u, linspace0
 from .ops.cuda import compact as k2
 from .ops.cuda import driver as k1_driver
+from .ops.cuda import scalar_chunk as k3
+from .ops.cuda import zigzag_chunk as k1
 from .ops.flows import div_once
 from .parallel import checkpoint as _ckpt
 
@@ -135,6 +144,75 @@ def _fail_after_fills(fill_no: int):
         )
 
 
+BACKENDS = ("auto", "xla", "xla_stream", "pallas")
+
+
+def pick_backend(sampler, backend: str, d: int, dtype, device) -> str:
+    """``"kernel"`` or ``"engine"``: which fill runs ``sampler`` at dimension
+    ``d`` in ``dtype`` on ``device``, decided before any launch from the
+    sampler's type and flags, the shape, dtype and device (the JAX package's
+    ``_use_pallas`` and ``pick_launch``).
+
+    * ``"xla"`` and ``"xla_stream"``: the engine;
+    * ``"auto"``: the chunk kernel where ``kernel_kind`` covers the sampler
+      and, on CUDA, the kernel takes the shape (``grid_size`` up to
+      ``MAX_GRID``; ``d`` up to ``scalar_max_dim`` for K3/K5 and
+      ``sticky_max_dim`` for K6, shared memory's limits; the plain versions
+      on the CPU have none), else the engine;
+    * ``"pallas"``: the kernel, or ``ValueError`` where none covers the
+      sampler or the shape.
+
+    On CUDA a covered sampler whose gradient carries no device potential of
+    its kernel raises under ``"auto"`` and ``"pallas"``, naming
+    ``backend="xla_stream"``.  A failed build or launch never picks the
+    route: they raise where they happen."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, not {backend!r}")
+    if backend in ("xla", "xla_stream"):
+        return "engine"
+    kind = k1_driver.kernel_kind(sampler)
+    if kind is None:
+        if backend == "pallas":
+            raise ValueError(
+                "backend='pallas' covers ZigZag/StickyZigZag/SpeedUpZigZag "
+                "(vectorized bounds), BPS, Boomerang and ForwardECMC; "
+                f"{type(sampler).__name__} runs on backend='xla'"
+            )
+        return "engine"
+    if torch.device(device).type != "cuda":
+        return "kernel"
+    scalar = kind in k3.KINDS
+    n_grid = sampler.grid_size if sampler.grid_size >= 2 else k1_driver.PALLAS_CONST_GRID
+    limit = (k3.scalar_max_dim(dtype) if scalar else
+             k1.sticky_max_dim(dtype) if sampler.sticky else None)
+    if n_grid > k1.MAX_GRID or (limit is not None and d > limit):
+        if backend == "pallas":
+            raise ValueError(
+                f"backend='pallas': the {kind} chunk kernel takes grid_size up to "
+                f"{k1.MAX_GRID} and d up to {limit or 'any'} in {dtype}; got grid_size="
+                f"{sampler.grid_size}, d={d}; {type(sampler).__name__} runs on "
+                "backend='xla_stream' here"
+            )
+        return "engine"
+    potentials = k3.KERNEL_POTENTIALS if scalar else k1.KERNEL_POTENTIALS
+    if sampler.device_potential not in potentials:
+        what = ("scalar-rate" if scalar else "Speed-Up Zig-Zag" if kind == "suzz"
+                else "Sticky Zig-Zag" if sampler.sticky else "Zig-Zag")
+        raise ValueError(k1.potential_message(what, potentials, sampler.device_potential))
+    return "kernel"
+
+
+def fill_runner(sampler, route: str, t_cap: int, target: int, chunk: int, tile: int,
+                mode: str = "events"):
+    """The stream-fill runner of ``route`` (:func:`pick_backend`): the chunk
+    kernels' driver, or the transition engine in chunks of
+    ``engine.DEFAULT_CHUNK`` transitions."""
+    if route == "kernel":
+        return k1_driver.make_stream_runner(sampler, t_cap, target, chunk=chunk,
+                                            tile=tile, mode=mode)
+    return engine.make_stream_runner(sampler, t_cap, target, mode=mode)
+
+
 def fill_rows(sampler, target: int, B: int, d: int, dtype,
               dev: torch.device) -> int:
     """Rows of one stream fill: about 1.8 transitions per event on a cold
@@ -158,7 +236,7 @@ def sample_skeleton(sampler, n_or_T, xinit, vinit, *, seed=None,
                     t_cap: Optional[int] = None, chunk: int = 32,
                     tile: int = 128, init_capacity: int = 1024,
                     checkpoint_path: Optional[str] = None,
-                    checkpoint_every: int = 4) -> Skeleton:
+                    checkpoint_every: int = 4, backend: str = "auto") -> Skeleton:
     """Generate a PDMP skeleton, as the JAX package's stream paths do.
 
     ``n_or_T``: an ``int`` asks for that many skeleton points per chain (the
@@ -190,7 +268,7 @@ def sample_skeleton(sampler, n_or_T, xinit, vinit, *, seed=None,
         return _sample_skeleton_horizon(
             sampler, float(n_or_T), xinit, vinit, seed=seed, verbose=verbose,
             dtype=dtype, device=device, t_cap=t_cap, chunk=chunk, tile=tile,
-            init_capacity=init_capacity, ck=ck)
+            init_capacity=init_capacity, ck=ck, backend=backend)
     n_sk = int(n_or_T)
     if n_sk <= 0:
         raise ValueError(f"n_sk must be positive. Current value: {n_sk}")
@@ -209,8 +287,8 @@ def sample_skeleton(sampler, n_or_T, xinit, vinit, *, seed=None,
             "MiB, beyond the device budget; host accumulation is not ported "
             "yet (ROADMAP Queue 1)"
         )
-    runner = k1_driver.make_stream_runner(sampler, t_cap, target, chunk=chunk,
-                                          tile=tile)
+    runner = fill_runner(sampler, pick_backend(sampler, backend, d, dtype, dev),
+                         t_cap, target, chunk, tile)
 
     state = sampler.init_state_batch(x, v, seed, dtype, dev)
     init_ev = event_from_state(state, EV_INIT)
@@ -274,7 +352,7 @@ def _trim_single(skel: Skeleton) -> Skeleton:
 
 def _sample_skeleton_horizon(sampler, T: float, xinit, vinit, *, seed, verbose,
                              dtype, device, t_cap, chunk, tile,
-                             init_capacity, ck=None) -> Skeleton:
+                             init_capacity, ck=None, backend="auto") -> Skeleton:
     """Time-horizon skeleton (``sample.jl:323-439``), as the JAX package's
     on-device stream path builds it (``api.py:1085-1242``): stream fills in
     horizon mode until every chain's clock reaches ``T``, the first compacted
@@ -310,8 +388,8 @@ def _sample_skeleton_horizon(sampler, T: float, xinit, vinit, *, seed, verbose,
         skel = prepend_init_rows(k2.empty_rows(B, 0, d, dtype, dev), init_ev, zeros, 0)
         return _trim_single(skel) if squeeze else skel
 
-    runner = k1_driver.make_stream_runner(sampler, t_cap, t_cap, chunk=chunk,
-                                          tile=tile, mode="horizon")
+    runner = fill_runner(sampler, pick_backend(sampler, backend, d, dtype, dev),
+                         t_cap, t_cap, chunk, tile, mode="horizon")
     acc = None
     total = zeros            # events per chain so far, on the card
     total_host = np.zeros(B, np.int64)
@@ -421,11 +499,11 @@ def sample_from_skeleton(sampler, n_or_dt, skeleton: Skeleton, *, dt=None,
 
 def sample(sampler, N_sk: int, N_samples: int, xinit, vinit, *, seed=None,
            verbose: bool = False, discard_vt: bool = True, dtype=None,
-           device="cuda"):
+           device="cuda", backend: str = "auto"):
     """``sample_skeleton`` then ``sample_from_skeleton`` (``sample.jl:27-41``);
     ``(B, d)`` initial conditions return ``(B, N_samples, d)``."""
     skel = sample_skeleton(sampler, int(N_sk), xinit, vinit, seed=seed,
-                           verbose=verbose, dtype=dtype, device=device)
+                           verbose=verbose, dtype=dtype, device=device, backend=backend)
     if skel.t.dim() == 2:
         from .parallel.sharded import sample_from_skeleton_batch
 
@@ -437,7 +515,8 @@ def sample(sampler, N_sk: int, N_samples: int, xinit, vinit, *, seed=None,
 
 def sample_skeleton_with_diagnostic(sampler, T: float, xinit, vinit, U, *, B: int = 1000,
                                     seed=None, verbose: bool = False, dtype=None,
-                                    init_capacity: int = 1024, device="cuda"):
+                                    init_capacity: int = 1024, device="cuda",
+                                    backend: str = "auto"):
     """Time-horizon skeleton and the online realized volatility of ``U``
     (``sample.jl:75-236``; JAX ``api.py:1543-1611``).
 
@@ -452,7 +531,8 @@ def sample_skeleton_with_diagnostic(sampler, T: float, xinit, vinit, U, *, B: in
     """
     T = float(T)
     skel = sample_skeleton(sampler, T, xinit, vinit, seed=seed, verbose=verbose,
-                           dtype=dtype, init_capacity=init_capacity, device=device)
+                           dtype=dtype, init_capacity=init_capacity, device=device,
+                           backend=backend)
     t = skel.t
     if T == 0.0:
         return skel, (0.0 if t.dim() == 1 else torch.zeros(t.shape[0], dtype=t.dtype,

@@ -1,8 +1,8 @@
 """Core data structures of the PyTorch port.
 
 Counterpart of ``pdmpflux_tpu/core/types.py``: the same transition-machine
-modes, event kinds and record layouts, as ``NamedTuple``s of tensors.  A
-chain batch adds a leading axis to every field.
+modes, event kinds, thinning envelope and record layouts, as ``NamedTuple``s
+of tensors.  A chain batch adds a leading axis to every field.
 
 ``PDMPState.key`` holds JAX's raw Threefry key data (``uint32[2]`` per chain,
 ``jax.random.key_data``) in an ``int64`` tensor, because PyTorch has no
@@ -27,6 +27,18 @@ EV_THAW = 4      # sticky sampler released a frozen coordinate
 EV_TERMINAL = 5  # synthesized exact-t=T point (time-horizon sampling)
 
 ERROR_RING_SIZE = 5  # ring buffer of recent erroneous acceptance ratios
+
+
+class BoundBox(NamedTuple):
+    """Piecewise-constant upper bound of the event rate on ``[0, horizon]``
+    for a chain batch: ``grid`` ``(B, n)`` time points from 0, ``box_max``
+    ``(B, n - 1)`` per-segment envelope values, ``cum_sum`` ``(B, n)`` the
+    integrated envelope from 0, ``step_size`` ``(B,)`` the grid spacing."""
+
+    grid: torch.Tensor
+    box_max: torch.Tensor
+    cum_sum: torch.Tensor
+    step_size: torch.Tensor
 
 
 class PDMPState(NamedTuple):

@@ -3,6 +3,20 @@
 A sampler holds static configuration and pure functions on tensors.  The
 bound-strategy flags resolve exactly as in the JAX package (reference
 ``AbstractPDMP.jl:104-136``); the error texts are the same.
+
+The maps the transition engine (``core/engine.py``) calls take a chain
+batch, tensors leading with ``B``:
+
+* ``flow(x, v, t)``: rows ``(..., d)``, times ``(..., 1)``;
+* ``rate(x, v, t)``, ``rate_vect``, ``signed_rate``, ``signed_rate_vect``:
+  ``x``, ``v`` ``(B, d)`` and per-chain times ``(B, *S)``; the unsigned
+  total rate ``(B, *S)``, or per-coordinate rates ``(B, *S, d)``;
+* ``bound_box(x, v, horizon)``: the envelope of the chosen strategy;
+* ``velocity_jump(x, v, keys, is_active)``: ``(B, d)`` velocities after an
+  event, one Threefry key ``(B, 2)`` per chain.
+
+Only the user's one-chain functions (``grad_U``) go through
+``torch.func.vmap`` (``ops/flows.rows_map``).
 """
 
 from __future__ import annotations
@@ -12,10 +26,11 @@ from typing import Callable, Optional
 
 import torch
 
-from ..core import rng
+from ..core import bounds, rng
 from ..core.device import resolve_device
 from ..core.types import ERROR_RING_SIZE, MODE_FRESH, PDMPState
-from ..utils.potentials import device_potential_of
+from ..ops.flows import rows_map
+from ..utils.potentials import LANE_POTENTIALS, device_potential_of
 
 
 def as_key(seed_or_key, device="cpu") -> torch.Tensor:
@@ -61,6 +76,14 @@ def resolve_potential(U: Callable, dim: int):
         f"{None if out is None else tuple(out.shape)}; expected a scalar "
         f"(potential) or (dim,) vector (gradient)."
     )
+
+
+def max0(y: torch.Tensor) -> torch.Tensor:
+    """``max(y, 0)`` with JAX's derivative at the tie: ``torch.maximum`` (not
+    ``clamp_min``) splits the tangent in half where ``y == 0``, as
+    ``jnp.maximum(0.0, y)`` does, which the envelope's jvp tangents see
+    wherever a rate term starts at exactly 0."""
+    return torch.maximum(y, torch.zeros((), dtype=y.dtype, device=y.device))
 
 
 def tag_from(sampler, U):
@@ -135,8 +158,60 @@ class PDMP:
     def _zigzag_family(self) -> bool:
         return False
 
+    # -- dynamics interface (subclasses implement) ---------------------------
     def flow(self, x, v, t):
         raise NotImplementedError
+
+    def rate(self, x, v, t):
+        raise NotImplementedError
+
+    rate_vect: Optional[Callable] = None
+    signed_rate: Optional[Callable] = None
+    signed_rate_vect: Optional[Callable] = None
+    flow_takes_bound = False
+    """True when ``flow`` takes ``t_max``, a host bound on its times (RHMC's
+    Verlet flow, whose step count depends on them)."""
+
+    def velocity_jump(self, x, v, keys, is_active):
+        raise NotImplementedError
+
+    def grad_rows(self, x):
+        """``grad_U`` of every row of ``x`` ``(..., d)``: the device
+        potential's closed form when the sampler carries a tag (the formula
+        the kernels evaluate, ``utils.potentials.LANE_POTENTIALS``), else the
+        user's ``grad_U`` through ``torch.func.vmap``."""
+        if self.device_potential in LANE_POTENTIALS:
+            grad, _ = LANE_POTENTIALS[self.device_potential](self.device_params)
+            flat = x.reshape((-1, x.shape[-1]))
+            return grad(flat.T).T.reshape(x.shape)
+        return rows_map(self.grad_U, x)
+
+    def along(self, x, v, t):
+        """``flow`` from each chain's ``(x, v)`` ``(B, d)`` to its times
+        ``(B, *S)``: positions and velocities ``(B, *S, d)`` (the velocity
+        may stay ``(B, 1, ..., d)`` where the flow keeps it)."""
+        shape = (x.shape[0],) + (1,) * (t.dim() - 1) + (x.shape[1],)
+        return self.flow(x.reshape(shape), v.reshape(shape), t[..., None])
+
+    # -- bound strategy resolution (AbstractPDMP.jl:104-136) -----------------
+    def bound_box(self, x, v, horizon):
+        """The envelope of the rate from ``(x, v)`` over ``[0, horizon]``:
+        constant on the unsigned rate when ``grid_size == 0``, else a grid
+        envelope of the signed or unsigned, scalar or per-coordinate rate,
+        the refresh rate added on the signed scalar path only."""
+        if self.grid_size == 0:
+            return bounds.upper_bound_constant(lambda t: self.rate(x, v, t), horizon)
+        if self.signed_bound:
+            sel_rate, sel_vect = self.signed_rate, self.signed_rate_vect
+            refresh = self.refresh_rate
+        else:
+            sel_rate, sel_vect = self.rate, self.rate_vect
+            refresh = 0.0
+        if not self.vectorized_bound:
+            return bounds.upper_bound_grid(lambda t: sel_rate(x, v, t), horizon,
+                                           self.grid_size, refresh, tderiv=self.tderiv)
+        return bounds.upper_bound_grid_vect(lambda t: sel_vect(x, v, t), horizon,
+                                            self.grid_size, tderiv=self.tderiv)
 
     def init_state(self, xinit, vinit, seed=None, dtype=None,
                    device="cuda") -> PDMPState:
@@ -189,3 +264,21 @@ class PDMP:
                                        device=device),
             key=sub[:, 0],
         )
+
+
+class ScalarRatePDMP(PDMP):
+    """A sampler with one scalar event rate, ``max(0, <g(x_t), v_t>) +
+    refresh_rate`` for a gradient-like ``g`` (BPS and Forward ECMC: ``grad
+    U``; the Boomerang: ``grad U(x) - x``), whose signed rate omits the
+    refresh rate: the signed grid envelope adds it once after its max with
+    0, as the JAX package's tight envelope does."""
+
+    def _grad_like(self, x):
+        return self.grad_rows(x)
+
+    def signed_rate(self, x, v, t):
+        xt, vt = self.along(x, v, t)
+        return torch.sum(self._grad_like(xt) * vt, -1)
+
+    def rate(self, x, v, t):
+        return max0(self.signed_rate(x, v, t)) + self.refresh_rate

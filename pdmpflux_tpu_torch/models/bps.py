@@ -2,17 +2,41 @@
 
 Linear flow, scalar rate ``max(0, <grad_U(x_t), v_t>) + refresh_rate``, and
 the bounce-or-refresh velocity jump, which runs inside the fused chunk
-kernel (``ops/cuda/scalar_chunk.py``, K3).  The bound strategy is forced
+kernel (``ops/cuda/scalar_chunk.py``, K3) and, batched below, in the
+transition engine (``core/engine.py``).  The bound strategy is forced
 non-vectorized, as in the reference.
 """
 
 from __future__ import annotations
 
+import torch
+
+from ..core import rng
 from ..ops.flows import linear_flow
-from .base import PDMP, resolve_potential, tag_from
+from .base import ScalarRatePDMP, max0, resolve_potential, tag_from
 
 
-class BPS(PDMP):
+def bounce_or_refresh(g, v, v_reflect, keys, refresh_rate, normalize_fresh):
+    """The jump of BPS and the Boomerang on the (effective) gradient ``g``
+    ``(B, d)``: ``v_reflect`` with probability ``bounce / (bounce + refresh)``,
+    ``bounce = max(0, <g, v>)`` (0 when both are 0), else a fresh N(0, I)
+    velocity, normalized when ``normalize_fresh``; the uniform and the
+    normals from the two halves of each chain's key."""
+    bounce_rate = max0(torch.sum(g * v, -1))
+    denom = bounce_rate + refresh_rate
+    pos = denom > 0
+    bounce_prob = torch.where(pos, bounce_rate / torch.where(pos, denom, torch.ones_like(denom)),
+                              torch.zeros_like(denom))
+    k = rng.split(keys, 2)
+    u = rng.key_uniform(k[:, 0], v.dtype)
+    fresh = rng.normal_shaped(k[:, 1], v.shape[-1:], v.dtype)
+    if normalize_fresh:
+        nrm = torch.sqrt(torch.sum(fresh * fresh, -1, keepdim=True))
+        fresh = fresh / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
+    return torch.where((u < bounce_prob)[:, None], v_reflect, fresh)
+
+
+class BPS(ScalarRatePDMP):
     """Defaults as in ``BouncyParticleSamplers.jl:21-24`` (``tmax=1.0`` and
     ``refresh_rate=0.1`` for the manual-gradient constructor; ``BPSAD``
     below uses the reference's other defaults).  ``gaussian_velocity``
@@ -31,6 +55,16 @@ class BPS(PDMP):
 
     def flow(self, x, v, t):
         return linear_flow(x, v, t)
+
+    def velocity_jump(self, x, v, keys, is_active):
+        """Reflect off ``grad_U(x)`` or refresh (``BouncyParticleSamplers.jl:50-74``)."""
+        g = self.grad_rows(x)
+        gg = torch.sum(g * g, -1, keepdim=True)
+        scale = 2.0 * torch.sum(v * g, -1, keepdim=True) / torch.where(
+            gg > 0, gg, torch.ones_like(gg))
+        v_reflect = torch.where(gg > 0, v - scale * g, v)
+        return bounce_or_refresh(g, v, v_reflect, keys, self.refresh_rate,
+                                 not self.gaussian_velocity)
 
 
 def BPSAD(dim, U, *, refresh_rate=0.0, grid_size=10, tmax=2.0,

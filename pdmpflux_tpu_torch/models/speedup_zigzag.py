@@ -6,7 +6,8 @@ flips on the effective gradient ``grad_U_eff(x) = s(x) grad_U(x) - x / s(x)``.
 The rates, the envelope's tangents and the flip run inside the fused chunk
 kernel (``ops/cuda/zigzag_chunk.py``, K4), which builds the effective
 gradient and its time derivative from the device potential's gradient and
-Hessian-vector product.
+Hessian-vector product; the transition engine (``core/engine.py``) takes
+the rates and flips below, on the effective gradient of each row.
 """
 
 from __future__ import annotations
@@ -25,6 +26,11 @@ class SpeedUpZigZag(ZigZag):
         """The effective gradient of one chain, ``(d,)``."""
         s = torch.sqrt(1.0 + torch.sum(x * x))
         return s * self.grad_U(x) - x / s
+
+    def _grad_like(self, x):
+        """The effective gradient of rows ``(..., d)``."""
+        s = torch.sqrt(1.0 + torch.sum(x * x, -1, keepdim=True))
+        return s * self.grad_rows(x) - x / s
 
     def flow(self, x, v, t):
         """The speed-change flow on rows with the coordinate axis last and

@@ -2,8 +2,10 @@
 (``pdmpflux_tpu/models/sticky.py``).
 
 The sticky logic (axis-hit sticking, Exp(sum kappa) thaw clocks, activity
-masking) lives in the fused chunk kernel, activated by ``sticky = True``;
-this class only adds the per-coordinate thawing rates ``kappa``.
+masking) lives in the fused chunk kernel (K6) and in the transition engine's
+sticky branches (``core/engine.py``), both activated by ``sticky = True``;
+this class only adds the per-coordinate thawing rates ``kappa``, which the
+engine reads for the thaw clock and the thawed coordinate's draw.
 """
 
 from __future__ import annotations

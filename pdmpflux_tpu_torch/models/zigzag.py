@@ -1,15 +1,21 @@
 """Zig-Zag sampler (``pdmpflux_tpu/models/zigzag.py``).
 
-Linear flow, per-coordinate rates ``max(0, dU_i(x_t) v_i)``.  The velocity
-jump (one coordinate flip drawn proportionally to the rates) runs inside the
-fused chunk kernel, ``ops/cuda/zigzag_chunk.py``; the stand-alone
-``velocity_jump`` of the XLA transition engine is not ported yet.
+Linear flow, per-coordinate rates ``max(0, dU_i(x_t) v_i)`` and one
+coordinate flip at an event, drawn in proportion to the rates
+(``ZigZagSamplers.jl:101-107``).  The rates, the envelope and the flip run
+inside the fused chunk kernel (``ops/cuda/zigzag_chunk.py``, K1) with
+vectorized bounds; the batched rates and ``velocity_jump`` below are the
+transition engine's (``core/engine.py``), which runs scalar bounds,
+``grid_size = 0`` and finite-difference tangents.
 """
 
 from __future__ import annotations
 
+import torch
+
+from ..core import rng
 from ..ops.flows import linear_flow
-from .base import PDMP, resolve_potential, tag_from
+from .base import PDMP, max0, resolve_potential, tag_from
 
 
 class ZigZag(PDMP):
@@ -26,9 +32,44 @@ class ZigZag(PDMP):
             refresh_rate=refresh_rate, vectorized_bound=vectorized_bound,
             signed_bound=signed_bound, adaptive=adaptive, **kw,
         )
+        self.rate_vect = self._rate_vect
+        self.signed_rate = None
+        self.signed_rate_vect = self._signed_rate_vect
 
     def flow(self, x, v, t):
         return linear_flow(x, v, t)
+
+    def _grad_like(self, x):
+        """The gradient the rates and flips read, of rows ``(..., d)``."""
+        return self.grad_rows(x)
+
+    def rate(self, x, v, t):
+        return torch.sum(self._rate_vect(x, v, t), -1)
+
+    def _rate_vect(self, x, v, t):
+        return max0(self._signed_rate_vect(x, v, t))
+
+    def _signed_rate_vect(self, x, v, t):
+        xt, vt = self.along(x, v, t)
+        return self._grad_like(xt) * vt
+
+    def _flip_rates(self, x, v, is_active):
+        """Flip intensities at an event, on the velocity masked by
+        ``is_active`` (the JAX package's fix: a frozen coordinate cannot
+        flip)."""
+        va = torch.where(is_active, v, torch.zeros_like(v))
+        return max0(self._grad_like(x) * va)
+
+    def velocity_jump(self, x, v, keys, is_active):
+        lam = self._flip_rates(x, v, is_active)
+        pos = lam > 0
+        logits = torch.where(pos, torch.log(torch.where(pos, lam, torch.ones_like(lam))),
+                             torch.full_like(lam, float("-inf")))
+        m = rng.categorical(keys, logits)
+        rows = torch.arange(v.shape[0], device=v.device)
+        out = v.clone()
+        out[rows, m] = -v[rows, m]
+        return out
 
 
 def ZigZagAD(dim, U, **kw):

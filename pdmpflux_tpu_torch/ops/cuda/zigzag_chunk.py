@@ -490,18 +490,23 @@ def sticky_max_dim(dtype) -> int:
     return int(build.library().sticky_chunk_max_dim(int(dtype == torch.float64)))
 
 
+def potential_message(what: str, potentials, tag) -> str:
+    """The error text for a sampler whose device potential (``tag``) the
+    CUDA ``what`` kernel does not implement."""
+    return (f"the CUDA {what} kernel covers the device potentials "
+            f"{list(potentials)} (utils.potentials: gauss, grad_gauss, banana, "
+            f"grad_banana, anisotropic_gauss); this sampler's is {tag!r} — run "
+            "it on the transition engine with backend='xla_stream', or with "
+            "device='cpu'")
+
+
 def check_cuda(st: ChunkState, fill: RawFill, row0: int, cfg: ChunkConfig,
                what: str, potentials) -> None:
     """Raise unless a chunk kernel can run: a device potential in
     ``potentials``, ``n_grid`` in ``[2, MAX_GRID]``, and every state and
     fill tensor contiguous, of the right type and shape, on one card."""
     if cfg.device_potential not in potentials:
-        raise ValueError(
-            f"the CUDA {what} kernel covers the device potentials "
-            f"{list(potentials)} (utils.potentials: gauss, grad_gauss, banana, "
-            f"grad_banana, anisotropic_gauss); this sampler's is "
-            f"{cfg.device_potential!r} — run it with device='cpu'"
-        )
+        raise ValueError(potential_message(what, potentials, cfg.device_potential))
     if not 2 <= cfg.n_grid <= MAX_GRID:
         raise ValueError(f"n_grid={cfg.n_grid} outside the kernel's [2, {MAX_GRID}]")
     dtype = st.x.dtype

@@ -1,8 +1,9 @@
 """Deterministic flows (``pdmpflux_tpu/ops/flows.py``).
 
 The linear flow of the Zig-Zag family, BPS and Forward ECMC, the
-Boomerang's elliptic flow and the Speed-Up Zig-Zag's closed-form
-speed-change flow, written as the JAX package writes them."""
+Boomerang's elliptic flow, the Speed-Up Zig-Zag's closed-form speed-change
+flow and RHMC's velocity-Verlet flow, written as the JAX package writes
+them."""
 
 from __future__ import annotations
 
@@ -77,3 +78,50 @@ def suzz_flow_tangent(x, v, t, dim_axis: int = -1):
     ``dx_t/dt = phi v`` with ``phi = v0 sqrt(d) v0 (b_t^2 + a) / (2 b_t)``,
     in closed form where JAX takes ``jax.jvp`` through the flow."""
     return _suzz_at(x, v, t, dim_axis)
+
+
+def rows_map(fn, x: torch.Tensor) -> torch.Tensor:
+    """A one-chain map ``(d,) -> (d,)`` (or ``-> ()``) applied to every row of
+    ``x`` ``(..., d)`` with ``torch.func.vmap``."""
+    lead = x.shape[:-1]
+    out = torch.func.vmap(fn)(x.reshape((-1, x.shape[-1])))
+    return out.reshape(lead + out.shape[1:])
+
+
+def make_verlet_flow(grad_rows, step_size: float):
+    """The Hamiltonian flow ``x' = v, v' = -grad U(x)`` by velocity Verlet
+    (``RandomizedHamiltonianMonteCarlo.jl:97-130``): ``n = floor(t / h)``
+    full steps and one remainder step of ``t - n h``, each step's closing
+    gradient reused as the next one's opening gradient (one gradient per
+    step, as the JAX package chains it).  ``grad_rows`` maps rows ``(..., d)``
+    to their gradients (``PDMP.grad_rows``).
+
+    ``flow(x, v, t, t_max=None)`` takes rows ``(..., d)`` and times
+    ``(..., 1)``.  The step count depends on the data: the loop runs to the
+    largest count of the batch, read from the device, or to ``floor(t_max /
+    h) + 1`` steps for a host bound ``t_max >= max(t)`` (no device read); a
+    row past its own count keeps its state by selection, so its steps are
+    exact identities."""
+    def half_step(x, v, g, dt):
+        v = v - 0.5 * dt * g
+        x = x + dt * v
+        g2 = grad_rows(x)
+        return x, v - 0.5 * dt * g2, g2
+
+    def flow(x, v, t, t_max=None):
+        t = torch.as_tensor(t, dtype=x.dtype, device=x.device)
+        h = torch.tensor(step_size, dtype=x.dtype, device=x.device)
+        n = torch.floor(t / h)
+        r = t - n * h
+        g = grad_rows(x)
+        steps = (int(n.max()) if n.numel() else 0) if t_max is None else \
+            int(math.floor(t_max / step_size)) + 1
+        for i in range(steps):
+            x2, v2, g2 = half_step(x, v, g, h)
+            go = n > i
+            x, v, g = (torch.where(go, x2, x), torch.where(go, v2, v),
+                       torch.where(go, g2, g))
+        x, v, _ = half_step(x, v, g, r)
+        return x, v
+
+    return flow

@@ -9,9 +9,11 @@ computable at the end:
 
 * a fixed equal-time grid ``t_j = (j + 1) T / n_samples`` is chosen up
   front (time-horizon mode);
-* each fill is one ``driver.make_stream_runner(..., mode="horizon")`` run of
-  the sampler's chunk kernel (K1 or K6, K3/K5 or K4 in horizon mode, K7) to a
-  capped clock target; the grid points the fill newly covers are
+* each fill is one horizon-mode stream fill to a capped clock target, from
+  the sampler's chunk kernel (K1 or K6, K3/K5 or K4 in horizon mode, K7), or
+  from the transition engine where no kernel covers the sampler (RHMC, the
+  scalar-bound Zig-Zag family) or ``backend`` asks for it, as JAX falls back
+  to its XLA engine (``api.pick_backend``); the grid points the fill newly covers are
   interpolated from its raw rows, which carry trajectory time and form a
   valid skeleton, and flowed from the covering row as
   ``sample_from_skeleton`` would;
@@ -44,7 +46,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .api import _device_bytes_budget, _fail_after_fills, _prep_init, _row_bytes
+from .api import _device_bytes_budget, _fail_after_fills, _prep_init, _row_bytes, pick_backend
+from .core import engine
 from .core.device import resolve_device
 from .core.types import PDMPState
 from .diagnostics import RHAT_THRESHOLD
@@ -240,6 +243,7 @@ def sample_streaming_stats(
     device="cuda",
     chunk: int = 32,
     tile: int = 128,
+    backend: str = "auto",
 ) -> StreamingRun:
     """Run time-horizon sampling to ``t = T`` while folding equal-time
     samples into O(B * d) accumulators; the skeleton is never materialized.
@@ -254,8 +258,8 @@ def sample_streaming_stats(
     ``grid_chunk`` points.  Fills go in groups of 8 on CUDA (2 on the CPU),
     as the JAX package groups them per dispatch; ``fills``,
     ``checkpoint_every`` and ``check_every`` count as there.  ``chunk`` and
-    ``tile`` are the driver's (transitions per kernel launch, RNG lane
-    tile).
+    ``tile`` are the kernel driver's (transitions per kernel launch, RNG lane
+    tile); ``backend`` picks the fill as ``sample_skeleton``'s does.
 
     ``checkpoint_path``: atomically save the state, the accumulators and the
     grid cursor about every ``checkpoint_every`` fills, and RESUME bit for
@@ -267,9 +271,9 @@ def sample_streaming_stats(
     given).
 
     The fused chunk kernels cover the Zig-Zag family with vectorized bounds,
-    BPS, Boomerang and Forward ECMC; other samplers raise (they need the
-    transition engine, ROADMAP Queue 1).  The multi-device ``mesh=`` of the
-    JAX package is not ported: one card.
+    BPS, Boomerang and Forward ECMC; every other sampler runs on the
+    transition engine.  The multi-device ``mesh=`` of the JAX package is not
+    ported: one card.
     """
     if not (isinstance(T, (int, float)) and math.isfinite(T) and T > 0):
         raise ValueError(f"T must be finite and positive. Current value: {T}")
@@ -280,15 +284,6 @@ def sample_streaming_stats(
             f"{2 * n_batches} for the batch-means ESS estimator"
         )
     x, v, _squeeze = _prep_init(sampler, xinit, vinit)
-    if driver.kernel_kind(sampler) is None:
-        raise ValueError(
-            "sample_streaming_stats runs the fused chunk kernels, which cover "
-            "ZigZag, StickyZigZag and SpeedUpZigZag with vectorized_bound=True, "
-            f"BPS, Boomerang and ForwardECMC; {type(sampler).__name__} with "
-            f"vectorized_bound={getattr(sampler, 'vectorized_bound', None)} needs "
-            "the transition engine, not ported yet (ROADMAP Queue 1, the torch "
-            "transition engine)"
-        )
     dev = resolve_device(device)
     if dtype is None:
         dtype = torch.get_default_dtype()
@@ -304,8 +299,11 @@ def sample_streaming_stats(
     G = int(grid_chunk)
     T32 = np.float32(T)
     dt32 = np.float32(dt_grid)
-    runner = driver.make_stream_runner(sampler, t_cap, t_cap, chunk=chunk, tile=tile,
-                                       mode="horizon")
+    if pick_backend(sampler, backend, d, dtype, dev) == "kernel":
+        runner = driver.make_stream_runner(sampler, t_cap, t_cap, chunk=chunk, tile=tile,
+                                           mode="horizon")
+    else:
+        runner = engine.make_stream_runner(sampler, t_cap, t_cap, mode="horizon")
     fold = make_fold_chunk(sampler, G, n_samples, n_batches, n_burnin, dt_grid, x_ref)
 
     state = sampler.init_state_batch(x, v, seed, dtype, dev)

@@ -137,3 +137,38 @@ def device_potential_of(*fns):
         if tag is not None:
             return tag, getattr(fn, "device_params", None)
     return None, None
+
+
+# Test potentials without a device tag (``pdmpflux_tpu/utils/potentials.py``):
+# the transition engine runs them on the card (``backend="xla_stream"``) and
+# every path runs them on the CPU.
+
+def gauss_1d(x):
+    """The one-dimensional standard Gaussian, ``U(x) = x^2 / 2``."""
+    return torch.sum(x * x) / 2.0
+
+
+def funnel(x):
+    """Neal-style funnel of the reference's test configuration (needs
+    ``x[0] > 0``)."""
+    d = x.shape[0]
+    v = x[0]
+    return v ** 2 / 2.0 + (d - 1) * torch.log(v) + torch.sum(x[1:] ** 2) / (2.0 * v ** 2)
+
+
+def neal_funnel(x):
+    """Neal's funnel, ``x[0] ~ N(0, 9)`` and ``x[1:] | x[0] ~ N(0, exp(x[0]) I)``,
+    valid on all of R^d."""
+    d = x.shape[0]
+    v = x[0]
+    return v * v / 18.0 + 0.5 * (d - 1) * v + 0.5 * torch.sum(x[1:] ** 2) * torch.exp(-v)
+
+
+def ridged_gauss(x):
+    """A Gaussian with sinusoidal ridges."""
+    return torch.sum(x * x) / 2.0 + 0.1 * torch.sum(torch.sin(10.0 * x))
+
+
+def cauchy(x):
+    """Product of standard Cauchy marginals, ``U(x) = sum log(1 + x_i^2)``."""
+    return torch.sum(torch.log1p(x * x))

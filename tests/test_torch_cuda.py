@@ -642,3 +642,81 @@ def test_checkpoint_resume_on_card_is_bit_for_bit(dev, tmp_path, monkeypatch, ki
         got, ref = got.stats, ref.stats
     for a, b in zip(got, ref):
         assert a.is_cuda and torch.equal(a, b)
+
+
+ENGINE_CASES = {
+    "zigzag_scalar": lambda d: pt.ZigZagAD(d, pt.potentials.gauss, vectorized_bound=False),
+    "zigzag_fd": lambda d: pt.ZigZagAD(d, pt.potentials.banana, AD_backend="FiniteDiff"),
+    "sticky_scalar": lambda d: pt.StickyZigZagAD(d, pt.potentials.gauss, np.full(d, 0.7),
+                                                 vectorized_bound=False),
+    "bps": lambda d: pt.BPSAD(d, pt.potentials.gauss, refresh_rate=0.5),
+    "ecmc_normal": lambda d: pt.ForwardECMCAD(d, pt.potentials.gauss, normal=True),
+    "rhmc": lambda d: pt.RHMCAD(d, pt.potentials.gauss),
+    "rhmc_untagged": lambda d: pt.RHMCAD(d, lambda x: torch.sum(x * x) / 2),
+}
+
+
+@pytest.mark.parametrize("family", list(ENGINE_CASES))
+def test_engine_on_the_card_matches_cpu(dev, family):
+    """``chip_smoke.py`` phase 22 at a small size: 64 engine transitions of
+    64 chains from one f64 state on the card and on the CPU; every chain
+    takes the same decisions with its event rows within rtol 1e-9 (1e-6 with
+    finite-difference tangents, which turn a last-bit difference between the
+    card's and the CPU's log1p into an envelope difference of about 1e-8)."""
+    from pdmpflux_tpu_torch.core import engine
+
+    d, B, n = 6, 64, 64
+    sampler = ENGINE_CASES[family](d)
+    rs = np.random.default_rng(1)
+    x0 = rs.normal(size=(B, d))
+    v0 = (rs.choice([-1.0, 1.0], size=(B, d)) if family.startswith(("zigzag", "sticky"))
+          else rs.normal(size=(B, d)))
+    if family.startswith("ecmc"):
+        v0 /= np.linalg.norm(v0, axis=1, keepdims=True)
+    outs = []
+    for device in ("cpu", dev):
+        st = sampler.init_state_batch(x0, v0, 2, torch.float64, device)
+        tr = engine.make_transition(sampler)
+        evs = []
+        for _ in range(n):
+            st, ev = tr(st)
+            evs.append(ev)
+        outs.append([torch.stack(f).cpu() for f in zip(*evs)])
+    rtol = 1e-6 if family == "zigzag_fd" else 1e-9
+    for a, b in zip(*outs):
+        if a.dtype in (torch.int32, torch.bool):
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(b, a, rtol=rtol, atol=1e-12, equal_nan=True)
+
+
+def test_backend_routing_on_the_card(dev):
+    """``chip_smoke.py`` phase 25 at a small size."""
+    from pdmpflux_tpu_torch.core import engine
+
+    x0, v0 = np.zeros((32, 4)), np.ones((32, 4))
+    kw = dict(seed=1, dtype=torch.float32, device=dev)
+    build.reset_launches()
+    engine.reset_counts()
+    pt.sample_skeleton(pt.ZigZag(4, pt.potentials.grad_gauss), 64, x0, v0, **kw)
+    assert build.LAUNCHES["zigzag_chunk"] > 0 and engine.COUNTS["transitions"] == 0
+    for s in (pt.RHMC(4, pt.potentials.grad_gauss),
+              pt.ZigZag(4, pt.potentials.grad_gauss, vectorized_bound=False)):
+        build.reset_launches()
+        engine.reset_counts()
+        skel = pt.sample_skeleton(s, 64, x0, v0, **kw)
+        assert bool((skel.n_valid == 64).all())
+        assert engine.COUNTS["transitions"] > 0 and build.LAUNCHES["compact_rows"] > 0
+        assert build.LAUNCHES["zigzag_chunk"] == 0
+    with pytest.raises(ValueError, match="backend='xla'"):
+        pt.sample_skeleton(pt.RHMC(4, pt.potentials.grad_gauss), 64, x0, v0, **kw,
+                           backend="pallas")
+    untagged = pt.ZigZag(4, lambda x: x)
+    with pytest.raises(ValueError, match="backend='xla_stream'"):
+        pt.sample_skeleton(untagged, 64, x0, v0, **kw)
+    engine.reset_counts()
+    skel = pt.sample_skeleton(untagged, 64, x0, v0, **kw, backend="xla_stream")
+    assert bool((skel.n_valid == 64).all()) and engine.COUNTS["transitions"] > 0
+    hz = pt.sample_skeleton(pt.RHMC(4, pt.potentials.grad_gauss), 20.0, x0, v0, **kw)
+    last = hz.n_valid.long() - 1
+    assert bool((hz.t[torch.arange(32, device=dev), last] == 20.0).all())

@@ -13,9 +13,13 @@ import jax.numpy as jnp  # noqa: E402
 
 import pdmpflux_tpu as pf  # noqa: E402
 import pdmpflux_tpu_torch as pt  # noqa: E402
+from pdmpflux_tpu_torch import api as tapi  # noqa: E402
 from pdmpflux_tpu_torch import convert  # noqa: E402
+from pdmpflux_tpu_torch.core import engine  # noqa: E402
 from pdmpflux_tpu_torch.models.base import resolve_potential  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import driver as tdrv  # noqa: E402
+from pdmpflux_tpu_torch.ops.cuda import scalar_chunk as k3  # noqa: E402
+from pdmpflux_tpu_torch.ops.cuda import zigzag_chunk as k1  # noqa: E402
 
 FLAGS = ("dim", "grid_size", "tmax", "refresh_rate", "vectorized_bound",
          "signed_bound", "adaptive", "tderiv")
@@ -89,10 +93,117 @@ def test_kernel_coverage_errors():
     with pytest.raises(ValueError, match="vectorized_bound=True"):
         tdrv.chunk_config(pt.ZigZag(3, pt.potentials.grad_gauss,
                                     vectorized_bound=False), 32, 10, 128)
-    with pytest.raises(ValueError, match="vectorized_bound=True"):
-        pt.sample_skeleton(pt.ZigZag(3, pt.potentials.grad_gauss,
-                                     vectorized_bound=False),
-                           5, np.zeros(3), np.ones(3), device="cpu")
+    # no kernel covers scalar bounds: sample_skeleton takes the transition
+    # engine for them and runs
+    scalar = pt.ZigZag(3, pt.potentials.grad_gauss, vectorized_bound=False)
+    assert tapi.pick_backend(scalar, "auto", 3, torch.float64, "cpu") == "engine"
+    engine.reset_counts()
+    skel = pt.sample_skeleton(scalar, 5, np.zeros(3), np.ones(3), seed=1,
+                              dtype=torch.float64, device="cpu")
+    assert engine.COUNTS["transitions"] > 0 and int(skel.n_valid) == 5
+
+
+def _route_samplers(d):
+    g = pt.potentials.grad_gauss
+    return {
+        "zigzag": pt.ZigZag(d, g),
+        "zigzag_scalar": pt.ZigZag(d, g, vectorized_bound=False),
+        "sticky": pt.StickyZigZag(d, g, np.ones(d)),
+        "sticky_scalar": pt.StickyZigZag(d, g, np.ones(d), vectorized_bound=False),
+        "suzz": pt.SpeedUpZigZag(d, g),
+        "suzz_scalar": pt.SpeedUpZigZag(d, g, vectorized_bound=False),
+        "bps": pt.BPS(d, g),
+        "boomerang": pt.Boomerang(d, g),
+        "ecmc": pt.ForwardECMC(d, g),
+        "rhmc": pt.RHMC(d, g),
+    }
+
+
+KERNEL_ROUTES = {"zigzag", "sticky", "suzz", "bps", "boomerang", "ecmc"}
+
+
+@pytest.mark.parametrize("backend", ["auto", "xla", "xla_stream", "pallas"])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_pick_backend_routes_every_sampler(backend, device, monkeypatch):
+    """Every sampler under every backend value, on the CPU and (decided
+    without a card) on CUDA, with the shared-memory limits the built kernels
+    report there (K3/K5: 1210 in float32, K6: 1500)."""
+    monkeypatch.setattr(k3, "scalar_max_dim", lambda dt: 1210)
+    monkeypatch.setattr(k1, "sticky_max_dim", lambda dt: 1500)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        samplers = _route_samplers(4)
+    for name, s in samplers.items():
+        kernel = name in KERNEL_ROUTES
+        if backend in ("xla", "xla_stream"):
+            want = "engine"
+        elif backend == "pallas" and not kernel:
+            with pytest.raises(ValueError) as err:
+                tapi.pick_backend(s, backend, 4, torch.float32, device)
+            assert str(err.value) == (
+                "backend='pallas' covers ZigZag/StickyZigZag/SpeedUpZigZag "
+                "(vectorized bounds), BPS, Boomerang and ForwardECMC; "
+                f"{type(s).__name__} runs on backend='xla'")
+            continue
+        else:
+            want = "kernel" if kernel else "engine"
+        assert tapi.pick_backend(s, backend, 4, torch.float32, device) == want, name
+
+
+def test_pallas_refusal_matches_jax_text():
+    js = pf.RHMC(3, lambda x: x)
+    with pytest.raises(ValueError) as ej:
+        pf.sample_skeleton(js, 5, np.zeros(3), np.ones(3), backend="pallas")
+    with pytest.raises(ValueError) as et:
+        pt.sample_skeleton(pt.RHMC(3, pt.potentials.grad_gauss), 5, np.zeros(3),
+                           np.ones(3), device="cpu", backend="pallas")
+    assert str(et.value) == str(ej.value)
+    with pytest.raises(ValueError, match="backend must be one of"):
+        tapi.pick_backend(pt.ZigZag(3, pt.potentials.grad_gauss), "triton", 3,
+                          torch.float32, "cpu")
+
+
+def test_pick_backend_shape_limits_on_cuda(monkeypatch):
+    """On CUDA the kernels' shared memory and grid limits send "auto" to the
+    engine and make "pallas" raise; the CPU's plain versions have none."""
+    monkeypatch.setattr(k3, "scalar_max_dim", lambda dt: 1210 if dt == torch.float32 else 605)
+    monkeypatch.setattr(k1, "sticky_max_dim", lambda dt: 1500 if dt == torch.float32 else 1200)
+    g = pt.potentials.grad_gauss
+    cases = [(pt.BPS(700, g), 700, torch.float32, "kernel"),
+             (pt.BPS(700, g), 700, torch.float64, "engine"),
+             (pt.ForwardECMC(1211, g), 1211, torch.float32, "engine"),
+             (pt.StickyZigZag(1300, g), 1300, torch.float32, "kernel"),
+             (pt.StickyZigZag(1300, g), 1300, torch.float64, "engine"),
+             (pt.ZigZag(5000, g), 5000, torch.float64, "kernel"),
+             (pt.SpeedUpZigZag(5000, g), 5000, torch.float64, "kernel"),
+             (pt.ZigZag(4, g, grid_size=64), 4, torch.float32, "kernel"),
+             (pt.ZigZag(4, g, grid_size=65), 4, torch.float32, "engine")]
+    for s, d, dt, want in cases:
+        assert tapi.pick_backend(s, "auto", d, dt, "cuda") == want, (type(s), d, dt)
+        assert tapi.pick_backend(s, "auto", d, dt, "cpu") == "kernel"
+        if want == "engine":
+            with pytest.raises(ValueError, match="backend='xla_stream' here"):
+                tapi.pick_backend(s, "pallas", d, dt, "cuda")
+        else:
+            assert tapi.pick_backend(s, "pallas", d, dt, "cuda") == "kernel"
+
+
+def test_untagged_gradient_on_cuda_names_the_engine(monkeypatch):
+    """An untagged gradient that a kernel would cover raises on CUDA under
+    "auto" and "pallas", naming backend="xla_stream"; that backend, and the
+    CPU, run it."""
+    monkeypatch.setattr(k3, "scalar_max_dim", lambda dt: 1210)
+    for s in (pt.ZigZag(3, lambda x: x), pt.BPS(3, lambda x: x),
+              pt.SpeedUpZigZagAD(3, lambda x: torch.sum(x * x) / 2),
+              pt.ZigZag(3, pt.potentials.anisotropic_gauss([1.0, 2.0, 3.0]))):
+        for backend in ("auto", "pallas"):
+            with pytest.raises(ValueError, match="device potentials") as err:
+                tapi.pick_backend(s, backend, 3, torch.float32, "cuda")
+            assert "backend='xla_stream'" in str(err.value)
+        assert tapi.pick_backend(s, "xla_stream", 3, torch.float32, "cuda") == "engine"
+        assert tapi.pick_backend(s, "auto", 3, torch.float32, "cpu") == "kernel"
+    aniso = pt.BPSAD(3, pt.potentials.anisotropic_gauss([1.0, 2.0, 3.0]))
+    assert tapi.pick_backend(aniso, "auto", 3, torch.float32, "cuda") == "kernel"
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

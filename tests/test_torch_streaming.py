@@ -408,7 +408,15 @@ def test_streaming_rejects_bad_args_with_jax_text(T, kw):
 
 
 def test_streaming_without_a_kernel_names_the_engine():
+    """A sampler no chunk kernel covers streams on the transition engine."""
+    from pdmpflux_tpu_torch.core import engine as te
+
     sampler = pt.ZigZag(2, pt.potentials.grad_gauss, vectorized_bound=False,
                         signed_bound=False)
-    with pytest.raises(ValueError, match="transition engine"):
-        pt.sample_streaming_stats(sampler, 10.0, np.zeros(2), np.ones(2), device="cpu")
+    assert api.pick_backend(sampler, "auto", 2, torch.float64, "cpu") == "engine"
+    te.reset_counts()
+    run = pt.sample_streaming_stats(sampler, 10.0, np.zeros((4, 2)), np.ones((4, 2)),
+                                    n_samples=128, n_batches=4, t_cap=256,
+                                    grid_chunk=128, dtype=torch.float64, device="cpu")
+    assert te.COUNTS["transitions"] > 0 and run.events > 0
+    assert bool((run.state.t >= 10.0).all())

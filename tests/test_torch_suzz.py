@@ -351,7 +351,13 @@ def test_constructors_and_kind_selection():
     assert tdrv.kernel_kind(scalar) is None
     assert pdrv.kernel_kind(pf.SpeedUpZigZag(3, lambda x: x, vectorized_bound=False)) is None
     with pytest.raises(ValueError, match="SpeedUpZigZag with vectorized_bound=True"):
-        pt.sample_skeleton(scalar, 10, np.zeros(3), np.ones(3), device="cpu")
+        tdrv.chunk_config(scalar, 32, 10, 128)
+    # no kernel covers scalar bounds: the transition engine runs them
+    from pdmpflux_tpu_torch.core import engine
+
+    engine.reset_counts()
+    skel = pt.sample_skeleton(scalar, 10, np.zeros(3), np.ones(3), device="cpu")
+    assert engine.COUNTS["transitions"] > 0 and int(skel.n_valid) == 10
     # the effective gradient of one chain equals JAX's
     x = np.array([0.3, -1.2, 2.0])
     js = pf.SpeedUpZigZagAD(3, pf.utils.potentials.banana)
