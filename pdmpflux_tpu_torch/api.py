@@ -205,8 +205,8 @@ def pick_backend(sampler, backend: str, d: int, dtype, device) -> str:
 def fill_runner(sampler, route: str, t_cap: int, target: int, chunk: int, tile: int,
                 mode: str = "events"):
     """The stream-fill runner of ``route`` (:func:`pick_backend`): the chunk
-    kernels' driver, or the transition engine in chunks of
-    ``engine.DEFAULT_CHUNK`` transitions."""
+    kernels' driver in launches of ``chunk`` transitions, or the transition
+    engine in its fixed chunks of ``engine.CHUNK`` transitions."""
     if route == "kernel":
         return k1_driver.make_stream_runner(sampler, t_cap, target, chunk=chunk,
                                             tile=tile, mode=mode)
@@ -252,7 +252,9 @@ def sample_skeleton(sampler, n_or_T, xinit, vinit, *, seed=None,
     seeds give equal skeletons call after call).  ``chunk`` is the
     transitions per kernel launch and ``tile`` the RNG lane tile — with equal
     ``seed``, fill rows, ``chunk`` and ``tile`` the skeleton reproduces the
-    JAX fused-kernel path.
+    JAX fused-kernel path.  The transition engine takes neither: it runs
+    fixed chunks of 64 transitions, as JAX's stream engine does, so a
+    ``t_cap`` that routes to it must be a multiple of 64.
 
     ``checkpoint_path``: atomically save the state and the event
     accumulator every ``checkpoint_every`` stream fills; if the file exists

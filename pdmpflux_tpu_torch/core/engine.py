@@ -38,8 +38,6 @@ from typing import Optional
 
 import torch
 
-from ..ops.cuda import zigzag_chunk as _zc
-from ..ops.cuda.driver import StreamResult
 from ..ops.flows import div_once
 from . import bounds, rng
 from .types import (
@@ -54,15 +52,18 @@ from .types import (
     MODE_REJECTED,
     Event,
     PDMPState,
+    RawFill,
     Skeleton,
+    StreamResult,
+    empty_fill,
     kahan_add,
 )
 
 HORIZON_GROW = 1.01    # move_to_horizon!  (SamplingLoopInplace.jl:98)
 HORIZON_SHRINK = 1.04  # if_reject!        (SamplingLoopInplace.jl:194)
-DEFAULT_CHUNK = 64
-"""Transitions per chunk of a stream fill, as the JAX package's engine runs
-them; the runner reads the device once per chunk."""
+CHUNK = 64
+"""Transitions per chunk of a stream fill, fixed as the JAX package's stream
+engine runs them; the runner reads the device once per chunk."""
 
 COUNTS = Counter()
 """``chunks`` and ``transitions`` (batched transitions) the engine ran
@@ -259,7 +260,7 @@ def make_transition(sampler):
     return transition
 
 
-def _write_row(fill: "_zc.RawFill", r: int, ev: Event) -> None:
+def _write_row(fill: RawFill, r: int, ev: Event) -> None:
     """Event records ``(B, ...)`` into row ``r`` of a raw fill, chains minor."""
     fill.kind[r] = torch.stack([ev.kind, ev.rejected, ev.errored_bound, ev.hitting_horizon])
     fill.x[r] = ev.x.T
@@ -270,8 +271,7 @@ def _write_row(fill: "_zc.RawFill", r: int, ev: Event) -> None:
         fill.act[r] = ev.is_active.T
 
 
-def make_stream_runner(sampler, t_cap: int, n_events_target: int,
-                       chunk: int = DEFAULT_CHUNK, mode: str = "events"):
+def make_stream_runner(sampler, t_cap: int, n_events_target: int, mode: str = "events"):
     """``run(state, counts, t_target=None) -> StreamResult``: one stream fill
     of at most ``t_cap`` transition rows from the engine, with the contract of
     ``ops/cuda/driver.make_stream_runner``.
@@ -281,22 +281,26 @@ def make_stream_runner(sampler, t_cap: int, n_events_target: int,
     compared in the state's dtype (``mode="horizon"``, as the JAX engine
     compares it); a finished chain keeps its state and writes rows of kind 0
     (the rows of its would-be transition, as the JAX engine writes them).
-    Chunks of ``chunk`` transitions run until no chain is live or the fill
-    is full; the runner reads the device once per chunk (the live test, and
-    the flow bound of a ``flow_takes_bound`` sampler) and never inside one."""
-    if t_cap % chunk:
-        raise ValueError(f"t_cap={t_cap} must be a multiple of chunk={chunk}")
+    Chunks of :data:`CHUNK` transitions run until no chain is live or the
+    fill is full; the runner reads the device once per chunk (the live test,
+    and the flow bound of a ``flow_takes_bound`` sampler) and never inside
+    one."""
+    if t_cap <= 0 or t_cap % CHUNK:
+        raise ValueError(
+            f"t_cap={t_cap}: the transition engine fills in chunks of {CHUNK} "
+            f"transitions, so its t_cap must be a positive multiple of {CHUNK}"
+        )
     if mode not in ("events", "horizon"):
         raise ValueError(f"mode must be 'events' or 'horizon', not {mode!r}")
     transition = make_transition(sampler)
-    n_chunks = t_cap // chunk
+    n_chunks = t_cap // CHUNK
     bounded = sampler.flow_takes_bound
-    growth = HORIZON_GROW ** chunk if sampler.adaptive else 1.0
+    growth = HORIZON_GROW ** CHUNK if sampler.adaptive else 1.0
 
     def run(state: PDMPState, counts: torch.Tensor, t_target=None) -> StreamResult:
         B, d = state.x.shape
         dt, dev = state.x.dtype, state.x.device
-        fill = _zc.empty_fill(t_cap, d, B, dt, dev, sampler.sticky)
+        fill = empty_fill(t_cap, d, B, dt, dev, sampler.sticky)
         if mode == "horizon":
             target = torch.tensor(float(t_target), dtype=dt, device=dev)
 
@@ -316,20 +320,20 @@ def make_stream_runner(sampler, t_cap: int, n_events_target: int,
             if timed:
                 span = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
                 span[0].record()
-            for k in range(chunk):
+            for k in range(CHUNK):
                 live = live_of(state, counts)
                 ns, ev = transition(state, t_max)
                 state = tree_select(live, ns, state)
                 kind = torch.where(live, ev.kind, torch.zeros_like(ev.kind))
                 counts = counts + (kind > 0).to(counts.dtype)
-                _write_row(fill, it * chunk + k, ev._replace(kind=kind))
+                _write_row(fill, it * CHUNK + k, ev._replace(kind=kind))
             if timed:
                 span[1].record()
                 CHUNK_EVENTS.append(span)
             COUNTS["chunks"] += 1
-            COUNTS["transitions"] += chunk
+            COUNTS["transitions"] += CHUNK
             it += 1
-        rows = it * chunk
+        rows = it * CHUNK
         return StreamResult(state, fill.head(rows), counts, rows)
 
     return run

@@ -11,7 +11,7 @@ of tensors.  A chain batch adds a leading axis to every field.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -137,3 +137,49 @@ def empty_skeleton(n_events: int, dim: int, dtype, batch_shape=(),
         hitting_horizon=i(n_events), error_value_ar=f(n_events, ERROR_RING_SIZE),
         kind=i(n_events), n_valid=i(),
     )
+
+
+class RawFill(NamedTuple):
+    """``T`` raw transition rows of a stream fill, chains minor: ``kind``
+    ``(T, 4, B)`` int32 ``[kind, rejected, errored, hitting]``, ``x``/``v``
+    ``(T, d, B)``, ``fs`` ``(T, 3, B)`` ``[t + ts, horizon, ar]``, ``ring``
+    ``(T, 5, B)`` and ``act`` ``(T, d, B)`` bool, None for a non-sticky fill
+    (every row all active).  The chunk kernels and the transition engine
+    both write it; K2 and the streaming fold read it."""
+
+    kind: torch.Tensor
+    x: torch.Tensor
+    v: torch.Tensor
+    fs: torch.Tensor
+    ring: torch.Tensor
+    act: Optional[torch.Tensor] = None
+
+    @property
+    def rows(self) -> int:
+        return self.kind.shape[0]
+
+    def head(self, rows: int) -> "RawFill":
+        return RawFill(*(None if a is None else a[:rows] for a in self))
+
+
+def empty_fill(T: int, d: int, B: int, dtype, device, sticky: bool = False) -> RawFill:
+    """Uninitialized fill buffers: every row a chunk covers is written."""
+    def f(*s):
+        return torch.empty(s, dtype=dtype, device=device)
+
+    return RawFill(
+        kind=torch.empty((T, 4, B), dtype=torch.int32, device=device),
+        x=f(T, d, B), v=f(T, d, B), fs=f(T, 3, B),
+        ring=f(T, ERROR_RING_SIZE, B),
+        act=(torch.empty((T, d, B), dtype=torch.bool, device=device)
+             if sticky else None),
+    )
+
+
+class StreamResult(NamedTuple):
+    """One stream fill, from a chunk kernel's driver or the engine."""
+
+    state: PDMPState       # batched final state
+    fill: RawFill          # the rows written, (rows, ..., B) chains minor
+    counts: torch.Tensor   # (B,) int32 events recorded per chain
+    transitions: int       # transitions executed (rows written)

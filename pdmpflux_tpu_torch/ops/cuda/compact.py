@@ -25,9 +25,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from ...core.types import Event, Skeleton
+from ...core.types import Event, RawFill, Skeleton
 from . import build
-from .zigzag_chunk import RawFill
 
 
 class FieldSpec(NamedTuple):

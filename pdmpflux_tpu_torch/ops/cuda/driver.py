@@ -16,12 +16,10 @@ driver's.
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 
 from ...core import rng
-from ...core.types import PDMPState
+from ...core.types import PDMPState, StreamResult, empty_fill
 from . import scalar_chunk as sc
 from . import zigzag_chunk as zc
 
@@ -53,13 +51,6 @@ def kernel_kind(sampler):
             return None
         return "suzz" if type(sampler) is SpeedUpZigZag else "zigzag"
     return {BPS: "bps", Boomerang: "boomerang", ForwardECMC: "ecmc"}.get(type(sampler))
-
-
-class StreamResult(NamedTuple):
-    state: PDMPState       # batched final state
-    fill: zc.RawFill       # the rows written, (rows, ..., B) chains minor
-    counts: torch.Tensor   # (B,) int32 events recorded per chain
-    transitions: int       # transitions executed (rows written)
 
 
 def _effective(grad, grad_jvp):
@@ -166,7 +157,7 @@ def make_stream_runner(sampler, t_cap: int, n_events_target: int,
         B, d = state.x.shape
         dev, dt = state.x.device, state.x.dtype
         st = chunk_state(state, counts, cfg.sticky)
-        fill = zc.empty_fill(t_cap, d, B, dt, dev, cfg.sticky)
+        fill = empty_fill(t_cap, d, B, dt, dev, cfg.sticky)
         # kappa and the potential's parameters in the state's dtype, on its
         # device, once per fill; the horizon target rounded to float32
         run_cfg = cfg._replace(

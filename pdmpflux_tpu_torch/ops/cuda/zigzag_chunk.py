@@ -37,11 +37,9 @@ Layouts (kernel layout, chains on the minor axis): state ``x``/``v``
 ``(d, B)``, ``fs`` ``(8, B)`` float rows ``[t, t_comp, ts, horizon,
 bound_h, exp_rv, ar, tt]``, ``iscal`` ``(5, B)`` int32 rows ``[mode,
 rejected, errored, hitting, count]``, ``ring`` ``(5, B)``, and for sticky
-chains ``act`` ``(d, B)`` bool.  A :class:`RawFill` holds ``T`` event rows:
-``kind`` ``(T, 4, B)`` int32 ``[kind, rejected, errored, hitting]``,
-``x``/``v`` ``(T, d, B)``, ``fs`` ``(T, 3, B)`` ``[t + ts, horizon, ar]``,
-``ring`` ``(T, 5, B)`` and, when sticky, ``act`` ``(T, d, B)`` bool.  A
-chunk writes rows ``row0 .. row0 + K - 1``; state tensors update in place.
+chains ``act`` ``(d, B)`` bool.  A chunk writes rows ``row0 .. row0 + K - 1``
+of a ``core.types.RawFill`` (re-exported here with ``empty_fill``); state
+tensors update in place.
 """
 
 from __future__ import annotations
@@ -60,6 +58,8 @@ from ...core.types import (
     MODE_ERRONEOUS,
     MODE_FRESH,
     MODE_REJECTED,
+    RawFill,
+    empty_fill,  # noqa: F401 (re-exported)
 )
 from ...utils.potentials import DEVICE_POTENTIALS, LANE_POTENTIALS
 from ..flows import div_once, ordered_sum, suzz_flow, suzz_flow_tangent
@@ -88,39 +88,6 @@ class ChunkState(NamedTuple):
     iscal: torch.Tensor
     ring: torch.Tensor
     act: Optional[torch.Tensor] = None
-
-
-class RawFill(NamedTuple):
-    """``T`` raw transition rows of a stream fill, chains minor; ``act`` is
-    None for a non-sticky fill (every row all active)."""
-
-    kind: torch.Tensor
-    x: torch.Tensor
-    v: torch.Tensor
-    fs: torch.Tensor
-    ring: torch.Tensor
-    act: Optional[torch.Tensor] = None
-
-    @property
-    def rows(self) -> int:
-        return self.kind.shape[0]
-
-    def head(self, rows: int) -> "RawFill":
-        return RawFill(*(None if a is None else a[:rows] for a in self))
-
-
-def empty_fill(T: int, d: int, B: int, dtype, device, sticky: bool = False) -> RawFill:
-    """Uninitialized fill buffers: every row a chunk covers is written."""
-    def f(*s):
-        return torch.empty(s, dtype=dtype, device=device)
-
-    return RawFill(
-        kind=torch.empty((T, 4, B), dtype=torch.int32, device=device),
-        x=f(T, d, B), v=f(T, d, B), fs=f(T, 3, B),
-        ring=f(T, ERROR_RING_SIZE, B),
-        act=(torch.empty((T, d, B), dtype=torch.bool, device=device)
-             if sticky else None),
-    )
 
 
 class ChunkConfig(NamedTuple):

@@ -22,7 +22,7 @@ computable at the end:
   window sums (for the batch-means ESS), and are dropped.
 
 The fold reads the port's raw fill where it lies, chains minor
-(``ops/cuda/zigzag_chunk.RawFill``): row times ``fs[:, 0, :]``, ``x``/``v``
+(``core.types.RawFill``): row times ``fs[:, 0, :]``, ``x``/``v``
 ``(rows, d, B)``, ``act`` ``(rows, d, B)`` or None (all active).  It gathers
 each chain's rows at its grid indices rather than transposing the fill.  It
 is plain torch on the device, as XLA computed it outside any Pallas kernel:
@@ -46,12 +46,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .api import _device_bytes_budget, _fail_after_fills, _prep_init, _row_bytes, pick_backend
-from .core import engine
+from .api import (
+    _device_bytes_budget,
+    _fail_after_fills,
+    _prep_init,
+    _row_bytes,
+    fill_runner,
+    pick_backend,
+)
 from .core.device import resolve_device
 from .core.types import PDMPState
 from .diagnostics import RHAT_THRESHOLD
-from .ops.cuda import driver
 from .ops.flows import div_once
 from .parallel.checkpoint import _flatten, _meta_bytes, _write_atomic, load_state, read_meta
 
@@ -299,11 +304,8 @@ def sample_streaming_stats(
     G = int(grid_chunk)
     T32 = np.float32(T)
     dt32 = np.float32(dt_grid)
-    if pick_backend(sampler, backend, d, dtype, dev) == "kernel":
-        runner = driver.make_stream_runner(sampler, t_cap, t_cap, chunk=chunk, tile=tile,
-                                           mode="horizon")
-    else:
-        runner = engine.make_stream_runner(sampler, t_cap, t_cap, mode="horizon")
+    runner = fill_runner(sampler, pick_backend(sampler, backend, d, dtype, dev),
+                         t_cap, t_cap, chunk, tile, mode="horizon")
     fold = make_fold_chunk(sampler, G, n_samples, n_batches, n_burnin, dt_grid, x_ref)
 
     state = sampler.init_state_batch(x, v, seed, dtype, dev)

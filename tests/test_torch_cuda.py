@@ -661,8 +661,9 @@ def test_engine_on_the_card_matches_cpu(dev, family):
     """``chip_smoke.py`` phase 22 at a small size: 64 engine transitions of
     64 chains from one f64 state on the card and on the CPU; every chain
     takes the same decisions with its event rows within rtol 1e-9 (1e-6 with
-    finite-difference tangents, which turn a last-bit difference between the
-    card's and the CPU's log1p into an envelope difference of about 1e-8)."""
+    finite-difference tangents, which turn the card's last-bit differences
+    from the CPU in log1p, log and the sums over d, as phase 22 traces them,
+    into an envelope difference of about 1e-8)."""
     from pdmpflux_tpu_torch.core import engine
 
     d, B, n = 6, 64, 64

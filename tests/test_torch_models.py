@@ -103,6 +103,20 @@ def test_kernel_coverage_errors():
     assert engine.COUNTS["transitions"] > 0 and int(skel.n_valid) == 5
 
 
+def test_engine_route_takes_its_fixed_chunk():
+    """The engine runs chunks of ``engine.CHUNK`` transitions whatever
+    ``chunk`` the caller gives; a ``t_cap`` that is not a multiple of it
+    raises naming that chunk, and a multiple of it runs."""
+    scalar = pt.ZigZag(3, pt.potentials.grad_gauss, vectorized_bound=False)
+    kw = dict(seed=1, dtype=torch.float64, device="cpu")
+    with pytest.raises(ValueError, match=f"chunks of {engine.CHUNK} transitions"):
+        pt.sample_skeleton(scalar, 5, np.zeros(3), np.ones(3), t_cap=96, **kw)
+    engine.reset_counts()
+    skel = pt.sample_skeleton(scalar, 5, np.zeros(3), np.ones(3), t_cap=128, chunk=16, **kw)
+    assert int(skel.n_valid) == 5
+    assert engine.COUNTS["transitions"] == engine.COUNTS["chunks"] * engine.CHUNK > 0
+
+
 def _route_samplers(d):
     g = pt.potentials.grad_gauss
     return {

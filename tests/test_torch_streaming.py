@@ -274,7 +274,7 @@ def test_streaming_matches_materialized_fills(monkeypatch, name):
 
         return run
 
-    monkeypatch.setattr(streaming.driver, "make_stream_runner", recording)
+    monkeypatch.setattr(tdrv, "make_stream_runner", recording)
     x0, v0 = _init()
     T, n_samples, n_batches = 60.0, RUN["n_samples"], RUN["n_batches"]
     run = _port_run(ts, T, x0, v0)
