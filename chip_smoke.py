@@ -200,7 +200,26 @@ Phases, one line each; any failure raises and exits non-zero:
    Zig-Zag raises under ``"auto"`` naming ``backend="xla_stream"`` and runs
    under it; then an engine ``sample_streaming_stats`` of RHMC at B = 512
    (T = 300, 4096 grid points, 32 windows) with pooled moments in bench.py's
-   bands.
+   bands;
+26. host accumulation at ``sticky_zigzag_d1000`` (128 chains x 2048 points, a
+   2.38 GB skeleton): (a) forced by ``PDMPFLUX_STREAM_HOST_ACC=1`` at the
+   default fill rows, (b) forced by ``PDMPFLUX_DEVICE_BYTES`` = 1 GiB, JAX's
+   sizing then 64-row fills (about 33); each a CPU skeleton equal bit for
+   bit to the device path's at the same fill rows, with the sticky
+   contracts; K2 checked on the path's first fill; wall, events/s and the
+   split (K6 launches x phase 7b's time, K2, the copies to the host and
+   their bytes, the placement, the rest);
+27. host accumulation at ``zigzag_gauss_d10_horizon`` (the flag): ``n_valid``
+   and every row up to it equal to the device path's, width
+   ``n_valid.max()``, every chain at t == T with EV_TERMINAL; K2 checked on
+   the first fill; wall and split;
+28. ``sample_skeleton_sharded`` of the flagship on ``make_mesh()`` (one
+   card): bit for bit ``sample_skeleton``, its stats those of the skeleton;
+   then in a one-process NCCL group from ``parallel.initialize``: the same
+   run, ``host_all_gather_stats`` and ``pooled_moments(mesh=)`` through NCCL,
+   the group destroyed; wall and split;
+29. ``zigzag_banana_d50_streaming`` with ``mesh=make_mesh()``: accumulators,
+   events and fills equal to phase 20's timed run without a mesh.
 
 Then one JSON line of per-kernel results (launches counted in the timed run
 of each kernel's path: phase 4 for K1 and K2, phase 7 for K6, phase 10 for
@@ -208,7 +227,9 @@ K3, phase 12 for K5, phase 14 for K1 in horizon mode, phase 15 for K6, K3
 and K5 in horizon mode, phase 17 for K4, phase 18 for K4 in horizon mode,
 phases 19 and 20 for the entries of K6 and K1 in horizon mode named
 after the streaming deployments, and phases 23 and 24 for the entries of K2
-named after the engine deployments; max_abs_err the largest of the kernel's comparisons
+named after the engine deployments, phase 28 for K1's entry named after the
+sharded flagship, phases 26b and 27 for K2's entries named after the host
+paths; max_abs_err the largest of the kernel's comparisons
 with its plain version, f64 and f32; the bound of each timed launch computed
 from its shape and this run's data), the card's name and power limit, and
 the status line.
@@ -219,6 +240,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -243,6 +265,7 @@ from pdmpflux_tpu_torch.ops.cuda import compact as k2  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import driver  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import scalar_chunk as k3  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import zigzag_chunk as k1  # noqa: E402
+from pdmpflux_tpu_torch.parallel import distributed  # noqa: E402
 
 DEV = torch.device("cuda")
 RTOL, ATOL = 1e-9, 1e-12
@@ -271,6 +294,7 @@ CK_STICKY_T_CAP = 512     # phase 21a: fill rows, so the 2047 events take >= 4 f
 CK_HORIZON = (4096, 64.0, 256)  # 21b: chains, T (~256 events per chain), init_capacity
 CK_STREAM = (4096, 16384, 64, 8, 16)  # 21c: events per chain, grid, windows, every, fail
 RV_BATCHES = 1000         # 21d: RV batches
+HOST_BUDGET = 1 << 30     # 26b: PDMPFLUX_DEVICE_BYTES, below the sticky skeleton's 2.38 GB
 
 H100_BYTES_S = 3.35e12  # HBM3 rate of the H100 SXM (NVIDIA data sheet)
 H100_F32_OPS_S = 67e12  # float32 rate outside the tensor cores (the same sheet)
@@ -2118,7 +2142,7 @@ def phase_stream_banana(card_name):
           f"max|pooled mean| {mean_max:.4f} < 0.1, max|pooled var / (1, 3, 1, ...) - 1| "
           f"{var_rel:.4f} < 0.1; {split_text(wall, 'K1', n, k_ms, ms, fold_ms, folds)}; "
           f"launches {launches}; {check} ({card_name})", flush=True)
-    return n, ms, plain_ms, err, b
+    return n, ms, plain_ms, err, b, (T, x0, v0, kw, run)
 
 
 def injected(fn):
@@ -2815,6 +2839,249 @@ def phase_routing(card_name):
     print(f"phase 25 routing on the card: {'; '.join(texts)} ({card_name})", flush=True)
 
 
+def host_call(sampler, n_or_T, x0, v0, **kw):
+    """One timed ``sample_skeleton`` call on host accumulation: (skeleton,
+    wall s, launches, ``api.HOST_ACC`` of the call, the arguments of its
+    first K2 call)."""
+    first = []
+    compact_fill = k2.compact_fill
+
+    def spy(fill, out, off=None, init=None):
+        if not first:
+            first.append((fill, out.t.shape[1], off, init))
+        return compact_fill(fill, out, off, init)
+
+    build.reset_launches()
+    api.HOST_ACC.clear()
+    k2.compact_fill = spy
+    sync()
+    try:
+        t0 = time.perf_counter()
+        skel = pt.sample_skeleton(sampler, n_or_T, x0, v0, dtype=torch.float32, device=DEV,
+                                  **kw)
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        k2.compact_fill = compact_fill
+    return skel, wall, dict(build.LAUNCHES), dict(api.HOST_ACC), first[0]
+
+
+def equal_to_device(what, host, dev):
+    """A host-accumulated skeleton (CPU tensors) against the device path's:
+    ``n_valid`` equal, every field equal bit for bit up to its width."""
+    if host.t.device.type != "cpu":
+        raise AssertionError(f"{what}: host accumulation returned {host.t.device} tensors")
+    W = host.t.shape[1]
+    for f, a, b in zip(host._fields, host, dev):
+        b = b.cpu() if f == "n_valid" else b[:, :W].cpu()
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{what}: {f} differs from the device path")
+
+
+def host_split(wall, kernel, n, k_ms, k2_n, k2_ms, acc):
+    """The call split into the chunk kernel (launches at the time one takes
+    alone), K2 (launches at its time on the path's first fill), the copies
+    to the host and the placement (host clock), and the rest."""
+    wall_ms = wall * 1e3
+    parts = [(f"{kernel} {n} x {k_ms:.4f}", n * k_ms), (f"K2 {k2_n} x {k2_ms:.4f}", k2_n * k2_ms),
+             (f"copy to host ({acc['bytes'] / 2**20:.1f} MiB in {acc['fills']} copies)",
+              acc["copy_s"] * 1e3), ("host placement", acc["place_s"] * 1e3)]
+    rest = wall_ms - sum(ms for _, ms in parts)
+    return (f"split of {wall_ms:.2f} ms: "
+            + ", ".join(f"{name} = {ms:.2f} ms ({ms / wall_ms:.1%})" for name, ms in parts)
+            + f", rest {rest:.2f} ms ({rest / wall_ms:.1%})")
+
+
+def phase_host_sticky(card_name, sampler, k6_ms):
+    """Phase 26: host accumulation at ``sticky_zigzag_d1000`` (128 chains x
+    2048 points, a 2.38 GB skeleton): (a) forced by PDMPFLUX_STREAM_HOST_ACC
+    at the default fill rows, (b) forced by a 1 GiB device budget, which
+    sizes 64-row fills; each against the device path at the same fill rows,
+    bit for bit; K2 checked on the path's first fill."""
+    d, B, n_sk, _ = STICKY
+    x0, v0 = np.full((B, d), 0.3), np.ones((B, d))
+    kw = dict(seed=0, dtype=torch.float32, device=DEV)
+    out = {}
+    for label, env, value in (("a", "PDMPFLUX_STREAM_HOST_ACC", "1"),
+                              ("b", "PDMPFLUX_DEVICE_BYTES", str(HOST_BUDGET))):
+        os.environ[env] = value
+        try:
+            t_cap = api.fill_rows(sampler, n_sk - 1, B, d, torch.float32, DEV)
+            skel, wall, launches, acc, first = host_call(sampler, n_sk, x0, v0, t_cap=t_cap,
+                                                         seed=0)
+        finally:
+            del os.environ[env]
+        if acc["fills"] < (30 if label == "b" else 1) or launches["sticky_chunk"] < 1:
+            raise AssertionError(f"26{label}: host path not taken: {acc}, {launches}")
+        check_sticky_skeleton(skel, n_sk)
+        equal_to_device(f"26{label}", skel, pt.sample_skeleton(sampler, n_sk, x0, v0,
+                                                                t_cap=t_cap, **kw))
+        del skel
+        err, k2_ms, k2_plain_ms, b = engine_k2_check(f"26{label} host K2", first)
+        first_w = first[1]
+        del first
+        events = B * (n_sk - 1)
+        print(f"phase 26{label} host accumulation at sticky_zigzag_d1000 "
+              f"({'PDMPFLUX_STREAM_HOST_ACC=1' if label == 'a' else f'PDMPFLUX_DEVICE_BYTES={HOST_BUDGET}'}"
+              f", t_cap={t_cap}, {acc['fills']} fills): CPU skeleton bit for bit the device "
+              f"path's at the same fill rows; wall {wall:.4f} s, events/s {events / wall:.1f}; "
+              f"{host_split(wall, 'K6', launches['sticky_chunk'], k6_ms, launches['compact_rows'], k2_ms, acc)}; "
+              f"K2 on the first fill (W={first_w}) {k2_ms:.4f} ms vs plain "
+              f"{k2_plain_ms:.4f} ms, bit-identical, bound {bound_text(b)} ({card_name})",
+              flush=True)
+        out[label] = (launches["compact_rows"], err, k2_ms, k2_plain_ms, b)
+    return out["b"]
+
+
+def phase_host_horizon(card_name, sampler, k7_ms):
+    """Phase 27: host accumulation at ``zigzag_gauss_d10_horizon`` (forced by
+    the flag) against the device path: ``n_valid`` and every row up to it
+    bit for bit, width ``n_valid.max()``, every chain at t == T with
+    EV_TERMINAL."""
+    d, B, T, cap = HORIZON_D10
+    _, x0, v0 = horizon_deployment()
+    kw = dict(seed=0, init_capacity=cap)
+    os.environ["PDMPFLUX_STREAM_HOST_ACC"] = "1"
+    try:
+        skel, wall, launches, acc, first = host_call(sampler, T, x0, v0, **kw)
+    finally:
+        del os.environ["PDMPFLUX_STREAM_HOST_ACC"]
+    if acc["fills"] < 1:
+        raise AssertionError(f"27: host path not taken: {acc}")
+    events = check_horizon_skeleton("27 host horizon", skel, T)
+    width = skel.t.shape[1]
+    if width != int(skel.n_valid.max()):
+        raise AssertionError(f"27: width {width}, n_valid.max() {int(skel.n_valid.max())}")
+    dev = pt.sample_skeleton(sampler, T, x0, v0, dtype=torch.float32, device=DEV, **kw)
+    equal_to_device("27", skel, dev)
+    dev_width = dev.t.shape[1]
+    del skel, dev
+    err, k2_ms, k2_plain_ms, b = engine_k2_check("27 host K2", first)
+    del first
+    n = launches["zigzag_chunk_horizon"]
+    print(f"phase 27 host accumulation at zigzag_gauss_d10_horizon (PDMPFLUX_STREAM_HOST_ACC=1, "
+          f"{acc['fills']} fills): CPU skeleton equal to the device path's up to n_valid, "
+          f"width {width} = n_valid.max() (device path {dev_width}), every chain at t == {T} "
+          f"with EV_TERMINAL; wall {wall:.4f} s, events/s {events / wall:.1f}; "
+          f"{host_split(wall, 'K1', n, k7_ms, launches['compact_rows'], k2_ms, acc)} "
+          f"(rest: the terminal flow, finalize and allocation); K2 on the fill "
+          f"{k2_ms:.4f} ms vs plain {k2_plain_ms:.4f} ms, bit-identical, bound {bound_text(b)} "
+          f"({card_name})", flush=True)
+    return launches["compact_rows"], err, k2_ms, k2_plain_ms, b
+
+
+def stats_direct(skel):
+    """The skeleton statistics computed from the skeleton directly."""
+    valid = torch.arange(skel.t.shape[1], device=skel.t.device)[None, :] < skel.n_valid[:, None]
+
+    def total(a):
+        return float(torch.where(valid, a, 0).double().sum())
+
+    events = int(skel.n_valid.long().sum())
+    ar = total(skel.ar)
+    return {"events": events, "ar_sum": ar, "rejected": int(total(skel.rejected)),
+            "errored_bound": int(total(skel.errored_bound)),
+            "hitting_horizon": int(total(skel.hitting_horizon)), "mean_ar": ar / max(events, 1)}
+
+
+def stats_agree(what, got, want):
+    for k, v in want.items():
+        if (got[k] != v) if isinstance(v, int) else abs(got[k] - v) > 1e-9 * abs(v):
+            raise AssertionError(f"{what}: stats[{k!r}] {got[k]} vs {v}")
+
+
+def phase_sharded(card_name, k1_ms, k2_ms):
+    """Phase 28: ``sample_skeleton_sharded`` of the flagship on
+    ``make_mesh()`` (one card): bit for bit ``sample_skeleton``, its stats
+    those of the skeleton; then inside a one-process NCCL group formed by
+    ``initialize`` (``host_all_gather_stats`` and ``pooled_moments(mesh=)``
+    through NCCL), the group destroyed afterwards."""
+    d, B, n_sk = MAIN
+    sampler = pt.ZigZag(d, pt.potentials.grad_gauss)
+    x0, v0 = np.zeros((B, d)), np.ones((B, d))
+    ref = pt.sample_skeleton(sampler, n_sk, x0, v0, seed=0, dtype=torch.float32, device=DEV)
+    par = pt.parallel
+    mesh = par.make_mesh()
+    if mesh.shape[par.CHAIN_AXIS] != torch.cuda.device_count():
+        raise AssertionError(f"make_mesh(): {mesh}")
+    par.sample_skeleton_sharded(sampler, n_sk, x0, v0, mesh=mesh, seed=0,
+                                dtype=torch.float32)  # warm
+    sync()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    run = par.sample_skeleton_sharded(sampler, n_sk, x0, v0, mesh=mesh, seed=0,
+                                      dtype=torch.float32)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    for f, a, b in zip(ref._fields, run.skeleton, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(f"28: sharded {f} differs from sample_skeleton's")
+    stats_agree("28", run.stats, stats_direct(ref))
+    mean, var = par.pooled_moments(run.skeleton, sampler, 256)
+    if not moments_ok(mean, var):
+        raise AssertionError(f"28: moments off {mean.tolist()} {var.tolist()}")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    if not distributed.initialize(f"127.0.0.1:{port}", 1, 0, backend="nccl"):
+        raise AssertionError("28: initialize formed no group")
+    try:
+        gmesh = distributed.global_mesh()
+        grun = par.sample_skeleton_sharded(sampler, n_sk, x0, v0, mesh=gmesh, seed=0,
+                                           dtype=torch.float32)
+        for f, a, b in zip(ref._fields, grun.skeleton, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"28: the NCCL group's {f} differs")
+        stats_agree("28 NCCL", grun.stats, run.stats)
+        stats_agree("28 host_all_gather_stats", distributed.host_all_gather_stats(run.stats),
+                    run.stats)
+        gmean, gvar = par.pooled_moments(grun.skeleton, sampler, 256, mesh=gmesh)
+        if not (torch.equal(gmean, mean) and torch.equal(gvar, var)):
+            raise AssertionError("28: pooled_moments(mesh=) through NCCL differs")
+        backend = torch.distributed.get_backend()
+    finally:
+        torch.distributed.destroy_process_group()
+    events = int(run.skeleton.n_valid.sum()) - B
+    n = launches["zigzag_chunk"]
+    wall_ms = wall * 1e3
+    rest = wall_ms - n * k1_ms - launches["compact_rows"] * k2_ms
+    print(f"phase 28 sharded flagship: sample_skeleton_sharded(ZigZag({d}, grad_gauss)) "
+          f"B={B} n_sk={n_sk} f32 on {mesh}: bit for bit sample_skeleton, stats "
+          f"{run.stats} equal the skeleton's, transitions {run.transitions.tolist()}; wall "
+          f"{wall:.4f} s, events/s {events / wall:.1f}; split of {wall_ms:.2f} ms: K1 {n} x "
+          f"{k1_ms:.4f} = {n * k1_ms:.2f} ms ({n * k1_ms / wall_ms:.1%}), K2 "
+          f"{launches['compact_rows']} x {k2_ms:.4f} ms, rest {rest:.2f} ms "
+          f"({rest / wall_ms:.1%}); in a one-process {backend} group from initialize: the "
+          f"same skeleton and stats, host_all_gather_stats and pooled_moments(mesh=) equal "
+          f"({card_name})", flush=True)
+    return n
+
+
+def phase_stream_mesh(card_name, banana):
+    """Phase 29: ``zigzag_banana_d50_streaming`` with ``mesh=make_mesh()``
+    against phase 20's timed run without a mesh: accumulators, events and
+    fills equal."""
+    T, x0, v0, kw, want = banana
+    d = x0.shape[1]
+    sampler = pt.ZigZag(d, pt.potentials.grad_banana, grid_size=0)
+    sync()
+    t0 = time.perf_counter()
+    got = pt.sample_streaming_stats(sampler, T, x0, v0, seed=3, dtype=torch.float32,
+                                    device=DEV, mesh=pt.parallel.make_mesh(), **kw)
+    sync()
+    wall = time.perf_counter() - t0
+    if (got.events, got.fills) != (want.events, want.fills):
+        raise AssertionError(f"29: events/fills {got.events}/{got.fills} vs "
+                             f"{want.events}/{want.fills}")
+    for f, a, b in zip(got.stats._fields, got.stats, want.stats):
+        if not torch.equal(a, b):
+            raise AssertionError(f"29: accumulator {f} differs from the run without a mesh")
+    print(f"phase 29 zigzag_banana_d50_streaming with mesh=make_mesh(): {got.events} events, "
+          f"{got.fills} fills, accumulators equal to phase 20's run without a mesh; wall "
+          f"{wall:.3f} s, events/s {got.events / wall:.1f} ({card_name})", flush=True)
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b):
     return {"name": name, "route": "cuda", "source": f"pdmpflux_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -2855,13 +3122,17 @@ def main():
         suzz, suzz_launches, suzz_wall)
     k4h_n, k4h_ms, k4h_plain_ms, k4h_b = phase_suzz_horizon(card_name, suzz, suzz_T)
     k6s_n, k6s_ms, k6s_plain_ms, k6s_err, k6s_b, rate = phase_stream_sticky(card_name)
-    k1s_n, k1s_ms, k1s_plain_ms, k1s_err, k1s_b = phase_stream_banana(card_name)
+    k1s_n, k1s_ms, k1s_plain_ms, k1s_err, k1s_b, banana = phase_stream_banana(card_name)
     phase_checkpoints(card_name, rate)
     phase_engine_agreement()
     k2_paths = {"rhmc_gauss_d10": phase_rhmc(card_name)}
     for tderiv in ("fd", "jvp"):
         k2_paths[f"zigzag_banana_d10_{tderiv}"] = phase_banana_engine(card_name, tderiv)
     phase_routing(card_name)
+    k2_paths["host:sticky_zigzag_d1000"] = phase_host_sticky(card_name, sticky, k6_ms)
+    k2_paths["host:zigzag_gauss_d10_horizon"] = phase_host_horizon(card_name, hz, k7_ms)
+    k1_sharded = phase_sharded(card_name, k1_ms, k2_ms)
+    phase_stream_mesh(card_name, banana)
     zz = "pdmpflux_tpu/ops/pallas/zigzag_chunk.py:854"
     k7 = 'pdmpflux_tpu/ops/pallas/zigzag_chunk.py:343 mode="horizon"'
     kernels = [
@@ -2904,7 +3175,9 @@ def main():
                      k7, k1s_n, max(k7_errs["zigzag_chunk_horizon"], k1s_err), k1s_ms,
                      k1s_plain_ms, k1s_b),
     ]
-    # the engine paths' K2 launches, each checked and timed on its own fill
+    kernels.append(kernel_entry("zigzag_chunk[sharded_flagship]", "zigzag_chunk.cu", zz,
+                                k1_sharded, k1_err, k1_ms, k1_plain_ms, k1_b))
+    # the engine and host paths' K2 launches, each checked and timed on its own fill
     for path, (n, err, ms, plain_ms, b) in k2_paths.items():
         kernels.append(kernel_entry(f"compact_rows[{path}]", "compact.cu",
                                     "pdmpflux_tpu/ops/pallas/compact.py:132", n, err, ms,

@@ -13,8 +13,10 @@ engine (``core/engine.py``, plain torch on the device: RHMC, scalar bounds,
 finite-difference tangents, untagged gradients with ``backend="xla_stream"``),
 and every fill is compacted by the event-row compaction kernel.  Also the
 diagnostics (ESS, split-R-hat, realized volatility), checkpoint/resume of
-``sample_skeleton`` and streaming statistics (``sample_streaming_stats``,
-which folds horizon-mode fills into O(B * d) accumulators).
+``sample_skeleton``, host accumulation of skeletons past the card's memory,
+streaming statistics (``sample_streaming_stats``, which folds horizon-mode
+fills into O(B * d) accumulators), and chain-sharded runs over
+``torch.distributed`` process groups (``parallel``).
 """
 
 from . import diagnostics  # noqa: F401
@@ -25,6 +27,7 @@ from .api import (  # noqa: F401
     sample_skeleton_with_diagnostic,
 )
 from .core.types import (  # noqa: F401
+    BoundBox,
     EV_INIT,
     EV_JUMP,
     EV_NONE,
@@ -42,6 +45,7 @@ from .models import (  # noqa: F401
     BoomerangAD,
     ForwardECMC,
     ForwardECMCAD,
+    PDMP,
     RHMC,
     RHMCAD,
     SpeedUpZigZag,
@@ -51,7 +55,44 @@ from .models import (  # noqa: F401
     ZigZag,
     ZigZagAD,
 )
+from . import parallel, utils  # noqa: F401
 from .diagnostics import RV_diagnostic, diagnostic, ess, ess_per_dim  # noqa: F401
 from .parallel import pooled_moments, sample_from_skeleton_batch  # noqa: F401
 from .streaming import sample_streaming_stats, streaming_summary  # noqa: F401
 from .utils import potentials  # noqa: F401
+
+__version__ = "1.0.0"
+
+__all__ = [
+    "sample",
+    "sample_from_skeleton",
+    "sample_skeleton",
+    "sample_skeleton_with_diagnostic",
+    "sample_streaming_stats",
+    "streaming_summary",
+    "BoundBox",
+    "Event",
+    "PDMPState",
+    "Skeleton",
+    "EV_INIT",
+    "EV_JUMP",
+    "EV_NONE",
+    "EV_STICK",
+    "EV_TERMINAL",
+    "EV_THAW",
+    "PDMP",
+    "ZigZag",
+    "ZigZagAD",
+    "BPS",
+    "BPSAD",
+    "Boomerang",
+    "BoomerangAD",
+    "ForwardECMC",
+    "ForwardECMCAD",
+    "RHMC",
+    "RHMCAD",
+    "SpeedUpZigZag",
+    "SpeedUpZigZagAD",
+    "StickyZigZag",
+    "StickyZigZagAD",
+]

@@ -30,10 +30,13 @@ raises.
 
 from __future__ import annotations
 
+import gc
 import math
 import os
+import time
 import warnings
-from typing import Optional
+from collections import Counter
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -41,7 +44,7 @@ import torch
 from .core import engine
 from .core.device import resolve_device
 from .core.engine import finalize_horizon_rows, grow_rows, prepend_init_rows
-from .core.types import EV_INIT, Skeleton, event_from_state
+from .core.types import EV_INIT, Event, PDMPState, Skeleton, empty_skeleton, event_from_state
 from .diagnostics import boundary_u, linspace0
 from .ops.cuda import compact as k2
 from .ops.cuda import driver as k1_driver
@@ -116,14 +119,15 @@ def _save_stream_checkpoint(path, mode, target, state, acc, counts_np, fills):
                           meta={"mode": mode, "target": target, "fills": int(fills)})
 
 
-def _load_stream_checkpoint(path, mode, target, device):
+def _load_stream_checkpoint(path, mode, target, device, acc_device=None):
     """Load and validate a stream-loop checkpoint; ``(state, acc, counts,
-    fills)`` on ``device``, or None when there is no file.  A file for
-    another run (mode or target) raises instead of sampling the wrong
-    thing."""
+    fills)``, the state on ``device`` and the accumulator on ``acc_device``
+    (default ``device``; the host path keeps it on the CPU), or None when
+    there is no file.  A file for another run (mode or target) raises
+    instead of sampling the wrong thing."""
     if not os.path.exists(path):
         return None
-    state, acc, meta = _ckpt.load_checkpoint(path, device)
+    state, acc, meta = _ckpt.load_checkpoint(path, device, acc_device)
     if meta.get("mode") != mode or meta.get("target") != target:
         raise ValueError(
             f"checkpoint at {path} is for mode={meta.get('mode')!r} "
@@ -230,6 +234,107 @@ def fill_rows(sampler, target: int, B: int, d: int, dtype,
     return max(t_cap, 64)
 
 
+def _force_host() -> bool:
+    """``PDMPFLUX_STREAM_HOST_ACC=1`` forces host accumulation, as in JAX."""
+    return os.environ.get("PDMPFLUX_STREAM_HOST_ACC", "") == "1"
+
+
+HOST_ACC = Counter()
+"""Host accumulation since the caller last cleared it: ``fills`` copied to
+the host, their ``bytes``, and host seconds of the copies (``copy_s``) and
+of the indexed writes that place the rows (``place_s``)."""
+
+
+def _fetch_rows(fill, k: int) -> Skeleton:
+    """A fill's event rows compacted by K2 on the fill's device into ``(B,
+    k)`` rows at offset 0 (zero past each chain's events), in one buffer
+    copied to the host in one transfer; the rows as views of the host copy.
+    Compaction is a stable permutation, so this gives the rows JAX's host
+    path compacts in numpy from the whole fill, and only event rows cross."""
+    B, d = fill.kind.shape[2], fill.x.shape[1]
+    dtype, dev = fill.x.dtype, fill.x.device
+    flat, rows = k2.packed_rows(B, k, d, dtype, dev)
+    k2.compact_fill(fill, rows)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)  # so that copy_s times the copy alone
+    t0 = time.perf_counter()
+    host = flat.cpu()
+    HOST_ACC["copy_s"] += time.perf_counter() - t0
+    HOST_ACC["bytes"] += flat.numel()
+    HOST_ACC["fills"] += 1
+    return k2.packed_rows(B, k, d, dtype, None, flat=host)[1]
+
+
+class _HostRows:
+    """A chain batch's skeleton in host memory (JAX's
+    ``_stream_events_host_acc`` buffers and ``_BatchAccumulator``): per chain
+    the initial record in column 0, then each fill's events behind the
+    chain's earlier ones, placed with one indexed write per field.  The
+    buffers start ``width`` columns wide and double when a fill needs more;
+    ``cap`` bounds the columns a chain fills (the event-count target)."""
+
+    def __init__(self, init_ev: Event, width: int, cap: Optional[int] = None):
+        B, d = init_ev.x.shape
+        skel = empty_skeleton(width, d, init_ev.x.dtype, (B,), "cpu")
+        self.bufs = {f: getattr(skel, f) for f in Skeleton._fields[:-1]}
+        for f, a in self.bufs.items():
+            a[:, 0] = getattr(init_ev, f).cpu()
+        self.filled = torch.ones(B, dtype=torch.int64)
+        self.cap = cap
+
+    def resume(self, acc: Skeleton, counts) -> None:
+        """Continue from a checkpoint's accumulator (on the CPU)."""
+        self.bufs = {f: getattr(acc, f) for f in Skeleton._fields[:-1]}
+        self.filled = 1 + torch.as_tensor(counts, dtype=torch.int64)
+
+    def _ensure(self, n_cols: int) -> None:
+        have = self.bufs["t"].shape[1]
+        if n_cols <= have:
+            return
+        new = max(n_cols, 2 * have)
+        for f, a in self.bufs.items():
+            self.bufs[f] = torch.cat([a, a.new_zeros((a.shape[0], new - have) + a.shape[2:])],
+                                     dim=1)
+
+    def add(self, fill, n) -> None:
+        """Append a fill whose chains recorded ``n`` (host, ``(B,)``) events."""
+        n = torch.as_tensor(n, dtype=torch.int64)
+        if self.cap is not None:
+            n = torch.minimum(n, self.cap - self.filled)
+        rows = _fetch_rows(fill, max(1, int(n.max())))
+        t0 = time.perf_counter()
+        self._ensure(int((self.filled + n).max()))
+        B, k = rows.t.shape
+        W = self.bufs["t"].shape[1]
+        bi, ji = torch.nonzero(torch.arange(k)[None, :] < n[:, None], as_tuple=True)
+        src, dst = bi * k + ji, bi * W + self.filled[bi] + ji
+        for f, buf in self.bufs.items():
+            buf.view(B * W, -1).index_copy_(
+                0, dst, getattr(rows, f).reshape(B * k, -1).index_select(0, src))
+        self.filled += n
+        HOST_ACC["place_s"] += time.perf_counter() - t0
+
+    def skeleton(self) -> Skeleton:
+        return Skeleton(**self.bufs, n_valid=self.filled.to(torch.int32))
+
+
+def _with_host_retry(run, host: bool, message: str):
+    """``run(host)``.  A CUDA out-of-memory error on the device path drops
+    the failed attempt (its frames and tensors, then the allocator's cache),
+    warns with JAX's text and runs again with host accumulation; no other
+    error is caught."""
+    if host:
+        return run(True)
+    try:
+        return run(False)
+    except torch.cuda.OutOfMemoryError:
+        pass
+    gc.collect()
+    torch.cuda.empty_cache()
+    warnings.warn(message)
+    return run(True)
+
+
 def sample_skeleton(sampler, n_or_T, xinit, vinit, *, seed=None,
                     verbose: bool = False, dtype=None, device="cuda",
                     max_transitions_per_event: int = DEFAULT_MAX_TRANSITIONS_PER_EVENT,
@@ -243,7 +348,8 @@ def sample_skeleton(sampler, n_or_T, xinit, vinit, *, seed=None,
     initial state included); a ``float`` asks for a time horizon ``T``, with
     an exact terminal point at ``t = T``.  A chain batch's time-horizon
     skeleton is as wide as its longest chain rounded up to a multiple of 256
-    (zero past each chain's ``n_valid``); a single chain's is trimmed exactly.
+    (zero past each chain's ``n_valid``), or exactly as wide as its longest
+    chain from host accumulation; a single chain's is trimmed exactly.
 
     ``dtype`` defaults to torch's default float.  ``t_cap`` sets the rows of
     one stream fill: by default sized from the target and device memory for
@@ -256,13 +362,25 @@ def sample_skeleton(sampler, n_or_T, xinit, vinit, *, seed=None,
     fixed chunks of 64 transitions, as JAX's stream engine does, so a
     ``t_cap`` that routes to it must be a multiple of 64.
 
+    Host accumulation, where JAX takes it: when ``PDMPFLUX_STREAM_HOST_ACC=1``
+    or the skeleton would not fit the device budget (60% of the card's free
+    memory, ``PDMPFLUX_DEVICE_BYTES`` overrides) — a point count's peak
+    ``B * row_bytes * (n_sk + 1.5 t_cap)``, a time horizon's ``2.5 B *
+    row_bytes * t_cap`` — and after a CUDA out-of-memory error on the device
+    path, which then reruns from the inits with a warning.  The fills still
+    run on the device; K2 compacts each on the device, one copy per fill
+    brings its event rows to the host, and the skeleton comes back as CPU
+    tensors, bit for bit the device path's (up to ``n_valid``).
+
     ``checkpoint_path``: atomically save the state and the event
     accumulator every ``checkpoint_every`` stream fills; if the file exists
     and matches this run's mode and target, the run resumes from it and
     continues bit for bit (the counter-based keys live in the saved
     state; keep ``t_cap``, ``chunk`` and ``tile`` as they were).  Delete
-    the file to start fresh.  ``PDMPFLUX_FAIL_AFTER_FILLS=N`` injects a
-    crash after N fills, for rehearsals.
+    the file to start fresh.  A point count's file resumes on either
+    accumulation; a time horizon checkpoints on the device path only, as in
+    JAX.  ``PDMPFLUX_FAIL_AFTER_FILLS=N`` injects a crash after N fills, for
+    rehearsals.
     """
     ck = ((checkpoint_path, max(1, int(checkpoint_every)))
           if checkpoint_path else None)
@@ -282,47 +400,79 @@ def sample_skeleton(sampler, n_or_T, xinit, vinit, *, seed=None,
     target = n_sk - 1  # events beyond the initial record
     if t_cap is None:
         t_cap = fill_rows(sampler, target, B, d, dtype, dev)
-    acc_bytes = B * _row_bytes(d, dtype) * (target + 1 + t_cap)
-    if acc_bytes > _device_bytes_budget(dev):
-        raise MemoryError(
-            f"the (B={B}, {n_sk}) skeleton plus one fill needs ~{acc_bytes >> 20} "
-            "MiB, beyond the device budget; host accumulation is not ported "
-            "yet (ROADMAP Queue 1)"
-        )
     runner = fill_runner(sampler, pick_backend(sampler, backend, d, dtype, dev),
                          t_cap, target, chunk, tile)
+    # the fill, the accumulator and about half a fill of K2's temporaries
+    peak = B * _row_bytes(d, dtype) * (target + 1 + int(1.5 * t_cap))
 
-    state = sampler.init_state_batch(x, v, seed, dtype, dev)
+    def run(host):
+        state = sampler.init_state_batch(x, v, seed, dtype, dev)
+        return _stream_events(sampler, runner, state, target, t_cap,
+                              max_transitions_per_event, host, ck, verbose)
+
+    skel = _with_host_retry(
+        run, _force_host() or peak > _device_bytes_budget(dev),
+        "device OOM during on-device skeleton accumulation; retrying with host "
+        "accumulation (slower: one device->host stream transfer per fill).")
+    return _squeeze_skeleton(skel) if squeeze else skel
+
+
+def _events_fill(runner, state, counts, acc, init_ev, width):
+    """One event-count fill merged by K2 into the ``(B, width)`` device
+    accumulator: the first fill behind the initial record, a later one after
+    each chain's earlier events.  ``(state, counts, acc, transitions)``."""
+    res = runner(state, counts)
+    if acc is None:
+        B, d = state.x.shape
+        acc = k2.compact_fill(res.fill, k2.empty_rows(B, width, d, state.x.dtype,
+                                                       state.x.device),
+                              off=1 + counts, init=init_ev)
+    else:
+        acc = k2.compact_fill(res.fill, acc, off=1 + counts)
+    return res.state, res.counts, acc, res.transitions
+
+
+def _stream_events(sampler, runner, state, target, t_cap, max_per_event, host, ck,
+                   verbose) -> Skeleton:
+    """The event-count fill loop (JAX ``_stream_events_device_acc`` and,
+    with ``host``, ``_stream_events_host_acc``): fills until every chain has
+    ``target`` events, accumulated on the device or in host memory."""
+    B = state.x.shape[0]
+    dev = state.x.device
     init_ev = event_from_state(state, EV_INIT)
-    counts = torch.zeros((B,), dtype=torch.int32, device=dev)
+    rows = _HostRows(init_ev, target + 1, cap=target + 1) if host else None
     acc = None
+    counts = torch.zeros((B,), dtype=torch.int32, device=dev)
+    counts_host = np.zeros(B, np.int64)
     trans_total = 0
     fills_done = 0
     if ck is not None:
-        loaded = _load_stream_checkpoint(ck[0], "events", target, dev)
+        loaded = _load_stream_checkpoint(ck[0], "events", target, dev,
+                                         "cpu" if host else None)
         if loaded is not None:
-            state, acc, counts_np, fills_done = loaded
-            counts = torch.as_tensor(counts_np, dtype=torch.int32, device=dev)
-    max_fills = max(1, (target * int(max_transitions_per_event)) // t_cap + 1)
+            state, acc, counts_host, fills_done = loaded
+            counts = torch.as_tensor(counts_host, dtype=torch.int32, device=dev)
+            if host:
+                rows.resume(acc, counts_host)
+    max_fills = max(1, (target * int(max_per_event)) // t_cap + 1)
     exhausted = True
     for fill in range(fills_done, max_fills):
-        prev_counts = counts
-        res = runner(state, counts)
-        state, counts = res.state, res.counts
-        if acc is None:
-            acc = k2.compact_fill(
-                res.fill, k2.empty_rows(B, target + 1, d, dtype, dev),
-                off=torch.ones((B,), dtype=torch.int32, device=dev),
-                init=init_ev)
+        prev_host = counts_host
+        if host:
+            res = runner(state, counts)
+            state, counts, n_tr = res.state, res.counts, res.transitions
+            counts_host = counts.cpu().numpy().astype(np.int64)
+            rows.add(res.fill, counts_host - prev_host)
+            del res  # the fill's memory goes back before the next fill
         else:
-            # straggler fill: its events go past each chain's earlier ones
-            acc = k2.compact_fill(res.fill, acc, off=1 + prev_counts)
-        trans_total += res.transitions
-        counts_host = counts.cpu().numpy()
+            state, counts, acc, n_tr = _events_fill(runner, state, counts, acc, init_ev,
+                                                    target + 1)
+            counts_host = counts.cpu().numpy().astype(np.int64)
+        trans_total += n_tr
         done = counts_host >= target
         if ck is not None and (fill + 1) % ck[1] == 0 and not done.all():
-            _save_stream_checkpoint(ck[0], "events", target, state, acc,
-                                    counts_host, fill + 1)
+            _save_stream_checkpoint(ck[0], "events", target, state,
+                                    rows.skeleton() if host else acc, counts_host, fill + 1)
         _fail_after_fills(fill + 1)
         if verbose:
             print(f"[sample_skeleton] events {int(counts_host.min())}/{target} "
@@ -331,7 +481,7 @@ def sample_skeleton(sampler, n_or_T, xinit, vinit, *, seed=None,
             exhausted = False
             _update_fill_ratio(sampler, target, trans_total)
             break
-        if res.transitions == 0:
+        if n_tr == 0:
             exhausted = False
             break
     if exhausted:
@@ -340,9 +490,9 @@ def sample_skeleton(sampler, n_or_T, xinit, vinit, *, seed=None,
             "results contain fewer events than requested."
         )
     sampler.state = state
-    skel = acc._replace(
-        n_valid=(1 + torch.clamp_max(counts, target)).to(torch.int32))
-    return _squeeze_skeleton(skel) if squeeze else skel
+    if host:
+        return rows.skeleton()
+    return acc._replace(n_valid=(1 + torch.clamp_max(counts, target)).to(torch.int32))
 
 
 def _trim_single(skel: Skeleton) -> Skeleton:
@@ -352,50 +502,36 @@ def _trim_single(skel: Skeleton) -> Skeleton:
     return Skeleton(*(a[0, :n0] for a in skel[:-1]), n_valid=skel.n_valid[0])
 
 
-def _sample_skeleton_horizon(sampler, T: float, xinit, vinit, *, seed, verbose,
-                             dtype, device, t_cap, chunk, tile,
-                             init_capacity, ck=None, backend="auto") -> Skeleton:
-    """Time-horizon skeleton (``sample.jl:323-439``), as the JAX package's
-    on-device stream path builds it (``api.py:1085-1242``): stream fills in
-    horizon mode until every chain's clock reaches ``T``, the first compacted
-    by K2 behind the initial record, each later (straggler) fill merged by K2
-    after its chain's earlier events, the accumulator grown first when a
-    chain would overflow it; then the terminal rows on the device.
+def _bucket256(n: int) -> int:
+    return -(-n // 256) * 256
 
-    A checkpoint holds the accumulator without its initial record, as the
-    JAX package's does; a resumed run puts the record back in front."""
-    if not math.isfinite(T) or T < 0:
-        raise ValueError(f"T must be finite and non-negative. Current value: {T}")
-    x, v, squeeze = _prep_init(sampler, xinit, vinit)
-    dev = resolve_device(device)
-    if dtype is None:
-        dtype = torch.get_default_dtype()
-    B, d = x.shape
-    if t_cap is None:
-        t_cap = max(64, -(-max(2, int(init_capacity)) // 64) * 64)
-    # one fill, the accumulator behind its initial record, and the finalized
-    # skeleton beside the accumulator
-    need = B * _row_bytes(d, dtype) * (2 * t_cap + 3)
-    if need > _device_bytes_budget(dev):
-        raise MemoryError(
-            f"the (B={B}) time-horizon skeleton needs ~{need >> 20} MiB for a fill "
-            f"of {t_cap} rows and its accumulator, beyond the device budget; host "
-            "accumulation is not ported yet (ROADMAP Queue 1)"
-        )
-    state = sampler.init_state_batch(x, v, seed, dtype, dev)
-    init_ev = event_from_state(state, EV_INIT)
+
+class _HorizonFills(NamedTuple):
+    """The time-horizon fills of one chain batch, accumulated on its device."""
+
+    state: PDMPState
+    acc: Skeleton        # the initial record, then each chain's events
+    total: torch.Tensor  # (B,) int32 events per chain, on the device
+    needs: list          # after each fill, the most events of any chain
+    transitions: int
+
+
+def _horizon_fills(runner, state, init_ev, T: float, t_cap: int, ck=None,
+                   verbose: bool = False, tag: str = "sample_skeleton") -> _HorizonFills:
+    """Stream fills in horizon mode until every chain's clock reaches ``T``
+    (JAX ``api.py:1085-1242``): the first compacted by K2 behind the
+    initial record, each later (straggler) fill merged by K2 after its
+    chain's earlier events, the accumulator grown first when a chain would
+    overflow it.  A checkpoint holds the accumulator without its initial
+    record, as the JAX package's does; a resumed run puts the record back in
+    front."""
+    B, d = state.x.shape
+    dev, dtype = state.x.device, state.x.dtype
     zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
-    if T == 0.0:  # the initial record alone
-        sampler.state = state
-        skel = prepend_init_rows(k2.empty_rows(B, 0, d, dtype, dev), init_ev, zeros, 0)
-        return _trim_single(skel) if squeeze else skel
-
-    runner = fill_runner(sampler, pick_backend(sampler, backend, d, dtype, dev),
-                         t_cap, t_cap, chunk, tile, mode="horizon")
     acc = None
     total = zeros            # events per chain so far, on the card
     total_host = np.zeros(B, np.int64)
-    fill_no = 0
+    needs, n_total, fill_no = [], 0, 0
     if ck is not None:
         loaded = _load_stream_checkpoint(ck[0], "horizon", T, dev)
         if loaded is not None:
@@ -418,6 +554,8 @@ def _sample_skeleton_horizon(sampler, T: float, xinit, vinit, *, seed, verbose,
             acc = k2.compact_fill(res.fill, acc, off=1 + total)
         total = total + res.counts
         total_host += counts_host
+        needs.append(int(total_host.max()))
+        n_total += n_tr
         del res  # the fill's memory goes back before the next fill or finalize
         t_now = state.t.cpu().numpy()
         done = t_now >= T
@@ -428,6 +566,30 @@ def _sample_skeleton_horizon(sampler, T: float, xinit, vinit, *, seed, verbose,
                                     total_host, fill_no)
         _fail_after_fills(fill_no)
         if verbose:
+            print(f"[{tag}] t={t_now.min():.4g}/{T} "
+                  f"(chains done: {int(done.sum())}/{B})")
+        if done.all():
+            return _HorizonFills(state, acc, total, needs, n_total)
+        if n_tr == 0:
+            raise RuntimeError("time-horizon sampling made no progress")
+
+
+def _horizon_host(sampler, runner, state, init_ev, T: float, verbose: bool) -> Skeleton:
+    """Time-horizon fills with host accumulation (JAX's ``host_loop``,
+    ``api.py:1244-1277``): K2 compacts each fill on the device to as many
+    rows as its busiest chain recorded, one copy brings them to the host
+    accumulator, and :func:`_assemble_horizon` finishes on the host."""
+    B = state.x.shape[0]
+    zeros = torch.zeros((B,), dtype=torch.int32, device=state.x.device)
+    rows = _HostRows(init_ev, 16)
+    while True:
+        res = runner(state, zeros, T)
+        state, n_tr = res.state, res.transitions
+        rows.add(res.fill, res.counts.cpu().to(torch.int64))
+        del res
+        t_now = state.t.cpu().numpy()
+        done = t_now >= T
+        if verbose:
             print(f"[sample_skeleton] t={t_now.min():.4g}/{T} "
                   f"(chains done: {int(done.sum())}/{B})")
         if done.all():
@@ -435,11 +597,71 @@ def _sample_skeleton_horizon(sampler, T: float, xinit, vinit, *, seed, verbose,
         if n_tr == 0:
             raise RuntimeError("time-horizon sampling made no progress")
     sampler.state = state
-    # n_valid <= 2 + events (init and terminal rows), bucketed to 256
-    out_w = None if squeeze else min(
-        acc.t.shape[1] + 1, -(-(2 + max(1, int(total_host.max()))) // 256) * 256)
-    skel = finalize_horizon_rows(
-        sampler.flow, acc._replace(n_valid=(1 + total).to(torch.int32)), T, out_w)
+    return _assemble_horizon(sampler.flow, rows, T, state.x.device)
+
+
+def _assemble_horizon(flow, rows: _HostRows, T: float, dev) -> Skeleton:
+    """The host accumulator's time-horizon skeleton (JAX
+    ``_assemble_horizon``, ``api.py:912-965``): ``finalize_horizon_rows`` on
+    the host buffers, as wide as the longest chain (``n_valid.max()``), its
+    one batched flow of each chain's last kept row run on ``dev``, the
+    fills' device, so that the terminal rows are the device path's."""
+    skel = rows.skeleton()
+    t = skel.t
+    col = torch.arange(t.shape[1])[None, :]
+    kept = ((col < skel.n_valid[:, None]) & (t <= torch.tensor(T, dtype=t.dtype))).sum(dim=1)
+
+    def flow_on_dev(x, v, tau):
+        return tuple(a.cpu() for a in flow(x.to(dev), v.to(dev), tau.to(dev)))
+
+    return finalize_horizon_rows(flow_on_dev, skel, T, int(kept.max()) + 1)
+
+
+def _sample_skeleton_horizon(sampler, T: float, xinit, vinit, *, seed, verbose,
+                             dtype, device, t_cap, chunk, tile,
+                             init_capacity, ck=None, backend="auto") -> Skeleton:
+    """Time-horizon skeleton (``sample.jl:323-439``), as the JAX package's
+    stream path builds it: :func:`_horizon_fills` then the terminal rows on
+    the device (``finalize_horizon_rows``), or host accumulation where JAX's
+    ``device_ok`` is false (``api.py:1049-1055``)."""
+    if not math.isfinite(T) or T < 0:
+        raise ValueError(f"T must be finite and non-negative. Current value: {T}")
+    x, v, squeeze = _prep_init(sampler, xinit, vinit)
+    dev = resolve_device(device)
+    if dtype is None:
+        dtype = torch.get_default_dtype()
+    B, d = x.shape
+    if t_cap is None:
+        t_cap = max(64, -(-max(2, int(init_capacity)) // 64) * 64)
+    if T == 0.0:  # the initial record alone
+        state = sampler.init_state_batch(x, v, seed, dtype, dev)
+        sampler.state = state
+        zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
+        skel = prepend_init_rows(k2.empty_rows(B, 0, d, dtype, dev),
+                                 event_from_state(state, EV_INIT), zeros, 0)
+        return _trim_single(skel) if squeeze else skel
+    runner = fill_runner(sampler, pick_backend(sampler, backend, d, dtype, dev),
+                         t_cap, t_cap, chunk, tile, mode="horizon")
+    # the fill (updated in place), the compacted rows and a second fill
+    peak = B * _row_bytes(d, dtype) * 2.5 * t_cap
+
+    def run(host):
+        state = sampler.init_state_batch(x, v, seed, dtype, dev)
+        init_ev = event_from_state(state, EV_INIT)
+        if host:
+            return _horizon_host(sampler, runner, state, init_ev, T, verbose)
+        hz = _horizon_fills(runner, state, init_ev, T, t_cap, ck, verbose)
+        sampler.state = hz.state
+        # n_valid <= 2 + events (init and terminal rows), bucketed to 256
+        out_w = None if squeeze else min(hz.acc.t.shape[1] + 1,
+                                         _bucket256(2 + max(1, hz.needs[-1])))
+        return finalize_horizon_rows(
+            sampler.flow, hz.acc._replace(n_valid=(1 + hz.total).to(torch.int32)), T, out_w)
+
+    skel = _with_host_retry(
+        run, _force_host() or peak >= _device_bytes_budget(dev),
+        "device OOM during on-device horizon accumulation; retrying with host "
+        "accumulation (slower: one device->host transfer per fill).")
     return _trim_single(skel) if squeeze else skel
 
 

@@ -149,22 +149,40 @@ def _fill_sources(fill: RawFill):
     }
 
 
+def _row_layout(B: int, W: int, d: int, dtype) -> dict:
+    """Field -> ``(shape, dtype)`` of ``(B, W)`` skeleton rows."""
+    def f(*s):
+        return (B, W) + s, dtype
+
+    i32 = (B, W), torch.int32
+    return dict(x=f(d), v=f(d), t=f(), horizon=f(), ar=f(),
+                is_active=((B, W, d), torch.bool), rejected=i32, errored_bound=i32,
+                hitting_horizon=i32, error_value_ar=f(5), kind=i32)
+
+
 def empty_rows(B: int, W: int, d: int, dtype, device) -> Skeleton:
     """Uninitialized ``(B, W, ...)`` skeleton buffers (K2 writes every
     column of a compaction with ``off`` 0, or 1 plus an init record)."""
-    def f(*s):
-        return torch.empty((B, W) + s, dtype=dtype, device=device)
+    return Skeleton(**{f: torch.empty(s, dtype=dt, device=device)
+                       for f, (s, dt) in _row_layout(B, W, d, dtype).items()},
+                    n_valid=torch.zeros((B,), dtype=torch.int32, device=device))
 
-    def i():
-        return torch.empty((B, W), dtype=torch.int32, device=device)
 
-    return Skeleton(
-        x=f(d), v=f(d), t=f(), horizon=f(), ar=f(),
-        is_active=torch.empty((B, W, d), dtype=torch.bool, device=device),
-        rejected=i(), errored_bound=i(), hitting_horizon=i(),
-        error_value_ar=f(5), kind=i(),
-        n_valid=torch.zeros((B,), dtype=torch.int32, device=device),
-    )
+def packed_rows(B: int, W: int, d: int, dtype, device, flat=None):
+    """``(flat, rows)``: ``empty_rows``'s fields as views into one byte
+    buffer ``flat``, each at a 16-byte aligned offset, so that one copy moves
+    them all; given ``flat`` (such a buffer's copy on another device), the
+    same views into it."""
+    spans, n = {}, 0
+    for f, (s, dt) in _row_layout(B, W, d, dtype).items():
+        nbytes = torch.Size(s).numel() * torch.empty((), dtype=dt).element_size()
+        spans[f] = (n, nbytes, s, dt)
+        n += -(-nbytes // 16) * 16
+    if flat is None:
+        flat = torch.empty(n, dtype=torch.uint8, device=device)
+    rows = {f: flat[o:o + nb].view(dt).view(s) for f, (o, nb, s, dt) in spans.items()}
+    return flat, Skeleton(**rows, n_valid=torch.zeros((B,), dtype=torch.int32,
+                                                       device=flat.device))
 
 
 def fill_specs(fill: RawFill, out: Skeleton, init: Optional[Event] = None):

@@ -8,8 +8,8 @@ so either package loads the other's files.  Determinism comes from the
 counter-based keys in the saved state: a resumed run continues the one that
 was interrupted bit for bit.
 
-Tensors go to the host for the save; :func:`load_checkpoint` puts them on
-the caller's device.
+Tensors go to the host for the save; :func:`load_checkpoint` puts the state
+on the caller's device and the skeleton there or where the caller says.
 """
 
 from __future__ import annotations
@@ -78,14 +78,17 @@ def read_meta(z) -> dict:
     return json.loads(bytes(z["__meta__"]).decode()) if "__meta__" in z else {}
 
 
-def load_checkpoint(path: str, device="cuda"):
-    """Returns ``(state, skeleton_or_None, meta)``, the tensors on
-    ``device`` (the card by default; CUDA without a card raises)."""
+def load_checkpoint(path: str, device="cuda", skeleton_device=None):
+    """Returns ``(state, skeleton_or_None, meta)``, the state on ``device``
+    (the card by default; CUDA without a card raises) and the skeleton on
+    ``skeleton_device`` (default ``device``; host accumulation keeps it on
+    the CPU)."""
     dev = resolve_device(device)
+    skel_dev = dev if skeleton_device is None else resolve_device(skeleton_device)
     with np.load(path) as z:
         meta = read_meta(z)
         state = load_state(z, "state", dev)
         skel = None
         if any(k.startswith("skel.") for k in z.files):
-            skel = Skeleton(*[_tensor(z[f"skel.{f}"], dev) for f in Skeleton._fields])
+            skel = Skeleton(*[_tensor(z[f"skel.{f}"], skel_dev) for f in Skeleton._fields])
     return state, skel, meta

@@ -54,8 +54,13 @@ from .api import (
     fill_runner,
     pick_backend,
 )
+from .core import rng
 from .core.device import resolve_device
 from .core.types import PDMPState
+from .models.base import as_key
+from .parallel import distributed
+from .parallel import mesh as mesh_lib
+from .parallel.sharded import cat_chains, process_path
 from .diagnostics import RHAT_THRESHOLD
 from .ops.flows import div_once
 from .parallel.checkpoint import _flatten, _meta_bytes, _write_atomic, load_state, read_meta
@@ -242,6 +247,7 @@ def sample_streaming_stats(
     verbose: bool = False,
     checkpoint_path=None,
     checkpoint_every: int = 64,
+    mesh=None,
     stop_when_converged: bool = False,
     check_every: int = 32,
     min_ess: float = 0.0,
@@ -275,10 +281,21 @@ def sample_streaming_stats(
     gates (and the worst coordinate's pooled ESS reaches ``min_ess``, when
     given).
 
+    ``mesh``: run the fills and folds per shard of the mesh's ``chains``
+    axis (``parallel.make_mesh``; ``device`` is then the mesh's), each on
+    its device.  Every process passes the global inits; the fills' clock cap
+    and the stopping tests read the whole batch, so each chain's fills,
+    samples and sums are those of the run without a mesh, and the gathered
+    accumulators (O(B * d)) give the summary of every chain.  On the
+    transition engine the run equals the one without a mesh bit for bit; a
+    chunk kernel seeds each fill from its shard's keys (see
+    ``parallel/sharded.py``), so only a mesh of one shard equals it there.
+    A checkpoint then holds this process's chains, one file per process of
+    a group (``path.rank<r>``).
+
     The fused chunk kernels cover the Zig-Zag family with vectorized bounds,
     BPS, Boomerang and Forward ECMC; every other sampler runs on the
-    transition engine.  The multi-device ``mesh=`` of the JAX package is not
-    ported: one card.
+    transition engine.
     """
     if not (isinstance(T, (int, float)) and math.isfinite(T) and T > 0):
         raise ValueError(f"T must be finite and positive. Current value: {T}")
@@ -289,17 +306,26 @@ def sample_streaming_stats(
             f"{2 * n_batches} for the batch-means ESS estimator"
         )
     x, v, _squeeze = _prep_init(sampler, xinit, vinit)
-    dev = resolve_device(device)
     if dtype is None:
         dtype = torch.get_default_dtype()
     B, d = x.shape
+    if mesh is None:
+        parts = [(resolve_device(device), 0, B)]
+        dist_on, path = False, checkpoint_path
+    else:
+        ranges = mesh_lib.chain_sharding(mesh, B)
+        parts = [(dv, *ranges[g]) for dv, g in zip(mesh.devices, mesh.local_shards())]
+        dist_on = mesh.distributed
+        path = process_path(checkpoint_path, mesh)
+    dev = parts[0][0]
+    B_local = parts[0][2] - parts[0][1]
     n_burnin = int(burnin_frac * n_samples)
     dt_grid = T / n_samples
     x_ref = np.asarray(x.mean(axis=0), np.float32)
 
     if t_cap is None:
         # a fill plus the fold's gather temporaries: ~3 fill-sized buffers
-        budget_rows = int(_device_bytes_budget(dev) / max(B * _row_bytes(d, dtype), 1) / 3)
+        budget_rows = int(_device_bytes_budget(dev) / max(B_local * _row_bytes(d, dtype), 1) / 3)
         t_cap = max(256, min(8192, budget_rows // 256 * 256))
     G = int(grid_chunk)
     T32 = np.float32(T)
@@ -308,58 +334,105 @@ def sample_streaming_stats(
                          t_cap, t_cap, chunk, tile, mode="horizon")
     fold = make_fold_chunk(sampler, G, n_samples, n_batches, n_burnin, dt_grid, x_ref)
 
-    state = sampler.init_state_batch(x, v, seed, dtype, dev)
-    stats = empty_stats(B, d, n_batches, state.x.dtype, dev)
-    j_done = torch.zeros((B,), dtype=torch.int32, device=dev)
-    zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
+    if mesh is None:
+        states = [sampler.init_state_batch(x, v, seed, dtype, dev)]
+    else:
+        keys = rng.split(as_key(seed, "cpu"), B)
+        states = [sampler.init_state_batch(x[lo:hi], v[lo:hi], None, dtype, dv,
+                                           keys=keys[lo:hi].to(dv)) for dv, lo, hi in parts]
+    stats = [empty_stats(hi - lo, d, n_batches, st.x.dtype, dv)
+             for st, (dv, lo, hi) in zip(states, parts)]
+    j_done = [torch.zeros((hi - lo,), dtype=torch.int32, device=dv) for dv, lo, hi in parts]
+    zeros = [torch.zeros_like(j) for j in j_done]
     events = 0
     fills = 0
     ck_meta = {"T": T, "n_samples": int(n_samples), "n_batches": int(n_batches),
                "n_burnin": int(n_burnin), "shape": [B, d], "x_ref": x_ref.tolist(),
                "seed": _seed_meta(seed)}
-    if checkpoint_path:
-        loaded = _load_streaming_checkpoint(checkpoint_path, ck_meta, dev)
+    if path:
+        loaded = _load_streaming_checkpoint(path, ck_meta, "cpu")
         if loaded is not None:
-            state, stats, meta = loaded
+            state, stat, meta = loaded
             events, fills = int(meta["events"]), int(meta["fills"])
-            j_done = torch.tensor(meta["cursor"], dtype=torch.int32, device=dev)
+            cursor = torch.tensor(meta["cursor"], dtype=torch.int32)
+            off = 0
+            for i, (dv, lo, hi) in enumerate(parts):
+                part = slice(off, off + hi - lo)
+                off += hi - lo
+                states[i] = PDMPState(*(a[part].to(dv) for a in state))
+                stats[i] = StreamingStats(*(a[part].to(dv) for a in stat))
+                j_done[i] = cursor[part].to(dv)
 
-    def one_fill(state, stats, j_done):
-        """One fill and its fold (the JAX package's ``program``,
+    def reduce_max(vals):
+        """Flags and negated minima over every process of the mesh."""
+        t = torch.tensor(vals, dtype=torch.float64)
+        return (distributed.all_reduce(t, torch.distributed.ReduceOp.MAX)
+                if dist_on else t).tolist()
+
+    def gathered():
+        """Every chain's accumulators, in global order, on ``dev``."""
+        out = cat_chains(stats, dev)
+        return StreamingStats(*map(distributed.all_gather_rows, out)) if dist_on else out
+
+    def one_fill(i, j_min):
+        """One shard's fill and its fold (the JAX package's ``program``,
         ``streaming.py:371-413``): the clock target capped so that every
         chain's grid advance stays inside its fold window ``[j_done, j_done
         + G)`` (the slack of G // 4 points absorbs the sub-transition
-        overshoot of the halt test), then the cursor bookkeeping."""
+        overshoot of the halt test), then the cursor bookkeeping.  ``j_min``
+        is the least cursor of the whole batch.  ``(events, transitions,
+        advanced, all done, overflow)``."""
+        dv, state = parts[i][0], states[i]
         anchor = _anchor_from_state(state)
-        cap_pts = np.float32(int(j_done.min()) + G - max(1, G // 4))
+        cap_pts = np.float32(j_min + G - max(1, G // 4))
         tt_eff = min(T32, cap_pts * dt32)             # float32, as JAX computes it
-        res = runner(state, zeros, float(tt_eff))
+        res = runner(state, zeros[i], float(tt_eff))
         ns = res.state
         traj = ns.t + ns.ts
-        done = ns.t >= torch.tensor(float(T32), dtype=ns.t.dtype, device=dev)
+        done = ns.t >= torch.tensor(float(T32), dtype=ns.t.dtype, device=dv)
         j_hi = torch.clamp_max(torch.floor(div_once(traj, dt_grid)).to(torch.int32),
                                n_samples)
         j_hi = torch.where(done, n_samples, j_hi)
-        j_hi = torch.maximum(j_hi, j_done)
-        stats = fold(stats, res.fill, anchor, res.transitions, j_done, j_hi)
-        covered = j_done + G
+        j_hi = torch.maximum(j_hi, j_done[i])
+        stats[i] = fold(stats[i], res.fill, anchor, res.transitions, j_done[i], j_hi)
+        covered = j_done[i] + G
         j_new = torch.minimum(j_hi, covered)
-        overflow = bool((j_hi > covered).any())
-        stalled = (res.transitions == 0 and not bool(done.all())
-                   and not bool((j_new > j_done).any()))
-        return ns, stats, j_new, int(res.counts.sum()), overflow, stalled
+        flags = (res.transitions > 0, bool((j_new > j_done[i]).any()), bool(done.all()),
+                 bool((j_hi > covered).any()))
+        states[i], j_done[i] = ns, j_new
+        return int(res.counts.sum()), flags
 
     K = 8 if dev.type == "cuda" else 2
     if checkpoint_path:
         K = min(K, max(1, int(checkpoint_every)))
     groups = 0
     save_every_groups = max(1, -(-int(checkpoint_every) // K))
+    j_min = -reduce_max([-min(int(j.min()) for j in j_done)])[0]
     while True:
         overflow = stalled = False
+        ev_group = 0
         for _ in range(K):
-            state, stats, j_done, ev, ov, st = one_fill(state, stats, j_done)
-            events += ev
-            overflow, stalled = overflow or ov, stalled or st
+            flags = []
+            for i in range(len(parts)):
+                with mesh_lib.on_device(parts[i][0]):
+                    ev, f = one_fill(i, int(j_min))
+                ev_group += ev
+                flags.append(f)
+            moved, advanced, _, overflowed = (any(f) for f in zip(*flags))
+            fill_done = all(f[2] for f in flags)
+            neg_j, moved, advanced, not_done, overflowed = reduce_max(
+                [-min(int(j.min()) for j in j_done), moved, advanced, not fill_done,
+                 overflowed])
+            j_min = -neg_j
+            overflow = overflow or bool(overflowed)
+            stalled = stalled or not (moved or advanced or not not_done)
+        t_h = np.concatenate([st.t.cpu().numpy() for st in states])
+        j_h = np.concatenate([j.cpu().numpy() for j in j_done])
+        tally = [ev_group, int((t_h < T).sum())]
+        if dist_on:
+            tally = distributed.all_reduce(torch.tensor(tally)).tolist()
+        events += tally[0]
+        all_done = tally[1] == 0
         fills += K
         _fail_after_fills(fills)
         groups += 1
@@ -370,25 +443,23 @@ def sample_streaming_stats(
                 "past the fill's clock cap (an engine invariant — please "
                 "report); rerun with a larger grid_chunk as a workaround"
             )
-        t_h = state.t.cpu().numpy()
-        j_h = j_done.cpu().numpy()
-        done = t_h >= T
-        all_done = bool(done.all())
-        grid_done = int(j_h.min()) >= n_samples
+        grid_done = j_min >= n_samples
         if verbose:
             print(f"[streaming] fill {fills}: t={t_h.min():.4g}/{T} grid "
-                  f"{int(j_h.min())}/{n_samples} (chains done: {int(done.sum())}/{B})")
-        if (checkpoint_path and groups % save_every_groups == 0
+                  f"{int(j_h.min())}/{n_samples} (chains done: {int((t_h >= T).sum())}/"
+                  f"{len(t_h)})")
+        if (path and groups % save_every_groups == 0
                 and not (all_done and grid_done)):
             _save_streaming_checkpoint(
-                checkpoint_path, state, stats,
+                path, cat_chains(states, "cpu"), cat_chains(stats, "cpu"),
                 dict(ck_meta, events=events, fills=fills, cursor=j_h.tolist()))
         if all_done and grid_done:
             break
         if (stop_when_converged and groups % max(1, int(check_every)) == 0
-                and int(j_h.min()) > n_burnin):
+                and j_min > n_burnin):
+            every = gathered()
             if float(min_ess) > 0:
-                summ = streaming_summary(StreamingRun(stats, state, events, fills,
+                summ = streaming_summary(StreamingRun(every, states[0], events, fills,
                                                       n_samples, n_burnin, x_ref))
                 gated = (summ["converged"]
                          and summ["ess_total_worst_coord"] >= float(min_ess))
@@ -396,7 +467,7 @@ def sample_streaming_stats(
             else:
                 # R-hat alone needs only the half sufficient statistics
                 rhat_max = float(_rhat_from_half_stats(
-                    *(a.cpu().numpy() for a in stats[:3])).max())
+                    *(a.cpu().numpy() for a in every[:3])).max())
                 gated = rhat_max < RHAT_THRESHOLD
             if gated:
                 if verbose:
@@ -405,8 +476,9 @@ def sample_streaming_stats(
                 break
         if stalled:
             raise RuntimeError("streaming sampling made no progress")
+    state = cat_chains(states, dev)
     sampler.state = state
-    return StreamingRun(stats, state, events, fills, n_samples, n_burnin, x_ref)
+    return StreamingRun(gathered(), state, events, fills, n_samples, n_burnin, x_ref)
 
 
 def _rhat_from_half_stats(n_h, sum_h, sq_h):

@@ -1,1 +1,3 @@
 from . import potentials  # noqa: F401
+
+__all__ = ["potentials"]

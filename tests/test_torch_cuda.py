@@ -721,3 +721,81 @@ def test_backend_routing_on_the_card(dev):
     hz = pt.sample_skeleton(pt.RHMC(4, pt.potentials.grad_gauss), 20.0, x0, v0, **kw)
     last = hz.n_valid.long() - 1
     assert bool((hz.t[torch.arange(32, device=dev), last] == 20.0).all())
+
+
+@pytest.mark.parametrize("n_or_T", [400, 30.0])
+@pytest.mark.parametrize("kind", ["zigzag", "sticky"])
+def test_host_accumulation_on_card_equals_device_path(dev, monkeypatch, kind, n_or_T):
+    """Host accumulation (K1 or K6 fills, K2 on the card, one copy per fill)
+    returns CPU tensors equal to the device path's bit for bit up to
+    ``n_valid`` (float32, 64-row fills, so chains straggle)."""
+    d, B = 20, 64
+    x0, v0 = np.full((B, d), 0.3), np.ones((B, d))
+    kw = dict(seed=3, dtype=torch.float32, device=dev, t_cap=64)
+    ref = pt.sample_skeleton(_stream_sampler(kind, d), n_or_T, x0, v0, **kw)
+    monkeypatch.setenv("PDMPFLUX_STREAM_HOST_ACC", "1")
+    n0 = build.LAUNCHES["compact_rows"]
+    got = pt.sample_skeleton(_stream_sampler(kind, d), n_or_T, x0, v0, **kw)
+    assert build.LAUNCHES["compact_rows"] > n0 + 1 and got.t.device.type == "cpu"
+    W = got.t.shape[1]
+    for f, a, b in zip(got._fields, got, ref):
+        assert torch.equal(a, (b if f == "n_valid" else b[:, :W]).cpu()), f
+
+
+@pytest.mark.parametrize("n_or_T", [300, 20.0])
+def test_sharded_run_on_card_equals_sample_skeleton(dev, n_or_T):
+    """``sample_skeleton_sharded`` on a one-card mesh (K1, K2 on the card)
+    equals ``sample_skeleton`` bit for bit, and its stats are the
+    skeleton's."""
+    d, B = 10, 1024
+    sampler = pt.ZigZag(d, pt.potentials.grad_gauss)
+    x0, v0 = np.zeros((B, d)), np.ones((B, d))
+    kw = dict(seed=1, dtype=torch.float32)
+    ref = pt.sample_skeleton(sampler, n_or_T, x0, v0, device=dev, **kw)
+    n0 = build.LAUNCHES["zigzag_chunk" + ("_horizon" if isinstance(n_or_T, float) else "")]
+    run = pt.parallel.sample_skeleton_sharded(sampler, n_or_T, x0, v0,
+                                              mesh=pt.parallel.make_mesh(1), **kw)
+    assert build.LAUNCHES["zigzag_chunk" + ("_horizon" if isinstance(n_or_T, float)
+                                            else "")] > n0
+    for f, a, b in zip(ref._fields, run.skeleton, ref):
+        assert a.is_cuda and torch.equal(a, b), f
+    assert run.stats["events"] == int(ref.n_valid.sum()) and len(run.transitions) == 1
+
+
+HOST_FLOWS = {
+    "bps_aniso": lambda d: pt.BPSAD(d, pt.potentials.anisotropic_gauss(np.linspace(0.5, 2, d)),
+                                    refresh_rate=0.5),
+    "boomerang": lambda d: pt.Boomerang(d, pt.potentials.grad_gauss, refresh_rate=0.5),
+    "ecmc": lambda d: pt.ForwardECMCAD(d, pt.potentials.gauss),
+    "suzz": lambda d: pt.SpeedUpZigZagAD(d, pt.potentials.gauss),
+    "rhmc": lambda d: pt.RHMCAD(d, pt.potentials.gauss),
+}
+
+
+@pytest.mark.parametrize("name", list(HOST_FLOWS))
+def test_host_skeleton_samples_on_the_cpu(dev, monkeypatch, name):
+    """Every other sampler's host-accumulated skeleton (CPU tensors, from a
+    run on the card) equals the device path's, and its samples come from
+    the sampler's flow on the CPU: within rtol 1e-12 of the card's (f64;
+    the card's sin, cos and sqrt differ by an ulp)."""
+    d, B = 4, 32
+    rs = np.random.default_rng(5)
+    x0, v0 = rs.normal(size=(B, d)), rs.normal(size=(B, d))
+    if name == "ecmc":
+        v0 /= np.linalg.norm(v0, axis=1, keepdims=True)
+    if name == "suzz":
+        v0 = np.sign(v0)
+    kw = dict(seed=2, dtype=torch.float64, device=dev, t_cap=256)
+    ref = pt.sample_skeleton(HOST_FLOWS[name](d), 300, x0, v0, **kw)
+    monkeypatch.setenv("PDMPFLUX_STREAM_HOST_ACC", "1")
+    sampler = HOST_FLOWS[name](d)
+    got = pt.sample_skeleton(sampler, 300, x0, v0, **kw)
+    for f, a, b in zip(got._fields, got, ref):
+        assert not a.is_cuda and torch.equal(a, b.cpu()), f
+    xs = pt.sample_from_skeleton_batch(sampler, 64, got)
+    mean, var = pt.pooled_moments(got, sampler, 64)
+    assert not xs.is_cuda and not mean.is_cuda
+    torch.testing.assert_close(xs, pt.sample_from_skeleton_batch(sampler, 64, ref).cpu(),
+                               rtol=1e-12, atol=1e-12)
+    for a, b in zip((mean, var), pt.pooled_moments(ref, sampler, 64)):
+        torch.testing.assert_close(a, b.cpu(), rtol=1e-12, atol=1e-12)

@@ -40,6 +40,7 @@ from pdmpflux_tpu.core import engine  # noqa: E402
 from pdmpflux_tpu.core.types import EV_INIT, Skeleton  # noqa: E402
 from pdmpflux_tpu.ops.pallas import driver as pdrv  # noqa: E402
 from pdmpflux_tpu.ops.pallas import zigzag_chunk as zc  # noqa: E402
+from pdmpflux_tpu_torch import api as tapi  # noqa: E402
 from pdmpflux_tpu_torch import convert  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import driver as tdrv  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import scalar_chunk as tsc  # noqa: E402
@@ -362,10 +363,27 @@ def test_flows_take_rows_and_times(name):
 
 
 def test_horizon_memory_budget_raises(monkeypatch):
+    """A budget below one fill no longer raises: the time-horizon run takes
+    host accumulation (JAX ``host_loop`` and ``_assemble_horizon``) and
+    equals the on-device run bit for bit up to each chain's ``n_valid``;
+    its width is the longest chain's, and every chain ends at t == T."""
+    sampler = pt.ZigZag(3, pt.potentials.grad_gauss)
+    rs = np.random.default_rng(3)
+    x0, v0 = rs.normal(size=(8, 3)), rs.choice([-1.0, 1.0], size=(8, 3))
+    kw = dict(seed=2, dtype=torch.float64, device="cpu", init_capacity=64)
+    dev = pt.sample_skeleton(sampler, 100.0, x0, v0, **kw)
     monkeypatch.setenv("PDMPFLUX_DEVICE_BYTES", "100000")
-    with pytest.raises(MemoryError, match="host accumulation is not ported"):
-        pt.sample_skeleton(pt.ZigZag(3, pt.potentials.grad_gauss), 5.0, np.zeros((8, 3)),
-                           np.ones((8, 3)), device="cpu", init_capacity=4096)
+    tapi.HOST_ACC.clear()
+    host = pt.sample_skeleton(sampler, 100.0, x0, v0, **kw)
+    assert tapi.HOST_ACC["fills"] > 1  # straggler fills of 64 rows
+    nv = host.n_valid
+    assert torch.equal(nv, dev.n_valid) and host.t.shape[1] == int(nv.max()) < dev.t.shape[1]
+    for f, a, b in zip(host._fields, host, dev):
+        if f != "n_valid":
+            assert torch.equal(a, b[:, :a.shape[1]]), f
+    last = nv.long() - 1
+    rows = torch.arange(8)
+    assert (host.t[rows, last] == 100.0).all() and (host.kind[rows, last] == pt.EV_TERMINAL).all()
 
 
 def test_zigzag_horizon_moments():
