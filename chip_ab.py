@@ -2,6 +2,7 @@
 compaction K2 of one checkout.
 
     python3 chip_ab.py [TREE] [--lanes] [--probe] [--probe-k2]
+    python3 chip_ab.py [TREE] --engine
 
 Times one K=32 launch (float32, CUDA events, mean of 50 launches after one
 warm launch) of K1 at the flagship's shape (B = 8192, d = 10), K1 in
@@ -24,7 +25,10 @@ the sticky and the BPS fill is also timed built without its copy's stores and
 without its copy's loads (``probe_k2``).  Last, each of the five
 deployments' ``sample_skeleton`` calls is timed (``call_times``: the median
 of five warm calls, and one call traced by ``torch.profiler`` for the
-card's busy time and K2's kernels inside the call).  To compare two commits on one card, unpack the other with ``git
+card's busy time and K2's kernels inside the call).  With ``--engine``,
+none of that: the transition engine's cells instead (``engine_ab``), the
+torch ops one transition dispatches for each family of TREE's phase 22 and
+TREE's phases 23 and 24.  To compare two commits on one card, unpack the other with ``git
 archive`` into a git-ignored directory and run parent, change, change,
 parent one after another on that card: each run is its own process and
 builds its own kernels.  Prints one line with the kernels' times and one
@@ -33,7 +37,6 @@ line per deployment's call, each with the card's name and power limit.
 
 import ctypes
 import os
-import re
 import shutil
 import subprocess
 import sys
@@ -54,10 +57,6 @@ from pdmpflux_tpu_torch.ops.cuda import zigzag_chunk as k1  # noqa: E402
 
 REPS = 50
 CALLS = 5  # timed warm calls of each deployment
-# K2's kernels in a trace, by name: the four of compact.cu, and the one kernel
-# of a tree that predates them (timed as the parent of a comparison)
-K2_KERNELS = {"count_kernel", "scan_kernel", "copy_kernel", "tail_kernel",
-              "compact_rows_kernel"}
 
 
 def launch_ms(sampler, x0, v0, run, config=cs.scalar_config, sticky=False, t_target=None):
@@ -73,7 +72,60 @@ def launch_ms(sampler, x0, v0, run, config=cs.scalar_config, sticky=False, t_tar
     return cs.cuda_ms(lambda: run(7, st, fill, 0, cfg), REPS)
 
 
+def engine_ab(n=20):
+    """The engine's cells of TREE: for each family of its phase 22
+    (``ENGINE_FAMILIES``, f64, B = 256, d = 10, seeded inits), the torch ops
+    dispatched per transition over ``n`` transitions on the card and a digest
+    of their names (sorted, so that two trees dispatching the same ops in
+    another order agree), then its phases 23 (``rhmc_gauss_d10``) and 24
+    (``zigzag_banana_d10_fd`` and ``_jvp``), which print their times."""
+    import hashlib
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Names(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    build.library()
+    B, d = 256, 10
+    rs = np.random.default_rng(22)
+    texts = []
+    for name, make in cs.ENGINE_FAMILIES.items():
+        sampler = make(d)
+        x0 = rs.normal(size=(B, d))
+        if name.startswith(("zigzag", "sticky", "suzz")):
+            v0 = rs.choice([-1.0, 1.0], size=(B, d))
+        else:
+            v0 = rs.normal(size=(B, d))
+            v0 /= np.linalg.norm(v0, axis=1, keepdims=True)
+        state = sampler.init_state_batch(x0, v0, 22, torch.float64, cs.DEV)
+        transition = cs.engine.make_transition(sampler)
+        t_max = cs.run_t_max(sampler, state, n)
+        with Names() as rec:
+            for _ in range(n):
+                state, _ = transition(state, t_max)
+        cs.sync()
+        digest = hashlib.sha1(repr(sorted(Counter(rec.names).items())).encode()).hexdigest()
+        texts.append(f"{name} {len(rec.names) / n:.1f} ({digest[:10]})")
+    print(f"{TREE} engine: torch ops dispatched per transition (digest of the op "
+          f"names): {', '.join(texts)} ({cs.card()})", flush=True)
+    card_name = cs.card()
+    cs.phase_rhmc(card_name)
+    for tderiv in ("fd", "jvp"):
+        cs.phase_banana_engine(card_name, tderiv)
+
+
 def main():
+    if "--engine" in sys.argv:
+        engine_ab()
+        return
     d, B, _ = cs.MAIN
     flagship = cs.pt.ZigZag(d, cs.pt.potentials.grad_gauss)
     x_f, v_f = np.zeros((B, d)), np.ones((B, d))
@@ -126,13 +178,6 @@ def main():
         ("Speed-Up", suzz, cs.SUZZ_D10[2], x_s, v_s)])
 
 
-def kernel_name(name):
-    """A trace's kernel name without return type, namespace, template
-    arguments and parameters."""
-    name = re.sub(r"^void |\(anonymous namespace\)::", "", name)
-    return re.split(r"[<(]", name)[0].strip()
-
-
 def call_times(cells):
     """Each deployment's ``sample_skeleton`` call (float32, seed 0): the
     wall times of CALLS synchronised warm calls after one warm call, then
@@ -163,11 +208,14 @@ def call_times(cells):
         kernels = {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
-                k = kernel_name(e.name)
+                k = cs.kernel_name(e.name)
                 ms, n = kernels.get(k, (0.0, 0))
                 kernels[k] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
         busy = sum(ms for ms, _ in kernels.values())
-        k2_ms = sum(ms for k, (ms, _) in kernels.items() if k in K2_KERNELS)
+        # K2's kernels by name: the four of compact.cu, and the one kernel of
+        # a tree that predates them (timed as the parent of a comparison)
+        k2_names = set(cs.K2_KERNELS) | {"compact_rows_kernel"}
+        k2_ms = sum(ms for k, (ms, _) in kernels.items() if k in k2_names)
         med = float(np.median(walls))
         top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
         print(f"{TREE} call {name}: {CALLS} warm calls "

@@ -219,7 +219,30 @@ Phases, one line each; any failure raises and exits non-zero:
    run, ``host_all_gather_stats`` and ``pooled_moments(mesh=)`` through NCCL,
    the group destroyed; wall and split;
 29. ``zigzag_banana_d50_streaming`` with ``mesh=make_mesh()``: accumulators,
-   events and fills equal to phase 20's timed run without a mesh.
+   events and fills equal to phase 20's timed run without a mesh;
+30. one warm flagship ``sample_skeleton`` inside ``profiling.annotate``,
+   traced by ``profiling.trace``: the exported trace holds the span, K1's
+   kernel events equal its launch count's increase and K2's four kernels
+   are there, each once per K2 launch; the card's busy share of the span
+   (kernels, copies and sets, which run one after another on the one
+   stream) and the summed time of each kernel name; ``profiling.timed`` of
+   the same call;
+31. ``plotting._anim_points`` on a chain of that skeleton on the card equal to
+   the host copy's, also through the sampler's flow; ``plot_traj``'s line
+   data equal to the skeleton's points where matplotlib is installed (the
+   line says which);
+32. ``sample_skeleton_gspmd`` of ``BPS(10_000, grad_gauss, refresh_rate=0.5)``
+   and ``ZigZag(10_000, grad_gauss)``, 32 chains x 256 events, float64,
+   x0 = 0, v0 = 1, seed 0 (the transition engine and K2, as JAX's GSPMD
+   path runs no Pallas kernel): without a group, then on a one-process NCCL
+   group's mesh whose coordinate group is made a one-part ``ShardedDims``
+   (a dim axis of 1 runs every coordinate locally; this drives the
+   collectives through NCCL on the card; bit for bit the run without a
+   group), then
+   with a dim axis of 2 over two processes on the one card, which gloo
+   joins (NCCL takes one rank per device): each process's block equal to
+   the dim-1 run at rtol 1e-9 (integers equal); every call's time.  The
+   two processes run this file with ``--gspmd-worker PORT RANK OUTDIR``.
 
 Then one JSON line of per-kernel results (launches counted in the timed run
 of each kernel's path: phase 4 for K1 and K2, phase 7 for K6, phase 10 for
@@ -229,7 +252,9 @@ phases 19 and 20 for the entries of K6 and K1 in horizon mode named
 after the streaming deployments, and phases 23 and 24 for the entries of K2
 named after the engine deployments, phase 28 for K1's entry named after the
 sharded flagship, phases 26b and 27 for K2's entries named after the host
-paths; max_abs_err the largest of the kernel's comparisons
+paths, phase 30 for the entries of K1 and K2 named after the profiled
+flagship, phase 32 (dim 1) for K2's entry named after the gspmd
+deployment; max_abs_err the largest of the kernel's comparisons
 with its plain version, f64 and f32; the bound of each timed launch computed
 from its shape and this run's data), the card's name and power limit, and
 the status line.
@@ -257,15 +282,17 @@ if not torch.cuda.is_available():
     sys.exit(2)
 
 import pdmpflux_tpu_torch as pt  # noqa: E402
-from pdmpflux_tpu_torch import api, streaming  # noqa: E402
+from pdmpflux_tpu_torch import api, plotting, streaming  # noqa: E402
 from pdmpflux_tpu_torch.core import engine, rng  # noqa: E402
-from pdmpflux_tpu_torch.core.types import EV_INIT, event_from_state  # noqa: E402
+from pdmpflux_tpu_torch.core.dims import ShardedDims  # noqa: E402
+from pdmpflux_tpu_torch.core.types import EV_INIT, Skeleton, event_from_state  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import build  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import compact as k2  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import driver  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import scalar_chunk as k3  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import zigzag_chunk as k1  # noqa: E402
 from pdmpflux_tpu_torch.parallel import distributed  # noqa: E402
+from pdmpflux_tpu_torch.utils import profiling  # noqa: E402
 
 DEV = torch.device("cuda")
 RTOL, ATOL = 1e-9, 1e-12
@@ -295,6 +322,11 @@ CK_HORIZON = (4096, 64.0, 256)  # 21b: chains, T (~256 events per chain), init_c
 CK_STREAM = (4096, 16384, 64, 8, 16)  # 21c: events per chain, grid, windows, every, fail
 RV_BATCHES = 1000         # 21d: RV batches
 HOST_BUDGET = 1 << 30     # 26b: PDMPFLUX_DEVICE_BYTES, below the sticky skeleton's 2.38 GB
+TRACE_SPAN = "flagship_sample_skeleton"  # phase 30's annotate span
+# K2's kernels by name in a trace: the four of csrc/compact.cu
+K2_KERNELS = ("count_kernel", "scan_kernel", "copy_kernel", "tail_kernel")
+GSPMD = (10_000, 32, 256)  # phase 32: d, chains, events per chain
+GSPMD_RTOL = 1e-9          # phase 32: dim 2 against dim 1
 
 H100_BYTES_S = 3.35e12  # HBM3 rate of the H100 SXM (NVIDIA data sheet)
 H100_F32_OPS_S = 67e12  # float32 rate outside the tensor cores (the same sheet)
@@ -3082,6 +3114,305 @@ def phase_stream_mesh(card_name, banana):
           f"{wall:.3f} s, events/s {got.events / wall:.1f} ({card_name})", flush=True)
 
 
+def kernel_name(name):
+    """A trace's kernel name without return type, namespace, template
+    arguments and parameters."""
+    name = re.sub(r"^void |\(anonymous namespace\)::", "", name)
+    return re.split(r"[<(]", name)[0].strip()
+
+
+def phase_profiled(card_name, sampler):
+    """Phase 30: one warm flagship ``sample_skeleton`` inside
+    ``profiling.annotate``, traced by ``profiling.trace`` into a temporary
+    directory; the exported trace's span, K1's events against the launch
+    count, K2's four kernels, the card's busy share of the span and each
+    kernel name's summed time; then ``profiling.timed`` of the same call.
+    Returns (skeleton, launches in the traced call)."""
+    d, B, n_sk = MAIN
+    x0, v0 = np.zeros((B, d)), np.ones((B, d))
+
+    def call():
+        return pt.sample_skeleton(sampler, n_sk, x0, v0, seed=0, dtype=torch.float32,
+                                  device=DEV)
+
+    call()
+    sync()
+    logdir = tempfile.mkdtemp(prefix="pdmp_trace_")
+    try:
+        build.reset_launches()
+        with profiling.trace(logdir):
+            with profiling.annotate(TRACE_SPAN):
+                skel = call()
+                sync()
+        launches = dict(build.LAUNCHES)
+        files = sorted(os.path.join(r, f) for r, _, fs in os.walk(logdir) for f in fs
+                       if f.endswith(".pt.trace.json"))
+        if not files:
+            raise AssertionError(f"30: profiling.trace wrote no trace under {logdir}")
+        with open(files[-1]) as f:
+            events = json.load(f)["traceEvents"]
+        trace_bytes = os.path.getsize(files[-1])
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    spans = [e for e in events if e.get("name") == TRACE_SPAN
+             and e.get("cat") == "user_annotation"]
+    if len(spans) != 1:
+        raise AssertionError(f"30: the trace holds {len(spans)} {TRACE_SPAN} spans")
+    lo, span_us = float(spans[0]["ts"]), float(spans[0]["dur"])
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and lo <= float(e["ts"]) <= lo + span_us]
+    per = {}
+    for e in device:
+        k = kernel_name(e["name"]) if e["cat"] == "kernel" else e["cat"]
+        ms, n = per.get(k, (0.0, 0))
+        per[k] = (ms + float(e["dur"]) / 1e3, n + 1)
+    k1_n = per.get("zigzag_chunk_kernel", (0.0, 0))[1]
+    if k1_n != launches["zigzag_chunk"] or k1_n < 1:
+        raise AssertionError(f"30: {k1_n} K1 kernel events in the trace, "
+                             f"{launches['zigzag_chunk']} launches counted")
+    for k in K2_KERNELS:
+        if per.get(k, (0.0, 0))[1] != launches["compact_rows"]:
+            raise AssertionError(f"30: K2's {k} in the trace {per.get(k)}, "
+                                 f"{launches['compact_rows']} K2 launches counted")
+    busy = sum(ms for ms, _ in per.values())
+    span_ms = span_us / 1e3
+    r = profiling.timed(call, repeats=3)
+    if set(r) != {"first_call_s", "steady_state_s", "compile_overhead_s", "result"}:
+        raise AssertionError(f"30: timed keys {sorted(r)}")
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])
+    print(f"phase 30 profiled flagship: profiling.trace ({trace_bytes} bytes of trace) around "
+          f"sample_skeleton(ZigZag({d}, grad_gauss)) B={B} n_sk={n_sk} f32 inside "
+          f"annotate({TRACE_SPAN!r}): span {span_ms:.3f} ms, card busy {busy:.3f} ms "
+          f"({busy / span_ms:.1%} of the span, host {1 - busy / span_ms:.1%}); K1 events "
+          f"{k1_n} = launches, K2's four kernels x {launches['compact_rows']}; per name: "
+          + ", ".join(f"{k} {ms:.4f} ms x {n}" for k, (ms, n) in top)
+          + f"; timed: first {r['first_call_s']:.4f} s, steady {r['steady_state_s']:.4f} s, "
+          f"overhead {r['compile_overhead_s']:.4f} s ({card_name})", flush=True)
+    return skel, launches
+
+
+def phase_plots(card_name, sampler, skel):
+    """Phase 31: ``plotting._anim_points`` on chain 0 of the card's skeleton
+    equal to the host copy's and, to float32's rtol 1e-6 (the linear frames
+    are numpy's products in the skeleton's float32, the flow's torch's in
+    float64), to the frames through the sampler's flow; ``plot_traj``'s
+    line data equal to the skeleton's first points where matplotlib is
+    installed."""
+    one = Skeleton(*(a[0] for a in skel))
+    host = Skeleton(*(a.cpu() for a in one))
+    got = plotting._anim_points(one, 200, 0.05, None, (0, 1))
+    want = plotting._anim_points(host, 200, 0.05, None, (0, 1))
+    flowed = plotting._anim_points(one, 200, 0.05, sampler.flow, (0, 1))
+    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+        raise AssertionError("31: _anim_points on the card's skeleton differ from the host's")
+    if not np.allclose(flowed[0], got[0], rtol=1e-6, atol=1e-6):
+        raise AssertionError("31: frames through the sampler's flow differ")
+    try:
+        import matplotlib  # noqa: F401
+        drawn = True
+    except ImportError:
+        drawn = False
+    if drawn:
+        xy = plotting.plot_traj(one, 500).axes[0].lines[0].get_xydata()
+        if not np.array_equal(xy, host.x[:500, :2].numpy()):
+            raise AssertionError("31: plot_traj's line data differ from the skeleton")
+    print(f"phase 31 plotting on the card's skeleton (chain 0 of phase 30): {len(got[0])} "
+          f"animation frames equal to the host copy's and through ZigZag.flow; "
+          + ("plot_traj drawn, its line data the skeleton's first 500 points"
+             if drawn else "matplotlib is not installed here: frames only, nothing drawn")
+          + f" ({card_name})", flush=True)
+
+
+def gspmd_samplers():
+    d = GSPMD[0]
+    return {"bps": pt.BPS(d, pt.potentials.grad_gauss, refresh_rate=0.5),
+            "zigzag": pt.ZigZag(d, pt.potentials.grad_gauss)}
+
+
+def gspmd_call(sampler, mesh):
+    """One timed ``sample_skeleton_gspmd`` of phase 32's deployment on
+    ``mesh``: (run, wall)."""
+    d, B, n = GSPMD
+    sync()
+    t0 = time.perf_counter()
+    run = pt.parallel.sample_skeleton_gspmd(sampler, n, np.zeros((B, d)), np.ones((B, d)),
+                                            mesh=mesh, seed=0, dtype=torch.float64)
+    sync()
+    return run, time.perf_counter() - t0
+
+
+def gspmd_worker(port, rank, out):
+    """One of phase 32's two processes: a gloo group on the one card, a
+    ``make_mesh(1, 2)`` mesh, each family's run, its block and its wall
+    written to ``out``."""
+    torch.cuda.set_device(0)
+    distributed.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    try:
+        mesh = pt.parallel.make_mesh(1, 2)
+        walls = {}
+        for name, sampler in gspmd_samplers().items():
+            run, walls[name] = gspmd_call(sampler, mesh)
+            for rec, tag in ((run.skeleton, "skel"), (run.state, "state")):
+                for f, a in zip(rec._fields, rec):
+                    np.save(os.path.join(out, f"{name}.{tag}.{f}.rank{rank}.npy"), a.cpu().numpy())
+            np.save(os.path.join(out, f"{name}.transitions.rank{rank}.npy"),
+                    run.transitions.numpy())
+            del run
+        dims = mesh.dims(GSPMD[0])
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump({"walls": walls, "cols": [dims.lo, dims.hi]}, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def gspmd_block_err(name, rec, tag, out, rank, cols):
+    """Rank ``rank``'s block against the dim-1 record ``rec``'s: floats to
+    ``GSPMD_RTOL`` (atol 1e-12; the Kahan residue ``t_comp`` holds rounding
+    only and is not compared), integers equal.  Returns (the largest
+    absolute difference, the largest relative one where |dim 1| > 1e-6)."""
+    err = [0.0, 0.0]
+    for f, a in zip(rec._fields, rec):
+        b = torch.from_numpy(np.load(os.path.join(out, f"{name}.{tag}.{f}.rank{rank}.npy")))
+        a = a.cpu()
+        if f in ("x", "v", "is_active"):
+            a = a[..., cols[0]:cols[1]]
+        if a.shape != b.shape:
+            raise AssertionError(f"32 {name}: {tag}.{f} block {tuple(b.shape)}, "
+                                 f"want {tuple(a.shape)}")
+        if a.is_floating_point() and f != "t_comp":
+            if not torch.allclose(b, a, rtol=GSPMD_RTOL, atol=1e-12, equal_nan=True):
+                raise AssertionError(f"32 {name}: dim 2's {tag}.{f} differs from dim 1's")
+            fin = torch.isfinite(a)
+            diff = (b - a).abs()[fin]
+            if diff.numel():
+                err[0] = max(err[0], float(diff.max()))
+                big = fin & (a.abs() > 1e-6)
+                if bool(big.any()):
+                    err[1] = max(err[1], float(((b - a).abs()[big] / a.abs()[big]).max()))
+        elif not a.is_floating_point() and not torch.equal(a, b):
+            raise AssertionError(f"32 {name}: dim 2's {tag}.{f} differs from dim 1's")
+    return err
+
+
+def phase_gspmd(card_name):
+    """Phase 32: ``sample_skeleton_gspmd`` of the large-d deployment
+    (``GSPMD``) for BPS and Zig-Zag: without a group; in a one-process NCCL
+    group whose mesh reduces through a one-part ``ShardedDims`` (dim 1, its
+    collectives through NCCL; bit for bit the run without a group); over two gloo
+    processes on the card (dim 2, each block equal to the dim-1 run at
+    ``GSPMD_RTOL``).  Returns the ``k2_paths`` entry of the Zig-Zag's dim-1
+    run (K2 checked and timed on its first fill)."""
+    d, B, n = GSPMD
+    samplers = gspmd_samplers()
+    par = pt.parallel
+    walls, runs, first = {}, {}, []
+    compact_fill = k2.compact_fill
+
+    def spy(fill, out, off=None, init=None):
+        if not first:
+            first.append((fill, out.t.shape[1], off, init))
+        return compact_fill(fill, out, off, init)
+
+    plain = {}
+    for name, sampler in samplers.items():
+        run, walls[f"{name} no group"] = gspmd_call(sampler, par.make_mesh())
+        check_complete(f"32 {name}", run.skeleton, n)
+        plain[name] = run
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    if not distributed.initialize(f"127.0.0.1:{port}", 1, 0, backend="nccl"):
+        raise AssertionError("32: initialize formed no group")
+    try:
+        mesh = par.make_mesh()
+        if mesh.shape != {"chains": 1, "dim": 1} or mesh.dims(d).sharded:
+            raise AssertionError(f"32: the NCCL group's mesh {mesh} is not one slice of "
+                                 "local coordinates")
+        # a dim axis of 1 reduces locally; one part of a ShardedDims instead
+        # sends every reduction through NCCL's collectives on the card
+        mesh.dims = lambda d_: ShardedDims(d_, 0, 1, torch.distributed.group.WORLD)
+        for name, sampler in samplers.items():
+            if name == "zigzag":
+                build.reset_launches()
+                k2.compact_fill = spy
+            try:
+                run, walls[f"{name} dim 1"] = gspmd_call(sampler, mesh)
+            finally:
+                k2.compact_fill = compact_fill
+            if name == "zigzag":
+                k2_n = build.LAUNCHES["compact_rows"]
+            for rec, want, tag in ((run.skeleton, plain[name].skeleton, "skeleton"),
+                                   (run.state, plain[name].state, "state")):
+                for f, a, b in zip(rec._fields, rec, want):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"32 {name}: dim 1's {tag}.{f} differs from "
+                                             "the run without a group")
+            if int(run.transitions) != int(plain[name].transitions):
+                raise AssertionError(f"32 {name}: transitions differ")
+            runs[name] = run
+    finally:
+        torch.distributed.destroy_process_group()
+    del plain
+    k2_entry = engine_k2_check("32 K2 on the gspmd fill", first[0])
+    del first
+    # two processes on the one card over gloo, each a slice of the coordinates
+    out = tempfile.mkdtemp(prefix="pdmp_gspmd_")
+    try:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gspmd-worker",
+                                   str(port), str(r), out], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        procs_s = time.perf_counter() - t0
+        if [p.returncode for p in procs] != [0, 0]:
+            raise AssertionError("32: a dim-2 process failed:\n" + "\n".join(logs))
+        meta = []
+        for r in range(2):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                meta.append(json.load(f))
+        errs = {}
+        for name, run in runs.items():
+            errs[name] = [0.0, 0.0]
+            for r in range(2):
+                cols = meta[r]["cols"]
+                if cols != [r * d // 2, (r + 1) * d // 2]:
+                    raise AssertionError(f"32: rank {r} holds {cols}")
+                for rec, tag in ((run.skeleton, "skel"), (run.state, "state")):
+                    e = gspmd_block_err(name, rec, tag, out, r, cols)
+                    errs[name] = [max(a, b) for a, b in zip(errs[name], e)]
+                tr = int(np.load(os.path.join(out, f"{name}.transitions.rank{r}.npy")))
+                if tr != int(run.transitions):
+                    raise AssertionError(f"32 {name}: dim 2 ran {tr} transitions, dim 1 "
+                                         f"{int(run.transitions)}")
+            for r in range(2):
+                walls[f"{name} dim 2 rank {r}"] = meta[r]["walls"][name]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    trans = {name: int(run.transitions) for name, run in runs.items()}
+    err, ms, plain_ms, b = k2_entry
+    print(f"phase 32 sample_skeleton_gspmd: BPS({d}, grad_gauss, refresh_rate=0.5) and "
+          f"ZigZag({d}, grad_gauss), B={B}, {n} events, f64, x0=0, v0=1, seed 0; "
+          f"transitions {trans}; dim 1 (one NCCL part) bit for bit the run "
+          f"without a group; dim 2 over two gloo processes on the card (host-staged "
+          f"collectives: a correctness run, not a speed one) equal to dim 1 at rtol "
+          f"{GSPMD_RTOL}: largest absolute, and relative where |dim 1| > 1e-6, differences "
+          + ", ".join(f"{k} {a:.3e}, {r:.3e}" for k, (a, r) in errs.items()) + "; walls (s): "
+          + ", ".join(f"{k} {w:.3f}" for k, w in walls.items())
+          + f"; the two processes {procs_s:.1f} s with start-up; K2 on the Zig-Zag's first "
+          f"fill bit for bit its plain version, {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+          f"{bound_text(b)}), {k2_n} launches in the dim-1 call ({card_name})", flush=True)
+    return k2_n, err, ms, plain_ms, b
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b):
     return {"name": name, "route": "cuda", "source": f"pdmpflux_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -3133,6 +3464,10 @@ def main():
     k2_paths["host:zigzag_gauss_d10_horizon"] = phase_host_horizon(card_name, hz, k7_ms)
     k1_sharded = phase_sharded(card_name, k1_ms, k2_ms)
     phase_stream_mesh(card_name, banana)
+    traced, traced_launches = phase_profiled(card_name, sampler)
+    phase_plots(card_name, sampler, traced)
+    del traced
+    k2_paths["gspmd:zigzag_d10000"] = phase_gspmd(card_name)
     zz = "pdmpflux_tpu/ops/pallas/zigzag_chunk.py:854"
     k7 = 'pdmpflux_tpu/ops/pallas/zigzag_chunk.py:343 mode="horizon"'
     kernels = [
@@ -3177,6 +3512,14 @@ def main():
     ]
     kernels.append(kernel_entry("zigzag_chunk[sharded_flagship]", "zigzag_chunk.cu", zz,
                                 k1_sharded, k1_err, k1_ms, k1_plain_ms, k1_b))
+    # the profiled flagship's launches (phase 30), timed at its shapes in phase 4b
+    kernels += [
+        kernel_entry("zigzag_chunk[profiled_flagship]", "zigzag_chunk.cu", zz,
+                     traced_launches["zigzag_chunk"], k1_err, k1_ms, k1_plain_ms, k1_b),
+        kernel_entry("compact_rows[profiled_flagship]", "compact.cu",
+                     "pdmpflux_tpu/ops/pallas/compact.py:132", traced_launches["compact_rows"],
+                     max(k2_err, k2_main_err), k2_ms, k2_plain_ms, k2_b),
+    ]
     # the engine and host paths' K2 launches, each checked and timed on its own fill
     for path, (n, err, ms, plain_ms, b) in k2_paths.items():
         kernels.append(kernel_entry(f"compact_rows[{path}]", "compact.cu",
@@ -3190,4 +3533,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--gspmd-worker"]:
+        gspmd_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

@@ -15,8 +15,10 @@ and every fill is compacted by the event-row compaction kernel.  Also the
 diagnostics (ESS, split-R-hat, realized volatility), checkpoint/resume of
 ``sample_skeleton``, host accumulation of skeletons past the card's memory,
 streaming statistics (``sample_streaming_stats``, which folds horizon-mode
-fills into O(B * d) accumulators), and chain-sharded runs over
-``torch.distributed`` process groups (``parallel``).
+fills into O(B * d) accumulators), chain-sharded runs over
+``torch.distributed`` process groups and the coordinate-sharded
+``sample_skeleton_gspmd`` (``parallel``), plotting (``plotting``) and
+profiling (``utils.profiling``).
 """
 
 from . import diagnostics  # noqa: F401
@@ -55,9 +57,17 @@ from .models import (  # noqa: F401
     ZigZag,
     ZigZagAD,
 )
-from . import parallel, utils  # noqa: F401
+from . import parallel, plotting, utils  # noqa: F401
 from .diagnostics import RV_diagnostic, diagnostic, ess, ess_per_dim  # noqa: F401
 from .parallel import pooled_moments, sample_from_skeleton_batch  # noqa: F401
+from .plotting import (  # noqa: F401
+    anim_traj,
+    anim_traj_,
+    jointplot,
+    marginalplot,
+    plot_U_contour,
+    plot_traj,
+)
 from .streaming import sample_streaming_stats, streaming_summary  # noqa: F401
 from .utils import potentials  # noqa: F401
 

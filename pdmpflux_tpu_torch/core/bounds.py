@@ -24,6 +24,7 @@ from typing import Callable
 
 import torch
 
+from .dims import LOCAL
 from .types import BoundBox
 
 _INVPHI = 0.6180339887498949
@@ -97,13 +98,14 @@ def upper_bound_grid(rate_fn: Callable, horizon: torch.Tensor, n_grid: int,
 
 
 def upper_bound_grid_vect(rate_vect_fn: Callable, horizon: torch.Tensor, n_grid: int,
-                          tderiv: str = "jvp") -> BoundBox:
+                          tderiv: str = "jvp", dims=LOCAL) -> BoundBox:
     """Vectorized envelope (``UpperBound.jl:203-247``): one envelope per
-    coordinate, summed over coordinates; no refresh rate."""
+    coordinate, summed over the coordinates of ``dims`` (``core/dims.py``);
+    no refresh rate."""
     ts = linspace0(horizon, n_grid)
     step = horizon * (1.0 / (n_grid - 1))
     values, grads = _time_derivatives(rate_vect_fn, ts, horizon, tderiv)  # (B, n, d)
-    return _box(ts, torch.sum(_segment_envelope(values, grads, step), -1), step)
+    return _box(ts, dims.sum(_segment_envelope(values, grads, step)), step)
 
 
 def upper_bound_constant(rate_fn: Callable, horizon: torch.Tensor, refresh_rate=0.0,

@@ -34,12 +34,13 @@ fill, which spares a copy of the whole accumulator.
 from __future__ import annotations
 
 from collections import Counter
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..ops.flows import div_once
 from . import bounds, rng
+from .dims import LOCAL
 from .types import (
     ERROR_RING_SIZE,
     EV_JUMP,
@@ -79,6 +80,13 @@ def reset_counts() -> None:
     COUNTS.clear()
 
 
+class RunResult(NamedTuple):
+    """A fixed-event run (``parallel/sharded.sample_skeleton_gspmd``)."""
+    state: PDMPState            # batched final state, frozen at each chain's last event
+    skeleton: Skeleton          # batched event buffers, n_events wide
+    transitions: torch.Tensor   # () int32 transitions executed, whole chunks
+
+
 def _col(pred: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """A per-chain ``(B,)`` predicate with unit axes up to ``like``'s rank."""
     return pred.reshape(pred.shape + (1,) * (like.dim() - pred.dim()))
@@ -91,12 +99,19 @@ def tree_select(pred: torch.Tensor, on_true, on_false):
                            for a, b in zip(on_true, on_false)))
 
 
-def make_transition(sampler):
+def make_transition(sampler, dims=LOCAL):
     """The batched transition of ``sampler``: ``transition(state, t_max=None)
     -> (state', event)`` for a ``(B, ...)`` state.  ``t_max`` is a host bound
     on the flow times, for a flow whose cost depends on them
     (``sampler.flow_takes_bound``); it is at least ``max(horizon,
     bound_h)`` over the batch.
+
+    ``dims`` (``core/dims.py``) is the coordinate group: every coordinate by
+    default, or this process's slice of them, when ``x``, ``v`` and
+    ``is_active`` of the state hold that slice and every reduction over
+    coordinates (the envelope, the rates, the sticky hit and thaw, the
+    jumps, the flows that couple coordinates) combines the slices of the
+    group (``parallel/sharded.sample_skeleton_gspmd``).
 
     Mode bookkeeping as in the JAX package: ``FRESH`` proposals grow the
     horizon by 1.01 at a horizon move, ``REJECTED`` proposals carry the
@@ -104,6 +119,7 @@ def make_transition(sampler):
     half-horizon envelope) reset without flowing; events commit time with
     Kahan compensation, and the counters and the error ring reset after
     each event."""
+    sampler = sampler.on_dims(dims)
     sticky = sampler.sticky
     adaptive = sampler.adaptive
     flow, rate_fn = sampler.flow, sampler.rate
@@ -140,11 +156,11 @@ def make_transition(sampler):
         if sticky:  # the axis-crossing check of a fresh proposal
             event_time = torch.minimum(min_pt, state.horizon)
             x_probe, _ = flow(state.x, va, event_time[:, None])
-            any_crossing = (state.x * x_probe < 0).any(-1)
+            any_crossing = dims.any(state.x * x_probe < 0)
             v_safe = torch.where(va == 0, torch.ones_like(va), va)
             tj = torch.where(state.is_active & (state.x * state.v < 0) & (va != 0),
                              -state.x / v_safe, inf)
-            t_togo, i_stick = tj.min(-1).values, torch.argmin(tj, -1)
+            t_togo, i_stick = dims.min_argmin(tj)
             crossed = fresh & any_crossing & torch.isfinite(t_togo)
         else:
             crossed = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -177,18 +193,17 @@ def make_transition(sampler):
         x_new = torch.where(does_flow, x_f, state.x)
         # with frozen coordinates the flowed (masked) velocity must not
         # overwrite the latent full one (SamplingLoopInplace.jl:89-94)
-        v_flowed = torch.where(state.is_active.all(-1)[:, None], v_f, state.v)
+        v_flowed = torch.where(dims.all(state.is_active)[:, None], v_f, state.v)
         v_after = torch.where(does_flow, v_flowed, state.v)
         v_new = torch.where(p_acc[:, None],
                             jump_fn(x_new, v_after, k_jump, state.is_active), v_after)
 
         if sticky:
             kappa = sampler.kappa.to(dtype=dt, device=dev)
-            act_stick = state.is_active.clone()
-            act_stick[rows, i_stick] = False
+            act_stick = dims.put(state.is_active, i_stick, False, rows)
             logits = torch.where(state.is_active, -inf, torch.log(kappa))
-            act_thaw = state.is_active.clone()
-            act_thaw[rows, rng.categorical(k_thaw, logits)] = True
+            act_thaw = dims.put(state.is_active, rng.categorical(k_thaw, logits, dims), True,
+                                rows)
             is_active_new = torch.where(p_stick[:, None], act_stick, torch.where(
                 p_thaw[:, None], act_thaw, state.is_active))
         else:
@@ -227,7 +242,7 @@ def make_transition(sampler):
         bound_h_new = torch.where(reset, h, torch.where(
             p_err, state.horizon * 0.5, state.bound_h))
         if sticky:  # the thaw clock Exp(1) / sum(kappa[frozen])
-            rate_thaw = torch.sum(torch.where(is_active_new, zero, kappa), -1)
+            rate_thaw = dims.sum(torch.where(is_active_new, zero, kappa))
             pos = rate_thaw > 0
             tt_fresh = torch.where(pos, -torch.log1p(-u3[:, 2]) / torch.where(
                 pos, rate_thaw, torch.ones_like(rate_thaw)), inf)
@@ -271,7 +286,8 @@ def _write_row(fill: RawFill, r: int, ev: Event) -> None:
         fill.act[r] = ev.is_active.T
 
 
-def make_stream_runner(sampler, t_cap: int, n_events_target: int, mode: str = "events"):
+def make_stream_runner(sampler, t_cap: int, n_events_target: int, mode: str = "events",
+                       dims=LOCAL):
     """``run(state, counts, t_target=None) -> StreamResult``: one stream fill
     of at most ``t_cap`` transition rows from the engine, with the contract of
     ``ops/cuda/driver.make_stream_runner``.
@@ -284,7 +300,7 @@ def make_stream_runner(sampler, t_cap: int, n_events_target: int, mode: str = "e
     Chunks of :data:`CHUNK` transitions run until no chain is live or the
     fill is full; the runner reads the device once per chunk (the live test,
     and the flow bound of a ``flow_takes_bound`` sampler) and never inside
-    one."""
+    one.  ``dims``: the coordinate group of :func:`make_transition`."""
     if t_cap <= 0 or t_cap % CHUNK:
         raise ValueError(
             f"t_cap={t_cap}: the transition engine fills in chunks of {CHUNK} "
@@ -292,7 +308,7 @@ def make_stream_runner(sampler, t_cap: int, n_events_target: int, mode: str = "e
         )
     if mode not in ("events", "horizon"):
         raise ValueError(f"mode must be 'events' or 'horizon', not {mode!r}")
-    transition = make_transition(sampler)
+    transition = make_transition(sampler, dims)
     n_chunks = t_cap // CHUNK
     bounded = sampler.flow_takes_bound
     growth = HORIZON_GROW ** CHUNK if sampler.adaptive else 1.0

@@ -24,6 +24,8 @@ import math
 import numpy as np
 import torch
 
+from .dims import LOCAL
+
 M32 = 0xFFFFFFFF
 _NP = {torch.float32: np.float32, torch.float64: np.float64}
 _ROT = (13, 15, 26, 6, 17, 29, 16, 24)
@@ -152,13 +154,29 @@ def key_exponential(keys: torch.Tensor, dtype) -> torch.Tensor:
 # (``prng.iota_2x32_shape``); a 32-bit draw takes ``w0 ^ w1``, a 64-bit one
 # ``w0 << 32 | w1``.  Every key of a ``(..., 2)`` batch draws its own ``S``.
 
-def _mantissa_floats(keys: torch.Tensor, shape, dtype) -> torch.Tensor:
+def _flat_index(shape, cols, device) -> torch.Tensor:
+    """The flat indices of a draw of ``shape``, or of its columns ``[lo, hi)``
+    of the last axis when ``cols`` is given (a coordinate-sharded draw:
+    ``core/dims.py``)."""
+    n = math.prod(shape)
+    if cols is None:
+        return torch.arange(n, dtype=torch.int64, device=device)
+    lo, hi = cols
+    rows = torch.arange(n // shape[-1], dtype=torch.int64, device=device)
+    return (rows[:, None] * shape[-1]
+            + torch.arange(lo, hi, dtype=torch.int64, device=device)[None, :]).reshape(-1)
+
+
+def _mantissa_floats(keys: torch.Tensor, shape, dtype, cols=None) -> torch.Tensor:
     """``(..., *shape)`` floats in [0, 1): the top mantissa bits of each
     element's random word (the ``bitcast(bits >> k | 1.0) - 1`` of
-    ``jax.random.uniform``, which is exact)."""
+    ``jax.random.uniform``, which is exact).  With ``cols = (lo, hi)`` only
+    the columns ``[lo, hi)`` of the last axis, with their bits in the whole
+    draw."""
     shape = tuple(int(s) for s in shape)
-    n = math.prod(shape)
-    i = torch.arange(n, dtype=torch.int64, device=keys.device)
+    i = _flat_index(shape, cols, keys.device)
+    if cols is not None:
+        shape = shape[:-1] + (cols[1] - cols[0],)
     w0, w1 = threefry2x32(keys[..., 0, None], keys[..., 1, None],
                           torch.zeros_like(i), i)
     if dtype == torch.float64:
@@ -171,10 +189,11 @@ def _mantissa_floats(keys: torch.Tensor, shape, dtype) -> torch.Tensor:
 
 
 def uniform_shaped(keys: torch.Tensor, shape, dtype, minval=0.0,
-                   maxval=1.0) -> torch.Tensor:
+                   maxval=1.0, cols=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape, dtype, minval, maxval)`` per key:
-    ``max(minval, floats * (maxval - minval) + minval)`` in ``dtype``."""
-    f = _mantissa_floats(keys, shape, dtype)
+    ``max(minval, floats * (maxval - minval) + minval)`` in ``dtype``; with
+    ``cols``, the columns ``[lo, hi)`` of its last axis."""
+    f = _mantissa_floats(keys, shape, dtype, cols)
     lo = torch.tensor(minval, dtype=dtype, device=keys.device)
     hi = torch.tensor(maxval, dtype=dtype, device=keys.device)
     return torch.maximum(lo, f * (hi - lo) + lo)
@@ -253,19 +272,23 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
 
 
-def normal_shaped(keys: torch.Tensor, shape, dtype) -> torch.Tensor:
+def normal_shaped(keys: torch.Tensor, shape, dtype, cols=None) -> torch.Tensor:
     """``jax.random.normal(key, shape, dtype)`` per key: ``sqrt(2)
-    erf_inv(u)`` for ``u`` uniform on ``[nextafter(-1, 0), 1)``."""
+    erf_inv(u)`` for ``u`` uniform on ``[nextafter(-1, 0), 1)``; with
+    ``cols``, the columns ``[lo, hi)`` of its last axis."""
     lo = float(np.nextafter(np.array(-1.0, _NP[dtype]), np.array(0.0, _NP[dtype])))
-    u = uniform_shaped(keys, shape, dtype, lo, 1.0)
+    u = uniform_shaped(keys, shape, dtype, lo, 1.0, cols)
     return torch.tensor(float(_NP[dtype](np.sqrt(2))), dtype=dtype,
                         device=keys.device) * erf_inv(u)
 
 
-def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+def categorical(keys: torch.Tensor, logits: torch.Tensor, dims=LOCAL) -> torch.Tensor:
     """``jax.random.categorical(key, logits)`` per key over the last axis of
     ``logits`` ``(..., n)``: the first argmax of ``logits`` plus Gumbel noise
-    ``-log(-log(u))``, ``u`` uniform on ``[tiny, 1)`` (JAX's "low" mode)."""
+    ``-log(-log(u))``, ``u`` uniform on ``[tiny, 1)`` (JAX's "low" mode).
+    Over a coordinate group ``dims`` (``core/dims.py``), ``logits`` holds
+    this process's slice and the index is the global one."""
     dtype = logits.dtype
-    u = uniform_shaped(keys, logits.shape[-1:], dtype, torch.finfo(dtype).tiny, 1.0)
-    return torch.argmax(-torch.log(-torch.log(u)) + logits, dim=-1)
+    u = uniform_shaped(keys, (dims.size(logits),), dtype, torch.finfo(dtype).tiny, 1.0,
+                       cols=dims.cols)
+    return dims.argmax(-torch.log(-torch.log(u)) + logits)

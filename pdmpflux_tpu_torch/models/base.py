@@ -15,12 +15,19 @@ batch, tensors leading with ``B``:
 * ``velocity_jump(x, v, keys, is_active)``: ``(B, d)`` velocities after an
   event, one Threefry key ``(B, 2)`` per chain.
 
+Every reduction over coordinates goes through ``self.dims``, the
+coordinate group (``core/dims.py``): all of them (``LOCAL``) by default, or
+this process's slice in a view made by :meth:`PDMP.on_dims` for the
+coordinate-sharded engine (``parallel/sharded.sample_skeleton_gspmd``),
+where ``d`` above is this process's share.
+
 Only the user's one-chain functions (``grad_U``) go through
 ``torch.func.vmap`` (``ops/flows.rows_map``).
 """
 
 from __future__ import annotations
 
+import copy
 import warnings
 from typing import Callable, Optional
 
@@ -28,9 +35,10 @@ import torch
 
 from ..core import bounds, rng
 from ..core.device import resolve_device
+from ..core.dims import LOCAL
 from ..core.types import ERROR_RING_SIZE, MODE_FRESH, PDMPState
 from ..ops.flows import rows_map
-from ..utils.potentials import LANE_POTENTIALS, device_potential_of
+from ..utils.potentials import COORDINATEWISE, LANE_POTENTIALS, device_potential_of
 
 
 def as_key(seed_or_key, device="cpu") -> torch.Tensor:
@@ -103,6 +111,8 @@ class PDMP:
     PyTorch version can run the sampler."""
 
     sticky: bool = False
+    dims = LOCAL
+    """The coordinate group this sampler's maps reduce over (``core/dims.py``)."""
 
     def __init__(
         self,
@@ -175,13 +185,36 @@ class PDMP:
     def velocity_jump(self, x, v, keys, is_active):
         raise NotImplementedError
 
+    def on_dims(self, dims):
+        """This sampler over the coordinates of ``dims``: itself for
+        :data:`~pdmpflux_tpu_torch.core.dims.LOCAL`, else a shallow copy
+        whose maps take this process's slice of each row, with the
+        per-coordinate parameters (``kappa``) sliced alike."""
+        if not dims.sharded:
+            return self
+        view = copy.copy(self)
+        view.dims = dims
+        if self.kappa is not None:
+            view.kappa = dims.local(self.kappa)
+        return view
+
     def grad_rows(self, x):
         """``grad_U`` of every row of ``x`` ``(..., d)``: the device
         potential's closed form when the sampler carries a tag (the formula
         the kernels evaluate, ``utils.potentials.LANE_POTENTIALS``), else the
-        user's ``grad_U`` through ``torch.func.vmap``."""
+        user's ``grad_U`` through ``torch.func.vmap``.  On a slice of the
+        coordinates a coordinatewise potential runs on the slice, with its
+        parameters sliced; any other gradient runs on the gathered rows,
+        and the slice of the result is kept."""
+        dims, tag = self.dims, self.device_potential
+        if dims.sharded and tag in COORDINATEWISE:
+            params = self.device_params
+            return self._grad_full(x, None if params is None else dims.local(params))
+        return dims.local(self._grad_full(dims.gather(x), self.device_params))
+
+    def _grad_full(self, x, params):
         if self.device_potential in LANE_POTENTIALS:
-            grad, _ = LANE_POTENTIALS[self.device_potential](self.device_params)
+            grad, _ = LANE_POTENTIALS[self.device_potential](params)
             flat = x.reshape((-1, x.shape[-1]))
             return grad(flat.T).T.reshape(x.shape)
         return rows_map(self.grad_U, x)
@@ -211,7 +244,8 @@ class PDMP:
             return bounds.upper_bound_grid(lambda t: sel_rate(x, v, t), horizon,
                                            self.grid_size, refresh, tderiv=self.tderiv)
         return bounds.upper_bound_grid_vect(lambda t: sel_vect(x, v, t), horizon,
-                                            self.grid_size, tderiv=self.tderiv)
+                                            self.grid_size, tderiv=self.tderiv,
+                                            dims=self.dims)
 
     def init_state(self, xinit, vinit, seed=None, dtype=None,
                    device="cuda") -> PDMPState:
@@ -278,7 +312,7 @@ class ScalarRatePDMP(PDMP):
 
     def signed_rate(self, x, v, t):
         xt, vt = self.along(x, v, t)
-        return torch.sum(self._grad_like(xt) * vt, -1)
+        return self.dims.sum(self._grad_like(xt) * vt)
 
     def rate(self, x, v, t):
         return max0(self.signed_rate(x, v, t)) + self.refresh_rate

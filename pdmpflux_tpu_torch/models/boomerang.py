@@ -43,10 +43,10 @@ class Boomerang(ScalarRatePDMP):
         """Reflect off the effective gradient's direction, or refresh to an
         un-normalized N(0, I) velocity (``BoomerangSamplers.jl:51-65``)."""
         g = self._grad_like(x)
-        nrm = torch.sqrt(torch.sum(g * g, -1, keepdim=True))
+        nrm = torch.sqrt(self.dims.sum(g * g, keepdim=True))
         e = g / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
-        v_reflect = v - 2.0 * torch.sum(v * e, -1, keepdim=True) * e
-        return bounce_or_refresh(g, v, v_reflect, keys, self.refresh_rate, False)
+        v_reflect = v - 2.0 * self.dims.sum(v * e, keepdim=True) * e
+        return bounce_or_refresh(g, v, v_reflect, keys, self.refresh_rate, False, self.dims)
 
 
 def BoomerangAD(dim, U, *, refresh_rate=0.0, grid_size=10, tmax=2.0,

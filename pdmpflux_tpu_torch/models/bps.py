@@ -16,22 +16,23 @@ from ..ops.flows import linear_flow
 from .base import ScalarRatePDMP, max0, resolve_potential, tag_from
 
 
-def bounce_or_refresh(g, v, v_reflect, keys, refresh_rate, normalize_fresh):
+def bounce_or_refresh(g, v, v_reflect, keys, refresh_rate, normalize_fresh, dims):
     """The jump of BPS and the Boomerang on the (effective) gradient ``g``
     ``(B, d)``: ``v_reflect`` with probability ``bounce / (bounce + refresh)``,
     ``bounce = max(0, <g, v>)`` (0 when both are 0), else a fresh N(0, I)
     velocity, normalized when ``normalize_fresh``; the uniform and the
-    normals from the two halves of each chain's key."""
-    bounce_rate = max0(torch.sum(g * v, -1))
+    normals from the two halves of each chain's key.  Sums over the
+    coordinates of ``dims`` (``core/dims.py``)."""
+    bounce_rate = max0(dims.sum(g * v))
     denom = bounce_rate + refresh_rate
     pos = denom > 0
     bounce_prob = torch.where(pos, bounce_rate / torch.where(pos, denom, torch.ones_like(denom)),
                               torch.zeros_like(denom))
     k = rng.split(keys, 2)
     u = rng.key_uniform(k[:, 0], v.dtype)
-    fresh = rng.normal_shaped(k[:, 1], v.shape[-1:], v.dtype)
+    fresh = rng.normal_shaped(k[:, 1], (dims.size(v),), v.dtype, dims.cols)
     if normalize_fresh:
-        nrm = torch.sqrt(torch.sum(fresh * fresh, -1, keepdim=True))
+        nrm = torch.sqrt(dims.sum(fresh * fresh, keepdim=True))
         fresh = fresh / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
     return torch.where((u < bounce_prob)[:, None], v_reflect, fresh)
 
@@ -59,12 +60,12 @@ class BPS(ScalarRatePDMP):
     def velocity_jump(self, x, v, keys, is_active):
         """Reflect off ``grad_U(x)`` or refresh (``BouncyParticleSamplers.jl:50-74``)."""
         g = self.grad_rows(x)
-        gg = torch.sum(g * g, -1, keepdim=True)
-        scale = 2.0 * torch.sum(v * g, -1, keepdim=True) / torch.where(
+        gg = self.dims.sum(g * g, keepdim=True)
+        scale = 2.0 * self.dims.sum(v * g, keepdim=True) / torch.where(
             gg > 0, gg, torch.ones_like(gg))
         v_reflect = torch.where(gg > 0, v - scale * g, v)
         return bounce_or_refresh(g, v, v_reflect, keys, self.refresh_rate,
-                                 not self.gaussian_velocity)
+                                 not self.gaussian_velocity, self.dims)
 
 
 def BPSAD(dim, U, *, refresh_rate=0.0, grid_size=10, tmax=2.0,

@@ -23,13 +23,13 @@ TOLERANCE = 1e-10
 MIN_DIMENSION = 2
 
 
-def _dot(a, b):
-    return torch.sum(a * b, -1, keepdim=True)
+def _dot(a, b, dims):
+    return dims.sum(a * b, keepdim=True)
 
 
-def _normalize(u):
-    """``(u / |u|, |u|)`` over the last axis, ``u`` unchanged where ``|u| = 0``."""
-    n = torch.sqrt(_dot(u, u))
+def _normalize(u, dims):
+    """``(u / |u|, |u|)`` over the coordinates, ``u`` unchanged where ``|u| = 0``."""
+    n = torch.sqrt(_dot(u, u, dims))
     return u / torch.where(n > 0, n, torch.ones_like(n)), n
 
 
@@ -68,13 +68,14 @@ class ForwardECMC(ScalarRatePDMP):
     def _orthogonal_switch(self, v_o, n, keys):
         """Orthogonal switch (``:60-88``): rotate ``v_o`` within a random
         2-plane of the orthogonal complement of ``n``."""
+        dims = self.dims
         k = rng.split(keys, 2)
-        g = rng.normal_shaped(k[:, 0], (2, n.shape[-1]), n.dtype)
-        g1 = g[:, 0] - _dot(g[:, 0], n) * n
-        g2 = g[:, 1] - _dot(g[:, 1], n) * n
-        e1, _ = _normalize(g1)
-        e2, _ = _normalize(g2 - _dot(g2, e1) * e1)
-        c1, c2 = _dot(v_o, e1), _dot(v_o, e2)
+        g = rng.normal_shaped(k[:, 0], (2, dims.size(n)), n.dtype, dims.cols)
+        g1 = g[:, 0] - _dot(g[:, 0], n, dims) * n
+        g2 = g[:, 1] - _dot(g[:, 1], n, dims) * n
+        e1, _ = _normalize(g1, dims)
+        e2, _ = _normalize(g2 - _dot(g2, e1, dims) * e1, dims)
+        c1, c2 = _dot(v_o, e1, dims), _dot(v_o, e2, dims)
         v_r = v_o - c1 * e1 - c2 * e2
         v_new = v_r + e2 * c1 + e1 * c2
         if self.ran_p:
@@ -82,17 +83,18 @@ class ForwardECMC(ScalarRatePDMP):
             ct, st = torch.cos(theta), torch.sin(theta)
             v_new = v_r + (ct * e1 + st * e2) * c1 + (st * e1 - ct * e2) * c2
         if self.positive:
-            s = torch.sign(_dot(v_o, v_new))
+            s = torch.sign(_dot(v_o, v_new, dims))
             v_new = v_new * torch.where(s == 0, torch.ones_like(s), s)
         return v_new
 
     def _full_refresh(self, n, keys):
         """Full orthogonal refresh (``:105-113``)."""
-        g, _ = _normalize(rng.normal_shaped(keys, n.shape[-1:], n.dtype))
-        return g - _dot(g, n) * n
+        dims = self.dims
+        g, _ = _normalize(rng.normal_shaped(keys, (dims.size(n),), n.dtype, dims.cols), dims)
+        return g - _dot(g, n, dims) * n
 
     def velocity_jump(self, x, v, keys, is_active):
-        dt = x.dtype
+        dt, dims = x.dtype, self.dims
         sf = self.speed_factor
         k = rng.split(keys, 4)
         k_rho, k_mix, k_deg, k_ref = k.unbind(1)
@@ -102,13 +104,13 @@ class ForwardECMC(ScalarRatePDMP):
             u = rng.key_uniform(k_rho, dt)
             rho = sf * (-torch.sqrt(1.0 - u ** (2.0 / (self.dim - 1))))
         rho = rho[:, None]
-        n, ng = _normalize(self.grad_rows(x))
+        n, ng = _normalize(self.grad_rows(x), dims)
         n = torch.where(ng > 0, n, torch.zeros_like(n))
-        v_o = v - _dot(v, n) * n
+        v_o = v - _dot(v, n, dims) * n
         # a degenerate orthogonal component is drawn afresh (:159-162)
-        deg = torch.sqrt(_dot(v_o, v_o)) < TOLERANCE
-        fresh_o = rng.normal_shaped(k_deg, v.shape[-1:], dt)
-        fresh_o = fresh_o - _dot(fresh_o, n) * n
+        deg = torch.sqrt(_dot(v_o, v_o, dims)) < TOLERANCE
+        fresh_o = rng.normal_shaped(k_deg, (dims.size(v),), dt, dims.cols)
+        fresh_o = fresh_o - _dot(fresh_o, n, dims) * n
         v_o = torch.where(deg, fresh_o, v_o)
         if self.switch:
             v_o_prop = self._orthogonal_switch(v_o, n, k_ref)
@@ -116,11 +118,11 @@ class ForwardECMC(ScalarRatePDMP):
             v_o_prop = self._full_refresh(n, k_ref)
         refresh = (rng.key_uniform(k_mix, dt) < self.mix_p)[:, None]
         v_o_sel = torch.where(refresh, v_o_prop, v_o)
-        v_o_unit, _ = _normalize(v_o_sel)
+        v_o_unit, _ = _normalize(v_o_sel, dims)
         zero = torch.zeros((), dtype=dt, device=x.device)
         if self.normal:
             # the speed depends on the orthogonal magnitude (:251, :257)
-            mag2 = torch.sum(v_o_sel * v_o_sel, -1, keepdim=True)
+            mag2 = _dot(v_o_sel, v_o_sel, dims)
             tangential = torch.sqrt(torch.maximum(zero, sf * sf * mag2 - rho * rho))
         else:
             tangential = torch.sqrt(torch.maximum(zero, sf * sf - rho * rho))

@@ -81,6 +81,13 @@ class RHMC(PDMP):
         self.step_size = step_size
         self._flow = make_verlet_flow(self.grad_rows, step_size)
 
+    def on_dims(self, dims):
+        """As ``PDMP.on_dims``, with the Verlet flow on the view's gradient."""
+        view = super().on_dims(dims)
+        if view is not self:
+            view._flow = make_verlet_flow(view.grad_rows, self.step_size)
+        return view
+
     def flow(self, x, v, t, t_max=None):
         """Verlet flow of rows ``(..., d)`` by times ``(..., 1)``; ``t_max``
         bounds the times from the host (see ``make_verlet_flow``)."""
@@ -98,7 +105,7 @@ class RHMC(PDMP):
                         cum_sum=torch.stack([zero, lam * horizon], 1), step_size=horizon)
 
     def velocity_jump(self, x, v, keys, is_active):
-        xi = rng.normal_shaped(keys, v.shape[-1:], v.dtype)
+        xi = rng.normal_shaped(keys, (self.dims.size(v),), v.dtype, self.dims.cols)
         return math.cos(self.phi) * v + math.sin(self.phi) * xi
 
 

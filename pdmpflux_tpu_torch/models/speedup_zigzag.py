@@ -29,13 +29,13 @@ class SpeedUpZigZag(ZigZag):
 
     def _grad_like(self, x):
         """The effective gradient of rows ``(..., d)``."""
-        s = torch.sqrt(1.0 + torch.sum(x * x, -1, keepdim=True))
+        s = torch.sqrt(1.0 + self.dims.sum(x * x, keepdim=True))
         return s * self.grad_rows(x) - x / s
 
     def flow(self, x, v, t):
         """The speed-change flow on rows with the coordinate axis last and
         ``t`` broadcasting as ``(..., 1)``."""
-        return suzz_flow(x, v, t, dim_axis=-1)
+        return suzz_flow(x, v, t, dim_axis=-1, dims=self.dims)
 
 
 def SpeedUpZigZagAD(dim, U, **kw):

@@ -32,9 +32,6 @@ class ZigZag(PDMP):
             refresh_rate=refresh_rate, vectorized_bound=vectorized_bound,
             signed_bound=signed_bound, adaptive=adaptive, **kw,
         )
-        self.rate_vect = self._rate_vect
-        self.signed_rate = None
-        self.signed_rate_vect = self._signed_rate_vect
 
     def flow(self, x, v, t):
         return linear_flow(x, v, t)
@@ -44,7 +41,7 @@ class ZigZag(PDMP):
         return self.grad_rows(x)
 
     def rate(self, x, v, t):
-        return torch.sum(self._rate_vect(x, v, t), -1)
+        return self.dims.sum(self._rate_vect(x, v, t))
 
     def _rate_vect(self, x, v, t):
         return max0(self._signed_rate_vect(x, v, t))
@@ -52,6 +49,8 @@ class ZigZag(PDMP):
     def _signed_rate_vect(self, x, v, t):
         xt, vt = self.along(x, v, t)
         return self._grad_like(xt) * vt
+
+    rate_vect, signed_rate_vect = _rate_vect, _signed_rate_vect
 
     def _flip_rates(self, x, v, is_active):
         """Flip intensities at an event, on the velocity masked by
@@ -65,11 +64,7 @@ class ZigZag(PDMP):
         pos = lam > 0
         logits = torch.where(pos, torch.log(torch.where(pos, lam, torch.ones_like(lam))),
                              torch.full_like(lam, float("-inf")))
-        m = rng.categorical(keys, logits)
-        rows = torch.arange(v.shape[0], device=v.device)
-        out = v.clone()
-        out[rows, m] = -v[rows, m]
-        return out
+        return self.dims.put(v, rng.categorical(keys, logits, self.dims), -v)
 
 
 def ZigZagAD(dim, U, **kw):

@@ -11,20 +11,13 @@ import math
 
 import torch
 
+from ..core.dims import LOCAL, ordered_sum
+
 
 def div_once(a: torch.Tensor, b: float) -> torch.Tensor:
     """``a / b`` rounded once, as the kernels divide: torch's CUDA division
     by a Python number multiplies by the number's rounded reciprocal."""
     return a / torch.full_like(a, b)
-
-
-def ordered_sum(a: torch.Tensor, axis: int) -> torch.Tensor:
-    """Sum over ``axis`` (kept with size 1), added in coordinate order as the
-    CUDA kernels add it: torch's own reductions order their adds otherwise."""
-    s = a.narrow(axis, 0, 1)
-    for i in range(1, a.shape[axis]):
-        s = s + a.narrow(axis, i, 1)
-    return s
 
 
 def linear_flow(x, v, t):
@@ -40,16 +33,25 @@ def boomerang_flow(x, v, t):
     return x * c + v * s, -x * s + v * c
 
 
-def _suzz_at(x, v, t, dim_axis):
+def _suzz_at(x, v, t, dim_axis, dims=LOCAL):
     """``x_t`` of the speed-change flow and its speed factor ``phi``
     (``dx_t/dt = phi v``), in ``make_suzz_flow``'s operations; the four
     per-chain terms ``v0, c / d, a`` and the base ``y0 + sqrt(y0^2 + a)``
-    do not depend on ``t``."""
-    d = x.shape[dim_axis]
-    x0, v0 = x.narrow(dim_axis, 0, 1), v.narrow(dim_axis, 0, 1)
+    do not depend on ``t``.  Coordinates along the last axis are those of
+    ``dims`` (``core/dims.py``); along another axis (the chunk kernels'
+    ``(d, B)`` columns) they are all local."""
+    if dim_axis == -1:
+        d, osum = dims.size(x), dims.ordered_sum
+        x0, v0 = dims.first(x), dims.first(v)
+    else:
+        d = x.shape[dim_axis]
+        x0, v0 = x.narrow(dim_axis, 0, 1), v.narrow(dim_axis, 0, 1)
+
+        def osum(a):
+            return ordered_sum(a, dim_axis)
     y = x - v0 * x0 * v
-    c = v0 * ordered_sum(y * v, dim_axis)
-    a = div_once(1.0 + ordered_sum(y * y, dim_axis), d) - div_once(c * c, d * d)
+    c = v0 * osum(y * v)
+    a = div_once(1.0 + osum(y * y), d) - div_once(c * c, d * d)
     c_d = div_once(c, d)
     y0 = x0 + c_d
     # sqrt(float(dim)) is the double rounded to the state's type, as JAX
@@ -62,15 +64,17 @@ def _suzz_at(x, v, t, dim_axis):
     return y + v0 * x1 * v, phi
 
 
-def suzz_flow(x, v, t, dim_axis: int = -1):
+def suzz_flow(x, v, t, dim_axis: int = -1, dims=LOCAL):
     """The Speed-Up Zig-Zag's flow under the speed ``s(x) = sqrt(1 + |x|^2)``
     (``make_suzz_flow``, ``SpeedUpZigZagSamplers.jl:71-79``) for ``v`` in
     ``{-1, +1}^d``: coordinates along ``dim_axis``, ``t`` broadcasting
     against ``x`` with that axis of size 1 (``(B,)`` times for ``(d, B)``
     chains, ``(..., 1)`` for rows).  Every per-chain sum is added in
-    coordinate order.  ``t = 0`` is the identity only up to rounding, as in
-    JAX."""
-    return _suzz_at(x, v, t, dim_axis)[0], v
+    coordinate order (along the last axis over the coordinate group
+    ``dims``, ``core/dims.py``: in order within each process's slice and
+    then across the slices).
+    ``t = 0`` is the identity only up to rounding, as in JAX."""
+    return _suzz_at(x, v, t, dim_axis, dims)[0], v
 
 
 def suzz_flow_tangent(x, v, t, dim_axis: int = -1):

@@ -1,12 +1,13 @@
 """Scale-out layer (``pdmpflux_tpu/parallel``): device meshes over
-``torch.distributed`` process groups, the chain-sharded drivers, and
-checkpointing."""
+``torch.distributed`` process groups, the chain-sharded drivers, the
+coordinate-sharded ``sample_skeleton_gspmd``, and checkpointing."""
 
 from .mesh import CHAIN_AXIS, DIM_AXIS, chain_sharding, make_mesh
 from .sharded import (
     ShardedRun,
     pooled_moments,
     sample_from_skeleton_batch,
+    sample_skeleton_gspmd,
     sample_skeleton_sharded,
 )
 from .distributed import global_mesh, initialize
@@ -20,6 +21,7 @@ __all__ = [
     "ShardedRun",
     "pooled_moments",
     "sample_from_skeleton_batch",
+    "sample_skeleton_gspmd",
     "sample_skeleton_sharded",
     "global_mesh",
     "initialize",

@@ -36,7 +36,8 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
 
 
 def global_mesh(n_dim_devices: int = 1) -> mesh_lib.Mesh:
-    """A mesh over every device of every process of the group."""
+    """A mesh over every device of every process of the group, with
+    ``n_dim_devices`` processes per row along ``dim``."""
     return mesh_lib.make_mesh(None, n_dim_devices)
 
 
@@ -48,32 +49,34 @@ def process_local_chain_slice(total_chains: int):
     return p * per, (p + 1) * per if p < n - 1 else total_chains
 
 
-def _comm_device():
+def _comm_device(group=None):
     """Where the group's collectives take their tensors."""
-    if dist.get_backend() == "nccl":
+    if dist.get_backend(group) == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
 
 
-def all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """``t`` reduced over the group (a new tensor on ``t``'s device)."""
-    out = t.to(_comm_device(), copy=True)
-    dist.all_reduce(out, op=op)
+def all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> torch.Tensor:
+    """``t`` reduced over ``group`` (None: the whole group; a new tensor on
+    ``t``'s device)."""
+    out = t.to(_comm_device(group), copy=True)
+    dist.all_reduce(out, op=op, group=group)
     return out.to(t.device)
 
 
-def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """Every process's ``t`` concatenated along dim 0 in rank order (the
-    processes may hold different counts of rows)."""
-    dev = _comm_device()
+def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every process's ``t`` concatenated along dim 0 in rank order over
+    ``group`` (None: the whole group; the processes may hold different
+    counts of rows)."""
+    dev = _comm_device(group)
     n = torch.tensor([t.shape[0]], dtype=torch.int64, device=dev)
-    sizes = [torch.empty_like(n) for _ in range(dist.get_world_size())]
-    dist.all_gather(sizes, n)
+    sizes = [torch.empty_like(n) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(sizes, n, group=group)
     sizes = [int(s) for s in sizes]
     pad = t.new_zeros((max(sizes),) + t.shape[1:], device=dev)
     pad[:t.shape[0]] = t.to(dev)
     parts = [torch.empty_like(pad) for _ in sizes]
-    dist.all_gather(parts, pad)
+    dist.all_gather(parts, pad, group=group)
     return torch.cat([p[:s] for p, s in zip(parts, sizes)]).to(t.device)
 
 

@@ -1,13 +1,21 @@
-"""Chain-batch helpers and the chain-sharded drivers
+"""Chain-batch helpers and the sharded drivers
 (``pdmpflux_tpu/parallel/sharded.py``).
 
 * :func:`sample_skeleton_sharded`: skeletons of a chain batch sharded over a
   mesh's ``chains`` axis (``parallel/mesh.py``).  Each shard runs the
   single-device fill loop on its own device with its own count and clock
   read-backs, and no communication inside a fill, as JAX's ``shard_map``
-  runs each device's loop; results cross processes once, at the end.
+  runs each device's loop; results cross processes once, at the end.  On a
+  mesh with a ``dim`` axis every process of a row runs the row's shards
+  whole, as ``shard_map`` over ``chains`` replicates over ``dim``.
+* :func:`sample_skeleton_gspmd`: a fixed number of events per chain with
+  the chains sharded over ``chains`` and the coordinates over ``dim``:
+  the transition engine reduces over the coordinate slices of each row of
+  processes (``core/dims.py``) where JAX's GSPMD partitioner inserts the
+  collectives.
 * :func:`sample_from_skeleton_batch` and :func:`pooled_moments` of a batch,
-  the latter over every process of a mesh's group.
+  the latter over every process of a mesh's group; both take the
+  coordinate block of a ``sample_skeleton_gspmd`` skeleton.
 
 Chain ``b`` takes key ``b`` of ``split(key(seed), B)`` whatever its shard.
 On the transition engine (every shard off the card) each chain's stream is
@@ -29,7 +37,9 @@ import torch
 
 from .. import api
 from ..core import engine, rng
+from ..core.dims import LOCAL
 from ..core.engine import finalize_horizon_rows, prepend_init_rows
+from ..core.engine import RunResult
 from ..core.types import EV_INIT, PDMPState, Skeleton, empty_skeleton, event_from_state
 from ..models.base import as_key
 from ..ops.flows import div_once
@@ -100,7 +110,7 @@ def process_path(path, mesh):
 
 def _gather_transitions(mesh, local: List[int]) -> torch.Tensor:
     t = torch.tensor(local, dtype=torch.int64)
-    return distributed.all_gather_rows(t) if mesh.distributed else t
+    return distributed.all_gather_rows(t, mesh.chain_group) if mesh.distributed else t
 
 
 def _chain_stats(skel: Skeleton) -> torch.Tensor:
@@ -122,7 +132,7 @@ def _skeleton_stats(skel: Skeleton, mesh=None) -> dict:
     chain order, so any split of the batch gives the same numbers."""
     per = _chain_stats(skel)
     if mesh is not None and mesh.distributed:
-        per = distributed.all_gather_rows(per)
+        per = distributed.all_gather_rows(per, mesh.chain_group)
     ev, ar, rej, err, hit = per.sum(dim=0).tolist()
     stats = {"events": int(ev), "ar_sum": ar, "rejected": int(rej),
              "errored_bound": int(err), "hitting_horizon": int(hit)}
@@ -142,7 +152,9 @@ def sample_skeleton_sharded(sampler, n_or_T, xinit, vinit, *, mesh=None, seed=No
     ``float`` for a time horizon with exact ``t = T`` terminal rows.  Every
     process passes the global ``(B, d)`` inits, ``B`` divisible by
     ``mesh.shape["chains"]``, and gets back its own chains (in global order),
-    the transition count of every shard and the statistics of all chains.
+    the transition count of every shard and the statistics of all chains;
+    on a mesh with a ``dim`` axis, every process of a row the row's chains
+    whole.
 
     The fill rows are JAX's sharded sizing: for a point count the cold
     1.8 transitions per event (the measured ratio once a run has finished,
@@ -253,11 +265,12 @@ def _global_needs(mesh, local: List[list]) -> list:
     any shard (a shard that stopped keeps its last count)."""
     n = max(len(x) for x in local)
     if mesh.distributed:
-        n = int(distributed.all_reduce(torch.tensor([n]), torch.distributed.ReduceOp.MAX))
+        n = int(distributed.all_reduce(torch.tensor([n]), torch.distributed.ReduceOp.MAX,
+                                       mesh.chain_group))
     need = torch.tensor([x + x[-1:] * (n - len(x)) for x in local], dtype=torch.int64)
     need = need.max(dim=0).values
     if mesh.distributed:
-        need = distributed.all_reduce(need, torch.distributed.ReduceOp.MAX)
+        need = distributed.all_reduce(need, torch.distributed.ReduceOp.MAX, mesh.chain_group)
     return need.tolist()
 
 
@@ -324,11 +337,29 @@ def _batch_interp(sampler, skeleton: Skeleton, n_per_chain: int):
     return xs, vs, tm
 
 
+def _block_dims(sampler, skeleton: Skeleton, mesh):
+    """The coordinate group of ``skeleton``: the mesh's slice when the
+    skeleton holds a block of the coordinates (``sample_skeleton_gspmd``),
+    else every coordinate."""
+    d_local = skeleton.x.shape[-1]
+    if mesh is None or d_local == sampler.dim:
+        return LOCAL
+    dims = mesh.dims(sampler.dim)
+    if dims.hi - dims.lo != d_local:
+        raise ValueError(f"a skeleton of {d_local} coordinates is neither the sampler's "
+                         f"{sampler.dim} nor this process's slice {dims.lo}:{dims.hi}")
+    return dims
+
+
 def sample_from_skeleton_batch(sampler, n_per_chain: int, skeleton: Skeleton,
-                               *, discard_vt: bool = True):
+                               *, discard_vt: bool = True, mesh=None):
     """``(B, n, d)`` equal-time positions per chain, or ``(B, n, 2d + 1)``
-    with velocities and times when ``discard_vt=False``."""
-    xs, vs, tm = _batch_interp(sampler, skeleton, n_per_chain)
+    with velocities and times when ``discard_vt=False``.  With ``mesh``, a
+    ``sample_skeleton_gspmd`` skeleton's block of coordinates gives this
+    process's block of samples (a flow that couples coordinates reduces
+    over the mesh's dim group)."""
+    view = sampler.on_dims(_block_dims(sampler, skeleton, mesh))
+    xs, vs, tm = _batch_interp(view, skeleton, n_per_chain)
     if discard_vt:
         return xs
     return torch.cat([xs, vs, tm[:, :, None]], dim=2)
@@ -340,12 +371,95 @@ def pooled_moments(skeleton: Skeleton, sampler, n_per_chain: int, mesh=None):
     process passes its own chains' skeleton and gets the moments of the
     whole batch: the per-chain sums (O(B d)) are gathered and added in
     global chain order, so the result is the single-process one bit for
-    bit."""
-    xs, _, _ = _batch_interp(sampler, skeleton, n_per_chain)
+    bit.  A ``sample_skeleton_gspmd`` skeleton's block of coordinates gives
+    the moments of every coordinate, gathered over the mesh's dim group."""
+    dims = _block_dims(sampler, skeleton, mesh)
+    xs, _, _ = _batch_interp(sampler.on_dims(dims), skeleton, n_per_chain)
     s1, s2 = torch.sum(xs, dim=1), torch.sum(xs * xs, dim=1)
     if mesh is not None and mesh.distributed:
-        s1, s2 = distributed.all_gather_rows(s1), distributed.all_gather_rows(s2)
+        s1 = distributed.all_gather_rows(s1, mesh.chain_group)
+        s2 = distributed.all_gather_rows(s2, mesh.chain_group)
     n_tot = s1.shape[0] * n_per_chain
     mean = div_once(torch.sum(s1, dim=0), n_tot)
     var = div_once(torch.sum(s2, dim=0), n_tot) - mean ** 2
-    return mean, var
+    return dims.gather(mean), dims.gather(var)
+
+
+def _localize(rec, dims):
+    """A state or an event record with ``x``, ``v`` and ``is_active`` cut to
+    the coordinates of ``dims``."""
+    return rec._replace(x=dims.local(rec.x), v=dims.local(rec.v),
+                        is_active=dims.local(rec.is_active))
+
+
+def sample_skeleton_gspmd(sampler, n_events: int, xinit, vinit, *, mesh=None, seed=None,
+                          dtype=None, max_transitions_per_event: int = 256) -> RunResult:
+    """``n_events`` skeleton points per chain (the initial record included)
+    with the chains sharded over the mesh's ``chains`` axis and the
+    coordinates over its ``dim`` axis (default: :func:`mesh.make_mesh`), for
+    a ``dim`` too large for one device.
+
+    Every process passes the global ``(B, d)`` inits (``B`` divisible by the
+    ``chains`` axis, ``d`` by the ``dim`` axis) and gets back a
+    ``RunResult(state, skeleton, transitions)`` of its own chains, in
+    global order, where ``x``, ``v`` and ``is_active`` of the state and the
+    skeleton hold only its own coordinates (JAX's ``state_shardings`` and
+    ``skeleton_shardings`` with ``shard_dim``); every other field is whole.
+    ``transitions`` counts the whole chunks of 64 transitions that the
+    batch ran, at most ``n_events * max_transitions_per_event`` rounded up
+    to a chunk; where that budget runs out, ``n_valid`` falls short of
+    ``n_events``.  The state is frozen at each chain's last event.
+
+    Each chain shard runs the transition engine (``core/engine.py``) in
+    fills of whole chunks, its transition reducing over the coordinate
+    slices of its row of processes (``core/dims.py``), and K2 compacts each
+    fill's events into the skeleton; a chain's events, its final state and
+    the chunk count are those of JAX's fixed-event scatter runner
+    (``make_fixed_event_runner``), which JAX's GSPMD path runs.  Chain
+    ``b`` takes key ``b`` of ``split(key(seed), B)``."""
+    if mesh is None:
+        mesh = mesh_lib.make_mesh()
+    n_events = int(n_events)
+    if n_events <= 0:
+        raise ValueError(f"n_sk must be positive. Current value: {n_events}")
+    x, v, _ = api._prep_init(sampler, xinit, vinit)
+    B, d = x.shape
+    dims = mesh.dims(d)
+    ranges = mesh_lib.chain_sharding(mesh, B)
+    if dtype is None:
+        dtype = torch.get_default_dtype()
+    keys = rng.split(as_key(seed, "cpu"), B)
+    target = n_events - 1
+    n_chunks = max(1, -(-n_events * int(max_transitions_per_event) // engine.CHUNK))
+    runners = {}
+    states, skels, transitions = [], [], 0
+    for dev, g in zip(mesh.devices, mesh.local_shards()):
+        lo, hi = ranges[g]
+        with mesh_lib.on_device(dev):
+            state = sampler.init_state_batch(x[lo:hi], v[lo:hi], None, dtype, dev,
+                                             keys=keys[lo:hi].to(dev))
+            init_ev = _localize(event_from_state(state, EV_INIT), dims)
+            state = _localize(state, dims)
+            fill_chunks = api.fill_rows(sampler, target, hi - lo, state.x.shape[1], dtype,
+                                        dev) // engine.CHUNK
+            counts = torch.zeros((hi - lo,), dtype=torch.int32, device=dev)
+            acc, chunks = None, 0
+            while True:
+                t_cap = min(fill_chunks, n_chunks - chunks) * engine.CHUNK
+                if t_cap not in runners:
+                    runners[t_cap] = engine.make_stream_runner(sampler, t_cap, target,
+                                                               dims=dims)
+                state, counts, acc, n_tr = api._events_fill(runners[t_cap], state, counts,
+                                                            acc, init_ev, n_events)
+                chunks += n_tr // engine.CHUNK
+                if chunks >= n_chunks or n_tr < t_cap or bool((counts >= target).all()):
+                    break
+        transitions = max(transitions, chunks * engine.CHUNK)
+        states.append(state)
+        skels.append(acc._replace(n_valid=(1 + torch.clamp_max(counts, target)).to(torch.int32)))
+    if mesh.distributed:
+        transitions = int(distributed.all_reduce(torch.tensor([transitions]),
+                                                 torch.distributed.ReduceOp.MAX))
+    dev = mesh.devices[0]
+    return RunResult(cat_chains(states, dev), cat_chains(skels, dev),
+                     torch.tensor(transitions, dtype=torch.int32))

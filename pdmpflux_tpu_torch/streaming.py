@@ -291,7 +291,10 @@ def sample_streaming_stats(
     chunk kernel seeds each fill from its shard's keys (see
     ``parallel/sharded.py``), so only a mesh of one shard equals it there.
     A checkpoint then holds this process's chains, one file per process of
-    a group (``path.rank<r>``).
+    a group (``path.rank<r>``).  On a mesh with a ``dim`` axis above 1, every
+    process of a row runs the row's chain shards whole (JAX's ``shard_map``
+    over ``chains`` replicates over ``dim``), and the reductions run over
+    the mesh's chain group.
 
     The fused chunk kernels cover the Zig-Zag family with vectorized bounds,
     BPS, Boomerang and Forward ECMC; every other sampler runs on the
@@ -311,11 +314,11 @@ def sample_streaming_stats(
     B, d = x.shape
     if mesh is None:
         parts = [(resolve_device(device), 0, B)]
-        dist_on, path = False, checkpoint_path
+        dist_on, path, group = False, checkpoint_path, None
     else:
         ranges = mesh_lib.chain_sharding(mesh, B)
         parts = [(dv, *ranges[g]) for dv, g in zip(mesh.devices, mesh.local_shards())]
-        dist_on = mesh.distributed
+        dist_on, group = mesh.distributed, mesh.chain_group
         path = process_path(checkpoint_path, mesh)
     dev = parts[0][0]
     B_local = parts[0][2] - parts[0][1]
@@ -366,13 +369,14 @@ def sample_streaming_stats(
     def reduce_max(vals):
         """Flags and negated minima over every process of the mesh."""
         t = torch.tensor(vals, dtype=torch.float64)
-        return (distributed.all_reduce(t, torch.distributed.ReduceOp.MAX)
+        return (distributed.all_reduce(t, torch.distributed.ReduceOp.MAX, group)
                 if dist_on else t).tolist()
 
     def gathered():
         """Every chain's accumulators, in global order, on ``dev``."""
         out = cat_chains(stats, dev)
-        return StreamingStats(*map(distributed.all_gather_rows, out)) if dist_on else out
+        return (StreamingStats(*(distributed.all_gather_rows(a, group) for a in out))
+                if dist_on else out)
 
     def one_fill(i, j_min):
         """One shard's fill and its fold (the JAX package's ``program``,
@@ -430,7 +434,7 @@ def sample_streaming_stats(
         j_h = np.concatenate([j.cpu().numpy() for j in j_done])
         tally = [ev_group, int((t_h < T).sum())]
         if dist_on:
-            tally = distributed.all_reduce(torch.tensor(tally)).tolist()
+            tally = distributed.all_reduce(torch.tensor(tally), group=group).tolist()
         events += tally[0]
         all_done = tally[1] == 0
         fills += K

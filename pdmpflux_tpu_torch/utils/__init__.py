@@ -1,3 +1,3 @@
-from . import potentials  # noqa: F401
+from . import potentials, profiling  # noqa: F401
 
-__all__ = ["potentials"]
+__all__ = ["potentials", "profiling"]

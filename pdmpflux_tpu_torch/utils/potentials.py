@@ -128,6 +128,11 @@ LANE_POTENTIALS = {
 }
 """Tag -> ``params -> (grad, grad_jvp)`` on chain-minor tensors."""
 
+COORDINATEWISE = {"gauss", "aniso"}
+"""Tags whose gradient's coordinate ``i`` reads coordinate ``i`` alone (and
+parameter ``i``): a coordinate-sharded transition evaluates them on its
+slice (``models/base.PDMP.grad_rows``)."""
+
 
 def device_potential_of(*fns):
     """The first ``device_potential`` tag among ``fns`` and its parameters,

@@ -1,8 +1,9 @@
 """The port's multi-device layer (``pdmpflux_tpu_torch.parallel``) against
 the JAX package's, float64 on the CPU.
 
-* The package surface: the port's root and ``parallel`` names are JAX's,
-  less the names still owed (``OWED``), plus the port's own (``PORT_ONLY``).
+* The package surface: the port's root, ``parallel`` and ``utils`` names
+  are JAX's (nothing is owed any more: ``OWED`` is empty), plus the port's
+  own (``PORT_ONLY``).
 * ``sample_skeleton_sharded`` on a 4-shard CPU mesh against JAX's on a
   4-device CPU mesh (``tests/conftest.py`` makes 8), in both modes: each
   shard on the transition engine, as JAX runs its XLA engine off the TPU;
@@ -42,12 +43,8 @@ from pdmpflux_tpu_torch.parallel import sharded as tsharded  # noqa: E402
 
 RTOL = ATOL = 1e-12
 F64 = torch.float64
-# names the port does not have yet (ROADMAP Queue 1): plotting and its six
-# functions, the profiling helpers, and the dimension-sharded GSPMD driver
-OWED = {"root": {"plotting", "plot_traj", "jointplot", "marginalplot", "plot_U_contour",
-                 "anim_traj", "anim_traj_"},
-        "parallel": {"sample_skeleton_gspmd"},
-        "utils": {"profiling"}}
+# names the port does not have yet: none
+OWED = {"root": set(), "parallel": set(), "utils": set()}
 # the port's root also exports its chain-batch helpers and potentials, which
 # JAX reaches as pf.parallel.* and pf.utils.potentials, and its numpy
 # converters (convert), which JAX needs no counterpart of
@@ -129,8 +126,8 @@ def test_sharded_errors_match_jax():
         pt.parallel.sample_skeleton_sharded(pt.ZigZag(3, pt.potentials.grad_gauss), 20,
                                             x0, v0, mesh=pt.parallel.make_mesh(4))
     assert str(et.value) == str(ej.value)
-    with pytest.raises(NotImplementedError, match="sample_skeleton_gspmd"):
-        pt.parallel.make_mesh(1, 2)
+    with pytest.raises(ValueError, match="must divide the group's 1 processes"):
+        pt.parallel.make_mesh(1, 2)   # a dim axis lies over processes (test_torch_gspmd.py)
     x0, v0 = _inits(4, 3)
     with pytest.warns(UserWarning, match="only supported in event-count mode"):
         run = pt.parallel.sample_skeleton_sharded(
