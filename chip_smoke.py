@@ -121,7 +121,7 @@ Phases, one line each; any failure raises and exits non-zero:
    checked bit for bit on this fill, one K=32 chunk of K4 checked against its
    plain version at this shape in float32 (as ``compare_f32`` states, at least
    99% of chains with identical decisions) and each timed beside its plain
-   version; and (17c) the median call split into K4, K2 and the rest;
+   version, and the median call split into K4, K2 and the rest;
 18. a time-horizon run of the same deployment, T the median clock of phase
    17's skeleton at 256 events, with the time-horizon contracts of phase 14;
    K4's horizon mode timed per K=32 launch beside its plain version;
@@ -232,7 +232,8 @@ Phases, one line each; any failure raises and exits non-zero:
    data equal to the skeleton's points where matplotlib is installed (the
    line says which);
 32. ``sample_skeleton_gspmd`` of ``BPS(10_000, grad_gauss, refresh_rate=0.5)``
-   and ``ZigZag(10_000, grad_gauss)``, 32 chains x 256 events, float64,
+   and ``ZigZag(10_000, grad_gauss)``, 32 chains x 128 events (256 before
+   phases 33-35 came, cut for the script's time), float64,
    x0 = 0, v0 = 1, seed 0 (the transition engine and K2, as JAX's GSPMD
    path runs no Pallas kernel): without a group, then on a one-process NCCL
    group's mesh whose coordinate group is made a one-part ``ShardedDims``
@@ -242,7 +243,29 @@ Phases, one line each; any failure raises and exits non-zero:
    with a dim axis of 2 over two processes on the one card, which gloo
    joins (NCCL takes one rank per device): each process's block equal to
    the dim-1 run at rtol 1e-9 (integers equal); every call's time.  The
-   two processes run this file with ``--gspmd-worker PORT RANK OUTDIR``.
+   two processes run this file with ``--gspmd-worker PORT RANK OUTDIR``;
+33. every chunk kernel against its plain version in f64 on each device tag
+   added for the JAX package's test potentials (``cauchy``, ``ridged``,
+   ``funnel``, ``neal_funnel``) and on ``aniso`` where K1, K6 and K4 took
+   it: K1 at d = 1000 and in place at d = 8000, K6 (the funnels at
+   d = 1000, whose chain moments take its two-level reduction), K4 at
+   d = 10 and in place at d = 3700, K3 (BPS, the Boomerang) and K5 at
+   d = 10, and a horizon case per kernel on a funnel; K1 and K6 to ``RTOL``,
+   K4 and K3/K5 bit for bit (a part in a math function of ``ridged`` or
+   ``neal_funnel`` printed and held to ``RTOL``);
+34. ``suzz_cauchy_d10``: SpeedUpZigZagAD(10, cauchy), 512 chains x 2048
+   points, float32, x0 = 0, v0 = 1 (``suzz_gauss_d10``'s shape on
+   ``tests/test_integration.py:91``'s heavy-tailed target); one warm call,
+   five timed; 1000 samples per chain pooled over chains and coordinates:
+   |median| < 0.1, quartiles within 0.15 of -1 and 1, each coordinate's
+   within 0.25, max |x| > 5; (34b) the fill and K2 timed apart, one f32
+   K=32 chunk of K4 against its plain version, the split;
+35. ``zigzag_neal_funnel_d10``: ZigZagAD(10, neal_funnel), 8192 chains x
+   2048 points, float32, x0 = 0, v0 = 1 (the flagship's shape on Neal's
+   funnel); five timed calls on the kernels, then one on the transition
+   engine (``backend="xla_stream"``): x[0]'s pooled means within 0.15 and
+   variances within 10% of each other, the truth (0, 9) printed; (35b) as
+   34b for K1.  The script prints its clock after each group of phases.
 
 Then one JSON line of per-kernel results (launches counted in the timed run
 of each kernel's path: phase 4 for K1 and K2, phase 7 for K6, phase 10 for
@@ -254,7 +277,9 @@ named after the engine deployments, phase 28 for K1's entry named after the
 sharded flagship, phases 26b and 27 for K2's entries named after the host
 paths, phase 30 for the entries of K1 and K2 named after the profiled
 flagship, phase 32 (dim 1) for K2's entry named after the gspmd
-deployment; max_abs_err the largest of the kernel's comparisons
+deployment, phases 34 and 35 for the entries of K4, K1 and K2 named after
+their deployments, 35 (the engine route) for K2's entry named
+``engine:zigzag_neal_funnel_d10``; max_abs_err the largest of the kernel's comparisons
 with its plain version, f64 and f32; the bound of each timed launch computed
 from its shape and this run's data), the card's name and power limit, and
 the status line.
@@ -325,8 +350,12 @@ HOST_BUDGET = 1 << 30     # 26b: PDMPFLUX_DEVICE_BYTES, below the sticky skeleto
 TRACE_SPAN = "flagship_sample_skeleton"  # phase 30's annotate span
 # K2's kernels by name in a trace: the four of csrc/compact.cu
 K2_KERNELS = ("count_kernel", "scan_kernel", "copy_kernel", "tail_kernel")
-GSPMD = (10_000, 32, 256)  # phase 32: d, chains, events per chain
+GSPMD = (10_000, 32, 128)  # phase 32: d, chains, events (cut from 256 for 33-35's time)
 GSPMD_RTOL = 1e-9          # phase 32: dim 2 against dim 1
+SUZZ_CAUCHY_D10 = (10, 512, 2048)  # phase 34: d, chains, points: suzz_cauchy_d10
+NEAL_D10 = (10, 8192, 2048)        # phase 35: d, chains, points: zigzag_neal_funnel_d10
+TAG_CALLS = 5                      # timed warm calls of each of the two
+CAUCHY_SAMPLES = 1000              # phase 34: equal-time samples per chain for the gate
 
 H100_BYTES_S = 3.35e12  # HBM3 rate of the H100 SXM (NVIDIA data sheet)
 H100_F32_OPS_S = 67e12  # float32 rate outside the tensor cores (the same sheet)
@@ -390,6 +419,14 @@ def chunk_ops(cfg, d, live, jumps):
     n_grid = cfg.n_grid
     normal = 2 * THREEFRY_OPS + 3 * MATH_OPS
     per = 3 * n_grid + 8 * d + 2 * THREEFRY_OPS
+    # the potential's own work beyond the Gaussian's, per grid point: per
+    # coordinate (a divide, counted as 10, for the Cauchy; a cos and a sin for
+    # the ridges; the funnels' chain sums) and once (the funnels' coordinate
+    # 0: divides, or an exp)
+    coord, point = {"cauchy": (10, 0), "ridged": (2 * MATH_OPS, 0),
+                    "funnel": (4, 40), "neal_funnel": (4, MATH_OPS)}.get(
+                        cfg.device_potential, (0, 0))
+    per += n_grid * (coord * d + point)
     if cfg.kind == "zigzag":
         per += n_grid * d * 20
         jump = THREEFRY_OPS + 12 * d
@@ -436,11 +473,29 @@ def k2_bound(fill, counts, W):
     return bound(T * B * 4 + kept * row_in + (kept + B + tail) * row_out, 0)
 
 
-def random_state(sampler, B, dtype, seed):
+def random_state(sampler, B, dtype, seed, scale=1.0):
+    """Positions N(0, scale^2 I) (the funnel's ``x[0]`` moved to 0.5 + |x[0]|,
+    where it is defined) and +-1 velocities."""
     rs = np.random.default_rng(seed)
-    x0 = rs.normal(size=(B, sampler.dim))
+    x0 = rs.normal(size=(B, sampler.dim)) * scale
+    if sampler.device_potential == "funnel":
+        x0[:, 0] = 0.5 + np.abs(x0[:, 0])
     v0 = rs.choice([-1.0, 1.0], size=(B, sampler.dim))
     return sampler.init_state_batch(x0, v0, seed, dtype, DEV)
+
+
+TAG_POTENTIALS = {"cauchy": "cauchy", "ridged": "ridged_gauss", "funnel": "funnel",
+                  "neal_funnel": "neal_funnel"}
+"""The device tags of the JAX package's test potentials besides gauss, banana and
+aniso, and the potentials carrying them."""
+
+
+def tag_potential(tag, d):
+    """The test potential ``U`` of a device tag (``aniso``: the scales
+    linspace(0.5, 3, d))."""
+    if tag == "aniso":
+        return pt.potentials.anisotropic_gauss(np.linspace(0.5, 3.0, d))
+    return getattr(pt.potentials, TAG_POTENTIALS[tag])
 
 
 def clone_state(st):
@@ -478,14 +533,18 @@ def phase_build():
     build.library()
     secs = time.perf_counter() - t0
     kernels = ptxas_kernels(build.BUILD_INFO.get("log", ""))
-    framed = [k for k, (_, frame, *_) in kernels.items()
-              if "zigzag_chunk_kernel" in k and frame]
-    if framed:
-        raise AssertionError(f"K1 keeps a stack frame (local memory) in {framed}")
     text = "; ".join(f"{k}: {r} registers, {f} B stack frame, {st}/{ld} B spill "
                      f"stores/loads" for k, (r, f, st, ld) in kernels.items())
     print(f"phase 1 build: {secs:.2f} s ({build.BUILD_INFO['path']}); ptxas: {text}",
           flush=True)
+    # K1 indexes no array at run time, so nothing of its own lands in local
+    # memory; CUDA's sin and cos keep a small local array for the reduction
+    # of large arguments, so Ridged's instantiations may carry that frame,
+    # but no spills
+    framed = [k for k, (_, frame, st, ld) in kernels.items()
+              if "zigzag_chunk_kernel" in k and (st or ld or (frame and "Ridged" not in k))]
+    if framed:
+        raise AssertionError(f"K1 keeps a stack frame (local memory) in {framed}")
 
 
 K1_NAMES = k1.ChunkState._fields + tuple("ev_" + f for f in k1.RawFill._fields)
@@ -540,12 +599,15 @@ def k1_runs(d, B, K, n_chunks, pot, horizon=False, suzz=False, dtype=torch.float
     capped inside the run, in horizon mode (K7) when asked; ``kw`` goes to
     the sampler.  Returns the kernel's state and fill, then the plain
     version's, and the config."""
-    grad = {"gauss": pt.potentials.grad_gauss, "banana": pt.potentials.grad_banana}[pot]
-    sampler = (pt.SpeedUpZigZag if suzz else pt.ZigZag)(d, grad, **kw)
+    if pot in ("gauss", "banana"):
+        grad = {"gauss": pt.potentials.grad_gauss, "banana": pt.potentials.grad_banana}[pot]
+        sampler = (pt.SpeedUpZigZag if suzz else pt.ZigZag)(d, grad, **kw)
+    else:
+        sampler = (pt.SpeedUpZigZagAD if suzz else pt.ZigZagAD)(d, tag_potential(pot, d), **kw)
     state = random_state(sampler, B, dtype, d + B)
     counts = torch.zeros(B, dtype=torch.int32, device=DEV)
     counts[::5] = 40  # some chains freeze inside the run
-    cfg = driver.chunk_config(sampler, K, 48, 128)
+    cfg = card_config(sampler, K, 48, dtype)
     st_k = driver.chunk_state(state, counts)
     if horizon:
         cfg = cfg._replace(t_target=median_target(k1.run_chunk, st_k, cfg, K, n_chunks,
@@ -564,10 +626,11 @@ def k1_runs(d, B, K, n_chunks, pot, horizon=False, suzz=False, dtype=torch.float
 def k1_compare(d, B, K, n_chunks, pot, horizon=False, suzz=False, **kw):
     """:func:`k1_runs` in f64 with integers equal, floats held to rtol
     ``RTOL`` (atol ``ATOL``) for K1, built with FMA contraction, and bit for
-    bit for K4; returns (max abs err, events, share frozen by the target)."""
+    bit for K4 (:func:`bit_tolerance` for a tag whose gradient calls a math
+    function); returns (max abs err, events, share frozen by the target)."""
     what = f"{'K4' if suzz else 'K1'} {pot} d={d} {kw or ''}"
     st_k, fill_k, st_p, fill_p, cfg = k1_runs(d, B, K, n_chunks, pot, horizon, suzz, **kw)
-    rtol, atol = (0.0, 0.0) if suzz else (RTOL, ATOL)
+    rtol, atol = bit_tolerance(what, pot, st_k, fill_k, st_p, fill_p) if suzz else (RTOL, ATOL)
     err = 0.0
     for (name, a), (_, b) in zip(chunk_outputs(st_k, fill_k), chunk_outputs(st_p, fill_p)):
         if a.dtype == torch.int32:
@@ -946,24 +1009,29 @@ def phase_large_d():
           f"var={v:.4f}", flush=True)
 
 
-def sticky_config(sampler, K, cap, dtype):
+def card_config(sampler, K, cap, dtype):
+    """The sampler's chunk config with its kappa and its potential's
+    parameters on the card in ``dtype``, as ``ops/cuda/driver.py`` hands them over."""
     cfg = driver.chunk_config(sampler, K, cap, 128)
-    return cfg._replace(kappa=cfg.kappa.to(DEV, dtype))
+    return cfg._replace(
+        kappa=None if cfg.kappa is None else cfg.kappa.to(DEV, dtype),
+        pot_params=None if cfg.pot_params is None else cfg.pot_params.to(DEV, dtype))
+
 
 
 def k6_compare(d, B, pot, kappa, K=32, n_chunks=2, horizon=False, **kw):
     """K6 and its plain version from one f64 state near the axes, in horizon
     mode (K7) when asked; ``kw`` goes to the sampler.  Returns (max abs err,
     events, sticks, thaws, share frozen by the target)."""
-    grad = {"gauss": pt.potentials.grad_gauss, "banana": pt.potentials.grad_banana}[pot]
-    sampler = pt.StickyZigZag(d, grad, np.full(d, kappa), **kw)
-    rs = np.random.default_rng(d + B)
-    state = sampler.init_state_batch(rs.normal(size=(B, d)) * 0.3,
-                                     rs.choice([-1.0, 1.0], size=(B, d)),
-                                     d + B, torch.float64, DEV)
+    if pot in ("gauss", "banana"):
+        grad = {"gauss": pt.potentials.grad_gauss, "banana": pt.potentials.grad_banana}[pot]
+        sampler = pt.StickyZigZag(d, grad, np.full(d, kappa), **kw)
+    else:
+        sampler = pt.StickyZigZagAD(d, tag_potential(pot, d), np.full(d, kappa), **kw)
+    state = random_state(sampler, B, torch.float64, d + B, scale=0.3)
     counts = torch.zeros(B, dtype=torch.int32, device=DEV)
     counts[::5] = 50  # some chains reach the cap of 64 inside the run
-    cfg = sticky_config(sampler, K, 64, torch.float64)
+    cfg = card_config(sampler, K, 64, torch.float64)
     st_k = driver.chunk_state(state, counts, sticky=True)
     if horizon:
         cfg = cfg._replace(t_target=median_target(k1.run_chunk, st_k, cfg, K, n_chunks,
@@ -1019,7 +1087,7 @@ def phase_k6():
     st = driver.chunk_state(state, torch.zeros(2, dtype=torch.int32, device=DEV), sticky=True)
     try:
         k1.run_chunk(0, st, k1.empty_fill(4, d_max + 1, 2, torch.float64, DEV, True), 0,
-                     sticky_config(big, 4, 10, torch.float64))
+                     card_config(big, 4, 10, torch.float64))
     except ValueError as e:
         refused = str(e)
     else:
@@ -1136,7 +1204,7 @@ def phase_sticky_breakdown(sampler, k6_launches, wall):
     del res, specs, kind
 
     K, seed = 32, 7
-    cfg = sticky_config(sampler, K, 1 << 30, dtype)
+    cfg = card_config(sampler, K, 1 << 30, dtype)
     st = driver.chunk_state(state, zeros, sticky=True)
     st_p = clone_state(st)
     v0 = st.v.clone()
@@ -1194,20 +1262,12 @@ def phase_sticky_law():
 
 
 def scalar_sampler(kind, pot, d, **kw):
-    if pot == "aniso":
-        U = pt.potentials.anisotropic_gauss(np.linspace(0.5, 3.0, d))
+    if pot not in ("gauss", "banana"):
         return {"bps": pt.BPSAD, "boomerang": pt.BoomerangAD,
-                "ecmc": pt.ForwardECMCAD}[kind](d, U, **kw)
+                "ecmc": pt.ForwardECMCAD}[kind](d, tag_potential(pot, d), **kw)
     grad = {"gauss": pt.potentials.grad_gauss, "banana": pt.potentials.grad_banana}[pot]
     return {"bps": pt.BPS, "boomerang": pt.Boomerang, "ecmc": pt.ForwardECMC}[kind](
         d, grad, **kw)
-
-
-def scalar_config(sampler, K, cap, dtype):
-    cfg = driver.chunk_config(sampler, K, cap, 128)
-    if cfg.pot_params is None:
-        return cfg
-    return cfg._replace(pot_params=cfg.pot_params.to(DEV, dtype))
 
 
 def scalar_f32_check(what, sampler, state, K=32, seed=7):
@@ -1217,7 +1277,7 @@ def scalar_f32_check(what, sampler, state, K=32, seed=7):
     the kernel's state and fill, for timing, and the comparison's text and
     max abs err)."""
     d, B = state.x.shape[1], state.x.shape[0]
-    cfg = scalar_config(sampler, K, 1 << 30, torch.float32)
+    cfg = card_config(sampler, K, 1 << 30, torch.float32)
     st = driver.chunk_state(state, torch.zeros(B, dtype=torch.int32, device=DEV))
     st_p = clone_state(st)
     v0 = st.v.clone()
@@ -1245,10 +1305,12 @@ def k3_runs(kind, pot, d, B, kw, K=32, n_chunks=2, horizon=False):
     if kind != "boomerang":
         v0 /= np.linalg.norm(v0, axis=1, keepdims=True)
     x0[::13] = 0.5 * v0[::13]
+    if pot == "funnel":
+        x0[:, 0] = 0.5 + np.abs(x0[:, 0])
     state = sampler.init_state_batch(x0, v0, d + B, torch.float64, DEV)
     counts = torch.zeros(B, dtype=torch.int32, device=DEV)
     counts[::5] = 50  # some chains reach the cap of 64 inside the run
-    cfg = scalar_config(sampler, K, 64, torch.float64)
+    cfg = card_config(sampler, K, 64, torch.float64)
     st_k = driver.chunk_state(state, counts)
     if horizon:
         cfg = cfg._replace(t_target=median_target(k3.run_chunk, st_k, cfg, K, n_chunks,
@@ -1270,6 +1332,7 @@ def k3_compare(kind, pot, d, B, kw, horizon=False):
     share frozen by the target)."""
     st_k, fill_k, st_p, fill_p, cfg = k3_runs(kind, pot, d, B, kw, horizon=horizon)
     what = f"{k3.launch_name(kind)} {kind} {pot} d={d} {kw}"
+    rtol, atol = bit_tolerance(what, pot, st_k, fill_k, st_p, fill_p)
     err = 0.0
     for (name, a), (_, b) in zip(chunk_outputs(st_k, fill_k), chunk_outputs(st_p, fill_p)):
         if not a.is_floating_point():
@@ -1277,7 +1340,7 @@ def k3_compare(kind, pot, d, B, kw, horizon=False):
                 raise AssertionError(f"{what}: output {name} differs at "
                                      f"{int((a != b).sum())} places")
         else:
-            err = max(err, float_err(what, name, a, b, 0.0, 0.0))
+            err = max(err, float_err(what, name, a, b, rtol, atol))
     n_ev = int((fill_k.kind[:, 0] == pt.EV_JUMP).sum())
     if n_ev < B or not bool((st_k.iscal[k1.I_CNT] == 64).any()):
         raise AssertionError(f"{what}: {n_ev} events, or no capped chain")
@@ -1535,6 +1598,105 @@ def phase_k7():
     return errs
 
 
+MATH_TAGS = {"ridged": "cos and sin", "neal_funnel": "exp"}
+"""Tags whose gradient calls a CUDA math function, in the kernel and in
+torch's op alike."""
+MATH_NOTES = []
+"""Where a bit-for-bit kernel parted from its plain version on a tag of
+``MATH_TAGS``: the first differing output, printed by phase 33."""
+
+
+def bit_tolerance(what, pot, st_k, fill_k, st_p, fill_p):
+    """(rtol, atol) of a bit-for-bit kernel's check (K3/K5, K4): (0, 0).  On
+    a tag of ``MATH_TAGS`` the two may part where CUDA's math function in the
+    kernel and torch's differ in a bit; there the first differing output is
+    recorded in ``MATH_NOTES`` and the check takes K1's ``RTOL``/``ATOL``."""
+    if pot not in MATH_TAGS:
+        return 0.0, 0.0
+    for (name, a), (_, b) in zip(chunk_outputs(st_k, fill_k), chunk_outputs(st_p, fill_p)):
+        if not a.is_floating_point():
+            continue
+        same = (a == b) | (a.isnan() & b.isnan())
+        if bool(same.all()):
+            continue
+        i = np.unravel_index(int((~same).reshape(-1).nonzero()[0, 0]), tuple(a.shape))
+        row = f" (transition {i[0]}, chain {i[-1]})" if name.startswith("ev_") else ""
+        MATH_NOTES.append(f"{what}: first parts at {name}{list(i)}{row}: kernel "
+                          f"{float(a[i]):.17g}, plain {float(b[i]):.17g} (the gradient calls "
+                          f"{MATH_TAGS[pot]}); held to rtol {RTOL} atol {ATOL}")
+        return RTOL, ATOL
+    return 0.0, 0.0
+
+
+K1_TAG_D = 1000                  # phase 33: K1 at phase 5's d, B = 256
+K1_IN_PLACE = (8000, 3)          # phase 33: d, B where K1 reads x and v in place (f64)
+K6_TAG_CASES = {"funnel": (1000, 128, 10.0), "neal_funnel": (1000, 128, 10.0),
+                "cauchy": (10, 1024, 2.0), "ridged": (10, 1024, 2.0),
+                "aniso": (10, 1024, 2.0)}
+"""Phase 33's K6 shapes per tag: d, chains, kappa (the funnels at d = 1000,
+where the chain moments take K6's two-level reduction)."""
+
+
+def phase_tags():
+    """Every chunk kernel against its plain version in f64 from one state on
+    the device tags ``cauchy``, ``ridged``, ``funnel`` and ``neal_funnel``,
+    and on ``aniso`` for K1, K6 and K4 (phase 9 holds K3/K5 on it): K1 at
+    d = 1000 and in place (d = 8000, x and v at stride B), K6 (the funnels
+    at d = 1000), K4 at d = 10 and in place, K3 (BPS, the Boomerang) and K5
+    at d = 10; one horizon-mode case per kernel on a funnel.  K1 and K6 to ``RTOL``/``ATOL``, K4 and K3/K5 bit for bit
+    (:func:`bit_tolerance`).  Returns the max abs err of each kernel name."""
+    errs, parts = Counter(), []
+
+    def keep(name, e, text):
+        errs[name] = max(errs[name], e)
+        parts.append(text)
+
+    for tag in list(TAG_POTENTIALS) + ["aniso"]:
+        e, n, _ = k1_compare(K1_TAG_D, 256, 32, 2, tag)
+        keep("zigzag_chunk", e, f"K1 {tag} d={K1_TAG_D} B=256 max_abs_err={e:.3e} ({n} events)")
+        d, B = K1_IN_PLACE
+        K = 8 if "funnel" in tag else 32  # the plain funnels add 8000 terms per point
+        e, n, _ = k1_compare(d, B, K, 1, tag, tmax=0.01)
+        keep("zigzag_chunk", e, f"K1 {tag} d={d} B={B} K={K} in place max_abs_err={e:.3e} "
+                                f"({n} events)")
+        d, B, kappa = K6_TAG_CASES[tag]
+        e, n, ns, nt, _ = k6_compare(d, B, tag, kappa)
+        keep("sticky_chunk", e, f"K6 {tag} d={d} B={B} max_abs_err={e:.3e} ({n} events, "
+                                f"{ns} sticks, {nt} thaws)")
+        e, n, _ = k1_compare(10, 512, 32, 2, tag, suzz=True)
+        keep("suzz_chunk", e, f"K4 {tag} d=10 B=512 max_abs_err={e:.3e} ({n} events)")
+        e, n, _ = k1_compare(K4_IN_PLACE_D, 8, 4, 1, tag, suzz=True, tmax=0.01)
+        keep("suzz_chunk", e, f"K4 {tag} d={K4_IN_PLACE_D} B=8 K=4 in place "
+                              f"max_abs_err={e:.3e} ({n} events)")
+        if tag == "aniso":  # phase 9 holds K3/K5 on it
+            continue
+        for kind in ("bps", "boomerang", "ecmc"):
+            e, n, _ = k3_compare(kind, tag, 10, 1024, {})
+            keep(k3.launch_name(kind), e, f"{'K5' if kind == 'ecmc' else 'K3'} {kind} {tag} "
+                                          f"d=10 B=1024 max_abs_err={e:.3e} ({n} events)")
+    # horizon mode (K7) on a funnel in every kernel
+    e, n, sh = k1_compare(10, 1024, 32, 2, "neal_funnel", horizon=True)
+    keep("zigzag_chunk_horizon", e, f"K1 horizon neal_funnel d=10 B=1024 max_abs_err={e:.3e} "
+                                    f"({n} events, {sh:.3f} at the target)")
+    e, n, ns, nt, sh = k6_compare(1000, 128, "funnel", 10.0, horizon=True)
+    keep("sticky_chunk_horizon", e, f"K6 horizon funnel d=1000 B=128 max_abs_err={e:.3e} "
+                                    f"({n} events, {sh:.3f} at the target)")
+    e, n, sh = k1_compare(10, 512, 32, 2, "funnel", horizon=True, suzz=True)
+    keep("suzz_chunk_horizon", e, f"K4 horizon funnel d=10 B=512 max_abs_err={e:.3e} "
+                                  f"({n} events, {sh:.3f} at the target)")
+    for kind, tag in (("bps", "neal_funnel"), ("ecmc", "funnel")):
+        e, n, sh = k3_compare(kind, tag, 10, 1024, {}, horizon=True)
+        keep(k3.launch_name(kind) + "_horizon", e,
+             f"{'K5' if kind == 'ecmc' else 'K3'} horizon {kind} {tag} d=10 B=1024 "
+             f"max_abs_err={e:.3e} ({n} events, {sh:.3f} at the target)")
+    notes = "; ".join(MATH_NOTES) or "none"
+    print(f"phase 33 every chunk kernel on the new device tags vs plain (f64, K=32): "
+          f"{'; '.join(parts)}; ints equal, K1/K6 to rtol {RTOL} atol {ATOL}, K4 and K3/K5 "
+          f"bit for bit; bit-for-bit checks that parted in a math function: {notes}",
+          flush=True)
+    return dict(errs)
+
+
 def check_horizon_skeleton(what, skel, T):
     """The time-horizon contracts on every chain of a batch skeleton: the
     last valid row at t == T exactly with kind EV_TERMINAL, no valid row past
@@ -1733,9 +1895,9 @@ def phase_horizon_checks(card_name):
             extra = ", |v| == 1 within 1e-5"
         del skel
         state = sampler.init_state_batch(x0, v0, 0, torch.float32, DEV)
-        config = sticky_config if sticky else scalar_config
         # a target no lane reaches in the timing run
-        cfg = config(sampler, 32, 1 << 30, torch.float32)._replace(t_target=k1.f32_target(1e6))
+        cfg = card_config(sampler, 32, 1 << 30, torch.float32)._replace(
+            t_target=k1.f32_target(1e6))
         st = driver.chunk_state(state, torch.zeros(B, dtype=torch.int32, device=DEV), sticky)
         fill = k1.empty_fill(32, d, B, torch.float32, DEV, sticky)
         run, plain = ((k1.run_chunk, k1.run_chunk_plain) if sticky
@@ -1797,124 +1959,41 @@ def suzz_deployment():
 
 def phase_suzz(card_name):
     """The suzz_gauss_d10 deployment: one warm call, then five timed warm
-    calls, the first of them counted and checked.  Returns the sampler, the
-    counted launches, the median wall time and phase 18's horizon: the median
-    clock at ``SUZZ_HORIZON_EVENTS`` events, to three digits."""
+    calls, the first of them counted and checked (:func:`tag_calls`).
+    Returns the sampler, the counted launches, the median wall time and phase
+    18's horizon: the median clock at ``SUZZ_HORIZON_EVENTS`` events, to
+    three digits."""
     d, B, n_sk = SUZZ_D10
     sampler, x0, v0 = suzz_deployment()
-    kw = dict(seed=0, dtype=torch.float32, device=DEV)
-    pt.sample_skeleton(sampler, n_sk, x0, v0, **kw)  # warm: allocator, fill ratio
-    sync()
-    walls = []
-    for call in range(SUZZ_CALLS):
-        if call == 0:
-            build.reset_launches()
-        t0 = time.perf_counter()
-        skel = pt.sample_skeleton(sampler, n_sk, x0, v0, **kw)
-        sync()
-        walls.append(time.perf_counter() - t0)
-        if call == 0:
-            launches = dict(build.LAUNCHES)
-            checked = skel
-    skel = checked
+    skel, launches, walls = tag_calls("Speed-Up Zig-Zag path", sampler, n_sk, x0, v0,
+                                      SUZZ_CALLS)
     if launches["suzz_chunk"] < 1 or launches["compact_rows"] < 1:
         raise AssertionError(f"Speed-Up Zig-Zag path missed a kernel: {launches}")
-    if not bool((skel.n_valid == n_sk).all()):
-        raise AssertionError(f"Speed-Up Zig-Zag path incomplete: n_valid min "
-                             f"{int(skel.n_valid.min())}")
-    if not bool(torch.isfinite(skel.x).all() and torch.isfinite(skel.t).all()):
-        raise AssertionError("Speed-Up Zig-Zag path produced non-finite values")
-    if not bool((skel.t[:, 1:] >= skel.t[:, :-1]).all()):
-        raise AssertionError("Speed-Up Zig-Zag path: t decreases somewhere")
     mean, var = pt.pooled_moments(skel, sampler, 256)
     if not moments_ok(mean, var):
         raise AssertionError(f"Speed-Up Zig-Zag moments off: mean {mean.tolist()} "
                              f"var {var.tolist()}")
     events = int(skel.n_valid.sum()) - B
     T = float(f"{float(skel.t[:, SUZZ_HORIZON_EVENTS].median()):.3g}")
-    del skel, checked
-    med = float(np.median(walls))
+    del skel
     print(f"phase 17 suzz_gauss_d10: SpeedUpZigZagAD({d}, gauss) B={B} n_sk={n_sk} f32 "
           f"events={events} launches={launches}; complete, t non-decreasing and finite, "
           f"max|mean|={float(mean.abs().max()):.4f} max|var-1|="
-          f"{float((var - 1).abs().max()):.4f}; {SUZZ_CALLS} warm calls "
-          f"{' '.join(f'{w:.4f}' for w in walls)} s, median {med:.4f} s "
-          f"({events / med:.1f} events/s), spread {min(walls):.4f}-{max(walls):.4f} s "
-          f"({card_name})", flush=True)
-    return sampler, launches, med, T
+          f"{float((var - 1).abs().max()):.4f}; {walls_text(walls, events)} ({card_name})",
+          flush=True)
+    return sampler, launches, float(np.median(walls)), T
 
 
 def phase_suzz_breakdown(sampler, launches, wall):
-    """The Speed-Up Zig-Zag path's fill and compaction timed apart, K2
-    checked bit for bit on this fill, one K=32 chunk of K4 checked against
-    its plain version at this shape in float32 (as ``compare_f32`` states) and
-    each kernel timed beside its plain version; then the median warm call
-    (``wall``, phase 17) split into K4, K2 and the rest."""
-    d, B, n_sk = SUZZ_D10
-    target = n_sk - 1
-    dtype = torch.float32
+    """The Speed-Up Zig-Zag path's fill and compaction timed apart, one f32
+    K=32 chunk of K4 against its plain version, and the median warm call's
+    split (:func:`tag_breakdown`).  Returns (K4 ms, plain ms, bound, K2
+    err, f32 err)."""
     _, x0, v0 = suzz_deployment()
-    t_cap = api.fill_rows(sampler, target, B, d, dtype, DEV)
-    state = sampler.init_state_batch(x0, v0, 0, dtype, DEV)
-    init = event_from_state(state, EV_INIT)
-    run = driver.make_stream_runner(sampler, t_cap, target)
-    zeros = torch.zeros(B, dtype=torch.int32, device=DEV)
-    sync()
-    t0 = time.perf_counter()
-    res = run(state, zeros)
-    sync()
-    fill_s = time.perf_counter() - t0
-    n_launch, complete = res.transitions // 32, int((res.counts >= target).sum())
-    off = torch.ones(B, dtype=torch.int32, device=DEV)
-    outs = []
-    for fn in (k2.compact_rows, k2.compact_rows_plain):
-        out = k2.empty_rows(B, target + 1, d, dtype, DEV)
-        for a in out[:-1]:
-            a.zero_()  # columns past a short chain's rows stay equal
-        kind, specs = k2.fill_specs(res.fill, out, init)
-        fn(kind, specs, off)
-        outs.append(out)
-    sync()
-    k2_err = k2_outputs_equal("Speed-Up Zig-Zag path", *outs)
-    del outs, out
-    k2_ms = cuda_ms(lambda: k2.compact_rows(kind, specs, off), 5)
-    k2_plain_ms = cuda_ms(lambda: k2.compact_rows_plain(kind, specs, off), 2)
-    k2_b = k2_bound(res.fill, res.counts, target + 1)
-    del res, specs, kind
-
-    K, seed = 32, 7
-    cfg = driver.chunk_config(sampler, K, 1 << 30, 128)
-    st = driver.chunk_state(state, zeros)
-    st_p = clone_state(st)
-    v0c = st.v.clone()
-    fill, fill_p = (k1.empty_fill(K, d, B, dtype, DEV) for _ in range(2))
-    k1.run_chunk(seed, st, fill, 0, cfg)
-    k1.run_chunk_plain(seed, st_p, fill_p, 0, cfg)
-    sync()
-    agree, share, err, texts = compare_f32("K4 f32", v0c, st, fill, st_p, fill_p, cfg, seed,
-                                           K4_F32_SHARE)
-    del st_p, fill_p
-    k4_b = chunk_bound(cfg, st, fill, K * B)
-    k4_ms = cuda_ms(lambda: k1.run_chunk(seed, st, fill, 0, cfg), 20)
-    k4_plain_ms = cuda_ms(lambda: k1.run_chunk_plain(seed, st, fill, 0, cfg), 2)
-    print(f"phase 17b Speed-Up Zig-Zag breakdown (B={B}, d={d}, f32): fill {fill_s:.4f} s "
-          f"over {t_cap} rows, {n_launch} K4 launches ({complete} of {B} chains complete "
-          f"in it); K2 compaction (T={t_cap}, W={target + 1}) {k2_ms:.4f} ms vs plain "
-          f"{k2_plain_ms:.4f} ms, bit-identical, bound {bound_text(k2_b)}; K4 chunk "
-          f"(K={K}) {k4_ms:.4f} ms vs plain {k4_plain_ms:.4f} ms, bound {bound_text(k4_b)}; "
-          f"kinds agree on {agree:.6f}, max_abs_err {err:.3e} on the {share:.4f} of chains "
-          f"with equal decisions (want >= {K4_F32_SHARE}); the others left at f32 rounding "
-          f"ties: {'; '.join(texts) or 'none'}", flush=True)
-    wall_ms = wall * 1e3
-    k4_total = launches["suzz_chunk"] * k4_ms
-    k2_total = launches["compact_rows"] * k2_ms
-    rest = wall_ms - k4_total - k2_total
-    print(f"phase 17c Speed-Up Zig-Zag time split of the median warm call ({wall_ms:.4f} "
-          f"ms): K4 {launches['suzz_chunk']} x {k4_ms:.4f} = {k4_total:.4f} ms "
-          f"({k4_total / wall_ms:.1%}); K2 {launches['compact_rows']} x {k2_ms:.4f} = "
-          f"{k2_total:.4f} ms ({k2_total / wall_ms:.1%}); rest (host, card idle) "
-          f"{rest:.4f} ms ({rest / wall_ms:.1%})", flush=True)
-    return k4_ms, k4_plain_ms, k4_b, k2_err, err
+    ms, plain_ms, b, k2_err, _, _, _, err, _ = tag_breakdown(
+        "phase 17b suzz_gauss_d10", sampler, x0, v0, SUZZ_D10[2], launches, wall,
+        K4_F32_SHARE)
+    return ms, plain_ms, b, k2_err, err
 
 
 def phase_suzz_horizon(card_name, sampler, T):
@@ -2332,7 +2411,7 @@ ENGINE_FAMILIES = {            # phase 22: one case per family, f64 on the Gauss
     "rhmc": lambda d: pt.RHMCAD(d, pt.potentials.gauss),
 }
 RHMC_D10 = (10, 512, 1024, 1.0)  # d, chains, points, refresh: rhmc_gauss_d10
-RHMC_CALLS = 3                   # timed warm calls of the RHMC path
+RHMC_CALLS = 1                   # timed warm calls of the RHMC path (3 before phase 33)
 RHMC_HORIZON_T = 200.0           # its time-horizon call (~200 events per chain)
 BANANA_D10 = (10, 512, 2048)     # d, chains, points (cut from 4096): zigzag_banana_d10_fd / _jvp
 ROUTE_STREAM = (512, 10, 300.0, 1024, 32)  # phase 25: chains, d, T, grid, windows
@@ -3413,6 +3492,198 @@ def phase_gspmd(card_name):
     return k2_n, err, ms, plain_ms, b
 
 
+def tag_calls(what, sampler, n_sk, x0, v0, calls):
+    """A deployment's kernel route: one warm call, then ``calls`` timed warm
+    calls (f32), the launches counted over the first of them (every count
+    set to 0 just before it), which is checked complete, finite and with
+    non-decreasing t.  Returns (that call's skeleton, its launches, the
+    walls)."""
+    kw = dict(seed=0, dtype=torch.float32, device=DEV)
+    pt.sample_skeleton(sampler, n_sk, x0, v0, **kw)  # warm: allocator, fill ratio
+    sync()
+    walls = []
+    for call in range(calls):
+        if call == 0:
+            build.reset_launches()
+        t0 = time.perf_counter()
+        skel = pt.sample_skeleton(sampler, n_sk, x0, v0, **kw)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        if call == 0:
+            launches, checked = dict(build.LAUNCHES), skel
+    check_complete(what, checked, n_sk)
+    return checked, launches, walls
+
+
+def walls_text(walls, events):
+    med = float(np.median(walls))
+    return (f"{len(walls)} warm calls {' '.join(f'{w:.4f}' for w in walls)} s, median "
+            f"{med:.4f} s ({events / med:.1f} events/s), spread {min(walls):.4f}-"
+            f"{max(walls):.4f} s")
+
+
+def tag_breakdown(what, sampler, x0, v0, n_sk, launches, wall, share_min):
+    """A deployment's fill and compaction timed apart, K2 checked bit for bit
+    on its first fill, one K=32 chunk of its chunk kernel (K1 or K4) checked
+    against its plain version at this shape in float32 (``compare_f32``), the
+    kernel and K2 timed beside their plain versions; then the median warm
+    call (``wall``) split into the chunk kernel's launches x its time, K2 and
+    the rest.  Returns (kernel ms, plain ms, bound, K2 err, ms, plain ms,
+    bound, f32 err, the split's text)."""
+    B, d = x0.shape
+    target = n_sk - 1
+    dtype = torch.float32
+    t_cap = api.fill_rows(sampler, target, B, d, dtype, DEV)
+    state = sampler.init_state_batch(x0, v0, 0, dtype, DEV)
+    init = event_from_state(state, EV_INIT)
+    run = driver.make_stream_runner(sampler, t_cap, target)
+    zeros = torch.zeros(B, dtype=torch.int32, device=DEV)
+    sync()
+    t0 = time.perf_counter()
+    res = run(state, zeros)
+    sync()
+    fill_s = time.perf_counter() - t0
+    off = torch.ones(B, dtype=torch.int32, device=DEV)
+    outs = []
+    for fn in (k2.compact_rows, k2.compact_rows_plain):
+        out = k2.empty_rows(B, target + 1, d, dtype, DEV)
+        for a in out[:-1]:
+            a.zero_()  # columns past a short chain's rows stay equal
+        kind, specs = k2.fill_specs(res.fill, out, init)
+        fn(kind, specs, off)
+        outs.append(out)
+    sync()
+    k2_err = k2_outputs_equal(what, *outs)
+    del outs, out
+    k2_ms = cuda_ms(lambda: k2.compact_rows(kind, specs, off), 5)
+    k2_plain_ms = cuda_ms(lambda: k2.compact_rows_plain(kind, specs, off), 2)
+    k2_b = k2_bound(res.fill, res.counts, target + 1)
+    del res, specs, kind
+
+    K, seed = 32, 7
+    cfg = card_config(sampler, K, 1 << 30, dtype)
+    name = k1.launch_name(cfg)
+    st = driver.chunk_state(state, zeros)
+    st_p = clone_state(st)
+    v0c = st.v.clone()
+    fill, fill_p = (k1.empty_fill(K, d, B, dtype, DEV) for _ in range(2))
+    k1.run_chunk(seed, st, fill, 0, cfg)
+    k1.run_chunk_plain(seed, st_p, fill_p, 0, cfg)
+    sync()
+    agree, share, err, texts = compare_f32(f"{what} {name} f32", v0c, st, fill, st_p, fill_p,
+                                           cfg, seed, share_min)
+    del st_p, fill_p
+    b = chunk_bound(cfg, st, fill, K * B)
+    ms = cuda_ms(lambda: k1.run_chunk(seed, st, fill, 0, cfg), 20)
+    plain_ms = cuda_ms(lambda: k1.run_chunk_plain(seed, st, fill, 0, cfg), 2)
+    wall_ms = wall * 1e3
+    k_total, k2_total = launches[name] * ms, launches["compact_rows"] * k2_ms
+    rest = wall_ms - k_total - k2_total
+    split = (f"split of the median warm call ({wall_ms:.4f} ms): {name} {launches[name]} x "
+             f"{ms:.4f} = {k_total:.4f} ms ({k_total / wall_ms:.1%}); K2 "
+             f"{launches['compact_rows']} x {k2_ms:.4f} = {k2_total:.4f} ms "
+             f"({k2_total / wall_ms:.1%}); rest (host, card idle) {rest:.4f} ms "
+             f"({rest / wall_ms:.1%})")
+    print(f"{what} breakdown (B={B}, d={d}, f32): fill {fill_s:.4f} s over {t_cap} rows; "
+          f"K2 (T={t_cap}, W={target + 1}) {k2_ms:.4f} ms vs plain {k2_plain_ms:.4f} ms, "
+          f"bit-identical, bound {bound_text(k2_b)}; {name} (K={K}) {ms:.4f} ms vs plain "
+          f"{plain_ms:.4f} ms, bound {bound_text(b)}; kinds agree on {agree:.6f}, "
+          f"max_abs_err {err:.3e} on the {share:.4f} of chains with equal decisions (want "
+          f">= {share_min}); the others left at f32 rounding ties: "
+          f"{'; '.join(texts) or 'none'}; {split}", flush=True)
+    return ms, plain_ms, b, k2_err, k2_ms, k2_plain_ms, k2_b, err, split
+
+
+def phase_suzz_cauchy(card_name):
+    """Phase 34, ``suzz_cauchy_d10``: SpeedUpZigZagAD(10, cauchy), 512 chains
+    x 2048 points, x0 = 0, v0 = 1, f32 (``suzz_gauss_d10``'s shape on the
+    heavy-tailed target of ``tests/test_integration.py:91``), K4 and K2 on
+    the card.  Gate on ``CAUCHY_SAMPLES`` equal-time samples per chain,
+    pooled over chains and coordinates: |median| < 0.1, the quartiles within
+    0.15 of -1 and 1, each coordinate's within 0.25, and max |x| > 5 (the
+    tails visited).  Then the breakdown and the split (34b).  Returns the
+    counted launches and :func:`tag_breakdown`'s numbers."""
+    d, B, n_sk = SUZZ_CAUCHY_D10
+    what = "phase 34 suzz_cauchy_d10"
+    sampler = pt.SpeedUpZigZagAD(d, pt.potentials.cauchy)
+    x0, v0 = np.zeros((B, d)), np.ones((B, d))
+    skel, launches, walls = tag_calls(what, sampler, n_sk, x0, v0, TAG_CALLS)
+    if launches["suzz_chunk"] < 1 or launches["compact_rows"] < 1:
+        raise AssertionError(f"{what}: the path missed a kernel: {launches}")
+    xs = pt.sample_from_skeleton_batch(sampler, CAUCHY_SAMPLES, skel).float()  # (B, n, d)
+    if not bool(torch.isfinite(xs).all()):
+        raise AssertionError(f"{what}: non-finite samples")
+    q = torch.tensor([0.25, 0.5, 0.75], device=xs.device)
+    pooled = torch.quantile(xs.reshape(-1)[::7], q)  # a stride keeps torch.quantile's limit
+    per = torch.stack([torch.quantile(xs[..., i].reshape(-1), q) for i in range(d)])
+    want = torch.tensor([-1.0, 0.0, 1.0], device=xs.device)
+    med, q_err = float(pooled[1].abs()), float((pooled - want)[[0, 2]].abs().max())
+    per_err = float((per - want)[:, [0, 2]].abs().max())
+    x_max = float(xs.abs().max())
+    if not (med < 0.1 and q_err < 0.15 and per_err < 0.25 and x_max > 5.0):
+        raise AssertionError(f"{what}: |median| {med:.4f}, quartiles {pooled.tolist()}, "
+                             f"per-coordinate quartiles off by {per_err:.4f}, max|x| {x_max}")
+    events = int(skel.n_valid.sum()) - B
+    del skel, xs
+    print(f"{what}: SpeedUpZigZagAD({d}, cauchy) B={B} n_sk={n_sk} f32 events={events} "
+          f"launches={launches}; complete, finite, t non-decreasing; {CAUCHY_SAMPLES} "
+          f"samples per chain: |median| {med:.4f} < 0.1, quartiles "
+          f"{float(pooled[0]):.4f} {float(pooled[2]):.4f} within {q_err:.4f} < 0.15 of -1 "
+          f"and 1, each coordinate's within {per_err:.4f} < 0.25, max|x| {x_max:.1f} > 5; "
+          f"{walls_text(walls, events)} ({card_name})", flush=True)
+    out = tag_breakdown("phase 34b suzz_cauchy_d10", sampler, x0, v0, n_sk, launches,
+                        float(np.median(walls)), K4_F32_SHARE)
+    return launches, out
+
+
+def phase_neal_funnel(card_name):
+    """Phase 35, ``zigzag_neal_funnel_d10``: ZigZagAD(10, neal_funnel), 8192
+    chains x 2048 points, x0 = 0, v0 = 1, f32 (the flagship's shape on
+    Neal's funnel), K1 and K2 on the card; then the same configuration on
+    the transition engine (``backend="xla_stream"``, the route a user of this
+    target took before the funnels had a device tag; same seed, independent
+    trajectories), one timed call.  Gate: the two routes' pooled means of
+    x[0] differ by < 0.15 and their variances by < 10%; the kernel route's
+    mean and variance against the truth (0, 9) printed, without a gate (the
+    Zig-Zag's bias in the funnel's neck at 2048 events).  Then the kernel
+    route's breakdown and split (35b).  Returns the counted launches,
+    :func:`tag_breakdown`'s numbers and the engine route's K2 entry."""
+    d, B, n_sk = NEAL_D10
+    what = "phase 35 zigzag_neal_funnel_d10"
+    sampler = pt.ZigZagAD(d, pt.potentials.neal_funnel)
+    x0, v0 = np.zeros((B, d)), np.ones((B, d))
+    skel, launches, walls = tag_calls(what, sampler, n_sk, x0, v0, TAG_CALLS)
+    if launches["zigzag_chunk"] < 1 or launches["compact_rows"] < 1:
+        raise AssertionError(f"{what}: the path missed a kernel: {launches}")
+    mean_k, var_k = pt.pooled_moments(skel, sampler, 256)
+    events = int(skel.n_valid.sum()) - B
+    del skel
+    eskel, e_wall, k2_n, chunks, transitions, eng_ms, first = engine_call(
+        sampler, n_sk, x0, v0, seed=0, backend="xla_stream")
+    check_complete(f"{what} engine route", eskel, n_sk)
+    mean_e, var_e = pt.pooled_moments(eskel, sampler, 256)
+    del eskel
+    m_k, m_e, v_k, v_e = (float(a[0]) for a in (mean_k, mean_e, var_k, var_e))
+    if not (abs(m_k - m_e) < 0.15 and abs(v_k / v_e - 1) < 0.1):
+        raise AssertionError(f"{what}: x[0] mean {m_k:.4f} (kernel) vs {m_e:.4f} (engine), "
+                             f"variance {v_k:.4f} vs {v_e:.4f}")
+    k2e = engine_k2_check(f"{what} engine route", first)
+    del first
+    print(f"{what}: ZigZagAD({d}, neal_funnel) B={B} n_sk={n_sk} f32 events={events} "
+          f"launches={launches}; complete, finite, t non-decreasing; "
+          f"{walls_text(walls, events)}; x[0] mean {m_k:.4f}, variance {v_k:.4f} "
+          f"(truth 0, 9; not gated); the engine route (backend='xla_stream'): one call "
+          f"{e_wall:.4f} s ({events / e_wall:.1f} events/s), {chunks} chunks, {transitions} "
+          f"transitions, {engine_split(e_wall, k2_n, k2e[1], eng_ms)}, x[0] mean {m_e:.4f}, "
+          f"variance {v_e:.4f}: the means differ by {abs(m_k - m_e):.4f} < 0.15, the "
+          f"variances by {abs(v_k / v_e - 1):.2%} < 10%; the engine route's time is "
+          f"{e_wall / float(np.median(walls)):.1f}x the kernel route's ({card_name})",
+          flush=True)
+    out = tag_breakdown("phase 35b zigzag_neal_funnel_d10", sampler, x0, v0, n_sk, launches,
+                        float(np.median(walls)), K1_F32_SHARE)
+    return launches, out, (k2_n, *k2e)
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b):
     return {"name": name, "route": "cuda", "source": f"pdmpflux_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -3424,84 +3695,115 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b):
 
 def main():
     card_name = card()
+    t_start = time.perf_counter()
+
+    def at(phase):
+        """The script's clock after a phase, for its time budget."""
+        print(f"[after phase {phase}: {time.perf_counter() - t_start:.1f} s]", flush=True)
+
     phase_build()
+    at(1)
     k1_err = phase_k1()
     k2_err = phase_k2()
+    at(3)
     sampler, launches = phase_main(card_name)
     (k1_ms, k1_plain_ms, k2_ms, k2_plain_ms, k2_main_err, k1_b,
      k2_b) = phase_breakdown(sampler)
     phase_large_d()
+    at(5)
     k6_err = phase_k6()
     sticky, sticky_launches, sticky_wall = phase_sticky(card_name)
     k6_ms, k6_plain_ms, _, _, k2_sticky_err, k6_b = phase_sticky_breakdown(
         sticky, sticky_launches["sticky_chunk"], sticky_wall)
     phase_sticky_law()
+    at(8)
     k35_err = phase_k3()
     bps, bps_launches, bps_wall = phase_bps(card_name)
     k3_ms, k3_plain_ms, k3_b, k2_bps_err, k3_bps_f32_err = phase_bps_breakdown(
         bps, bps_launches["bps_chunk"], bps_wall)
     k3_boomerang_f32_err = phase_boomerang(card_name)
     ecmc_launches, k5_ms, k5_plain_ms, k5_b, k5_f32_err = phase_ecmc(card_name)
+    at(12)
     k7_errs = phase_k7()
     hz, hz_launches, hz_wall = phase_horizon(card_name)
     k7_ms, k7_plain_ms, k7_b, k2_hz_err, k7_f32_err = phase_horizon_breakdown(
         hz, hz_launches, hz_wall)
     checks = phase_horizon_checks(card_name)
+    at(15)
     k4_errs = phase_k4()
     suzz, suzz_launches, suzz_wall, suzz_T = phase_suzz(card_name)
     k4_ms, k4_plain_ms, k4_b, k2_suzz_err, k4_f32_err = phase_suzz_breakdown(
         suzz, suzz_launches, suzz_wall)
     k4h_n, k4h_ms, k4h_plain_ms, k4h_b = phase_suzz_horizon(card_name, suzz, suzz_T)
+    at(18)
     k6s_n, k6s_ms, k6s_plain_ms, k6s_err, k6s_b, rate = phase_stream_sticky(card_name)
     k1s_n, k1s_ms, k1s_plain_ms, k1s_err, k1s_b, banana = phase_stream_banana(card_name)
+    at(20)
     phase_checkpoints(card_name, rate)
+    at(21)
     phase_engine_agreement()
     k2_paths = {"rhmc_gauss_d10": phase_rhmc(card_name)}
     for tderiv in ("fd", "jvp"):
         k2_paths[f"zigzag_banana_d10_{tderiv}"] = phase_banana_engine(card_name, tderiv)
     phase_routing(card_name)
+    at(25)
     k2_paths["host:sticky_zigzag_d1000"] = phase_host_sticky(card_name, sticky, k6_ms)
     k2_paths["host:zigzag_gauss_d10_horizon"] = phase_host_horizon(card_name, hz, k7_ms)
     k1_sharded = phase_sharded(card_name, k1_ms, k2_ms)
     phase_stream_mesh(card_name, banana)
+    at(29)
     traced, traced_launches = phase_profiled(card_name, sampler)
     phase_plots(card_name, sampler, traced)
     del traced
     k2_paths["gspmd:zigzag_d10000"] = phase_gspmd(card_name)
+    at(32)
+    tag_errs = phase_tags()
+    at(33)
+    cauchy_launches, cauchy = phase_suzz_cauchy(card_name)
+    at(34)
+    neal_launches, neal, k2_paths["engine:zigzag_neal_funnel_d10"] = phase_neal_funnel(
+        card_name)
+    at(35)
     zz = "pdmpflux_tpu/ops/pallas/zigzag_chunk.py:854"
     k7 = 'pdmpflux_tpu/ops/pallas/zigzag_chunk.py:343 mode="horizon"'
     kernels = [
         kernel_entry("zigzag_chunk", "zigzag_chunk.cu", zz, launches["zigzag_chunk"],
-                     k1_err, k1_ms, k1_plain_ms, k1_b),
+                     max(k1_err, tag_errs["zigzag_chunk"]), k1_ms, k1_plain_ms, k1_b),
         kernel_entry("compact_rows", "compact.cu", "pdmpflux_tpu/ops/pallas/compact.py:132",
                      launches["compact_rows"],
                      max(k2_err, k2_main_err, k2_sticky_err, k2_bps_err, k2_hz_err,
                          k2_suzz_err),
                      k2_ms, k2_plain_ms, k2_b),
         kernel_entry("sticky_chunk", "sticky_chunk.cu", zz, sticky_launches["sticky_chunk"],
-                     k6_err, k6_ms, k6_plain_ms, k6_b),
+                     max(k6_err, tag_errs["sticky_chunk"]), k6_ms, k6_plain_ms, k6_b),
         kernel_entry("bps_chunk", "scalar_chunk.cu", zz + ' kind="bps"/"boomerang"',
                      bps_launches["bps_chunk"],
-                     max(k35_err["bps_chunk"], k3_bps_f32_err, k3_boomerang_f32_err),
+                     max(k35_err["bps_chunk"], k3_bps_f32_err, k3_boomerang_f32_err,
+                         tag_errs["bps_chunk"]),
                      k3_ms, k3_plain_ms, k3_b),
         kernel_entry("ecmc_chunk", "scalar_chunk.cu", zz + ' kind="ecmc"',
-                     ecmc_launches["ecmc_chunk"], max(k35_err["ecmc_chunk"], k5_f32_err),
+                     ecmc_launches["ecmc_chunk"],
+                     max(k35_err["ecmc_chunk"], k5_f32_err, tag_errs["ecmc_chunk"]),
                      k5_ms, k5_plain_ms, k5_b),
         kernel_entry("zigzag_chunk_horizon", "zigzag_chunk.cu", k7,
                      hz_launches["zigzag_chunk_horizon"],
-                     max(k7_errs["zigzag_chunk_horizon"], k7_f32_err), k7_ms, k7_plain_ms, k7_b),
+                     max(k7_errs["zigzag_chunk_horizon"], k7_f32_err,
+                         tag_errs["zigzag_chunk_horizon"]), k7_ms, k7_plain_ms, k7_b),
     ]
     for name, source in (("sticky_chunk_horizon", "sticky_chunk.cu"),
                          ("bps_chunk_horizon", "scalar_chunk.cu"),
                          ("ecmc_chunk_horizon", "scalar_chunk.cu")):
         n, ms, plain_ms, b = checks[name]
-        kernels.append(kernel_entry(name, source, k7, n, k7_errs[name], ms, plain_ms, b))
+        kernels.append(kernel_entry(name, source, k7, n, max(k7_errs[name], tag_errs[name]),
+                                    ms, plain_ms, b))
     kernels += [
         kernel_entry("suzz_chunk", "suzz_chunk.cu", zz + ' kind="suzz"',
-                     suzz_launches["suzz_chunk"], max(k4_errs["suzz_chunk"], k4_f32_err),
+                     suzz_launches["suzz_chunk"],
+                     max(k4_errs["suzz_chunk"], k4_f32_err, tag_errs["suzz_chunk"]),
                      k4_ms, k4_plain_ms, k4_b),
         kernel_entry("suzz_chunk_horizon", "suzz_chunk.cu", k7, k4h_n,
-                     k4_errs["suzz_chunk_horizon"], k4h_ms, k4h_plain_ms, k4h_b),
+                     max(k4_errs["suzz_chunk_horizon"], tag_errs["suzz_chunk_horizon"]),
+                     k4h_ms, k4h_plain_ms, k4h_b),
         # the streaming paths' launches, each timed inside its run
         kernel_entry("sticky_chunk_horizon[sticky_zigzag_d1000_streaming]", "sticky_chunk.cu",
                      k7, k6s_n, max(k7_errs["sticky_chunk_horizon"], k6s_err), k6s_ms,
@@ -3520,6 +3822,20 @@ def main():
                      "pdmpflux_tpu/ops/pallas/compact.py:132", traced_launches["compact_rows"],
                      max(k2_err, k2_main_err), k2_ms, k2_plain_ms, k2_b),
     ]
+    # the two deployments of the new device tags (phases 34, 35), each kernel
+    # timed at its shape and checked there in f32 and in phase 33 in f64
+    for path, deploy, (name, source, replaces) in (
+            ("suzz_cauchy_d10", (cauchy_launches, cauchy),
+             ("suzz_chunk", "suzz_chunk.cu", zz + ' kind="suzz"')),
+            ("zigzag_neal_funnel_d10", (neal_launches, neal),
+             ("zigzag_chunk", "zigzag_chunk.cu", zz))):
+        n, (ms, plain_ms, b, k2e, k2ms, k2pms, k2b, f32e, _) = deploy
+        kernels += [
+            kernel_entry(f"{name}[{path}]", source, replaces, n[name],
+                         max(tag_errs[name], f32e), ms, plain_ms, b),
+            kernel_entry(f"compact_rows[{path}]", "compact.cu",
+                         "pdmpflux_tpu/ops/pallas/compact.py:132", n["compact_rows"], k2e,
+                         k2ms, k2pms, k2b)]
     # the engine and host paths' K2 launches, each checked and timed on its own fill
     for path, (n, err, ms, plain_ms, b) in k2_paths.items():
         kernels.append(kernel_entry(f"compact_rows[{path}]", "compact.cu",

@@ -10,7 +10,8 @@ its sticky chain-per-CTA variant, the Speed-Up Zig-Zag chunk kernel and the
 warp-per-chain scalar-rate chunk kernel, each with a horizon mode: every
 Pallas kernel of the JAX package has its counterpart) or from the transition
 engine (``core/engine.py``, plain torch on the device: RHMC, scalar bounds,
-finite-difference tangents, untagged gradients with ``backend="xla_stream"``),
+finite-difference tangents, a gradient of the user's own with
+``backend="xla_stream"``),
 and every fill is compacted by the event-row compaction kernel.  Also the
 diagnostics (ESS, split-R-hat, realized volatility), checkpoint/resume of
 ``sample_skeleton``, host accumulation of skeletons past the card's memory,

@@ -166,9 +166,9 @@ def pick_backend(sampler, backend: str, d: int, dtype, device) -> str:
     * ``"pallas"``: the kernel, or ``ValueError`` where none covers the
       sampler or the shape.
 
-    On CUDA a covered sampler whose gradient carries no device potential of
-    its kernel raises under ``"auto"`` and ``"pallas"``, naming
-    ``backend="xla_stream"``.  A failed build or launch never picks the
+    On CUDA a covered sampler whose gradient carries no device potential
+    (a gradient of the user's own) raises under ``"auto"`` and ``"pallas"``,
+    naming ``backend="xla_stream"``.  A failed build or launch never picks the
     route: they raise where they happen."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, not {backend!r}")
@@ -198,11 +198,11 @@ def pick_backend(sampler, backend: str, d: int, dtype, device) -> str:
                 "backend='xla_stream' here"
             )
         return "engine"
-    potentials = k3.KERNEL_POTENTIALS if scalar else k1.KERNEL_POTENTIALS
-    if sampler.device_potential not in potentials:
+    if sampler.device_potential not in k1.KERNEL_POTENTIALS:
         what = ("scalar-rate" if scalar else "Speed-Up Zig-Zag" if kind == "suzz"
                 else "Sticky Zig-Zag" if sampler.sticky else "Zig-Zag")
-        raise ValueError(k1.potential_message(what, potentials, sampler.device_potential))
+        raise ValueError(k1.potential_message(what, k1.KERNEL_POTENTIALS,
+                                              sampler.device_potential))
     return "kernel"
 
 

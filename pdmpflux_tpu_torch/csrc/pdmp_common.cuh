@@ -2,9 +2,10 @@
 // sticky_chunk.cu, K6, suzz_chunk.cu, K4, and scalar_chunk.cu, K3/K5): the
 // Threefry-2x32 counter RNG of the Pallas kernel (pdmpflux_tpu/ops/pallas/
 // zigzag_chunk.py: _threefry2x32, _mant24, _uniform, _exponential,
-// _box_muller), a NaN-propagating max, the device potentials, the warp-wide
-// envelope of K3/K5 and K4 (one grid point per lane), and the grid-order
-// clock inversion of K1 and K6 (EnvelopeWalk).
+// _box_muller), a NaN-propagating max, the device potentials and the chain
+// sums the funnels read, the warp-wide envelope of K3/K5 and K4 (one grid
+// point per lane), and the grid-order clock inversion of K1 and K6
+// (EnvelopeWalk).
 
 #pragma once
 
@@ -139,32 +140,73 @@ __device__ __forceinline__ T vel(const T* v, const uint8_t* act, long stride, in
   return (act == nullptr || act[i]) ? v[i * stride] : (T)0;
 }
 
+// Sums over a chain's coordinates 1..d-1 that the funnels' coordinate 0
+// reads at the evaluation point y: S = sum y_j^2, P = sum y_j va_j, and
+// n = d - 1.  The other potentials ignore them; a potential that reads them
+// says so with chain = true, and only then does a kernel compute them.  Two
+// forms, chosen by the kernel's layout:
+//  - K3/K5 and K4, where one lane walks the chain: chain_sums, the sums
+//    at the evaluation point itself in coordinate order, as the plain
+//    versions add them (utils/potentials.chain_sums), so they agree bit for
+//    bit;
+//  - K1 and K6, where a chain's coordinates lie across lanes: ChainMoments,
+//    the moments A = sum x_j^2, Bm = sum x_j va_j and C = sum va_j^2 of the
+//    transition's starting point, reduced once per transition (after the
+//    previous flow, flip, stick or thaw), from which the linear flow gives
+//    S(t) = A + t (2 Bm + t C) and P(t) = Bm + t C at every time the
+//    transition evaluates; these agree with the plain versions to rounding.
+template <typename T>
+struct ChainSums {
+  T S, P, n;
+};
+
+template <typename T>
+struct ChainMoments {
+  T A, Bm, C, n;
+
+  __device__ __forceinline__ ChainSums<T> at(T t) const {
+    return {A + t * ((T)2 * Bm + t * C), Bm + t * C, n};
+  }
+};
+
+// S and P in coordinate order from yw(j, y, w), which gives coordinate j's
+// point y and velocity w.
+template <typename T, class F>
+__device__ __forceinline__ ChainSums<T> chain_sums(int d, F yw) {
+  ChainSums<T> cs{(T)0, (T)0, (T)(d - 1)};
+  for (int j = 1; j < d; ++j) {
+    T y, w;
+    yw(j, y, w);
+    cs.S = j == 1 ? y * y : cs.S + y * y;
+    cs.P = j == 1 ? y * w : cs.P + y * w;
+  }
+  return cs;
+}
+
 // Device potentials (utils/potentials.py tags): gradient component i at
-// x + va t and its derivative along va.  at() takes values: coordinate i's
-// own (xi, vi) and coordinates 0 and 1 (Banana reads them), and the
-// potential's parameters (Aniso's scales); eval() reads them from memory in
-// the layout of vel().  Both evaluate the same expressions, so they round
-// alike.
+// x + va t and its derivative along va, from values: coordinate i's own
+// (xi, vi), coordinates 0 and 1 (Banana and the funnels read them), the
+// potential's parameters (Aniso's scales) and the chain sums at the same
+// point (the funnels).  Each is written as the plain version
+// (utils/potentials.LANE_POTENTIALS) writes it, in jax.grad's order of
+// operations where the formula allows.
 template <typename T>
 struct Gauss {
+  static constexpr bool chain = false;
   __device__ __forceinline__ static void at(int, T xi, T vi, T, T, T, T, T t, const T*,
-                                            T& g, T& dg) {
+                                            const ChainSums<T>&, T& g, T& dg) {
     g = xi + vi * t;
     dg = vi;
-  }
-  __device__ __forceinline__ static void eval(const T* x, const T* v, const uint8_t* act,
-                                              long stride, int i, T t, T& g, T& dg) {
-    const T vi = vel(v, act, stride, i);
-    at(i, x[i * stride], vi, vi, vi, vi, vi, t, nullptr, g, dg);
   }
 };
 
 template <typename T>
 struct Banana {  // U = (x0^2 + (x1 - x0^2 + 1)^2 + sum_{k>=2} x_k^2) / 2
+  static constexpr bool chain = false;
   __device__ __forceinline__ static void at(int i, T xi, T vi, T x0, T v0, T x1, T v1, T t,
-                                            const T*, T& g, T& dg) {
+                                            const T*, const ChainSums<T>& cs, T& g, T& dg) {
     if (i >= 2) {
-      Gauss<T>::at(i, xi, vi, x0, v0, x1, v1, t, nullptr, g, dg);
+      Gauss<T>::at(i, xi, vi, x0, v0, x1, v1, t, nullptr, cs, g, dg);
       return;
     }
     const T y0 = x0 + v0 * t, y1 = x1 + v1 * t;
@@ -177,15 +219,6 @@ struct Banana {  // U = (x0^2 + (x1 - x0^2 + 1)^2 + sum_{k>=2} x_k^2) / 2
       dg = v1 - (T)2 * y0 * v0;
     }
   }
-  __device__ __forceinline__ static void eval(const T* x, const T* v, const uint8_t* act,
-                                              long stride, int i, T t, T& g, T& dg) {
-    if (i >= 2) {
-      Gauss<T>::eval(x, v, act, stride, i, t, g, dg);
-      return;
-    }
-    const T v0 = vel(v, act, stride, 0), v1 = vel(v, act, stride, 1);
-    at(i, x[0], v0, x[0], v0, x[stride], v1, t, nullptr, g, dg);
-  }
 };
 
 // U = sum((x_k / s_k)^2) / 2 with per-coordinate scales s (the "aniso" tag's
@@ -193,13 +226,112 @@ struct Banana {  // U = (x0^2 + (x1 - x0^2 + 1)^2 + sum_{k>=2} x_k^2) / 2
 // (v / s) / s.
 template <typename T>
 struct Aniso {
+  static constexpr bool chain = false;
   __device__ __forceinline__ static void at(int i, T xi, T vi, T, T, T, T, T t, const T* s,
-                                            T& g, T& dg) {
+                                            const ChainSums<T>&, T& g, T& dg) {
     const T si = s[i];
     g = (xi + vi * t) / si / si;
     dg = vi / si / si;
   }
 };
+
+// U = sum log(1 + x_k^2) (the "cauchy" tag): g = 2 (y q) with
+// q = 1 / (y^2 + 1), and along v 2 (v q + y p), p = -(2 (v y)) / (y^2 + 1)^2.
+template <typename T>
+struct Cauchy {
+  static constexpr bool chain = false;
+  __device__ __forceinline__ static void at(int, T xi, T vi, T, T, T, T, T t, const T*,
+                                            const ChainSums<T>&, T& g, T& dg) {
+    const T y = xi + vi * t;
+    const T j = y * y + (T)1;
+    const T q = (T)1 / j;
+    const T p = -((T)2 * (vi * y)) * ((T)1 / (j * j));
+    g = (T)2 * (y * q);
+    dg = (T)2 * (vi * q + y * p);
+  }
+};
+
+// U = sum x_k^2 / 2 + 0.1 sum sin(10 x_k) (the "ridged" tag), as XLA
+// compiles jax.grad (the factors 0.1 and 10 folded away):
+// g = (cos(10 y) + y / 2) + y / 2, and along v
+// (-((10 v) sin(10 y)) + v / 2) + v / 2.
+template <typename T>
+struct Ridged {
+  static constexpr bool chain = false;
+  __device__ __forceinline__ static void at(int, T xi, T vi, T, T, T, T, T t, const T*,
+                                            const ChainSums<T>&, T& g, T& dg) {
+    const T y = xi + vi * t;
+    const T z = (T)10 * y;
+    g = (cos(z) + (T)0.5 * y) + (T)0.5 * y;
+    dg = (-(((T)10 * vi) * sin(z)) + (T)0.5 * vi) + (T)0.5 * vi;
+  }
+};
+
+// U = c^2 / 2 + (d - 1) log c + S / (2 c^2), c = y_0 (the "funnel" tag):
+// g_0 = (-((S / c^4) c) + (d - 1) / c) + c, g_j = y_j / c^2; along v
+// dg_0 = (-(2 P c / c^4 - 3 (S / c^4) v_0) - (d - 1) v_0 / c^2) + v_0 and
+// dg_j = v_j / c^2 - 2 v_0 (c / c^4) y_j.
+template <typename T>
+struct Funnel {
+  static constexpr bool chain = true;
+  __device__ __forceinline__ static void at(int i, T xi, T vi, T x0, T v0, T, T, T t,
+                                            const T*, const ChainSums<T>& cs, T& g, T& dg) {
+    const T c = x0 + v0 * t;
+    const T c2 = c * c;
+    const T r4 = (T)1 / (c2 * c2);
+    if (i == 0) {
+      g = (-((r4 * cs.S) * c) + cs.n / c) + c;
+      const T a1 = (r4 * ((T)2 * cs.P)) * c;
+      const T a2 = (T)3 * ((r4 * cs.S) * v0);
+      dg = (-(a1 - a2) - (cs.n * v0) / c2) + v0;
+    } else {
+      const T y = xi + vi * t;
+      const T ic2 = (T)1 / c2;
+      g = ic2 * y;
+      dg = ic2 * vi + ((T)-2 * v0) * (c * r4) * y;
+    }
+  }
+};
+
+// U = c^2 / 18 + (d - 1) c / 2 + S e^{-c} / 2, c = y_0 (the "neal_funnel"
+// tag), e = exp(-c), k = 1 / 18, e' = -v_0 e:
+// g_0 = ((-((S / 2) e) + (d - 1) / 2) + c k) + c k, g_j = e y_j; along v
+// dg_0 = (-(P e + (S / 2) e') + v_0 k) + v_0 k and dg_j = e' y_j + e v_j.
+template <typename T>
+struct NealFunnel {
+  static constexpr bool chain = true;
+  __device__ __forceinline__ static void at(int i, T xi, T vi, T x0, T v0, T, T, T t,
+                                            const T*, const ChainSums<T>& cs, T& g, T& dg) {
+    const T c = x0 + v0 * t;
+    const T e = exp(-c);
+    const T ed = -v0 * e;
+    if (i == 0) {
+      const T k = (T)(1.0 / 18.0), half_s = (T)0.5 * cs.S;
+      g = ((-(half_s * e) + (T)0.5 * cs.n) + c * k) + c * k;
+      dg = (-(cs.P * e + half_s * ed) + v0 * k) + v0 * k;
+    } else {
+      const T y = xi + vi * t;
+      g = e * y;
+      dg = ed * y + e * vi;
+    }
+  }
+};
+
+// f(Pot{}) for the potential of a launcher's id (DEVICE_POTENTIALS in
+// utils/potentials.py); "aniso" needs its scales.
+template <typename T, class F>
+int with_potential(int potential, const void* prm, F&& f) {
+  switch (potential) {
+    case 0: return f(Gauss<T>{});
+    case 1: return f(Banana<T>{});
+    case 2: return prm != nullptr ? f(Aniso<T>{}) : (int)cudaErrorInvalidValue;
+    case 3: return f(Cauchy<T>{});
+    case 4: return f(Ridged<T>{});
+    case 5: return f(Funnel<T>{});
+    case 6: return f(NealFunnel<T>{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 // ---- the warp-wide envelope of K3/K5 and K4 ----
 //

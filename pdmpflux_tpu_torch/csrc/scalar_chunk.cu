@@ -49,7 +49,10 @@
 // or pow does, as both call CUDA's), which keeps BPS reflections, which
 // amplify any difference along a trajectory, from drifting apart.  Scalar
 // uniforms are drawn by every lane; per-coordinate ones by the lane owning the
-// coordinate.
+// coordinate.  The funnels' coordinate 0 reads sums over the chain's other
+// coordinates at the evaluation point (pdmp_common.cuh: ChainSums): every
+// lane adds them in coordinate order before its pass over a grid point,
+// and before thinning and the jump, as the plain version adds them.
 //
 // What bounds it on an H100: latency.  Per transition the critical path is
 // one lane's ordered O(d) pass over its grid point (the gradient, two products
@@ -81,13 +84,30 @@ struct Jump {
   double mix_p, sf;
 };
 
+// The funnels' sums over coordinates 1..d-1 of x + v t, x and v the chain's
+// d shared values, in coordinate order as the plain version adds them
+// (pdmp_common.cuh: chain_sums); zeros for a potential that does not read
+// them.
+template <typename T, class Pot>
+__device__ __forceinline__ ChainSums<T> sums_at(const T* x, const T* v, int d, T t) {
+  if constexpr (Pot::chain) {
+    return chain_sums<T>(d, [&](int j, T& y, T& w) {
+      w = v[j];
+      y = x[j] + w * t;
+    });
+  } else {
+    return {(T)0, (T)0, (T)(d - 1)};
+  }
+}
+
 // Gradient component i at x + v t and its derivative along v, x and v the
-// chain's d shared values; the "aniso" potential reads its scales from prm.
+// chain's d shared values; the "aniso" potential reads its scales from prm,
+// the funnels their chain sums cs at the same point.
 template <typename T, class Pot>
 __device__ __forceinline__ void grad_at(const T* x, const T* v, int d, int i, T t,
-                                        const T* prm, T& g, T& dg) {
+                                        const T* prm, const ChainSums<T>& cs, T& g, T& dg) {
   const int i1 = d > 1 ? 1 : 0;
-  Pot::at(i, x[i], v[i], x[0], v[0], x[i1], v[i1], t, prm, g, dg);
+  Pot::at(i, x[i], v[i], x[0], v[0], x[i1], v[i1], t, prm, cs, g, dg);
 }
 
 // Sum of r[0..d) in coordinate order, r[0] + r[1] + ..., the same bits in
@@ -167,10 +187,16 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
       const int i1 = d > 1 ? 1 : 0;
       const T y0 = X[0] * c + V[0] * s, w0 = -X[0] * s + V[0] * c;
       const T y1 = X[i1] * c + V[i1] * s, w1 = -X[i1] * s + V[i1] * c;
+      ChainSums<T> cs{zero, zero, (T)(d - 1)};
+      if constexpr (Pot::chain)
+        cs = chain_sums<T>(d, [&](int j, T& y, T& w) {
+          y = X[j] * c + V[j] * s;
+          w = -X[j] * s + V[j] * c;
+        });
       for (int i = 0; i < d; ++i) {
         const T yi = X[i] * c + V[i] * s, wi = -X[i] * s + V[i] * c;
         T g, dg;
-        Pot::at(i, yi, wi, y0, w0, y1, w1, zero, prm, g, dg);
+        Pot::at(i, yi, wi, y0, w0, y1, w1, zero, prm, cs, g, dg);
         g = g - yi;   // grad U_eff = grad U(x) - x
         dg = dg - wi;
         const T r0 = g * wi, r1 = dg * wi + g * -yi;
@@ -178,9 +204,10 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
         df = i == 0 ? r1 : df + r1;
       }
     } else {
+      const ChainSums<T> cs = sums_at<T, Pot>(X, V, d, t);
       for (int i = 0; i < d; ++i) {
         T g, dg;
-        grad_at<T, Pot>(X, V, d, i, t, prm, g, dg);
+        grad_at<T, Pot>(X, V, d, i, t, prm, cs, g, dg);
         const T r0 = g * V[i], r1 = dg * V[i];
         f = i == 0 ? r0 : f + r0;
         df = i == 0 ? r1 : df + r1;
@@ -244,15 +271,17 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
           W[i] = -X[i] * s + V[i] * c;
         }
         __syncwarp();
+        const ChainSums<T> cs = sums_at<T, Pot>(Y, W, d, zero);
         for (int i = lane; i < d; i += 32) {
           T g, dg;
-          grad_at<T, Pot>(Y, W, d, i, zero, prm, g, dg);
+          grad_at<T, Pot>(Y, W, d, i, zero, prm, cs, g, dg);
           R0[i] = (g - Y[i]) * W[i];
         }
       } else {
+        const ChainSums<T> cs = sums_at<T, Pot>(X, V, d, tp_safe);
         for (int i = lane; i < d; i += 32) {
           T g, dg;
-          grad_at<T, Pot>(X, V, d, i, tp_safe, prm, g, dg);
+          grad_at<T, Pot>(X, V, d, i, tp_safe, prm, cs, g, dg);
           R0[i] = g * V[i];
         }
       }
@@ -286,11 +315,13 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
       __syncwarp();
 
       // ---- velocity jump at x_new (uniform over the warp) ----
+      ChainSums<T> cs_new{zero, zero, (T)(d - 1)};
+      if (p_acc) cs_new = sums_at<T, Pot>(X, V, d, zero);
       if (p_acc && jp.kind != KIND_ECMC) {
         // K3: bounce or refresh
         for (int i = lane; i < d; i += 32) {
           T g, dg;
-          grad_at<T, Pot>(X, V, d, i, zero, prm, g, dg);
+          grad_at<T, Pot>(X, V, d, i, zero, prm, cs_new, g, dg);
           if (elliptic) g = g - X[i];
           const T z = box_muller(uniform<T>(seed, salt, (3u + i) * tile + ln),
                                  uniform<T>(seed, salt, (3u + d + i) * tile + ln));
@@ -322,7 +353,7 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
         };
         for (int i = lane; i < d; i += 32) {
           T g, dg;
-          grad_at<T, Pot>(X, V, d, i, zero, prm, g, dg);
+          grad_at<T, Pot>(X, V, d, i, zero, prm, cs_new, g, dg);
           N[i] = g;
           R0[i] = g * g;
         }
@@ -547,16 +578,10 @@ template <typename T>
 int dispatch(int potential, const Params& p, const Jump& jp, const void* prm, void* x,
              void* v, void* fs, void* iscal, void* ring, void* ev_kind, void* ev_x,
              void* ev_v, void* ev_fs, void* ev_ring, cudaStream_t s) {
-  if (potential == 0)
-    return launch<T, Gauss<T>>(p, jp, prm, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
-                               ev_fs, ev_ring, s);
-  if (potential == 1)
-    return launch<T, Banana<T>>(p, jp, prm, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
-                                ev_fs, ev_ring, s);
-  if (potential == 2 && prm != nullptr)
-    return launch<T, Aniso<T>>(p, jp, prm, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
-                               ev_fs, ev_ring, s);
-  return (int)cudaErrorInvalidValue;
+  return with_potential<T>(potential, prm, [&](auto pot) {
+    return launch<T, decltype(pot)>(p, jp, prm, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
+                                    ev_fs, ev_ring, s);
+  });
 }
 
 }  // namespace

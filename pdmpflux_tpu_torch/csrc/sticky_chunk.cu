@@ -54,7 +54,13 @@
 //     and clamped to d - 1, as _categorical_rows does.
 // A transition so takes 2 barriers (stick, horizon move, rejection), or 4 on
 // a jump or a thaw up to d = blockDim (one more per further tile); the first
-// design took about 22 on a jump.  Only threads 0 and 1 read another
+// design took about 22 on a jump.  The funnels add one: their coordinate 0
+// reads sums over the chain's other coordinates (pdmp_common.cuh:
+// ChainSums), so each transition starts with a two-level reduction of the
+// moments x_j^2, x_j va_j and va_j^2 over coordinates 1..d-1 on the masked
+// velocity (a stuck coordinate adds its x, 0.0, and nothing else); the
+// linear flow gives S and P from them at every time the transition
+// evaluates, and the flip's rates read coordinate 0 flowed in registers.  Only threads 0 and 1 read another
 // coordinate (Banana's y0 and y1), both in warp 0, so the flow and the
 // flip, stick and thaw updates need a __syncwarp, not a barrier.  Warp 0's
 // lanes 0-4 draw the transition's five uniforms and clocks
@@ -196,7 +202,7 @@ __device__ int categorical(T* sw, int d, T u, T (*wtot)[MAXW], int* red, int nw)
 
 template <typename T, class Pot>
 __global__ void __launch_bounds__(MAXT)
-sticky_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__ v, T* __restrict__ fs,
+sticky_chunk_kernel(Params p, const T* __restrict__ prm, T* __restrict__ x, T* __restrict__ v, T* __restrict__ fs,
                     int* __restrict__ iscal, T* __restrict__ ring,
                     uint8_t* __restrict__ act, const T* __restrict__ kappa,
                     int* __restrict__ ev_kind, T* __restrict__ ev_x, T* __restrict__ ev_v,
@@ -205,6 +211,7 @@ sticky_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__ v, T* __restric
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ T segr[MAXW * MAXG];  // round A: each warp's row of segment partials
   __shared__ T r_kf[MAXW], r_lam[MAXW], r_min[MAXW], wtot[2][MAXW], draws[5];
+  __shared__ T r_mom[3][MAXW];  // the funnels' chain moments, per warp
   __shared__ int r_imin[MAXW], r_cnt[MAXW];
 
   const int d = p.d, n_grid = p.n_grid, G = p.n_grid - 1;
@@ -255,10 +262,35 @@ sticky_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__ v, T* __restric
       if (warp == 0 && lane_w < 5)
         draws[lane_w] = transition_draw<T>(seed, (uint32_t)k, (uint32_t)p.tile, lane, lane_w);
       if (redraw_tt) frozen_kappa_partial();
+      // the funnels' chain moments over coordinates 1..d-1 on the masked
+      // velocity (a stuck coordinate adds its x, 0.0, and nothing else), by
+      // a two-level reduction: one more barrier per transition
+      ChainMoments<T> mom{zero, zero, zero, (T)(d - 1)};
+      if constexpr (Pot::chain) {
+        for (int i = tid == 0 ? nt : tid; i < d; i += nt) {  // coordinate 0 left out
+          const T xi = sx[i], va = masked(sv, sact, i);
+          mom.A += xi * xi;
+          mom.Bm += xi * va;
+          mom.C += va * va;
+        }
+        mom.A = warp_sum(mom.A);
+        mom.Bm = warp_sum(mom.Bm);
+        mom.C = warp_sum(mom.C);
+        if (lane_w == 0) {
+          r_mom[0][warp] = mom.A;
+          r_mom[1][warp] = mom.Bm;
+          r_mom[2][warp] = mom.C;
+        }
+        __syncthreads();
+        mom.A = across_warps(r_mom[0], nw);
+        mom.Bm = across_warps(r_mom[1], nw);
+        mom.C = across_warps(r_mom[2], nw);
+      }
 
       // ---- round A: envelope on [0, bh], tangent-intersection segment maxima ----
       const T step = bh_s / (T)G;
-      // Banana's coordinates 0 and 1 (masked velocities), read once
+      // coordinates 0 and 1 (masked velocities), read once: Banana and the
+      // funnels read them
       const T x0 = sx[0], v0 = masked(sv, sact, 0), x1 = sx[s1], v1 = masked(sv, sact, s1);
       for (int q0 = 0; q0 < d; q0 += nt) {
         const int i = q0 + tid;
@@ -269,7 +301,8 @@ sticky_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__ v, T* __restric
           T f = zero, gd = zero;
           if (on) {
             T g, dg;
-            Pot::at(i, xi, va, x0, v0, x1, v1, step * (T)j, nullptr, g, dg);
+            const T tj = step * (T)j;
+            Pot::at(i, xi, va, x0, v0, x1, v1, tj, prm, mom.at(tj), g, dg);
             f = g * va;
             gd = dg * va;
             if (!p.signed_bound) {
@@ -319,10 +352,11 @@ sticky_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__ v, T* __restric
       const T event_time = min_pt < h_s ? min_pt : h_s;
       T lam = zero, tmin = inf;
       int imin = 0x7fffffff, cross = 0;
+      const ChainSums<T> cs_tp = mom.at(tp_safe);
       for (int i = tid; i < d; i += nt) {
         T g, dg;
-        Pot::eval(sx, sv, sact, 1, i, tp_safe, g, dg);
         const T va = masked(sv, sact, i), xi = sx[i], vi = sv[i];
+        Pot::at(i, xi, va, x0, v0, x1, v1, tp_safe, prm, cs_tp, g, dg);
         lam += nmax(g * va, zero);
         cross |= xi * (xi + va * event_time) < zero;
         const T tj = (sact[i] && xi * vi < zero && va != zero) ? -xi / vi : inf;
@@ -366,10 +400,17 @@ sticky_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__ v, T* __restric
 
       // ---- round C: inverse-CDF coordinate flip on the masked rates ----
       if (p_acc) {
+        // coordinates 0 and 1 flowed: the funnels read coordinate 0 in every
+        // warp, so each thread flows it in registers as thread 0 flows it;
+        // Banana reads them in warp 0 after the __syncwarp
+        const T x0n = Pot::chain ? x0 + v0 * flow_t : sx[0];
+        const T x1n = Pot::chain ? x1 + v1 * flow_t : sx[s1];
+        const ChainSums<T> cs_fl = mom.at(flow_t);
         for (int i = tid; i < d; i += nt) {
           T g, dg;
-          Pot::eval(sx, sv, sact, 1, i, zero, g, dg);
-          sw[i] = nmax(g * masked(sv, sact, i), zero);
+          const T va = masked(sv, sact, i);
+          Pot::at(i, sx[i], va, x0n, v0, x1n, v1, zero, prm, cs_fl, g, dg);
+          sw[i] = nmax(g * va, zero);
         }
         const int m = categorical(sw, d, u_flip, wtot, r_cnt, nw);
         if (m % nt == tid) sv[m] = -sv[m];
@@ -491,15 +532,15 @@ sticky_chunk_kernel(Params p, T* __restrict__ x, T* __restrict__ v, T* __restric
 // reduction rows (16 bytes kept for the alignment of the dynamic part).
 template <typename T>
 long max_dim() {
-  cudaFuncAttributes a;
-  if (cudaFuncGetAttributes(&a, sticky_chunk_kernel<T, Gauss<T>>) != cudaSuccess) return 0;
+  cudaFuncAttributes a;  // the funnels' kernels carry the largest static rows
+  if (cudaFuncGetAttributes(&a, sticky_chunk_kernel<T, Funnel<T>>) != cudaSuccess) return 0;
   return (SMEM_BLOCK - (long)a.sharedSizeBytes - 16) / bytes_per_coord<T>();
 }
 
 template <typename T, class Pot>
-int launch(const Params& p, void* x, void* v, void* fs, void* iscal, void* ring, void* act,
-           void* kappa, void* ev_kind, void* ev_x, void* ev_v, void* ev_fs, void* ev_ring,
-           void* ev_act, cudaStream_t stream) {
+int launch(const Params& p, const void* prm, void* x, void* v, void* fs, void* iscal,
+           void* ring, void* act, void* kappa, void* ev_kind, void* ev_x, void* ev_v,
+           void* ev_fs, void* ev_ring, void* ev_act, cudaStream_t stream) {
   if (p.d > max_dim<T>()) return (int)cudaErrorInvalidValue;
   const int threads = p.d >= MAXT ? MAXT : (p.d + 31) / 32 * 32;
   const size_t smem = (size_t)(p.d * bytes_per_coord<T>());
@@ -508,9 +549,19 @@ int launch(const Params& p, void* x, void* v, void* fs, void* iscal, void* ring,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<p.B, threads, smem, stream>>>(
-      p, (T*)x, (T*)v, (T*)fs, (int*)iscal, (T*)ring, (uint8_t*)act, (const T*)kappa,
-      (int*)ev_kind, (T*)ev_x, (T*)ev_v, (T*)ev_fs, (T*)ev_ring, (uint8_t*)ev_act);
+      p, (const T*)prm, (T*)x, (T*)v, (T*)fs, (int*)iscal, (T*)ring, (uint8_t*)act,
+      (const T*)kappa, (int*)ev_kind, (T*)ev_x, (T*)ev_v, (T*)ev_fs, (T*)ev_ring, (uint8_t*)ev_act);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(int potential, const Params& p, const void* prm, void* x, void* v, void* fs,
+             void* iscal, void* ring, void* act, void* kappa, void* ev_kind, void* ev_x,
+             void* ev_v, void* ev_fs, void* ev_ring, void* ev_act, cudaStream_t s) {
+  return with_potential<T>(potential, prm, [&](auto pot) {
+    return launch<T, decltype(pot)>(p, prm, x, v, fs, iscal, ring, act, kappa, ev_kind,
+                                    ev_x, ev_v, ev_fs, ev_ring, ev_act, s);
+  });
 }
 
 }  // namespace
@@ -522,7 +573,7 @@ extern "C" long sticky_chunk_max_dim(int f64) {
 extern "C" int sticky_chunk_launch(int f64, int potential, int d, int B, int K, int n_grid,
                                    int adaptive, int signed_bound, double refresh, int cap,
                                    int tile, int seed, int horizon, float t_target,
-                                   void* x, void* v, void* fs,
+                                   const void* prm, void* x, void* v, void* fs,
                                    void* iscal, void* ring, void* act, void* kappa,
                                    void* ev_kind, void* ev_x, void* ev_v, void* ev_fs,
                                    void* ev_ring, void* ev_act, void* stream) {
@@ -532,20 +583,8 @@ extern "C" int sticky_chunk_launch(int f64, int potential, int d, int B, int K, 
   Params p{d, B, K, n_grid, adaptive, signed_bound, cap, tile, seed, refresh,
            horizon, t_target};
   cudaStream_t s = (cudaStream_t)stream;
-  if (f64) {
-    if (potential == 0)
-      return launch<double, Gauss<double>>(p, x, v, fs, iscal, ring, act, kappa, ev_kind,
-                                           ev_x, ev_v, ev_fs, ev_ring, ev_act, s);
-    if (potential == 1)
-      return launch<double, Banana<double>>(p, x, v, fs, iscal, ring, act, kappa, ev_kind,
-                                            ev_x, ev_v, ev_fs, ev_ring, ev_act, s);
-  } else {
-    if (potential == 0)
-      return launch<float, Gauss<float>>(p, x, v, fs, iscal, ring, act, kappa, ev_kind,
-                                         ev_x, ev_v, ev_fs, ev_ring, ev_act, s);
-    if (potential == 1)
-      return launch<float, Banana<float>>(p, x, v, fs, iscal, ring, act, kappa, ev_kind,
-                                          ev_x, ev_v, ev_fs, ev_ring, ev_act, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return f64 ? dispatch<double>(potential, p, prm, x, v, fs, iscal, ring, act, kappa,
+                                ev_kind, ev_x, ev_v, ev_fs, ev_ring, ev_act, s)
+             : dispatch<float>(potential, p, prm, x, v, fs, iscal, ring, act, kappa,
+                               ev_kind, ev_x, ev_v, ev_fs, ev_ring, ev_act, s);
 }

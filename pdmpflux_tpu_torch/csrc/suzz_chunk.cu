@@ -47,7 +47,10 @@
 // coordinate order, and this file is compiled with -fmad=false
 // (ops/cuda/build.py), so that products round before they are added as
 // torch's elementwise ops round them: y0 + sqrt(y0^2 + a) cancels for
-// y0 << 0, and the plain version and the kernel then round alike.  The tail
+// y0 << 0, and the plain version and the kernel then round alike.  The
+// funnels' sums over x_t's coordinates 1..d-1 (pdmp_common.cuh: ChainSums)
+// ride in flow_point's pass, in coordinate order, and the flip's take one
+// more pass over the flowed x, as the plain version adds them.  The tail
 // (Kahan commit, adaptation, counters, ring, row) is K1's.
 //
 // What bounds it on an H100: latency.  Per transition the critical path is
@@ -110,13 +113,17 @@ struct SuzzFlow {
 
 // The chain flowed to one time: m = v0 x1(t), the speed factor phi,
 // s = sqrt(1 + |x_t|^2), xvs = x_t . v / s and xvs3 = xvs / s^2 (the sums in
-// coordinate order), and x_t's coordinates 0 and 1, which Banana reads.
+// coordinate order), x_t's coordinates 0 and 1, which Banana and the
+// funnels read, and with `chain` the funnels' sums over x_t's coordinates
+// 1..d-1 (pdmp_common.cuh: ChainSums), added in coordinate order in the
+// same pass.
 template <typename T>
 struct FlowPoint {
   T m, phi, s, xvs, xvs3, x0, x1;
+  ChainSums<T> cs;
 };
 
-template <typename T>
+template <bool chain, typename T>
 __device__ __forceinline__ FlowPoint<T> flow_point(const SuzzFlow<T>& fl, const T* x,
                                                    const T* v, long sx, int d, T t) {
   FlowPoint<T> q;
@@ -124,11 +131,16 @@ __device__ __forceinline__ FlowPoint<T> flow_point(const SuzzFlow<T>& fl, const 
   fl.at(t, x1, q.phi);
   q.m = fl.v0 * x1;
   T s2 = 0, xv = 0;
+  q.cs = {(T)0, (T)0, (T)(d - 1)};
   for (int i = 0; i < d; ++i) {
     const T vi = v[i * sx];
     const T xi = fl.coord(x[i * sx], vi, q.m);
     s2 = i == 0 ? xi * xi : s2 + xi * xi;
     xv = i == 0 ? xi * vi : xv + xi * vi;
+    if (chain && i > 0) {
+      q.cs.S = i == 1 ? xi * xi : q.cs.S + xi * xi;
+      q.cs.P = i == 1 ? xi * vi : q.cs.P + xi * vi;
+    }
   }
   q.s = sqrt((T)1 + s2);
   q.xvs = xv / q.s;
@@ -148,7 +160,7 @@ __device__ __forceinline__ T eff_rate(T g, T xi, T vi, T s) {
 
 template <typename T, class Pot>
 __global__ void __launch_bounds__(32 * WARPS)
-suzz_chunk_kernel(Params p, int in_smem, T* __restrict__ x, T* __restrict__ v,
+suzz_chunk_kernel(Params p, int in_smem, const T* __restrict__ prm, T* __restrict__ x, T* __restrict__ v,
                   T* __restrict__ fs, int* __restrict__ iscal, T* __restrict__ ring,
                   int* __restrict__ ev_kind, T* __restrict__ ev_x, T* __restrict__ ev_v,
                   T* __restrict__ ev_fs, T* __restrict__ ev_ring) {
@@ -196,7 +208,7 @@ suzz_chunk_kernel(Params p, int in_smem, T* __restrict__ x, T* __restrict__ v,
       // (H v)_i read at x_t's coordinate (recomputed from x_i)
       auto rate_at = [&](const FlowPoint<T>& q, int i, T xi, T vi, T& g, T& hv) -> T {
         const T xt = fl.coord(xi, vi, q.m);
-        Pot::at(i, xt, vi, q.x0, v0, q.x1, v1, zero, nullptr, g, hv);
+        Pot::at(i, xt, vi, q.x0, v0, q.x1, v1, zero, prm, q.cs, g, hv);
         return xt;
       };
 
@@ -205,8 +217,8 @@ suzz_chunk_kernel(Params p, int in_smem, T* __restrict__ x, T* __restrict__ v,
       const bool two = n_grid > 32;  // the same in every lane
       const bool on_a = lane < n_grid, on_b = lane + 32 < n_grid;
       FlowPoint<T> qa{}, qb{};
-      if (on_a) qa = flow_point(fl, X, V, sx, d, step * (T)lane);
-      if (on_b) qb = flow_point(fl, X, V, sx, d, step * (T)(lane + 32));
+      if (on_a) qa = flow_point<Pot::chain>(fl, X, V, sx, d, step * (T)lane);
+      if (on_b) qb = flow_point<Pot::chain>(fl, X, V, sx, d, step * (T)(lane + 32));
       // coordinate i's rate pair at a grid point (zeros past the grid)
       auto pair = [&](const FlowPoint<T>& q, bool on, int i, T xi, T vi, T& f, T& gd) {
         f = gd = zero;
@@ -256,7 +268,7 @@ suzz_chunk_kernel(Params p, int in_smem, T* __restrict__ x, T* __restrict__ v,
       // ---- thinning at tp on the unsigned rate, along the flow ----
       T lam_t = zero;
       {
-        const FlowPoint<T> q = flow_point(fl, X, V, sx, d, tp_safe);
+        const FlowPoint<T> q = flow_point<Pot::chain>(fl, X, V, sx, d, tp_safe);
         for (int i = 0; i < d; ++i) {
           const T vi = V[i * sx];
           T g, hv;
@@ -299,10 +311,16 @@ suzz_chunk_kernel(Params p, int in_smem, T* __restrict__ x, T* __restrict__ v,
       if (p_acc) {  // the same in every lane
         const T u_flip = uniform<T>(seed, salt, 2u * tile + ln);
         const T x0 = X[0], x1 = X[s1];
+        ChainSums<T> cs{zero, zero, (T)(d - 1)};
+        if constexpr (Pot::chain)  // the funnels' sums over the flowed x
+          cs = chain_sums<T>(d, [&](int j, T& y, T& w) {
+            y = X[j * sx];
+            w = V[j * sx];
+          });
         auto flip_rate = [&](int i) -> T {
           const T xi = X[i * sx], vi = V[i * sx];
           T g, hv;
-          Pot::at(i, xi, vi, x0, v0, x1, v1, zero, nullptr, g, hv);
+          Pot::at(i, xi, vi, x0, v0, x1, v1, zero, prm, cs, g, hv);
           return nmax(eff_rate(g, xi, vi, s_new), zero);
         };
         T total = zero;
@@ -414,8 +432,8 @@ suzz_chunk_kernel(Params p, int in_smem, T* __restrict__ x, T* __restrict__ v,
 }
 
 template <typename T, class Pot>
-int launch(const Params& p, void* x, void* v, void* fs, void* iscal, void* ring,
-           void* ev_kind, void* ev_x, void* ev_v, void* ev_fs, void* ev_ring,
+int launch(const Params& p, const void* prm, void* x, void* v, void* fs, void* iscal,
+           void* ring, void* ev_kind, void* ev_x, void* ev_v, void* ev_fs, void* ev_ring,
            cudaStream_t stream) {
   const size_t smem = (size_t)WARPS * 2 * p.d * sizeof(T);
   const bool in_smem = smem <= (size_t)SMEM_BLOCK;
@@ -427,40 +445,37 @@ int launch(const Params& p, void* x, void* v, void* fs, void* iscal, void* ring,
   }
   const int blocks = (p.B + WARPS - 1) / WARPS;
   kern<<<blocks, 32 * WARPS, in_smem ? smem : 0, stream>>>(
-      p, (int)in_smem, (T*)x, (T*)v, (T*)fs, (int*)iscal, (T*)ring, (int*)ev_kind,
+      p, (int)in_smem, (const T*)prm, (T*)x, (T*)v, (T*)fs, (int*)iscal, (T*)ring, (int*)ev_kind,
       (T*)ev_x, (T*)ev_v, (T*)ev_fs, (T*)ev_ring);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(int potential, const Params& p, void* x, void* v, void* fs, void* iscal,
-             void* ring, void* ev_kind, void* ev_x, void* ev_v, void* ev_fs, void* ev_ring,
-             cudaStream_t s) {
-  if (potential == 0)
-    return launch<T, Gauss<T>>(p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v, ev_fs,
-                               ev_ring, s);
-  if (potential == 1)
-    return launch<T, Banana<T>>(p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v, ev_fs,
-                                ev_ring, s);
-  return (int)cudaErrorInvalidValue;
+int dispatch(int potential, const Params& p, const void* prm, void* x, void* v, void* fs,
+             void* iscal, void* ring, void* ev_kind, void* ev_x, void* ev_v, void* ev_fs,
+             void* ev_ring, cudaStream_t s) {
+  return with_potential<T>(potential, prm, [&](auto pot) {
+    return launch<T, decltype(pot)>(p, prm, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
+                                    ev_fs, ev_ring, s);
+  });
 }
 
 }  // namespace
 
 extern "C" int suzz_chunk_launch(int f64, int potential, int d, int B, int K, int n_grid,
                                  int adaptive, int signed_bound, double refresh, int cap,
-                                 int tile, int seed, int horizon, float t_target, void* x,
-                                 void* v, void* fs, void* iscal, void* ring, void* ev_kind,
-                                 void* ev_x, void* ev_v, void* ev_fs, void* ev_ring,
-                                 void* stream) {
+                                 int tile, int seed, int horizon, float t_target,
+                                 const void* prm, void* x, void* v, void* fs, void* iscal,
+                                 void* ring, void* ev_kind, void* ev_x, void* ev_v,
+                                 void* ev_fs, void* ev_ring, void* stream) {
   if (n_grid < 2 || n_grid > MAXG || d < 1 || B < 1 || tile < 1)
     return (int)cudaErrorInvalidValue;
   cudaGetLastError();  // clear a stale error so the check below is this launch's
   Params p{d, B, K, n_grid, adaptive, signed_bound, cap, tile, seed, refresh,
            horizon, t_target};
   cudaStream_t s = (cudaStream_t)stream;
-  return f64 ? dispatch<double>(potential, p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
-                                ev_fs, ev_ring, s)
-             : dispatch<float>(potential, p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
-                               ev_fs, ev_ring, s);
+  return f64 ? dispatch<double>(potential, p, prm, x, v, fs, iscal, ring, ev_kind, ev_x,
+                                ev_v, ev_fs, ev_ring, s)
+             : dispatch<float>(potential, p, prm, x, v, fs, iscal, ring, ev_kind, ev_x,
+                               ev_v, ev_fs, ev_ring, s);
 }

@@ -40,6 +40,13 @@
 //    lane 2 the Exp clock (transition_draw), one Threefry block in the same
 //    instructions, and shuffles them to the group (L = 2: every lane draws
 //    the clock itself).
+// The funnels' coordinate 0 reads sums over the chain's other coordinates
+// at every time a transition evaluates (pdmp_common.cuh: ChainSums): at the
+// start of a transition each lane adds x_j^2, x_j v_j and v_j^2 over its
+// run [i0, i1) less coordinate 0 and group_sum gives the group their
+// totals (ChainMoments), from which the linear flow gives S and P at every
+// grid point, at tp and at flow_t in a few operations; the plain version
+// sums at each point itself, so the two agree to rounding.
 // No array is indexed at run time, so nothing lands in local memory.  Every
 // shuffle and __syncwarp names only the group's lanes, so a group that is
 // frozen, or past B at the ragged end of the last warp, skips its
@@ -91,7 +98,8 @@ long smem_bytes(int d, int threads, bool xv) {
 }
 
 template <typename T, class Pot, int L>
-__global__ void zigzag_chunk_kernel(Params p, int in_smem, T* __restrict__ x,
+__global__ void zigzag_chunk_kernel(Params p, int in_smem, const T* __restrict__ prm,
+                                    T* __restrict__ x,
                                     T* __restrict__ v, T* __restrict__ fs,
                                     int* __restrict__ iscal, T* __restrict__ ring,
                                     int* __restrict__ ev_kind, T* __restrict__ ev_x,
@@ -150,10 +158,25 @@ __global__ void zigzag_chunk_kernel(Params p, int in_smem, T* __restrict__ x,
                               : transition_draw<T>(seed, (uint32_t)k, (uint32_t)p.tile,
                                                    lane, 3);
       const T x0 = xb[0], v0 = vb[0], x1 = xb[s1], v1 = vb[s1];
-      // coordinate i's rate along v and its time derivative at time t
-      auto rate = [&](int i, T xi, T vi, T t, T& f, T& gd) {
+      // the funnels' chain moments over coordinates 1..d-1, summed over the
+      // group (the same bits in every lane); S and P at time t follow
+      ChainMoments<T> mom{zero, zero, zero, (T)(d - 1)};
+      if constexpr (Pot::chain) {
+        for (int i = max(i0, 1); i < i1; ++i) {
+          const T xi = xb[i * sx], vi = vb[i * sx];
+          mom.A += xi * xi;
+          mom.Bm += xi * vi;
+          mom.C += vi * vi;
+        }
+        mom.A = group_sum<L>(mom.A, gmask);
+        mom.Bm = group_sum<L>(mom.Bm, gmask);
+        mom.C = group_sum<L>(mom.C, gmask);
+      }
+      // coordinate i's rate along v and its time derivative at time t, with
+      // the chain sums cs at t
+      auto rate = [&](int i, T xi, T vi, T t, const ChainSums<T>& cs, T& f, T& gd) {
         T g, dg;
-        Pot::at(i, xi, vi, x0, v0, x1, v1, t, nullptr, g, dg);
+        Pot::at(i, xi, vi, x0, v0, x1, v1, t, prm, cs, g, dg);
         f = g * vi;
         gd = dg * vi;
       };
@@ -162,12 +185,13 @@ __global__ void zigzag_chunk_kernel(Params p, int in_smem, T* __restrict__ x,
       const T step = bh_s / (T)G;
       for (int j = lg; j < G; j += L) {  // segment j: grid points j and j + 1
         const T t0 = step * (T)j, t1 = step * (T)(j + 1);
+        const ChainSums<T> cs0 = mom.at(t0), cs1 = mom.at(t1);
         T sum = zero;
         for (int i = 0; i < d; ++i) {
           const T xi = xb[i * sx], vi = vb[i * sx];
           T f0, g0, f1, g1;
-          rate(i, xi, vi, t0, f0, g0);
-          rate(i, xi, vi, t1, f1, g1);
+          rate(i, xi, vi, t0, cs0, f0, g0);
+          rate(i, xi, vi, t1, cs1, f1, g1);
           if (!p.signed_bound) {
             // d/dt max(r, 0): JAX's JVP takes half the tangent at r == 0
             g0 = g0 * (f0 > zero ? (T)1 : (f0 == zero ? (T)0.5 : zero));
@@ -192,9 +216,10 @@ __global__ void zigzag_chunk_kernel(Params p, int in_smem, T* __restrict__ x,
 
       // ---- thinning at tp on the unsigned rate ----
       T lam = zero;
+      const ChainSums<T> cs_tp = mom.at(tp_safe);
       for (int i = i0; i < i1; ++i) {
         T f, gd;
-        rate(i, xb[i * sx], vb[i * sx], tp_safe, f, gd);
+        rate(i, xb[i * sx], vb[i * sx], tp_safe, cs_tp, f, gd);
         lam += nmax(f, zero);
       }
       const T lam_t = group_sum<L>(lam, gmask);
@@ -214,10 +239,11 @@ __global__ void zigzag_chunk_kernel(Params p, int in_smem, T* __restrict__ x,
       const T flow_t = p_moveh ? h_s : (p_acc ? tp_safe : zero);
       int m = -1;
       if (p_acc) {  // the same in every lane of the group
+        const ChainSums<T> cs_fl = mom.at(flow_t);
         T own = zero;  // this lane's rates, added in coordinate order
         for (int i = i0; i < i1; ++i) {
           T f, gd;
-          rate(i, xb[i * sx], vb[i * sx], flow_t, f, gd);
+          rate(i, xb[i * sx], vb[i * sx], flow_t, cs_fl, f, gd);
           own += nmax(f, zero);
         }
         // c_i = pre + (this lane's rates up to i): pre sums the lower lanes
@@ -230,7 +256,7 @@ __global__ void zigzag_chunk_kernel(Params p, int in_smem, T* __restrict__ x,
         int n_le = 0;
         for (int i = i0; i < i1; ++i) {
           T f, gd;
-          rate(i, xb[i * sx], vb[i * sx], flow_t, f, gd);
+          rate(i, xb[i * sx], vb[i * sx], flow_t, cs_fl, f, gd);
           c += nmax(f, zero);
           n_le += pre + c <= thresh;
         }
@@ -347,9 +373,9 @@ int lanes_for(int B) {
 }
 
 template <typename T, class Pot, int L>
-int launch_lanes(const Params& p, void* x, void* v, void* fs, void* iscal, void* ring,
-                 void* ev_kind, void* ev_x, void* ev_v, void* ev_fs, void* ev_ring,
-                 cudaStream_t stream) {
+int launch_lanes(const Params& p, const void* prm, void* x, void* v, void* fs, void* iscal,
+                 void* ring, void* ev_kind, void* ev_x, void* ev_v, void* ev_fs,
+                 void* ev_ring, cudaStream_t stream) {
   const long lanes = (long)p.B * L;
   // 128-thread blocks where they fill the card's 132 SMs, else one warp each
   const int threads = lanes >= 132L * 128 ? 128 : 32;
@@ -361,43 +387,40 @@ int launch_lanes(const Params& p, void* x, void* v, void* fs, void* iscal, void*
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<blocks, threads, smem, stream>>>(
-      p, (int)in_smem, (T*)x, (T*)v, (T*)fs, (int*)iscal, (T*)ring, (int*)ev_kind,
+      p, (int)in_smem, (const T*)prm, (T*)x, (T*)v, (T*)fs, (int*)iscal, (T*)ring, (int*)ev_kind,
       (T*)ev_x, (T*)ev_v, (T*)ev_fs, (T*)ev_ring);
   return (int)cudaGetLastError();
 }
 
 template <typename T, class Pot>
-int launch(const Params& p, void* x, void* v, void* fs, void* iscal, void* ring,
-           void* ev_kind, void* ev_x, void* ev_v, void* ev_fs, void* ev_ring,
+int launch(const Params& p, const void* prm, void* x, void* v, void* fs, void* iscal,
+           void* ring, void* ev_kind, void* ev_x, void* ev_v, void* ev_fs, void* ev_ring,
            cudaStream_t s) {
   switch (lanes_for(p.B)) {
     case 2:
-      return launch_lanes<T, Pot, 2>(p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v, ev_fs,
-                                     ev_ring, s);
+      return launch_lanes<T, Pot, 2>(p, prm, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
+                                     ev_fs, ev_ring, s);
     case 4:
-      return launch_lanes<T, Pot, 4>(p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v, ev_fs,
-                                     ev_ring, s);
+      return launch_lanes<T, Pot, 4>(p, prm, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
+                                     ev_fs, ev_ring, s);
     case 8:
-      return launch_lanes<T, Pot, 8>(p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v, ev_fs,
-                                     ev_ring, s);
+      return launch_lanes<T, Pot, 8>(p, prm, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
+                                     ev_fs, ev_ring, s);
     case 16:
-      return launch_lanes<T, Pot, 16>(p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v, ev_fs,
-                                      ev_ring, s);
+      return launch_lanes<T, Pot, 16>(p, prm, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
+                                      ev_fs, ev_ring, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
-int dispatch(int potential, const Params& p, void* x, void* v, void* fs, void* iscal,
-             void* ring, void* ev_kind, void* ev_x, void* ev_v, void* ev_fs, void* ev_ring,
-             cudaStream_t s) {
-  if (potential == 0)
-    return launch<T, Gauss<T>>(p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v, ev_fs,
-                               ev_ring, s);
-  if (potential == 1)
-    return launch<T, Banana<T>>(p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v, ev_fs,
-                                ev_ring, s);
-  return (int)cudaErrorInvalidValue;
+int dispatch(int potential, const Params& p, const void* prm, void* x, void* v, void* fs,
+             void* iscal, void* ring, void* ev_kind, void* ev_x, void* ev_v, void* ev_fs,
+             void* ev_ring, cudaStream_t s) {
+  return with_potential<T>(potential, prm, [&](auto pot) {
+    return launch<T, decltype(pot)>(p, prm, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
+                                    ev_fs, ev_ring, s);
+  });
 }
 
 }  // namespace
@@ -405,8 +428,8 @@ int dispatch(int potential, const Params& p, void* x, void* v, void* fs, void* i
 extern "C" int zigzag_chunk_launch(int f64, int potential, int d, int B, int K,
                                    int n_grid, int adaptive, int signed_bound,
                                    double refresh, int cap, int tile, int seed,
-                                   int horizon, float t_target, void* x, void* v,
-                                   void* fs, void* iscal, void* ring,
+                                   int horizon, float t_target, const void* prm,
+                                   void* x, void* v, void* fs, void* iscal, void* ring,
                                    void* ev_kind, void* ev_x, void* ev_v, void* ev_fs,
                                    void* ev_ring, void* stream) {
   if (n_grid < 2 || n_grid > MAXG || d < 1 || B < 1 || tile < 1)
@@ -415,10 +438,10 @@ extern "C" int zigzag_chunk_launch(int f64, int potential, int d, int B, int K,
   Params p{d, B, K, n_grid, adaptive, signed_bound, cap, tile, seed, refresh,
            horizon, t_target};
   cudaStream_t s = (cudaStream_t)stream;
-  return f64 ? dispatch<double>(potential, p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
-                                ev_fs, ev_ring, s)
-             : dispatch<float>(potential, p, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
-                               ev_fs, ev_ring, s);
+  return f64 ? dispatch<double>(potential, p, prm, x, v, fs, iscal, ring, ev_kind, ev_x,
+                                ev_v, ev_fs, ev_ring, s)
+             : dispatch<float>(potential, p, prm, x, v, fs, iscal, ring, ev_kind, ev_x,
+                               ev_v, ev_fs, ev_ring, s);
 }
 
 // The lanes per chain K1 takes at B chains.

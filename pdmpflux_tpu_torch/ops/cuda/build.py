@@ -70,7 +70,7 @@ def _declare(lib) -> None:
         + [ctypes.c_double]             # refresh rate
         + [i] * 3                       # cap, tile, seed
         + [i, ctypes.c_float]           # horizon mode, its float32 target
-        + [p] * 10 + [p]                # state, event rows, stream
+        + [p] * 11 + [p]                # params, state, event rows, stream
     )
     lib.zigzag_chunk_lanes.restype = i
     lib.zigzag_chunk_lanes.argtypes = [i]
@@ -79,13 +79,13 @@ def _declare(lib) -> None:
     lib.suzz_chunk_launch.restype = i
     lib.suzz_chunk_launch.argtypes = (
         [i] * 8 + [ctypes.c_double] + [i] * 3 + [i, ctypes.c_float]
-        + [p] * 5                       # x, v, fs, iscal, ring
+        + [p] * 6                       # params, x, v, fs, iscal, ring
         + [p] * 5 + [p]                 # event rows, stream
     )
     lib.sticky_chunk_launch.restype = i
     lib.sticky_chunk_launch.argtypes = (
         [i] * 8 + [ctypes.c_double] + [i] * 3 + [i, ctypes.c_float]
-        + [p] * 7                       # x, v, fs, iscal, ring, act, kappa
+        + [p] * 8                       # params, x, v, fs, iscal, ring, act, kappa
         + [p] * 6 + [p]                 # event rows (act last), stream
     )
     lib.sticky_chunk_max_dim.restype = l

@@ -70,6 +70,7 @@ from .zigzag_chunk import (
     I_HIT,
     I_MODE,
     I_REJ,
+    KERNEL_POTENTIALS,
     ChunkConfig,
     ChunkState,
     RawFill,
@@ -80,8 +81,6 @@ from .zigzag_chunk import (
 
 KINDS = {"bps": 0, "boomerang": 1, "ecmc": 2}
 """Chunk kind -> kind id of the CUDA kernel."""
-KERNEL_POTENTIALS = ("aniso", "banana", "gauss")
-"""Device potentials K3 and K5 implement."""
 TWO_PI = 2.0 * math.pi
 
 
@@ -358,8 +357,6 @@ def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
     if cfg.kind not in KINDS:
         raise ValueError(f"the scalar-rate kernel runs {sorted(KINDS)}, not {cfg.kind!r}")
     check_cuda(st, fill, row0, cfg, "scalar-rate", KERNEL_POTENTIALS)
-    if cfg.device_potential == "aniso" and cfg.pot_params is None:
-        raise ValueError("the 'aniso' device potential needs its scales (pot_params)")
     d, B = st.x.shape
     if d > (max_d := scalar_max_dim(st.x.dtype)):
         raise ValueError(

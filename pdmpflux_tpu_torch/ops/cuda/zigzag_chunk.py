@@ -74,8 +74,8 @@ HORIZON_GROW = 1.01
 HORIZON_SHRINK = 1.04
 MAX_GRID = 64
 """Most envelope grid points the CUDA kernels keep per chain."""
-KERNEL_POTENTIALS = ("banana", "gauss")
-"""Device potentials K1, K6 and K4 implement."""
+KERNEL_POTENTIALS = tuple(sorted(DEVICE_POTENTIALS))
+"""Device potentials every chunk kernel (K1, K6, K4, K3/K5) implements."""
 
 
 class ChunkState(NamedTuple):
@@ -461,9 +461,10 @@ def potential_message(what: str, potentials, tag) -> str:
     """The error text for a sampler whose device potential (``tag``) the
     CUDA ``what`` kernel does not implement."""
     return (f"the CUDA {what} kernel covers the device potentials "
-            f"{list(potentials)} (utils.potentials: gauss, grad_gauss, banana, "
-            f"grad_banana, anisotropic_gauss); this sampler's is {tag!r} — run "
-            "it on the transition engine with backend='xla_stream', or with "
+            f"{list(potentials)} (utils.potentials: gauss, grad_gauss, gauss_1d, "
+            "banana, grad_banana, anisotropic_gauss, cauchy, ridged_gauss, funnel, "
+            f"neal_funnel); this sampler's is {tag!r} — a gradient of your own "
+            "runs on the transition engine with backend='xla_stream', or with "
             "device='cpu'")
 
 
@@ -474,6 +475,8 @@ def check_cuda(st: ChunkState, fill: RawFill, row0: int, cfg: ChunkConfig,
     fill tensor contiguous, of the right type and shape, on one card."""
     if cfg.device_potential not in potentials:
         raise ValueError(potential_message(what, potentials, cfg.device_potential))
+    if cfg.device_potential == "aniso" and cfg.pot_params is None:
+        raise ValueError("the 'aniso' device potential needs its scales (pot_params)")
     if not 2 <= cfg.n_grid <= MAX_GRID:
         raise ValueError(f"n_grid={cfg.n_grid} outside the kernel's [2, {MAX_GRID}]")
     dtype = st.x.dtype
@@ -543,6 +546,7 @@ def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
         ctypes.c_int(int(cfg.signed)), ctypes.c_double(cfg.refresh_rate),
         ctypes.c_int(cfg.cap), ctypes.c_int(cfg.tile),
         ctypes.c_int(rng.wrap_int32(seed)), *cfg.launch_args(),
+        p(0 if cfg.pot_params is None else cfg.pot_params.data_ptr()),
         p(st.x.data_ptr()), p(st.v.data_ptr()), p(st.fs.data_ptr()),
         p(st.iscal.data_ptr()), p(st.ring.data_ptr()),
     )

@@ -431,8 +431,8 @@ def test_horizon_sample_skeleton_on_card(dev):
 
 def test_k3_k5_refuse_what_they_cannot_run(dev):
     """On CUDA tensors the scalar-rate kernel launches or raises: an untagged
-    gradient, past the shared-memory limit on d, and K1 refuses a tag it
-    lacks."""
+    gradient, past the shared-memory limit on d; K1 runs every tag, the
+    ``aniso`` tag that only K3/K5 took before included."""
     untagged = pt.BPS(3, lambda x: x)
     with pytest.raises(ValueError, match="device potentials"):
         pt.sample_skeleton(untagged, 10, np.zeros((2, 3)), np.ones((2, 3)))
@@ -444,8 +444,9 @@ def test_k3_k5_refuse_what_they_cannot_run(dev):
     with pytest.raises(ValueError, match="shared memory"):
         k3.run_chunk(0, st, fill, 0, driver.chunk_config(big, 4, 10, 128))
     aniso_zz = pt.ZigZagAD(4, pt.potentials.anisotropic_gauss(np.ones(4)))
-    with pytest.raises(ValueError, match="device potentials"):
-        pt.sample_skeleton(aniso_zz, 10, np.zeros((2, 4)), np.ones((2, 4)))
+    n0 = build.LAUNCHES["zigzag_chunk"]
+    skel = pt.sample_skeleton(aniso_zz, 10, np.zeros((2, 4)), np.ones((2, 4)))
+    assert bool((skel.n_valid == 10).all()) and build.LAUNCHES["zigzag_chunk"] > n0
 
 
 @pytest.mark.parametrize("pot,signed,horizon", [("gauss", True, False), ("banana", False, False),
@@ -534,13 +535,76 @@ def test_suzz_sample_skeleton_on_card(dev):
 
 
 def test_k4_refuses_what_it_cannot_run(dev):
-    """On CUDA tensors K4 launches or raises: for a tag it lacks (``aniso``)
-    and for an untagged gradient."""
-    aniso = pt.SpeedUpZigZagAD(4, pt.potentials.anisotropic_gauss(np.ones(4)))
+    """On CUDA tensors K4 launches or raises: an untagged gradient raises;
+    every tag runs, ``aniso`` (which it lacked before) included."""
     untagged = pt.SpeedUpZigZag(4, lambda x: x)
-    for sampler in (aniso, untagged):
-        with pytest.raises(ValueError, match="device potentials"):
-            pt.sample_skeleton(sampler, 10, np.zeros((2, 4)), np.ones((2, 4)))
+    with pytest.raises(ValueError, match="device potentials"):
+        pt.sample_skeleton(untagged, 10, np.zeros((2, 4)), np.ones((2, 4)))
+    aniso = pt.SpeedUpZigZagAD(4, pt.potentials.anisotropic_gauss(np.ones(4)))
+    n0 = build.LAUNCHES["suzz_chunk"]
+    skel = pt.sample_skeleton(aniso, 10, np.zeros((2, 4)), np.ones((2, 4)))
+    assert bool((skel.n_valid == 10).all()) and build.LAUNCHES["suzz_chunk"] > n0
+
+
+TAG_POTENTIALS = {"cauchy": "cauchy", "ridged": "ridged_gauss", "funnel": "funnel",
+                  "neal_funnel": "neal_funnel"}
+
+
+@pytest.mark.parametrize("tag", list(TAG_POTENTIALS) + ["aniso"])
+@pytest.mark.parametrize("kind", ["zigzag", "sticky", "suzz", "bps", "boomerang", "ecmc"])
+def test_every_tag_on_every_kernel_matches_plain_f64(dev, kind, tag):
+    """Each chunk kernel on each test potential the port tagged for it
+    (``cauchy``, ``ridged_gauss``, ``funnel``, ``neal_funnel`` and
+    ``anisotropic_gauss``) against its plain version over two chunks from one
+    f64 state, some chains capped: integers equal, floats to rtol 1e-9."""
+    d, B, K = 6, 300, 16
+    U = (pt.potentials.anisotropic_gauss(np.linspace(0.5, 3.0, d)) if tag == "aniso"
+         else getattr(pt.potentials, TAG_POTENTIALS[tag]))
+    sticky = kind == "sticky"
+    sampler = {"zigzag": lambda: pt.ZigZagAD(d, U),
+               "sticky": lambda: pt.StickyZigZagAD(d, U, np.full(d, 3.0)),
+               "suzz": lambda: pt.SpeedUpZigZagAD(d, U),
+               "bps": lambda: pt.BPSAD(d, U, refresh_rate=0.5),
+               "boomerang": lambda: pt.BoomerangAD(d, U, refresh_rate=0.5),
+               "ecmc": lambda: pt.ForwardECMCAD(d, U)}[kind]()
+    rs = np.random.default_rng(d)
+    x0 = rs.normal(size=(B, d)) * (0.05 if sticky else 1.0)
+    if tag == "funnel":
+        x0[:, 0] = 0.5 + np.abs(x0[:, 0])
+    if kind in ("zigzag", "sticky", "suzz"):
+        v0 = rs.choice([-1.0, 1.0], size=(B, d))
+    else:
+        v0 = rs.normal(size=(B, d))
+        if kind != "boomerang":
+            v0 /= np.linalg.norm(v0, axis=1, keepdims=True)
+    state = sampler.init_state_batch(x0, v0, 3, torch.float64, dev)
+    cfg = driver.chunk_config(sampler, K, 20, 128)
+    cfg = cfg._replace(
+        kappa=None if cfg.kappa is None else cfg.kappa.to(dev),
+        pot_params=None if cfg.pot_params is None else cfg.pot_params.to(dev))
+    counts = torch.zeros(B, dtype=torch.int32, device=dev)
+    counts[::7] = 17
+    st_k = driver.chunk_state(state, counts, sticky)
+    st_p = k1.ChunkState(*(None if a is None else a.clone() for a in st_k))
+    fills = [k1.empty_fill(2 * K, d, B, torch.float64, dev, sticky) for _ in range(2)]
+    scalar = kind in k3.KINDS
+    run, plain = ((k3.run_chunk, k3.run_chunk_plain) if scalar
+                  else (k1.run_chunk, k1.run_chunk_plain))
+    name = k3.launch_name(kind) if scalar else k1.launch_name(cfg)
+    n0 = build.LAUNCHES[name]
+    for it in range(2):
+        run(11 + it * 1000003, st_k, fills[0], K * it, cfg)
+        plain(11 + it * 1000003, st_p, fills[1], K * it, cfg)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == n0 + 2
+    for a, b in zip((*st_k, *fills[0]), (*st_p, *fills[1])):
+        if a is None:
+            continue
+        if a.dtype in (torch.int32, torch.bool):
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12, equal_nan=True)
+    assert int((fills[0].kind[:, 0] > 0).sum()) > B
 
 
 def _batch_skeleton(dtype, device, B=7, N=40, d=3, seed=0):

@@ -15,6 +15,8 @@ CPU.
   from JAX's state, so chaotic targets (the banana) do not amplify rounding
   across steps.  Finite-difference tangents are held at rtol 1e-7
   (``test_torch_bounds.py`` says why).
+  The two funnels, whose device tags hand the engine their closed forms,
+  run the vectorized Zig-Zag alike.
 * Velocity jumps: each family's ``velocity_jump`` on equal keys.
 """
 
@@ -135,6 +137,24 @@ def test_transitions_match_jax(family, pot):
     assert (kinds == pt.EV_JUMP).sum() > 100
     if family.startswith("sticky"):
         assert (kinds == pt.EV_STICK).any() and (kinds == pt.EV_THAW).any()
+
+
+@pytest.mark.parametrize("pot", ["funnel", "neal_funnel"])
+def test_transitions_match_jax_on_the_funnels(pot):
+    """The vectorized Zig-Zag on the two funnels, whose device tags give the
+    engine their closed forms (``utils.potentials.LANE_POTENTIALS``, chain
+    sums included) where JAX differentiates the potential: 300 teacher-forced
+    transitions, as above.  The funnel starts at ``x[0]`` in [0.5, 3]."""
+    js, ts = pair("zigzag_vect", pot)
+    assert ts.device_potential == pot
+    x0, v0 = initial("zigzag_vect", 5)
+    if pot == "funnel":
+        x0[:, 0] = 0.5 + np.abs(x0[:, 0])
+    ins, outs, evs = jax_steps(js, x0, v0, 5)
+    ns, ev = te.make_transition(ts)(to_torch_state(ins))
+    assert_records_equal(ns, outs, RTOL, f"{pot} state")
+    assert_records_equal(ev, evs, RTOL, f"{pot} event")
+    assert (np.asarray(evs.kind) == pt.EV_JUMP).sum() > 100
 
 
 @pytest.mark.parametrize("family", [f for f in FAMILIES if not f.endswith(("fd", "const"))]

@@ -7,7 +7,8 @@ the worker is this file's ``__main__`` (``python tests/test_torch_gspmd.py
 PORT RANK WORLD N_CHAIN OUTDIR``), each process under a 300 s timeout,
 writing its arrays to OUTDIR.  The family cases read them:
 
-* for each of the seven samplers at d = 8, B = 8, 50 events, the blocks of
+* for each of the seven samplers at d = 8, B = 8, 50 events, and the Zig-Zag
+  on the Cauchy target (a coordinatewise device tag), the blocks of
   every process assembled into the whole ``RunResult`` equal JAX's
   ``make_fixed_event_runner`` run without a mesh (JAX's GSPMD path runs it)
   and JAX's ``sample_skeleton_gspmd`` on a ``make_mesh(4, 2)`` CPU mesh
@@ -65,11 +66,13 @@ FAMILIES = {
     "boomerang": ("BoomerangAD", "gauss", {"refresh_rate": 0.5}),
     "ecmc": ("ForwardECMCAD", "gauss", {}),
     "rhmc": ("RHMCAD", "gauss", {}),
+    "zigzag_cauchy": ("ZigZagAD", "cauchy", {}),
 }
 """Each family's constructor, potential and options.  The Zig-Zag runs on
 the banana, whose gradient couples coordinates 0 and 1, so its transition
 gathers the rows; the Gaussian's gradient is coordinatewise and runs on
-each slice."""
+each slice, as does the Cauchy's (its ``"cauchy"`` tag is in
+``utils.potentials.COORDINATEWISE``)."""
 
 
 def _samplers(fam):
@@ -85,7 +88,7 @@ def _samplers(fam):
 def _inits(fam):
     rs = np.random.default_rng(1)
     x0 = rs.normal(size=(B, D))
-    if fam in ("zigzag", "sticky", "suzz"):
+    if fam in ("zigzag", "sticky", "suzz", "zigzag_cauchy"):
         return x0, rs.choice([-1.0, 1.0], size=(B, D))
     v0 = rs.normal(size=(B, D))
     if fam == "ecmc":

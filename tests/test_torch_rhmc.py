@@ -1,5 +1,5 @@
 """RHMC on the port's transition engine against the JAX package, float64 on
-the CPU, and the five untagged test potentials.
+the CPU, and the five other test potentials.
 
 * Constructors: the defaults (the automatic ``tmax``), the flags and the
   error texts of ``RHMC``/``RHMCAD`` equal JAX's.
@@ -15,8 +15,10 @@ the CPU, and the five untagged test potentials.
   ``sample_streaming_stats`` against JAX's (``PDMPFLUX_FORCE_STREAM=1``,
   which runs JAX's engine in horizon mode on the CPU).
 * ``gauss_1d``, ``funnel``, ``neal_funnel``, ``ridged_gauss`` and ``cauchy``:
-  values and ``torch.func.grad`` against ``jax.grad``; each runs through
-  ``sample_skeleton`` and ``sample_from_skeleton_batch`` on the engine.
+  their device tags, values and ``torch.func.grad`` against ``jax.grad``;
+  each runs through ``sample_skeleton`` and ``sample_from_skeleton_batch``
+  on the engine (RHMC has no chunk kernel), which takes the tag's closed
+  form.
 """
 
 import math
@@ -192,7 +194,8 @@ def test_test_potentials_match_jax_and_run(name):
     if name == "funnel":
         x[:, 0] = np.abs(x[:, 0]) + 0.5  # the funnel needs x[0] > 0
     jU, tU = getattr(pf.utils.potentials, name), getattr(pt.potentials, name)
-    assert getattr(tU, "device_potential", None) is None  # untagged: engine on CUDA
+    # tagged: the kernels take it on CUDA, the engine its closed form
+    assert tU.device_potential == {"gauss_1d": "gauss", "ridged_gauss": "ridged"}.get(name, name)
     for row in x:
         np.testing.assert_allclose(float(tU(torch.as_tensor(row))), float(jU(jnp.asarray(row))),
                                    rtol=1e-14)
