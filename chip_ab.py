@@ -59,7 +59,7 @@ REPS = 50
 CALLS = 5  # timed warm calls of each deployment
 
 
-def launch_ms(sampler, x0, v0, run, config=cs.scalar_config, sticky=False, t_target=None):
+def launch_ms(sampler, x0, v0, run, config=cs.card_config, sticky=False, t_target=None):
     """Mean time of one K=32 launch of ``run`` from ``sampler``'s float32
     state at (x0, v0), in horizon mode at ``t_target`` when given."""
     B, d = x0.shape
@@ -146,7 +146,7 @@ def main():
     times = {}
     times["K1 flagship"], times["K1 horizon"] = k1_pair()
     times["K6 sticky"] = launch_ms(sticky, np.full((B_s, d_s), 0.3), np.ones((B_s, d_s)),
-                                   k1.run_chunk, cs.sticky_config, sticky=True)
+                                   k1.run_chunk, cs.card_config, sticky=True)
     times["K3 BPS"] = launch_ms(bps, x0, v0, k3.run_chunk)
     times["K5 ECMC"] = launch_ms(ecmc, x_ecmc, np.full((B_e, d_e), d_e ** -0.5), k3.run_chunk)
     times["K4 suzz"] = launch_ms(suzz, x_s, v_s, k1.run_chunk)
@@ -346,7 +346,7 @@ def probe_k6():
         s = cs.pt.StickyZigZagAD(d, cs.pt.potentials.gauss, np.full(d, cs.STICKY[3]),
                                  grid_size=grid)
         return launch_ms(s, np.full((B, d), 0.3), np.ones((B, d)), k1.run_chunk,
-                         cs.sticky_config, sticky=True)
+                         cs.card_config, sticky=True)
 
     text = (f"K6 probe: deployment {k6():.5f}, grid_size 2 {k6(grid=2):.5f}, 20 "
             f"{k6(grid=20):.5f}; d=32 {k6(32):.5f}, d=256 {k6(256):.5f}, d=512 "

@@ -194,13 +194,16 @@ Phases, one line each; any failure raises and exits non-zero:
    complete, K2 launched, engine transitions counted, no chunk kernel,
    |mean_i| < 0.1 and |var_i / truth_i - 1| < 0.1 with truth (1, 3, 1, ...);
    events/s, the split, K2 checked on the first fill as in phase 23;
-25. routing under ``backend="auto"``: a tagged Zig-Zag launches K1 and runs
-   no engine transition; RHMC and a ``vectorized_bound=False`` Zig-Zag run
-   the engine and no chunk kernel; ``"pallas"`` on RHMC raises; an untagged
-   Zig-Zag raises under ``"auto"`` naming ``backend="xla_stream"`` and runs
-   under it; then an engine ``sample_streaming_stats`` of RHMC at B = 512
-   (T = 300, 4096 grid points, 32 windows) with pooled moments in bench.py's
-   bands;
+25. routing under ``backend="auto"`` (just before it, every user library of
+   phases 25 and 36-38 is built, all nvcc at once): a tagged Zig-Zag
+   launches K1 and runs no engine transition; RHMC and a
+   ``vectorized_bound=False`` Zig-Zag run the engine and no chunk kernel;
+   ``"pallas"`` on RHMC raises; an untagged Zig-Zag (``lambda x: x``) is
+   lowered and takes K1 alone; a dense ``A @ x`` raises ``LoweringError``
+   under ``"auto"`` before any launch, naming ``aten.mv`` and
+   ``backend="xla_stream"``, and runs under it; then an engine
+   ``sample_streaming_stats`` of RHMC at B = 512 (T = 300, 4096 grid points,
+   32 windows) with pooled moments in bench.py's bands;
 26. host accumulation at ``sticky_zigzag_d1000`` (128 chains x 2048 points, a
    2.38 GB skeleton): (a) forced by ``PDMPFLUX_STREAM_HOST_ACC=1`` at the
    default fill rows, (b) forced by ``PDMPFLUX_DEVICE_BYTES`` = 1 GiB, JAX's
@@ -265,7 +268,43 @@ Phases, one line each; any failure raises and exits non-zero:
    funnel); five timed calls on the kernels, then one on the transition
    engine (``backend="xla_stream"``): x[0]'s pooled means within 0.15 and
    variances within 10% of each other, the truth (0, 9) printed; (35b) as
-   34b for K1.  The script prints its clock after each group of phases.
+   34b for K1;
+36. the slice's main path on gradients of the user's own (``ops/cuda/
+   lower.py`` lowers them into a generated potential, id 7, built into a
+   library of its own): bench.py's ``ZigZag(10, lambda x: x)`` and the
+   README's ``ZigZagAD(10, lambda x: torch.sum(x**2) / 2)``, 8192 chains x
+   2048 points, float32, x0 = 0, v0 = 1, ``backend="auto"``, five timed
+   calls each, the first counted: K1 and K2 launched, no engine chunk,
+   every skeleton field bit for bit phase 4's tagged ``grad_gauss`` run
+   from the same seed, bench.py's moment bands; one f32 K=32 chunk of K1 on
+   each against its plain version (``compare_f32``), timed; the user
+   libraries' build seconds, registers and spills;
+37. a gradient no tag covers on every chunk kernel, the Student-t with
+   nu = 5 (``3 sum log1p(x^2 / 5)``): K1 at the flagship shape, K6 at
+   ``sticky_zigzag_d1000`` (kappa = 10, x0 = 0.3), K3 (BPS, refresh 0.5) at
+   ``bps_anisotropic_gauss_d10``'s shape and K4 at ``suzz_gauss_d10``'s,
+   and a user-written anisotropic Gaussian with closed-over scales
+   linspace(0.5, 3, 10) (hoisted into the parameters) on K3; each kernel
+   against its plain version fed the IR's torch pair in f64 (two K=32
+   chunks from a random state: K3 and K4 bit for bit, K1 and K6 to
+   ``RTOL``), one warm and one counted call per deployment (its kernel and
+   K2, no engine chunk), the law: |mean| < 0.1 and the coordinate-pooled
+   variance within 10% of 5/3 (K6: of (1 - w) 5/3, w the atom at 0, from a
+   streaming run of 131072 events per chain), the anisotropic one as phase
+   10's gate; one f32 K=32 chunk each against its plain version, timed;
+38. a user-written Neal funnel (``x[0]``, ``torch.sum(x[1:]**2)``,
+   ``torch.exp(-x[0])``, one sum over the coordinates) on K1 at
+   ``zigzag_neal_funnel_d10``'s shape, against phase 35's tagged run, and on
+   K4 at ``suzz_gauss_d10``'s shape, against the tagged Speed-Up Zig-Zag:
+   x[0]'s means within 0.15 and variances within 10%; each kernel against
+   its plain version in f64 and one f32 chunk, as phase 37; K6 at
+   ``sticky_zigzag_d1000``'s shape on a hierarchical mean
+   (``sum((x[1:] - x[0])**2)``, a sum that reads coordinate 0 in every warp)
+   against its plain version in f64 to ``RTOL``; then a dense
+   ``A @ x`` (a seeded 10 x 10 SPD matrix) raises ``LoweringError`` under
+   ``"auto"`` before any build or launch, naming the aten op and
+   ``backend="xla_stream"``, and runs on the engine there (512 chains x 256
+   points).  The script prints its clock after each group of phases.
 
 Then one JSON line of per-kernel results (launches counted in the timed run
 of each kernel's path: phase 4 for K1 and K2, phase 7 for K6, phase 10 for
@@ -279,7 +318,9 @@ paths, phase 30 for the entries of K1 and K2 named after the profiled
 flagship, phase 32 (dim 1) for K2's entry named after the gspmd
 deployment, phases 34 and 35 for the entries of K4, K1 and K2 named after
 their deployments, 35 (the engine route) for K2's entry named
-``engine:zigzag_neal_funnel_d10``; max_abs_err the largest of the kernel's comparisons
+``engine:zigzag_neal_funnel_d10``, phases 36-38 for the entries
+``<kernel>[user:<path>]`` of each generated potential's path (and K2's on
+phase 36's two paths, timed at their shapes in phase 4b); max_abs_err the largest of the kernel's comparisons
 with its plain version, f64 and f32; the bound of each timed launch computed
 from its shape and this run's data), the card's name and power limit, and
 the status line.
@@ -287,6 +328,7 @@ the status line.
 
 import difflib
 import json
+import math
 import os
 import re
 import shutil
@@ -296,6 +338,8 @@ import sys
 import tempfile
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -314,6 +358,7 @@ from pdmpflux_tpu_torch.core.types import EV_INIT, Skeleton, event_from_state  #
 from pdmpflux_tpu_torch.ops.cuda import build  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import compact as k2  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import driver  # noqa: E402
+from pdmpflux_tpu_torch.ops.cuda import lower  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import scalar_chunk as k3  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import zigzag_chunk as k1  # noqa: E402
 from pdmpflux_tpu_torch.parallel import distributed  # noqa: E402
@@ -426,6 +471,8 @@ def chunk_ops(cfg, d, live, jumps):
     coord, point = {"cauchy": (10, 0), "ridged": (2 * MATH_OPS, 0),
                     "funnel": (4, 40), "neal_funnel": (4, MATH_OPS)}.get(
                         cfg.device_potential, (0, 0))
+    if cfg.user is not None:
+        coord, point = user_cost(cfg.user, cfg.kind not in lower.MOMENT_KERNELS)
     per += n_grid * (coord * d + point)
     if cfg.kind == "zigzag":
         per += n_grid * d * 20
@@ -449,6 +496,36 @@ def chunk_ops(cfg, d, live, jumps):
         else:
             jump = d * (normal + 12)
     return live * per + jumps * jump
+
+
+MATH_FNS = {"exp", "expm1", "log", "log1p", "sqrt", "sin", "cos", "tanh", "sinh", "cosh",
+            "pow"}
+"""The IR ops that call a CUDA math function (``ops/cuda/lower.py``)."""
+
+
+def user_cost(low, sums_at_points):
+    """(per coordinate, per point) operations of a generated potential beyond
+    the Gaussian's (2, ``x + v t``), counted from its IR: each op of the
+    gradient and its tangent once (a divide 10, a math function
+    ``MATH_OPS``), averaged over the coordinates; and where the kernel adds
+    the sums at every point (K3/K5, K4), each summand's value and tangent
+    per coordinate."""
+    def ops(*roots):
+        seen, n = set(), 0
+        for r in roots:
+            for x in (lower._nodes(r) if r is not None else ()):
+                if x.id in seen or not x.args:
+                    continue
+                seen.add(x.id)
+                n += (10 if x.op == "div" else MATH_OPS if x.op in MATH_FNS else 1)
+        return n
+
+    d = low.d
+    coord = sum((p.b - p.a) * ops(p.e, dp) for p, dp in zip(low.out, low.d_out)) / d - 2
+    if sums_at_points:
+        coord += sum(ops(p.e, dp) * (p.b - p.a) for r, dr in zip(low.reductions, low.d_red)
+                     for p, dp in zip(r, dr)) / d
+    return max(coord, 0.0), 0
 
 
 def chunk_bound(cfg, st, fill, live):
@@ -2878,8 +2955,10 @@ def phase_routing(card_name):
     """Phase 25: ``backend="auto"`` routing on the card.  A tagged Zig-Zag
     launches K1 and runs no engine transition; RHMC and a
     ``vectorized_bound=False`` Zig-Zag run the engine (and no chunk kernel);
-    ``"pallas"`` on RHMC raises; an untagged Zig-Zag raises under ``"auto"``
-    naming ``backend="xla_stream"`` and runs under it.  Then an engine
+    ``"pallas"`` on RHMC raises; an untagged Zig-Zag (``lambda x: x``) is
+    lowered and takes K1 alone; a dense ``A @ x`` raises ``LoweringError``
+    under ``"auto"`` before any launch, naming ``aten.mv`` and
+    ``backend="xla_stream"``, and runs under it.  Then an engine
     ``sample_streaming_stats`` of RHMC at B = 512, pooled moments in bench.py's
     bands."""
     d, n_sk = 10, 256
@@ -2916,18 +2995,30 @@ def phase_routing(card_name):
         raise AssertionError("phase 25: backend='pallas' ran RHMC")
     except ValueError as e:
         texts.append(f"pallas on RHMC raises ({e})")
-    untagged = pt.ZigZag(d, lambda x: x)
+    launches, tr = counted(pt.ZigZag(d, lambda x: x))
+    if launches["zigzag_chunk"] < 1 or tr != 0:
+        raise AssertionError(f"phase 25: an untagged Zig-Zag did not take K1 alone: "
+                             f"{launches}, {tr} engine transitions")
+    texts.append(f"untagged ZigZag(lambda x: x): lowered, {launches['zigzag_chunk']} K1 "
+                 "launches, 0 engine transitions")
+    A = torch.as_tensor(np.diag(np.linspace(1.0, 2.0, d)), dtype=torch.float32, device=DEV)
+    dense = pt.ZigZag(d, lambda x: A.to(x) @ x)
+    build.reset_launches()
     try:
-        pt.sample_skeleton(untagged, n_sk, x0, v0, **kw)
-        raise AssertionError("phase 25: an untagged gradient ran under backend='auto'")
-    except ValueError as e:
-        if "backend='xla_stream'" not in str(e):
+        pt.sample_skeleton(dense, n_sk, x0, v0, **kw)
+        raise AssertionError("phase 25: a dense A @ x ran under backend='auto'")
+    except lower.LoweringError as e:
+        if "backend='xla_stream'" not in str(e) or "aten.mv" not in str(e):
             raise
-    launches, tr = counted(untagged, backend="xla_stream")
+        if any(build.LAUNCHES.values()):
+            raise AssertionError(f"phase 25: the refusal came after a launch: "
+                                 f"{dict(build.LAUNCHES)}") from e
+    launches, tr = counted(dense, backend="xla_stream")
     if tr < 1 or launches["compact_rows"] < 1:
-        raise AssertionError(f"phase 25: untagged under xla_stream: {launches}, {tr}")
-    texts.append(f"untagged ZigZag: 'auto' raises naming backend='xla_stream'; "
-                 f"'xla_stream' ran {tr} engine transitions")
+        raise AssertionError(f"phase 25: A @ x under xla_stream: {launches}, {tr}")
+    texts.append(f"dense ZigZag(lambda x: A @ x): 'auto' raises LoweringError naming aten.mv "
+                 f"and backend='xla_stream' before any launch; 'xla_stream' ran {tr} engine "
+                 "transitions")
     B, d, T, n_samples, n_batches = ROUTE_STREAM
     sampler = pt.RHMCAD(d, pt.potentials.gauss)
     engine.reset_counts()
@@ -3647,7 +3738,8 @@ def phase_neal_funnel(card_name):
     mean and variance against the truth (0, 9) printed, without a gate (the
     Zig-Zag's bias in the funnel's neck at 2048 events).  Then the kernel
     route's breakdown and split (35b).  Returns the counted launches,
-    :func:`tag_breakdown`'s numbers and the engine route's K2 entry."""
+    :func:`tag_breakdown`'s numbers, the engine route's K2 entry and the
+    kernel route's x[0] mean and variance (phase 38's reference)."""
     d, B, n_sk = NEAL_D10
     what = "phase 35 zigzag_neal_funnel_d10"
     sampler = pt.ZigZagAD(d, pt.potentials.neal_funnel)
@@ -3681,7 +3773,477 @@ def phase_neal_funnel(card_name):
           flush=True)
     out = tag_breakdown("phase 35b zigzag_neal_funnel_d10", sampler, x0, v0, n_sk, launches,
                         float(np.median(walls)), K1_F32_SHARE)
-    return launches, out, (k2_n, *k2e)
+    return launches, out, (k2_n, *k2e), (m_k, v_k)
+
+
+# ---------------------------------------------------------------------------
+# Phases 36-38: gradients of the user's own, lowered into generated potentials
+# (ops/cuda/lower.py) that every chunk kernel takes (potential id 7)
+# ---------------------------------------------------------------------------
+
+STUDENT_NU = 5.0
+STUDENT_VAR = STUDENT_NU / (STUDENT_NU - 2.0)  # 5/3
+STUDENT_P0 = math.exp(math.lgamma(3.0) - math.lgamma(2.5)) / math.sqrt(5.0 * math.pi)
+"""The Student-t (nu = 5) density at 0, which sets the sticky target's atom."""
+STICKY_STUDENT_STREAM = (131072, 16384, 32)  # phase 37: K6's law run: events per chain,
+                                             # grid points, windows
+USER_CALLS = 5                  # phase 36: timed warm calls of each user gradient
+USER_SCALES = np.linspace(0.5, 3.0, 10)  # phase 37: the user-written anisotropic Gaussian
+DENSE_RUN = (512, 256)          # phase 38: chains, points of the dense gradient's engine run
+
+
+def student_t(x):
+    """Student-t with 5 degrees of freedom, written by a user:
+    ``U = 3 sum log1p(x^2 / 5)``; no device tag covers it."""
+    return 3.0 * torch.sum(torch.log1p(x * x / 5.0))
+
+
+def user_neal_funnel(x):
+    """Neal's funnel as a user writes it (``x[0]``, a sum over ``x[1:]`` and
+    ``exp(-x[0])``), untagged."""
+    return (x[0] * x[0] / 18.0 + 0.5 * (x.shape[0] - 1) * x[0]
+            + 0.5 * torch.sum(x[1:] ** 2) * torch.exp(-x[0]))
+
+
+def user_hierarchical(x):
+    """A hierarchical mean: ``U = x0^2 / 2 + sum((x[1:] - x[0])^2) / 2``;
+    coordinate 0's gradient sums ``x_j - x_0``, a sum that reads coordinate
+    0 at every coordinate, which every warp of K6 reads."""
+    return x[0] ** 2 / 2 + torch.sum((x[1:] - x[0]) ** 2) / 2
+
+
+def user_aniso():
+    """The anisotropic Gaussian with scales ``USER_SCALES`` closed over as a
+    tensor on the card: the lowering hoists them into the parameters."""
+    s = torch.as_tensor(USER_SCALES, device=DEV)
+    return lambda x: torch.sum((x / s.to(x)) ** 2) / 2
+
+
+USER_PATHS = {
+    "bench_zigzag_d10": (lambda: pt.ZigZag(10, lambda x: x), MAIN),
+    "readme_zigzag_ad_d10": (lambda: pt.ZigZagAD(10, lambda x: torch.sum(x ** 2) / 2), MAIN),
+    "student_t_zigzag_d10": (lambda: pt.ZigZagAD(10, student_t), MAIN),
+    "student_t_sticky_d1000": (lambda: pt.StickyZigZagAD(STICKY[0], student_t,
+                                                         np.full(STICKY[0], STICKY[3])),
+                               STICKY[:3]),
+    "student_t_bps_d10": (lambda: pt.BPSAD(10, student_t, refresh_rate=BPS_D10[3]),
+                          BPS_D10[:3]),
+    "student_t_suzz_d10": (lambda: pt.SpeedUpZigZagAD(10, student_t), SUZZ_D10),
+    "user_aniso_bps_d10": (lambda: pt.BPSAD(10, user_aniso(), refresh_rate=BPS_D10[3]),
+                           BPS_D10[:3]),
+    "user_neal_zigzag_d10": (lambda: pt.ZigZagAD(10, user_neal_funnel), NEAL_D10),
+    "user_neal_suzz_d10": (lambda: pt.SpeedUpZigZagAD(10, user_neal_funnel), SUZZ_D10),
+    "user_hier_sticky_d1000": (lambda: pt.StickyZigZagAD(STICKY[0], user_hierarchical,
+                                                         np.full(STICKY[0], STICKY[3])),
+                               STICKY[:3]),
+}
+"""Phases 36-38's deployments of gradients of the user's own: the sampler
+and (d, chains, points), each at the shape of the repo deployment it names."""
+
+
+def user_builds():
+    """Lower every gradient of phases 25 and 36-38 (float32 for the runs,
+    float64 for the checks against the plain version) and build their user
+    libraries, every ``nvcc`` started at once.  Returns (wall s, {library:
+    seconds}, ptxas text)."""
+    lows = []
+    for make, _ in USER_PATHS.values():
+        s = make()
+        for dt in (torch.float32, torch.float64):
+            lows.append(lower.lower_sampler(s, driver.kernel_kind(s), s.dim, dt, DEV))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(lows)) as ex:
+        list(ex.map(lambda low: low.library(), lows))
+    wall = time.perf_counter() - t0
+    secs, texts = {}, []
+    for path, info in build.BUILD_INFO["user"].items():
+        name = Path(path).name
+        secs[name] = info["seconds"]
+        kernels = ptxas_kernels(info["log"])
+        spills = sum(st for _, _, st, _ in kernels.values())
+        texts.append(f"{name}: {info['seconds'] or 0:.1f} s, registers "
+                     f"{sorted({r for r, *_ in kernels.values()})}, {spills} B spill stores")
+    return wall, secs, "; ".join(texts)
+
+
+def user_config(sampler, K, cap, dtype):
+    """The card config of a user gradient's sampler: :func:`card_config`
+    made the generated potential's (``driver.lowered_config``)."""
+    cfg = card_config(sampler, K, cap, dtype)
+    return driver.lowered_config(cfg, sampler, sampler.dim, dtype, DEV)
+
+
+def path_launch(sampler):
+    """The :data:`build.LAUNCHES` key of a sampler's chunk kernel."""
+    kind = driver.kernel_kind(sampler)
+    if kind in k3.KINDS:
+        return k3.launch_name(kind)
+    return k1.launch_name(card_config(sampler, 32, 1, torch.float32))
+
+
+def chunk_fns(cfg):
+    return ((k3.run_chunk, k3.run_chunk_plain) if cfg.kind in k3.KINDS
+            else (k1.run_chunk, k1.run_chunk_plain))
+
+
+def user_compare(what, sampler, B, bitwise, math_tag=None):
+    """A user gradient's kernel against its plain version fed the IR's torch
+    pair, two K=32 chunks from one f64 random state (every fifth chain capped
+    inside the run): integers equal, floats bit for bit where ``bitwise``
+    (K3/K5, K4: where the math function of ``math_tag``'s gradient, as
+    :func:`bit_tolerance` reads it, parts the two a bit, the first part is
+    printed and the check takes ``RTOL``) else to
+    ``RTOL``/``ATOL`` (K1, K6).  Returns (max abs err, events)."""
+    d, K, n_chunks = sampler.dim, 32, 2
+    scale = 0.3 if sampler.sticky else 1.0
+    state = random_state(sampler, B, torch.float64, d + B, scale=scale)
+    if driver.kernel_kind(sampler) in k3.KINDS:
+        v = state.v / state.v.norm(dim=1, keepdim=True)
+        state = state._replace(v=v)
+    counts = torch.zeros(B, dtype=torch.int32, device=DEV)
+    counts[::5] = 40
+    cfg = user_config(sampler, K, 48, torch.float64)
+    run, plain = chunk_fns(cfg)
+    st_k = driver.chunk_state(state, counts, sampler.sticky)
+    st_p = clone_state(st_k)
+    fill_k, fill_p = (k1.empty_fill(K * n_chunks, d, B, torch.float64, DEV, sampler.sticky)
+                      for _ in range(2))
+    for it in range(n_chunks):
+        seed = 314159 + it * 1000003
+        run(seed, st_k, fill_k, it * K, cfg)
+        plain(seed, st_p, fill_p, it * K, cfg)
+    sync()
+    rtol, atol = RTOL, ATOL
+    if bitwise:
+        rtol, atol = bit_tolerance(what, math_tag, st_k, fill_k, st_p, fill_p)
+    err = 0.0
+    for (name, a), (_, b) in zip(chunk_outputs(st_k, fill_k), chunk_outputs(st_p, fill_p)):
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: output {name} differs at "
+                                     f"{int((a != b).sum())} places")
+        else:
+            err = max(err, float_err(what, name, a, b, rtol, atol))
+    n_ev = int((fill_k.kind[:, 0] > 0).sum())
+    if n_ev < B // 2:
+        raise AssertionError(f"{what}: only {n_ev} events in the check")
+    return err, n_ev
+
+
+def user_chunk(what, sampler, x0, v0, share_min):
+    """One f32 K=32 chunk of a user gradient's kernel at its deployment's
+    shape and start against its plain version (``compare_f32``), each timed,
+    and the bound.  Returns (ms, plain ms, bound, max abs err, text)."""
+    B, d = x0.shape
+    K, seed = 32, 7
+    state = sampler.init_state_batch(x0, v0, 0, torch.float32, DEV)
+    cfg = user_config(sampler, K, 1 << 30, torch.float32)
+    run, plain = chunk_fns(cfg)
+    st = driver.chunk_state(state, torch.zeros(B, dtype=torch.int32, device=DEV),
+                            sampler.sticky)
+    st_p = clone_state(st)
+    vc = st.v.clone()
+    fill, fill_p = (k1.empty_fill(K, d, B, torch.float32, DEV, sampler.sticky)
+                    for _ in range(2))
+    run(seed, st, fill, 0, cfg)
+    plain(seed, st_p, fill_p, 0, cfg)
+    sync()
+    agree, share, err, texts = compare_f32(f"{what} f32", vc, st, fill, st_p, fill_p, cfg,
+                                           seed, share_min)
+    del st_p, fill_p
+    b = chunk_bound(cfg, st, fill, K * B)
+    ms = cuda_ms(lambda: run(seed, st, fill, 0, cfg), 20)
+    plain_ms = cuda_ms(lambda: plain(seed, st, fill, 0, cfg), 2)
+    text = (f"f32 chunk (K={K}) {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
+            f"{bound_text(b)}; kinds agree on {agree:.6f}, max_abs_err {err:.3e} on the "
+            f"{share:.4f} of chains with equal decisions (want >= {share_min}); the others "
+            f"left at f32 rounding ties: {'; '.join(texts) or 'none'}")
+    return ms, plain_ms, b, err, text
+
+
+def user_call(what, sampler, n_or_T, x0, v0, calls, **kw):
+    """A user gradient's ``sample_skeleton`` under ``backend="auto"``: one
+    warm call (its lowering; its library is built), then ``calls`` timed
+    calls, the launches and engine counts of the first set to 0 just before
+    it; that call must take its chunk kernel and K2 and no engine chunk.
+    Returns (the counted call's skeleton, launches, walls)."""
+    kw = dict(seed=0, dtype=torch.float32, device=DEV, **kw)
+    pt.sample_skeleton(sampler, n_or_T, x0, v0, **kw)
+    sync()
+    walls = []
+    for call in range(calls):
+        if call == 0:
+            build.reset_launches()
+            engine.reset_counts()
+        t0 = time.perf_counter()
+        skel = pt.sample_skeleton(sampler, n_or_T, x0, v0, **kw)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        if call == 0:
+            launches, chunks, checked = dict(build.LAUNCHES), engine.COUNTS["chunks"], skel
+    name = path_launch(sampler)
+    others = {k: n for k, n in launches.items() if n and k not in (name, "compact_rows")}
+    if launches[name] < 1 or launches["compact_rows"] < 1 or others or chunks:
+        raise AssertionError(f"{what}: the path did not take {name} and K2 alone: "
+                             f"{launches}, {chunks} engine chunks")
+    check_complete(what, checked, n_or_T)
+    return checked, launches, walls
+
+
+def skeleton_diff(a, b):
+    """None where two skeletons are equal bit for bit, else the first field
+    that differs and where."""
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if isinstance(x, torch.Tensor) and not torch.equal(x, y):
+            i = np.unravel_index(int((x != y).reshape(-1).nonzero()[0, 0]), tuple(x.shape))
+            return f"{f}{list(i)}: {x[i].item()!r} vs {y[i].item()!r}"
+    return None
+
+
+def phase_user_main(card_name, builds):
+    """Phase 36, the slice's main path at full width: ``bench.py``'s
+    ``ZigZag(10, lambda x: x)`` and the README's ``ZigZagAD(10, lambda x:
+    torch.sum(x**2) / 2)``, 8192 chains x 2048 points, float32, x0 = 0,
+    v0 = 1, ``backend="auto"``: each lowered (``g = y``, ``dg = v``; the 2
+    and 1/2 of the README's are exact), each taking K1 and K2 and no engine
+    chunk, each held bit for bit against phase 4's tagged ``grad_gauss`` run
+    from the same seed, and passing bench.py's moment bands; five timed
+    calls each; then one f32 K=32 chunk of K1 on each potential against its
+    plain version, timed.  Returns {path: (launches, ms, plain ms, bound,
+    err)}."""
+    d, B, n_sk = MAIN
+    x0, v0 = np.zeros((B, d)), np.ones((B, d))
+    tagged = pt.sample_skeleton(pt.ZigZag(d, pt.potentials.grad_gauss), n_sk, x0, v0,
+                                seed=0, dtype=torch.float32, device=DEV)
+    out, texts = {}, []
+    for path in ("bench_zigzag_d10", "readme_zigzag_ad_d10"):
+        sampler = USER_PATHS[path][0]()
+        skel, launches, walls = user_call(f"phase 36 {path}", sampler, n_sk, x0, v0,
+                                          USER_CALLS)
+        diff = skeleton_diff(skel, tagged)
+        if diff is not None:
+            raise AssertionError(f"phase 36 {path}: differs from the tagged grad_gauss run "
+                                 f"at {diff}")
+        mean, var = pt.pooled_moments(skel, sampler, 256)
+        if not moments_ok(mean, var):
+            raise AssertionError(f"phase 36 {path}: moments off: mean {mean.tolist()} "
+                                 f"var {var.tolist()}")
+        events = int(skel.n_valid.sum()) - B
+        del skel
+        ms, plain_ms, b, err, chunk_text = user_chunk(f"phase 36 {path} K1", sampler, x0, v0,
+                                                      K1_F32_SHARE)
+        out[path] = (launches, ms, plain_ms, b, err)
+        header = lower.lower_sampler(sampler, "zigzag", d, torch.float32, DEV)
+        texts.append(
+            f"{path} ({'ZigZag(10, lambda x: x)' if path.startswith('bench') else 'ZigZagAD(10, lambda x: torch.sum(x**2) / 2)'}; "
+            f"generated g = {header.out[0].e.text()}): K1 {launches['zigzag_chunk']} launches, "
+            f"K2 {launches['compact_rows']}, 0 engine chunks; every skeleton field bit for bit "
+            f"the tagged grad_gauss run's; max|mean| {float(mean.abs().max()):.4f}, "
+            f"max|var-1| {float((var - 1).abs().max()):.4f} (bench.py's bands); "
+            f"{walls_text(walls, events)}; K1 {chunk_text}")
+    del tagged
+    wall, secs, ptx = builds
+    print(f"phase 36 the main path on gradients of the user's own (B={B}, d={d}, "
+          f"n_sk={n_sk}, f32, backend='auto'): {'; '.join(texts)}; user builds (phases 25 and "
+          f"36-38, {len(secs)} libraries, every nvcc at once): wall {wall:.1f} s; {ptx} "
+          f"({card_name})", flush=True)
+    return out
+
+
+def t5_law(what, mean, var, w=0.0, per_coordinate=True):
+    """The Student-t gate: |mean| < 0.1 (each coordinate's, or the
+    coordinate-pooled mean where ``per_coordinate`` is False) and the
+    coordinate-pooled variance within 10% of (1 - w) 5/3 (w the sticky
+    target's atom at 0).  Returns its text."""
+    mean, var = mean.double().cpu(), var.double().cpu()
+    want = (1.0 - w) * STUDENT_VAR
+    m = float(mean.abs().max()) if per_coordinate else abs(float(mean.mean()))
+    v = float(var.mean())
+    if not (m < 0.1 and abs(v / want - 1.0) < 0.1):
+        raise AssertionError(f"{what}: Student-t law off: |mean| {m:.4f}, pooled variance "
+                             f"{v:.4f} against {want:.4f}")
+    return (f"{'max' if per_coordinate else 'pooled'} |mean| {m:.4f} < 0.1, pooled variance "
+            f"{v:.4f} within {abs(v / want - 1):.2%} < 10% of {want:.4f}; each coordinate's "
+            f"variance within {float((var / want - 1).abs().max()):.2%}")
+
+
+def phase_user_kernels(card_name):
+    """Phase 37, a gradient no tag covers on every chunk kernel: the
+    Student-t (nu = 5) on K1 at the flagship shape, K6 at
+    ``sticky_zigzag_d1000`` (kappa = 10), K3 at ``bps_anisotropic_gauss_d10``'s
+    shape (refresh 0.5) and K4 at ``suzz_gauss_d10``'s, and a user-written
+    anisotropic Gaussian whose scales are hoisted into the parameters on K3.
+    Each kernel against its plain version fed the IR's pair in f64 (K3 and K4
+    bit for bit, K1 and K6 to ``RTOL``); each deployment one warm and one
+    counted call (x0 = 0, v0 = 1; K6 x0 = 0.3) with its law: the Student-t's
+    |mean| < 0.1 and variance within 10% of 5/3 (K6: of (1 - w) 5/3 from a
+    streaming run of ``STICKY_STUDENT_STREAM``'s events per chain, the
+    coordinate-pooled mean, and the frozen share printed beside w), the
+    anisotropic one as phase 10's BPS gate.  Then one f32 K=32 chunk per path
+    against its plain version, timed.  Returns {path: (launches, ms, plain ms,
+    bound, err)}."""
+    out, texts = {}, []
+    cases = (("student_t_zigzag_d10", False, K1_F32_SHARE),
+             ("student_t_sticky_d1000", False, K6_F32_SHARE),
+             ("student_t_bps_d10", True, K3_F32_SHARE),
+             ("student_t_suzz_d10", True, K4_F32_SHARE),
+             ("user_aniso_bps_d10", True, K3_F32_SHARE))
+    for path, bitwise, share in cases:
+        make, (d, B, n_sk) = USER_PATHS[path]
+        sampler = make()
+        what = f"phase 37 {path}"
+        err64, n_ev = user_compare(what, sampler, B, bitwise)
+        x0 = np.full((B, d), 0.3) if sampler.sticky else np.zeros((B, d))
+        v0 = np.ones((B, d))
+        skel, launches, walls = user_call(what, sampler, n_sk, x0, v0, 1)
+        events = int(skel.n_valid.sum()) - B
+        if path.startswith("user_aniso"):
+            mean, var = (a.double().cpu().numpy() for a in pt.pooled_moments(skel, sampler, 256))
+            rel = var / USER_SCALES ** 2 - 1.0
+            if not (np.all(np.abs(mean) < 0.1 * USER_SCALES) and np.all(np.abs(rel) < 0.1)):
+                raise AssertionError(f"{what}: moments off: mean {mean.tolist()} var/s^2 - 1 "
+                                     f"{rel.tolist()}")
+            law = (f"max|mean/s| {float(np.max(np.abs(mean) / USER_SCALES)):.4f} < 0.1, "
+                   f"max|var/s^2-1| {float(np.max(np.abs(rel))):.4f} < 0.1; parameters "
+                   f"{sampler._lowered[('bps', d, torch.float32)].params.numel()} hoisted")
+        elif sampler.sticky:
+            t_end = float(skel.t[:, -1].double().median())
+            rate = (n_sk - 1) / t_end
+            events_goal, n_samples, n_batches = STICKY_STUDENT_STREAM
+            T = events_goal / rate
+            t0 = time.perf_counter()
+            build.reset_launches()
+            run = pt.sample_streaming_stats(sampler, T, x0, v0, n_samples=n_samples,
+                                            n_batches=n_batches, seed=2, dtype=torch.float32,
+                                            device=DEV)
+            sync()
+            s_wall = time.perf_counter() - t0
+            s_launches = build.LAUNCHES["sticky_chunk_horizon"]
+            summ = pt.streaming_summary(run)
+            w = STUDENT_P0 / (sampler.kappa[0].item() + STUDENT_P0)
+            frozen = 1.0 - float(run.state.is_active.float().mean())
+            law = (t5_law(what, torch.as_tensor(summ["pooled_mean"]),
+                          torch.as_tensor(summ["pooled_var"]), w, per_coordinate=False)
+                   + f"; frozen share {frozen:.4f} beside w = {w:.4f}; from a streaming run "
+                   f"to T = {T:.6g} ({run.events / B:.0f} events per chain, {run.fills} fills, "
+                   f"{s_launches} sticky_chunk_horizon launches, {s_wall:.3f} s)")
+            if s_launches < 1:
+                raise AssertionError(f"{what}: the streaming run missed K6")
+        else:
+            law = t5_law(what, *pt.pooled_moments(skel, sampler, 256))
+        del skel
+        ms, plain_ms, b, err32, chunk_text = user_chunk(what, sampler, x0, v0, share)
+        name = path_launch(sampler)
+        out[path] = (launches, ms, plain_ms, b, max(err64, err32))
+        texts.append(f"{path} ({type(sampler).__name__} d={d} B={B} n_sk={n_sk}): {name} vs "
+                     f"plain f64 {'bit for bit' if bitwise else f'rtol {RTOL}'} "
+                     f"max_abs_err={err64:.3e} ({n_ev} events); counted call {name} "
+                     f"{launches[name]} launches, K2 {launches['compact_rows']}, 0 engine "
+                     f"chunks, {events} events in {walls[0]:.4f} s; {law}; {chunk_text}")
+    print(f"phase 37 a gradient no tag covers on every chunk kernel: {'; '.join(texts)} "
+          f"({card_name})", flush=True)
+    return out
+
+
+def phase_user_reductions(card_name, neal_tagged):
+    """Phase 38, sums over coordinates and a refusal.  A user-written Neal
+    funnel (``x[0]``, ``torch.sum(x[1:]**2)``, ``torch.exp(-x[0])``): on K1
+    at ``zigzag_neal_funnel_d10``'s shape (8192 chains x 2048 points) held
+    against phase 35's tagged run (``neal_tagged``: x[0]'s mean and variance),
+    and on K4 at ``suzz_gauss_d10``'s shape against the tagged
+    SpeedUpZigZagAD(10, neal_funnel) from the same seed: x[0]'s means within
+    0.15, variances within 10%; each kernel against its plain version in f64
+    (K1 to ``RTOL``; K4 bit for bit, where exp parts the two a bit, the first
+    part printed and ``RTOL``).  K6 at ``sticky_zigzag_d1000``'s shape on a
+    hierarchical mean, whose sum reads coordinate 0 in every warp, against
+    its plain version in f64 to ``RTOL``.  Then a dense ``A @ x`` (A a seeded 10 x 10
+    SPD matrix) raises ``LoweringError`` under ``"auto"`` before any build
+    or launch, naming the aten op and ``backend="xla_stream"``, and runs on
+    the engine under that backend.  Returns {path: (launches, ms, plain ms,
+    bound, err)}."""
+    out, texts = {}, []
+    refs = {"user_neal_zigzag_d10": neal_tagged}
+    d, B, n_sk = SUZZ_D10
+    x0, v0 = np.zeros((B, d)), np.ones((B, d))
+    tagged = pt.sample_skeleton(pt.SpeedUpZigZagAD(d, pt.potentials.neal_funnel), n_sk, x0,
+                                v0, seed=0, dtype=torch.float32, device=DEV)
+    mean, var = pt.pooled_moments(tagged, pt.SpeedUpZigZagAD(d, pt.potentials.neal_funnel),
+                                  256)
+    refs["user_neal_suzz_d10"] = (float(mean[0]), float(var[0]))
+    del tagged
+    for path, bitwise, share in (("user_neal_zigzag_d10", False, K1_F32_SHARE),
+                                 ("user_neal_suzz_d10", True, K4_F32_SHARE)):
+        make, (d, B, n_sk) = USER_PATHS[path]
+        sampler = make()
+        what = f"phase 38 {path}"
+        err64, n_ev = user_compare(what, sampler, B, bitwise, math_tag="neal_funnel")
+        x0, v0 = np.zeros((B, d)), np.ones((B, d))
+        skel, launches, walls = user_call(what, sampler, n_sk, x0, v0, 1)
+        mean, var = pt.pooled_moments(skel, sampler, 256)
+        events = int(skel.n_valid.sum()) - B
+        del skel
+        m, v = float(mean[0]), float(var[0])
+        m_t, v_t = refs[path]
+        if not (abs(m - m_t) < 0.15 and abs(v / v_t - 1.0) < 0.1):
+            raise AssertionError(f"{what}: x[0] mean {m:.4f} vs the tag's {m_t:.4f}, "
+                                 f"variance {v:.4f} vs {v_t:.4f}")
+        ms, plain_ms, b, err32, chunk_text = user_chunk(what, sampler, x0, v0, share)
+        name = path_launch(sampler)
+        low = lower.lower_sampler(sampler, driver.kernel_kind(sampler), d, torch.float32, DEV)
+        out[path] = (launches, ms, plain_ms, b, max(err64, err32))
+        texts.append(f"{path} ({type(sampler).__name__} d={d} B={B} n_sk={n_sk}; sums "
+                     f"{[[p.e.text() for p in r] for r in low.reductions]}): {name} vs plain "
+                     f"f64 max_abs_err={err64:.3e} ({n_ev} events); counted call {name} "
+                     f"{launches[name]} launches, 0 engine chunks, {events} events in "
+                     f"{walls[0]:.4f} s; x[0] mean {m:.4f} vs the tag's {m_t:.4f} (within "
+                     f"{abs(m - m_t):.4f} < 0.15), variance {v:.4f} vs {v_t:.4f} (within "
+                     f"{abs(v / v_t - 1):.2%} < 10%); {chunk_text}")
+    # K6 on a sum that reads coordinate 0 in every warp, against its plain
+    # version in f64 (a read of coordinate 0 before the flow that moved it
+    # shows here)
+    path = "user_hier_sticky_d1000"
+    make, (d, B, _) = USER_PATHS[path]
+    sampler = make()
+    low = lower.lower_sampler(sampler, "sticky", d, torch.float64, DEV)
+    if "reads01 = true" not in low.header():
+        raise AssertionError(f"phase 38 {path}: its sum reads coordinate 0 but reads01 is false")
+    err_h, n_ev_h = user_compare(f"phase 38 {path}", sampler, B, False)
+    texts.append(f"{path} (StickyZigZagAD d={d} B={B}, U = x0^2/2 + sum((x[1:] - x[0])^2)/2; "
+                 f"sums {[[p.e.text() for p in r] for r in low.reductions]}): sticky_chunk "
+                 f"vs plain f64 max_abs_err={err_h:.3e} ({n_ev_h} events)")
+    notes = "; ".join(n for n in MATH_NOTES if n.startswith("phase 38")) or "none"
+    # the refusal: a dense coupling
+    d = 10
+    rs = np.random.default_rng(38)
+    a = rs.normal(size=(d, d))
+    A = torch.as_tensor(a @ a.T / d + np.eye(d), dtype=torch.float32, device=DEV)
+    dense = pt.ZigZag(d, lambda x: A.to(x) @ x)
+    B, n_sk = DENSE_RUN
+    x0, v0 = np.zeros((B, d)), np.ones((B, d))
+    builds_before = len(build.BUILD_INFO["user"])
+    build.reset_launches()
+    engine.reset_counts()
+    try:
+        pt.sample_skeleton(dense, n_sk, x0, v0, seed=0, dtype=torch.float32, device=DEV)
+        raise AssertionError("phase 38: a dense A @ x ran under backend='auto'")
+    except lower.LoweringError as e:
+        msg = str(e)
+    if (not ("aten.mv" in msg or "aten.mm" in msg) or "backend='xla_stream'" not in msg
+            or any(build.LAUNCHES.values()) or engine.COUNTS["transitions"]
+            or len(build.BUILD_INFO["user"]) != builds_before):
+        raise AssertionError(f"phase 38: the dense gradient's refusal: {msg}; launches "
+                             f"{dict(build.LAUNCHES)}")
+    skel, e_wall, k2_n, chunks, transitions, _, _ = engine_call(dense, n_sk, x0, v0, seed=0,
+                                                                backend="xla_stream")
+    check_complete("phase 38 dense A @ x on the engine", skel, n_sk)
+    del skel
+    print(f"phase 38 sums and a refusal: {'; '.join(texts)}; bit-for-bit checks that parted "
+          f"in exp: {notes}; dense A @ x (10 x 10 SPD): 'auto' raises before any build or "
+          f"launch ({msg}); backend='xla_stream' ran it: {chunks} engine chunks, "
+          f"{transitions} transitions, {k2_n} K2 launches, {e_wall:.3f} s ({card_name})",
+          flush=True)
+    return out
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b):
@@ -3745,6 +4307,7 @@ def main():
     k2_paths = {"rhmc_gauss_d10": phase_rhmc(card_name)}
     for tderiv in ("fd", "jvp"):
         k2_paths[f"zigzag_banana_d10_{tderiv}"] = phase_banana_engine(card_name, tderiv)
+    builds = user_builds()  # phases 25 and 36-38's user libraries, every nvcc at once
     phase_routing(card_name)
     at(25)
     k2_paths["host:sticky_zigzag_d1000"] = phase_host_sticky(card_name, sticky, k6_ms)
@@ -3761,9 +4324,15 @@ def main():
     at(33)
     cauchy_launches, cauchy = phase_suzz_cauchy(card_name)
     at(34)
-    neal_launches, neal, k2_paths["engine:zigzag_neal_funnel_d10"] = phase_neal_funnel(
-        card_name)
+    neal_launches, neal, k2_paths["engine:zigzag_neal_funnel_d10"], neal_x0 = \
+        phase_neal_funnel(card_name)
     at(35)
+    user = phase_user_main(card_name, builds)
+    at(36)
+    user.update(phase_user_kernels(card_name))
+    at(37)
+    user.update(phase_user_reductions(card_name, neal_x0))
+    at(38)
     zz = "pdmpflux_tpu/ops/pallas/zigzag_chunk.py:854"
     k7 = 'pdmpflux_tpu/ops/pallas/zigzag_chunk.py:343 mode="horizon"'
     kernels = [
@@ -3836,6 +4405,22 @@ def main():
             kernel_entry(f"compact_rows[{path}]", "compact.cu",
                          "pdmpflux_tpu/ops/pallas/compact.py:132", n["compact_rows"], k2e,
                          k2ms, k2pms, k2b)]
+    # the generated potentials' paths (phases 36-38), each kernel timed at its
+    # shape and checked there in f32 and, in phases 37-38, against its plain
+    # version in f64; their K2 launches compact fills of the flagship's shapes
+    # (phase 4b's K2 numbers) or of their own deployments' shapes
+    sources = {"zigzag_chunk": ("zigzag_chunk.cu", zz), "sticky_chunk": ("sticky_chunk.cu", zz),
+               "bps_chunk": ("scalar_chunk.cu", zz + ' kind="bps"/"boomerang"'),
+               "suzz_chunk": ("suzz_chunk.cu", zz + ' kind="suzz"')}
+    for path, (n, ms, plain_ms, b, err) in user.items():
+        name = next(k for k in sources if n.get(k))
+        kernels.append(kernel_entry(f"{name}[user:{path}]", *sources[name], n[name], err, ms,
+                                    plain_ms, b))
+        if path in ("bench_zigzag_d10", "readme_zigzag_ad_d10"):
+            kernels.append(kernel_entry(f"compact_rows[user:{path}]", "compact.cu",
+                                        "pdmpflux_tpu/ops/pallas/compact.py:132",
+                                        n["compact_rows"], max(k2_err, k2_main_err), k2_ms,
+                                        k2_plain_ms, k2_b))
     # the engine and host paths' K2 launches, each checked and timed on its own fill
     for path, (n, err, ms, plain_ms, b) in k2_paths.items():
         kernels.append(kernel_entry(f"compact_rows[{path}]", "compact.cu",

@@ -48,6 +48,7 @@ from .core.types import EV_INIT, Event, PDMPState, Skeleton, empty_skeleton, eve
 from .diagnostics import boundary_u, linspace0
 from .ops.cuda import compact as k2
 from .ops.cuda import driver as k1_driver
+from .ops.cuda import lower
 from .ops.cuda import scalar_chunk as k3
 from .ops.cuda import zigzag_chunk as k1
 from .ops.flows import div_once
@@ -161,15 +162,18 @@ def pick_backend(sampler, backend: str, d: int, dtype, device) -> str:
     * ``"auto"``: the chunk kernel where ``kernel_kind`` covers the sampler
       and, on CUDA, the kernel takes the shape (``grid_size`` up to
       ``MAX_GRID``; ``d`` up to ``scalar_max_dim`` for K3/K5 and
-      ``sticky_max_dim`` for K6, shared memory's limits; the plain versions
+      ``sticky_max_dim`` for K6, shared memory's limits, a generated
+      potential's K6 read from its own build; the plain versions
       on the CPU have none), else the engine;
     * ``"pallas"``: the kernel, or ``ValueError`` where none covers the
       sampler or the shape.
 
     On CUDA a covered sampler whose gradient carries no device potential
-    (a gradient of the user's own) raises under ``"auto"`` and ``"pallas"``,
-    naming ``backend="xla_stream"``.  A failed build or launch never picks the
-    route: they raise where they happen."""
+    (a gradient of the user's own) is lowered into a generated potential
+    (``ops/cuda/lower.py``) and takes the kernel; a gradient the lowering
+    cannot express raises its ``LoweringError`` under ``"auto"`` and
+    ``"pallas"``, naming ``backend="xla_stream"``.  A failed build or launch
+    never picks the route: they raise where they happen."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, not {backend!r}")
     if backend in ("xla", "xla_stream"):
@@ -187,9 +191,10 @@ def pick_backend(sampler, backend: str, d: int, dtype, device) -> str:
         return "kernel"
     scalar = kind in k3.KINDS
     n_grid = sampler.grid_size if sampler.grid_size >= 2 else k1_driver.PALLAS_CONST_GRID
-    limit = (k3.scalar_max_dim(dtype) if scalar else
-             k1.sticky_max_dim(dtype) if sampler.sticky else None)
-    if n_grid > k1.MAX_GRID or (limit is not None and d > limit):
+
+    def too_large(limit) -> bool:  # past the kernel's grid or d: the engine
+        if n_grid <= k1.MAX_GRID and (limit is None or d <= limit):
+            return False
         if backend == "pallas":
             raise ValueError(
                 f"backend='pallas': the {kind} chunk kernel takes grid_size up to "
@@ -197,12 +202,16 @@ def pick_backend(sampler, backend: str, d: int, dtype, device) -> str:
                 f"{sampler.grid_size}, d={d}; {type(sampler).__name__} runs on "
                 "backend='xla_stream' here"
             )
+        return True
+
+    if too_large(k3.scalar_max_dim(dtype) if scalar else
+                 k1.sticky_max_dim(dtype) if sampler.sticky else None):
         return "engine"
     if sampler.device_potential not in k1.KERNEL_POTENTIALS:
-        what = ("scalar-rate" if scalar else "Speed-Up Zig-Zag" if kind == "suzz"
-                else "Sticky Zig-Zag" if sampler.sticky else "Zig-Zag")
-        raise ValueError(k1.potential_message(what, k1.KERNEL_POTENTIALS,
-                                              sampler.device_potential))
+        low = lower.lower_sampler(sampler, kind, d, dtype, device)  # raises LoweringError
+        # K6's static rows are the generated potential's own (its build's)
+        if sampler.sticky and too_large(k1.sticky_max_dim(dtype, low)):
+            return "engine"
     return "kernel"
 
 

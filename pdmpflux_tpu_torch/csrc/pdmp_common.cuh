@@ -142,19 +142,20 @@ __device__ __forceinline__ T vel(const T* v, const uint8_t* act, long stride, in
 
 // Sums over a chain's coordinates 1..d-1 that the funnels' coordinate 0
 // reads at the evaluation point y: S = sum y_j^2, P = sum y_j va_j, and
-// n = d - 1.  The other potentials ignore them; a potential that reads them
-// says so with chain = true, and only then does a kernel compute them.  Two
-// forms, chosen by the kernel's layout:
-//  - K3/K5 and K4, where one lane walks the chain: chain_sums, the sums
-//    at the evaluation point itself in coordinate order, as the plain
-//    versions add them (utils/potentials.chain_sums), so they agree bit for
-//    bit;
-//  - K1 and K6, where a chain's coordinates lie across lanes: ChainMoments,
-//    the moments A = sum x_j^2, Bm = sum x_j va_j and C = sum va_j^2 of the
-//    transition's starting point, reduced once per transition (after the
-//    previous flow, flip, stick or thaw), from which the linear flow gives
-//    S(t) = A + t (2 Bm + t C) and P(t) = Bm + t C at every time the
-//    transition evaluates; these agree with the plain versions to rounding.
+// n = d - 1.  A potential says with chain = true that it reads sums, and
+// only then does a kernel form them; it forms them through the potential,
+// in one of two ways chosen by the kernel's layout:
+//  - K3/K5 and K4, where one lane walks the chain: Pot::sums, the sums at
+//    the evaluation point itself in coordinate order, as the plain versions
+//    add them (utils/potentials.chain_sums), so they agree bit for bit;
+//  - K1 and K6, where a chain's coordinates lie across lanes: Pot::Moments,
+//    reduced once per transition (after the previous flow, flip, stick or
+//    thaw) from Pot::moments_zero by Pot::moment_add over the coordinates,
+//    from which the linear flow gives the sums at every time the transition
+//    evaluates (Moments::at); these agree with the plain versions to
+//    rounding.  The funnels' moments are A = sum x_j^2, Bm = sum x_j va_j and
+//    C = sum va_j^2 of the transition's starting point, so
+//    S(t) = A + t (2 Bm + t C) and P(t) = Bm + t C.
 template <typename T>
 struct ChainSums {
   T S, P, n;
@@ -162,26 +163,67 @@ struct ChainSums {
 
 template <typename T>
 struct ChainMoments {
-  T A, Bm, C, n;
+  static constexpr int N = 3;  // the moments a kernel reduces: A, Bm, C
+  T m[N];
+  T n;
 
   __device__ __forceinline__ ChainSums<T> at(T t) const {
-    return {A + t * ((T)2 * Bm + t * C), Bm + t * C, n};
+    return {m[0] + t * ((T)2 * m[1] + t * m[2]), m[1] + t * m[2], n};
   }
 };
 
-// S and P in coordinate order from yw(j, y, w), which gives coordinate j's
-// point y and velocity w.
-template <typename T, class F>
-__device__ __forceinline__ ChainSums<T> chain_sums(int d, F yw) {
-  ChainSums<T> cs{(T)0, (T)0, (T)(d - 1)};
-  for (int j = 1; j < d; ++j) {
-    T y, w;
-    yw(j, y, w);
-    cs.S = j == 1 ? y * y : cs.S + y * y;
-    cs.P = j == 1 ? y * w : cs.P + y * w;
+// A tag that reads no sums: zeros, and no moments.  reads01 says that a
+// kernel must make coordinates 0 and 1 visible to every thread before it
+// reads them (K6 takes a barrier); a tag reads them only where its own
+// threads flowed them (Banana at coordinates 0 and 1, the funnels from
+// registers).  A potential generated from a user's gradient
+// (UserPotential, below) brings its own Sums, Moments and reads01.
+template <typename T>
+struct TagPotential {
+  static constexpr bool chain = false;
+  static constexpr bool reads01 = false;
+  using Sums = ChainSums<T>;
+  using Moments = ChainMoments<T>;
+
+  // the sums at one point, one lane walking the chain (K3/K5, K4):
+  // yw(j, y, w) gives coordinate j's point and velocity
+  template <class F>
+  __device__ __forceinline__ static Sums sums(int d, const T*, F) {
+    return {(T)0, (T)0, (T)(d - 1)};
   }
-  return cs;
-}
+  __device__ __forceinline__ static Moments moments_zero(int d) {
+    return {{(T)0, (T)0, (T)0}, (T)(d - 1)};
+  }
+  // coordinate i's terms at the transition's start (y, w), with coordinates
+  // 0 and 1 (y0, w0, y1, w1), added to a lane's moments (K1, K6)
+  __device__ __forceinline__ static void moment_add(Moments&, int, T, T, T, T, T, T,
+                                                    const T*) {}
+};
+
+// The funnels' S and P over coordinates 1..d-1.
+template <typename T>
+struct FunnelSums : TagPotential<T> {
+  static constexpr bool chain = true;
+
+  template <class F>
+  __device__ __forceinline__ static ChainSums<T> sums(int d, const T*, F yw) {
+    ChainSums<T> cs{(T)0, (T)0, (T)(d - 1)};
+    for (int j = 1; j < d; ++j) {
+      T y, w;
+      yw(j, y, w);
+      cs.S = j == 1 ? y * y : cs.S + y * y;
+      cs.P = j == 1 ? y * w : cs.P + y * w;
+    }
+    return cs;
+  }
+  __device__ __forceinline__ static void moment_add(ChainMoments<T>& m, int i, T y, T w, T,
+                                                    T, T, T, const T*) {
+    if (i == 0) return;  // coordinate 0 left out
+    m.m[0] += y * y;
+    m.m[1] += y * w;
+    m.m[2] += w * w;
+  }
+};
 
 // Device potentials (utils/potentials.py tags): gradient component i at
 // x + va t and its derivative along va, from values: coordinate i's own
@@ -191,8 +233,7 @@ __device__ __forceinline__ ChainSums<T> chain_sums(int d, F yw) {
 // (utils/potentials.LANE_POTENTIALS) writes it, in jax.grad's order of
 // operations where the formula allows.
 template <typename T>
-struct Gauss {
-  static constexpr bool chain = false;
+struct Gauss : TagPotential<T> {
   __device__ __forceinline__ static void at(int, T xi, T vi, T, T, T, T, T t, const T*,
                                             const ChainSums<T>&, T& g, T& dg) {
     g = xi + vi * t;
@@ -201,8 +242,7 @@ struct Gauss {
 };
 
 template <typename T>
-struct Banana {  // U = (x0^2 + (x1 - x0^2 + 1)^2 + sum_{k>=2} x_k^2) / 2
-  static constexpr bool chain = false;
+struct Banana : TagPotential<T> {  // U = (x0^2 + (x1 - x0^2 + 1)^2 + sum_{k>=2} x_k^2) / 2
   __device__ __forceinline__ static void at(int i, T xi, T vi, T x0, T v0, T x1, T v1, T t,
                                             const T*, const ChainSums<T>& cs, T& g, T& dg) {
     if (i >= 2) {
@@ -225,8 +265,7 @@ struct Banana {  // U = (x0^2 + (x1 - x0^2 + 1)^2 + sum_{k>=2} x_k^2) / 2
 // parameters): jax.grad evaluates (x / s) / s, and its derivative along v is
 // (v / s) / s.
 template <typename T>
-struct Aniso {
-  static constexpr bool chain = false;
+struct Aniso : TagPotential<T> {
   __device__ __forceinline__ static void at(int i, T xi, T vi, T, T, T, T, T t, const T* s,
                                             const ChainSums<T>&, T& g, T& dg) {
     const T si = s[i];
@@ -238,8 +277,7 @@ struct Aniso {
 // U = sum log(1 + x_k^2) (the "cauchy" tag): g = 2 (y q) with
 // q = 1 / (y^2 + 1), and along v 2 (v q + y p), p = -(2 (v y)) / (y^2 + 1)^2.
 template <typename T>
-struct Cauchy {
-  static constexpr bool chain = false;
+struct Cauchy : TagPotential<T> {
   __device__ __forceinline__ static void at(int, T xi, T vi, T, T, T, T, T t, const T*,
                                             const ChainSums<T>&, T& g, T& dg) {
     const T y = xi + vi * t;
@@ -256,8 +294,7 @@ struct Cauchy {
 // g = (cos(10 y) + y / 2) + y / 2, and along v
 // (-((10 v) sin(10 y)) + v / 2) + v / 2.
 template <typename T>
-struct Ridged {
-  static constexpr bool chain = false;
+struct Ridged : TagPotential<T> {
   __device__ __forceinline__ static void at(int, T xi, T vi, T, T, T, T, T t, const T*,
                                             const ChainSums<T>&, T& g, T& dg) {
     const T y = xi + vi * t;
@@ -272,8 +309,7 @@ struct Ridged {
 // dg_0 = (-(2 P c / c^4 - 3 (S / c^4) v_0) - (d - 1) v_0 / c^2) + v_0 and
 // dg_j = v_j / c^2 - 2 v_0 (c / c^4) y_j.
 template <typename T>
-struct Funnel {
-  static constexpr bool chain = true;
+struct Funnel : FunnelSums<T> {
   __device__ __forceinline__ static void at(int i, T xi, T vi, T x0, T v0, T, T, T t,
                                             const T*, const ChainSums<T>& cs, T& g, T& dg) {
     const T c = x0 + v0 * t;
@@ -298,8 +334,7 @@ struct Funnel {
 // g_0 = ((-((S / 2) e) + (d - 1) / 2) + c k) + c k, g_j = e y_j; along v
 // dg_0 = (-(P e + (S / 2) e') + v_0 k) + v_0 k and dg_j = e' y_j + e v_j.
 template <typename T>
-struct NealFunnel {
-  static constexpr bool chain = true;
+struct NealFunnel : FunnelSums<T> {
   __device__ __forceinline__ static void at(int i, T xi, T vi, T x0, T v0, T, T, T t,
                                             const T*, const ChainSums<T>& cs, T& g, T& dg) {
     const T c = x0 + v0 * t;
@@ -317,10 +352,30 @@ struct NealFunnel {
   }
 };
 
+#ifdef PDMPFLUX_USER_POTENTIAL
+// A gradient of the user's own, lowered by ops/cuda/lower.py into
+// UserPotential<T>: the header is generated per gradient, and a library
+// built with it (ops/cuda/build.user_library: -DPDMPFLUX_USER_POTENTIAL and
+// the header's directory on the include path) takes potential id 7 alone.
+#include "pdmpflux_user_potential.cuh"
+#endif
+
+// The message of a launcher's CUDA error, exported once per library: by K1's
+// source in the kernels' own library, and by the one source of a library
+// built with a generated potential.
+#if defined(PDMPFLUX_ERROR_STRING) || defined(PDMPFLUX_USER_POTENTIAL)
+extern "C" const char* pdmpflux_cuda_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+#endif
+
 // f(Pot{}) for the potential of a launcher's id (DEVICE_POTENTIALS in
 // utils/potentials.py); "aniso" needs its scales.
 template <typename T, class F>
 int with_potential(int potential, const void* prm, F&& f) {
+#ifdef PDMPFLUX_USER_POTENTIAL
+  return potential == 7 ? f(UserPotential<T>{}) : (int)cudaErrorInvalidValue;
+#else
   switch (potential) {
     case 0: return f(Gauss<T>{});
     case 1: return f(Banana<T>{});
@@ -331,6 +386,7 @@ int with_potential(int potential, const void* prm, F&& f) {
     case 6: return f(NealFunnel<T>{});
   }
   return (int)cudaErrorInvalidValue;
+#endif
 }
 
 // ---- the warp-wide envelope of K3/K5 and K4 ----

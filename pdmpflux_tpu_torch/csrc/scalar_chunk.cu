@@ -84,20 +84,17 @@ struct Jump {
   double mix_p, sf;
 };
 
-// The funnels' sums over coordinates 1..d-1 of x + v t, x and v the chain's
-// d shared values, in coordinate order as the plain version adds them
-// (pdmp_common.cuh: chain_sums); zeros for a potential that does not read
-// them.
+// The sums Pot reads (the funnels': over coordinates 1..d-1) at x + v t, x
+// and v the chain's d shared values, in coordinate order as the plain
+// version adds them (pdmp_common.cuh: Pot::sums); zeros for a potential that
+// does not read them.
 template <typename T, class Pot>
-__device__ __forceinline__ ChainSums<T> sums_at(const T* x, const T* v, int d, T t) {
-  if constexpr (Pot::chain) {
-    return chain_sums<T>(d, [&](int j, T& y, T& w) {
-      w = v[j];
-      y = x[j] + w * t;
-    });
-  } else {
-    return {(T)0, (T)0, (T)(d - 1)};
-  }
+__device__ __forceinline__ typename Pot::Sums sums_at(const T* x, const T* v, int d, T t,
+                                                      const T* prm) {
+  return Pot::sums(d, prm, [&](int j, T& y, T& w) {
+    w = v[j];
+    y = x[j] + w * t;
+  });
 }
 
 // Gradient component i at x + v t and its derivative along v, x and v the
@@ -105,7 +102,8 @@ __device__ __forceinline__ ChainSums<T> sums_at(const T* x, const T* v, int d, T
 // the funnels their chain sums cs at the same point.
 template <typename T, class Pot>
 __device__ __forceinline__ void grad_at(const T* x, const T* v, int d, int i, T t,
-                                        const T* prm, const ChainSums<T>& cs, T& g, T& dg) {
+                                        const T* prm, const typename Pot::Sums& cs,
+                                        T& g, T& dg) {
   const int i1 = d > 1 ? 1 : 0;
   Pot::at(i, x[i], v[i], x[0], v[0], x[i1], v[i1], t, prm, cs, g, dg);
 }
@@ -187,12 +185,10 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
       const int i1 = d > 1 ? 1 : 0;
       const T y0 = X[0] * c + V[0] * s, w0 = -X[0] * s + V[0] * c;
       const T y1 = X[i1] * c + V[i1] * s, w1 = -X[i1] * s + V[i1] * c;
-      ChainSums<T> cs{zero, zero, (T)(d - 1)};
-      if constexpr (Pot::chain)
-        cs = chain_sums<T>(d, [&](int j, T& y, T& w) {
-          y = X[j] * c + V[j] * s;
-          w = -X[j] * s + V[j] * c;
-        });
+      const auto cs = Pot::sums(d, prm, [&](int j, T& y, T& w) {
+        y = X[j] * c + V[j] * s;
+        w = -X[j] * s + V[j] * c;
+      });
       for (int i = 0; i < d; ++i) {
         const T yi = X[i] * c + V[i] * s, wi = -X[i] * s + V[i] * c;
         T g, dg;
@@ -204,7 +200,7 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
         df = i == 0 ? r1 : df + r1;
       }
     } else {
-      const ChainSums<T> cs = sums_at<T, Pot>(X, V, d, t);
+      const auto cs = sums_at<T, Pot>(X, V, d, t, prm);
       for (int i = 0; i < d; ++i) {
         T g, dg;
         grad_at<T, Pot>(X, V, d, i, t, prm, cs, g, dg);
@@ -271,14 +267,14 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
           W[i] = -X[i] * s + V[i] * c;
         }
         __syncwarp();
-        const ChainSums<T> cs = sums_at<T, Pot>(Y, W, d, zero);
+        const auto cs = sums_at<T, Pot>(Y, W, d, zero, prm);
         for (int i = lane; i < d; i += 32) {
           T g, dg;
           grad_at<T, Pot>(Y, W, d, i, zero, prm, cs, g, dg);
           R0[i] = (g - Y[i]) * W[i];
         }
       } else {
-        const ChainSums<T> cs = sums_at<T, Pot>(X, V, d, tp_safe);
+        const auto cs = sums_at<T, Pot>(X, V, d, tp_safe, prm);
         for (int i = lane; i < d; i += 32) {
           T g, dg;
           grad_at<T, Pot>(X, V, d, i, tp_safe, prm, cs, g, dg);
@@ -315,8 +311,8 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
       __syncwarp();
 
       // ---- velocity jump at x_new (uniform over the warp) ----
-      ChainSums<T> cs_new{zero, zero, (T)(d - 1)};
-      if (p_acc) cs_new = sums_at<T, Pot>(X, V, d, zero);
+      typename Pot::Sums cs_new{};  // read only on a jump
+      if (p_acc) cs_new = sums_at<T, Pot>(X, V, d, zero, prm);
       if (p_acc && jp.kind != KIND_ECMC) {
         // K3: bounce or refresh
         for (int i = lane; i < d; i += 32) {

@@ -62,7 +62,10 @@
 // linear flow gives S and P from them at every time the transition
 // evaluates, and the flip's rates read coordinate 0 flowed in registers.  Only threads 0 and 1 read another
 // coordinate (Banana's y0 and y1), both in warp 0, so the flow and the
-// flip, stick and thaw updates need a __syncwarp, not a barrier.  Warp 0's
+// flip, stick and thaw updates need a __syncwarp, not a barrier.  A
+// potential generated from a user's gradient that reads coordinates 0 and 1
+// at other coordinates or in its sums (reads01) takes one more barrier at
+// the start of each transition, before any thread reads them.  Warp 0's
 // lanes 0-4 draw the transition's five uniforms and clocks
 // (transition_draw) into shared memory before barrier A, one Threefry block
 // each in the same instructions.
@@ -71,7 +74,7 @@
 // the static reduction rows (a row of 64 segment partials per warp: 8 KB in
 // float32, 16 KB in float64) must fit the 227 KB a block can have, so
 // d <= sticky_chunk_max_dim(f64), which reads the static size from the
-// built kernel: 13,136 in float32, 6,498 in float64 on the H100.  The
+// built kernel: 13,113 in float32, 6,475 in float64 on the H100.  The
 // event rows go out in the chain-minor (K, d, B) fill that K2 and the
 // driver read, 3 stores per coordinate at stride B; at the d = 1000
 // deployment they take about a quarter of a launch (chip_ab.py --probe).
@@ -211,7 +214,7 @@ sticky_chunk_kernel(Params p, const T* __restrict__ prm, T* __restrict__ x, T* _
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ T segr[MAXW * MAXG];  // round A: each warp's row of segment partials
   __shared__ T r_kf[MAXW], r_lam[MAXW], r_min[MAXW], wtot[2][MAXW], draws[5];
-  __shared__ T r_mom[3][MAXW];  // the funnels' chain moments, per warp
+  __shared__ T r_mom[Pot::Moments::N][MAXW];  // the chain moments, per warp
   __shared__ int r_imin[MAXW], r_cnt[MAXW];
 
   const int d = p.d, n_grid = p.n_grid, G = p.n_grid - 1;
@@ -262,29 +265,31 @@ sticky_chunk_kernel(Params p, const T* __restrict__ prm, T* __restrict__ x, T* _
       if (warp == 0 && lane_w < 5)
         draws[lane_w] = transition_draw<T>(seed, (uint32_t)k, (uint32_t)p.tile, lane, lane_w);
       if (redraw_tt) frozen_kappa_partial();
-      // the funnels' chain moments over coordinates 1..d-1 on the masked
-      // velocity (a stuck coordinate adds its x, 0.0, and nothing else), by
-      // a two-level reduction: one more barrier per transition
-      ChainMoments<T> mom{zero, zero, zero, (T)(d - 1)};
+      if constexpr (Pot::reads01) {
+        // every warp reads coordinates 0 and 1 below: wait for threads 0
+        // and 1's flow, flip, stick and thaw of the previous transition
+        __syncthreads();
+      }
+      // the potential's chain moments (the funnels': over coordinates
+      // 1..d-1) on the masked velocity (a stuck coordinate adds its x, 0.0,
+      // and nothing else), by a two-level reduction: one more barrier per
+      // transition
+      typename Pot::Moments mom = Pot::moments_zero(d);
       if constexpr (Pot::chain) {
-        for (int i = tid == 0 ? nt : tid; i < d; i += nt) {  // coordinate 0 left out
-          const T xi = sx[i], va = masked(sv, sact, i);
-          mom.A += xi * xi;
-          mom.Bm += xi * va;
-          mom.C += va * va;
-        }
-        mom.A = warp_sum(mom.A);
-        mom.Bm = warp_sum(mom.Bm);
-        mom.C = warp_sum(mom.C);
+        // coordinates 0 and 1, which only a potential with reads01 reads
+        const T x0m = sx[0], v0m = masked(sv, sact, 0), x1m = sx[s1];
+        const T v1m = masked(sv, sact, s1);
+        for (int i = tid; i < d; i += nt)
+          Pot::moment_add(mom, i, sx[i], masked(sv, sact, i), x0m, v0m, x1m, v1m, prm);
+#pragma unroll
+        for (int q = 0; q < Pot::Moments::N; ++q) mom.m[q] = warp_sum(mom.m[q]);
         if (lane_w == 0) {
-          r_mom[0][warp] = mom.A;
-          r_mom[1][warp] = mom.Bm;
-          r_mom[2][warp] = mom.C;
+#pragma unroll
+          for (int q = 0; q < Pot::Moments::N; ++q) r_mom[q][warp] = mom.m[q];
         }
         __syncthreads();
-        mom.A = across_warps(r_mom[0], nw);
-        mom.Bm = across_warps(r_mom[1], nw);
-        mom.C = across_warps(r_mom[2], nw);
+#pragma unroll
+        for (int q = 0; q < Pot::Moments::N; ++q) mom.m[q] = across_warps(r_mom[q], nw);
       }
 
       // ---- round A: envelope on [0, bh], tangent-intersection segment maxima ----
@@ -352,7 +357,7 @@ sticky_chunk_kernel(Params p, const T* __restrict__ prm, T* __restrict__ x, T* _
       const T event_time = min_pt < h_s ? min_pt : h_s;
       T lam = zero, tmin = inf;
       int imin = 0x7fffffff, cross = 0;
-      const ChainSums<T> cs_tp = mom.at(tp_safe);
+      const auto cs_tp = mom.at(tp_safe);
       for (int i = tid; i < d; i += nt) {
         T g, dg;
         const T va = masked(sv, sact, i), xi = sx[i], vi = sv[i];
@@ -400,12 +405,14 @@ sticky_chunk_kernel(Params p, const T* __restrict__ prm, T* __restrict__ x, T* _
 
       // ---- round C: inverse-CDF coordinate flip on the masked rates ----
       if (p_acc) {
-        // coordinates 0 and 1 flowed: the funnels read coordinate 0 in every
-        // warp, so each thread flows it in registers as thread 0 flows it;
-        // Banana reads them in warp 0 after the __syncwarp
-        const T x0n = Pot::chain ? x0 + v0 * flow_t : sx[0];
-        const T x1n = Pot::chain ? x1 + v1 * flow_t : sx[s1];
-        const ChainSums<T> cs_fl = mom.at(flow_t);
+        // coordinates 0 and 1 flowed: the funnels and a generated potential
+        // with reads01 read them in every warp, so each thread flows them in
+        // registers as threads 0 and 1 flow them; Banana reads them in warp 0
+        // after the __syncwarp
+        constexpr bool every_warp = Pot::chain || Pot::reads01;
+        const T x0n = every_warp ? x0 + v0 * flow_t : sx[0];
+        const T x1n = every_warp ? x1 + v1 * flow_t : sx[s1];
+        const auto cs_fl = mom.at(flow_t);
         for (int i = tid; i < d; i += nt) {
           T g, dg;
           const T va = masked(sv, sact, i);
@@ -533,7 +540,12 @@ sticky_chunk_kernel(Params p, const T* __restrict__ prm, T* __restrict__ x, T* _
 template <typename T>
 long max_dim() {
   cudaFuncAttributes a;  // the funnels' kernels carry the largest static rows
+#ifdef PDMPFLUX_USER_POTENTIAL
+  if (cudaFuncGetAttributes(&a, sticky_chunk_kernel<T, UserPotential<T>>) != cudaSuccess)
+    return 0;
+#else
   if (cudaFuncGetAttributes(&a, sticky_chunk_kernel<T, Funnel<T>>) != cudaSuccess) return 0;
+#endif
   return (SMEM_BLOCK - (long)a.sharedSizeBytes - 16) / bytes_per_coord<T>();
 }
 

@@ -49,8 +49,8 @@
 // torch's elementwise ops round them: y0 + sqrt(y0^2 + a) cancels for
 // y0 << 0, and the plain version and the kernel then round alike.  The
 // funnels' sums over x_t's coordinates 1..d-1 (pdmp_common.cuh: ChainSums)
-// ride in flow_point's pass, in coordinate order, and the flip's take one
-// more pass over the flowed x, as the plain version adds them.  The tail
+// take a pass of their own at each flow point, in coordinate order, and the
+// flip's one more pass over the flowed x, as the plain version adds them.  The tail
 // (Kahan commit, adaptation, counters, ring, row) is K1's.
 //
 // What bounds it on an H100: latency.  Per transition the critical path is
@@ -114,34 +114,34 @@ struct SuzzFlow {
 // The chain flowed to one time: m = v0 x1(t), the speed factor phi,
 // s = sqrt(1 + |x_t|^2), xvs = x_t . v / s and xvs3 = xvs / s^2 (the sums in
 // coordinate order), x_t's coordinates 0 and 1, which Banana and the
-// funnels read, and with `chain` the funnels' sums over x_t's coordinates
-// 1..d-1 (pdmp_common.cuh: ChainSums), added in coordinate order in the
-// same pass.
-template <typename T>
+// funnels read, and the sums Pot reads over x_t's coordinates (the
+// funnels': over 1..d-1, pdmp_common.cuh: ChainSums), added in coordinate
+// order in a pass of their own.
+template <typename T, class Pot>
 struct FlowPoint {
   T m, phi, s, xvs, xvs3, x0, x1;
-  ChainSums<T> cs;
+  typename Pot::Sums cs;
 };
 
-template <bool chain, typename T>
-__device__ __forceinline__ FlowPoint<T> flow_point(const SuzzFlow<T>& fl, const T* x,
-                                                   const T* v, long sx, int d, T t) {
-  FlowPoint<T> q;
+template <class Pot, typename T>
+__device__ __forceinline__ FlowPoint<T, Pot> flow_point(const SuzzFlow<T>& fl, const T* x,
+                                                        const T* v, long sx, int d, T t,
+                                                        const T* prm) {
+  FlowPoint<T, Pot> q;
   T x1;
   fl.at(t, x1, q.phi);
   q.m = fl.v0 * x1;
   T s2 = 0, xv = 0;
-  q.cs = {(T)0, (T)0, (T)(d - 1)};
   for (int i = 0; i < d; ++i) {
     const T vi = v[i * sx];
     const T xi = fl.coord(x[i * sx], vi, q.m);
     s2 = i == 0 ? xi * xi : s2 + xi * xi;
     xv = i == 0 ? xi * vi : xv + xi * vi;
-    if (chain && i > 0) {
-      q.cs.S = i == 1 ? xi * xi : q.cs.S + xi * xi;
-      q.cs.P = i == 1 ? xi * vi : q.cs.P + xi * vi;
-    }
   }
+  q.cs = Pot::sums(d, prm, [&](int j, T& y, T& w) {
+    w = v[j * sx];
+    y = fl.coord(x[j * sx], w, q.m);
+  });
   q.s = sqrt((T)1 + s2);
   q.xvs = xv / q.s;
   q.xvs3 = q.xvs / (q.s * q.s);
@@ -206,7 +206,7 @@ suzz_chunk_kernel(Params p, int in_smem, const T* __restrict__ prm, T* __restric
 
       // coordinate i's signed rate at the flowed chain q, grad U_i and
       // (H v)_i read at x_t's coordinate (recomputed from x_i)
-      auto rate_at = [&](const FlowPoint<T>& q, int i, T xi, T vi, T& g, T& hv) -> T {
+      auto rate_at = [&](const FlowPoint<T, Pot>& q, int i, T xi, T vi, T& g, T& hv) -> T {
         const T xt = fl.coord(xi, vi, q.m);
         Pot::at(i, xt, vi, q.x0, v0, q.x1, v1, zero, prm, q.cs, g, hv);
         return xt;
@@ -216,11 +216,11 @@ suzz_chunk_kernel(Params p, int in_smem, const T* __restrict__ prm, T* __restric
       const T step = bh_s / (T)G;
       const bool two = n_grid > 32;  // the same in every lane
       const bool on_a = lane < n_grid, on_b = lane + 32 < n_grid;
-      FlowPoint<T> qa{}, qb{};
-      if (on_a) qa = flow_point<Pot::chain>(fl, X, V, sx, d, step * (T)lane);
-      if (on_b) qb = flow_point<Pot::chain>(fl, X, V, sx, d, step * (T)(lane + 32));
+      FlowPoint<T, Pot> qa{}, qb{};
+      if (on_a) qa = flow_point<Pot>(fl, X, V, sx, d, step * (T)lane, prm);
+      if (on_b) qb = flow_point<Pot>(fl, X, V, sx, d, step * (T)(lane + 32), prm);
       // coordinate i's rate pair at a grid point (zeros past the grid)
-      auto pair = [&](const FlowPoint<T>& q, bool on, int i, T xi, T vi, T& f, T& gd) {
+      auto pair = [&](const FlowPoint<T, Pot>& q, bool on, int i, T xi, T vi, T& f, T& gd) {
         f = gd = zero;
         if (!on) return;
         T g, hv;
@@ -268,7 +268,7 @@ suzz_chunk_kernel(Params p, int in_smem, const T* __restrict__ prm, T* __restric
       // ---- thinning at tp on the unsigned rate, along the flow ----
       T lam_t = zero;
       {
-        const FlowPoint<T> q = flow_point<Pot::chain>(fl, X, V, sx, d, tp_safe);
+        const FlowPoint<T, Pot> q = flow_point<Pot>(fl, X, V, sx, d, tp_safe, prm);
         for (int i = 0; i < d; ++i) {
           const T vi = V[i * sx];
           T g, hv;
@@ -311,12 +311,10 @@ suzz_chunk_kernel(Params p, int in_smem, const T* __restrict__ prm, T* __restric
       if (p_acc) {  // the same in every lane
         const T u_flip = uniform<T>(seed, salt, 2u * tile + ln);
         const T x0 = X[0], x1 = X[s1];
-        ChainSums<T> cs{zero, zero, (T)(d - 1)};
-        if constexpr (Pot::chain)  // the funnels' sums over the flowed x
-          cs = chain_sums<T>(d, [&](int j, T& y, T& w) {
-            y = X[j * sx];
-            w = V[j * sx];
-          });
+        const auto cs = Pot::sums(d, prm, [&](int j, T& y, T& w) {
+          y = X[j * sx];  // the sums over the flowed x
+          w = V[j * sx];
+        });
         auto flip_rate = [&](int i) -> T {
           const T xi = X[i * sx], vi = V[i * sx];
           T g, hv;

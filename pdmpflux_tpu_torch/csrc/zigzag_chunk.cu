@@ -46,7 +46,9 @@
 // run [i0, i1) less coordinate 0 and group_sum gives the group their
 // totals (ChainMoments), from which the linear flow gives S and P at every
 // grid point, at tp and at flow_t in a few operations; the plain version
-// sums at each point itself, so the two agree to rounding.
+// sums at each point itself, so the two agree to rounding.  A potential
+// generated from a user's gradient (ops/cuda/lower.py) reduces the Taylor
+// terms of each of its sums' summands the same way (moment_add).
 // No array is indexed at run time, so nothing lands in local memory.  Every
 // shuffle and __syncwarp names only the group's lanes, so a group that is
 // frozen, or past B at the ragged end of the last warp, skips its
@@ -62,6 +64,7 @@
 // split the envelope further but repeat the walk, the draws and the
 // scalar tail in more lanes, so past enough warps they cost issue slots.
 
+#define PDMPFLUX_ERROR_STRING  // the kernels' library takes its message function from here
 #include "pdmp_common.cuh"
 
 namespace {
@@ -158,23 +161,20 @@ __global__ void zigzag_chunk_kernel(Params p, int in_smem, const T* __restrict__
                               : transition_draw<T>(seed, (uint32_t)k, (uint32_t)p.tile,
                                                    lane, 3);
       const T x0 = xb[0], v0 = vb[0], x1 = xb[s1], v1 = vb[s1];
-      // the funnels' chain moments over coordinates 1..d-1, summed over the
-      // group (the same bits in every lane); S and P at time t follow
-      ChainMoments<T> mom{zero, zero, zero, (T)(d - 1)};
+      // the potential's chain moments (the funnels': over coordinates
+      // 1..d-1), summed over the group (the same bits in every lane); its
+      // sums at time t follow
+      typename Pot::Moments mom = Pot::moments_zero(d);
       if constexpr (Pot::chain) {
-        for (int i = max(i0, 1); i < i1; ++i) {
-          const T xi = xb[i * sx], vi = vb[i * sx];
-          mom.A += xi * xi;
-          mom.Bm += xi * vi;
-          mom.C += vi * vi;
-        }
-        mom.A = group_sum<L>(mom.A, gmask);
-        mom.Bm = group_sum<L>(mom.Bm, gmask);
-        mom.C = group_sum<L>(mom.C, gmask);
+        for (int i = i0; i < i1; ++i)
+          Pot::moment_add(mom, i, xb[i * sx], vb[i * sx], x0, v0, x1, v1, prm);
+#pragma unroll
+        for (int q = 0; q < Pot::Moments::N; ++q) mom.m[q] = group_sum<L>(mom.m[q], gmask);
       }
+      using Sums = typename Pot::Sums;
       // coordinate i's rate along v and its time derivative at time t, with
       // the chain sums cs at t
-      auto rate = [&](int i, T xi, T vi, T t, const ChainSums<T>& cs, T& f, T& gd) {
+      auto rate = [&](int i, T xi, T vi, T t, const Sums& cs, T& f, T& gd) {
         T g, dg;
         Pot::at(i, xi, vi, x0, v0, x1, v1, t, prm, cs, g, dg);
         f = g * vi;
@@ -185,7 +185,7 @@ __global__ void zigzag_chunk_kernel(Params p, int in_smem, const T* __restrict__
       const T step = bh_s / (T)G;
       for (int j = lg; j < G; j += L) {  // segment j: grid points j and j + 1
         const T t0 = step * (T)j, t1 = step * (T)(j + 1);
-        const ChainSums<T> cs0 = mom.at(t0), cs1 = mom.at(t1);
+        const Sums cs0 = mom.at(t0), cs1 = mom.at(t1);
         T sum = zero;
         for (int i = 0; i < d; ++i) {
           const T xi = xb[i * sx], vi = vb[i * sx];
@@ -216,7 +216,7 @@ __global__ void zigzag_chunk_kernel(Params p, int in_smem, const T* __restrict__
 
       // ---- thinning at tp on the unsigned rate ----
       T lam = zero;
-      const ChainSums<T> cs_tp = mom.at(tp_safe);
+      const Sums cs_tp = mom.at(tp_safe);
       for (int i = i0; i < i1; ++i) {
         T f, gd;
         rate(i, xb[i * sx], vb[i * sx], tp_safe, cs_tp, f, gd);
@@ -239,7 +239,7 @@ __global__ void zigzag_chunk_kernel(Params p, int in_smem, const T* __restrict__
       const T flow_t = p_moveh ? h_s : (p_acc ? tp_safe : zero);
       int m = -1;
       if (p_acc) {  // the same in every lane of the group
-        const ChainSums<T> cs_fl = mom.at(flow_t);
+        const Sums cs_fl = mom.at(flow_t);
         T own = zero;  // this lane's rates, added in coordinate order
         for (int i = i0; i < i1; ++i) {
           T f, gd;
@@ -454,8 +454,4 @@ extern "C" int zigzag_chunk_set_lanes(int L) {
   const int prev = forced_lanes;
   forced_lanes = L;
   return prev;
-}
-
-extern "C" const char* pdmpflux_cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }

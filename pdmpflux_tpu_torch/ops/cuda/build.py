@@ -8,6 +8,12 @@ library with a plain C interface.  The library lands in
 sources and flags, so an edited source rebuilds and an unchanged one loads
 the library already built.
 
+A gradient of the user's own, lowered into a header by ``ops/cuda/lower.py``,
+gets a library of its own (:func:`user_library`): the one chunk source its
+kernel runs, compiled with the header at first use and loaded by its own
+``ctypes`` handle, under a name that hashes the header, the sources and the
+flags.
+
 Each kernel wrapper adds one to its entry of :data:`LAUNCHES` where it
 launches its kernel, and checks the error code the C launcher returns
 (``cudaGetLastError`` right after the launch) with :func:`check`.
@@ -20,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -41,10 +48,18 @@ LAUNCHES = {"zigzag_chunk": 0, "sticky_chunk": 0, "bps_chunk": 0, "ecmc_chunk": 
 """Kernel launches since the last :func:`reset_launches`; a chunk kernel's
 launches in horizon mode (K7) count under its name with ``_horizon``."""
 
-BUILD_INFO: dict = {}
-"""``seconds``, ``path`` and the compiler's ``log`` of the last build."""
+BUILD_INFO: dict = {"user": {}}
+"""``seconds``, ``path`` and the compiler's ``log`` of the last build of the
+kernel library; under ``user``, each user library's path -> its ``seconds``
+(None where it was already built) and ``log``."""
+
+USER_HEADER = "pdmpflux_user_potential.cuh"
+"""The name ``csrc/pdmp_common.cuh`` includes under ``PDMPFLUX_USER_POTENTIAL``."""
 
 _lib = None
+_user_libs: dict = {}   # key -> loaded user library
+_user_locks: dict = {}  # key -> the lock its build holds (builds of two keys run together)
+_user_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -62,57 +77,91 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME or /usr/local/cuda)")
 
 
+_SIGNATURES = None
+
+
+def _signatures() -> dict:
+    """Each launcher's ``(restype, argtypes)``."""
+    global _SIGNATURES
+    if _SIGNATURES is None:
+        p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        _SIGNATURES = {
+            "zigzag_chunk_launch": (i, (
+                [i] * 8                         # f64, potential, d, B, K, n_grid, adaptive, signed
+                + [ctypes.c_double]             # refresh rate
+                + [i] * 3                       # cap, tile, seed
+                + [i, ctypes.c_float]           # horizon mode, its float32 target
+                + [p] * 11 + [p])),             # params, state, event rows, stream
+            "zigzag_chunk_lanes": (i, [i]),
+            "zigzag_chunk_set_lanes": (i, [i]),
+            "suzz_chunk_launch": (i, (
+                [i] * 8 + [ctypes.c_double] + [i] * 3 + [i, ctypes.c_float]
+                + [p] * 6                       # params, x, v, fs, iscal, ring
+                + [p] * 5 + [p])),              # event rows, stream
+            "sticky_chunk_launch": (i, (
+                [i] * 8 + [ctypes.c_double] + [i] * 3 + [i, ctypes.c_float]
+                + [p] * 8                       # params, x, v, fs, iscal, ring, act, kappa
+                + [p] * 6 + [p])),              # event rows (act last), stream
+            "sticky_chunk_max_dim": (l, [i]),
+            "scalar_chunk_launch": (i, (
+                [i] * 9                         # f64, kind, potential, d, B, K, n_grid, adaptive, signed
+                + [ctypes.c_double]             # refresh rate
+                + [i] * 3                       # cap, tile, seed
+                + [i, ctypes.c_float]           # horizon mode, its float32 target
+                + [i] * 2                       # gaussian_velocity, ran_p
+                + [ctypes.c_double, i, i, ctypes.c_double, i]  # mix_p, switch, positive, sf, normal
+                + [p] * 11 + [p])),             # params, state, event rows, stream
+            "scalar_chunk_max_dim": (l, [i]),
+            "compact_rows_launch": (i, [
+                p, l, i, i, p, i, i,            # kind, kind row stride, T, B, off, W, n
+                p, p, p, p, p, p, p,            # srcs, row/field strides, widths, elem, inits, outs
+                p, l,                           # int32 scratch and its length
+                p]),                            # stream
+            "compact_rows_scratch": (l, [i, i, i, p, p]),  # T, B, n, widths, elems
+            "pdmpflux_cuda_error_string": (ctypes.c_char_p, [i]),
+        }
+    return _SIGNATURES
+
+
 def _declare(lib) -> None:
-    p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    lib.zigzag_chunk_launch.restype = i
-    lib.zigzag_chunk_launch.argtypes = (
-        [i] * 8                         # f64, potential, d, B, K, n_grid, adaptive, signed
-        + [ctypes.c_double]             # refresh rate
-        + [i] * 3                       # cap, tile, seed
-        + [i, ctypes.c_float]           # horizon mode, its float32 target
-        + [p] * 11 + [p]                # params, state, event rows, stream
-    )
-    lib.zigzag_chunk_lanes.restype = i
-    lib.zigzag_chunk_lanes.argtypes = [i]
-    lib.zigzag_chunk_set_lanes.restype = i
-    lib.zigzag_chunk_set_lanes.argtypes = [i]
-    lib.suzz_chunk_launch.restype = i
-    lib.suzz_chunk_launch.argtypes = (
-        [i] * 8 + [ctypes.c_double] + [i] * 3 + [i, ctypes.c_float]
-        + [p] * 6                       # params, x, v, fs, iscal, ring
-        + [p] * 5 + [p]                 # event rows, stream
-    )
-    lib.sticky_chunk_launch.restype = i
-    lib.sticky_chunk_launch.argtypes = (
-        [i] * 8 + [ctypes.c_double] + [i] * 3 + [i, ctypes.c_float]
-        + [p] * 8                       # params, x, v, fs, iscal, ring, act, kappa
-        + [p] * 6 + [p]                 # event rows (act last), stream
-    )
-    lib.sticky_chunk_max_dim.restype = l
-    lib.sticky_chunk_max_dim.argtypes = [i]
-    lib.scalar_chunk_launch.restype = i
-    lib.scalar_chunk_launch.argtypes = (
-        [i] * 9                         # f64, kind, potential, d, B, K, n_grid, adaptive, signed
-        + [ctypes.c_double]             # refresh rate
-        + [i] * 3                       # cap, tile, seed
-        + [i, ctypes.c_float]           # horizon mode, its float32 target
-        + [i] * 2                       # gaussian_velocity, ran_p
-        + [ctypes.c_double, i, i, ctypes.c_double, i]  # mix_p, switch, positive, sf, normal
-        + [p] * 11 + [p]                # params, state, event rows, stream
-    )
-    lib.scalar_chunk_max_dim.restype = l
-    lib.scalar_chunk_max_dim.argtypes = [i]
-    lib.compact_rows_launch.restype = i
-    lib.compact_rows_launch.argtypes = [
-        p, l, i, i, p, i, i,            # kind, kind row stride, T, B, off, W, n
-        p, p, p, p, p, p, p,            # srcs, row/field strides, widths, elem, inits, outs
-        p, l,                           # int32 scratch and its length
-        p,                              # stream
-    ]
-    lib.compact_rows_scratch.restype = l
-    lib.compact_rows_scratch.argtypes = [i, i, i, p, p]  # T, B, n, widths, elems
-    lib.pdmpflux_cuda_error_string.restype = ctypes.c_char_p
-    lib.pdmpflux_cuda_error_string.argtypes = [i]
+    """Bind the signatures of the launchers ``lib`` exports (a user library
+    exports its one source's)."""
+    for name, (res, args) in _signatures().items():
+        try:
+            fn = getattr(lib, name)
+        except AttributeError:
+            continue
+        fn.restype, fn.argtypes = res, args
+
+
+def _compile(sources, flags, path: Path, extra=()) -> str:
+    """``nvcc -c`` each source (all started together) with ``flags`` plus its
+    ``SOURCE_FLAGS``, then one link into ``path``; returns the log.  A failed
+    step raises with its log."""
+    tag = f"{os.getpid()}.{threading.get_ident()}.tmp"
+    objs = [path.parent / f"{src.stem}.{tag}.o" for src in sources]
+    try:
+        procs = [subprocess.Popen([_nvcc(), *flags, *SOURCE_FLAGS.get(src.name, ()), *extra,
+                                   "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for src, obj in zip(sources, objs)]
+        log = [proc.communicate()[0] for proc in procs]  # wait for every compile
+        for src, proc, out in zip(sources, procs, log):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
+        tmp = path.with_suffix(f".{tag}.so")
+        proc = subprocess.run([_nvcc(), *flags[:2], "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return "".join(log)
 
 
 def library():
@@ -129,30 +178,8 @@ def library():
     path = BUILD_DIR / f"libpdmpflux_kernels_{h.hexdigest()[:16]}.so"
     if not path.exists():
         t0 = time.perf_counter()
-        tag = f"{os.getpid()}.tmp"
-        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
-        try:
-            procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()),
-                                       "-c", "-o", str(obj), str(src)],
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                      text=True)
-                     for src, obj in zip(sources, objs)]
-            log = [proc.communicate()[0] for proc in procs]  # wait for every compile
-            for src, proc, out in zip(sources, procs, log):
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
-            tmp = path.with_suffix(f".{tag}.so")
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
-                                   *map(str, objs)], capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
-                                   f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, path)
-        finally:
-            for obj in objs:
-                obj.unlink(missing_ok=True)
-        BUILD_INFO.update(seconds=time.perf_counter() - t0, log="".join(log))
+        log = _compile(sources, NVCC_FLAGS, path)
+        BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log)
     BUILD_INFO["path"] = str(path)
     lib = ctypes.CDLL(str(path))
     _declare(lib)
@@ -160,8 +187,47 @@ def library():
     return lib
 
 
-def check(err: int, name: str) -> None:
-    """Raise if a launcher returned a CUDA error."""
+def user_library(source: str, header: str):
+    """The library of one chunk ``source`` (``"zigzag_chunk.cu"``, ...) built
+    with a generated potential: ``header`` is written into its own directory
+    of ``_build/`` as :data:`USER_HEADER`, and the source compiled with
+    ``-DPDMPFLUX_USER_POTENTIAL``, that directory on the include path and the
+    source's ``SOURCE_FLAGS``; the name hashes the header, the sources and the
+    flags.  Built at first use of each gradient (a failed ``nvcc`` raises
+    with its log), loaded by its own ``ctypes`` handle; its launches take
+    potential id 7 alone."""
+    src = CSRC / source
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + repr(SOURCE_FLAGS).encode())
+    h.update(header.encode())
+    for f in (src, CSRC / "pdmp_common.cuh"):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    key = f"{src.stem}_{h.hexdigest()[:16]}"
+    with _user_lock:
+        lock = _user_locks.setdefault(key, threading.Lock())
+    with lock:
+        if key in _user_libs:
+            return _user_libs[key]
+        folder = BUILD_DIR / f"user_{key}"
+        folder.mkdir(parents=True, exist_ok=True)
+        path = folder / f"libpdmpflux_user_{key}.so"
+        seconds, log = None, ""
+        if not path.exists():
+            (folder / USER_HEADER).write_text(header)
+            t0 = time.perf_counter()
+            log = _compile([src], NVCC_FLAGS, path,
+                           ["-DPDMPFLUX_USER_POTENTIAL", "-I", str(folder)])
+            seconds = time.perf_counter() - t0
+        BUILD_INFO["user"][str(path)] = {"seconds": seconds, "log": log}
+        lib = ctypes.CDLL(str(path))
+        _declare(lib)
+        _user_libs[key] = lib
+        return lib
+
+
+def check(err: int, name: str, lib=None) -> None:
+    """Raise if a launcher of ``lib`` (the kernels' own library by default)
+    returned a CUDA error."""
     if err != 0:
-        msg = _lib.pdmpflux_cuda_error_string(err).decode()
+        msg = (library() if lib is None else lib).pdmpflux_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")

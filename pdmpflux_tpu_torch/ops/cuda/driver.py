@@ -2,8 +2,9 @@
 
 :func:`make_stream_runner` is the port of ``make_pallas_stream_runner`` for
 the Zig-Zag (K1), the Sticky Zig-Zag (K6), the Speed-Up Zig-Zag (K4) and
-the scalar-rate samplers BPS and Boomerang (K3) and Forward ECMC (K5): a host
-loop over chunks, one
+the scalar-rate samplers BPS and Boomerang (K3) and Forward ECMC (K5), on a
+device tag or on a gradient of the user's own lowered into a generated
+potential (``lowered_config``, on the card): a host loop over chunks, one
 kernel launch per chunk, each writing its ``K`` transition rows straight
 into the raw fill at the chunk's row offset, until every chain has its
 target count (event-count mode) or has its committed clock at the target
@@ -20,6 +21,7 @@ import torch
 
 from ...core import rng
 from ...core.types import PDMPState, StreamResult, empty_fill
+from . import lower
 from . import scalar_chunk as sc
 from . import zigzag_chunk as zc
 
@@ -103,6 +105,21 @@ def chunk_config(sampler, K: int, cap: int, tile: int) -> zc.ChunkConfig:
     )
 
 
+def lowered_config(cfg: zc.ChunkConfig, sampler, d: int, dtype, device) -> zc.ChunkConfig:
+    """``cfg`` of an untagged sampler made the generated potential's: its
+    gradient lowered for the kernel (``lower.lower_sampler``, cached on the
+    sampler; raises ``LoweringError``), the IR's torch pair as the plain
+    version's gradients (the Boomerang's made effective, as a tag's are),
+    potential id 7 and the hoisted parameters on ``device`` in ``dtype``."""
+    low = lower.lower_sampler(sampler, cfg.kind, d, dtype, device)
+    grad, grad_jvp = low.grad, low.grad_jvp
+    if cfg.kind == "boomerang":
+        grad, grad_jvp = _effective(grad, grad_jvp)
+    return cfg._replace(
+        grad=grad, grad_jvp=grad_jvp, device_potential=lower.USER_POTENTIAL, user=low,
+        pot_params=low.params.to(device, dtype) if low.params.numel() else None)
+
+
 def chunk_state(state: PDMPState, counts: torch.Tensor,
                 sticky: bool = False) -> zc.ChunkState:
     """A batched ``PDMPState`` in the kernels' layout, in fresh tensors that
@@ -164,6 +181,9 @@ def make_stream_runner(sampler, t_cap: int, n_events_target: int,
             kappa=None if cfg.kappa is None else cfg.kappa.to(dev, dt),
             pot_params=None if cfg.pot_params is None else cfg.pot_params.to(dev, dt),
             t_target=zc.f32_target(t_target) if mode == "horizon" else None)
+        if cfg.device_potential is None and dev.type == "cuda":
+            # a gradient of the user's own: its generated potential on the card
+            run_cfg = lowered_config(run_cfg, sampler, d, dt, dev)
 
         def live_any():
             # the committed clock fs[F_T], not the row time t + ts

@@ -1,0 +1,1341 @@
+"""Lower a gradient of the user's own into the CUDA chunk kernels.
+
+The port of ``_hoist_consts`` and ``convert_grad``
+(``pdmpflux_tpu/ops/pallas/driver.py:421-470``): JAX traces the user's
+gradient to a jaxpr, hoists its constants and evaluates it inside the Pallas
+kernel body.  Here the per-chain gradient (``sampler.grad_U``: the user's
+gradient, or the ``torch.func.grad`` an ``*AD`` constructor builds) is traced
+with ``make_fx`` on a ``(d,)`` example of the run's dtype, decomposed to core
+aten ops, and interpreted into a small IR from which two things are emitted:
+
+* a CUDA C++ header defining ``UserPotential<T>``, the device potential id 7
+  of ``csrc/pdmp_common.cuh`` (``with_potential``), which every chunk kernel
+  (K1, K6, K3/K5, K4) takes once ``ops/cuda/build.user_library`` has compiled
+  the kernel's source with it;
+* the same arithmetic as a chain-minor torch pair ``(grad, grad_jvp)`` on
+  ``(d, B)`` tensors: the plain version of the generated potential, which the
+  plain chunk kernels run and the card's kernels are held against.
+
+The IR.  A value of the trace is one of:
+
+* a constant (no dependence on ``x``): computed with torch while lowering, in
+  the run's dtype; a non-uniform vector constant (a user's scales) is hoisted
+  into the potential's parameter vector (``Lowered.params``), read as
+  ``prm[k + i]`` at coordinate ``i``, as the ``aniso`` tag reads its scales;
+* a chain value: one scalar per chain, an expression of literals, parameters,
+  coordinates 0 and 1 of the point (``x[0]``, ``x[1]``) and sums over the
+  coordinates (reductions);
+* a vector of pieces: positions ``[a, b)`` each either a chain value or a lane
+  expression evaluated at coordinate ``i = p + off`` of the position ``p``, of
+  the point's own ``y_i = x_i + v_i t``, parameters and chain values.
+  ``slice``, ``select``, ``slice_scatter``, ``select_scatter``, ``cat``/
+  ``stack`` and ``where`` on a constant mask (``torch.func.grad`` of
+  ``x[0]`` emits ``where(arange == 0, ...)``) move pieces about.
+
+The lowering adds forward-mode tangents (a dual-number rule per op) to give
+the kernels' pair ``(g_i, (H v)_i)`` from the gradient alone, the tangent of
+``y_i`` being the velocity ``v_i``.
+
+Reductions.  K3/K5 and K4 add a reduction's summands in coordinate order at
+every point they evaluate, as the plain version's ``ordered_sum`` does, so
+the two agree bit for bit where the kernel rounds as torch does
+(``-fmad=false``).  K1 and K6 reduce moments once per transition and
+extrapolate them along the linear flow, which is exact only for a summand of
+degree at most 2 in ``t``: each summand is evaluated in truncated Taylor
+arithmetic of order 2, ``s(x + v t) = m0 + m1 t + m2 t^2``, and any other
+summand is refused for those kernels.
+
+Anything else (a product coupling coordinates, ``mm``/``mv``, a read of
+``x[k]`` for ``k >= 2``, a branch on a value of ``x``, an op outside the set)
+raises :class:`LoweringError` naming the op and its node, before any build or
+launch.  The result is cached on the sampler by (kernel, d, dtype).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from ...core.dims import ordered_sum
+
+USER_POTENTIAL = "user"
+"""``ChunkConfig.device_potential`` of a lowered gradient."""
+USER_ID = 7
+"""The potential id of ``UserPotential`` in ``csrc/pdmp_common.cuh``."""
+
+SOURCES = {"zigzag": "zigzag_chunk.cu", "sticky": "sticky_chunk.cu",
+           "suzz": "suzz_chunk.cu", "bps": "scalar_chunk.cu",
+           "boomerang": "scalar_chunk.cu", "ecmc": "scalar_chunk.cu"}
+"""The chunk source that runs each kernel (K1, K6, K4, K3, K3, K5)."""
+MOMENT_KERNELS = ("zigzag", "sticky")
+"""Kernels that reduce chain moments once per transition (K1, K6)."""
+
+INF = 1 << 20  # the degree in t of a summand that is not a polynomial
+MAX_RUNS = 4   # a constant vector of more runs of equal values is hoisted
+HINT = ("run it on the transition engine with backend='xla_stream', or with "
+        "device='cpu'")
+
+
+class LoweringError(ValueError):
+    """A gradient the CUDA chunk kernels cannot evaluate."""
+
+
+class _FarRead(Exception):
+    """A read of coordinate ``k >= 2`` (``Graph.pin``)."""
+
+    def __init__(self, k):
+        super().__init__(k)
+        self.k = k
+
+
+def _refuse(why: str) -> LoweringError:
+    return LoweringError(f"this gradient cannot be lowered into the CUDA chunk kernels: "
+                         f"{why}; {HINT}")
+
+
+# ---------------------------------------------------------------------------
+# expressions
+# ---------------------------------------------------------------------------
+
+class Node:
+    """One interned IR operation.  ``lane``: depends on the coordinate
+    (``y``, ``w`` or a parameter read at ``i``); ``has_y``: reads the point's
+    own coordinate (such an expression cannot move to another offset);
+    ``deg``: degree in ``t`` along the linear flow (``INF`` past a
+    polynomial); ``boolean``: a comparison's value."""
+
+    __slots__ = ("op", "args", "attr", "id", "lane", "has_y", "deg", "boolean")
+
+    def __init__(self, op, args, attr, nid):
+        self.op, self.args, self.attr, self.id = op, args, attr, nid
+        self.lane = op in ("y", "w", "prm") or any(a.lane for a in args)
+        self.has_y = op in ("y", "w") or any(a.has_y for a in args)
+        self.boolean = op in _BOOL_OPS or (op == "lit" and isinstance(attr, bool)) or (
+            op == "where" and args[1].boolean)
+        self.deg = _degree(op, args)
+
+    def text(self) -> str:
+        """The expression as a formula (error messages)."""
+        if self.op == "lit":
+            return repr(self.attr)
+        if self.op in ("prm", "prmk"):
+            return f"prm[{self.attr}{' + i' if self.op == 'prm' else ''}]"
+        if self.op in ("red", "dred"):
+            return f"{'d' if self.op == 'dred' else ''}sum_{self.attr}"
+        if not self.args:
+            return {"y": "x_i", "w": "v_i", "y0": "x_0", "w0": "v_0", "y1": "x_1",
+                    "w1": "v_1"}[self.op]
+        sym = {"add": "+", "sub": "-", "mul": "*", "div": "/", "gt": ">", "ge": ">=",
+               "lt": "<", "le": "<=", "eq": "==", "ne": "!="}.get(self.op)
+        if sym:
+            return f"({self.args[0].text()} {sym} {self.args[1].text()})"
+        if self.op == "pow":
+            return f"{self.args[0].text()}**{self.attr!r}"
+        return f"{self.op}({', '.join(a.text() for a in self.args)})"
+
+
+_BOOL_OPS = {"gt", "ge", "lt", "le", "eq", "ne", "not", "and", "or"}
+_LINEAR = {"add", "sub", "neg"}
+
+
+def _degree(op, args):
+    if op in ("y", "y0", "y1"):
+        return 1
+    if op in ("red", "dred"):
+        return INF
+    if not args or all(a.deg == 0 for a in args):
+        return 0
+    if op in _LINEAR:
+        return max(a.deg for a in args)
+    if op == "mul":
+        return min(INF, args[0].deg + args[1].deg)
+    if op == "div" and args[1].deg == 0:
+        return args[0].deg
+    return INF
+
+
+class Graph:
+    """The IR's nodes, interned, so that a subexpression is one node wherever
+    it appears (and is computed once by each emitter); ``mk`` folds an op on
+    literals (computed in the run's dtype, so that both emitters read the one
+    rounded value), ``where`` on a literal condition, ``x + 0``, ``x - 0``,
+    ``x * 1`` and ``x / 1``."""
+
+    def __init__(self, dtype=torch.float64):
+        self.dtype = dtype
+        self.nodes: Dict[tuple, Node] = {}
+
+    def mk(self, op, *args, attr=None) -> Node:
+        folded = self._fold(op, args, attr)
+        if folded is not None:
+            return folded
+        key = (op, tuple(a.id for a in args),
+               float.hex(attr) if isinstance(attr, float) else attr)
+        node = self.nodes.get(key)
+        if node is None:
+            node = self.nodes[key] = Node(op, args, attr, len(self.nodes))
+        return node
+
+    def _fold(self, op, args, attr):
+        if not args:
+            return None
+        lits = [a.attr if a.op == "lit" else None for a in args]
+        if op == "where" and lits[0] is not None:
+            return args[1] if lits[0] else args[2]
+        if all(c is not None for c in lits) and op in _TORCH:
+            vals = [torch.tensor(c, dtype=torch.bool if isinstance(c, bool) else self.dtype)
+                    for c in lits]
+            out = _TORCH[op](*vals, attr)
+            return self.lit(bool(out) if out.dtype == torch.bool else float(out))
+        if op in ("add", "sub") and lits[1] == 0.0 and not isinstance(lits[1], bool):
+            return args[0]
+        if op == "add" and lits[0] == 0.0 and not isinstance(lits[0], bool):
+            return args[1]
+        if op in ("mul", "div") and lits[1] == 1.0 and not isinstance(lits[1], bool):
+            return args[0]
+        if op == "mul" and lits[0] == 1.0 and not isinstance(lits[0], bool):
+            return args[1]
+        if op == "neg" and args[0].op == "neg":
+            return args[0].args[0]
+        return None
+
+    def lit(self, c) -> Node:
+        if isinstance(c, bool):
+            return self.mk("lit", attr=c)
+        return self.mk("lit", attr=float(c))
+
+    def pow(self, a: Node, c: float) -> Node:
+        """``a ** c`` for a number ``c``, as products where the exponent is a
+        small integer or 0.5 (one rounding pattern for both emitters)."""
+        c = float(c)
+        if c == 0.0:
+            return self.lit(1.0)
+        if c == 1.0:
+            return a
+        if c == 2.0:
+            return self.mk("mul", a, a)
+        if c == 3.0:
+            return self.mk("mul", self.mk("mul", a, a), a)
+        if c == 0.5:
+            return self.mk("sqrt", a)
+        if c == -1.0:
+            return self.mk("div", self.lit(1.0), a)
+        if c == -2.0:
+            return self.mk("div", self.lit(1.0), self.mk("mul", a, a))
+        if c == -0.5:
+            return self.mk("div", self.lit(1.0), self.mk("sqrt", a))
+        return self.mk("pow", a, attr=c)
+
+    # the tangent of a node along the flow: y -> w, coordinates 0 and 1 ->
+    # their velocities, a reduction -> the sum of its summands' tangents
+    def tangent(self, n: Node, memo: dict) -> Optional[Node]:
+        if n.id in memo:
+            return memo[n.id]
+        memo[n.id] = t = self._tangent(n, memo)
+        return t
+
+    def _tangent(self, n, memo):
+        op, a = n.op, n.args
+        leaf = {"y": "w", "y0": "w0", "y1": "w1"}
+        if op in leaf:
+            return self.mk(leaf[op])
+        if op == "red":
+            return self.mk("dred", attr=n.attr)
+        if not a or n.boolean or op in ("sign", "b2f"):
+            return None
+        da = [self.tangent(x, memo) for x in a]
+        if all(t is None for t in da):
+            return None
+        mk, one = self.mk, self.lit(1.0)
+
+        def z(t):
+            return t if t is not None else self.lit(0.0)
+
+        if op == "add":
+            return da[0] if da[1] is None else da[1] if da[0] is None else mk("add", *da)
+        if op == "sub":
+            return (mk("neg", da[1]) if da[0] is None else da[0] if da[1] is None
+                    else mk("sub", *da))
+        if op == "neg":
+            return mk("neg", da[0])
+        if op == "mul":
+            p = None if da[0] is None else mk("mul", da[0], a[1])
+            q = None if da[1] is None else mk("mul", a[0], da[1])
+            return p if q is None else q if p is None else mk("add", p, q)
+        if op == "div":  # (da - (a / b) db) / b
+            if da[1] is None:
+                return mk("div", da[0], a[1])
+            t = mk("mul", n, da[1])
+            num = mk("neg", t) if da[0] is None else mk("sub", da[0], t)
+            return mk("div", num, a[1])
+        d0 = da[0]
+        if op == "exp":
+            return mk("mul", n, d0)
+        if op == "expm1":
+            return mk("mul", mk("exp", a[0]), d0)
+        if op == "log":
+            return mk("div", d0, a[0])
+        if op == "log1p":
+            return mk("div", d0, mk("add", one, a[0]))
+        if op == "sqrt":
+            return mk("div", d0, mk("mul", self.lit(2.0), n))
+        if op == "sin":
+            return mk("mul", mk("cos", a[0]), d0)
+        if op == "cos":
+            return mk("neg", mk("mul", mk("sin", a[0]), d0))
+        if op == "tanh":
+            return mk("mul", mk("sub", one, mk("mul", n, n)), d0)
+        if op == "sinh":
+            return mk("mul", mk("cosh", a[0]), d0)
+        if op == "cosh":
+            return mk("mul", mk("sinh", a[0]), d0)
+        if op == "abs":
+            return mk("mul", mk("sign", a[0]), d0)
+        if op == "pow":
+            return mk("mul", mk("mul", self.lit(n.attr), self.pow(a[0], n.attr - 1.0)), d0)
+        if op in ("max", "min"):  # torch's rule: half of each at a tie
+            pick = mk("gt" if op == "max" else "lt", a[0], a[1])
+            wgt = mk("where", mk("eq", a[0], a[1]), self.lit(0.5),
+                     mk("where", pick, one, self.lit(0.0)))
+            return mk("add", z(da[1]), mk("mul", wgt, mk("sub", z(da[0]), z(da[1]))))
+        if op == "where":
+            return mk("where", a[0], z(da[1]), z(da[2]))
+        raise AssertionError(f"no tangent rule for {op}")
+
+    def relabel(self, n: Node, leaf, memo: dict) -> Node:
+        """``n`` with each leaf ``x`` for which ``leaf(x)`` is not None
+        replaced by it."""
+        if n.id not in memo:
+            new = leaf(n) if not n.args else None
+            memo[n.id] = new if new is not None else n if not n.args else self.mk(
+                n.op, *(self.relabel(a, leaf, memo) for a in n.args), attr=n.attr)
+        return memo[n.id]
+
+    def pin(self, n: Node, k: int, memo=None) -> Node:
+        """A lane expression read at the fixed coordinate ``k``: a chain value
+        (coordinates 0 and 1 only)."""
+        if not n.lane:
+            return n
+        memo = {} if memo is None else memo
+        if n.id in memo:
+            return memo[n.id]
+        if n.op in ("y", "w"):
+            if k > 1:
+                raise _FarRead(k)
+            out = self.mk(f"{n.op}{k}")
+        elif n.op == "prm":
+            out = self.mk("prmk", attr=n.attr + k)
+        else:
+            out = self.mk(n.op, *(self.pin(a, k, memo) for a in n.args), attr=n.attr)
+        memo[n.id] = out
+        return out
+
+    def shift(self, n: Node, delta: int, memo=None) -> Node:
+        """A lane expression without ``y`` moved from coordinate ``i`` to
+        ``i + delta``: its parameter reads move the other way."""
+        if not n.lane or delta == 0:
+            return n
+        memo = {} if memo is None else memo
+        if n.id not in memo:
+            memo[n.id] = (self.mk("prm", attr=n.attr - delta) if n.op == "prm" else
+                          self.mk(n.op, *(self.shift(a, delta, memo) for a in n.args),
+                                  attr=n.attr))
+        return memo[n.id]
+
+
+def taylor(b: Graph, n: Node, memo: dict):
+    """``(c0, c1, c2)`` with ``n(x + v t) = c0 + c1 t + c2 t^2`` for a node of
+    degree at most 2, in the leaves ``y`` = x, ``w`` = v (and ``y0``, ``w0``,
+    ``y1``, ``w1``); None for a zero coefficient."""
+    if n.id in memo:
+        return memo[n.id]
+    op, a = n.op, n.args
+    if n.deg == 0:
+        out = (n, None, None)
+    elif op in ("y", "y0", "y1"):
+        out = (n, b.mk({"y": "w", "y0": "w0", "y1": "w1"}[op]), None)
+    else:
+        ca = [taylor(b, x, memo) for x in a]
+
+        def add(p, q):
+            return p if q is None else q if p is None else b.mk("add", p, q)
+
+        def mul(p, q):
+            return None if p is None or q is None else b.mk("mul", p, q)
+
+        if op == "add":
+            out = tuple(add(p, q) for p, q in zip(*ca))
+        elif op == "sub":
+            out = tuple(p if q is None else (b.mk("neg", q) if p is None else b.mk("sub", p, q))
+                        for p, q in zip(*ca))
+        elif op == "neg":
+            out = tuple(None if p is None else b.mk("neg", p) for p in ca[0])
+        elif op == "mul":
+            (p0, p1, p2), (q0, q1, q2) = ca
+            out = (mul(p0, q0), add(mul(p0, q1), mul(p1, q0)),
+                   add(add(mul(p0, q2), mul(p1, q1)), mul(p2, q0)))
+        elif op == "div":  # by a constant in t
+            out = tuple(None if p is None else b.mk("div", p, a[1]) for p in ca[0])
+        else:
+            raise AssertionError(f"{op} of degree {n.deg}")
+    memo[n.id] = out
+    return out
+
+
+# ---------------------------------------------------------------------------
+# abstract values of the trace
+# ---------------------------------------------------------------------------
+
+class Piece(NamedTuple):
+    a: int           # positions [a, b)
+    b: int
+    off: Optional[int]  # coordinate i = p + off of a lane expression; None: a chain value
+    e: Node
+
+
+class Vec(NamedTuple):
+    n: int
+    pieces: Tuple[Piece, ...]
+
+
+class Bad(NamedTuple):
+    """A value the kernels cannot compute; raises once the gradient reads it."""
+    err: LoweringError
+
+
+class Lowered:
+    """A lowered gradient at one (kernel, d, dtype): the output's pieces over
+    the coordinates, the reductions, the hoisted parameters (``params``, a
+    float64 vector, empty when there are none) and, from them, the torch pair
+    and the header."""
+
+    def __init__(self, b: Graph, kernel: str, d: int, dtype, out: List[Piece],
+                 reductions: List[List[Piece]], params: torch.Tensor):
+        self.b, self.kernel, self.d, self.dtype = b, kernel, d, dtype
+        self.out, self.reductions, self.params = out, reductions, params
+        memo: dict = {}
+        self.d_out = [b.tangent(p.e, memo) for p in out]
+        self.d_red = [[b.tangent(p.e, memo) for p in r] for r in reductions]
+        self._lits: dict = {}
+        self._lib = None
+
+    # -- the torch pair (the plain version) ---------------------------------
+    def grad(self, y: torch.Tensor) -> torch.Tensor:
+        """The gradient of ``(d, B)`` chains, chain-minor."""
+        return self._eval(y, None)[0]
+
+    def grad_jvp(self, y: torch.Tensor, w: torch.Tensor):
+        """The gradient and its derivative along ``w``, ``H(y) w``."""
+        return self._eval(y, w)
+
+    def _eval(self, y, w):
+        prm = self.params.to(device=y.device, dtype=y.dtype)
+        key = (y.device, y.dtype)
+        if key not in self._lits:
+            self._lits[key] = {}
+        lits = self._lits[key]
+        chain: dict = {}
+        red, dred = [], []
+        ones = (1, y.shape[1])
+
+        def ev(n: Node, lo: int, hi: int, lane: dict):
+            memo = lane if n.lane else chain
+            if n.id in memo:
+                return memo[n.id]
+            op, a = n.op, n.args
+            if op == "lit":
+                if n.attr not in lits:
+                    lits[n.attr] = torch.tensor(n.attr, dtype=torch.bool if n.boolean
+                                                else y.dtype, device=y.device)
+                out = lits[n.attr]
+            elif op == "y":
+                out = y[lo:hi]
+            elif op == "w":
+                out = w[lo:hi]
+            elif op in ("y0", "y1", "w0", "w1"):
+                k = int(op[1]) if y.shape[0] > 1 else 0
+                out = (y if op[0] == "y" else w)[k]
+            elif op == "prm":
+                out = prm[n.attr + lo:n.attr + hi, None]
+            elif op == "prmk":
+                out = prm[n.attr]
+            elif op == "red":
+                out = red[n.attr]
+            elif op == "dred":
+                out = dred[n.attr]
+            elif op == "b2f":
+                out = ev(a[0], lo, hi, lane).to(y.dtype)
+            else:
+                out = _TORCH[op](*(ev(x, lo, hi, lane) for x in a), n.attr)
+            memo[n.id] = out
+            return out
+
+        def assemble(pieces, nodes):
+            parts = []
+            for p, e in zip(pieces, nodes):
+                lo, hi = (p.a, p.b) if p.off is None else (p.a + p.off, p.b + p.off)
+                if e is None:
+                    parts.append(torch.zeros((hi - lo,) + ones[1:], dtype=y.dtype,
+                                             device=y.device))
+                    continue
+                v = ev(e, lo, hi, {})
+                parts.append(torch.broadcast_to(v, (hi - lo, y.shape[1])))
+            return torch.cat(parts, 0)
+
+        for r, pieces in enumerate(self.reductions):
+            red.append(ordered_sum(assemble(pieces, [p.e for p in pieces]), 0)[0])
+            if w is not None:
+                dred.append(ordered_sum(assemble(pieces, self.d_red[r]), 0)[0])
+        g = assemble(self.out, [p.e for p in self.out])
+        return g, (None if w is None else assemble(self.out, self.d_out))
+
+    # -- the CUDA header ----------------------------------------------------
+    def header(self) -> str:
+        """``UserPotential<T>`` for this kernel (``csrc/pdmp_common.cuh``)."""
+        nr = max(len(self.reductions), 1)
+        lines = [
+            "// Generated by pdmpflux_tpu_torch/ops/cuda/lower.py: a lowered gradient",
+            f"// for kernel {self.kernel}, d = {self.d}, {str(self.dtype).split('.')[-1]}.",
+            "// Included by csrc/pdmp_common.cuh inside namespace pdmp.",
+            "#pragma once",
+            "template <typename T>",
+            "struct UserPotential {",
+            f"  static constexpr bool chain = {'true' if self.reductions else 'false'};",
+            f"  static constexpr bool reads01 = {'true' if self._reads01() else 'false'};",
+            f"  static constexpr int NR = {nr};",
+            "  struct Sums {",
+            "    T s[NR], ds[NR];",
+            "  };",
+        ]
+        if self.kernel in MOMENT_KERNELS:
+            lines += self._moments_cpp()
+        else:
+            lines += self._sums_cpp()
+        lines += self._at_cpp()
+        lines += ["};", ""]
+        return "\n".join(lines)
+
+    def _reads01(self) -> bool:
+        """Whether any coordinate's gradient or any summand reads coordinate
+        0 or 1 (K6 then makes them visible to every thread first)."""
+        first = {"y0", "y1", "w0", "w1"}
+        return any(e is not None and _leaves(e) & first
+                   for e in [p.e for p in self.out] + self.d_out
+                   + [p.e for r in self.reductions for p in r])
+
+    def _moments_cpp(self):
+        out = [
+            "  // the chain moments of K1/K6: sum r at time t along the linear flow",
+            "  // is m[3r] + t (m[3r + 1] + t m[3r + 2])",
+            "  struct Moments {",
+            "    static constexpr int N = 3 * NR;",
+            "    T m[N];",
+            "    __device__ __forceinline__ Sums at(T t) const {",
+            "      Sums c;",
+            "#pragma unroll",
+            "      for (int r = 0; r < NR; ++r) {",
+            "        c.s[r] = m[3 * r] + t * (m[3 * r + 1] + t * m[3 * r + 2]);",
+            "        c.ds[r] = m[3 * r + 1] + (T)2 * t * m[3 * r + 2];",
+            "      }",
+            "      return c;",
+            "    }",
+            "  };",
+            "  __device__ __forceinline__ static Moments moments_zero(int) {",
+            "    Moments m;",
+            "#pragma unroll",
+            "    for (int q = 0; q < Moments::N; ++q) m.m[q] = (T)0;",
+            "    return m;",
+            "  }",
+            "  // coordinate i's Taylor terms of every summand, at the transition's start",
+            "  __device__ __forceinline__ static void moment_add(Moments& m, int i, T y, T w,",
+            "                                                   T y0, T w0, T y1, T w1,",
+            "                                                   const T* prm) {",
+        ]
+        used = False
+        for r, pieces in enumerate(self.reductions):
+            for p in pieces:
+                lo, hi = _coords(p)
+                tmemo: dict = {}
+                cs = taylor(self.b, p.e, tmemo)
+                em = _Emit(self.b)
+                names = [None if c is None else em.name(c) for c in cs]
+                out.append(f"    if (i >= {lo} && i < {hi}) {{  // sum {r}: {p.e.text()}")
+                out += ["      " + s for s in em.lines]
+                for q, nm in enumerate(names):
+                    if nm is not None:
+                        out.append(f"      m.m[{3 * r + q}] += {nm};")
+                        used = True
+                out.append("    }")
+        if not used:
+            out.append("    (void)m; (void)i; (void)y; (void)w; (void)y0; (void)w0; "
+                       "(void)y1; (void)w1; (void)prm;")
+        out.append("  }")
+        return out
+
+    def _sums_cpp(self):
+        out = [
+            "  // the sums at one point, in coordinate order (K3/K5, K4): yw(j, y, w)",
+            "  // gives coordinate j's point and velocity",
+            "  template <class F>",
+            "  __device__ __forceinline__ static Sums sums(int d, const T* prm, F yw) {",
+            "    Sums cs;",
+        ]
+        if not self.reductions:
+            out += ["    (void)d; (void)prm; (void)yw;", "    return cs;", "  }"]
+            return out
+        reads = set()
+        for pieces in self.reductions:
+            for p in pieces:
+                reads |= _leaves(p.e) & {"y0", "w0", "y1", "w1"}
+        if reads:
+            out += ["    T y0, w0, y1, w1;", "    yw(0, y0, w0);",
+                    "    if (d > 1) yw(1, y1, w1); else { y1 = y0; w1 = w0; }"]
+        for r, pieces in enumerate(self.reductions):
+            out.append(f"    bool first{r} = true;")
+            for p, dp in zip(pieces, self.d_red[r]):
+                lo, hi = _coords(p)
+                em = _Emit(self.b)
+                v = em.name(p.e)
+                dv = em.name(dp) if dp is not None else "(T)0"
+                out.append(f"    for (int i = {lo}; i < {hi}; ++i) {{  // sum {r}: {p.e.text()}")
+                out.append("      T y, w;")
+                out.append("      yw(i, y, w);")
+                out += ["      " + s for s in em.lines]
+                out.append(f"      cs.s[{r}] = first{r} ? {v} : cs.s[{r}] + {v};")
+                out.append(f"      cs.ds[{r}] = first{r} ? {dv} : cs.ds[{r}] + {dv};")
+                out.append(f"      first{r} = false;")
+                out.append("    }")
+        out += ["    return cs;", "  }"]
+        return out
+
+    def _at_cpp(self):
+        out = [
+            "  // gradient component i at x + v t and its derivative along v",
+            "  __device__ __forceinline__ static void at(int i, T xi, T vi, T x0, T v0, T x1,",
+            "                                            T v1, T t, const T* prm,",
+            "                                            const Sums& cs, T& g, T& dg) {",
+        ]
+        reads = set()
+        for p, dp in zip(self.out, self.d_out):
+            reads |= _leaves(p.e) | (_leaves(dp) if dp is not None else set())
+        point = {"y": "const T y = xi + vi * t;", "w": "const T w = vi;",
+                 "y0": "const T y0 = x0 + v0 * t;", "w0": "const T w0 = v0;",
+                 "y1": "const T y1 = x1 + v1 * t;", "w1": "const T w1 = v1;"}
+        out += ["    " + point[k] for k in ("y", "w", "y0", "w0", "y1", "w1") if k in reads]
+        out.append("    (void)i; (void)xi; (void)vi; (void)x0; (void)v0; (void)x1; (void)v1; "
+                   "(void)t; (void)prm; (void)cs;")
+        for n, (p, dp) in enumerate(zip(self.out, self.d_out)):
+            lo, hi = _coords(p)
+            last = n == len(self.out) - 1
+            cond = "" if last and n == 0 else (f"if (i < {hi}) " if n == 0 else
+                                               "else " if last else f"else if (i < {hi}) ")
+            em = _Emit(self.b)
+            g = em.name(p.e)
+            dg = em.name(dp) if dp is not None else "(T)0"
+            out.append(f"    {cond}{{  // coordinates [{lo}, {hi}): {p.e.text()}")
+            out += ["      " + s for s in em.lines]
+            out += [f"      g = {g};", f"      dg = {dg};", "    }"]
+        out.append("  }")
+        return out
+
+    def library(self):
+        """The chunk library of this kernel built with this potential
+        (``build.user_library``; built at first use, then loaded)."""
+        if self._lib is None:
+            from . import build
+            self._lib = build.user_library(SOURCES[self.kernel], self.header())
+        return self._lib
+
+
+def _coords(p: Piece):
+    """The coordinates ``[lo, hi)`` a piece covers (a chain piece: its
+    positions)."""
+    off = 0 if p.off is None else p.off
+    return p.a + off, p.b + off
+
+
+def _nodes(n: Node):
+    """Every node ``n`` reads, itself included, once each."""
+    seen, stack = set(), [n]
+    while stack:
+        x = stack.pop()
+        if x.id not in seen:
+            seen.add(x.id)
+            yield x
+            stack.extend(x.args)
+
+
+def _leaves(n: Node) -> set:
+    return {x.op for x in _nodes(n) if not x.args}
+
+
+def _hexlit(c) -> str:
+    if isinstance(c, bool):
+        return "true" if c else "false"
+    if math.isnan(c):
+        return "(T)NAN"
+    if math.isinf(c):
+        return "(T)INFINITY" if c > 0 else "(T)(-INFINITY)"
+    return f"(T){float(c).hex()}"
+
+
+_CPP_BIN = {"add": "+", "sub": "-", "mul": "*", "div": "/", "gt": ">", "ge": ">=",
+            "lt": "<", "le": "<=", "eq": "==", "ne": "!=", "and": "&&", "or": "||"}
+_CPP_FN = {"exp": "exp", "expm1": "expm1", "log": "log", "log1p": "log1p", "sqrt": "sqrt",
+           "sin": "sin", "cos": "cos", "tanh": "tanh", "sinh": "sinh", "cosh": "cosh",
+           "abs": "fabs"}
+
+
+class _Emit:
+    """SSA statements of a DAG, one ``const`` per node, in dependency order."""
+
+    def __init__(self, b: Graph):
+        self.b, self.lines, self.names = b, [], {}
+
+    def name(self, n: Node) -> str:
+        if n.id in self.names:
+            return self.names[n.id]
+        op, a = n.op, n.args
+        if op == "lit":
+            return _hexlit(n.attr)
+        leaf = {"y": "y", "w": "w", "y0": "y0", "w0": "w0", "y1": "y1", "w1": "w1"}
+        if op in leaf:
+            return leaf[op]
+        if op == "prm":
+            return f"prm[{n.attr} + i]"
+        if op == "prmk":
+            return f"prm[{n.attr}]"
+        if op == "red":
+            return f"cs.s[{n.attr}]"
+        if op == "dred":
+            return f"cs.ds[{n.attr}]"
+        args = [self.name(x) for x in a]
+        if op in _CPP_BIN:
+            expr = f"{args[0]} {_CPP_BIN[op]} {args[1]}"
+        elif op in _CPP_FN:
+            expr = f"{_CPP_FN[op]}({args[0]})"
+        elif op == "neg":
+            expr = f"-{args[0]}"
+        elif op == "not":
+            expr = f"!{args[0]}"
+        elif op == "pow":
+            expr = f"pow({args[0]}, {_hexlit(n.attr)})"
+        elif op == "sign":
+            expr = (f"{args[0]} > (T)0 ? (T)1 : ({args[0]} < (T)0 ? (T)-1 : {args[0]})")
+        elif op == "max":  # NaN-propagating, as torch.maximum
+            expr = f"({args[0]} != {args[0]} || {args[0]} > {args[1]}) ? {args[0]} : {args[1]}"
+        elif op == "min":
+            expr = f"({args[0]} != {args[0]} || {args[0]} < {args[1]}) ? {args[0]} : {args[1]}"
+        elif op == "where":
+            expr = f"{args[0]} ? {args[1]} : {args[2]}"
+        elif op == "b2f":
+            expr = f"{args[0]} ? (T)1 : (T)0"
+        else:
+            raise AssertionError(op)
+        name = f"n{n.id}"
+        self.lines.append(f"const {'bool' if n.boolean else 'T'} {name} = {expr};")
+        self.names[n.id] = name
+        return name
+
+
+def _sign(a):
+    return torch.where(torch.isnan(a), a, torch.sign(a))
+
+
+_TORCH = {
+    "add": lambda a, b, _: a + b, "sub": lambda a, b, _: a - b,
+    "mul": lambda a, b, _: a * b, "div": lambda a, b, _: a / b,
+    "neg": lambda a, _: -a, "exp": lambda a, _: torch.exp(a),
+    "expm1": lambda a, _: torch.expm1(a), "log": lambda a, _: torch.log(a),
+    "log1p": lambda a, _: torch.log1p(a), "sqrt": lambda a, _: torch.sqrt(a),
+    "sin": lambda a, _: torch.sin(a), "cos": lambda a, _: torch.cos(a),
+    "tanh": lambda a, _: torch.tanh(a), "sinh": lambda a, _: torch.sinh(a),
+    "cosh": lambda a, _: torch.cosh(a), "abs": lambda a, _: torch.abs(a),
+    "sign": lambda a, _: _sign(a),
+    "pow": lambda a, c: torch.pow(a, torch.tensor(c, dtype=a.dtype, device=a.device)),
+    "max": lambda a, b, _: torch.maximum(a, b), "min": lambda a, b, _: torch.minimum(a, b),
+    "where": lambda c, a, b, _: torch.where(c, a, b),
+    "gt": lambda a, b, _: a > b, "ge": lambda a, b, _: a >= b,
+    "lt": lambda a, b, _: a < b, "le": lambda a, b, _: a <= b,
+    "eq": lambda a, b, _: a == b, "ne": lambda a, b, _: a != b,
+    "not": lambda a, _: ~a, "and": lambda a, b, _: a & b, "or": lambda a, b, _: a | b,
+}
+
+
+# ---------------------------------------------------------------------------
+# the interpreter of the aten graph
+# ---------------------------------------------------------------------------
+
+_ELEMENTWISE = {
+    "add": "add", "sub": "sub", "mul": "mul", "div": "div", "neg": "neg", "exp": "exp",
+    "expm1": "expm1", "log": "log", "log1p": "log1p", "sqrt": "sqrt", "sin": "sin",
+    "cos": "cos", "tanh": "tanh", "sinh": "sinh", "cosh": "cosh", "abs": "abs",
+    "sign": "sign", "sgn": "sign", "maximum": "max", "minimum": "min", "gt": "gt",
+    "ge": "ge", "lt": "lt", "le": "le", "eq": "eq", "ne": "ne", "logical_not": "not",
+    "logical_and": "and", "logical_or": "or", "where": "where",
+}
+_COMPOUND = {"rsqrt", "reciprocal", "sigmoid", "pow", "rsub", "clamp", "clamp_min",
+             "clamp_max", "square"}
+_LIKE = {"full_like", "ones_like", "zeros_like", "empty_like", "new_zeros", "new_ones",
+         "new_full", "new_empty", "scalar_tensor", "full", "zeros", "ones", "empty",
+         "arange"}
+_IDENTITY = {"clone", "alias", "detach", "lift_fresh_copy", "contiguous", "_to_copy"}
+_RESHAPE = {"view", "reshape", "_unsafe_view", "unsqueeze", "squeeze", "expand",
+            "flatten", "permute", "t"}
+_COUPLING = {"mm", "mv", "dot", "vdot", "matmul", "addmm", "addmv", "bmm", "einsum",
+             "linear", "outer", "cumsum", "cumprod", "flip", "roll", "sort", "gather",
+             "index", "index_select", "take", "conv1d", "convolution"}
+"""Ops that couple coordinates (kept undecomposed, so that a refusal names them)."""
+
+
+def _decompositions():
+    from torch._decomp import core_aten_decompositions
+
+    table = dict(core_aten_decompositions())
+    for op in list(table):
+        name = getattr(op, "name", lambda: str(op))()
+        if name.split("::")[-1].split(".")[0] in _COUPLING:
+            del table[op]
+    return table
+
+
+class _Interp:
+    def __init__(self, gm, d: int, dtype, device):
+        self.gm, self.d, self.dtype, self.device = gm, d, dtype, device
+        self.b = Graph(dtype)
+        self.params: List[torch.Tensor] = []
+        self.hoisted: Dict[int, Tuple[int, torch.Tensor]] = {}
+        self.reductions: List[Vec] = []
+        self.red_index: Dict[tuple, int] = {}
+
+    # -- conversions ---------------------------------------------------------
+    def refuse(self, node, why):
+        name = node.target if node.op != "call_function" else _opname(node)
+        return Bad(_refuse(f"aten.{name} at node {node.name}: {why}"))
+
+    def hoist(self, t: torch.Tensor) -> int:
+        """``t``'s offset in the params vector, rounded to the run's dtype
+        (keyed by ``t``, which ``hoisted`` keeps alive so that no other
+        tensor takes its id)."""
+        key = id(t)
+        if key not in self.hoisted:
+            offset = sum(p.numel() for p in self.params)
+            self.hoisted[key] = (offset, t)
+            self.params.append(t.detach().to(self.dtype).to(torch.float64).reshape(-1).cpu())
+        return self.hoisted[key][0]
+
+    def const_vec(self, t: torch.Tensor) -> Vec:
+        """A constant vector: literal pieces where it has a few runs of equal
+        values (a mask, a one-hot gradient term), else one hoisted
+        parameter piece."""
+        n = t.shape[0]
+        vals = t if t.dtype == torch.bool else t.to(self.dtype)
+        runs, a = [], 0
+        for p in range(1, n + 1):
+            if p == n or not _same(vals[p], vals[a]):
+                runs.append((a, p, vals[a].item()))
+                a = p
+        if t.dtype == torch.bool or len(runs) <= MAX_RUNS:
+            return Vec(n, tuple(Piece(a, p, None, self.b.lit(c)) for a, p, c in runs))
+        return Vec(n, (Piece(0, n, 0, self.b.mk("prm", attr=self.hoist(t))),))
+
+    def scalar(self, v, node):
+        """A 0-d value as a chain node (or Bad)."""
+        if isinstance(v, Bad):
+            return v
+        if isinstance(v, Node):
+            return v
+        if isinstance(v, (bool, int, float)):
+            return self.b.lit(v if isinstance(v, bool) else float(v))
+        if isinstance(v, torch.Tensor):
+            if v.numel() != 1:
+                return self.refuse(node, f"a constant of shape {tuple(v.shape)}")
+            x = v.reshape(())
+            return self.b.lit(bool(x) if v.dtype == torch.bool else float(x.to(self.dtype)))
+        if isinstance(v, Vec) and v.n == 1:
+            return self.element(v, 0, node)
+        return self.refuse(node, "a vector where a scalar is read")
+
+    def element(self, v: Vec, p: int, node):
+        for pc in v.pieces:
+            if pc.a <= p < pc.b:
+                if pc.off is None:
+                    return pc.e
+                try:
+                    return self.b.pin(pc.e, p + pc.off)
+                except _FarRead as e:
+                    return self.refuse(node, f"it reads x[{e.k}]; the kernels read "
+                                       "coordinates 0 and 1 of a chain besides each "
+                                       "coordinate's own")
+        raise AssertionError("position outside the vector")
+
+    def as_vec(self, v, n, node):
+        if isinstance(v, Vec):
+            if v.n == n:
+                return v
+            if v.n == 1:
+                e = self.element(v, 0, node)
+                return e if isinstance(e, Bad) else Vec(n, (Piece(0, n, None, e),))
+            return self.refuse(node, f"lengths {v.n} and {n} do not broadcast")
+        if isinstance(v, torch.Tensor) and v.dim() == 1 and v.shape[0] == n:
+            return self.const_vec(v)
+        e = self.scalar(v, node)
+        return e if isinstance(e, Bad) else Vec(n, (Piece(0, n, None, e),))
+
+    # -- elementwise ---------------------------------------------------------
+    def ew(self, node, op, vals, build):
+        """``build(*nodes)`` over aligned pieces of ``vals``."""
+        for v in vals:
+            if isinstance(v, Bad):
+                return v
+        for v in vals:
+            if isinstance(v, torch.Tensor) and v.dim() > 1:
+                return self.refuse(node, f"a value of shape {tuple(v.shape)} couples "
+                                   "coordinates")
+        if not any(isinstance(v, (Vec, Node)) for v in vals):
+            return None  # all constant: the caller computes it
+        ns = [v.n for v in vals if isinstance(v, Vec)] + [
+            v.shape[0] for v in vals if isinstance(v, torch.Tensor) and v.dim() == 1]
+        if not ns:
+            es = [self.scalar(v, node) for v in vals]
+            bad = next((e for e in es if isinstance(e, Bad)), None)
+            return bad or build(*es)
+        n = max(ns)
+        vecs = [self.as_vec(v, n, node) for v in vals]
+        bad = next((v for v in vecs if isinstance(v, Bad)), None)
+        if bad:
+            return bad
+        cuts = sorted({0, n} | {c for v in vecs for pc in v.pieces for c in (pc.a, pc.b)})
+        pieces = []
+        for a, b_ in zip(cuts, cuts[1:]):
+            if a == b_:
+                continue
+            parts = [next(pc for pc in v.pieces if pc.a <= a < pc.b) for v in vecs]
+            offs = {pc.off for pc in parts if pc.off is not None and pc.e.has_y}
+            if len(offs) > 1:
+                return self.refuse(node, "it combines coordinate i with coordinate "
+                                   f"i + {max(offs) - min(offs)} (offsets {sorted(offs)})")
+            off = offs.pop() if offs else next(
+                (pc.off for pc in parts if pc.off is not None), None)
+            es = [pc.e if pc.off is None else self.b.shift(pc.e, off - pc.off)
+                  for pc in parts]
+            e = build(*es)
+            pieces.append(Piece(a, b_, off if e.lane else None, e))
+        return Vec(n, _merge(pieces))
+
+    # -- reductions ----------------------------------------------------------
+    def reduce(self, node, v):
+        if isinstance(v, Bad):
+            return v
+        if isinstance(v, Node):
+            return v
+        if v.n == 0:
+            return self.b.lit(0.0)
+        pieces = []
+        for pc in v.pieces:
+            if "red" in _leaves(pc.e):
+                return self.refuse(node, "a sum whose summands read another sum")
+            if pc.off is None and pc.b > self.d:
+                return self.refuse(node, "a sum over more positions than coordinates")
+            pieces.append(pc)
+        key = tuple((pc.a, pc.b, pc.off, pc.e.id) for pc in pieces)
+        if key not in self.red_index:
+            self.red_index[key] = len(self.reductions)
+            self.reductions.append(Vec(v.n, tuple(pieces)))
+        return self.b.mk("red", attr=self.red_index[key])
+
+    # -- the graph -----------------------------------------------------------
+    def run(self):
+        env = {}
+        out = None
+        for node in self.gm.graph.nodes:
+            if node.op == "placeholder":
+                env[node] = Vec(self.d, (Piece(0, self.d, 0, self.b.mk("y")),))
+            elif node.op == "get_attr":
+                env[node] = getattr(self.gm, node.target)
+            elif node.op == "call_function":
+                args = [self._arg(a, env) for a in node.args]
+                kwargs = {k: self._arg(a, env) for k, a in node.kwargs.items()}
+                env[node] = self.call(node, args, kwargs)
+            elif node.op == "output":
+                out = self._arg(node.args[0], env)
+                if type(out) in (tuple, list):
+                    out = out[0]
+            else:
+                env[node] = self.refuse(node, f"a graph node of kind {node.op}")
+        return out
+
+    def _arg(self, a, env):
+        from torch.fx import Node as FxNode
+
+        if isinstance(a, FxNode):
+            return env[a]
+        if type(a) in (list, tuple):
+            return type(a)(self._arg(x, env) for x in a)
+        return a
+
+    def call(self, node, args, kwargs):
+        name = _opname(node)
+        concrete = all(not isinstance(a, (Vec, Node, Bad)) for a in _flat(args)) and all(
+            not isinstance(a, (Vec, Node, Bad)) for a in _flat(list(kwargs.values())))
+        if name in _LIKE:
+            return self._like(node, name, args, kwargs)
+        if concrete:
+            return node.target(*args, **kwargs)
+        bad = next((a for a in _flat(args) if isinstance(a, Bad)), None)
+        if bad:
+            return bad
+        if name in _COUPLING:
+            return self.refuse(node, "it couples coordinates (a dense product); the "
+                               "kernels evaluate each coordinate from its own value, "
+                               "coordinates 0 and 1 and sums over the coordinates")
+        b = self.b
+        if name == "copy":  # aten.copy(self, src): src's values
+            return args[1]
+        if name in _IDENTITY:
+            dt = kwargs.get("dtype")
+            if dt is not None and dt == torch.bool:
+                return self.refuse(node, "a cast to bool")
+            v = args[0]
+            if dt is not None and dt.is_floating_point and _is_bool(v):
+                return self.ew(node, name, [v], lambda a: b.mk("b2f", a))
+            return v
+        if name in _RESHAPE:
+            return self._reshape(node, name, args)
+        if name in _ELEMENTWISE:
+            op = _ELEMENTWISE[name]
+            vals = list(args)
+            if name in ("add", "sub") and kwargs.get("alpha", 1) != 1:
+                alpha = kwargs["alpha"]
+                vals[1] = self.ew(node, "mul", [vals[1], alpha],
+                                  lambda x, y: b.mk("mul", x, y)) if not isinstance(
+                    vals[1], torch.Tensor) else vals[1] * alpha
+            if name == "div" and kwargs.get("rounding_mode") is not None:
+                return self.refuse(node, f"rounding_mode={kwargs['rounding_mode']!r}")
+            return self.ew(node, op, vals, lambda *e: b.mk(op, *e))
+        if name in _COMPOUND:
+            return self._compound(node, name, args, kwargs)
+        if name in ("sum", "mean"):
+            return self._sum(node, name, args, kwargs)
+        if name in ("select", "slice", "slice_scatter", "select_scatter", "cat", "stack"):
+            return self._move(node, name, args)
+        return self.refuse(node, "an op outside the set the kernels evaluate")
+
+    def _like(self, node, name, args, kwargs):
+        val = node.meta.get("val")
+        shape = tuple(val.shape) if val is not None else ()
+        dtype = val.dtype if val is not None else self.dtype
+        if name == "arange":
+            return node.target(*args, **kwargs)
+        fill = {"ones_like": 1, "new_ones": 1, "ones": 1}.get(name, 0)
+        if name in ("full_like", "full"):
+            fill = args[1]
+        elif name == "new_full":
+            fill = args[2]
+        elif name == "scalar_tensor":
+            fill = args[0]
+        if isinstance(fill, (Vec, Node, Bad)):
+            return self.refuse(node, "a fill value that depends on x")
+        return torch.full(shape, fill, dtype=dtype, device=self.device)
+
+    def _reshape(self, node, name, args):
+        v = args[0]
+        val = node.meta.get("val")
+        shape = tuple(val.shape) if val is not None else None
+        if shape is None or len(shape) > 1:
+            return self.refuse(node, f"a value of shape {shape} couples coordinates")
+        if shape == ():
+            return self.scalar(v, node)
+        n = shape[0]
+        if isinstance(v, Node):
+            return Vec(n, (Piece(0, n, None, v),))
+        if isinstance(v, Vec) and v.n == n:
+            return v
+        return self.as_vec(v, n, node)
+
+    def _compound(self, node, name, args, kwargs):
+        b = self.b
+        one = b.lit(1.0)
+        if name == "rsqrt":
+            return self.ew(node, name, args[:1], lambda a: b.mk("div", one, b.mk("sqrt", a)))
+        if name == "reciprocal":
+            return self.ew(node, name, args[:1], lambda a: b.mk("div", one, a))
+        if name == "square":
+            return self.ew(node, name, args[:1], lambda a: b.mk("mul", a, a))
+        if name == "sigmoid":
+            return self.ew(node, name, args[:1], lambda a: b.mk(
+                "div", one, b.mk("add", one, b.mk("exp", b.mk("neg", a)))))
+        if name == "rsub":
+            alpha = kwargs.get("alpha", 1)
+            return self.ew(node, name, args[:2], lambda a, c: b.mk(
+                "sub", c, a if alpha == 1 else b.mk("mul", a, b.lit(alpha))))
+        if name == "pow":
+            base, ex = args[0], args[1]
+            if isinstance(ex, torch.Tensor) and ex.numel() == 1:
+                ex = float(ex.reshape(()))
+            if not isinstance(ex, (int, float)):
+                return self.refuse(node, "an exponent that is not a number")
+            return self.ew(node, name, [base], lambda a: b.pow(a, ex))
+        lo = args[1] if len(args) > 1 else kwargs.get("min")
+        hi = args[2] if len(args) > 2 else kwargs.get("max")
+        if name == "clamp_max":
+            lo, hi = None, args[1]
+        if name == "clamp_min":
+            lo, hi = args[1], None
+        vals, ops = [args[0]], []
+        if lo is not None:
+            vals.append(lo)
+            ops.append("max")
+        if hi is not None:
+            vals.append(hi)
+            ops.append("min")
+
+        def build(a, *bounds):
+            for op, c in zip(ops, bounds):
+                a = b.mk(op, a, c)
+            return a
+
+        return self.ew(node, name, vals, build)
+
+    def _sum(self, node, name, args, kwargs):
+        v = args[0]
+        dims = args[1] if len(args) > 1 else kwargs.get("dim")
+        if dims not in (None, [], [0], [-1], (0,), (-1,), 0, -1):
+            return self.refuse(node, f"a sum over dims {dims}")
+        if isinstance(v, torch.Tensor) and v.dim() > 1:
+            return self.refuse(node, f"a value of shape {tuple(v.shape)} couples coordinates")
+        n = v.n if isinstance(v, Vec) else 1
+        s = self.reduce(node, v if not isinstance(v, torch.Tensor) else self.const_vec(v))
+        if name == "mean" and not isinstance(s, Bad):
+            s = self.b.mk("div", s, self.b.lit(float(n)))
+        keep = len(args) > 2 and args[2] or kwargs.get("keepdim", False)
+        if keep and not isinstance(s, Bad):
+            return Vec(1, (Piece(0, 1, None, s),))
+        return s
+
+    def _move(self, node, name, args):
+        b = self.b
+        if name in ("cat", "stack"):
+            parts = args[0]
+            dim = args[1] if len(args) > 1 else 0
+            if dim not in (0, -1) or (name == "stack" and dim != 0):
+                return self.refuse(node, f"{name} along dim {dim}")
+            vecs = []
+            for v in parts:
+                if name == "stack":
+                    v = self.scalar(v, node)
+                    v = v if isinstance(v, Bad) else Vec(1, (Piece(0, 1, None, v),))
+                elif isinstance(v, torch.Tensor):
+                    v = self.const_vec(v) if v.dim() == 1 else self.refuse(
+                        node, f"a constant of shape {tuple(v.shape)}")
+                elif isinstance(v, Node):
+                    v = Vec(1, (Piece(0, 1, None, v),))
+                if isinstance(v, Bad):
+                    return v
+                vecs.append(v)
+            pieces, s = [], 0
+            for v in vecs:
+                pieces += [Piece(pc.a + s, pc.b + s, None if pc.off is None else pc.off - s,
+                                 pc.e) for pc in v.pieces]
+                s += v.n
+            return Vec(s, _merge(pieces))
+        v = args[0]
+        if isinstance(v, Node):
+            return self.refuse(node, f"{name} of a scalar")
+        if isinstance(v, torch.Tensor):
+            if v.dim() != 1:
+                return self.refuse(node, f"a constant of shape {tuple(v.shape)}")
+            v = self.const_vec(v)
+        scatter = name in ("slice_scatter", "select_scatter")
+        dim = args[2 if scatter else 1] if len(args) > (2 if scatter else 1) else 0
+        if dim not in (0, -1):
+            return self.refuse(node, f"{name} along dim {dim}")
+        if name == "select":
+            return self.element(v, args[2] + v.n if args[2] < 0 else args[2], node)
+        if name == "select_scatter":
+            src = self.scalar(args[1], node)
+            if isinstance(src, Bad):
+                return src
+            p = args[3] if len(args) > 3 else 0
+            p = p + v.n if p < 0 else p
+            return self._scatter(v, Vec(1, (Piece(0, 1, None, src),)), p, p + 1)
+        start = args[2] if len(args) > 2 else None
+        end = args[3] if len(args) > 3 else None
+        step = args[4] if len(args) > 4 else 1
+        if name == "slice_scatter":
+            src = args[1]
+            start, end = (args[3] if len(args) > 3 else None,
+                          args[4] if len(args) > 4 else None)
+            step = args[5] if len(args) > 5 else 1
+        if step != 1:
+            return self.refuse(node, f"a slice with step {step}")
+        lo, hi, _ = slice(start, end).indices(v.n)
+        hi = max(hi, lo)
+        if name == "slice":
+            pieces = [Piece(max(pc.a, lo) - lo, min(pc.b, hi) - lo,
+                            None if pc.off is None else pc.off + lo, pc.e)
+                      for pc in v.pieces if pc.a < hi and pc.b > lo]
+            return Vec(hi - lo, tuple(pieces))
+        src = self.as_vec(src, hi - lo, node)
+        if isinstance(src, Bad):
+            return src
+        return self._scatter(v, src, lo, hi)
+
+    def _scatter(self, v: Vec, src: Vec, lo: int, hi: int) -> Vec:
+        pieces = [Piece(pc.a, min(pc.b, lo), pc.off, pc.e) for pc in v.pieces if pc.a < lo]
+        pieces += [Piece(pc.a + lo, pc.b + lo, None if pc.off is None else pc.off - lo, pc.e)
+                   for pc in src.pieces]
+        pieces += [Piece(max(pc.a, hi), pc.b, pc.off, pc.e) for pc in v.pieces if pc.b > hi]
+        return Vec(v.n, _merge(pieces))
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal values, bit for bit (a NaN equals a NaN, -0 is not 0)."""
+    if a.dtype == torch.bool:
+        return bool(a == b)
+    return a.reshape(1).view(torch.uint8).tolist() == b.reshape(1).view(torch.uint8).tolist()
+
+
+def _merge(pieces) -> tuple:
+    """Adjacent pieces of one expression at one offset as one piece."""
+    out: List[Piece] = []
+    for pc in pieces:
+        if pc.a >= pc.b:
+            continue
+        if out and out[-1].e is pc.e and out[-1].off == pc.off and out[-1].b == pc.a:
+            out[-1] = Piece(out[-1].a, pc.b, pc.off, pc.e)
+        else:
+            out.append(pc)
+    return tuple(out)
+
+
+def _flat(xs):
+    for x in xs:
+        if type(x) in (list, tuple):
+            yield from _flat(x)
+        else:
+            yield x
+
+
+def _is_bool(v) -> bool:
+    if isinstance(v, Node):
+        return v.boolean
+    if isinstance(v, Vec):
+        return all(pc.e.boolean for pc in v.pieces)
+    return isinstance(v, torch.Tensor) and v.dtype == torch.bool
+
+
+def _opname(node) -> str:
+    target = node.target
+    packet = getattr(target, "overloadpacket", None)
+    return packet.__name__ if packet is not None else getattr(target, "__name__", str(target))
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def trace(grad_fn, d: int, dtype, device="cpu"):
+    """``make_fx`` of a per-chain gradient on a ``(d,)`` example, in core aten
+    ops (dense products kept whole), dead code removed."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    example = torch.zeros(d, dtype=dtype, device=device)
+    try:
+        gm = make_fx(grad_fn, decomposition_table=_decompositions(), tracing_mode="fake",
+                     _allow_non_fake_inputs=True)(example)
+    except Exception as e:  # noqa: BLE001 (any failure to trace is a refusal)
+        raise _refuse(f"tracing it with make_fx failed ({type(e).__name__}: "
+                      f"{str(e).splitlines()[0] if str(e) else ''}); a branch on a value "
+                      "of x cannot be traced") from e
+    gm.graph.eliminate_dead_code()
+    gm.recompile()
+    return gm
+
+
+def lower_gradient(grad_fn, kernel: str, d: int, dtype, device="cpu") -> Lowered:
+    """Lower ``grad_fn`` (one chain's ``(d,) -> (d,)`` gradient) for
+    ``kernel`` (``"zigzag"``, ``"sticky"``, ``"suzz"``, ``"bps"``,
+    ``"boomerang"``, ``"ecmc"``) at dimension ``d`` in ``dtype``, traced on
+    ``device`` (where its closed-over tensors lie); raises
+    :class:`LoweringError`."""
+    if kernel not in SOURCES:
+        raise ValueError(f"no chunk kernel {kernel!r}")
+    interp = _Interp(trace(grad_fn, d, dtype, device), d, dtype, device)
+    out = interp.run()
+    if isinstance(out, Bad):
+        raise out.err
+    if isinstance(out, torch.Tensor):
+        if tuple(out.shape) != (d,):
+            raise _refuse(f"the gradient has shape {tuple(out.shape)}, not ({d},)")
+        out = interp.const_vec(out)
+    elif isinstance(out, Node):
+        out = Vec(d, (Piece(0, d, None, out),))
+    if not isinstance(out, Vec) or out.n != d:
+        raise _refuse(f"the gradient is not a ({d},) vector")
+    pieces = []
+    for pc in out.pieces:
+        if pc.off not in (None, 0):
+            if pc.e.has_y:
+                raise _refuse(f"gradient coordinates [{pc.a}, {pc.b}) read coordinate i + "
+                              f"{pc.off}; the kernels evaluate coordinate i from its own "
+                              "value")
+            pc = Piece(pc.a, pc.b, 0, interp.b.shift(pc.e, -pc.off))
+        if pc.e.boolean:
+            raise _refuse("the gradient is boolean")
+        pieces.append(pc)
+    # the sums the gradient reads (the forward pass leaves others behind),
+    # renumbered in order
+    used = sorted({x.attr for pc in pieces for x in _nodes(pc.e) if x.op == "red"})
+    number = {old: new for new, old in enumerate(used)}
+    memo: dict = {}
+
+    def renumber(n):
+        return interp.b.relabel(n, lambda x: interp.b.mk("red", attr=number[x.attr])
+                                if x.op == "red" else None, memo)
+
+    pieces = [pc._replace(e=renumber(pc.e)) for pc in pieces]
+    reductions = [list(interp.reductions[r].pieces) for r in used]
+    for summands in reductions:
+        for pc in summands:
+            lo, hi = _coords(pc)
+            if lo < 0 or hi > d:
+                raise _refuse(f"a sum over positions [{pc.a}, {pc.b}) that are not "
+                              f"coordinates of x")
+            if kernel in MOMENT_KERNELS and pc.e.deg > 2:
+                raise _refuse(
+                    f"the sum over coordinates of {pc.e.text()} is not of degree <= 2 "
+                    "in x; the K1 and K6 kernels (Zig-Zag, Sticky Zig-Zag) reduce "
+                    "such sums as moments once per transition, which is exact only "
+                    "up to degree 2; the K3/K5 (BPS, Boomerang, Forward ECMC) and K4 "
+                    "(Speed-Up Zig-Zag) kernels take it")
+    params = (torch.cat(interp.params) if interp.params
+              else torch.zeros(0, dtype=torch.float64))
+    return Lowered(interp.b, kernel, d, dtype, pieces, reductions, params)
+
+
+def lower_sampler(sampler, kind: str, d: int, dtype, device="cpu") -> Lowered:
+    """The sampler's gradient lowered for its kernel, cached on the sampler by
+    (kernel, d, dtype) as JAX caches ``("pallas_grad", kind, dim, tile,
+    dtype)``.  The Boomerang's kernel subtracts ``x`` itself, so its
+    ``grad_U`` is lowered as it stands, as is the Speed-Up Zig-Zag's (K4
+    builds the effective gradient).  The trace runs on ``device``, where
+    the gradient's closed-over tensors lie (the CPU where there is no card)."""
+    kernel = "sticky" if kind == "zigzag" and sampler.sticky else kind  # K6, else the kind's
+    cache = sampler.__dict__.setdefault("_lowered", {})
+    key = (kernel, int(d), dtype)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        device = torch.device("cpu")  # deciding a route needs no card
+    if key not in cache:
+        try:
+            cache[key] = lower_gradient(sampler.grad_U, kernel, d, dtype, device)
+        except LoweringError as e:
+            cache[key] = e
+    hit = cache[key]
+    if isinstance(hit, LoweringError):
+        raise hit
+    return hit
+

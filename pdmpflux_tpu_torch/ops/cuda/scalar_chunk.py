@@ -51,7 +51,6 @@ from ...core.types import (
     MODE_FRESH,
     MODE_REJECTED,
 )
-from ...utils.potentials import DEVICE_POTENTIALS
 from ..flows import boomerang_flow, linear_flow, ordered_sum
 from . import build
 from .zigzag_chunk import (
@@ -76,7 +75,9 @@ from .zigzag_chunk import (
     RawFill,
     check_cuda,
     div_once,
+    kernel_library,
     live_lanes,
+    potential_id,
 )
 
 KINDS = {"bps": 0, "boomerang": 1, "ecmc": 2}
@@ -368,9 +369,10 @@ def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     r = row0
     name = launch_name(cfg.kind) + ("_horizon" if cfg.horizon else "")
-    err = build.library().scalar_chunk_launch(
+    lib = kernel_library(cfg)
+    err = lib.scalar_chunk_launch(
         i(1 if st.x.dtype == torch.float64 else 0), i(KINDS[cfg.kind]),
-        i(DEVICE_POTENTIALS[cfg.device_potential]), i(d), i(B), i(cfg.K),
+        i(potential_id(cfg)), i(d), i(B), i(cfg.K),
         i(cfg.n_grid), i(int(cfg.adaptive)), i(int(cfg.signed)), f(cfg.refresh_rate),
         i(cfg.cap), i(cfg.tile), i(rng.wrap_int32(seed)), *cfg.launch_args(),
         i(int(cfg.gaussian_velocity)),
@@ -381,5 +383,5 @@ def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
         p(fill.kind[r].data_ptr()), p(fill.x[r].data_ptr()), p(fill.v[r].data_ptr()),
         p(fill.fs[r].data_ptr()), p(fill.ring[r].data_ptr()),
         p(torch.cuda.current_stream(st.x.device).cuda_stream))
-    build.check(err, name)
+    build.check(err, name, lib)
     build.LAUNCHES[name] += 1

@@ -63,7 +63,7 @@ from ...core.types import (
 )
 from ...utils.potentials import DEVICE_POTENTIALS, LANE_POTENTIALS
 from ..flows import div_once, ordered_sum, suzz_flow, suzz_flow_tangent
-from . import build
+from . import build, lower
 
 F_T, F_TC, F_TS, F_H, F_BH, F_EXP, F_AR, F_TT = range(8)
 NF = 8
@@ -113,6 +113,7 @@ class ChunkConfig(NamedTuple):
     ecmc_params: tuple = ()             # K5: (ran_p, mix_p, switch, positive, speed_factor, normal)
     pot_params: Optional[torch.Tensor] = None  # the device potential's parameters
     t_target: Optional[float] = None    # K7: float32 clock target; None: events mode
+    user: Optional[object] = None       # lower.Lowered: a generated potential ("user")
 
     @property
     def sticky(self) -> bool:
@@ -451,10 +452,13 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
         ring.copy_(ring_new)
 
 
-def sticky_max_dim(dtype) -> int:
+def sticky_max_dim(dtype, user=None) -> int:
     """Largest ``d`` K6 takes: its per-chain copy of x, v, kappa, a scan
-    buffer and the activity bytes must fit one block's shared memory."""
-    return int(build.library().sticky_chunk_max_dim(int(dtype == torch.float64)))
+    buffer and the activity bytes must fit one block's shared memory beside
+    its static rows, which a generated potential (``user``, a
+    ``lower.Lowered``; its library is built) sizes itself."""
+    lib = build.library() if user is None else user.library()
+    return int(lib.sticky_chunk_max_dim(int(dtype == torch.float64)))
 
 
 def potential_message(what: str, potentials, tag) -> str:
@@ -463,9 +467,10 @@ def potential_message(what: str, potentials, tag) -> str:
     return (f"the CUDA {what} kernel covers the device potentials "
             f"{list(potentials)} (utils.potentials: gauss, grad_gauss, gauss_1d, "
             "banana, grad_banana, anisotropic_gauss, cauchy, ridged_gauss, funnel, "
-            f"neal_funnel); this sampler's is {tag!r} — a gradient of your own "
-            "runs on the transition engine with backend='xla_stream', or with "
-            "device='cpu'")
+            f"neal_funnel) and a generated one ({lower.USER_POTENTIAL!r}, with its "
+            f"lowering); this config's is {tag!r} — a gradient of your own takes its "
+            "generated potential from driver.lowered_config, which the stream "
+            "driver calls on the card")
 
 
 def check_cuda(st: ChunkState, fill: RawFill, row0: int, cfg: ChunkConfig,
@@ -473,7 +478,10 @@ def check_cuda(st: ChunkState, fill: RawFill, row0: int, cfg: ChunkConfig,
     """Raise unless a chunk kernel can run: a device potential in
     ``potentials``, ``n_grid`` in ``[2, MAX_GRID]``, and every state and
     fill tensor contiguous, of the right type and shape, on one card."""
-    if cfg.device_potential not in potentials:
+    user = cfg.device_potential == lower.USER_POTENTIAL
+    if user and cfg.user is None:
+        raise ValueError("a generated potential needs its lowering (ChunkConfig.user)")
+    if cfg.device_potential not in potentials and not user:
         raise ValueError(potential_message(what, potentials, cfg.device_potential))
     if cfg.device_potential == "aniso" and cfg.pot_params is None:
         raise ValueError("the 'aniso' device potential needs its scales (pot_params)")
@@ -500,7 +508,8 @@ def check_cuda(st: ChunkState, fill: RawFill, row0: int, cfg: ChunkConfig,
             "ev_act": (fill.act, (fill.rows, d, B), torch.bool),
         })
     if cfg.pot_params is not None:
-        want["pot_params"] = (cfg.pot_params, (d,), dtype)
+        want["pot_params"] = (cfg.pot_params,
+                              (cfg.user.params.numel(),) if user else (d,), dtype)
     for name, (a, shape, dt) in want.items():
         if a is None or not a.is_cuda or a.device != st.x.device:
             raise ValueError(f"{name} must lie on {st.x.device}")
@@ -509,6 +518,17 @@ def check_cuda(st: ChunkState, fill: RawFill, row0: int, cfg: ChunkConfig,
                              f"{a.dtype} {tuple(a.shape)}")
     if row0 < 0 or row0 + cfg.K > fill.rows:
         raise ValueError(f"rows {row0}..{row0 + cfg.K} outside the fill's {fill.rows}")
+
+
+def kernel_library(cfg: ChunkConfig):
+    """The library whose launcher runs ``cfg``: the kernels' own, or for a
+    generated potential the one its lowering builds (``lower.Lowered.library``)."""
+    return build.library() if cfg.user is None else cfg.user.library()
+
+
+def potential_id(cfg: ChunkConfig) -> int:
+    """The launcher's potential id: the tag's, or 7 for a generated potential."""
+    return lower.USER_ID if cfg.user is not None else DEVICE_POTENTIALS[cfg.device_potential]
 
 
 def launch_name(cfg: ChunkConfig) -> str:
@@ -530,17 +550,17 @@ def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
     what = "Speed-Up Zig-Zag" if suzz else "Sticky Zig-Zag" if cfg.sticky else "Zig-Zag"
     check_cuda(st, fill, row0, cfg, what, KERNEL_POTENTIALS)
     d, B = st.x.shape
-    if cfg.sticky and d > (max_d := sticky_max_dim(st.x.dtype)):
+    if cfg.sticky and d > (max_d := sticky_max_dim(st.x.dtype, cfg.user)):
         raise ValueError(
             f"d={d} exceeds the sticky kernel's {max_d} for {st.x.dtype}: one "
             "chain's x, v, kappa, scan buffer and activity bytes must fit the "
             "227 KB of shared memory a block can have")
-    lib = build.library()
+    lib = kernel_library(cfg)
     p = ctypes.c_void_p
     r = row0
     head = (
         ctypes.c_int(1 if st.x.dtype == torch.float64 else 0),
-        ctypes.c_int(DEVICE_POTENTIALS[cfg.device_potential]),
+        ctypes.c_int(potential_id(cfg)),
         ctypes.c_int(d), ctypes.c_int(B), ctypes.c_int(cfg.K),
         ctypes.c_int(cfg.n_grid), ctypes.c_int(int(cfg.adaptive)),
         ctypes.c_int(int(cfg.signed)), ctypes.c_double(cfg.refresh_rate),
@@ -563,5 +583,5 @@ def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
         err = lib.suzz_chunk_launch(*head, *rows, stream)
     else:
         err = lib.zigzag_chunk_launch(*head, *rows, stream)
-    build.check(err, name)
+    build.check(err, name, lib)
     build.LAUNCHES[name] += 1

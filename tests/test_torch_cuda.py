@@ -17,6 +17,7 @@ from pdmpflux_tpu_torch.core.types import EV_INIT, event_from_state  # noqa: E40
 from pdmpflux_tpu_torch.ops.cuda import build  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import compact as k2  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import driver  # noqa: E402
+from pdmpflux_tpu_torch.ops.cuda import lower  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import scalar_chunk as k3  # noqa: E402
 from pdmpflux_tpu_torch.ops.cuda import zigzag_chunk as k1  # noqa: E402
 
@@ -245,9 +246,14 @@ def test_sticky_sample_skeleton_on_card(dev):
     assert abs(frozen - phi0 / (kappa + phi0)) < 0.05
 
 
+DENSE = torch.tensor([[2.0, 0.5, 0.0], [0.5, 1.0, 0.2], [0.0, 0.2, 3.0]])
+"""A dense coupling the lowering refuses (``A @ x``)."""
+
+
 def test_k6_refuses_what_it_cannot_run(dev):
     """A sticky sampler on CUDA launches K6 or raises: past the shared-memory
-    limit on d, and for a gradient without a device potential."""
+    limit on d, and for a gradient the lowering cannot express (a gradient of
+    the user's own that it can runs on K6)."""
     d = k1.sticky_max_dim(torch.float32) + 1
     big = pt.StickyZigZag(d, pt.potentials.grad_gauss)
     state = big.init_state_batch(np.zeros((2, d)), np.ones((2, d)), 0, torch.float32, dev)
@@ -257,9 +263,13 @@ def test_k6_refuses_what_it_cannot_run(dev):
     fill = k1.empty_fill(4, d, 2, torch.float32, dev, sticky=True)
     with pytest.raises(ValueError, match="shared memory"):
         k1.run_chunk(0, st, fill, 0, cfg)
-    untagged = pt.StickyZigZag(3, lambda x: x)
-    with pytest.raises(ValueError, match="device potentials"):
-        pt.sample_skeleton(untagged, 10, np.zeros((2, 3)), np.ones((2, 3)))
+    untagged = pt.StickyZigZag(3, lambda x: x)  # lowered: K6 on a generated potential
+    n0 = build.LAUNCHES["sticky_chunk"]
+    skel = pt.sample_skeleton(untagged, 10, np.zeros((2, 3)), np.ones((2, 3)))
+    assert bool((skel.n_valid == 10).all()) and build.LAUNCHES["sticky_chunk"] > n0
+    dense = pt.StickyZigZag(3, lambda x: DENSE.to(x) @ x)
+    with pytest.raises(lower.LoweringError, match="aten.mv"):
+        pt.sample_skeleton(dense, 10, np.zeros((2, 3)), np.ones((2, 3)))
 
 
 def scalar_sampler(kind, pot, d, **kw):
@@ -430,12 +440,17 @@ def test_horizon_sample_skeleton_on_card(dev):
 
 
 def test_k3_k5_refuse_what_they_cannot_run(dev):
-    """On CUDA tensors the scalar-rate kernel launches or raises: an untagged
-    gradient, past the shared-memory limit on d; K1 runs every tag, the
-    ``aniso`` tag that only K3/K5 took before included."""
-    untagged = pt.BPS(3, lambda x: x)
-    with pytest.raises(ValueError, match="device potentials"):
-        pt.sample_skeleton(untagged, 10, np.zeros((2, 3)), np.ones((2, 3)))
+    """On CUDA tensors the scalar-rate kernel launches or raises: a gradient
+    the lowering cannot express, past the shared-memory limit on d (an
+    untagged one it can runs on K3); K1 runs every tag, the ``aniso`` tag
+    that only K3/K5 took before included."""
+    untagged = pt.BPS(3, lambda x: x)  # lowered: K3 on a generated potential
+    n0 = build.LAUNCHES["bps_chunk"]
+    skel = pt.sample_skeleton(untagged, 10, np.zeros((2, 3)), np.ones((2, 3)))
+    assert bool((skel.n_valid == 10).all()) and build.LAUNCHES["bps_chunk"] > n0
+    with pytest.raises(lower.LoweringError, match="aten.mv"):
+        pt.sample_skeleton(pt.BPS(3, lambda x: DENSE.to(x) @ x), 10, np.zeros((2, 3)),
+                           np.ones((2, 3)))
     d = k3.scalar_max_dim(torch.float64) + 1
     big = pt.BPS(d, pt.potentials.grad_gauss)
     state = big.init_state_batch(np.zeros((2, d)), np.ones((2, d)), 0, torch.float64, dev)
@@ -535,11 +550,17 @@ def test_suzz_sample_skeleton_on_card(dev):
 
 
 def test_k4_refuses_what_it_cannot_run(dev):
-    """On CUDA tensors K4 launches or raises: an untagged gradient raises;
-    every tag runs, ``aniso`` (which it lacked before) included."""
-    untagged = pt.SpeedUpZigZag(4, lambda x: x)
-    with pytest.raises(ValueError, match="device potentials"):
-        pt.sample_skeleton(untagged, 10, np.zeros((2, 4)), np.ones((2, 4)))
+    """On CUDA tensors K4 launches or raises: a gradient the lowering cannot
+    express raises, an untagged one it can runs on K4; every tag runs,
+    ``aniso`` (which it lacked before) included."""
+    untagged = pt.SpeedUpZigZag(4, lambda x: x)  # lowered: K4 on a generated potential
+    n0 = build.LAUNCHES["suzz_chunk"]
+    skel = pt.sample_skeleton(untagged, 10, np.zeros((2, 4)), np.ones((2, 4)))
+    assert bool((skel.n_valid == 10).all()) and build.LAUNCHES["suzz_chunk"] > n0
+    dense = torch.block_diag(DENSE, torch.ones(1, 1))
+    with pytest.raises(lower.LoweringError, match="aten.mv"):
+        pt.sample_skeleton(pt.SpeedUpZigZag(4, lambda x: dense.to(x) @ x), 10,
+                           np.zeros((2, 4)), np.ones((2, 4)))
     aniso = pt.SpeedUpZigZagAD(4, pt.potentials.anisotropic_gauss(np.ones(4)))
     n0 = build.LAUNCHES["suzz_chunk"]
     skel = pt.sample_skeleton(aniso, 10, np.zeros((2, 4)), np.ones((2, 4)))
@@ -776,11 +797,20 @@ def test_backend_routing_on_the_card(dev):
     with pytest.raises(ValueError, match="backend='xla'"):
         pt.sample_skeleton(pt.RHMC(4, pt.potentials.grad_gauss), 64, x0, v0, **kw,
                            backend="pallas")
-    untagged = pt.ZigZag(4, lambda x: x)
-    with pytest.raises(ValueError, match="backend='xla_stream'"):
-        pt.sample_skeleton(untagged, 64, x0, v0, **kw)
+    untagged = pt.ZigZag(4, lambda x: x)  # lowered: K1 on a generated potential
+    build.reset_launches()
     engine.reset_counts()
-    skel = pt.sample_skeleton(untagged, 64, x0, v0, **kw, backend="xla_stream")
+    skel = pt.sample_skeleton(untagged, 64, x0, v0, **kw)
+    assert bool((skel.n_valid == 64).all()) and build.LAUNCHES["zigzag_chunk"] > 0
+    assert engine.COUNTS["transitions"] == 0
+    dense4 = torch.block_diag(DENSE, torch.ones(1, 1))
+    dense = pt.ZigZag(4, lambda x: dense4.to(x) @ x)
+    build.reset_launches()
+    with pytest.raises(lower.LoweringError, match="backend='xla_stream'"):
+        pt.sample_skeleton(dense, 64, x0, v0, **kw)
+    assert not any(build.LAUNCHES.values())  # refused before any launch
+    engine.reset_counts()
+    skel = pt.sample_skeleton(dense, 64, x0, v0, **kw, backend="xla_stream")
     assert bool((skel.n_valid == 64).all()) and engine.COUNTS["transitions"] > 0
     hz = pt.sample_skeleton(pt.RHMC(4, pt.potentials.grad_gauss), 20.0, x0, v0, **kw)
     last = hz.n_valid.long() - 1

@@ -1,0 +1,263 @@
+"""The lowering of a user's gradient into the CUDA chunk kernels
+(``pdmpflux_tpu_torch/ops/cuda/lower.py``), on the CPU.
+
+* The IR's torch pair ``(grad, grad_jvp)`` on seeded float64 ``(d, B)``
+  points against ``torch.func.jvp`` of ``vmap(grad)``, rtol 1e-12: ``lambda
+  x: x``, ``sum(x**2) / 2``, a Student-t, ``log cosh``, an anisotropic
+  Gaussian with closed-over scales (hoisted into the parameters), a banana
+  (``x[0]``, ``x[1]``), Neal's funnel and the funnel (sums over
+  ``x[1:]``), a hierarchical mean (a sum over ``x[1:] - x[0]``); and each of the seven device tags' potentials lowered as if
+  untagged, against the tag's closed forms (``LANE_POTENTIALS``).
+* ``LoweringError`` naming the op for a dense ``A @ x``, a read of ``x[5]``
+  and, on K1 and K6 only, a sum of a summand of degree past 2 in ``x``.
+* The generated header's shape per kernel, the cache on the sampler, and
+  ``api.pick_backend`` on ``"cuda"`` (no card is needed to decide).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import pdmpflux_tpu_torch as pt  # noqa: E402
+from pdmpflux_tpu_torch import api as tapi  # noqa: E402
+from pdmpflux_tpu_torch.models.base import resolve_potential  # noqa: E402
+from pdmpflux_tpu_torch.ops.cuda import lower  # noqa: E402
+from pdmpflux_tpu_torch.ops.cuda import scalar_chunk as tsc  # noqa: E402
+from pdmpflux_tpu_torch.ops.cuda import zigzag_chunk as tzc  # noqa: E402
+from pdmpflux_tpu_torch.utils import potentials as tpot  # noqa: E402
+
+D, B = 7, 33
+RTOL = 1e-12
+ATOL = 1e-12
+SCALES = torch.linspace(0.5, 3.0, D, dtype=torch.float64)
+
+
+def student(x):
+    """Student-t with 5 degrees of freedom, ``3 sum log1p(x^2 / 5)``."""
+    return 3.0 * torch.sum(torch.log1p(x * x / 5.0))
+
+
+def neal(x):
+    return (x[0] * x[0] / 18.0 + 0.5 * (x.shape[0] - 1) * x[0]
+            + 0.5 * torch.sum(x[1:] ** 2) * torch.exp(-x[0]))
+
+
+USER = {
+    "identity": (lambda x: x, False),
+    "gauss": (lambda x: torch.sum(x ** 2) / 2, True),
+    "student": (student, True),
+    "logcosh": (lambda x: torch.sum(torch.log(torch.cosh(x))), True),
+    "aniso": (lambda x: torch.sum((x / SCALES.to(x)) ** 2) / 2, True),
+    "banana": (lambda x: (x[0] ** 2 + (x[1] - x[0] ** 2 + 1.0) ** 2
+                          + torch.sum(x[2:] ** 2)) / 2, True),
+    "neal": (neal, True),
+    "hier": (lambda x: x[0] ** 2 / 2 + torch.sum((x[1:] - x[0]) ** 2) / 2, True),
+    "funnel": (lambda x: (x[0] ** 2 / 2 + (x.shape[0] - 1) * torch.log(x[0])
+                          + torch.sum(x[1:] ** 2) / (2 * x[0] ** 2)), True),
+}
+TAGS = {"gauss": tpot.gauss, "banana": tpot.banana,
+        "aniso": tpot.anisotropic_gauss(SCALES.numpy()), "cauchy": tpot.cauchy,
+        "ridged": tpot.ridged_gauss, "funnel": tpot.funnel,
+        "neal_funnel": tpot.neal_funnel}
+
+
+def _grad(name):
+    f, is_potential = USER[name]
+    return resolve_potential(f, D)[1] if is_potential else f
+
+
+def _points(funnel=False, seed=0):
+    rs = np.random.default_rng(seed)
+    x = rs.normal(size=(D, B)) * 1.3
+    if funnel:
+        x[0] = np.abs(x[0]) + 0.5
+    return torch.as_tensor(x), torch.as_tensor(rs.normal(size=(D, B)))
+
+
+def _reference(grad, x, v):
+    gv = torch.func.vmap(grad, in_dims=1, out_dims=1)
+    return torch.func.jvp(gv, (x,), (v,))
+
+
+@pytest.mark.parametrize("kernel", ["zigzag", "bps"])
+@pytest.mark.parametrize("name", sorted(USER))
+def test_torch_pair_matches_torch_func(name, kernel):
+    """The IR's pair against ``torch.func.jvp(vmap(grad))`` at rtol 1e-12; the
+    gradient alone is the pair's first half, bit for bit."""
+    grad = _grad(name)
+    low = lower.lower_gradient(grad, kernel, D, torch.float64)
+    x, v = _points(name == "funnel", seed=len(name))
+    want_g, want_dg = _reference(grad, x, v)
+    g, dg = low.grad_jvp(x, v)
+    torch.testing.assert_close(g, want_g, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(dg, want_dg, rtol=RTOL, atol=ATOL)
+    assert torch.equal(low.grad(x), g)
+    if name == "aniso":  # the closed-over scales are the parameters
+        torch.testing.assert_close(low.params, SCALES, rtol=0, atol=0)
+    if name in ("neal", "funnel", "hier"):
+        assert len(low.reductions) == 1  # a sum over x[1:], read by coordinate 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_two_hoisted_vectors_of_another_dtype(dtype):
+    """Two closed-over float64 vectors (a mean and scales) in a run of either
+    dtype: each is hoisted once, at its own offset, rounded to the run's
+    dtype, and the pair matches ``torch.func`` (float32 to its rounding)."""
+    mu = torch.as_tensor(np.linspace(-1.0, 2.0, D))
+    s = torch.as_tensor(np.linspace(0.5, 3.0, D))
+    grad = resolve_potential(lambda x: torch.sum(((x - mu) / s) ** 2) / 2, D)[1]
+    low = lower.lower_gradient(grad, "bps", D, dtype)
+    want = torch.cat([mu.to(dtype), s.to(dtype)]).to(torch.float64)
+    assert torch.equal(low.params, want)
+    x, v = (a.to(dtype) for a in _points(seed=5))
+    want_g, want_dg = _reference(grad, x, v)
+    g, dg = low.grad_jvp(x, v)
+    tol = RTOL if dtype == torch.float64 else 1e-6
+    torch.testing.assert_close(g, want_g, rtol=tol, atol=tol)
+    torch.testing.assert_close(dg, want_dg, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("tag", sorted(TAGS))
+def test_tagged_potentials_lowered_as_untagged(tag):
+    """Each tag's potential, differentiated by ``torch.func.grad`` and
+    lowered as a gradient of the user's own: its pair against the tag's
+    closed forms and against ``torch.func`` at rtol 1e-12."""
+    grad = resolve_potential(TAGS[tag], D)[1]
+    params = tpot.device_potential_of(TAGS[tag])[1]
+    closed_g, closed_jvp = tpot.LANE_POTENTIALS[tag](params)
+    for kernel in ("zigzag", "sticky", "suzz", "bps", "boomerang", "ecmc"):
+        low = lower.lower_gradient(grad, kernel, D, torch.float64)
+        x, v = _points(tag == "funnel", seed=3)
+        g, dg = low.grad_jvp(x, v)
+        want_g, want_dg = closed_jvp(x, v)
+        torch.testing.assert_close(g, want_g, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(dg, want_dg, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(g, closed_g(x), rtol=RTOL, atol=ATOL)
+        ref_g, ref_dg = _reference(grad, x, v)
+        torch.testing.assert_close(dg, ref_dg, rtol=RTOL, atol=ATOL)
+
+
+def test_refusals_name_the_op():
+    """A dense product, a read past coordinate 1 and a coupling of
+    neighbouring coordinates raise ``LoweringError`` naming the aten op and
+    node and ``backend='xla_stream'``, for every kernel."""
+    A = torch.as_tensor(np.random.default_rng(1).normal(size=(D, D)))
+    A = A @ A.T
+    cases = {"aten.mv": lambda x: 0.5 * x @ (A.to(x) @ x),
+             "aten.select": lambda x: x[5] ** 2 + torch.sum(x ** 2),
+             "aten.add": lambda x: torch.sum(x[:-1] * x[1:]) + torch.sum(x ** 2)}
+    for op, U in cases.items():
+        grad = resolve_potential(U, D)[1]
+        for kernel in lower.SOURCES:
+            with pytest.raises(lower.LoweringError) as err:
+                lower.lower_gradient(grad, kernel, D, torch.float32)
+            assert op in str(err.value), (kernel, str(err.value))
+            assert "backend='xla_stream'" in str(err.value)
+    with pytest.raises(lower.LoweringError, match="x\\[5\\]"):
+        lower.lower_gradient(resolve_potential(cases["aten.select"], D)[1], "bps", D,
+                             torch.float64)
+
+
+def test_non_quadratic_sums_only_on_the_walking_kernels():
+    """K1 and K6 reduce sums as moments, exact to degree 2 in ``x``: a sum
+    of ``log1p(x^2)`` is refused there, naming the summand and the kernels
+    that take it, and taken by K3/K5 and K4; a quadratic sum reading
+    ``x[0]`` is taken by all."""
+    def g(x):
+        return x * torch.sum(torch.log1p(x ** 2))
+
+    for kernel in ("zigzag", "sticky"):
+        with pytest.raises(lower.LoweringError, match="log1p") as err:
+            lower.lower_gradient(g, kernel, D, torch.float64)
+        assert "K4" in str(err.value) and "backend='xla_stream'" in str(err.value)
+    x, v = _points(seed=4)
+    want = _reference(g, x, v)
+    for kernel in ("suzz", "bps", "boomerang", "ecmc"):
+        low = lower.lower_gradient(g, kernel, D, torch.float64)
+        for a, b in zip(low.grad_jvp(x, v), want):
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+
+    def quad(x):
+        return x * torch.sum((x - x[0]) ** 2)
+
+    for kernel in lower.SOURCES:
+        low = lower.lower_gradient(quad, kernel, D, torch.float64)
+        for a, b in zip(low.grad_jvp(x, v), _reference(quad, x, v)):
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+
+
+def test_moments_extrapolate_the_sums_exactly():
+    """K1/K6's chain moments of a quadratic summand: the Taylor terms the
+    header adds give the sum at every time along the linear flow
+    (``m0 + t (m1 + t m2)``) and its derivative, evaluated here through the
+    IR's own nodes."""
+    low = lower.lower_gradient(_grad("neal"), "zigzag", D, torch.float64)
+    (summand,) = low.reductions[0]
+    memo = {}
+    terms = lower.taylor(low.b, summand.e, memo)
+    x, v = _points(seed=5)
+    lo, hi = lower._coords(summand)
+
+    def value(n, y, w):  # the summand's nodes on coordinates [lo, hi)
+        if n is None:
+            return torch.zeros(())
+        ops = {"y": y, "w": w}
+        if n.op in ops:
+            return ops[n.op]
+        if n.op == "lit":
+            return torch.tensor(n.attr, dtype=torch.float64)
+        return lower._TORCH[n.op](*(value(a, y, w) for a in n.args), n.attr)
+
+    m = [value(c, x[lo:hi], v[lo:hi]).sum(0) for c in terms]
+    for t in (0.0, 0.3, 1.7):
+        y = x + v * t
+        want = (y[lo:hi] ** 2).sum(0)
+        torch.testing.assert_close(m[0] + t * (m[1] + t * m[2]), want, rtol=1e-12, atol=1e-12)
+        torch.testing.assert_close(m[1] + 2 * t * m[2], (2 * y[lo:hi] * v[lo:hi]).sum(0),
+                                   rtol=1e-12, atol=1e-12)
+
+
+def test_header_per_kernel_and_cache():
+    """The header defines ``UserPotential`` with the moments (K1, K6) or the
+    sums at a point (K3/K5, K4), literals as exact hexadecimal floats, the
+    parameters read as ``prm``; a sampler lowers once per (kernel, d,
+    dtype)."""
+    for kernel in lower.SOURCES:
+        low = lower.lower_gradient(_grad("neal"), kernel, D, torch.float32)
+        text = low.header()
+        assert "struct UserPotential" in text and "static constexpr bool chain = true" in text
+        assert ("moment_add" in text) == (kernel in lower.MOMENT_KERNELS)
+        assert ("static Sums sums(" in text) == (kernel not in lower.MOMENT_KERNELS)
+        assert "reads01 = true" in text and "exp(" in text
+        assert "0x1.c71c720000000p-5" in text  # 1/18 rounded to float32
+    for kernel in lower.MOMENT_KERNELS:  # only the sum reads coordinate 0
+        hier = lower.lower_gradient(_grad("hier"), kernel, D, torch.float64)
+        assert "reads01 = true" in hier.header()
+    aniso = lower.lower_gradient(_grad("aniso"), "bps", D, torch.float64).header()
+    assert "prm[0 + i]" in aniso
+    s = pt.ZigZagAD(D, student)
+    a = lower.lower_sampler(s, "zigzag", D, torch.float32)
+    assert lower.lower_sampler(s, "zigzag", D, torch.float32) is a
+    assert lower.lower_sampler(s, "zigzag", D, torch.float64) is not a
+    sticky = pt.StickyZigZagAD(D, student, np.ones(D))
+    assert lower.lower_sampler(sticky, "zigzag", D, torch.float32).kernel == "sticky"
+
+
+def test_pick_backend_lowers_on_cuda(monkeypatch):
+    """On ``"cuda"`` a lowerable untagged Zig-Zag routes to the kernel and a
+    dense one raises before any build, naming ``aten.mv`` and
+    ``backend='xla_stream'``; the engine backends and the CPU stay as they
+    were."""
+    monkeypatch.setattr(tsc, "scalar_max_dim", lambda dt: 1210)
+    monkeypatch.setattr(tzc, "sticky_max_dim", lambda dt, user=None: 13136)
+    A = torch.eye(D, dtype=torch.float64) * 2.0
+    for make in (lambda U: pt.ZigZagAD(D, U), lambda U: pt.StickyZigZagAD(D, U, np.ones(D)),
+                 lambda U: pt.BPSAD(D, U), lambda U: pt.SpeedUpZigZagAD(D, U)):
+        ok, dense = make(student), make(lambda x: 0.5 * x @ (A.to(x) @ x))
+        assert tapi.pick_backend(ok, "auto", D, torch.float32, "cuda") == "kernel"
+        assert tapi.pick_backend(ok, "pallas", D, torch.float32, "cuda") == "kernel"
+        with pytest.raises(lower.LoweringError, match="aten.mv"):
+            tapi.pick_backend(dense, "auto", D, torch.float32, "cuda")
+        assert tapi.pick_backend(dense, "xla_stream", D, torch.float32, "cuda") == "engine"
+        assert tapi.pick_backend(dense, "auto", D, torch.float32, "cpu") == "kernel"

@@ -203,18 +203,24 @@ def test_pick_backend_shape_limits_on_cuda(monkeypatch):
 
 
 def test_untagged_gradient_on_cuda_names_the_engine(monkeypatch):
-    """An untagged gradient that a kernel would cover raises on CUDA under
-    "auto" and "pallas", naming backend="xla_stream"; that backend, and the
-    CPU, run it.  Every tag runs on every kernel: ``aniso`` on K1 and K3."""
+    """An untagged gradient that a kernel covers is lowered into a generated
+    potential and takes the kernel on CUDA under "auto" and "pallas"; one the
+    lowering cannot express (a dense ``A @ x``) raises there, naming the aten
+    op and backend="xla_stream"; that backend, and the CPU, run both.  Every
+    tag runs on every kernel: ``aniso`` on K1 and K3."""
     monkeypatch.setattr(k3, "scalar_max_dim", lambda dt: 1210)
-    for s in (pt.ZigZag(3, lambda x: x), pt.BPS(3, lambda x: x),
-              pt.SpeedUpZigZagAD(3, lambda x: torch.sum(x * x) / 2)):
+    A = torch.tensor([[2.0, 0.5, 0.0], [0.5, 1.0, 0.2], [0.0, 0.2, 3.0]], dtype=torch.float64)
+    for make in (lambda g: pt.ZigZag(3, g), lambda g: pt.BPS(3, g),
+                 lambda g: pt.SpeedUpZigZag(3, g)):
+        s, dense = make(lambda x: x), make(lambda x: A.to(x) @ x)
         for backend in ("auto", "pallas"):
-            with pytest.raises(ValueError, match="device potentials") as err:
-                tapi.pick_backend(s, backend, 3, torch.float32, "cuda")
+            assert tapi.pick_backend(s, backend, 3, torch.float32, "cuda") == "kernel"
+            with pytest.raises(ValueError, match="aten.mv") as err:
+                tapi.pick_backend(dense, backend, 3, torch.float32, "cuda")
             assert "backend='xla_stream'" in str(err.value)
-        assert tapi.pick_backend(s, "xla_stream", 3, torch.float32, "cuda") == "engine"
-        assert tapi.pick_backend(s, "auto", 3, torch.float32, "cpu") == "kernel"
+        for g in (s, dense):
+            assert tapi.pick_backend(g, "xla_stream", 3, torch.float32, "cuda") == "engine"
+            assert tapi.pick_backend(g, "auto", 3, torch.float32, "cpu") == "kernel"
     for aniso in (pt.BPSAD(3, pt.potentials.anisotropic_gauss([1.0, 2.0, 3.0])),
                   pt.ZigZagAD(3, pt.potentials.anisotropic_gauss([1.0, 2.0, 3.0]))):
         assert tapi.pick_backend(aniso, "auto", 3, torch.float32, "cuda") == "kernel"

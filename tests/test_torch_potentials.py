@@ -21,7 +21,8 @@ chunk kernels run them as the Pallas kernel runs any traced gradient.
   own so that the two run on two test workers.
 * (c) routing: ``api.pick_backend(..., device="cuda")`` returns
   ``"kernel"`` for every kernel kind on every test potential (no card is
-  needed to decide), and an untagged gradient still raises.
+  needed to decide) and on an untagged gradient the lowering expresses
+  (``ops/cuda/lower.py``); a dense ``A @ x`` raises.
 """
 
 import numpy as np
@@ -230,8 +231,9 @@ def test_plain_kernel_matches_pallas_f64(kernel, tag, d, signed, seed):
 
 def test_every_test_potential_routes_to_the_kernels():
     """With ``device="cuda"`` and ``backend="auto"`` every sampler family on
-    every test potential routes to its chunk kernel; an untagged gradient
-    still raises, naming ``backend="xla_stream"``."""
+    every test potential routes to its chunk kernel, and so does an untagged
+    gradient that the lowering expresses; a dense ``A @ x`` raises, naming
+    ``backend="xla_stream"``."""
     d = 4
     pots = [pt.potentials.gauss, pt.potentials.gauss_1d, pt.potentials.banana,
             pt.potentials.anisotropic_gauss(np.ones(d)), pt.potentials.cauchy,
@@ -239,7 +241,7 @@ def test_every_test_potential_routes_to_the_kernels():
     families = (lambda U: pt.ZigZagAD(d, U), lambda U: pt.StickyZigZagAD(d, U, np.ones(d)),
                 lambda U: pt.SpeedUpZigZagAD(d, U), lambda U: pt.BPSAD(d, U),
                 lambda U: pt.BoomerangAD(d, U), lambda U: pt.ForwardECMCAD(d, U))
-    limits = dict(scalar_max_dim=lambda dt: 1210, sticky_max_dim=lambda dt: 13136)
+    limits = dict(scalar_max_dim=lambda dt: 1210, sticky_max_dim=lambda dt, user=None: 13136)
     with pytest.MonkeyPatch.context() as mp:  # the shared-memory limits need a build
         mp.setattr(tsc, "scalar_max_dim", limits["scalar_max_dim"])
         mp.setattr(tzc, "sticky_max_dim", limits["sticky_max_dim"])
@@ -250,7 +252,10 @@ def test_every_test_potential_routes_to_the_kernels():
                     assert tapi.pick_backend(s, backend, d, torch.float32, "cuda") == \
                         "kernel", (type(s).__name__, U.device_potential)
             untagged = make(lambda x: torch.sum(x * x) / 2)
+            assert tapi.pick_backend(untagged, "auto", d, torch.float32, "cuda") == "kernel"
+            dense = make(lambda x: 0.5 * x @ (torch.eye(d, dtype=x.dtype) @ x))
             with pytest.raises(ValueError, match="backend='xla_stream'"):
-                tapi.pick_backend(untagged, "auto", d, torch.float32, "cuda")
-            assert tapi.pick_backend(untagged, "xla_stream", d, torch.float32,
-                                     "cuda") == "engine"
+                tapi.pick_backend(dense, "auto", d, torch.float32, "cuda")
+            for s in (untagged, dense):
+                assert tapi.pick_backend(s, "xla_stream", d, torch.float32,
+                                         "cuda") == "engine"
