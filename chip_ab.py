@@ -3,6 +3,7 @@ compaction K2 of one checkout.
 
     python3 chip_ab.py [TREE] [--lanes] [--probe] [--probe-k2]
     python3 chip_ab.py [TREE] --engine
+    python3 chip_ab.py [TREE] --lane-context
 
 Times one K=32 launch (float32, CUDA events, mean of 50 launches after one
 warm launch) of K1 at the flagship's shape (B = 8192, d = 10), K1 in
@@ -28,7 +29,9 @@ of five warm calls, and one call traced by ``torch.profiler`` for the
 card's busy time and K2's kernels inside the call).  With ``--engine``,
 none of that: the transition engine's cells instead (``engine_ab``), the
 torch ops one transition dispatches for each family of TREE's phase 22 and
-TREE's phases 23 and 24.  To compare two commits on one card, unpack the other with ``git
+TREE's phases 23 and 24.  With ``--lane-context``, none of that either:
+a generated potential's context per lane at growing sizes on K3 and K1
+(``probe_lane_context``).  To compare two commits on one card, unpack the other with ``git
 archive`` into a git-ignored directory and run parent, change, change,
 parent one after another on that card: each run is its own process and
 builds its own kernels.  Prints one line with the kernels' times and one
@@ -125,6 +128,9 @@ def engine_ab(n=20):
 def main():
     if "--engine" in sys.argv:
         engine_ab()
+        return
+    if "--lane-context" in sys.argv:
+        probe_lane_context()
         return
     d, B, _ = cs.MAIN
     flagship = cs.pt.ZigZag(d, cs.pt.potentials.grad_gauss)
@@ -362,6 +368,77 @@ def probe_k6():
     build.CSRC, build.BUILD_DIR, build._lib = var / "csrc", var / "_build", None
     text += f"; without the row stores {k6():.5f}"
     print(f"{text} ms per K=32 launch ({cs.card()})", flush=True)
+
+
+LANE_DIMS = {"bps": (128, 512, 1024, 2048, 3072), "zigzag": (128, 512, 1024, 2048)}
+"""The dimensions of ``probe_lane_context``'s dense quadratic forms: float32
+contexts from 4 to 96 KB per lane (``Lowered.lane_bytes``)."""
+
+
+def probe_lane_context(B=512, K=2, reps=3, slow_ms=5000.0):
+    """Where a generated potential's context per lane stops launching or
+    collapses in speed: ``x P x / 2`` (``P`` the AR(1) precision, rho 0.5,
+    dense) on BPS (K3) and Zig-Zag (K1) at each d of :data:`LANE_DIMS`,
+    float32, B chains from a random state, one K-transition launch timed
+    (the mean of ``reps`` after a warm one), the lowering's
+    ``lower.LANE_BYTES`` lifted so that every size is tried.  Per (kernel,
+    d): the bytes of context the lowering counts per lane, the stack frame
+    ptxas reports for the kernel (its local memory per thread), the card
+    memory the first launch takes (the driver reserves a thread's local
+    memory for every thread the card can hold), ms per launch and ps per
+    operation (``chunk_ops``), or the launch's error.  A kernel whose
+    launch passes ``slow_ms`` is not tried at larger d."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pdmpflux_tpu_torch.ops.cuda import lower
+    lower.LANE_BYTES = 1 << 40
+    cases = []
+    for kind, dims in LANE_DIMS.items():
+        for d in dims:
+            if kind == "bps" and d > k3.scalar_max_dim(torch.float32):
+                continue
+            U = cs.quadratic_form(cs.ar1_precision(d, 0.5))
+            s = cs.pt.BPSAD(d, U, refresh_rate=0.5) if kind == "bps" else cs.pt.ZigZagAD(d, U)
+            cases.append((kind, d, s, lower.lower_sampler(s, kind, d, torch.float32, cs.DEV)))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(cases)) as ex:
+        libs = list(ex.map(lambda c: c[3].library(), cases))
+    texts, slow = [], set()
+    for (kind, d, s, low), lib in zip(cases, libs):
+        frames = {f for _, f, _, _ in cs.ptxas_kernels(
+            build.BUILD_INFO["user"][lib._name]["log"]).values()}
+        head = f"{kind} d={d}: {low.lane_bytes()} B counted, ptxas frame {sorted(frames)} B"
+        if kind in slow:
+            texts.append(f"{head}, not launched (a smaller d passed {slow_ms:.0f} ms)")
+            continue
+        state = cs.random_state(s, B, torch.float32, d)
+        if kind == "bps":
+            state = state._replace(v=state.v / state.v.norm(dim=1, keepdim=True))
+        cfg = cs.user_config(s, K, 1 << 30, torch.float32)
+        run, _ = cs.chunk_fns(cfg)
+        st = cs.driver.chunk_state(state, torch.zeros(B, dtype=torch.int32, device=cs.DEV),
+                                   False)
+        fill = k1.empty_fill(K, d, B, torch.float32, cs.DEV, False)
+        torch.cuda.empty_cache()
+        free0 = torch.cuda.mem_get_info()[0]
+        try:
+            run(7, st, fill, 0, cfg)
+            cs.sync()
+        except RuntimeError as e:
+            texts.append(f"{head}, launch failed: {e}")
+            slow.add(kind)
+            continue
+        taken = (free0 - torch.cuda.mem_get_info()[0]) / 2 ** 20
+        ms = cs.cuda_ms(lambda: run(7, st, fill, 0, cfg), reps)
+        b = cs.chunk_bound(cfg, st, fill, K * B)
+        ops = b[3] / 1e3 * cs.H100_F32_OPS_S
+        texts.append(f"{head}, the launch took {taken:.0f} MiB of card memory, {ms:.3f} ms "
+                     f"per K={K} launch, {ms * 1e9 / ops:.3f} ps per operation (bound "
+                     f"{b[0]:.3f} ms by {b[1]})")
+        if ms > slow_ms:
+            slow.add(kind)
+        del st, fill, state
+    print(f"lane context probe (B={B}, float32, {len(cases)} libraries built in "
+          f"{time.perf_counter() - t0:.1f} s): {'; '.join(texts)} ({cs.card()})", flush=True)
 
 
 if __name__ == "__main__":

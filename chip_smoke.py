@@ -195,13 +195,13 @@ Phases, one line each; any failure raises and exits non-zero:
    |mean_i| < 0.1 and |var_i / truth_i - 1| < 0.1 with truth (1, 3, 1, ...);
    events/s, the split, K2 checked on the first fill as in phase 23;
 25. routing under ``backend="auto"`` (just before it, every user library of
-   phases 25 and 36-38 is built, all nvcc at once): a tagged Zig-Zag
+   phases 25 and 36-41 is built, all nvcc at once): a tagged Zig-Zag
    launches K1 and runs no engine transition; RHMC and a
    ``vectorized_bound=False`` Zig-Zag run the engine and no chunk kernel;
    ``"pallas"`` on RHMC raises; an untagged Zig-Zag (``lambda x: x``) is
-   lowered and takes K1 alone; a dense ``A @ x`` raises ``LoweringError``
-   under ``"auto"`` before any launch, naming ``aten.mv`` and
-   ``backend="xla_stream"``, and runs under it; then an engine
+   lowered and takes K1 alone; a running sum (``cumsum``) raises
+   ``LoweringError`` under ``"auto"`` before any launch, naming
+   ``aten.cumsum`` and ``backend="xla_stream"``, and runs under it; then an engine
    ``sample_streaming_stats`` of RHMC at B = 512 (T = 300, 4096 grid points,
    32 windows) with pooled moments in bench.py's bands;
 26. host accumulation at ``sticky_zigzag_d1000`` (128 chains x 2048 points, a
@@ -300,11 +300,35 @@ Phases, one line each; any failure raises and exits non-zero:
    its plain version in f64 and one f32 chunk, as phase 37; K6 at
    ``sticky_zigzag_d1000``'s shape on a hierarchical mean
    (``sum((x[1:] - x[0])**2)``, a sum that reads coordinate 0 in every warp)
-   against its plain version in f64 to ``RTOL``; then a dense
-   ``A @ x`` (a seeded 10 x 10 SPD matrix) raises ``LoweringError`` under
-   ``"auto"`` before any build or launch, naming the aten op and
-   ``backend="xla_stream"``, and runs on the engine there (512 chains x 256
-   points).  The script prints its clock after each group of phases.
+   against its plain version in f64 to ``RTOL``; then a dense ``A @ x`` (a
+   seeded 10 x 10 SPD matrix) takes K1 and K2 (512 chains x 256 points),
+   and a running sum (``cumsum``) raises ``LoweringError`` under ``"auto"``
+   before any build or launch, naming the aten op and
+   ``backend="xla_stream"``, and runs on the engine there;
+39. products with a constant matrix at every point: ``zigzag_corr_gauss_d10``
+   (``ZigZagAD(10, 0.5 x P x)``, ``P`` the inverse of 0.9^|i-j|, the
+   flagship's shape) and ``bps_corr_gauss_d10`` (BPSAD, refresh 0.5, at
+   ``bps_anisotropic_gauss_d10``'s shape): each kernel against its plain
+   version in f64 (one K=32 launch at the deployment's shape from a random
+   state; K3 bit for bit, K1 to ``RTOL``), the route (its kernel and K2, no
+   engine chunk, no ``LoweringError``) and five timed warm calls, the gate
+   on the second half of each chain (|mean| < 0.1, variances within 10% of
+   1, lag-one correlations within 0.05 of 0.9), one f32 launch timed (the
+   plain version timed on the f64 parity launch);
+40. ``zigzag_logistic_d20_n1000``: a Bayesian logistic regression (d = 20,
+   n = 1000 rows, an intercept and N(0, 1) covariates, seeded labels, a
+   N(0, 10^2 I) prior) on K1, K3 (BPS, refresh 1.0) and K4 at B = 1024,
+   2048 points from the MAP (Newton in numpy f64), as phase 39, gated on
+   the second half of each chain: means within 0.2 Laplace sd of the
+   posterior mean (importance sampling from the Laplace law), variances
+   within 20% of the Laplace variances, K1's and K3's means within 0.2 sd;
+41. the kernel against its plain version on the other kinds, each with its
+   route, one timed call and an f32 launch timed: the Boomerang and Forward ECMC
+   (K5) and the Sticky Zig-Zag (K6, kappa 1) on the logistic regression,
+   K6 at ``sticky_zigzag_d1000``'s shape on a dense 1000 x 1000 AR(1)
+   precision (rho 0.5), the quartic sum ``|x|^2 / 2 + log1p(sum x^4)`` on K1
+   (the flagship's shape) and K6 (d = 1000).  The script prints its clock
+   after each group of phases.
 
 Then one JSON line of per-kernel results (launches counted in the timed run
 of each kernel's path: phase 4 for K1 and K2, phase 7 for K6, phase 10 for
@@ -318,12 +342,13 @@ paths, phase 30 for the entries of K1 and K2 named after the profiled
 flagship, phase 32 (dim 1) for K2's entry named after the gspmd
 deployment, phases 34 and 35 for the entries of K4, K1 and K2 named after
 their deployments, 35 (the engine route) for K2's entry named
-``engine:zigzag_neal_funnel_d10``, phases 36-38 for the entries
+``engine:zigzag_neal_funnel_d10``, phases 36-41 for the entries
 ``<kernel>[user:<path>]`` of each generated potential's path (and K2's on
 phase 36's two paths, timed at their shapes in phase 4b); max_abs_err the largest of the kernel's comparisons
 with its plain version, f64 and f32; the bound of each timed launch computed
-from its shape and this run's data), the card's name and power limit, and
-the status line.
+from its shape and this run's data; phases 39-41's entries carry
+``plain_of``: their plain time is the f64 parity launch's, their ``ms`` an
+f32 launch's), the card's name and power limit, and the status line.
 """
 
 import difflib
@@ -472,7 +497,7 @@ def chunk_ops(cfg, d, live, jumps):
                     "funnel": (4, 40), "neal_funnel": (4, MATH_OPS)}.get(
                         cfg.device_potential, (0, 0))
     if cfg.user is not None:
-        coord, point = user_cost(cfg.user, cfg.kind not in lower.MOMENT_KERNELS)
+        coord, point = user_cost(cfg.user)
     per += n_grid * (coord * d + point)
     if cfg.kind == "zigzag":
         per += n_grid * d * 20
@@ -503,13 +528,15 @@ MATH_FNS = {"exp", "expm1", "log", "log1p", "sqrt", "sin", "cos", "tanh", "sinh"
 """The IR ops that call a CUDA math function (``ops/cuda/lower.py``)."""
 
 
-def user_cost(low, sums_at_points):
+def user_cost(low):
     """(per coordinate, per point) operations of a generated potential beyond
     the Gaussian's (2, ``x + v t``), counted from its IR: each op of the
     gradient and its tangent once (a divide 10, a math function
-    ``MATH_OPS``), averaged over the coordinates; and where the kernel adds
-    the sums at every point (K3/K5, K4), each summand's value and tangent
-    per coordinate."""
+    ``MATH_OPS``), averaged over the coordinates; and where the kernel forms
+    its stages at every point (``low.point``: K3/K5 and K4 always, K1 and K6
+    past the chain moments), each summand's and each product input's value
+    and tangent per element, and each product's ``2 rows cols`` operations,
+    doubled for the tangent."""
     def ops(*roots):
         seen, n = set(), 0
         for r in roots:
@@ -522,15 +549,23 @@ def user_cost(low, sums_at_points):
 
     d = low.d
     coord = sum((p.b - p.a) * ops(p.e, dp) for p, dp in zip(low.out, low.d_out)) / d - 2
-    if sums_at_points:
-        coord += sum(ops(p.e, dp) * (p.b - p.a) for r, dr in zip(low.reductions, low.d_red)
-                     for p, dp in zip(r, dr)) / d
-    return max(coord, 0.0), 0
+    point = 0
+    if low.point:
+        for kind, s in low.stages:
+            pieces, tangents = ((low.reductions[s], low.d_red[s]) if kind == "red" else
+                                (low.products[s].vec.pieces, low.d_mv[s]))
+            point += sum((ops(p.e, dp) + 2) * (p.b - p.a) for p, dp in zip(pieces, tangents))
+            if kind == "mv":
+                point += 4 * low.products[s].rows * low.products[s].cols
+    return max(coord, 0.0), point
 
 
 def chunk_bound(cfg, st, fill, live):
+    """The bound of a chunk launch: its state and rows, and the potential's
+    parameters (a generated potential's hoisted matrices) read once."""
     jumps = int((fill.kind[:, 0] == pt.EV_JUMP).sum())
-    return bound(chunk_bytes(st, fill), chunk_ops(cfg, st.x.shape[0], live, jumps))
+    prm = 0 if cfg.pot_params is None else cfg.pot_params.numel() * cfg.pot_params.element_size()
+    return bound(chunk_bytes(st, fill) + prm, chunk_ops(cfg, st.x.shape[0], live, jumps))
 
 
 def k2_bound(fill, counts, W):
@@ -1675,7 +1710,7 @@ def phase_k7():
     return errs
 
 
-MATH_TAGS = {"ridged": "cos and sin", "neal_funnel": "exp"}
+MATH_TAGS = {"ridged": "cos and sin", "neal_funnel": "exp", "logistic": "exp and log1p"}
 """Tags whose gradient calls a CUDA math function, in the kernel and in
 torch's op alike."""
 MATH_NOTES = []
@@ -2956,9 +2991,9 @@ def phase_routing(card_name):
     launches K1 and runs no engine transition; RHMC and a
     ``vectorized_bound=False`` Zig-Zag run the engine (and no chunk kernel);
     ``"pallas"`` on RHMC raises; an untagged Zig-Zag (``lambda x: x``) is
-    lowered and takes K1 alone; a dense ``A @ x`` raises ``LoweringError``
-    under ``"auto"`` before any launch, naming ``aten.mv`` and
-    ``backend="xla_stream"``, and runs under it.  Then an engine
+    lowered and takes K1 alone; a running sum (``cumsum``) raises
+    ``LoweringError`` under ``"auto"`` before any launch, naming
+    ``aten.cumsum`` and ``backend="xla_stream"``, and runs under it.  Then an engine
     ``sample_streaming_stats`` of RHMC at B = 512, pooled moments in bench.py's
     bands."""
     d, n_sk = 10, 256
@@ -3001,24 +3036,23 @@ def phase_routing(card_name):
                              f"{launches}, {tr} engine transitions")
     texts.append(f"untagged ZigZag(lambda x: x): lowered, {launches['zigzag_chunk']} K1 "
                  "launches, 0 engine transitions")
-    A = torch.as_tensor(np.diag(np.linspace(1.0, 2.0, d)), dtype=torch.float32, device=DEV)
-    dense = pt.ZigZag(d, lambda x: A.to(x) @ x)
+    refused = pt.ZigZag(d, running_sum)
     build.reset_launches()
     try:
-        pt.sample_skeleton(dense, n_sk, x0, v0, **kw)
-        raise AssertionError("phase 25: a dense A @ x ran under backend='auto'")
+        pt.sample_skeleton(refused, n_sk, x0, v0, **kw)
+        raise AssertionError("phase 25: a running sum ran under backend='auto'")
     except lower.LoweringError as e:
-        if "backend='xla_stream'" not in str(e) or "aten.mv" not in str(e):
+        if "backend='xla_stream'" not in str(e) or "aten.cumsum" not in str(e):
             raise
         if any(build.LAUNCHES.values()):
             raise AssertionError(f"phase 25: the refusal came after a launch: "
                                  f"{dict(build.LAUNCHES)}") from e
-    launches, tr = counted(dense, backend="xla_stream")
+    launches, tr = counted(refused, backend="xla_stream")
     if tr < 1 or launches["compact_rows"] < 1:
-        raise AssertionError(f"phase 25: A @ x under xla_stream: {launches}, {tr}")
-    texts.append(f"dense ZigZag(lambda x: A @ x): 'auto' raises LoweringError naming aten.mv "
-                 f"and backend='xla_stream' before any launch; 'xla_stream' ran {tr} engine "
-                 "transitions")
+        raise AssertionError(f"phase 25: cumsum under xla_stream: {launches}, {tr}")
+    texts.append(f"ZigZag(lambda x: torch.cumsum(x, 0)): 'auto' raises LoweringError naming "
+                 f"aten.cumsum and backend='xla_stream' before any launch; 'xla_stream' ran "
+                 f"{tr} engine transitions")
     B, d, T, n_samples, n_batches = ROUTE_STREAM
     sampler = pt.RHMCAD(d, pt.potentials.gauss)
     engine.reset_counts()
@@ -3789,7 +3823,7 @@ STICKY_STUDENT_STREAM = (131072, 16384, 32)  # phase 37: K6's law run: events pe
                                              # grid points, windows
 USER_CALLS = 5                  # phase 36: timed warm calls of each user gradient
 USER_SCALES = np.linspace(0.5, 3.0, 10)  # phase 37: the user-written anisotropic Gaussian
-DENSE_RUN = (512, 256)          # phase 38: chains, points of the dense gradient's engine run
+DENSE_RUN = (512, 256)          # phase 38: chains, points of the dense and refused gradients' runs
 
 
 def student_t(x):
@@ -3810,6 +3844,20 @@ def user_hierarchical(x):
     coordinate 0's gradient sums ``x_j - x_0``, a sum that reads coordinate
     0 at every coordinate, which every warp of K6 reads."""
     return x[0] ** 2 / 2 + torch.sum((x[1:] - x[0]) ** 2) / 2
+
+
+def dense_gradient():
+    """``g = A x`` for a seeded 10 x 10 SPD ``A`` closed over on the card (phase
+    38's dense coupling, which K1 forms at every point)."""
+    rs = np.random.default_rng(38)
+    a = rs.normal(size=(10, 10))
+    A = torch.as_tensor(a @ a.T / 10 + np.eye(10), dtype=torch.float32, device=DEV)
+    return lambda x: A.to(x) @ x
+
+
+def running_sum(x):
+    """A gradient the lowering refuses: a running sum (``aten.cumsum``)."""
+    return torch.cumsum(x, 0)
 
 
 def user_aniso():
@@ -3836,19 +3884,21 @@ USER_PATHS = {
     "user_hier_sticky_d1000": (lambda: pt.StickyZigZagAD(STICKY[0], user_hierarchical,
                                                          np.full(STICKY[0], STICKY[3])),
                                STICKY[:3]),
+    "user_dense_zigzag_d10": (lambda: pt.ZigZag(10, dense_gradient()), (10, *DENSE_RUN)),
 }
 """Phases 36-38's deployments of gradients of the user's own: the sampler
 and (d, chains, points), each at the shape of the repo deployment it names."""
 
 
 def user_builds():
-    """Lower every gradient of phases 25 and 36-38 (float32 for the runs,
+    """Lower every gradient of phases 25 and 36-41 (float32 for the runs,
     float64 for the checks against the plain version) and build their user
     libraries, every ``nvcc`` started at once.  Returns (wall s, {library:
     seconds}, ptxas text)."""
     lows = []
-    for make, _ in USER_PATHS.values():
-        s = make()
+    samplers = [make() for make, _ in USER_PATHS.values()]
+    samplers += [s for s, *_ in dense_paths().values()]
+    for s in samplers:
         for dt in (torch.float32, torch.float64):
             lows.append(lower.lower_sampler(s, driver.kernel_kind(s), s.dim, dt, DEV))
     t0 = time.perf_counter()
@@ -3862,7 +3912,9 @@ def user_builds():
         kernels = ptxas_kernels(info["log"])
         spills = sum(st for _, _, st, _ in kernels.values())
         texts.append(f"{name}: {info['seconds'] or 0:.1f} s, registers "
-                     f"{sorted({r for r, *_ in kernels.values()})}, {spills} B spill stores")
+                     f"{sorted({r for r, *_ in kernels.values()})}, stack frames "
+                     f"{sorted({f for _, f, _, _ in kernels.values()})} B, {spills} B spill "
+                     "stores")
     return wall, secs, "; ".join(texts)
 
 
@@ -3886,15 +3938,16 @@ def chunk_fns(cfg):
             else (k1.run_chunk, k1.run_chunk_plain))
 
 
-def user_compare(what, sampler, B, bitwise, math_tag=None):
+def user_compare(what, sampler, B, bitwise, math_tag=None, n_chunks=2):
     """A user gradient's kernel against its plain version fed the IR's torch
-    pair, two K=32 chunks from one f64 random state (every fifth chain capped
-    inside the run): integers equal, floats bit for bit where ``bitwise``
-    (K3/K5, K4: where the math function of ``math_tag``'s gradient, as
-    :func:`bit_tolerance` reads it, parts the two a bit, the first part is
-    printed and the check takes ``RTOL``) else to
-    ``RTOL``/``ATOL`` (K1, K6).  Returns (max abs err, events)."""
-    d, K, n_chunks = sampler.dim, 32, 2
+    pair, ``n_chunks`` K=32 chunks from one f64 random state (every fifth
+    chain capped inside the run): integers equal, floats bit for bit where
+    ``bitwise`` (K3/K5, K4: where the math function of ``math_tag``'s
+    gradient, as :func:`bit_tolerance` reads it, parts the two a bit, the
+    first part is printed and the check takes ``RTOL``) else to
+    ``RTOL``/``ATOL`` (K1, K6).  Returns (max abs err, events, ms of the
+    plain version's first chunk by CUDA events)."""
+    d, K = sampler.dim, 32
     scale = 0.3 if sampler.sticky else 1.0
     state = random_state(sampler, B, torch.float64, d + B, scale=scale)
     if driver.kernel_kind(sampler) in k3.KINDS:
@@ -3908,11 +3961,18 @@ def user_compare(what, sampler, B, bitwise, math_tag=None):
     st_p = clone_state(st_k)
     fill_k, fill_p = (k1.empty_fill(K * n_chunks, d, B, torch.float64, DEV, sampler.sticky)
                       for _ in range(2))
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     for it in range(n_chunks):
         seed = 314159 + it * 1000003
         run(seed, st_k, fill_k, it * K, cfg)
+        sync()
+        if it == 0:
+            start.record()
         plain(seed, st_p, fill_p, it * K, cfg)
+        if it == 0:
+            end.record()
     sync()
+    plain_ms = start.elapsed_time(end)
     rtol, atol = RTOL, ATOL
     if bitwise:
         rtol, atol = bit_tolerance(what, math_tag, st_k, fill_k, st_p, fill_p)
@@ -3927,7 +3987,7 @@ def user_compare(what, sampler, B, bitwise, math_tag=None):
     n_ev = int((fill_k.kind[:, 0] > 0).sum())
     if n_ev < B // 2:
         raise AssertionError(f"{what}: only {n_ev} events in the check")
-    return err, n_ev
+    return err, n_ev, plain_ms
 
 
 def user_chunk(what, sampler, x0, v0, share_min):
@@ -4046,7 +4106,7 @@ def phase_user_main(card_name, builds):
     wall, secs, ptx = builds
     print(f"phase 36 the main path on gradients of the user's own (B={B}, d={d}, "
           f"n_sk={n_sk}, f32, backend='auto'): {'; '.join(texts)}; user builds (phases 25 and "
-          f"36-38, {len(secs)} libraries, every nvcc at once): wall {wall:.1f} s; {ptx} "
+          f"36-41, {len(secs)} libraries, every nvcc at once): wall {wall:.1f} s; {ptx} "
           f"({card_name})", flush=True)
     return out
 
@@ -4093,7 +4153,7 @@ def phase_user_kernels(card_name):
         make, (d, B, n_sk) = USER_PATHS[path]
         sampler = make()
         what = f"phase 37 {path}"
-        err64, n_ev = user_compare(what, sampler, B, bitwise)
+        err64, n_ev, _ = user_compare(what, sampler, B, bitwise)
         x0 = np.full((B, d), 0.3) if sampler.sticky else np.zeros((B, d))
         v0 = np.ones((B, d))
         skel, launches, walls = user_call(what, sampler, n_sk, x0, v0, 1)
@@ -4157,11 +4217,12 @@ def phase_user_reductions(card_name, neal_tagged):
     (K1 to ``RTOL``; K4 bit for bit, where exp parts the two a bit, the first
     part printed and ``RTOL``).  K6 at ``sticky_zigzag_d1000``'s shape on a
     hierarchical mean, whose sum reads coordinate 0 in every warp, against
-    its plain version in f64 to ``RTOL``.  Then a dense ``A @ x`` (A a seeded 10 x 10
-    SPD matrix) raises ``LoweringError`` under ``"auto"`` before any build
-    or launch, naming the aten op and ``backend="xla_stream"``, and runs on
-    the engine under that backend.  Returns {path: (launches, ms, plain ms,
-    bound, err)}."""
+    its plain version in f64 to ``RTOL``.  Then a dense ``A @ x`` (A a seeded
+    10 x 10 SPD matrix) takes K1 and K2 under ``"auto"``, and a running sum
+    (``cumsum``) raises ``LoweringError`` there before any build or launch,
+    naming the aten op and ``backend="xla_stream"``, and runs on the engine
+    under that backend.  Returns {path: (launches, ms, plain ms, bound,
+    err)}."""
     out, texts = {}, []
     refs = {"user_neal_zigzag_d10": neal_tagged}
     d, B, n_sk = SUZZ_D10
@@ -4177,7 +4238,7 @@ def phase_user_reductions(card_name, neal_tagged):
         make, (d, B, n_sk) = USER_PATHS[path]
         sampler = make()
         what = f"phase 38 {path}"
-        err64, n_ev = user_compare(what, sampler, B, bitwise, math_tag="neal_funnel")
+        err64, n_ev, _ = user_compare(what, sampler, B, bitwise, math_tag="neal_funnel")
         x0, v0 = np.zeros((B, d)), np.ones((B, d))
         skel, launches, walls = user_call(what, sampler, n_sk, x0, v0, 1)
         mean, var = pt.pooled_moments(skel, sampler, 256)
@@ -4208,51 +4269,371 @@ def phase_user_reductions(card_name, neal_tagged):
     low = lower.lower_sampler(sampler, "sticky", d, torch.float64, DEV)
     if "reads01 = true" not in low.header():
         raise AssertionError(f"phase 38 {path}: its sum reads coordinate 0 but reads01 is false")
-    err_h, n_ev_h = user_compare(f"phase 38 {path}", sampler, B, False)
+    err_h, n_ev_h, _ = user_compare(f"phase 38 {path}", sampler, B, False)
     texts.append(f"{path} (StickyZigZagAD d={d} B={B}, U = x0^2/2 + sum((x[1:] - x[0])^2)/2; "
                  f"sums {[[p.e.text() for p in r] for r in low.reductions]}): sticky_chunk "
                  f"vs plain f64 max_abs_err={err_h:.3e} ({n_ev_h} events)")
     notes = "; ".join(n for n in MATH_NOTES if n.startswith("phase 38")) or "none"
-    # the refusal: a dense coupling
-    d = 10
-    rs = np.random.default_rng(38)
-    a = rs.normal(size=(d, d))
-    A = torch.as_tensor(a @ a.T / d + np.eye(d), dtype=torch.float32, device=DEV)
-    dense = pt.ZigZag(d, lambda x: A.to(x) @ x)
-    B, n_sk = DENSE_RUN
+    # a dense A @ x takes K1; the refusal: a running sum
+    d, (B, n_sk) = 10, DENSE_RUN
     x0, v0 = np.zeros((B, d)), np.ones((B, d))
+    dense = USER_PATHS["user_dense_zigzag_d10"][0]()
+    _, d_launches, d_walls = user_call("phase 38 dense A @ x", dense, n_sk, x0, v0, 1)
+    refused = pt.ZigZag(d, running_sum)
     builds_before = len(build.BUILD_INFO["user"])
     build.reset_launches()
     engine.reset_counts()
     try:
-        pt.sample_skeleton(dense, n_sk, x0, v0, seed=0, dtype=torch.float32, device=DEV)
-        raise AssertionError("phase 38: a dense A @ x ran under backend='auto'")
+        pt.sample_skeleton(refused, n_sk, x0, v0, seed=0, dtype=torch.float32, device=DEV)
+        raise AssertionError("phase 38: a running sum ran under backend='auto'")
     except lower.LoweringError as e:
         msg = str(e)
-    if (not ("aten.mv" in msg or "aten.mm" in msg) or "backend='xla_stream'" not in msg
+    if ("aten.cumsum" not in msg or "backend='xla_stream'" not in msg
             or any(build.LAUNCHES.values()) or engine.COUNTS["transitions"]
             or len(build.BUILD_INFO["user"]) != builds_before):
-        raise AssertionError(f"phase 38: the dense gradient's refusal: {msg}; launches "
+        raise AssertionError(f"phase 38: the running sum's refusal: {msg}; launches "
                              f"{dict(build.LAUNCHES)}")
-    skel, e_wall, k2_n, chunks, transitions, _, _ = engine_call(dense, n_sk, x0, v0, seed=0,
+    skel, e_wall, k2_n, chunks, transitions, _, _ = engine_call(refused, n_sk, x0, v0, seed=0,
                                                                 backend="xla_stream")
-    check_complete("phase 38 dense A @ x on the engine", skel, n_sk)
+    check_complete("phase 38 running sum on the engine", skel, n_sk)
     del skel
     print(f"phase 38 sums and a refusal: {'; '.join(texts)}; bit-for-bit checks that parted "
-          f"in exp: {notes}; dense A @ x (10 x 10 SPD): 'auto' raises before any build or "
-          f"launch ({msg}); backend='xla_stream' ran it: {chunks} engine chunks, "
-          f"{transitions} transitions, {k2_n} K2 launches, {e_wall:.3f} s ({card_name})",
-          flush=True)
+          f"in exp: {notes}; dense A @ x (10 x 10 SPD, ZigZag(10, lambda x: A @ x), B={B}, "
+          f"n_sk={n_sk}): K1 {d_launches['zigzag_chunk']} launches, K2 "
+          f"{d_launches['compact_rows']}, 0 engine chunks, {d_walls[0]:.4f} s; a running sum "
+          f"(cumsum): 'auto' raises before any build or launch ({msg}); backend='xla_stream' "
+          f"ran it: {chunks} engine chunks, {transitions} transitions, {k2_n} K2 launches, "
+          f"{e_wall:.3f} s ({card_name})", flush=True)
     return out
 
 
-def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b):
-    return {"name": name, "route": "cuda", "source": f"pdmpflux_tpu_torch/csrc/{source}",
-            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
-            # no single PyTorch call computes a chunk of PDMP transitions or a
-            # per-chain stable compaction with offsets (see PERF.md)
-            "library_ms": None}
+# ---------------------------------------------------------------------------
+# Phases 39-41: gradients that couple coordinates through a constant matrix
+# (A @ x, X^T sigma(X x)), and sums of any degree, formed at every point by
+# the chunk kernels' generated potential
+# ---------------------------------------------------------------------------
+
+CORR_RHO = 0.9                      # phase 39: Sigma_ij = rho^|i - j|
+LOGISTIC = (20, 1000, 1024, 2048)   # phase 40: d, rows, chains, points
+LOGISTIC_PRIOR_SD = 10.0
+DENSE_AR = (1000, 128, 2048, 10.0, 0.5)  # phase 41: d, chains, points, kappa, rho
+DENSE_CALLS = 5                     # timed warm calls of each gated deployment
+
+
+def ar1_precision(d, rho):
+    """The inverse of the AR(1) covariance ``rho^|i - j|`` (float64, dense)."""
+    idx = np.arange(d)
+    return np.linalg.inv(rho ** np.abs(np.subtract.outer(idx, idx)))
+
+
+def quadratic_form(P):
+    """``U = x P x / 2`` as a user writes it, ``P`` closed over on the card."""
+    Pt = torch.as_tensor(P, device=DEV)
+    return lambda x: 0.5 * x @ (Pt.to(x) @ x)
+
+
+def logistic_data():
+    """The logistic regression's data from a fixed seed: ``X`` (an intercept
+    column of ones and ``d - 1`` N(0, 1) covariates), labels drawn from
+    Bernoulli(sigma(X b*)) with b* ~ N(0, 0.5^2 I)."""
+    d, n, _, _ = LOGISTIC
+    rs = np.random.default_rng(1000)
+    X = np.concatenate([np.ones((n, 1)), rs.normal(size=(n, d - 1))], 1)
+    beta = rs.normal(size=d) * 0.5
+    y = (rs.random(n) < 1.0 / (1.0 + np.exp(-X @ beta))).astype(np.float64)
+    return X, y
+
+
+def logistic_potential(X, y):
+    """``U(b) = sum softplus(X b) - y . X b + |b|^2 / (2 10^2)``: the Bayesian
+    logistic regression with a N(0, 10^2 I) prior, ``X`` and ``y`` closed
+    over on the card."""
+    Xt, yt = torch.as_tensor(X, device=DEV), torch.as_tensor(y, device=DEV)
+    c = 1.0 / (2.0 * LOGISTIC_PRIOR_SD ** 2)
+
+    def U(b):
+        z = Xt.to(b) @ b
+        return torch.sum(torch.nn.functional.softplus(z) - yt.to(b) * z) + c * (b @ b)
+
+    return U
+
+
+def logistic_laplace(X, y):
+    """The MAP by Newton's method in float64 and the Laplace covariance (the
+    inverse Hessian there)."""
+    b = np.zeros(X.shape[1])
+    for _ in range(50):
+        p = 1.0 / (1.0 + np.exp(-X @ b))
+        g = X.T @ (p - y) + b / LOGISTIC_PRIOR_SD ** 2
+        H = X.T @ (X * (p * (1.0 - p))[:, None]) + np.eye(len(b)) / LOGISTIC_PRIOR_SD ** 2
+        step = np.linalg.solve(H, g)
+        b = b - step
+        if np.max(np.abs(step)) < 1e-14:
+            break
+    return b, np.linalg.inv(H)
+
+
+def quartic_sum(x):
+    """``U = |x|^2 / 2 + log1p(sum x^4)``: a sum of degree 4 in x, which K1
+    and K6 form at every point."""
+    return x @ x / 2.0 + torch.log1p(torch.sum(x ** 4))
+
+
+def dense_paths():
+    """Phases 39-41's deployments: name -> (sampler, (d, chains, points),
+    bit for bit against the plain version, math tag, start)."""
+    X, y = logistic_data()
+    logi = logistic_potential(X, y)
+    corr = quadratic_form(ar1_precision(10, CORR_RHO))
+    d, _, B, n_sk = LOGISTIC
+    dd, dB, dn, kappa, rho = DENSE_AR
+    dense = quadratic_form(ar1_precision(dd, rho))
+    bps_d, bps_B, bps_n, bps_refresh = BPS_D10
+    return {
+        "zigzag_corr_gauss_d10": (pt.ZigZagAD(10, corr), MAIN, False, None, "ones"),
+        "bps_corr_gauss_d10": (pt.BPSAD(10, corr, refresh_rate=bps_refresh),
+                               (bps_d, bps_B, bps_n), True, None, "ones"),
+        "zigzag_logistic_d20_n1000": (pt.ZigZagAD(d, logi), (d, B, n_sk), False,
+                                      "logistic", "map"),
+        "bps_logistic_d20_n1000": (pt.BPSAD(d, logi, refresh_rate=1.0), (d, B, n_sk), True,
+                                   "logistic", "map"),
+        "suzz_logistic_d20_n1000": (pt.SpeedUpZigZagAD(d, logi), (d, B, n_sk), True,
+                                    "logistic", "map"),
+        "boomerang_logistic_d20_n1000": (pt.BoomerangAD(d, logi, refresh_rate=1.0),
+                                         (d, B, n_sk), True, "logistic", "map"),
+        "ecmc_logistic_d20_n1000": (pt.ForwardECMCAD(d, logi), (d, B, n_sk), True,
+                                    "logistic", "map"),
+        "sticky_logistic_d20_n1000": (pt.StickyZigZagAD(d, logi, np.ones(d)), (d, B, n_sk),
+                                      False, "logistic", "map"),
+        "sticky_dense_ar1_d1000": (pt.StickyZigZagAD(dd, dense, np.full(dd, kappa)),
+                                   (dd, dB, dn), False, None, "sticky"),
+        "zigzag_quartic_d10": (pt.ZigZagAD(10, quartic_sum), MAIN, False, None,
+                               "ones"),
+        "sticky_quartic_d1000": (pt.StickyZigZagAD(dd, quartic_sum, np.full(dd, kappa)),
+                                 (dd, dB, dn), False, None, "sticky"),
+    }
+
+
+def dense_start(sampler, start, B, d, b_map):
+    """x0 and v0 of a deployment: x0 = 0 and v0 = 1 (phase 36's), x0 = 0.3
+    (the sticky deployment's), or x0 at the logistic MAP with v0 = +-1 from
+    the seed (a unit normal for the scalar-rate samplers)."""
+    if start == "ones":
+        return np.zeros((B, d)), np.ones((B, d))
+    if start == "sticky":
+        return np.full((B, d), 0.3), np.ones((B, d))
+    rs = np.random.default_rng(40)
+    x0 = np.broadcast_to(b_map, (B, d)).copy()
+    if driver.kernel_kind(sampler) in k3.KINDS:
+        v0 = rs.normal(size=(B, d))
+        return x0, v0 / np.linalg.norm(v0, axis=1, keepdims=True)
+    return x0, rs.choice([-1.0, 1.0], size=(B, d))
+
+
+def second_half(xs):
+    """The second half of each chain's equal-time samples ``(B, n, d)``, as
+    float64 rows of one sample each (the first half is the chains' way from
+    their common start)."""
+    return xs[:, xs.shape[1] // 2:].double().reshape(-1, xs.shape[-1])
+
+
+def corr_gate(what, xs, rho):
+    """The correlated Gaussian's gate on the second half of each chain's
+    equal-time samples ``(B, n, d)``: |pooled mean_i| < 0.1, each variance
+    within 10% of 1, each lag-one correlation ``corr(x_i, x_{i+1})`` within
+    0.05 of ``rho``; the whole run's mean and variance printed beside."""
+    full = xs.double().reshape(-1, xs.shape[-1])
+    x = second_half(xs)
+    mean, var = x.mean(0), x.var(0)
+    z = (x - mean) / var.sqrt()
+    lag = (z[:, :-1] * z[:, 1:]).mean(0)
+    m, v, c = float(mean.abs().max()), float((var - 1).abs().max()), float((lag - rho).abs().max())
+    if not (m < 0.1 and v < 0.1 and c < 0.05):
+        raise AssertionError(f"{what}: moments off: max|mean| {m:.4f}, max|var-1| {v:.4f}, "
+                             f"lag-one correlations {lag.tolist()}")
+    return (f"second half: max|mean| {m:.4f} < 0.1, max|var-1| {v:.4f} < 0.1, lag-one "
+            f"correlations {float(lag.min()):.4f}-{float(lag.max()):.4f} (max|corr-{rho}| "
+            f"{c:.4f} < 0.05); whole run: max|mean| {float(full.mean(0).abs().max()):.4f}, "
+            f"max|var-1| {float((full.var(0) - 1).abs().max()):.4f}")
+
+
+def logistic_reference(X, y, b_map, cov, draws=400_000):
+    """The posterior mean by importance sampling from the Laplace law
+    widened by 1.1, in float64 (draws from numpy's seeded generator, the
+    potential evaluated by plain torch on the card): a reference independent
+    of the samplers.  Returns (the mean, the effective sample size)."""
+    L = np.linalg.cholesky(cov)
+    rs = np.random.default_rng(4000)
+    Xt, yt = (torch.as_tensor(a, device=DEV) for a in (X, y))
+    c = 1.0 / (2.0 * LOGISTIC_PRIOR_SD ** 2)
+
+    def U(B):
+        Z = B @ Xt.T
+        return (torch.nn.functional.softplus(Z) - yt * Z).sum(1) + c * (B * B).sum(1)
+
+    bm = torch.as_tensor(b_map, device=DEV)
+    u_map = U(bm[None])[0]
+    first, w_all = torch.zeros_like(bm), []
+    for _ in range(draws // 20_000):
+        z = torch.as_tensor(rs.normal(size=(20_000, len(b_map))), device=DEV)
+        B = bm + 1.1 * z @ torch.as_tensor(L.T, device=DEV)
+        w = torch.exp(u_map - U(B) + 0.5 * (z * z).sum(1))
+        first += w @ B
+        w_all.append(w)
+    w = torch.cat(w_all)
+    return (first / w.sum()).cpu().numpy(), float(w.sum() ** 2 / (w * w).sum())
+
+
+def logistic_gate(what, xs, ref_mean, cov):
+    """The logistic regression's gate on the second half of each chain's
+    equal-time samples: each coordinate's pooled mean within 0.2 Laplace sd
+    of the importance-sampled posterior mean and its variance within 20% of
+    the Laplace variance.  Returns (the pooled means, text)."""
+    x = second_half(xs).cpu().numpy()
+    mean, var = x.mean(0), x.var(0)
+    sd = np.sqrt(np.diag(cov))
+    dm, dv = np.abs(mean - ref_mean) / sd, np.abs(var / sd ** 2 - 1.0)
+    if not (np.all(dm < 0.2) and np.all(dv < 0.2)):
+        raise AssertionError(f"{what}: off the posterior: |mean - E| / sd {dm.tolist()}, "
+                             f"|var / var_Laplace - 1| {dv.tolist()}")
+    return mean, (f"max|mean - E[b]| / sd {float(dm.max()):.4f} < 0.2, max|var / var_Laplace "
+                  f"- 1| {float(dv.max()):.4f} < 0.2")
+
+
+def kernel_chunk(sampler, x0, v0):
+    """One f32 K=32 launch of a generated potential's kernel at its
+    deployment's shape and start, timed (the mean of 20 after a warm one),
+    and its bound.  Returns (ms, bound)."""
+    B, d = x0.shape
+    K, seed = 32, 7
+    state = sampler.init_state_batch(x0, v0, 0, torch.float32, DEV)
+    cfg = user_config(sampler, K, 1 << 30, torch.float32)
+    run, _ = chunk_fns(cfg)
+    st = driver.chunk_state(state, torch.zeros(B, dtype=torch.int32, device=DEV),
+                            sampler.sticky)
+    fill = k1.empty_fill(K, d, B, torch.float32, DEV, sampler.sticky)
+    run(seed, st, fill, 0, cfg)
+    sync()
+    b = chunk_bound(cfg, st, fill, K * B)
+    return cuda_ms(lambda: run(seed, st, fill, 0, cfg), 20), b
+
+
+def phase_dense(card_name, names, title, calls, b_map=None, cov=None, ref_mean=None):
+    """One deployment of ``dense_paths`` after another: the kernel against
+    its plain version in f64 at the deployment's shape (one K=32 launch from
+    a random state, K3/K5 and K4 bit for bit, K1 and K6 to ``RTOL``); the
+    route under ``backend="auto"`` (its chunk kernel and K2, no engine chunk,
+    no ``LoweringError``) with ``calls`` timed warm calls; the gates; one f32
+    K=32 launch timed (``kernel_chunk``; the plain version's time is its
+    f64 parity launch's, whose ordered 1000-term sums take seconds).
+    Returns ({path: (launches, ms, plain ms, bound, err)}, {path: pooled
+    means of the second halves})."""
+    paths = dense_paths()
+    out, means, texts = {}, {}, []
+    for path in names:
+        sampler, (d, B, n_sk), bitwise, tag, start = paths[path]
+        what = f"{title} {path}"
+        t0 = time.perf_counter()
+        err64, n_ev, plain_ms = user_compare(what, sampler, B, bitwise, math_tag=tag,
+                                             n_chunks=1)
+        t_cmp = time.perf_counter() - t0
+        x0, v0 = dense_start(sampler, start, B, d, b_map)
+        skel, launches, walls = user_call(what, sampler, n_sk, x0, v0, calls)
+        events = int(skel.n_valid.sum()) - B
+        name = path_launch(sampler)
+        gate = ""
+        if "corr_gauss" in path:
+            gate = corr_gate(what, pt.sample_from_skeleton_batch(sampler, 256, skel), CORR_RHO)
+        elif path in ("zigzag_logistic_d20_n1000", "bps_logistic_d20_n1000",
+                      "suzz_logistic_d20_n1000"):
+            means[path], gate = logistic_gate(what, pt.sample_from_skeleton_batch(
+                sampler, 256, skel), ref_mean, cov)
+        del skel
+        ms, b = kernel_chunk(sampler, x0, v0)
+        out[path] = (launches, ms, plain_ms, b, err64)
+        low = lower.lower_sampler(sampler, driver.kernel_kind(sampler), d, torch.float32, DEV)
+        stages = ", ".join(
+            f"{low.products[s].rows} x {low.products[s].cols} product" if kind == "mv" else
+            "sum of degree past 2 in t" if max(p.e.deg for p in low.reductions[s]) > 2 else
+            "quadratic sum" for kind, s in low.stages)
+        texts.append(
+            f"{path} ({type(sampler).__name__} d={d} B={B} n_sk={n_sk}; stages: {stages}; "
+            f"{low.params.numel()} parameters, {low.lane_bytes()} B per lane, "
+            f"{low.shared_values() if low.kernel == 'sticky' else 0} shared values): {name} vs "
+            f"plain f64 {'bit for bit' if bitwise else f'rtol {RTOL}'} max_abs_err="
+            f"{err64:.3e} ({n_ev} events, {t_cmp:.1f} s); route {name} "
+            f"{launches[name]} launches per call, K2 {launches['compact_rows']}, 0 engine "
+            f"chunks, {events} events; {walls_text(walls, events)}; {gate or 'parity only'}; "
+            f"f32 chunk (K=32) {ms:.4f} ms at the deployment's start, bound {bound_text(b)}; "
+            f"plain version (the f64 parity launch) {plain_ms:.1f} ms")
+    notes = "; ".join(n for n in MATH_NOTES if n.startswith(title)) or "none"
+    print(f"{title} {', '.join(names)}: {'; '.join(texts)}; bit-for-bit checks that parted "
+          f"in a math function: {notes} ({card_name})", flush=True)
+    return out, means
+
+
+def phase_dense_corr(card_name):
+    """Phase 39, ``zigzag_corr_gauss_d10`` (the flagship's shape: 8192 chains
+    x 2048 points, x0 = 0, v0 = 1) and ``bps_corr_gauss_d10`` (BPS refresh
+    0.5 at ``bps_anisotropic_gauss_d10``'s shape): ``U = x P x / 2`` with
+    ``P = Sigma^-1``, ``Sigma_ij = 0.9^|i-j|``, a 10 x 10 product (two, the
+    gradient's ``P x`` and ``P^T x``) at every point of K1 and K3."""
+    out, _ = phase_dense(card_name, ["zigzag_corr_gauss_d10", "bps_corr_gauss_d10"],
+                         "phase 39", DENSE_CALLS)
+    return out
+
+
+def phase_dense_logistic(card_name):
+    """Phase 40, ``zigzag_logistic_d20_n1000``: the Bayesian logistic
+    regression (d = 20, n = 1000 rows, ``X`` 80 KB in f32) on K1 (ZigZagAD),
+    K3 (BPSAD, refresh 1.0) and K4 (SpeedUpZigZagAD), 1024 chains x 2048
+    points from the MAP; the gates on the second half of each chain's time,
+    and K1's and K3's means within 0.2 Laplace sd of each other."""
+    X, y = logistic_data()
+    b_map, cov = logistic_laplace(X, y)
+    ref_mean, ess = logistic_reference(X, y, b_map, cov)
+    names = ["zigzag_logistic_d20_n1000", "bps_logistic_d20_n1000", "suzz_logistic_d20_n1000"]
+    out, means = phase_dense(card_name, names, "phase 40", DENSE_CALLS, b_map, cov, ref_mean)
+    sd = np.sqrt(np.diag(cov))
+    gap = np.abs(means["zigzag_logistic_d20_n1000"] - means["bps_logistic_d20_n1000"]) / sd
+    if not np.all(gap < 0.2):
+        raise AssertionError(f"phase 40: K1's and K3's means apart by {gap.tolist()} sd")
+    print(f"phase 40 K1 and K3 logistic means within {float(gap.max()):.4f} < 0.2 Laplace sd "
+          f"of each other; the importance-sampled posterior mean (ESS {ess:.0f}) lies "
+          f"{np.round((ref_mean - b_map) / sd, 3).tolist()} Laplace sd from the MAP "
+          f"{np.round(b_map, 4).tolist()}; Laplace sd {np.round(sd, 4).tolist()} "
+          f"({card_name})", flush=True)
+    return out
+
+
+def phase_dense_parity(card_name):
+    """Phase 41, the kernel against its plain version on the other kinds:
+    the Boomerang and Forward ECMC (K5) and the sticky Zig-Zag (K6, kappa 1)
+    on the logistic regression from its MAP; K6 at ``sticky_zigzag_d1000``'s
+    shape (kappa 10, x0 = 0.3) on a dense AR(1) Gaussian (rho 0.5, ``A``
+    1000 x 1000, 4 MB in f32); the quartic sum on K1 (flagship shape) and K6
+    (d = 1000).  Each with its route, one timed call and an f32 launch."""
+    X, y = logistic_data()
+    b_map, _ = logistic_laplace(X, y)
+    names = ["boomerang_logistic_d20_n1000", "ecmc_logistic_d20_n1000",
+             "sticky_logistic_d20_n1000", "sticky_dense_ar1_d1000", "zigzag_quartic_d10",
+             "sticky_quartic_d1000"]
+    out, _ = phase_dense(card_name, names, "phase 41", 1, b_map)
+    return out
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b, plain_of=None):
+    """One entry of the kernels line; ``plain_of`` says which launch
+    ``plain_ms`` timed where it is not the launch ``ms`` timed."""
+    entry = {"name": name, "route": "cuda", "source": f"pdmpflux_tpu_torch/csrc/{source}",
+             "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+             # no single PyTorch call computes a chunk of PDMP transitions or a
+             # per-chain stable compaction with offsets (see PERF.md)
+             "library_ms": None}
+    if plain_of is not None:
+        entry["plain_of"] = plain_of
+    return entry
 
 
 def main():
@@ -4333,6 +4714,12 @@ def main():
     at(37)
     user.update(phase_user_reductions(card_name, neal_x0))
     at(38)
+    user.update(phase_dense_corr(card_name))
+    at(39)
+    user.update(phase_dense_logistic(card_name))
+    at(40)
+    user.update(phase_dense_parity(card_name))
+    at(41)
     zz = "pdmpflux_tpu/ops/pallas/zigzag_chunk.py:854"
     k7 = 'pdmpflux_tpu/ops/pallas/zigzag_chunk.py:343 mode="horizon"'
     kernels = [
@@ -4405,17 +4792,23 @@ def main():
             kernel_entry(f"compact_rows[{path}]", "compact.cu",
                          "pdmpflux_tpu/ops/pallas/compact.py:132", n["compact_rows"], k2e,
                          k2ms, k2pms, k2b)]
-    # the generated potentials' paths (phases 36-38), each kernel timed at its
-    # shape and checked there in f32 and, in phases 37-38, against its plain
+    # the generated potentials' paths (phases 36-41), each kernel timed at its
+    # shape and checked there in f32 and, in phases 37-41, against its plain
     # version in f64; their K2 launches compact fills of the flagship's shapes
     # (phase 4b's K2 numbers) or of their own deployments' shapes
     sources = {"zigzag_chunk": ("zigzag_chunk.cu", zz), "sticky_chunk": ("sticky_chunk.cu", zz),
                "bps_chunk": ("scalar_chunk.cu", zz + ' kind="bps"/"boomerang"'),
+               "ecmc_chunk": ("scalar_chunk.cu", zz + ' kind="ecmc"'),
                "suzz_chunk": ("suzz_chunk.cu", zz + ' kind="suzz"')}
+    # phases 39-41 time the kernel on an f32 launch from the deployment's
+    # start and the plain version on the f64 parity launch from a random state
+    dense = set(dense_paths())
     for path, (n, ms, plain_ms, b, err) in user.items():
         name = next(k for k in sources if n.get(k))
-        kernels.append(kernel_entry(f"{name}[user:{path}]", *sources[name], n[name], err, ms,
-                                    plain_ms, b))
+        kernels.append(kernel_entry(
+            f"{name}[user:{path}]", *sources[name], n[name], err, ms, plain_ms, b,
+            "the f64 parity launch from a random state; ms: an f32 launch from the "
+            "deployment's start" if path in dense else None))
         if path in ("bench_zigzag_d10", "readme_zigzag_ad_d10"):
             kernels.append(kernel_entry(f"compact_rows[user:{path}]", "compact.cu",
                                         "pdmpflux_tpu/ops/pallas/compact.py:132",

@@ -170,9 +170,12 @@ def pick_backend(sampler, backend: str, d: int, dtype, device) -> str:
 
     On CUDA a covered sampler whose gradient carries no device potential
     (a gradient of the user's own) is lowered into a generated potential
-    (``ops/cuda/lower.py``) and takes the kernel; a gradient the lowering
-    cannot express raises its ``LoweringError`` under ``"auto"`` and
-    ``"pallas"``, naming ``backend="xla_stream"``.  A failed build or launch
+    (``ops/cuda/lower.py``) and takes the kernel, unless its context at a
+    point passes what the kernel keeps (K6's shared memory, read from its
+    build; ``lower.LANE_BYTES`` a lane of the others): then the engine
+    under ``"auto"``, ``ValueError`` under ``"pallas"``.  A gradient the
+    lowering cannot express raises its ``LoweringError`` under ``"auto"``
+    and ``"pallas"``, naming ``backend="xla_stream"``.  A failed build or launch
     never picks the route: they raise where they happen."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, not {backend!r}")
@@ -209,8 +212,13 @@ def pick_backend(sampler, backend: str, d: int, dtype, device) -> str:
         return "engine"
     if sampler.device_potential not in k1.KERNEL_POTENTIALS:
         low = lower.lower_sampler(sampler, kind, d, dtype, device)  # raises LoweringError
-        # K6's static rows are the generated potential's own (its build's)
+        # K6's static rows and context are the generated potential's own (its
+        # build's); a lane of the other kernels keeps its context in local memory
         if sampler.sticky and too_large(k1.sticky_max_dim(dtype, low)):
+            return "engine"
+        if not lower.lane_fits(low):
+            if backend == "pallas":
+                raise ValueError(f"backend='pallas': {lower.lane_message(low)}")
             return "engine"
     return "kernel"
 

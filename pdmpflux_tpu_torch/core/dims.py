@@ -44,6 +44,22 @@ def ordered_sum(a: torch.Tensor, axis: int) -> torch.Tensor:
     return s
 
 
+def ordered_matvec(m: torch.Tensor, u: torch.Tensor, block: int = 1 << 20) -> torch.Tensor:
+    """``m @ u`` for an ``(r, c)`` matrix and ``(c, n)`` columns, each element
+    added over ``c`` in order as :func:`ordered_sum` adds
+    (``ordered_sum(m[:, :, None] * u[None], 1)[:, 0]`` bit for bit): the
+    products formed a block of columns at a time (about ``block`` values),
+    then added one column after another."""
+    r, c = m.shape
+    step = max(1, min(c, block // max(1, r * u.shape[1])))
+    s = None
+    for c0 in range(0, c, step):
+        p = m[:, c0:c0 + step, None] * u[None, c0:c0 + step]
+        for i in range(p.shape[1]):
+            s = p[:, 0] if s is None else s + p[:, i]
+    return s
+
+
 class Dims:
     """All ``d`` coordinates in this process (:data:`LOCAL`)."""
 

@@ -13,6 +13,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace pdmp {
 
 constexpr int RING = 5, MAXG = 64;
@@ -177,11 +179,18 @@ struct ChainMoments {
 // reads them (K6 takes a barrier); a tag reads them only where its own
 // threads flowed them (Banana at coordinates 0 and 1, the funnels from
 // registers).  A potential generated from a user's gradient
-// (UserPotential, below) brings its own Sums, Moments and reads01.
+// (UserPotential, below) brings its own Sums, Moments and reads01, and
+// with point = true a context formed at every point a kernel evaluates (its
+// sums and its products with constant matrices): K1 calls Pot::sums there
+// from the lane that evaluates the point, as K3/K5 and K4 do everywhere,
+// and K6 calls Pot::fill with its whole block, which keeps the context in
+// shared_bytes of dynamic shared memory.  A tag's context is its sums alone.
 template <typename T>
 struct TagPotential {
   static constexpr bool chain = false;
+  static constexpr bool point = false;
   static constexpr bool reads01 = false;
+  static constexpr long shared_bytes = 0;
   using Sums = ChainSums<T>;
   using Moments = ChainMoments<T>;
 
@@ -354,10 +363,15 @@ struct NealFunnel : FunnelSums<T> {
 
 #ifdef PDMPFLUX_USER_POTENTIAL
 // A gradient of the user's own, lowered by ops/cuda/lower.py into
-// UserPotential<T>: the header is generated per gradient, and a library
-// built with it (ops/cuda/build.user_library: -DPDMPFLUX_USER_POTENTIAL and
-// the header's directory on the include path) takes potential id 7 alone.
+// UserPotential<T>: the header is generated per gradient and dtype, and a
+// library built with it (ops/cuda/build.user_library:
+// -DPDMPFLUX_USER_POTENTIAL and the header's directory on the include path)
+// takes potential id 7 alone, in the header's UserScalar alone (the kernels
+// are instantiated for that type only).
 #include "pdmpflux_user_potential.cuh"
+
+template <typename T>
+constexpr bool user_scalar = std::is_same<T, UserScalar>::value;
 #endif
 
 // The message of a launcher's CUDA error, exported once per library: by K1's
@@ -374,7 +388,12 @@ extern "C" const char* pdmpflux_cuda_error_string(int err) {
 template <typename T, class F>
 int with_potential(int potential, const void* prm, F&& f) {
 #ifdef PDMPFLUX_USER_POTENTIAL
-  return potential == 7 ? f(UserPotential<T>{}) : (int)cudaErrorInvalidValue;
+  if constexpr (user_scalar<T>) {
+    return potential == 7 ? f(UserPotential<T>{}) : (int)cudaErrorInvalidValue;
+  } else {
+    (void)potential;
+    return (int)cudaErrorInvalidValue;
+  }
 #else
   switch (potential) {
     case 0: return f(Gauss<T>{});

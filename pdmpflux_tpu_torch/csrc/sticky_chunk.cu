@@ -65,16 +65,26 @@
 // flip, stick and thaw updates need a __syncwarp, not a barrier.  A
 // potential generated from a user's gradient that reads coordinates 0 and 1
 // at other coordinates or in its sums (reads01) takes one more barrier at
-// the start of each transition, before any thread reads them.  Warp 0's
+// the start of each transition, before any thread reads them.  A
+// generated potential whose stages the moments do not give (a product
+// with a constant matrix, a sum past degree 2: Pot::point) forms them at
+// every point with the whole block (Pot::fill: a stage's positions across
+// the threads, a product's input and output in the dynamic shared memory
+// past the chain's arrays, a barrier after each, sums by the two-level
+// reduction), at each grid point of round A (the grid outer, each tile's
+// previous pair in registers), at tp in round B and at the flowed x in
+// round C.  Warp 0's
 // lanes 0-4 draw the transition's five uniforms and clocks
 // (transition_draw) into shared memory before barrier A, one Threefry block
 // each in the same instructions.
 //
 // Shared memory: d * (4 * sizeof(T) + 1) bytes of dynamic shared memory plus
 // the static reduction rows (a row of 64 segment partials per warp: 8 KB in
-// float32, 16 KB in float64) must fit the 227 KB a block can have, so
+// float32, 16 KB in float64) and a point potential's context
+// (Pot::shared_bytes) must fit the 227 KB a block can have, so
 // d <= sticky_chunk_max_dim(f64), which reads the static size from the
-// built kernel: 13,113 in float32, 6,475 in float64 on the H100.  The
+// built kernel: 13,113 in float32, 6,475 in float64 on the H100 for the
+// tags.  The
 // event rows go out in the chain-minor (K, d, B) fill that K2 and the
 // driver read, 3 stores per coordinate at stride B; at the d = 1000
 // deployment they take about a quarter of a launch (chip_ab.py --probe).
@@ -86,11 +96,19 @@ namespace {
 using namespace pdmp;
 
 constexpr int MAXT = 1024, MAXW = MAXT / 32;
+constexpr int POINT_TILES = 16;  // tiles of MAXT coordinates a point potential's envelope keeps
 constexpr long SMEM_BLOCK = 232448;  // bytes of shared memory one block may use
 
 template <typename T>
 __host__ __device__ constexpr long bytes_per_coord() {
   return 4 * (long)sizeof(T) + 1;
+}
+
+// Offset of a point potential's context in dynamic shared memory, past the
+// chain's x, v, kappa, scan buffer and activity bytes, 16-byte aligned.
+template <typename T>
+__host__ __device__ constexpr long ctx_offset(int d) {
+  return (d * bytes_per_coord<T>() + 15) / 16 * 16;
 }
 
 // Masked velocity va_i = v_i * act_i of the chain's shared-memory copy.
@@ -226,6 +244,7 @@ sticky_chunk_kernel(Params p, const T* __restrict__ prm, T* __restrict__ x, T* _
   T* skap = sv + d;
   T* sw = skap + d;
   uint8_t* sact = (uint8_t*)(sw + d);
+  T* ctx = (T*)(smem + ctx_offset<T>(d));  // a point potential's context
 
   for (int i = tid; i < d; i += nt) {
     sx[i] = x[i * B + b];
@@ -275,7 +294,7 @@ sticky_chunk_kernel(Params p, const T* __restrict__ prm, T* __restrict__ x, T* _
       // and nothing else), by a two-level reduction: one more barrier per
       // transition
       typename Pot::Moments mom = Pot::moments_zero(d);
-      if constexpr (Pot::chain) {
+      if constexpr (Pot::chain && !Pot::point) {
         // coordinates 0 and 1, which only a potential with reads01 reads
         const T x0m = sx[0], v0m = masked(sv, sact, 0), x1m = sx[s1];
         const T v1m = masked(sv, sact, s1);
@@ -292,12 +311,71 @@ sticky_chunk_kernel(Params p, const T* __restrict__ prm, T* __restrict__ x, T* _
         for (int q = 0; q < Pot::Moments::N; ++q) mom.m[q] = across_warps(r_mom[q], nw);
       }
 
+      // the potential's sums at time t: from the moments, or for a point
+      // potential every sum and product formed at x + va t by the block
+      // (every thread calls it: the branches around it are uniform)
+      auto sums_at = [&](T t) {
+        if constexpr (Pot::point) {
+          return Pot::fill(d, prm, ctx, [&](int j, T& y, T& w) {
+            w = masked(sv, sact, j);
+            y = sx[j] + w * t;
+          });
+        } else {
+          return mom.at(t);
+        }
+      };
+
       // ---- round A: envelope on [0, bh], tangent-intersection segment maxima ----
       const T step = bh_s / (T)G;
       // coordinates 0 and 1 (masked velocities), read once: Banana and the
       // funnels read them
       const T x0 = sx[0], v0 = masked(sv, sact, 0), x1 = sx[s1], v1 = masked(sv, sact, s1);
-      for (int q0 = 0; q0 < d; q0 += nt) {
+      // coordinate i's rate pair at time tj with the sums cs at tj
+      auto pair_at = [&](int i, T xi, T va, T tj, const typename Pot::Sums& cs, T& f, T& gd) {
+        T g, dg;
+        Pot::at(i, xi, va, x0, v0, x1, v1, tj, prm, cs, g, dg);
+        f = g * va;
+        gd = dg * va;
+        if (!p.signed_bound) {
+          // d/dt max(r, 0): JAX's JVP takes half the tangent at r == 0
+          const T coef = f > zero ? (T)1 : (f == zero ? (T)0.5 : zero);
+          gd = gd * coef;
+          f = nmax(f, zero);
+        }
+      };
+      // A point potential takes the grid outer, to form its context once a
+      // grid point; the tags and the moment potentials keep the tiles
+      // outer: the grid-outer loop, with POINT_TILES pairs live across the
+      // grid, took K6 at sticky_zigzag_d1000 (d = 1000, one tile) from
+      // 0.406 to 0.600 ms a K=32 launch on the H100 (chip_ab.py).  Both add
+      // each coordinate's terms and each segment's partials in the same
+      // order, so they give the same bits.
+      if constexpr (Pot::point) {
+        // a point potential: its context at each grid point by the block,
+        // then every coordinate's pair; each tile's previous pair is kept
+        T f_prev[POINT_TILES], g_prev[POINT_TILES];
+        for (int j = 0; j < n_grid; ++j) {
+          const T tj = step * (T)j;
+          const auto cs = sums_at(tj);
+#pragma unroll
+          for (int q = 0; q < POINT_TILES; ++q) {
+            const int q0 = q * nt, i = q0 + tid;
+            if (q0 >= d) break;  // the same in every thread
+            T f = zero, gd = zero;
+            if (i < d) pair_at(i, sx[i], masked(sv, sact, i), tj, cs, f, gd);
+            if (j > 0) {
+              const T seg = warp_sum(i < d ? segment_max(f_prev[q], g_prev[q], f, gd, step)
+                                           : zero);
+              if (lane_w == 0) {
+                T& r = segr[warp * MAXG + j - 1];
+                r = q0 == 0 ? seg : r + seg;
+              }
+            }
+            f_prev[q] = f;
+            g_prev[q] = gd;
+          }
+        }
+      } else for (int q0 = 0; q0 < d; q0 += nt) {
         const int i = q0 + tid;
         const bool on = i < d;
         const T xi = on ? sx[i] : zero, va = on ? masked(sv, sact, i) : zero;
@@ -305,17 +383,8 @@ sticky_chunk_kernel(Params p, const T* __restrict__ prm, T* __restrict__ x, T* _
         for (int j = 0; j < n_grid; ++j) {
           T f = zero, gd = zero;
           if (on) {
-            T g, dg;
             const T tj = step * (T)j;
-            Pot::at(i, xi, va, x0, v0, x1, v1, tj, prm, mom.at(tj), g, dg);
-            f = g * va;
-            gd = dg * va;
-            if (!p.signed_bound) {
-              // d/dt max(r, 0): JAX's JVP takes half the tangent at r == 0
-              const T coef = f > zero ? (T)1 : (f == zero ? (T)0.5 : zero);
-              gd = gd * coef;
-              f = nmax(f, zero);
-            }
+            pair_at(i, xi, va, tj, sums_at(tj), f, gd);
           }
           if (j > 0) {
             const T seg = warp_sum(on ? segment_max(f_prev, g_prev, f, gd, step) : zero);
@@ -357,7 +426,7 @@ sticky_chunk_kernel(Params p, const T* __restrict__ prm, T* __restrict__ x, T* _
       const T event_time = min_pt < h_s ? min_pt : h_s;
       T lam = zero, tmin = inf;
       int imin = 0x7fffffff, cross = 0;
-      const auto cs_tp = mom.at(tp_safe);
+      const auto cs_tp = sums_at(tp_safe);
       for (int i = tid; i < d; i += nt) {
         T g, dg;
         const T va = masked(sv, sact, i), xi = sx[i], vi = sv[i];
@@ -412,7 +481,15 @@ sticky_chunk_kernel(Params p, const T* __restrict__ prm, T* __restrict__ x, T* _
         constexpr bool every_warp = Pot::chain || Pot::reads01;
         const T x0n = every_warp ? x0 + v0 * flow_t : sx[0];
         const T x1n = every_warp ? x1 + v1 * flow_t : sx[s1];
-        const auto cs_fl = mom.at(flow_t);
+        // a point potential forms its sums at the flowed x (the block's
+        // barrier in fill publishes the flow)
+        const auto cs_fl = [&] {
+          if constexpr (Pot::point) {
+            return sums_at(zero);
+          } else {
+            return mom.at(flow_t);
+          }
+        }();
         for (int i = tid; i < d; i += nt) {
           T g, dg;
           const T va = masked(sv, sact, i);
@@ -541,12 +618,21 @@ template <typename T>
 long max_dim() {
   cudaFuncAttributes a;  // the funnels' kernels carry the largest static rows
 #ifdef PDMPFLUX_USER_POTENTIAL
-  if (cudaFuncGetAttributes(&a, sticky_chunk_kernel<T, UserPotential<T>>) != cudaSuccess)
-    return 0;
+  using Pot = UserPotential<T>;
+  if constexpr (!user_scalar<T>) {
+    return 0;  // a generated potential's library runs its own dtype alone
+  } else {
 #else
-  if (cudaFuncGetAttributes(&a, sticky_chunk_kernel<T, Funnel<T>>) != cudaSuccess) return 0;
+  using Pot = Funnel<T>;
+  {
 #endif
-  return (SMEM_BLOCK - (long)a.sharedSizeBytes - 16) / bytes_per_coord<T>();
+    if (cudaFuncGetAttributes(&a, sticky_chunk_kernel<T, Pot>) != cudaSuccess) return 0;
+    // a point potential's context follows the chain's arrays (16 bytes more
+    // for its alignment), and its envelope keeps POINT_TILES tiles
+    const long ctx = Pot::shared_bytes > 0 ? Pot::shared_bytes + 16 : 0;
+    const long m = (SMEM_BLOCK - (long)a.sharedSizeBytes - 16 - ctx) / bytes_per_coord<T>();
+    return Pot::point && m > (long)POINT_TILES * MAXT ? (long)POINT_TILES * MAXT : m;
+  }
 }
 
 template <typename T, class Pot>
@@ -555,7 +641,8 @@ int launch(const Params& p, const void* prm, void* x, void* v, void* fs, void* i
            void* ev_fs, void* ev_ring, void* ev_act, cudaStream_t stream) {
   if (p.d > max_dim<T>()) return (int)cudaErrorInvalidValue;
   const int threads = p.d >= MAXT ? MAXT : (p.d + 31) / 32 * 32;
-  const size_t smem = (size_t)(p.d * bytes_per_coord<T>());
+  const size_t smem = Pot::shared_bytes > 0 ? (size_t)(ctx_offset<T>(p.d) + Pot::shared_bytes)
+                                            : (size_t)(p.d * bytes_per_coord<T>());
   auto kern = sticky_chunk_kernel<T, Pot>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);

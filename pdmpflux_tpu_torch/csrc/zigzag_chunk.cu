@@ -48,8 +48,20 @@
 // grid point, at tp and at flow_t in a few operations; the plain version
 // sums at each point itself, so the two agree to rounding.  A potential
 // generated from a user's gradient (ops/cuda/lower.py) reduces the Taylor
-// terms of each of its sums' summands the same way (moment_add).
-// No array is indexed at run time, so nothing lands in local memory.  Every
+// terms of each of its sums' summands the same way (moment_add) where they
+// are of degree at most 2 in t; any other (a sum of higher degree, a
+// product with a constant matrix: Pot::point) is formed at each point by
+// the lane that evaluates it (Pot::sums, every element added in index order
+// as the plain version adds it): a lane's envelope points are its own, and
+// thinning and the flip, where every lane of the group reads the same
+// point, take 2 of the transition's 2 (n_grid - 1) + 2 points, so each
+// lane forms those itself rather than splitting the rows and reducing d
+// partial gradients over the group.
+// For the tags and the moment potentials no array is indexed at run time,
+// so nothing lands in local memory.  A point potential's context (a
+// segment's two Sums, alive at once, and its products' inputs) is indexed
+// in loops past lower.UNROLL steps and then lives in the lane's local
+// memory (Lowered.lane_bytes, at most lower.LANE_BYTES).  Every
 // shuffle and __syncwarp names only the group's lanes, so a group that is
 // frozen, or past B at the ragged end of the last warp, skips its
 // transitions or leaves without stalling the other groups of its warp.  The
@@ -165,13 +177,25 @@ __global__ void zigzag_chunk_kernel(Params p, int in_smem, const T* __restrict__
       // 1..d-1), summed over the group (the same bits in every lane); its
       // sums at time t follow
       typename Pot::Moments mom = Pot::moments_zero(d);
-      if constexpr (Pot::chain) {
+      if constexpr (Pot::chain && !Pot::point) {
         for (int i = i0; i < i1; ++i)
           Pot::moment_add(mom, i, xb[i * sx], vb[i * sx], x0, v0, x1, v1, prm);
 #pragma unroll
         for (int q = 0; q < Pot::Moments::N; ++q) mom.m[q] = group_sum<L>(mom.m[q], gmask);
       }
       using Sums = typename Pot::Sums;
+      // the potential's sums at time t: from the moments, or for a point
+      // potential every sum and product formed at x + v t by this lane
+      auto sums_at = [&](T t) -> Sums {
+        if constexpr (Pot::point) {
+          return Pot::sums(d, prm, [&](int j, T& y, T& w) {
+            w = vb[j * sx];
+            y = xb[j * sx] + w * t;
+          });
+        } else {
+          return mom.at(t);
+        }
+      };
       // coordinate i's rate along v and its time derivative at time t, with
       // the chain sums cs at t
       auto rate = [&](int i, T xi, T vi, T t, const Sums& cs, T& f, T& gd) {
@@ -185,7 +209,7 @@ __global__ void zigzag_chunk_kernel(Params p, int in_smem, const T* __restrict__
       const T step = bh_s / (T)G;
       for (int j = lg; j < G; j += L) {  // segment j: grid points j and j + 1
         const T t0 = step * (T)j, t1 = step * (T)(j + 1);
-        const Sums cs0 = mom.at(t0), cs1 = mom.at(t1);
+        const Sums cs0 = sums_at(t0), cs1 = sums_at(t1);
         T sum = zero;
         for (int i = 0; i < d; ++i) {
           const T xi = xb[i * sx], vi = vb[i * sx];
@@ -216,7 +240,7 @@ __global__ void zigzag_chunk_kernel(Params p, int in_smem, const T* __restrict__
 
       // ---- thinning at tp on the unsigned rate ----
       T lam = zero;
-      const Sums cs_tp = mom.at(tp_safe);
+      const Sums cs_tp = sums_at(tp_safe);
       for (int i = i0; i < i1; ++i) {
         T f, gd;
         rate(i, xb[i * sx], vb[i * sx], tp_safe, cs_tp, f, gd);
@@ -239,7 +263,7 @@ __global__ void zigzag_chunk_kernel(Params p, int in_smem, const T* __restrict__
       const T flow_t = p_moveh ? h_s : (p_acc ? tp_safe : zero);
       int m = -1;
       if (p_acc) {  // the same in every lane of the group
-        const Sums cs_fl = mom.at(flow_t);
+        const Sums cs_fl = sums_at(flow_t);
         T own = zero;  // this lane's rates, added in coordinate order
         for (int i = i0; i < i1; ++i) {
           T f, gd;

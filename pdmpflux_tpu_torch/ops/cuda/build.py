@@ -195,7 +195,8 @@ def user_library(source: str, header: str):
     source's ``SOURCE_FLAGS``; the name hashes the header, the sources and the
     flags.  Built at first use of each gradient (a failed ``nvcc`` raises
     with its log), loaded by its own ``ctypes`` handle; its launches take
-    potential id 7 alone."""
+    potential id 7 alone, in the header's dtype alone (``UserScalar``: the
+    kernels are instantiated for it only)."""
     src = CSRC / source
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + repr(SOURCE_FLAGS).encode())
     h.update(header.encode())

@@ -117,7 +117,7 @@ def lowered_config(cfg: zc.ChunkConfig, sampler, d: int, dtype, device) -> zc.Ch
         grad, grad_jvp = _effective(grad, grad_jvp)
     return cfg._replace(
         grad=grad, grad_jvp=grad_jvp, device_potential=lower.USER_POTENTIAL, user=low,
-        pot_params=low.params.to(device, dtype) if low.params.numel() else None)
+        pot_params=low.params_on(device, dtype) if low.params.numel() else None)
 
 
 def chunk_state(state: PDMPState, counts: torch.Tensor,

@@ -19,46 +19,71 @@ aten ops, and interpreted into a small IR from which two things are emitted:
 The IR.  A value of the trace is one of:
 
 * a constant (no dependence on ``x``): computed with torch while lowering, in
-  the run's dtype; a non-uniform vector constant (a user's scales) is hoisted
-  into the potential's parameter vector (``Lowered.params``), read as
-  ``prm[k + i]`` at coordinate ``i``, as the ``aniso`` tag reads its scales;
+  the run's dtype; a non-uniform vector constant (a user's scales, a data
+  set's labels) is hoisted into the potential's parameter vector
+  (``Lowered.params``), read as ``prm[k + i]`` at index ``i``, as the
+  ``aniso`` tag reads its scales;
 * a chain value: one scalar per chain, an expression of literals, parameters,
-  coordinates 0 and 1 of the point (``x[0]``, ``x[1]``) and sums over the
-  coordinates (reductions);
+  coordinates 0 and 1 of the point (``x[0]``, ``x[1]``), sums (reductions)
+  and nothing else;
 * a vector of pieces: positions ``[a, b)`` each either a chain value or a lane
-  expression evaluated at coordinate ``i = p + off`` of the position ``p``, of
-  the point's own ``y_i = x_i + v_i t``, parameters and chain values.
+  expression evaluated at index ``i = p + off`` of the position ``p``, of
+  the point's own ``y_i = x_i + v_i t``, parameters, chain values and a
+  product's element at the same index.  A vector lies in an index space: the
+  coordinates, or the rows of a data vector (``X @ y`` for an ``(n, d)``
+  constant ``X``, ``n != d``); one expression never mixes the two.
   ``slice``, ``select``, ``slice_scatter``, ``select_scatter``, ``cat``/
   ``stack`` and ``where`` on a constant mask (``torch.func.grad`` of
-  ``x[0]`` emits ``where(arange == 0, ...)``) move pieces about.
+  ``x[0]`` emits ``where(arange == 0, ...)``) move pieces about; a vector
+  held as a column or a row (``unsqueeze``, ``permute``, a product's batch
+  views) is the same vector.
+
+Stages.  Sums and products are stages, kept in trace order: a sum over an
+index space of pieces, and a product ``M u`` of a constant ``(r, c)`` matrix
+(``mv``, ``mm``/``bmm`` with a column or a row, their ``add`` forms,
+``einsum``, ``linear`` and ``matmul`` as they trace) with a vector of the
+chain, from the coordinates to the coordinates (``A @ y``), to the rows of a
+data vector (``X @ y``) or back (``X.T @ s``).  The matrix is hoisted as it
+lies in memory, row- or column-major, so ``X`` and ``X.T`` share one block.
+A stage may read earlier stages.  Products are linear, so the tangent of
+``M u`` is ``M du``.
 
 The lowering adds forward-mode tangents (a dual-number rule per op) to give
 the kernels' pair ``(g_i, (H v)_i)`` from the gradient alone, the tangent of
 ``y_i`` being the velocity ``v_i``.
 
-Reductions.  K3/K5 and K4 add a reduction's summands in coordinate order at
-every point they evaluate, as the plain version's ``ordered_sum`` does, so
-the two agree bit for bit where the kernel rounds as torch does
-(``-fmad=false``).  K1 and K6 reduce moments once per transition and
-extrapolate them along the linear flow, which is exact only for a summand of
-degree at most 2 in ``t``: each summand is evaluated in truncated Taylor
-arithmetic of order 2, ``s(x + v t) = m0 + m1 t + m2 t^2``, and any other
-summand is refused for those kernels.
+Where the stages are formed.  K3/K5 and K4 form every stage at every point
+they evaluate, one lane walking the chain (``UserPotential::sums``): a
+coordinate-space input in the lane's local memory, a data vector streamed
+row by row (each row's product formed where it is read), every sum and
+every product element added in index order, as the plain version's
+``ordered_sum`` and ``ordered_matvec`` add, so the two agree bit for bit
+where the kernel rounds as torch does (``-fmad=false``).  K1 and K6 reduce
+sums of summands of degree at most 2 in ``t`` once per transition as chain
+moments, extrapolated along the linear flow in truncated Taylor arithmetic
+of order 2 (exact there); a gradient with any other stage is a point
+potential for them too: K1's lane forms the stages at each point it
+evaluates, as K3 does, and K6's block forms them together
+(``UserPotential::fill``: each stage's positions across the threads,
+products' inputs and outputs in shared memory, sums by a two-level
+reduction).
 
-Anything else (a product coupling coordinates, ``mm``/``mv``, a read of
-``x[k]`` for ``k >= 2``, a branch on a value of ``x``, an op outside the set)
-raises :class:`LoweringError` naming the op and its node, before any build or
+Anything else (a product of two vectors of the chain, a matrix that depends
+on ``x``, ``cumsum`` and other couplings, a read of ``x[k]`` for ``k >=
+2``, a branch on a value of ``x``, an op outside the set) raises
+:class:`LoweringError` naming the op and its node, before any build or
 launch.  The result is cached on the sampler by (kernel, d, dtype).
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from ...core.dims import ordered_sum
+from ...core.dims import ordered_matvec, ordered_sum
 
 USER_POTENTIAL = "user"
 """``ChunkConfig.device_potential`` of a lowered gradient."""
@@ -72,6 +97,16 @@ SOURCES = {"zigzag": "zigzag_chunk.cu", "sticky": "sticky_chunk.cu",
 MOMENT_KERNELS = ("zigzag", "sticky")
 """Kernels that reduce chain moments once per transition (K1, K6)."""
 
+LANE_BYTES = 4096
+"""Most bytes of context (``Lowered.lane_bytes``: sums, products' coordinate
+outputs, their inputs) one lane of K1, K3/K5 or K4 keeps at a point, from
+``chip_ab.py --lane-context`` on the H100: a dense quadratic form's 4 KB
+(K3) and 6 KB (K1) ran at 2.1 ps per operation, 16 KB on K3 at 29 ps and
+48 KB on K1 at 47 ps (14-23x).  ptxas's stack frame runs 2.3-3.4x the
+count, and the card
+reserves that frame for every thread it can hold (30 GB at 96 KB counted
+on K1)."""
+
 INF = 1 << 20  # the degree in t of a summand that is not a polynomial
 MAX_RUNS = 4   # a constant vector of more runs of equal values is hoisted
 HINT = ("run it on the transition engine with backend='xla_stream', or with "
@@ -83,7 +118,8 @@ class LoweringError(ValueError):
 
 
 class _FarRead(Exception):
-    """A read of coordinate ``k >= 2`` (``Graph.pin``)."""
+    """A read of coordinate ``k >= 2``, or (``k`` None) of one element of a
+    product (``Graph.pin``)."""
 
     def __init__(self, k):
         super().__init__(k)
@@ -100,21 +136,25 @@ def _refuse(why: str) -> LoweringError:
 # ---------------------------------------------------------------------------
 
 class Node:
-    """One interned IR operation.  ``lane``: depends on the coordinate
-    (``y``, ``w`` or a parameter read at ``i``); ``has_y``: reads the point's
-    own coordinate (such an expression cannot move to another offset);
+    """One interned IR operation.  ``lane``: depends on the index of its
+    vector (``y``, ``w``, a product's element or a parameter read there);
+    ``has_y``: reads the point's own coordinate or a product's element at
+    its own index (such an expression cannot move to another offset);
     ``deg``: degree in ``t`` along the linear flow (``INF`` past a
-    polynomial); ``boolean``: a comparison's value."""
+    polynomial); ``boolean``: a comparison's value; ``space``: the index
+    space its lane reads (``"c"`` the coordinates, an int ``n`` the rows of a
+    data vector, None for none, ``"mixed"`` for both)."""
 
-    __slots__ = ("op", "args", "attr", "id", "lane", "has_y", "deg", "boolean")
+    __slots__ = ("op", "args", "attr", "id", "lane", "has_y", "deg", "boolean", "space")
 
-    def __init__(self, op, args, attr, nid):
+    def __init__(self, op, args, attr, nid, space=None):
         self.op, self.args, self.attr, self.id = op, args, attr, nid
-        self.lane = op in ("y", "w", "prm") or any(a.lane for a in args)
-        self.has_y = op in ("y", "w") or any(a.has_y for a in args)
+        self.lane = op in _LANE_LEAVES or any(a.lane for a in args)
+        self.has_y = op in _OWN_LEAVES or any(a.has_y for a in args)
         self.boolean = op in _BOOL_OPS or (op == "lit" and isinstance(attr, bool)) or (
             op == "where" and args[1].boolean)
         self.deg = _degree(op, args)
+        self.space = space
 
     def text(self) -> str:
         """The expression as a formula (error messages)."""
@@ -124,6 +164,8 @@ class Node:
             return f"prm[{self.attr}{' + i' if self.op == 'prm' else ''}]"
         if self.op in ("red", "dred"):
             return f"{'d' if self.op == 'dred' else ''}sum_{self.attr}"
+        if self.op in ("mv", "dmv"):
+            return f"{'d' if self.op == 'dmv' else ''}(M{self.attr} u)_i"
         if not self.args:
             return {"y": "x_i", "w": "v_i", "y0": "x_0", "w0": "v_0", "y1": "x_1",
                     "w1": "v_1"}[self.op]
@@ -136,6 +178,8 @@ class Node:
         return f"{self.op}({', '.join(a.text() for a in self.args)})"
 
 
+_LANE_LEAVES = {"y", "w", "prm", "mv", "dmv"}
+_OWN_LEAVES = {"y", "w", "mv", "dmv"}
 _BOOL_OPS = {"gt", "ge", "lt", "le", "eq", "ne", "not", "and", "or"}
 _LINEAR = {"add", "sub", "neg"}
 
@@ -143,7 +187,7 @@ _LINEAR = {"add", "sub", "neg"}
 def _degree(op, args):
     if op in ("y", "y0", "y1"):
         return 1
-    if op in ("red", "dred"):
+    if op in ("red", "dred", "mv", "dmv"):
         return INF
     if not args or all(a.deg == 0 for a in args):
         return 0
@@ -166,6 +210,7 @@ class Graph:
     def __init__(self, dtype=torch.float64):
         self.dtype = dtype
         self.nodes: Dict[tuple, Node] = {}
+        self.mv_space: Dict[int, object] = {}  # product -> its output's index space
 
     def mk(self, op, *args, attr=None) -> Node:
         folded = self._fold(op, args, attr)
@@ -175,8 +220,17 @@ class Graph:
                float.hex(attr) if isinstance(attr, float) else attr)
         node = self.nodes.get(key)
         if node is None:
-            node = self.nodes[key] = Node(op, args, attr, len(self.nodes))
+            node = self.nodes[key] = Node(op, args, attr, len(self.nodes),
+                                          self._space(op, args, attr))
         return node
+
+    def _space(self, op, args, attr):
+        if op in ("y", "w"):
+            return "c"
+        if op in ("mv", "dmv"):
+            return self.mv_space[attr]
+        spaces = {a.space for a in args if a.space is not None}
+        return "mixed" if len(spaces) > 1 else (spaces.pop() if spaces else None)
 
     def _fold(self, op, args, attr):
         if not args:
@@ -241,8 +295,8 @@ class Graph:
         leaf = {"y": "w", "y0": "w0", "y1": "w1"}
         if op in leaf:
             return self.mk(leaf[op])
-        if op == "red":
-            return self.mk("dred", attr=n.attr)
+        if op in ("red", "mv"):  # a sum's and a product's tangents: their own stages
+            return self.mk("d" + op, attr=n.attr)
         if not a or n.boolean or op in ("sign", "b2f"):
             return None
         da = [self.tangent(x, memo) for x in a]
@@ -321,6 +375,8 @@ class Graph:
         memo = {} if memo is None else memo
         if n.id in memo:
             return memo[n.id]
+        if n.op in ("mv", "dmv"):
+            raise _FarRead(None)
         if n.op in ("y", "w"):
             if k > 1:
                 raise _FarRead(k)
@@ -407,19 +463,56 @@ class Bad(NamedTuple):
 
 class Lowered:
     """A lowered gradient at one (kernel, d, dtype): the output's pieces over
-    the coordinates, the reductions, the hoisted parameters (``params``, a
-    float64 vector, empty when there are none) and, from them, the torch pair
-    and the header."""
+    the coordinates, its stages in trace order (``("red", r)``, a sum;
+    ``("mv", m)``, a product ``M u``), the sums' pieces (``reductions``) and
+    index spaces, the products, the hoisted parameters (``params``, a float64
+    vector, empty when there are none) and, from them, the torch pair and the
+    header.  ``point``: the kernel evaluates every stage at every point it
+    evaluates (K3/K5, K4 always; K1 and K6 unless every stage is a sum the
+    chain moments extrapolate exactly)."""
 
     def __init__(self, b: Graph, kernel: str, d: int, dtype, out: List[Piece],
-                 reductions: List[List[Piece]], params: torch.Tensor):
+                 stages: List[Tuple[str, int]], reductions: List[List[Piece]],
+                 red_space: List[object], products: Dict[int, Product],
+                 params: torch.Tensor):
         self.b, self.kernel, self.d, self.dtype = b, kernel, d, dtype
-        self.out, self.reductions, self.params = out, reductions, params
+        self.out, self.stages, self.params = out, stages, params
+        self.reductions, self.red_space, self.products = reductions, red_space, products
         memo: dict = {}
         self.d_out = [b.tangent(p.e, memo) for p in out]
         self.d_red = [[b.tangent(p.e, memo) for p in r] for r in reductions]
+        self.d_mv = {m: [b.tangent(p.e, memo) for p in pr.vec.pieces]
+                     for m, pr in products.items()}
+        self.point = kernel not in MOMENT_KERNELS or not self._moments_exact()
+        # the products read at the coordinates, in stage order: Sums slots
+        self.slot = {m: k for k, m in enumerate(
+            m for kind, m in stages if kind == "mv" and products[m].space == "c")}
         self._lits: dict = {}
+        self._dev: dict = {}
         self._lib = None
+
+    def _moments_exact(self) -> bool:
+        """Whether K1/K6's chain moments give every stage exactly: sums over
+        the coordinates of summands of degree at most 2 in ``t`` (no
+        products, no sum read by another)."""
+        return not self.products and all(
+            space == "c" and all(p.e.deg <= 2 and 0 <= _coords(p)[0] and _coords(p)[1] <= self.d
+                                 for p in pieces)
+            for pieces, space in zip(self.reductions, self.red_space))
+
+    def lane_bytes(self) -> int:
+        """Bytes of one lane's context at a point (K1, K3/K5, K4): its
+        ``Sums`` (the sums and the products' coordinate outputs, with their
+        tangents; K1 keeps two alive, a segment's two grid points) and the
+        products' materialized inputs with their tangents."""
+        sums = 2 * len(self.reductions) + 2 * len(self.slot) * self.d
+        inputs = sum(2 * pr.cols for pr in self.products.values() if pr.in_space == "c")
+        return ((2 if self.kernel == "zigzag" else 1) * sums + inputs) * self.dtype.itemsize
+
+    def shared_values(self) -> int:
+        """Values of K6's context in shared memory: each product's input and
+        output with their tangents."""
+        return sum(2 * (pr.cols + pr.rows) for pr in self.products.values())
 
     # -- the torch pair (the plain version) ---------------------------------
     def grad(self, y: torch.Tensor) -> torch.Tensor:
@@ -430,14 +523,28 @@ class Lowered:
         """The gradient and its derivative along ``w``, ``H(y) w``."""
         return self._eval(y, w)
 
+    def params_on(self, device, dtype) -> torch.Tensor:
+        """The parameters on ``device`` in ``dtype`` (copied once)."""
+        key = (torch.device(device), dtype)
+        if key not in self._dev:
+            self._dev[key] = self.params.to(device=key[0], dtype=dtype)
+        return self._dev[key]
+
+    def matrix(self, m: int, prm: torch.Tensor) -> torch.Tensor:
+        """Product ``m``'s ``(rows, cols)`` matrix, a view of ``prm``."""
+        pr = self.products[m]
+        block = prm[pr.moff:pr.moff + pr.rows * pr.cols]
+        return (block.view(pr.cols, pr.rows).t() if pr.colmajor
+                else block.view(pr.rows, pr.cols))
+
     def _eval(self, y, w):
-        prm = self.params.to(device=y.device, dtype=y.dtype)
+        prm = self.params_on(y.device, y.dtype)
         key = (y.device, y.dtype)
         if key not in self._lits:
             self._lits[key] = {}
         lits = self._lits[key]
         chain: dict = {}
-        red, dred = [], []
+        red, dred, prod, dprod = {}, {}, {}, {}
         ones = (1, y.shape[1])
 
         def ev(n: Node, lo: int, hi: int, lane: dict):
@@ -461,10 +568,10 @@ class Lowered:
                 out = prm[n.attr + lo:n.attr + hi, None]
             elif op == "prmk":
                 out = prm[n.attr]
-            elif op == "red":
-                out = red[n.attr]
-            elif op == "dred":
-                out = dred[n.attr]
+            elif op in ("red", "dred", "mv", "dmv"):
+                out = {"red": red, "dred": dred, "mv": prod, "dmv": dprod}[op][n.attr]
+                if op in ("mv", "dmv"):
+                    out = out[lo:hi]
             elif op == "b2f":
                 out = ev(a[0], lo, hi, lane).to(y.dtype)
             else:
@@ -484,10 +591,19 @@ class Lowered:
                 parts.append(torch.broadcast_to(v, (hi - lo, y.shape[1])))
             return torch.cat(parts, 0)
 
-        for r, pieces in enumerate(self.reductions):
-            red.append(ordered_sum(assemble(pieces, [p.e for p in pieces]), 0)[0])
+        n = y.shape[1]
+        for kind, s in self.stages:
+            # a stage's value and tangent side by side, added in one pass
+            pieces, tangents = ((self.reductions[s], self.d_red[s]) if kind == "red" else
+                                (self.products[s].vec.pieces, self.d_mv[s]))
+            u = assemble(pieces, [p.e for p in pieces])
             if w is not None:
-                dred.append(ordered_sum(assemble(pieces, self.d_red[r]), 0)[0])
+                u = torch.cat([u, assemble(pieces, tangents)], 1)
+            out = (ordered_sum(u, 0)[0] if kind == "red"
+                   else ordered_matvec(self.matrix(s, prm), u))
+            (red, prod)[kind != "red"][s] = out[..., :n]
+            if w is not None:
+                (dred, dprod)[kind != "red"][s] = out[..., n:]
         g = assemble(self.out, [p.e for p in self.out])
         return g, (None if w is None else assemble(self.out, self.d_out))
 
@@ -495,35 +611,57 @@ class Lowered:
     def header(self) -> str:
         """``UserPotential<T>`` for this kernel (``csrc/pdmp_common.cuh``)."""
         nr = max(len(self.reductions), 1)
+        npc = max(len(self.slot), 1)
+        block = self.kernel == "sticky" and self.point
         lines = [
             "// Generated by pdmpflux_tpu_torch/ops/cuda/lower.py: a lowered gradient",
             f"// for kernel {self.kernel}, d = {self.d}, {str(self.dtype).split('.')[-1]}.",
             "// Included by csrc/pdmp_common.cuh inside namespace pdmp.",
             "#pragma once",
+            f"using UserScalar = {'double' if self.dtype == torch.float64 else 'float'};",
             "template <typename T>",
             "struct UserPotential {",
             f"  static constexpr bool chain = {'true' if self.reductions else 'false'};",
+            f"  static constexpr bool point = {'true' if self.point else 'false'};",
             f"  static constexpr bool reads01 = {'true' if self._reads01() else 'false'};",
             f"  static constexpr int NR = {nr};",
+            f"  static constexpr long shared_bytes = "
+            f"{self.shared_values() if block else 0}L * (long)sizeof(T);",
             "  struct Sums {",
             "    T s[NR], ds[NR];",
-            "  };",
         ]
-        if self.kernel in MOMENT_KERNELS:
+        if self.slot and block:
+            lines += [f"    const T* c[{npc}];", f"    const T* dc[{npc}];"]
+        elif self.slot:
+            lines += [f"    T c[{npc}][{self.d}], dc[{npc}][{self.d}];"]
+        lines.append("  };")
+        if not self.point:
             lines += self._moments_cpp()
         else:
-            lines += self._sums_cpp()
+            if self.kernel in MOMENT_KERNELS:
+                lines += _MOMENTS_STUB
+            lines += self._fill_cpp() if block else self._sums_cpp()
         lines += self._at_cpp()
         lines += ["};", ""]
         return "\n".join(lines)
 
-    def _reads01(self) -> bool:
-        """Whether any coordinate's gradient or any summand reads coordinate
-        0 or 1 (K6 then makes them visible to every thread first)."""
+    def _stage_pieces(self):
+        """Every stage's (pieces, tangents)."""
+        for kind, s in self.stages:
+            if kind == "red":
+                yield self.reductions[s], self.d_red[s]
+            else:
+                yield self.products[s].vec.pieces, self.d_mv[s]
+
+    def _reads01(self, stages_only=False) -> bool:
+        """Whether any stage, or (unless ``stages_only``) any coordinate's
+        gradient, reads coordinate 0 or 1 (K6 then makes them visible to
+        every thread first; a point context reads them through ``yw``)."""
         first = {"y0", "y1", "w0", "w1"}
-        return any(e is not None and _leaves(e) & first
-                   for e in [p.e for p in self.out] + self.d_out
-                   + [p.e for r in self.reductions for p in r])
+        nodes = [] if stages_only else [p.e for p in self.out] + self.d_out
+        for pieces, tangents in self._stage_pieces():
+            nodes += [p.e for p in pieces] + list(tangents)
+        return any(e is not None and _leaves(e) & first for e in nodes)
 
     def _moments_cpp(self):
         out = [
@@ -574,39 +712,233 @@ class Lowered:
         out.append("  }")
         return out
 
+    def _m(self, m: int, r: str, c: str) -> str:
+        """Product ``m``'s matrix element ``(r, c)`` read from the parameters."""
+        pr = self.products[m]
+        return (f"prm[{pr.moff} + ({c}) * {pr.rows} + ({r})]" if pr.colmajor
+                else f"prm[{pr.moff} + ({r}) * {pr.cols} + ({c})]")
+
+    def _coord_leaf(self, op, m):
+        return f"cs.{'d' if op == 'dmv' else ''}c[{self.slot[m]}][i]"
+
+    def _reads_point(self, *nodes) -> bool:
+        return any(n is not None and _leaves(n) & {"y", "w"} for n in nodes)
+
     def _sums_cpp(self):
+        """``sums``: every stage at one point, one lane walking the chain
+        (K1 in point mode, K3/K5, K4), each sum and each product element
+        added in index order as the plain version adds it."""
         out = [
-            "  // the sums at one point, in coordinate order (K3/K5, K4): yw(j, y, w)",
-            "  // gives coordinate j's point and velocity",
+            "  // every sum and product at one point, one lane walking the chain, in the",
+            "  // plain version's order: yw(j, y, w) gives coordinate j's point and velocity",
             "  template <class F>",
             "  __device__ __forceinline__ static Sums sums(int d, const T* prm, F yw) {",
             "    Sums cs;",
+            "    (void)d; (void)prm; (void)yw;",
         ]
-        if not self.reductions:
-            out += ["    (void)d; (void)prm; (void)yw;", "    return cs;", "  }"]
-            return out
-        reads = set()
-        for pieces in self.reductions:
-            for p in pieces:
-                reads |= _leaves(p.e) & {"y0", "w0", "y1", "w1"}
-        if reads:
-            out += ["    T y0, w0, y1, w1;", "    yw(0, y0, w0);",
-                    "    if (d > 1) yw(1, y1, w1); else { y1 = y0; w1 = w0; }"]
-        for r, pieces in enumerate(self.reductions):
-            out.append(f"    bool first{r} = true;")
-            for p, dp in zip(pieces, self.d_red[r]):
+        if self._reads01(stages_only=True):
+            out += _READ01
+        for kind, s in self.stages:
+            out += self._lane_red(s) if kind == "red" else self._lane_product(s)
+        out += ["    return cs;", "  }"]
+        return out
+
+    def _inline_products(self, nodes, indent):
+        """A data loop's products at row ``k`` (``z<m>``, ``dz<m>``), each
+        element added in column order."""
+        ms = sorted({x.attr for n in nodes if n is not None for x in _nodes(n)
+                     if x.op in ("mv", "dmv")})
+        out = []
+        for m in ms:
+            pr = self.products[m]
+            a0 = self._m(m, "k", "0")
+            out += [f"T z{m} = {a0} * u{m}[0], dz{m} = {a0} * du{m}[0];",
+                    *_unroll(pr.cols),
+                    f"for (int c = 1; c < {pr.cols}; ++c) {{",
+                    f"  const T a = {self._m(m, 'k', 'c')};",
+                    f"  z{m} = z{m} + a * u{m}[c];",
+                    f"  dz{m} = dz{m} + a * du{m}[c];",
+                    "}"]
+        return [indent + s for s in out]
+
+    def _data_leaf(self, op, m):
+        return f"{'d' if op == 'dmv' else ''}z{m}"
+
+    def _lane_red(self, r):
+        pieces, tangents = self.reductions[r], self.d_red[r]
+        out = [f"    bool first{r} = true;"]
+        if self.red_space[r] == "c":
+            for p, dp in zip(pieces, tangents):
                 lo, hi = _coords(p)
-                em = _Emit(self.b)
-                v = em.name(p.e)
-                dv = em.name(dp) if dp is not None else "(T)0"
-                out.append(f"    for (int i = {lo}; i < {hi}; ++i) {{  // sum {r}: {p.e.text()}")
-                out.append("      T y, w;")
-                out.append("      yw(i, y, w);")
+                em = _Emit(self.b, leaf=self._coord_leaf)
+                v, dv = em.name(p.e), em.name(dp) if dp is not None else "(T)0"
+                out += ["    " + u for u in _unroll(hi - lo)]
+                out += [f"    for (int i = {lo}; i < {hi}; ++i) {{  // sum {r}: {p.e.text()}",
+                        "      T y, w;", "      yw(i, y, w);", "      (void)y; (void)w;"]
                 out += ["      " + s for s in em.lines]
-                out.append(f"      cs.s[{r}] = first{r} ? {v} : cs.s[{r}] + {v};")
-                out.append(f"      cs.ds[{r}] = first{r} ? {dv} : cs.ds[{r}] + {dv};")
-                out.append(f"      first{r} = false;")
-                out.append("    }")
+                out += [f"      cs.s[{r}] = first{r} ? {v} : cs.s[{r}] + {v};",
+                        f"      cs.ds[{r}] = first{r} ? {dv} : cs.ds[{r}] + {dv};",
+                        f"      first{r} = false;", "    }"]
+            return out
+        n = max(p.b for p in pieces)
+        out.append(f"    for (int k = 0; k < {n}; ++k) {{  // sum {r} over data rows")
+        out += self._inline_products([p.e for p in pieces] + list(tangents), "      ")
+        for p, dp in zip(pieces, tangents):
+            em = _Emit(self.b, idx="k", leaf=self._data_leaf)
+            v, dv = em.name(p.e), em.name(dp) if dp is not None else "(T)0"
+            out.append(f"      if (k >= {p.a} && k < {p.b}) {{  // {p.e.text()}")
+            out += ["        " + s for s in em.lines]
+            out += [f"        cs.s[{r}] = first{r} ? {v} : cs.s[{r}] + {v};",
+                    f"        cs.ds[{r}] = first{r} ? {dv} : cs.ds[{r}] + {dv};",
+                    f"        first{r} = false;", "      }"]
+        out.append("    }")
+        return out
+
+    def _lane_product(self, m):
+        pr, tangents = self.products[m], self.d_mv[m]
+        R, C = pr.rows, pr.cols
+        if pr.in_space == "c":  # the input in the lane's registers, then M u
+            out = [f"    T u{m}[{C}], du{m}[{C}];  // product {m}: ({R} x {C}) u"]
+            for p, dp in zip(pr.vec.pieces, tangents):
+                em = _Emit(self.b, leaf=self._coord_leaf)
+                v, dv = em.name(p.e), em.name(dp) if dp is not None else "(T)0"
+                out += ["    " + u for u in _unroll(p.b - p.a)]
+                out += [f"    for (int p = {p.a}; p < {p.b}; ++p) {{  // {p.e.text()}",
+                        f"      const int i = p + {p.off or 0};", "      (void)i;"]
+                if self._reads_point(p.e, dp):
+                    out += ["      T y, w;", "      yw(i, y, w);", "      (void)y; (void)w;"]
+                out += ["      " + s for s in em.lines]
+                out += [f"      u{m}[p] = {v};", f"      du{m}[p] = {dv};", "    }"]
+            if pr.space != "c":
+                return out  # a product into data rows: formed row by row where read
+            k = self.slot[m]
+            a0 = self._m(m, "r", "0")
+            return out + [
+                *["    " + u for u in _unroll(R)],
+                f"    for (int r = 0; r < {R}; ++r) {{",
+                f"      T acc = {a0} * u{m}[0], dacc = {a0} * du{m}[0];",
+                *["      " + u for u in _unroll(C)],
+                f"      for (int c = 1; c < {C}; ++c) {{",
+                f"        const T a = {self._m(m, 'r', 'c')};",
+                f"        acc = acc + a * u{m}[c];",
+                f"        dacc = dacc + a * du{m}[c];",
+                "      }",
+                f"      cs.c[{k}][r] = acc;",
+                f"      cs.dc[{k}][r] = dacc;",
+                "    }"]
+        # a product of data rows into the coordinates: every output element
+        # takes row k's term in turn, in registers where the loop unrolls
+        k = self.slot[m]
+        acc, dacc = ((f"a{m}", f"da{m}") if _unroll(R) else
+                     (f"cs.c[{k}]", f"cs.dc[{k}]"))
+        out = [f"    T a{m}[{R}], da{m}[{R}];"] if _unroll(R) else []
+        out += [f"    for (int k = 0; k < {C}; ++k) {{  // product {m}: ({R} x {C}) u, u over data rows",
+                "      T u = (T)0, du = (T)0;"]
+        out += self._inline_products([p.e for p in pr.vec.pieces] + list(tangents), "      ")
+        for p, dp in zip(pr.vec.pieces, tangents):
+            em = _Emit(self.b, idx="k", leaf=self._data_leaf)
+            v, dv = em.name(p.e), em.name(dp) if dp is not None else "(T)0"
+            out.append(f"      if (k >= {p.a} && k < {p.b}) {{  // {p.e.text()}")
+            out += ["        " + s for s in em.lines]
+            out += [f"        u = {v};", f"        du = {dv};", "      }"]
+        out += ["      " + u for u in _unroll(R)]
+        out += [f"      for (int r = 0; r < {R}; ++r) {{",
+                f"        const T a = {self._m(m, 'r', 'k')};",
+                f"        {acc}[r] = k == 0 ? a * u : {acc}[r] + a * u;",
+                f"        {dacc}[r] = k == 0 ? a * du : {dacc}[r] + a * du;",
+                "      }", "    }"]
+        if _unroll(R):
+            out += ["    #pragma unroll", f"    for (int r = 0; r < {R}; ++r) {{",
+                    f"      cs.c[{k}][r] = a{m}[r];", f"      cs.dc[{k}][r] = da{m}[r];", "    }"]
+        return out
+
+    def _fill_cpp(self):
+        """``fill``: every stage at one point by K6's block (one CTA per
+        chain): a stage's positions across the threads; a product's input,
+        then its output, in shared memory, a barrier after each; a sum by a
+        two-level reduction whose total every thread holds in the same
+        bits.  Every thread of the block calls it."""
+        out = [
+            "  // a block sum: every thread returns the same bits (a warp's xor",
+            "  // butterfly, one partial per warp, the partials added alike in every warp)",
+            "  __device__ __forceinline__ static T block_sum(T v, T* row) {",
+            "#pragma unroll",
+            "    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);",
+            "    if ((threadIdx.x & 31) == 0) row[threadIdx.x >> 5] = v;",
+            "    __syncthreads();",
+            "    const int l = threadIdx.x & 31;",
+            "    T a = l < (int)(blockDim.x >> 5) ? row[l] : (T)0;",
+            "#pragma unroll",
+            "    for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);",
+            "    return a;",
+            "  }",
+            "  // every sum and product at one point, by the block: shm holds each",
+            "  // product's input and output (shared_bytes); yw(j, y, w) gives",
+            "  // coordinate j's point and velocity",
+            "  template <class F>",
+            "  __device__ static Sums fill(int d, const T* prm, T* shm, F yw) {",
+            "    const int tid = threadIdx.x, nt = blockDim.x;",
+            "    Sums cs;",
+            "    (void)d; (void)prm; (void)shm; (void)yw; (void)tid; (void)nt;",
+        ]
+        if self.reductions:
+            out.append(f"    __shared__ T rows[{2 * len(self.reductions)}][32];")
+        off = 0
+        for kind, m in self.stages:
+            if kind != "mv":
+                continue
+            pr = self.products[m]
+            out += [f"    T* u{m} = shm + {off};", f"    T* du{m} = shm + {off + pr.cols};",
+                    f"    T* o{m} = shm + {off + 2 * pr.cols};",
+                    f"    T* do{m} = shm + {off + 2 * pr.cols + pr.rows};"]
+            off += 2 * (pr.cols + pr.rows)
+            if pr.space == "c":
+                out += [f"    cs.c[{self.slot[m]}] = o{m};", f"    cs.dc[{self.slot[m]}] = do{m};"]
+        out.append("    __syncthreads();  // every thread has read the last point's context")
+        if self._reads01(stages_only=True):
+            out += _READ01
+
+        def leaf(op, m):
+            return f"{'d' if op == 'dmv' else ''}o{m}[i]"
+
+        def loop(pieces, tangents, body):
+            lines = []
+            for p, dp in zip(pieces, tangents):
+                em = _Emit(self.b, leaf=leaf)
+                v, dv = em.name(p.e), em.name(dp) if dp is not None else "(T)0"
+                lines += [f"    for (int p = {p.a} + tid; p < {p.b}; p += nt) {{  // {p.e.text()}",
+                          f"      const int i = p + {p.off or 0};", "      (void)i;"]
+                if self._reads_point(p.e, dp):
+                    lines += ["      T y, w;", "      yw(i, y, w);", "      (void)y; (void)w;"]
+                lines += ["      " + s for s in em.lines] + [
+                    "      " + s for s in body(v, dv)] + ["    }"]
+            return lines
+
+        for kind, s in self.stages:
+            if kind == "red":
+                out.append(f"    T part{s} = (T)0, dpart{s} = (T)0;  // sum {s}")
+                out += loop(self.reductions[s], self.d_red[s],
+                            lambda v, dv, s=s: [f"part{s} += {v};", f"dpart{s} += {dv};"])
+                out += [f"    cs.s[{s}] = block_sum(part{s}, rows[{2 * s}]);",
+                        f"    cs.ds[{s}] = block_sum(dpart{s}, rows[{2 * s + 1}]);"]
+                continue
+            pr = self.products[s]
+            out.append(f"    // product {s}: ({pr.rows} x {pr.cols}) u")
+            out += loop(pr.vec.pieces, self.d_mv[s],
+                        lambda v, dv, s=s: [f"u{s}[p] = {v};", f"du{s}[p] = {dv};"])
+            a0 = self._m(s, "r", "0")
+            out += ["    __syncthreads();",
+                    f"    for (int r = tid; r < {pr.rows}; r += nt) {{",
+                    f"      T acc = {a0} * u{s}[0], dacc = {a0} * du{s}[0];",
+                    f"      for (int c = 1; c < {pr.cols}; ++c) {{",
+                    f"        const T a = {self._m(s, 'r', 'c')};",
+                    f"        acc = acc + a * u{s}[c];",
+                    f"        dacc = dacc + a * du{s}[c];",
+                    "      }",
+                    f"      o{s}[r] = acc;",
+                    f"      do{s}[r] = dacc;",
+                    "    }",
+                    "    __syncthreads();"]
         out += ["    return cs;", "  }"]
         return out
 
@@ -631,7 +963,7 @@ class Lowered:
             last = n == len(self.out) - 1
             cond = "" if last and n == 0 else (f"if (i < {hi}) " if n == 0 else
                                                "else " if last else f"else if (i < {hi}) ")
-            em = _Emit(self.b)
+            em = _Emit(self.b, leaf=self._coord_leaf)
             g = em.name(p.e)
             dg = em.name(dp) if dp is not None else "(T)0"
             out.append(f"    {cond}{{  // coordinates [{lo}, {hi}): {p.e.text()}")
@@ -647,6 +979,31 @@ class Lowered:
             from . import build
             self._lib = build.user_library(SOURCES[self.kernel], self.header())
         return self._lib
+
+
+UNROLL = 32
+"""Loops of a lane's context up to this many steps are unrolled, so that its
+small arrays (a product's input, the accumulators) live in registers."""
+
+
+def _unroll(n: int) -> List[str]:
+    return ["#pragma unroll"] if n <= UNROLL else []
+
+
+_READ01 = ["    T y0, w0, y1, w1;", "    yw(0, y0, w0);",
+           "    if (d > 1) yw(1, y1, w1); else { y1 = y0; w1 = w0; }"]
+"""A point context's reads of coordinates 0 and 1."""
+
+_MOMENTS_STUB = [
+    "  // no chain moments: the kernel forms every stage at each point",
+    "  struct Moments {",
+    "    static constexpr int N = 1;",
+    "    T m[N];",
+    "  };",
+    "  __device__ __forceinline__ static Moments moments_zero(int) { return Moments{}; }",
+    "  __device__ __forceinline__ static void moment_add(Moments&, int, T, T, T, T, T, T,",
+    "                                                   const T*) {}",
+]
 
 
 def _coords(p: Piece):
@@ -689,10 +1046,12 @@ _CPP_FN = {"exp": "exp", "expm1": "expm1", "log": "log", "log1p": "log1p", "sqrt
 
 
 class _Emit:
-    """SSA statements of a DAG, one ``const`` per node, in dependency order."""
+    """SSA statements of a DAG, one ``const`` per node, in dependency order;
+    a parameter reads ``prm[off + idx]``, a product's element ``leaf(op, m)``."""
 
-    def __init__(self, b: Graph):
+    def __init__(self, b: Graph, idx: str = "i", leaf=None):
         self.b, self.lines, self.names = b, [], {}
+        self.idx, self.leaf = idx, leaf
 
     def name(self, n: Node) -> str:
         if n.id in self.names:
@@ -704,7 +1063,9 @@ class _Emit:
         if op in leaf:
             return leaf[op]
         if op == "prm":
-            return f"prm[{n.attr} + i]"
+            return f"prm[{n.attr} + {self.idx}]"
+        if op in ("mv", "dmv"):
+            return self.leaf(op, n.attr)
         if op == "prmk":
             return f"prm[{n.attr}]"
         if op == "red":
@@ -784,21 +1145,51 @@ _LIKE = {"full_like", "ones_like", "zeros_like", "empty_like", "new_zeros", "new
 _IDENTITY = {"clone", "alias", "detach", "lift_fresh_copy", "contiguous", "_to_copy"}
 _RESHAPE = {"view", "reshape", "_unsafe_view", "unsqueeze", "squeeze", "expand",
             "flatten", "permute", "t"}
-_COUPLING = {"mm", "mv", "dot", "vdot", "matmul", "addmm", "addmv", "bmm", "einsum",
-             "linear", "outer", "cumsum", "cumprod", "flip", "roll", "sort", "gather",
-             "index", "index_select", "take", "conv1d", "convolution"}
-"""Ops that couple coordinates (kept undecomposed, so that a refusal names them)."""
+_PRODUCTS = {"mm", "mv", "dot", "vdot", "addmm", "addmv", "bmm"}
+"""Products the kernels evaluate where one operand is a constant matrix
+(``matmul``, ``linear`` and ``einsum`` reach the trace as these)."""
+_COUPLING = {"outer", "cumsum", "cumprod", "flip", "roll", "sort", "gather", "index",
+             "index_select", "take", "conv1d", "convolution"}
+"""Ops that couple coordinates otherwise (kept undecomposed, so that a refusal
+names them)."""
 
 
 def _decompositions():
     from torch._decomp import core_aten_decompositions
 
+    whole = _PRODUCTS | _COUPLING | {"matmul", "einsum", "linear"}
     table = dict(core_aten_decompositions())
     for op in list(table):
         name = getattr(op, "name", lambda: str(op))()
-        if name.split("::")[-1].split(".")[0] in _COUPLING:
+        if name.split("::")[-1].split(".")[0] in whole:
             del table[op]
     return table
+
+
+class Product(NamedTuple):
+    """``M u`` for a constant ``(rows, cols)`` matrix hoisted at ``moff``
+    (``M[r, c]`` at ``moff + c * rows + r`` where ``colmajor``, else at
+    ``moff + r * cols + c``) and a vector ``vec`` of ``cols`` positions;
+    ``space`` is its output's index space (``"c"`` where ``rows == d``, else
+    the data length ``rows``), ``in_space`` its input's."""
+    rows: int
+    cols: int
+    moff: int
+    colmajor: bool
+    vec: "Vec"
+    space: object
+    in_space: object
+
+
+def _nonunit(shape) -> int:
+    return sum(1 for s in shape if s != 1)
+
+
+def _shape(a):
+    """The shape of an argument of an aten node (a graph node's traced value,
+    or a tensor), or None."""
+    val = a.meta.get("val") if hasattr(a, "meta") else a
+    return tuple(val.shape) if isinstance(val, torch.Tensor) else None
 
 
 class _Interp:
@@ -809,17 +1200,20 @@ class _Interp:
         self.hoisted: Dict[int, Tuple[int, torch.Tensor]] = {}
         self.reductions: List[Vec] = []
         self.red_index: Dict[tuple, int] = {}
+        self.products: List[Product] = []
+        self.mv_index: Dict[tuple, int] = {}
+        self.stages: List[Tuple[str, int]] = []  # ("red", r) and ("mv", m), in trace order
 
     # -- conversions ---------------------------------------------------------
     def refuse(self, node, why):
         name = node.target if node.op != "call_function" else _opname(node)
         return Bad(_refuse(f"aten.{name} at node {node.name}: {why}"))
 
-    def hoist(self, t: torch.Tensor) -> int:
+    def hoist(self, t: torch.Tensor, key=None) -> int:
         """``t``'s offset in the params vector, rounded to the run's dtype
         (keyed by ``t``, which ``hoisted`` keeps alive so that no other
-        tensor takes its id)."""
-        key = id(t)
+        tensor takes its id, or by ``key``)."""
+        key = id(t) if key is None else key
         if key not in self.hoisted:
             offset = sum(p.numel() for p in self.params)
             self.hoisted[key] = (offset, t)
@@ -866,6 +1260,10 @@ class _Interp:
                 try:
                     return self.b.pin(pc.e, p + pc.off)
                 except _FarRead as e:
+                    if e.k is None:
+                        return self.refuse(node, "it reads one element of a matrix "
+                                           "product; the kernels read a product's "
+                                           "element at each index's own")
                     return self.refuse(node, f"it reads x[{e.k}]; the kernels read "
                                        "coordinates 0 and 1 of a chain besides each "
                                        "coordinate's own")
@@ -891,9 +1289,11 @@ class _Interp:
             if isinstance(v, Bad):
                 return v
         for v in vals:
-            if isinstance(v, torch.Tensor) and v.dim() > 1:
+            if isinstance(v, torch.Tensor) and _nonunit(v.shape) > 1:
                 return self.refuse(node, f"a value of shape {tuple(v.shape)} couples "
                                    "coordinates")
+        vals = [v.reshape(-1) if isinstance(v, torch.Tensor) and v.dim() > 1 else v
+                for v in vals]
         if not any(isinstance(v, (Vec, Node)) for v in vals):
             return None  # all constant: the caller computes it
         ns = [v.n for v in vals if isinstance(v, Vec)] + [
@@ -922,6 +1322,9 @@ class _Interp:
             es = [pc.e if pc.off is None else self.b.shift(pc.e, off - pc.off)
                   for pc in parts]
             e = build(*es)
+            if e.space == "mixed":
+                return self.refuse(node, "it combines a coordinate of x with a row of a "
+                                   "product into other rows")
             pieces.append(Piece(a, b_, off if e.lane else None, e))
         return Vec(n, _merge(pieces))
 
@@ -933,18 +1336,128 @@ class _Interp:
             return v
         if v.n == 0:
             return self.b.lit(0.0)
-        pieces = []
-        for pc in v.pieces:
-            if "red" in _leaves(pc.e):
-                return self.refuse(node, "a sum whose summands read another sum")
-            if pc.off is None and pc.b > self.d:
-                return self.refuse(node, "a sum over more positions than coordinates")
-            pieces.append(pc)
+        pieces = tuple(v.pieces)
+        space = self.space_of(node, pieces, v.n)
+        if isinstance(space, Bad):
+            return space
         key = tuple((pc.a, pc.b, pc.off, pc.e.id) for pc in pieces)
         if key not in self.red_index:
             self.red_index[key] = len(self.reductions)
-            self.reductions.append(Vec(v.n, tuple(pieces)))
+            self.stages.append(("red", len(self.reductions)))
+            self.reductions.append(Vec(v.n, pieces))
         return self.b.mk("red", attr=self.red_index[key])
+
+    def space_of(self, node, pieces, n):
+        """The index space a sum or a product's input runs over: the one its
+        pieces read (the coordinates, or the rows of a data vector), else the
+        coordinates for ``n == d`` and the rows of length ``n`` otherwise.  A
+        data vector is summed or multiplied whole from row 0: its pieces take
+        no offset."""
+        spaces = {pc.e.space for pc in pieces if pc.e.space is not None}
+        if "mixed" in spaces or len(spaces) > 1:
+            return self.refuse(node, "it adds coordinates of x and rows of a product in "
+                               "one sum")
+        space = spaces.pop() if spaces else ("c" if n == self.d else n)
+        if space != "c" and any(pc.off not in (None, 0) for pc in pieces):
+            return self.refuse(node, "a slice of a product's rows that does not start at "
+                               "row 0")
+        return space
+
+    # -- products with a constant matrix ---------------------------------------
+    def hoist_matrix(self, M: torch.Tensor):
+        """``(offset, colmajor)`` of a constant matrix in the params: the
+        matrix as it lies in memory (a transposed view's base, so that ``X``
+        and ``X.T`` share one block), keyed by its values in the run's dtype
+        (so that the copies ``X.to(x)`` makes at each call share it too)."""
+        if M.is_contiguous():
+            base, colmajor = M, False
+        elif M.t().is_contiguous():
+            base, colmajor = M.t(), True
+        else:
+            base, colmajor = M.contiguous(), False
+        vals = base.detach().to(self.dtype).cpu().contiguous()
+        key = ("matrix", tuple(vals.shape), hashlib.sha256(vals.numpy().tobytes()).hexdigest())
+        return self.hoist(base, key), colmajor
+
+    def product(self, node, M, u):
+        """``M u`` for a constant ``(rows, cols)`` matrix and a vector of the
+        chain (or Bad)."""
+        if isinstance(u, Bad):
+            return u
+        if not isinstance(M, torch.Tensor) or M.dim() != 2:
+            return self.refuse(node, "a product whose matrix depends on x")
+        rows, cols = M.shape
+        if isinstance(u, torch.Tensor):
+            if u.dim() > 1 and _nonunit(u.shape) > 1:
+                return self.refuse(node, f"a constant of shape {tuple(u.shape)}")
+            u = u.reshape(-1)
+        u = self.as_vec(u, cols, node)
+        if isinstance(u, Bad):
+            return u
+        in_space = self.space_of(node, u.pieces, cols)
+        if isinstance(in_space, Bad):
+            return in_space
+        space = "c" if rows == self.d else rows
+        if space != "c" and in_space != "c":
+            return self.refuse(node, "a product of a data vector into other data rows; the "
+                               "kernels take products from the coordinates to data rows "
+                               "and back")
+        moff, colmajor = self.hoist_matrix(M)
+        key = (moff, colmajor, rows, cols, tuple((pc.a, pc.b, pc.off, pc.e.id)
+                                                 for pc in u.pieces))
+        if key not in self.mv_index:
+            m = self.mv_index[key] = len(self.products)
+            self.b.mv_space[m] = space
+            self.stages.append(("mv", m))
+            self.products.append(Product(rows, cols, moff, colmajor, u, space, in_space))
+        e = self.b.mk("mv", attr=self.mv_index[key])
+        return Vec(rows, (Piece(0, rows, 0, e),))
+
+    def _product(self, node, name, args, kwargs):
+        """``mv``, ``mm``/``bmm`` of a constant matrix and a column (or a row
+        and a constant matrix), their ``add`` forms, and ``dot``/``vdot``
+        (a sum of a product of two vectors)."""
+        if name in ("dot", "vdot"):
+            prod = self.ew(node, "mul", list(args[:2]), lambda a, c: self.b.mk("mul", a, c))
+            if prod is None:
+                return node.target(*args, **kwargs)
+            return self.reduce(node, prod)
+        if name in ("mv", "addmv"):
+            M, u = args[-2:] if name == "mv" else args[1:3]
+            out = self.product(node, M, u)
+        else:
+            a, c = (args[0], args[1]) if name in ("mm", "bmm") else (args[1], args[2])
+            sa, sc = _shape(node.args[0 if name in ("mm", "bmm") else 1]), _shape(
+                node.args[1 if name in ("mm", "bmm") else 2])
+            if name == "bmm":
+                if sa[0] != 1:
+                    return self.refuse(node, f"a batch of {sa[0]} products")
+                a = a[0] if isinstance(a, torch.Tensor) else a
+                c = c[0] if isinstance(c, torch.Tensor) else c
+                sa, sc = sa[1:], sc[1:]
+            if sa[1] == 1:  # one term per element: a scalar times a vector
+                out = self.ew(node, "mul", [a, c], lambda x, y: self.b.mk("mul", x, y))
+            elif sa[0] == 1 and sc[1] == 1:  # a row times a column: a sum
+                return self._product(node, "dot", [a, c], {})
+            elif isinstance(a, torch.Tensor) and sc[1] == 1:
+                out = self.product(node, a, c)        # M (r, c) @ u (c, 1)
+            elif isinstance(c, torch.Tensor) and sa[0] == 1:
+                out = self.product(node, c.t(), a)    # u (1, c) @ M (c, r) = (M^T u)^T
+            elif not isinstance(a, torch.Tensor) and not isinstance(c, torch.Tensor):
+                return self.refuse(node, "a product of two vectors of the chain")
+            else:
+                return self.refuse(node, f"a product of shapes {sa} and {sc} that is not a "
+                                   "matrix times a vector")
+        if isinstance(out, Bad) or name in ("mv", "mm", "bmm"):
+            return out
+        bias = args[0]
+        beta, alpha = kwargs.get("beta", 1), kwargs.get("alpha", 1)
+        if alpha != 1:
+            out = self.ew(node, "mul", [out, alpha], lambda x, y: self.b.mk("mul", x, y))
+        if beta != 1:
+            bias = (bias * beta if isinstance(bias, torch.Tensor) else
+                    self.ew(node, "mul", [bias, beta], lambda x, y: self.b.mk("mul", x, y)))
+        return self.ew(node, "add", [bias, out], lambda x, y: self.b.mk("add", x, y))
 
     # -- the graph -----------------------------------------------------------
     def run(self):
@@ -982,15 +1495,30 @@ class _Interp:
             not isinstance(a, (Vec, Node, Bad)) for a in _flat(list(kwargs.values())))
         if name in _LIKE:
             return self._like(node, name, args, kwargs)
+        inplace = name.endswith("_") and not name.startswith("_")
+        if inplace and concrete and isinstance(args[0], torch.Tensor):
+            args = [args[0].clone(), *args[1:]]  # never write into a closed-over tensor
         if concrete:
             return node.target(*args, **kwargs)
+        if inplace:
+            # an in-place op on a value nothing else reads is its functional twin
+            src = node.args[0]
+            if len(getattr(src, "users", ())) > 1:
+                return self.refuse(node, "an in-place op on a value read elsewhere")
+            name = name[:-1]
         bad = next((a for a in _flat(args) if isinstance(a, Bad)), None)
         if bad:
             return bad
         if name in _COUPLING:
-            return self.refuse(node, "it couples coordinates (a dense product); the "
-                               "kernels evaluate each coordinate from its own value, "
-                               "coordinates 0 and 1 and sums over the coordinates")
+            return self.refuse(node, "it couples coordinates other than through a "
+                               "constant matrix; the kernels evaluate each coordinate "
+                               "from its own value, coordinates 0 and 1, sums, and "
+                               "products of a constant matrix with a vector of the chain")
+        shape = _shape(node)
+        if shape is not None and _nonunit(shape) > 1:
+            return self.refuse(node, f"a value of shape {shape} couples coordinates")
+        if name in _PRODUCTS:
+            return self._product(node, name, args, kwargs)
         b = self.b
         if name == "copy":  # aten.copy(self, src): src's values
             return args[1]
@@ -1041,14 +1569,15 @@ class _Interp:
         return torch.full(shape, fill, dtype=dtype, device=self.device)
 
     def _reshape(self, node, name, args):
+        """A view of a vector in any shape with at most one dimension past 1
+        (``unsqueeze``, ``permute``, the batch views of a product)."""
         v = args[0]
-        val = node.meta.get("val")
-        shape = tuple(val.shape) if val is not None else None
-        if shape is None or len(shape) > 1:
+        shape = _shape(node)
+        if shape is None or _nonunit(shape) > 1:
             return self.refuse(node, f"a value of shape {shape} couples coordinates")
         if shape == ():
             return self.scalar(v, node)
-        n = shape[0]
+        n = math.prod(shape)
         if isinstance(v, Node):
             return Vec(n, (Piece(0, n, None, v),))
         if isinstance(v, Vec) and v.n == n:
@@ -1101,17 +1630,21 @@ class _Interp:
 
     def _sum(self, node, name, args, kwargs):
         v = args[0]
-        dims = args[1] if len(args) > 1 else kwargs.get("dim")
-        if dims not in (None, [], [0], [-1], (0,), (-1,), 0, -1):
-            return self.refuse(node, f"a sum over dims {dims}")
-        if isinstance(v, torch.Tensor) and v.dim() > 1:
+        shape_in, shape = _shape(node.args[0]), _shape(node)
+        if shape_in is None or shape is None:
+            return self.refuse(node, "a sum of a value of unknown shape")
+        n_in, n_out = math.prod(shape_in), math.prod(shape)
+        if isinstance(v, torch.Tensor) and _nonunit(v.shape) > 1:
             return self.refuse(node, f"a value of shape {tuple(v.shape)} couples coordinates")
-        n = v.n if isinstance(v, Vec) else 1
-        s = self.reduce(node, v if not isinstance(v, torch.Tensor) else self.const_vec(v))
+        if n_out == n_in:  # over dimensions of size 1
+            return self._reshape(node, "view", [v])
+        if n_out != 1:
+            return self.refuse(node, f"a sum over part of a value of shape {shape_in}")
+        vec = v.reshape(-1) if isinstance(v, torch.Tensor) else v
+        s = self.reduce(node, self.const_vec(vec) if isinstance(vec, torch.Tensor) else vec)
         if name == "mean" and not isinstance(s, Bad):
-            s = self.b.mk("div", s, self.b.lit(float(n)))
-        keep = len(args) > 2 and args[2] or kwargs.get("keepdim", False)
-        if keep and not isinstance(s, Bad):
+            s = self.b.mk("div", s, self.b.lit(float(n_in)))
+        if shape != () and not isinstance(s, Bad):
             return Vec(1, (Piece(0, 1, None, s),))
         return s
 
@@ -1150,6 +1683,15 @@ class _Interp:
             v = self.const_vec(v)
         scatter = name in ("slice_scatter", "select_scatter")
         dim = args[2 if scatter else 1] if len(args) > (2 if scatter else 1) else 0
+        shape_in = _shape(node.args[0])
+        if not scatter and shape_in is not None and len(shape_in) > 1:
+            # a vector held as a column or a row: a dimension of size 1 is
+            # read whole, the other is the vector's own
+            if shape_in[dim % len(shape_in)] == 1:
+                if _shape(node) is None or math.prod(_shape(node)) != v.n:
+                    return self.refuse(node, f"an empty {name}")
+                return v
+            dim = 0
         if dim not in (0, -1):
             return self.refuse(node, f"{name} along dim {dim}")
         if name == "select":
@@ -1277,6 +1819,9 @@ def lower_gradient(grad_fn, kernel: str, d: int, dtype, device="cpu") -> Lowered
         raise _refuse(f"the gradient is not a ({d},) vector")
     pieces = []
     for pc in out.pieces:
+        if pc.e.space not in (None, "c"):
+            raise _refuse(f"gradient coordinates [{pc.a}, {pc.b}) read rows of a product "
+                          "that are not coordinates")
         if pc.off not in (None, 0):
             if pc.e.has_y:
                 raise _refuse(f"gradient coordinates [{pc.a}, {pc.b}) read coordinate i + "
@@ -1286,34 +1831,61 @@ def lower_gradient(grad_fn, kernel: str, d: int, dtype, device="cpu") -> Lowered
         if pc.e.boolean:
             raise _refuse("the gradient is boolean")
         pieces.append(pc)
-    # the sums the gradient reads (the forward pass leaves others behind),
-    # renumbered in order
-    used = sorted({x.attr for pc in pieces for x in _nodes(pc.e) if x.op == "red"})
-    number = {old: new for new, old in enumerate(used)}
+    # the stages the gradient reads, directly or through other stages (the
+    # forward pass leaves others behind); the sums renumbered in order
+    def stage_pieces(kind, s):
+        return (interp.reductions[s] if kind == "red" else interp.products[s].vec).pieces
+
+    used, todo = set(), [pc.e for pc in pieces]
+    while todo:
+        for x in _nodes(todo.pop()):
+            if x.op in ("red", "mv") and (x.op, x.attr) not in used:
+                used.add((x.op, x.attr))
+                todo += [pc.e for pc in stage_pieces(x.op, x.attr)]
+    order = [st for st in interp.stages if st in used]
+    number = {old: new for new, old in enumerate(s for kind, s in order if kind == "red")}
     memo: dict = {}
 
-    def renumber(n):
-        return interp.b.relabel(n, lambda x: interp.b.mk("red", attr=number[x.attr])
-                                if x.op == "red" else None, memo)
+    def renumber(pc):
+        return pc._replace(e=interp.b.relabel(
+            pc.e, lambda x: interp.b.mk("red", attr=number[x.attr]) if x.op == "red" else None,
+            memo))
 
-    pieces = [pc._replace(e=renumber(pc.e)) for pc in pieces]
-    reductions = [list(interp.reductions[r].pieces) for r in used]
-    for summands in reductions:
+    pieces = [renumber(pc) for pc in pieces]
+    reductions, red_space, products = [], [], {}
+    for kind, s in order:
+        if kind == "red":
+            vec = interp.reductions[s]
+            reductions.append([renumber(pc) for pc in vec.pieces])
+            red_space.append(interp.space_of(None, vec.pieces, vec.n))
+        else:
+            pr = interp.products[s]
+            products[s] = pr._replace(vec=Vec(pr.vec.n, tuple(renumber(pc)
+                                                              for pc in pr.vec.pieces)))
+    stages = [("red", number[s]) if kind == "red" else (kind, s) for kind, s in order]
+    for summands, space in zip(reductions, red_space):
         for pc in summands:
             lo, hi = _coords(pc)
-            if lo < 0 or hi > d:
+            if space == "c" and (lo < 0 or hi > d):
                 raise _refuse(f"a sum over positions [{pc.a}, {pc.b}) that are not "
                               f"coordinates of x")
-            if kernel in MOMENT_KERNELS and pc.e.deg > 2:
-                raise _refuse(
-                    f"the sum over coordinates of {pc.e.text()} is not of degree <= 2 "
-                    "in x; the K1 and K6 kernels (Zig-Zag, Sticky Zig-Zag) reduce "
-                    "such sums as moments once per transition, which is exact only "
-                    "up to degree 2; the K3/K5 (BPS, Boomerang, Forward ECMC) and K4 "
-                    "(Speed-Up Zig-Zag) kernels take it")
     params = (torch.cat(interp.params) if interp.params
               else torch.zeros(0, dtype=torch.float64))
-    return Lowered(interp.b, kernel, d, dtype, pieces, reductions, params)
+    return Lowered(interp.b, kernel, d, dtype, pieces, stages, reductions, red_space,
+                   products, params)
+
+
+def lane_fits(low: Lowered) -> bool:
+    """Whether the kernel takes the lowered gradient's context: K6 keeps it in
+    shared memory (``sticky_max_dim`` reads the limit from its build), a
+    lane of the other kernels in at most :data:`LANE_BYTES`."""
+    return low.kernel == "sticky" or low.lane_bytes() <= LANE_BYTES
+
+
+def lane_message(low: Lowered) -> str:
+    return (f"the generated potential's context takes {low.lane_bytes()} bytes per lane at "
+            f"d={low.d} in {low.dtype}, past the {LANE_BYTES} a lane of the {low.kernel} "
+            "chunk kernel keeps; run it on backend='xla_stream'")
 
 
 def lower_sampler(sampler, kind: str, d: int, dtype, device="cpu") -> Lowered:

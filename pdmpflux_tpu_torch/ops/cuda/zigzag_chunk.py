@@ -481,6 +481,8 @@ def check_cuda(st: ChunkState, fill: RawFill, row0: int, cfg: ChunkConfig,
     user = cfg.device_potential == lower.USER_POTENTIAL
     if user and cfg.user is None:
         raise ValueError("a generated potential needs its lowering (ChunkConfig.user)")
+    if user and not lower.lane_fits(cfg.user):
+        raise ValueError(lower.lane_message(cfg.user))
     if cfg.device_potential not in potentials and not user:
         raise ValueError(potential_message(what, potentials, cfg.device_potential))
     if cfg.device_potential == "aniso" and cfg.pot_params is None:

@@ -247,7 +247,12 @@ def test_sticky_sample_skeleton_on_card(dev):
 
 
 DENSE = torch.tensor([[2.0, 0.5, 0.0], [0.5, 1.0, 0.2], [0.0, 0.2, 3.0]])
-"""A dense coupling the lowering refuses (``A @ x``)."""
+"""A dense coupling (``A @ x``): the kernels form the product at every point."""
+
+
+def running_sum(x):
+    """A gradient the lowering refuses: a running sum (``aten.cumsum``)."""
+    return torch.cumsum(x, 0)
 
 
 def test_k6_refuses_what_it_cannot_run(dev):
@@ -267,9 +272,13 @@ def test_k6_refuses_what_it_cannot_run(dev):
     n0 = build.LAUNCHES["sticky_chunk"]
     skel = pt.sample_skeleton(untagged, 10, np.zeros((2, 3)), np.ones((2, 3)))
     assert bool((skel.n_valid == 10).all()) and build.LAUNCHES["sticky_chunk"] > n0
-    dense = pt.StickyZigZag(3, lambda x: DENSE.to(x) @ x)
-    with pytest.raises(lower.LoweringError, match="aten.mv"):
-        pt.sample_skeleton(dense, 10, np.zeros((2, 3)), np.ones((2, 3)))
+    dense = pt.StickyZigZag(3, lambda x: DENSE.to(x) @ x)  # K6 forms A @ x at each point
+    n0 = build.LAUNCHES["sticky_chunk"]
+    skel = pt.sample_skeleton(dense, 10, np.zeros((2, 3)), np.ones((2, 3)))
+    assert bool((skel.n_valid == 10).all()) and build.LAUNCHES["sticky_chunk"] > n0
+    with pytest.raises(lower.LoweringError, match="aten.cumsum"):
+        pt.sample_skeleton(pt.StickyZigZag(3, running_sum), 10, np.zeros((2, 3)),
+                           np.ones((2, 3)))
 
 
 def scalar_sampler(kind, pot, d, **kw):
@@ -448,9 +457,13 @@ def test_k3_k5_refuse_what_they_cannot_run(dev):
     n0 = build.LAUNCHES["bps_chunk"]
     skel = pt.sample_skeleton(untagged, 10, np.zeros((2, 3)), np.ones((2, 3)))
     assert bool((skel.n_valid == 10).all()) and build.LAUNCHES["bps_chunk"] > n0
-    with pytest.raises(lower.LoweringError, match="aten.mv"):
-        pt.sample_skeleton(pt.BPS(3, lambda x: DENSE.to(x) @ x), 10, np.zeros((2, 3)),
+    with pytest.raises(lower.LoweringError, match="aten.cumsum"):
+        pt.sample_skeleton(pt.BPS(3, running_sum), 10, np.zeros((2, 3)),
                            np.ones((2, 3)))
+    n0 = build.LAUNCHES["bps_chunk"]  # K3 forms A @ x at each grid point
+    skel = pt.sample_skeleton(pt.BPS(3, lambda x: DENSE.to(x) @ x), 10, np.zeros((2, 3)),
+                              np.ones((2, 3)))
+    assert bool((skel.n_valid == 10).all()) and build.LAUNCHES["bps_chunk"] > n0
     d = k3.scalar_max_dim(torch.float64) + 1
     big = pt.BPS(d, pt.potentials.grad_gauss)
     state = big.init_state_batch(np.zeros((2, d)), np.ones((2, d)), 0, torch.float64, dev)
@@ -557,10 +570,14 @@ def test_k4_refuses_what_it_cannot_run(dev):
     n0 = build.LAUNCHES["suzz_chunk"]
     skel = pt.sample_skeleton(untagged, 10, np.zeros((2, 4)), np.ones((2, 4)))
     assert bool((skel.n_valid == 10).all()) and build.LAUNCHES["suzz_chunk"] > n0
-    dense = torch.block_diag(DENSE, torch.ones(1, 1))
-    with pytest.raises(lower.LoweringError, match="aten.mv"):
-        pt.sample_skeleton(pt.SpeedUpZigZag(4, lambda x: dense.to(x) @ x), 10,
-                           np.zeros((2, 4)), np.ones((2, 4)))
+    dense = torch.block_diag(DENSE, torch.ones(1, 1))  # K4 forms A @ x at each point
+    n0 = build.LAUNCHES["suzz_chunk"]
+    skel = pt.sample_skeleton(pt.SpeedUpZigZag(4, lambda x: dense.to(x) @ x), 10,
+                              np.zeros((2, 4)), np.ones((2, 4)))
+    assert bool((skel.n_valid == 10).all()) and build.LAUNCHES["suzz_chunk"] > n0
+    with pytest.raises(lower.LoweringError, match="aten.cumsum"):
+        pt.sample_skeleton(pt.SpeedUpZigZag(4, running_sum), 10, np.zeros((2, 4)),
+                           np.ones((2, 4)))
     aniso = pt.SpeedUpZigZagAD(4, pt.potentials.anisotropic_gauss(np.ones(4)))
     n0 = build.LAUNCHES["suzz_chunk"]
     skel = pt.sample_skeleton(aniso, 10, np.zeros((2, 4)), np.ones((2, 4)))
@@ -804,13 +821,19 @@ def test_backend_routing_on_the_card(dev):
     assert bool((skel.n_valid == 64).all()) and build.LAUNCHES["zigzag_chunk"] > 0
     assert engine.COUNTS["transitions"] == 0
     dense4 = torch.block_diag(DENSE, torch.ones(1, 1))
-    dense = pt.ZigZag(4, lambda x: dense4.to(x) @ x)
+    dense = pt.ZigZag(4, lambda x: dense4.to(x) @ x)  # K1 forms A @ x at each point
+    build.reset_launches()
+    engine.reset_counts()
+    skel = pt.sample_skeleton(dense, 64, x0, v0, **kw)
+    assert bool((skel.n_valid == 64).all()) and build.LAUNCHES["zigzag_chunk"] > 0
+    assert engine.COUNTS["transitions"] == 0
+    refused = pt.ZigZag(4, running_sum)
     build.reset_launches()
     with pytest.raises(lower.LoweringError, match="backend='xla_stream'"):
-        pt.sample_skeleton(dense, 64, x0, v0, **kw)
+        pt.sample_skeleton(refused, 64, x0, v0, **kw)
     assert not any(build.LAUNCHES.values())  # refused before any launch
     engine.reset_counts()
-    skel = pt.sample_skeleton(dense, 64, x0, v0, **kw, backend="xla_stream")
+    skel = pt.sample_skeleton(refused, 64, x0, v0, **kw, backend="xla_stream")
     assert bool((skel.n_valid == 64).all()) and engine.COUNTS["transitions"] > 0
     hz = pt.sample_skeleton(pt.RHMC(4, pt.potentials.grad_gauss), 20.0, x0, v0, **kw)
     last = hz.n_valid.long() - 1

@@ -8,8 +8,14 @@
   (``x[0]``, ``x[1]``), Neal's funnel and the funnel (sums over
   ``x[1:]``), a hierarchical mean (a sum over ``x[1:] - x[0]``); and each of the seven device tags' potentials lowered as if
   untagged, against the tag's closed forms (``LANE_POTENTIALS``).
-* ``LoweringError`` naming the op for a dense ``A @ x``, a read of ``x[5]``
-  and, on K1 and K6 only, a sum of a summand of degree past 2 in ``x``.
+* ``LoweringError`` naming the op for a ``cumsum`` (a coupling other than a
+  constant matrix), a read of ``x[5]`` and a coupling of neighbouring
+  coordinates; a sum of a summand of degree past 2 in ``x`` taken by every
+  kernel (K1 and K6 form it at every point).
+* Products with a constant matrix (``mv``, ``mm``, ``einsum``, ``linear``,
+  ``addmv``, data rows and back, nested with sums): the pair against
+  ``torch.func``, and each kernel's header hoisting the matrix and the
+  labels.
 * The generated header's shape per kernel, the cache on the sampler, and
   ``api.pick_backend`` on ``"cuda"`` (no card is needed to decide).
 """
@@ -139,12 +145,11 @@ def test_tagged_potentials_lowered_as_untagged(tag):
 
 
 def test_refusals_name_the_op():
-    """A dense product, a read past coordinate 1 and a coupling of
-    neighbouring coordinates raise ``LoweringError`` naming the aten op and
-    node and ``backend='xla_stream'``, for every kernel."""
-    A = torch.as_tensor(np.random.default_rng(1).normal(size=(D, D)))
-    A = A @ A.T
-    cases = {"aten.mv": lambda x: 0.5 * x @ (A.to(x) @ x),
+    """A running sum (a coupling other than through a constant matrix), a
+    read past coordinate 1 and a coupling of neighbouring coordinates raise
+    ``LoweringError`` naming the aten op and node and
+    ``backend='xla_stream'``, for every kernel."""
+    cases = {"aten.cumsum": lambda x: 0.5 * torch.sum(torch.cumsum(x, 0) ** 2),
              "aten.select": lambda x: x[5] ** 2 + torch.sum(x ** 2),
              "aten.add": lambda x: torch.sum(x[:-1] * x[1:]) + torch.sum(x ** 2)}
     for op, U in cases.items():
@@ -160,21 +165,22 @@ def test_refusals_name_the_op():
 
 
 def test_non_quadratic_sums_only_on_the_walking_kernels():
-    """K1 and K6 reduce sums as moments, exact to degree 2 in ``x``: a sum
-    of ``log1p(x^2)`` is refused there, naming the summand and the kernels
-    that take it, and taken by K3/K5 and K4; a quadratic sum reading
-    ``x[0]`` is taken by all."""
+    """A sum of ``log1p(x^2)``, past degree 2 in ``x``, is taken by every
+    kernel: K3/K5 and K4 add it at every point, and K1 and K6, whose chain
+    moments are exact only to degree 2, form it at every point too (a point
+    potential, no moments); a quadratic sum reading ``x[0]`` stays in K1/K6's
+    moments.  Each pair against ``torch.func``."""
     def g(x):
         return x * torch.sum(torch.log1p(x ** 2))
 
-    for kernel in ("zigzag", "sticky"):
-        with pytest.raises(lower.LoweringError, match="log1p") as err:
-            lower.lower_gradient(g, kernel, D, torch.float64)
-        assert "K4" in str(err.value) and "backend='xla_stream'" in str(err.value)
     x, v = _points(seed=4)
     want = _reference(g, x, v)
-    for kernel in ("suzz", "bps", "boomerang", "ecmc"):
+    for kernel in lower.SOURCES:
         low = lower.lower_gradient(g, kernel, D, torch.float64)
+        assert low.point
+        text = low.header()
+        assert "log1p(" in text and "moment_add(Moments& m, int i, T y" not in text
+        assert ("static Sums fill(" if kernel == "sticky" else "static Sums sums(") in text
         for a, b in zip(low.grad_jvp(x, v), want):
             torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
 
@@ -183,6 +189,7 @@ def test_non_quadratic_sums_only_on_the_walking_kernels():
 
     for kernel in lower.SOURCES:
         low = lower.lower_gradient(quad, kernel, D, torch.float64)
+        assert low.point == (kernel not in lower.MOMENT_KERNELS)
         for a, b in zip(low.grad_jvp(x, v), _reference(quad, x, v)):
             torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
 
@@ -245,19 +252,115 @@ def test_header_per_kernel_and_cache():
 
 
 def test_pick_backend_lowers_on_cuda(monkeypatch):
-    """On ``"cuda"`` a lowerable untagged Zig-Zag routes to the kernel and a
-    dense one raises before any build, naming ``aten.mv`` and
-    ``backend='xla_stream'``; the engine backends and the CPU stay as they
-    were."""
+    """On ``"cuda"`` a lowerable untagged Zig-Zag routes to the kernel, a
+    dense ``A @ x`` included, and a running sum raises before any build,
+    naming ``aten.cumsum`` and ``backend='xla_stream'``; the engine backends
+    and the CPU stay as they were."""
     monkeypatch.setattr(tsc, "scalar_max_dim", lambda dt: 1210)
     monkeypatch.setattr(tzc, "sticky_max_dim", lambda dt, user=None: 13136)
     A = torch.eye(D, dtype=torch.float64) * 2.0
     for make in (lambda U: pt.ZigZagAD(D, U), lambda U: pt.StickyZigZagAD(D, U, np.ones(D)),
                  lambda U: pt.BPSAD(D, U), lambda U: pt.SpeedUpZigZagAD(D, U)):
         ok, dense = make(student), make(lambda x: 0.5 * x @ (A.to(x) @ x))
-        assert tapi.pick_backend(ok, "auto", D, torch.float32, "cuda") == "kernel"
-        assert tapi.pick_backend(ok, "pallas", D, torch.float32, "cuda") == "kernel"
-        with pytest.raises(lower.LoweringError, match="aten.mv"):
-            tapi.pick_backend(dense, "auto", D, torch.float32, "cuda")
-        assert tapi.pick_backend(dense, "xla_stream", D, torch.float32, "cuda") == "engine"
-        assert tapi.pick_backend(dense, "auto", D, torch.float32, "cpu") == "kernel"
+        refused = make(lambda x: 0.5 * torch.sum(torch.cumsum(x, 0) ** 2))
+        for s in (ok, dense):
+            assert tapi.pick_backend(s, "auto", D, torch.float32, "cuda") == "kernel"
+            assert tapi.pick_backend(s, "pallas", D, torch.float32, "cuda") == "kernel"
+        with pytest.raises(lower.LoweringError, match="aten.cumsum"):
+            tapi.pick_backend(refused, "auto", D, torch.float32, "cuda")
+        for s in (dense, refused):
+            assert tapi.pick_backend(s, "xla_stream", D, torch.float32, "cuda") == "engine"
+            assert tapi.pick_backend(s, "auto", D, torch.float32, "cpu") == "kernel"
+
+
+DENSE_A = np.random.default_rng(7).normal(size=(D, D))
+DENSE_X = np.random.default_rng(8).normal(size=(11, D))
+DENSE_W = np.linspace(-1.0, 1.0, D)
+
+
+def _dense_user():
+    """Gradients through constant matrices, each as a user writes it."""
+    A, X, w = (torch.as_tensor(a) for a in (DENSE_A, DENSE_X, DENSE_W))
+    y = torch.as_tensor((np.arange(11) % 3 == 0).astype(np.float64))
+    return {
+        "corr": lambda x: 0.5 * x @ ((A @ A.T).to(x) @ x),
+        "einsum": lambda x: 0.5 * torch.einsum("i,ij,j->", x, (A @ A.T).to(x), x),
+        "linear": lambda x: (torch.sum(torch.tanh(torch.nn.functional.linear(x, A.to(x), w.to(x))))
+                             + x @ x / 2),
+        "addmv": lambda x: torch.sum(torch.addmv(w.to(x), A.to(x), x, beta=2.0, alpha=0.5) ** 2),
+        "column": lambda x: torch.sum((A.to(x) @ x[:, None]) ** 2) / 2,
+        "logistic": lambda b: (torch.sum(torch.nn.functional.softplus(X.to(b) @ b)
+                                         - y.to(b) * (X.to(b) @ b)) + b @ b / 200),
+        "nested": lambda x: torch.sum((A.to(x) @ (A.T.to(x) @ x)) ** 2) / (1 + x @ x),
+        "data_sum": lambda x: torch.log1p(torch.sum(torch.exp(-(X.to(x) @ x) ** 2))) + x @ x,
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_dense_user()))
+def test_dense_pairs_match_torch_func(name):
+    """Each dense gradient's pair against ``torch.func.jvp(vmap(grad))`` at
+    rtol 1e-12 on every kernel, the gradient alone its first half bit for
+    bit; every stage formed at each point."""
+    grad = resolve_potential(_dense_user()[name], D)[1]
+    x, v = _points(seed=len(name))
+    want_g, want_dg = _reference(grad, x, v)
+    for kernel in lower.SOURCES:
+        low = lower.lower_gradient(grad, kernel, D, torch.float64)
+        assert low.point and low.products
+        g, dg = low.grad_jvp(x, v)
+        torch.testing.assert_close(g, want_g, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(dg, want_dg, rtol=RTOL, atol=ATOL)
+        assert torch.equal(low.grad(x), g)
+
+
+def test_dense_headers_hoist_the_data():
+    """The logistic regression's header on every kernel: ``X`` hoisted once
+    (row-major, its transpose read column by column; the gradient's two
+    ``X.to(b)`` copies share the block), then the labels and ``X^T y`` (a
+    constant of the gradient), the products read from ``prm``; K6 keeps the
+    products in shared memory, the other kernels in the lane
+    (``lane_bytes``)."""
+    grad = resolve_potential(_dense_user()["logistic"], D)[1]
+    for kernel in lower.SOURCES:
+        low = lower.lower_gradient(grad, kernel, D, torch.float32)
+        assert low.params.numel() == 11 * D + 11 + D
+        torch.testing.assert_close(low.params[:11 * D],
+                                   torch.as_tensor(DENSE_X, dtype=torch.float32).double()
+                                   .reshape(-1), rtol=0, atol=0)
+        assert {pr.moff for pr in low.products.values()} == {0}
+        assert low.point and [k for k, _ in low.stages] == ["mv", "mv"]
+        assert sorted(pr.colmajor for pr in low.products.values()) == [False, True]
+        text = low.header()
+        assert f"prm[0 + (k) * {D} + (" in text or "prm[0 + (r) * " in text
+        assert f"prm[{11 * D + 11} + i]" in text  # X^T y
+        assert ("static Sums fill(" in text) == (kernel == "sticky")
+        assert ("static Sums sums(" in text) == (kernel != "sticky")
+        if kernel == "sticky":  # each product's input and output in shared memory
+            assert f"shared_bytes = {2 * (2 * D + 2 * 11)}L" in text
+            assert "__shared__ T rows" not in text and "__syncthreads();" in text
+        else:
+            # Sums: X^T s and its tangent (K1 keeps two); the input: beta
+            sums = 2 * D * (2 if kernel == "zigzag" else 1)
+            assert lower.lane_fits(low) and low.lane_bytes() == 4 * (sums + 2 * D)
+
+
+def test_a_lane_context_past_its_room_takes_the_engine(monkeypatch):
+    """A dense 100 x 100 quadratic form on BPS keeps 6400 bytes of context
+    per lane in float64, past ``lower.LANE_BYTES``: ``"auto"`` takes the
+    engine, ``"pallas"`` raises; in float32 (3200 bytes) it takes the
+    kernel."""
+    monkeypatch.setattr(tsc, "scalar_max_dim", lambda dt: 1210)
+    d = 100
+    A = torch.eye(d, dtype=torch.float64)
+    U = lambda x: 0.5 * x @ (A.to(x) @ x)  # noqa: E731
+    s = pt.BPSAD(d, U)
+    assert tapi.pick_backend(s, "auto", d, torch.float64, "cuda") == "engine"
+    with pytest.raises(ValueError, match="bytes per lane"):
+        tapi.pick_backend(s, "pallas", d, torch.float64, "cuda")
+    assert tapi.pick_backend(s, "auto", d, torch.float32, "cuda") == "kernel"
+    low = lower.lower_sampler(s, "bps", d, torch.float64)
+    assert low.lane_bytes() == 8 * 4 * 2 * d and not lower.lane_fits(low)
+    # K1 keeps a segment's two Sums alive: 4 d values each, beside the
+    # products' 4 d inputs
+    zz = lower.lower_sampler(pt.ZigZagAD(d, U), "zigzag", d, torch.float32)
+    assert zz.lane_bytes() == 4 * (2 * 4 * d + 4 * d)

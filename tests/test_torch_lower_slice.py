@@ -45,9 +45,9 @@ def _neal(np_):
 TARGETS = {"student": _student, "neal": _neal}
 
 
-def _pair(kernel, target):
+def _pair(kernel, target, targets=TARGETS):
     """The sampler in both packages on the jnp and the torch function."""
-    jU, tU = TARGETS[target](jnp), TARGETS[target](torch)
+    jU, tU = targets[target](jnp), targets[target](torch)
     if kernel == "zigzag":
         return pf.ZigZagAD(D, jU), pt.ZigZagAD(D, tU)
     if kernel == "sticky":
@@ -80,10 +80,12 @@ def _to_port(jst):
     return convert.state_from_numpy(fields, device="cpu")
 
 
-def run_both(kernel, target, horizon, seed=5):
+def run_both(kernel, target, horizon, seed=5, targets=TARGETS):
     """JAX's interpreted Pallas chunk and the port's plain version on the
-    lowered config (through its wrapper, on CPU tensors) from one state."""
-    js, ts = _pair(kernel, target)
+    lowered config (through its wrapper, on CPU tensors) from one state;
+    ``targets`` maps a target's name to its function of a numpy-like
+    module (``jnp`` or ``torch``)."""
+    js, ts = _pair(kernel, target, targets)
     assert ts.device_potential is None  # a gradient of the user's own
     kind, sticky = pdrv.kernel_kind(js), kernel == "sticky"
     x0, v0 = _initial(kernel, seed)
@@ -133,9 +135,9 @@ CASES = [("zigzag", "student", False), ("zigzag", "student", True),
          ("bps", "neal", False), ("suzz", "neal", False)]
 
 
-@pytest.mark.parametrize("kernel,target,horizon", CASES)
-def test_plain_kernel_on_lowered_gradient_matches_pallas(kernel, target, horizon):
-    ref, mine, t_target = run_both(kernel, target, horizon)
+def check_outputs(ref, mine, t_target):
+    """Integers and the activity mask equal, floats to ``RTOL``/``ATOL``;
+    many events, and in horizon mode a share of the lanes frozen."""
     for i, (a, b) in enumerate(zip(ref, mine)):
         if b.dtype == np.bool_:  # JAX keeps the activity 0/1 in the state dtype
             np.testing.assert_array_equal(a > 0, b, err_msg=str(i))
@@ -150,3 +152,8 @@ def test_plain_kernel_on_lowered_gradient_matches_pallas(kernel, target, horizon
     if t_target is not None:  # the target freezes a share of the lanes
         froze = ref[2][tzc.F_T] >= np.float32(t_target)
         assert 0.1 < froze.mean() < 0.95, froze.mean()
+
+
+@pytest.mark.parametrize("kernel,target,horizon", CASES)
+def test_plain_kernel_on_lowered_gradient_matches_pallas(kernel, target, horizon):
+    check_outputs(*run_both(kernel, target, horizon))

@@ -204,21 +204,24 @@ def test_pick_backend_shape_limits_on_cuda(monkeypatch):
 
 def test_untagged_gradient_on_cuda_names_the_engine(monkeypatch):
     """An untagged gradient that a kernel covers is lowered into a generated
-    potential and takes the kernel on CUDA under "auto" and "pallas"; one the
-    lowering cannot express (a dense ``A @ x``) raises there, naming the aten
-    op and backend="xla_stream"; that backend, and the CPU, run both.  Every
-    tag runs on every kernel: ``aniso`` on K1 and K3."""
+    potential and takes the kernel on CUDA under "auto" and "pallas", a
+    dense ``A @ x`` included; one the lowering cannot express (a running sum,
+    ``cumsum``) raises there, naming the aten op and backend="xla_stream";
+    that backend, and the CPU, run all three.  Every tag runs on every
+    kernel: ``aniso`` on K1 and K3."""
     monkeypatch.setattr(k3, "scalar_max_dim", lambda dt: 1210)
     A = torch.tensor([[2.0, 0.5, 0.0], [0.5, 1.0, 0.2], [0.0, 0.2, 3.0]], dtype=torch.float64)
     for make in (lambda g: pt.ZigZag(3, g), lambda g: pt.BPS(3, g),
                  lambda g: pt.SpeedUpZigZag(3, g)):
         s, dense = make(lambda x: x), make(lambda x: A.to(x) @ x)
+        refused = make(lambda x: torch.cumsum(x, 0))
         for backend in ("auto", "pallas"):
-            assert tapi.pick_backend(s, backend, 3, torch.float32, "cuda") == "kernel"
-            with pytest.raises(ValueError, match="aten.mv") as err:
-                tapi.pick_backend(dense, backend, 3, torch.float32, "cuda")
+            for g in (s, dense):
+                assert tapi.pick_backend(g, backend, 3, torch.float32, "cuda") == "kernel"
+            with pytest.raises(ValueError, match="aten.cumsum") as err:
+                tapi.pick_backend(refused, backend, 3, torch.float32, "cuda")
             assert "backend='xla_stream'" in str(err.value)
-        for g in (s, dense):
+        for g in (s, dense, refused):
             assert tapi.pick_backend(g, "xla_stream", 3, torch.float32, "cuda") == "engine"
             assert tapi.pick_backend(g, "auto", 3, torch.float32, "cpu") == "kernel"
     for aniso in (pt.BPSAD(3, pt.potentials.anisotropic_gauss([1.0, 2.0, 3.0])),
