@@ -327,7 +327,19 @@ Phases, one line each; any failure raises and exits non-zero:
    (K5) and the Sticky Zig-Zag (K6, kappa 1) on the logistic regression,
    K6 at ``sticky_zigzag_d1000``'s shape on a dense 1000 x 1000 AR(1)
    precision (rho 0.5), the quartic sum ``|x|^2 / 2 + log1p(sum x^4)`` on K1
-   (the flagship's shape) and K6 (d = 1000).  The script prints its clock
+   (the flagship's shape) and K6 (d = 1000);
+42. gradients that read other coordinates, through the kernels' accessor:
+   the AR(1) prior in its innovation form (``x[0]^2 / 2 + sum((x[1:] - rho
+   x[:-1])^2) / (2 (1 - rho^2))``, a band) at ``sticky_dense_ar1_d1000``'s
+   shape (rho 0.5) on K6 and on K1 (where the dense form takes the engine):
+   its pair against the dense ``P x`` at 64 points (rtol 1e-12), each kernel
+   against its plain version in f64 in events and horizon mode, the route
+   under ``"auto"`` (0 engine chunks), one timed call and an f32 launch with
+   its bound beside phase 41's dense K6 launch; at rho 0.9 and d = 10 on K1
+   and K3 at phase 39's shapes with phase 39's gate; phase 38's Neal funnel
+   with its scale at ``x[-1]`` on K1 at ``zigzag_neal_funnel_d10``'s shape,
+   x[-1]'s mean and variance against phase 38's x[0], and on K3, K5 and K4
+   bit for bit against their plain versions.  The script prints its clock
    after each group of phases.
 
 Then one JSON line of per-kernel results (launches counted in the timed run
@@ -342,11 +354,11 @@ paths, phase 30 for the entries of K1 and K2 named after the profiled
 flagship, phase 32 (dim 1) for K2's entry named after the gspmd
 deployment, phases 34 and 35 for the entries of K4, K1 and K2 named after
 their deployments, 35 (the engine route) for K2's entry named
-``engine:zigzag_neal_funnel_d10``, phases 36-41 for the entries
+``engine:zigzag_neal_funnel_d10``, phases 36-42 for the entries
 ``<kernel>[user:<path>]`` of each generated potential's path (and K2's on
 phase 36's two paths, timed at their shapes in phase 4b); max_abs_err the largest of the kernel's comparisons
 with its plain version, f64 and f32; the bound of each timed launch computed
-from its shape and this run's data; phases 39-41's entries carry
+from its shape and this run's data; phases 39-42's entries carry
 ``plain_of``: their plain time is the f64 parity launch's, their ``ms`` an
 f32 launch's), the card's name and power limit, and the status line.
 """
@@ -3891,13 +3903,14 @@ and (d, chains, points), each at the shape of the repo deployment it names."""
 
 
 def user_builds():
-    """Lower every gradient of phases 25 and 36-41 (float32 for the runs,
+    """Lower every gradient of phases 25 and 36-42 (float32 for the runs,
     float64 for the checks against the plain version) and build their user
     libraries, every ``nvcc`` started at once.  Returns (wall s, {library:
     seconds}, ptxas text)."""
     lows = []
     samplers = [make() for make, _ in USER_PATHS.values()]
     samplers += [s for s, *_ in dense_paths().values()]
+    samplers += [s for s, *_ in band_paths().values()] + list(neal_last_parity()[0].values())
     for s in samplers:
         for dt in (torch.float32, torch.float64):
             lows.append(lower.lower_sampler(s, driver.kernel_kind(s), s.dim, dt, DEV))
@@ -3938,10 +3951,12 @@ def chunk_fns(cfg):
             else (k1.run_chunk, k1.run_chunk_plain))
 
 
-def user_compare(what, sampler, B, bitwise, math_tag=None, n_chunks=2):
+def user_compare(what, sampler, B, bitwise, math_tag=None, n_chunks=2, horizon=False):
     """A user gradient's kernel against its plain version fed the IR's torch
     pair, ``n_chunks`` K=32 chunks from one f64 random state (every fifth
-    chain capped inside the run): integers equal, floats bit for bit where
+    chain capped inside the run; in horizon mode, K7, a float32 target at the
+    median clock that freezes a share of the lanes inside the run): integers
+    equal, floats bit for bit where
     ``bitwise`` (K3/K5, K4: where the math function of ``math_tag``'s
     gradient, as :func:`bit_tolerance` reads it, parts the two a bit, the
     first part is printed and the check takes ``RTOL``) else to
@@ -3958,6 +3973,8 @@ def user_compare(what, sampler, B, bitwise, math_tag=None, n_chunks=2):
     cfg = user_config(sampler, K, 48, torch.float64)
     run, plain = chunk_fns(cfg)
     st_k = driver.chunk_state(state, counts, sampler.sticky)
+    if horizon:
+        cfg = cfg._replace(t_target=median_target(run, st_k, cfg, K, n_chunks, 314159))
     st_p = clone_state(st_k)
     fill_k, fill_p = (k1.empty_fill(K * n_chunks, d, B, torch.float64, DEV, sampler.sticky)
                       for _ in range(2))
@@ -3987,6 +4004,7 @@ def user_compare(what, sampler, B, bitwise, math_tag=None, n_chunks=2):
     n_ev = int((fill_k.kind[:, 0] > 0).sum())
     if n_ev < B // 2:
         raise AssertionError(f"{what}: only {n_ev} events in the check")
+    target_share(st_k, cfg)
     return err, n_ev, plain_ms
 
 
@@ -4106,7 +4124,7 @@ def phase_user_main(card_name, builds):
     wall, secs, ptx = builds
     print(f"phase 36 the main path on gradients of the user's own (B={B}, d={d}, "
           f"n_sk={n_sk}, f32, backend='auto'): {'; '.join(texts)}; user builds (phases 25 and "
-          f"36-41, {len(secs)} libraries, every nvcc at once): wall {wall:.1f} s; {ptx} "
+          f"36-42, {len(secs)} libraries, every nvcc at once): wall {wall:.1f} s; {ptx} "
           f"({card_name})", flush=True)
     return out
 
@@ -4222,8 +4240,8 @@ def phase_user_reductions(card_name, neal_tagged):
     (``cumsum``) raises ``LoweringError`` there before any build or launch,
     naming the aten op and ``backend="xla_stream"``, and runs on the engine
     under that backend.  Returns {path: (launches, ms, plain ms, bound,
-    err)}."""
-    out, texts = {}, []
+    err)}, and the K1 funnel's x[0] mean and variance (phase 42's reference)."""
+    out, texts, moments = {}, [], {}
     refs = {"user_neal_zigzag_d10": neal_tagged}
     d, B, n_sk = SUZZ_D10
     x0, v0 = np.zeros((B, d)), np.ones((B, d))
@@ -4245,6 +4263,7 @@ def phase_user_reductions(card_name, neal_tagged):
         events = int(skel.n_valid.sum()) - B
         del skel
         m, v = float(mean[0]), float(var[0])
+        moments[path] = (m, v)
         m_t, v_t = refs[path]
         if not (abs(m - m_t) < 0.15 and abs(v / v_t - 1.0) < 0.1):
             raise AssertionError(f"{what}: x[0] mean {m:.4f} vs the tag's {m_t:.4f}, "
@@ -4267,8 +4286,9 @@ def phase_user_reductions(card_name, neal_tagged):
     make, (d, B, _) = USER_PATHS[path]
     sampler = make()
     low = lower.lower_sampler(sampler, "sticky", d, torch.float64, DEV)
-    if "reads01 = true" not in low.header():
-        raise AssertionError(f"phase 38 {path}: its sum reads coordinate 0 but reads01 is false")
+    if "reads_others = true" not in low.header():
+        raise AssertionError(f"phase 38 {path}: its sum reads coordinate 0 but reads_others "
+                             "is false")
     err_h, n_ev_h, _ = user_compare(f"phase 38 {path}", sampler, B, False)
     texts.append(f"{path} (StickyZigZagAD d={d} B={B}, U = x0^2/2 + sum((x[1:] - x[0])^2)/2; "
                  f"sums {[[p.e.text() for p in r] for r in low.reductions]}): sticky_chunk "
@@ -4304,7 +4324,7 @@ def phase_user_reductions(card_name, neal_tagged):
           f"(cumsum): 'auto' raises before any build or launch ({msg}); backend='xla_stream' "
           f"ran it: {chunks} engine chunks, {transitions} transitions, {k2_n} K2 launches, "
           f"{e_wall:.3f} s ({card_name})", flush=True)
-    return out
+    return out, moments["user_neal_zigzag_d10"]
 
 
 # ---------------------------------------------------------------------------
@@ -4500,14 +4520,15 @@ def logistic_gate(what, xs, ref_mean, cov):
                   f"- 1| {float(dv.max()):.4f} < 0.2")
 
 
-def kernel_chunk(sampler, x0, v0):
-    """One f32 K=32 launch of a generated potential's kernel at its
-    deployment's shape and start, timed (the mean of 20 after a warm one),
-    and its bound.  Returns (ms, bound)."""
+def kernel_chunk(sampler, x0, v0, config=None):
+    """One f32 K=32 launch of a generated potential's kernel (or, with
+    ``config`` :func:`card_config`, a tagged sampler's) at its deployment's
+    shape and start, timed (the mean of 20 after a warm one), and its
+    bound.  Returns (ms, bound)."""
     B, d = x0.shape
     K, seed = 32, 7
     state = sampler.init_state_batch(x0, v0, 0, torch.float32, DEV)
-    cfg = user_config(sampler, K, 1 << 30, torch.float32)
+    cfg = (config or user_config)(sampler, K, 1 << 30, torch.float32)
     run, _ = chunk_fns(cfg)
     st = driver.chunk_state(state, torch.zeros(B, dtype=torch.int32, device=DEV),
                             sampler.sticky)
@@ -4518,7 +4539,8 @@ def kernel_chunk(sampler, x0, v0):
     return cuda_ms(lambda: run(seed, st, fill, 0, cfg), 20), b
 
 
-def phase_dense(card_name, names, title, calls, b_map=None, cov=None, ref_mean=None):
+def phase_dense(card_name, names, title, calls, b_map=None, cov=None, ref_mean=None,
+                paths=None, gates=None):
     """One deployment of ``dense_paths`` after another: the kernel against
     its plain version in f64 at the deployment's shape (one K=32 launch from
     a random state, K3/K5 and K4 bit for bit, K1 and K6 to ``RTOL``); the
@@ -4526,9 +4548,12 @@ def phase_dense(card_name, names, title, calls, b_map=None, cov=None, ref_mean=N
     no ``LoweringError``) with ``calls`` timed warm calls; the gates; one f32
     K=32 launch timed (``kernel_chunk``; the plain version's time is its
     f64 parity launch's, whose ordered 1000-term sums take seconds).
-    Returns ({path: (launches, ms, plain ms, bound, err)}, {path: pooled
-    means of the second halves})."""
-    paths = dense_paths()
+    ``paths`` (default ``dense_paths()``) holds the deployments, ``gates``
+    a gate ``(what, sampler, skeleton) -> text`` per path beside the ones
+    here.  Returns ({path: (launches, ms, plain ms, bound, err)}, {path:
+    pooled means of the second halves})."""
+    paths = dense_paths() if paths is None else paths
+    gates = gates or {}
     out, means, texts = {}, {}, []
     for path in names:
         sampler, (d, B, n_sk), bitwise, tag, start = paths[path]
@@ -4542,7 +4567,9 @@ def phase_dense(card_name, names, title, calls, b_map=None, cov=None, ref_mean=N
         events = int(skel.n_valid.sum()) - B
         name = path_launch(sampler)
         gate = ""
-        if "corr_gauss" in path:
+        if path in gates:
+            gate = gates[path](what, sampler, skel)
+        elif "corr_gauss" in path:
             gate = corr_gate(what, pt.sample_from_skeleton_batch(sampler, 256, skel), CORR_RHO)
         elif path in ("zigzag_logistic_d20_n1000", "bps_logistic_d20_n1000",
                       "suzz_logistic_d20_n1000"):
@@ -4555,7 +4582,7 @@ def phase_dense(card_name, names, title, calls, b_map=None, cov=None, ref_mean=N
         stages = ", ".join(
             f"{low.products[s].rows} x {low.products[s].cols} product" if kind == "mv" else
             "sum of degree past 2 in t" if max(p.e.deg for p in low.reductions[s]) > 2 else
-            "quadratic sum" for kind, s in low.stages)
+            "quadratic sum" for kind, s in low.stages) or "none"
         texts.append(
             f"{path} ({type(sampler).__name__} d={d} B={B} n_sk={n_sk}; stages: {stages}; "
             f"{low.params.numel()} parameters, {low.lane_bytes()} B per lane, "
@@ -4619,6 +4646,155 @@ def phase_dense_parity(card_name):
              "sticky_logistic_d20_n1000", "sticky_dense_ar1_d1000", "zigzag_quartic_d10",
              "sticky_quartic_d1000"]
     out, _ = phase_dense(card_name, names, "phase 41", 1, b_map)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 42: gradients that read other coordinates (a neighbour at a fixed
+# offset, x[k] past coordinate 1), read through the kernels' accessor
+# ---------------------------------------------------------------------------
+
+
+def ar1_band(rho):
+    """The AR(1) prior with unit marginal variance as users write it, in its
+    innovation form: ``U = x0^2 / 2 + sum((x[1:] - rho x[:-1])^2) / (2 (1 -
+    rho^2))``; its precision is :func:`ar1_precision`'s, tridiagonal."""
+    c = 1.0 / (2.0 * (1.0 - rho ** 2))
+    return lambda x: x[0] ** 2 / 2 + c * torch.sum((x[1:] - rho * x[:-1]) ** 2)
+
+
+def user_neal_last(x):
+    """Phase 38's Neal funnel with its scale last: ``x[-1]`` in place of
+    ``x[0]``, a read of coordinate d - 1 at every coordinate."""
+    return (x[-1] * x[-1] / 18.0 + 0.5 * (x.shape[0] - 1) * x[-1]
+            + 0.5 * torch.sum(x[:-1] ** 2) * torch.exp(-x[-1]))
+
+
+def band_paths():
+    """Phase 42's deployments (as :func:`dense_paths`): the banded AR(1) at
+    ``sticky_dense_ar1_d1000``'s shape on K6 and K1 (rho 0.5), at rho 0.9 on
+    ``zigzag_corr_gauss_d10``'s and ``bps_corr_gauss_d10``'s shapes, and the
+    funnel with its scale last at ``zigzag_neal_funnel_d10``'s."""
+    dd, dB, dn, kappa, rho = DENSE_AR
+    bps_d, bps_B, bps_n, bps_refresh = BPS_D10
+    wide, mixing = ar1_band(rho), ar1_band(CORR_RHO)
+    return {
+        "sticky_band_ar1_d1000": (pt.StickyZigZagAD(dd, wide, np.full(dd, kappa)),
+                                  (dd, dB, dn), False, None, "sticky"),
+        "zigzag_band_ar1_d1000": (pt.ZigZagAD(dd, wide), (dd, dB, dn), False, None, "sticky"),
+        "zigzag_band_ar1_d10": (pt.ZigZagAD(10, mixing), MAIN, False, None, "ones"),
+        "bps_band_ar1_d10": (pt.BPSAD(10, mixing, refresh_rate=bps_refresh),
+                             (bps_d, bps_B, bps_n), True, None, "ones"),
+        "zigzag_neal_last_d10": (pt.ZigZagAD(10, user_neal_last), NEAL_D10, False,
+                                 "neal_funnel", "ones"),
+    }
+
+
+def neal_last_parity():
+    """The funnel with its scale last on the walking kernels (K3, K5, K4), at
+    phase 38's K4 shape: held bit for bit against their plain versions."""
+    d, B, _ = SUZZ_D10
+    return {"bps": pt.BPSAD(d, user_neal_last, refresh_rate=BPS_D10[3]),
+            "ecmc": pt.ForwardECMCAD(d, user_neal_last),
+            "suzz": pt.SpeedUpZigZagAD(d, user_neal_last)}, B
+
+
+def band_pair(what, sampler, P, n=64):
+    """The banded gradient's lowered pair against the dense ``P x`` and ``P
+    v`` in f64 at ``n`` seeded random points on the card, rtol 1e-12 (atol
+    1e-12).  Returns the max abs err."""
+    d = sampler.dim
+    low = lower.lower_sampler(sampler, driver.kernel_kind(sampler), d, torch.float64, DEV)
+    rs = np.random.default_rng(d + n)
+    x, v = (torch.as_tensor(rs.normal(size=(d, n)), device=DEV) for _ in range(2))
+    Pt = torch.as_tensor(P, device=DEV)
+    err = 0.0
+    for got, want in zip(low.grad_jvp(x, v), (Pt @ x, Pt @ v)):
+        bad = (got - want).abs() > 1e-12 + 1e-12 * want.abs()
+        if bool(bad.any()):
+            raise AssertionError(f"{what}: the banded pair parts from the dense P x at "
+                                 f"{int(bad.sum())} places")
+        err = max(err, float((got - want).abs().max()))
+    return err
+
+
+def phase_band(card_name, dense_k6, neal_user):
+    """Phase 42, gradients that read other coordinates.  The AR(1) prior in
+    its innovation form (a band: every coordinate reads ``x[i - 1]`` and
+    ``x[i + 1]``) at ``sticky_dense_ar1_d1000``'s shape (d = 1000, 128 chains
+    x 2048 points, rho 0.5, x0 = 0.3) on K6 (kappa 10) and on K1, where the
+    dense ``0.5 x P x`` takes the engine (its context passes
+    ``lower.LANE_BYTES``): the pair against the dense ``P x`` at 64 points,
+    then as :func:`phase_dense` (the f64 parity launch to ``RTOL``, the
+    route with one timed call, an f32 launch with its bound) beside phase
+    41's dense K6 launch ``dense_k6`` (ms, bound); a horizon launch of each
+    against its plain version.  At rho 0.9 and d = 10 on K1 and K3 at
+    phase 39's shapes, ``corr_gate``.  Phase 38's Neal funnel with its scale
+    at ``x[-1]`` on K1 at ``zigzag_neal_funnel_d10``'s shape: x[-1]'s mean
+    within 0.15 and variance within 10% of phase 38's x[0] (``neal_user``),
+    and K3, K5 and K4 on it bit for bit (where exp parts the two a bit, the
+    first part printed and ``RTOL``), K4 in horizon mode too.  Returns
+    {path: (launches, ms, plain ms, bound, err)}."""
+    paths = band_paths()
+    dd, _, _, _, rho = DENSE_AR
+    P = ar1_precision(dd, rho)
+    pair_errs = {path: band_pair(f"phase 42 {path}", paths[path][0], P)
+                 for path in ("sticky_band_ar1_d1000", "zigzag_band_ar1_d1000")}
+    dense_route = api.pick_backend(pt.ZigZagAD(dd, quadratic_form(P)), "auto", dd,
+                                   torch.float32, DEV)
+    if dense_route != "engine":
+        raise AssertionError(f"phase 42: the dense AR(1) on K1 at d={dd} took {dense_route}")
+
+    def corr(what, sampler, skel):
+        return corr_gate(what, pt.sample_from_skeleton_batch(sampler, 256, skel), CORR_RHO)
+
+    def funnel(what, sampler, skel):
+        mean, var = pt.pooled_moments(skel, sampler, 256)
+        m, v = float(mean[-1]), float(var[-1])
+        m_t, v_t = neal_user
+        if not (abs(m - m_t) < 0.15 and abs(v / v_t - 1.0) < 0.1):
+            raise AssertionError(f"{what}: x[-1] mean {m:.4f} vs phase 38's x[0] {m_t:.4f}, "
+                                 f"variance {v:.4f} vs {v_t:.4f}")
+        return (f"x[-1] mean {m:.4f} vs phase 38's x[0] {m_t:.4f} (within {abs(m - m_t):.4f} "
+                f"< 0.15), variance {v:.4f} vs {v_t:.4f} (within {abs(v / v_t - 1):.2%} < 10%)")
+
+    gates = {"zigzag_band_ar1_d10": corr, "bps_band_ar1_d10": corr,
+             "zigzag_neal_last_d10": funnel}
+    out, _ = phase_dense(card_name, list(paths), "phase 42", 1, paths=paths, gates=gates)
+    texts = [f"pairs against the dense P x (64 points, f64): "
+             f"{', '.join(f'{p} {e:.3e}' for p, e in pair_errs.items())}; the dense form on K1 "
+             f"at d={dd} routes to the {dense_route}"]
+    # horizon mode (K7) of K6 and K1 on the band, against the plain versions
+    for path in ("sticky_band_ar1_d1000", "zigzag_band_ar1_d1000", "bps_band_ar1_d10"):
+        sampler, (d, B, _), bitwise, _, _ = paths[path]
+        e, n_ev, _ = user_compare(f"phase 42 {path} horizon", sampler, B, bitwise, n_chunks=1,
+                                  horizon=True)
+        launches, ms, plain_ms, b, err = out[path]
+        out[path] = (launches, ms, plain_ms, b, max(err, e))
+        texts.append(f"{path} horizon vs plain f64 max_abs_err={e:.3e} ({n_ev} events)")
+    parity, B = neal_last_parity()
+    for kind, sampler in parity.items():
+        for horizon in ((False, True) if kind == "suzz" else (False,)):
+            e, n_ev, _ = user_compare(f"phase 42 {kind}_neal_last_d10", sampler, B, True,
+                                      math_tag="neal_funnel", n_chunks=1, horizon=horizon)
+            texts.append(f"{kind}_neal_last_d10{' horizon' if horizon else ''} (B={B}) vs "
+                         f"plain f64 bit for bit max_abs_err={e:.3e} ({n_ev} events)")
+    k6_ms, k6_b = out["sticky_band_ar1_d1000"][1], out["sticky_band_ar1_d1000"][3]
+    texts.append(f"K6 f32 launch at d={dd}: banded {k6_ms:.4f} ms (bound {bound_text(k6_b)}) "
+                 f"vs phase 41's dense A @ x {dense_k6[0]:.4f} ms (bound "
+                 f"{bound_text(dense_k6[1])}), {dense_k6[0] / k6_ms:.1f}x")
+    # K1 at this shape on the tagged Gaussian, from the same start: what K1
+    # costs at d = 1000 with 128 chains whatever the potential
+    k1_ms = out["zigzag_band_ar1_d1000"][1]
+    _, (_, dB, _), _, _, _ = paths["zigzag_band_ar1_d1000"]
+    g_ms, g_b = kernel_chunk(pt.ZigZag(dd, pt.potentials.grad_gauss), np.full((dB, dd), 0.3),
+                             np.ones((dB, dd)), config=card_config)
+    texts.append(f"K1 f32 launch at d={dd}, B={dB} (L={lanes(dB)}): banded {k1_ms:.4f} ms vs "
+                 f"the tagged Gaussian {g_ms:.4f} ms (bound {bound_text(g_b)}), "
+                 f"{k1_ms / g_ms:.2f}x")
+    notes = "; ".join(n for n in MATH_NOTES if n.startswith("phase 42")) or "none"
+    print(f"phase 42 reads of other coordinates: {'; '.join(texts)}; bit-for-bit checks that "
+          f"parted in exp: {notes} ({card_name})", flush=True)
     return out
 
 
@@ -4688,7 +4864,7 @@ def main():
     k2_paths = {"rhmc_gauss_d10": phase_rhmc(card_name)}
     for tderiv in ("fd", "jvp"):
         k2_paths[f"zigzag_banana_d10_{tderiv}"] = phase_banana_engine(card_name, tderiv)
-    builds = user_builds()  # phases 25 and 36-38's user libraries, every nvcc at once
+    builds = user_builds()  # phases 25 and 36-42's user libraries, every nvcc at once
     phase_routing(card_name)
     at(25)
     k2_paths["host:sticky_zigzag_d1000"] = phase_host_sticky(card_name, sticky, k6_ms)
@@ -4712,14 +4888,19 @@ def main():
     at(36)
     user.update(phase_user_kernels(card_name))
     at(37)
-    user.update(phase_user_reductions(card_name, neal_x0))
+    reductions, neal_user = phase_user_reductions(card_name, neal_x0)
+    user.update(reductions)
     at(38)
     user.update(phase_dense_corr(card_name))
     at(39)
     user.update(phase_dense_logistic(card_name))
     at(40)
-    user.update(phase_dense_parity(card_name))
+    parity = phase_dense_parity(card_name)
+    user.update(parity)
     at(41)
+    dense_k6 = parity["sticky_dense_ar1_d1000"]
+    user.update(phase_band(card_name, (dense_k6[1], dense_k6[3]), neal_user))
+    at(42)
     zz = "pdmpflux_tpu/ops/pallas/zigzag_chunk.py:854"
     k7 = 'pdmpflux_tpu/ops/pallas/zigzag_chunk.py:343 mode="horizon"'
     kernels = [
@@ -4792,17 +4973,17 @@ def main():
             kernel_entry(f"compact_rows[{path}]", "compact.cu",
                          "pdmpflux_tpu/ops/pallas/compact.py:132", n["compact_rows"], k2e,
                          k2ms, k2pms, k2b)]
-    # the generated potentials' paths (phases 36-41), each kernel timed at its
-    # shape and checked there in f32 and, in phases 37-41, against its plain
+    # the generated potentials' paths (phases 36-42), each kernel timed at its
+    # shape and checked there in f32 and, in phases 37-42, against its plain
     # version in f64; their K2 launches compact fills of the flagship's shapes
     # (phase 4b's K2 numbers) or of their own deployments' shapes
     sources = {"zigzag_chunk": ("zigzag_chunk.cu", zz), "sticky_chunk": ("sticky_chunk.cu", zz),
                "bps_chunk": ("scalar_chunk.cu", zz + ' kind="bps"/"boomerang"'),
                "ecmc_chunk": ("scalar_chunk.cu", zz + ' kind="ecmc"'),
                "suzz_chunk": ("suzz_chunk.cu", zz + ' kind="suzz"')}
-    # phases 39-41 time the kernel on an f32 launch from the deployment's
+    # phases 39-42 time the kernel on an f32 launch from the deployment's
     # start and the plain version on the f64 parity launch from a random state
-    dense = set(dense_paths())
+    dense = set(dense_paths()) | set(band_paths())
     for path, (n, ms, plain_ms, b, err) in user.items():
         name = next(k for k in sources if n.get(k))
         kernels.append(kernel_entry(

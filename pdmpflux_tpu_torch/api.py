@@ -173,9 +173,13 @@ def pick_backend(sampler, backend: str, d: int, dtype, device) -> str:
     (``ops/cuda/lower.py``) and takes the kernel, unless its context at a
     point passes what the kernel keeps (K6's shared memory, read from its
     build; ``lower.LANE_BYTES`` a lane of the others): then the engine
-    under ``"auto"``, ``ValueError`` under ``"pallas"``.  A gradient the
-    lowering cannot express raises its ``LoweringError`` under ``"auto"``
-    and ``"pallas"``, naming ``backend="xla_stream"``.  A failed build or launch
+    under ``"auto"``, ``ValueError`` under ``"pallas"``.  Reads of
+    neighbours at fixed offsets (``x[1:] - x[:-1]``, a band) and of any fixed
+    coordinate (``x[k]``) take the kernel like any other read.  A gradient
+    the lowering cannot express (a running sum, one element of a matrix
+    product, a slice of a data vector's rows, a batch of products) raises
+    its ``LoweringError`` under ``"auto"`` and ``"pallas"``, naming
+    ``backend="xla_stream"``.  A failed build or launch
     never picks the route: they raise where they happen."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, not {backend!r}")

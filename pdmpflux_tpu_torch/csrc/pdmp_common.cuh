@@ -133,6 +133,17 @@ __device__ __forceinline__ T nmax(T a, T b) {
   return (isnan(a) || a > b) ? a : b;
 }
 
+// The accessor of the point x + v t (coordinate j at x[j * stride], v[j *
+// stride]) that the kernels hand a potential's at and sums: yw(j, y, w) gives
+// coordinate j's position y = x_j + v_j t and velocity w = v_j.
+template <typename T>
+__device__ __forceinline__ auto linear_point(const T* x, const T* v, long stride, T t) {
+  return [=](int j, T& y, T& w) {
+    w = v[j * stride];
+    y = x[j * stride] + w * t;
+  };
+}
+
 // Velocity of coordinate i, va_i = v_i * act_i: x and v point at the chain's
 // coordinate 0 with coordinates `stride` apart (K1: a column of the (d, B)
 // state, stride B; K6: the chain's shared-memory copy, stride 1); act is the
@@ -174,12 +185,14 @@ struct ChainMoments {
   }
 };
 
-// A tag that reads no sums: zeros, and no moments.  reads01 says that a
-// kernel must make coordinates 0 and 1 visible to every thread before it
-// reads them (K6 takes a barrier); a tag reads them only where its own
+// A tag that reads no sums: zeros, and no moments.  reads_others says that
+// the potential reads coordinates other than the evaluated one (0 and 1, a
+// neighbour, any fixed coordinate) through values other threads wrote, so a
+// kernel must make the chain visible to every thread before it evaluates
+// (K6 takes barriers); a tag reads coordinates 0 and 1 only where its own
 // threads flowed them (Banana at coordinates 0 and 1, the funnels from
 // registers).  A potential generated from a user's gradient
-// (UserPotential, below) brings its own Sums, Moments and reads01, and
+// (UserPotential, below) brings its own Sums, Moments and reads_others, and
 // with point = true a context formed at every point a kernel evaluates (its
 // sums and its products with constant matrices): K1 calls Pot::sums there
 // from the lane that evaluates the point, as K3/K5 and K4 do everywhere,
@@ -189,7 +202,7 @@ template <typename T>
 struct TagPotential {
   static constexpr bool chain = false;
   static constexpr bool point = false;
-  static constexpr bool reads01 = false;
+  static constexpr bool reads_others = false;
   static constexpr long shared_bytes = 0;
   using Sums = ChainSums<T>;
   using Moments = ChainMoments<T>;
@@ -238,13 +251,17 @@ struct FunnelSums : TagPotential<T> {
 // x + va t and its derivative along va, from values: coordinate i's own
 // (xi, vi), coordinates 0 and 1 (Banana and the funnels read them), the
 // potential's parameters (Aniso's scales) and the chain sums at the same
-// point (the funnels).  Each is written as the plain version
-// (utils/potentials.LANE_POTENTIALS) writes it, in jax.grad's order of
-// operations where the formula allows.
+// point (the funnels).  Every potential's at also takes the kernel's
+// accessor yw(j, y, w) of the same point (any coordinate's position and
+// velocity there, as Pot::sums takes it); the tags ignore it, a generated
+// potential reads its neighbours and fixed coordinates through it.  Each
+// tag is written as the plain version (utils/potentials.LANE_POTENTIALS)
+// writes it, in jax.grad's order of operations where the formula allows.
 template <typename T>
 struct Gauss : TagPotential<T> {
+  template <class F>
   __device__ __forceinline__ static void at(int, T xi, T vi, T, T, T, T, T t, const T*,
-                                            const ChainSums<T>&, T& g, T& dg) {
+                                            const ChainSums<T>&, F, T& g, T& dg) {
     g = xi + vi * t;
     dg = vi;
   }
@@ -252,10 +269,12 @@ struct Gauss : TagPotential<T> {
 
 template <typename T>
 struct Banana : TagPotential<T> {  // U = (x0^2 + (x1 - x0^2 + 1)^2 + sum_{k>=2} x_k^2) / 2
+  template <class F>
   __device__ __forceinline__ static void at(int i, T xi, T vi, T x0, T v0, T x1, T v1, T t,
-                                            const T*, const ChainSums<T>& cs, T& g, T& dg) {
+                                            const T*, const ChainSums<T>& cs, F yw, T& g,
+                                            T& dg) {
     if (i >= 2) {
-      Gauss<T>::at(i, xi, vi, x0, v0, x1, v1, t, nullptr, cs, g, dg);
+      Gauss<T>::at(i, xi, vi, x0, v0, x1, v1, t, nullptr, cs, yw, g, dg);
       return;
     }
     const T y0 = x0 + v0 * t, y1 = x1 + v1 * t;
@@ -275,8 +294,9 @@ struct Banana : TagPotential<T> {  // U = (x0^2 + (x1 - x0^2 + 1)^2 + sum_{k>=2}
 // (v / s) / s.
 template <typename T>
 struct Aniso : TagPotential<T> {
+  template <class F>
   __device__ __forceinline__ static void at(int i, T xi, T vi, T, T, T, T, T t, const T* s,
-                                            const ChainSums<T>&, T& g, T& dg) {
+                                            const ChainSums<T>&, F, T& g, T& dg) {
     const T si = s[i];
     g = (xi + vi * t) / si / si;
     dg = vi / si / si;
@@ -287,8 +307,9 @@ struct Aniso : TagPotential<T> {
 // q = 1 / (y^2 + 1), and along v 2 (v q + y p), p = -(2 (v y)) / (y^2 + 1)^2.
 template <typename T>
 struct Cauchy : TagPotential<T> {
+  template <class F>
   __device__ __forceinline__ static void at(int, T xi, T vi, T, T, T, T, T t, const T*,
-                                            const ChainSums<T>&, T& g, T& dg) {
+                                            const ChainSums<T>&, F, T& g, T& dg) {
     const T y = xi + vi * t;
     const T j = y * y + (T)1;
     const T q = (T)1 / j;
@@ -304,8 +325,9 @@ struct Cauchy : TagPotential<T> {
 // (-((10 v) sin(10 y)) + v / 2) + v / 2.
 template <typename T>
 struct Ridged : TagPotential<T> {
+  template <class F>
   __device__ __forceinline__ static void at(int, T xi, T vi, T, T, T, T, T t, const T*,
-                                            const ChainSums<T>&, T& g, T& dg) {
+                                            const ChainSums<T>&, F, T& g, T& dg) {
     const T y = xi + vi * t;
     const T z = (T)10 * y;
     g = (cos(z) + (T)0.5 * y) + (T)0.5 * y;
@@ -319,8 +341,10 @@ struct Ridged : TagPotential<T> {
 // dg_j = v_j / c^2 - 2 v_0 (c / c^4) y_j.
 template <typename T>
 struct Funnel : FunnelSums<T> {
+  template <class F>
   __device__ __forceinline__ static void at(int i, T xi, T vi, T x0, T v0, T, T, T t,
-                                            const T*, const ChainSums<T>& cs, T& g, T& dg) {
+                                            const T*, const ChainSums<T>& cs, F, T& g,
+                                            T& dg) {
     const T c = x0 + v0 * t;
     const T c2 = c * c;
     const T r4 = (T)1 / (c2 * c2);
@@ -344,8 +368,10 @@ struct Funnel : FunnelSums<T> {
 // dg_0 = (-(P e + (S / 2) e') + v_0 k) + v_0 k and dg_j = e' y_j + e v_j.
 template <typename T>
 struct NealFunnel : FunnelSums<T> {
+  template <class F>
   __device__ __forceinline__ static void at(int i, T xi, T vi, T x0, T v0, T, T, T t,
-                                            const T*, const ChainSums<T>& cs, T& g, T& dg) {
+                                            const T*, const ChainSums<T>& cs, F, T& g,
+                                            T& dg) {
     const T c = x0 + v0 * t;
     const T e = exp(-c);
     const T ed = -v0 * e;

@@ -91,21 +91,20 @@ struct Jump {
 template <typename T, class Pot>
 __device__ __forceinline__ typename Pot::Sums sums_at(const T* x, const T* v, int d, T t,
                                                       const T* prm) {
-  return Pot::sums(d, prm, [&](int j, T& y, T& w) {
-    w = v[j];
-    y = x[j] + w * t;
-  });
+  return Pot::sums(d, prm, linear_point(x, v, 1, t));
 }
 
 // Gradient component i at x + v t and its derivative along v, x and v the
 // chain's d shared values; the "aniso" potential reads its scales from prm,
-// the funnels their chain sums cs at the same point.
+// the funnels their chain sums cs at the same point, a generated potential
+// its neighbours and fixed coordinates through the point's accessor.
 template <typename T, class Pot>
 __device__ __forceinline__ void grad_at(const T* x, const T* v, int d, int i, T t,
                                         const T* prm, const typename Pot::Sums& cs,
                                         T& g, T& dg) {
   const int i1 = d > 1 ? 1 : 0;
-  Pot::at(i, x[i], v[i], x[0], v[0], x[i1], v[i1], t, prm, cs, g, dg);
+  Pot::at(i, x[i], v[i], x[0], v[0], x[i1], v[i1], t, prm, cs, linear_point(x, v, 1, t), g,
+          dg);
 }
 
 // Sum of r[0..d) in coordinate order, r[0] + r[1] + ..., the same bits in
@@ -185,14 +184,16 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
       const int i1 = d > 1 ? 1 : 0;
       const T y0 = X[0] * c + V[0] * s, w0 = -X[0] * s + V[0] * c;
       const T y1 = X[i1] * c + V[i1] * s, w1 = -X[i1] * s + V[i1] * c;
-      const auto cs = Pot::sums(d, prm, [&](int j, T& y, T& w) {
+      // the point on the elliptic flow, read by coordinate
+      const auto point = [&](int j, T& y, T& w) {
         y = X[j] * c + V[j] * s;
         w = -X[j] * s + V[j] * c;
-      });
+      };
+      const auto cs = Pot::sums(d, prm, point);
       for (int i = 0; i < d; ++i) {
         const T yi = X[i] * c + V[i] * s, wi = -X[i] * s + V[i] * c;
         T g, dg;
-        Pot::at(i, yi, wi, y0, w0, y1, w1, zero, prm, cs, g, dg);
+        Pot::at(i, yi, wi, y0, w0, y1, w1, zero, prm, cs, point, g, dg);
         g = g - yi;   // grad U_eff = grad U(x) - x
         dg = dg - wi;
         const T r0 = g * wi, r1 = dg * wi + g * -yi;

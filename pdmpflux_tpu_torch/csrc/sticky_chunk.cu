@@ -63,9 +63,12 @@
 // evaluates, and the flip's rates read coordinate 0 flowed in registers.  Only threads 0 and 1 read another
 // coordinate (Banana's y0 and y1), both in warp 0, so the flow and the
 // flip, stick and thaw updates need a __syncwarp, not a barrier.  A
-// potential generated from a user's gradient that reads coordinates 0 and 1
-// at other coordinates or in its sums (reads01) takes one more barrier at
-// the start of each transition, before any thread reads them.  A
+// potential generated from a user's gradient that reads other coordinates
+// (reads_others: 0 and 1, a neighbour, which sits in another warp at every
+// 32nd coordinate and in another tile past 1024, or any fixed coordinate,
+// all read through the accessor point_at) takes one more barrier at the
+// start of each transition, before any thread reads them, and without a
+// point context one more on a jump, between the flow and round C's rates.  A
 // generated potential whose stages the moments do not give (a product
 // with a constant matrix, a sum past degree 2: Pot::point) forms them at
 // every point with the whole block (Pot::fill: a stage's positions across
@@ -284,9 +287,10 @@ sticky_chunk_kernel(Params p, const T* __restrict__ prm, T* __restrict__ x, T* _
       if (warp == 0 && lane_w < 5)
         draws[lane_w] = transition_draw<T>(seed, (uint32_t)k, (uint32_t)p.tile, lane, lane_w);
       if (redraw_tt) frozen_kappa_partial();
-      if constexpr (Pot::reads01) {
-        // every warp reads coordinates 0 and 1 below: wait for threads 0
-        // and 1's flow, flip, stick and thaw of the previous transition
+      if constexpr (Pot::reads_others) {
+        // every warp reads other threads' coordinates below (0 and 1, a
+        // neighbour across a warp or a tile, a fixed coordinate): wait for
+        // their flow, flip, stick and thaw of the previous transition
         __syncthreads();
       }
       // the potential's chain moments (the funnels': over coordinates
@@ -295,7 +299,7 @@ sticky_chunk_kernel(Params p, const T* __restrict__ prm, T* __restrict__ x, T* _
       // transition
       typename Pot::Moments mom = Pot::moments_zero(d);
       if constexpr (Pot::chain && !Pot::point) {
-        // coordinates 0 and 1, which only a potential with reads01 reads
+        // coordinates 0 and 1, which only a potential with reads_others reads
         const T x0m = sx[0], v0m = masked(sv, sact, 0), x1m = sx[s1];
         const T v1m = masked(sv, sact, s1);
         for (int i = tid; i < d; i += nt)
@@ -311,15 +315,20 @@ sticky_chunk_kernel(Params p, const T* __restrict__ prm, T* __restrict__ x, T* _
         for (int q = 0; q < Pot::Moments::N; ++q) mom.m[q] = across_warps(r_mom[q], nw);
       }
 
+      // the point x + va t, read by coordinate (the accessor a potential's
+      // fill and at take)
+      auto point_at = [&](T t) {
+        return [&, t](int j, T& y, T& w) {
+          w = masked(sv, sact, j);
+          y = sx[j] + w * t;
+        };
+      };
       // the potential's sums at time t: from the moments, or for a point
       // potential every sum and product formed at x + va t by the block
       // (every thread calls it: the branches around it are uniform)
       auto sums_at = [&](T t) {
         if constexpr (Pot::point) {
-          return Pot::fill(d, prm, ctx, [&](int j, T& y, T& w) {
-            w = masked(sv, sact, j);
-            y = sx[j] + w * t;
-          });
+          return Pot::fill(d, prm, ctx, point_at(t));
         } else {
           return mom.at(t);
         }
@@ -333,7 +342,7 @@ sticky_chunk_kernel(Params p, const T* __restrict__ prm, T* __restrict__ x, T* _
       // coordinate i's rate pair at time tj with the sums cs at tj
       auto pair_at = [&](int i, T xi, T va, T tj, const typename Pot::Sums& cs, T& f, T& gd) {
         T g, dg;
-        Pot::at(i, xi, va, x0, v0, x1, v1, tj, prm, cs, g, dg);
+        Pot::at(i, xi, va, x0, v0, x1, v1, tj, prm, cs, point_at(tj), g, dg);
         f = g * va;
         gd = dg * va;
         if (!p.signed_bound) {
@@ -430,7 +439,7 @@ sticky_chunk_kernel(Params p, const T* __restrict__ prm, T* __restrict__ x, T* _
       for (int i = tid; i < d; i += nt) {
         T g, dg;
         const T va = masked(sv, sact, i), xi = sx[i], vi = sv[i];
-        Pot::at(i, xi, va, x0, v0, x1, v1, tp_safe, prm, cs_tp, g, dg);
+        Pot::at(i, xi, va, x0, v0, x1, v1, tp_safe, prm, cs_tp, point_at(tp_safe), g, dg);
         lam += nmax(g * va, zero);
         cross |= xi * (xi + va * event_time) < zero;
         const T tj = (sact[i] && xi * vi < zero && va != zero) ? -xi / vi : inf;
@@ -475,10 +484,10 @@ sticky_chunk_kernel(Params p, const T* __restrict__ prm, T* __restrict__ x, T* _
       // ---- round C: inverse-CDF coordinate flip on the masked rates ----
       if (p_acc) {
         // coordinates 0 and 1 flowed: the funnels and a generated potential
-        // with reads01 read them in every warp, so each thread flows them in
-        // registers as threads 0 and 1 flow them; Banana reads them in warp 0
-        // after the __syncwarp
-        constexpr bool every_warp = Pot::chain || Pot::reads01;
+        // with reads_others read them in every warp, so each thread flows
+        // them in registers as threads 0 and 1 flow them; Banana reads them
+        // in warp 0 after the __syncwarp
+        constexpr bool every_warp = Pot::chain || Pot::reads_others;
         const T x0n = every_warp ? x0 + v0 * flow_t : sx[0];
         const T x1n = every_warp ? x1 + v1 * flow_t : sx[s1];
         // a point potential forms its sums at the flowed x (the block's
@@ -490,10 +499,15 @@ sticky_chunk_kernel(Params p, const T* __restrict__ prm, T* __restrict__ x, T* _
             return mom.at(flow_t);
           }
         }();
+        if constexpr (Pot::reads_others && !Pot::point) {
+          // the flowed x of other threads' coordinates, read through the
+          // accessor (a point potential's fill took this barrier)
+          __syncthreads();
+        }
         for (int i = tid; i < d; i += nt) {
           T g, dg;
           const T va = masked(sv, sact, i);
-          Pot::at(i, sx[i], va, x0n, v0, x1n, v1, zero, prm, cs_fl, g, dg);
+          Pot::at(i, sx[i], va, x0n, v0, x1n, v1, zero, prm, cs_fl, point_at(zero), g, dg);
           sw[i] = nmax(g * va, zero);
         }
         const int m = categorical(sw, d, u_flip, wtot, r_cnt, nw);

@@ -109,6 +109,15 @@ struct SuzzFlow {
   __device__ __forceinline__ T coord(T xi, T vi, T m) const {
     return (xi - w * vi) + m * vi;
   }
+
+  // the chain at x_t, read by coordinate (x and v at stride sx): the
+  // accessor a potential's sums and at take
+  __device__ __forceinline__ auto point(const T* x, const T* v, long sx, T m) const {
+    return [this, x, v, sx, m](int j, T& y, T& vj) {
+      vj = v[j * sx];
+      y = coord(x[j * sx], vj, m);
+    };
+  }
 };
 
 // The chain flowed to one time: m = v0 x1(t), the speed factor phi,
@@ -138,10 +147,7 @@ __device__ __forceinline__ FlowPoint<T, Pot> flow_point(const SuzzFlow<T>& fl, c
     s2 = i == 0 ? xi * xi : s2 + xi * xi;
     xv = i == 0 ? xi * vi : xv + xi * vi;
   }
-  q.cs = Pot::sums(d, prm, [&](int j, T& y, T& w) {
-    w = v[j * sx];
-    y = fl.coord(x[j * sx], w, q.m);
-  });
+  q.cs = Pot::sums(d, prm, fl.point(x, v, sx, q.m));
   q.s = sqrt((T)1 + s2);
   q.xvs = xv / q.s;
   q.xvs3 = q.xvs / (q.s * q.s);
@@ -205,10 +211,12 @@ suzz_chunk_kernel(Params p, int in_smem, const T* __restrict__ prm, T* __restric
       const T v0 = V[0], v1 = V[s1];
 
       // coordinate i's signed rate at the flowed chain q, grad U_i and
-      // (H v)_i read at x_t's coordinate (recomputed from x_i)
+      // (H v)_i read at x_t's coordinate (recomputed from x_i), a neighbour
+      // or a fixed coordinate read on the same flow
       auto rate_at = [&](const FlowPoint<T, Pot>& q, int i, T xi, T vi, T& g, T& hv) -> T {
         const T xt = fl.coord(xi, vi, q.m);
-        Pot::at(i, xt, vi, q.x0, v0, q.x1, v1, zero, prm, q.cs, g, hv);
+        Pot::at(i, xt, vi, q.x0, v0, q.x1, v1, zero, prm, q.cs, fl.point(X, V, sx, q.m), g,
+                hv);
         return xt;
       };
 
@@ -311,14 +319,15 @@ suzz_chunk_kernel(Params p, int in_smem, const T* __restrict__ prm, T* __restric
       if (p_acc) {  // the same in every lane
         const T u_flip = uniform<T>(seed, salt, 2u * tile + ln);
         const T x0 = X[0], x1 = X[s1];
-        const auto cs = Pot::sums(d, prm, [&](int j, T& y, T& w) {
-          y = X[j * sx];  // the sums over the flowed x
+        const auto flowed = [&](int j, T& y, T& w) {  // the flowed x, read by coordinate
+          y = X[j * sx];
           w = V[j * sx];
-        });
+        };
+        const auto cs = Pot::sums(d, prm, flowed);
         auto flip_rate = [&](int i) -> T {
           const T xi = X[i * sx], vi = V[i * sx];
           T g, hv;
-          Pot::at(i, xi, vi, x0, v0, x1, v1, zero, prm, cs, g, hv);
+          Pot::at(i, xi, vi, x0, v0, x1, v1, zero, prm, cs, flowed, g, hv);
           return nmax(eff_rate(g, xi, vi, s_new), zero);
         };
         T total = zero;

@@ -56,7 +56,12 @@
 // thinning and the flip, where every lane of the group reads the same
 // point, take 2 of the transition's 2 (n_grid - 1) + 2 points, so each
 // lane forms those itself rather than splitting the rows and reducing d
-// partial gradients over the group.
+// partial gradients over the group.  A generated potential reads a
+// neighbour or a fixed coordinate through the accessor of the point
+// (linear_point), from the group's copy of x and v (or the state at stride
+// B): another lane's coordinate, which the __syncwarp after the previous
+// flow published and which no lane writes before the __syncwarp ahead of
+// this transition's flow.
 // For the tags and the moment potentials no array is indexed at run time,
 // so nothing lands in local memory.  A point potential's context (a
 // segment's two Sums, alive at once, and its products' inputs) is indexed
@@ -188,19 +193,17 @@ __global__ void zigzag_chunk_kernel(Params p, int in_smem, const T* __restrict__
       // potential every sum and product formed at x + v t by this lane
       auto sums_at = [&](T t) -> Sums {
         if constexpr (Pot::point) {
-          return Pot::sums(d, prm, [&](int j, T& y, T& w) {
-            w = vb[j * sx];
-            y = xb[j * sx] + w * t;
-          });
+          return Pot::sums(d, prm, linear_point(xb, vb, sx, t));
         } else {
           return mom.at(t);
         }
       };
       // coordinate i's rate along v and its time derivative at time t, with
-      // the chain sums cs at t
+      // the chain sums cs at t; a neighbour the potential reads is another
+      // lane's coordinate, which the __syncwarp after the last flow published
       auto rate = [&](int i, T xi, T vi, T t, const Sums& cs, T& f, T& gd) {
         T g, dg;
-        Pot::at(i, xi, vi, x0, v0, x1, v1, t, prm, cs, g, dg);
+        Pot::at(i, xi, vi, x0, v0, x1, v1, t, prm, cs, linear_point(xb, vb, sx, t), g, dg);
         f = g * vi;
         gd = dg * vi;
       };
@@ -289,7 +292,7 @@ __global__ void zigzag_chunk_kernel(Params p, int in_smem, const T* __restrict__
       }
 
       // ---- flow, then the flip, on this lane's coordinates ----
-      __syncwarp(gmask);  // the group has read x and v for this transition
+      __syncwarp(gmask);  // the group has read x and v (every lane's) for this transition
       for (int i = i0; i < i1; ++i) {
         const T vi = vb[i * sx];
         xb[i * sx] = xb[i * sx] + vi * flow_t;

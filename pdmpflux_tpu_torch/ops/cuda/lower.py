@@ -24,14 +24,18 @@ The IR.  A value of the trace is one of:
   (``Lowered.params``), read as ``prm[k + i]`` at index ``i``, as the
   ``aniso`` tag reads its scales;
 * a chain value: one scalar per chain, an expression of literals, parameters,
-  coordinates 0 and 1 of the point (``x[0]``, ``x[1]``), sums (reductions)
-  and nothing else;
+  fixed coordinates of the point (``x[0]``, ``x[1]``, and ``x[k]`` for any
+  other ``k``), sums (reductions) and nothing else;
 * a vector of pieces: positions ``[a, b)`` each either a chain value or a lane
   expression evaluated at index ``i = p + off`` of the position ``p``, of
-  the point's own ``y_i = x_i + v_i t``, parameters, chain values and a
-  product's element at the same index.  A vector lies in an index space: the
-  coordinates, or the rows of a data vector (``X @ y`` for an ``(n, d)``
-  constant ``X``, ``n != d``); one expression never mixes the two.
+  the point's own ``y_i = x_i + v_i t``, its neighbours at fixed offsets
+  (``y_{i+k}``, from slices such as ``x[1:] - x[:-1]``), parameters, chain
+  values and a product's element at the same index.  Pieces read at
+  different offsets are rebased onto one index, their reads becoming
+  neighbours; a read outside ``[0, d)`` is refused.  A vector lies in an
+  index space: the coordinates, or the rows of a data vector (``X @ y`` for
+  an ``(n, d)`` constant ``X``, ``n != d``); one expression never mixes the
+  two.
   ``slice``, ``select``, ``slice_scatter``, ``select_scatter``, ``cat``/
   ``stack`` and ``where`` on a constant mask (``torch.func.grad`` of
   ``x[0]`` emits ``where(arange == 0, ...)``) move pieces about; a vector
@@ -50,7 +54,10 @@ A stage may read earlier stages.  Products are linear, so the tangent of
 
 The lowering adds forward-mode tangents (a dual-number rule per op) to give
 the kernels' pair ``(g_i, (H v)_i)`` from the gradient alone, the tangent of
-``y_i`` being the velocity ``v_i``.
+``y_j`` being the velocity ``v_j`` of the same coordinate.  Every kernel
+hands the potential an accessor ``yw(j, y, w)`` of the point it evaluates
+(``Pot::at``, ``Pot::sums``, ``Pot::fill``): a neighbour or a fixed
+coordinate past 1 is read through it, so such a read adds no context.
 
 Where the stages are formed.  K3/K5 and K4 form every stage at every point
 they evaluate, one lane walking the chain (``UserPotential::sums``): a
@@ -59,18 +66,24 @@ row by row (each row's product formed where it is read), every sum and
 every product element added in index order, as the plain version's
 ``ordered_sum`` and ``ordered_matvec`` add, so the two agree bit for bit
 where the kernel rounds as torch does (``-fmad=false``).  K1 and K6 reduce
-sums of summands of degree at most 2 in ``t`` once per transition as chain
-moments, extrapolated along the linear flow in truncated Taylor arithmetic
-of order 2 (exact there); a gradient with any other stage is a point
+sums of summands of degree at most 2 in ``t`` that read their own
+coordinate and coordinates 0 and 1 once per transition as chain moments,
+extrapolated along the linear flow in truncated Taylor arithmetic of order
+2 (exact there); a gradient with any other stage is a point
 potential for them too: K1's lane forms the stages at each point it
 evaluates, as K3 does, and K6's block forms them together
 (``UserPotential::fill``: each stage's positions across the threads,
 products' inputs and outputs in shared memory, sums by a two-level
 reduction).
 
+A gradient that reads coordinates other than its own (neighbours, fixed
+coordinates) sets ``reads_others``: K6 then publishes the chain's values to
+every warp before it reads them.
+
 Anything else (a product of two vectors of the chain, a matrix that depends
-on ``x``, ``cumsum`` and other couplings, a read of ``x[k]`` for ``k >=
-2``, a branch on a value of ``x``, an op outside the set) raises
+on ``x``, ``cumsum`` and other couplings, one element of a product, a
+product's element at another index, a branch on a value of ``x``, an op
+outside the set) raises
 :class:`LoweringError` naming the op and its node, before any build or
 launch.  The result is cached on the sampler by (kernel, d, dtype).
 """
@@ -118,12 +131,7 @@ class LoweringError(ValueError):
 
 
 class _FarRead(Exception):
-    """A read of coordinate ``k >= 2``, or (``k`` None) of one element of a
-    product (``Graph.pin``)."""
-
-    def __init__(self, k):
-        super().__init__(k)
-        self.k = k
+    """A read of one element of a product (``Graph.pin``)."""
 
 
 def _refuse(why: str) -> LoweringError:
@@ -137,20 +145,21 @@ def _refuse(why: str) -> LoweringError:
 
 class Node:
     """One interned IR operation.  ``lane``: depends on the index of its
-    vector (``y``, ``w``, a product's element or a parameter read there);
-    ``has_y``: reads the point's own coordinate or a product's element at
-    its own index (such an expression cannot move to another offset);
-    ``deg``: degree in ``t`` along the linear flow (``INF`` past a
-    polynomial); ``boolean``: a comparison's value; ``space``: the index
-    space its lane reads (``"c"`` the coordinates, an int ``n`` the rows of a
-    data vector, None for none, ``"mixed"`` for both)."""
+    vector (``y``, ``w`` and their neighbours ``yo``/``wo`` at offset
+    ``attr``, a product's element or a parameter read there); ``fixed``:
+    reads a product's element at its own index (such an expression cannot
+    move to another offset); ``deg``: degree in ``t`` along the linear flow
+    (``INF`` past a polynomial); ``boolean``: a comparison's value;
+    ``space``: the index space its lane reads (``"c"`` the coordinates, an
+    int ``n`` the rows of a data vector, None for none, ``"mixed"`` for
+    both)."""
 
-    __slots__ = ("op", "args", "attr", "id", "lane", "has_y", "deg", "boolean", "space")
+    __slots__ = ("op", "args", "attr", "id", "lane", "fixed", "deg", "boolean", "space")
 
     def __init__(self, op, args, attr, nid, space=None):
         self.op, self.args, self.attr, self.id = op, args, attr, nid
         self.lane = op in _LANE_LEAVES or any(a.lane for a in args)
-        self.has_y = op in _OWN_LEAVES or any(a.has_y for a in args)
+        self.fixed = op in _FIXED_LEAVES or any(a.fixed for a in args)
         self.boolean = op in _BOOL_OPS or (op == "lit" and isinstance(attr, bool)) or (
             op == "where" and args[1].boolean)
         self.deg = _degree(op, args)
@@ -166,6 +175,10 @@ class Node:
             return f"{'d' if self.op == 'dred' else ''}sum_{self.attr}"
         if self.op in ("mv", "dmv"):
             return f"{'d' if self.op == 'dmv' else ''}(M{self.attr} u)_i"
+        if self.op in ("yo", "wo"):
+            return f"{'x' if self.op == 'yo' else 'v'}_(i{self.attr:+d})"
+        if self.op in ("yk", "wk"):
+            return f"{'x' if self.op == 'yk' else 'v'}_{self.attr}"
         if not self.args:
             return {"y": "x_i", "w": "v_i", "y0": "x_0", "w0": "v_0", "y1": "x_1",
                     "w1": "v_1"}[self.op]
@@ -178,14 +191,21 @@ class Node:
         return f"{self.op}({', '.join(a.text() for a in self.args)})"
 
 
-_LANE_LEAVES = {"y", "w", "prm", "mv", "dmv"}
-_OWN_LEAVES = {"y", "w", "mv", "dmv"}
+_LANE_LEAVES = {"y", "w", "yo", "wo", "prm", "mv", "dmv"}
+_FIXED_LEAVES = {"mv", "dmv"}
+_FAR = {"yo", "wo", "yk", "wk"}
+"""Reads of a neighbour (``yo``/``wo`` at offset ``attr``) or of a fixed
+coordinate past 1 (``yk``/``wk`` at ``attr``), through the kernel's
+accessor ``yw``."""
+_FIRST = {"y0", "w0", "y1", "w1"}
+_OTHERS = _FAR | _FIRST
+"""Every read of a coordinate other than the evaluated one."""
 _BOOL_OPS = {"gt", "ge", "lt", "le", "eq", "ne", "not", "and", "or"}
 _LINEAR = {"add", "sub", "neg"}
 
 
 def _degree(op, args):
-    if op in ("y", "y0", "y1"):
+    if op in ("y", "y0", "y1", "yo", "yk"):
         return 1
     if op in ("red", "dred", "mv", "dmv"):
         return INF
@@ -225,7 +245,7 @@ class Graph:
         return node
 
     def _space(self, op, args, attr):
-        if op in ("y", "w"):
+        if op in ("y", "w", "yo", "wo"):
             return "c"
         if op in ("mv", "dmv"):
             return self.mv_space[attr]
@@ -282,8 +302,9 @@ class Graph:
             return self.mk("div", self.lit(1.0), self.mk("sqrt", a))
         return self.mk("pow", a, attr=c)
 
-    # the tangent of a node along the flow: y -> w, coordinates 0 and 1 ->
-    # their velocities, a reduction -> the sum of its summands' tangents
+    # the tangent of a node along the flow: y -> w, a neighbour or a fixed
+    # coordinate -> its velocity, a reduction -> the sum of its summands'
+    # tangents
     def tangent(self, n: Node, memo: dict) -> Optional[Node]:
         if n.id in memo:
             return memo[n.id]
@@ -292,9 +313,9 @@ class Graph:
 
     def _tangent(self, n, memo):
         op, a = n.op, n.args
-        leaf = {"y": "w", "y0": "w0", "y1": "w1"}
+        leaf = {"y": "w", "y0": "w0", "y1": "w1", "yo": "wo", "yk": "wk"}
         if op in leaf:
-            return self.mk(leaf[op])
+            return self.mk(leaf[op], attr=n.attr)
         if op in ("red", "mv"):  # a sum's and a product's tangents: their own stages
             return self.mk("d" + op, attr=n.attr)
         if not a or n.boolean or op in ("sign", "b2f"):
@@ -367,20 +388,28 @@ class Graph:
                 n.op, *(self.relabel(a, leaf, memo) for a in n.args), attr=n.attr)
         return memo[n.id]
 
+    def coord(self, kind: str, k: int) -> Node:
+        """Coordinate ``k``'s position (``kind`` ``"y"``) or velocity
+        (``"w"``), a chain value: ``y0``, ``y1``, else ``yk`` at ``k``."""
+        return self.mk(f"{kind}{k}") if k in (0, 1) else self.mk(f"{kind}k", attr=k)
+
+    def near(self, kind: str, delta: int) -> Node:
+        """The position or velocity of coordinate ``i + delta``, a lane
+        leaf (``y``/``w`` itself at 0)."""
+        return self.mk(kind) if delta == 0 else self.mk(f"{kind}o", attr=delta)
+
     def pin(self, n: Node, k: int, memo=None) -> Node:
-        """A lane expression read at the fixed coordinate ``k``: a chain value
-        (coordinates 0 and 1 only)."""
+        """A lane expression read at the fixed coordinate ``k``: a chain
+        value."""
         if not n.lane:
             return n
         memo = {} if memo is None else memo
         if n.id in memo:
             return memo[n.id]
         if n.op in ("mv", "dmv"):
-            raise _FarRead(None)
-        if n.op in ("y", "w"):
-            if k > 1:
-                raise _FarRead(k)
-            out = self.mk(f"{n.op}{k}")
+            raise _FarRead()
+        if n.op in ("y", "w", "yo", "wo"):
+            out = self.coord(n.op[0], k + (n.attr or 0))
         elif n.op == "prm":
             out = self.mk("prmk", attr=n.attr + k)
         else:
@@ -389,15 +418,23 @@ class Graph:
         return out
 
     def shift(self, n: Node, delta: int, memo=None) -> Node:
-        """A lane expression without ``y`` moved from coordinate ``i`` to
-        ``i + delta``: its parameter reads move the other way."""
+        """A lane expression moved from index ``i`` to ``i + delta``: its
+        reads of coordinates and parameters keep their targets, so their
+        offsets move the other way (``y`` becomes the neighbour at
+        ``-delta``).  A product's element stays at its own index (callers
+        never move a ``fixed`` expression)."""
         if not n.lane or delta == 0:
             return n
+        assert not n.fixed, "a product's element moved to another index"
         memo = {} if memo is None else memo
         if n.id not in memo:
-            memo[n.id] = (self.mk("prm", attr=n.attr - delta) if n.op == "prm" else
-                          self.mk(n.op, *(self.shift(a, delta, memo) for a in n.args),
-                                  attr=n.attr))
+            if n.op == "prm":
+                out = self.mk("prm", attr=n.attr - delta)
+            elif n.op in ("y", "w", "yo", "wo"):
+                out = self.near(n.op[0], (n.attr or 0) - delta)
+            else:
+                out = self.mk(n.op, *(self.shift(a, delta, memo) for a in n.args), attr=n.attr)
+            memo[n.id] = out
         return memo[n.id]
 
 
@@ -493,11 +530,12 @@ class Lowered:
 
     def _moments_exact(self) -> bool:
         """Whether K1/K6's chain moments give every stage exactly: sums over
-        the coordinates of summands of degree at most 2 in ``t`` (no
-        products, no sum read by another)."""
+        the coordinates of summands of degree at most 2 in ``t`` that read
+        their own coordinate and coordinates 0 and 1 alone (no products, no
+        sum read by another)."""
         return not self.products and all(
-            space == "c" and all(p.e.deg <= 2 and 0 <= _coords(p)[0] and _coords(p)[1] <= self.d
-                                 for p in pieces)
+            space == "c" and all(p.e.deg <= 2 and not _leaves(p.e) & _FAR and 0 <= _coords(p)[0]
+                                 and _coords(p)[1] <= self.d for p in pieces)
             for pieces, space in zip(self.reductions, self.red_space))
 
     def lane_bytes(self) -> int:
@@ -564,6 +602,10 @@ class Lowered:
             elif op in ("y0", "y1", "w0", "w1"):
                 k = int(op[1]) if y.shape[0] > 1 else 0
                 out = (y if op[0] == "y" else w)[k]
+            elif op in ("yo", "wo"):
+                out = (y if op == "yo" else w)[lo + n.attr:hi + n.attr]
+            elif op in ("yk", "wk"):
+                out = (y if op == "yk" else w)[n.attr]
             elif op == "prm":
                 out = prm[n.attr + lo:n.attr + hi, None]
             elif op == "prmk":
@@ -623,7 +665,8 @@ class Lowered:
             "struct UserPotential {",
             f"  static constexpr bool chain = {'true' if self.reductions else 'false'};",
             f"  static constexpr bool point = {'true' if self.point else 'false'};",
-            f"  static constexpr bool reads01 = {'true' if self._reads01() else 'false'};",
+            f"  static constexpr bool reads_others = "
+            f"{'true' if self._reads(_OTHERS) else 'false'};",
             f"  static constexpr int NR = {nr};",
             f"  static constexpr long shared_bytes = "
             f"{self.shared_values() if block else 0}L * (long)sizeof(T);",
@@ -653,15 +696,16 @@ class Lowered:
             else:
                 yield self.products[s].vec.pieces, self.d_mv[s]
 
-    def _reads01(self, stages_only=False) -> bool:
+    def _reads(self, leaves, stages_only=False) -> bool:
         """Whether any stage, or (unless ``stages_only``) any coordinate's
-        gradient, reads coordinate 0 or 1 (K6 then makes them visible to
-        every thread first; a point context reads them through ``yw``)."""
-        first = {"y0", "y1", "w0", "w1"}
+        gradient, reads one of ``leaves``: with :data:`_OTHERS`, a coordinate
+        other than the evaluated one (K6 then makes the chain's values
+        visible to every thread before it reads them); with coordinates 0
+        and 1, a point context reads them first through ``yw``."""
         nodes = [] if stages_only else [p.e for p in self.out] + self.d_out
         for pieces, tangents in self._stage_pieces():
             nodes += [p.e for p in pieces] + list(tangents)
-        return any(e is not None and _leaves(e) & first for e in nodes)
+        return any(e is not None and _leaves(e) & leaves for e in nodes)
 
     def _moments_cpp(self):
         out = [
@@ -736,7 +780,7 @@ class Lowered:
             "    Sums cs;",
             "    (void)d; (void)prm; (void)yw;",
         ]
-        if self._reads01(stages_only=True):
+        if self._reads(_FIRST, stages_only=True):
             out += _READ01
         for kind, s in self.stages:
             out += self._lane_red(s) if kind == "red" else self._lane_product(s)
@@ -895,7 +939,7 @@ class Lowered:
             if pr.space == "c":
                 out += [f"    cs.c[{self.slot[m]}] = o{m};", f"    cs.dc[{self.slot[m]}] = do{m};"]
         out.append("    __syncthreads();  // every thread has read the last point's context")
-        if self._reads01(stages_only=True):
+        if self._reads(_FIRST, stages_only=True):
             out += _READ01
 
         def leaf(op, m):
@@ -944,10 +988,12 @@ class Lowered:
 
     def _at_cpp(self):
         out = [
-            "  // gradient component i at x + v t and its derivative along v",
+            "  // gradient component i at x + v t and its derivative along v; yw(j, y, w)",
+            "  // gives coordinate j's point and velocity",
+            "  template <class F>",
             "  __device__ __forceinline__ static void at(int i, T xi, T vi, T x0, T v0, T x1,",
             "                                            T v1, T t, const T* prm,",
-            "                                            const Sums& cs, T& g, T& dg) {",
+            "                                            const Sums& cs, F yw, T& g, T& dg) {",
         ]
         reads = set()
         for p, dp in zip(self.out, self.d_out):
@@ -957,7 +1003,7 @@ class Lowered:
                  "y1": "const T y1 = x1 + v1 * t;", "w1": "const T w1 = v1;"}
         out += ["    " + point[k] for k in ("y", "w", "y0", "w0", "y1", "w1") if k in reads]
         out.append("    (void)i; (void)xi; (void)vi; (void)x0; (void)v0; (void)x1; (void)v1; "
-                   "(void)t; (void)prm; (void)cs;")
+                   "(void)t; (void)prm; (void)cs; (void)yw;")
         for n, (p, dp) in enumerate(zip(self.out, self.d_out)):
             lo, hi = _coords(p)
             last = n == len(self.out) - 1
@@ -1047,11 +1093,26 @@ _CPP_FN = {"exp": "exp", "expm1": "expm1", "log": "log", "log1p": "log1p", "sqrt
 
 class _Emit:
     """SSA statements of a DAG, one ``const`` per node, in dependency order;
-    a parameter reads ``prm[off + idx]``, a product's element ``leaf(op, m)``."""
+    a parameter reads ``prm[off + idx]``, a product's element ``leaf(op, m)``,
+    a neighbour or a fixed coordinate the accessor ``yw`` (once each)."""
 
     def __init__(self, b: Graph, idx: str = "i", leaf=None):
-        self.b, self.lines, self.names = b, [], {}
+        self.b, self.lines, self.names, self.read = b, [], {}, set()
         self.idx, self.leaf = idx, leaf
+
+    def far(self, n: Node) -> str:
+        """A neighbour's or a fixed coordinate's position or velocity, read
+        with its partner by one call of ``yw``."""
+        if n.op in ("yo", "wo"):
+            tag = f"{'p' if n.attr > 0 else 'm'}{abs(n.attr)}"
+            j = f"{self.idx} {'+' if n.attr > 0 else '-'} {abs(n.attr)}"
+        else:
+            tag, j = f"k{n.attr}", str(n.attr)
+        if tag not in self.read:
+            self.read.add(tag)
+            self.lines += [f"T y{tag}, w{tag};", f"yw({j}, y{tag}, w{tag});",
+                           f"(void)y{tag}; (void)w{tag};"]
+        return f"{n.op[0]}{tag}"
 
     def name(self, n: Node) -> str:
         if n.id in self.names:
@@ -1059,6 +1120,8 @@ class _Emit:
         op, a = n.op, n.args
         if op == "lit":
             return _hexlit(n.attr)
+        if op in _FAR:
+            return self.far(n)
         leaf = {"y": "y", "w": "w", "y0": "y0", "w0": "w0", "y1": "y1", "w1": "w1"}
         if op in leaf:
             return leaf[op]
@@ -1259,14 +1322,10 @@ class _Interp:
                     return pc.e
                 try:
                     return self.b.pin(pc.e, p + pc.off)
-                except _FarRead as e:
-                    if e.k is None:
-                        return self.refuse(node, "it reads one element of a matrix "
-                                           "product; the kernels read a product's "
-                                           "element at each index's own")
-                    return self.refuse(node, f"it reads x[{e.k}]; the kernels read "
-                                       "coordinates 0 and 1 of a chain besides each "
-                                       "coordinate's own")
+                except _FarRead:
+                    return self.refuse(node, "it reads one element of a matrix "
+                                       "product; the kernels read a product's "
+                                       "element at each index's own")
         raise AssertionError("position outside the vector")
 
     def as_vec(self, v, n, node):
@@ -1313,10 +1372,13 @@ class _Interp:
             if a == b_:
                 continue
             parts = [next(pc for pc in v.pieces if pc.a <= a < pc.b) for v in vecs]
-            offs = {pc.off for pc in parts if pc.off is not None and pc.e.has_y}
+            # one index i for the pieces: a product's element stays at its own,
+            # every other read becomes a neighbour of i
+            offs = {pc.off for pc in parts if pc.off is not None and pc.e.fixed}
             if len(offs) > 1:
-                return self.refuse(node, "it combines coordinate i with coordinate "
-                                   f"i + {max(offs) - min(offs)} (offsets {sorted(offs)})")
+                return self.refuse(node, "it combines a product's element at index i with "
+                                   f"one at i + {max(offs) - min(offs)}; the kernels read a "
+                                   "product's element at each index's own")
             off = offs.pop() if offs else next(
                 (pc.off for pc in parts if pc.off is not None), None)
             es = [pc.e if pc.off is None else self.b.shift(pc.e, off - pc.off)
@@ -1485,8 +1547,10 @@ class _Interp:
 
         if isinstance(a, FxNode):
             return env[a]
-        if type(a) in (list, tuple):
-            return type(a)(self._arg(x, env) for x in a)
+        if type(a) is tuple:
+            return tuple(self._arg(x, env) for x in a)
+        if isinstance(a, list):  # fx's immutable_list too
+            return [self._arg(x, env) for x in a]
         return a
 
     def call(self, node, args, kwargs):
@@ -1823,10 +1887,10 @@ def lower_gradient(grad_fn, kernel: str, d: int, dtype, device="cpu") -> Lowered
             raise _refuse(f"gradient coordinates [{pc.a}, {pc.b}) read rows of a product "
                           "that are not coordinates")
         if pc.off not in (None, 0):
-            if pc.e.has_y:
-                raise _refuse(f"gradient coordinates [{pc.a}, {pc.b}) read coordinate i + "
-                              f"{pc.off}; the kernels evaluate coordinate i from its own "
-                              "value")
+            if pc.e.fixed:
+                raise _refuse(f"gradient coordinates [{pc.a}, {pc.b}) read a product's "
+                              f"element at coordinate i + {pc.off}; the kernels read a "
+                              "product's element at each coordinate's own")
             pc = Piece(pc.a, pc.b, 0, interp.b.shift(pc.e, -pc.off))
         if pc.e.boolean:
             raise _refuse("the gradient is boolean")
@@ -1869,10 +1933,26 @@ def lower_gradient(grad_fn, kernel: str, d: int, dtype, device="cpu") -> Lowered
             if space == "c" and (lo < 0 or hi > d):
                 raise _refuse(f"a sum over positions [{pc.a}, {pc.b}) that are not "
                               f"coordinates of x")
+    for pc in [*pieces, *(pc for r in reductions for pc in r),
+               *(pc for pr in products.values() for pc in pr.vec.pieces)]:
+        check_reads(pc, d)
     params = (torch.cat(interp.params) if interp.params
               else torch.zeros(0, dtype=torch.float64))
     return Lowered(interp.b, kernel, d, dtype, pieces, stages, reductions, red_space,
                    products, params)
+
+
+def check_reads(pc: Piece, d: int) -> None:
+    """Raise where a piece reads a coordinate outside ``[0, d)``: a neighbour
+    at offset ``k`` of its indices, or a fixed coordinate (a correct trace
+    never does: its slices are static)."""
+    lo, hi = _coords(pc)
+    for x in _nodes(pc.e):
+        if x.op in ("yo", "wo") and (lo + x.attr < 0 or hi + x.attr > d):
+            raise _refuse(f"positions [{pc.a}, {pc.b}) read coordinates "
+                          f"[{lo + x.attr}, {hi + x.attr}), outside [0, {d})")
+        if x.op in ("yk", "wk") and not 0 <= x.attr < d:
+            raise _refuse(f"positions [{pc.a}, {pc.b}) read x[{x.attr}], outside [0, {d})")
 
 
 def lane_fits(low: Lowered) -> bool:

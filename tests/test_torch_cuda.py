@@ -230,6 +230,59 @@ def _k6_matches_plain(dev, pot, d, B=300, n_chunks=2, events=True, **kw):
         assert (kinds == pt.EV_THAW).any()
 
 
+def ar1_band(x):
+    """The AR(1) prior (rho 0.5) in its innovation form: every coordinate's
+    gradient reads its neighbours ``x[i - 1]`` and ``x[i + 1]``."""
+    return x[0] ** 2 / 2 + torch.sum((x[1:] - 0.5 * x[:-1]) ** 2) / 1.5
+
+
+def neal_last(x):
+    """Neal's funnel with its scale at ``x[-1]``, which every coordinate reads."""
+    return (x[-1] * x[-1] / 18.0 + 0.5 * (x.shape[0] - 1) * x[-1]
+            + 0.5 * torch.sum(x[:-1] ** 2) * torch.exp(-x[-1]))
+
+
+@pytest.mark.parametrize("U,d,B", [
+    (ar1_band, 70, 64),      # neighbours across the warps of one tile
+    (ar1_band, 1500, 16),    # and across the strided tiles past 1024
+    (neal_last, 1500, 16),   # a fixed coordinate in the last warp, read by every warp
+])
+def test_k6_reads_other_coordinates_as_plain_f64(dev, U, d, B):
+    """K6 on a generated potential that reads other threads' coordinates,
+    against its plain version fed the IR's pair, two chunks from one f64
+    state near the axes: a read before the barriers that publish the flow,
+    flip, stick and thaw would part the two."""
+    sampler = pt.StickyZigZagAD(d, U, np.full(d, 3.0))
+    rs = np.random.default_rng(d)
+    x0 = rs.normal(size=(B, d)) * 0.05
+    if U is neal_last:
+        x0[:, -1] = 0.5
+    state = sampler.init_state_batch(x0, rs.choice([-1.0, 1.0], size=(B, d)), 3,
+                                     torch.float64, dev)
+    cfg = driver.chunk_config(sampler, 16, 40, 128)
+    cfg = driver.lowered_config(cfg._replace(kappa=cfg.kappa.to(dev)), sampler, d,
+                                torch.float64, dev)
+    assert "reads_others = true" in cfg.user.header() and not cfg.user.point
+    counts = torch.zeros(B, dtype=torch.int32, device=dev)
+    counts[::7] = 37
+    st_k = driver.chunk_state(state, counts, sticky=True)
+    st_p = k1.ChunkState(*(a.clone() for a in st_k))
+    fills = [k1.empty_fill(32, d, B, torch.float64, dev, sticky=True) for _ in range(2)]
+    n0 = build.LAUNCHES["sticky_chunk"]
+    for it in range(2):
+        k1.run_chunk(11 + it * 1000003, st_k, fills[0], 16 * it, cfg)
+        k1.run_chunk_plain(11 + it * 1000003, st_p, fills[1], 16 * it, cfg)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["sticky_chunk"] == n0 + 2
+    for a, b in zip((*st_k, *fills[0]), (*st_p, *fills[1])):
+        if a.dtype in (torch.int32, torch.bool):
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12, equal_nan=True)
+    kinds = fills[0].kind[:, 0]
+    assert (kinds == pt.EV_JUMP).any() and (kinds == pt.EV_STICK).any()
+
+
 def test_sticky_sample_skeleton_on_card(dev):
     kappa = 1.0
     sampler = pt.StickyZigZag(4, pt.potentials.grad_gauss, np.full(4, kappa))

@@ -9,9 +9,10 @@
   ``x[1:]``), a hierarchical mean (a sum over ``x[1:] - x[0]``); and each of the seven device tags' potentials lowered as if
   untagged, against the tag's closed forms (``LANE_POTENTIALS``).
 * ``LoweringError`` naming the op for a ``cumsum`` (a coupling other than a
-  constant matrix), a read of ``x[5]`` and a coupling of neighbouring
-  coordinates; a sum of a summand of degree past 2 in ``x`` taken by every
-  kernel (K1 and K6 form it at every point).
+  constant matrix) and a read of one element of a matrix product (reads of
+  ``x[5]`` and of neighbouring coordinates lower: ``test_torch_lower_band.py``);
+  a sum of a summand of degree past 2 in ``x`` taken by every kernel (K1 and
+  K6 form it at every point).
 * Products with a constant matrix (``mv``, ``mm``, ``einsum``, ``linear``,
   ``addmv``, data rows and back, nested with sums): the pair against
   ``torch.func``, and each kernel's header hoisting the matrix and the
@@ -145,13 +146,12 @@ def test_tagged_potentials_lowered_as_untagged(tag):
 
 
 def test_refusals_name_the_op():
-    """A running sum (a coupling other than through a constant matrix), a
-    read past coordinate 1 and a coupling of neighbouring coordinates raise
-    ``LoweringError`` naming the aten op and node and
-    ``backend='xla_stream'``, for every kernel."""
+    """A running sum (a coupling other than through a constant matrix) and a
+    read of one element of a matrix product raise ``LoweringError`` naming
+    the aten op and node and ``backend='xla_stream'``, for every kernel."""
+    A = torch.as_tensor(np.random.default_rng(1).normal(size=(D, D)))
     cases = {"aten.cumsum": lambda x: 0.5 * torch.sum(torch.cumsum(x, 0) ** 2),
-             "aten.select": lambda x: x[5] ** 2 + torch.sum(x ** 2),
-             "aten.add": lambda x: torch.sum(x[:-1] * x[1:]) + torch.sum(x ** 2)}
+             "aten.select": lambda x: (A.to(x) @ x)[3] ** 2 + torch.sum(x ** 2)}
     for op, U in cases.items():
         grad = resolve_potential(U, D)[1]
         for kernel in lower.SOURCES:
@@ -159,7 +159,7 @@ def test_refusals_name_the_op():
                 lower.lower_gradient(grad, kernel, D, torch.float32)
             assert op in str(err.value), (kernel, str(err.value))
             assert "backend='xla_stream'" in str(err.value)
-    with pytest.raises(lower.LoweringError, match="x\\[5\\]"):
+    with pytest.raises(lower.LoweringError, match="one element of a matrix product"):
         lower.lower_gradient(resolve_potential(cases["aten.select"], D)[1], "bps", D,
                              torch.float64)
 
@@ -236,11 +236,11 @@ def test_header_per_kernel_and_cache():
         assert "struct UserPotential" in text and "static constexpr bool chain = true" in text
         assert ("moment_add" in text) == (kernel in lower.MOMENT_KERNELS)
         assert ("static Sums sums(" in text) == (kernel not in lower.MOMENT_KERNELS)
-        assert "reads01 = true" in text and "exp(" in text
+        assert "reads_others = true" in text and "exp(" in text
         assert "0x1.c71c720000000p-5" in text  # 1/18 rounded to float32
     for kernel in lower.MOMENT_KERNELS:  # only the sum reads coordinate 0
         hier = lower.lower_gradient(_grad("hier"), kernel, D, torch.float64)
-        assert "reads01 = true" in hier.header()
+        assert "reads_others = true" in hier.header()
     aniso = lower.lower_gradient(_grad("aniso"), "bps", D, torch.float64).header()
     assert "prm[0 + i]" in aniso
     s = pt.ZigZagAD(D, student)

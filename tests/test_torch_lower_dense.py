@@ -105,7 +105,14 @@ def test_logistic_zigzag_sample_skeleton_matches_jax(monkeypatch):
     fills of ``make_pallas_stream_runner``, the Pallas kernel interpreted,
     each fill's event rows appended per chain), float64, fills of 32 rows so
     that chains straggle into a second fill."""
-    js, ts = pf.ZigZagAD(D, logistic(jnp)), pt.ZigZagAD(D, logistic(torch))
+    skeleton_matches_jax(monkeypatch, logistic)
+
+
+def skeleton_matches_jax(monkeypatch, target):
+    """A ``ZigZagAD`` on ``target`` (a function of a numpy-like module):
+    the port's ``sample_skeleton`` through the lowered pair against JAX's
+    stream fills, as above."""
+    js, ts = pf.ZigZagAD(D, target(jnp)), pt.ZigZagAD(D, target(torch))
     rs = np.random.default_rng(SEED)
     x0 = rs.normal(size=(B_SK, D)) * 0.3
     v0 = rs.choice([-1.0, 1.0], size=(B_SK, D))
