@@ -371,14 +371,23 @@ def probe_k6():
 
 
 LANE_DIMS = {"bps": (128, 512, 1024, 2048, 3072), "zigzag": (128, 512, 1024, 2048)}
-"""The dimensions of ``probe_lane_context``'s dense quadratic forms: float32
-contexts from 4 to 96 KB per lane (``Lowered.lane_bytes``)."""
+"""The dimensions of ``probe_lane_context``'s dense quadratic forms in
+``tanh(x)``: float32 contexts from 4 to 96 KB per lane
+(``Lowered.lane_bytes``)."""
+
+
+def tanh_form(P):
+    """``U = tanh(x) P tanh(x) / 2``: products after a nonlinearity, which the
+    kernels form at each point (a product of ``x`` itself is formed once per
+    transition and keeps no context in the lane)."""
+    Pt = torch.as_tensor(P, device=cs.DEV)
+    return lambda x: 0.5 * torch.tanh(x) @ (Pt.to(x) @ torch.tanh(x))
 
 
 def probe_lane_context(B=512, K=2, reps=3, slow_ms=5000.0):
     """Where a generated potential's context per lane stops launching or
-    collapses in speed: ``x P x / 2`` (``P`` the AR(1) precision, rho 0.5,
-    dense) on BPS (K3) and Zig-Zag (K1) at each d of :data:`LANE_DIMS`,
+    collapses in speed: :func:`tanh_form` (``P`` the AR(1) precision, rho
+    0.5, dense) on BPS (K3) and Zig-Zag (K1) at each d of :data:`LANE_DIMS`,
     float32, B chains from a random state, one K-transition launch timed
     (the mean of ``reps`` after a warm one), the lowering's
     ``lower.LANE_BYTES`` lifted so that every size is tried.  Per (kernel,
@@ -396,7 +405,7 @@ def probe_lane_context(B=512, K=2, reps=3, slow_ms=5000.0):
         for d in dims:
             if kind == "bps" and d > k3.scalar_max_dim(torch.float32):
                 continue
-            U = cs.quadratic_form(cs.ar1_precision(d, 0.5))
+            U = tanh_form(cs.ar1_precision(d, 0.5))
             s = cs.pt.BPSAD(d, U, refresh_rate=0.5) if kind == "bps" else cs.pt.ZigZagAD(d, U)
             cases.append((kind, d, s, lower.lower_sampler(s, kind, d, torch.float32, cs.DEV)))
     t0 = time.perf_counter()

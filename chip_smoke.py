@@ -161,8 +161,9 @@ Phases, one line each; any failure raises and exits non-zero:
    gauss, 1000 batches): each chain's RV within rtol 1e-4 of
    ``RV_diagnostic`` on a host copy of the same skeleton;
 22. the transition engine (``core/engine.py``, plain torch) on the card
-   against the engine on the CPU, float64, from one state and keys, 256
-   transitions of 256 chains at d = 10 on the Gaussian, one case per family:
+   against the engine on the CPU, float64, from one state and keys, 128
+   transitions (cut from 256) of 256 chains at d = 10 on the Gaussian, one
+   case per family:
    the Zig-Zag with scalar and vectorized bounds, ``grid_size=0`` and
    finite-difference tangents, the Sticky Zig-Zag with scalar and vectorized
    bounds, the Speed-Up Zig-Zag, BPS, the Boomerang, Forward ECMC in its
@@ -318,7 +319,8 @@ Phases, one line each; any failure raises and exits non-zero:
 40. ``zigzag_logistic_d20_n1000``: a Bayesian logistic regression (d = 20,
    n = 1000 rows, an intercept and N(0, 1) covariates, seeded labels, a
    N(0, 10^2 I) prior) on K1, K3 (BPS, refresh 1.0) and K4 at B = 1024,
-   2048 points from the MAP (Newton in numpy f64), as phase 39, gated on
+   2048 points from the MAP (Newton in numpy f64), as phase 39 but with
+   one timed warm call (``LOGISTIC_CALLS``, cut from five), gated on
    the second half of each chain: means within 0.2 Laplace sd of the
    posterior mean (importance sampling from the Laplace law), variances
    within 20% of the Laplace variances, K1's and K3's means within 0.2 sd;
@@ -331,7 +333,8 @@ Phases, one line each; any failure raises and exits non-zero:
 42. gradients that read other coordinates, through the kernels' accessor:
    the AR(1) prior in its innovation form (``x[0]^2 / 2 + sum((x[1:] - rho
    x[:-1])^2) / (2 (1 - rho^2))``, a band) at ``sticky_dense_ar1_d1000``'s
-   shape (rho 0.5) on K6 and on K1 (where the dense form takes the engine):
+   shape (rho 0.5) on K6 and on K1 (where the dense form now takes the
+   kernel too, phase 43):
    its pair against the dense ``P x`` at 64 points (rtol 1e-12), each kernel
    against its plain version in f64 in events and horizon mode, the route
    under ``"auto"`` (0 engine chunks), one timed call and an f32 launch with
@@ -339,8 +342,19 @@ Phases, one line each; any failure raises and exits non-zero:
    and K3 at phase 39's shapes with phase 39's gate; phase 38's Neal funnel
    with its scale at ``x[-1]`` on K1 at ``zigzag_neal_funnel_d10``'s shape,
    x[-1]'s mean and variance against phase 38's x[0], and on K3, K5 and K4
-   bit for bit against their plain versions.  The script prints its clock
-   after each group of phases.
+   bit for bit against their plain versions;
+43. products with a constant matrix formed once per transition: the dense
+   AR(1) Gaussian ``0.5 x P x`` (rho 0.5, ``P`` 1000 x 1000) at
+   ``sticky_dense_ar1_d1000``'s shape (128 chains x 2048 points, x0 = 0.3)
+   on K1 (``zigzag_dense_ar1_d1000``) and K3 (``bps_dense_ar1_d1000``, BPS
+   refresh 0.5): each kernel against its plain version in f64 (K1 to
+   ``RTOL``, K3 bit for bit), the route under ``"auto"`` (its kernel and
+   K2, no engine chunk) with one timed warm call and an f32 launch with its
+   bound; an f64 K1 launch of the dense form against the banded form of
+   phase 42 from the same state and keys (integers equal, floats within
+   1e-9); one engine chunk (64 transitions) of the dense K1 sampler timed
+   by CUDA events, for the record.  The script prints its clock after each
+   group of phases.
 
 Then one JSON line of per-kernel results (launches counted in the timed run
 of each kernel's path: phase 4 for K1 and K2, phase 7 for K6, phase 10 for
@@ -354,11 +368,11 @@ paths, phase 30 for the entries of K1 and K2 named after the profiled
 flagship, phase 32 (dim 1) for K2's entry named after the gspmd
 deployment, phases 34 and 35 for the entries of K4, K1 and K2 named after
 their deployments, 35 (the engine route) for K2's entry named
-``engine:zigzag_neal_funnel_d10``, phases 36-42 for the entries
+``engine:zigzag_neal_funnel_d10``, phases 36-43 for the entries
 ``<kernel>[user:<path>]`` of each generated potential's path (and K2's on
 phase 36's two paths, timed at their shapes in phase 4b); max_abs_err the largest of the kernel's comparisons
 with its plain version, f64 and f32; the bound of each timed launch computed
-from its shape and this run's data; phases 39-42's entries carry
+from its shape and this run's data; phases 39-43's entries carry
 ``plain_of``: their plain time is the f64 parity launch's, their ``ms`` an
 f32 launch's), the card's name and power limit, and the status line.
 """
@@ -508,9 +522,10 @@ def chunk_ops(cfg, d, live, jumps):
     coord, point = {"cauchy": (10, 0), "ridged": (2 * MATH_OPS, 0),
                     "funnel": (4, 40), "neal_funnel": (4, MATH_OPS)}.get(
                         cfg.device_potential, (0, 0))
+    trans = 0
     if cfg.user is not None:
-        coord, point = user_cost(cfg.user)
-    per += n_grid * (coord * d + point)
+        coord, point, trans = user_cost(cfg.user)
+    per += n_grid * (coord * d + point) + trans
     if cfg.kind == "zigzag":
         per += n_grid * d * 20
         jump = THREEFRY_OPS + 12 * d
@@ -541,14 +556,17 @@ MATH_FNS = {"exp", "expm1", "log", "log1p", "sqrt", "sin", "cos", "tanh", "sinh"
 
 
 def user_cost(low):
-    """(per coordinate, per point) operations of a generated potential beyond
-    the Gaussian's (2, ``x + v t``), counted from its IR: each op of the
-    gradient and its tangent once (a divide 10, a math function
-    ``MATH_OPS``), averaged over the coordinates; and where the kernel forms
-    its stages at every point (``low.point``: K3/K5 and K4 always, K1 and K6
-    past the chain moments), each summand's and each product input's value
-    and tangent per element, and each product's ``2 rows cols`` operations,
-    doubled for the tangent."""
+    """(per coordinate, per point, per transition) operations of a generated
+    potential beyond the Gaussian's (2, ``x + v t``), counted from its IR:
+    each op of the gradient and its tangent once (a divide 10, a math
+    function ``MATH_OPS``), averaged over the coordinates; where the kernel
+    forms its stages at every point (``low.point``: K3/K5 and K4 always, K1
+    and K6 past the chain moments), each stage formed there: each summand's
+    and each product input's value and tangent per element, and each
+    product's ``2 rows cols`` operations, doubled for the tangent; and per
+    transition each product formed once per transition (``low.trans``):
+    per row and column its input's value and tangent and the two products
+    and adds."""
     def ops(*roots):
         seen, n = set(), 0
         for r in roots:
@@ -561,15 +579,21 @@ def user_cost(low):
 
     d = low.d
     coord = sum((p.b - p.a) * ops(p.e, dp) for p, dp in zip(low.out, low.d_out)) / d - 2
-    point = 0
+    point = trans = 0
+    for m in low.trans:
+        pr = low.products[m]
+        trans += pr.rows * sum((ops(p.e, dp) + 4) * (p.b - p.a)
+                               for p, dp in zip(pr.vec.pieces, low.d_mv[m]))
     if low.point:
         for kind, s in low.stages:
+            if kind == "mv" and s in low.toff:
+                continue
             pieces, tangents = ((low.reductions[s], low.d_red[s]) if kind == "red" else
                                 (low.products[s].vec.pieces, low.d_mv[s]))
             point += sum((ops(p.e, dp) + 2) * (p.b - p.a) for p, dp in zip(pieces, tangents))
             if kind == "mv":
                 point += 4 * low.products[s].rows * low.products[s].cols
-    return max(coord, 0.0), point
+    return max(coord, 0.0), point, trans
 
 
 def chunk_bound(cfg, st, fill, live):
@@ -2515,7 +2539,7 @@ def phase_checkpoints(card_name, rate):
 # card, with K2 compacting every fill
 # ---------------------------------------------------------------------------
 
-ENGINE_AGREE = (256, 10, 256)  # phase 22: chains, d, transitions per family
+ENGINE_AGREE = (256, 10, 128)  # phase 22: chains, d, transitions per family (cut from 256)
 ENGINE_SHARE = 0.99            # phase 22: chains that must take every decision alike
 ENGINE_RTOL = {"zigzag_fd": 1e-6, "ecmc_normal": 1e-6}  # phase 22: else 1e-9
 ENGINE_FAMILIES = {            # phase 22: one case per family, f64 on the Gaussian
@@ -3903,7 +3927,7 @@ and (d, chains, points), each at the shape of the repo deployment it names."""
 
 
 def user_builds():
-    """Lower every gradient of phases 25 and 36-42 (float32 for the runs,
+    """Lower every gradient of phases 25 and 36-43 (float32 for the runs,
     float64 for the checks against the plain version) and build their user
     libraries, every ``nvcc`` started at once.  Returns (wall s, {library:
     seconds}, ptxas text)."""
@@ -3911,6 +3935,7 @@ def user_builds():
     samplers = [make() for make, _ in USER_PATHS.values()]
     samplers += [s for s, *_ in dense_paths().values()]
     samplers += [s for s, *_ in band_paths().values()] + list(neal_last_parity()[0].values())
+    samplers += [s for s, *_ in dense_ar1_paths().values()]
     for s in samplers:
         for dt in (torch.float32, torch.float64):
             lows.append(lower.lower_sampler(s, driver.kernel_kind(s), s.dim, dt, DEV))
@@ -4338,6 +4363,7 @@ LOGISTIC = (20, 1000, 1024, 2048)   # phase 40: d, rows, chains, points
 LOGISTIC_PRIOR_SD = 10.0
 DENSE_AR = (1000, 128, 2048, 10.0, 0.5)  # phase 41: d, chains, points, kappa, rho
 DENSE_CALLS = 5                     # timed warm calls of each gated deployment
+LOGISTIC_CALLS = 1                  # phase 40's (cut from DENSE_CALLS for the script's time)
 
 
 def ar1_precision(d, rho):
@@ -4436,12 +4462,16 @@ def dense_paths():
 
 def dense_start(sampler, start, B, d, b_map):
     """x0 and v0 of a deployment: x0 = 0 and v0 = 1 (phase 36's), x0 = 0.3
-    (the sticky deployment's), or x0 at the logistic MAP with v0 = +-1 from
-    the seed (a unit normal for the scalar-rate samplers)."""
+    (the sticky deployment's; ``"ar1"``: with v0 = 1 / sqrt(d) for the
+    scalar-rate samplers), or x0 at the logistic MAP with v0 = +-1 from the
+    seed (a unit normal for the scalar-rate samplers)."""
     if start == "ones":
         return np.zeros((B, d)), np.ones((B, d))
     if start == "sticky":
         return np.full((B, d), 0.3), np.ones((B, d))
+    if start == "ar1":  # the sticky start with a unit velocity for the scalar-rate samplers
+        unit = driver.kernel_kind(sampler) in k3.KINDS
+        return np.full((B, d), 0.3), np.full((B, d), 1.0 / math.sqrt(d) if unit else 1.0)
     rs = np.random.default_rng(40)
     x0 = np.broadcast_to(b_map, (B, d)).copy()
     if driver.kernel_kind(sampler) in k3.KINDS:
@@ -4620,7 +4650,7 @@ def phase_dense_logistic(card_name):
     b_map, cov = logistic_laplace(X, y)
     ref_mean, ess = logistic_reference(X, y, b_map, cov)
     names = ["zigzag_logistic_d20_n1000", "bps_logistic_d20_n1000", "suzz_logistic_d20_n1000"]
-    out, means = phase_dense(card_name, names, "phase 40", DENSE_CALLS, b_map, cov, ref_mean)
+    out, means = phase_dense(card_name, names, "phase 40", LOGISTIC_CALLS, b_map, cov, ref_mean)
     sd = np.sqrt(np.diag(cov))
     gap = np.abs(means["zigzag_logistic_d20_n1000"] - means["bps_logistic_d20_n1000"]) / sd
     if not np.all(gap < 0.2):
@@ -4723,8 +4753,8 @@ def phase_band(card_name, dense_k6, neal_user):
     its innovation form (a band: every coordinate reads ``x[i - 1]`` and
     ``x[i + 1]``) at ``sticky_dense_ar1_d1000``'s shape (d = 1000, 128 chains
     x 2048 points, rho 0.5, x0 = 0.3) on K6 (kappa 10) and on K1, where the
-    dense ``0.5 x P x`` takes the engine (its context passes
-    ``lower.LANE_BYTES``): the pair against the dense ``P x`` at 64 points,
+    dense ``0.5 x P x`` takes the kernel too (its products formed once per
+    transition, phase 43): the pair against the dense ``P x`` at 64 points,
     then as :func:`phase_dense` (the f64 parity launch to ``RTOL``, the
     route with one timed call, an f32 launch with its bound) beside phase
     41's dense K6 launch ``dense_k6`` (ms, bound); a horizon launch of each
@@ -4742,7 +4772,7 @@ def phase_band(card_name, dense_k6, neal_user):
                  for path in ("sticky_band_ar1_d1000", "zigzag_band_ar1_d1000")}
     dense_route = api.pick_backend(pt.ZigZagAD(dd, quadratic_form(P)), "auto", dd,
                                    torch.float32, DEV)
-    if dense_route != "engine":
+    if dense_route != "kernel":
         raise AssertionError(f"phase 42: the dense AR(1) on K1 at d={dd} took {dense_route}")
 
     def corr(what, sampler, skel):
@@ -4795,6 +4825,100 @@ def phase_band(card_name, dense_k6, neal_user):
     notes = "; ".join(n for n in MATH_NOTES if n.startswith("phase 42")) or "none"
     print(f"phase 42 reads of other coordinates: {'; '.join(texts)}; bit-for-bit checks that "
           f"parted in exp: {notes} ({card_name})", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 43: products with a constant matrix formed once per transition
+# ---------------------------------------------------------------------------
+
+
+def dense_ar1_paths():
+    """Phase 43's deployments (as :func:`dense_paths`): the dense AR(1)
+    Gaussian ``0.5 x P x`` (rho 0.5, ``P`` 1000 x 1000, 4 MB in f32) at
+    ``sticky_dense_ar1_d1000``'s shape on K1 and on K3 (BPS, refresh 0.5),
+    its two products (``P x``, ``P^T x``) formed once per transition."""
+    dd, dB, dn, _, rho = DENSE_AR
+    dense = quadratic_form(ar1_precision(dd, rho))
+    return {
+        "zigzag_dense_ar1_d1000": (pt.ZigZagAD(dd, dense), (dd, dB, dn), False, None, "ar1"),
+        "bps_dense_ar1_d1000": (pt.BPSAD(dd, dense, refresh_rate=BPS_D10[3]), (dd, dB, dn),
+                                True, None, "ar1"),
+    }
+
+
+def dense_band_launch(dense, band, B, seed=271828):
+    """One f64 K=32 K1 launch of the dense form and one of the banded form
+    from the same random state and keys: integers equal, floats within
+    1e-9 (rtol and atol).  Returns (max abs err, events)."""
+    d, K = dense.dim, 32
+    state = random_state(dense, B, torch.float64, d + B + 1, scale=0.3)
+    counts = torch.zeros(B, dtype=torch.int32, device=DEV)
+    outs, events = [], []
+    for sampler in (dense, band):
+        cfg = user_config(sampler, K, 1 << 30, torch.float64)
+        st = driver.chunk_state(state, counts)
+        fill = k1.empty_fill(K, d, B, torch.float64, DEV)
+        k1.run_chunk(seed, st, fill, 0, cfg)
+        outs.append(chunk_outputs(st, fill))
+        events.append(int((fill.kind[:, 0] > 0).sum()))
+    sync()
+    if events[0] < B // 2:
+        raise AssertionError(f"phase 43: only {events[0]} events in the dense-banded check")
+    err = 0.0
+    for (name, a), (_, b) in zip(*outs):
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"phase 43: dense and banded K1 output {name} differ at "
+                                     f"{int((a != b).sum())} places")
+        else:
+            err = max(err, float_err("phase 43 dense vs banded K1", name, a, b, 1e-9, 1e-9))
+    return err, events[0]
+
+
+def engine_chunk_ms(sampler, x0, v0):
+    """One engine chunk (``engine.CHUNK`` transitions) of ``sampler`` from
+    its f32 start, after a warm one, timed by CUDA events: the route the
+    dense form took before its products were formed once per transition."""
+    B = x0.shape[0]
+    state = sampler.init_state_batch(x0, v0, 0, torch.float32, DEV)
+    run = engine.make_stream_runner(sampler, engine.CHUNK, 1 << 30)
+    counts = torch.zeros(B, dtype=torch.int32, device=DEV)
+    run(state, counts)
+    sync()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    run(state, counts)
+    end.record()
+    sync()
+    return start.elapsed_time(end)
+
+
+def phase_transition_products(card_name):
+    """Phase 43, the dense AR(1) Gaussian at d = 1000 on the chunk kernels:
+    ``zigzag_dense_ar1_d1000`` (K1) and ``bps_dense_ar1_d1000`` (K3) as
+    :func:`phase_dense` (the f64 parity launch, K3 bit for bit and K1 to
+    ``RTOL``; the route under ``"auto"``, its kernel and K2 with no engine
+    chunk, and one timed warm call; an f32 launch with its bound); the dense
+    K1 launch against the banded one (phase 42's form) from one state; one
+    engine chunk of the dense K1 sampler timed, for the record.  Returns
+    {path: (launches, ms, plain ms, bound, err)}."""
+    paths = dense_ar1_paths()
+    out, _ = phase_dense(card_name, list(paths), "phase 43", 1, paths=paths)
+    dense = paths["zigzag_dense_ar1_d1000"][0]
+    band = band_paths()["zigzag_band_ar1_d1000"][0]
+    d, B, _ = paths["zigzag_dense_ar1_d1000"][1]
+    err, n_ev = dense_band_launch(dense, band, B)
+    launches, ms, plain_ms, b, e = out["zigzag_dense_ar1_d1000"]
+    out["zigzag_dense_ar1_d1000"] = (launches, ms, plain_ms, b, max(e, err))
+    x0, v0 = dense_start(dense, "ar1", B, d, None)
+    eng_ms = engine_chunk_ms(dense, x0, v0)
+    print(f"phase 43 products formed once per transition: the dense K1 launch (f64, K=32, "
+          f"B={B}) against the banded one from one state max_abs_err={err:.3e} ({n_ev} "
+          f"events, integers equal); one engine "
+          f"chunk ({engine.CHUNK} transitions) of the dense K1 sampler (f32, B={B}, d={d}) "
+          f"{eng_ms:.2f} ms by CUDA events, the f32 K=32 launch {ms:.4f} ms: "
+          f"{eng_ms / (engine.CHUNK / 32) / ms:.1f}x per transition ({card_name})", flush=True)
     return out
 
 
@@ -4864,7 +4988,7 @@ def main():
     k2_paths = {"rhmc_gauss_d10": phase_rhmc(card_name)}
     for tderiv in ("fd", "jvp"):
         k2_paths[f"zigzag_banana_d10_{tderiv}"] = phase_banana_engine(card_name, tderiv)
-    builds = user_builds()  # phases 25 and 36-42's user libraries, every nvcc at once
+    builds = user_builds()  # phases 25 and 36-43's user libraries, every nvcc at once
     phase_routing(card_name)
     at(25)
     k2_paths["host:sticky_zigzag_d1000"] = phase_host_sticky(card_name, sticky, k6_ms)
@@ -4901,6 +5025,8 @@ def main():
     dense_k6 = parity["sticky_dense_ar1_d1000"]
     user.update(phase_band(card_name, (dense_k6[1], dense_k6[3]), neal_user))
     at(42)
+    user.update(phase_transition_products(card_name))
+    at(43)
     zz = "pdmpflux_tpu/ops/pallas/zigzag_chunk.py:854"
     k7 = 'pdmpflux_tpu/ops/pallas/zigzag_chunk.py:343 mode="horizon"'
     kernels = [
@@ -4973,17 +5099,17 @@ def main():
             kernel_entry(f"compact_rows[{path}]", "compact.cu",
                          "pdmpflux_tpu/ops/pallas/compact.py:132", n["compact_rows"], k2e,
                          k2ms, k2pms, k2b)]
-    # the generated potentials' paths (phases 36-42), each kernel timed at its
-    # shape and checked there in f32 and, in phases 37-42, against its plain
+    # the generated potentials' paths (phases 36-43), each kernel timed at its
+    # shape and checked there in f32 and, in phases 37-43, against its plain
     # version in f64; their K2 launches compact fills of the flagship's shapes
     # (phase 4b's K2 numbers) or of their own deployments' shapes
     sources = {"zigzag_chunk": ("zigzag_chunk.cu", zz), "sticky_chunk": ("sticky_chunk.cu", zz),
                "bps_chunk": ("scalar_chunk.cu", zz + ' kind="bps"/"boomerang"'),
                "ecmc_chunk": ("scalar_chunk.cu", zz + ' kind="ecmc"'),
                "suzz_chunk": ("suzz_chunk.cu", zz + ' kind="suzz"')}
-    # phases 39-42 time the kernel on an f32 launch from the deployment's
+    # phases 39-43 time the kernel on an f32 launch from the deployment's
     # start and the plain version on the f64 parity launch from a random state
-    dense = set(dense_paths()) | set(band_paths())
+    dense = set(dense_paths()) | set(band_paths()) | set(dense_ar1_paths())
     for path, (n, ms, plain_ms, b, err) in user.items():
         name = next(k for k in sources if n.get(k))
         kernels.append(kernel_entry(

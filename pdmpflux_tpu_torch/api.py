@@ -163,17 +163,24 @@ def pick_backend(sampler, backend: str, d: int, dtype, device) -> str:
       and, on CUDA, the kernel takes the shape (``grid_size`` up to
       ``MAX_GRID``; ``d`` up to ``scalar_max_dim`` for K3/K5 and
       ``sticky_max_dim`` for K6, shared memory's limits, a generated
-      potential's K6 read from its own build; the plain versions
+      potential's read from its own build; the plain versions
       on the CPU have none), else the engine;
     * ``"pallas"``: the kernel, or ``ValueError`` where none covers the
       sampler or the shape.
 
     On CUDA a covered sampler whose gradient carries no device potential
     (a gradient of the user's own) is lowered into a generated potential
-    (``ops/cuda/lower.py``) and takes the kernel, unless its context at a
-    point passes what the kernel keeps (K6's shared memory, read from its
-    build; ``lower.LANE_BYTES`` a lane of the others): then the engine
-    under ``"auto"``, ``ValueError`` under ``"pallas"``.  Reads of
+    (``ops/cuda/lower.py``) and takes the kernel where the kernel holds its
+    context: a product with a constant matrix whose input is affine in the
+    point (a dense quadratic form's ``P x``, ``A (x - mu)``, a regression's
+    ``X b``) is formed once per transition on K1 and K3/K5 and kept beside
+    the chain's state, so it takes the kernel at any ``d`` their shared
+    memory (K3/K5: ``scalar_max_dim`` read from the potential's own build)
+    or scratch (K1: none) holds; a context formed at each point (K4's
+    products, a product after a nonlinearity such as ``A tanh(x)``, a sum
+    past degree 2) must fit what the kernel keeps there (K6's shared memory,
+    read from its build; ``lower.LANE_BYTES`` a lane of the others), else
+    the engine under ``"auto"``, ``ValueError`` under ``"pallas"``.  Reads of
     neighbours at fixed offsets (``x[1:] - x[:-1]``, a band) and of any fixed
     coordinate (``x[k]``) take the kernel like any other read.  A gradient
     the lowering cannot express (a running sum, one element of a matrix
@@ -211,14 +218,17 @@ def pick_backend(sampler, backend: str, d: int, dtype, device) -> str:
             )
         return True
 
-    if too_large(k3.scalar_max_dim(dtype) if scalar else
+    user = sampler.device_potential not in k1.KERNEL_POTENTIALS
+    if too_large(None if user else k3.scalar_max_dim(dtype) if scalar else
                  k1.sticky_max_dim(dtype) if sampler.sticky else None):
         return "engine"
-    if sampler.device_potential not in k1.KERNEL_POTENTIALS:
+    if user:
         low = lower.lower_sampler(sampler, kind, d, dtype, device)  # raises LoweringError
-        # K6's static rows and context are the generated potential's own (its
-        # build's); a lane of the other kernels keeps its context in local memory
-        if sampler.sticky and too_large(k1.sticky_max_dim(dtype, low)):
+        # K3/K5's and K6's shared memory hold the generated potential's own
+        # context (its build reports the limit); a lane of the other kernels
+        # keeps its per-point context in local memory
+        if (scalar or sampler.sticky) and too_large(
+                k3.scalar_max_dim(dtype, low) if scalar else k1.sticky_max_dim(dtype, low)):
             return "engine"
         if not lower.lane_fits(low):
             if backend == "pallas":

@@ -133,14 +133,89 @@ __device__ __forceinline__ T nmax(T a, T b) {
   return (isnan(a) || a > b) ? a : b;
 }
 
+// The values a potential forms once per transition (Pot::form: each product
+// with a constant matrix whose input u is affine in the point, c0 = M u(x)
+// and c1 = M du(x; v) at the transition's start, its rows split over the
+// chain's lanes), read at time tau of the transition: value q of the chain
+// at p[q * ps], a product's c0 rows at offset o, its c1 rows at o + R.  Along
+// the linear flow element r is c0[r] + tau c1[r], its tangent c1[r]; along
+// the Boomerang's elliptic flow (y = x cos tau + v sin tau) it is
+// a cos tau + c1[r] sin tau + mc[r], its tangent c1[r] cos tau - a sin tau,
+// with a = c0[r] - mc[r] and mc = M u(0) the constant part (a parameter of
+// the potential).  The tags form none (p is null).
+template <typename T>
+struct Transition {
+  const T* p;
+  long ps;
+  T tau, c, s;
+  bool elliptic;
+
+  // the values at time t along the linear flow
+  __device__ __forceinline__ Transition at(T t) const {
+    return {p, ps, t, (T)1, (T)0, false};
+  }
+  // the values where the elliptic flow has turned by cos tau = c_, sin tau = s_
+  __device__ __forceinline__ Transition turned(T c_, T s_) const {
+    return {p, ps, (T)0, c_, s_, true};
+  }
+  __device__ __forceinline__ void prod(int o, int R, int r, const T* mc, T& val,
+                                       T& dval) const {
+    const T c0 = p[(long)(o + r) * ps], c1 = p[(long)(o + R + r) * ps];
+    if (elliptic) {
+      const T m = mc[r];
+      const T a = c0 - m;
+      val = a * c + c1 * s + m;
+      dval = c1 * c - a * s;
+    } else {
+      val = c0 + tau * c1;
+      dval = c1;
+    }
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ Transition<T> transition(const T* p, long ps) {
+  return {p, ps, (T)0, (T)1, (T)0, false};
+}
+
 // The accessor of the point x + v t (coordinate j at x[j * stride], v[j *
 // stride]) that the kernels hand a potential's at and sums: yw(j, y, w) gives
-// coordinate j's position y = x_j + v_j t and velocity w = v_j.
+// coordinate j's position y = x_j + v_j t and velocity w = v_j, and
+// yw.prod(o, R, r, mc, val, dval) a per-transition product's element r there
+// (tr: the transition's values at the point's time).
 template <typename T>
-__device__ __forceinline__ auto linear_point(const T* x, const T* v, long stride, T t) {
-  return [=](int j, T& y, T& w) {
+struct LinearPoint {
+  const T* x;
+  const T* v;
+  long stride;
+  T t;
+  Transition<T> tr;
+
+  __device__ __forceinline__ void operator()(int j, T& y, T& w) const {
     w = v[j * stride];
     y = x[j * stride] + w * t;
+  }
+  __device__ __forceinline__ void prod(int o, int R, int r, const T* mc, T& val,
+                                       T& dval) const {
+    tr.prod(o, R, r, mc, val, dval);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ LinearPoint<T> linear_point(const T* x, const T* v, long stride,
+                                                       T t,
+                                                       Transition<T> tr = transition<T>(nullptr,
+                                                                                        0)) {
+  return {x, v, stride, t, tr};
+}
+
+// The accessor of a transition's start that Pot::form reads: yw(j, y, w)
+// gives x_j and v_j as they lie.
+template <typename T>
+__device__ __forceinline__ auto start_point(const T* x, const T* v, long stride) {
+  return [=](int j, T& y, T& w) {
+    y = x[j * stride];
+    w = v[j * stride];
   };
 }
 
@@ -197,16 +272,25 @@ struct ChainMoments {
 // sums and its products with constant matrices): K1 calls Pot::sums there
 // from the lane that evaluates the point, as K3/K5 and K4 do everywhere,
 // and K6 calls Pot::fill with its whole block, which keeps the context in
-// shared_bytes of dynamic shared memory.  A tag's context is its sums alone.
+// shared_bytes of dynamic shared memory.  With NP > 0 it also forms NP
+// values per chain once per transition (Pot::form, on K1 and K3/K5: the
+// products whose input is affine in the point), which the kernels keep
+// beside the chain's x and v and hand to at and sums inside the point's
+// accessor (Transition, above).  A tag's context is its sums alone.
 template <typename T>
 struct TagPotential {
   static constexpr bool chain = false;
   static constexpr bool point = false;
   static constexpr bool reads_others = false;
   static constexpr long shared_bytes = 0;
+  static constexpr int NP = 0;  // values formed once per transition: none
   using Sums = ChainSums<T>;
   using Moments = ChainMoments<T>;
 
+  // the values formed once per transition (K1, K3/K5), run `part` of `parts`
+  // from the transition's start yw(j, y, w), into pv at stride ps: none
+  template <class F>
+  __device__ __forceinline__ static void form(int, int, int, const T*, F, T*, long) {}
   // the sums at one point, one lane walking the chain (K3/K5, K4):
   // yw(j, y, w) gives coordinate j's point and velocity
   template <class F>

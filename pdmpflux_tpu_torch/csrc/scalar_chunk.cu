@@ -52,7 +52,16 @@
 // coordinate.  The funnels' coordinate 0 reads sums over the chain's other
 // coordinates at the evaluation point (pdmp_common.cuh: ChainSums): every
 // lane adds them in coordinate order before its pass over a grid point,
-// and before thinning and the jump, as the plain version adds them.
+// and before thinning and the jump, as the plain version adds them.  A
+// potential generated from a user's gradient forms its products with a
+// constant matrix whose input is affine in the point once per transition
+// (Pot::NP > 0, Pot::form): at the transition's start the lanes split their
+// rows, each row added in column order, c0 = M u(x) and c1 = M du(x; v) into
+// the chain's shared slice beside X and V; after a __syncwarp every point
+// (a grid point, thinning's, the jump's after the flow) reads element r
+// through its accessor at its time t of the transition, c0 + t c1 on the
+// linear flow and from cos t and sin t on the elliptic one (Transition in
+// pdmp_common.cuh), as the plain version reads them (Lowered.along).
 //
 // What bounds it on an H100: latency.  Per transition the critical path is
 // one lane's ordered O(d) pass over its grid point (the gradient, two products
@@ -64,8 +73,14 @@
 // Later work: several chains per warp at small d, K5's jump (about twelve
 // ordered sums), staged row stores (a lane's row store goes to stride B).
 //
-// Shared memory: 4 * NVEC * d * sizeof(T) bytes per block must fit the 227 KB
-// a block can have, so d <= scalar_chunk_max_dim(f64): 1210 in f32, 605 in f64.
+// Shared memory: a chain's NVEC * d + Pot::NP values (its vectors, then the
+// values its potential forms once per transition), 4 chains to a block, must
+// fit the 227 KB a block can have, so d <= scalar_chunk_max_dim(f64): 1210
+// in f32, 605 in f64 for the tags.  A generated potential with NP > 0 takes
+// as many chains per block as fit, from 4 down to 1, so its d reaches
+// (227 KB / sizeof(T) - NP) / NVEC (read from its own build: 2088 in f64
+// beside the 4000 values of a dense quadratic form's two products at
+// d = 1000).
 
 #include "pdmp_common.cuh"
 
@@ -90,21 +105,59 @@ struct Jump {
 // does not read them.
 template <typename T, class Pot>
 __device__ __forceinline__ typename Pot::Sums sums_at(const T* x, const T* v, int d, T t,
-                                                      const T* prm) {
-  return Pot::sums(d, prm, linear_point(x, v, 1, t));
+                                                      const T* prm, const Transition<T>& tr) {
+  return Pot::sums(d, prm, linear_point(x, v, 1, t, tr));
 }
 
 // Gradient component i at x + v t and its derivative along v, x and v the
 // chain's d shared values; the "aniso" potential reads its scales from prm,
 // the funnels their chain sums cs at the same point, a generated potential
-// its neighbours and fixed coordinates through the point's accessor.
+// its neighbours, fixed coordinates and per-transition products (tr, at the
+// point's time of the transition) through the point's accessor.
 template <typename T, class Pot>
 __device__ __forceinline__ void grad_at(const T* x, const T* v, int d, int i, T t,
                                         const T* prm, const typename Pot::Sums& cs,
-                                        T& g, T& dg) {
+                                        const Transition<T>& tr, T& g, T& dg) {
   const int i1 = d > 1 ? 1 : 0;
-  Pot::at(i, x[i], v[i], x[0], v[0], x[i1], v[i1], t, prm, cs, linear_point(x, v, 1, t), g,
+  Pot::at(i, x[i], v[i], x[0], v[0], x[i1], v[i1], t, prm, cs, linear_point(x, v, 1, t, tr), g,
           dg);
+}
+
+// The point of the elliptic flow turned by cos t = c, sin t = s from the
+// chain's x and v: yw(j, y, w) gives y = x_j c + v_j s and w = -x_j s + v_j c,
+// yw.prod a per-transition product there.
+template <typename T>
+struct EllipticPoint {
+  const T* X;
+  const T* V;
+  T c, s;
+  Transition<T> tr;
+
+  __device__ __forceinline__ void operator()(int j, T& y, T& w) const {
+    y = X[j] * c + V[j] * s;
+    w = -X[j] * s + V[j] * c;
+  }
+  __device__ __forceinline__ void prod(int o, int R, int r, const T* mc, T& val,
+                                       T& dval) const {
+    tr.prod(o, R, r, mc, val, dval);
+  }
+};
+
+// Values of one chain's shared slice: its NVEC vectors of d, then the values
+// its potential forms once per transition.
+template <class Pot>
+__host__ __device__ __forceinline__ long chain_values(int d) {
+  return (long)NVEC * d + Pot::NP;
+}
+
+// Chains per block: WARPS, or for a potential that forms values once per
+// transition as many as fit the block's shared memory (at least 1 where d is
+// at most max_dim).
+template <typename T, class Pot>
+int chains_per_block(int d) {
+  if (Pot::NP == 0) return WARPS;
+  const long fit = SMEM_BLOCK / (chain_values<Pot>(d) * (long)sizeof(T));
+  return (int)(fit < WARPS ? (fit < 1 ? 1 : fit) : WARPS);
 }
 
 // Sum of r[0..d) in coordinate order, r[0] + r[1] + ..., the same bits in
@@ -134,11 +187,13 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
   extern __shared__ __align__(16) unsigned char smem[];
   const int d = p.d, n_grid = p.n_grid, G = p.n_grid - 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long B = p.B, b = (long)blockIdx.x * WARPS + warp;
+  // the block's chains: WARPS, or as many as chains_per_block fitted
+  const int chains = Pot::NP == 0 ? WARPS : (int)(blockDim.x >> 5);
+  const long B = p.B, b = (long)blockIdx.x * chains + warp;
   if (b >= B) return;  // a whole warp leaves: no block-wide barrier follows
   const bool elliptic = jp.kind == KIND_BOOMERANG;
 
-  T* X = (T*)smem + (long)warp * NVEC * d;
+  T* X = (T*)smem + (long)warp * chain_values<Pot>(d);
   T* V = X + d;
   T* Y = V + d;    // thinning's flowed position, then K3's g
   T* W = Y + d;    // thinning's flowed velocity, then K3's refresh normals
@@ -150,6 +205,7 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
   T* E1 = VO + d;  // ECMC: the switch plane (or the refreshed direction)
   T* E2 = E1 + d;
   T* VP = E2 + d;  // ECMC: fresh orthogonal draw, then the proposal
+  T* PV = VP + d;  // the values the potential forms once per transition
 
   for (int i = lane; i < d; i += 32) {
     X[i] = x[i * B + b];
@@ -171,6 +227,9 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
   const uint32_t tile = (uint32_t)p.tile;
   const T zero = (T)0, refresh = (T)p.refresh;
 
+  // the chain's per-transition values (Pot::form), read at a point's time
+  const Transition<T> tr = transition<T>(PV, 1);
+
   // <g(x_t), v_t> at time t and its time derivative df, taken by this lane
   // alone from the shared x and v: per coordinate the gradient at the flowed
   // state (grad U(y) - y at y = x cos t + v sin t on the elliptic flow, whose
@@ -185,10 +244,7 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
       const T y0 = X[0] * c + V[0] * s, w0 = -X[0] * s + V[0] * c;
       const T y1 = X[i1] * c + V[i1] * s, w1 = -X[i1] * s + V[i1] * c;
       // the point on the elliptic flow, read by coordinate
-      const auto point = [&](int j, T& y, T& w) {
-        y = X[j] * c + V[j] * s;
-        w = -X[j] * s + V[j] * c;
-      };
+      const EllipticPoint<T> point{X, V, c, s, tr.turned(c, s)};
       const auto cs = Pot::sums(d, prm, point);
       for (int i = 0; i < d; ++i) {
         const T yi = X[i] * c + V[i] * s, wi = -X[i] * s + V[i] * c;
@@ -201,10 +257,10 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
         df = i == 0 ? r1 : df + r1;
       }
     } else {
-      const auto cs = sums_at<T, Pot>(X, V, d, t, prm);
+      const auto cs = sums_at<T, Pot>(X, V, d, t, prm, tr.at(t));
       for (int i = 0; i < d; ++i) {
         T g, dg;
-        grad_at<T, Pot>(X, V, d, i, t, prm, cs, g, dg);
+        grad_at<T, Pot>(X, V, d, i, t, prm, cs, tr.at(t), g, dg);
         const T r0 = g * V[i], r1 = dg * V[i];
         f = i == 0 ? r0 : f + r0;
         df = i == 0 ? r1 : df + r1;
@@ -230,6 +286,12 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
     const bool live = lane_live(p, cnt, t_s);  // t_s is the same in every lane
     int kval = 0;
     if (live) {
+      // ---- the products formed once per transition, rows across lanes ----
+      if constexpr (Pot::NP > 0) {
+        Pot::form(d, lane, 32, prm, start_point(X, V, 1), PV, 1);
+        __syncwarp();
+      }
+
       // ---- envelope of the scalar rate on [0, bh], grid points across lanes ----
       const T step = bh_s / (T)G;
       const bool two = n_grid > 32;  // the same in every lane
@@ -268,17 +330,18 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
           W[i] = -X[i] * s + V[i] * c;
         }
         __syncwarp();
-        const auto cs = sums_at<T, Pot>(Y, W, d, zero, prm);
+        const Transition<T> at_tp = tr.turned(c, s);
+        const auto cs = sums_at<T, Pot>(Y, W, d, zero, prm, at_tp);
         for (int i = lane; i < d; i += 32) {
           T g, dg;
-          grad_at<T, Pot>(Y, W, d, i, zero, prm, cs, g, dg);
+          grad_at<T, Pot>(Y, W, d, i, zero, prm, cs, at_tp, g, dg);
           R0[i] = (g - Y[i]) * W[i];
         }
       } else {
-        const auto cs = sums_at<T, Pot>(X, V, d, tp_safe, prm);
+        const auto cs = sums_at<T, Pot>(X, V, d, tp_safe, prm, tr.at(tp_safe));
         for (int i = lane; i < d; i += 32) {
           T g, dg;
-          grad_at<T, Pot>(X, V, d, i, tp_safe, prm, cs, g, dg);
+          grad_at<T, Pot>(X, V, d, i, tp_safe, prm, cs, tr.at(tp_safe), g, dg);
           R0[i] = g * V[i];
         }
       }
@@ -312,13 +375,17 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
       __syncwarp();
 
       // ---- velocity jump at x_new (uniform over the warp) ----
+      // the per-transition values at flow_t, where the flow took x and v
+      Transition<T> tr_new = tr;
+      if constexpr (Pot::NP > 0)
+        tr_new = elliptic ? tr.turned(cos(flow_t), sin(flow_t)) : tr.at(flow_t);
       typename Pot::Sums cs_new{};  // read only on a jump
-      if (p_acc) cs_new = sums_at<T, Pot>(X, V, d, zero, prm);
+      if (p_acc) cs_new = sums_at<T, Pot>(X, V, d, zero, prm, tr_new);
       if (p_acc && jp.kind != KIND_ECMC) {
         // K3: bounce or refresh
         for (int i = lane; i < d; i += 32) {
           T g, dg;
-          grad_at<T, Pot>(X, V, d, i, zero, prm, cs_new, g, dg);
+          grad_at<T, Pot>(X, V, d, i, zero, prm, cs_new, tr_new, g, dg);
           if (elliptic) g = g - X[i];
           const T z = box_muller(uniform<T>(seed, salt, (3u + i) * tile + ln),
                                  uniform<T>(seed, salt, (3u + d + i) * tile + ln));
@@ -350,7 +417,7 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
         };
         for (int i = lane; i < d; i += 32) {
           T g, dg;
-          grad_at<T, Pot>(X, V, d, i, zero, prm, cs_new, g, dg);
+          grad_at<T, Pot>(X, V, d, i, zero, prm, cs_new, tr_new, g, dg);
           N[i] = g;
           R0[i] = g * g;
         }
@@ -549,23 +616,28 @@ scalar_chunk_kernel(Params p, Jump jp, const T* __restrict__ prm, T* __restrict_
   }
 }
 
-template <typename T>
+// The largest d whose chain slices fit a block: 4 chains of NVEC vectors for
+// a potential that forms no values per transition, else one chain of NVEC
+// vectors and its NP values.
+template <typename T, class Pot>
 long max_dim() {
-  return SMEM_BLOCK / ((long)WARPS * NVEC * sizeof(T));
+  return Pot::NP == 0 ? SMEM_BLOCK / ((long)WARPS * NVEC * sizeof(T))
+                      : (SMEM_BLOCK / (long)sizeof(T) - Pot::NP) / NVEC;
 }
 
 template <typename T, class Pot>
 int launch(const Params& p, const Jump& jp, const void* prm, void* x, void* v, void* fs,
            void* iscal, void* ring, void* ev_kind, void* ev_x, void* ev_v, void* ev_fs,
            void* ev_ring, cudaStream_t stream) {
-  if (p.d > max_dim<T>()) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)WARPS * NVEC * p.d * sizeof(T);
+  if (p.d > max_dim<T, Pot>()) return (int)cudaErrorInvalidValue;
+  const int chains = chains_per_block<T, Pot>(p.d);
+  const size_t smem = (size_t)chains * chain_values<Pot>(p.d) * sizeof(T);
   auto kern = scalar_chunk_kernel<T, Pot>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = (p.B + WARPS - 1) / WARPS;
-  kern<<<blocks, 32 * WARPS, smem, stream>>>(
+  const int blocks = (p.B + chains - 1) / chains;
+  kern<<<blocks, 32 * chains, smem, stream>>>(
       p, jp, (const T*)prm, (T*)x, (T*)v, (T*)fs, (int*)iscal, (T*)ring, (int*)ev_kind,
       (T*)ev_x, (T*)ev_v, (T*)ev_fs, (T*)ev_ring);
   return (int)cudaGetLastError();
@@ -583,8 +655,14 @@ int dispatch(int potential, const Params& p, const Jump& jp, const void* prm, vo
 
 }  // namespace
 
+// The largest d of the library's potential: the tags', or a generated
+// potential's, which its own build reports for its one dtype.
 extern "C" long scalar_chunk_max_dim(int f64) {
-  return f64 ? max_dim<double>() : max_dim<float>();
+#ifdef PDMPFLUX_USER_POTENTIAL
+  if (f64 == (int)std::is_same<UserScalar, double>::value)
+    return max_dim<UserScalar, UserPotential<UserScalar>>();
+#endif
+  return f64 ? max_dim<double, TagPotential<double>>() : max_dim<float, TagPotential<float>>();
 }
 
 extern "C" int scalar_chunk_launch(int f64, int kind, int potential, int d, int B, int K,

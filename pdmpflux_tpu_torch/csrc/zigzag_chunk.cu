@@ -49,24 +49,34 @@
 // sums at each point itself, so the two agree to rounding.  A potential
 // generated from a user's gradient (ops/cuda/lower.py) reduces the Taylor
 // terms of each of its sums' summands the same way (moment_add) where they
-// are of degree at most 2 in t; any other (a sum of higher degree, a
-// product with a constant matrix: Pot::point) is formed at each point by
-// the lane that evaluates it (Pot::sums, every element added in index order
-// as the plain version adds it): a lane's envelope points are its own, and
-// thinning and the flip, where every lane of the group reads the same
-// point, take 2 of the transition's 2 (n_grid - 1) + 2 points, so each
-// lane forms those itself rather than splitting the rows and reducing d
-// partial gradients over the group.  A generated potential reads a
-// neighbour or a fixed coordinate through the accessor of the point
-// (linear_point), from the group's copy of x and v (or the state at stride
-// B): another lane's coordinate, which the __syncwarp after the previous
-// flow published and which no lane writes before the __syncwarp ahead of
-// this transition's flow.
+// are of degree at most 2 in t.  Its products with a constant matrix whose
+// input is affine in the point (Pot::NP > 0) are affine in t along the
+// flow, so the group forms them once per transition, beside the moments:
+// each lane forms its run of every product's rows, c0 = M u(x) and
+// c1 = M du(x; v), each row added in column order as the plain version
+// adds it (Pot::form), into the group's shared copy beside x and v (or the
+// (NP, B) scratch at stride B where x and v are read in place), and after a
+// __syncwarp every point reads element r as c0[r] + t c1[r] through the
+// point's accessor (Transition).  Splitting the rows over the group pays
+// because the product serves every point of the transition.  Any other
+// stage (a sum of higher degree, a product after a nonlinearity:
+// Pot::point) is formed at each point by the lane that evaluates it
+// (Pot::sums, every element added in index order as the plain version adds
+// it): a lane's envelope points are its own, and thinning and the flip,
+// where every lane of the group reads the same point, take 2 of the
+// transition's 2 (n_grid - 1) + 2 points, so each lane forms those itself
+// rather than splitting their rows and reducing d partial gradients over
+// the group at each of them.
+// A generated potential reads a neighbour or a fixed coordinate through
+// the accessor of the point (linear_point), from the group's copy of x and
+// v (or the state at stride B): another lane's coordinate, which the
+// __syncwarp after the previous flow published and which no lane writes
+// before the __syncwarp ahead of this transition's flow.
 // For the tags and the moment potentials no array is indexed at run time,
 // so nothing lands in local memory.  A point potential's context (a
-// segment's two Sums, alive at once, and its products' inputs) is indexed
-// in loops past lower.UNROLL steps and then lives in the lane's local
-// memory (Lowered.lane_bytes, at most lower.LANE_BYTES).  Every
+// segment's two Sums, alive at once, and its per-point products' inputs)
+// is indexed in loops past lower.UNROLL steps and then lives in the lane's
+// local memory (Lowered.lane_bytes, at most lower.LANE_BYTES).  Every
 // shuffle and __syncwarp names only the group's lanes, so a group that is
 // frozen, or past B at the ragged end of the last warp, skips its
 // transitions or leaves without stalling the other groups of its warp.  The
@@ -89,6 +99,7 @@ namespace {
 using namespace pdmp;
 
 constexpr long SMEM_BLOCK = 232448;  // bytes of shared memory one block may use
+constexpr long SMEM_SM = 233472;     // bytes of shared memory an SM may carve out of L1
 
 // Sum over the group's L lanes; every lane gets the same bits (each step
 // adds two values that both lanes of the pair hold).
@@ -111,10 +122,11 @@ __device__ __forceinline__ T group_scan(T v, unsigned mask, int lg) {
 }
 
 // Bytes of dynamic shared memory a block of `threads` lanes takes: each
-// chain's box row and, where they fit, its x and v.
+// chain's box row and, where they fit, its x and v and the np values its
+// potential forms once per transition.
 template <typename T, int L>
-long smem_bytes(int d, int threads, bool xv) {
-  return (long)(threads / L) * (MAXG + (xv ? 2L * d : 0)) * (long)sizeof(T);
+long smem_bytes(int d, int np, int threads, bool xv) {
+  return (long)(threads / L) * (MAXG + (xv ? 2L * d + np : 0)) * (long)sizeof(T);
 }
 
 template <typename T, class Pot, int L>
@@ -124,7 +136,7 @@ __global__ void zigzag_chunk_kernel(Params p, int in_smem, const T* __restrict__
                                     int* __restrict__ iscal, T* __restrict__ ring,
                                     int* __restrict__ ev_kind, T* __restrict__ ev_x,
                                     T* __restrict__ ev_v, T* __restrict__ ev_fs,
-                                    T* __restrict__ ev_ring) {
+                                    T* __restrict__ ev_ring, T* __restrict__ scratch) {
   extern __shared__ __align__(16) unsigned char smem[];
   const long B = p.B;
   const long b = ((long)blockIdx.x * blockDim.x + threadIdx.x) / L;
@@ -132,12 +144,14 @@ __global__ void zigzag_chunk_kernel(Params p, int in_smem, const T* __restrict__
   const int lg = threadIdx.x & (L - 1), cg = threadIdx.x / L;
   const unsigned gmask = ((1u << L) - 1) << ((threadIdx.x & 31) & ~(L - 1));
   const int d = p.d, n_grid = p.n_grid, G = p.n_grid - 1;
-  // the chain's box row, then its x and v: the group's shared copy, or in
-  // place in the (d, B) state at stride B
-  T* box = (T*)smem + (long)cg * (MAXG + (in_smem ? 2 * d : 0));
+  // the chain's box row, then its x and v and its per-transition values: the
+  // group's shared copy, or in place in the (d, B) state and the (NP, B)
+  // scratch at stride B
+  T* box = (T*)smem + (long)cg * (MAXG + (in_smem ? 2 * d + Pot::NP : 0));
   const long sx = in_smem ? 1 : B;
   T* xb = in_smem ? box + MAXG : x + b;
   T* vb = in_smem ? xb + d : v + b;
+  T* pv = in_smem ? vb + d : scratch + b;
   const long s1 = d > 1 ? sx : 0;  // coordinate 1's offset (Banana reads it)
   // this lane's coordinates [i0, i1) for thinning, the flip and the flow
   const int per = (d + L - 1) / L;
@@ -178,6 +192,13 @@ __global__ void zigzag_chunk_kernel(Params p, int in_smem, const T* __restrict__
                               : transition_draw<T>(seed, (uint32_t)k, (uint32_t)p.tile,
                                                    lane, 3);
       const T x0 = xb[0], v0 = vb[0], x1 = xb[s1], v1 = vb[s1];
+      // the products formed once per transition: this lane's run of their
+      // rows, read by every lane of the group after the __syncwarp
+      if constexpr (Pot::NP > 0) {
+        Pot::form(d, lg, L, prm, start_point(xb, vb, sx), pv, sx);
+        __syncwarp(gmask);
+      }
+      const Transition<T> tr = transition(pv, sx);
       // the potential's chain moments (the funnels': over coordinates
       // 1..d-1), summed over the group (the same bits in every lane); its
       // sums at time t follow
@@ -190,10 +211,10 @@ __global__ void zigzag_chunk_kernel(Params p, int in_smem, const T* __restrict__
       }
       using Sums = typename Pot::Sums;
       // the potential's sums at time t: from the moments, or for a point
-      // potential every sum and product formed at x + v t by this lane
+      // potential every stage formed at x + v t by this lane
       auto sums_at = [&](T t) -> Sums {
         if constexpr (Pot::point) {
-          return Pot::sums(d, prm, linear_point(xb, vb, sx, t));
+          return Pot::sums(d, prm, linear_point(xb, vb, sx, t, tr.at(t)));
         } else {
           return mom.at(t);
         }
@@ -203,7 +224,8 @@ __global__ void zigzag_chunk_kernel(Params p, int in_smem, const T* __restrict__
       // lane's coordinate, which the __syncwarp after the last flow published
       auto rate = [&](int i, T xi, T vi, T t, const Sums& cs, T& f, T& gd) {
         T g, dg;
-        Pot::at(i, xi, vi, x0, v0, x1, v1, t, prm, cs, linear_point(xb, vb, sx, t), g, dg);
+        Pot::at(i, xi, vi, x0, v0, x1, v1, t, prm, cs, linear_point(xb, vb, sx, t, tr.at(t)), g,
+                dg);
         f = g * vi;
         gd = dg * vi;
       };
@@ -402,40 +424,56 @@ int lanes_for(int B) {
 template <typename T, class Pot, int L>
 int launch_lanes(const Params& p, const void* prm, void* x, void* v, void* fs, void* iscal,
                  void* ring, void* ev_kind, void* ev_x, void* ev_v, void* ev_fs,
-                 void* ev_ring, cudaStream_t stream) {
+                 void* ev_ring, void* scratch, cudaStream_t stream) {
   const long lanes = (long)p.B * L;
   // 128-thread blocks where they fill the card's 132 SMs, else one warp each
   const int threads = lanes >= 132L * 128 ? 128 : 32;
   const int blocks = (int)((lanes + threads - 1) / threads);
-  const bool in_smem = smem_bytes<T, L>(p.d, threads, true) <= SMEM_BLOCK;
-  const long smem = smem_bytes<T, L>(p.d, threads, in_smem);
+  const bool in_smem = smem_bytes<T, L>(p.d, Pot::NP, threads, true) <= SMEM_BLOCK;
+  if (!in_smem && Pot::NP > 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const long smem = smem_bytes<T, L>(p.d, Pot::NP, threads, in_smem);
   auto kern = zigzag_chunk_kernel<T, Pot, L>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
+  if (Pot::NP > 0) {
+    // the per-transition values make a block's shared memory large, and by
+    // default the card carves out enough for every block an SM could hold,
+    // leaving little L1 for the parameters each point reads (a data matrix;
+    // the logistic regression's launch ran 1.4x slower so, PERF.md): ask for
+    // the blocks this launch puts on an SM at once, and no more
+    int dev = 0, sms = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)e;
+    const long per_sm = ((blocks + sms - 1) / sms) * (smem + 1024);
+    const int pct = (int)(per_sm >= SMEM_SM ? 100 : (per_sm * 100 + SMEM_SM - 1) / SMEM_SM);
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, pct);
+    if (e != cudaSuccess) return (int)e;
+  }
   kern<<<blocks, threads, smem, stream>>>(
       p, (int)in_smem, (const T*)prm, (T*)x, (T*)v, (T*)fs, (int*)iscal, (T*)ring, (int*)ev_kind,
-      (T*)ev_x, (T*)ev_v, (T*)ev_fs, (T*)ev_ring);
+      (T*)ev_x, (T*)ev_v, (T*)ev_fs, (T*)ev_ring, (T*)scratch);
   return (int)cudaGetLastError();
 }
 
 template <typename T, class Pot>
 int launch(const Params& p, const void* prm, void* x, void* v, void* fs, void* iscal,
            void* ring, void* ev_kind, void* ev_x, void* ev_v, void* ev_fs, void* ev_ring,
-           cudaStream_t s) {
+           void* scratch, cudaStream_t s) {
   switch (lanes_for(p.B)) {
     case 2:
       return launch_lanes<T, Pot, 2>(p, prm, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
-                                     ev_fs, ev_ring, s);
+                                     ev_fs, ev_ring, scratch, s);
     case 4:
       return launch_lanes<T, Pot, 4>(p, prm, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
-                                     ev_fs, ev_ring, s);
+                                     ev_fs, ev_ring, scratch, s);
     case 8:
       return launch_lanes<T, Pot, 8>(p, prm, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
-                                     ev_fs, ev_ring, s);
+                                     ev_fs, ev_ring, scratch, s);
     case 16:
       return launch_lanes<T, Pot, 16>(p, prm, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
-                                      ev_fs, ev_ring, s);
+                                      ev_fs, ev_ring, scratch, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -443,10 +481,10 @@ int launch(const Params& p, const void* prm, void* x, void* v, void* fs, void* i
 template <typename T>
 int dispatch(int potential, const Params& p, const void* prm, void* x, void* v, void* fs,
              void* iscal, void* ring, void* ev_kind, void* ev_x, void* ev_v, void* ev_fs,
-             void* ev_ring, cudaStream_t s) {
+             void* ev_ring, void* scratch, cudaStream_t s) {
   return with_potential<T>(potential, prm, [&](auto pot) {
     return launch<T, decltype(pot)>(p, prm, x, v, fs, iscal, ring, ev_kind, ev_x, ev_v,
-                                    ev_fs, ev_ring, s);
+                                    ev_fs, ev_ring, scratch, s);
   });
 }
 
@@ -458,7 +496,7 @@ extern "C" int zigzag_chunk_launch(int f64, int potential, int d, int B, int K,
                                    int horizon, float t_target, const void* prm,
                                    void* x, void* v, void* fs, void* iscal, void* ring,
                                    void* ev_kind, void* ev_x, void* ev_v, void* ev_fs,
-                                   void* ev_ring, void* stream) {
+                                   void* ev_ring, void* scratch, void* stream) {
   if (n_grid < 2 || n_grid > MAXG || d < 1 || B < 1 || tile < 1)
     return (int)cudaErrorInvalidValue;
   cudaGetLastError();  // clear a stale error so the check below is this launch's
@@ -466,9 +504,9 @@ extern "C" int zigzag_chunk_launch(int f64, int potential, int d, int B, int K,
            horizon, t_target};
   cudaStream_t s = (cudaStream_t)stream;
   return f64 ? dispatch<double>(potential, p, prm, x, v, fs, iscal, ring, ev_kind, ev_x,
-                                ev_v, ev_fs, ev_ring, s)
+                                ev_v, ev_fs, ev_ring, scratch, s)
              : dispatch<float>(potential, p, prm, x, v, fs, iscal, ring, ev_kind, ev_x,
-                               ev_v, ev_fs, ev_ring, s);
+                               ev_v, ev_fs, ev_ring, scratch, s);
 }
 
 // The lanes per chain K1 takes at B chains.

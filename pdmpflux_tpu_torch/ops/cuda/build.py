@@ -91,7 +91,7 @@ def _signatures() -> dict:
                 + [ctypes.c_double]             # refresh rate
                 + [i] * 3                       # cap, tile, seed
                 + [i, ctypes.c_float]           # horizon mode, its float32 target
-                + [p] * 11 + [p])),             # params, state, event rows, stream
+                + [p] * 12 + [p])),             # params, state, event rows, scratch, stream
             "zigzag_chunk_lanes": (i, [i]),
             "zigzag_chunk_set_lanes": (i, [i]),
             "suzz_chunk_launch": (i, (

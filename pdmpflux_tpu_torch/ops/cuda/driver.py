@@ -105,11 +105,34 @@ def chunk_config(sampler, K: int, cap: int, tile: int) -> zc.ChunkConfig:
     )
 
 
+def _per_transition(low: lower.Lowered, kind: str):
+    """The plain version's pair along one transition (``lower.Lowered.along``):
+    ``(x, v) -> pair(y, w, tau)``, the Boomerang's along its elliptic flow and
+    made effective; None where the lowering forms no product once per
+    transition."""
+    if not low.trans:
+        return None
+    if kind != "boomerang":
+        return low.along
+
+    def along(x, v):
+        pair = low.along(x, v, elliptic=True)
+
+        def effective(y, w, tau):
+            g, dg = pair(y, w, tau)
+            return g - y, None if dg is None else dg - w
+
+        return effective
+
+    return along
+
+
 def lowered_config(cfg: zc.ChunkConfig, sampler, d: int, dtype, device) -> zc.ChunkConfig:
     """``cfg`` of an untagged sampler made the generated potential's: its
     gradient lowered for the kernel (``lower.lower_sampler``, cached on the
     sampler; raises ``LoweringError``), the IR's torch pair as the plain
-    version's gradients (the Boomerang's made effective, as a tag's are),
+    version's gradients (the Boomerang's made effective, as a tag's are) and
+    its pair along a transition where it forms products once per transition,
     potential id 7 and the hoisted parameters on ``device`` in ``dtype``."""
     low = lower.lower_sampler(sampler, cfg.kind, d, dtype, device)
     grad, grad_jvp = low.grad, low.grad_jvp
@@ -117,7 +140,8 @@ def lowered_config(cfg: zc.ChunkConfig, sampler, d: int, dtype, device) -> zc.Ch
         grad, grad_jvp = _effective(grad, grad_jvp)
     return cfg._replace(
         grad=grad, grad_jvp=grad_jvp, device_potential=lower.USER_POTENTIAL, user=low,
-        pot_params=low.params_on(device, dtype) if low.params.numel() else None)
+        pot_params=low.params_on(device, dtype) if low.params.numel() else None,
+        per_transition=_per_transition(low, cfg.kind))
 
 
 def chunk_state(state: PDMPState, counts: torch.Tensor,

@@ -59,22 +59,32 @@ hands the potential an accessor ``yw(j, y, w)`` of the point it evaluates
 (``Pot::at``, ``Pot::sums``, ``Pot::fill``): a neighbour or a fixed
 coordinate past 1 is read through it, so such a read adds no context.
 
-Where the stages are formed.  K3/K5 and K4 form every stage at every point
-they evaluate, one lane walking the chain (``UserPotential::sums``): a
-coordinate-space input in the lane's local memory, a data vector streamed
-row by row (each row's product formed where it is read), every sum and
-every product element added in index order, as the plain version's
-``ordered_sum`` and ``ordered_matvec`` add, so the two agree bit for bit
-where the kernel rounds as torch does (``-fmad=false``).  K1 and K6 reduce
-sums of summands of degree at most 2 in ``t`` that read their own
-coordinate and coordinates 0 and 1 once per transition as chain moments,
-extrapolated along the linear flow in truncated Taylor arithmetic of order
-2 (exact there); a gradient with any other stage is a point
-potential for them too: K1's lane forms the stages at each point it
-evaluates, as K3 does, and K6's block forms them together
-(``UserPotential::fill``: each stage's positions across the threads,
-products' inputs and outputs in shared memory, sums by a two-level
-reduction).
+Where the stages are formed.  A product whose input lies over the
+coordinates and has degree at most 1 in ``t`` (``x``, ``A (x - mu)``,
+``X b``) is affine along K1's and K3/K5's flows, so those kernels form it
+once per transition (``Lowered.trans``, ``UserPotential::form``): the
+chain's lanes split its rows and add each in column order, ``c0 = M u(x)``
+and ``c1 = M du(x; v)`` at the transition's start, and every point reads
+element ``r`` as ``c0[r] + t c1[r]`` with tangent ``c1[r]`` (the
+Boomerang's elliptic flow: ``a cos t + c1 sin t + mc`` and ``c1 cos t - a
+sin t``, ``a = c0 - mc``, ``mc = M u(0)`` hoisted into the parameters),
+through the point's accessor (``yw.prod``).  Every other stage is formed
+at the point.  K3/K5 and K4 form it at every point they evaluate, one lane
+walking the chain (``UserPotential::sums``): a coordinate-space input in
+the lane's local memory, a data vector streamed row by row (each row's
+product formed where it is read), every sum and every product element
+added in index order, as the plain version's ``ordered_sum`` and
+``ordered_matvec`` add, so the two agree bit for bit where the kernel rounds
+as torch does (``-fmad=false``).  K1 and K6 reduce sums of summands of
+degree at most 2 in ``t`` that read their own coordinate and coordinates 0
+and 1 once per transition as chain moments, extrapolated along the linear
+flow in truncated Taylor arithmetic of order 2 (exact there); a gradient
+with any other stage (K6: any product) is a point potential for them too:
+K1's lane forms the stages at each point it evaluates, as K3 does, and
+K6's block forms them together (``UserPotential::fill``: each stage's
+positions across the threads, products' inputs and outputs in shared
+memory, sums by a two-level reduction).  The plain version forms the
+per-transition products as the kernels do (``Lowered.along``).
 
 A gradient that reads coordinates other than its own (neighbours, fixed
 coordinates) sets ``reads_others``: K6 then publishes the chain's values to
@@ -109,16 +119,20 @@ SOURCES = {"zigzag": "zigzag_chunk.cu", "sticky": "sticky_chunk.cu",
 """The chunk source that runs each kernel (K1, K6, K4, K3, K3, K5)."""
 MOMENT_KERNELS = ("zigzag", "sticky")
 """Kernels that reduce chain moments once per transition (K1, K6)."""
+TRANSITION_KERNELS = ("zigzag", "bps", "boomerang", "ecmc")
+"""Kernels whose flow (linear, or the Boomerang's elliptic one) keeps a
+product of an affine input affine in ``t``, so that they form it once per
+transition (K1, K3, K5)."""
 
 LANE_BYTES = 4096
-"""Most bytes of context (``Lowered.lane_bytes``: sums, products' coordinate
-outputs, their inputs) one lane of K1, K3/K5 or K4 keeps at a point, from
-``chip_ab.py --lane-context`` on the H100: a dense quadratic form's 4 KB
-(K3) and 6 KB (K1) ran at 2.1 ps per operation, 16 KB on K3 at 29 ps and
-48 KB on K1 at 47 ps (14-23x).  ptxas's stack frame runs 2.3-3.4x the
-count, and the card
-reserves that frame for every thread it can hold (30 GB at 96 KB counted
-on K1)."""
+"""Most bytes of per-point context (``Lowered.lane_bytes``: sums, the
+outputs of products formed at the point, their inputs) one lane of K1,
+K3/K5 or K4 keeps at a point; products formed once per transition are not
+counted.  From ``chip_ab.py --lane-context`` on the H100, then a dense
+quadratic form's per-point products: 4 KB (K3) and 6 KB (K1) ran at 2.1 ps
+per operation, 16 KB on K3 at 29 ps and 48 KB on K1 at 47 ps (14-23x).
+ptxas's stack frame runs 2.3-3.4x the count, and the card reserves that
+frame for every thread it can hold (30 GB at 96 KB counted on K1)."""
 
 INF = 1 << 20  # the degree in t of a summand that is not a polynomial
 MAX_RUNS = 4   # a constant vector of more runs of equal values is hoisted
@@ -504,9 +518,13 @@ class Lowered:
     ``("mv", m)``, a product ``M u``), the sums' pieces (``reductions``) and
     index spaces, the products, the hoisted parameters (``params``, a float64
     vector, empty when there are none) and, from them, the torch pair and the
-    header.  ``point``: the kernel evaluates every stage at every point it
-    evaluates (K3/K5, K4 always; K1 and K6 unless every stage is a sum the
-    chain moments extrapolate exactly)."""
+    header.  ``trans``: the products formed once per transition (stage
+    order), their values at ``toff`` of the chain's ``n_trans`` per-transition
+    values (``c0`` rows, then ``c1`` rows), and on the Boomerang their
+    constant parts ``M u(0)`` at ``mc_off`` of the parameters.  ``point``:
+    the kernel evaluates a stage at every point it evaluates (K3/K5, K4
+    always; K1 and K6 unless every sum is one the chain moments extrapolate
+    exactly and, on K1, every product is formed once per transition)."""
 
     def __init__(self, b: Graph, kernel: str, d: int, dtype, out: List[Piece],
                  stages: List[Tuple[str, int]], reductions: List[List[Piece]],
@@ -520,31 +538,60 @@ class Lowered:
         self.d_red = [[b.tangent(p.e, memo) for p in r] for r in reductions]
         self.d_mv = {m: [b.tangent(p.e, memo) for p in pr.vec.pieces]
                      for m, pr in products.items()}
+        self.trans = [m for kind, m in stages if kind == "mv" and kernel in TRANSITION_KERNELS
+                      and products[m].in_space == "c"
+                      and all(p.e.deg <= 1 for p in products[m].vec.pieces)]
+        self.toff, self.n_trans = {}, 0
+        for m in self.trans:
+            self.toff[m] = self.n_trans
+            self.n_trans += 2 * products[m].rows
         self.point = kernel not in MOMENT_KERNELS or not self._moments_exact()
-        # the products read at the coordinates, in stage order: Sums slots
+        # the products formed at a point and read at the coordinates, in
+        # stage order: Sums slots
         self.slot = {m: k for k, m in enumerate(
-            m for kind, m in stages if kind == "mv" and products[m].space == "c")}
+            m for kind, m in stages
+            if kind == "mv" and products[m].space == "c" and m not in self.toff)}
         self._lits: dict = {}
         self._dev: dict = {}
         self._lib = None
+        self.mc_off: Dict[int, int] = {}
+        if kernel == "boomerang" and self.trans:
+            self._hoist_constant_parts()
 
     def _moments_exact(self) -> bool:
         """Whether K1/K6's chain moments give every stage exactly: sums over
         the coordinates of summands of degree at most 2 in ``t`` that read
-        their own coordinate and coordinates 0 and 1 alone (no products, no
-        sum read by another)."""
-        return not self.products and all(
+        their own coordinate and coordinates 0 and 1 alone (no sum read by
+        another), and no product but those formed once per transition."""
+        return all(m in self.toff for m in self.products) and all(
             space == "c" and all(p.e.deg <= 2 and not _leaves(p.e) & _FAR and 0 <= _coords(p)[0]
                                  and _coords(p)[1] <= self.d for p in pieces)
             for pieces, space in zip(self.reductions, self.red_space))
 
+    def _hoist_constant_parts(self) -> None:
+        """``mc = M u(0)`` of each per-transition product, in the run's dtype,
+        appended to the parameters: the Boomerang reads a product along its
+        elliptic flow from ``c0``, ``c1`` and ``mc``."""
+        zero = torch.zeros((self.d, 1), dtype=self.dtype)
+        prm = self.params.to(self.dtype)
+        u0, _ = self._eval(zero, None, only=set(self.trans), prm=prm)
+        parts = [self.params]
+        off = self.params.numel()
+        for m in self.trans:
+            self.mc_off[m] = off
+            parts.append(u0[m][:, 0].to(torch.float64))
+            off += self.products[m].rows
+        self.params = torch.cat(parts)
+
     def lane_bytes(self) -> int:
         """Bytes of one lane's context at a point (K1, K3/K5, K4): its
-        ``Sums`` (the sums and the products' coordinate outputs, with their
-        tangents; K1 keeps two alive, a segment's two grid points) and the
-        products' materialized inputs with their tangents."""
+        ``Sums`` (the sums and the coordinate outputs of products formed at
+        the point, with their tangents; K1 keeps two alive, a segment's two
+        grid points) and those products' materialized inputs with their
+        tangents.  Products formed once per transition are not counted."""
         sums = 2 * len(self.reductions) + 2 * len(self.slot) * self.d
-        inputs = sum(2 * pr.cols for pr in self.products.values() if pr.in_space == "c")
+        inputs = sum(2 * pr.cols for m, pr in self.products.items()
+                     if pr.in_space == "c" and m not in self.toff)
         return ((2 if self.kernel == "zigzag" else 1) * sums + inputs) * self.dtype.itemsize
 
     def shared_values(self) -> int:
@@ -575,8 +622,52 @@ class Lowered:
         return (block.view(pr.cols, pr.rows).t() if pr.colmajor
                 else block.view(pr.rows, pr.cols))
 
-    def _eval(self, y, w):
-        prm = self.params_on(y.device, y.dtype)
+    def _read(self, c0s: dict, c1s: dict, tau: torch.Tensor, elliptic: bool) -> dict:
+        """``{m: (value, tangent)}``: the per-transition products (``c0s``,
+        ``c1s``) read at the times ``tau`` ``(N,)`` of their transition as
+        the kernels read them (``Transition::prod`` in
+        ``csrc/pdmp_common.cuh``), ``c0 + tau c1`` and ``c1`` along the
+        linear flow, ``a cos tau + c1 sin tau + mc`` and ``c1 cos tau - a sin
+        tau`` (``a = c0 - mc``) along the elliptic one; ``N`` a multiple of
+        the transition's columns, which repeat."""
+        out = {}
+        prm = self.params_on(tau.device, tau.dtype) if elliptic else None
+        for m in self.trans:
+            c0, c1 = c0s[m], c1s[m]
+            reps = tau.shape[0] // c0.shape[1]
+            if reps > 1:
+                c0, c1 = c0.repeat(1, reps), c1.repeat(1, reps)
+            if elliptic:
+                mc = prm[self.mc_off[m]:self.mc_off[m] + self.products[m].rows, None]
+                a = c0 - mc
+                c, s = torch.cos(tau), torch.sin(tau)
+                out[m] = (a * c + c1 * s + mc, c1 * c - a * s)
+            else:
+                out[m] = (c0 + tau * c1, c1)
+        return out
+
+    def along(self, x: torch.Tensor, v: torch.Tensor, elliptic: bool = False):
+        """``pair(y, w, tau) -> (g, H(y) w)``: the pair at the point ``(y,
+        w)`` the flow reaches at times ``tau`` from the transition's start
+        ``(x, v)`` (``(d, N)`` chains), its per-transition products formed
+        once from ``(x, v)``, ``c0 = M u(x)`` and ``c1 = M du(x; v)``, every
+        element added in column order as the kernels' ``form`` adds it, and
+        read at ``tau`` (:meth:`_read`), every other stage formed at the
+        point (``w`` None: the gradient alone): the plain version of the
+        kernels' pair."""
+        c0s, c1s = self._eval(x, v, only=set(self.trans))
+
+        def pair(y, w, tau):
+            return self._eval(y, w, fixed=self._read(c0s, c1s, tau, elliptic))
+
+        return pair
+
+    def _eval(self, y, w, fixed=None, only=None, prm=None):
+        """The pair at ``(y, w)`` (``w`` None: the gradient alone); ``fixed``
+        the per-transition products' values and tangents there, their stages
+        skipped; ``only`` a set of products, formed alone and returned as
+        ``(values, tangents)`` dicts."""
+        prm = self.params_on(y.device, y.dtype) if prm is None else prm
         key = (y.device, y.dtype)
         if key not in self._lits:
             self._lits[key] = {}
@@ -634,7 +725,12 @@ class Lowered:
             return torch.cat(parts, 0)
 
         n = y.shape[1]
+        for m, (val, dval) in (fixed or {}).items():
+            prod[m], dprod[m] = val, dval
         for kind, s in self.stages:
+            if (kind == "mv" and s in prod) or (only is not None and not (
+                    kind == "mv" and s in only)):
+                continue
             # a stage's value and tangent side by side, added in one pass
             pieces, tangents = ((self.reductions[s], self.d_red[s]) if kind == "red" else
                                 (self.products[s].vec.pieces, self.d_mv[s]))
@@ -646,6 +742,8 @@ class Lowered:
             (red, prod)[kind != "red"][s] = out[..., :n]
             if w is not None:
                 (dred, dprod)[kind != "red"][s] = out[..., n:]
+        if only is not None:
+            return prod, dprod
         g = assemble(self.out, [p.e for p in self.out])
         return g, (None if w is None else assemble(self.out, self.d_out))
 
@@ -670,6 +768,7 @@ class Lowered:
             f"  static constexpr int NR = {nr};",
             f"  static constexpr long shared_bytes = "
             f"{self.shared_values() if block else 0}L * (long)sizeof(T);",
+            f"  static constexpr int NP = {self.n_trans};  // values formed once per transition",
             "  struct Sums {",
             "    T s[NR], ds[NR];",
         ]
@@ -678,6 +777,8 @@ class Lowered:
         elif self.slot:
             lines += [f"    T c[{npc}][{self.d}], dc[{npc}][{self.d}];"]
         lines.append("  };")
+        if self.trans:
+            lines += self._form_cpp()
         if not self.point:
             lines += self._moments_cpp()
         else:
@@ -765,16 +866,81 @@ class Lowered:
     def _coord_leaf(self, op, m):
         return f"cs.{'d' if op == 'dmv' else ''}c[{self.slot[m]}][i]"
 
+    def _emit(self, **kw) -> "_Emit":
+        """An emitter that reads the per-transition products through the
+        point's accessor (``yw.prod``)."""
+        mc = {m: f"prm + {o}" for m, o in self.mc_off.items()}
+        return _Emit(self.b, trans={m: (self.toff[m], self.products[m].rows,
+                                        mc.get(m, "nullptr")) for m in self.trans}, **kw)
+
     def _reads_point(self, *nodes) -> bool:
         return any(n is not None and _leaves(n) & {"y", "w"} for n in nodes)
 
+    def _form_cpp(self):
+        """``form``: the per-transition products at the transition's start,
+        each row added in column order as ``ordered_matvec`` adds it.  The
+        caller takes rows ``part``, ``part + parts``, ... of every product
+        (the lanes of a chain read adjacent rows, so a column-major matrix
+        is read in whole sectors), :data:`FORM_ROWS` at a time: their
+        accumulators are independent chains of adds, and the input's pieces
+        are evaluated once for them, where their columns are read."""
+        nb = FORM_ROWS
+        out = [
+            "  // the products formed once per transition: c0 = M u(x) and c1 = M du(x; v)",
+            "  // at the transition's start (yw(j, y, w) gives coordinate j's x and v),",
+            "  // value q of the chain at pv[q * ps], c0's rows then c1's; this caller",
+            "  // forms rows part, part + parts, ... of every product, " + str(nb) + " at a time,",
+            "  // each row added in column order",
+            "  template <class F>",
+            "  __device__ __forceinline__ static void form(int d, int part, int parts,",
+            "                                              const T* prm, F yw, T* pv, long ps) {",
+            "    (void)d; (void)prm; (void)yw;",
+        ]
+        if any(_leaves(p.e) & _FIRST for m in self.trans for p in self.products[m].vec.pieces):
+            out += _READ01
+        for m in self.trans:
+            pr, o = self.products[m], self.toff[m]
+            R = pr.rows
+            out += [f"    // product {m}: ({R} x {pr.cols}) u",
+                    f"    for (int j = part; j < {R}; j += {nb} * parts) {{",
+                    f"      T acc[{nb}], dacc[{nb}];",
+                    f"      int rs[{nb}];",
+                    "#pragma unroll",
+                    f"      for (int k = 0; k < {nb}; ++k) {{",
+                    f"        rs[k] = min(j + k * parts, {R - 1});  // a row past the last repeats it",
+                    "        acc[k] = dacc[k] = (T)0;",
+                    "      }"]
+            for p, dp in zip(pr.vec.pieces, self.d_mv[m]):
+                em = self._emit()
+                v, dv = em.name(p.e), em.name(dp) if dp is not None else "(T)0"
+                out += [f"      for (int q = {p.a}; q < {p.b}; ++q) {{  // {p.e.text()}",
+                        f"        const int i = q + {p.off or 0};", "        (void)i;"]
+                if self._reads_point(p.e, dp):
+                    out += ["        T y, w;", "        yw(i, y, w);", "        (void)y; (void)w;"]
+                out += ["        " + s for s in em.lines]
+                out += ["#pragma unroll",
+                        f"        for (int k = 0; k < {nb}; ++k) {{",
+                        f"          const T a = {self._m(m, 'rs[k]', 'q')};",
+                        f"          acc[k] = q == 0 ? a * {v} : acc[k] + a * {v};",
+                        f"          dacc[k] = q == 0 ? a * {dv} : dacc[k] + a * {dv};",
+                        "        }", "      }"]
+            out += ["#pragma unroll",
+                    f"      for (int k = 0; k < {nb}; ++k) {{",
+                    f"        if (j + k * parts < {R}) {{",
+                    f"          pv[({o} + rs[k]) * ps] = acc[k];",
+                    f"          pv[({o + R} + rs[k]) * ps] = dacc[k];",
+                    "        }", "      }", "    }"]
+        out.append("  }")
+        return out
+
     def _sums_cpp(self):
-        """``sums``: every stage at one point, one lane walking the chain
-        (K1 in point mode, K3/K5, K4), each sum and each product element
+        """``sums``: every stage formed at the point, one lane walking the
+        chain (K1 in point mode, K3/K5, K4), each sum and each product element
         added in index order as the plain version adds it."""
         out = [
-            "  // every sum and product at one point, one lane walking the chain, in the",
-            "  // plain version's order: yw(j, y, w) gives coordinate j's point and velocity",
+            "  // every sum and product formed at one point, one lane walking the chain,",
+            "  // in the plain version's order: yw(j, y, w) gives coordinate j's point and",
+            "  // velocity, yw.prod a per-transition product's element there",
             "  template <class F>",
             "  __device__ __forceinline__ static Sums sums(int d, const T* prm, F yw) {",
             "    Sums cs;",
@@ -783,15 +949,17 @@ class Lowered:
         if self._reads(_FIRST, stages_only=True):
             out += _READ01
         for kind, s in self.stages:
+            if kind == "mv" and s in self.toff:
+                continue
             out += self._lane_red(s) if kind == "red" else self._lane_product(s)
         out += ["    return cs;", "  }"]
         return out
 
     def _inline_products(self, nodes, indent):
-        """A data loop's products at row ``k`` (``z<m>``, ``dz<m>``), each
-        element added in column order."""
+        """A data loop's products formed at the point, at row ``k`` (``z<m>``,
+        ``dz<m>``), each element added in column order."""
         ms = sorted({x.attr for n in nodes if n is not None for x in _nodes(n)
-                     if x.op in ("mv", "dmv")})
+                     if x.op in ("mv", "dmv") and x.attr not in self.toff})
         out = []
         for m in ms:
             pr = self.products[m]
@@ -814,7 +982,7 @@ class Lowered:
         if self.red_space[r] == "c":
             for p, dp in zip(pieces, tangents):
                 lo, hi = _coords(p)
-                em = _Emit(self.b, leaf=self._coord_leaf)
+                em = self._emit(leaf=self._coord_leaf)
                 v, dv = em.name(p.e), em.name(dp) if dp is not None else "(T)0"
                 out += ["    " + u for u in _unroll(hi - lo)]
                 out += [f"    for (int i = {lo}; i < {hi}; ++i) {{  // sum {r}: {p.e.text()}",
@@ -828,7 +996,7 @@ class Lowered:
         out.append(f"    for (int k = 0; k < {n}; ++k) {{  // sum {r} over data rows")
         out += self._inline_products([p.e for p in pieces] + list(tangents), "      ")
         for p, dp in zip(pieces, tangents):
-            em = _Emit(self.b, idx="k", leaf=self._data_leaf)
+            em = self._emit(idx="k", leaf=self._data_leaf)
             v, dv = em.name(p.e), em.name(dp) if dp is not None else "(T)0"
             out.append(f"      if (k >= {p.a} && k < {p.b}) {{  // {p.e.text()}")
             out += ["        " + s for s in em.lines]
@@ -844,7 +1012,7 @@ class Lowered:
         if pr.in_space == "c":  # the input in the lane's registers, then M u
             out = [f"    T u{m}[{C}], du{m}[{C}];  // product {m}: ({R} x {C}) u"]
             for p, dp in zip(pr.vec.pieces, tangents):
-                em = _Emit(self.b, leaf=self._coord_leaf)
+                em = self._emit(leaf=self._coord_leaf)
                 v, dv = em.name(p.e), em.name(dp) if dp is not None else "(T)0"
                 out += ["    " + u for u in _unroll(p.b - p.a)]
                 out += [f"    for (int p = {p.a}; p < {p.b}; ++p) {{  // {p.e.text()}",
@@ -880,7 +1048,7 @@ class Lowered:
                 "      T u = (T)0, du = (T)0;"]
         out += self._inline_products([p.e for p in pr.vec.pieces] + list(tangents), "      ")
         for p, dp in zip(pr.vec.pieces, tangents):
-            em = _Emit(self.b, idx="k", leaf=self._data_leaf)
+            em = self._emit(idx="k", leaf=self._data_leaf)
             v, dv = em.name(p.e), em.name(dp) if dp is not None else "(T)0"
             out.append(f"      if (k >= {p.a} && k < {p.b}) {{  // {p.e.text()}")
             out += ["        " + s for s in em.lines]
@@ -1009,7 +1177,7 @@ class Lowered:
             last = n == len(self.out) - 1
             cond = "" if last and n == 0 else (f"if (i < {hi}) " if n == 0 else
                                                "else " if last else f"else if (i < {hi}) ")
-            em = _Emit(self.b, leaf=self._coord_leaf)
+            em = self._emit(leaf=self._coord_leaf)
             g = em.name(p.e)
             dg = em.name(dp) if dp is not None else "(T)0"
             out.append(f"    {cond}{{  // coordinates [{lo}, {hi}): {p.e.text()}")
@@ -1030,6 +1198,8 @@ class Lowered:
 UNROLL = 32
 """Loops of a lane's context up to this many steps are unrolled, so that its
 small arrays (a product's input, the accumulators) live in registers."""
+FORM_ROWS = 4
+"""Rows of a per-transition product one lane forms at once (``form``)."""
 
 
 def _unroll(n: int) -> List[str]:
@@ -1093,12 +1263,25 @@ _CPP_FN = {"exp": "exp", "expm1": "expm1", "log": "log", "log1p": "log1p", "sqrt
 
 class _Emit:
     """SSA statements of a DAG, one ``const`` per node, in dependency order;
-    a parameter reads ``prm[off + idx]``, a product's element ``leaf(op, m)``,
-    a neighbour or a fixed coordinate the accessor ``yw`` (once each)."""
+    a parameter reads ``prm[off + idx]``, a product's element ``leaf(op, m)``
+    (a per-transition product's, ``trans[m] = (offset, rows, mc)``, the
+    accessor's ``yw.prod``), a neighbour or a fixed coordinate the accessor
+    ``yw`` (once each)."""
 
-    def __init__(self, b: Graph, idx: str = "i", leaf=None):
+    def __init__(self, b: Graph, idx: str = "i", leaf=None, trans=None):
         self.b, self.lines, self.names, self.read = b, [], {}, set()
-        self.idx, self.leaf = idx, leaf
+        self.idx, self.leaf, self.trans = idx, leaf, trans or {}
+
+    def prod(self, n: Node) -> str:
+        """A per-transition product's element at the index and its tangent,
+        read with one call of ``yw.prod``."""
+        m = n.attr
+        if f"t{m}" not in self.read:
+            self.read.add(f"t{m}")
+            o, rows, mc = self.trans[m]
+            self.lines += [f"T pv{m}, dpv{m};",
+                           f"yw.prod({o}, {rows}, {self.idx}, {mc}, pv{m}, dpv{m});"]
+        return f"{'d' if n.op == 'dmv' else ''}pv{m}"
 
     def far(self, n: Node) -> str:
         """A neighbour's or a fixed coordinate's position or velocity, read
@@ -1128,7 +1311,7 @@ class _Emit:
         if op == "prm":
             return f"prm[{n.attr} + {self.idx}]"
         if op in ("mv", "dmv"):
-            return self.leaf(op, n.attr)
+            return self.prod(n) if n.attr in self.trans else self.leaf(op, n.attr)
         if op == "prmk":
             return f"prm[{n.attr}]"
         if op == "red":
@@ -1956,16 +2139,18 @@ def check_reads(pc: Piece, d: int) -> None:
 
 
 def lane_fits(low: Lowered) -> bool:
-    """Whether the kernel takes the lowered gradient's context: K6 keeps it in
-    shared memory (``sticky_max_dim`` reads the limit from its build), a
-    lane of the other kernels in at most :data:`LANE_BYTES`."""
+    """Whether the kernel takes the lowered gradient's per-point context: K6
+    keeps it in shared memory (``sticky_max_dim`` reads the limit from its
+    build), a lane of the other kernels in at most :data:`LANE_BYTES`; the
+    products formed once per transition lie beside the chain's state
+    (``scalar_max_dim`` reads K3/K5's limit from the build, K1 has none)."""
     return low.kernel == "sticky" or low.lane_bytes() <= LANE_BYTES
 
 
 def lane_message(low: Lowered) -> str:
-    return (f"the generated potential's context takes {low.lane_bytes()} bytes per lane at "
-            f"d={low.d} in {low.dtype}, past the {LANE_BYTES} a lane of the {low.kernel} "
-            "chunk kernel keeps; run it on backend='xla_stream'")
+    return (f"the generated potential's per-point context takes {low.lane_bytes()} bytes "
+            f"per lane at d={low.d} in {low.dtype}, past the {LANE_BYTES} a lane of the "
+            f"{low.kernel} chunk kernel keeps; run it on backend='xla_stream'")
 
 
 def lower_sampler(sampler, kind: str, d: int, dtype, device="cpu") -> Lowered:

@@ -95,12 +95,14 @@ def flow(kind: str, x, v, t):
     return (boomerang_flow if kind == "boomerang" else linear_flow)(x, v, t)
 
 
-def _rate_jvp(kind: str, grad_jvp, x, v, t):
+def _rate_jvp(kind: str, grad_jvp, x, v, t, pair=None):
     """The signed rate ``<g(x_t), v_t>`` at ``(B,)`` times and its time
     derivative, as ``jax.jvp`` takes them: ``<dg, v_t> + <g, dv_t/dt>`` with
-    ``dx_t/dt = v_t``, and ``dv_t/dt = -x_t`` on the elliptic flow."""
+    ``dx_t/dt = v_t``, and ``dv_t/dt = -x_t`` on the elliptic flow;
+    ``pair``: the transition's pair, its per-transition products read at
+    ``t``."""
     xt, vt = flow(kind, x, v, t)
-    g, dg = grad_jvp(xt, vt)
+    g, dg = grad_jvp(xt, vt) if pair is None else pair(xt, vt, t)
     if kind == "boomerang":
         return _dot(g, vt), _sum(dg * vt + g * -xt)
     return _dot(g, vt), _dot(dg, vt)
@@ -214,13 +216,19 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
         mode_s, rej, err, hit, cnt = (iscal[i].clone() for i in range(5))
         ring0 = ring.clone()
         live = live_lanes(cnt, t_s, cfg)
+        # the products formed once per transition (a generated potential),
+        # read at each point's time of the transition
+        pair = None if cfg.per_transition is None else cfg.per_transition(x, v)
+
+        def grad_at(xt, tau):
+            return cfg.grad(xt) if pair is None else pair(xt, None, tau)[0]
 
         # ---- envelope of the scalar rate on [0, bh] ----
         step = div_once(bh_s, G)
         box = []
         f_prev = g_prev = None
         for j in range(n_grid):
-            f_j, g_j = _rate_jvp(kind, cfg.grad_jvp, x, v, step * j)
+            f_j, g_j = _rate_jvp(kind, cfg.grad_jvp, x, v, step * j, pair)
             if not cfg.signed:  # max(s, 0) + refresh; JAX's max JVP halves at 0
                 coef = torch.where(f_j > 0, 1.0, torch.where(f_j == 0, 0.5, 0.0)).to(dt)
                 f_j, g_j = torch.clamp_min(f_j, 0.0) + cfg.refresh_rate, g_j * coef
@@ -256,7 +264,7 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
 
         # ---- thinning at tp on max(0, <g, v>) + refresh ----
         xt_p, vt_p = flow(kind, x, v, tp_safe)
-        lam_t = torch.clamp_min(_dot(cfg.grad(xt_p), vt_p), 0.0) + cfg.refresh_rate
+        lam_t = torch.clamp_min(_dot(grad_at(xt_p, tp_safe), vt_p), 0.0) + cfg.refresh_rate
         ar_new = lam_t / lam_bar
 
         beyond = tp > h_s
@@ -272,7 +280,7 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
         # ---- flow (v too on the elliptic flow), then the velocity jump ----
         flow_t = torch.where(p_moveh, h_s, torch.where(p_acc, tp_safe, zero))
         x_new, v_flow = flow(kind, x, v, flow_t)
-        g = cfg.grad(x_new)
+        g = grad_at(x_new, flow_t)
         jump = _ecmc_jump if kind == "ecmc" else _bounce_or_refresh
         v_new = torch.where(p_acc, jump(cfg, g, v_flow, seeds, k, d, dt), v_flow)
 
@@ -342,10 +350,14 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
         ring.copy_(ring_new)
 
 
-def scalar_max_dim(dtype) -> int:
+def scalar_max_dim(dtype, user=None) -> int:
     """Largest ``d`` K3/K5 take: the shared-memory vectors of a block's
-    four chains must fit the 227 KB a block can have."""
-    return int(build.library().scalar_chunk_max_dim(int(dtype == torch.float64)))
+    four chains must fit the 227 KB a block can have; a generated potential
+    (``user``, a ``lower.Lowered``; its library is built) that forms values
+    once per transition keeps them beside one chain's vectors, and its build
+    reports its own limit."""
+    lib = build.library() if user is None else user.library()
+    return int(lib.scalar_chunk_max_dim(int(dtype == torch.float64)))
 
 
 def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
@@ -359,10 +371,10 @@ def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
         raise ValueError(f"the scalar-rate kernel runs {sorted(KINDS)}, not {cfg.kind!r}")
     check_cuda(st, fill, row0, cfg, "scalar-rate", KERNEL_POTENTIALS)
     d, B = st.x.shape
-    if d > (max_d := scalar_max_dim(st.x.dtype)):
+    if d > (max_d := scalar_max_dim(st.x.dtype, cfg.user)):
         raise ValueError(
             f"d={d} exceeds the scalar-rate kernel's {max_d} for {st.x.dtype}: "
-            "the shared-memory vectors of a block's four chains must fit the "
+            "the shared-memory vectors of a block's chains must fit the "
             "227 KB of shared memory a block can have")
     ran_p, mix_p, switch, positive, sf, normal = cfg.ecmc_params or (
         False, 0.0, False, False, 1.0, False)

@@ -114,6 +114,11 @@ class ChunkConfig(NamedTuple):
     pot_params: Optional[torch.Tensor] = None  # the device potential's parameters
     t_target: Optional[float] = None    # K7: float32 clock target; None: events mode
     user: Optional[object] = None       # lower.Lowered: a generated potential ("user")
+    # the plain version's pair along one transition: (x, v) at its start ->
+    # pair(y, w, tau) -> (grad, H v) at the point (y, w) reached at times tau,
+    # the products formed once per transition (lower.Lowered.along); None:
+    # grad_jvp at each point
+    per_transition: Optional[Callable] = None
 
     @property
     def sticky(self) -> bool:
@@ -179,13 +184,14 @@ def _suzz_rates(grad_jvp, xt, v, phi):
     return (s * g - xt / s) * v, dge * v
 
 
-def _grid_rates(cfg, x, v, step, n_grid):
+def _grid_rates(cfg, x, v, step, n_grid, pair=None):
     """Per-coordinate rates along the flow at the grid times
     ``t_j = step * j`` and their time derivatives, ``(n_grid, d, B)`` each,
     from one gradient call over all grid points: ``grad(x + v t_j) * v`` on
-    the linear flow, the effective gradient's along the speed-change flow
-    (``kind="suzz"``).  Unsigned rates take the derivative of ``max(r, 0)``
-    as JAX's JVP does (half the tangent at ``r == 0``)."""
+    the linear flow (``pair``: the transition's pair, its per-transition
+    products read at ``t_j``), the effective gradient's along the
+    speed-change flow (``kind="suzz"``).  Unsigned rates take the derivative
+    of ``max(r, 0)`` as JAX's JVP does (half the tangent at ``r == 0``)."""
     d, B = x.shape
     js = torch.arange(n_grid, dtype=x.dtype, device=x.device)[:, None, None]
     t = step[None, None, :] * js                                  # (n_grid, 1, B)
@@ -195,7 +201,9 @@ def _grid_rates(cfg, x, v, step, n_grid):
         xt, phi = suzz_flow_tangent(x[None], v[None], t, dim_axis=1)
         r, dr = _suzz_rates(cfg.grad_jvp, lanes(xt), vl, lanes(phi))
     else:
-        g, dg = cfg.grad_jvp(lanes(x[None] + v[None] * t), vl)
+        xt = lanes(x[None] + v[None] * t)
+        g, dg = (cfg.grad_jvp(xt, vl) if pair is None else
+                 pair(xt, vl, t.expand(n_grid, 1, B).reshape(-1)))
         r, dr = g * vl, dg * vl
     r = r.reshape(d, n_grid, B).permute(1, 0, 2)
     dr = dr.reshape(d, n_grid, B).permute(1, 0, 2)
@@ -256,10 +264,16 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
         act0 = act.clone() if sticky else None
         live = live_lanes(cnt, t_s, cfg)
         va = v * act0.to(dt) if sticky else v
+        # the products formed once per transition (a generated potential on
+        # K1), read at each point's time tau
+        pair = None if cfg.per_transition is None else cfg.per_transition(x, va)
+
+        def rates_at(xt, tau):
+            return rates(xt, va) if pair is None else pair(xt, None, tau)[0] * va
 
         # ---- envelope on [0, bh]: tangent-intersection segment maxima ----
         step = div_once(bh_s, G)
-        f_all, g_all = _grid_rates(cfg, x, va, step, n_grid)
+        f_all, g_all = _grid_rates(cfg, x, va, step, n_grid, pair)
         box = []
         f_prev = g_prev = None
         for j in range(n_grid):
@@ -300,7 +314,7 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
         tp_safe = torch.where(overflow, zero, tp)
 
         # ---- thinning at tp on the unsigned rate ----
-        lam_t = coord_sum(torch.clamp_min(rates(flow(x, va, tp_safe), va), 0.0))
+        lam_t = coord_sum(torch.clamp_min(rates_at(flow(x, va, tp_safe), tp_safe), 0.0))
         ar_new = lam_t / lam_bar
 
         # ---- sticky: thaw clock and the axis crossing at fresh proposals ----
@@ -345,7 +359,7 @@ def run_chunk_plain(seed: int, st: ChunkState, fill: RawFill, row0: int,
         # identity there only up to rounding, as in JAX
         x_new = flow(x, va, flow_t)
         # the latent v survives the flow; flip rates use the old mask
-        rates_flip = torch.clamp_min(rates(x_new, va), 0.0)
+        rates_flip = torch.clamp_min(rates_at(x_new, flow_t), 0.0)
         m = _categorical_rows(rates_flip, u_flip)
         v_new = torch.where((iota_d == m[None, :]) & p_acc[None, :], -v, v)
 
@@ -584,6 +598,12 @@ def run_chunk(seed: int, st: ChunkState, fill: RawFill, row0: int,
     elif suzz:
         err = lib.suzz_chunk_launch(*head, *rows, stream)
     else:
-        err = lib.zigzag_chunk_launch(*head, *rows, stream)
+        # the (NP, B) values a generated potential forms once per transition,
+        # where K1 reads x and v in place rather than in shared memory
+        n_trans = 0 if cfg.user is None else cfg.user.n_trans
+        scratch = (torch.empty((n_trans, B), dtype=st.x.dtype, device=st.x.device)
+                   if n_trans else None)
+        err = lib.zigzag_chunk_launch(*head, *rows,
+                                      p(0 if scratch is None else scratch.data_ptr()), stream)
     build.check(err, name, lib)
     build.LAUNCHES[name] += 1

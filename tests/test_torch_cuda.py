@@ -283,6 +283,70 @@ def test_k6_reads_other_coordinates_as_plain_f64(dev, U, d, B):
     assert (kinds == pt.EV_JUMP).any() and (kinds == pt.EV_STICK).any()
 
 
+def shifted_quadratic(d, dev):
+    """``U = (x - mu) P (x - mu) / 2`` for a seeded SPD ``P``: two products
+    of the affine ``x - mu`` (constant part ``-P mu``), which K1 and K3/K5
+    form once per transition."""
+    rs = np.random.default_rng(d + 1)
+    a = rs.normal(size=(d, d)) / np.sqrt(d)
+    P = torch.as_tensor(a @ a.T + np.eye(d), device=dev)
+    mu = torch.as_tensor(rs.normal(size=d) * 0.3, device=dev)
+    return lambda x: 0.5 * (x - mu.to(x)) @ (P.to(x) @ (x - mu.to(x)))
+
+
+@pytest.mark.parametrize("kind,d,B", [
+    ("zigzag", 200, 300),   # past the old per-lane cap in f64 (d ~ 85)
+    ("bps", 200, 300),      # past the old per-lane cap in f64 (d ~ 128)
+    ("boomerang", 200, 300),  # the elliptic read: cos, sin and -P mu
+    ("ecmc", 200, 300),
+    ("zigzag", 2500, 16),   # the group's copy past shared memory: the (NP, B) scratch
+])
+def test_transition_products_match_plain_f64(dev, kind, d, B):
+    """A dense quadratic form whose products K1 and K3/K5 form once per
+    transition, against the plain version fed the IR's pair along the
+    transition (``Lowered.along``), two chunks from one f64 state: K1 to
+    rtol 1e-9, K3/K5 bit for bit (no math function parts the two)."""
+    make = {"zigzag": pt.ZigZagAD, "bps": pt.BPSAD, "boomerang": pt.BoomerangAD,
+            "ecmc": pt.ForwardECMCAD}[kind]
+    sampler = make(d, shifted_quadratic(d, dev))
+    rs = np.random.default_rng(d)
+    x0 = rs.normal(size=(B, d))
+    if kind == "zigzag":
+        v0 = rs.choice([-1.0, 1.0], size=(B, d))
+    else:
+        v0 = rs.normal(size=(B, d))
+        if kind != "boomerang":
+            v0 /= np.linalg.norm(v0, axis=1, keepdims=True)
+    state = sampler.init_state_batch(x0, v0, 3, torch.float64, dev)
+    cfg = driver.lowered_config(driver.chunk_config(sampler, 16, 20, 128), sampler, d,
+                                torch.float64, dev)
+    assert cfg.user.n_trans == 4 * d and cfg.per_transition is not None
+    assert cfg.user.lane_bytes() == 0
+    counts = torch.zeros(B, dtype=torch.int32, device=dev)
+    counts[::7] = 17
+    st_k = driver.chunk_state(state, counts)
+    st_p = k1.ChunkState(*(None if a is None else a.clone() for a in st_k))
+    fills = [k1.empty_fill(32, d, B, torch.float64, dev) for _ in range(2)]
+    scalar = kind in k3.KINDS
+    run, plain = ((k3.run_chunk, k3.run_chunk_plain) if scalar
+                  else (k1.run_chunk, k1.run_chunk_plain))
+    name = k3.launch_name(kind) if scalar else "zigzag_chunk"
+    n0 = build.LAUNCHES[name]
+    for it in range(2):
+        run(11 + it * 1000003, st_k, fills[0], 16 * it, cfg)
+        plain(11 + it * 1000003, st_p, fills[1], 16 * it, cfg)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == n0 + 2
+    for a, b in zip((*st_k, *fills[0]), (*st_p, *fills[1])):
+        if a is None:
+            continue
+        if a.dtype == torch.int32 or scalar:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12, equal_nan=True)
+    assert int((fills[0].kind[:, 0] == pt.EV_JUMP).sum()) > B
+
+
 def test_sticky_sample_skeleton_on_card(dev):
     kappa = 1.0
     sampler = pt.StickyZigZag(4, pt.potentials.grad_gauss, np.full(4, kappa))

@@ -256,7 +256,7 @@ def test_pick_backend_lowers_on_cuda(monkeypatch):
     dense ``A @ x`` included, and a running sum raises before any build,
     naming ``aten.cumsum`` and ``backend='xla_stream'``; the engine backends
     and the CPU stay as they were."""
-    monkeypatch.setattr(tsc, "scalar_max_dim", lambda dt: 1210)
+    monkeypatch.setattr(tsc, "scalar_max_dim", lambda dt, user=None: 1210)
     monkeypatch.setattr(tzc, "sticky_max_dim", lambda dt, user=None: 13136)
     A = torch.eye(D, dtype=torch.float64) * 2.0
     for make in (lambda U: pt.ZigZagAD(D, U), lambda U: pt.StickyZigZagAD(D, U, np.ones(D)),
@@ -300,30 +300,41 @@ def _dense_user():
 def test_dense_pairs_match_torch_func(name):
     """Each dense gradient's pair against ``torch.func.jvp(vmap(grad))`` at
     rtol 1e-12 on every kernel, the gradient alone its first half bit for
-    bit; every stage formed at each point."""
+    bit; a stage formed at each point, but on K1 and K3/K5 a product of an
+    affine input, formed once per transition (K1 then forms none at a point
+    where every product is one), whose pair along the transition
+    (``Lowered.along`` at ``x`` itself, ``tau = 0``) is the point's."""
     grad = resolve_potential(_dense_user()[name], D)[1]
     x, v = _points(seed=len(name))
     want_g, want_dg = _reference(grad, x, v)
     for kernel in lower.SOURCES:
         low = lower.lower_gradient(grad, kernel, D, torch.float64)
-        assert low.point and low.products
+        assert low.products
+        assert bool(low.trans) == (kernel in lower.TRANSITION_KERNELS)
+        assert low.point == (kernel != "zigzag" or set(low.trans) != set(low.products))
         g, dg = low.grad_jvp(x, v)
         torch.testing.assert_close(g, want_g, rtol=RTOL, atol=ATOL)
         torch.testing.assert_close(dg, want_dg, rtol=RTOL, atol=ATOL)
         assert torch.equal(low.grad(x), g)
+        if low.trans:
+            ga, dga = low.along(x, v, kernel == "boomerang")(x, v, torch.zeros(B, dtype=x.dtype))
+            torch.testing.assert_close(ga, want_g, rtol=RTOL, atol=ATOL)
+            torch.testing.assert_close(dga, want_dg, rtol=RTOL, atol=ATOL)
 
 
 def test_dense_headers_hoist_the_data():
     """The logistic regression's header on every kernel: ``X`` hoisted once
     (row-major, its transpose read column by column; the gradient's two
     ``X.to(b)`` copies share the block), then the labels and ``X^T y`` (a
-    constant of the gradient), the products read from ``prm``; K6 keeps the
-    products in shared memory, the other kernels in the lane
-    (``lane_bytes``)."""
+    constant of the gradient; the Boomerang then ``X b``'s constant part
+    ``M u(0)``), the products read from ``prm``; K6 keeps the products in
+    shared memory, K4 in the lane (``lane_bytes``), K1 and K3/K5 form ``X b``
+    once per transition (``form``) and keep ``X^T s`` in the lane."""
     grad = resolve_potential(_dense_user()["logistic"], D)[1]
     for kernel in lower.SOURCES:
         low = lower.lower_gradient(grad, kernel, D, torch.float32)
-        assert low.params.numel() == 11 * D + 11 + D
+        trans = kernel in lower.TRANSITION_KERNELS
+        assert low.params.numel() == 11 * D + 11 + D + (11 if kernel == "boomerang" else 0)
         torch.testing.assert_close(low.params[:11 * D],
                                    torch.as_tensor(DENSE_X, dtype=torch.float32).double()
                                    .reshape(-1), rtol=0, atol=0)
@@ -335,32 +346,52 @@ def test_dense_headers_hoist_the_data():
         assert f"prm[{11 * D + 11} + i]" in text  # X^T y
         assert ("static Sums fill(" in text) == (kernel == "sticky")
         assert ("static Sums sums(" in text) == (kernel != "sticky")
+        assert ("static void form(" in text) == trans
+        assert low.trans == ([m for k, m in low.stages][:1] if trans else [])
+        assert f"static constexpr int NP = {2 * 11 if trans else 0};" in text
         if kernel == "sticky":  # each product's input and output in shared memory
             assert f"shared_bytes = {2 * (2 * D + 2 * 11)}L" in text
             assert "__shared__ T rows" not in text and "__syncthreads();" in text
         else:
-            # Sums: X^T s and its tangent (K1 keeps two); the input: beta
+            # Sums: X^T s and its tangent (K1 keeps two); the input, beta,
+            # only where X b is formed at the point (K4)
             sums = 2 * D * (2 if kernel == "zigzag" else 1)
-            assert lower.lane_fits(low) and low.lane_bytes() == 4 * (sums + 2 * D)
+            assert lower.lane_fits(low)
+            assert low.lane_bytes() == 4 * (sums + (0 if trans else 2 * D))
+        if trans:  # sigma(X b) reads X b's row k at the point's time
+            assert "yw.prod(0, 11, k, " in text
 
 
 def test_a_lane_context_past_its_room_takes_the_engine(monkeypatch):
-    """A dense 100 x 100 quadratic form on BPS keeps 6400 bytes of context
-    per lane in float64, past ``lower.LANE_BYTES``: ``"auto"`` takes the
-    engine, ``"pallas"`` raises; in float32 (3200 bytes) it takes the
-    kernel."""
-    monkeypatch.setattr(tsc, "scalar_max_dim", lambda dt: 1210)
+    """A 100 x 100 quadratic form in ``tanh(x)`` on BPS, whose products
+    (after a nonlinearity) are formed at each point, keeps 6400 bytes of
+    context per lane in float64, past ``lower.LANE_BYTES``: ``"auto"``
+    takes the engine, ``"pallas"`` raises; in float32 (3200 bytes) it takes
+    the kernel.  The dense quadratic form in ``x`` keeps as much on K4, the
+    engine's there too; on BPS and the Zig-Zag its products are formed once
+    per transition, no per-point context, and it takes the kernel."""
+    monkeypatch.setattr(tsc, "scalar_max_dim", lambda dt, user=None: 1210)
     d = 100
     A = torch.eye(d, dtype=torch.float64)
-    U = lambda x: 0.5 * x @ (A.to(x) @ x)  # noqa: E731
+    U = lambda x: 0.5 * torch.tanh(x) @ (A.to(x) @ torch.tanh(x))  # noqa: E731
+    quad = lambda x: 0.5 * x @ (A.to(x) @ x)  # noqa: E731
     s = pt.BPSAD(d, U)
     assert tapi.pick_backend(s, "auto", d, torch.float64, "cuda") == "engine"
     with pytest.raises(ValueError, match="bytes per lane"):
         tapi.pick_backend(s, "pallas", d, torch.float64, "cuda")
     assert tapi.pick_backend(s, "auto", d, torch.float32, "cuda") == "kernel"
     low = lower.lower_sampler(s, "bps", d, torch.float64)
-    assert low.lane_bytes() == 8 * 4 * 2 * d and not lower.lane_fits(low)
+    assert low.lane_bytes() == 8 * 4 * 2 * d and not lower.lane_fits(low) and not low.trans
     # K1 keeps a segment's two Sums alive: 4 d values each, beside the
     # products' 4 d inputs
     zz = lower.lower_sampler(pt.ZigZagAD(d, U), "zigzag", d, torch.float32)
     assert zz.lane_bytes() == 4 * (2 * 4 * d + 4 * d)
+    suzz = pt.SpeedUpZigZagAD(d, quad)
+    assert tapi.pick_backend(suzz, "auto", d, torch.float64, "cuda") == "engine"
+    with pytest.raises(ValueError, match="bytes per lane"):
+        tapi.pick_backend(suzz, "pallas", d, torch.float64, "cuda")
+    for dense, kernel in ((pt.BPSAD(d, quad), "bps"), (pt.ZigZagAD(d, quad), "zigzag")):
+        for backend in ("auto", "pallas"):
+            assert tapi.pick_backend(dense, backend, d, torch.float64, "cuda") == "kernel"
+        low = lower.lower_sampler(dense, kernel, d, torch.float64)
+        assert low.lane_bytes() == 0 and low.n_trans == 4 * d

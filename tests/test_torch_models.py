@@ -142,7 +142,7 @@ def test_pick_backend_routes_every_sampler(backend, device, monkeypatch):
     """Every sampler under every backend value, on the CPU and (decided
     without a card) on CUDA, with the shared-memory limits the built kernels
     report there (K3/K5: 1210 in float32, K6: 1500)."""
-    monkeypatch.setattr(k3, "scalar_max_dim", lambda dt: 1210)
+    monkeypatch.setattr(k3, "scalar_max_dim", lambda dt, user=None: 1210)
     monkeypatch.setattr(k1, "sticky_max_dim", lambda dt: 1500)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -180,7 +180,8 @@ def test_pallas_refusal_matches_jax_text():
 def test_pick_backend_shape_limits_on_cuda(monkeypatch):
     """On CUDA the kernels' shared memory and grid limits send "auto" to the
     engine and make "pallas" raise; the CPU's plain versions have none."""
-    monkeypatch.setattr(k3, "scalar_max_dim", lambda dt: 1210 if dt == torch.float32 else 605)
+    monkeypatch.setattr(k3, "scalar_max_dim",
+                        lambda dt, user=None: 1210 if dt == torch.float32 else 605)
     monkeypatch.setattr(k1, "sticky_max_dim", lambda dt: 1500 if dt == torch.float32 else 1200)
     g = pt.potentials.grad_gauss
     cases = [(pt.BPS(700, g), 700, torch.float32, "kernel"),
@@ -209,7 +210,7 @@ def test_untagged_gradient_on_cuda_names_the_engine(monkeypatch):
     ``cumsum``) raises there, naming the aten op and backend="xla_stream";
     that backend, and the CPU, run all three.  Every tag runs on every
     kernel: ``aniso`` on K1 and K3."""
-    monkeypatch.setattr(k3, "scalar_max_dim", lambda dt: 1210)
+    monkeypatch.setattr(k3, "scalar_max_dim", lambda dt, user=None: 1210)
     A = torch.tensor([[2.0, 0.5, 0.0], [0.5, 1.0, 0.2], [0.0, 0.2, 3.0]], dtype=torch.float64)
     for make in (lambda g: pt.ZigZag(3, g), lambda g: pt.BPS(3, g),
                  lambda g: pt.SpeedUpZigZag(3, g)):

@@ -241,7 +241,8 @@ def test_every_test_potential_routes_to_the_kernels():
     families = (lambda U: pt.ZigZagAD(d, U), lambda U: pt.StickyZigZagAD(d, U, np.ones(d)),
                 lambda U: pt.SpeedUpZigZagAD(d, U), lambda U: pt.BPSAD(d, U),
                 lambda U: pt.BoomerangAD(d, U), lambda U: pt.ForwardECMCAD(d, U))
-    limits = dict(scalar_max_dim=lambda dt: 1210, sticky_max_dim=lambda dt, user=None: 13136)
+    limits = dict(scalar_max_dim=lambda dt, user=None: 1210,
+                  sticky_max_dim=lambda dt, user=None: 13136)
     with pytest.MonkeyPatch.context() as mp:  # the shared-memory limits need a build
         mp.setattr(tsc, "scalar_max_dim", limits["scalar_max_dim"])
         mp.setattr(tzc, "sticky_max_dim", limits["sticky_max_dim"])
