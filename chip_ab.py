@@ -4,6 +4,8 @@ compaction K2 of one checkout.
     python3 chip_ab.py [TREE] [--lanes] [--probe] [--probe-k2]
     python3 chip_ab.py [TREE] --engine
     python3 chip_ab.py [TREE] --lane-context
+    python3 chip_ab.py [TREE] --block-max-barrier
+    python3 chip_ab.py [TREE] --cuts
 
 Times one K=32 launch (float32, CUDA events, mean of 50 launches after one
 warm launch) of K1 at the flagship's shape (B = 8192, d = 10), K1 in
@@ -31,9 +33,16 @@ none of that: the transition engine's cells instead (``engine_ab``), the
 torch ops one transition dispatches for each family of TREE's phase 22 and
 TREE's phases 23 and 24.  With ``--lane-context``, none of that either:
 a generated potential's context per lane at growing sizes on K3 and K1
-(``probe_lane_context``).  To compare two commits on one card, unpack the other with ``git
-archive`` into a git-ignored directory and run parent, change, change,
-parent one after another on that card: each run is its own process and
+(``probe_lane_context``).  With ``--block-max-barrier``, none of that:
+K6's block max (``lower._BLOCK_MAX``) built with and without the barrier
+between the warps' partials and their reads, odd warps delayed 20 us
+before they write theirs, each against its plain version on ``|x|^2 / 2 +
+logsumexp(x)`` at d = 100 (``probe_block_max``).  With ``--cuts``, none of
+that: phases 22 and 33 of TREE's ``chip_smoke.py`` at their depth and at
+twice it, the depth before their cuts for its time (``probe_cuts``).  To
+compare two commits on one card, unpack the other with ``git archive``
+into a git-ignored directory and run parent, change, change, parent one
+after another on that card: each run is its own process and
 builds its own kernels.  Prints one line with the kernels' times and one
 line per deployment's call, each with the card's name and power limit.
 """
@@ -131,6 +140,12 @@ def main():
         return
     if "--lane-context" in sys.argv:
         probe_lane_context()
+        return
+    if "--block-max-barrier" in sys.argv:
+        probe_block_max()
+        return
+    if "--cuts" in sys.argv:
+        probe_cuts()
         return
     d, B, _ = cs.MAIN
     flagship = cs.pt.ZigZag(d, cs.pt.potentials.grad_gauss)
@@ -448,6 +463,75 @@ def probe_lane_context(B=512, K=2, reps=3, slow_ms=5000.0):
         del st, fill, state
     print(f"lane context probe (B={B}, float32, {len(cases)} libraries built in "
           f"{time.perf_counter() - t0:.1f} s): {'; '.join(texts)} ({cs.card()})", flush=True)
+
+
+def probe_block_max(d=100, Bs=(64, 96, 128)):
+    """K6's block max without its barrier: a mutant of the generated
+    ``block_max`` that drops the ``__syncthreads`` between the warps'
+    partials and their reads, and a control that keeps it, both with odd
+    warps delayed 20 us before they write their partials, so that a read
+    before the barrier finds the last reduction's partials.  Each is held
+    against the plain version (``chip_smoke.user_compare``: f64, two chunks
+    of 16) at three chain counts on ``|x|^2 / 2 + logsumexp(x)``, a max over
+    the coordinates across the block's four warps; the mutant must fail."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    lower = cs.lower
+    orig = list(lower._BLOCK_MAX)
+    write = orig.index("    if ((threadIdx.x & 31) == 0) {")
+    control = orig[:write] + ["    if ((threadIdx.x >> 5) & 1) __nanosleep(20000);"] + orig[write:]
+    mutant = [line for line in control if line != "    __syncthreads();"]
+    variants = {}
+    for tag, block in (("control", control), ("mutant", mutant)):
+        lower._BLOCK_MAX = block
+        s = cs.pt.StickyZigZagAD(d, lambda x: x @ x / 2 + torch.logsumexp(x, 0), np.ones(d))
+        low = lower.lower_sampler(s, "zigzag", d, torch.float64, cs.DEV)
+        variants[tag] = (s, low, low.header())  # the header as patched
+    lower._BLOCK_MAX = orig
+    with ThreadPoolExecutor(2) as ex:
+        libs = {tag: ex.submit(build.user_library, lower.SOURCES["sticky"], hdr)
+                for tag, (_, _, hdr) in variants.items()}
+    texts = []
+    for tag, (s, low, _) in variants.items():
+        low._lib = libs[tag].result()
+        fails = []
+        for B in Bs:
+            try:
+                err, n_ev, _ = cs.user_compare(f"K6 block max {tag} B={B}", s, B, False,
+                                               n_chunks=2, K=16)
+            except AssertionError as e:
+                fails.append(f"B={B}: {str(e)[:120]}")
+        texts.append(f"{tag}: {len(fails)} of {len(Bs)} checks fail"
+                     f"{' (' + '; '.join(fails) + ')' if fails else ''}")
+    if not texts[1].startswith(f"mutant: {len(Bs)} of"):
+        print("block max probe: the mutant did not fail every check", flush=True)
+    print(f"block max barrier probe (d={d}, f64, odd warps delayed 20 us): {'; '.join(texts)} "
+          f"({cs.card()})", flush=True)
+
+
+def probe_cuts():
+    """The seconds that the depth cuts of phases 22 (``ENGINE_AGREE``'s
+    transitions) and 33 (``TAG_CHUNKS``, the chunks of K1 at d = 1000 and of
+    K6) save: each phase at its depth and at twice it, one after another,
+    the kernels built first."""
+    lib_s = time.perf_counter()
+    build.library()
+    texts = [f"kernels built in {time.perf_counter() - lib_s:.1f} s"]
+    B, d, n = cs.ENGINE_AGREE
+    for depth in (n, 2 * n):
+        cs.ENGINE_AGREE = (B, d, depth)
+        t0 = time.perf_counter()
+        cs.phase_engine_agreement()
+        texts.append(f"phase 22 at {depth} transitions {time.perf_counter() - t0:.1f} s")
+    cs.ENGINE_AGREE = (B, d, n)
+    chunks = cs.TAG_CHUNKS
+    for depth in (chunks, 2 * chunks):
+        cs.TAG_CHUNKS = depth
+        t0 = time.perf_counter()
+        cs.phase_tags()
+        texts.append(f"phase 33 at {depth} chunks {time.perf_counter() - t0:.1f} s")
+    cs.TAG_CHUNKS = chunks
+    print(f"depth cuts: {'; '.join(texts)} ({cs.card()})", flush=True)
 
 
 if __name__ == "__main__":

@@ -161,8 +161,8 @@ Phases, one line each; any failure raises and exits non-zero:
    gauss, 1000 batches): each chain's RV within rtol 1e-4 of
    ``RV_diagnostic`` on a host copy of the same skeleton;
 22. the transition engine (``core/engine.py``, plain torch) on the card
-   against the engine on the CPU, float64, from one state and keys, 128
-   transitions (cut from 256) of 256 chains at d = 10 on the Gaussian, one
+   against the engine on the CPU, float64, from one state and keys, 64
+   transitions (cut from 256, then 128) of 256 chains at d = 10 on the Gaussian, one
    case per family:
    the Zig-Zag with scalar and vectorized bounds, ``grid_size=0`` and
    finite-difference tangents, the Sticky Zig-Zag with scalar and vectorized
@@ -190,13 +190,12 @@ Phases, one line each; any failure raises and exits non-zero:
 24. ``zigzag_banana_d10_fd`` and ``zigzag_banana_d10_jvp``
    (``benchmarks/run_baselines.py:146-158`` at scale 1): ZigZagAD(10,
    banana) with finite-difference or jvp tangents, ``backend="xla_stream"``,
-   512 chains x 2048 points (cut from the deployment's 4096 so that the
-   script stays near six minutes), float32, x0 = v0 = 1; one timed call each:
+   512 chains x 1024 points (cut from the deployment's 4096, then 2048, for
+   the script's time), float32, x0 = v0 = 1; one timed call each:
    complete, K2 launched, engine transitions counted, no chunk kernel,
    |mean_i| < 0.1 and |var_i / truth_i - 1| < 0.1 with truth (1, 3, 1, ...);
    events/s, the split, K2 checked on the first fill as in phase 23;
-25. routing under ``backend="auto"`` (just before it, every user library of
-   phases 25 and 36-41 is built, all nvcc at once): a tagged Zig-Zag
+25. routing under ``backend="auto"``: a tagged Zig-Zag
    launches K1 and runs no engine transition; RHMC and a
    ``vectorized_bound=False`` Zig-Zag run the engine and no chunk kernel;
    ``"pallas"`` on RHMC raises; an untagged Zig-Zag (``lambda x: x``) is
@@ -236,8 +235,8 @@ Phases, one line each; any failure raises and exits non-zero:
    data equal to the skeleton's points where matplotlib is installed (the
    line says which);
 32. ``sample_skeleton_gspmd`` of ``BPS(10_000, grad_gauss, refresh_rate=0.5)``
-   and ``ZigZag(10_000, grad_gauss)``, 32 chains x 128 events (256 before
-   phases 33-35 came, cut for the script's time), float64,
+   and ``ZigZag(10_000, grad_gauss)``, 32 chains x 64 events (256 before
+   phases 33-35 came, 128 before phase 44, cut for the script's time), float64,
    x0 = 0, v0 = 1, seed 0 (the transition engine and K2, as JAX's GSPMD
    path runs no Pallas kernel): without a group, then on a one-process NCCL
    group's mesh whose coordinate group is made a one-part ``ShardedDims``
@@ -251,12 +250,14 @@ Phases, one line each; any failure raises and exits non-zero:
 33. every chunk kernel against its plain version in f64 on each device tag
    added for the JAX package's test potentials (``cauchy``, ``ridged``,
    ``funnel``, ``neal_funnel``) and on ``aniso`` where K1, K6 and K4 took
-   it: K1 at d = 1000 and in place at d = 8000, K6 (the funnels at
-   d = 1000, whose chain moments take its two-level reduction), K4 at
+   it: K1 at d = 1000 (one chunk, cut from two for phase 44's time) and in
+   place at d = 8000, K6 (one chunk; the funnels at d = 1000, whose chain
+   moments take its two-level reduction), K4 at
    d = 10 and in place at d = 3700, K3 (BPS, the Boomerang) and K5 at
    d = 10, and a horizon case per kernel on a funnel; K1 and K6 to ``RTOL``,
    K4 and K3/K5 bit for bit (a part in a math function of ``ridged`` or
-   ``neal_funnel`` printed and held to ``RTOL``);
+   ``neal_funnel`` printed and held to ``RTOL``); then every user library
+   of phases 36-44 is built, all nvcc at once;
 34. ``suzz_cauchy_d10``: SpeedUpZigZagAD(10, cauchy), 512 chains x 2048
    points, float32, x0 = 0, v0 = 1 (``suzz_gauss_d10``'s shape on
    ``tests/test_integration.py:91``'s heavy-tailed target); one warm call,
@@ -266,10 +267,11 @@ Phases, one line each; any failure raises and exits non-zero:
    K=32 chunk of K4 against its plain version, the split;
 35. ``zigzag_neal_funnel_d10``: ZigZagAD(10, neal_funnel), 8192 chains x
    2048 points, float32, x0 = 0, v0 = 1 (the flagship's shape on Neal's
-   funnel); five timed calls on the kernels, then one on the transition
-   engine (``backend="xla_stream"``): x[0]'s pooled means within 0.15 and
-   variances within 10% of each other, the truth (0, 9) printed; (35b) as
-   34b for K1;
+   funnel); five timed calls on the kernels, then one call of each route at
+   1024 points (cut from 2048 for phase 44's time), the kernels and the
+   transition engine (``backend="xla_stream"``): x[0]'s pooled means within
+   0.15 and variances within 10% of each other and the engine's time over
+   the kernels', the truth (0, 9) printed; (35b) as 34b for K1;
 36. the slice's main path on gradients of the user's own (``ops/cuda/
    lower.py`` lowers them into a generated potential, id 7, built into a
    library of its own): bench.py's ``ZigZag(10, lambda x: x)`` and the
@@ -353,8 +355,36 @@ Phases, one line each; any failure raises and exits non-zero:
    bound; an f64 K1 launch of the dense form against the banded form of
    phase 42 from the same state and keys (integers equal, floats within
    1e-9); one engine chunk (64 transitions) of the dense K1 sampler timed
-   by CUDA events, for the record.  The script prints its clock after each
-   group of phases.
+   by CUDA events, for the record;
+44. log-sum-exp, softmax and small matrix views of the chain: every kernel
+   (K1, K6, K4, K3 BPS and Boomerang, K5) against its plain version in f64
+   (64 chains, one launch of 4 transitions, K4's of 32; K3/K5 and K4 bit for
+   bit, K1 and K6 to ``RTOL``) on the JAX package's bimodal target at d = 10
+   (K1 also at d = 1), the 4-component Gaussian mixture at d = 100 written
+   with ``x[None, :] - MU`` and with ``MU @ x``, and the 5-class softmax
+   regression (d = 100, ``X`` 1000 x 20) as ``log_softmax(X @ x.reshape(20,
+   5), 1)`` and as ``X @ x.reshape(5, 20).T`` with ``logsumexp``, K1 and K3
+   also in horizon mode on the regression; where a lane cannot hold the
+   regression's f64 context (``lower.LANE_BYTES``), ``"auto"`` takes the
+   engine, the line says why, and the kernel runs on ``X``'s first 10
+   columns (d = 50) instead, every other f64 route the kernel; then
+   ``zigzag_bimodal_d1`` (ZigZagAD(1, U) of ``tests/test_integration.py``,
+   1024 chains x 6000 points, x0 = 0, v0 = 1: the JAX test's bands and the
+   share of x > 0 within 0.05 of 0.5), ``zigzag_mixture4_d100`` and
+   ``bps_mixture4_d100`` (refresh 1, 1024 chains x 2048 points, chain b from
+   mu_{b mod 4}, v0 = 1: |mean| < 0.2, variances within 10% of 5 on x0, x1 and
+   of 1 elsewhere), ``zigzag_softmax_d100_n1000`` and
+   ``bps_softmax_d100_n1000`` (1024 chains x 2048 points from the MAP: means
+   within 0.2 Laplace sd of the importance-sampled posterior mean, the class
+   contrasts' variances within 20% of the Laplace law's, K1's and K3's means
+   within 0.2 Laplace sd of each other), each one call under ``"auto"`` (its
+   kernel and K2, no engine chunk) with an f32 launch and its bound, the
+   regression's also with one engine chunk (64 transitions) timed, the
+   route ``"auto"`` did not take; one f32 launch each of K6, K4 and K5 on
+   the mixture, and of K1 on ``|x|^2 / 2 + logsumexp(x)`` at d = 1000 (a max
+   over the coordinates: K1 in point mode) beside the tagged Gaussian at
+   that shape.  The script prints its clock after each group of phases,
+   and phases 22 and 33 their own seconds.
 
 Then one JSON line of per-kernel results (launches counted in the timed run
 of each kernel's path: phase 4 for K1 and K2, phase 7 for K6, phase 10 for
@@ -368,8 +398,8 @@ paths, phase 30 for the entries of K1 and K2 named after the profiled
 flagship, phase 32 (dim 1) for K2's entry named after the gspmd
 deployment, phases 34 and 35 for the entries of K4, K1 and K2 named after
 their deployments, 35 (the engine route) for K2's entry named
-``engine:zigzag_neal_funnel_d10``, phases 36-43 for the entries
-``<kernel>[user:<path>]`` of each generated potential's path (and K2's on
+``engine:zigzag_neal_funnel_d10_n1024`` (its 1024-point run), phases
+36-44 for the entries ``<kernel>[user:<path>]`` of each generated potential's path (and K2's on
 phase 36's two paths, timed at their shapes in phase 4b); max_abs_err the largest of the kernel's comparisons
 with its plain version, f64 and f32; the bound of each timed launch computed
 from its shape and this run's data; phases 39-43's entries carry
@@ -446,10 +476,13 @@ HOST_BUDGET = 1 << 30     # 26b: PDMPFLUX_DEVICE_BYTES, below the sticky skeleto
 TRACE_SPAN = "flagship_sample_skeleton"  # phase 30's annotate span
 # K2's kernels by name in a trace: the four of csrc/compact.cu
 K2_KERNELS = ("count_kernel", "scan_kernel", "copy_kernel", "tail_kernel")
-GSPMD = (10_000, 32, 128)  # phase 32: d, chains, events (cut from 256 for 33-35's time)
+GSPMD = (10_000, 32, 64)   # phase 32: d, chains, events (cut from 256 for 33-35's time,
+                           # from 128 for 44's)
 GSPMD_RTOL = 1e-9          # phase 32: dim 2 against dim 1
 SUZZ_CAUCHY_D10 = (10, 512, 2048)  # phase 34: d, chains, points: suzz_cauchy_d10
 NEAL_D10 = (10, 8192, 2048)        # phase 35: d, chains, points: zigzag_neal_funnel_d10
+NEAL_ROUTES = 1024                 # phase 35: points of the two routes' comparison (the
+                                   # engine route cut from 2048 for phase 44's time)
 TAG_CALLS = 5                      # timed warm calls of each of the two
 CAUCHY_SAMPLES = 1000              # phase 34: equal-time samples per chain for the gate
 
@@ -1777,6 +1810,8 @@ def bit_tolerance(what, pot, st_k, fill_k, st_p, fill_p):
 
 
 K1_TAG_D = 1000                  # phase 33: K1 at phase 5's d, B = 256
+TAG_CHUNKS = 1                   # phase 33: chunks of K1 at K1_TAG_D and of K6 (cut from 2
+                                 # for phase 44's time)
 K1_IN_PLACE = (8000, 3)          # phase 33: d, B where K1 reads x and v in place (f64)
 K6_TAG_CASES = {"funnel": (1000, 128, 10.0), "neal_funnel": (1000, 128, 10.0),
                 "cauchy": (10, 1024, 2.0), "ridged": (10, 1024, 2.0),
@@ -1794,13 +1829,16 @@ def phase_tags():
     at d = 10; one horizon-mode case per kernel on a funnel.  K1 and K6 to ``RTOL``/``ATOL``, K4 and K3/K5 bit for bit
     (:func:`bit_tolerance`).  Returns the max abs err of each kernel name."""
     errs, parts = Counter(), []
+    t0, t_chunks = time.perf_counter(), 0.0
 
     def keep(name, e, text):
         errs[name] = max(errs[name], e)
         parts.append(text)
 
     for tag in list(TAG_POTENTIALS) + ["aniso"]:
-        e, n, _ = k1_compare(K1_TAG_D, 256, 32, 2, tag)
+        t1 = time.perf_counter()
+        e, n, _ = k1_compare(K1_TAG_D, 256, 32, TAG_CHUNKS, tag)
+        t_chunks += time.perf_counter() - t1
         keep("zigzag_chunk", e, f"K1 {tag} d={K1_TAG_D} B=256 max_abs_err={e:.3e} ({n} events)")
         d, B = K1_IN_PLACE
         K = 8 if "funnel" in tag else 32  # the plain funnels add 8000 terms per point
@@ -1808,7 +1846,9 @@ def phase_tags():
         keep("zigzag_chunk", e, f"K1 {tag} d={d} B={B} K={K} in place max_abs_err={e:.3e} "
                                 f"({n} events)")
         d, B, kappa = K6_TAG_CASES[tag]
-        e, n, ns, nt, _ = k6_compare(d, B, tag, kappa)
+        t1 = time.perf_counter()
+        e, n, ns, nt, _ = k6_compare(d, B, tag, kappa, n_chunks=TAG_CHUNKS)
+        t_chunks += time.perf_counter() - t1
         keep("sticky_chunk", e, f"K6 {tag} d={d} B={B} max_abs_err={e:.3e} ({n} events, "
                                 f"{ns} sticks, {nt} thaws)")
         e, n, _ = k1_compare(10, 512, 32, 2, tag, suzz=True)
@@ -1840,8 +1880,9 @@ def phase_tags():
     notes = "; ".join(MATH_NOTES) or "none"
     print(f"phase 33 every chunk kernel on the new device tags vs plain (f64, K=32): "
           f"{'; '.join(parts)}; ints equal, K1/K6 to rtol {RTOL} atol {ATOL}, K4 and K3/K5 "
-          f"bit for bit; bit-for-bit checks that parted in a math function: {notes}",
-          flush=True)
+          f"bit for bit; bit-for-bit checks that parted in a math function: {notes}; "
+          f"{time.perf_counter() - t0:.1f} s, {t_chunks:.1f} s of it in the {TAG_CHUNKS}-chunk "
+          f"checks of K1 at d={K1_TAG_D} and of K6", flush=True)
     return dict(errs)
 
 
@@ -2539,7 +2580,8 @@ def phase_checkpoints(card_name, rate):
 # card, with K2 compacting every fill
 # ---------------------------------------------------------------------------
 
-ENGINE_AGREE = (256, 10, 128)  # phase 22: chains, d, transitions per family (cut from 256)
+ENGINE_AGREE = (256, 10, 64)   # phase 22: chains, d, transitions per family (cut from 256
+                               # for 43's time, from 128 for 44's)
 ENGINE_SHARE = 0.99            # phase 22: chains that must take every decision alike
 ENGINE_RTOL = {"zigzag_fd": 1e-6, "ecmc_normal": 1e-6}  # phase 22: else 1e-9
 ENGINE_FAMILIES = {            # phase 22: one case per family, f64 on the Gaussian
@@ -2561,7 +2603,8 @@ ENGINE_FAMILIES = {            # phase 22: one case per family, f64 on the Gauss
 RHMC_D10 = (10, 512, 1024, 1.0)  # d, chains, points, refresh: rhmc_gauss_d10
 RHMC_CALLS = 1                   # timed warm calls of the RHMC path (3 before phase 33)
 RHMC_HORIZON_T = 200.0           # its time-horizon call (~200 events per chain)
-BANANA_D10 = (10, 512, 2048)     # d, chains, points (cut from 4096): zigzag_banana_d10_fd / _jvp
+BANANA_D10 = (10, 512, 1024)     # d, chains, points (cut from 4096, and from 2048 for phase
+                                 # 44's time): zigzag_banana_d10_fd / _jvp
 ROUTE_STREAM = (512, 10, 300.0, 1024, 32)  # phase 25: chains, d, T, grid, windows
 
 
@@ -2743,6 +2786,7 @@ def phase_engine_agreement():
     state on both devices with every op recorded
     (:func:`first_bit_differences`), printed, not gated.  Returns the largest float difference of (a)."""
     B, d, n = ENGINE_AGREE
+    t_phase = time.perf_counter()
     rs = np.random.default_rng(22)
     texts, worst = [], 0.0
     for name, make in ENGINE_FAMILIES.items():
@@ -2840,7 +2884,8 @@ def phase_engine_agreement():
                      f"inputs: {origin_text})")
     print(f"phase 22 the engine on the card against the engine on the CPU (f64, B={B}, d={d}, "
           f"{n} transitions from one state and keys, Gaussian) — {'; '.join(texts)}; "
-          f"step-by-step max_abs_err {worst:.3e}", flush=True)
+          f"step-by-step max_abs_err {worst:.3e}; {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return worst
 
 
@@ -2985,7 +3030,7 @@ def phase_banana_engine(card_name, tderiv):
     """Phase 24: ``zigzag_banana_d10_fd`` / ``_jvp``
     (``benchmarks/run_baselines.py:146-158`` at scale 1): ZigZagAD(10,
     banana) with finite-difference or jvp tangents, ``backend="xla_stream"``,
-    512 chains x 2048 points (cut from 4096: the script's time), float32,
+    512 chains x 1024 points (cut from 4096, then 2048: the script's time), float32,
     x0 = v0 = 1; one timed call: complete,
     K2 launched, engine transitions counted, no chunk kernel, |mean_i| < 0.1
     and |var_i / truth_i - 1| < 0.1 with truth (1, 3, 1, ...); events/s and
@@ -3800,11 +3845,12 @@ def phase_suzz_cauchy(card_name):
 def phase_neal_funnel(card_name):
     """Phase 35, ``zigzag_neal_funnel_d10``: ZigZagAD(10, neal_funnel), 8192
     chains x 2048 points, x0 = 0, v0 = 1, f32 (the flagship's shape on
-    Neal's funnel), K1 and K2 on the card; then the same configuration on
-    the transition engine (``backend="xla_stream"``, the route a user of this
+    Neal's funnel), K1 and K2 on the card; then the kernel route and the
+    transition engine (``backend="xla_stream"``, the route a user of this
     target took before the funnels had a device tag; same seed, independent
-    trajectories), one timed call.  Gate: the two routes' pooled means of
-    x[0] differ by < 0.15 and their variances by < 10%; the kernel route's
+    trajectories) at ``NEAL_ROUTES`` points, one call each, the engine's
+    timed.  Gate: the two routes' pooled means of x[0] there differ by < 0.15
+    and their variances by < 10%; the 2048-point kernel route's
     mean and variance against the truth (0, 9) printed, without a gate (the
     Zig-Zag's bias in the funnel's neck at 2048 events).  Then the kernel
     route's breakdown and split (35b).  Returns the counted launches,
@@ -3820,26 +3866,40 @@ def phase_neal_funnel(card_name):
     mean_k, var_k = pt.pooled_moments(skel, sampler, 256)
     events = int(skel.n_valid.sum()) - B
     del skel
+    # the two routes compared at NEAL_ROUTES points: the kernel route again there
+    t0 = time.perf_counter()
+    kskel = pt.sample_skeleton(sampler, NEAL_ROUTES, x0, v0, seed=0, dtype=torch.float32,
+                               device=DEV)
+    sync()
+    k_wall = time.perf_counter() - t0
+    check_complete(f"{what} at {NEAL_ROUTES} points", kskel, NEAL_ROUTES)
+    mean_r, var_r = pt.pooled_moments(kskel, sampler, 256)
+    del kskel
     eskel, e_wall, k2_n, chunks, transitions, eng_ms, first = engine_call(
-        sampler, n_sk, x0, v0, seed=0, backend="xla_stream")
-    check_complete(f"{what} engine route", eskel, n_sk)
+        sampler, NEAL_ROUTES, x0, v0, seed=0, backend="xla_stream")
+    check_complete(f"{what} engine route", eskel, NEAL_ROUTES)
+    e_events = int(eskel.n_valid.sum()) - B
     mean_e, var_e = pt.pooled_moments(eskel, sampler, 256)
     del eskel
-    m_k, m_e, v_k, v_e = (float(a[0]) for a in (mean_k, mean_e, var_k, var_e))
-    if not (abs(m_k - m_e) < 0.15 and abs(v_k / v_e - 1) < 0.1):
-        raise AssertionError(f"{what}: x[0] mean {m_k:.4f} (kernel) vs {m_e:.4f} (engine), "
-                             f"variance {v_k:.4f} vs {v_e:.4f}")
+    m_k, v_k = float(mean_k[0]), float(var_k[0])
+    m_r, m_e, v_r, v_e = (float(a[0]) for a in (mean_r, mean_e, var_r, var_e))
+    if not (abs(m_r - m_e) < 0.15 and abs(v_r / v_e - 1) < 0.1):
+        raise AssertionError(f"{what}: x[0] mean {m_r:.4f} (kernel) vs {m_e:.4f} (engine), "
+                             f"variance {v_r:.4f} vs {v_e:.4f} at {NEAL_ROUTES} points")
     k2e = engine_k2_check(f"{what} engine route", first)
     del first
     print(f"{what}: ZigZagAD({d}, neal_funnel) B={B} n_sk={n_sk} f32 events={events} "
           f"launches={launches}; complete, finite, t non-decreasing; "
           f"{walls_text(walls, events)}; x[0] mean {m_k:.4f}, variance {v_k:.4f} "
-          f"(truth 0, 9; not gated); the engine route (backend='xla_stream'): one call "
-          f"{e_wall:.4f} s ({events / e_wall:.1f} events/s), {chunks} chunks, {transitions} "
+          f"(truth 0, 9; not gated); at {NEAL_ROUTES} points (cut from {n_sk}) the kernel "
+          f"route's x[0] mean {m_r:.4f}, variance {v_r:.4f}, and the engine route "
+          f"(backend='xla_stream'): one call "
+          f"{e_wall:.4f} s ({e_events / e_wall:.1f} events/s), {chunks} chunks, {transitions} "
           f"transitions, {engine_split(e_wall, k2_n, k2e[1], eng_ms)}, x[0] mean {m_e:.4f}, "
-          f"variance {v_e:.4f}: the means differ by {abs(m_k - m_e):.4f} < 0.15, the "
-          f"variances by {abs(v_k / v_e - 1):.2%} < 10%; the engine route's time is "
-          f"{e_wall / float(np.median(walls)):.1f}x the kernel route's ({card_name})",
+          f"variance {v_e:.4f}: the means differ by {abs(m_r - m_e):.4f} < 0.15, the "
+          f"variances by {abs(v_r / v_e - 1):.2%} < 10%; the engine route's time is "
+          f"{e_wall / k_wall:.1f}x the kernel route's there ({k_wall:.4f} s, one call) "
+          f"({card_name})",
           flush=True)
     out = tag_breakdown("phase 35b zigzag_neal_funnel_d10", sampler, x0, v0, n_sk, launches,
                         float(np.median(walls)), K1_F32_SHARE)
@@ -3927,7 +3987,7 @@ and (d, chains, points), each at the shape of the repo deployment it names."""
 
 
 def user_builds():
-    """Lower every gradient of phases 25 and 36-43 (float32 for the runs,
+    """Lower every gradient of phases 36-44 (float32 for the runs,
     float64 for the checks against the plain version) and build their user
     libraries, every ``nvcc`` started at once.  Returns (wall s, {library:
     seconds}, ptxas text)."""
@@ -3936,9 +3996,17 @@ def user_builds():
     samplers += [s for s, *_ in dense_paths().values()]
     samplers += [s for s, *_ in band_paths().values()] + list(neal_last_parity()[0].values())
     samplers += [s for s, *_ in dense_ar1_paths().values()]
-    for s in samplers:
-        for dt in (torch.float32, torch.float64):
-            lows.append(lower.lower_sampler(s, driver.kernel_kind(s), s.dim, dt, DEV))
+    pairs = [(s, dt) for s in samplers for dt in (torch.float32, torch.float64)]
+    # phase 44: its runs in float32, its parity launches in float64
+    pairs += [(s, torch.float32) for s, *_ in lse_paths().values()]
+    pairs += [(s, torch.float32) for s in lse_launch_samplers().values()]
+    pairs += [(lse_coords_sampler(), torch.float32)]
+    for _, s, _, fit in lse_parity_samplers():
+        pairs += [(s, torch.float64)] + ([] if fit is None else [(fit, torch.float64)])
+    for s, dt in pairs:
+        lows.append(lower.lower_sampler(s, driver.kernel_kind(s), s.dim, dt, DEV))
+    # a lane past LANE_BYTES is never launched: its sampler takes the engine
+    lows = [low for low in lows if lower.lane_fits(low)]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(lows)) as ex:
         list(ex.map(lambda low: low.library(), lows))
@@ -3976,9 +4044,9 @@ def chunk_fns(cfg):
             else (k1.run_chunk, k1.run_chunk_plain))
 
 
-def user_compare(what, sampler, B, bitwise, math_tag=None, n_chunks=2, horizon=False):
+def user_compare(what, sampler, B, bitwise, math_tag=None, n_chunks=2, horizon=False, K=32):
     """A user gradient's kernel against its plain version fed the IR's torch
-    pair, ``n_chunks`` K=32 chunks from one f64 random state (every fifth
+    pair, ``n_chunks`` chunks of ``K`` from one f64 random state (every fifth
     chain capped inside the run; in horizon mode, K7, a float32 target at the
     median clock that freezes a share of the lanes inside the run): integers
     equal, floats bit for bit where
@@ -3987,7 +4055,7 @@ def user_compare(what, sampler, B, bitwise, math_tag=None, n_chunks=2, horizon=F
     first part is printed and the check takes ``RTOL``) else to
     ``RTOL``/``ATOL`` (K1, K6).  Returns (max abs err, events, ms of the
     plain version's first chunk by CUDA events)."""
-    d, K = sampler.dim, 32
+    d = sampler.dim
     scale = 0.3 if sampler.sticky else 1.0
     state = random_state(sampler, B, torch.float64, d + B, scale=scale)
     if driver.kernel_kind(sampler) in k3.KINDS:
@@ -4148,8 +4216,9 @@ def phase_user_main(card_name, builds):
     del tagged
     wall, secs, ptx = builds
     print(f"phase 36 the main path on gradients of the user's own (B={B}, d={d}, "
-          f"n_sk={n_sk}, f32, backend='auto'): {'; '.join(texts)}; user builds (phases 25 and "
-          f"36-42, {len(secs)} libraries, every nvcc at once): wall {wall:.1f} s; {ptx} "
+          f"n_sk={n_sk}, f32, backend='auto'): {'; '.join(texts)}; user builds (phases "
+          f"36-44, {len(secs)} libraries, every nvcc at once after phase 33): wall "
+          f"{wall:.1f} s; {ptx} "
           f"({card_name})", flush=True)
     return out
 
@@ -4550,10 +4619,10 @@ def logistic_gate(what, xs, ref_mean, cov):
                   f"- 1| {float(dv.max()):.4f} < 0.2")
 
 
-def kernel_chunk(sampler, x0, v0, config=None):
+def kernel_chunk(sampler, x0, v0, config=None, reps=20):
     """One f32 K=32 launch of a generated potential's kernel (or, with
     ``config`` :func:`card_config`, a tagged sampler's) at its deployment's
-    shape and start, timed (the mean of 20 after a warm one), and its
+    shape and start, timed (the mean of ``reps`` after a warm one), and its
     bound.  Returns (ms, bound)."""
     B, d = x0.shape
     K, seed = 32, 7
@@ -4566,7 +4635,7 @@ def kernel_chunk(sampler, x0, v0, config=None):
     run(seed, st, fill, 0, cfg)
     sync()
     b = chunk_bound(cfg, st, fill, K * B)
-    return cuda_ms(lambda: run(seed, st, fill, 0, cfg), 20), b
+    return cuda_ms(lambda: run(seed, st, fill, 0, cfg), reps), b
 
 
 def phase_dense(card_name, names, title, calls, b_map=None, cov=None, ref_mean=None,
@@ -4922,6 +4991,423 @@ def phase_transition_products(card_name):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 44: log-sum-exp, softmax and small matrix views of the chain, lowered
+# into the chunk kernels (a max stage, a short axis of K vectors)
+# ---------------------------------------------------------------------------
+
+BIMODAL = (1, 1024, 6000)            # phase 44: d, chains, points (the JAX test's 6000)
+BIMODAL_SAMPLES = 10_000             # equal-time samples per chain (the JAX test's)
+MIXTURE = (100, 1024, 2048)          # d, chains, points
+SOFTMAX = (20, 5, 1000, 1024, 2048)  # features p, classes K, rows, chains, points
+SOFTMAX_PRIOR_SD = 10.0
+LSE_PARITY = (64, 4)                 # parity launches: chains, transitions (K4: 8x)
+SOFTMAX_FIT_P = 10                   # features of the softmax whose f64 context a lane holds
+LSE_COORDS = (1000, 128)             # d, chains: K1 on |x|^2 / 2 + logsumexp(x) (point mode)
+
+
+def bimodal(x):
+    """``tests/test_integration.py:39-43`` as written there."""
+    a = -torch.sum((x - 2.0) ** 2) / 2
+    b = -torch.sum((x + 2.0) ** 2) / 2
+    return -torch.logsumexp(torch.stack([a, b]), 0)
+
+
+def mixture_means(d):
+    """mu_k = (+-2, +-2, 0, ..., 0), the four sign patterns."""
+    mu = np.zeros((4, d))
+    mu[:, :2] = 2.0 * np.array([[1, 1], [1, -1], [-1, 1], [-1, -1]])
+    return mu
+
+
+def mixture_broadcast(mu):
+    """The equal-weight, unit-covariance mixture as ``-logsumexp(-|x -
+    mu_k|^2 / 2)`` with the broadcast ``x[None, :] - MU``."""
+    M = torch.as_tensor(mu, device=DEV)
+    return lambda x: -torch.logsumexp(-((x[None, :] - M.to(x)) ** 2).sum(1) / 2, 0)
+
+
+def mixture_matrix(mu):
+    """The same mixture as ``|x|^2 / 2 - logsumexp(MU x - |mu_k|^2 / 2)``."""
+    M = torch.as_tensor(mu, device=DEV)
+    half = torch.as_tensor((mu * mu).sum(1) / 2, device=DEV)
+    return lambda x: x @ x / 2 - torch.logsumexp(M.to(x) @ x - half.to(x), 0)
+
+
+def softmax_data():
+    """``X`` (rows, p): an intercept column and N(0, 1) columns; one-hot
+    labels ``Y`` (rows, K) drawn from the softmax of ``X B*`` for a seeded
+    ``B*`` (the CPU tests' ``regression_data(1000, 20, 5, seed=44)``)."""
+    p, k, n = SOFTMAX[:3]
+    rs = np.random.default_rng(44)
+    X = np.concatenate([np.ones((n, 1)), rs.normal(size=(n, p - 1))], 1)
+    logits = X @ rs.normal(size=(p, k))
+    prob = np.exp(logits - logits.max(1, keepdims=True))
+    prob /= prob.sum(1, keepdims=True)
+    labels = (prob.cumsum(1) > rs.random((n, 1))).argmax(1)
+    return X, np.eye(k)[labels]
+
+
+def softmax_pk(X, Y):
+    """``U = -(Y * log_softmax(X @ x.reshape(p, K), 1)).sum() + |x|^2 / 200``."""
+    p, k = X.shape[1], Y.shape[1]
+    Xt, Yt = (torch.as_tensor(a, device=DEV) for a in (X, Y))
+    c = 1.0 / (2.0 * SOFTMAX_PRIOR_SD ** 2)
+    return lambda x: (-(Yt.to(x) * torch.log_softmax(Xt.to(x) @ x.reshape(p, k), 1)).sum()
+                      + c * (x @ x))
+
+
+def softmax_kp(X, Y):
+    """The ``(K, p)`` layout: ``Z = X @ x.reshape(K, p).T``, ``U = -(Y * Z).sum()
+    + logsumexp(Z, 1).sum() + |x|^2 / 200``."""
+    p, k = X.shape[1], Y.shape[1]
+    Xt, Yt = (torch.as_tensor(a, device=DEV) for a in (X, Y))
+    c = 1.0 / (2.0 * SOFTMAX_PRIOR_SD ** 2)
+
+    def U(x):
+        Z = Xt.to(x) @ x.reshape(k, p).T
+        return -(Yt.to(x) * Z).sum() + torch.logsumexp(Z, 1).sum() + c * (x @ x)
+
+    return U
+
+
+def lse_paths():
+    """Phase 44's gated deployments (as :func:`dense_paths`): name -> (sampler,
+    (d, chains, points), bit for bit against the plain version, math tag,
+    start)."""
+    d1, B1, n1 = BIMODAL
+    d, B, n_sk = MIXTURE
+    mix = mixture_broadcast(mixture_means(d))
+    X, Y = softmax_data()
+    soft = softmax_pk(X, Y)
+    p, k, _, sB, sn = SOFTMAX
+    return {
+        "zigzag_bimodal_d1": (pt.ZigZagAD(d1, bimodal), (d1, B1, n1), False, None, "ones"),
+        "zigzag_mixture4_d100": (pt.ZigZagAD(d, mix), (d, B, n_sk), False, None, "modes"),
+        "bps_mixture4_d100": (pt.BPSAD(d, mix, refresh_rate=1.0), (d, B, n_sk), True, None,
+                              "modes"),
+        "zigzag_softmax_d100_n1000": (pt.ZigZagAD(p * k, soft), (p * k, sB, sn), False,
+                                      None, "map"),
+        "bps_softmax_d100_n1000": (pt.BPSAD(p * k, soft, refresh_rate=1.0), (p * k, sB, sn),
+                                   True, None, "map"),
+    }
+
+
+def lse_launch_samplers():
+    """K6 (kappa 1), K4 and K5 on the broadcast mixture at d = 100: each
+    timed on one f32 launch from the modes (phase 44 runs no deployment of
+    theirs)."""
+    d = MIXTURE[0]
+    mix = mixture_broadcast(mixture_means(d))
+    return {"sticky": pt.StickyZigZagAD(d, mix, np.ones(d)), "suzz": pt.SpeedUpZigZagAD(d, mix),
+            "ecmc": pt.ForwardECMCAD(d, mix)}
+
+
+def lse_parity_samplers():
+    """Phase 44's parity launches: (name, sampler, bit for bit, the same
+    kernel's sampler on the softmax's first ``SOFTMAX_FIT_P`` features or
+    None) for each target, (a) the bimodal U at d = 10 (and K1 at d = 1),
+    (b) the mixture at d = 100 in both forms, (c) the softmax regression in
+    both layouts, on K1, K6, K4, K3 (BPS, Boomerang) and K5."""
+    X, Y = softmax_data()
+    Xs = X[:, :SOFTMAX_FIT_P]
+    mu = mixture_means(MIXTURE[0])
+    d_s, d_f = X.shape[1] * Y.shape[1], Xs.shape[1] * Y.shape[1]
+    targets = {"bimodal_d10": (10, bimodal, None),
+               "mixture4_broadcast_d100": (MIXTURE[0], mixture_broadcast(mu), None),
+               "mixture4_matrix_d100": (MIXTURE[0], mixture_matrix(mu), None),
+               "softmax_pk_d100": (d_s, softmax_pk(X, Y), (d_f, softmax_pk(Xs, Y))),
+               "softmax_kp_d100": (d_s, softmax_kp(X, Y), (d_f, softmax_kp(Xs, Y)))}
+    makes = [("zigzag", pt.ZigZagAD, False),
+             ("sticky", lambda d, U: pt.StickyZigZagAD(d, U, np.ones(d)), False),
+             ("suzz", pt.SpeedUpZigZagAD, True),
+             ("bps", lambda d, U: pt.BPSAD(d, U, refresh_rate=1.0), True),
+             ("boomerang", lambda d, U: pt.BoomerangAD(d, U, refresh_rate=1.0), True),
+             ("ecmc", pt.ForwardECMCAD, True)]
+    out = [("zigzag_bimodal_d1", pt.ZigZagAD(1, bimodal), False, None)]
+    for target, (d, U, fit) in targets.items():
+        out += [(f"{kind}_{target}", make(d, U), bitwise,
+                 None if fit is None else make(*fit)) for kind, make, bitwise in makes]
+    return out
+
+
+def lse_coords_sampler():
+    """K1 on ``|x|^2 / 2 + logsumexp(x)`` at ``LSE_COORDS``' d: a max over the
+    coordinates, which K1 takes in point mode (each lane walks every
+    coordinate at each of its points)."""
+    return pt.ZigZagAD(LSE_COORDS[0], lambda x: x @ x / 2 + torch.logsumexp(x, 0))
+
+
+def engine_reason(sampler, dtype):
+    """Why ``"auto"`` sends a sampler's lowered gradient to the engine: its
+    lane's context past ``LANE_BYTES``, or K6's d past the limit its build
+    reports with the potential's context in shared memory; raises where
+    neither holds."""
+    kind, d = driver.kernel_kind(sampler), sampler.dim
+    low = lower.lower_sampler(sampler, kind, d, dtype, DEV)
+    if not lower.lane_fits(low):
+        return lower.lane_message(low)
+    if sampler.sticky and d > (lim := k1.sticky_max_dim(dtype, low)):
+        return f"d={d} past K6's {lim} with {low.shared_values()} shared values"
+    raise AssertionError(f"{type(sampler).__name__} d={d} takes the engine, but its "
+                         "context fits its kernel")
+
+
+def softmax_laplace(X, Y):
+    """The MAP of the softmax regression by Newton's method (float64, from
+    0) and the inverse Hessian there (the Laplace covariance), coordinates in
+    ``x.reshape(p, K)``'s order."""
+    p, k = X.shape[1], Y.shape[1]
+    prec = 1.0 / SOFTMAX_PRIOR_SD ** 2
+    w = np.zeros(p * k)
+    for _ in range(60):
+        Z = X @ w.reshape(p, k)
+        P = np.exp(Z - Z.max(1, keepdims=True))
+        P /= P.sum(1, keepdims=True)
+        g = (X.T @ (P - Y)).reshape(-1) + prec * w
+        S = P[:, :, None] * np.eye(k)[None] - P[:, :, None] * P[:, None, :]
+        H = np.einsum("nj,nl,nkm->jklm", X, X, S).reshape(p * k, p * k) + prec * np.eye(p * k)
+        step = np.linalg.solve(H, g)
+        w -= step
+        if np.abs(step).max() < 1e-12:
+            break
+    return w, np.linalg.inv(H)
+
+
+def softmax_reference(X, Y, w_map, cov, draws=400_000):
+    """The posterior mean by importance sampling from the Laplace law widened
+    by 1.1 (:func:`logistic_reference`'s method), float64 on the card.
+    Returns (the mean, the effective sample size)."""
+    p, k = X.shape[1], Y.shape[1]
+    L = np.linalg.cholesky(cov)
+    rs = np.random.default_rng(4400)
+    Xt, Yt = (torch.as_tensor(a, device=DEV) for a in (X, Y))
+    c = 1.0 / (2.0 * SOFTMAX_PRIOR_SD ** 2)
+
+    def U(W):
+        Z = torch.einsum("nj,mjk->mnk", Xt, W.reshape(-1, p, k))
+        return -(Yt * torch.log_softmax(Z, 2)).sum((1, 2)) + c * (W * W).sum(1)
+
+    wm = torch.as_tensor(w_map, device=DEV)
+    u_map = U(wm[None])[0]
+    first, w_all = torch.zeros_like(wm), []
+    for _ in range(draws // 10_000):
+        z = torch.as_tensor(rs.normal(size=(10_000, p * k)), device=DEV)
+        W = wm + 1.1 * z @ torch.as_tensor(L.T, device=DEV)
+        wt = torch.exp(u_map - U(W) + 0.5 * (z * z).sum(1))
+        first += wt @ W
+        w_all.append(wt)
+    wt = torch.cat(w_all)
+    return (first / wt.sum()).cpu().numpy(), float(wt.sum() ** 2 / (wt * wt).sum())
+
+
+def contrasts(k):
+    """The class contrasts ``W[j, c] - mean_c W[j, :]`` of ``x.reshape(p, K)``
+    as a matrix on x (per feature ``I - 1 1^T / K``)."""
+    p = SOFTMAX[0]
+    return np.kron(np.eye(p), np.eye(k) - np.ones((k, k)) / k)
+
+
+def softmax_gate(what, xs, ref_mean, cov):
+    """The softmax regression's gate on the second half of each chain's
+    equal-time samples: each coordinate's pooled mean within 0.2 Laplace sd
+    of the importance-sampled posterior mean; each class contrast's variance
+    within 20% of its Laplace variance (the class means, a direction the
+    likelihood leaves flat, carry the prior's sd alone and are printed).
+    Returns (the pooled means, text)."""
+    x = second_half(xs).cpu().numpy()
+    mean, var = x.mean(0), x.var(0)
+    sd = np.sqrt(np.diag(cov))
+    C = contrasts(SOFTMAX[1])
+    cvar, cvar_lap = (x @ C.T).var(0), np.diag(C @ cov @ C.T)
+    dm, dv = np.abs(mean - ref_mean) / sd, np.abs(cvar / cvar_lap - 1.0)
+    if not (np.all(dm < 0.2) and np.all(dv < 0.2)):
+        raise AssertionError(f"{what}: off the posterior: |mean - E| / sd {dm.tolist()}, "
+                             f"|var / var_Laplace - 1| of the contrasts {dv.tolist()}")
+    return mean, (f"max|mean - E[x]| / sd {float(dm.max()):.4f} < 0.2, contrasts' max|var / "
+                  f"var_Laplace - 1| {float(dv.max()):.4f} < 0.2; each coordinate's var / "
+                  f"var_Laplace {float((var / sd ** 2).min()):.4f}-"
+                  f"{float((var / sd ** 2).max()):.4f} (not gated: the class means' prior "
+                  f"sd {SOFTMAX_PRIOR_SD / math.sqrt(SOFTMAX[1]):.2f} per coordinate)")
+
+
+def bimodal_gate(what, sampler, skel):
+    """``test_bimodal_mode_coverage``'s bands on the pooled samples (0.2 <
+    share of x > 0 < 0.8, each mode's unit window holding > 0.1 of them),
+    the share within 0.05 of its 0.5 by symmetry; the share of chains that
+    pass the bands alone printed."""
+    x = pt.sample_from_skeleton_batch(sampler, BIMODAL_SAMPLES, skel)[..., 0].double()
+    pos = float((x > 0).double().mean())
+    near = [float(((x - m).abs() < 1.0).double().mean()) for m in (2.0, -2.0)]
+    per = (x > 0).double().mean(1)
+    chain_ok = ((per > 0.2) & (per < 0.8) & (((x - 2.0).abs() < 1.0).double().mean(1) > 0.1)
+                & (((x + 2.0).abs() < 1.0).double().mean(1) > 0.1))
+    if not (0.2 < pos < 0.8 and min(near) > 0.1 and abs(pos - 0.5) < 0.05):
+        raise AssertionError(f"{what}: modes not covered: share of x > 0 {pos:.4f}, within 1 "
+                             f"of +2 and -2 {near}")
+    return (f"pooled share of x > 0 {pos:.4f} (|. - 0.5| < 0.05), within 1 of +2 "
+            f"{near[0]:.4f} and of -2 {near[1]:.4f} (> 0.1); "
+            f"{float(chain_ok.double().mean()):.4f} of chains pass the JAX test's bands alone")
+
+
+def mixture_gate(what, sampler, skel):
+    """The mixture's law on the second half of each chain's equal-time
+    samples: |pooled mean| < 0.2 on every coordinate, variance within 10%
+    of 5 on coordinates 0 and 1 (the modes' spread 4 and 1) and of 1
+    elsewhere."""
+    x = second_half(pt.sample_from_skeleton_batch(sampler, 256, skel))
+    mean, var = x.mean(0), x.var(0)
+    want = torch.ones_like(var)
+    want[:2] = 5.0
+    m, v = float(mean.abs().max()), float(((var - want) / want).abs().max())
+    if not (m < 0.2 and v < 0.1):
+        raise AssertionError(f"{what}: off the mixture: max|mean| {m:.4f}, variances "
+                             f"{var[:4].tolist()}..., max|var / want - 1| {v:.4f}")
+    return (f"second half: max|mean| {m:.4f} < 0.2, var of x0, x1 {float(var[0]):.4f}, "
+            f"{float(var[1]):.4f} (5), of the rest {float(var[2:].min()):.4f}-"
+            f"{float(var[2:].max()):.4f} (1), max|var / want - 1| {v:.4f} < 0.1")
+
+
+def lse_start(sampler, start, B, d, w_map):
+    """x0 and v0: ``"modes"`` chain b at mu_{b mod 4} with v0 = 1, else
+    :func:`dense_start`'s."""
+    if start == "modes":
+        return mixture_means(d)[np.arange(B) % 4], np.ones((B, d))
+    return dense_start(sampler, start, B, d, w_map)
+
+
+def phase_lse(card_name):
+    """Phase 44: (a) the JAX package's bimodal target, ``ZigZagAD(1, U)`` of
+    ``tests/test_integration.py``; (b) a 4-component Gaussian mixture at d =
+    100 on K1 and K3 (BPS, refresh 1.0), chain b from mu_{b mod 4}; (c) a
+    5-class softmax regression (d = 100, ``X`` 1000 x 20) on K1 and K3 from
+    the MAP, gated against the Laplace law and importance sampling, K1's and
+    K3's means within 0.2 Laplace sd of each other.  First every kernel
+    against its plain version in f64 (``LSE_PARITY``: 64 chains, one launch
+    of 8 transitions from a random state) on (a) at d = 10, (b) in both forms
+    and (c) in both layouts, each taking its kernel under ``"auto"``; K1 and
+    K3 also in horizon mode on (c) (the per-transition route, K7; K4's launch
+    takes eight times as many transitions, its events being rarer); then each
+    deployment's route with one timed call (its library built before, so
+    the call is the first), its gate and an f32 launch with its bound.
+    Returns {path: (launches, ms, plain ms, bound, err)}."""
+    B, K = LSE_PARITY
+    t0 = time.perf_counter()
+    errs, plain = {}, {}
+    texts = []
+    for name, sampler, bitwise, fit in lse_parity_samplers():
+        route = api.pick_backend(sampler, "auto", sampler.dim, torch.float64, DEV)
+        if route != "kernel":
+            # a context its kernel cannot hold at this size: the engine
+            # under "auto", and the same kernel on a softmax that fits
+            why = engine_reason(sampler, torch.float64)
+            if route != "engine" or fit is None or api.pick_backend(
+                    fit, "auto", fit.dim, torch.float64, DEV) != "kernel":
+                raise AssertionError(f"phase 44 {name}: the f64 route is {route} ({why})")
+            texts.append(f"{name} takes the engine under 'auto' in f64 ({why}), its kernel "
+                         f"on X's first {SOFTMAX_FIT_P} columns (d={fit.dim}) instead")
+            name, sampler = f"{name.rsplit('_', 1)[0]}_d{fit.dim}", fit
+        modes = [False, True] if name.startswith(("zigzag_softmax_pk", "bps_softmax_pk")) \
+            else [False]
+        for horizon in modes:
+            what = f"phase 44 {name}{' horizon' if horizon else ''}"
+            k = 8 * K if driver.kernel_kind(sampler) == "suzz" else K  # K4: fewer events
+            err, n_ev, ms = user_compare(what, sampler, B, bitwise, n_chunks=1,
+                                         horizon=horizon, K=k)
+            key = name + ("_horizon" if horizon else "")
+            errs[key], plain[key] = err, ms
+            texts.append(f"{key} {'bit for bit' if bitwise else f'{err:.3e}'} ({n_ev} events)")
+    t_par = time.perf_counter() - t0
+    print(f"phase 44 parity (f64, B={B}, K={K}, one launch each; K3/K5 and K4 bit for bit, K1 "
+          f"and K6 rtol {RTOL}; every route the kernel but those named): {'; '.join(texts)} "
+          f"({t_par:.1f} s, {card_name})", flush=True)
+
+    X, Y = softmax_data()
+    w_map, cov = softmax_laplace(X, Y)
+    ref_mean, ess = softmax_reference(X, Y, w_map, cov)
+    paths = lse_paths()
+    out, means, texts = {}, {}, []
+    for path, (sampler, (d, Bp, n_sk), bitwise, _, start) in paths.items():
+        what = f"phase 44 {path}"
+        x0, v0 = lse_start(sampler, start, Bp, d, w_map)
+        kw = dict(seed=0, dtype=torch.float32, device=DEV)
+        build.reset_launches()
+        engine.reset_counts()
+        t1 = time.perf_counter()
+        skel = pt.sample_skeleton(sampler, n_sk, x0, v0, **kw)
+        sync()
+        wall = time.perf_counter() - t1
+        launches, chunks = dict(build.LAUNCHES), engine.COUNTS["chunks"]
+        name = path_launch(sampler)
+        others = {k: n for k, n in launches.items() if n and k not in (name, "compact_rows")}
+        if launches[name] < 1 or launches["compact_rows"] < 1 or others or chunks:
+            raise AssertionError(f"{what}: the path did not take {name} and K2 alone: "
+                                 f"{launches}, {chunks} engine chunks")
+        check_complete(what, skel, n_sk)
+        events = int(skel.n_valid.sum()) - Bp
+        if "bimodal" in path:
+            gate = bimodal_gate(what, sampler, skel)
+        elif "mixture" in path:
+            gate = mixture_gate(what, sampler, skel)
+        else:
+            means[path], gate = softmax_gate(
+                what, pt.sample_from_skeleton_batch(sampler, 256, skel), ref_mean, cov)
+        del skel
+        ms, b = kernel_chunk(sampler, x0, v0, reps=3 if "softmax" in path else 20)
+        # its f64 parity launches: on the softmax at d = 100, or on the one
+        # that fits where the lane cannot hold d = 100's context in f64
+        target = {"bimodal": "bimodal_d1", "mixture": "mixture4_broadcast_d100",
+                  "softmax": "softmax_pk_d"}[path.split("_")[1].rstrip("4")]
+        keys = [k for k in errs if k.startswith(f"{path.split('_')[0]}_{target}")]
+        out[path] = (launches, ms, plain[min(keys, key=len)], b, max(errs[k] for k in keys))
+        low = lower.lower_sampler(sampler, driver.kernel_kind(sampler), d, torch.float32, DEV)
+        eng = ""
+        if "softmax" in path:  # the route "auto" did not take, for the record
+            eng_ms = engine_chunk_ms(sampler, x0, v0)
+            eng = (f"; one engine chunk ({engine.CHUNK} transitions, f32, B={Bp}) "
+                   f"{eng_ms:.2f} ms by CUDA events, "
+                   f"{eng_ms / (engine.CHUNK / 32) / ms:.2f}x the kernel per transition")
+        texts.append(
+            f"{path} ({type(sampler).__name__} d={d} B={Bp} n_sk={n_sk}; "
+            f"{len(low.stages)} stages ({low.red_kind.count('max')} max), "
+            f"{'moments' if not low.point else 'point context'}, {low.n_trans} values per "
+            f"transition, {low.lane_bytes()} B per lane): route {name} {launches[name]} "
+            f"launches, K2 {launches['compact_rows']}, 0 engine chunks, {events} events in "
+            f"{wall:.4f} s ({events / wall:.1f} events/s, one call, the first); {gate}; f32 "
+            f"chunk (K=32) {ms:.4f} ms at the deployment's start, bound {bound_text(b)}{eng}")
+    d, Bm, _ = MIXTURE
+    x0 = mixture_means(d)[np.arange(Bm) % 4]
+    for kind, sampler in lse_launch_samplers().items():
+        v0 = np.full((Bm, d), 1.0 / math.sqrt(d)) if kind == "ecmc" else np.ones((Bm, d))
+        ms, b = kernel_chunk(sampler, x0, v0)
+        key = f"{kind}_mixture4_broadcast_d100"
+        texts.append(f"{kind}_mixture4_d100 (no deployment: {type(sampler).__name__} d={d} "
+                     f"B={Bm}): f32 chunk (K=32) {ms:.4f} ms from the modes, bound "
+                     f"{bound_text(b)}; its f64 parity launch {errs[key]:.3e}, plain "
+                     f"{plain[key]:.1f} ms")
+    # a max over the coordinates puts K1 in point mode: what that costs at
+    # d = 1000 beside the tagged Gaussian at the same shape and start
+    d, Bc = LSE_COORDS
+    x0, v0 = np.full((Bc, d), 0.3), np.ones((Bc, d))
+    c_ms, c_b = kernel_chunk(lse_coords_sampler(), x0, v0, reps=3)
+    g_ms, g_b = kernel_chunk(pt.ZigZag(d, pt.potentials.grad_gauss), x0, v0,
+                             config=card_config)
+    texts.append(f"zigzag_lse_coords_d{d} (no deployment: ZigZagAD(|x|^2 / 2 + logsumexp(x)) "
+                 f"B={Bc}, point mode): f32 chunk (K=32) {c_ms:.4f} ms, bound "
+                 f"{bound_text(c_b)}; the tagged Gaussian {g_ms:.4f} ms (bound "
+                 f"{bound_text(g_b)}), {c_ms / g_ms:.1f}x")
+    sd = np.sqrt(np.diag(cov))
+    gap = np.abs(means["zigzag_softmax_d100_n1000"] - means["bps_softmax_d100_n1000"]) / sd
+    if not np.all(gap < 0.2):
+        raise AssertionError(f"phase 44: K1's and K3's softmax means apart by {gap.tolist()} sd")
+    print(f"phase 44 deployments: {'; '.join(texts)}; K1 and K3 softmax means within "
+          f"{float(gap.max()):.4f} < 0.2 Laplace sd of each other, the importance-sampled "
+          f"mean (ESS {ess:.0f}) {float((np.abs(ref_mean - w_map) / sd).max()):.3f} Laplace sd "
+          f"from the MAP at most, Laplace sd {float(sd.min()):.4f}-{float(sd.max()):.4f} "
+          f"({card_name})", flush=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b, plain_of=None):
     """One entry of the kernels line; ``plain_of`` says which launch
     ``plain_ms`` timed where it is not the launch ``ms`` timed."""
@@ -4988,7 +5474,6 @@ def main():
     k2_paths = {"rhmc_gauss_d10": phase_rhmc(card_name)}
     for tderiv in ("fd", "jvp"):
         k2_paths[f"zigzag_banana_d10_{tderiv}"] = phase_banana_engine(card_name, tderiv)
-    builds = user_builds()  # phases 25 and 36-43's user libraries, every nvcc at once
     phase_routing(card_name)
     at(25)
     k2_paths["host:sticky_zigzag_d1000"] = phase_host_sticky(card_name, sticky, k6_ms)
@@ -5003,10 +5488,15 @@ def main():
     at(32)
     tag_errs = phase_tags()
     at(33)
+    # after phase 33, not beside it: the nvcc processes starve its host loop
+    # (on the H100's 8-core host 247 s together, where phase 33 alone takes
+    # 69 s and the builds 134-150 s)
+    builds = user_builds()  # phases 36-44's user libraries, every nvcc at once
+    at("33b, the user builds")
     cauchy_launches, cauchy = phase_suzz_cauchy(card_name)
     at(34)
-    neal_launches, neal, k2_paths["engine:zigzag_neal_funnel_d10"], neal_x0 = \
-        phase_neal_funnel(card_name)
+    neal_launches, neal, k2_paths[f"engine:zigzag_neal_funnel_d10_n{NEAL_ROUTES}"], \
+        neal_x0 = phase_neal_funnel(card_name)
     at(35)
     user = phase_user_main(card_name, builds)
     at(36)
@@ -5027,6 +5517,8 @@ def main():
     at(42)
     user.update(phase_transition_products(card_name))
     at(43)
+    user.update(phase_lse(card_name))
+    at(44)
     zz = "pdmpflux_tpu/ops/pallas/zigzag_chunk.py:854"
     k7 = 'pdmpflux_tpu/ops/pallas/zigzag_chunk.py:343 mode="horizon"'
     kernels = [
@@ -5109,7 +5601,7 @@ def main():
                "suzz_chunk": ("suzz_chunk.cu", zz + ' kind="suzz"')}
     # phases 39-43 time the kernel on an f32 launch from the deployment's
     # start and the plain version on the f64 parity launch from a random state
-    dense = set(dense_paths()) | set(band_paths()) | set(dense_ar1_paths())
+    dense = set(dense_paths()) | set(band_paths()) | set(dense_ar1_paths()) | set(lse_paths())
     for path, (n, ms, plain_ms, b, err) in user.items():
         name = next(k for k in sources if n.get(k))
         kernels.append(kernel_entry(

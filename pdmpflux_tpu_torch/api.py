@@ -184,7 +184,8 @@ def pick_backend(sampler, backend: str, d: int, dtype, device) -> str:
     neighbours at fixed offsets (``x[1:] - x[:-1]``, a band) and of any fixed
     coordinate (``x[k]``) take the kernel like any other read.  A gradient
     the lowering cannot express (a running sum, one element of a matrix
-    product, a slice of a data vector's rows, a batch of products) raises
+    product, a slice of a data vector's rows, a value whose short axis is
+    past ``lower.KMAX``) raises
     its ``LoweringError`` under ``"auto"`` and ``"pallas"``, naming
     ``backend="xla_stream"``.  A failed build or launch
     never picks the route: they raise where they happen."""

@@ -40,10 +40,24 @@ The IR.  A value of the trace is one of:
   ``stack`` and ``where`` on a constant mask (``torch.func.grad`` of
   ``x[0]`` emits ``where(arange == 0, ...)``) move pieces about; a vector
   held as a column or a row (``unsqueeze``, ``permute``, a product's batch
-  views) is the same vector.
+  views) is the same vector;
+* a matrix (:class:`Mat`): a value with two dimensions past 1 whose shorter
+  one, ``K <=`` :data:`KMAX`, is unrolled at lowering time into ``K``
+  vectors (a mixture's components ``x[None, :] - MU``, a softmax's classes,
+  ``x.reshape(K, p)``'s rows as slices, ``x.reshape(p, K)``'s columns as
+  strided reads ``x[K r + k]``); an elementwise op acts on each, a
+  reduction along the short axis folds them at lowering time, along the
+  long one makes a stage of each; ``mm`` of a constant matrix with it makes
+  a product of each column (or row), and its backward ``X.T @ G`` pends
+  until flattened into the coordinates, where coordinate ``i`` reads
+  product ``i % K``'s row ``i / K`` (``(n, K)``) or product ``i / p``'s
+  row ``i % p`` (``(K, p)``).
 
-Stages.  Sums and products are stages, kept in trace order: a sum over an
-index space of pieces, and a product ``M u`` of a constant ``(r, c)`` matrix
+Stages.  Sums, maxes and products are stages, kept in trace order: a sum
+or a max over an index space of pieces (a max's value and tangent those
+of the first index that attains it; at most :data:`KMAX` chain values,
+such as the bimodal target's ``stack([a, b])``, fold at lowering time
+instead), and a product ``M u`` of a constant ``(r, c)`` matrix
 (``mv``, ``mm``/``bmm`` with a column or a row, their ``add`` forms,
 ``einsum``, ``linear`` and ``matmul`` as they trace) with a vector of the
 chain, from the coordinates to the coordinates (``A @ y``), to the rows of a
@@ -69,7 +83,8 @@ element ``r`` as ``c0[r] + t c1[r]`` with tangent ``c1[r]`` (the
 Boomerang's elliptic flow: ``a cos t + c1 sin t + mc`` and ``c1 cos t - a
 sin t``, ``a = c0 - mc``, ``mc = M u(0)`` hoisted into the parameters),
 through the point's accessor (``yw.prod``).  Every other stage is formed
-at the point.  K3/K5 and K4 form it at every point they evaluate, one lane
+at the point.  A max is not a moment, so K1 and K6 form any stage that reads
+one at each point.  K3/K5 and K4 form it at every point they evaluate, one lane
 walking the chain (``UserPotential::sums``): a coordinate-space input in
 the lane's local memory, a data vector streamed row by row (each row's
 product formed where it is read), every sum and every product element
@@ -83,7 +98,8 @@ with any other stage (K6: any product) is a point potential for them too:
 K1's lane forms the stages at each point it evaluates, as K3 does, and
 K6's block forms them together (``UserPotential::fill``: each stage's
 positions across the threads, products' inputs and outputs in shared
-memory, sums by a two-level reduction).  The plain version forms the
+memory, sums by a two-level reduction, maxes by one of (value, tangent,
+index) whose ties take the lower index).  The plain version forms the
 per-transition products as the kernels do (``Lowered.along``).
 
 A gradient that reads coordinates other than its own (neighbours, fixed
@@ -91,9 +107,10 @@ coordinates) sets ``reads_others``: K6 then publishes the chain's values to
 every warp before it reads them.
 
 Anything else (a product of two vectors of the chain, a matrix that depends
-on ``x``, ``cumsum`` and other couplings, one element of a product, a
-product's element at another index, a branch on a value of ``x``, an op
-outside the set) raises
+on ``x``, ``cumsum``, ``roll`` and other couplings, one element of a
+product, a product's element at another index, a data vector into other
+data rows, a short axis past :data:`KMAX`, a branch on a value of ``x``, an
+op outside the set) raises
 :class:`LoweringError` naming the op and its node, before any build or
 launch.  The result is cached on the sampler by (kernel, d, dtype).
 """
@@ -135,6 +152,10 @@ ptxas's stack frame runs 2.3-3.4x the count, and the card reserves that
 frame for every thread it can hold (30 GB at 96 KB counted on K1)."""
 
 INF = 1 << 20  # the degree in t of a summand that is not a polynomial
+KMAX = 16
+"""Longest short axis of a value with two dimensions past 1 (a mixture's
+components, a softmax's classes, a view of x as a ``(p, K)`` matrix): its
+``K`` vectors are unrolled at lowering time; a longer one is refused."""
 MAX_RUNS = 4   # a constant vector of more runs of equal values is hoisted
 HINT = ("run it on the transition engine with backend='xla_stream', or with "
         "device='cpu'")
@@ -172,10 +193,10 @@ class Node:
 
     def __init__(self, op, args, attr, nid, space=None):
         self.op, self.args, self.attr, self.id = op, args, attr, nid
-        self.lane = op in _LANE_LEAVES or any(a.lane for a in args)
+        self.lane = op in _LANE_LEAVES or op == "sel" or any(a.lane for a in args)
         self.fixed = op in _FIXED_LEAVES or any(a.fixed for a in args)
         self.boolean = op in _BOOL_OPS or (op == "lit" and isinstance(attr, bool)) or (
-            op == "where" and args[1].boolean)
+            op == "where" and args[1].boolean) or (op == "sel" and args[0].boolean)
         self.deg = _degree(op, args)
         self.space = space
 
@@ -193,6 +214,15 @@ class Node:
             return f"{'x' if self.op == 'yo' else 'v'}_(i{self.attr:+d})"
         if self.op in ("yk", "wk"):
             return f"{'x' if self.op == 'yk' else 'v'}_{self.attr}"
+        if self.op in ("ya", "wa"):
+            return f"{'x' if self.op == 'ya' else 'v'}_({self.attr[0]} i{self.attr[1]:+d})"
+        if self.op in ("mvx", "dmvx"):
+            m, st, c = self.attr
+            return f"{'d' if self.op == 'dmvx' else ''}(M{m} u)_((i{-c:+d}) / {st})"
+        if self.op == "prmd":
+            return f"prm[{self.attr[0]} + i / {self.attr[1]}]"
+        if self.op == "sel":
+            return f"sel_(i % {self.attr})({', '.join(a.text() for a in self.args)})"
         if not self.args:
             return {"y": "x_i", "w": "v_i", "y0": "x_0", "w0": "v_0", "y1": "x_1",
                     "w1": "v_1"}[self.op]
@@ -205,12 +235,17 @@ class Node:
         return f"{self.op}({', '.join(a.text() for a in self.args)})"
 
 
-_LANE_LEAVES = {"y", "w", "yo", "wo", "prm", "mv", "dmv"}
-_FIXED_LEAVES = {"mv", "dmv"}
-_FAR = {"yo", "wo", "yk", "wk"}
-"""Reads of a neighbour (``yo``/``wo`` at offset ``attr``) or of a fixed
-coordinate past 1 (``yk``/``wk`` at ``attr``), through the kernel's
-accessor ``yw``."""
+_LANE_LEAVES = {"y", "w", "yo", "wo", "ya", "wa", "prm", "prmd", "mv", "dmv", "mvx", "dmvx"}
+_FIXED_LEAVES = {"mv", "dmv", "mvx", "dmvx", "prmd"}
+_FAR = {"yo", "wo", "yk", "wk", "ya", "wa"}
+"""Reads of a neighbour (``yo``/``wo`` at offset ``attr``), of a fixed
+coordinate past 1 (``yk``/``wk`` at ``attr``) or of coordinate ``s i + c``
+(``ya``/``wa`` at ``attr = (s, c)``: a column of a view of x as a matrix),
+through the kernel's accessor ``yw``."""
+_PRODUCT_LEAVES = {"mv", "dmv", "mvx", "dmvx"}
+"""Reads of a product's element: at the index (``mv``), or at row ``(i -
+c) / s`` (``mvx`` at ``attr = (m, s, c)``: the rows of a product read where
+a matrix of products is flattened into the coordinates)."""
 _FIRST = {"y0", "w0", "y1", "w1"}
 _OTHERS = _FAR | _FIRST
 """Every read of a coordinate other than the evaluated one."""
@@ -219,9 +254,9 @@ _LINEAR = {"add", "sub", "neg"}
 
 
 def _degree(op, args):
-    if op in ("y", "y0", "y1", "yo", "yk"):
+    if op in ("y", "y0", "y1", "yo", "yk", "ya"):
         return 1
-    if op in ("red", "dred", "mv", "dmv"):
+    if op in ("red", "dred", "mv", "dmv", "mvx", "dmvx", "sel"):
         return INF
     if not args or all(a.deg == 0 for a in args):
         return 0
@@ -259,7 +294,7 @@ class Graph:
         return node
 
     def _space(self, op, args, attr):
-        if op in ("y", "w", "yo", "wo"):
+        if op in ("y", "w", "yo", "wo", "ya", "wa", "mvx", "dmvx", "prmd"):
             return "c"
         if op in ("mv", "dmv"):
             return self.mv_space[attr]
@@ -327,11 +362,17 @@ class Graph:
 
     def _tangent(self, n, memo):
         op, a = n.op, n.args
-        leaf = {"y": "w", "y0": "w0", "y1": "w1", "yo": "wo", "yk": "wk"}
+        leaf = {"y": "w", "y0": "w0", "y1": "w1", "yo": "wo", "yk": "wk", "ya": "wa"}
         if op in leaf:
             return self.mk(leaf[op], attr=n.attr)
-        if op in ("red", "mv"):  # a sum's and a product's tangents: their own stages
+        if op in ("red", "mv", "mvx"):  # a stage's tangent: its own stage's
             return self.mk("d" + op, attr=n.attr)
+        if op == "sel":
+            ds = [self.tangent(x, memo) for x in a]
+            if all(t is None for t in ds):
+                return None
+            return self.mk("sel", *(t if t is not None else self.lit(0.0) for t in ds),
+                           attr=n.attr)
         if not a or n.boolean or op in ("sign", "b2f"):
             return None
         da = [self.tangent(x, memo) for x in a]
@@ -420,12 +461,18 @@ class Graph:
         memo = {} if memo is None else memo
         if n.id in memo:
             return memo[n.id]
-        if n.op in ("mv", "dmv"):
+        if n.op in _PRODUCT_LEAVES:
             raise _FarRead()
         if n.op in ("y", "w", "yo", "wo"):
             out = self.coord(n.op[0], k + (n.attr or 0))
+        elif n.op in ("ya", "wa"):
+            out = self.coord(n.op[0], n.attr[0] * k + n.attr[1])
         elif n.op == "prm":
             out = self.mk("prmk", attr=n.attr + k)
+        elif n.op == "prmd":
+            out = self.mk("prmk", attr=n.attr[0] + k // n.attr[1])
+        elif n.op == "sel":
+            out = self.pin(n.args[k % n.attr], k, memo)
         else:
             out = self.mk(n.op, *(self.pin(a, k, memo) for a in n.args), attr=n.attr)
         memo[n.id] = out
@@ -446,6 +493,12 @@ class Graph:
                 out = self.mk("prm", attr=n.attr - delta)
             elif n.op in ("y", "w", "yo", "wo"):
                 out = self.near(n.op[0], (n.attr or 0) - delta)
+            elif n.op in ("ya", "wa"):
+                out = self.mk(n.op, attr=(n.attr[0], n.attr[1] - n.attr[0] * delta))
+            elif n.op == "sel":  # argument k reads index k - delta's
+                K = n.attr
+                out = self.mk("sel", *(self.shift(n.args[(k - delta) % K], delta, memo)
+                                       for k in range(K)), attr=K)
             else:
                 out = self.mk(n.op, *(self.shift(a, delta, memo) for a in n.args), attr=n.attr)
             memo[n.id] = out
@@ -512,6 +565,27 @@ class Bad(NamedTuple):
     err: LoweringError
 
 
+class Mat(NamedTuple):
+    """A value with two dimensions past 1 whose short axis, of ``K <=``
+    :data:`KMAX`, is unrolled at lowering time: its ``K`` vectors along that
+    axis (each a :class:`Vec` of one length ``n``), the axis first of the two
+    (``kfirst``: shape ``(K, n)``) or second (``(n, K)``), dimensions of size
+    1 aside."""
+    vecs: Tuple[Vec, ...]
+    kfirst: bool
+
+
+class Pend(NamedTuple):
+    """``K`` products ``M_k u_k`` of constant matrices with data vectors (a
+    matrix product's backward ``mm(X.T, G)``, ``bmm``'s), formed only where
+    the matrix they make is flattened into the coordinates: read otherwise,
+    they are a product of data vectors into other data rows (``err``)."""
+    Ms: Tuple[torch.Tensor, ...]
+    us: Tuple[Vec, ...]
+    kfirst: bool
+    err: Bad
+
+
 class Lowered:
     """A lowered gradient at one (kernel, d, dtype): the output's pieces over
     the coordinates, its stages in trace order (``("red", r)``, a sum;
@@ -529,10 +603,11 @@ class Lowered:
     def __init__(self, b: Graph, kernel: str, d: int, dtype, out: List[Piece],
                  stages: List[Tuple[str, int]], reductions: List[List[Piece]],
                  red_space: List[object], products: Dict[int, Product],
-                 params: torch.Tensor):
+                 params: torch.Tensor, red_kind: Optional[List[str]] = None):
         self.b, self.kernel, self.d, self.dtype = b, kernel, d, dtype
         self.out, self.stages, self.params = out, stages, params
         self.reductions, self.red_space, self.products = reductions, red_space, products
+        self.red_kind = red_kind or ["sum"] * len(reductions)
         memo: dict = {}
         self.d_out = [b.tangent(p.e, memo) for p in out]
         self.d_red = [[b.tangent(p.e, memo) for p in r] for r in reductions]
@@ -546,11 +621,15 @@ class Lowered:
             self.toff[m] = self.n_trans
             self.n_trans += 2 * products[m].rows
         self.point = kernel not in MOMENT_KERNELS or not self._moments_exact()
-        # the products formed at a point and read at the coordinates, in
-        # stage order: Sums slots
+        # the products formed at a point and read at the coordinates (also
+        # those whose rows a flattened matrix of products places there), in
+        # stage order: Sums slots of slot_rows values each
+        placed = {x.attr[0] for e in self._nodes_read() for x in _nodes(e)
+                  if x.op in ("mvx", "dmvx")}
         self.slot = {m: k for k, m in enumerate(
-            m for kind, m in stages
-            if kind == "mv" and products[m].space == "c" and m not in self.toff)}
+            m for kind, m in stages if kind == "mv" and m not in self.toff
+            and (products[m].space == "c" or m in placed))}
+        self.slot_rows = max((products[m].rows for m in self.slot), default=d)
         self._lits: dict = {}
         self._dev: dict = {}
         self._lib = None
@@ -564,6 +643,7 @@ class Lowered:
         their own coordinate and coordinates 0 and 1 alone (no sum read by
         another), and no product but those formed once per transition."""
         return all(m in self.toff for m in self.products) and all(
+            k == "sum" for k in self.red_kind) and all(
             space == "c" and all(p.e.deg <= 2 and not _leaves(p.e) & _FAR and 0 <= _coords(p)[0]
                                  and _coords(p)[1] <= self.d for p in pieces)
             for pieces, space in zip(self.reductions, self.red_space))
@@ -587,12 +667,18 @@ class Lowered:
         """Bytes of one lane's context at a point (K1, K3/K5, K4): its
         ``Sums`` (the sums and the coordinate outputs of products formed at
         the point, with their tangents; K1 keeps two alive, a segment's two
-        grid points) and those products' materialized inputs with their
-        tangents.  Products formed once per transition are not counted."""
-        sums = 2 * len(self.reductions) + 2 * len(self.slot) * self.d
+        grid points), those products' materialized inputs with their
+        tangents, and the walk of the data rows' products into the
+        coordinates (a row's input and tangent each, and the accumulators
+        that an unrolled walk keeps beside the ``Sums``).  Products formed
+        once per transition are not counted."""
+        sums = 2 * len(self.reductions) + 2 * len(self.slot) * self.slot_rows
         inputs = sum(2 * pr.cols for m, pr in self.products.items()
                      if pr.in_space == "c" and m not in self.toff)
-        return ((2 if self.kernel == "zigzag" else 1) * sums + inputs) * self.dtype.itemsize
+        rows = [self.products[m] for m in self.slot if self.products[m].in_space != "c"]
+        walk = sum(2 + (2 * pr.rows if _unroll(pr.rows) else 0) for pr in rows)
+        return (((2 if self.kernel == "zigzag" else 1) * sums + inputs + walk)
+                * self.dtype.itemsize)
 
     def shared_values(self) -> int:
         """Values of K6's context in shared memory: each product's input and
@@ -697,8 +783,22 @@ class Lowered:
                 out = (y if op == "yo" else w)[lo + n.attr:hi + n.attr]
             elif op in ("yk", "wk"):
                 out = (y if op == "yk" else w)[n.attr]
+            elif op in ("ya", "wa"):
+                st, c = n.attr
+                out = (y if op == "ya" else w)[st * lo + c:st * (hi - 1) + c + 1:st]
             elif op == "prm":
                 out = prm[n.attr + lo:n.attr + hi, None]
+            elif op == "prmd":
+                out = prm[n.attr[0] + torch.arange(lo, hi, device=y.device) // n.attr[1], None]
+            elif op in ("mvx", "dmvx"):
+                m, st, c = n.attr
+                rows = (torch.arange(lo, hi, device=y.device) - c) // st
+                out = (prod if op == "mvx" else dprod)[m][rows]
+            elif op == "sel":  # argument i % K at index i
+                vals = torch.stack([torch.broadcast_to(ev(x, lo, hi, lane), (hi - lo, y.shape[1]))
+                                    for x in a])
+                pick = (torch.arange(lo, hi, device=y.device) % n.attr)[None, :, None]
+                out = vals.gather(0, pick.expand(1, hi - lo, y.shape[1]))[0]
             elif op == "prmk":
                 out = prm[n.attr]
             elif op in ("red", "dred", "mv", "dmv"):
@@ -727,25 +827,61 @@ class Lowered:
         n = y.shape[1]
         for m, (val, dval) in (fixed or {}).items():
             prod[m], dprod[m] = val, dval
-        for kind, s in self.stages:
-            if (kind == "mv" and s in prod) or (only is not None and not (
-                    kind == "mv" and s in only)):
+        todo = [(kind, s) for kind, s in self.stages
+                if not ((kind == "mv" and s in prod) or (only is not None and not (
+                    kind == "mv" and s in only)))]
+        for group in self._batches(todo):
+            kind, s = group[0]
+            # a stage's value and tangent side by side, added in one pass; a
+            # batch of products with one matrix side by side too
+            us = []
+            for _, m in group:
+                pieces, tangents = ((self.reductions[m], self.d_red[m]) if kind == "red" else
+                                    (self.products[m].vec.pieces, self.d_mv[m]))
+                u = assemble(pieces, [p.e for p in pieces])
+                if kind == "red" and self.red_kind[m] == "max":
+                    red[m], dred[m] = ordered_max(
+                        u, None if w is None else assemble(pieces, tangents))
+                    break
+                us.append(u if w is None else torch.cat([u, assemble(pieces, tangents)], 1))
+            if not us:
                 continue
-            # a stage's value and tangent side by side, added in one pass
-            pieces, tangents = ((self.reductions[s], self.d_red[s]) if kind == "red" else
-                                (self.products[s].vec.pieces, self.d_mv[s]))
-            u = assemble(pieces, [p.e for p in pieces])
-            if w is not None:
-                u = torch.cat([u, assemble(pieces, tangents)], 1)
-            out = (ordered_sum(u, 0)[0] if kind == "red"
-                   else ordered_matvec(self.matrix(s, prm), u))
-            (red, prod)[kind != "red"][s] = out[..., :n]
-            if w is not None:
-                (dred, dprod)[kind != "red"][s] = out[..., n:]
+            out = (ordered_sum(us[0], 0)[0] if kind == "red"
+                   else ordered_matvec(self.matrix(s, prm), torch.cat(us, 1)))
+            for q, (_, m) in enumerate(group):
+                part = out[..., q * us[0].shape[1]:(q + 1) * us[0].shape[1]]
+                (red, prod)[kind != "red"][m] = part[..., :n]
+                if w is not None:
+                    (dred, dprod)[kind != "red"][m] = part[..., n:]
         if only is not None:
             return prod, dprod
         g = assemble(self.out, [p.e for p in self.out])
         return g, (None if w is None else assemble(self.out, self.d_out))
+
+    def _batches(self, stages):
+        """Stages in order, products of one matrix that follow one another
+        and read none of each other batched (the plain version adds their
+        elements side by side, each in its own column order)."""
+        out: list = []
+        for kind, s in stages:
+            last = out[-1] if out else None
+            if (kind == "mv" and last and last[0][0] == "mv"
+                    and self._key(last[0][1]) == self._key(s)
+                    and not self._reads_products(s) & {m for _, m in last}):
+                last.append((kind, s))
+            else:
+                out.append([(kind, s)])
+        return out
+
+    def _key(self, m):
+        pr = self.products[m]
+        return pr.moff, pr.colmajor, pr.rows, pr.cols, pr.in_space == "c"
+
+    def _reads_products(self, m) -> set:
+        """The products product ``m``'s input reads."""
+        return {x.attr if x.op in ("mv", "dmv") else x.attr[0]
+                for p in self.products[m].vec.pieces for x in _nodes(p.e)
+                if x.op in _PRODUCT_LEAVES}
 
     # -- the CUDA header ----------------------------------------------------
     def header(self) -> str:
@@ -775,7 +911,7 @@ class Lowered:
         if self.slot and block:
             lines += [f"    const T* c[{npc}];", f"    const T* dc[{npc}];"]
         elif self.slot:
-            lines += [f"    T c[{npc}][{self.d}], dc[{npc}][{self.d}];"]
+            lines += [f"    T c[{npc}][{self.slot_rows}], dc[{npc}][{self.slot_rows}];"]
         lines.append("  };")
         if self.trans:
             lines += self._form_cpp()
@@ -788,6 +924,13 @@ class Lowered:
         lines += self._at_cpp()
         lines += ["};", ""]
         return "\n".join(lines)
+
+    def _nodes_read(self):
+        """Every node of the output, the stages and their tangents."""
+        nodes = [p.e for p in self.out] + self.d_out
+        for pieces, tangents in self._stage_pieces():
+            nodes += [p.e for p in pieces] + list(tangents)
+        return [e for e in nodes if e is not None]
 
     def _stage_pieces(self):
         """Every stage's (pieces, tangents)."""
@@ -807,6 +950,17 @@ class Lowered:
         for pieces, tangents in self._stage_pieces():
             nodes += [p.e for p in pieces] + list(tangents)
         return any(e is not None and _leaves(e) & leaves for e in nodes)
+
+    def _acc(self, r: int, v: str, dv: str, first: str) -> List[str]:
+        """Stage ``r``'s accumulation of one term: a sum adds it, a max takes
+        it where it is larger (or a NaN over a number), so the first index
+        that attains the max gives the value and the tangent."""
+        if self.red_kind[r] == "max":
+            return [f"if ({first} || {v} > cs.s[{r}] || "
+                    f"({v} != {v} && cs.s[{r}] == cs.s[{r}])) {{",
+                    f"  cs.s[{r}] = {v};", f"  cs.ds[{r}] = {dv};", "}"]
+        return [f"cs.s[{r}] = {first} ? {v} : cs.s[{r}] + {v};",
+                f"cs.ds[{r}] = {first} ? {dv} : cs.ds[{r}] + {dv};"]
 
     def _moments_cpp(self):
         out = [
@@ -863,8 +1017,8 @@ class Lowered:
         return (f"prm[{pr.moff} + ({c}) * {pr.rows} + ({r})]" if pr.colmajor
                 else f"prm[{pr.moff} + ({r}) * {pr.cols} + ({c})]")
 
-    def _coord_leaf(self, op, m):
-        return f"cs.{'d' if op == 'dmv' else ''}c[{self.slot[m]}][i]"
+    def _coord_leaf(self, op, m, at):
+        return f"cs.{'d' if op == 'dmv' else ''}c[{self.slot[m]}][{at}]"
 
     def _emit(self, **kw) -> "_Emit":
         """An emitter that reads the per-transition products through the
@@ -948,10 +1102,16 @@ class Lowered:
         ]
         if self._reads(_FIRST, stages_only=True):
             out += _READ01
-        for kind, s in self.stages:
-            if kind == "mv" and s in self.toff:
-                continue
-            out += self._lane_red(s) if kind == "red" else self._lane_product(s)
+        for batch in self._batches([(kind, s) for kind, s in self.stages
+                                    if not (kind == "mv" and s in self.toff)]):
+            kind, s = batch[0]
+            if kind == "red":
+                out += self._lane_red(s)
+            elif self.products[s].in_space != "c":
+                out += self._lane_rows([m for _, m in batch])
+            else:
+                for _, m in batch:
+                    out += self._lane_product(m)
         out += ["    return cs;", "  }"]
         return out
 
@@ -973,7 +1133,7 @@ class Lowered:
                     "}"]
         return [indent + s for s in out]
 
-    def _data_leaf(self, op, m):
+    def _data_leaf(self, op, m, at):
         return f"{'d' if op == 'dmv' else ''}z{m}"
 
     def _lane_red(self, r):
@@ -988,9 +1148,8 @@ class Lowered:
                 out += [f"    for (int i = {lo}; i < {hi}; ++i) {{  // sum {r}: {p.e.text()}",
                         "      T y, w;", "      yw(i, y, w);", "      (void)y; (void)w;"]
                 out += ["      " + s for s in em.lines]
-                out += [f"      cs.s[{r}] = first{r} ? {v} : cs.s[{r}] + {v};",
-                        f"      cs.ds[{r}] = first{r} ? {dv} : cs.ds[{r}] + {dv};",
-                        f"      first{r} = false;", "    }"]
+                out += ["      " + s for s in self._acc(r, v, dv, f"first{r}")]
+                out += [f"      first{r} = false;", "    }"]
             return out
         n = max(p.b for p in pieces)
         out.append(f"    for (int k = 0; k < {n}; ++k) {{  // sum {r} over data rows")
@@ -1000,68 +1159,94 @@ class Lowered:
             v, dv = em.name(p.e), em.name(dp) if dp is not None else "(T)0"
             out.append(f"      if (k >= {p.a} && k < {p.b}) {{  // {p.e.text()}")
             out += ["        " + s for s in em.lines]
-            out += [f"        cs.s[{r}] = first{r} ? {v} : cs.s[{r}] + {v};",
-                    f"        cs.ds[{r}] = first{r} ? {dv} : cs.ds[{r}] + {dv};",
-                    f"        first{r} = false;", "      }"]
+            out += ["        " + s for s in self._acc(r, v, dv, f"first{r}")]
+            out += [f"        first{r} = false;", "      }"]
         out.append("    }")
         return out
 
     def _lane_product(self, m):
+        """A product of the coordinates: its input in the lane's registers,
+        then ``M u`` into the coordinates' slot, or nothing more where its
+        rows are data rows (formed row by row where read)."""
         pr, tangents = self.products[m], self.d_mv[m]
         R, C = pr.rows, pr.cols
-        if pr.in_space == "c":  # the input in the lane's registers, then M u
-            out = [f"    T u{m}[{C}], du{m}[{C}];  // product {m}: ({R} x {C}) u"]
-            for p, dp in zip(pr.vec.pieces, tangents):
-                em = self._emit(leaf=self._coord_leaf)
-                v, dv = em.name(p.e), em.name(dp) if dp is not None else "(T)0"
-                out += ["    " + u for u in _unroll(p.b - p.a)]
-                out += [f"    for (int p = {p.a}; p < {p.b}; ++p) {{  // {p.e.text()}",
-                        f"      const int i = p + {p.off or 0};", "      (void)i;"]
-                if self._reads_point(p.e, dp):
-                    out += ["      T y, w;", "      yw(i, y, w);", "      (void)y; (void)w;"]
-                out += ["      " + s for s in em.lines]
-                out += [f"      u{m}[p] = {v};", f"      du{m}[p] = {dv};", "    }"]
-            if pr.space != "c":
-                return out  # a product into data rows: formed row by row where read
-            k = self.slot[m]
-            a0 = self._m(m, "r", "0")
-            return out + [
-                *["    " + u for u in _unroll(R)],
-                f"    for (int r = 0; r < {R}; ++r) {{",
-                f"      T acc = {a0} * u{m}[0], dacc = {a0} * du{m}[0];",
-                *["      " + u for u in _unroll(C)],
-                f"      for (int c = 1; c < {C}; ++c) {{",
-                f"        const T a = {self._m(m, 'r', 'c')};",
-                f"        acc = acc + a * u{m}[c];",
-                f"        dacc = dacc + a * du{m}[c];",
-                "      }",
-                f"      cs.c[{k}][r] = acc;",
-                f"      cs.dc[{k}][r] = dacc;",
-                "    }"]
-        # a product of data rows into the coordinates: every output element
-        # takes row k's term in turn, in registers where the loop unrolls
-        k = self.slot[m]
-        acc, dacc = ((f"a{m}", f"da{m}") if _unroll(R) else
-                     (f"cs.c[{k}]", f"cs.dc[{k}]"))
-        out = [f"    T a{m}[{R}], da{m}[{R}];"] if _unroll(R) else []
-        out += [f"    for (int k = 0; k < {C}; ++k) {{  // product {m}: ({R} x {C}) u, u over data rows",
-                "      T u = (T)0, du = (T)0;"]
-        out += self._inline_products([p.e for p in pr.vec.pieces] + list(tangents), "      ")
+        out = [f"    T u{m}[{C}], du{m}[{C}];  // product {m}: ({R} x {C}) u"]
         for p, dp in zip(pr.vec.pieces, tangents):
-            em = self._emit(idx="k", leaf=self._data_leaf)
+            em = self._emit(leaf=self._coord_leaf)
             v, dv = em.name(p.e), em.name(dp) if dp is not None else "(T)0"
-            out.append(f"      if (k >= {p.a} && k < {p.b}) {{  // {p.e.text()}")
-            out += ["        " + s for s in em.lines]
-            out += [f"        u = {v};", f"        du = {dv};", "      }"]
+            out += ["    " + u for u in _unroll(p.b - p.a)]
+            out += [f"    for (int p = {p.a}; p < {p.b}; ++p) {{  // {p.e.text()}",
+                    f"      const int i = p + {p.off or 0};", "      (void)i;"]
+            if self._reads_point(p.e, dp):
+                out += ["      T y, w;", "      yw(i, y, w);", "      (void)y; (void)w;"]
+            out += ["      " + s for s in em.lines]
+            out += [f"      u{m}[p] = {v};", f"      du{m}[p] = {dv};", "    }"]
+        if pr.space != "c":
+            return out
+        k = self.slot[m]
+        a0 = self._m(m, "r", "0")
+        return out + [
+            *["    " + u for u in _unroll(R)],
+            f"    for (int r = 0; r < {R}; ++r) {{",
+            f"      T acc = {a0} * u{m}[0], dacc = {a0} * du{m}[0];",
+            *["      " + u for u in _unroll(C)],
+            f"      for (int c = 1; c < {C}; ++c) {{",
+            f"        const T a = {self._m(m, 'r', 'c')};",
+            f"        acc = acc + a * u{m}[c];",
+            f"        dacc = dacc + a * du{m}[c];",
+            "      }",
+            f"      cs.c[{k}][r] = acc;",
+            f"      cs.dc[{k}][r] = dacc;",
+            "    }"]
+
+    def _lane_rows(self, ms):
+        """Products of one matrix from data rows into the coordinates (one, or
+        a matrix product's backward ``X.T @ G``, one per column of ``G``) in
+        one walk of the rows: each row's inputs formed once, a piece over
+        every row beside the others' (the subexpressions they share, a row's
+        softmax, formed once), a piece over some rows under its guard; every
+        output element takes row k's term in turn, in registers where the
+        loop unrolls, as the plain version adds it."""
+        pr = self.products[ms[0]]
+        R, C = pr.rows, pr.cols
+        unroll = bool(_unroll(R))
+        accs = {m: ((f"a{m}", f"da{m}") if unroll else
+                    (f"cs.c[{self.slot[m]}]", f"cs.dc[{self.slot[m]}]")) for m in ms}
+        out = [f"    T a{m}[{R}], da{m}[{R}];" for m in ms] if unroll else []
+        out.append(f"    for (int k = 0; k < {C}; ++k) {{  // products {ms}: ({R} x {C}) u, "
+                   "u over data rows")
+        out += self._inline_products([n for m in ms for p, dp in zip(
+            self.products[m].vec.pieces, self.d_mv[m]) for n in (p.e, dp)], "      ")
+        em = self._emit(idx="k", leaf=self._data_leaf)
+        us, guarded = [], []
+        for m in ms:
+            pieces, tangents = self.products[m].vec.pieces, self.d_mv[m]
+            if len(pieces) == 1 and (pieces[0].a, pieces[0].b) == (0, C):
+                dp = tangents[0]
+                us.append((em.name(pieces[0].e), em.name(dp) if dp is not None else "(T)0"))
+                continue
+            guarded.append(f"      T u{m} = (T)0, du{m} = (T)0;")
+            for p, dp in zip(pieces, tangents):
+                pe = self._emit(idx="k", leaf=self._data_leaf)
+                v, dv = pe.name(p.e), pe.name(dp) if dp is not None else "(T)0"
+                guarded.append(f"      if (k >= {p.a} && k < {p.b}) {{  // {p.e.text()}")
+                guarded += ["        " + s for s in pe.lines]
+                guarded += [f"        u{m} = {v};", f"        du{m} = {dv};", "      }"]
+            us.append((f"u{m}", f"du{m}"))
+        out += ["      " + s for s in em.lines] + guarded
         out += ["      " + u for u in _unroll(R)]
         out += [f"      for (int r = 0; r < {R}; ++r) {{",
-                f"        const T a = {self._m(m, 'r', 'k')};",
-                f"        {acc}[r] = k == 0 ? a * u : {acc}[r] + a * u;",
-                f"        {dacc}[r] = k == 0 ? a * du : {dacc}[r] + a * du;",
-                "      }", "    }"]
-        if _unroll(R):
-            out += ["    #pragma unroll", f"    for (int r = 0; r < {R}; ++r) {{",
-                    f"      cs.c[{k}][r] = a{m}[r];", f"      cs.dc[{k}][r] = da{m}[r];", "    }"]
+                f"        const T a = {self._m(ms[0], 'r', 'k')};"]
+        for m, (v, dv) in zip(ms, us):
+            acc, dacc = accs[m]
+            out += [f"        {acc}[r] = k == 0 ? a * {v} : {acc}[r] + a * {v};",
+                    f"        {dacc}[r] = k == 0 ? a * {dv} : {dacc}[r] + a * {dv};"]
+        out += ["      }", "    }"]
+        if unroll:
+            for m in ms:
+                out += ["    #pragma unroll", f"    for (int r = 0; r < {R}; ++r) {{",
+                        f"      cs.c[{self.slot[m]}][r] = a{m}[r];",
+                        f"      cs.dc[{self.slot[m]}][r] = da{m}[r];", "    }"]
         return out
 
     def _fill_cpp(self):
@@ -1084,6 +1269,10 @@ class Lowered:
             "    for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);",
             "    return a;",
             "  }",
+        ]
+        if "max" in self.red_kind:
+            out += _BLOCK_MAX
+        out += [
             "  // every sum and product at one point, by the block: shm holds each",
             "  // product's input and output (shared_bytes); yw(j, y, w) gives",
             "  // coordinate j's point and velocity",
@@ -1095,6 +1284,8 @@ class Lowered:
         ]
         if self.reductions:
             out.append(f"    __shared__ T rows[{2 * len(self.reductions)}][32];")
+        if "max" in self.red_kind:
+            out.append(f"    __shared__ int irows[{len(self.reductions)}][32];")
         off = 0
         for kind, m in self.stages:
             if kind != "mv":
@@ -1104,14 +1295,14 @@ class Lowered:
                     f"    T* o{m} = shm + {off + 2 * pr.cols};",
                     f"    T* do{m} = shm + {off + 2 * pr.cols + pr.rows};"]
             off += 2 * (pr.cols + pr.rows)
-            if pr.space == "c":
+            if m in self.slot:
                 out += [f"    cs.c[{self.slot[m]}] = o{m};", f"    cs.dc[{self.slot[m]}] = do{m};"]
         out.append("    __syncthreads();  // every thread has read the last point's context")
         if self._reads(_FIRST, stages_only=True):
             out += _READ01
 
-        def leaf(op, m):
-            return f"{'d' if op == 'dmv' else ''}o{m}[i]"
+        def leaf(op, m, at):
+            return f"{'d' if op == 'dmv' else ''}o{m}[{at}]"
 
         def loop(pieces, tangents, body):
             lines = []
@@ -1127,6 +1318,16 @@ class Lowered:
             return lines
 
         for kind, s in self.stages:
+            if kind == "red" and self.red_kind[s] == "max":
+                out.append(f"    T part{s} = (T)(-INFINITY), dpart{s} = (T)0;  // max {s}")
+                out.append(f"    int ipart{s} = 0x7fffffff;")
+                out += loop(self.reductions[s], self.d_red[s], lambda v, dv, s=s: [
+                    f"if (max_wins({v}, p, part{s}, ipart{s})) {{",
+                    f"  part{s} = {v};", f"  dpart{s} = {dv};", f"  ipart{s} = p;", "}"])
+                out += [f"    block_max(part{s}, dpart{s}, ipart{s}, rows[{2 * s}], "
+                        f"rows[{2 * s + 1}], irows[{s}]);",
+                        f"    cs.s[{s}] = part{s};", f"    cs.ds[{s}] = dpart{s};"]
+                continue
             if kind == "red":
                 out.append(f"    T part{s} = (T)0, dpart{s} = (T)0;  // sum {s}")
                 out += loop(self.reductions[s], self.d_red[s],
@@ -1206,6 +1407,45 @@ def _unroll(n: int) -> List[str]:
     return ["#pragma unroll"] if n <= UNROLL else []
 
 
+_BLOCK_MAX = [
+    "  // a max's order: a larger value, a NaN over a number, the lower index at a",
+    "  // tie (a total order, so that every thread of a reduction takes one winner)",
+    "  __device__ __forceinline__ static bool max_wins(T a, int ia, T b, int ib) {",
+    "    if (a != a) return b == b || ia < ib;",
+    "    if (b != b) return false;",
+    "    return a > b || (a == b && ia < ib);",
+    "  }",
+    "  __device__ __forceinline__ static void max_step(T& v, T& dv, int& ix, int o) {",
+    "    const T ov = __shfl_xor_sync(0xffffffffu, v, o);",
+    "    const T odv = __shfl_xor_sync(0xffffffffu, dv, o);",
+    "    const int oi = __shfl_xor_sync(0xffffffffu, ix, o);",
+    "    if (max_wins(ov, oi, v, ix)) { v = ov; dv = odv; ix = oi; }",
+    "  }",
+    "  // a block max of (value, tangent, index): every thread returns the winner's",
+    "  // bits (a warp's xor butterfly, one partial per warp, the partials taken",
+    "  // alike in every warp)",
+    "  __device__ __forceinline__ static void block_max(T& v, T& dv, int& ix, T* row,",
+    "                                                  T* drow, int* irow) {",
+    "#pragma unroll",
+    "    for (int o = 16; o > 0; o >>= 1) max_step(v, dv, ix, o);",
+    "    if ((threadIdx.x & 31) == 0) {",
+    "      row[threadIdx.x >> 5] = v;",
+    "      drow[threadIdx.x >> 5] = dv;",
+    "      irow[threadIdx.x >> 5] = ix;",
+    "    }",
+    "    __syncthreads();",
+    "    const int l = threadIdx.x & 31;",
+    "    const bool has = l < (int)(blockDim.x >> 5);",
+    "    v = has ? row[l] : (T)(-INFINITY);",
+    "    dv = has ? drow[l] : (T)0;",
+    "    ix = has ? irow[l] : 0x7fffffff;",
+    "#pragma unroll",
+    "    for (int o = 16; o > 0; o >>= 1) max_step(v, dv, ix, o);",
+    "  }",
+]
+"""K6's block max (``UserPotential::fill``), beside its ``block_sum``."""
+
+
 _READ01 = ["    T y0, w0, y1, w1;", "    yw(0, y0, w0);",
            "    if (d > 1) yw(1, y1, w1); else { y1 = y0; w1 = w0; }"]
 """A point context's reads of coordinates 0 and 1."""
@@ -1271,17 +1511,17 @@ class _Emit:
     def __init__(self, b: Graph, idx: str = "i", leaf=None, trans=None):
         self.b, self.lines, self.names, self.read = b, [], {}, set()
         self.idx, self.leaf, self.trans = idx, leaf, trans or {}
+        self.pv: Dict[tuple, str] = {}
 
-    def prod(self, n: Node) -> str:
-        """A per-transition product's element at the index and its tangent,
+    def prod(self, m: int, at: str, tangent: bool) -> str:
+        """A per-transition product's element at row ``at`` and its tangent,
         read with one call of ``yw.prod``."""
-        m = n.attr
-        if f"t{m}" not in self.read:
-            self.read.add(f"t{m}")
+        if (m, at) not in self.pv:
+            name = self.pv[m, at] = f"pv{m}" if at == self.idx else f"pv{m}_{len(self.pv)}"
             o, rows, mc = self.trans[m]
-            self.lines += [f"T pv{m}, dpv{m};",
-                           f"yw.prod({o}, {rows}, {self.idx}, {mc}, pv{m}, dpv{m});"]
-        return f"{'d' if n.op == 'dmv' else ''}pv{m}"
+            self.lines += [f"T {name}, d{name};",
+                           f"yw.prod({o}, {rows}, {at}, {mc}, {name}, d{name});"]
+        return f"{'d' if tangent else ''}{self.pv[m, at]}"
 
     def far(self, n: Node) -> str:
         """A neighbour's or a fixed coordinate's position or velocity, read
@@ -1289,6 +1529,10 @@ class _Emit:
         if n.op in ("yo", "wo"):
             tag = f"{'p' if n.attr > 0 else 'm'}{abs(n.attr)}"
             j = f"{self.idx} {'+' if n.attr > 0 else '-'} {abs(n.attr)}"
+        elif n.op in ("ya", "wa"):
+            st, c = n.attr
+            tag = f"s{st}{'p' if c >= 0 else 'm'}{abs(c)}"
+            j = f"{st} * {self.idx} {'+' if c >= 0 else '-'} {abs(c)}"
         else:
             tag, j = f"k{n.attr}", str(n.attr)
         if tag not in self.read:
@@ -1310,8 +1554,17 @@ class _Emit:
             return leaf[op]
         if op == "prm":
             return f"prm[{n.attr} + {self.idx}]"
-        if op in ("mv", "dmv"):
-            return self.prod(n) if n.attr in self.trans else self.leaf(op, n.attr)
+        if op == "prmd":
+            return f"prm[{n.attr[0]} + {self.idx} / {n.attr[1]}]"
+        if op in _PRODUCT_LEAVES:
+            tangent = op[0] == "d"
+            if op in ("mv", "dmv"):
+                m, at = n.attr, self.idx
+            else:
+                m, st, c = n.attr
+                at = f"({self.idx} - {c}) / {st}" if c else f"{self.idx} / {st}"
+            return (self.prod(m, at, tangent) if m in self.trans
+                    else self.leaf("dmv" if tangent else "mv", m, at))
         if op == "prmk":
             return f"prm[{n.attr}]"
         if op == "red":
@@ -1337,6 +1590,10 @@ class _Emit:
             expr = f"({args[0]} != {args[0]} || {args[0]} < {args[1]}) ? {args[0]} : {args[1]}"
         elif op == "where":
             expr = f"{args[0]} ? {args[1]} : {args[2]}"
+        elif op == "sel":
+            expr = args[-1]
+            for k in range(n.attr - 2, -1, -1):
+                expr = f"{self.idx} % {n.attr} == {k} ? {args[k]} : ({expr})"
         elif op == "b2f":
             expr = f"{args[0]} ? (T)1 : (T)0"
         else:
@@ -1349,6 +1606,17 @@ class _Emit:
 
 def _sign(a):
     return torch.where(torch.isnan(a), a, torch.sign(a))
+
+
+def ordered_max(u: torch.Tensor, du: Optional[torch.Tensor]):
+    """The max over axis 0 of ``(n, B)`` values and the tangent ``du`` there,
+    both taken at the first index that attains it (the first NaN where there
+    is one), as the kernels' running max takes them in index order."""
+    top = torch.amax(u, 0, keepdim=True)
+    hit = (u == top) | (torch.isnan(u) & torch.isnan(top))
+    at = torch.argmax(hit.to(u.dtype), 0, keepdim=True)  # the first index hit
+    return (torch.gather(u, 0, at)[0],
+            None if du is None else torch.gather(du.expand_as(u), 0, at)[0])
 
 
 _TORCH = {
@@ -1400,8 +1668,14 @@ _COUPLING = {"outer", "cumsum", "cumprod", "flip", "roll", "sort", "gather", "in
 names them)."""
 
 
+_SOFTMAX = ("_log_softmax", "_softmax", "_log_softmax_backward_data",
+            "_softmax_backward_data")
+"""Split into ``amax``, ``sub``, ``exp``, ``sum`` and ``log`` beside the core
+decompositions, which keep them whole."""
+
+
 def _decompositions():
-    from torch._decomp import core_aten_decompositions
+    from torch._decomp import core_aten_decompositions, decomposition_table
 
     whole = _PRODUCTS | _COUPLING | {"matmul", "einsum", "linear"}
     table = dict(core_aten_decompositions())
@@ -1409,6 +1683,10 @@ def _decompositions():
         name = getattr(op, "name", lambda: str(op))()
         if name.split("::")[-1].split(".")[0] in whole:
             del table[op]
+    for name in _SOFTMAX:
+        op = getattr(torch.ops.aten, name).default
+        if op in decomposition_table:
+            table[op] = decomposition_table[op]
     return table
 
 
@@ -1449,6 +1727,7 @@ class _Interp:
         self.products: List[Product] = []
         self.mv_index: Dict[tuple, int] = {}
         self.stages: List[Tuple[str, int]] = []  # ("red", r) and ("mv", m), in trace order
+        self.red_kind: List[str] = []  # each reduction's "sum" or "max"
 
     # -- conversions ---------------------------------------------------------
     def refuse(self, node, why):
@@ -1574,23 +1853,53 @@ class _Interp:
         return Vec(n, _merge(pieces))
 
     # -- reductions ----------------------------------------------------------
-    def reduce(self, node, v):
+    def reduce(self, node, v, kind="sum"):
+        """The sum (``kind`` ``"sum"``) or the max (``"max"``) of a vector: a
+        stage, or for at most :data:`KMAX` chain values (a stack of a
+        mixture's components), a fold of them at lowering time."""
         if isinstance(v, Bad):
             return v
         if isinstance(v, Node):
             return v
         if v.n == 0:
-            return self.b.lit(0.0)
+            return self.b.lit(0.0 if kind == "sum" else -math.inf)
         pieces = tuple(v.pieces)
+        if v.n <= KMAX and all(pc.off is None for pc in pieces):
+            es = [pc.e for pc in pieces for _ in range(pc.a, pc.b)]
+            acc = es[0]
+            for e in es[1:]:
+                acc = self.combine(kind, acc, e)
+            return acc
         space = self.space_of(node, pieces, v.n)
         if isinstance(space, Bad):
             return space
-        key = tuple((pc.a, pc.b, pc.off, pc.e.id) for pc in pieces)
+        key = (kind,) + tuple((pc.a, pc.b, pc.off, pc.e.id) for pc in pieces)
         if key not in self.red_index:
             self.red_index[key] = len(self.reductions)
             self.stages.append(("red", len(self.reductions)))
             self.reductions.append(Vec(v.n, pieces))
+            self.red_kind.append(kind)
         return self.b.mk("red", attr=self.red_index[key])
+
+    def combine(self, kind, acc: Node, e: Node) -> Node:
+        """One step of a fold: ``acc + e``, or the max that keeps ``acc``
+        unless ``e`` is larger (or a NaN over a number), so that the first of
+        equal values gives the value and its tangent."""
+        b = self.b
+        if kind == "sum":
+            return b.mk("add", acc, e)
+        take = b.mk("or", b.mk("gt", e, acc), b.mk("and", b.mk("ne", e, e), b.mk("eq", acc, acc)))
+        return b.mk("where", take, e, acc)
+
+    def fold(self, node, kind, vecs):
+        """Vectors of one length combined position by position (a reduction
+        along a matrix's short axis)."""
+        acc = vecs[0]
+        for v in vecs[1:]:
+            acc = self.ew(node, kind, [acc, v], lambda a, e: self.combine(kind, a, e))
+            if isinstance(acc, Bad):
+                return acc
+        return acc
 
     def space_of(self, node, pieces, n):
         """The index space a sum or a product's input runs over: the one its
@@ -1624,9 +1933,10 @@ class _Interp:
         key = ("matrix", tuple(vals.shape), hashlib.sha256(vals.numpy().tobytes()).hexdigest())
         return self.hoist(base, key), colmajor
 
-    def product(self, node, M, u):
+    def product(self, node, M, u, place=False):
         """``M u`` for a constant ``(rows, cols)`` matrix and a vector of the
-        chain (or Bad)."""
+        chain (or Bad); ``place``: a data vector into other data rows, whose
+        rows a flattened matrix of products places at the coordinates."""
         if isinstance(u, Bad):
             return u
         if not isinstance(M, torch.Tensor) or M.dim() != 2:
@@ -1639,14 +1949,13 @@ class _Interp:
         u = self.as_vec(u, cols, node)
         if isinstance(u, Bad):
             return u
-        in_space = self.space_of(node, u.pieces, cols)
+        in_space = ("c" if not any(_leaves(pc.e) & _PRODUCT_LEAVES for pc in u.pieces)
+                    else self.space_of(node, u.pieces, cols))
         if isinstance(in_space, Bad):
             return in_space
         space = "c" if rows == self.d else rows
-        if space != "c" and in_space != "c":
-            return self.refuse(node, "a product of a data vector into other data rows; the "
-                               "kernels take products from the coordinates to data rows "
-                               "and back")
+        if space != "c" and in_space != "c" and not place:
+            return self._data_to_data(node)
         moff, colmajor = self.hoist_matrix(M)
         key = (moff, colmajor, rows, cols, tuple((pc.a, pc.b, pc.off, pc.e.id)
                                                  for pc in u.pieces))
@@ -1657,6 +1966,11 @@ class _Interp:
             self.products.append(Product(rows, cols, moff, colmajor, u, space, in_space))
         e = self.b.mk("mv", attr=self.mv_index[key])
         return Vec(rows, (Piece(0, rows, 0, e),))
+
+    def _data_to_data(self, node):
+        return self.refuse(node, "a product of a data vector into other data rows; the "
+                           "kernels take products from the coordinates to data rows "
+                           "and back")
 
     def _product(self, node, name, args, kwargs):
         """``mv``, ``mm``/``bmm`` of a constant matrix and a column (or a row
@@ -1674,6 +1988,15 @@ class _Interp:
             a, c = (args[0], args[1]) if name in ("mm", "bmm") else (args[1], args[2])
             sa, sc = _shape(node.args[0 if name in ("mm", "bmm") else 1]), _shape(
                 node.args[1 if name in ("mm", "bmm") else 2])
+            if name == "bmm" and sa[0] != 1:
+                return self._batch(node, a, c, sa, sc)
+            if isinstance(a, Mat) or isinstance(c, Mat):
+                out = self._mat_product(node, a, c)
+                if isinstance(out, (Bad, Pend)) or name == "mm":
+                    return out
+                if kwargs.get("beta", 1) != 1 or kwargs.get("alpha", 1) != 1:
+                    return self.refuse(node, "a scaled addmm of a matrix of the chain")
+                return self._matrix(node, "add", [args[0], out], {}, _shape(node))
             if name == "bmm":
                 if sa[0] != 1:
                     return self.refuse(node, f"a batch of {sa[0]} products")
@@ -1738,8 +2061,10 @@ class _Interp:
 
     def call(self, node, args, kwargs):
         name = _opname(node)
-        concrete = all(not isinstance(a, (Vec, Node, Bad)) for a in _flat(args)) and all(
-            not isinstance(a, (Vec, Node, Bad)) for a in _flat(list(kwargs.values())))
+        concrete = all(not isinstance(a, _TRACED) for a in _flat(args)) and all(
+            not isinstance(a, _TRACED) for a in _flat(list(kwargs.values())))
+        if name == "getitem" and not concrete:  # a value of max.dim's (values, indices)
+            return args[0][args[1]]
         if name in _LIKE:
             return self._like(node, name, args, kwargs)
         inplace = name.endswith("_") and not name.startswith("_")
@@ -1762,10 +2087,27 @@ class _Interp:
                                "from its own value, coordinates 0 and 1, sums, and "
                                "products of a constant matrix with a vector of the chain")
         shape = _shape(node)
-        if shape is not None and _nonunit(shape) > 1:
-            return self.refuse(node, f"a value of shape {shape} couples coordinates")
+        if name == "max" and len(args) > 1 and isinstance(args[1], (torch.Tensor,) + _TRACED):
+            name = "maximum"  # max.other: two values' elementwise max
+        if any(isinstance(a, (Mat, Pend)) for a in _flat(args)) or (
+                shape is not None and _nonunit(shape) > 1):
+            return self._matrix(node, name, args, kwargs, shape)
         if name in _PRODUCTS:
             return self._product(node, name, args, kwargs)
+        if name in _RESHAPE:
+            return self._reshape(node, name, args)
+        if name in ("sum", "mean", "amax", "max"):
+            return self._sum(node, name, args, kwargs)
+        if name in ("select", "slice", "slice_scatter", "select_scatter", "cat", "stack"):
+            return self._move(node, name, args)
+        out = self._elementwise(node, name, args, kwargs)
+        if out is NotImplemented:
+            return self.refuse(node, "an op outside the set the kernels evaluate")
+        return out
+
+    def _elementwise(self, node, name, args, kwargs):
+        """An elementwise op on vectors and scalars (NotImplemented for any
+        other op)."""
         b = self.b
         if name == "copy":  # aten.copy(self, src): src's values
             return args[1]
@@ -1777,8 +2119,6 @@ class _Interp:
             if dt is not None and dt.is_floating_point and _is_bool(v):
                 return self.ew(node, name, [v], lambda a: b.mk("b2f", a))
             return v
-        if name in _RESHAPE:
-            return self._reshape(node, name, args)
         if name in _ELEMENTWISE:
             op = _ELEMENTWISE[name]
             vals = list(args)
@@ -1792,11 +2132,7 @@ class _Interp:
             return self.ew(node, op, vals, lambda *e: b.mk(op, *e))
         if name in _COMPOUND:
             return self._compound(node, name, args, kwargs)
-        if name in ("sum", "mean"):
-            return self._sum(node, name, args, kwargs)
-        if name in ("select", "slice", "slice_scatter", "select_scatter", "cat", "stack"):
-            return self._move(node, name, args)
-        return self.refuse(node, "an op outside the set the kernels evaluate")
+        return NotImplemented
 
     def _like(self, node, name, args, kwargs):
         val = node.meta.get("val")
@@ -1815,13 +2151,28 @@ class _Interp:
             return self.refuse(node, "a fill value that depends on x")
         return torch.full(shape, fill, dtype=dtype, device=self.device)
 
-    def _reshape(self, node, name, args):
+    def _reshape(self, node, name, args, shape=None):
         """A view of a vector in any shape with at most one dimension past 1
-        (``unsqueeze``, ``permute``, the batch views of a product)."""
+        (``unsqueeze``, ``permute``, the batch views of a product); of a
+        vector as a matrix (rows, or strided columns), a broadcast into one;
+        of a matrix with its dimensions swapped, or flattened."""
         v = args[0]
-        shape = _shape(node)
-        if shape is None or _nonunit(shape) > 1:
+        shape = _shape(node) if shape is None else shape
+        if shape is None or _nonunit(shape) > 2:
             return self.refuse(node, f"a value of shape {shape} couples coordinates")
+        src = (_shape(node.args[0]) if hasattr(node.args[0], "meta")
+               else tuple(v.shape) if isinstance(v, torch.Tensor) else ())
+        if isinstance(v, (Mat, Pend)):
+            if _nonunit(shape) == 2:
+                flip = self._swaps(name, args, src, shape)
+                if flip is None:
+                    return self.refuse(node, f"a reshape of shape {src} to {shape}")
+                return v._replace(kfirst=v.kfirst != flip)
+            if math.prod(shape) == math.prod(src):
+                return self._flatten(node, v)
+            return self.refuse(node, f"a reshape of shape {src} to {shape}")
+        if _nonunit(shape) == 2:
+            return self._to_matrix(node, name, v, src, shape)
         if shape == ():
             return self.scalar(v, node)
         n = math.prod(shape)
@@ -1876,24 +2227,358 @@ class _Interp:
         return self.ew(node, name, vals, build)
 
     def _sum(self, node, name, args, kwargs):
+        """``sum``, ``mean``, ``amax`` and ``max`` (whole, or ``max.dim``'s
+        values; its indices are refused where read) over a vector's or a
+        matrix's dimensions."""
         v = args[0]
-        shape_in, shape = _shape(node.args[0]), _shape(node)
+        shape_in, shape = _shape(node.args[0]), _out_shape(node)
         if shape_in is None or shape is None:
             return self.refuse(node, "a sum of a value of unknown shape")
+        kind = "max" if name in ("amax", "max") else "sum"
+        dims = args[1] if len(args) > 1 else kwargs.get("dim", [])
+        dims = [dims] if isinstance(dims, int) else list(dims or [])
+        if isinstance(v, (Mat, Pend)):
+            out = self._mat_reduce(node, kind, v, shape_in, dims, shape)
+        else:
+            out = self._vec_reduce(node, kind, v, shape_in, shape)
+        if name == "mean" and not isinstance(out, Bad):
+            count = float(math.prod(shape_in) // max(1, math.prod(shape)))
+            out = self._elementwise(node, "div", [out, count], {})
+        if name == "max" and isinstance(node.meta.get("val"), (tuple, list)):
+            return (out, self.refuse(node, "the indices of a max"))
+        return out
+
+    def _vec_reduce(self, node, kind, v, shape_in, shape):
         n_in, n_out = math.prod(shape_in), math.prod(shape)
         if isinstance(v, torch.Tensor) and _nonunit(v.shape) > 1:
             return self.refuse(node, f"a value of shape {tuple(v.shape)} couples coordinates")
         if n_out == n_in:  # over dimensions of size 1
-            return self._reshape(node, "view", [v])
+            return self._reshape(node, "view", [v], shape)
         if n_out != 1:
             return self.refuse(node, f"a sum over part of a value of shape {shape_in}")
         vec = v.reshape(-1) if isinstance(v, torch.Tensor) else v
-        s = self.reduce(node, self.const_vec(vec) if isinstance(vec, torch.Tensor) else vec)
-        if name == "mean" and not isinstance(s, Bad):
-            s = self.b.mk("div", s, self.b.lit(float(n_in)))
+        s = self.reduce(node, self.const_vec(vec) if isinstance(vec, torch.Tensor) else vec,
+                        kind)
         if shape != () and not isinstance(s, Bad):
             return Vec(1, (Piece(0, 1, None, s),))
         return s
+
+    # -- values with a short axis (Mat) ----------------------------------------
+    def _matrix(self, node, name, args, kwargs, shape):
+        """An op on or into a value with two dimensions past 1."""
+        if shape is not None and _nonunit(shape) > 2:
+            return self.refuse(node, f"a value of shape {shape} couples coordinates")
+        pend = next((a for a in _flat(args) if isinstance(a, Pend)), None)
+        if pend is not None and name not in _RESHAPE | _IDENTITY:
+            return pend.err
+        if name in _PRODUCTS:
+            return self._product(node, name, args, kwargs)
+        dt = kwargs.get("dtype")
+        if name in _RESHAPE or (name in _IDENTITY and (dt is None or (
+                dt.is_floating_point and not _is_bool(args[0])))):
+            return self._reshape(node, name, args)  # a cast: the run's dtype throughout
+        if name in ("sum", "mean", "amax", "max"):
+            return self._sum(node, name, args, kwargs)
+        if name == "copy" or name in _IDENTITY or name in _ELEMENTWISE or name in _COMPOUND:
+            return self._mat_ew(node, name, args, kwargs, shape)
+        return self.refuse(node, "an op outside the set the kernels evaluate")
+
+    def _orient(self, node, shape):
+        """Whether a new matrix of ``shape`` unrolls its first dimension past 1
+        (the shorter one; the first at a tie), or Bad past :data:`KMAX`."""
+        a, c = [n for n in shape if n != 1]
+        if min(a, c) > KMAX:
+            return self.refuse(node, f"a value of shape {tuple(shape)} couples coordinates: "
+                               f"its shorter axis ({min(a, c)}) is past KMAX = {KMAX}, the "
+                               "most vectors a value's short axis unrolls into")
+        return a <= c
+
+    def column(self, t: torch.Tensor):
+        """A constant vector of a matrix's part: a scalar where its values
+        are equal, else one hoisted parameter piece (so that a flattened
+        matrix reads it through ``prmd``); a mask stays a mask."""
+        if t.dtype == torch.bool:
+            return t
+        vals = t.to(self.dtype)
+        if bool((vals == vals[0]).all()):
+            return vals[0]
+        key = ("col", hashlib.sha256(vals.detach().cpu().double().numpy().tobytes()).hexdigest())
+        prm = self.b.mk("prm", attr=self.hoist(t, key))
+        return Vec(t.shape[0], (Piece(0, t.shape[0], 0, prm),))
+
+    def _flip(self, node, m: Mat):
+        """The same matrix unrolled along its other axis, each element a chain
+        value (a read of a fixed coordinate, a sum)."""
+        n = m.vecs[0].n
+        if n > KMAX:
+            return self.refuse(node, f"a matrix read along its axis of {n}, past KMAX = {KMAX}")
+        vecs = []
+        for j in range(n):
+            es = [self.element(v, j, node) for v in m.vecs]
+            bad = next((e for e in es if isinstance(e, Bad)), None)
+            if bad:
+                return bad
+            vecs.append(Vec(len(es), _merge([Piece(k, k + 1, None, e) for k, e in enumerate(es)])))
+        return Mat(tuple(vecs), not m.kfirst)
+
+    def _components(self, node, v, sv, shape, kdim):
+        """The ``K`` parts of an operand ``v`` of shape ``sv`` of an op whose
+        result has ``shape``, unrolled along dimension ``kdim``."""
+        K = shape[kdim]
+        sv = (1,) * (len(shape) - len(sv)) + tuple(sv)
+        if isinstance(v, Mat):
+            if v.kfirst != (kdim == min(i for i, n in enumerate(shape) if n != 1)):
+                v = self._flip(node, v)
+                if isinstance(v, Bad):
+                    return [v] * K
+            return list(v.vecs)
+        if isinstance(v, torch.Tensor):
+            t = v.reshape(sv)
+            parts = [t.select(kdim, k if sv[kdim] != 1 else 0) for k in range(K)]
+            return [self.column(p.reshape(-1)) if p.numel() > 1 else p.reshape(())
+                    for p in parts]
+        if isinstance(v, Vec) and v.n > 1 and sv[kdim] == v.n:
+            return [self.element(v, k, node) for k in range(K)]
+        return [v] * K
+
+    def _mat_ew(self, node, name, args, kwargs, shape):
+        """An elementwise op with a matrix operand or result: the op on each of
+        the ``K`` parts."""
+        dims = [i for i, n in enumerate(shape) if n != 1]
+        first = next((a for a in args if isinstance(a, Mat)), None)
+        if first is not None:
+            kfirst = first.kfirst
+        else:
+            kfirst = self._orient(node, shape)
+            if isinstance(kfirst, Bad):
+                return kfirst
+        kdim = dims[0] if kfirst else dims[1]
+        K, n = shape[kdim], shape[dims[1] if kfirst else dims[0]]
+        parts = []
+        for j, a in enumerate(args):
+            sv = (_shape(node.args[j]) if j < len(node.args) and hasattr(node.args[j], "meta")
+                  else tuple(a.shape) if isinstance(a, torch.Tensor) else ())
+            parts.append(self._components(node, a, sv or (), shape, kdim))
+        vecs = []
+        for k in range(K):
+            comp = [p[k] for p in parts]
+            bad = next((c for c in comp if isinstance(c, Bad)), None)
+            if bad:
+                return bad
+            if all(not isinstance(c, _TRACED) for c in comp):
+                out = node.target(*comp, **kwargs)
+            else:
+                out = self._elementwise(node, name, comp, kwargs)
+            if isinstance(out, Bad):
+                return out
+            out = self.as_vec(out.reshape(-1) if isinstance(out, torch.Tensor) and out.dim()
+                              else out, n, node)
+            if isinstance(out, Bad):
+                return out
+            vecs.append(out)
+        return Mat(tuple(vecs), kfirst)
+
+    def _to_matrix(self, node, name, v, sv, shape):
+        """A vector or a scalar viewed or broadcast into a matrix."""
+        kfirst = self._orient(node, shape)
+        if isinstance(kfirst, Bad):
+            return kfirst
+        dims = [i for i, n in enumerate(shape) if n != 1]
+        kdim = dims[0] if kfirst else dims[1]
+        K, n = shape[kdim], shape[dims[1] if kfirst else dims[0]]
+        if isinstance(v, torch.Tensor):
+            v = v.reshape(-1) if v.numel() > 1 else v.reshape(())
+        if isinstance(v, Vec) and v.n == K * n and name not in ("expand",):
+            # a view of the vector: rows are slices, columns strided reads
+            if kfirst:
+                return Mat(tuple(_slice(v, k * n, (k + 1) * n) for k in range(K)), True)
+            cols = [self._restride(node, v, K, k, n) for k in range(K)]
+            bad = next((c for c in cols if isinstance(c, Bad)), None)
+            return bad or Mat(tuple(cols), False)
+        parts = self._components(node, v, sv, shape, kdim)
+        vecs = [self.as_vec(p, n, node) for p in parts]
+        bad = next((x for x in vecs if isinstance(x, Bad)), None)
+        return bad or Mat(tuple(vecs), kfirst)
+
+    def _restride(self, node, v: Vec, K: int, k: int, n: int):
+        """Column ``k`` of a vector viewed as an ``(n, K)`` matrix: position
+        ``r`` reads the vector's ``K r + k``; a lane expression of x reads
+        coordinate ``K r + k`` (``ya``), a parameter a hoisted column."""
+        if len(v.pieces) != 1 or v.pieces[0].off is None:
+            return self.refuse(node, "a view as an (n, K) matrix of a vector that is not one "
+                               "expression of x")
+        pc = v.pieces[0]
+        base = k + pc.off
+        params = torch.cat(self.params) if self.params else None
+
+        def leaf(x):
+            if x.op in ("y", "w", "yo", "wo"):
+                return self.b.mk(f"{x.op[0]}a", attr=(K, base + (x.attr or 0)))
+            if x.op in ("ya", "wa"):
+                return self.b.mk(x.op, attr=(x.attr[0] * K, x.attr[0] * base + x.attr[1]))
+            if x.op == "prm":
+                col = params[x.attr + base:x.attr + base + K * (n - 1) + 1:K]
+                return self.b.mk("prm", attr=self.hoist(col, ("col", x.attr + base, K, n)))
+            if x.op in _PRODUCT_LEAVES or x.op in ("prmd",):
+                raise _FarRead()
+            return None
+
+        try:
+            e = self.b.relabel(pc.e, leaf, {})
+        except _FarRead:
+            return self.refuse(node, "a strided read of a product's rows")
+        return Vec(n, (Piece(0, n, 0, e),))
+
+    def _flatten(self, node, m):
+        """A matrix flattened into a vector in row-major order: rows one after
+        another (``(K, n)``), or position ``K r + k`` column ``k``'s ``r``
+        (``(n, K)``, the generated code picking by ``i % K``)."""
+        if isinstance(m, Pend):
+            K, p = len(m.us), m.Ms[0].shape[0]
+            if K * p != self.d:
+                return m.err
+            ms = []
+            for M, u in zip(m.Ms, m.us):
+                out = self.product(node, M, u, place=True)
+                if isinstance(out, Bad):
+                    return out
+                ms.append(out.pieces[0].e.attr)
+            if m.kfirst:
+                return Vec(self.d, tuple(Piece(k * p, (k + 1) * p, 0, self.b.mk(
+                    "mvx", attr=(mk, 1, k * p))) for k, mk in enumerate(ms)))
+            return Vec(self.d, (Piece(0, self.d, 0, self.b.mk(
+                "sel", *(self.b.mk("mvx", attr=(mk, K, 0)) for mk in ms), attr=K)),))
+        K, n = len(m.vecs), m.vecs[0].n
+        if m.kfirst:
+            pieces = []
+            for k, v in enumerate(m.vecs):
+                for pc in v.pieces:
+                    if pc.e.fixed:
+                        return self.refuse(node, "a flattened (K, n) matrix of products that "
+                                           "are not a product's backward")
+                    pieces.append(Piece(pc.a + k * n, pc.b + k * n,
+                                        None if pc.off is None else pc.off - k * n, pc.e))
+            return Vec(K * n, _merge(pieces))
+        es = []
+        for k, v in enumerate(m.vecs):
+            if len(v.pieces) != 1:
+                return self.refuse(node, "a flattened (n, K) matrix whose columns are not "
+                                   "one expression each")
+            e = self._place(node, v.pieces[0], K, k)
+            if isinstance(e, Bad):
+                return e
+            es.append(e)
+        e = es[0] if all(x is es[0] for x in es) else self.b.mk("sel", *es, attr=K)
+        return Vec(K * n, (Piece(0, K * n, 0, e),))
+
+    def _place(self, node, pc: Piece, K: int, k: int):
+        """Column ``k``'s piece of a flattened ``(n, K)`` matrix read at
+        position ``K r + k``: its expression at that index.  A product's row
+        ``r`` becomes ``mvx``, the column's strided read of x the coordinate
+        itself, a parameter ``prmd``."""
+        if pc.off is None:
+            return pc.e
+        off = pc.off
+
+        def leaf(x):
+            if x.op in ("mv", "dmv"):
+                if off:
+                    raise _FarRead()
+                return self.b.mk(x.op + "x", attr=(x.attr, K, 0))
+            if x.op in ("ya", "wa") and x.attr == (K, k - K * off):
+                return self.b.mk(x.op[0])
+            if x.op == "prm":
+                return self.b.mk("prmd", attr=(x.attr + off, K))
+            if x.lane:
+                raise _FarRead()
+            return None
+
+        try:
+            return self.b.relabel(pc.e, leaf, {})
+        except _FarRead:
+            return self.refuse(node, "a flattened matrix whose rows read other than x's own "
+                               "coordinate, parameters and the products' rows")
+
+    def _swaps(self, name, args, src, shape):
+        """Whether a view of a matrix swaps its two dimensions past 1 (None: a
+        reshape that is not a view of the same two)."""
+        i0, i1 = [i for i, n in enumerate(src) if n != 1]
+        if name == "permute":
+            perm = [p % len(src) for p in args[1]]
+            return perm.index(i0) > perm.index(i1)
+        if name == "t":
+            return True
+        same = [n for n in src if n != 1] == [n for n in shape if n != 1]
+        return False if same else None
+
+    def _mat_reduce(self, node, kind, m, src, dims, shape):
+        if isinstance(m, Pend):
+            return m.err
+        i0, i1 = [i for i, n in enumerate(src) if n != 1]
+        dims = {d % len(src) for d in dims} if dims else set(range(len(src)))
+        kdim, ndim = (i0, i1) if m.kfirst else (i1, i0)
+        out = m
+        if kdim in dims:
+            out = self.fold(node, kind, list(m.vecs))
+        if ndim in dims:
+            if isinstance(out, Vec):  # both axes: one stage of the folded vector
+                return self._vec_reduce(node, kind, out, (out.n,), shape)
+            es = [self.reduce(node, v, kind) for v in m.vecs]
+            bad = next((e for e in es if isinstance(e, Bad)), None)
+            return bad or Vec(len(es), _merge([Piece(k, k + 1, None, e)
+                                               for k, e in enumerate(es)]))
+        return out
+
+    def _mat_product(self, node, a, c):
+        """``mm`` of a constant matrix and a matrix of the chain: a product
+        for each of its columns (or rows, on the left); the products of data
+        vectors into other rows pend until flattened into the coordinates."""
+        if isinstance(a, torch.Tensor) and isinstance(c, Mat):
+            M, m, kfirst = a, c, False      # M (r, p) @ U (p, K): U's columns
+        elif isinstance(c, torch.Tensor) and isinstance(a, Mat):
+            M, m, kfirst = c.t(), a, True   # U (K, p) @ M (p, s): M^T U's rows
+        else:
+            return self.refuse(node, "a product of two values of the chain")
+        if m.kfirst != kfirst:
+            m = self._flip(node, m)
+            if isinstance(m, Bad):
+                return m
+        data = M.shape[0] != self.d and any(
+            _leaves(pc.e) & _PRODUCT_LEAVES for v in m.vecs for pc in v.pieces)
+        if data:
+            return Pend((M,) * len(m.vecs), tuple(m.vecs), kfirst, self._data_to_data(node))
+        vecs = [self.product(node, M, u) for u in m.vecs]
+        bad = next((v for v in vecs if isinstance(v, Bad)), None)
+        return bad or Mat(tuple(vecs), kfirst)
+
+    def _batch(self, node, a, c, sa, sc):
+        """``bmm`` of a batch of ``K <=`` :data:`KMAX` products, one operand a
+        constant ``(K, r, p)`` tensor, the other ``K`` vectors of the chain:
+        the products side by side, a matrix unrolled along the batch."""
+        K = sa[0]
+        if K > KMAX:
+            return self.refuse(node, f"a batch of {K} products, past KMAX = {KMAX}")
+        const_left = isinstance(a, torch.Tensor)
+        if const_left == isinstance(c, torch.Tensor) or (sc[2] != 1 if const_left else
+                                                         sa[1] != 1):
+            return self.refuse(node, f"a batch of {K} products that are not each a "
+                               "constant matrix times a vector")
+        other = c if const_left else a
+        sv = sc if const_left else sa
+        if isinstance(other, Mat) and not other.kfirst:
+            other = self._flip(node, other)
+            if isinstance(other, Bad):
+                return other
+        us = list(other.vecs) if isinstance(other, Mat) else self._components(
+            node, other, sv, sv, 0)
+        Ms = [a[k] if const_left else c[k].t() for k in range(K)]
+        if Ms[0].shape[0] != self.d and any(
+                _leaves(pc.e) & _PRODUCT_LEAVES for u in us if isinstance(u, Vec)
+                for pc in u.pieces):
+            return Pend(tuple(Ms), tuple(us), True, self._data_to_data(node))
+        vecs = [self.product(node, M, u) for M, u in zip(Ms, us)]
+        bad = next((v for v in vecs if isinstance(v, Bad)), None)
+        return bad or Mat(tuple(vecs), True)
 
     def _move(self, node, name, args):
         b = self.b
@@ -1980,6 +2665,25 @@ class _Interp:
         return Vec(v.n, _merge(pieces))
 
 
+_TRACED = (Vec, Node, Bad, Mat, Pend)
+"""The interpreter's values that depend on x (or failed to)."""
+
+
+def _out_shape(node):
+    """A node's shape, or its first value's for an op of several (``max.dim``)."""
+    val = node.meta.get("val")
+    if isinstance(val, (tuple, list)) and val:
+        val = val[0]
+    return tuple(val.shape) if isinstance(val, torch.Tensor) else None
+
+
+def _slice(v: Vec, lo: int, hi: int) -> Vec:
+    """Positions ``[lo, hi)`` of a vector."""
+    return Vec(hi - lo, tuple(Piece(max(pc.a, lo) - lo, min(pc.b, hi) - lo,
+                                    None if pc.off is None else pc.off + lo, pc.e)
+                              for pc in v.pieces if pc.a < hi and pc.b > lo))
+
+
 def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Equal values, bit for bit (a NaN equals a NaN, -0 is not 0)."""
     if a.dtype == torch.bool:
@@ -2013,6 +2717,8 @@ def _is_bool(v) -> bool:
         return v.boolean
     if isinstance(v, Vec):
         return all(pc.e.boolean for pc in v.pieces)
+    if isinstance(v, Mat):
+        return all(_is_bool(x) for x in v.vecs)
     return isinstance(v, torch.Tensor) and v.dtype == torch.bool
 
 
@@ -2086,9 +2792,10 @@ def lower_gradient(grad_fn, kernel: str, d: int, dtype, device="cpu") -> Lowered
     used, todo = set(), [pc.e for pc in pieces]
     while todo:
         for x in _nodes(todo.pop()):
-            if x.op in ("red", "mv") and (x.op, x.attr) not in used:
-                used.add((x.op, x.attr))
-                todo += [pc.e for pc in stage_pieces(x.op, x.attr)]
+            st = ("mv", x.attr[0]) if x.op == "mvx" else (x.op, x.attr)
+            if x.op in ("red", "mv", "mvx") and st not in used:
+                used.add(st)
+                todo += [pc.e for pc in stage_pieces(*st)]
     order = [st for st in interp.stages if st in used]
     number = {old: new for new, old in enumerate(s for kind, s in order if kind == "red")}
     memo: dict = {}
@@ -2099,12 +2806,13 @@ def lower_gradient(grad_fn, kernel: str, d: int, dtype, device="cpu") -> Lowered
             memo))
 
     pieces = [renumber(pc) for pc in pieces]
-    reductions, red_space, products = [], [], {}
+    reductions, red_space, red_kind, products = [], [], [], {}
     for kind, s in order:
         if kind == "red":
             vec = interp.reductions[s]
             reductions.append([renumber(pc) for pc in vec.pieces])
             red_space.append(interp.space_of(None, vec.pieces, vec.n))
+            red_kind.append(interp.red_kind[s])
         else:
             pr = interp.products[s]
             products[s] = pr._replace(vec=Vec(pr.vec.n, tuple(renumber(pc)
@@ -2122,7 +2830,7 @@ def lower_gradient(grad_fn, kernel: str, d: int, dtype, device="cpu") -> Lowered
     params = (torch.cat(interp.params) if interp.params
               else torch.zeros(0, dtype=torch.float64))
     return Lowered(interp.b, kernel, d, dtype, pieces, stages, reductions, red_space,
-                   products, params)
+                   products, params, red_kind)
 
 
 def check_reads(pc: Piece, d: int) -> None:
@@ -2134,6 +2842,10 @@ def check_reads(pc: Piece, d: int) -> None:
         if x.op in ("yo", "wo") and (lo + x.attr < 0 or hi + x.attr > d):
             raise _refuse(f"positions [{pc.a}, {pc.b}) read coordinates "
                           f"[{lo + x.attr}, {hi + x.attr}), outside [0, {d})")
+        if x.op in ("ya", "wa") and (x.attr[0] * lo + x.attr[1] < 0
+                                     or x.attr[0] * (hi - 1) + x.attr[1] >= d):
+            raise _refuse(f"positions [{pc.a}, {pc.b}) read coordinates {x.attr[0]} i "
+                          f"{x.attr[1]:+d}, outside [0, {d})")
         if x.op in ("yk", "wk") and not 0 <= x.attr < d:
             raise _refuse(f"positions [{pc.a}, {pc.b}) read x[{x.attr}], outside [0, {d})")
 

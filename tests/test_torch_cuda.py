@@ -1033,3 +1033,127 @@ def test_host_skeleton_samples_on_the_cpu(dev, monkeypatch, name):
                                rtol=1e-12, atol=1e-12)
     for a, b in zip((mean, var), pt.pooled_moments(ref, sampler, 64)):
         torch.testing.assert_close(a, b.cpu(), rtol=1e-12, atol=1e-12)
+
+
+def _mixture_means(d):
+    mu = np.zeros((4, d))
+    mu[:, :2] = 2.0 * np.array([[1, 1], [1, -1], [-1, 1], [-1, -1]])
+    return mu
+
+
+def lse_target(name, dev):
+    """(d, U) of the log-sum-exp targets at card-test size: the 4-component
+    mixture (mu_k = (+-2, +-2, 0, ...)) as the broadcast ``x[None, :] - MU``
+    and as ``MU @ x``, a 3-class softmax regression (``X`` 200 x 6) as
+    ``log_softmax(X @ x.reshape(6, 3), 1)`` and ``X @ x.reshape(3, 6).T`` with
+    ``logsumexp``, and ``|x|^2 / 2 + logsumexp(x)`` at d = 100 (a max over
+    the coordinates: K6's block max across its four warps)."""
+    if name == "lse_coords":
+        return 100, lambda x: x @ x / 2 + torch.logsumexp(x, 0)
+    if name.startswith("mix"):
+        d = 30
+        M = torch.as_tensor(_mixture_means(d), device=dev)
+        half = (M * M).sum(1) / 2
+        if name == "mix_broadcast":
+            return d, lambda x: -torch.logsumexp(-((x[None, :] - M.to(x)) ** 2).sum(1) / 2, 0)
+        return d, lambda x: x @ x / 2 - torch.logsumexp(M.to(x) @ x - half.to(x), 0)
+    rs = np.random.default_rng(18)
+    n, p, k = 200, 6, 3
+    X = np.concatenate([np.ones((n, 1)), rs.normal(size=(n, p - 1))], 1)
+    Y = np.eye(k)[rs.integers(0, k, n)]
+    Xt, Yt = (torch.as_tensor(a, device=dev) for a in (X, Y))
+    if name == "softmax_pk":
+        return p * k, lambda x: (-(Yt.to(x) * torch.log_softmax(
+            Xt.to(x) @ x.reshape(p, k), 1)).sum() + x @ x / 200)
+
+    def U(x):
+        Z = Xt.to(x) @ x.reshape(k, p).T
+        return -(Yt.to(x) * Z).sum() + torch.logsumexp(Z, 1).sum() + x @ x / 200
+
+    return p * k, U
+
+
+LSE_KINDS = {"zigzag": pt.ZigZagAD, "sticky": None, "suzz": pt.SpeedUpZigZagAD,
+             "bps": pt.BPSAD, "boomerang": pt.BoomerangAD, "ecmc": pt.ForwardECMCAD}
+
+
+def _lse_matches_plain(dev, kind, target, horizon=False, B=128):
+    """Two K=16 chunks of the kernel and its plain version from one f64
+    state on a log-sum-exp target: K3/K5 and K4 bit for bit, K1 and K6 to
+    rtol 1e-9, integers equal; in horizon mode a target at the median clock
+    after the first chunk of a probe."""
+    d, U = lse_target(target, dev)
+    if kind == "sticky":
+        sampler = pt.StickyZigZagAD(d, U, np.ones(d))
+    elif kind in ("bps", "boomerang"):
+        sampler = LSE_KINDS[kind](d, U, refresh_rate=1.0)
+    else:
+        sampler = LSE_KINDS[kind](d, U)
+    rs = np.random.default_rng(d + len(target))
+    x0 = rs.normal(size=(B, d)) * (0.3 if kind == "sticky" else 1.0)
+    if kind in ("zigzag", "sticky", "suzz"):
+        v0 = rs.choice([-1.0, 1.0], size=(B, d))
+    else:
+        v0 = rs.normal(size=(B, d))
+        if kind != "boomerang":
+            v0 /= np.linalg.norm(v0, axis=1, keepdims=True)
+    state = sampler.init_state_batch(x0, v0, 5, torch.float64, dev)
+    cfg = driver.lowered_config(driver.chunk_config(sampler, 16, 40, 128), sampler, d,
+                                torch.float64, dev)
+    if cfg.kappa is not None:
+        cfg = cfg._replace(kappa=cfg.kappa.to(dev, torch.float64))
+    counts = torch.zeros(B, dtype=torch.int32, device=dev)
+    counts[::7] = 30
+    scalar = kind in k3.KINDS
+    run, plain = ((k3.run_chunk, k3.run_chunk_plain) if scalar
+                  else (k1.run_chunk, k1.run_chunk_plain))
+    sticky = kind == "sticky"
+    if horizon:
+        probe = driver.chunk_state(state, counts, sticky)
+        plain(11, probe, k1.empty_fill(16, d, B, torch.float64, dev, sticky), 0, cfg)
+        cfg = cfg._replace(t_target=k1.f32_target(float(torch.median(probe.fs[k1.F_T]))))
+    st_k = driver.chunk_state(state, counts, sticky)
+    st_p = k1.ChunkState(*(None if a is None else a.clone() for a in st_k))
+    fills = [k1.empty_fill(32, d, B, torch.float64, dev, sticky) for _ in range(2)]
+    name = (k3.launch_name(kind) + ("_horizon" if horizon else "") if scalar
+            else k1.launch_name(cfg))
+    n0 = build.LAUNCHES[name]
+    for it in range(2):
+        run(11 + it * 1000003, st_k, fills[0], 16 * it, cfg)
+        plain(11 + it * 1000003, st_p, fills[1], 16 * it, cfg)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == n0 + 2
+    bitwise = scalar or kind == "suzz"
+    for a, b in zip((*st_k, *fills[0]), (*st_p, *fills[1])):
+        if a is None:
+            continue
+        if not a.is_floating_point() or bitwise:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12, equal_nan=True)
+    assert int((fills[0].kind[:, 0] > 0).sum()) > B
+    return st_k, cfg
+
+
+@pytest.mark.parametrize("kind", list(LSE_KINDS))
+@pytest.mark.parametrize("target", ["mix_broadcast", "mix_matrix", "softmax_pk", "softmax_kp",
+                                    "lse_coords"])
+def test_log_sum_exp_targets_match_plain_f64(dev, kind, target):
+    """The 4-component mixture in both forms, the softmax regression in both
+    layouts and a log-sum-exp over the coordinates on every chunk kernel: K1
+    and K6 (the mixture's broadcast form on their chain moments, a max stage
+    and K6's block max on ``MU @ x`` and over the coordinates), K4 and K3/K5
+    bit for bit."""
+    _lse_matches_plain(dev, kind, target)
+
+
+@pytest.mark.parametrize("kind", ["zigzag", "bps"])
+def test_per_transition_route_in_horizon_mode_matches_plain_f64(dev, kind):
+    """K1 and K3 in horizon mode (K7) on the softmax regression, whose K
+    products of ``x.reshape(p, K)``'s columns they form once per transition:
+    against the plain version fed the pair along the transition; a share of
+    the lanes frozen at the target."""
+    st, cfg = _lse_matches_plain(dev, kind, "softmax_pk", horizon=True)
+    assert cfg.user.trans and cfg.per_transition is not None
+    froze = (st.fs[k1.F_T] >= cfg.t_target).double().mean()
+    assert 0.05 < float(froze) < 1.0

@@ -354,12 +354,16 @@ def test_dense_headers_hoist_the_data():
             assert "__shared__ T rows" not in text and "__syncthreads();" in text
         else:
             # Sums: X^T s and its tangent (K1 keeps two); the input, beta,
-            # only where X b is formed at the point (K4)
+            # only where X b is formed at the point (K4); the walk of X^T s
+            # over the rows: a row's s and tangent, D accumulators and theirs
             sums = 2 * D * (2 if kernel == "zigzag" else 1)
             assert lower.lane_fits(low)
-            assert low.lane_bytes() == 4 * (sums + (0 if trans else 2 * D))
+            assert low.lane_bytes() == 4 * (sums + (0 if trans else 2 * D) + 2 + 2 * D)
         if trans:  # sigma(X b) reads X b's row k at the point's time
             assert "yw.prod(0, 11, k, " in text
+        if kernel != "sticky":  # X^T s: one walk of the rows, s over all of them
+            walk = text[text.index("u over data rows"):]
+            assert "if (k >= " not in walk[:walk.index("return cs;")]
 
 
 def test_a_lane_context_past_its_room_takes_the_engine(monkeypatch):

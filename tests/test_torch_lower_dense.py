@@ -108,14 +108,14 @@ def test_logistic_zigzag_sample_skeleton_matches_jax(monkeypatch):
     skeleton_matches_jax(monkeypatch, logistic)
 
 
-def skeleton_matches_jax(monkeypatch, target):
-    """A ``ZigZagAD`` on ``target`` (a function of a numpy-like module):
-    the port's ``sample_skeleton`` through the lowered pair against JAX's
-    stream fills, as above."""
-    js, ts = pf.ZigZagAD(D, target(jnp)), pt.ZigZagAD(D, target(torch))
+def skeleton_matches_jax(monkeypatch, target, d=D):
+    """A ``ZigZagAD`` on ``target`` (a function of a numpy-like module) at
+    dimension ``d``: the port's ``sample_skeleton`` through the lowered pair
+    against JAX's stream fills, as above."""
+    js, ts = pf.ZigZagAD(d, target(jnp)), pt.ZigZagAD(d, target(torch))
     rs = np.random.default_rng(SEED)
-    x0 = rs.normal(size=(B_SK, D)) * 0.3
-    v0 = rs.choice([-1.0, 1.0], size=(B_SK, D))
+    x0 = rs.normal(size=(B_SK, d)) * 0.3
+    v0 = rs.choice([-1.0, 1.0], size=(B_SK, d))
 
     target = N_SK - 1
     keys = jax.random.split(jax.random.key(SEED), B_SK)
@@ -128,7 +128,7 @@ def skeleton_matches_jax(monkeypatch, target):
     counts = jnp.zeros((B_SK,), jnp.int32)
     fills = 0
     while not bool((np.asarray(counts) >= target).all()):
-        res = run(st, engine.empty_stream(T_CAP, D, jnp.float64, B_SK), counts)
+        res = run(st, engine.empty_stream(T_CAP, d, jnp.float64, B_SK), counts)
         st, counts = res.state, res.counts
         fills += 1
         stream = {f: np.asarray(getattr(res.stream, f)) for f in init._fields}
@@ -143,7 +143,7 @@ def skeleton_matches_jax(monkeypatch, target):
     plain_config = tdrv.chunk_config
 
     def lowered(sampler, K, cap, tile):
-        cfg = tdrv.lowered_config(plain_config(sampler, K, cap, tile), sampler, D,
+        cfg = tdrv.lowered_config(plain_config(sampler, K, cap, tile), sampler, d,
                                   torch.float64, "cpu")
         configs.append(cfg)
         return cfg
