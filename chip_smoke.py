@@ -10,7 +10,10 @@ Phases, one line each; any failure raises and exits non-zero:
    compaction) from
    ``pdmpflux_tpu_torch/csrc`` with nvcc, one compile per source, all started
    together; ptxas's registers, stack frame and spills of every kernel, and
-   no stack frame in any instantiation of K1;
+   no stack frame in any instantiation of K1.  Meanwhile a thread lowers
+   every gradient of phases 36-45 and then builds their user libraries
+   beside phases 2-35, one nvcc per core but the first core's, at the
+   lowest priority (``UserBuilds``); phase 36 waits for the last;
 2. K1 against its plain PyTorch version on the card, float64, from the same
    state: integer outputs equal, floats to rtol 1e-9 (atol 1e-12 for values
    near zero such as the Kahan compensation), at d=10/B=8192 (gauss),
@@ -161,8 +164,8 @@ Phases, one line each; any failure raises and exits non-zero:
    gauss, 1000 batches): each chain's RV within rtol 1e-4 of
    ``RV_diagnostic`` on a host copy of the same skeleton;
 22. the transition engine (``core/engine.py``, plain torch) on the card
-   against the engine on the CPU, float64, from one state and keys, 64
-   transitions (cut from 256, then 128) of 256 chains at d = 10 on the Gaussian, one
+   against the engine on the CPU, float64, from one state and keys, 32
+   transitions (cut from 256, then 128, then 64) of 256 chains at d = 10 on the Gaussian, one
    case per family:
    the Zig-Zag with scalar and vectorized bounds, ``grid_size=0`` and
    finite-difference tangents, the Sticky Zig-Zag with scalar and vectorized
@@ -177,9 +180,9 @@ Phases, one line each; any failure raises and exits non-zero:
    transition dispatches; the ops whose card output differs from the CPU's
    on bit-equal inputs, in the first transition whose floats part;
 23. the ``rhmc_gauss_d10`` deployment (``benchmarks/run_baselines.py:124-127``
-   at scale 1): RHMCAD(10, gauss, refresh_rate=1.0), 512 chains x 1024
-   points, float32, x0 = 0, v0 = 1; one warm call at 64 points, then three
-   timed calls,
+   at scale 1): RHMCAD(10, gauss, refresh_rate=1.0), 512 chains x 512
+   points (cut from 1024 for phase 45's time), float32, x0 = 0, v0 = 1; one
+   warm call at 64 points, then one timed call,
    the first counted and checked: complete, K2 launched, engine transitions
    counted, no chunk kernel, pooled moments in bench.py's bands,
    split-R-hat (``diagnostics.split_rhat``) < 1.02; the median call's events/s
@@ -199,9 +202,9 @@ Phases, one line each; any failure raises and exits non-zero:
    launches K1 and runs no engine transition; RHMC and a
    ``vectorized_bound=False`` Zig-Zag run the engine and no chunk kernel;
    ``"pallas"`` on RHMC raises; an untagged Zig-Zag (``lambda x: x``) is
-   lowered and takes K1 alone; a running sum (``cumsum``) raises
+   lowered and takes K1 alone; a running product (``cumprod``) raises
    ``LoweringError`` under ``"auto"`` before any launch, naming
-   ``aten.cumsum`` and ``backend="xla_stream"``, and runs under it; then an engine
+   ``aten.cumprod`` and ``backend="xla_stream"``, and runs under it; then an engine
    ``sample_streaming_stats`` of RHMC at B = 512 (T = 300, 4096 grid points,
    32 windows) with pooled moments in bench.py's bands;
 26. host accumulation at ``sticky_zigzag_d1000`` (128 chains x 2048 points, a
@@ -235,8 +238,9 @@ Phases, one line each; any failure raises and exits non-zero:
    data equal to the skeleton's points where matplotlib is installed (the
    line says which);
 32. ``sample_skeleton_gspmd`` of ``BPS(10_000, grad_gauss, refresh_rate=0.5)``
-   and ``ZigZag(10_000, grad_gauss)``, 32 chains x 64 events (256 before
-   phases 33-35 came, 128 before phase 44, cut for the script's time), float64,
+   and ``ZigZag(10_000, grad_gauss)``, 32 chains x 32 events (256 before
+   phases 33-35 came, 128 before phase 44, 64 before phase 45, cut for the
+   script's time), float64,
    x0 = 0, v0 = 1, seed 0 (the transition engine and K2, as JAX's GSPMD
    path runs no Pallas kernel): without a group, then on a one-process NCCL
    group's mesh whose coordinate group is made a one-part ``ShardedDims``
@@ -246,7 +250,8 @@ Phases, one line each; any failure raises and exits non-zero:
    with a dim axis of 2 over two processes on the one card, which gloo
    joins (NCCL takes one rank per device): each process's block equal to
    the dim-1 run at rtol 1e-9 (integers equal); every call's time.  The
-   two processes run this file with ``--gspmd-worker PORT RANK OUTDIR``;
+   two processes run this file with ``--gspmd-worker PORT RANK OUTDIR``,
+   beside phase 33 (which times nothing), and are checked after it (32b);
 33. every chunk kernel against its plain version in f64 on each device tag
    added for the JAX package's test potentials (``cauchy``, ``ridged``,
    ``funnel``, ``neal_funnel``) and on ``aniso`` where K1, K6 and K4 took
@@ -256,8 +261,7 @@ Phases, one line each; any failure raises and exits non-zero:
    d = 10 and in place at d = 3700, K3 (BPS, the Boomerang) and K5 at
    d = 10, and a horizon case per kernel on a funnel; K1 and K6 to ``RTOL``,
    K4 and K3/K5 bit for bit (a part in a math function of ``ridged`` or
-   ``neal_funnel`` printed and held to ``RTOL``); then every user library
-   of phases 36-44 is built, all nvcc at once;
+   ``neal_funnel`` printed and held to ``RTOL``);
 34. ``suzz_cauchy_d10``: SpeedUpZigZagAD(10, cauchy), 512 chains x 2048
    points, float32, x0 = 0, v0 = 1 (``suzz_gauss_d10``'s shape on
    ``tests/test_integration.py:91``'s heavy-tailed target); one warm call,
@@ -268,7 +272,8 @@ Phases, one line each; any failure raises and exits non-zero:
 35. ``zigzag_neal_funnel_d10``: ZigZagAD(10, neal_funnel), 8192 chains x
    2048 points, float32, x0 = 0, v0 = 1 (the flagship's shape on Neal's
    funnel); five timed calls on the kernels, then one call of each route at
-   1024 points (cut from 2048 for phase 44's time), the kernels and the
+   512 points (cut from 2048 for phase 44's time, from 1024 for 45's), the
+   kernels and the
    transition engine (``backend="xla_stream"``): x[0]'s pooled means within
    0.15 and variances within 10% of each other and the engine's time over
    the kernels', the truth (0, 9) printed; (35b) as 34b for K1;
@@ -305,15 +310,16 @@ Phases, one line each; any failure raises and exits non-zero:
    (``sum((x[1:] - x[0])**2)``, a sum that reads coordinate 0 in every warp)
    against its plain version in f64 to ``RTOL``; then a dense ``A @ x`` (a
    seeded 10 x 10 SPD matrix) takes K1 and K2 (512 chains x 256 points),
-   and a running sum (``cumsum``) raises ``LoweringError`` under ``"auto"``
+   and a running product (``cumprod``) raises ``LoweringError`` under ``"auto"``
    before any build or launch, naming the aten op and
    ``backend="xla_stream"``, and runs on the engine there;
 39. products with a constant matrix at every point: ``zigzag_corr_gauss_d10``
    (``ZigZagAD(10, 0.5 x P x)``, ``P`` the inverse of 0.9^|i-j|, the
    flagship's shape) and ``bps_corr_gauss_d10`` (BPSAD, refresh 0.5, at
    ``bps_anisotropic_gauss_d10``'s shape): each kernel against its plain
-   version in f64 (one K=32 launch at the deployment's shape from a random
-   state; K3 bit for bit, K1 to ``RTOL``), the route (its kernel and K2, no
+   version in f64 (one launch of 32 transitions at the
+   deployment's shape from a random state; K3 bit for bit, K1 to ``RTOL``),
+   the route (its kernel and K2, no
    engine chunk, no ``LoweringError``) and five timed warm calls, the gate
    on the second half of each chain (|mean| < 0.1, variances within 10% of
    1, lag-one correlations within 0.05 of 0.9), one f32 launch timed (the
@@ -383,8 +389,34 @@ Phases, one line each; any failure raises and exits non-zero:
    route ``"auto"`` did not take; one f32 launch each of K6, K4 and K5 on
    the mixture, and of K1 on ``|x|^2 / 2 + logsumexp(x)`` at d = 1000 (a max
    over the coordinates: K1 in point mode) beside the tagged Gaussian at
-   that shape.  The script prints its clock after each group of phases,
-   and phases 22 and 33 their own seconds.
+   that shape;
+45. running sums, flips and periodic shifts (``cumsum``, ``flip``,
+   ``roll``): every kernel (K1, K6, K4, K3 BPS and Boomerang, K5) against
+   its plain version in f64 (64 chains, one launch of 4 transitions, K4's
+   of 32; K3/K5 and K4 bit for bit, K1 and K6 within 1e-12), each taking
+   its kernel under ``"auto"``, on the local level model of Durbin &
+   Koopman in non-centred form (``sqrt(q) cumsum(z)``, q = 1469.1 / 15099,
+   ``y`` drawn from the model; a prefix and a suffix running sum) and
+   Poisson counts on a random-walk log-intensity (a suffix running sum of
+   an ``exp``), both at d = 100, and the phi^4 action of Albergo et al. on
+   an 8 x 8 periodic lattice (``torch.roll`` along both axes), and the
+   local level at d = 1000 on K1, K6, K3 (BPS) and K5 (the timed cells'
+   shape, where K1's lanes and K3's warp split the scans into longer
+   runs), K1 and K3 also in horizon mode on
+   the local level; then
+   ``zigzag_local_level_d1000`` and ``bps_local_level_d1000`` (128 chains x
+   2048 points from exact posterior draws: every coordinate's pooled mean
+   within 5 / sqrt(B) sd and variance within 5 sqrt(2 / (B - 1)) of the
+   exact Gaussian posterior's) and ``zigzag_phi4_l8`` and ``bps_phi4_l8``
+   (1024 chains x 2048 points from x0 = 0: <phi^2> and <phi^4> on each
+   chain's second half within 5 combined batch-mean errors of each other
+   and of one engine call, ``backend="xla_stream"``, 256 chains x 512
+   points, timed), each one call under ``"auto"`` (its kernel and K2, no
+   engine chunk) with an f32 launch and its bound; one f32 launch each of
+   K6 and K5 on the local level at d = 1000 and of K4 at d = 100 from
+   exact posterior draws.  The script prints its
+   clock after each group of phases, and phases 22 and 33 their own
+   seconds.
 
 Then one JSON line of per-kernel results (launches counted in the timed run
 of each kernel's path: phase 4 for K1 and K2, phase 7 for K6, phase 10 for
@@ -398,11 +430,11 @@ paths, phase 30 for the entries of K1 and K2 named after the profiled
 flagship, phase 32 (dim 1) for K2's entry named after the gspmd
 deployment, phases 34 and 35 for the entries of K4, K1 and K2 named after
 their deployments, 35 (the engine route) for K2's entry named
-``engine:zigzag_neal_funnel_d10_n1024`` (its 1024-point run), phases
-36-44 for the entries ``<kernel>[user:<path>]`` of each generated potential's path (and K2's on
+``engine:zigzag_neal_funnel_d10_n512`` (its 512-point run), phases
+36-45 for the entries ``<kernel>[user:<path>]`` of each generated potential's path (and K2's on
 phase 36's two paths, timed at their shapes in phase 4b); max_abs_err the largest of the kernel's comparisons
 with its plain version, f64 and f32; the bound of each timed launch computed
-from its shape and this run's data; phases 39-43's entries carry
+from its shape and this run's data; phases 39-45's entries carry
 ``plain_of``: their plain time is the f64 parity launch's, their ``ms`` an
 f32 launch's), the card's name and power limit, and the status line.
 """
@@ -417,9 +449,11 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
+from functools import cache
 from pathlib import Path
 
 import numpy as np
@@ -476,13 +510,14 @@ HOST_BUDGET = 1 << 30     # 26b: PDMPFLUX_DEVICE_BYTES, below the sticky skeleto
 TRACE_SPAN = "flagship_sample_skeleton"  # phase 30's annotate span
 # K2's kernels by name in a trace: the four of csrc/compact.cu
 K2_KERNELS = ("count_kernel", "scan_kernel", "copy_kernel", "tail_kernel")
-GSPMD = (10_000, 32, 64)   # phase 32: d, chains, events (cut from 256 for 33-35's time,
-                           # from 128 for 44's)
+GSPMD = (10_000, 32, 32)   # phase 32: d, chains, events (cut from 256 for 33-35's time,
+                           # from 128 for 44's, from 64 for 45's)
 GSPMD_RTOL = 1e-9          # phase 32: dim 2 against dim 1
 SUZZ_CAUCHY_D10 = (10, 512, 2048)  # phase 34: d, chains, points: suzz_cauchy_d10
 NEAL_D10 = (10, 8192, 2048)        # phase 35: d, chains, points: zigzag_neal_funnel_d10
-NEAL_ROUTES = 1024                 # phase 35: points of the two routes' comparison (the
-                                   # engine route cut from 2048 for phase 44's time)
+NEAL_ROUTES = 512                  # phase 35: points of the two routes' comparison (the
+                                   # engine route cut from 2048 for phase 44's time, from
+                                   # 1024 for 45's)
 TAG_CALLS = 5                      # timed warm calls of each of the two
 CAUCHY_SAMPLES = 1000              # phase 34: equal-time samples per chain for the gate
 
@@ -596,10 +631,11 @@ def user_cost(low):
     forms its stages at every point (``low.point``: K3/K5 and K4 always, K1
     and K6 past the chain moments), each stage formed there: each summand's
     and each product input's value and tangent per element, and each
-    product's ``2 rows cols`` operations, doubled for the tangent; and per
-    transition each product formed once per transition (``low.trans``):
-    per row and column its input's value and tangent and the two products
-    and adds."""
+    product's ``2 rows cols`` operations, doubled for the tangent (a
+    running sum's two adds per element); and per transition each product
+    formed once per transition (``low.trans``): per row and column its
+    input's value and tangent and the two products and adds (a running
+    sum's per element)."""
     def ops(*roots):
         seen, n = set(), 0
         for r in roots:
@@ -615,8 +651,8 @@ def user_cost(low):
     point = trans = 0
     for m in low.trans:
         pr = low.products[m]
-        trans += pr.rows * sum((ops(p.e, dp) + 4) * (p.b - p.a)
-                               for p, dp in zip(pr.vec.pieces, low.d_mv[m]))
+        trans += (1 if pr.scan else pr.rows) * sum((ops(p.e, dp) + 4) * (p.b - p.a)
+                                                   for p, dp in zip(pr.vec.pieces, low.d_mv[m]))
     if low.point:
         for kind, s in low.stages:
             if kind == "mv" and s in low.toff:
@@ -625,7 +661,8 @@ def user_cost(low):
                                 (low.products[s].vec.pieces, low.d_mv[s]))
             point += sum((ops(p.e, dp) + 2) * (p.b - p.a) for p, dp in zip(pieces, tangents))
             if kind == "mv":
-                point += 4 * low.products[s].rows * low.products[s].cols
+                pr = low.products[s]
+                point += 2 * pr.rows if pr.scan else 4 * pr.rows * pr.cols
     return max(coord, 0.0), point, trans
 
 
@@ -2580,8 +2617,8 @@ def phase_checkpoints(card_name, rate):
 # card, with K2 compacting every fill
 # ---------------------------------------------------------------------------
 
-ENGINE_AGREE = (256, 10, 64)   # phase 22: chains, d, transitions per family (cut from 256
-                               # for 43's time, from 128 for 44's)
+ENGINE_AGREE = (256, 10, 32)   # phase 22: chains, d, transitions per family (cut from 256
+                               # for 43's time, from 128 for 44's, from 64 for 45's)
 ENGINE_SHARE = 0.99            # phase 22: chains that must take every decision alike
 ENGINE_RTOL = {"zigzag_fd": 1e-6, "ecmc_normal": 1e-6}  # phase 22: else 1e-9
 ENGINE_FAMILIES = {            # phase 22: one case per family, f64 on the Gaussian
@@ -2600,7 +2637,8 @@ ENGINE_FAMILIES = {            # phase 22: one case per family, f64 on the Gauss
     "ecmc_normal": lambda d: pt.ForwardECMCAD(d, pt.potentials.gauss, normal=True, ran_p=True),
     "rhmc": lambda d: pt.RHMCAD(d, pt.potentials.gauss),
 }
-RHMC_D10 = (10, 512, 1024, 1.0)  # d, chains, points, refresh: rhmc_gauss_d10
+RHMC_D10 = (10, 512, 512, 1.0)   # d, chains, points (cut from 1024 for phase 45's
+                                 # time), refresh: rhmc_gauss_d10
 RHMC_CALLS = 1                   # timed warm calls of the RHMC path (3 before phase 33)
 RHMC_HORIZON_T = 200.0           # its time-horizon call (~200 events per chain)
 BANANA_D10 = (10, 512, 1024)     # d, chains, points (cut from 4096, and from 2048 for phase
@@ -2969,8 +3007,8 @@ def engine_split(wall, k2_n, k2_ms, eng_ms):
 
 def phase_rhmc(card_name):
     """Phase 23: ``rhmc_gauss_d10`` (``benchmarks/run_baselines.py:124-127``
-    at scale 1): RHMCAD(10, gauss, refresh_rate=1.0), 512 chains x 1024
-    points, float32, x0 = 0, v0 = 1; one warm call (64 points),
+    at scale 1): RHMCAD(10, gauss, refresh_rate=1.0), 512 chains x 512
+    points (cut from 1024), float32, x0 = 0, v0 = 1; one warm call (64 points),
     ``RHMC_CALLS`` timed calls, the first counted and checked (complete, K2 launched, engine
     transitions counted, no chunk kernel, pooled moments in bench.py's bands,
     split-R-hat < 1.02); the median call's split; K2 checked on this path's
@@ -3072,9 +3110,9 @@ def phase_routing(card_name):
     launches K1 and runs no engine transition; RHMC and a
     ``vectorized_bound=False`` Zig-Zag run the engine (and no chunk kernel);
     ``"pallas"`` on RHMC raises; an untagged Zig-Zag (``lambda x: x``) is
-    lowered and takes K1 alone; a running sum (``cumsum``) raises
+    lowered and takes K1 alone; a running product (``cumprod``) raises
     ``LoweringError`` under ``"auto"`` before any launch, naming
-    ``aten.cumsum`` and ``backend="xla_stream"``, and runs under it.  Then an engine
+    ``aten.cumprod`` and ``backend="xla_stream"``, and runs under it.  Then an engine
     ``sample_streaming_stats`` of RHMC at B = 512, pooled moments in bench.py's
     bands."""
     d, n_sk = 10, 256
@@ -3117,22 +3155,22 @@ def phase_routing(card_name):
                              f"{launches}, {tr} engine transitions")
     texts.append(f"untagged ZigZag(lambda x: x): lowered, {launches['zigzag_chunk']} K1 "
                  "launches, 0 engine transitions")
-    refused = pt.ZigZag(d, running_sum)
+    refused = pt.ZigZag(d, running_product)
     build.reset_launches()
     try:
         pt.sample_skeleton(refused, n_sk, x0, v0, **kw)
-        raise AssertionError("phase 25: a running sum ran under backend='auto'")
+        raise AssertionError("phase 25: a running product ran under backend='auto'")
     except lower.LoweringError as e:
-        if "backend='xla_stream'" not in str(e) or "aten.cumsum" not in str(e):
+        if "backend='xla_stream'" not in str(e) or "aten.cumprod" not in str(e):
             raise
         if any(build.LAUNCHES.values()):
             raise AssertionError(f"phase 25: the refusal came after a launch: "
                                  f"{dict(build.LAUNCHES)}") from e
     launches, tr = counted(refused, backend="xla_stream")
     if tr < 1 or launches["compact_rows"] < 1:
-        raise AssertionError(f"phase 25: cumsum under xla_stream: {launches}, {tr}")
-    texts.append(f"ZigZag(lambda x: torch.cumsum(x, 0)): 'auto' raises LoweringError naming "
-                 f"aten.cumsum and backend='xla_stream' before any launch; 'xla_stream' ran "
+        raise AssertionError(f"phase 25: cumprod under xla_stream: {launches}, {tr}")
+    texts.append(f"ZigZag(x + 0.1 cumprod(tanh(x))): 'auto' raises LoweringError naming "
+                 f"aten.cumprod and backend='xla_stream' before any launch; 'xla_stream' ran "
                  f"{tr} engine transitions")
     B, d, T, n_samples, n_batches = ROUTE_STREAM
     sampler = pt.RHMCAD(d, pt.potentials.gauss)
@@ -3583,10 +3621,10 @@ def phase_gspmd(card_name):
     """Phase 32: ``sample_skeleton_gspmd`` of the large-d deployment
     (``GSPMD``) for BPS and Zig-Zag: without a group; in a one-process NCCL
     group whose mesh reduces through a one-part ``ShardedDims`` (dim 1, its
-    collectives through NCCL; bit for bit the run without a group); over two gloo
-    processes on the card (dim 2, each block equal to the dim-1 run at
-    ``GSPMD_RTOL``).  Returns the ``k2_paths`` entry of the Zig-Zag's dim-1
-    run (K2 checked and timed on its first fill)."""
+    collectives through NCCL; bit for bit the run without a group); then
+    starts :func:`gspmd_dim2`.  Returns the ``k2_paths`` entry of the
+    Zig-Zag's dim-1 run (K2 checked and timed on its first fill) and dim 2's
+    ``finish``."""
     d, B, n = GSPMD
     samplers = gspmd_samplers()
     par = pt.parallel
@@ -3638,64 +3676,81 @@ def phase_gspmd(card_name):
     finally:
         torch.distributed.destroy_process_group()
     del plain
-    k2_entry = engine_k2_check("32 K2 on the gspmd fill", first[0])
+    err, ms, plain_ms, b = engine_k2_check("32 K2 on the gspmd fill", first[0])
     del first
-    # two processes on the one card over gloo, each a slice of the coordinates
+    trans = {name: int(run.transitions) for name, run in runs.items()}
+    print(f"phase 32 sample_skeleton_gspmd: BPS({d}, grad_gauss, refresh_rate=0.5) and "
+          f"ZigZag({d}, grad_gauss), B={B}, {n} events, f64, x0=0, v0=1, seed 0; "
+          f"transitions {trans}; dim 1 (one NCCL "
+          f"part) bit for bit the run without a group; walls (s): "
+          + ", ".join(f"{k} {w:.3f}" for k, w in walls.items())
+          + f"; K2 on the Zig-Zag's first fill bit for bit its plain version, {ms:.4f} ms "
+          f"(plain {plain_ms:.4f} ms, bound {bound_text(b)}), {k2_n} launches in the dim-1 "
+          f"call ({card_name})", flush=True)
+    return (k2_n, err, ms, plain_ms, b), gspmd_dim2(card_name, runs)
+
+
+def gspmd_dim2(card_name, runs):
+    """Phase 32b: two processes on the one card over gloo, each a slice of
+    the coordinates, each block held to the dim-1 ``runs`` at
+    ``GSPMD_RTOL``.  Starts the processes and returns ``finish(failed)``,
+    which waits for them, checks and prints (``failed``: kills them
+    instead), so that phase 33 runs meanwhile: it times nothing, and the
+    two processes' walls are a correctness run's, not a speed one's."""
+    d = GSPMD[0]
     out = tempfile.mkdtemp(prefix="pdmp_gspmd_")
-    try:
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gspmd-worker",
-                                   str(port), str(r), out], stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gspmd-worker",
+                               str(port), str(r), out], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+
+    def finish(failed=False):
         try:
+            if failed:
+                return
             logs = [p.communicate(timeout=600)[0] for p in procs]
+            procs_s = time.perf_counter() - t0
+            if [p.returncode for p in procs] != [0, 0]:
+                raise AssertionError("32: a dim-2 process failed:\n" + "\n".join(logs))
+            meta = []
+            for r in range(2):
+                with open(os.path.join(out, f"rank{r}.json")) as f:
+                    meta.append(json.load(f))
+            errs, walls = {}, {}
+            for name, run in runs.items():
+                errs[name] = [0.0, 0.0]
+                for r in range(2):
+                    cols = meta[r]["cols"]
+                    if cols != [r * d // 2, (r + 1) * d // 2]:
+                        raise AssertionError(f"32: rank {r} holds {cols}")
+                    for rec, tag in ((run.skeleton, "skel"), (run.state, "state")):
+                        e = gspmd_block_err(name, rec, tag, out, r, cols)
+                        errs[name] = [max(a, b) for a, b in zip(errs[name], e)]
+                    tr = int(np.load(os.path.join(out, f"{name}.transitions.rank{r}.npy")))
+                    if tr != int(run.transitions):
+                        raise AssertionError(f"32 {name}: dim 2 ran {tr} transitions, dim 1 "
+                                             f"{int(run.transitions)}")
+                for r in range(2):
+                    walls[f"{name} rank {r}"] = meta[r]["walls"][name]
+            print(f"phase 32b sample_skeleton_gspmd dim 2 over two gloo processes on the card "
+                  f"(host-staged collectives: a correctness run, not a speed one, beside phase "
+                  f"33) equal to dim 1 at rtol {GSPMD_RTOL}: largest absolute, and relative "
+                  "where |dim 1| > 1e-6, differences "
+                  + ", ".join(f"{k} {a:.3e}, {r:.3e}" for k, (a, r) in errs.items())
+                  + "; walls (s): " + ", ".join(f"{k} {w:.3f}" for k, w in walls.items())
+                  + f"; the two processes {procs_s:.1f} s with start-up ({card_name})",
+                  flush=True)
         finally:
             for p in procs:
                 if p.poll() is None:
                     p.kill()
                     p.communicate()
-        procs_s = time.perf_counter() - t0
-        if [p.returncode for p in procs] != [0, 0]:
-            raise AssertionError("32: a dim-2 process failed:\n" + "\n".join(logs))
-        meta = []
-        for r in range(2):
-            with open(os.path.join(out, f"rank{r}.json")) as f:
-                meta.append(json.load(f))
-        errs = {}
-        for name, run in runs.items():
-            errs[name] = [0.0, 0.0]
-            for r in range(2):
-                cols = meta[r]["cols"]
-                if cols != [r * d // 2, (r + 1) * d // 2]:
-                    raise AssertionError(f"32: rank {r} holds {cols}")
-                for rec, tag in ((run.skeleton, "skel"), (run.state, "state")):
-                    e = gspmd_block_err(name, rec, tag, out, r, cols)
-                    errs[name] = [max(a, b) for a, b in zip(errs[name], e)]
-                tr = int(np.load(os.path.join(out, f"{name}.transitions.rank{r}.npy")))
-                if tr != int(run.transitions):
-                    raise AssertionError(f"32 {name}: dim 2 ran {tr} transitions, dim 1 "
-                                         f"{int(run.transitions)}")
-            for r in range(2):
-                walls[f"{name} dim 2 rank {r}"] = meta[r]["walls"][name]
-    finally:
-        shutil.rmtree(out, ignore_errors=True)
-    trans = {name: int(run.transitions) for name, run in runs.items()}
-    err, ms, plain_ms, b = k2_entry
-    print(f"phase 32 sample_skeleton_gspmd: BPS({d}, grad_gauss, refresh_rate=0.5) and "
-          f"ZigZag({d}, grad_gauss), B={B}, {n} events, f64, x0=0, v0=1, seed 0; "
-          f"transitions {trans}; dim 1 (one NCCL part) bit for bit the run "
-          f"without a group; dim 2 over two gloo processes on the card (host-staged "
-          f"collectives: a correctness run, not a speed one) equal to dim 1 at rtol "
-          f"{GSPMD_RTOL}: largest absolute, and relative where |dim 1| > 1e-6, differences "
-          + ", ".join(f"{k} {a:.3e}, {r:.3e}" for k, (a, r) in errs.items()) + "; walls (s): "
-          + ", ".join(f"{k} {w:.3f}" for k, w in walls.items())
-          + f"; the two processes {procs_s:.1f} s with start-up; K2 on the Zig-Zag's first "
-          f"fill bit for bit its plain version, {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-          f"{bound_text(b)}), {k2_n} launches in the dim-1 call ({card_name})", flush=True)
-    return k2_n, err, ms, plain_ms, b
+            shutil.rmtree(out, ignore_errors=True)
+
+    return finish
 
 
 def tag_calls(what, sampler, n_sk, x0, v0, calls):
@@ -3951,9 +4006,9 @@ def dense_gradient():
     return lambda x: A.to(x) @ x
 
 
-def running_sum(x):
-    """A gradient the lowering refuses: a running sum (``aten.cumsum``)."""
-    return torch.cumsum(x, 0)
+def running_product(x):
+    """A gradient the lowering refuses: a running product (``aten.cumprod``)."""
+    return x + 0.1 * torch.cumprod(torch.tanh(x), 0)
 
 
 def user_aniso():
@@ -3984,14 +4039,16 @@ USER_PATHS = {
 }
 """Phases 36-38's deployments of gradients of the user's own: the sampler
 and (d, chains, points), each at the shape of the repo deployment it names."""
+# one sampler per path, so that the phases find ``user_lowerings``' work done
+USER_PATHS = {path: (cache(make), shape) for path, (make, shape) in USER_PATHS.items()}
 
 
-def user_builds():
-    """Lower every gradient of phases 36-44 (float32 for the runs,
-    float64 for the checks against the plain version) and build their user
-    libraries, every ``nvcc`` started at once.  Returns (wall s, {library:
-    seconds}, ptxas text)."""
-    lows = []
+def user_lowerings():
+    """Every gradient of phases 36-45 lowered as its phase runs it (float32
+    for the runs, float64 for the checks against the plain version), on the
+    samplers the phases take (the path functions are cached), so that the
+    phases find each lowering done; a lane past ``LANE_BYTES`` is never
+    launched (its sampler takes the engine) and is left out."""
     samplers = [make() for make, _ in USER_PATHS.values()]
     samplers += [s for s, *_ in dense_paths().values()]
     samplers += [s for s, *_ in band_paths().values()] + list(neal_last_parity()[0].values())
@@ -4003,25 +4060,111 @@ def user_builds():
     pairs += [(lse_coords_sampler(), torch.float32)]
     for _, s, _, fit in lse_parity_samplers():
         pairs += [(s, torch.float64)] + ([] if fit is None else [(fit, torch.float64)])
-    for s, dt in pairs:
-        lows.append(lower.lower_sampler(s, driver.kernel_kind(s), s.dim, dt, DEV))
-    # a lane past LANE_BYTES is never launched: its sampler takes the engine
-    lows = [low for low in lows if lower.lane_fits(low)]
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(lows)) as ex:
-        list(ex.map(lambda low: low.library(), lows))
-    wall = time.perf_counter() - t0
-    secs, texts = {}, []
-    for path, info in build.BUILD_INFO["user"].items():
-        name = Path(path).name
-        secs[name] = info["seconds"]
-        kernels = ptxas_kernels(info["log"])
-        spills = sum(st for _, _, st, _ in kernels.values())
-        texts.append(f"{name}: {info['seconds'] or 0:.1f} s, registers "
-                     f"{sorted({r for r, *_ in kernels.values()})}, stack frames "
-                     f"{sorted({f for _, f, _, _ in kernels.values()})} B, {spills} B spill "
-                     "stores")
-    return wall, secs, "; ".join(texts)
+    # phase 45: its runs in float32, its parity launches in float64
+    pairs += [(s, torch.float32) for s, _ in scan_paths().values()]
+    pairs += [(s, torch.float32) for s in scan_launch_samplers().values()]
+    pairs += [(s, torch.float64) for _, s, _, _ in scan_parity_samplers()]
+    lows = [lower.lower_sampler(s, driver.kernel_kind(s), s.dim, dt, DEV) for s, dt in pairs]
+    return [low for low in lows if lower.lane_fits(low)]
+
+
+def build_cpus():
+    """The host's cores the user builds take: all this process may run on
+    but the first core and its hyperthread siblings (read from sysfs), which
+    stay free for the phases' host loop; all of them on a host of two or
+    fewer."""
+    cpus = sorted(os.sched_getaffinity(0))
+    first = {cpus[0]}
+    try:
+        text = Path(f"/sys/devices/system/cpu/cpu{cpus[0]}/topology/"
+                    "thread_siblings_list").read_text()
+        for part in text.strip().split(","):
+            a, _, b = part.partition("-")
+            first |= set(range(int(a), int(b or a) + 1))
+    except (OSError, ValueError):
+        pass
+    if len(first) == 1 and len(cpus) > 1:
+        first.add(cpus[1])
+    rest = [c for c in cpus if c not in first]
+    return rest if rest else cpus
+
+
+class UserBuilds:
+    """Phases 36-45's user libraries, made beside phases 1-35: a thread
+    lowers every gradient (:func:`user_lowerings`) while phase 1's ``nvcc``
+    runs, then builds the libraries one ``nvcc`` per core of
+    :func:`build_cpus`, each ``nvcc`` at the lowest priority and held to
+    those cores, so that the phases' host loop keeps a core of its own.
+    The main thread waits for :attr:`lowered` before its next card work and
+    for :meth:`result` before phase 36; a library a phase needs earlier is
+    built once (``build.user_library`` locks each)."""
+
+    def __init__(self):
+        self.lowered = threading.Event()
+        self.cpus = build_cpus()
+        self.lows, self.error, self.stop = [], None, False
+        self.t0 = time.perf_counter()
+        self.wall = None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _background(self):
+        """A pool thread's own priority and cores (Linux keeps both per
+        thread), which the ``nvcc`` it starts inherits."""
+        tid = threading.get_native_id()
+        os.setpriority(os.PRIO_PROCESS, tid, 19)
+        os.sched_setaffinity(tid, self.cpus)
+
+    def _build(self, low):
+        if not self.stop:
+            low.library()
+
+    def _run(self):
+        try:
+            self.lows = user_lowerings()
+        except BaseException as exc:  # handed to the main thread by wait_lowered/result
+            self.error = exc
+            return
+        finally:
+            self.lowered.set()
+        try:
+            with ThreadPoolExecutor(len(self.cpus), initializer=self._background) as ex:
+                list(ex.map(self._build, self.lows))
+        except BaseException as exc:
+            self.error = exc
+        self.wall = time.perf_counter() - self.t0
+
+    def wait_lowered(self):
+        self.lowered.wait()
+        if self.error is not None:
+            raise self.error
+
+    def result(self):
+        """Wait for the builds; returns (seconds from the start to the last
+        library, seconds the main thread waited here, cores, {library:
+        seconds}, ptxas text)."""
+        t0 = time.perf_counter()
+        self.thread.join()
+        waited = time.perf_counter() - t0
+        if self.error is not None:
+            raise self.error
+        secs, texts = {}, []
+        for path, info in build.BUILD_INFO["user"].items():
+            name = Path(path).name
+            secs[name] = info["seconds"]
+            kernels = ptxas_kernels(info["log"])
+            spills = sum(st for _, _, st, _ in kernels.values())
+            texts.append(f"{name}: {info['seconds'] or 0:.1f} s, registers "
+                         f"{sorted({r for r, *_ in kernels.values()})}, stack frames "
+                         f"{sorted({f for _, f, _, _ in kernels.values()})} B, {spills} B "
+                         "spill stores")
+        return self.wall, waited, len(self.cpus), secs, "; ".join(texts)
+
+    def close(self):
+        """Start no further ``nvcc`` and wait for those running (a failed
+        phase leaves no compile behind)."""
+        self.stop = True
+        self.thread.join()
 
 
 def user_config(sampler, K, cap, dtype):
@@ -4214,11 +4357,12 @@ def phase_user_main(card_name, builds):
             f"max|var-1| {float((var - 1).abs().max()):.4f} (bench.py's bands); "
             f"{walls_text(walls, events)}; K1 {chunk_text}")
     del tagged
-    wall, secs, ptx = builds
+    wall, waited, cores, secs, ptx = builds
     print(f"phase 36 the main path on gradients of the user's own (B={B}, d={d}, "
           f"n_sk={n_sk}, f32, backend='auto'): {'; '.join(texts)}; user builds (phases "
-          f"36-44, {len(secs)} libraries, every nvcc at once after phase 33): wall "
-          f"{wall:.1f} s; {ptx} "
+          f"36-45, {len(secs)} libraries, lowered and built beside phases 1-35, one nvcc per "
+          f"core on {cores} cores at nice 19): done {wall:.1f} s after the "
+          f"script's start, phase 36 waited {waited:.1f} s for them; {ptx} "
           f"({card_name})", flush=True)
     return out
 
@@ -4330,8 +4474,8 @@ def phase_user_reductions(card_name, neal_tagged):
     part printed and ``RTOL``).  K6 at ``sticky_zigzag_d1000``'s shape on a
     hierarchical mean, whose sum reads coordinate 0 in every warp, against
     its plain version in f64 to ``RTOL``.  Then a dense ``A @ x`` (A a seeded
-    10 x 10 SPD matrix) takes K1 and K2 under ``"auto"``, and a running sum
-    (``cumsum``) raises ``LoweringError`` there before any build or launch,
+    10 x 10 SPD matrix) takes K1 and K2 under ``"auto"``, and a running product
+    (``cumprod``) raises ``LoweringError`` there before any build or launch,
     naming the aten op and ``backend="xla_stream"``, and runs on the engine
     under that backend.  Returns {path: (launches, ms, plain ms, bound,
     err)}, and the K1 funnel's x[0] mean and variance (phase 42's reference)."""
@@ -4388,34 +4532,35 @@ def phase_user_reductions(card_name, neal_tagged):
                  f"sums {[[p.e.text() for p in r] for r in low.reductions]}): sticky_chunk "
                  f"vs plain f64 max_abs_err={err_h:.3e} ({n_ev_h} events)")
     notes = "; ".join(n for n in MATH_NOTES if n.startswith("phase 38")) or "none"
-    # a dense A @ x takes K1; the refusal: a running sum
+    # a dense A @ x takes K1; the refusal: a running product
     d, (B, n_sk) = 10, DENSE_RUN
     x0, v0 = np.zeros((B, d)), np.ones((B, d))
     dense = USER_PATHS["user_dense_zigzag_d10"][0]()
     _, d_launches, d_walls = user_call("phase 38 dense A @ x", dense, n_sk, x0, v0, 1)
-    refused = pt.ZigZag(d, running_sum)
+    refused = pt.ZigZag(d, running_product)
     builds_before = len(build.BUILD_INFO["user"])
     build.reset_launches()
     engine.reset_counts()
     try:
         pt.sample_skeleton(refused, n_sk, x0, v0, seed=0, dtype=torch.float32, device=DEV)
-        raise AssertionError("phase 38: a running sum ran under backend='auto'")
+        raise AssertionError("phase 38: a running product ran under backend='auto'")
     except lower.LoweringError as e:
         msg = str(e)
-    if ("aten.cumsum" not in msg or "backend='xla_stream'" not in msg
+    if ("aten.cumprod" not in msg or "backend='xla_stream'" not in msg
             or any(build.LAUNCHES.values()) or engine.COUNTS["transitions"]
             or len(build.BUILD_INFO["user"]) != builds_before):
-        raise AssertionError(f"phase 38: the running sum's refusal: {msg}; launches "
+        raise AssertionError(f"phase 38: the running product's refusal: {msg}; launches "
                              f"{dict(build.LAUNCHES)}")
     skel, e_wall, k2_n, chunks, transitions, _, _ = engine_call(refused, n_sk, x0, v0, seed=0,
                                                                 backend="xla_stream")
-    check_complete("phase 38 running sum on the engine", skel, n_sk)
+    check_complete("phase 38 running product on the engine", skel, n_sk)
     del skel
     print(f"phase 38 sums and a refusal: {'; '.join(texts)}; bit-for-bit checks that parted "
           f"in exp: {notes}; dense A @ x (10 x 10 SPD, ZigZag(10, lambda x: A @ x), B={B}, "
           f"n_sk={n_sk}): K1 {d_launches['zigzag_chunk']} launches, K2 "
-          f"{d_launches['compact_rows']}, 0 engine chunks, {d_walls[0]:.4f} s; a running sum "
-          f"(cumsum): 'auto' raises before any build or launch ({msg}); backend='xla_stream' "
+          f"{d_launches['compact_rows']}, 0 engine chunks, {d_walls[0]:.4f} s; a running "
+          f"product (cumprod): 'auto' raises before any build or launch ({msg}); "
+          f"backend='xla_stream' "
           f"ran it: {chunks} engine chunks, {transitions} transitions, {k2_n} K2 launches, "
           f"{e_wall:.3f} s ({card_name})", flush=True)
     return out, moments["user_neal_zigzag_d10"]
@@ -4432,6 +4577,7 @@ LOGISTIC = (20, 1000, 1024, 2048)   # phase 40: d, rows, chains, points
 LOGISTIC_PRIOR_SD = 10.0
 DENSE_AR = (1000, 128, 2048, 10.0, 0.5)  # phase 41: d, chains, points, kappa, rho
 DENSE_CALLS = 5                     # timed warm calls of each gated deployment
+DENSE_PARITY_K = 32                 # phases 39-43: transitions of the f64 parity launch
 LOGISTIC_CALLS = 1                  # phase 40's (cut from DENSE_CALLS for the script's time)
 
 
@@ -4494,6 +4640,7 @@ def quartic_sum(x):
     return x @ x / 2.0 + torch.log1p(torch.sum(x ** 4))
 
 
+@cache
 def dense_paths():
     """Phases 39-41's deployments: name -> (sampler, (d, chains, points),
     bit for bit against the plain version, math tag, start)."""
@@ -4641,8 +4788,9 @@ def kernel_chunk(sampler, x0, v0, config=None, reps=20):
 def phase_dense(card_name, names, title, calls, b_map=None, cov=None, ref_mean=None,
                 paths=None, gates=None):
     """One deployment of ``dense_paths`` after another: the kernel against
-    its plain version in f64 at the deployment's shape (one K=32 launch from
-    a random state, K3/K5 and K4 bit for bit, K1 and K6 to ``RTOL``); the
+    its plain version in f64 at the deployment's shape (one launch of
+    ``DENSE_PARITY_K`` transitions from a random state, K3/K5 and K4 bit for
+    bit, K1 and K6 to ``RTOL``); the
     route under ``backend="auto"`` (its chunk kernel and K2, no engine chunk,
     no ``LoweringError``) with ``calls`` timed warm calls; the gates; one f32
     K=32 launch timed (``kernel_chunk``; the plain version's time is its
@@ -4659,7 +4807,7 @@ def phase_dense(card_name, names, title, calls, b_map=None, cov=None, ref_mean=N
         what = f"{title} {path}"
         t0 = time.perf_counter()
         err64, n_ev, plain_ms = user_compare(what, sampler, B, bitwise, math_tag=tag,
-                                             n_chunks=1)
+                                             n_chunks=1, K=DENSE_PARITY_K)
         t_cmp = time.perf_counter() - t0
         x0, v0 = dense_start(sampler, start, B, d, b_map)
         skel, launches, walls = user_call(what, sampler, n_sk, x0, v0, calls)
@@ -4769,6 +4917,7 @@ def user_neal_last(x):
             + 0.5 * torch.sum(x[:-1] ** 2) * torch.exp(-x[-1]))
 
 
+@cache
 def band_paths():
     """Phase 42's deployments (as :func:`dense_paths`): the banded AR(1) at
     ``sticky_dense_ar1_d1000``'s shape on K6 and K1 (rho 0.5), at rho 0.9 on
@@ -4789,6 +4938,7 @@ def band_paths():
     }
 
 
+@cache
 def neal_last_parity():
     """The funnel with its scale last on the walking kernels (K3, K5, K4), at
     phase 38's K4 shape: held bit for bit against their plain versions."""
@@ -4902,6 +5052,7 @@ def phase_band(card_name, dense_k6, neal_user):
 # ---------------------------------------------------------------------------
 
 
+@cache
 def dense_ar1_paths():
     """Phase 43's deployments (as :func:`dense_paths`): the dense AR(1)
     Gaussian ``0.5 x P x`` (rho 0.5, ``P`` 1000 x 1000, 4 MB in f32) at
@@ -5071,6 +5222,7 @@ def softmax_kp(X, Y):
     return U
 
 
+@cache
 def lse_paths():
     """Phase 44's gated deployments (as :func:`dense_paths`): name -> (sampler,
     (d, chains, points), bit for bit against the plain version, math tag,
@@ -5093,6 +5245,7 @@ def lse_paths():
     }
 
 
+@cache
 def lse_launch_samplers():
     """K6 (kappa 1), K4 and K5 on the broadcast mixture at d = 100: each
     timed on one f32 launch from the modes (phase 44 runs no deployment of
@@ -5103,6 +5256,7 @@ def lse_launch_samplers():
             "ecmc": pt.ForwardECMCAD(d, mix)}
 
 
+@cache
 def lse_parity_samplers():
     """Phase 44's parity launches: (name, sampler, bit for bit, the same
     kernel's sampler on the softmax's first ``SOFTMAX_FIT_P`` features or
@@ -5131,6 +5285,7 @@ def lse_parity_samplers():
     return out
 
 
+@cache
 def lse_coords_sampler():
     """K1 on ``|x|^2 / 2 + logsumexp(x)`` at ``LSE_COORDS``' d: a max over the
     coordinates, which K1 takes in point mode (each lane walks every
@@ -5408,6 +5563,304 @@ def phase_lse(card_name):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 45: running sums, flips and periodic shifts (cumsum, flip, roll)
+# lowered into the chunk kernels
+# ---------------------------------------------------------------------------
+
+LOCAL_LEVEL_Q = 1469.1 / 15099.0       # Durbin & Koopman's Nile signal-to-noise ratio
+LOCAL_LEVEL = (1000, 128, 2048)         # phase 45: d, chains, points
+POISSON_RW = (math.log(5.0), 0.05)      # the log-intensity's level and step sd
+PHI4 = (8, -4.0, 8.0, 1024, 2048)       # L, M2, lambda (Albergo et al.), chains, points
+PHI4_ENGINE = (256, 512)                # chains, points of the engine call
+SCAN_PARITY_D = 100                     # d of the local level and Poisson walk parity launches
+SCAN_BATCHES = 32                       # batches of chains behind the phi^4 gate's bands
+
+
+def scan_data(d, seed=19):
+    """``y`` of the local level model and of the Poisson walk, each drawn
+    from its model at length 1000 with a numpy seed; a target at d reads the
+    first d (the walk's prefix is the model at d)."""
+    rs = np.random.default_rng(seed)
+    s = math.sqrt(LOCAL_LEVEL_Q)
+    level = s * np.cumsum(rs.normal(size=1000)) + rs.normal(size=1000)
+    a, sig = POISSON_RW
+    counts = rs.poisson(np.exp(a + sig * np.cumsum(rs.normal(size=1000)))).astype(float)
+    return level[:d], counts[:d]
+
+
+def local_level(d):
+    """The local level model of Durbin & Koopman (2012, ch. 2) in
+    non-centred form, sigma_eps = 1, sigma_eta = sqrt(q): ``|z|^2 / 2 +
+    sum((y - sigma_eta cumsum(z))^2) / 2``."""
+    y = torch.as_tensor(scan_data(d)[0], device=DEV)
+    s = math.sqrt(LOCAL_LEVEL_Q)
+    return lambda z: (z @ z / 2 + torch.sum((y.to(z) - s * torch.cumsum(z, 0)) ** 2) / 2)
+
+
+def poisson_rw(d):
+    """Poisson counts on the random-walk log-intensity ``a + s cumsum(z)``."""
+    y = torch.as_tensor(scan_data(d)[1], device=DEV)
+    a, s = POISSON_RW
+
+    def U(z):
+        eta = a + s * torch.cumsum(z, 0)
+        return z @ z / 2 + torch.sum(torch.exp(eta) - y.to(z) * eta)
+
+    return U
+
+
+def phi4_2d(x):
+    """``ScalarPhi4Action`` of Albergo et al. (arXiv:2101.08176) on the L x L
+    periodic lattice ``x.reshape(L, L)``, its published L = 8, M2 = -4,
+    lambda = 8."""
+    L, m2, lam = PHI4[:3]
+    p = x.reshape(L, L)
+    action = m2 * p * p + lam * p ** 4
+    for mu in (0, 1):
+        action = action + 2 * p * p - p * torch.roll(p, -1, mu) - p * torch.roll(p, 1, mu)
+    return torch.sum(action)
+
+
+def local_level_posterior(d):
+    """The exact Gaussian posterior: precision ``P = I + q L^T L`` (``L`` the
+    lower-triangular matrix of ones), mean ``P^-1 sqrt(q) L^T y``; returns
+    (mean, covariance), float64 numpy."""
+    L = np.tril(np.ones((d, d)))
+    P = np.eye(d) + LOCAL_LEVEL_Q * L.T @ L
+    cov = np.linalg.inv(P)
+    return cov @ (math.sqrt(LOCAL_LEVEL_Q) * L.T @ scan_data(d)[0]), cov
+
+
+@cache
+def scan_paths():
+    """Phase 45's timed cells: name -> (sampler, (d, chains, points))."""
+    d, B, n_sk = LOCAL_LEVEL
+    L, _, _, Bp, n_p = PHI4
+    ll = local_level(d)
+    return {"zigzag_local_level_d1000": (pt.ZigZagAD(d, ll), (d, B, n_sk)),
+            "bps_local_level_d1000": (pt.BPSAD(d, ll, refresh_rate=1.0), (d, B, n_sk)),
+            "zigzag_phi4_l8": (pt.ZigZagAD(L * L, phi4_2d), (L * L, Bp, n_p)),
+            "bps_phi4_l8": (pt.BPSAD(L * L, phi4_2d, refresh_rate=1.0), (L * L, Bp, n_p))}
+
+
+@cache
+def scan_launch_samplers():
+    """K6 (kappa 1) and K5 on the local level at d = 1000, K4 on it at
+    ``SCAN_PARITY_D`` (its lane keeps both running sums at the point, past
+    ``LANE_BYTES`` at d = 1000): each timed on one f32 launch from exact
+    posterior draws (phase 45 runs no deployment of theirs)."""
+    d, dk = LOCAL_LEVEL[0], SCAN_PARITY_D
+    ll = local_level(d)
+    return {"sticky": pt.StickyZigZagAD(d, ll, np.ones(d)),
+            "suzz": pt.SpeedUpZigZagAD(dk, local_level(dk)), "ecmc": pt.ForwardECMCAD(d, ll)}
+
+
+def scan_start(sampler, B, exact, seed=45):
+    """x0 from B exact draws of the local level's posterior at the
+    sampler's d (``exact``), else 0; v0 = +-1 (a unit normal for the
+    scalar-rate samplers)."""
+    d = sampler.dim
+    rs = np.random.default_rng(seed)
+    x0 = np.zeros((B, d))
+    if exact:
+        mean, cov = local_level_posterior(d)
+        x0 = mean + rs.normal(size=(B, d)) @ np.linalg.cholesky(cov).T
+    if driver.kernel_kind(sampler) in k3.KINDS:
+        v0 = rs.normal(size=(B, d))
+        return x0, v0 / np.linalg.norm(v0, axis=1, keepdims=True)
+    return x0, rs.choice([-1.0, 1.0], size=(B, d))
+
+
+@cache
+def scan_parity_samplers():
+    """Phase 45's parity launches: (name, sampler, bit for bit, horizon
+    modes) for the local level and the Poisson walk at ``SCAN_PARITY_D`` and
+    the phi^4 lattice at L = 8 on K1, K6, K4, K3 (BPS, Boomerang) and K5, and
+    the local level at ``LOCAL_LEVEL``'s d on K1, K6, K3 (BPS) and K5; K1 and
+    K3 also in horizon mode on the local level."""
+    d = SCAN_PARITY_D
+    targets = {f"local_level_d{d}": (d, local_level(d)), f"poisson_rw_d{d}": (d, poisson_rw(d)),
+               "phi4_l8": (PHI4[0] ** 2, phi4_2d)}
+    makes = [("zigzag", pt.ZigZagAD, False),
+             ("sticky", lambda d, U: pt.StickyZigZagAD(d, U, np.ones(d)), False),
+             ("suzz", pt.SpeedUpZigZagAD, True),
+             ("bps", lambda d, U: pt.BPSAD(d, U, refresh_rate=1.0), True),
+             ("boomerang", lambda d, U: pt.BoomerangAD(d, U, refresh_rate=1.0), True),
+             ("ecmc", pt.ForwardECMCAD, True)]
+    out = [(f"{kind}_{target}", make(dt, U), bitwise,
+            [False, True] if kind in ("zigzag", "bps") and "local_level" in target
+            else [False])
+           for target, (dt, U) in targets.items() for kind, make, bitwise in makes]
+    # the local level at the timed cells' d, where K1's lanes and K3's warp
+    # split the scans into longer runs: every kernel the cells and the
+    # timed launches take but K4 (its lane is past LANE_BYTES there)
+    dl = LOCAL_LEVEL[0]
+    ll = local_level(dl)
+    return out + [(f"{kind}_local_level_d{dl}", make(dl, ll), bitwise,
+                   [False, True] if kind in ("zigzag", "bps") else [False])
+                  for kind, make, bitwise in makes if kind in ("zigzag", "sticky", "bps",
+                                                                "ecmc")]
+
+
+def local_level_gate(what, sampler, skel, mean, cov, x0):
+    """Pooled mean and variance of every coordinate against the exact
+    posterior.  The chains start from B exact draws, so every time's law is
+    the posterior: each coordinate's pooled mean is off by at most sd_i /
+    sqrt(B) in sd and its variance ratio by sqrt(2 / (B - 1)), whatever the
+    mixing; the bands are 5 of those (the starting draws' own printed)."""
+    B = x0.shape[0]
+    sd = np.sqrt(np.diag(cov))
+    m_band, v_band = 5 / math.sqrt(B), 5 * math.sqrt(2 / (B - 1))
+    got_m, got_v = (a.double().cpu().numpy() for a in pt.pooled_moments(skel, sampler, 256))
+    dm, dv = np.abs(got_m - mean) / sd, np.abs(got_v / sd ** 2 - 1)
+    sm, sv = np.abs(x0.mean(0) - mean) / sd, np.abs(x0.var(0) / sd ** 2 - 1)
+    if not (dm.max() < m_band and dv.max() < v_band):
+        raise AssertionError(f"{what}: off the posterior: max|mean - mu| {dm.max():.4f} sd "
+                             f"(band {m_band:.4f}), max|var / s^2 - 1| {dv.max():.4f} (band "
+                             f"{v_band:.4f})")
+    return (f"every coordinate's pooled mean within {dm.max():.4f} sd of the exact mean (band "
+            f"{m_band:.4f} = 5 / sqrt(B); the {B} starting draws {sm.max():.4f}), its variance "
+            f"within {dv.max():.4%} (band {v_band:.4f} = 5 sqrt(2 / (B - 1)); the starting "
+            f"draws {sv.max():.4%}), posterior sd {sd.min():.4f}-{sd.max():.4f}")
+
+
+def phi4_moments(sampler, skel):
+    """Each chain's site averages of phi^2 and phi^4 over the second half of
+    its equal-time samples, as float64 ``(B, 2)``."""
+    xs = pt.sample_from_skeleton_batch(sampler, 256, skel)
+    xs = xs[:, xs.shape[1] // 2:].double()
+    return torch.stack([(xs ** 2).mean((1, 2)), (xs ** 4).mean((1, 2))], 1).cpu().numpy()
+
+
+def batch_means(per_chain):
+    """The mean of ``(B, k)`` per-chain values and its standard error from
+    ``SCAN_BATCHES`` batch means of consecutive chains."""
+    b = per_chain[:per_chain.shape[0] // SCAN_BATCHES * SCAN_BATCHES]
+    means = b.reshape(SCAN_BATCHES, -1, b.shape[1]).mean(1)
+    return means.mean(0), means.std(0, ddof=1) / math.sqrt(SCAN_BATCHES)
+
+
+def phase_scan(card_name):
+    """Phase 45: running sums, flips and periodic shifts.  First every kernel
+    against its plain version in f64 (64 chains, one launch of 4
+    transitions, K4's of 32; K3/K5 and K4 bit for bit, K1 and K6 within
+    1e-12) on the local level model and the
+    Poisson walk at d = 100, on the phi^4 lattice at L = 8 and on the local
+    level at d = 1000 (all but K4), each taking its kernel under ``"auto"``,
+    K1 and K3 also in horizon mode on the local level; then
+    ``zigzag_local_level_d1000``/``bps_local_level_d1000`` (128 chains x 2048
+    points from exact posterior draws, gated on every coordinate's pooled
+    mean and variance) and ``zigzag_phi4_l8``/``bps_phi4_l8`` (1024 chains x
+    2048 points from x0 = 0, their <phi^2> and <phi^4> against each other
+    and against one engine call, ``backend="xla_stream"``, 256 chains x 512
+    points, timed), each one call under ``"auto"`` (its library built
+    before; no ``LoweringError``, launches on its kernel and K2 alone) with
+    an f32 launch and its bound; one f32 launch each of K6 and K5 on the
+    local level at d = 1000 and of K4 at d = 100.  Returns {path:
+    (launches, ms, plain ms, bound, err)}."""
+    B, K = LSE_PARITY
+    t0 = time.perf_counter()
+    errs, plain, texts = {}, {}, []
+    for name, sampler, bitwise, modes in scan_parity_samplers():
+        route = api.pick_backend(sampler, "auto", sampler.dim, torch.float64, DEV)
+        if route != "kernel":
+            raise AssertionError(f"phase 45 {name}: the f64 route is {route}")
+        for horizon in modes:
+            what = f"phase 45 {name}{' horizon' if horizon else ''}"
+            k = 8 * K if driver.kernel_kind(sampler) == "suzz" else K  # K4: fewer events
+            err, n_ev, ms = user_compare(what, sampler, B, bitwise, n_chunks=1,
+                                         horizon=horizon, K=k)
+            if err > 1e-12:
+                raise AssertionError(f"{what}: max_abs_err {err:.3e} past 1e-12")
+            key = name + ("_horizon" if horizon else "")
+            errs[key], plain[key] = err, ms
+            texts.append(f"{key} {'bit for bit' if bitwise else f'{err:.3e}'} ({n_ev} events)")
+    print(f"phase 45 parity (f64, B={B}, K={K}, one launch each; K3/K5 and K4 bit for bit, K1 "
+          f"and K6 within 1e-12; every route the kernel): {'; '.join(texts)} "
+          f"({time.perf_counter() - t0:.1f} s, {card_name})", flush=True)
+
+    mean, cov = local_level_posterior(LOCAL_LEVEL[0])
+    out, phi, texts = {}, {}, []
+    for path, (sampler, (dp, Bp, n_sk)) in scan_paths().items():
+        what = f"phase 45 {path}"
+        kind = driver.kernel_kind(sampler)
+        x0, v0 = scan_start(sampler, Bp, "local_level" in path)
+        route = api.pick_backend(sampler, "auto", dp, torch.float32, DEV)
+        if route != "kernel":
+            raise AssertionError(f"{what}: 'auto' takes {route}")
+        build.reset_launches()
+        engine.reset_counts()
+        t1 = time.perf_counter()
+        skel = pt.sample_skeleton(sampler, n_sk, x0, v0, seed=0, dtype=torch.float32,
+                                  device=DEV)
+        sync()
+        wall = time.perf_counter() - t1
+        launches, chunks = dict(build.LAUNCHES), engine.COUNTS["chunks"]
+        name = path_launch(sampler)
+        others = {k: n for k, n in launches.items() if n and k not in (name, "compact_rows")}
+        if launches[name] < 1 or launches["compact_rows"] < 1 or others or chunks:
+            raise AssertionError(f"{what}: the path did not take {name} and K2 alone: "
+                                 f"{launches}, {chunks} engine chunks")
+        check_complete(what, skel, n_sk)
+        events = int(skel.n_valid.sum()) - Bp
+        if "local_level" in path:
+            gate = local_level_gate(what, sampler, skel, mean, cov, x0)
+        else:
+            phi[path] = batch_means(phi4_moments(sampler, skel))
+            gate = (f"<phi^2> {phi[path][0][0]:.5f} +- {phi[path][1][0]:.5f}, <phi^4> "
+                    f"{phi[path][0][1]:.5f} +- {phi[path][1][1]:.5f} (batch means)")
+        del skel
+        ms, b = kernel_chunk(sampler, x0, v0)
+        target = f"local_level_d{dp}" if "local_level" in path else "phi4_l8"
+        key = f"{path.split('_')[0]}_{target}"
+        out[path] = (launches, ms, plain[key], b, errs[key])
+        low = lower.lower_sampler(sampler, kind, dp, torch.float32, DEV)
+        texts.append(
+            f"{path} ({type(sampler).__name__} d={dp} B={Bp} n_sk={n_sk}; "
+            f"{len(low.products)} running sums ({len(low.trans)} per transition), "
+            f"{'moments' if not low.point else 'point context'}, {low.n_trans} values per "
+            f"transition, {low.lane_bytes()} B per lane): route {name} {launches[name]} "
+            f"launches, K2 {launches['compact_rows']}, 0 engine chunks, {events} events in "
+            f"{wall:.4f} s ({events / wall:.1f} events/s, one call, the first); {gate}; f32 "
+            f"chunk (K=32) {ms:.4f} ms at the deployment's start, bound {bound_text(b)}")
+    B = LOCAL_LEVEL[1]
+    for kind, sampler in scan_launch_samplers().items():
+        x0, v0 = scan_start(sampler, B, True)
+        ms, b = kernel_chunk(sampler, x0, v0)
+        key = f"{kind}_local_level_d{sampler.dim}"
+        texts.append(f"{kind}_local_level_d{sampler.dim} (no deployment: "
+                     f"{type(sampler).__name__} d={sampler.dim} B={B}): f32 chunk (K=32) "
+                     f"{ms:.4f} ms from exact posterior draws, bound {bound_text(b)}; its f64 "
+                     f"parity launch (same d) {errs[key]:.3e}, plain {plain[key]:.1f} ms")
+    # the phi^4 lattice on the engine: the route "auto" did not take
+    Be, ne = PHI4_ENGINE
+    sampler = pt.ZigZagAD(PHI4[0] ** 2, phi4_2d)
+    x0, v0 = np.zeros((Be, sampler.dim)), np.ones((Be, sampler.dim))
+    skel, e_wall, k2_n, e_chunks, transitions, eng_ms, _ = engine_call(
+        sampler, ne, x0, v0, seed=0, backend="xla_stream")
+    check_complete("phase 45 phi4 on the engine", skel, ne)
+    phi["engine"] = batch_means(phi4_moments(sampler, skel))
+    del skel
+    bands = []
+    for a, c in (("zigzag_phi4_l8", "bps_phi4_l8"), ("zigzag_phi4_l8", "engine")):
+        (ma, sa), (mc, sc) = phi[a], phi[c]
+        gap, band = np.abs(ma - mc), 5 * np.sqrt(sa ** 2 + sc ** 2)
+        if not np.all(gap < band):
+            raise AssertionError(f"phase 45: <phi^2>, <phi^4> of {a} {ma.tolist()} and {c} "
+                                 f"{mc.tolist()} apart by {gap.tolist()} (bands {band.tolist()})")
+        bands.append(f"{a} and {c} apart by {gap[0]:.5f}, {gap[1]:.5f} (bands 5 combined "
+                     f"errors: {band[0]:.5f}, {band[1]:.5f})")
+    print(f"phase 45 deployments: {'; '.join(texts)}; the phi^4 lattice on the engine "
+          f"(ZigZagAD, backend='xla_stream', B={Be}, n_sk={ne}, second half): <phi^2> "
+          f"{phi['engine'][0][0]:.5f} +- {phi['engine'][1][0]:.5f}, <phi^4> "
+          f"{phi['engine'][0][1]:.5f} +- {phi['engine'][1][1]:.5f}, {e_chunks} engine chunks "
+          f"({transitions} transitions, {eng_ms:.2f} ms by CUDA events, "
+          f"{eng_ms / max(e_chunks, 1):.2f} a chunk), K2 {k2_n}, call {e_wall:.3f} s; "
+          f"{'; '.join(bands)} ({card_name})", flush=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b, plain_of=None):
     """One entry of the kernels line; ``plain_of`` says which launch
     ``plain_ms`` timed where it is not the launch ``ms`` timed."""
@@ -5430,8 +5883,18 @@ def main():
         """The script's clock after a phase, for its time budget."""
         print(f"[after phase {phase}: {time.perf_counter() - t_start:.1f} s]", flush=True)
 
-    phase_build()
-    at(1)
+    builds = UserBuilds()  # phases 36-45's libraries, lowered and built beside 1-35
+    try:
+        phase_build()
+        at(1)
+        builds.wait_lowered()
+        run_phases(card_name, at, builds)
+    finally:
+        builds.close()
+
+
+def run_phases(card_name, at, builds):
+    """Phases 2-45 and the kernels line."""
     k1_err = phase_k1()
     k2_err = phase_k2()
     at(3)
@@ -5484,21 +5947,21 @@ def main():
     traced, traced_launches = phase_profiled(card_name, sampler)
     phase_plots(card_name, sampler, traced)
     del traced
-    k2_paths["gspmd:zigzag_d10000"] = phase_gspmd(card_name)
+    k2_paths["gspmd:zigzag_d10000"], gspmd_finish = phase_gspmd(card_name)
     at(32)
-    tag_errs = phase_tags()
-    at(33)
-    # after phase 33, not beside it: the nvcc processes starve its host loop
-    # (on the H100's 8-core host 247 s together, where phase 33 alone takes
-    # 69 s and the builds 134-150 s)
-    builds = user_builds()  # phases 36-44's user libraries, every nvcc at once
-    at("33b, the user builds")
+    try:
+        tag_errs = phase_tags()
+    except BaseException:
+        gspmd_finish(failed=True)
+        raise
+    gspmd_finish()
+    at("33 and 32b")
     cauchy_launches, cauchy = phase_suzz_cauchy(card_name)
     at(34)
     neal_launches, neal, k2_paths[f"engine:zigzag_neal_funnel_d10_n{NEAL_ROUTES}"], \
         neal_x0 = phase_neal_funnel(card_name)
     at(35)
-    user = phase_user_main(card_name, builds)
+    user = phase_user_main(card_name, builds.result())
     at(36)
     user.update(phase_user_kernels(card_name))
     at(37)
@@ -5519,6 +5982,8 @@ def main():
     at(43)
     user.update(phase_lse(card_name))
     at(44)
+    user.update(phase_scan(card_name))
+    at(45)
     zz = "pdmpflux_tpu/ops/pallas/zigzag_chunk.py:854"
     k7 = 'pdmpflux_tpu/ops/pallas/zigzag_chunk.py:343 mode="horizon"'
     kernels = [
@@ -5602,12 +6067,17 @@ def main():
     # phases 39-43 time the kernel on an f32 launch from the deployment's
     # start and the plain version on the f64 parity launch from a random state
     dense = set(dense_paths()) | set(band_paths()) | set(dense_ar1_paths()) | set(lse_paths())
+    scan = set(scan_paths())
     for path, (n, ms, plain_ms, b, err) in user.items():
         name = next(k for k in sources if n.get(k))
+        plain_of = ("the f64 parity launch from a random state; ms: an f32 launch from the "
+                    "deployment's start" if path in dense else None)
+        if path in scan:
+            plain_of = (f"the f64 parity launch (B={LSE_PARITY[0]}, K={LSE_PARITY[1]}) from a "
+                        "random state on the same kernel, target and d; ms: an f32 launch "
+                        "from the deployment's start")
         kernels.append(kernel_entry(
-            f"{name}[user:{path}]", *sources[name], n[name], err, ms, plain_ms, b,
-            "the f64 parity launch from a random state; ms: an f32 launch from the "
-            "deployment's start" if path in dense else None))
+            f"{name}[user:{path}]", *sources[name], n[name], err, ms, plain_ms, b, plain_of))
         if path in ("bench_zigzag_d10", "readme_zigzag_ad_d10"):
             kernels.append(kernel_entry(f"compact_rows[user:{path}]", "compact.cu",
                                         "pdmpflux_tpu/ops/pallas/compact.py:132",

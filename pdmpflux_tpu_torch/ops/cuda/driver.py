@@ -112,6 +112,8 @@ def _per_transition(low: lower.Lowered, kind: str):
     transition."""
     if not low.trans:
         return None
+    if kind == "zigzag":  # K1 forms a running sum in its group's lanes
+        return lambda x, v: low.along(x, v, parts=zc.lanes_for(x.shape[1]))
     if kind != "boomerang":
         return low.along
 

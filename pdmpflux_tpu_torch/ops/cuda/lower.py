@@ -37,23 +37,28 @@ The IR.  A value of the trace is one of:
   an ``(n, d)`` constant ``X``, ``n != d``); one expression never mixes the
   two.
   ``slice``, ``select``, ``slice_scatter``, ``select_scatter``, ``cat``/
-  ``stack`` and ``where`` on a constant mask (``torch.func.grad`` of
-  ``x[0]`` emits ``where(arange == 0, ...)``) move pieces about; a vector
-  held as a column or a row (``unsqueeze``, ``permute``, a product's batch
-  views) is the same vector;
+  ``stack``, ``roll`` (``cat(v[d - s:], v[:d - s])``) and ``where`` on a
+  constant mask (``torch.func.grad`` of ``x[0]`` emits ``where(arange ==
+  0, ...)``) move pieces about; ``flip`` turns each piece around, its reads
+  of ``x`` becoming reads of coordinate ``c - i`` (``ya`` with stride -1)
+  and its parameters a reversed copy; a vector held as a column or a row
+  (``unsqueeze``, ``permute``, a product's batch views) is the same vector;
 * a matrix (:class:`Mat`): a value with two dimensions past 1 whose shorter
   one, ``K <=`` :data:`KMAX`, is unrolled at lowering time into ``K``
   vectors (a mixture's components ``x[None, :] - MU``, a softmax's classes,
   ``x.reshape(K, p)``'s rows as slices, ``x.reshape(p, K)``'s columns as
   strided reads ``x[K r + k]``); an elementwise op acts on each, a
   reduction along the short axis folds them at lowering time, along the
-  long one makes a stage of each; ``mm`` of a constant matrix with it makes
+  long one makes a stage of each; a ``flip`` or a ``roll`` along the short
+  axis relabels its vectors, along the long one moves each vector's
+  pieces (the periodic lattice of a phi^4 action); ``mm`` of a constant matrix with it makes
   a product of each column (or row), and its backward ``X.T @ G`` pends
   until flattened into the coordinates, where coordinate ``i`` reads
   product ``i % K``'s row ``i / K`` (``(n, K)``) or product ``i / p``'s
   row ``i % p`` (``(K, p)``).
 
-Stages.  Sums, maxes and products are stages, kept in trace order: a sum
+Stages.  Sums, maxes, products and running sums are stages, kept in trace
+order: a sum
 or a max over an index space of pieces (a max's value and tangent those
 of the first index that attains it; at most :data:`KMAX` chain values,
 such as the bimodal target's ``stack([a, b])``, fold at lowering time
@@ -61,9 +66,14 @@ instead), and a product ``M u`` of a constant ``(r, c)`` matrix
 (``mv``, ``mm``/``bmm`` with a column or a row, their ``add`` forms,
 ``einsum``, ``linear`` and ``matmul`` as they trace) with a vector of the
 chain, from the coordinates to the coordinates (``A @ y``), to the rows of a
-data vector (``X @ y``) or back (``X.T @ s``).  The matrix is hoisted as it
-lies in memory, row- or column-major, so ``X`` and ``X.T`` share one block.
-A stage may read earlier stages.  Products are linear, so the tangent of
+data vector (``X @ y``) or back (``X.T @ s``), and a running sum over the
+coordinates (``cumsum``, a ``"prefix"`` scan; ``flip(cumsum(flip(u)))``,
+``cumsum``'s backward, a ``"suffix"`` scan of ``u``: a flip of a vector that
+reads a stage is a :class:`Rev`, which only ``cumsum`` and a second flip
+read), a product with the triangular matrix of ones that is never hoisted
+(``Product.scan``).  A matrix is hoisted as it lies in memory, row- or
+column-major, so ``X`` and ``X.T`` share one block.  A stage may read
+earlier stages.  Products and running sums are linear, so the tangent of
 ``M u`` is ``M du``.
 
 The lowering adds forward-mode tangents (a dual-number rule per op) to give
@@ -75,10 +85,15 @@ coordinate past 1 is read through it, so such a read adds no context.
 
 Where the stages are formed.  A product whose input lies over the
 coordinates and has degree at most 1 in ``t`` (``x``, ``A (x - mu)``,
-``X b``) is affine along K1's and K3/K5's flows, so those kernels form it
-once per transition (``Lowered.trans``, ``UserPotential::form``): the
-chain's lanes split its rows and add each in column order, ``c0 = M u(x)``
-and ``c1 = M du(x; v)`` at the transition's start, and every point reads
+``X b``, and an earlier such product's output: ``y - s cumsum(z)``) is
+affine along K1's and K3/K5's flows, so those kernels form it once per
+transition (``Lowered.trans``, ``UserPotential::form``, in stage order, the
+lanes meeting at a ``__syncwarp`` before a stage that reads an earlier
+one): the chain's lanes split its rows and add each in column order (a
+running sum: each lane adds a run of coordinates in order, then the runs'
+totals before it by shuffle in run order, :func:`ordered_scan` with the
+lanes' count), ``c0 = M u(x)`` and ``c1 = M du(x; v)`` at the transition's
+start, and every point reads
 element ``r`` as ``c0[r] + t c1[r]`` with tangent ``c1[r]`` (the
 Boomerang's elliptic flow: ``a cos t + c1 sin t + mc`` and ``c1 cos t - a
 sin t``, ``a = c0 - mc``, ``mc = M u(0)`` hoisted into the parameters),
@@ -87,10 +102,11 @@ at the point.  A max is not a moment, so K1 and K6 form any stage that reads
 one at each point.  K3/K5 and K4 form it at every point they evaluate, one lane
 walking the chain (``UserPotential::sums``): a coordinate-space input in
 the lane's local memory, a data vector streamed row by row (each row's
-product formed where it is read), every sum and every product element
-added in index order, as the plain version's ``ordered_sum`` and
-``ordered_matvec`` add, so the two agree bit for bit where the kernel rounds
-as torch does (``-fmad=false``).  K1 and K6 reduce sums of summands of
+product formed where it is read), every sum, every product element and
+every running sum added in index order, as the plain version's
+``ordered_sum``, ``ordered_matvec`` and ``ordered_scan`` add, so the two
+agree bit for bit where the kernel rounds as torch does (``-fmad=false``).
+K1 and K6 reduce sums of summands of
 degree at most 2 in ``t`` that read their own coordinate and coordinates 0
 and 1 once per transition as chain moments, extrapolated along the linear
 flow in truncated Taylor arithmetic of order 2 (exact there); a gradient
@@ -99,18 +115,21 @@ K1's lane forms the stages at each point it evaluates, as K3 does, and
 K6's block forms them together (``UserPotential::fill``: each stage's
 positions across the threads, products' inputs and outputs in shared
 memory, sums by a two-level reduction, maxes by one of (value, tangent,
-index) whose ties take the lower index).  The plain version forms the
+index) whose ties take the lower index, running sums by a block scan with
+a barrier between the warps' totals and their reads).  The plain version forms the
 per-transition products as the kernels do (``Lowered.along``).
 
 A gradient that reads coordinates other than its own (neighbours, fixed
-coordinates) sets ``reads_others``: K6 then publishes the chain's values to
+coordinates, a flip's ``c - i``) sets ``reads_others``: K6 then publishes the chain's values to
 every warp before it reads them.
 
 Anything else (a product of two vectors of the chain, a matrix that depends
-on ``x``, ``cumsum``, ``roll`` and other couplings, one element of a
-product, a product's element at another index, a data vector into other
-data rows, a short axis past :data:`KMAX`, a branch on a value of ``x``, an
-op outside the set) raises
+on ``x``, ``cumprod`` and other couplings, one element of a product, a
+product's or a running sum's element at another index (``roll(A @ x, 1)``,
+a flip of a running sum other than the suffix form), a running sum of a
+matrix or of a data vector, a data vector into other data rows, a short
+axis past :data:`KMAX`, a branch on a value of ``x``, an op outside the
+set) raises
 :class:`LoweringError` naming the op and its node, before any build or
 launch.  The result is cached on the sampler by (kernel, d, dtype).
 """
@@ -191,13 +210,13 @@ class Node:
 
     __slots__ = ("op", "args", "attr", "id", "lane", "fixed", "deg", "boolean", "space")
 
-    def __init__(self, op, args, attr, nid, space=None):
+    def __init__(self, op, args, attr, nid, space=None, affine=False):
         self.op, self.args, self.attr, self.id = op, args, attr, nid
         self.lane = op in _LANE_LEAVES or op == "sel" or any(a.lane for a in args)
         self.fixed = op in _FIXED_LEAVES or any(a.fixed for a in args)
         self.boolean = op in _BOOL_OPS or (op == "lit" and isinstance(attr, bool)) or (
             op == "where" and args[1].boolean) or (op == "sel" and args[0].boolean)
-        self.deg = _degree(op, args)
+        self.deg = _degree(op, args, affine)
         self.space = space
 
     def text(self) -> str:
@@ -240,8 +259,8 @@ _FIXED_LEAVES = {"mv", "dmv", "mvx", "dmvx", "prmd"}
 _FAR = {"yo", "wo", "yk", "wk", "ya", "wa"}
 """Reads of a neighbour (``yo``/``wo`` at offset ``attr``), of a fixed
 coordinate past 1 (``yk``/``wk`` at ``attr``) or of coordinate ``s i + c``
-(``ya``/``wa`` at ``attr = (s, c)``: a column of a view of x as a matrix),
-through the kernel's accessor ``yw``."""
+(``ya``/``wa`` at ``attr = (s, c)``: a column of a view of x as a matrix,
+or with ``s = -1`` a flip), through the kernel's accessor ``yw``."""
 _PRODUCT_LEAVES = {"mv", "dmv", "mvx", "dmvx"}
 """Reads of a product's element: at the index (``mv``), or at row ``(i -
 c) / s`` (``mvx`` at ``attr = (m, s, c)``: the rows of a product read where
@@ -253,9 +272,14 @@ _BOOL_OPS = {"gt", "ge", "lt", "le", "eq", "ne", "not", "and", "or"}
 _LINEAR = {"add", "sub", "neg"}
 
 
-def _degree(op, args):
+def _degree(op, args, affine=False):
+    """Degree in ``t`` of ``op`` on ``args``; ``affine``: a product whose
+    input is affine in the point (``Graph.mv_affine``), itself affine,
+    ``c0 + t c1``, its tangent constant."""
     if op in ("y", "y0", "y1", "yo", "yk", "ya"):
         return 1
+    if affine and op in ("mv", "dmv"):
+        return 1 if op == "mv" else 0
     if op in ("red", "dred", "mv", "dmv", "mvx", "dmvx", "sel"):
         return INF
     if not args or all(a.deg == 0 for a in args):
@@ -280,6 +304,7 @@ class Graph:
         self.dtype = dtype
         self.nodes: Dict[tuple, Node] = {}
         self.mv_space: Dict[int, object] = {}  # product -> its output's index space
+        self.mv_affine: set = set()  # products of an input affine in the point
 
     def mk(self, op, *args, attr=None) -> Node:
         folded = self._fold(op, args, attr)
@@ -290,7 +315,8 @@ class Graph:
         node = self.nodes.get(key)
         if node is None:
             node = self.nodes[key] = Node(op, args, attr, len(self.nodes),
-                                          self._space(op, args, attr))
+                                          self._space(op, args, attr),
+                                          op in ("mv", "dmv") and attr in self.mv_affine)
         return node
 
     def _space(self, op, args, attr):
@@ -453,6 +479,11 @@ class Graph:
         leaf (``y``/``w`` itself at 0)."""
         return self.mk(kind) if delta == 0 else self.mk(f"{kind}o", attr=delta)
 
+    def affine(self, kind: str, s: int, c: int) -> Node:
+        """The position or velocity of coordinate ``s i + c``: a neighbour
+        where ``s`` is 1, else ``ya``/``wa`` (``s = -1``: a flip's read)."""
+        return self.near(kind, c) if s == 1 else self.mk(f"{kind}a", attr=(s, c))
+
     def pin(self, n: Node, k: int, memo=None) -> Node:
         """A lane expression read at the fixed coordinate ``k``: a chain
         value."""
@@ -586,10 +617,20 @@ class Pend(NamedTuple):
     err: Bad
 
 
+class Rev(NamedTuple):
+    """``flip(u)`` of a vector that reads a stage's output at its own index:
+    read only by ``cumsum``, whose prefix scan of it is ``flip`` of the
+    suffix scan of ``u`` (``Rev`` again), and by a second ``flip``, which
+    gives ``u`` back, so that ``flip(cumsum(flip(u)))`` (the backward of
+    ``cumsum``) is one suffix scan; read otherwise, it raises (``err``)."""
+    vec: Vec
+    err: Bad
+
+
 class Lowered:
     """A lowered gradient at one (kernel, d, dtype): the output's pieces over
-    the coordinates, its stages in trace order (``("red", r)``, a sum;
-    ``("mv", m)``, a product ``M u``), the sums' pieces (``reductions``) and
+    the coordinates, its stages in trace order (``("red", r)``, a sum or a
+    max; ``("mv", m)``, a product ``M u`` or a running sum), the sums' pieces (``reductions``) and
     index spaces, the products, the hoisted parameters (``params``, a float64
     vector, empty when there are none) and, from them, the torch pair and the
     header.  ``trans``: the products formed once per transition (stage
@@ -674,7 +715,7 @@ class Lowered:
         once per transition are not counted."""
         sums = 2 * len(self.reductions) + 2 * len(self.slot) * self.slot_rows
         inputs = sum(2 * pr.cols for m, pr in self.products.items()
-                     if pr.in_space == "c" and m not in self.toff)
+                     if pr.in_space == "c" and m not in self.toff and not pr.scan)
         rows = [self.products[m] for m in self.slot if self.products[m].in_space != "c"]
         walk = sum(2 + (2 * pr.rows if _unroll(pr.rows) else 0) for pr in rows)
         return (((2 if self.kernel == "zigzag" else 1) * sums + inputs + walk)
@@ -732,26 +773,29 @@ class Lowered:
                 out[m] = (c0 + tau * c1, c1)
         return out
 
-    def along(self, x: torch.Tensor, v: torch.Tensor, elliptic: bool = False):
+    def along(self, x: torch.Tensor, v: torch.Tensor, elliptic: bool = False,
+              parts: Optional[int] = None):
         """``pair(y, w, tau) -> (g, H(y) w)``: the pair at the point ``(y,
         w)`` the flow reaches at times ``tau`` from the transition's start
         ``(x, v)`` (``(d, N)`` chains), its per-transition products formed
         once from ``(x, v)``, ``c0 = M u(x)`` and ``c1 = M du(x; v)``, every
-        element added in column order as the kernels' ``form`` adds it, and
-        read at ``tau`` (:meth:`_read`), every other stage formed at the
-        point (``w`` None: the gradient alone): the plain version of the
-        kernels' pair."""
-        c0s, c1s = self._eval(x, v, only=set(self.trans))
+        element added in column order as the kernels' ``form`` adds it (a
+        running sum in ``parts`` runs, :data:`FORM_PARTS` by default: the
+        caller's lanes), and read at ``tau`` (:meth:`_read`), every other
+        stage formed at the point (``w`` None: the gradient alone): the
+        plain version of the kernels' pair."""
+        c0s, c1s = self._eval(x, v, only=set(self.trans), parts=parts or FORM_PARTS)
 
         def pair(y, w, tau):
             return self._eval(y, w, fixed=self._read(c0s, c1s, tau, elliptic))
 
         return pair
 
-    def _eval(self, y, w, fixed=None, only=None, prm=None):
+    def _eval(self, y, w, fixed=None, only=None, prm=None, parts=None):
         """The pair at ``(y, w)`` (``w`` None: the gradient alone); ``fixed``
         the per-transition products' values and tangents there, their stages
-        skipped; ``only`` a set of products, formed alone and returned as
+        skipped; ``only`` a set of products, formed alone (a running sum in
+        ``parts`` runs, :data:`FORM_PARTS` by default) and returned as
         ``(values, tangents)`` dicts."""
         prm = self.params_on(y.device, y.dtype) if prm is None else prm
         key = (y.device, y.dtype)
@@ -785,7 +829,9 @@ class Lowered:
                 out = (y if op == "yk" else w)[n.attr]
             elif op in ("ya", "wa"):
                 st, c = n.attr
-                out = (y if op == "ya" else w)[st * lo + c:st * (hi - 1) + c + 1:st]
+                src = y if op == "ya" else w
+                out = (src[st * lo + c:st * (hi - 1) + c + 1:st] if st > 0 else
+                       src[torch.arange(lo, hi, device=y.device) * st + c])
             elif op == "prm":
                 out = prm[n.attr + lo:n.attr + hi, None]
             elif op == "prmd":
@@ -846,8 +892,13 @@ class Lowered:
                 us.append(u if w is None else torch.cat([u, assemble(pieces, tangents)], 1))
             if not us:
                 continue
-            out = (ordered_sum(us[0], 0)[0] if kind == "red"
-                   else ordered_matvec(self.matrix(s, prm), torch.cat(us, 1)))
+            if kind == "red":
+                out = ordered_sum(us[0], 0)[0]
+            elif self.products[s].scan:  # the kernels' runs where formed per transition
+                out = ordered_scan(torch.cat(us, 1), self.products[s].scan,
+                                   (parts or FORM_PARTS) if only is not None else 1)
+            else:
+                out = ordered_matvec(self.matrix(s, prm), torch.cat(us, 1))
             for q, (_, m) in enumerate(group):
                 part = out[..., q * us[0].shape[1]:(q + 1) * us[0].shape[1]]
                 (red, prod)[kind != "red"][m] = part[..., :n]
@@ -875,7 +926,7 @@ class Lowered:
 
     def _key(self, m):
         pr = self.products[m]
-        return pr.moff, pr.colmajor, pr.rows, pr.cols, pr.in_space == "c"
+        return pr.scan, pr.moff, pr.colmajor, pr.rows, pr.cols, pr.in_space == "c"
 
     def _reads_products(self, m) -> set:
         """The products product ``m``'s input reads."""
@@ -1032,60 +1083,131 @@ class Lowered:
 
     def _form_cpp(self):
         """``form``: the per-transition products at the transition's start,
-        each row added in column order as ``ordered_matvec`` adds it.  The
-        caller takes rows ``part``, ``part + parts``, ... of every product
-        (the lanes of a chain read adjacent rows, so a column-major matrix
-        is read in whole sectors), :data:`FORM_ROWS` at a time: their
-        accumulators are independent chains of adds, and the input's pieces
-        are evaluated once for them, where their columns are read."""
-        nb = FORM_ROWS
+        in stage order.  A matrix's rows: the caller takes rows ``part``,
+        ``part + parts``, ... of it (the lanes of a chain read adjacent rows,
+        so a column-major matrix is read in whole sectors), :data:`FORM_ROWS`
+        at a time, each added in column order: their accumulators are
+        independent chains of adds, and the input's pieces are evaluated
+        once for them, where their columns are read.  A running sum: the
+        caller takes a run of coordinates (mirrored for a suffix) and adds
+        it in order, then the totals of the runs before it, by shuffle in
+        run order (:func:`ordered_scan`).  A stage that reads an earlier one
+        (``y - s cumsum(z)``) reads its ``c0`` and ``c1`` after a
+        ``__syncwarp`` of the caller's lanes."""
         out = [
             "  // the products formed once per transition: c0 = M u(x) and c1 = M du(x; v)",
             "  // at the transition's start (yw(j, y, w) gives coordinate j's x and v),",
-            "  // value q of the chain at pv[q * ps], c0's rows then c1's; this caller",
-            "  // forms rows part, part + parts, ... of every product, " + str(nb) + " at a time,",
-            "  // each row added in column order",
+            "  // value q of the chain at pv[q * ps], c0's rows then c1's; the caller is",
+            "  // lane `part` of the chain's `parts` lanes, which call it together",
             "  template <class F>",
             "  __device__ __forceinline__ static void form(int d, int part, int parts,",
             "                                              const T* prm, F yw, T* pv, long ps) {",
             "    (void)d; (void)prm; (void)yw;",
+            "    // the chain's lanes: the caller's aligned group of `parts` in its warp",
+            "    const unsigned mask = parts >= 32 ? 0xffffffffu",
+            "        : ((1u << parts) - 1u) << ((threadIdx.x & 31) & ~(parts - 1));",
+            "    (void)mask;",
         ]
         if any(_leaves(p.e) & _FIRST for m in self.trans for p in self.products[m].vec.pieces):
             out += _READ01
+        done: set = set()
         for m in self.trans:
-            pr, o = self.products[m], self.toff[m]
-            R = pr.rows
-            out += [f"    // product {m}: ({R} x {pr.cols}) u",
-                    f"    for (int j = part; j < {R}; j += {nb} * parts) {{",
-                    f"      T acc[{nb}], dacc[{nb}];",
-                    f"      int rs[{nb}];",
-                    "#pragma unroll",
-                    f"      for (int k = 0; k < {nb}; ++k) {{",
-                    f"        rs[k] = min(j + k * parts, {R - 1});  // a row past the last repeats it",
-                    "        acc[k] = dacc[k] = (T)0;",
-                    "      }"]
-            for p, dp in zip(pr.vec.pieces, self.d_mv[m]):
-                em = self._emit()
-                v, dv = em.name(p.e), em.name(dp) if dp is not None else "(T)0"
-                out += [f"      for (int q = {p.a}; q < {p.b}; ++q) {{  // {p.e.text()}",
-                        f"        const int i = q + {p.off or 0};", "        (void)i;"]
-                if self._reads_point(p.e, dp):
-                    out += ["        T y, w;", "        yw(i, y, w);", "        (void)y; (void)w;"]
-                out += ["        " + s for s in em.lines]
-                out += ["#pragma unroll",
-                        f"        for (int k = 0; k < {nb}; ++k) {{",
-                        f"          const T a = {self._m(m, 'rs[k]', 'q')};",
-                        f"          acc[k] = q == 0 ? a * {v} : acc[k] + a * {v};",
-                        f"          dacc[k] = q == 0 ? a * {dv} : dacc[k] + a * {dv};",
-                        "        }", "      }"]
-            out += ["#pragma unroll",
-                    f"      for (int k = 0; k < {nb}; ++k) {{",
-                    f"        if (j + k * parts < {R}) {{",
-                    f"          pv[({o} + rs[k]) * ps] = acc[k];",
-                    f"          pv[({o + R} + rs[k]) * ps] = dacc[k];",
-                    "        }", "      }", "    }"]
+            if self._reads_products(m) & done:
+                out.append("    __syncwarp(mask);  // the earlier products' rows, every lane's")
+            out += self._form_scan(m) if self.products[m].scan else self._form_rows(m)
+            done.add(m)
         out.append("  }")
         return out
+
+    def _form_emit(self) -> "_Emit":
+        """An emitter for ``form``: an earlier per-transition product's
+        element is its ``c0`` (tangent ``c1``) as it lies in ``pv``."""
+        def leaf(op, m, at):
+            o = self.toff[m] + (self.products[m].rows if op == "dmv" else 0)
+            return f"pv[({o} + ({at})) * ps]"
+        return _Emit(self.b, leaf=leaf)
+
+    def _form_input(self, p, dp, q):
+        """A piece of a per-transition product's input at position ``q``:
+        its statements and the value and tangent's names."""
+        em = self._form_emit()
+        v, dv = em.name(p.e), em.name(dp) if dp is not None else "(T)0"
+        lines = [f"const int i = {q} + {p.off or 0};", "(void)i;"]
+        if self._reads_point(p.e, dp):
+            lines += ["T y, w;", "yw(i, y, w);", "(void)y; (void)w;"]
+        return lines + em.lines, v, dv
+
+    def _form_rows(self, m):
+        nb = FORM_ROWS
+        pr, o = self.products[m], self.toff[m]
+        R = pr.rows
+        out = [f"    // product {m}: ({R} x {pr.cols}) u, rows part, part + parts, ...",
+               f"    for (int j = part; j < {R}; j += {nb} * parts) {{",
+               f"      T acc[{nb}], dacc[{nb}];",
+               f"      int rs[{nb}];",
+               "#pragma unroll",
+               f"      for (int k = 0; k < {nb}; ++k) {{",
+               f"        rs[k] = min(j + k * parts, {R - 1});  // a row past the last repeats it",
+               "        acc[k] = dacc[k] = (T)0;",
+               "      }"]
+        for p, dp in zip(pr.vec.pieces, self.d_mv[m]):
+            lines, v, dv = self._form_input(p, dp, "q")
+            out += [f"      for (int q = {p.a}; q < {p.b}; ++q) {{  // {p.e.text()}"]
+            out += ["        " + s for s in lines]
+            out += ["#pragma unroll",
+                    f"        for (int k = 0; k < {nb}; ++k) {{",
+                    f"          const T a = {self._m(m, 'rs[k]', 'q')};",
+                    f"          acc[k] = q == 0 ? a * {v} : acc[k] + a * {v};",
+                    f"          dacc[k] = q == 0 ? a * {dv} : dacc[k] + a * {dv};",
+                    "        }", "      }"]
+        return out + ["#pragma unroll",
+                      f"      for (int k = 0; k < {nb}; ++k) {{",
+                      f"        if (j + k * parts < {R}) {{",
+                      f"          pv[({o} + rs[k]) * ps] = acc[k];",
+                      f"          pv[({o + R} + rs[k]) * ps] = dacc[k];",
+                      "        }", "      }", "    }"]
+
+    def _form_scan(self, m):
+        pr, o = self.products[m], self.toff[m]
+        R, suffix = pr.rows, pr.scan == "suffix"
+        at = f"{R - 1} - r" if suffix else "r"  # run position r's coordinate
+        out = [f"    {{  // running sum {m} ({pr.scan}) over {R} coordinates: this lane's run",
+               f"      const int per = ({R} + parts - 1) / parts;",
+               f"      const int r0 = min({R}, part * per), r1 = min({R}, r0 + per);",
+               "      T s = (T)0, ds = (T)0;",
+               "      bool first = true;"]
+        pieces = list(zip(pr.vec.pieces, self.d_mv[m]))
+        for p, dp in (pieces[::-1] if suffix else pieces):
+            # positions [a, b) are run positions [R - b, R - a) of a suffix
+            lo, hi = (R - p.b, R - p.a) if suffix else (p.a, p.b)
+            lines, v, dv = self._form_input(p, dp, "c")
+            out += [f"      for (int r = max(r0, {lo}); r < min(r1, {hi}); ++r) {{  "
+                    f"// {p.e.text()}",
+                    f"        const int c = {at};"]
+            out += ["        " + s for s in lines]
+            out += [f"        s = first ? {v} : s + {v};",
+                    f"        ds = first ? {dv} : ds + {dv};",
+                    "        first = false;",
+                    f"        pv[({o} + c) * ps] = s;",
+                    f"        pv[({o + R} + c) * ps] = ds;",
+                    "      }"]
+        return out + [
+            "      // the totals of the runs before this one, added in run order",
+            "      T off = (T)0, doff = (T)0;",
+            "      for (int k = 0; k < parts; ++k) {",
+            "        const T tk = __shfl_sync(mask, s, k, parts);",
+            "        const T dtk = __shfl_sync(mask, ds, k, parts);",
+            "        if (k < part) {",
+            "          off = off + tk;",
+            "          doff = doff + dtk;",
+            "        }",
+            "      }",
+            "      for (int r = r0; r < r1; ++r) {",
+            f"        const int c = {at};",
+            f"        pv[({o} + c) * ps] = off + pv[({o} + c) * ps];",
+            f"        pv[({o + R} + c) * ps] = doff + pv[({o + R} + c) * ps];",
+            "      }",
+            "    }"]
 
     def _sums_cpp(self):
         """``sums``: every stage formed at the point, one lane walking the
@@ -1170,6 +1292,8 @@ class Lowered:
         rows are data rows (formed row by row where read)."""
         pr, tangents = self.products[m], self.d_mv[m]
         R, C = pr.rows, pr.cols
+        if pr.scan:
+            return self._lane_scan(m)
         out = [f"    T u{m}[{C}], du{m}[{C}];  // product {m}: ({R} x {C}) u"]
         for p, dp in zip(pr.vec.pieces, tangents):
             em = self._emit(leaf=self._coord_leaf)
@@ -1198,6 +1322,31 @@ class Lowered:
             f"      cs.c[{k}][r] = acc;",
             f"      cs.dc[{k}][r] = dacc;",
             "    }"]
+
+    def _lane_scan(self, m):
+        """A running sum at the point: the lane adds its input into the
+        coordinates' slot in index order (from the last coordinate for a
+        suffix), as :func:`ordered_scan` adds with one part."""
+        pr, k = self.products[m], self.slot[m]
+        suffix = pr.scan == "suffix"
+        out = [f"    bool first{m} = true;  // running sum {m} ({pr.scan})"]
+        pieces = list(zip(pr.vec.pieces, self.d_mv[m]))
+        for p, dp in (pieces[::-1] if suffix else pieces):
+            em = self._emit(leaf=self._coord_leaf)
+            v, dv = em.name(p.e), em.name(dp) if dp is not None else "(T)0"
+            prev = "p + 1" if suffix else "p - 1"
+            loop = (f"for (int p = {p.b - 1}; p >= {p.a}; --p)" if suffix
+                    else f"for (int p = {p.a}; p < {p.b}; ++p)")
+            out += ["    " + u for u in _unroll(p.b - p.a)]
+            out += [f"    {loop} {{  // {p.e.text()}",
+                    f"      const int i = p + {p.off or 0};", "      (void)i;"]
+            if self._reads_point(p.e, dp):
+                out += ["      T y, w;", "      yw(i, y, w);", "      (void)y; (void)w;"]
+            out += ["      " + s for s in em.lines]
+            out += [f"      cs.c[{k}][p] = first{m} ? {v} : cs.c[{k}][{prev}] + {v};",
+                    f"      cs.dc[{k}][p] = first{m} ? {dv} : cs.dc[{k}][{prev}] + {dv};",
+                    f"      first{m} = false;", "    }"]
+        return out
 
     def _lane_rows(self, ms):
         """Products of one matrix from data rows into the coordinates (one, or
@@ -1272,6 +1421,9 @@ class Lowered:
         ]
         if "max" in self.red_kind:
             out += _BLOCK_MAX
+        scans = any(pr.scan for pr in self.products.values())
+        if scans:
+            out += _BLOCK_SCAN
         out += [
             "  // every sum and product at one point, by the block: shm holds each",
             "  // product's input and output (shared_bytes); yw(j, y, w) gives",
@@ -1286,6 +1438,8 @@ class Lowered:
             out.append(f"    __shared__ T rows[{2 * len(self.reductions)}][32];")
         if "max" in self.red_kind:
             out.append(f"    __shared__ int irows[{len(self.reductions)}][32];")
+        if scans:
+            out.append("    __shared__ T srows[2][32];  // the running sums' warp totals")
         off = 0
         for kind, m in self.stages:
             if kind != "mv":
@@ -1336,9 +1490,15 @@ class Lowered:
                         f"    cs.ds[{s}] = block_sum(dpart{s}, rows[{2 * s + 1}]);"]
                 continue
             pr = self.products[s]
-            out.append(f"    // product {s}: ({pr.rows} x {pr.cols}) u")
+            out.append(f"    // {'running sum' if pr.scan else 'product'} {s}: "
+                       f"({pr.rows} x {pr.cols}) u")
             out += loop(pr.vec.pieces, self.d_mv[s],
                         lambda v, dv, s=s: [f"u{s}[p] = {v};", f"du{s}[p] = {dv};"])
+            if pr.scan:
+                out += ["    __syncthreads();",
+                        f"    block_scan(u{s}, du{s}, o{s}, do{s}, {pr.rows}, "
+                        f"{'true' if pr.scan == 'suffix' else 'false'}, srows[0], srows[1]);"]
+                continue
             a0 = self._m(s, "r", "0")
             out += ["    __syncthreads();",
                     f"    for (int r = tid; r < {pr.rows}; r += nt) {{",
@@ -1401,6 +1561,37 @@ UNROLL = 32
 small arrays (a product's input, the accumulators) live in registers."""
 FORM_ROWS = 4
 """Rows of a per-transition product one lane forms at once (``form``)."""
+FORM_PARTS = 32
+"""Runs of a per-transition running sum: K3/K5's warp forms it in 32, K1's
+group in its L lanes (``driver`` hands the plain version K1's L)."""
+
+
+def ordered_scan(u: torch.Tensor, kind: str, parts: int = 1) -> torch.Tensor:
+    """The running sum over axis 0 of ``(n, B)`` values, ``kind``
+    ``"prefix"`` (``cumsum``) or ``"suffix"`` (from the last position), in
+    the kernels' order: ``parts`` runs of ``ceil(n / parts)`` positions
+    (mirrored for a suffix), each added in order, then each run's values
+    after the totals of the runs before it, added in run order as ``form``'s
+    shuffles add them; ``parts`` 1: one lane walking the chain
+    (``UserPotential::sums``), as :func:`ordered_sum` adds."""
+    n = u.shape[0]
+    a = u.flip(0) if kind == "suffix" else u
+    per = -(-n // parts)
+    if parts * per > n:  # empty runs past the last position
+        a = torch.cat([a, a.new_zeros((parts * per - n,) + a.shape[1:])])
+    a = a.reshape((parts, per) + a.shape[1:])
+    runs = [a[:, 0]]
+    for j in range(1, per):
+        runs.append(runs[-1] + a[:, j])
+    out = torch.stack(runs, 1)
+    if parts > 1:
+        off, offs = torch.zeros_like(out[0, -1]), []
+        for k in range(parts):
+            offs.append(off)
+            off = off + out[k, -1]
+        out = torch.stack(offs)[:, None] + out
+    out = out.reshape((parts * per,) + out.shape[2:])[:n]
+    return out.flip(0) if kind == "suffix" else out
 
 
 def _unroll(n: int) -> List[str]:
@@ -1444,6 +1635,59 @@ _BLOCK_MAX = [
     "  }",
 ]
 """K6's block max (``UserPotential::fill``), beside its ``block_sum``."""
+
+_BLOCK_SCAN = [
+    "  // a block's running sum of n values and their tangents, u into o (from the",
+    "  // last position where rev): thread tid adds its run of ceil(n / nt) positions",
+    "  // (mirrored where rev) in order, the runs' totals are scanned by a warp's",
+    "  // shuffles and the warp totals (row, drow) by every warp, and each run adds",
+    "  // the totals before it; every thread calls it, and o is read after it",
+    "  __device__ static void block_scan(const T* u, const T* du, T* o, T* dout, int n,",
+    "                                    bool rev, T* row, T* drow) {",
+    "    const int tid = threadIdx.x, nt = blockDim.x, l = tid & 31, wp = tid >> 5;",
+    "    const int per = (n + nt - 1) / nt;",
+    "    const int r0 = min(n, tid * per), r1 = min(n, r0 + per);",
+    "    T s = (T)0, ds = (T)0;",
+    "    for (int r = r0; r < r1; ++r) {",
+    "      const int c = rev ? n - 1 - r : r;",
+    "      s = r == r0 ? u[c] : s + u[c];",
+    "      ds = r == r0 ? du[c] : ds + du[c];",
+    "      o[c] = s;",
+    "      dout[c] = ds;",
+    "    }",
+    "    T a = s, da = ds;  // the warp's inclusive scan of the runs' totals",
+    "#pragma unroll",
+    "    for (int k = 1; k < 32; k <<= 1) {",
+    "      const T b = __shfl_up_sync(0xffffffffu, a, k);",
+    "      const T db = __shfl_up_sync(0xffffffffu, da, k);",
+    "      if (l >= k) {",
+    "        a = a + b;",
+    "        da = da + db;",
+    "      }",
+    "    }",
+    "    if (l == 31) {",
+    "      row[wp] = a;",
+    "      drow[wp] = da;",
+    "    }",
+    "    __syncthreads();",
+    "    T off = __shfl_up_sync(0xffffffffu, a, 1), doff = __shfl_up_sync(0xffffffffu, da, 1);",
+    "    if (l == 0) off = doff = (T)0;",
+    "    T wo = (T)0, dwo = (T)0;",
+    "    for (int k = 0; k < wp; ++k) {",
+    "      wo = wo + row[k];",
+    "      dwo = dwo + drow[k];",
+    "    }",
+    "    off = wo + off;",
+    "    doff = dwo + doff;",
+    "    for (int r = r0; r < r1; ++r) {",
+    "      const int c = rev ? n - 1 - r : r;",
+    "      o[c] = off + o[c];",
+    "      dout[c] = doff + dout[c];",
+    "    }",
+    "    __syncthreads();",
+    "  }",
+]
+"""K6's block scan of a running sum formed at the point (``UserPotential::fill``)."""
 
 
 _READ01 = ["    T y0, w0, y1, w1;", "    yw(0, y0, w0);",
@@ -1531,8 +1775,9 @@ class _Emit:
             j = f"{self.idx} {'+' if n.attr > 0 else '-'} {abs(n.attr)}"
         elif n.op in ("ya", "wa"):
             st, c = n.attr
-            tag = f"s{st}{'p' if c >= 0 else 'm'}{abs(c)}"
-            j = f"{st} * {self.idx} {'+' if c >= 0 else '-'} {abs(c)}"
+            tag = f"s{'m' if st < 0 else ''}{abs(st)}{'p' if c >= 0 else 'm'}{abs(c)}"
+            j = (f"{c} - {self.idx}" if st == -1 else
+                 f"{st} * {self.idx} {'+' if c >= 0 else '-'} {abs(c)}")
         else:
             tag, j = f"k{n.attr}", str(n.attr)
         if tag not in self.read:
@@ -1662,8 +1907,11 @@ _RESHAPE = {"view", "reshape", "_unsafe_view", "unsqueeze", "squeeze", "expand",
 _PRODUCTS = {"mm", "mv", "dot", "vdot", "addmm", "addmv", "bmm"}
 """Products the kernels evaluate where one operand is a constant matrix
 (``matmul``, ``linear`` and ``einsum`` reach the trace as these)."""
-_COUPLING = {"outer", "cumsum", "cumprod", "flip", "roll", "sort", "gather", "index",
-             "index_select", "take", "conv1d", "convolution"}
+_SCANS = {"cumsum", "flip", "roll"}
+"""Running sums (a stage), flips and periodic shifts along the coordinates
+(reads at ``d - 1 - i`` and pieces moved), kept undecomposed."""
+_COUPLING = {"outer", "cumprod", "sort", "gather", "index", "index_select", "take", "conv1d",
+             "convolution"}
 """Ops that couple coordinates otherwise (kept undecomposed, so that a refusal
 names them)."""
 
@@ -1677,7 +1925,7 @@ decompositions, which keep them whole."""
 def _decompositions():
     from torch._decomp import core_aten_decompositions, decomposition_table
 
-    whole = _PRODUCTS | _COUPLING | {"matmul", "einsum", "linear"}
+    whole = _PRODUCTS | _COUPLING | _SCANS | {"matmul", "einsum", "linear"}
     table = dict(core_aten_decompositions())
     for op in list(table):
         name = getattr(op, "name", lambda: str(op))()
@@ -1695,7 +1943,10 @@ class Product(NamedTuple):
     (``M[r, c]`` at ``moff + c * rows + r`` where ``colmajor``, else at
     ``moff + r * cols + c``) and a vector ``vec`` of ``cols`` positions;
     ``space`` is its output's index space (``"c"`` where ``rows == d``, else
-    the data length ``rows``), ``in_space`` its input's."""
+    the data length ``rows``), ``in_space`` its input's.  ``scan``: a
+    running sum over the coordinates, ``"prefix"`` (``cumsum``) or
+    ``"suffix"`` (``flip(cumsum(flip(u)))``), the product with a triangular
+    matrix of ones, which is never hoisted (``moff`` -1)."""
     rows: int
     cols: int
     moff: int
@@ -1703,6 +1954,7 @@ class Product(NamedTuple):
     vec: "Vec"
     space: object
     in_space: object
+    scan: Optional[str] = None
 
 
 def _nonunit(shape) -> int:
@@ -1957,15 +2209,158 @@ class _Interp:
         if space != "c" and in_space != "c" and not place:
             return self._data_to_data(node)
         moff, colmajor = self.hoist_matrix(M)
-        key = (moff, colmajor, rows, cols, tuple((pc.a, pc.b, pc.off, pc.e.id)
-                                                 for pc in u.pieces))
+        return self._stage(Product(rows, cols, moff, colmajor, u, space, in_space))
+
+    def _stage(self, pr: Product) -> Vec:
+        """The product's stage (one per matrix and input) and its output:
+        an input over the coordinates of degree at most 1 in ``t`` makes
+        an output affine in the point too."""
+        key = (pr.scan, pr.moff, pr.colmajor, pr.rows, pr.cols,
+               tuple((pc.a, pc.b, pc.off, pc.e.id) for pc in pr.vec.pieces))
         if key not in self.mv_index:
             m = self.mv_index[key] = len(self.products)
-            self.b.mv_space[m] = space
+            self.b.mv_space[m] = pr.space
+            if pr.in_space == "c" and all(pc.e.deg <= 1 for pc in pr.vec.pieces):
+                self.b.mv_affine.add(m)
             self.stages.append(("mv", m))
-            self.products.append(Product(rows, cols, moff, colmajor, u, space, in_space))
+            self.products.append(pr)
         e = self.b.mk("mv", attr=self.mv_index[key])
-        return Vec(rows, (Piece(0, rows, 0, e),))
+        return Vec(pr.rows, (Piece(0, pr.rows, 0, e),))
+
+    # -- running sums, flips and periodic shifts ------------------------------
+    def _scan_op(self, node, name, args, kwargs):
+        """``cumsum``, ``flip`` and ``roll`` of a vector along the coordinates,
+        or of a matrix (``flip``, ``roll``) along either axis; a dimension of
+        size 1 is left as it is."""
+        v = args[0]
+        if isinstance(v, Pend):
+            return v.err
+        shape = _shape(node.args[0])
+        if shape is None:
+            return self.refuse(node, "a value of unknown shape")
+        shifts = [0]
+        if name == "flip":
+            dims = list(args[1])
+        elif name == "roll":
+            shifts = [args[1]] if isinstance(args[1], int) else list(args[1])
+            dims = args[2] if len(args) > 2 else kwargs.get("dims", [])
+            dims = [dims] if isinstance(dims, int) else list(dims or [])
+            if not dims:  # a roll of the flattened value
+                if _nonunit(shape) > 1:
+                    return self.refuse(node, "a roll of a matrix without dims")
+                dims = [next((k for k, n in enumerate(shape) if n != 1), 0)]
+        else:
+            dims = [args[1] if len(args) > 1 else kwargs["dim"]]
+        steps = [(dim % max(1, len(shape)), shifts[k % len(shifts)])
+                 for k, dim in enumerate(dims) if shape and shape[dim % len(shape)] != 1]
+        for dim, shift in steps:
+            if isinstance(v, Mat):
+                v = self._mat_move(node, name, v, shape, dim, shift)
+            elif isinstance(v, Node):
+                return self.refuse(node, f"{name} of a scalar")
+            elif name == "cumsum":
+                v = (self._rev(node, self.scan(node, v.vec, "suffix")) if isinstance(v, Rev)
+                     else self.scan(node, v, "prefix"))
+            elif name == "flip":
+                v = v.vec if isinstance(v, Rev) else self._reverse(node, v)
+            else:
+                v = v.err if isinstance(v, Rev) else self._roll(node, v, shift)
+            if isinstance(v, Bad):
+                return v
+        return v
+
+    def _rev(self, node, v):
+        return v if isinstance(v, Bad) else Rev(v, self.refuse(
+            node, "a flip of a stage's output (a product's, or a running sum's) read other "
+            "than by cumsum and a second flip; the kernels read a stage's element at each "
+            "index's own"))
+
+    def _mat_move(self, node, name, m: Mat, shape, dim, shift):
+        """A flip or a roll of a matrix: along its unrolled axis its vectors
+        relabelled at lowering time, along the other each vector's pieces
+        moved."""
+        if name == "cumsum":
+            return self.refuse(node, "a running sum of a matrix")
+        i0, i1 = [k for k, n in enumerate(shape) if n != 1]
+        vecs = list(m.vecs)
+        K = len(vecs)
+        if dim == (i0 if m.kfirst else i1):
+            vecs = vecs[::-1] if name == "flip" else [vecs[(k - shift) % K] for k in range(K)]
+            return m._replace(vecs=tuple(vecs))
+        out = [self._reverse(node, v) if name == "flip" else self._roll(node, v, shift)
+               for v in vecs]
+        bad = next((v for v in out if isinstance(v, (Bad, Rev))), None)
+        return (bad.err if isinstance(bad, Rev) else bad) or m._replace(vecs=tuple(out))
+
+    def _reverse(self, node, v: Vec):
+        """``flip(v)``: position ``p`` reads ``v``'s ``n - 1 - p``, a lane
+        expression's reads of ``x`` becoming reads of coordinate ``c - i``
+        (``ya`` with stride -1), its parameters a hoisted reversed copy; a
+        vector that reads a stage's output is a :class:`Rev`."""
+        n, pieces = v.n, []
+        params = torch.cat(self.params) if self.params else None
+        for pc in v.pieces:
+            a, b = n - pc.b, n - pc.a
+            if pc.off is None:
+                pieces.append(Piece(a, b, None, pc.e))
+                continue
+            ops = {x.op for x in _nodes(pc.e)}
+            if ops & _PRODUCT_LEAVES:
+                return self._rev(node, v)
+            if ops & {"sel", "prmd"}:
+                return self.refuse(node, "a flip of a flattened (n, K) matrix's rows")
+            c = n - 1 + pc.off  # the index read before, at the new index i = p
+
+            def leaf(x, c=c, a=a, b=b):
+                if x.op in ("y", "w", "yo", "wo"):
+                    return self.b.affine(x.op[0], -1, c + (x.attr or 0))
+                if x.op in ("ya", "wa"):
+                    st, c2 = x.attr
+                    return self.b.affine(x.op[0], -st, st * c + c2)
+                if x.op == "prm":  # prm[attr + c - p] at p in [a, b)
+                    lo, hi = x.attr + c - (b - 1), x.attr + c - a + 1
+                    rev = params[lo:hi].flip(0)
+                    return self.b.mk("prm", attr=self.hoist(rev, ("rev", lo, hi)) - a)
+                return None
+
+            pieces.append(Piece(a, b, 0, self.b.relabel(pc.e, leaf, {})))
+        return Vec(n, _merge(sorted(pieces, key=lambda pc: pc.a)))
+
+    def _roll(self, node, v: Vec, shift: int):
+        """``roll(v, shift)``: ``cat(v[n - shift:], v[:n - shift])``, two runs
+        of pieces moved to other positions (their reads keep their
+        coordinates); a stage's output is refused."""
+        n = v.n
+        shift %= n
+        if shift == 0:
+            return v
+        if any(pc.e.fixed for pc in v.pieces):
+            return self.refuse(node, "a roll of a stage's output (a product's, or a running "
+                               "sum's); the kernels read a stage's element at each index's "
+                               "own")
+        runs = ((_slice(v, n - shift, n), 0), (_slice(v, 0, n - shift), shift))
+        pieces = [Piece(pc.a + delta, pc.b + delta, None if pc.off is None else pc.off - delta,
+                        pc.e)
+                  for part, delta in runs for pc in part.pieces]
+        return Vec(n, _merge(pieces))
+
+    def scan(self, node, v, kind: str):
+        """The running sum of a vector over the coordinates (``kind``
+        ``"prefix"``, or ``"suffix"`` from the last coordinate): a stage, a
+        product with the triangular matrix of ones."""
+        if isinstance(v, Bad):
+            return v
+        if not isinstance(v, Vec):
+            return self.refuse(node, "a running sum of a scalar")
+        if v.n == 1:
+            return v
+        space = self.space_of(node, v.pieces, v.n)
+        if isinstance(space, Bad):
+            return space
+        if space != "c" or v.n != self.d:
+            return self.refuse(node, f"a running sum over {v.n} positions that are not the "
+                               f"{self.d} coordinates of x")
+        return self._stage(Product(v.n, v.n, -1, False, v, "c", "c", kind))
 
     def _data_to_data(self, node):
         return self.refuse(node, "a product of a data vector into other data rows; the "
@@ -2081,6 +2476,11 @@ class _Interp:
         bad = next((a for a in _flat(args) if isinstance(a, Bad)), None)
         if bad:
             return bad
+        rev = next((a for a in _flat(args) if isinstance(a, Rev)), None)
+        if rev is not None and name not in _SCANS | _IDENTITY:
+            return rev.err
+        if name in _SCANS:
+            return self._scan_op(node, name, args, kwargs)
         if name in _COUPLING:
             return self.refuse(node, "it couples coordinates other than through a "
                                "constant matrix; the kernels evaluate each coordinate "
@@ -2665,7 +3065,7 @@ class _Interp:
         return Vec(v.n, _merge(pieces))
 
 
-_TRACED = (Vec, Node, Bad, Mat, Pend)
+_TRACED = (Vec, Node, Bad, Mat, Pend, Rev)
 """The interpreter's values that depend on x (or failed to)."""
 
 
@@ -2842,8 +3242,9 @@ def check_reads(pc: Piece, d: int) -> None:
         if x.op in ("yo", "wo") and (lo + x.attr < 0 or hi + x.attr > d):
             raise _refuse(f"positions [{pc.a}, {pc.b}) read coordinates "
                           f"[{lo + x.attr}, {hi + x.attr}), outside [0, {d})")
-        if x.op in ("ya", "wa") and (x.attr[0] * lo + x.attr[1] < 0
-                                     or x.attr[0] * (hi - 1) + x.attr[1] >= d):
+        ends = (x.attr[0] * lo + x.attr[1], x.attr[0] * (hi - 1) + x.attr[1]) if x.op in (
+            "ya", "wa") else ()
+        if ends and (min(ends) < 0 or max(ends) >= d):
             raise _refuse(f"positions [{pc.a}, {pc.b}) read coordinates {x.attr[0]} i "
                           f"{x.attr[1]:+d}, outside [0, {d})")
         if x.op in ("yk", "wk") and not 0 <= x.attr < d:

@@ -144,6 +144,16 @@ def f32_target(T: float) -> float:
     return float(torch.tensor(float(T), dtype=torch.float32))
 
 
+def lanes_for(B: int) -> int:
+    """K1's lanes per chain at ``B`` chains (``lanes_for`` in
+    ``csrc/zigzag_chunk.cu``): the fewest of 2-16 that give the card 12
+    warps per SM."""
+    L = 2
+    while L < 16 and B * L < 132 * 12 * 32:
+        L *= 2
+    return L
+
+
 def live_lanes(cnt: torch.Tensor, t: torch.Tensor, cfg: ChunkConfig) -> torch.Tensor:
     """Lanes that run their next transition (``zigzag_chunk.py:341-343``):
     below the event cap and, in horizon mode, with the committed clock below

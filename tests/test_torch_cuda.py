@@ -367,9 +367,9 @@ DENSE = torch.tensor([[2.0, 0.5, 0.0], [0.5, 1.0, 0.2], [0.0, 0.2, 3.0]])
 """A dense coupling (``A @ x``): the kernels form the product at every point."""
 
 
-def running_sum(x):
-    """A gradient the lowering refuses: a running sum (``aten.cumsum``)."""
-    return torch.cumsum(x, 0)
+def running_product(x):
+    """A gradient the lowering refuses: a running product (``aten.cumprod``)."""
+    return x + 0.1 * torch.cumprod(torch.tanh(x), 0)
 
 
 def test_k6_refuses_what_it_cannot_run(dev):
@@ -393,8 +393,8 @@ def test_k6_refuses_what_it_cannot_run(dev):
     n0 = build.LAUNCHES["sticky_chunk"]
     skel = pt.sample_skeleton(dense, 10, np.zeros((2, 3)), np.ones((2, 3)))
     assert bool((skel.n_valid == 10).all()) and build.LAUNCHES["sticky_chunk"] > n0
-    with pytest.raises(lower.LoweringError, match="aten.cumsum"):
-        pt.sample_skeleton(pt.StickyZigZag(3, running_sum), 10, np.zeros((2, 3)),
+    with pytest.raises(lower.LoweringError, match="aten.cumprod"):
+        pt.sample_skeleton(pt.StickyZigZag(3, running_product), 10, np.zeros((2, 3)),
                            np.ones((2, 3)))
 
 
@@ -574,8 +574,8 @@ def test_k3_k5_refuse_what_they_cannot_run(dev):
     n0 = build.LAUNCHES["bps_chunk"]
     skel = pt.sample_skeleton(untagged, 10, np.zeros((2, 3)), np.ones((2, 3)))
     assert bool((skel.n_valid == 10).all()) and build.LAUNCHES["bps_chunk"] > n0
-    with pytest.raises(lower.LoweringError, match="aten.cumsum"):
-        pt.sample_skeleton(pt.BPS(3, running_sum), 10, np.zeros((2, 3)),
+    with pytest.raises(lower.LoweringError, match="aten.cumprod"):
+        pt.sample_skeleton(pt.BPS(3, running_product), 10, np.zeros((2, 3)),
                            np.ones((2, 3)))
     n0 = build.LAUNCHES["bps_chunk"]  # K3 forms A @ x at each grid point
     skel = pt.sample_skeleton(pt.BPS(3, lambda x: DENSE.to(x) @ x), 10, np.zeros((2, 3)),
@@ -692,8 +692,8 @@ def test_k4_refuses_what_it_cannot_run(dev):
     skel = pt.sample_skeleton(pt.SpeedUpZigZag(4, lambda x: dense.to(x) @ x), 10,
                               np.zeros((2, 4)), np.ones((2, 4)))
     assert bool((skel.n_valid == 10).all()) and build.LAUNCHES["suzz_chunk"] > n0
-    with pytest.raises(lower.LoweringError, match="aten.cumsum"):
-        pt.sample_skeleton(pt.SpeedUpZigZag(4, running_sum), 10, np.zeros((2, 4)),
+    with pytest.raises(lower.LoweringError, match="aten.cumprod"):
+        pt.sample_skeleton(pt.SpeedUpZigZag(4, running_product), 10, np.zeros((2, 4)),
                            np.ones((2, 4)))
     aniso = pt.SpeedUpZigZagAD(4, pt.potentials.anisotropic_gauss(np.ones(4)))
     n0 = build.LAUNCHES["suzz_chunk"]
@@ -944,7 +944,7 @@ def test_backend_routing_on_the_card(dev):
     skel = pt.sample_skeleton(dense, 64, x0, v0, **kw)
     assert bool((skel.n_valid == 64).all()) and build.LAUNCHES["zigzag_chunk"] > 0
     assert engine.COUNTS["transitions"] == 0
-    refused = pt.ZigZag(4, running_sum)
+    refused = pt.ZigZag(4, running_product)
     build.reset_launches()
     with pytest.raises(lower.LoweringError, match="backend='xla_stream'"):
         pt.sample_skeleton(refused, 64, x0, v0, **kw)
@@ -1077,12 +1077,13 @@ LSE_KINDS = {"zigzag": pt.ZigZagAD, "sticky": None, "suzz": pt.SpeedUpZigZagAD,
              "bps": pt.BPSAD, "boomerang": pt.BoomerangAD, "ecmc": pt.ForwardECMCAD}
 
 
-def _lse_matches_plain(dev, kind, target, horizon=False, B=128):
-    """Two K=16 chunks of the kernel and its plain version from one f64
-    state on a log-sum-exp target: K3/K5 and K4 bit for bit, K1 and K6 to
-    rtol 1e-9, integers equal; in horizon mode a target at the median clock
-    after the first chunk of a probe."""
-    d, U = lse_target(target, dev)
+def _lse_matches_plain(dev, kind, target, horizon=False, B=128, targets=None, K=16):
+    """Two chunks of ``K`` transitions of the kernel and its plain version
+    from one f64 state on a log-sum-exp target (or one of ``targets(name,
+    dev)``): K3/K5 and K4 bit for bit, K1 and K6 to rtol 1e-9, integers
+    equal; in horizon mode a target at the median clock after the first
+    chunk of a probe."""
+    d, U = (targets or lse_target)(target, dev)
     if kind == "sticky":
         sampler = pt.StickyZigZagAD(d, U, np.ones(d))
     elif kind in ("bps", "boomerang"):
@@ -1098,7 +1099,7 @@ def _lse_matches_plain(dev, kind, target, horizon=False, B=128):
         if kind != "boomerang":
             v0 /= np.linalg.norm(v0, axis=1, keepdims=True)
     state = sampler.init_state_batch(x0, v0, 5, torch.float64, dev)
-    cfg = driver.lowered_config(driver.chunk_config(sampler, 16, 40, 128), sampler, d,
+    cfg = driver.lowered_config(driver.chunk_config(sampler, K, 40, 128), sampler, d,
                                 torch.float64, dev)
     if cfg.kappa is not None:
         cfg = cfg._replace(kappa=cfg.kappa.to(dev, torch.float64))
@@ -1110,17 +1111,17 @@ def _lse_matches_plain(dev, kind, target, horizon=False, B=128):
     sticky = kind == "sticky"
     if horizon:
         probe = driver.chunk_state(state, counts, sticky)
-        plain(11, probe, k1.empty_fill(16, d, B, torch.float64, dev, sticky), 0, cfg)
+        plain(11, probe, k1.empty_fill(K, d, B, torch.float64, dev, sticky), 0, cfg)
         cfg = cfg._replace(t_target=k1.f32_target(float(torch.median(probe.fs[k1.F_T]))))
     st_k = driver.chunk_state(state, counts, sticky)
     st_p = k1.ChunkState(*(None if a is None else a.clone() for a in st_k))
-    fills = [k1.empty_fill(32, d, B, torch.float64, dev, sticky) for _ in range(2)]
+    fills = [k1.empty_fill(2 * K, d, B, torch.float64, dev, sticky) for _ in range(2)]
     name = (k3.launch_name(kind) + ("_horizon" if horizon else "") if scalar
             else k1.launch_name(cfg))
     n0 = build.LAUNCHES[name]
     for it in range(2):
-        run(11 + it * 1000003, st_k, fills[0], 16 * it, cfg)
-        plain(11 + it * 1000003, st_p, fills[1], 16 * it, cfg)
+        run(11 + it * 1000003, st_k, fills[0], K * it, cfg)
+        plain(11 + it * 1000003, st_p, fills[1], K * it, cfg)
     torch.cuda.synchronize()
     assert build.LAUNCHES[name] == n0 + 2
     bitwise = scalar or kind == "suzz"
@@ -1157,3 +1158,105 @@ def test_per_transition_route_in_horizon_mode_matches_plain_f64(dev, kind):
     assert cfg.user.trans and cfg.per_transition is not None
     froze = (st.fs[k1.F_T] >= cfg.t_target).double().mean()
     assert 0.05 < float(froze) < 1.0
+
+
+def scan_target(name, dev):
+    """(d, U) of the running-sum and lattice targets at card-test size: the
+    non-centred local level model at d = 100 (``sqrt(q) cumsum(z)``, q =
+    1469.1 / 15099; a prefix and a suffix running sum of affine inputs), the
+    Poisson walk at d = 100 (a suffix running sum of ``exp``) and the phi^4
+    action of Albergo et al. on an 8 x 8 periodic lattice (``roll``)."""
+    import math
+    rs = np.random.default_rng(19)
+    if name == "phi4_2d":
+        def U(x):
+            p = x.reshape(8, 8)
+            a = -4.0 * p * p + 8.0 * p ** 4
+            for mu in (0, 1):
+                a = a + 2 * p * p - p * torch.roll(p, -1, mu) - p * torch.roll(p, 1, mu)
+            return torch.sum(a)
+        return 64, U
+    d, s = 100, math.sqrt(1469.1 / 15099.0)
+    if name == "local_level":
+        y = torch.as_tensor(s * np.cumsum(rs.normal(size=d)) + rs.normal(size=d), device=dev)
+        return d, lambda z: z @ z / 2 + torch.sum((y.to(z) - s * torch.cumsum(z, 0)) ** 2) / 2
+    y = torch.as_tensor(rs.poisson(np.exp(math.log(5.0) + 0.05 * np.cumsum(
+        rs.normal(size=d)))).astype(float), device=dev)
+
+    def U(z):
+        eta = math.log(5.0) + 0.05 * torch.cumsum(z, 0)
+        return z @ z / 2 + torch.sum(torch.exp(eta) - y.to(z) * eta)
+
+    return d, U
+
+
+SCAN_TARGETS = ["local_level", "poisson_rw", "phi4_2d"]
+
+
+@pytest.fixture(scope="module")
+def scan_libraries():
+    """Every f64 library of the scan tests, built at once (one nvcc each)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels compile for sm_90a with nvcc)")
+    from concurrent.futures import ThreadPoolExecutor
+
+    lows = []
+    for target in SCAN_TARGETS:
+        d, U = scan_target(target, "cuda")
+        for kind, make in LSE_KINDS.items():
+            sampler = (pt.StickyZigZagAD(d, U, np.ones(d)) if kind == "sticky" else
+                       make(d, U, refresh_rate=1.0) if kind in ("bps", "boomerang")
+                       else make(d, U))
+            lows.append(lower.lower_sampler(sampler, driver.kernel_kind(sampler), d,
+                                            torch.float64, "cuda"))
+    with ThreadPoolExecutor(len(lows)) as ex:
+        list(ex.map(lambda low: low.library(), lows))
+
+
+@pytest.mark.parametrize("kind", list(LSE_KINDS))
+@pytest.mark.parametrize("target", SCAN_TARGETS)
+def test_scan_targets_match_plain_f64(dev, scan_libraries, kind, target):
+    """The local level model (two running sums: per transition on K1 and
+    K3/K5, at every point on K6, by its block scan, and on K4), the Poisson
+    walk (a running sum after ``exp``, at the point) and the phi^4 lattice
+    (neighbours by ``roll``) on every chunk kernel: K4 and K3/K5 bit for
+    bit, K1 and K6 to rtol 1e-9; K4, whose events are rarer, over two
+    chunks of 64 transitions."""
+    st, cfg = _lse_matches_plain(dev, kind, target, targets=scan_target,
+                                 K=64 if kind == "suzz" else 16)
+    low = cfg.user
+    assert [pr.scan for _, pr in sorted(low.products.items())] == (
+        [] if target == "phi4_2d" else ["prefix", "suffix"])
+
+
+@pytest.mark.parametrize("kind", ["zigzag", "bps"])
+def test_scan_per_transition_route_in_horizon_mode_matches_plain_f64(dev, scan_libraries,
+                                                                   kind):
+    """K1 and K3 in horizon mode (K7) on the local level model, whose two
+    running sums they form once per transition (K1 in its group's lanes,
+    K3 in the warp): against the plain version; a share of the lanes frozen
+    at the target."""
+    st, cfg = _lse_matches_plain(dev, kind, "local_level", horizon=True, targets=scan_target)
+    assert len(cfg.user.trans) == 2 and cfg.per_transition is not None
+    froze = (st.fs[k1.F_T] >= cfg.t_target).double().mean()
+    assert 0.05 < float(froze) < 1.0
+
+
+def test_k6_block_scan_needs_its_barrier(dev, monkeypatch):
+    """K6's block scan (``lower._BLOCK_SCAN``) with odd warps delayed 20 us
+    before they write their runs' totals: with the barrier between those
+    writes and the reads of the warps before, K6 on the local level model at
+    d = 100 (four warps) matches its plain version; without it, the reads
+    find the last scan's totals and it does not."""
+    orig = list(lower._BLOCK_SCAN)
+    write = orig.index("    if (l == 31) {")
+    control = orig[:write] + ["    if (wp & 1) __nanosleep(20000);"] + orig[write:]
+    barrier = control.index("    __syncthreads();")
+    mutant = control[:barrier] + control[barrier + 1:]
+    for block, fails in ((control, False), (mutant, True)):
+        monkeypatch.setattr(lower, "_BLOCK_SCAN", block)
+        if fails:
+            with pytest.raises(AssertionError):
+                _lse_matches_plain(dev, "sticky", "local_level", targets=scan_target)
+        else:
+            _lse_matches_plain(dev, "sticky", "local_level", targets=scan_target)

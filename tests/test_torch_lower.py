@@ -8,8 +8,8 @@
   (``x[0]``, ``x[1]``), Neal's funnel and the funnel (sums over
   ``x[1:]``), a hierarchical mean (a sum over ``x[1:] - x[0]``); and each of the seven device tags' potentials lowered as if
   untagged, against the tag's closed forms (``LANE_POTENTIALS``).
-* ``LoweringError`` naming the op for a ``cumsum`` (a coupling other than a
-  constant matrix) and a read of one element of a matrix product (reads of
+* ``LoweringError`` naming the op for a ``cumprod`` (a coupling other than a
+  constant matrix, a running sum or a periodic shift) and a read of one element of a matrix product (reads of
   ``x[5]`` and of neighbouring coordinates lower: ``test_torch_lower_band.py``);
   a sum of a summand of degree past 2 in ``x`` taken by every kernel (K1 and
   K6 form it at every point).
@@ -146,11 +146,11 @@ def test_tagged_potentials_lowered_as_untagged(tag):
 
 
 def test_refusals_name_the_op():
-    """A running sum (a coupling other than through a constant matrix) and a
-    read of one element of a matrix product raise ``LoweringError`` naming
+    """A running product (a coupling other than through a constant matrix,
+    a running sum or a periodic shift) and a read of one element of a matrix product raise ``LoweringError`` naming
     the aten op and node and ``backend='xla_stream'``, for every kernel."""
     A = torch.as_tensor(np.random.default_rng(1).normal(size=(D, D)))
-    cases = {"aten.cumsum": lambda x: 0.5 * torch.sum(torch.cumsum(x, 0) ** 2),
+    cases = {"aten.cumprod": lambda x: 0.5 * torch.sum(torch.cumprod(x, 0) ** 2),
              "aten.select": lambda x: (A.to(x) @ x)[3] ** 2 + torch.sum(x ** 2)}
     for op, U in cases.items():
         grad = resolve_potential(U, D)[1]
@@ -253,8 +253,8 @@ def test_header_per_kernel_and_cache():
 
 def test_pick_backend_lowers_on_cuda(monkeypatch):
     """On ``"cuda"`` a lowerable untagged Zig-Zag routes to the kernel, a
-    dense ``A @ x`` included, and a running sum raises before any build,
-    naming ``aten.cumsum`` and ``backend='xla_stream'``; the engine backends
+    dense ``A @ x`` included, and a running product raises before any build,
+    naming ``aten.cumprod`` and ``backend='xla_stream'``; the engine backends
     and the CPU stay as they were."""
     monkeypatch.setattr(tsc, "scalar_max_dim", lambda dt, user=None: 1210)
     monkeypatch.setattr(tzc, "sticky_max_dim", lambda dt, user=None: 13136)
@@ -262,11 +262,11 @@ def test_pick_backend_lowers_on_cuda(monkeypatch):
     for make in (lambda U: pt.ZigZagAD(D, U), lambda U: pt.StickyZigZagAD(D, U, np.ones(D)),
                  lambda U: pt.BPSAD(D, U), lambda U: pt.SpeedUpZigZagAD(D, U)):
         ok, dense = make(student), make(lambda x: 0.5 * x @ (A.to(x) @ x))
-        refused = make(lambda x: 0.5 * torch.sum(torch.cumsum(x, 0) ** 2))
+        refused = make(lambda x: 0.5 * torch.sum(torch.cumprod(x, 0) ** 2))
         for s in (ok, dense):
             assert tapi.pick_backend(s, "auto", D, torch.float32, "cuda") == "kernel"
             assert tapi.pick_backend(s, "pallas", D, torch.float32, "cuda") == "kernel"
-        with pytest.raises(lower.LoweringError, match="aten.cumsum"):
+        with pytest.raises(lower.LoweringError, match="aten.cumprod"):
             tapi.pick_backend(refused, "auto", D, torch.float32, "cuda")
         for s in (dense, refused):
             assert tapi.pick_backend(s, "xla_stream", D, torch.float32, "cuda") == "engine"

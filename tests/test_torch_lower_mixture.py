@@ -29,7 +29,8 @@ chunk kernels' generated potential, against JAX.
 * The route on the card decided here: each target at its full size takes
   the kernel under ``"auto"`` on ``"cuda"`` for every kernel.
 * The max's plain version: the first index that attains it gives its value
-  and tangent; refusals of a short axis past ``KMAX`` and of ``roll``.
+  and tangent; refusals of a short axis past ``KMAX`` and of ``cumprod``,
+  and ``roll``, refused before, lowered against ``torch.func``.
 """
 
 import numpy as np
@@ -307,12 +308,20 @@ def test_ordered_max_takes_the_first_index():
 
 def test_refusals_past_kmax_and_of_roll():
     """A short axis past ``KMAX`` (a 17-component mixture at d = 20) and a
-    ``roll`` raise ``LoweringError`` naming the op and ``backend='xla_stream'``
-    on every kernel."""
+    ``cumprod`` raise ``LoweringError`` naming the op and
+    ``backend='xla_stream'`` on every kernel; the ``roll`` this test once
+    refused lowers, its pair against ``torch.func`` at rtol 1e-12."""
     d = lower.KMAX + 4
     mu = np.random.default_rng(3).normal(size=(lower.KMAX + 1, d))
+    rolled = torch.func.grad(lambda x: 0.5 * torch.sum(x * torch.roll(x, 1)))
+    x, v = (torch.as_tensor(np.random.default_rng(s).normal(size=(D, 9))) for s in (4, 5))
+    want = torch.func.jvp(torch.func.vmap(rolled, in_dims=1, out_dims=1), (x,), (v,))
+    for kernel in lower.SOURCES:
+        got = lower.lower_gradient(rolled, kernel, D, torch.float64).grad_jvp(x, v)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
     cases = {"KMAX": (mixture_broadcast(torch, mu), d),
-             "aten.roll": (lambda x: 0.5 * torch.sum(x * torch.roll(x, 1)), D)}
+             "aten.cumprod": (lambda x: 0.5 * torch.sum(torch.cumprod(x, 0) ** 2), D)}
     for what, (U, dim) in cases.items():
         grad = torch.func.grad(U)
         for kernel in lower.SOURCES:

@@ -45,30 +45,30 @@ def _neal(np_):
 TARGETS = {"student": _student, "neal": _neal}
 
 
-def _pair(kernel, target, targets=TARGETS):
+def _pair(kernel, target, targets=TARGETS, d=D):
     """The sampler in both packages on the jnp and the torch function."""
     jU, tU = targets[target](jnp), targets[target](torch)
     if kernel == "zigzag":
-        return pf.ZigZagAD(D, jU), pt.ZigZagAD(D, tU)
+        return pf.ZigZagAD(d, jU), pt.ZigZagAD(d, tU)
     if kernel == "sticky":
-        kappa = np.full(D, KAPPA)
-        return pf.StickyZigZagAD(D, jU, kappa), pt.StickyZigZagAD(D, tU, kappa)
+        kappa = np.full(d, KAPPA)
+        return pf.StickyZigZagAD(d, jU, kappa), pt.StickyZigZagAD(d, tU, kappa)
     if kernel == "suzz":
-        return pf.SpeedUpZigZagAD(D, jU), pt.SpeedUpZigZagAD(D, tU)
+        return pf.SpeedUpZigZagAD(d, jU), pt.SpeedUpZigZagAD(d, tU)
     if kernel == "bps":
-        return pf.BPSAD(D, jU, refresh_rate=0.5), pt.BPSAD(D, tU, refresh_rate=0.5)
+        return pf.BPSAD(d, jU, refresh_rate=0.5), pt.BPSAD(d, tU, refresh_rate=0.5)
     if kernel == "boomerang":
-        return (pf.BoomerangAD(D, jU, refresh_rate=0.5, tmax=1.0),
-                pt.BoomerangAD(D, tU, refresh_rate=0.5, tmax=1.0))
-    return pf.ForwardECMCAD(D, jU), pt.ForwardECMCAD(D, tU)
+        return (pf.BoomerangAD(d, jU, refresh_rate=0.5, tmax=1.0),
+                pt.BoomerangAD(d, tU, refresh_rate=0.5, tmax=1.0))
+    return pf.ForwardECMCAD(d, jU), pt.ForwardECMCAD(d, tU)
 
 
-def _initial(kernel, seed):
+def _initial(kernel, seed, d=D):
     rs = np.random.default_rng(seed)
-    x0 = rs.normal(size=(B, D)) * (0.3 if kernel == "sticky" else 1.0)
+    x0 = rs.normal(size=(B, d)) * (0.3 if kernel == "sticky" else 1.0)
     if kernel in ("zigzag", "sticky", "suzz"):
-        return x0, rs.choice([-1.0, 1.0], size=(B, D))
-    v0 = rs.normal(size=(B, D))
+        return x0, rs.choice([-1.0, 1.0], size=(B, d))
+    v0 = rs.normal(size=(B, d))
     if kernel != "boomerang":
         v0 /= np.linalg.norm(v0, axis=1, keepdims=True)
     return x0, v0
@@ -80,30 +80,30 @@ def _to_port(jst):
     return convert.state_from_numpy(fields, device="cpu")
 
 
-def run_both(kernel, target, horizon, seed=5, targets=TARGETS):
+def run_both(kernel, target, horizon, seed=5, targets=TARGETS, d=D):
     """JAX's interpreted Pallas chunk and the port's plain version on the
-    lowered config (through its wrapper, on CPU tensors) from one state;
-    ``targets`` maps a target's name to its function of a numpy-like
-    module (``jnp`` or ``torch``)."""
-    js, ts = _pair(kernel, target, targets)
+    lowered config (through its wrapper, on CPU tensors) from one state at
+    dimension ``d``; ``targets`` maps a target's name to its function of a
+    numpy-like module (``jnp`` or ``torch``)."""
+    js, ts = _pair(kernel, target, targets, d)
     assert ts.device_potential is None  # a gradient of the user's own
     kind, sticky = pdrv.kernel_kind(js), kernel == "sticky"
-    x0, v0 = _initial(kernel, seed)
+    x0, v0 = _initial(kernel, seed, d)
     st = js.init_state_batch(x0, v0, 11, dtype=jnp.float64)
     counts0 = np.zeros(B, np.int32)
     counts0[::7] = CAP - 2  # some chains reach the cap inside the chunk
     cfg = tdrv.chunk_config(ts, K, CAP, TILE)
-    cfg = tdrv.lowered_config(cfg, ts, D, torch.float64, "cpu")
+    cfg = tdrv.lowered_config(cfg, ts, d, torch.float64, "cpu")
     assert cfg.device_potential == lower.USER_POTENTIAL and cfg.user.kernel == kernel
     run_chunk = tsc.run_chunk if kind in tsc.KINDS else tzc.run_chunk
     t_target = None
     if horizon:  # a target inside the chunk: the median clock after it
         probe = tdrv.chunk_state(_to_port(st), torch.as_tensor(counts0), sticky)
-        run_chunk(seed, probe, tzc.empty_fill(K, D, B, probe.x.dtype, "cpu", sticky), 0, cfg)
+        run_chunk(seed, probe, tzc.empty_fill(K, d, B, probe.x.dtype, "cpu", sticky), 0, cfg)
         t_target = tzc.f32_target(float(torch.median(probe.fs[tzc.F_T])))
 
-    gc, gcs = pdrv.convert_grad(js, D, TILE, jnp.float64, kind)
-    fc, fcs = pdrv.convert_flow(js, D, TILE, jnp.float64)
+    gc, gcs = pdrv.convert_grad(js, d, TILE, jnp.float64, kind)
+    fc, fcs = pdrv.convert_flow(js, d, TILE, jnp.float64)
     fs = jnp.stack([st.t, st.t_comp, st.ts, st.horizon, st.bound_h, st.exp_rv, st.ar,
                     st.tt]).astype(jnp.float64)
     isc = jnp.stack([st.mode, st.rejected, st.errored_bound, st.hitting_horizon,
@@ -116,12 +116,12 @@ def run_both(kernel, target, horizon, seed=5, targets=TARGETS):
         gaussian_velocity=pdrv._kernel_gaussian_velocity(js, kind),
         ecmc_params=pdrv._ecmc_params(js, kind), sticky=sticky,
         act=st.is_active.T.astype(jnp.float64) if sticky else None,
-        kappa=jnp.full((D,), KAPPA, jnp.float64) if sticky else None,
+        kappa=jnp.full((d,), KAPPA, jnp.float64) if sticky else None,
         mode="horizon" if horizon else "events", t_target=t_target)
     ref = [np.asarray(o) for o in outs]
 
     tst = tdrv.chunk_state(_to_port(st), torch.as_tensor(counts0), sticky)
-    fill = tzc.empty_fill(K, D, B, tst.x.dtype, "cpu", sticky)
+    fill = tzc.empty_fill(K, d, B, tst.x.dtype, "cpu", sticky)
     run_chunk(seed, tst, fill, 0, cfg._replace(t_target=t_target))
     mine = [a.numpy() for a in (*tst, *fill) if a is not None]
     assert len(ref) == len(mine)

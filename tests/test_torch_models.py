@@ -206,8 +206,8 @@ def test_pick_backend_shape_limits_on_cuda(monkeypatch):
 def test_untagged_gradient_on_cuda_names_the_engine(monkeypatch):
     """An untagged gradient that a kernel covers is lowered into a generated
     potential and takes the kernel on CUDA under "auto" and "pallas", a
-    dense ``A @ x`` included; one the lowering cannot express (a running sum,
-    ``cumsum``) raises there, naming the aten op and backend="xla_stream";
+    dense ``A @ x`` included; one the lowering cannot express (a running
+    product, ``cumprod``) raises there, naming the aten op and backend="xla_stream";
     that backend, and the CPU, run all three.  Every tag runs on every
     kernel: ``aniso`` on K1 and K3."""
     monkeypatch.setattr(k3, "scalar_max_dim", lambda dt, user=None: 1210)
@@ -215,11 +215,11 @@ def test_untagged_gradient_on_cuda_names_the_engine(monkeypatch):
     for make in (lambda g: pt.ZigZag(3, g), lambda g: pt.BPS(3, g),
                  lambda g: pt.SpeedUpZigZag(3, g)):
         s, dense = make(lambda x: x), make(lambda x: A.to(x) @ x)
-        refused = make(lambda x: torch.cumsum(x, 0))
+        refused = make(lambda x: x + 0.1 * torch.cumprod(torch.tanh(x), 0))
         for backend in ("auto", "pallas"):
             for g in (s, dense):
                 assert tapi.pick_backend(g, backend, 3, torch.float32, "cuda") == "kernel"
-            with pytest.raises(ValueError, match="aten.cumsum") as err:
+            with pytest.raises(ValueError, match="aten.cumprod") as err:
                 tapi.pick_backend(refused, backend, 3, torch.float32, "cuda")
             assert "backend='xla_stream'" in str(err.value)
         for g in (s, dense, refused):

@@ -22,7 +22,7 @@ chunk kernels run them as the Pallas kernel runs any traced gradient.
 * (c) routing: ``api.pick_backend(..., device="cuda")`` returns
   ``"kernel"`` for every kernel kind on every test potential (no card is
   needed to decide) and on an untagged gradient the lowering expresses
-  (``ops/cuda/lower.py``), a dense ``A @ x`` included; a ``cumsum`` raises.
+  (``ops/cuda/lower.py``), a dense ``A @ x`` included; a ``cumprod`` raises.
 """
 
 import numpy as np
@@ -233,7 +233,7 @@ def test_every_test_potential_routes_to_the_kernels():
     """With ``device="cuda"`` and ``backend="auto"`` every sampler family on
     every test potential routes to its chunk kernel, and so does an untagged
     gradient that the lowering expresses, a dense ``A @ x`` included; a
-    running sum (``cumsum``) raises, naming ``backend="xla_stream"``."""
+    running product (``cumprod``) raises, naming ``backend="xla_stream"``."""
     d = 4
     pots = [pt.potentials.gauss, pt.potentials.gauss_1d, pt.potentials.banana,
             pt.potentials.anisotropic_gauss(np.ones(d)), pt.potentials.cauchy,
@@ -256,7 +256,7 @@ def test_every_test_potential_routes_to_the_kernels():
             assert tapi.pick_backend(untagged, "auto", d, torch.float32, "cuda") == "kernel"
             dense = make(lambda x: 0.5 * x @ (torch.eye(d, dtype=x.dtype) @ x))
             assert tapi.pick_backend(dense, "auto", d, torch.float32, "cuda") == "kernel"
-            refused = make(lambda x: 0.5 * torch.sum(torch.cumsum(x, 0) ** 2))
+            refused = make(lambda x: 0.5 * torch.sum(torch.cumprod(x, 0) ** 2))
             with pytest.raises(ValueError, match="backend='xla_stream'"):
                 tapi.pick_backend(refused, "auto", d, torch.float32, "cuda")
             for s in (untagged, dense, refused):
