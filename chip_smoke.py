@@ -11,7 +11,7 @@ Phases, one line each; any failure raises and exits non-zero:
    ``pdmpflux_tpu_torch/csrc`` with nvcc, one compile per source, all started
    together; ptxas's registers, stack frame and spills of every kernel, and
    no stack frame in any instantiation of K1.  Meanwhile a thread lowers
-   every gradient of phases 36-45 and then builds their user libraries
+   every gradient of phases 36-46 and then builds their user libraries
    beside phases 2-35, one nvcc per core but the first core's, at the
    lowest priority (``UserBuilds``); phase 36 waits for the last;
 2. K1 against its plain PyTorch version on the card, float64, from the same
@@ -180,8 +180,9 @@ Phases, one line each; any failure raises and exits non-zero:
    transition dispatches; the ops whose card output differs from the CPU's
    on bit-equal inputs, in the first transition whose floats part;
 23. the ``rhmc_gauss_d10`` deployment (``benchmarks/run_baselines.py:124-127``
-   at scale 1): RHMCAD(10, gauss, refresh_rate=1.0), 512 chains x 512
-   points (cut from 1024 for phase 45's time), float32, x0 = 0, v0 = 1; one
+   at scale 1): RHMCAD(10, gauss, refresh_rate=1.0), 512 chains x 256
+   points (cut from 1024 for phases 45's and 46's time), float32, x0 = 0,
+   v0 = 1; one
    warm call at 64 points, then one timed call,
    the first counted and checked: complete, K2 launched, engine transitions
    counted, no chunk kernel, pooled moments in bench.py's bands,
@@ -317,8 +318,9 @@ Phases, one line each; any failure raises and exits non-zero:
    (``ZigZagAD(10, 0.5 x P x)``, ``P`` the inverse of 0.9^|i-j|, the
    flagship's shape) and ``bps_corr_gauss_d10`` (BPSAD, refresh 0.5, at
    ``bps_anisotropic_gauss_d10``'s shape): each kernel against its plain
-   version in f64 (one launch of 32 transitions at the
-   deployment's shape from a random state; K3 bit for bit, K1 to ``RTOL``),
+   version in f64 (one launch of ``DENSE_PARITY_K`` = 16 transitions at
+   the deployment's shape from a random state; K3 bit for bit, K1 to
+   ``RTOL``),
    the route (its kernel and K2, no
    engine chunk, no ``LoweringError``) and five timed warm calls, the gate
    on the second half of each chain (|mean| < 0.1, variances within 10% of
@@ -414,9 +416,26 @@ Phases, one line each; any failure raises and exits non-zero:
    points, timed), each one call under ``"auto"`` (its kernel and K2, no
    engine chunk) with an f32 launch and its bound; one f32 launch each of
    K6 and K5 on the local level at d = 1000 and of K4 at d = 100 from
-   exact posterior draws.  The script prints its
-   clock after each group of phases, and phases 22 and 33 their own
-   seconds.
+   exact posterior draws;
+46. reads at a constant index array (``x[idx]``, ``index_select``,
+   ``gather``, ``take``) and their scatter-add backward: every kernel
+   against its plain version in f64 as in 45 on the varying-intercept radon
+   model of Gelman & Hill (d = 89: 85 counties, 919 houses drawn from the
+   seed at the survey's shape; with the scales fixed, d = 87, on K1 and
+   K3) and on the ICAR prior of Morris et al. on a 32 x 32 triangulated
+   grid relabelled by a seeded permutation (d = 1024, 2945 edges; K3/K5 on
+   a 24 x 24 grid, under their f64 shared-memory limit; K4 with its first
+   horizon at 0.02), K1 and K3 also in horizon mode on the ICAR, each
+   taking its kernel under ``"auto"``; then ``zigzag_radon_d87`` and
+   ``bps_radon_d87`` (the scales fixed, 1024 chains x 2048 points) and
+   ``zigzag_icar_d1024`` and ``bps_icar_d1024`` (128 chains x 2048 points),
+   from exact posterior draws, gated as 45's local level, each one call
+   under ``"auto"`` (its kernel and K2, no engine chunk) with an f32 launch
+   and its bound (``bps_icar_d1024``'s f32 library also against its plain
+   version, B = 64, K = 4); one f32 launch each of K6, K5 and K4 on the
+   ICAR, and K4's at its default first horizon (2.0), whose envelope
+   rejects nearly every transition there.  The script prints its clock
+   after each group of phases, and phases 22 and 33 their own seconds.
 
 Then one JSON line of per-kernel results (launches counted in the timed run
 of each kernel's path: phase 4 for K1 and K2, phase 7 for K6, phase 10 for
@@ -431,12 +450,13 @@ flagship, phase 32 (dim 1) for K2's entry named after the gspmd
 deployment, phases 34 and 35 for the entries of K4, K1 and K2 named after
 their deployments, 35 (the engine route) for K2's entry named
 ``engine:zigzag_neal_funnel_d10_n512`` (its 512-point run), phases
-36-45 for the entries ``<kernel>[user:<path>]`` of each generated potential's path (and K2's on
+36-46 for the entries ``<kernel>[user:<path>]`` of each generated potential's path (and K2's on
 phase 36's two paths, timed at their shapes in phase 4b); max_abs_err the largest of the kernel's comparisons
 with its plain version, f64 and f32; the bound of each timed launch computed
-from its shape and this run's data; phases 39-45's entries carry
-``plain_of``: their plain time is the f64 parity launch's, their ``ms`` an
-f32 launch's), the card's name and power limit, and the status line.
+from its shape and this run's data; phases 39-46's entries carry
+``plain_of``: their plain time is a parity launch's on the same kernel,
+model and d (f64, or for ``bps_icar_d1024`` f32), their ``ms`` an f32
+launch's), the card's name and power limit, and the status line.
 """
 
 import difflib
@@ -460,24 +480,19 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-if not torch.cuda.is_available():
-    print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
-          file=sys.stderr)
-    sys.exit(2)
-
-import pdmpflux_tpu_torch as pt  # noqa: E402
-from pdmpflux_tpu_torch import api, plotting, streaming  # noqa: E402
-from pdmpflux_tpu_torch.core import engine, rng  # noqa: E402
-from pdmpflux_tpu_torch.core.dims import ShardedDims  # noqa: E402
-from pdmpflux_tpu_torch.core.types import EV_INIT, Skeleton, event_from_state  # noqa: E402
-from pdmpflux_tpu_torch.ops.cuda import build  # noqa: E402
-from pdmpflux_tpu_torch.ops.cuda import compact as k2  # noqa: E402
-from pdmpflux_tpu_torch.ops.cuda import driver  # noqa: E402
-from pdmpflux_tpu_torch.ops.cuda import lower  # noqa: E402
-from pdmpflux_tpu_torch.ops.cuda import scalar_chunk as k3  # noqa: E402
-from pdmpflux_tpu_torch.ops.cuda import zigzag_chunk as k1  # noqa: E402
-from pdmpflux_tpu_torch.parallel import distributed  # noqa: E402
-from pdmpflux_tpu_torch.utils import profiling  # noqa: E402
+import pdmpflux_tpu_torch as pt
+from pdmpflux_tpu_torch import api, plotting, streaming
+from pdmpflux_tpu_torch.core import engine, rng
+from pdmpflux_tpu_torch.core.dims import ShardedDims
+from pdmpflux_tpu_torch.core.types import EV_INIT, Skeleton, event_from_state
+from pdmpflux_tpu_torch.ops.cuda import build
+from pdmpflux_tpu_torch.ops.cuda import compact as k2
+from pdmpflux_tpu_torch.ops.cuda import driver
+from pdmpflux_tpu_torch.ops.cuda import lower
+from pdmpflux_tpu_torch.ops.cuda import scalar_chunk as k3
+from pdmpflux_tpu_torch.ops.cuda import zigzag_chunk as k1
+from pdmpflux_tpu_torch.parallel import distributed
+from pdmpflux_tpu_torch.utils import profiling
 
 DEV = torch.device("cuda")
 RTOL, ATOL = 1e-9, 1e-12
@@ -639,10 +654,13 @@ def user_cost(low):
     def ops(*roots):
         seen, n = set(), 0
         for r in roots:
-            for x in (lower._nodes(r) if r is not None else ()):
+            for x in (lower._nodes(r, rows=False) if r is not None else ()):
                 if x.id in seen or not x.args:
                     continue
                 seen.add(x.id)
+                if x.op == "seg":  # a segment walk: its mean rows' terms, an add and a read
+                    n += x.attr[3] / x.attr[2] * (ops(*x.args) + 2)
+                    continue
                 n += (10 if x.op == "div" else MATH_OPS if x.op in MATH_FNS else 1)
         return n
 
@@ -2637,8 +2655,8 @@ ENGINE_FAMILIES = {            # phase 22: one case per family, f64 on the Gauss
     "ecmc_normal": lambda d: pt.ForwardECMCAD(d, pt.potentials.gauss, normal=True, ran_p=True),
     "rhmc": lambda d: pt.RHMCAD(d, pt.potentials.gauss),
 }
-RHMC_D10 = (10, 512, 512, 1.0)   # d, chains, points (cut from 1024 for phase 45's
-                                 # time), refresh: rhmc_gauss_d10
+RHMC_D10 = (10, 512, 256, 1.0)   # d, chains, points (cut from 1024 for phase 45's
+                                 # time, from 512 for 46's), refresh: rhmc_gauss_d10
 RHMC_CALLS = 1                   # timed warm calls of the RHMC path (3 before phase 33)
 RHMC_HORIZON_T = 200.0           # its time-horizon call (~200 events per chain)
 BANANA_D10 = (10, 512, 1024)     # d, chains, points (cut from 4096, and from 2048 for phase
@@ -4044,7 +4062,7 @@ USER_PATHS = {path: (cache(make), shape) for path, (make, shape) in USER_PATHS.i
 
 
 def user_lowerings():
-    """Every gradient of phases 36-45 lowered as its phase runs it (float32
+    """Every gradient of phases 36-46 lowered as its phase runs it (float32
     for the runs, float64 for the checks against the plain version), on the
     samplers the phases take (the path functions are cached), so that the
     phases find each lowering done; a lane past ``LANE_BYTES`` is never
@@ -4064,6 +4082,11 @@ def user_lowerings():
     pairs += [(s, torch.float32) for s, _ in scan_paths().values()]
     pairs += [(s, torch.float32) for s in scan_launch_samplers().values()]
     pairs += [(s, torch.float64) for _, s, _, _ in scan_parity_samplers()]
+    # phase 46: its runs in float32, its parity launches in float64
+    pairs += [(s, torch.float32) for s, _ in gather_paths().values()]
+    pairs += [(s, torch.float32) for s in gather_launch_samplers().values()]
+    pairs += [(gather_stall_sampler(), torch.float32)]
+    pairs += [(s, torch.float64) for _, s, _, _ in gather_parity_samplers()]
     lows = [lower.lower_sampler(s, driver.kernel_kind(s), s.dim, dt, DEV) for s, dt in pairs]
     return [low for low in lows if lower.lane_fits(low)]
 
@@ -4090,7 +4113,7 @@ def build_cpus():
 
 
 class UserBuilds:
-    """Phases 36-45's user libraries, made beside phases 1-35: a thread
+    """Phases 36-46's user libraries, made beside phases 1-35: a thread
     lowers every gradient (:func:`user_lowerings`) while phase 1's ``nvcc``
     runs, then builds the libraries one ``nvcc`` per core of
     :func:`build_cpus`, each ``nvcc`` at the lowest priority and held to
@@ -4244,12 +4267,14 @@ def user_compare(what, sampler, B, bitwise, math_tag=None, n_chunks=2, horizon=F
     return err, n_ev, plain_ms
 
 
-def user_chunk(what, sampler, x0, v0, share_min):
-    """One f32 K=32 chunk of a user gradient's kernel at its deployment's
-    shape and start against its plain version (``compare_f32``), each timed,
-    and the bound.  Returns (ms, plain ms, bound, max abs err, text)."""
+def user_chunk(what, sampler, x0, v0, share_min, K=32, reps=20, plain_reps=2):
+    """One f32 chunk of ``K`` transitions of a user gradient's kernel at its
+    deployment's shape and start against its plain version
+    (``compare_f32``), each timed (the plain version on that compared
+    launch where ``plain_reps`` is 0), and the bound.  Returns (ms, plain
+    ms, bound, max abs err, text)."""
     B, d = x0.shape
-    K, seed = 32, 7
+    seed = 7
     state = sampler.init_state_batch(x0, v0, 0, torch.float32, DEV)
     cfg = user_config(sampler, K, 1 << 30, torch.float32)
     run, plain = chunk_fns(cfg)
@@ -4260,14 +4285,19 @@ def user_chunk(what, sampler, x0, v0, share_min):
     fill, fill_p = (k1.empty_fill(K, d, B, torch.float32, DEV, sampler.sticky)
                     for _ in range(2))
     run(seed, st, fill, 0, cfg)
+    sync()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
     plain(seed, st_p, fill_p, 0, cfg)
+    end.record()
     sync()
     agree, share, err, texts = compare_f32(f"{what} f32", vc, st, fill, st_p, fill_p, cfg,
                                            seed, share_min)
     del st_p, fill_p
     b = chunk_bound(cfg, st, fill, K * B)
-    ms = cuda_ms(lambda: run(seed, st, fill, 0, cfg), 20)
-    plain_ms = cuda_ms(lambda: plain(seed, st, fill, 0, cfg), 2)
+    ms = cuda_ms(lambda: run(seed, st, fill, 0, cfg), reps)
+    plain_ms = (cuda_ms(lambda: plain(seed, st, fill, 0, cfg), plain_reps) if plain_reps
+                else start.elapsed_time(end))
     text = (f"f32 chunk (K={K}) {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
             f"{bound_text(b)}; kinds agree on {agree:.6f}, max_abs_err {err:.3e} on the "
             f"{share:.4f} of chains with equal decisions (want >= {share_min}); the others "
@@ -4360,7 +4390,7 @@ def phase_user_main(card_name, builds):
     wall, waited, cores, secs, ptx = builds
     print(f"phase 36 the main path on gradients of the user's own (B={B}, d={d}, "
           f"n_sk={n_sk}, f32, backend='auto'): {'; '.join(texts)}; user builds (phases "
-          f"36-45, {len(secs)} libraries, lowered and built beside phases 1-35, one nvcc per "
+          f"36-46, {len(secs)} libraries, lowered and built beside phases 1-35, one nvcc per "
           f"core on {cores} cores at nice 19): done {wall:.1f} s after the "
           f"script's start, phase 36 waited {waited:.1f} s for them; {ptx} "
           f"({card_name})", flush=True)
@@ -4577,7 +4607,8 @@ LOGISTIC = (20, 1000, 1024, 2048)   # phase 40: d, rows, chains, points
 LOGISTIC_PRIOR_SD = 10.0
 DENSE_AR = (1000, 128, 2048, 10.0, 0.5)  # phase 41: d, chains, points, kappa, rho
 DENSE_CALLS = 5                     # timed warm calls of each gated deployment
-DENSE_PARITY_K = 32                 # phases 39-43: transitions of the f64 parity launch
+DENSE_PARITY_K = 16                 # phases 39-43: transitions of the f64 parity launch (cut
+                                    # from 32 for phase 46's time)
 LOGISTIC_CALLS = 1                  # phase 40's (cut from DENSE_CALLS for the script's time)
 
 
@@ -4766,11 +4797,12 @@ def logistic_gate(what, xs, ref_mean, cov):
                   f"- 1| {float(dv.max()):.4f} < 0.2")
 
 
-def kernel_chunk(sampler, x0, v0, config=None, reps=20):
+def kernel_chunk(sampler, x0, v0, config=None, reps=20, events=False):
     """One f32 K=32 launch of a generated potential's kernel (or, with
     ``config`` :func:`card_config`, a tagged sampler's) at its deployment's
     shape and start, timed (the mean of ``reps`` after a warm one), and its
-    bound.  Returns (ms, bound)."""
+    bound.  Returns (ms, bound), and with ``events`` the event rows and
+    rejections of the first launch."""
     B, d = x0.shape
     K, seed = 32, 7
     state = sampler.init_state_batch(x0, v0, 0, torch.float32, DEV)
@@ -4782,7 +4814,9 @@ def kernel_chunk(sampler, x0, v0, config=None, reps=20):
     run(seed, st, fill, 0, cfg)
     sync()
     b = chunk_bound(cfg, st, fill, K * B)
-    return cuda_ms(lambda: run(seed, st, fill, 0, cfg), reps), b
+    counts = (int((fill.kind[:, 0] > 0).sum()), int(st.iscal[1].sum()))
+    ms = cuda_ms(lambda: run(seed, st, fill, 0, cfg), reps)
+    return (ms, b, counts) if events else (ms, b)
 
 
 def phase_dense(card_name, names, title, calls, b_map=None, cov=None, ref_mean=None,
@@ -5861,6 +5895,327 @@ def phase_scan(card_name):
     return out
 
 
+RADON = (1024, 2048)                    # phase 46: chains, points of the radon cells
+RADON_TRUTH = (1.46, -0.69, 0.76, 0.33)  # mu_alpha, beta, sigma_y, sigma_alpha (Gelman & Hill)
+ICAR = (32, 128, 2048)                  # grid side L (d = L^2), chains, points
+ICAR_SCALAR_F64 = 24                    # grid side of the ICAR's K3/K5 f64 parity
+ICAR_SUZZ_TMAX = 0.02                   # K4's first horizon on the ICAR (the default 2.0 stalls)
+
+
+def radon_data(J=85, n=919):
+    """(county, floor, y) of the Minnesota radon survey's shape (Gelman &
+    Hill 2007, ch. 12): ``J`` county sizes summing to ``n`` houses (each at
+    least 1, the rest on lognormal(0, 1.6) weights: at 85 and 919 a median
+    of 5 houses, three counties past 50, the largest 118), the houses in a
+    seeded order, a first-floor indicator with probability 0.17 and ``y``
+    drawn from the varying-intercept model at the book's estimates.  The
+    port's tests draw their smaller data here too."""
+    mu, beta, sy, sa = RADON_TRUTH
+    rs = np.random.default_rng(20)
+    w = rs.lognormal(0.0, 1.6, size=J)
+    sizes = 1 + rs.multinomial(n - J, w / w.sum())
+    county = rs.permutation(np.repeat(np.arange(J), sizes))
+    floor = (rs.random(n) < 0.17).astype(float)
+    alpha = mu + sa * rs.normal(size=J)
+    return county, floor, alpha[county] + beta * floor + sy * rs.normal(size=n)
+
+
+def radon(fixed=False):
+    """The varying-intercept model: ``y_r ~ N(alpha[county_r] + beta
+    floor_r, sigma_y^2)``, ``alpha_j ~ N(mu_alpha, sigma_alpha^2)``, N(0, 10^2)
+    on mu_alpha and beta; ``x = (alpha, mu_alpha, beta, log sigma_alpha, log
+    sigma_y)`` with N(0, 1) on the log scales (d = 89), or with both scales
+    fixed at the book's estimates (``fixed``: d = 87, a Gaussian
+    posterior)."""
+    county, floor, y = (torch.as_tensor(a, device=DEV) for a in radon_data())
+    J, n = int(county.max()) + 1, y.shape[0]
+    sy, sa = RADON_TRUTH[2:]
+
+    def U(x):
+        a, mu, b = x[:J], x[J], x[J + 1]
+        r = y.to(x) - a[county.to(x.device)] - b * floor.to(x)
+        prior = mu * mu / 200 + b * b / 200
+        if fixed:
+            return (torch.sum(r * r) / (2 * sy ** 2) + torch.sum((a - mu) ** 2) / (2 * sa ** 2)
+                    + prior)
+        lsa, lsy = x[J + 2], x[J + 3]
+        return (0.5 * torch.sum(r * r) * torch.exp(-2 * lsy) + n * lsy
+                + 0.5 * torch.sum((a - mu) ** 2) * torch.exp(-2 * lsa) + J * lsa
+                + prior + 0.5 * (lsa * lsa + lsy * lsy))
+
+    return U
+
+
+def radon_posterior():
+    """``radon_fixed``'s exact Gaussian posterior: precision ``A^T A /
+    sigma_y^2 + C^T C / sigma_alpha^2`` plus the priors' (``A`` the houses'
+    design, ``C`` the intercepts less mu_alpha), mean ``P^-1 A^T y /
+    sigma_y^2``; returns (mean, covariance), float64 numpy."""
+    county, floor, y = radon_data()
+    J, n = int(county.max()) + 1, len(y)
+    sy, sa = RADON_TRUTH[2:]
+    A = np.zeros((n, J + 2))
+    A[np.arange(n), county] = 1.0
+    A[:, J + 1] = floor
+    C = np.concatenate([np.eye(J), -np.ones((J, 1)), np.zeros((J, 1))], 1)
+    P = A.T @ A / sy ** 2 + C.T @ C / sa ** 2 + np.diag([0.0] * J + [0.01, 0.01])
+    cov = np.linalg.inv(P)
+    return cov @ (A.T @ y / sy ** 2), cov
+
+
+def icar_graph(L):
+    """(edges, y) of an areal map without a band: an L x L grid
+    triangulated by one diagonal per cell, its direction drawn from the seed
+    (``2 L (L - 1) + (L - 1)^2`` edges: 2945 at L = 32, mean degree 5.75),
+    the areas relabelled by a seeded permutation, and unit-noise
+    observations of a smooth field at each area.  The port's tests build
+    their smaller graphs here too."""
+    rs = np.random.default_rng(20)
+    lab = rs.permutation(L * L).reshape(L, L)
+    edges = [(lab[i, j], lab[i, j + 1]) for i in range(L) for j in range(L - 1)]
+    edges += [(lab[i, j], lab[i + 1, j]) for i in range(L - 1) for j in range(L)]
+    for i in range(L - 1):
+        for j in range(L - 1):
+            edges.append((lab[i, j], lab[i + 1, j + 1]) if rs.random() < 0.5
+                         else (lab[i, j + 1], lab[i + 1, j]))
+    grid = np.arange(L) * 2 * np.pi / L
+    field = np.sin(grid)[:, None] + np.cos(grid)[None, :]
+    y = np.empty(L * L)
+    y[lab.reshape(-1)] = (field + rs.normal(size=(L, L))).reshape(-1)
+    return np.array(edges), y
+
+
+def icar(L=None):
+    """The ICAR prior as the Stan case study on the BYM model writes it
+    (Morris et al., Spatial and Spatio-temporal Epidemiology 31, 2019):
+    ``0.5 sum((phi[node1] - phi[node2])^2)`` plus the soft sum-to-zero ``0.5
+    (sum(phi) / (0.001 d))^2``, with unit-noise observations ``0.5 sum((y -
+    phi)^2)`` at each area of :func:`icar_graph` at side ``L`` (``ICAR``'s
+    by default)."""
+    edges, y = icar_graph(L or ICAR[0])
+    E, y = torch.as_tensor(edges, device=DEV), torch.as_tensor(y, device=DEV)
+
+    def U(phi):
+        Ed = E.to(phi.device)
+        dphi = phi[Ed[:, 0]] - phi[Ed[:, 1]]
+        return (0.5 * torch.sum(dphi ** 2) + 0.5 * (torch.sum(phi) / (0.001 * phi.shape[0])) ** 2
+                + 0.5 * torch.sum((y.to(phi) - phi) ** 2))
+
+    return U
+
+
+def icar_posterior():
+    """The ICAR target's exact Gaussian posterior: precision the graph's
+    Laplacian plus ``1 1^T / (0.001 d)^2`` plus the identity, mean ``P^-1
+    y``; returns (mean, covariance), float64 numpy."""
+    edges, y = icar_graph(ICAR[0])
+    d = len(y)
+    P = np.eye(d) + np.ones((d, d)) / (0.001 * d) ** 2
+    np.add.at(P, (edges[:, 0], edges[:, 0]), 1.0)
+    np.add.at(P, (edges[:, 1], edges[:, 1]), 1.0)
+    np.add.at(P, (edges[:, 0], edges[:, 1]), -1.0)
+    np.add.at(P, (edges[:, 1], edges[:, 0]), -1.0)
+    cov = np.linalg.inv(P)
+    return cov @ y, cov
+
+
+@cache
+def gather_paths():
+    """Phase 46's timed cells: name -> (sampler, (d, chains, points))."""
+    B, n_sk = RADON
+    L, Bi, ni = ICAR
+    Uf, Ui = radon(fixed=True), icar()
+    return {"zigzag_radon_d87": (pt.ZigZagAD(87, Uf), (87, B, n_sk)),
+            "bps_radon_d87": (pt.BPSAD(87, Uf, refresh_rate=1.0), (87, B, n_sk)),
+            "zigzag_icar_d1024": (pt.ZigZagAD(L * L, Ui), (L * L, Bi, ni)),
+            "bps_icar_d1024": (pt.BPSAD(L * L, Ui, refresh_rate=1.0), (L * L, Bi, ni))}
+
+
+GATHER_PLAIN_OF = {
+    "zigzag_radon_d87": "the f64 parity launch (B={B}, K={K}) from a random state on the same "
+                        "kernel, model (the scales fixed) and d",
+    "bps_radon_d87": "the f64 parity launch (B={B}, K={K}) from a random state on the same "
+                     "kernel, model (the scales fixed) and d",
+    "zigzag_icar_d1024": "the f64 parity launch (B={B}, K={K}) from a random state on the "
+                         "same kernel, target and d",
+    "bps_icar_d1024": "an f32 parity launch (B={B}, K={K}) of the library timed, from the "
+                      "deployment's first {B} starts",
+}
+"""What each phase-46 path's ``plain_ms`` and ``max_abs_err`` come from
+(``ms`` is an f32 launch from the deployment's start)."""
+
+
+@cache
+def gather_launch_samplers():
+    """K6 (kappa 1), K5 and K4 on the ICAR target at d = 1024, each timed on
+    one f32 launch from exact posterior draws (phase 46 runs no deployment
+    of theirs); K4 with its first envelope's horizon at ``ICAR_SUZZ_TMAX``
+    (the default 2.0 stalls there: :func:`phase_gather`)."""
+    d, Ui = ICAR[0] ** 2, icar()
+    return {"sticky": pt.StickyZigZagAD(d, Ui, np.ones(d)), "ecmc": pt.ForwardECMCAD(d, Ui),
+            "suzz": pt.SpeedUpZigZagAD(d, Ui, tmax=ICAR_SUZZ_TMAX)}
+
+
+@cache
+def gather_stall_sampler():
+    """K4 on the ICAR target at d = 1024 at its default first horizon
+    (``tmax`` 2.0), launched once to show its envelope's rejections."""
+    return pt.SpeedUpZigZagAD(ICAR[0] ** 2, icar())
+
+
+@cache
+def gather_parity_samplers():
+    """Phase 46's parity launches: (name, sampler, bit for bit, horizon
+    modes): the full radon model (d = 89) on K1, K6, K4, K3 (BPS,
+    Boomerang) and K5; the radon model with its scales fixed (d = 87, the
+    timed cells' model) on K1 and K3; the ICAR target on K1, K6 and K4 (its
+    first horizon ``ICAR_SUZZ_TMAX``) at d = 1024 and on K3 and K5 at
+    ``ICAR_SCALAR_F64`` = 24 x 24 (in float64 their shared memory holds d <=
+    605 for a potential with no per-transition values, so ``"auto"`` takes
+    the engine at d = 1024; :func:`phase_gather` holds the f32 library of
+    ``bps_icar_d1024`` at d = 1024), K1 and K3 also in horizon mode."""
+    makes = [("zigzag", pt.ZigZagAD, False),
+             ("sticky", lambda d, U: pt.StickyZigZagAD(d, U, np.ones(d)), False),
+             ("suzz", pt.SpeedUpZigZagAD, True),
+             ("bps", lambda d, U: pt.BPSAD(d, U, refresh_rate=1.0), True),
+             ("boomerang", lambda d, U: pt.BoomerangAD(d, U, refresh_rate=1.0), True),
+             ("ecmc", pt.ForwardECMCAD, True)]
+    Ls, Li = ICAR_SCALAR_F64, ICAR[0]
+    icar_suzz = lambda d, U: pt.SpeedUpZigZagAD(d, U, tmax=ICAR_SUZZ_TMAX)  # noqa: E731
+    targets = {"radon_d89": (89, radon(), [k for k, _, _ in makes]),
+               "radon_d87": (87, radon(fixed=True), ["zigzag", "bps"]),
+               f"icar_d{Li ** 2}": (Li ** 2, icar(), ["zigzag", "sticky", "suzz"]),
+               f"icar_d{Ls ** 2}": (Ls ** 2, icar(Ls), ["bps", "boomerang", "ecmc"])}
+    return [(f"{kind}_{target}",
+             (icar_suzz if kind == "suzz" and "icar" in target else make)(d, U), bitwise,
+             [False, True] if kind in ("zigzag", "bps") and "icar" in target else [False])
+            for target, (d, U, kinds) in targets.items() for kind, make, bitwise in makes
+            if kind in kinds]
+
+
+def gather_start(sampler, B):
+    """x0 from B exact posterior draws of the sampler's Gaussian target
+    (``radon_fixed`` at d = 87, the ICAR at d = 1024); v0 = +-1 (a unit
+    normal for the scalar-rate samplers)."""
+    d = sampler.dim
+    rs = np.random.default_rng(46)
+    mean, cov = radon_posterior() if d == 87 else icar_posterior()
+    x0 = mean + rs.normal(size=(B, d)) @ np.linalg.cholesky(cov).T
+    if driver.kernel_kind(sampler) in k3.KINDS:
+        v0 = rs.normal(size=(B, d))
+        return x0, v0 / np.linalg.norm(v0, axis=1, keepdims=True)
+    return x0, rs.choice([-1.0, 1.0], size=(B, d))
+
+
+def phase_gather(card_name):
+    """Phase 46: reads at a constant index array and their scatter-adds.
+    First every kernel against its plain version in f64 (``LSE_PARITY``: 64
+    chains, one launch of 4 transitions, K4's on the radon model of 32; K3/K5
+    and K4 bit for bit, K1 and K6 within 1e-12) on the radon model (d = 89;
+    d = 87 on K1 and K3) and on the ICAR target (K1, K6 and K4 at d = 1024,
+    K3/K5 at d = 576: :func:`gather_parity_samplers`), each taking its
+    kernel under ``"auto"``, K1 and K3 also in horizon mode on the ICAR; then
+    ``zigzag_radon_d87`` and ``bps_radon_d87`` (1024 chains x 2048 points)
+    and ``zigzag_icar_d1024`` and ``bps_icar_d1024`` (128 chains x 2048
+    points), each one call under ``"auto"`` from exact posterior draws (its
+    library built before; no ``LoweringError``, launches on its kernel and
+    K2 alone), gated on every coordinate's pooled mean and variance against
+    the exact posterior (:func:`local_level_gate`'s bands), with an f32
+    launch and its bound, ``bps_icar_d1024``'s f32 library also against its
+    plain version (``GATHER_PLAIN_OF``); one f32 launch each of K6, K5 and K4
+    on the ICAR, and K4's first launch at the default first horizon (2.0),
+    whose envelope rejects nearly every transition there.  Returns {path:
+    (launches, ms, plain ms, bound, err)}."""
+    B, K = LSE_PARITY
+    t0 = time.perf_counter()
+    errs, plain, texts = {}, {}, []
+    for name, sampler, bitwise, modes in gather_parity_samplers():
+        route = api.pick_backend(sampler, "auto", sampler.dim, torch.float64, DEV)
+        if route != "kernel":
+            raise AssertionError(f"phase 46 {name}: the f64 route is {route}")
+        for horizon in modes:
+            what = f"phase 46 {name}{' horizon' if horizon else ''}"
+            # K4 on the radon model at its default first horizon: few events a transition
+            k = 8 * K if name == "suzz_radon_d89" else K
+            err, n_ev, ms = user_compare(what, sampler, B, bitwise, n_chunks=1,
+                                         horizon=horizon, K=k)
+            if err > 1e-12:
+                raise AssertionError(f"{what}: max_abs_err {err:.3e} past 1e-12")
+            key = name + ("_horizon" if horizon else "")
+            errs[key], plain[key] = err, ms
+            texts.append(f"{key} {'bit for bit' if bitwise else f'{err:.3e}'} ({n_ev} events, "
+                         f"plain {ms:.1f} ms)")
+    print(f"phase 46 parity (f64, B={B}, K={K}, one launch each; K3/K5 and K4 bit for bit, K1 "
+          f"and K6 within 1e-12; every route the kernel): {'; '.join(texts)} "
+          f"({time.perf_counter() - t0:.1f} s, {card_name})", flush=True)
+
+    posteriors = {87: radon_posterior(), ICAR[0] ** 2: icar_posterior()}
+    out, texts = {}, []
+    for path, (sampler, (dp, Bp, n_sk)) in gather_paths().items():
+        what = f"phase 46 {path}"
+        kind = driver.kernel_kind(sampler)
+        x0, v0 = gather_start(sampler, Bp)
+        route = api.pick_backend(sampler, "auto", dp, torch.float32, DEV)
+        if route != "kernel":
+            raise AssertionError(f"{what}: 'auto' takes {route}")
+        build.reset_launches()
+        engine.reset_counts()
+        t1 = time.perf_counter()
+        skel = pt.sample_skeleton(sampler, n_sk, x0, v0, seed=0, dtype=torch.float32,
+                                  device=DEV)
+        sync()
+        wall = time.perf_counter() - t1
+        launches, chunks = dict(build.LAUNCHES), engine.COUNTS["chunks"]
+        name = path_launch(sampler)
+        others = {k: n for k, n in launches.items() if n and k not in (name, "compact_rows")}
+        if launches[name] < 1 or launches["compact_rows"] < 1 or others or chunks:
+            raise AssertionError(f"{what}: the path did not take {name} and K2 alone: "
+                                 f"{launches}, {chunks} engine chunks")
+        check_complete(what, skel, n_sk)
+        events = int(skel.n_valid.sum()) - Bp
+        gate = local_level_gate(what, sampler, skel, *posteriors[dp], x0)
+        del skel
+        ms, b = kernel_chunk(sampler, x0, v0)
+        key = f"{path.rsplit('_d', 1)[0]}_d{dp}"
+        if key in errs:  # an f64 parity launch on the same kernel, model and d
+            err, plain_ms = errs[key], plain[key]
+            parity = f"its f64 parity launch {err:.3e}, plain {plain_ms:.1f} ms"
+        else:  # the f32 library timed, against its plain version
+            _, plain_ms, _, err, parity = user_chunk(what, sampler, x0[:B], v0[:B],
+                                                     K3_F32_SHARE, K=K, reps=1, plain_reps=0)
+            parity = f"its f32 parity launch (B={B}, K={K}): {parity}"
+        out[path] = (launches, ms, plain_ms, b, err)
+        low = lower.lower_sampler(sampler, kind, dp, torch.float32, DEV)
+        walks = sum(1 for p in low.out for x in lower._nodes(p.e, rows=False)
+                    if x.op == "seg")
+        texts.append(
+            f"{path} ({type(sampler).__name__} d={dp} B={Bp} n_sk={n_sk}; {walks} segment "
+            f"walks per coordinate, {len(low.reductions)} sums "
+            f"({sum(s != 'c' for s in low.red_space)} over data rows), "
+            f"{'moments' if not low.point else 'point context'}, {low.lane_bytes()} B per "
+            f"lane, {low.params.numel()} parameters): route {name} {launches[name]} launches, "
+            f"K2 {launches['compact_rows']}, 0 engine chunks, {events} events in {wall:.4f} s "
+            f"({events / wall:.1f} events/s, one call, the first); {gate}; f32 chunk (K=32) "
+            f"{ms:.4f} ms at the deployment's start, bound {bound_text(b)}; {parity}")
+    Bl = ICAR[1]
+    for kind, sampler in gather_launch_samplers().items():
+        x0, v0 = gather_start(sampler, Bl)
+        ms, b, (n_ev, n_rej) = kernel_chunk(sampler, x0, v0, events=True)
+        key = next(k for k in errs if k.startswith(f"{kind}_icar_d"))
+        texts.append(f"{kind}_icar_d{sampler.dim} (no deployment: {type(sampler).__name__} "
+                     f"d={sampler.dim} B={Bl}{f', tmax={sampler.tmax}' if kind == 'suzz' else ''}"
+                     f"): f32 chunk (K=32) {ms:.4f} ms from exact posterior draws ({n_ev} event "
+                     f"rows, {n_rej} rejections in its first launch), bound {bound_text(b)}; its "
+                     f"f64 parity launch ({key}) {errs[key]:.3e}, plain {plain[key]:.1f} ms")
+        if kind == "suzz":
+            stall = gather_stall_sampler()
+            _, _, (n_ev, n_rej) = kernel_chunk(stall, x0, v0, reps=1, events=True)
+            texts.append(f"the same launch at the default first horizon tmax = {stall.tmax}: "
+                         f"{n_ev} event rows, {n_rej} rejections (the speed-up flow's "
+                         f"envelope over [0, {stall.tmax}] is far above the rate; not timed)")
+    print(f"phase 46 deployments: {'; '.join(texts)} ({card_name})", flush=True)
+    return out
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b, plain_of=None):
     """One entry of the kernels line; ``plain_of`` says which launch
     ``plain_ms`` timed where it is not the launch ``ms`` timed."""
@@ -5883,7 +6238,7 @@ def main():
         """The script's clock after a phase, for its time budget."""
         print(f"[after phase {phase}: {time.perf_counter() - t_start:.1f} s]", flush=True)
 
-    builds = UserBuilds()  # phases 36-45's libraries, lowered and built beside 1-35
+    builds = UserBuilds()  # phases 36-46's libraries, lowered and built beside 1-35
     try:
         phase_build()
         at(1)
@@ -5894,7 +6249,7 @@ def main():
 
 
 def run_phases(card_name, at, builds):
-    """Phases 2-45 and the kernels line."""
+    """Phases 2-46 and the kernels line."""
     k1_err = phase_k1()
     k2_err = phase_k2()
     at(3)
@@ -5984,6 +6339,8 @@ def run_phases(card_name, at, builds):
     at(44)
     user.update(phase_scan(card_name))
     at(45)
+    user.update(phase_gather(card_name))
+    at(46)
     zz = "pdmpflux_tpu/ops/pallas/zigzag_chunk.py:854"
     k7 = 'pdmpflux_tpu/ops/pallas/zigzag_chunk.py:343 mode="horizon"'
     kernels = [
@@ -6076,6 +6433,9 @@ def run_phases(card_name, at, builds):
             plain_of = (f"the f64 parity launch (B={LSE_PARITY[0]}, K={LSE_PARITY[1]}) from a "
                         "random state on the same kernel, target and d; ms: an f32 launch "
                         "from the deployment's start")
+        if path in gather_paths():
+            plain_of = (GATHER_PLAIN_OF[path].format(B=LSE_PARITY[0], K=LSE_PARITY[1])
+                        + "; ms: an f32 launch from the deployment's start")
         kernels.append(kernel_entry(
             f"{name}[user:{path}]", *sources[name], n[name], err, ms, plain_ms, b, plain_of))
         if path in ("bench_zigzag_d10", "readme_zigzag_ad_d10"):
@@ -6096,6 +6456,10 @@ def run_phases(card_name, at, builds):
 
 
 if __name__ == "__main__":
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
+              file=sys.stderr)
+        sys.exit(2)
     if sys.argv[1:2] == ["--gspmd-worker"]:
         gspmd_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     else:

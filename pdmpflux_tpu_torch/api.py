@@ -182,9 +182,14 @@ def pick_backend(sampler, backend: str, d: int, dtype, device) -> str:
     read from its build; ``lower.LANE_BYTES`` a lane of the others), else
     the engine under ``"auto"``, ``ValueError`` under ``"pallas"``.  Reads of
     neighbours at fixed offsets (``x[1:] - x[:-1]``, a band) and of any fixed
-    coordinate (``x[k]``) take the kernel like any other read.  A gradient
-    the lowering cannot express (a running sum, one element of a matrix
-    product, a slice of a data vector's rows, a value whose short axis is
+    coordinate (``x[k]``) take the kernel like any other read, and so do
+    running sums, flips and periodic shifts, and reads at a constant index
+    array (``x[idx]``, a hierarchical model's ``alpha[county]``, an areal
+    prior's ``phi[node1] - phi[node2]``) with their scatter-add backward,
+    which each coordinate walks where it is read and which keeps no
+    context.  A gradient the lowering cannot express (``cumprod``, one
+    element of a matrix product, a gather of a stage's output, a 2-D index
+    array, a slice of a data vector's rows, a value whose short axis is
     past ``lower.KMAX``) raises
     its ``LoweringError`` under ``"auto"`` and ``"pallas"``, naming
     ``backend="xla_stream"``.  A failed build or launch

@@ -26,11 +26,19 @@ The IR.  A value of the trace is one of:
 * a chain value: one scalar per chain, an expression of literals, parameters,
   fixed coordinates of the point (``x[0]``, ``x[1]``, and ``x[k]`` for any
   other ``k``), sums (reductions) and nothing else;
+* an index table: a constant integer array (a gather's index, a
+  scatter-add's CSR) hoisted into the parameters, exact in the run's dtype
+  (every entry below 2^24, a float32 mantissa), read as ``(int)prm[T +
+  i]``;
 * a vector of pieces: positions ``[a, b)`` each either a chain value or a lane
   expression evaluated at index ``i = p + off`` of the position ``p``, of
   the point's own ``y_i = x_i + v_i t``, its neighbours at fixed offsets
-  (``y_{i+k}``, from slices such as ``x[1:] - x[:-1]``), parameters, chain
-  values and a product's element at the same index.  Pieces read at
+  (``y_{i+k}``, from slices such as ``x[1:] - x[:-1]``), coordinates read
+  through an index table (``y_{T[i + k]}``: a gather ``v[idx]``,
+  ``index_select``, ``gather`` or ``take`` at a constant 1-D index, whose
+  row ``r`` is ``v``'s expression at position ``idx[r]``, its parameters a
+  gathered hoisted copy), parameters, chain values, a product's element at
+  the same index and a scatter-add's element (below).  Pieces read at
   different offsets are rebased onto one index, their reads becoming
   neighbours; a read outside ``[0, d)`` is refused.  A vector lies in an
   index space: the coordinates, or the rows of a data vector (``X @ y`` for
@@ -119,17 +127,35 @@ index) whose ties take the lower index, running sums by a block scan with
 a barrier between the warps' totals and their reads).  The plain version forms the
 per-transition products as the kernels do (``Lowered.along``).
 
+Scatter-adds.  The backward of a gather, ``index_put``/``put`` with
+``accumulate=True``, ``scatter_add`` and ``index_add`` of a vector of ``n``
+rows at a constant index into the coordinates (or a slice of them, as
+``x[:J][county]``'s), is a ``seg`` node: coordinate ``i``'s element adds the
+rows ``r`` with ``idx[r] = i``.  The rows sorted stably by target and their
+segments' starts (the index's CSR) are index tables; the kernels walk
+coordinate ``i``'s segment where the element is read, each row's term
+evaluated at that row (its own reads through ``yw``), in increasing ``r``,
+the value and its tangent in one walk (``_Emit.seg``), as the plain
+version's :func:`ordered_segment_sum` adds.  A segment walk is no stage
+and no context: it adds nothing to a lane's bytes.  A sum over the rows
+whose summand reads gathered coordinates is a sum over a data vector (a
+point sum on K1/K6: it is no chain moment).
+
 A gradient that reads coordinates other than its own (neighbours, fixed
-coordinates, a flip's ``c - i``) sets ``reads_others``: K6 then publishes the chain's values to
-every warp before it reads them.
+coordinates, a flip's ``c - i``, a gather's or a segment's rows) sets
+``reads_others``: K6 then publishes the chain's values to every warp before
+it reads them.
 
 Anything else (a product of two vectors of the chain, a matrix that depends
-on ``x``, ``cumprod`` and other couplings, one element of a product, a
+on ``x``, ``cumprod``, ``sort``, convolutions, one element of a product, a
 product's or a running sum's element at another index (``roll(A @ x, 1)``,
-a flip of a running sum other than the suffix form), a running sum of a
-matrix or of a data vector, a data vector into other data rows, a short
-axis past :data:`KMAX`, a branch on a value of ``x``, an op outside the
-set) raises
+a flip of a running sum other than the suffix form, a gather of a stage's
+output such as ``(A @ x)[idx]``), a running sum of a matrix or of a data
+vector, a data vector into other data rows, a 2-D index array, an index
+that depends on ``x``, a write at an index that does not add
+(``scatter``, ``index_put`` without ``accumulate``), a scatter into more
+than the ``d`` coordinates, a short axis past :data:`KMAX`, a branch on a
+value of ``x``, an op outside the set) raises
 :class:`LoweringError` naming the op and its node, before any build or
 launch.  The result is cached on the sampler by (kernel, d, dtype).
 """
@@ -212,7 +238,7 @@ class Node:
 
     def __init__(self, op, args, attr, nid, space=None, affine=False):
         self.op, self.args, self.attr, self.id = op, args, attr, nid
-        self.lane = op in _LANE_LEAVES or op == "sel" or any(a.lane for a in args)
+        self.lane = op in _LANE_LEAVES or op in ("sel", "seg") or any(a.lane for a in args)
         self.fixed = op in _FIXED_LEAVES or any(a.fixed for a in args)
         self.boolean = op in _BOOL_OPS or (op == "lit" and isinstance(attr, bool)) or (
             op == "where" and args[1].boolean) or (op == "sel" and args[0].boolean)
@@ -235,6 +261,11 @@ class Node:
             return f"{'x' if self.op == 'yk' else 'v'}_{self.attr}"
         if self.op in ("ya", "wa"):
             return f"{'x' if self.op == 'ya' else 'v'}_({self.attr[0]} i{self.attr[1]:+d})"
+        if self.op in ("yg", "wg"):
+            return f"{'x' if self.op == 'yg' else 'v'}_(T{self.attr[0]}[i{self.attr[2]:+d}])"
+        if self.op == "seg":
+            return (f"scatter_T{self.attr[0]}[i{self.attr[5]:+d}]("
+                    f"{', '.join(a.text() for a in self.args)})")
         if self.op in ("mvx", "dmvx"):
             m, st, c = self.attr
             return f"{'d' if self.op == 'dmvx' else ''}(M{m} u)_((i{-c:+d}) / {st})"
@@ -254,20 +285,25 @@ class Node:
         return f"{self.op}({', '.join(a.text() for a in self.args)})"
 
 
-_LANE_LEAVES = {"y", "w", "yo", "wo", "ya", "wa", "prm", "prmd", "mv", "dmv", "mvx", "dmvx"}
+_LANE_LEAVES = {"y", "w", "yo", "wo", "ya", "wa", "yg", "wg", "prm", "prmd", "mv", "dmv",
+                "mvx", "dmvx"}
 _FIXED_LEAVES = {"mv", "dmv", "mvx", "dmvx", "prmd"}
-_FAR = {"yo", "wo", "yk", "wk", "ya", "wa"}
+_FAR = {"yo", "wo", "yk", "wk", "ya", "wa", "yg", "wg"}
 """Reads of a neighbour (``yo``/``wo`` at offset ``attr``), of a fixed
-coordinate past 1 (``yk``/``wk`` at ``attr``) or of coordinate ``s i + c``
+coordinate past 1 (``yk``/``wk`` at ``attr``), of coordinate ``s i + c``
 (``ya``/``wa`` at ``attr = (s, c)``: a column of a view of x as a matrix,
-or with ``s = -1`` a flip), through the kernel's accessor ``yw``."""
+or with ``s = -1`` a flip) or of coordinate ``T[i + k]`` of a constant
+index table ``T`` of ``n`` entries (``yg``/``wg`` at ``attr = (T, n, k)``,
+``T`` the table's offset in the parameters: a gather ``x[idx]``), through
+the kernel's accessor ``yw``."""
 _PRODUCT_LEAVES = {"mv", "dmv", "mvx", "dmvx"}
 """Reads of a product's element: at the index (``mv``), or at row ``(i -
 c) / s`` (``mvx`` at ``attr = (m, s, c)``: the rows of a product read where
 a matrix of products is flattened into the coordinates)."""
 _FIRST = {"y0", "w0", "y1", "w1"}
-_OTHERS = _FAR | _FIRST
-"""Every read of a coordinate other than the evaluated one."""
+_OTHERS = _FAR | _FIRST | {"seg"}
+"""Every read of a coordinate other than the evaluated one (a scatter-add's
+segment walk reads its rows' coordinates)."""
 _BOOL_OPS = {"gt", "ge", "lt", "le", "eq", "ne", "not", "and", "or"}
 _LINEAR = {"add", "sub", "neg"}
 
@@ -276,11 +312,11 @@ def _degree(op, args, affine=False):
     """Degree in ``t`` of ``op`` on ``args``; ``affine``: a product whose
     input is affine in the point (``Graph.mv_affine``), itself affine,
     ``c0 + t c1``, its tangent constant."""
-    if op in ("y", "y0", "y1", "yo", "yk", "ya"):
+    if op in ("y", "y0", "y1", "yo", "yk", "ya", "yg"):
         return 1
     if affine and op in ("mv", "dmv"):
         return 1 if op == "mv" else 0
-    if op in ("red", "dred", "mv", "dmv", "mvx", "dmvx", "sel"):
+    if op in ("red", "dred", "mv", "dmv", "mvx", "dmvx", "sel", "seg"):
         return INF
     if not args or all(a.deg == 0 for a in args):
         return 0
@@ -305,6 +341,8 @@ class Graph:
         self.nodes: Dict[tuple, Node] = {}
         self.mv_space: Dict[int, object] = {}  # product -> its output's index space
         self.mv_affine: set = set()  # products of an input affine in the point
+        self.tables: Dict[int, torch.Tensor] = {}  # an index table's offset -> its entries
+        self.pairs: Dict[int, Node] = {}  # a scatter's node id -> its tangent's (one walk)
 
     def mk(self, op, *args, attr=None) -> Node:
         folded = self._fold(op, args, attr)
@@ -320,7 +358,7 @@ class Graph:
         return node
 
     def _space(self, op, args, attr):
-        if op in ("y", "w", "yo", "wo", "ya", "wa", "mvx", "dmvx", "prmd"):
+        if op in ("y", "w", "yo", "wo", "ya", "wa", "mvx", "dmvx", "prmd", "seg"):
             return "c"
         if op in ("mv", "dmv"):
             return self.mv_space[attr]
@@ -388,11 +426,18 @@ class Graph:
 
     def _tangent(self, n, memo):
         op, a = n.op, n.args
-        leaf = {"y": "w", "y0": "w0", "y1": "w1", "yo": "wo", "yk": "wk", "ya": "wa"}
+        leaf = {"y": "w", "y0": "w0", "y1": "w1", "yo": "wo", "yk": "wk", "ya": "wa",
+                "yg": "wg"}
         if op in leaf:
             return self.mk(leaf[op], attr=n.attr)
         if op in ("red", "mv", "mvx"):  # a stage's tangent: its own stage's
             return self.mk("d" + op, attr=n.attr)
+        if op == "seg":  # linear: the scatter-add of its rows' tangents
+            ds = [self.tangent(x, memo) for x in a]
+            if all(t is None for t in ds):
+                return None
+            return self.mk("seg", *(t if t is not None else self.lit(0.0) for t in ds),
+                           attr=n.attr)
         if op == "sel":
             ds = [self.tangent(x, memo) for x in a]
             if all(t is None for t in ds):
@@ -492,10 +537,12 @@ class Graph:
         memo = {} if memo is None else memo
         if n.id in memo:
             return memo[n.id]
-        if n.op in _PRODUCT_LEAVES:
+        if n.op in _PRODUCT_LEAVES or n.op == "seg":
             raise _FarRead()
         if n.op in ("y", "w", "yo", "wo"):
             out = self.coord(n.op[0], k + (n.attr or 0))
+        elif n.op in ("yg", "wg"):
+            out = self.coord(n.op[0], int(self.tables[n.attr[0]][k + n.attr[2]]))
         elif n.op in ("ya", "wa"):
             out = self.coord(n.op[0], n.attr[0] * k + n.attr[1])
         elif n.op == "prm":
@@ -526,6 +573,8 @@ class Graph:
                 out = self.near(n.op[0], (n.attr or 0) - delta)
             elif n.op in ("ya", "wa"):
                 out = self.mk(n.op, attr=(n.attr[0], n.attr[1] - n.attr[0] * delta))
+            elif n.op in ("yg", "wg", "seg"):  # table entry i + k - delta, as a neighbour
+                out = self.mk(n.op, *n.args, attr=n.attr[:-1] + (n.attr[-1] - delta,))
             elif n.op == "sel":  # argument k reads index k - delta's
                 K = n.attr
                 out = self.mk("sel", *(self.shift(n.args[(k - delta) % K], delta, memo)
@@ -654,6 +703,9 @@ class Lowered:
         self.d_red = [[b.tangent(p.e, memo) for p in r] for r in reductions]
         self.d_mv = {m: [b.tangent(p.e, memo) for p in pr.vec.pieces]
                      for m, pr in products.items()}
+        # each scatter-add's tangent, walked beside it (``_Emit.seg``)
+        b.pairs = {x.id: memo[x.id] for e in self._values() for x in _nodes(e)
+                   if x.op == "seg" and memo.get(x.id) is not None}
         self.trans = [m for kind, m in stages if kind == "mv" and kernel in TRANSITION_KERNELS
                       and products[m].in_space == "c"
                       and all(p.e.deg <= 1 for p in products[m].vec.pieces)]
@@ -804,7 +856,11 @@ class Lowered:
         lits = self._lits[key]
         chain: dict = {}
         red, dred, prod, dprod = {}, {}, {}, {}
+        segs: dict = {}
         ones = (1, y.shape[1])
+
+        def table(off, lo, hi):  # an index table's entries [lo, hi), exact
+            return prm[off + lo:off + hi].long()
 
         def ev(n: Node, lo: int, hi: int, lane: dict):
             memo = lane if n.lane else chain
@@ -832,6 +888,20 @@ class Lowered:
                 src = y if op == "ya" else w
                 out = (src[st * lo + c:st * (hi - 1) + c + 1:st] if st > 0 else
                        src[torch.arange(lo, hi, device=y.device) * st + c])
+            elif op in ("yg", "wg"):
+                t, _, k = n.attr
+                out = (y if op == "yg" else w).index_select(0, table(t, lo + k, hi + k))
+            elif op == "seg":  # the segments' sums over their rows, formed once
+                ptr, rows, m, n_rows, spans, k = n.attr
+                key = (ptr, rows, spans, tuple(x.id for x in a))
+                if key not in segs:
+                    vals = [torch.broadcast_to(ev(x, ra if off is None else ra + off,
+                                                  rb if off is None else rb + off, {}),
+                                               (rb - ra, y.shape[1]))
+                            for (ra, rb, off), x in zip(spans, a)]
+                    segs[key] = ordered_segment_sum(torch.cat(vals, 0), table(ptr, 0, m + 1),
+                                                    table(rows, 0, n_rows))
+                out = segs[key][lo + k:hi + k]
             elif op == "prm":
                 out = prm[n.attr + lo:n.attr + hi, None]
             elif op == "prmd":
@@ -975,6 +1045,11 @@ class Lowered:
         lines += self._at_cpp()
         lines += ["};", ""]
         return "\n".join(lines)
+
+    def _values(self):
+        """Every node of the output and the stages (not their tangents)."""
+        return [p.e for p in self.out] + [p.e for pieces, _ in self._stage_pieces()
+                                          for p in pieces]
 
     def _nodes_read(self):
         """Every node of the output, the stages and their tangents."""
@@ -1594,6 +1669,25 @@ def ordered_scan(u: torch.Tensor, kind: str, parts: int = 1) -> torch.Tensor:
     return out.flip(0) if kind == "suffix" else out
 
 
+def ordered_segment_sum(vals: torch.Tensor, ptr: torch.Tensor,
+                        rows: torch.Tensor) -> torch.Tensor:
+    """Segment ``i`` of ``(n, B)`` values: the sum of ``vals[rows[q]]`` for
+    ``q`` in ``[ptr[i], ptr[i + 1])`` (the rows sorted stably by their
+    target, so each segment's in increasing order), added in ``q`` order from
+    its first term, an empty segment 0: as the kernels' segment walk adds
+    (never ``index_put``'s accumulation, whose order is no contract)."""
+    start, lens = ptr[:-1], ptr[1:] - ptr[:-1]
+    out = vals.new_zeros((start.shape[0],) + vals.shape[1:])
+    if rows.numel() == 0:
+        return out
+    terms = vals.index_select(0, rows)
+    shape = (-1,) + (1,) * (vals.dim() - 1)
+    for j in range(int(lens.max())):
+        term = terms.index_select(0, torch.clamp(start + j, max=rows.numel() - 1))
+        out = torch.where((lens > j).view(shape), term if j == 0 else out + term, out)
+    return out
+
+
 def _unroll(n: int) -> List[str]:
     return ["#pragma unroll"] if n <= UNROLL else []
 
@@ -1713,19 +1807,22 @@ def _coords(p: Piece):
     return p.a + off, p.b + off
 
 
-def _nodes(n: Node):
-    """Every node ``n`` reads, itself included, once each."""
+def _nodes(n: Node, rows: bool = True):
+    """Every node ``n`` reads, itself included, once each; ``rows`` False:
+    not the rows of a scatter-add (evaluated at other indices)."""
     seen, stack = set(), [n]
     while stack:
         x = stack.pop()
         if x.id not in seen:
             seen.add(x.id)
             yield x
-            stack.extend(x.args)
+            if rows or x.op != "seg":
+                stack.extend(x.args)
 
 
 def _leaves(n: Node) -> set:
-    return {x.op for x in _nodes(n) if not x.args}
+    """The ops of ``n``'s leaves, and ``"seg"`` where it reads a scatter-add."""
+    return {x.op for x in _nodes(n) if not x.args or x.op == "seg"}
 
 
 def _hexlit(c) -> str:
@@ -1749,12 +1846,17 @@ class _Emit:
     """SSA statements of a DAG, one ``const`` per node, in dependency order;
     a parameter reads ``prm[off + idx]``, a product's element ``leaf(op, m)``
     (a per-transition product's, ``trans[m] = (offset, rows, mc)``, the
-    accessor's ``yw.prod``), a neighbour or a fixed coordinate the accessor
-    ``yw`` (once each)."""
+    accessor's ``yw.prod``), a neighbour, a fixed coordinate or a gathered
+    one the accessor ``yw`` (once each), a scatter-add its segment walk
+    (:meth:`seg`).  ``own`` False: the index is not the point's own
+    coordinate, whose ``y``/``w`` are read through ``yw`` too; ``parent``:
+    the emitter of the enclosing scope, which names every chain value."""
 
-    def __init__(self, b: Graph, idx: str = "i", leaf=None, trans=None):
+    def __init__(self, b: Graph, idx: str = "i", leaf=None, trans=None, own=True,
+                 parent=None):
         self.b, self.lines, self.names, self.read = b, [], {}, set()
         self.idx, self.leaf, self.trans = idx, leaf, trans or {}
+        self.own, self.parent = own, parent
         self.pv: Dict[tuple, str] = {}
 
     def prod(self, m: int, at: str, tangent: bool) -> str:
@@ -1778,6 +1880,12 @@ class _Emit:
             tag = f"s{'m' if st < 0 else ''}{abs(st)}{'p' if c >= 0 else 'm'}{abs(c)}"
             j = (f"{c} - {self.idx}" if st == -1 else
                  f"{st} * {self.idx} {'+' if c >= 0 else '-'} {abs(c)}")
+        elif n.op in ("yg", "wg"):  # an index table's entry: exact in the parameters
+            t, _, k = n.attr
+            tag = f"g{t}{'p' if k >= 0 else 'm'}{abs(k)}"
+            j = f"(int)prm[{t + k} + {self.idx}]"
+        elif n.op in ("y", "w"):  # the index's own coordinate, not the point's
+            tag, j = "at", self.idx
         else:
             tag, j = f"k{n.attr}", str(n.attr)
         if tag not in self.read:
@@ -1786,13 +1894,51 @@ class _Emit:
                            f"(void)y{tag}; (void)w{tag};"]
         return f"{n.op[0]}{tag}"
 
+    def seg(self, n: Node) -> str:
+        """A scatter-add's value at the index, and its tangent's where
+        :attr:`Graph.pairs` has it, in one walk of the index's segment: each
+        row ``r`` of it in increasing order (``ptr[i + k]`` to ``ptr[i + k +
+        1]`` of the rows sorted by target), its term evaluated at ``r`` (its
+        piece's index ``r + off``) and added as :func:`ordered_segment_sum`
+        adds."""
+        ptr, rows, _, n_rows, spans, k = n.attr
+        nodes = [n]
+        pair = self.b.pairs.get(n.id)
+        if pair is not None and pair.id not in self.names:
+            nodes.append(pair)
+        names = [f"sg{x.id}" for x in nodes]
+        body = []
+        for j, (a, b_, off) in enumerate(spans):
+            inner = _Emit(self.b, idx="sr", own=False, parent=self)
+            vals = [inner.name(x.args[j]) for x in nodes]
+            block = [f"const int sr = sr0 + {off or 0};", "(void)sr;", *inner.lines]
+            block += [f"{nm} = sq == sq0 ? {v} : {nm} + {v};" for nm, v in zip(names, vals)]
+            if len(spans) == 1:
+                body += block
+            else:
+                body += [f"if (sr0 >= {a} && sr0 < {b_}) {{", *["  " + x for x in block], "}"]
+        self.lines += [f"T {', '.join(nm + ' = (T)0' for nm in names)};  // scatter-add rows",
+                       "{",
+                       f"  const int sq0 = (int)prm[{ptr + k} + {self.idx}], "
+                       f"sq1 = (int)prm[{ptr + k + 1} + {self.idx}];",
+                       "  for (int sq = sq0; sq < sq1; ++sq) {",
+                       f"    const int sr0 = (int)prm[{rows} + sq];  // of {n_rows} rows",
+                       *["    " + x for x in body], "  }", "}"]
+        for x, nm in zip(nodes, names):
+            self.names[x.id] = nm
+        return names[0]
+
     def name(self, n: Node) -> str:
         if n.id in self.names:
             return self.names[n.id]
         op, a = n.op, n.args
         if op == "lit":
             return _hexlit(n.attr)
-        if op in _FAR:
+        if self.parent is not None and not n.lane:
+            return self.parent.name(n)
+        if op == "seg":
+            return self.seg(n)
+        if op in _FAR or (op in ("y", "w") and not self.own):
             return self.far(n)
         leaf = {"y": "y", "w": "w", "y0": "y0", "w0": "w0", "y1": "y1", "w1": "w1"}
         if op in leaf:
@@ -1910,8 +2056,12 @@ _PRODUCTS = {"mm", "mv", "dot", "vdot", "addmm", "addmv", "bmm"}
 _SCANS = {"cumsum", "flip", "roll"}
 """Running sums (a stage), flips and periodic shifts along the coordinates
 (reads at ``d - 1 - i`` and pieces moved), kept undecomposed."""
-_COUPLING = {"outer", "cumprod", "sort", "gather", "index", "index_select", "take", "conv1d",
-             "convolution"}
+_GATHERS = {"index", "index_select", "gather", "take"}
+"""Reads at a constant 1-D index array (``x[idx]``), kept undecomposed."""
+_SCATTERS = {"index_put", "put", "scatter_add", "index_add", "scatter"}
+"""Writes at a constant index array: the adding ones (a gather's backward)
+are scatter-adds into the coordinates, ``scatter`` refused by name."""
+_COUPLING = {"outer", "cumprod", "sort", "conv1d", "convolution"}
 """Ops that couple coordinates otherwise (kept undecomposed, so that a refusal
 names them)."""
 
@@ -1925,7 +2075,8 @@ decompositions, which keep them whole."""
 def _decompositions():
     from torch._decomp import core_aten_decompositions, decomposition_table
 
-    whole = _PRODUCTS | _COUPLING | _SCANS | {"matmul", "einsum", "linear"}
+    whole = _PRODUCTS | _COUPLING | _SCANS | _GATHERS | _SCATTERS | {"matmul", "einsum",
+                                                                     "linear"}
     table = dict(core_aten_decompositions())
     for op in list(table):
         name = getattr(op, "name", lambda: str(op))()
@@ -2309,6 +2460,8 @@ class _Interp:
                 return self._rev(node, v)
             if ops & {"sel", "prmd"}:
                 return self.refuse(node, "a flip of a flattened (n, K) matrix's rows")
+            if ops & _INDEXED:
+                return self.refuse(node, "a flip of a gather's or a scatter-add's output")
             c = n - 1 + pc.off  # the index read before, at the new index i = p
 
             def leaf(x, c=c, a=a, b=b):
@@ -2459,7 +2612,7 @@ class _Interp:
         concrete = all(not isinstance(a, _TRACED) for a in _flat(args)) and all(
             not isinstance(a, _TRACED) for a in _flat(list(kwargs.values())))
         if name == "getitem" and not concrete:  # a value of max.dim's (values, indices)
-            return args[0][args[1]]
+            return args[0] if isinstance(args[0], Bad) else args[0][args[1]]
         if name in _LIKE:
             return self._like(node, name, args, kwargs)
         inplace = name.endswith("_") and not name.startswith("_")
@@ -2481,11 +2634,17 @@ class _Interp:
             return rev.err
         if name in _SCANS:
             return self._scan_op(node, name, args, kwargs)
+        if name in _GATHERS:
+            return self._gather(node, name, args)
+        if name in _SCATTERS:
+            return self._scatter_add(node, name, args, kwargs)
         if name in _COUPLING:
-            return self.refuse(node, "it couples coordinates other than through a "
-                               "constant matrix; the kernels evaluate each coordinate "
-                               "from its own value, coordinates 0 and 1, sums, and "
-                               "products of a constant matrix with a vector of the chain")
+            return self.refuse(node, "it couples coordinates otherwise than the kernels "
+                               "read them; they evaluate each coordinate from its own "
+                               "value, its neighbours, fixed coordinates, sums, maxes, "
+                               "running sums, products of a constant matrix with a vector "
+                               "of the chain, and reads and scatter-adds at a constant "
+                               "index array")
         shape = _shape(node)
         if name == "max" and len(args) > 1 and isinstance(args[1], (torch.Tensor,) + _TRACED):
             name = "maximum"  # max.other: two values' elementwise max
@@ -2808,6 +2967,9 @@ class _Interp:
             return self.refuse(node, "a view as an (n, K) matrix of a vector that is not one "
                                "expression of x")
         pc = v.pieces[0]
+        if _leaves(pc.e) & _INDEXED:
+            return self.refuse(node, "a view as an (n, K) matrix of a gather's or a "
+                               "scatter-add's output")
         base = k + pc.off
         params = torch.cat(self.params) if self.params else None
 
@@ -2878,6 +3040,9 @@ class _Interp:
         itself, a parameter ``prmd``."""
         if pc.off is None:
             return pc.e
+        if _leaves(pc.e) & _INDEXED:
+            return self.refuse(node, "a flattened matrix of a gather's or a scatter-add's "
+                               "output")
         off = pc.off
 
         def leaf(x):
@@ -2980,6 +3145,171 @@ class _Interp:
         bad = next((v for v in vecs if isinstance(v, Bad)), None)
         return bad or Mat(tuple(vecs), True)
 
+    # -- reads and scatter-adds at a constant index array ----------------------
+    def table(self, t: torch.Tensor) -> int:
+        """An integer table's offset in the parameters, keyed by its
+        entries, which the run's dtype holds exactly (below 2^24, a float32
+        mantissa: the callers refuse longer vectors)."""
+        t = t.long().cpu().contiguous()
+        off = self.hoist(t, ("table", tuple(t.shape),
+                             hashlib.sha256(t.numpy().tobytes()).hexdigest()))
+        self.b.tables[off] = t
+        return off
+
+    def _index(self, node, idx, m):
+        """A constant 1-D index into ``m`` positions, negative entries wrapped
+        as torch wraps them, as int64 on the host (or Bad)."""
+        if isinstance(idx, _TRACED):
+            return self.refuse(node, "an index that depends on x; the kernels read at a "
+                               "constant index array")
+        if not isinstance(idx, torch.Tensor) or idx.dtype in (torch.bool, torch.uint8) or (
+                idx.is_floating_point()):
+            return self.refuse(node, "an index that is not an integer array (a mask)")
+        if idx.dim() > 1:
+            return self.refuse(node, f"an index array of shape {tuple(idx.shape)}; the "
+                               "kernels read at a 1-D index array")
+        idx = idx.reshape(-1).long().cpu()
+        idx = torch.where(idx < 0, idx + m, idx)
+        if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= m):
+            return self.refuse(node, f"an index outside [0, {m})")
+        if max(m, idx.numel(), self.d) >= 1 << 24:
+            return self.refuse(node, "an index table past 2^24 entries, which a float32 "
+                               "parameter holds exactly")
+        return idx
+
+    def _gather(self, node, name, args):
+        """``v[idx]`` (``index``, ``index_select``, ``gather``, ``take``) of
+        a vector of the chain at a constant index: row ``r`` is ``v``'s
+        expression at position ``idx[r]``, its reads of x through index
+        tables (``yg``), its parameters a gathered hoisted copy."""
+        v = args[0]
+        if name == "index":
+            if len(args[1]) != 1 or args[1][0] is None:
+                return self.refuse(node, "an index of more than one dimension")
+            idx = args[1][0]
+        elif name == "take":
+            idx = args[1]
+        else:
+            if args[1] not in (0, -1):
+                return self.refuse(node, f"{name} along dim {args[1]}")
+            idx = args[2]
+        shape = _shape(node.args[0])
+        if not isinstance(v, Vec) or shape is None or _nonunit(shape) > 1:
+            return self.refuse(node, "a gather of a value that is not a vector of the chain")
+        idx0 = idx
+        idx = self._index(node, idx, v.n)
+        if isinstance(idx, Bad):
+            return idx
+        if isinstance(idx0, torch.Tensor) and idx0.dim() == 0:  # one element
+            return self.element(v, int(idx), node)
+        pcs = [pc for pc in v.pieces if bool(((idx >= pc.a) & (idx < pc.b)).any())]
+        n = idx.numel()
+        if len(pcs) > 1:
+            return self.refuse(node, "a gather across parts of a vector that are different "
+                               "expressions")
+        if not pcs:
+            return Vec(0, ())
+        pc = pcs[0]
+        if pc.off is None:
+            return Vec(n, (Piece(0, n, None, pc.e),))
+        e = self._regather(node, pc.e, idx + pc.off)
+        return e if isinstance(e, Bad) else Vec(n, (Piece(0, n, 0, e),))
+
+    def _regather(self, node, e: Node, at: torch.Tensor):
+        """``e`` read at index ``at[r]`` for row ``r``: each read of a
+        coordinate a read through the table of the coordinates it reads
+        (``yg``/``wg``), each parameter a hoisted gathered copy."""
+        ops = {x.op for x in _nodes(e)}
+        if ops & (_PRODUCT_LEAVES | {"sel", "prmd"}):
+            return self.refuse(node, "a gather of a stage's output (a product's, or a "
+                               "running sum's); the kernels read a stage's element at each "
+                               "index's own")
+        if "seg" in ops:
+            return self.refuse(node, "a gather of a scatter-add's output")
+        params = torch.cat(self.params) if self.params else None
+        new = {}
+        for x in _nodes(e):
+            if x.args or not x.lane:
+                continue
+            if x.op == "prm":
+                vals = params[x.attr + at]
+                key = ("gather", x.attr, hashlib.sha256(at.numpy().tobytes()).hexdigest())
+                new[x.id] = self.b.mk("prm", attr=self.hoist(vals, key))
+                continue
+            if x.op in ("yg", "wg"):
+                t, _, k = x.attr
+                coords = self.b.tables[t][at + k]
+            else:  # y, w and their neighbours and strided reads: s i + c
+                s, c = x.attr if x.op in ("ya", "wa") else (1, x.attr or 0)
+                coords = s * at + c
+            if int(coords.min()) < 0 or int(coords.max()) >= self.d:
+                return self.refuse(node, f"an index that reads coordinates outside [0, "
+                                   f"{self.d})")
+            new[x.id] = self.b.mk(x.op[0] + "g", attr=(self.table(coords), at.numel(), 0))
+        return self.b.relabel(e, lambda x: new.get(x.id), {})
+
+    def _scatter_add(self, node, name, args, kwargs):
+        """``index_put``/``put`` with ``accumulate=True``, ``scatter_add`` and
+        ``index_add`` of a vector of the chain at a constant index into a
+        vector of at most the ``d`` coordinates: position ``i`` adds the rows
+        ``r`` with ``idx[r] = i`` (a segment walk, ``seg``, over the rows
+        sorted stably by target, their CSR hoisted as index tables)."""
+        if name in ("index_put", "put"):
+            base, idx, vals = args[:3]
+            acc = args[3] if len(args) > 3 else kwargs.get("accumulate", False)
+            if not acc:
+                return self.refuse(node, f"{name} without accumulate: it writes rows without "
+                                   "adding them")
+            if name == "index_put":
+                if len(idx) != 1 or idx[0] is None:
+                    return self.refuse(node, "an index of more than one dimension")
+                idx = idx[0]
+        elif name in ("scatter_add", "index_add"):
+            base, dim, idx, vals = args[:4]
+            if dim not in (0, -1):
+                return self.refuse(node, f"{name} along dim {dim}")
+        else:
+            return self.refuse(node, "a scatter that writes rows without adding them; the "
+                               "kernels add rows (scatter_add, index_add, and index_put and "
+                               "put with accumulate=True)")
+        shape = _shape(node)
+        if shape is None or _nonunit(shape) > 1:
+            return self.refuse(node, f"a scatter into a value of shape {shape}")
+        m = math.prod(shape)
+        if m > self.d:
+            return self.refuse(node, f"a scatter into {m} positions, a length other than "
+                               f"the {self.d} coordinates of x (or a slice of them)")
+        idx = self._index(node, idx, m)
+        if isinstance(idx, Bad):
+            return idx
+        n = idx.numel()
+        alpha = kwargs.get("alpha", args[4] if name == "index_add" and len(args) > 4 else 1)
+        b = self.b
+        if isinstance(vals, torch.Tensor):  # constant rows: a constant scatter
+            vals = vals.reshape(-1).expand(n).to(self.dtype).cpu() * alpha
+            const = torch.zeros(m, dtype=self.dtype).index_put_((idx,), vals, accumulate=True)
+            return self.ew(node, "add", [base, const], lambda a, c: b.mk("add", a, c))
+        vals = self.as_vec(vals, n, node)
+        if isinstance(vals, Bad):
+            return vals
+        if alpha != 1:
+            vals = self.ew(node, "mul", [vals, alpha], lambda a, c: b.mk("mul", a, c))
+        if any(_leaves(pc.e) & (_PRODUCT_LEAVES | {"sel", "prmd", "seg"})
+               for pc in vals.pieces):
+            return self.refuse(node, "a scatter-add of a stage's output (a product's, a "
+                               "running sum's or a scatter's); the kernels add rows that "
+                               "read x, parameters and chain values")
+        order = torch.argsort(idx, stable=True)
+        ptr = torch.cat([torch.zeros(1, dtype=torch.long),
+                         torch.cumsum(torch.bincount(idx, minlength=m), 0)])
+        spans = tuple((pc.a, pc.b, pc.off) for pc in vals.pieces)
+        e = b.mk("seg", *(pc.e for pc in vals.pieces),
+                 attr=(self.table(ptr), self.table(order), m, n, spans, 0))
+        out = Vec(m, (Piece(0, m, 0, e),))
+        if isinstance(base, torch.Tensor) and not bool(base.any()):
+            return out
+        return self.ew(node, "add", [base, out], lambda a, c: b.mk("add", a, c))
+
     def _move(self, node, name, args):
         b = self.b
         if name in ("cat", "stack"):
@@ -3064,6 +3394,9 @@ class _Interp:
         pieces += [Piece(max(pc.a, hi), pc.b, pc.off, pc.e) for pc in v.pieces if pc.b > hi]
         return Vec(v.n, _merge(pieces))
 
+
+_INDEXED = {"yg", "wg", "seg"}
+"""A gather's reads and a scatter-add: nodes whose index reads a table."""
 
 _TRACED = (Vec, Node, Bad, Mat, Pend, Rev)
 """The interpreter's values that depend on x (or failed to)."""
@@ -3236,9 +3569,20 @@ def lower_gradient(grad_fn, kernel: str, d: int, dtype, device="cpu") -> Lowered
 def check_reads(pc: Piece, d: int) -> None:
     """Raise where a piece reads a coordinate outside ``[0, d)``: a neighbour
     at offset ``k`` of its indices, or a fixed coordinate (a correct trace
-    never does: its slices are static)."""
+    never does: its slices are static); or an index table's entry outside
+    it (a gather's table, a scatter-add's segments), whose entries are
+    checked where they are made; a scatter-add's rows are checked at their
+    own indices."""
     lo, hi = _coords(pc)
-    for x in _nodes(pc.e):
+    for x in _nodes(pc.e, rows=False):
+        n, k = ((x.attr[1], x.attr[2]) if x.op in ("yg", "wg") else
+                (x.attr[2], x.attr[5]) if x.op == "seg" else (None, 0))
+        if n is not None and (lo + k < 0 or hi + k > n):
+            raise _refuse(f"positions [{pc.a}, {pc.b}) read entries [{lo + k}, {hi + k}) "
+                          f"of an index table of {n}")
+        if x.op == "seg":
+            for (a, b, off), e in zip(x.attr[4], x.args):
+                check_reads(Piece(a, b, off, e), d)
         if x.op in ("yo", "wo") and (lo + x.attr < 0 or hi + x.attr > d):
             raise _refuse(f"positions [{pc.a}, {pc.b}) read coordinates "
                           f"[{lo + x.attr}, {hi + x.attr}), outside [0, {d})")

@@ -1260,3 +1260,103 @@ def test_k6_block_scan_needs_its_barrier(dev, monkeypatch):
                 _lse_matches_plain(dev, "sticky", "local_level", targets=scan_target)
         else:
             _lse_matches_plain(dev, "sticky", "local_level", targets=scan_target)
+
+
+def gather_target(name, dev):
+    """(d, U) of the gather targets at card-test size, on the data
+    ``chip_smoke.py`` draws: the ICAR prior of Morris et al. (``0.5
+    sum((phi[node1] - phi[node2])^2)``, the soft sum-to-zero at sd ``0.001
+    d``, unit-noise observations) on ``icar_graph(10)`` (d = 100: its edges
+    cross K6's four warps), and the radon model of Gelman & Hill with free
+    scales on ``radon_data(12, 120)`` (d = 16); ``icar_weak`` the same graph
+    with the sum-to-zero at sd 10, whose flows between jumps (about 0.01, not
+    1e-4) let a stale read move a flip."""
+    from chip_smoke import icar_graph, radon_data
+
+    if name.startswith("icar"):
+        sd = 10.0 if name == "icar_weak" else 0.001 * 100
+        edges, y = icar_graph(10)
+        E, y = torch.as_tensor(edges, device=dev), torch.as_tensor(y, device=dev)
+
+        def U(phi):
+            Ed = E.to(phi.device)
+            dphi = phi[Ed[:, 0]] - phi[Ed[:, 1]]
+            return (0.5 * torch.sum(dphi ** 2) + 0.5 * (torch.sum(phi) / sd) ** 2
+                    + 0.5 * torch.sum((y.to(phi) - phi) ** 2))
+        return len(y), U
+    J, n = 12, 120
+    county, floor, y = (torch.as_tensor(a, device=dev) for a in radon_data(J, n))
+
+    def U(x):
+        a, mu, b, lsa, lsy = x[:J], x[J], x[J + 1], x[J + 2], x[J + 3]
+        r = y.to(x) - a[county.to(x.device)] - b * floor.to(x)
+        return (0.5 * torch.sum(r * r) * torch.exp(-2 * lsy) + n * lsy
+                + 0.5 * torch.sum((a - mu) ** 2) * torch.exp(-2 * lsa) + J * lsa
+                + (mu * mu + b * b) / 200 + 0.5 * (lsa * lsa + lsy * lsy))
+    return J + 4, U
+
+
+GATHER_TARGETS = ["icar", "radon"]
+
+
+@pytest.fixture(scope="module")
+def gather_libraries():
+    """Every f64 library of the gather tests, built at once (one nvcc each)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels compile for sm_90a with nvcc)")
+    from concurrent.futures import ThreadPoolExecutor
+
+    lows = []
+    for target in GATHER_TARGETS:
+        d, U = gather_target(target, "cuda")
+        for kind, make in LSE_KINDS.items():
+            sampler = (pt.StickyZigZagAD(d, U, np.ones(d)) if kind == "sticky" else
+                       make(d, U, refresh_rate=1.0) if kind in ("bps", "boomerang")
+                       else make(d, U))
+            lows.append(lower.lower_sampler(sampler, driver.kernel_kind(sampler), d,
+                                            torch.float64, "cuda"))
+    with ThreadPoolExecutor(len(lows)) as ex:
+        list(ex.map(lambda low: low.library(), lows))
+
+
+@pytest.mark.parametrize("kind", list(LSE_KINDS))
+@pytest.mark.parametrize("target", GATHER_TARGETS)
+def test_gather_targets_match_plain_f64(dev, gather_libraries, kind, target):
+    """The ICAR prior (two scatter-adds walked at every coordinate; K1 and K6
+    on the chain moments of its sum-to-zero) and the radon model (a gather
+    of the intercepts, sums over the houses: a point potential) on every
+    chunk kernel: K4 and K3/K5 bit for bit, K1 and K6 to rtol 1e-9."""
+    st, cfg = _lse_matches_plain(dev, kind, target, targets=gather_target,
+                                 K=64 if kind == "suzz" else 16)
+    assert "// scatter-add rows" in cfg.user.header()
+
+
+def test_k6_scatter_reads_need_their_barrier(dev, tmp_path, monkeypatch):
+    """K6's barrier between the flow and round C's reads of other threads'
+    coordinates (``reads_others`` without a point context), with odd warps
+    delayed 20 us before they flow their coordinates: with the barrier K6
+    on the ICAR at d = 100 (its segment walks read coordinates of all four
+    warps; the sum-to-zero weak, so that a flow moves the coordinates by
+    about 0.01) matches its plain version; without it, round C reads the
+    odd warps' coordinates before their flow and it does not."""
+    src = (build.CSRC / "sticky_chunk.cu").read_text()
+    flow = "      for (int i = tid; i < d; i += nt) sx[i] = sx[i] + masked(sv, sact, i) * flow_t;\n"
+    barrier = ("          // accessor (a point potential's fill took this barrier)\n"
+               "          __syncthreads();\n")
+    assert src.count(flow) == 1 and src.count(barrier) == 1
+    control = src.replace(flow, "      if (warp & 1) __nanosleep(20000);\n" + flow)
+    mutant = control.replace(barrier, barrier.replace("__syncthreads();", "(void)0;"))
+    for name, text, fails in (("control", control, False), ("mutant", mutant, True)):
+        folder = tmp_path / name
+        folder.mkdir()
+        for f in build.CSRC.iterdir():
+            (folder / f.name).write_bytes(f.read_bytes())
+        (folder / "sticky_chunk.cu").write_text(text)
+        monkeypatch.setattr(build, "CSRC", folder)
+        if fails:
+            with pytest.raises(AssertionError):
+                _lse_matches_plain(dev, "sticky", "icar_weak", targets=gather_target, B=256)
+        else:
+            st, cfg = _lse_matches_plain(dev, "sticky", "icar_weak", targets=gather_target,
+                                         B=256)
+            assert not cfg.user.point and "reads_others = true" in cfg.user.header()
