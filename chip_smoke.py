@@ -11,7 +11,7 @@ Phases, one line each; any failure raises and exits non-zero:
    ``pdmpflux_tpu_torch/csrc`` with nvcc, one compile per source, all started
    together; ptxas's registers, stack frame and spills of every kernel, and
    no stack frame in any instantiation of K1.  Meanwhile a thread lowers
-   every gradient of phases 36-46 and then builds their user libraries
+   every gradient of phases 36-47 and then builds their user libraries
    beside phases 2-35, one nvcc per core but the first core's, at the
    lowest priority (``UserBuilds``); phase 36 waits for the last;
 2. K1 against its plain PyTorch version on the card, float64, from the same
@@ -434,8 +434,24 @@ Phases, one line each; any failure raises and exits non-zero:
    and its bound (``bps_icar_d1024``'s f32 library also against its plain
    version, B = 64, K = 4); one f32 launch each of K6, K5 and K4 on the
    ICAR, and K4's at its default first horizon (2.0), whose envelope
-   rejects nearly every transition there.  The script prints its clock
-   after each group of phases, and phases 22 and 33 their own seconds.
+   rejects nearly every transition there;
+47. hierarchical regressions (coefficient blocks of x against data rows;
+   gathers, shifts and scatter-adds of a stage's output) on Gelman &
+   Hill's radon model with house- and county-level covariate matrices,
+   non-centred (d = 94: 85 counties, 919 houses, X 919 x 4, Z 85 x 2 drawn
+   from the seed; with the scales fixed, d = 92): K1, K6, K4, K3 and K5
+   against their plain versions in f64 on both (64 chains, one launch of 2
+   transitions, K4's of 24; K3/K5 and K4 bit for bit, K1 and K6 within
+   rtol 1e-9), each taking its kernel under ``"auto"``; K6 with its first
+   warp delayed before the last product's rows, with the barriers after
+   products read at other rows (matches) and without them (must fail);
+   then ``zigzag_radon_x_d92`` and ``bps_radon_x_d92`` (the scales fixed,
+   1024 chains x 2048 points from exact posterior draws, gated as 45's
+   local level), each the median of three warm calls under ``"auto"`` (its
+   kernel and K2, no engine chunk), its launches a call, an f32 launch, its
+   bound and the call's split; one f32 launch of the free-scale model on
+   each kernel.  The script prints its clock after each group of phases,
+   and phases 22 and 33 their own seconds.
 
 Then one JSON line of per-kernel results (launches counted in the timed run
 of each kernel's path: phase 4 for K1 and K2, phase 7 for K6, phase 10 for
@@ -450,10 +466,10 @@ flagship, phase 32 (dim 1) for K2's entry named after the gspmd
 deployment, phases 34 and 35 for the entries of K4, K1 and K2 named after
 their deployments, 35 (the engine route) for K2's entry named
 ``engine:zigzag_neal_funnel_d10_n512`` (its 512-point run), phases
-36-46 for the entries ``<kernel>[user:<path>]`` of each generated potential's path (and K2's on
+36-47 for the entries ``<kernel>[user:<path>]`` of each generated potential's path (and K2's on
 phase 36's two paths, timed at their shapes in phase 4b); max_abs_err the largest of the kernel's comparisons
 with its plain version, f64 and f32; the bound of each timed launch computed
-from its shape and this run's data; phases 39-46's entries carry
+from its shape and this run's data; phases 39-47's entries carry
 ``plain_of``: their plain time is a parity launch's on the same kernel,
 model and d (f64, or for ``bps_icar_d1024`` f32), their ``ms`` an f32
 launch's), the card's name and power limit, and the status line.
@@ -472,6 +488,7 @@ import tempfile
 import threading
 import time
 from collections import Counter
+from contextlib import nullcontext
 from concurrent.futures import ThreadPoolExecutor
 from functools import cache
 from pathlib import Path
@@ -4062,7 +4079,7 @@ USER_PATHS = {path: (cache(make), shape) for path, (make, shape) in USER_PATHS.i
 
 
 def user_lowerings():
-    """Every gradient of phases 36-46 lowered as its phase runs it (float32
+    """Every gradient of phases 36-47 lowered as its phase runs it (float32
     for the runs, float64 for the checks against the plain version), on the
     samplers the phases take (the path functions are cached), so that the
     phases find each lowering done; a lane past ``LANE_BYTES`` is never
@@ -4087,8 +4104,12 @@ def user_lowerings():
     pairs += [(s, torch.float32) for s in gather_launch_samplers().values()]
     pairs += [(gather_stall_sampler(), torch.float32)]
     pairs += [(s, torch.float64) for _, s, _, _ in gather_parity_samplers()]
+    # phase 47: its runs in float32, its parity launches in float64
+    pairs += [(s, torch.float32) for s, _ in regression_paths().values()]
+    pairs += [(s, torch.float32) for s in regression_launch_samplers().values()]
+    pairs += [(s, torch.float64) for _, s, _ in regression_parity_samplers()]
     lows = [lower.lower_sampler(s, driver.kernel_kind(s), s.dim, dt, DEV) for s, dt in pairs]
-    return [low for low in lows if lower.lane_fits(low)]
+    return [low for low in lows if lower.lane_fits(low)] + list(regression_barrier()[1].values())
 
 
 def build_cpus():
@@ -4113,7 +4134,7 @@ def build_cpus():
 
 
 class UserBuilds:
-    """Phases 36-46's user libraries, made beside phases 1-35: a thread
+    """Phases 36-47's user libraries, made beside phases 1-35: a thread
     lowers every gradient (:func:`user_lowerings`) while phase 1's ``nvcc``
     runs, then builds the libraries one ``nvcc`` per core of
     :func:`build_cpus`, each ``nvcc`` at the lowest priority and held to
@@ -4210,7 +4231,8 @@ def chunk_fns(cfg):
             else (k1.run_chunk, k1.run_chunk_plain))
 
 
-def user_compare(what, sampler, B, bitwise, math_tag=None, n_chunks=2, horizon=False, K=32):
+def user_compare(what, sampler, B, bitwise, math_tag=None, n_chunks=2, horizon=False, K=32,
+                 user=None):
     """A user gradient's kernel against its plain version fed the IR's torch
     pair, ``n_chunks`` chunks of ``K`` from one f64 random state (every fifth
     chain capped inside the run; in horizon mode, K7, a float32 target at the
@@ -4219,8 +4241,10 @@ def user_compare(what, sampler, B, bitwise, math_tag=None, n_chunks=2, horizon=F
     ``bitwise`` (K3/K5, K4: where the math function of ``math_tag``'s
     gradient, as :func:`bit_tolerance` reads it, parts the two a bit, the
     first part is printed and the check takes ``RTOL``) else to
-    ``RTOL``/``ATOL`` (K1, K6).  Returns (max abs err, events, ms of the
-    plain version's first chunk by CUDA events)."""
+    ``RTOL``/``ATOL`` (K1, K6); ``user``: the lowered potential the card's
+    kernel takes, in place of the sampler's (a library built otherwise).
+    Returns (max abs err, events, ms of the plain version's first chunk by
+    CUDA events)."""
     d = sampler.dim
     scale = 0.3 if sampler.sticky else 1.0
     state = random_state(sampler, B, torch.float64, d + B, scale=scale)
@@ -4234,13 +4258,14 @@ def user_compare(what, sampler, B, bitwise, math_tag=None, n_chunks=2, horizon=F
     st_k = driver.chunk_state(state, counts, sampler.sticky)
     if horizon:
         cfg = cfg._replace(t_target=median_target(run, st_k, cfg, K, n_chunks, 314159))
+    kcfg = cfg if user is None else cfg._replace(user=user)
     st_p = clone_state(st_k)
     fill_k, fill_p = (k1.empty_fill(K * n_chunks, d, B, torch.float64, DEV, sampler.sticky)
                       for _ in range(2))
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     for it in range(n_chunks):
         seed = 314159 + it * 1000003
-        run(seed, st_k, fill_k, it * K, cfg)
+        run(seed, st_k, fill_k, it * K, kcfg)
         sync()
         if it == 0:
             start.record()
@@ -4305,24 +4330,30 @@ def user_chunk(what, sampler, x0, v0, share_min, K=32, reps=20, plain_reps=2):
     return ms, plain_ms, b, err, text
 
 
-def user_call(what, sampler, n_or_T, x0, v0, calls, **kw):
+def user_call(what, sampler, n_or_T, x0, v0, calls, device_ms=None, **kw):
     """A user gradient's ``sample_skeleton`` under ``backend="auto"``: one
     warm call (its lowering; its library is built), then ``calls`` timed
     calls, the launches and engine counts of the first set to 0 just before
     it; that call must take its chunk kernel and K2 and no engine chunk.
-    Returns (the counted call's skeleton, launches, walls)."""
+    ``device_ms``: a list that takes each timed call's chunk-kernel time,
+    CUDA events around every launch (:class:`DeviceTimes`).  Returns (the
+    counted call's skeleton, launches, walls)."""
     kw = dict(seed=0, dtype=torch.float32, device=DEV, **kw)
     pt.sample_skeleton(sampler, n_or_T, x0, v0, **kw)
     sync()
     walls = []
+    chunk = k3 if driver.kernel_kind(sampler) in k3.KINDS else k1
     for call in range(calls):
         if call == 0:
             build.reset_launches()
             engine.reset_counts()
-        t0 = time.perf_counter()
-        skel = pt.sample_skeleton(sampler, n_or_T, x0, v0, **kw)
-        sync()
-        walls.append(time.perf_counter() - t0)
+        with (nullcontext() if device_ms is None else DeviceTimes(chunk, "run_chunk")) as times:
+            t0 = time.perf_counter()
+            skel = pt.sample_skeleton(sampler, n_or_T, x0, v0, **kw)
+            sync()
+            walls.append(time.perf_counter() - t0)
+        if device_ms is not None:
+            device_ms.append(times.total_ms())
         if call == 0:
             launches, chunks, checked = dict(build.LAUNCHES), engine.COUNTS["chunks"], skel
     name = path_launch(sampler)
@@ -5963,6 +5994,85 @@ def radon_posterior():
     return cov @ (A.T @ y / sy ** 2), cov
 
 
+RADON_X_COEF = ((-0.69, 0.25, -0.15, 0.1), (0.72, -0.3))
+"""beta (the floor's, Gelman & Hill's -0.69, then three seeded house-level
+columns') and gamma (county log-uranium's, the book's 0.72, then a seeded
+county-level column's) of :func:`radon_x_data`."""
+
+
+def radon_x_data(J=85, n=919):
+    """(county, X, Z, y) of Gelman & Hill's radon model with individual- and
+    group-level predictors (2007, ch. 12.6), each widened to a covariate
+    matrix: :func:`radon_data`'s counties and floor, ``X`` the floor and
+    three more seeded house-level columns (n x 4), ``Z`` a seeded county
+    log-uranium column and one more seeded column (J x 2), and ``y`` drawn
+    from ``y_r ~ N(alpha[county_r] + X_r beta, sigma_y^2)``, ``alpha = mu +
+    Z gamma + sigma_alpha eta``, ``eta ~ N(0, I)``, at ``RADON_TRUTH`` and
+    ``RADON_X_COEF``."""
+    county, floor, _ = radon_data(J, n)
+    mu, _, sy, sa = RADON_TRUTH
+    beta, gamma = (np.array(c) for c in RADON_X_COEF)
+    rs = np.random.default_rng(21)
+    X = np.concatenate([floor[:, None], rs.normal(size=(n, 3))], 1)
+    Z = np.stack([rs.normal(0.0, 0.35, size=J), rs.normal(size=J)], 1)
+    alpha = mu + Z @ gamma + sa * rs.normal(size=J)
+    return county, X, Z, alpha[county] + X @ beta + sy * rs.normal(size=n)
+
+
+def radon_x_model(data, np_=torch, fixed=False, const=None):
+    """The non-centred radon model on ``data`` as a user writes it, in the
+    numpy-like module ``np_`` (``const`` makes its constants): ``x = (eta,
+    mu, beta, gamma, log sigma_alpha, log sigma_y)`` with N(0, 10^2) on mu,
+    beta and gamma and N(0, 1) on the log scales (d = J + 9), or with both
+    scales fixed at ``RADON_TRUTH`` (``fixed``: d = J + 7, a Gaussian
+    posterior)."""
+    county, X, Z, y = data
+    J, n = Z.shape[0], len(y)
+    sy, sa = RADON_TRUTH[2:]
+    const = const or (lambda a: torch.as_tensor(a, device=DEV))
+    c, Xc, Zc, yc = (const(a) for a in (county, X, Z, y))
+
+    def U(x):
+        eta, mu, b, g = x[:J], x[J], x[J + 1:J + 5], x[J + 5:J + 7]
+        cx = c.to(x.device) if np_ is torch else c
+        Xx, Zx, yx = ((a.to(x) for a in (Xc, Zc, yc)) if np_ is torch else (Xc, Zc, yc))
+        prior = (mu * mu + np_.sum(b * b) + np_.sum(g * g)) / 200 + 0.5 * np_.sum(eta * eta)
+        if fixed:
+            r = yx - (mu + Zx @ g + sa * eta)[cx] - Xx @ b
+            return 0.5 * np_.sum(r * r) / sy ** 2 + prior
+        lsa, lsy = x[J + 7], x[J + 8]
+        r = yx - (mu + Zx @ g + np_.exp(lsa) * eta)[cx] - Xx @ b
+        return (0.5 * np_.sum(r * r) * np_.exp(-2 * lsy) + n * lsy + prior
+                + 0.5 * (lsa * lsa + lsy * lsy))
+
+    return U
+
+
+def radon_x(fixed=False):
+    """:func:`radon_x_model` at full size (d = 94, or 92 with the scales
+    fixed), its data on the card."""
+    return radon_x_model(radon_x_data(), fixed=fixed)
+
+
+def radon_x_posterior(data=None):
+    """``radon_x(fixed=True)``'s exact Gaussian posterior: ``r = y - A x``
+    with ``A`` the houses' design (sigma_alpha at each house's county's eta,
+    1 at mu, X at beta, Z at the house's county at gamma), precision ``A^T A
+    / sigma_y^2`` plus the priors' (1 on eta, 1/100 on mu, beta, gamma), mean
+    ``P^-1 A^T y / sigma_y^2``; returns (mean, covariance), float64 numpy."""
+    county, X, Z, y = radon_x_data() if data is None else data
+    J, n = Z.shape[0], len(y)
+    sy, sa = RADON_TRUTH[2:]
+    A = np.zeros((n, J + 7))
+    A[np.arange(n), county] = sa
+    A[:, J] = 1.0
+    A[:, J + 1:J + 5] = X
+    A[:, J + 5:] = Z[county]
+    P = A.T @ A / sy ** 2 + np.diag([1.0] * J + [0.01] * 7)
+    cov = np.linalg.inv(P)
+    return cov @ (A.T @ y / sy ** 2), cov
+
+
 def icar_graph(L):
     """(edges, y) of an areal map without a band: an L x L grid
     triangulated by one diagonal per cell, its direction drawn from the seed
@@ -6110,7 +6220,8 @@ def gather_start(sampler, B):
 def phase_gather(card_name):
     """Phase 46: reads at a constant index array and their scatter-adds.
     First every kernel against its plain version in f64 (``LSE_PARITY``: 64
-    chains, one launch of 4 transitions, K4's on the radon model of 32; K3/K5
+    chains, one launch of 4 transitions, on the radon model of 2 but K5's, K4's
+    of 16; K3/K5
     and K4 bit for bit, K1 and K6 within 1e-12) on the radon model (d = 89;
     d = 87 on K1 and K3) and on the ICAR target (K1, K6 and K4 at d = 1024,
     K3/K5 at d = 576: :func:`gather_parity_samplers`), each taking its
@@ -6135,8 +6246,11 @@ def phase_gather(card_name):
             raise AssertionError(f"phase 46 {name}: the f64 route is {route}")
         for horizon in modes:
             what = f"phase 46 {name}{' horizon' if horizon else ''}"
-            # K4 on the radon model at its default first horizon: few events a transition
-            k = 8 * K if name == "suzz_radon_d89" else K
+            # the radon model at half the transitions (cut for the script's time), K4
+            # at its default first horizon with few events a transition at 8x, K5,
+            # whose launch of 4 gives 71 events, at 4
+            k = K if "icar" in name or name.startswith("ecmc") else K // 2
+            k = 8 * k if name == "suzz_radon_d89" else k
             err, n_ev, ms = user_compare(what, sampler, B, bitwise, n_chunks=1,
                                          horizon=horizon, K=k)
             if err > 1e-12:
@@ -6145,7 +6259,8 @@ def phase_gather(card_name):
             errs[key], plain[key] = err, ms
             texts.append(f"{key} {'bit for bit' if bitwise else f'{err:.3e}'} ({n_ev} events, "
                          f"plain {ms:.1f} ms)")
-    print(f"phase 46 parity (f64, B={B}, K={K}, one launch each; K3/K5 and K4 bit for bit, K1 "
+    print(f"phase 46 parity (f64, B={B}, K={K}, the radon model's {K // 2} but K5's, K4's "
+          f"{4 * K}, one launch each; K3/K5 and K4 bit for bit, K1 "
           f"and K6 within 1e-12; every route the kernel): {'; '.join(texts)} "
           f"({time.perf_counter() - t0:.1f} s, {card_name})", flush=True)
 
@@ -6216,6 +6331,198 @@ def phase_gather(card_name):
     print(f"phase 46 deployments: {'; '.join(texts)} ({card_name})", flush=True)
     return out
 
+
+RADON_X = (1024, 2048)       # phase 47: chains, points of the radon_x cells
+RADON_X_CALLS = 3            # timed warm calls of each cell (after one warm call)
+RADON_X_PARITY = (64, 2)     # parity launches: chains, transitions (K4's 12x)
+REGRESSION_KINDS = {
+    "zigzag": pt.ZigZagAD, "sticky": lambda d, U: pt.StickyZigZagAD(d, U, np.ones(d)),
+    "suzz": pt.SpeedUpZigZagAD, "bps": lambda d, U: pt.BPSAD(d, U, refresh_rate=1.0),
+    "ecmc": pt.ForwardECMCAD}
+"""Phase 47's samplers of K1, K6, K4, K3 and K5 on a target of dimension d."""
+BARRIER_MARK = "__syncthreads();  // its rows are read at other indices"
+"""The generated K6 barrier after a product whose rows other threads read
+(``lower.Lowered._read_barrier``): phase 47's mutant drops it."""
+
+
+@cache
+def regression_paths():
+    """Phase 47's timed cells: name -> (sampler, (d, chains, points))."""
+    B, n_sk = RADON_X
+    U = radon_x(fixed=True)
+    return {"zigzag_radon_x_d92": (pt.ZigZagAD(92, U), (92, B, n_sk)),
+            "bps_radon_x_d92": (pt.BPSAD(92, U, refresh_rate=1.0), (92, B, n_sk))}
+
+
+@cache
+def regression_launch_samplers():
+    """``radon_x`` (d = 94) on K1, K6, K4, K3 and K5, each timed on one f32
+    launch (phase 47 runs no deployment of it)."""
+    U = radon_x()
+    return {kind: make(94, U) for kind, make in REGRESSION_KINDS.items()}
+
+
+@cache
+def regression_parity_samplers():
+    """Phase 47's f64 parity launches: (name, sampler, bit for bit) of
+    ``radon_x`` (d = 94) and ``radon_x_fixed`` (d = 92) on K1, K6, K4, K3 and
+    K5."""
+    targets = {"radon_x_d94": (94, radon_x()), "radon_x_fixed_d92": (92, radon_x(fixed=True))}
+    return [(f"{kind}_{target}", make(d, U), kind not in ("zigzag", "sticky"))
+            for target, (d, U) in targets.items() for kind, make in REGRESSION_KINDS.items()]
+
+
+def regression_start(sampler, B, seed=47):
+    """x0 from B exact draws of ``radon_x_fixed``'s posterior (for ``radon_x``,
+    d = 94, its log scales at ``RADON_TRUTH``'s plus N(0, 0.1^2) noise); v0
+    = +-1 (a unit normal for the scalar-rate samplers)."""
+    d = sampler.dim
+    rs = np.random.default_rng(seed)
+    mean, cov = radon_x_posterior()
+    x0 = mean + rs.normal(size=(B, len(mean))) @ np.linalg.cholesky(cov).T
+    if d == len(mean) + 2:
+        x0 = np.concatenate([x0, np.log(RADON_TRUTH[3:1:-1]) + 0.1 * rs.normal(size=(B, 2))], 1)
+    if driver.kernel_kind(sampler) in k3.KINDS:
+        v0 = rs.normal(size=(B, d))
+        return x0, v0 / np.linalg.norm(v0, axis=1, keepdims=True)
+    return x0, rs.choice([-1.0, 1.0], size=(B, d))
+
+
+@cache
+def regression_barrier():
+    """K6 on ``radon_x`` (d = 94) and its generated potential twice, from its
+    header with the first warp delayed 20 us before it writes the rows of
+    the last product other threads read (``__nanosleep``): with the
+    barriers after such products (the control) and without them (the
+    mutant).  Returns (the sampler, {name: a copy of its f64 lowering whose
+    ``header`` is that text}); ``user_lowerings`` builds them beside the
+    early phases."""
+    import copy
+
+    sampler = next(s for n, s, _ in regression_parity_samplers() if n == "sticky_radon_x_d94")
+    low = lower.lower_sampler(sampler, "zigzag", 94, torch.float64, DEV)
+    lines = low.header().split("\n")
+    last = max(k for k, line in enumerate(lines) if line.endswith(BARRIER_MARK))
+    rows = max(k for k in range(last) if lines[k].startswith("    for (int r = tid; r < "))
+    lines.insert(rows, "    if ((threadIdx.x >> 5) == 0) __nanosleep(20000);")
+    control = "\n".join(lines)
+    mutant = "\n".join(line for line in lines if not line.endswith(BARRIER_MARK))
+    out = {}
+    for name, text in (("control", control), ("mutant", mutant)):
+        out[name] = copy.copy(low)
+        out[name].header = lambda text=text: text
+        out[name]._lib = None
+    return sampler, out
+
+
+def phase_regression(card_name):
+    """Phase 47: hierarchical regressions (coefficient blocks of x against
+    data rows; gathers, shifts and scatter-adds of a stage's output) on the
+    non-centred radon model with covariate matrices.  First every kernel
+    against its plain version in f64 at full size (``RADON_X_PARITY``: 64
+    chains, one launch of 2 transitions, K4's of 24; K3/K5 and K4 bit for
+    bit, K1 and K6 within rtol 1e-9) on ``radon_x`` (d = 94) and
+    ``radon_x_fixed`` (d = 92), each taking its kernel under ``"auto"``;
+    then K6 on ``radon_x`` with its first warp delayed before the last
+    product's rows, with the barriers behind reads at other rows (must
+    match) and without them (must not); then ``zigzag_radon_x_d92`` and
+    ``bps_radon_x_d92`` (1024 chains x 2048 points from exact posterior
+    draws, one warm call and ``RADON_X_CALLS`` timed ones under ``"auto"``,
+    the first of them counted: its kernel and K2 alone, no engine chunk),
+    gated on every coordinate's pooled mean and variance against the exact
+    posterior (:func:`local_level_gate`), each call's median, launches, an
+    f32 launch and its bound; one f32 launch of ``radon_x`` on each kernel.
+    Returns {path: (launches, ms, plain ms, bound, err)}."""
+    B, K = RADON_X_PARITY
+    t0 = time.perf_counter()
+    errs, plain, texts = {}, {}, []
+    for name, sampler, bitwise in regression_parity_samplers():
+        route = api.pick_backend(sampler, "auto", sampler.dim, torch.float64, DEV)
+        if route != "kernel":
+            raise AssertionError(f"phase 47 {name}: the f64 route is {route}")
+        what = f"phase 47 {name}"
+        err, n_ev, ms = user_compare(what, sampler, B, bitwise, n_chunks=1,
+                                     K=12 * K if name.startswith("suzz") else K)
+        if err > 1e-9:
+            raise AssertionError(f"{what}: max_abs_err {err:.3e} past 1e-9")
+        errs[name], plain[name] = err, ms
+        texts.append(f"{name} {'bit for bit' if bitwise else f'{err:.3e}'} ({n_ev} events, "
+                     f"plain {ms:.1f} ms)")
+    t1 = time.perf_counter()
+    sticky, libs = regression_barrier()
+    marks = sum(line.endswith(BARRIER_MARK) for line in libs["control"].header().split("\n"))
+    for name, mut in libs.items():
+        try:
+            user_compare(f"phase 47 K6 {name}", sticky, B, False, n_chunks=1, K=K, user=mut)
+            failed = None
+        except AssertionError as exc:
+            failed = str(exc).splitlines()[0][:200]
+        if (failed is None) != (name == "control"):
+            raise AssertionError(f"phase 47 K6 barrier {name}: "
+                                 f"{'failed: ' + failed if failed else 'matched its plain version'}")
+        texts.append(f"K6 {name} (the {marks} marked barriers after products read at "
+                     f"other rows {'kept' if name == 'control' else 'dropped'}; first warp "
+                     f"delayed 20 us): "
+                     f"{'matches its plain version' if failed is None else 'fails: ' + failed}")
+    print(f"phase 47 parity (f64, B={B}, K={K}, K4 {12 * K}, one launch each; K3/K5 and K4 bit "
+          f"for bit, K1 and K6 within rtol 1e-9; every route the kernel): {'; '.join(texts)} "
+          f"({t1 - t0:.1f} s parity, {time.perf_counter() - t1:.1f} s barrier; {card_name})",
+          flush=True)
+
+    mean, cov = radon_x_posterior()
+    out, texts = {}, []
+    for path, (sampler, (dp, Bp, n_sk)) in regression_paths().items():
+        what = f"phase 47 {path}"
+        x0, v0 = regression_start(sampler, Bp)
+        route = api.pick_backend(sampler, "auto", dp, torch.float32, DEV)
+        if route != "kernel":
+            raise AssertionError(f"{what}: 'auto' takes {route}")
+        dev = []
+        skel, launches, walls = user_call(what, sampler, n_sk, x0, v0, RADON_X_CALLS,
+                                          device_ms=dev)
+        name = path_launch(sampler)
+        events = int(skel.n_valid.sum()) - Bp
+        gate = local_level_gate(what, sampler, skel, mean, cov, x0)
+        del skel
+        ms, b = kernel_chunk(sampler, x0, v0)
+        med = int(np.argsort(walls)[len(walls) // 2])
+        wall, kern = walls[med], dev[med] / 1e3
+        key = f"{path.split('_')[0]}_radon_x_fixed_d92"
+        out[path] = (launches, ms, plain[key], b, errs[key])
+        low = lower.lower_sampler(sampler, driver.kernel_kind(sampler), dp, torch.float32, DEV)
+        texts.append(
+            f"{path} ({type(sampler).__name__} d={dp} B={Bp} n_sk={n_sk}; {len(low.trans)} "
+            f"products per transition, {len(low.slot)} in slots, {len(low.reductions)} sums, "
+            f"{low.lane_bytes()} B per lane, {low.params.numel()} parameters): route {name} "
+            f"{launches[name]} launches a call, K2 {launches['compact_rows']}, 0 engine chunks, "
+            f"{events} events; calls {', '.join(f'{w:.4f}' for w in walls)} s, median {wall:.4f} "
+            f"s ({events / wall:.1f} events/s); split of the median call: {name} "
+            f"{launches[name]} launches {kern:.4f} s by CUDA events around each "
+            f"({kern / launches[name] * 1e3:.4f} ms a launch, {kern / wall:.1%}), the rest "
+            f"{wall - kern:.4f} s; {gate}; f32 chunk (K=32) alone {ms:.4f} ms at the "
+            f"deployment's start, bound {bound_text(b)}; its "
+            f"f64 parity launch ({key}) {errs[key]:.3e}, plain {plain[key]:.1f} ms")
+    Bl = RADON_X[0]
+    for kind, sampler in regression_launch_samplers().items():
+        x0, v0 = regression_start(sampler, Bl)
+        low = lower.lower_sampler(sampler, "zigzag" if kind == "sticky" else kind, 94,
+                                  torch.float32, DEV)
+        route = api.pick_backend(sampler, "auto", 94, torch.float32, DEV)
+        if route != "kernel":
+            raise AssertionError(f"phase 47 {kind}_radon_x_d94: 'auto' takes {route} "
+                                 f"({low.lane_bytes()} B per lane)")
+        ms, b, (n_ev, n_rej) = kernel_chunk(sampler, x0, v0, events=True)
+        key = f"{kind}_radon_x_d94"
+        context = (f"{low.shared_values()} values in shared memory" if kind == "sticky"
+                   else f"{low.lane_bytes()} B per lane")
+        texts.append(f"{key} (no deployment: {type(sampler).__name__} d=94 B={Bl}, "
+                     f"{context}): f32 chunk (K=32) {ms:.4f} ms from near "
+                     f"the posterior ({n_ev} event rows, {n_rej} rejections in its first "
+                     f"launch), bound {bound_text(b)}; its f64 parity launch {errs[key]:.3e}, "
+                     f"plain {plain[key]:.1f} ms")
+    print(f"phase 47 deployments: {'; '.join(texts)} ({card_name})", flush=True)
+    return out
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b, plain_of=None):
     """One entry of the kernels line; ``plain_of`` says which launch
     ``plain_ms`` timed where it is not the launch ``ms`` timed."""
@@ -6238,7 +6545,7 @@ def main():
         """The script's clock after a phase, for its time budget."""
         print(f"[after phase {phase}: {time.perf_counter() - t_start:.1f} s]", flush=True)
 
-    builds = UserBuilds()  # phases 36-46's libraries, lowered and built beside 1-35
+    builds = UserBuilds()  # phases 36-47's libraries, lowered and built beside 1-35
     try:
         phase_build()
         at(1)
@@ -6249,7 +6556,7 @@ def main():
 
 
 def run_phases(card_name, at, builds):
-    """Phases 2-46 and the kernels line."""
+    """Phases 2-47 and the kernels line."""
     k1_err = phase_k1()
     k2_err = phase_k2()
     at(3)
@@ -6341,6 +6648,8 @@ def run_phases(card_name, at, builds):
     at(45)
     user.update(phase_gather(card_name))
     at(46)
+    user.update(phase_regression(card_name))
+    at(47)
     zz = "pdmpflux_tpu/ops/pallas/zigzag_chunk.py:854"
     k7 = 'pdmpflux_tpu/ops/pallas/zigzag_chunk.py:343 mode="horizon"'
     kernels = [
@@ -6436,6 +6745,10 @@ def run_phases(card_name, at, builds):
         if path in gather_paths():
             plain_of = (GATHER_PLAIN_OF[path].format(B=LSE_PARITY[0], K=LSE_PARITY[1])
                         + "; ms: an f32 launch from the deployment's start")
+        if path in regression_paths():
+            B, K = RADON_X_PARITY
+            plain_of = (f"the f64 parity launch (B={B}, K={K}) from a random state on the same "
+                        "kernel, model and d; ms: an f32 launch from the deployment's start")
         kernels.append(kernel_entry(
             f"{name}[user:{path}]", *sources[name], n[name], err, ms, plain_ms, b, plain_of))
         if path in ("bench_zigzag_d10", "readme_zigzag_ad_d10"):

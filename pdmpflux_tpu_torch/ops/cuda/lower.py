@@ -37,19 +37,27 @@ The IR.  A value of the trace is one of:
   through an index table (``y_{T[i + k]}``: a gather ``v[idx]``,
   ``index_select``, ``gather`` or ``take`` at a constant 1-D index, whose
   row ``r`` is ``v``'s expression at position ``idx[r]``, its parameters a
-  gathered hoisted copy), parameters, chain values, a product's element at
-  the same index and a scatter-add's element (below).  Pieces read at
-  different offsets are rebased onto one index, their reads becoming
-  neighbours; a read outside ``[0, d)`` is refused.  A vector lies in an
-  index space: the coordinates, or the rows of a data vector (``X @ y`` for
-  an ``(n, d)`` constant ``X``, ``n != d``); one expression never mixes the
-  two.
+  gathered hoisted copy), parameters, chain values, a stage's element (at
+  the same index, at an affine row ``(i - c) / s``, or through an index
+  table: :data:`_PRODUCT_LEAVES`) and a scatter-add's element (below).
+  Pieces read at different offsets are rebased onto one index (a product's
+  element keeps its own where it can), their reads becoming neighbours and
+  a product's rows ``i - c``; a read outside ``[0, d)`` or past a
+  product's rows is refused.  A vector lies in an index space: the
+  coordinates, or the rows of a data vector (``X @ y`` for an ``(n, d)``
+  constant ``X``, ``n != d``); coordinates read beside a data vector's rows
+  are read at the row's index (``mu + Z @ gamma + s * x[:J]``: row ``j``
+  reads coordinate ``j``), and a data vector's rows placed at the
+  coordinates are read at the coordinate's row (``X.T @ r`` into a slice of
+  x).
   ``slice``, ``select``, ``slice_scatter``, ``select_scatter``, ``cat``/
   ``stack``, ``roll`` (``cat(v[d - s:], v[:d - s])``) and ``where`` on a
   constant mask (``torch.func.grad`` of ``x[0]`` emits ``where(arange ==
   0, ...)``) move pieces about; ``flip`` turns each piece around, its reads
   of ``x`` becoming reads of coordinate ``c - i`` (``ya`` with stride -1)
-  and its parameters a reversed copy; a vector held as a column or a row
+  and its parameters a reversed copy, a piece that reads a stage or a
+  table read at its reversed indices as a gather reads it; a vector held as
+  a column or a row
   (``unsqueeze``, ``permute``, a product's batch views) is the same vector;
 * a matrix (:class:`Mat`): a value with two dimensions past 1 whose shorter
   one, ``K <=`` :data:`KMAX`, is unrolled at lowering time into ``K``
@@ -59,11 +67,11 @@ The IR.  A value of the trace is one of:
   reduction along the short axis folds them at lowering time, along the
   long one makes a stage of each; a ``flip`` or a ``roll`` along the short
   axis relabels its vectors, along the long one moves each vector's
-  pieces (the periodic lattice of a phi^4 action); ``mm`` of a constant matrix with it makes
-  a product of each column (or row), and its backward ``X.T @ G`` pends
-  until flattened into the coordinates, where coordinate ``i`` reads
-  product ``i % K``'s row ``i / K`` (``(n, K)``) or product ``i / p``'s
-  row ``i % p`` (``(K, p)``).
+  pieces (the periodic lattice of a phi^4 action); ``mm`` of a constant
+  matrix with it makes a product of each column (or row), its backward
+  ``X.T @ G`` too, and where such a matrix is flattened into the
+  coordinates, coordinate ``i`` reads product ``i % K``'s row ``i / K``
+  (``(n, K)``) or product ``i / p``'s row ``i % p`` (``(K, p)``).
 
 Stages.  Sums, maxes, products and running sums are stages, kept in trace
 order: a sum
@@ -73,12 +81,14 @@ such as the bimodal target's ``stack([a, b])``, fold at lowering time
 instead), and a product ``M u`` of a constant ``(r, c)`` matrix
 (``mv``, ``mm``/``bmm`` with a column or a row, their ``add`` forms,
 ``einsum``, ``linear`` and ``matmul`` as they trace) with a vector of the
-chain, from the coordinates to the coordinates (``A @ y``), to the rows of a
-data vector (``X @ y``) or back (``X.T @ s``), and a running sum over the
-coordinates (``cumsum``, a ``"prefix"`` scan; ``flip(cumsum(flip(u)))``,
-``cumsum``'s backward, a ``"suffix"`` scan of ``u``: a flip of a vector that
-reads a stage is a :class:`Rev`, which only ``cumsum`` and a second flip
-read), a product with the triangular matrix of ones that is never hoisted
+chain, from the coordinates or a data vector's rows to the coordinates
+(``A @ y``) or to other data rows (``X @ y``, ``X.T @ s``, read at the
+coordinates where placed there), and a running sum over the coordinates
+(``cumsum``, a ``"prefix"`` scan; ``flip(cumsum(flip(u)))``, ``cumsum``'s
+backward, a ``"suffix"`` scan of ``u``: a flip of a vector that reads a
+stage is a :class:`Rev`, which ``cumsum`` and a second flip read as such
+and any other op as the flipped vector), a product with the triangular
+matrix of ones that is never hoisted
 (``Product.scan``).  A matrix is hoisted as it lies in memory, row- or
 column-major, so ``X`` and ``X.T`` share one block.  A stage may read
 earlier stages.  Products and running sums are linear, so the tangent of
@@ -91,10 +101,11 @@ hands the potential an accessor ``yw(j, y, w)`` of the point it evaluates
 (``Pot::at``, ``Pot::sums``, ``Pot::fill``): a neighbour or a fixed
 coordinate past 1 is read through it, so such a read adds no context.
 
-Where the stages are formed.  A product whose input lies over the
-coordinates and has degree at most 1 in ``t`` (``x``, ``A (x - mu)``,
-``X b``, and an earlier such product's output: ``y - s cumsum(z)``) is
-affine along K1's and K3/K5's flows, so those kernels form it once per
+Where the stages are formed.  A product whose input has degree at most 1
+in ``t`` (``x``, ``A (x - mu)``, ``X b``, an earlier such product's output:
+``y - s cumsum(z)``, a residual ``y - alpha[county] - X b`` over data rows,
+a scatter-add of such rows) is affine along K1's and K3/K5's flows, so
+those kernels form it once per
 transition (``Lowered.trans``, ``UserPotential::form``, in stage order, the
 lanes meeting at a ``__syncwarp`` before a stage that reads an earlier
 one): the chain's lanes split its rows and add each in column order (a
@@ -105,12 +116,16 @@ start, and every point reads
 element ``r`` as ``c0[r] + t c1[r]`` with tangent ``c1[r]`` (the
 Boomerang's elliptic flow: ``a cos t + c1 sin t + mc`` and ``c1 cos t - a
 sin t``, ``a = c0 - mc``, ``mc = M u(0)`` hoisted into the parameters),
-through the point's accessor (``yw.prod``).  Every other stage is formed
-at the point.  A max is not a moment, so K1 and K6 form any stage that reads
-one at each point.  K3/K5 and K4 form it at every point they evaluate, one lane
-walking the chain (``UserPotential::sums``): a coordinate-space input in
-the lane's local memory, a data vector streamed row by row (each row's
-product formed where it is read), every sum, every product element and
+through the point's accessor (``yw.prod``) at any row.  Every other stage
+is formed at the point.  A max is not a moment, so K1 and K6 form any stage
+that reads one at each point.  K3/K5 and K4 form it at every point they
+evaluate, one lane walking the chain (``UserPotential::sums``): a
+coordinate-space input in the lane's local memory, a data vector streamed
+row by row; a product from the coordinates to data rows is formed row by
+row where it is read (``Lowered.inline``: at a data loop's own row, or at
+any other row from its input, which the ``Sums`` keep where the
+coordinates' gradient reads it, :meth:`_Emit.row`), every other one in a
+slot of the ``Sums``; every sum, every product element and
 every running sum added in index order, as the plain version's
 ``ordered_sum``, ``ordered_matvec`` and ``ordered_scan`` add, so the two
 agree bit for bit where the kernel rounds as torch does (``-fmad=false``).
@@ -122,10 +137,11 @@ with any other stage (K6: any product) is a point potential for them too:
 K1's lane forms the stages at each point it evaluates, as K3 does, and
 K6's block forms them together (``UserPotential::fill``: each stage's
 positions across the threads, products' inputs and outputs in shared
-memory, sums by a two-level reduction, maxes by one of (value, tangent,
+memory, each complete behind a barrier before any thread reads its rows
+elsewhere, sums by a two-level reduction, maxes by one of (value, tangent,
 index) whose ties take the lower index, running sums by a block scan with
-a barrier between the warps' totals and their reads).  The plain version forms the
-per-transition products as the kernels do (``Lowered.along``).
+a barrier between the warps' totals and their reads).  The plain version
+forms the per-transition products as the kernels do (``Lowered.along``).
 
 Scatter-adds.  The backward of a gather, ``index_put``/``put`` with
 ``accumulate=True``, ``scatter_add`` and ``index_add`` of a vector of ``n``
@@ -136,10 +152,13 @@ segments' starts (the index's CSR) are index tables; the kernels walk
 coordinate ``i``'s segment where the element is read, each row's term
 evaluated at that row (its own reads through ``yw``), in increasing ``r``,
 the value and its tangent in one walk (``_Emit.seg``), as the plain
-version's :func:`ordered_segment_sum` adds.  A segment walk is no stage
-and no context: it adds nothing to a lane's bytes.  A sum over the rows
-whose summand reads gathered coordinates is a sum over a data vector (a
-point sum on K1/K6: it is no chain moment).
+version's :func:`ordered_segment_sum` adds.  A row may read stages (a
+varying intercept's residual ``y - alpha[county] - X b``), each where the
+kernel keeps it.  A segment walk is no stage and no context: it adds
+nothing to a lane's bytes.  A sum over the rows whose summand reads
+gathered coordinates is a sum over a data vector (a point sum on K1/K6: it
+is no chain moment); a scatter-add of rows of degree at most 1 has degree
+1, but a sum of one is no chain moment either.
 
 A gradient that reads coordinates other than its own (neighbours, fixed
 coordinates, a flip's ``c - i``, a gather's or a segment's rows) sets
@@ -147,15 +166,14 @@ coordinates, a flip's ``c - i``, a gather's or a segment's rows) sets
 it reads them.
 
 Anything else (a product of two vectors of the chain, a matrix that depends
-on ``x``, ``cumprod``, ``sort``, convolutions, one element of a product, a
-product's or a running sum's element at another index (``roll(A @ x, 1)``,
-a flip of a running sum other than the suffix form, a gather of a stage's
-output such as ``(A @ x)[idx]``), a running sum of a matrix or of a data
-vector, a data vector into other data rows, a 2-D index array, an index
-that depends on ``x``, a write at an index that does not add
-(``scatter``, ``index_put`` without ``accumulate``), a scatter into more
-than the ``d`` coordinates, a short axis past :data:`KMAX`, a branch on a
-value of ``x``, an op outside the set) raises
+on ``x``, ``cumprod``, ``sort``, convolutions, one element of a product read
+as a chain value, a running sum of a matrix or of a data vector, a 2-D
+index array, an index that depends on ``x``, a write at an index that does
+not add (``scatter``, ``index_put`` without ``accumulate``), a scatter into
+more than the ``d`` coordinates, a gather, a flip or a scatter-add of a
+scatter-add's output, a flattened matrix's parameters moved to another
+offset, a short axis past :data:`KMAX`, a branch on a value of ``x``, an op
+outside the set) raises
 :class:`LoweringError` naming the op and its node, before any build or
 launch.  The result is cached on the sampler by (kernel, d, dtype).
 """
@@ -227,19 +245,25 @@ class Node:
     """One interned IR operation.  ``lane``: depends on the index of its
     vector (``y``, ``w`` and their neighbours ``yo``/``wo`` at offset
     ``attr``, a product's element or a parameter read there); ``fixed``:
-    reads a product's element at its own index (such an expression cannot
-    move to another offset); ``deg``: degree in ``t`` along the linear flow
-    (``INF`` past a polynomial); ``boolean``: a comparison's value;
-    ``space``: the index space its lane reads (``"c"`` the coordinates, an
-    int ``n`` the rows of a data vector, None for none, ``"mixed"`` for
-    both)."""
+    reads a parameter at ``i / K`` (``prmd``: such an expression cannot
+    move to another offset); ``own_row``: reads a product's element at its
+    own index (``mv``: a vector of pieces keeps such a piece's offset and
+    moves the others); ``deg``: degree in ``t`` along the linear flow (``INF``
+    past a polynomial); ``boolean``: a comparison's value; ``space``: the
+    index space its lane reads (``"c"`` the coordinates, an int ``n`` the
+    rows of a data vector, None for none, ``"mixed"`` for rows of two
+    lengths).  A scatter-add's rows are read at their own indices: they
+    make it neither ``fixed`` nor ``own_row``."""
 
-    __slots__ = ("op", "args", "attr", "id", "lane", "fixed", "deg", "boolean", "space")
+    __slots__ = ("op", "args", "attr", "id", "lane", "fixed", "own_row", "deg", "boolean",
+                 "space")
 
     def __init__(self, op, args, attr, nid, space=None, affine=False):
         self.op, self.args, self.attr, self.id = op, args, attr, nid
         self.lane = op in _LANE_LEAVES or op in ("sel", "seg") or any(a.lane for a in args)
-        self.fixed = op in _FIXED_LEAVES or any(a.fixed for a in args)
+        inner = () if op == "seg" else args
+        self.fixed = op in _FIXED_LEAVES or any(a.fixed for a in inner)
+        self.own_row = op in ("mv", "dmv") or any(a.own_row for a in inner)
         self.boolean = op in _BOOL_OPS or (op == "lit" and isinstance(attr, bool)) or (
             op == "where" and args[1].boolean) or (op == "sel" and args[0].boolean)
         self.deg = _degree(op, args, affine)
@@ -269,6 +293,9 @@ class Node:
         if self.op in ("mvx", "dmvx"):
             m, st, c = self.attr
             return f"{'d' if self.op == 'dmvx' else ''}(M{m} u)_((i{-c:+d}) / {st})"
+        if self.op in ("mvg", "dmvg"):
+            m, t, _, k = self.attr
+            return f"{'d' if self.op == 'dmvg' else ''}(M{m} u)_(T{t}[i{k:+d}])"
         if self.op == "prmd":
             return f"prm[{self.attr[0]} + i / {self.attr[1]}]"
         if self.op == "sel":
@@ -286,8 +313,8 @@ class Node:
 
 
 _LANE_LEAVES = {"y", "w", "yo", "wo", "ya", "wa", "yg", "wg", "prm", "prmd", "mv", "dmv",
-                "mvx", "dmvx"}
-_FIXED_LEAVES = {"mv", "dmv", "mvx", "dmvx", "prmd"}
+                "mvx", "dmvx", "mvg", "dmvg"}
+_FIXED_LEAVES = {"prmd"}
 _FAR = {"yo", "wo", "yk", "wk", "ya", "wa", "yg", "wg"}
 """Reads of a neighbour (``yo``/``wo`` at offset ``attr``), of a fixed
 coordinate past 1 (``yk``/``wk`` at ``attr``), of coordinate ``s i + c``
@@ -296,10 +323,17 @@ or with ``s = -1`` a flip) or of coordinate ``T[i + k]`` of a constant
 index table ``T`` of ``n`` entries (``yg``/``wg`` at ``attr = (T, n, k)``,
 ``T`` the table's offset in the parameters: a gather ``x[idx]``), through
 the kernel's accessor ``yw``."""
-_PRODUCT_LEAVES = {"mv", "dmv", "mvx", "dmvx"}
-"""Reads of a product's element: at the index (``mv``), or at row ``(i -
-c) / s`` (``mvx`` at ``attr = (m, s, c)``: the rows of a product read where
-a matrix of products is flattened into the coordinates)."""
+_PRODUCT_LEAVES = {"mv", "dmv", "mvx", "dmvx", "mvg", "dmvg"}
+"""Reads of a stage's element (a product's, or a running sum's): at the
+index (``mv``), at row ``(i - c) / s`` (``mvx`` at ``attr = (m, s, c)``: a
+stage's output moved to another offset, ``s = 1``, flipped, ``s = -1``, or
+its rows placed where a matrix of products is flattened into the
+coordinates) or at row ``T[i + k]`` of a constant index table ``T`` of
+``n`` entries (``mvg`` at ``attr = (m, T, n, k)``: a gather of a stage's
+output, ``(A @ x)[idx]``, ``alpha[county]``).  One read at an index
+computed from ``i``: every kernel reads the stage where it lies (the
+per-transition values, a lane's slot, K6's shared memory) at that row, or
+forms the row there (:meth:`_Emit.row`)."""
 _FIRST = {"y0", "w0", "y1", "w1"}
 _OTHERS = _FAR | _FIRST | {"seg"}
 """Every read of a coordinate other than the evaluated one (a scatter-add's
@@ -314,9 +348,11 @@ def _degree(op, args, affine=False):
     ``c0 + t c1``, its tangent constant."""
     if op in ("y", "y0", "y1", "yo", "yk", "ya", "yg"):
         return 1
-    if affine and op in ("mv", "dmv"):
-        return 1 if op == "mv" else 0
-    if op in ("red", "dred", "mv", "dmv", "mvx", "dmvx", "sel", "seg"):
+    if affine and op in _PRODUCT_LEAVES:
+        return 0 if op[0] == "d" else 1
+    if op == "seg":  # linear in its rows: affine where they are
+        return max((a.deg for a in args), default=0) if all(a.deg <= 1 for a in args) else INF
+    if op in ("red", "dred", "sel") or op in _PRODUCT_LEAVES:
         return INF
     if not args or all(a.deg == 0 for a in args):
         return 0
@@ -354,15 +390,19 @@ class Graph:
         if node is None:
             node = self.nodes[key] = Node(op, args, attr, len(self.nodes),
                                           self._space(op, args, attr),
-                                          op in ("mv", "dmv") and attr in self.mv_affine)
+                                          op in _PRODUCT_LEAVES and _stage_of(op, attr)
+                                          in self.mv_affine)
         return node
 
     def _space(self, op, args, attr):
-        if op in ("y", "w", "yo", "wo", "ya", "wa", "mvx", "dmvx", "prmd", "seg"):
+        if op in ("y", "w", "yo", "wo", "ya", "wa", "prmd", "seg"):
             return "c"
         if op in ("mv", "dmv"):
             return self.mv_space[attr]
         spaces = {a.space for a in args if a.space is not None}
+        if len(spaces) == 2 and "c" in spaces:
+            # coordinates read at a data row's index: the coordinate there (through yw)
+            spaces.discard("c")
         return "mixed" if len(spaces) > 1 else (spaces.pop() if spaces else None)
 
     def _fold(self, op, args, attr):
@@ -430,7 +470,7 @@ class Graph:
                 "yg": "wg"}
         if op in leaf:
             return self.mk(leaf[op], attr=n.attr)
-        if op in ("red", "mv", "mvx"):  # a stage's tangent: its own stage's
+        if op in ("red", "mv", "mvx", "mvg"):  # a stage's tangent: its own stage's
             return self.mk("d" + op, attr=n.attr)
         if op == "seg":  # linear: the scatter-add of its rows' tangents
             ds = [self.tangent(x, memo) for x in a]
@@ -558,22 +598,27 @@ class Graph:
 
     def shift(self, n: Node, delta: int, memo=None) -> Node:
         """A lane expression moved from index ``i`` to ``i + delta``: its
-        reads of coordinates and parameters keep their targets, so their
-        offsets move the other way (``y`` becomes the neighbour at
-        ``-delta``).  A product's element stays at its own index (callers
-        never move a ``fixed`` expression)."""
+        reads of coordinates, parameters and stages' rows keep their
+        targets, so their offsets move the other way (``y`` becomes the
+        neighbour at ``-delta``, a product's element at its own index ``mv``
+        its row ``i - delta``, ``mvx``).  A parameter read at ``i / K``
+        cannot move (callers never move a ``fixed`` expression)."""
         if not n.lane or delta == 0:
             return n
-        assert not n.fixed, "a product's element moved to another index"
+        assert not n.fixed, "a parameter at i / K moved to another index"
         memo = {} if memo is None else memo
         if n.id not in memo:
             if n.op == "prm":
                 out = self.mk("prm", attr=n.attr - delta)
+            elif n.op in ("mv", "dmv"):
+                out = self.mk(n.op + "x", attr=(n.attr, 1, delta))
+            elif n.op in ("mvx", "dmvx"):
+                out = self.mk(n.op, attr=n.attr[:2] + (n.attr[2] + delta,))
             elif n.op in ("y", "w", "yo", "wo"):
                 out = self.near(n.op[0], (n.attr or 0) - delta)
             elif n.op in ("ya", "wa"):
                 out = self.mk(n.op, attr=(n.attr[0], n.attr[1] - n.attr[0] * delta))
-            elif n.op in ("yg", "wg", "seg"):  # table entry i + k - delta, as a neighbour
+            elif n.op in ("yg", "wg", "mvg", "dmvg", "seg"):  # table entry i + k - delta
                 out = self.mk(n.op, *n.args, attr=n.attr[:-1] + (n.attr[-1] - delta,))
             elif n.op == "sel":  # argument k reads index k - delta's
                 K = n.attr
@@ -628,6 +673,11 @@ def taylor(b: Graph, n: Node, memo: dict):
 # abstract values of the trace
 # ---------------------------------------------------------------------------
 
+def _stage_of(op, attr) -> int:
+    """The stage a product leaf reads."""
+    return attr if op in ("mv", "dmv") else attr[0]
+
+
 class Piece(NamedTuple):
     a: int           # positions [a, b)
     b: int
@@ -655,25 +705,16 @@ class Mat(NamedTuple):
     kfirst: bool
 
 
-class Pend(NamedTuple):
-    """``K`` products ``M_k u_k`` of constant matrices with data vectors (a
-    matrix product's backward ``mm(X.T, G)``, ``bmm``'s), formed only where
-    the matrix they make is flattened into the coordinates: read otherwise,
-    they are a product of data vectors into other data rows (``err``)."""
-    Ms: Tuple[torch.Tensor, ...]
-    us: Tuple[Vec, ...]
-    kfirst: bool
-    err: Bad
-
-
 class Rev(NamedTuple):
-    """``flip(u)`` of a vector that reads a stage's output at its own index:
-    read only by ``cumsum``, whose prefix scan of it is ``flip`` of the
+    """``flip(u)`` of a vector that reads a stage's output at its own index,
+    pending: read by ``cumsum``, whose prefix scan of it is ``flip`` of the
     suffix scan of ``u`` (``Rev`` again), and by a second ``flip``, which
     gives ``u`` back, so that ``flip(cumsum(flip(u)))`` (the backward of
-    ``cumsum``) is one suffix scan; read otherwise, it raises (``err``)."""
+    ``cumsum``) is one suffix scan; read otherwise, it is the flipped vector,
+    its stages read at the flipped rows (``_Interp._unrev``; ``node`` the
+    flip's)."""
     vec: Vec
-    err: Bad
+    node: object
 
 
 class Lowered:
@@ -707,21 +748,29 @@ class Lowered:
         b.pairs = {x.id: memo[x.id] for e in self._values() for x in _nodes(e)
                    if x.op == "seg" and memo.get(x.id) is not None}
         self.trans = [m for kind, m in stages if kind == "mv" and kernel in TRANSITION_KERNELS
-                      and products[m].in_space == "c"
                       and all(p.e.deg <= 1 for p in products[m].vec.pieces)]
         self.toff, self.n_trans = {}, 0
         for m in self.trans:
             self.toff[m] = self.n_trans
             self.n_trans += 2 * products[m].rows
         self.point = kernel not in MOMENT_KERNELS or not self._moments_exact()
-        # the products formed at a point and read at the coordinates (also
-        # those whose rows a flattened matrix of products places there), in
-        # stage order: Sums slots of slot_rows values each
-        placed = {x.attr[0] for e in self._nodes_read() for x in _nodes(e)
-                  if x.op in ("mvx", "dmvx")}
+        block = kernel == "sticky" and self.point
+        # the products formed at a point: on K6 every one in shared memory (a
+        # Sums slot points there); on a lane's walk a product from the
+        # coordinates to data rows is formed row by row where it is read
+        # (inline: at a data loop's own row, or at any row from its input,
+        # which the Sums keep where the gradient's coordinates read it, unless
+        # it has more columns than rows); every other one fills a Sums slot of
+        # slot_rows values, in stage order
+        at_reads = {_stage_of(x.op, x.attr) for e in [p.e for p in out] + self.d_out
+                    if e is not None for x in _nodes(e) if x.op in _PRODUCT_LEAVES}
+        self.inline = set() if block else {
+            m for m, pr in products.items() if m not in self.toff and pr.in_space == "c"
+            and pr.space != "c" and not pr.scan and (m not in at_reads or pr.cols <= pr.rows)}
+        self.kept = sorted(self.inline & at_reads)
         self.slot = {m: k for k, m in enumerate(
             m for kind, m in stages if kind == "mv" and m not in self.toff
-            and (products[m].space == "c" or m in placed))}
+            and m not in self.inline)}
         self.slot_rows = max((products[m].rows for m in self.slot), default=d)
         self._lits: dict = {}
         self._dev: dict = {}
@@ -737,8 +786,9 @@ class Lowered:
         another), and no product but those formed once per transition."""
         return all(m in self.toff for m in self.products) and all(
             k == "sum" for k in self.red_kind) and all(
-            space == "c" and all(p.e.deg <= 2 and not _leaves(p.e) & _FAR and 0 <= _coords(p)[0]
-                                 and _coords(p)[1] <= self.d for p in pieces)
+            space == "c" and all(p.e.deg <= 2 and not _leaves(p.e) & _NOT_MOMENTS
+                                 and 0 <= _coords(p)[0] and _coords(p)[1] <= self.d
+                                 for p in pieces)
             for pieces, space in zip(self.reductions, self.red_space))
 
     def _hoist_constant_parts(self) -> None:
@@ -758,16 +808,18 @@ class Lowered:
 
     def lane_bytes(self) -> int:
         """Bytes of one lane's context at a point (K1, K3/K5, K4): its
-        ``Sums`` (the sums and the coordinate outputs of products formed at
-        the point, with their tangents; K1 keeps two alive, a segment's two
-        grid points), those products' materialized inputs with their
+        ``Sums`` (the sums, the slots of products formed at the point and
+        the inputs of the inline products the coordinates read, with their
+        tangents; K1 keeps two alive, a segment's two grid points), the
+        other products' materialized inputs with their
         tangents, and the walk of the data rows' products into the
         coordinates (a row's input and tangent each, and the accumulators
         that an unrolled walk keeps beside the ``Sums``).  Products formed
         once per transition are not counted."""
-        sums = 2 * len(self.reductions) + 2 * len(self.slot) * self.slot_rows
+        kept = sum(2 * self.products[m].cols for m in self.kept)
+        sums = 2 * len(self.reductions) + 2 * len(self.slot) * self.slot_rows + kept
         inputs = sum(2 * pr.cols for m, pr in self.products.items()
-                     if pr.in_space == "c" and m not in self.toff and not pr.scan)
+                     if pr.in_space == "c" and m not in self.toff and not pr.scan) - kept
         rows = [self.products[m] for m in self.slot if self.products[m].in_space != "c"]
         walk = sum(2 + (2 * pr.rows if _unroll(pr.rows) else 0) for pr in rows)
         return (((2 if self.kernel == "zigzag" else 1) * sums + inputs + walk)
@@ -910,6 +962,9 @@ class Lowered:
                 m, st, c = n.attr
                 rows = (torch.arange(lo, hi, device=y.device) - c) // st
                 out = (prod if op == "mvx" else dprod)[m][rows]
+            elif op in ("mvg", "dmvg"):
+                m, t, _, k = n.attr
+                out = (prod if op == "mvg" else dprod)[m].index_select(0, table(t, lo + k, hi + k))
             elif op == "sel":  # argument i % K at index i
                 vals = torch.stack([torch.broadcast_to(ev(x, lo, hi, lane), (hi - lo, y.shape[1]))
                                     for x in a])
@@ -1033,6 +1088,8 @@ class Lowered:
             lines += [f"    const T* c[{npc}];", f"    const T* dc[{npc}];"]
         elif self.slot:
             lines += [f"    T c[{npc}][{self.slot_rows}], dc[{npc}][{self.slot_rows}];"]
+        lines += [f"    T u{m}[{self.products[m].cols}], du{m}[{self.products[m].cols}];"
+                  for m in self.kept]
         lines.append("  };")
         if self.trans:
             lines += self._form_cpp()
@@ -1146,12 +1203,43 @@ class Lowered:
     def _coord_leaf(self, op, m, at):
         return f"cs.{'d' if op == 'dmv' else ''}c[{self.slot[m]}][{at}]"
 
-    def _emit(self, **kw) -> "_Emit":
+    def _emit(self, kept=False, **kw) -> "_Emit":
         """An emitter that reads the per-transition products through the
-        point's accessor (``yw.prod``)."""
+        point's accessor (``yw.prod``), a slot's rows from the Sums, and an
+        inline product's row at any index from its input (``sums``' own
+        ``u<m>``, or with ``kept`` the Sums' copies ``cs.u<m>``)."""
         mc = {m: f"prm + {o}" for m, o in self.mc_off.items()}
+        rows = {m: "cs." for m in self.kept} if kept else {m: "" for m in self.inline}
         return _Emit(self.b, trans={m: (self.toff[m], self.products[m].rows,
-                                        mc.get(m, "nullptr")) for m in self.trans}, **kw)
+                                        mc.get(m, "nullptr")) for m in self.trans},
+                     leaf=self._coord_leaf, rows=rows, rowfn=self._row_lines, **kw)
+
+    def _row_lines(self, m, at, z, src):
+        """Row ``at`` of product ``m`` and its tangent (``z``, ``d<z>``) from
+        its input ``<src>u<m>``, added in column order as
+        :func:`ordered_matvec` adds."""
+        pr = self.products[m]
+        a0 = self._m(m, at, "0")
+        return [f"T {z} = {a0} * {src}u{m}[0], d{z} = {a0} * {src}du{m}[0];",
+                *_unroll(pr.cols),
+                f"for (int c = 1; c < {pr.cols}; ++c) {{",
+                f"  const T a = {self._m(m, at, 'c')};",
+                f"  {z} = {z} + a * {src}u{m}[c];",
+                f"  d{z} = d{z} + a * {src}du{m}[c];",
+                "}"]
+
+    def _read_barrier(self, m) -> bool:
+        """Whether product ``m``'s rows are read at an index other than
+        their own (a gather, a shift, a flip, a placement, a scatter-add's
+        rows): on K6 another thread wrote them."""
+        for e in self._nodes_read():
+            for x in _nodes(e):
+                if x.op in ("mvx", "dmvx", "mvg", "dmvg") and x.attr[0] == m:
+                    return True
+                if x.op == "seg" and any(y.op in ("mv", "dmv") and y.attr == m
+                                         for a in x.args for y in _nodes(a)):
+                    return True
+        return False
 
     def _reads_point(self, *nodes) -> bool:
         return any(n is not None and _leaves(n) & {"y", "w"} for n in nodes)
@@ -1313,25 +1401,13 @@ class Lowered:
         return out
 
     def _inline_products(self, nodes, indent):
-        """A data loop's products formed at the point, at row ``k`` (``z<m>``,
-        ``dz<m>``), each element added in column order."""
-        ms = sorted({x.attr for n in nodes if n is not None for x in _nodes(n)
-                     if x.op in ("mv", "dmv") and x.attr not in self.toff})
-        out = []
-        for m in ms:
-            pr = self.products[m]
-            a0 = self._m(m, "k", "0")
-            out += [f"T z{m} = {a0} * u{m}[0], dz{m} = {a0} * du{m}[0];",
-                    *_unroll(pr.cols),
-                    f"for (int c = 1; c < {pr.cols}; ++c) {{",
-                    f"  const T a = {self._m(m, 'k', 'c')};",
-                    f"  z{m} = z{m} + a * u{m}[c];",
-                    f"  dz{m} = dz{m} + a * du{m}[c];",
-                    "}"]
-        return [indent + s for s in out]
-
-    def _data_leaf(self, op, m, at):
-        return f"{'d' if op == 'dmv' else ''}z{m}"
+        """A data loop's inline products at its own row ``k`` (``z<m>``,
+        ``dz<m>``), each element added in column order: the lines and the
+        products."""
+        ms = sorted({x.attr for n in nodes if n is not None for x in _nodes(n, rows=False)
+                     if x.op in ("mv", "dmv") and x.attr in self.inline})
+        out = [s for m in ms for s in self._row_lines(m, "k", f"z{m}", "")]
+        return [indent + s for s in out], set(ms)
 
     def _lane_red(self, r):
         pieces, tangents = self.reductions[r], self.d_red[r]
@@ -1339,7 +1415,7 @@ class Lowered:
         if self.red_space[r] == "c":
             for p, dp in zip(pieces, tangents):
                 lo, hi = _coords(p)
-                em = self._emit(leaf=self._coord_leaf)
+                em = self._emit()
                 v, dv = em.name(p.e), em.name(dp) if dp is not None else "(T)0"
                 out += ["    " + u for u in _unroll(hi - lo)]
                 out += [f"    for (int i = {lo}; i < {hi}; ++i) {{  // sum {r}: {p.e.text()}",
@@ -1350,9 +1426,10 @@ class Lowered:
             return out
         n = max(p.b for p in pieces)
         out.append(f"    for (int k = 0; k < {n}; ++k) {{  // sum {r} over data rows")
-        out += self._inline_products([p.e for p in pieces] + list(tangents), "      ")
+        lines, zk = self._inline_products([p.e for p in pieces] + list(tangents), "      ")
+        out += lines
         for p, dp in zip(pieces, tangents):
-            em = self._emit(idx="k", leaf=self._data_leaf)
+            em = self._emit(idx="k", own=False, zk=zk)
             v, dv = em.name(p.e), em.name(dp) if dp is not None else "(T)0"
             out.append(f"      if (k >= {p.a} && k < {p.b}) {{  // {p.e.text()}")
             out += ["        " + s for s in em.lines]
@@ -1371,7 +1448,7 @@ class Lowered:
             return self._lane_scan(m)
         out = [f"    T u{m}[{C}], du{m}[{C}];  // product {m}: ({R} x {C}) u"]
         for p, dp in zip(pr.vec.pieces, tangents):
-            em = self._emit(leaf=self._coord_leaf)
+            em = self._emit()
             v, dv = em.name(p.e), em.name(dp) if dp is not None else "(T)0"
             out += ["    " + u for u in _unroll(p.b - p.a)]
             out += [f"    for (int p = {p.a}; p < {p.b}; ++p) {{  // {p.e.text()}",
@@ -1380,7 +1457,11 @@ class Lowered:
                 out += ["      T y, w;", "      yw(i, y, w);", "      (void)y; (void)w;"]
             out += ["      " + s for s in em.lines]
             out += [f"      u{m}[p] = {v};", f"      du{m}[p] = {dv};", "    }"]
-        if pr.space != "c":
+        if m in self.kept:  # the coordinates read its rows: the Sums keep its input
+            out += ["    " + u for u in _unroll(C)]
+            out += [f"    for (int c = 0; c < {C}; ++c) {{",
+                    f"      cs.u{m}[c] = u{m}[c];", f"      cs.du{m}[c] = du{m}[c];", "    }"]
+        if m not in self.slot:
             return out
         k = self.slot[m]
         a0 = self._m(m, "r", "0")
@@ -1407,7 +1488,7 @@ class Lowered:
         out = [f"    bool first{m} = true;  // running sum {m} ({pr.scan})"]
         pieces = list(zip(pr.vec.pieces, self.d_mv[m]))
         for p, dp in (pieces[::-1] if suffix else pieces):
-            em = self._emit(leaf=self._coord_leaf)
+            em = self._emit()
             v, dv = em.name(p.e), em.name(dp) if dp is not None else "(T)0"
             prev = "p + 1" if suffix else "p - 1"
             loop = (f"for (int p = {p.b - 1}; p >= {p.a}; --p)" if suffix
@@ -1439,9 +1520,10 @@ class Lowered:
         out = [f"    T a{m}[{R}], da{m}[{R}];" for m in ms] if unroll else []
         out.append(f"    for (int k = 0; k < {C}; ++k) {{  // products {ms}: ({R} x {C}) u, "
                    "u over data rows")
-        out += self._inline_products([n for m in ms for p, dp in zip(
+        lines, zk = self._inline_products([n for m in ms for p, dp in zip(
             self.products[m].vec.pieces, self.d_mv[m]) for n in (p.e, dp)], "      ")
-        em = self._emit(idx="k", leaf=self._data_leaf)
+        out += lines
+        em = self._emit(idx="k", own=False, zk=zk)
         us, guarded = [], []
         for m in ms:
             pieces, tangents = self.products[m].vec.pieces, self.d_mv[m]
@@ -1451,7 +1533,7 @@ class Lowered:
                 continue
             guarded.append(f"      T u{m} = (T)0, du{m} = (T)0;")
             for p, dp in zip(pieces, tangents):
-                pe = self._emit(idx="k", leaf=self._data_leaf)
+                pe = self._emit(idx="k", own=False, zk=zk)
                 v, dv = pe.name(p.e), pe.name(dp) if dp is not None else "(T)0"
                 guarded.append(f"      if (k >= {p.a} && k < {p.b}) {{  // {p.e.text()}")
                 guarded += ["        " + s for s in pe.lines]
@@ -1586,7 +1668,8 @@ class Lowered:
                     f"      o{s}[r] = acc;",
                     f"      do{s}[r] = dacc;",
                     "    }",
-                    "    __syncthreads();"]
+                    "    __syncthreads();" + ("  // its rows are read at other indices"
+                                           if self._read_barrier(s) else "")]
         out += ["    return cs;", "  }"]
         return out
 
@@ -1613,7 +1696,7 @@ class Lowered:
             last = n == len(self.out) - 1
             cond = "" if last and n == 0 else (f"if (i < {hi}) " if n == 0 else
                                                "else " if last else f"else if (i < {hi}) ")
-            em = self._emit(leaf=self._coord_leaf)
+            em = self._emit(kept=True)
             g = em.name(p.e)
             dg = em.name(dp) if dp is not None else "(T)0"
             out.append(f"    {cond}{{  // coordinates [{lo}, {hi}): {p.e.text()}")
@@ -1844,20 +1927,44 @@ _CPP_FN = {"exp": "exp", "expm1": "expm1", "log": "log", "log1p": "log1p", "sqrt
 
 class _Emit:
     """SSA statements of a DAG, one ``const`` per node, in dependency order;
-    a parameter reads ``prm[off + idx]``, a product's element ``leaf(op, m)``
-    (a per-transition product's, ``trans[m] = (offset, rows, mc)``, the
-    accessor's ``yw.prod``), a neighbour, a fixed coordinate or a gathered
-    one the accessor ``yw`` (once each), a scatter-add its segment walk
+    a parameter reads ``prm[off + idx]``, a stage's element at row ``at``
+    (its own index, ``(i - c) / s`` or a table's entry) ``leaf(op, m,
+    at)`` (a per-transition product's, ``trans[m] = (offset, rows, mc)``,
+    the accessor's ``yw.prod``; a product in ``zk`` at the index,
+    ``z<m>``, formed before; one in ``rows`` formed at that row from its
+    input, :meth:`row`), a neighbour, a fixed coordinate or a gathered one
+    the accessor ``yw`` (once each), a scatter-add its segment walk
     (:meth:`seg`).  ``own`` False: the index is not the point's own
     coordinate, whose ``y``/``w`` are read through ``yw`` too; ``parent``:
     the emitter of the enclosing scope, which names every chain value."""
 
     def __init__(self, b: Graph, idx: str = "i", leaf=None, trans=None, own=True,
-                 parent=None):
+                 parent=None, rows=None, rowfn=None, zk=()):
         self.b, self.lines, self.names, self.read = b, [], {}, set()
         self.idx, self.leaf, self.trans = idx, leaf, trans or {}
         self.own, self.parent = own, parent
+        self.rows, self.rowfn, self.zk = rows or {}, rowfn, set(zk)
         self.pv: Dict[tuple, str] = {}
+        self.zr: Dict[tuple, str] = {}
+
+    def row(self, m: int, at: str, tangent: bool) -> str:
+        """Product ``m``'s row ``at`` and its tangent, formed once here from
+        its input (``rows[m]`` says where that lies)."""
+        if (m, at) not in self.zr:
+            name = self.zr[m, at] = f"zr{m}_{len(self.zr)}"
+            self.lines += [f"const int {name}_at = {at};",
+                           *self.rowfn(m, f"{name}_at", name, self.rows[m])]
+        return f"{'d' if tangent else ''}{self.zr[m, at]}"
+
+    def at_row(self, n: Node) -> Tuple[int, str]:
+        """The stage a product leaf reads and the row it reads, as C."""
+        if n.op in ("mv", "dmv"):
+            return n.attr, self.idx
+        if n.op in ("mvg", "dmvg"):
+            m, t, _, k = n.attr
+            return m, f"(int)prm[{t + k} + {self.idx}]"
+        m, st, c = n.attr  # (i - c) / s: exact for s = +-1, a placement's row for s = K
+        return m, f"({self.idx} - ({c})) / {st}" if c else f"{self.idx} / {st}"
 
     def prod(self, m: int, at: str, tangent: bool) -> str:
         """A per-transition product's element at row ``at`` and its tangent,
@@ -1909,7 +2016,8 @@ class _Emit:
         names = [f"sg{x.id}" for x in nodes]
         body = []
         for j, (a, b_, off) in enumerate(spans):
-            inner = _Emit(self.b, idx="sr", own=False, parent=self)
+            inner = _Emit(self.b, idx="sr", own=False, parent=self, leaf=self.leaf,
+                          trans=self.trans, rows=self.rows, rowfn=self.rowfn)
             vals = [inner.name(x.args[j]) for x in nodes]
             block = [f"const int sr = sr0 + {off or 0};", "(void)sr;", *inner.lines]
             block += [f"{nm} = sq == sq0 ? {v} : {nm} + {v};" for nm, v in zip(names, vals)]
@@ -1949,13 +2057,14 @@ class _Emit:
             return f"prm[{n.attr[0]} + {self.idx} / {n.attr[1]}]"
         if op in _PRODUCT_LEAVES:
             tangent = op[0] == "d"
-            if op in ("mv", "dmv"):
-                m, at = n.attr, self.idx
-            else:
-                m, st, c = n.attr
-                at = f"({self.idx} - {c}) / {st}" if c else f"{self.idx} / {st}"
-            return (self.prod(m, at, tangent) if m in self.trans
-                    else self.leaf("dmv" if tangent else "mv", m, at))
+            m, at = self.at_row(n)
+            if m in self.trans:
+                return self.prod(m, at, tangent)
+            if at == self.idx and m in self.zk:
+                return f"{'d' if tangent else ''}z{m}"
+            if m in self.rows:
+                return self.row(m, at, tangent)
+            return self.leaf("dmv" if tangent else "mv", m, at)
         if op == "prmk":
             return f"prm[{n.attr}]"
         if op == "red":
@@ -2189,8 +2298,8 @@ class _Interp:
                     return self.b.pin(pc.e, p + pc.off)
                 except _FarRead:
                     return self.refuse(node, "it reads one element of a matrix "
-                                       "product; the kernels read a product's "
-                                       "element at each index's own")
+                                       "product as a chain value; the kernels read a "
+                                       "product's rows at a vector's indices")
         raise AssertionError("position outside the vector")
 
     def as_vec(self, v, n, node):
@@ -2237,21 +2346,21 @@ class _Interp:
             if a == b_:
                 continue
             parts = [next(pc for pc in v.pieces if pc.a <= a < pc.b) for v in vecs]
-            # one index i for the pieces: a product's element stays at its own,
-            # every other read becomes a neighbour of i
-            offs = {pc.off for pc in parts if pc.off is not None and pc.e.fixed}
-            if len(offs) > 1:
-                return self.refuse(node, "it combines a product's element at index i with "
-                                   f"one at i + {max(offs) - min(offs)}; the kernels read a "
-                                   "product's element at each index's own")
-            off = offs.pop() if offs else next(
+            # one index i for the pieces: a parameter read at i / K stays at its
+            # own, then a product's element; every other read moves to i (a
+            # neighbour of it, a product's row i - c)
+            fixed = {pc.off for pc in parts if pc.off is not None and pc.e.fixed}
+            if len(fixed) > 1:
+                return self.refuse(node, "it combines a flattened matrix's parameter read at "
+                                   f"index i with one at i + {max(fixed) - min(fixed)}")
+            own = {pc.off for pc in parts if pc.off is not None and pc.e.own_row}
+            off = fixed.pop() if fixed else min(own) if own else next(
                 (pc.off for pc in parts if pc.off is not None), None)
             es = [pc.e if pc.off is None else self.b.shift(pc.e, off - pc.off)
                   for pc in parts]
             e = build(*es)
             if e.space == "mixed":
-                return self.refuse(node, "it combines a coordinate of x with a row of a "
-                                   "product into other rows")
+                return self.refuse(node, "it combines rows of products of different lengths")
             pieces.append(Piece(a, b_, off if e.lane else None, e))
         return Vec(n, _merge(pieces))
 
@@ -2276,6 +2385,9 @@ class _Interp:
         space = self.space_of(node, pieces, v.n)
         if isinstance(space, Bad):
             return space
+        pieces = self.rows0(node, pieces, space)
+        if isinstance(pieces, Bad):
+            return pieces
         key = (kind,) + tuple((pc.a, pc.b, pc.off, pc.e.id) for pc in pieces)
         if key not in self.red_index:
             self.red_index[key] = len(self.reductions)
@@ -2306,19 +2418,27 @@ class _Interp:
 
     def space_of(self, node, pieces, n):
         """The index space a sum or a product's input runs over: the one its
-        pieces read (the coordinates, or the rows of a data vector), else the
-        coordinates for ``n == d`` and the rows of length ``n`` otherwise.  A
-        data vector is summed or multiplied whole from row 0: its pieces take
-        no offset."""
+        pieces read (the coordinates, or the rows of a data vector, which
+        coordinates read at the same index join), else the coordinates for
+        ``n == d`` and the rows of length ``n`` otherwise."""
         spaces = {pc.e.space for pc in pieces if pc.e.space is not None}
+        if len(spaces) == 2 and "c" in spaces:
+            spaces.discard("c")
         if "mixed" in spaces or len(spaces) > 1:
-            return self.refuse(node, "it adds coordinates of x and rows of a product in "
-                               "one sum")
-        space = spaces.pop() if spaces else ("c" if n == self.d else n)
-        if space != "c" and any(pc.off not in (None, 0) for pc in pieces):
-            return self.refuse(node, "a slice of a product's rows that does not start at "
-                               "row 0")
-        return space
+            return self.refuse(node, "it adds rows of products of different lengths in one "
+                               "sum")
+        return spaces.pop() if spaces else ("c" if n == self.d else n)
+
+    def rows0(self, node, pieces, space):
+        """A data vector's pieces moved to offset 0 (its rows' index is the
+        position: a sum or a product walks it whole from row 0)."""
+        if space == "c":
+            return pieces
+        if any(pc.off not in (None, 0) and pc.e.fixed for pc in pieces):
+            return self.refuse(node, "a slice of a flattened matrix's rows that does not "
+                               "start at row 0")
+        return tuple(pc if pc.off in (None, 0) else Piece(pc.a, pc.b, 0, self.b.shift(
+            pc.e, -pc.off)) for pc in pieces)
 
     # -- products with a constant matrix ---------------------------------------
     def hoist_matrix(self, M: torch.Tensor):
@@ -2336,10 +2456,11 @@ class _Interp:
         key = ("matrix", tuple(vals.shape), hashlib.sha256(vals.numpy().tobytes()).hexdigest())
         return self.hoist(base, key), colmajor
 
-    def product(self, node, M, u, place=False):
+    def product(self, node, M, u):
         """``M u`` for a constant ``(rows, cols)`` matrix and a vector of the
-        chain (or Bad); ``place``: a data vector into other data rows, whose
-        rows a flattened matrix of products places at the coordinates."""
+        chain (or Bad): from the coordinates or a data vector's rows, into
+        the coordinates or other data rows (read at the coordinates where
+        they are placed there, ``X.T @ r`` into a slice of x)."""
         if isinstance(u, Bad):
             return u
         if not isinstance(M, torch.Tensor) or M.dim() != 2:
@@ -2356,9 +2477,11 @@ class _Interp:
                     else self.space_of(node, u.pieces, cols))
         if isinstance(in_space, Bad):
             return in_space
+        pieces = self.rows0(node, u.pieces, in_space)
+        if isinstance(pieces, Bad):
+            return pieces
+        u = Vec(u.n, pieces)
         space = "c" if rows == self.d else rows
-        if space != "c" and in_space != "c" and not place:
-            return self._data_to_data(node)
         moff, colmajor = self.hoist_matrix(M)
         return self._stage(Product(rows, cols, moff, colmajor, u, space, in_space))
 
@@ -2371,7 +2494,7 @@ class _Interp:
         if key not in self.mv_index:
             m = self.mv_index[key] = len(self.products)
             self.b.mv_space[m] = pr.space
-            if pr.in_space == "c" and all(pc.e.deg <= 1 for pc in pr.vec.pieces):
+            if all(pc.e.deg <= 1 for pc in pr.vec.pieces):
                 self.b.mv_affine.add(m)
             self.stages.append(("mv", m))
             self.products.append(pr)
@@ -2384,8 +2507,6 @@ class _Interp:
         or of a matrix (``flip``, ``roll``) along either axis; a dimension of
         size 1 is left as it is."""
         v = args[0]
-        if isinstance(v, Pend):
-            return v.err
         shape = _shape(node.args[0])
         if shape is None:
             return self.refuse(node, "a value of unknown shape")
@@ -2415,16 +2536,24 @@ class _Interp:
             elif name == "flip":
                 v = v.vec if isinstance(v, Rev) else self._reverse(node, v)
             else:
-                v = v.err if isinstance(v, Rev) else self._roll(node, v, shift)
+                v = self._unrev(node, v)
+                v = v if isinstance(v, Bad) else self._roll(node, v, shift)
             if isinstance(v, Bad):
                 return v
         return v
 
     def _rev(self, node, v):
-        return v if isinstance(v, Bad) else Rev(v, self.refuse(
-            node, "a flip of a stage's output (a product's, or a running sum's) read other "
-            "than by cumsum and a second flip; the kernels read a stage's element at each "
-            "index's own"))
+        return v if isinstance(v, Bad) else Rev(v, node)
+
+    def _unrev(self, node, v):
+        """A :class:`Rev` read by an op other than ``cumsum`` and ``flip``:
+        the flipped vector itself, its stages read at the flipped rows; any
+        other value (lists of them too) as it is."""
+        if isinstance(v, Rev):
+            return self._reverse(v.node, v.vec, force=True)
+        if type(v) in (list, tuple):
+            return type(v)(self._unrev(node, x) for x in v)
+        return v
 
     def _mat_move(self, node, name, m: Mat, shape, dim, shift):
         """A flip or a roll of a matrix: along its unrolled axis its vectors
@@ -2438,16 +2567,19 @@ class _Interp:
         if dim == (i0 if m.kfirst else i1):
             vecs = vecs[::-1] if name == "flip" else [vecs[(k - shift) % K] for k in range(K)]
             return m._replace(vecs=tuple(vecs))
-        out = [self._reverse(node, v) if name == "flip" else self._roll(node, v, shift)
-               for v in vecs]
-        bad = next((v for v in out if isinstance(v, (Bad, Rev))), None)
-        return (bad.err if isinstance(bad, Rev) else bad) or m._replace(vecs=tuple(out))
+        out = [self._unrev(node, self._reverse(node, v)) if name == "flip"
+               else self._roll(node, v, shift) for v in vecs]
+        bad = next((v for v in out if isinstance(v, Bad)), None)
+        return bad or m._replace(vecs=tuple(out))
 
-    def _reverse(self, node, v: Vec):
+    def _reverse(self, node, v: Vec, force=False):
         """``flip(v)``: position ``p`` reads ``v``'s ``n - 1 - p``, a lane
         expression's reads of ``x`` becoming reads of coordinate ``c - i``
         (``ya`` with stride -1), its parameters a hoisted reversed copy; a
-        vector that reads a stage's output is a :class:`Rev`."""
+        vector that reads a stage's output is a :class:`Rev` (unless
+        ``force``), and with ``force`` such a piece, or one that reads
+        through an index table, is read at its reversed indices as a gather
+        reads (:meth:`_regather`)."""
         n, pieces = v.n, []
         params = torch.cat(self.params) if self.params else None
         for pc in v.pieces:
@@ -2456,13 +2588,19 @@ class _Interp:
                 pieces.append(Piece(a, b, None, pc.e))
                 continue
             ops = {x.op for x in _nodes(pc.e)}
-            if ops & _PRODUCT_LEAVES:
+            if ops & _PRODUCT_LEAVES and not force:
                 return self._rev(node, v)
             if ops & {"sel", "prmd"}:
                 return self.refuse(node, "a flip of a flattened (n, K) matrix's rows")
-            if ops & _INDEXED:
-                return self.refuse(node, "a flip of a gather's or a scatter-add's output")
+            if "seg" in ops:
+                return self.refuse(node, "a flip of a scatter-add's output")
             c = n - 1 + pc.off  # the index read before, at the new index i = p
+            if ops & (_INDEXED | _PRODUCT_LEAVES):
+                e = self._regather(node, pc.e, c - torch.arange(a, b))
+                if isinstance(e, Bad):
+                    return e
+                pieces.append(Piece(a, b, -a, e))
+                continue
 
             def leaf(x, c=c, a=a, b=b):
                 if x.op in ("y", "w", "yo", "wo"):
@@ -2488,9 +2626,7 @@ class _Interp:
         if shift == 0:
             return v
         if any(pc.e.fixed for pc in v.pieces):
-            return self.refuse(node, "a roll of a stage's output (a product's, or a running "
-                               "sum's); the kernels read a stage's element at each index's "
-                               "own")
+            return self.refuse(node, "a roll of a flattened (n, K) matrix's rows")
         runs = ((_slice(v, n - shift, n), 0), (_slice(v, 0, n - shift), shift))
         pieces = [Piece(pc.a + delta, pc.b + delta, None if pc.off is None else pc.off - delta,
                         pc.e)
@@ -2515,11 +2651,6 @@ class _Interp:
                                f"{self.d} coordinates of x")
         return self._stage(Product(v.n, v.n, -1, False, v, "c", "c", kind))
 
-    def _data_to_data(self, node):
-        return self.refuse(node, "a product of a data vector into other data rows; the "
-                           "kernels take products from the coordinates to data rows "
-                           "and back")
-
     def _product(self, node, name, args, kwargs):
         """``mv``, ``mm``/``bmm`` of a constant matrix and a column (or a row
         and a constant matrix), their ``add`` forms, and ``dot``/``vdot``
@@ -2540,7 +2671,7 @@ class _Interp:
                 return self._batch(node, a, c, sa, sc)
             if isinstance(a, Mat) or isinstance(c, Mat):
                 out = self._mat_product(node, a, c)
-                if isinstance(out, (Bad, Pend)) or name == "mm":
+                if isinstance(out, Bad) or name == "mm":
                     return out
                 if kwargs.get("beta", 1) != 1 or kwargs.get("alpha", 1) != 1:
                     return self.refuse(node, "a scaled addmm of a matrix of the chain")
@@ -2592,6 +2723,7 @@ class _Interp:
                 out = self._arg(node.args[0], env)
                 if type(out) in (tuple, list):
                     out = out[0]
+                out = self._unrev(node, out)
             else:
                 env[node] = self.refuse(node, f"a graph node of kind {node.op}")
         return out
@@ -2629,9 +2761,11 @@ class _Interp:
         bad = next((a for a in _flat(args) if isinstance(a, Bad)), None)
         if bad:
             return bad
-        rev = next((a for a in _flat(args) if isinstance(a, Rev)), None)
-        if rev is not None and name not in _SCANS | _IDENTITY:
-            return rev.err
+        if name not in _SCANS | _IDENTITY:
+            args = self._unrev(node, args)
+            bad = next((a for a in _flat(args) if isinstance(a, Bad)), None)
+            if bad:
+                return bad
         if name in _SCANS:
             return self._scan_op(node, name, args, kwargs)
         if name in _GATHERS:
@@ -2648,7 +2782,7 @@ class _Interp:
         shape = _shape(node)
         if name == "max" and len(args) > 1 and isinstance(args[1], (torch.Tensor,) + _TRACED):
             name = "maximum"  # max.other: two values' elementwise max
-        if any(isinstance(a, (Mat, Pend)) for a in _flat(args)) or (
+        if any(isinstance(a, Mat) for a in _flat(args)) or (
                 shape is not None and _nonunit(shape) > 1):
             return self._matrix(node, name, args, kwargs, shape)
         if name in _PRODUCTS:
@@ -2721,7 +2855,7 @@ class _Interp:
             return self.refuse(node, f"a value of shape {shape} couples coordinates")
         src = (_shape(node.args[0]) if hasattr(node.args[0], "meta")
                else tuple(v.shape) if isinstance(v, torch.Tensor) else ())
-        if isinstance(v, (Mat, Pend)):
+        if isinstance(v, Mat):
             if _nonunit(shape) == 2:
                 flip = self._swaps(name, args, src, shape)
                 if flip is None:
@@ -2796,7 +2930,7 @@ class _Interp:
         kind = "max" if name in ("amax", "max") else "sum"
         dims = args[1] if len(args) > 1 else kwargs.get("dim", [])
         dims = [dims] if isinstance(dims, int) else list(dims or [])
-        if isinstance(v, (Mat, Pend)):
+        if isinstance(v, Mat):
             out = self._mat_reduce(node, kind, v, shape_in, dims, shape)
         else:
             out = self._vec_reduce(node, kind, v, shape_in, shape)
@@ -2827,9 +2961,6 @@ class _Interp:
         """An op on or into a value with two dimensions past 1."""
         if shape is not None and _nonunit(shape) > 2:
             return self.refuse(node, f"a value of shape {shape} couples coordinates")
-        pend = next((a for a in _flat(args) if isinstance(a, Pend)), None)
-        if pend is not None and name not in _RESHAPE | _IDENTITY:
-            return pend.err
         if name in _PRODUCTS:
             return self._product(node, name, args, kwargs)
         dt = kwargs.get("dtype")
@@ -2995,29 +3126,11 @@ class _Interp:
         """A matrix flattened into a vector in row-major order: rows one after
         another (``(K, n)``), or position ``K r + k`` column ``k``'s ``r``
         (``(n, K)``, the generated code picking by ``i % K``)."""
-        if isinstance(m, Pend):
-            K, p = len(m.us), m.Ms[0].shape[0]
-            if K * p != self.d:
-                return m.err
-            ms = []
-            for M, u in zip(m.Ms, m.us):
-                out = self.product(node, M, u, place=True)
-                if isinstance(out, Bad):
-                    return out
-                ms.append(out.pieces[0].e.attr)
-            if m.kfirst:
-                return Vec(self.d, tuple(Piece(k * p, (k + 1) * p, 0, self.b.mk(
-                    "mvx", attr=(mk, 1, k * p))) for k, mk in enumerate(ms)))
-            return Vec(self.d, (Piece(0, self.d, 0, self.b.mk(
-                "sel", *(self.b.mk("mvx", attr=(mk, K, 0)) for mk in ms), attr=K)),))
         K, n = len(m.vecs), m.vecs[0].n
         if m.kfirst:
             pieces = []
             for k, v in enumerate(m.vecs):
                 for pc in v.pieces:
-                    if pc.e.fixed:
-                        return self.refuse(node, "a flattened (K, n) matrix of products that "
-                                           "are not a product's backward")
                     pieces.append(Piece(pc.a + k * n, pc.b + k * n,
                                         None if pc.off is None else pc.off - k * n, pc.e))
             return Vec(K * n, _merge(pieces))
@@ -3077,8 +3190,6 @@ class _Interp:
         return False if same else None
 
     def _mat_reduce(self, node, kind, m, src, dims, shape):
-        if isinstance(m, Pend):
-            return m.err
         i0, i1 = [i for i, n in enumerate(src) if n != 1]
         dims = {d % len(src) for d in dims} if dims else set(range(len(src)))
         kdim, ndim = (i0, i1) if m.kfirst else (i1, i0)
@@ -3096,8 +3207,7 @@ class _Interp:
 
     def _mat_product(self, node, a, c):
         """``mm`` of a constant matrix and a matrix of the chain: a product
-        for each of its columns (or rows, on the left); the products of data
-        vectors into other rows pend until flattened into the coordinates."""
+        for each of its columns (or rows, on the left)."""
         if isinstance(a, torch.Tensor) and isinstance(c, Mat):
             M, m, kfirst = a, c, False      # M (r, p) @ U (p, K): U's columns
         elif isinstance(c, torch.Tensor) and isinstance(a, Mat):
@@ -3108,10 +3218,6 @@ class _Interp:
             m = self._flip(node, m)
             if isinstance(m, Bad):
                 return m
-        data = M.shape[0] != self.d and any(
-            _leaves(pc.e) & _PRODUCT_LEAVES for v in m.vecs for pc in v.pieces)
-        if data:
-            return Pend((M,) * len(m.vecs), tuple(m.vecs), kfirst, self._data_to_data(node))
         vecs = [self.product(node, M, u) for u in m.vecs]
         bad = next((v for v in vecs if isinstance(v, Bad)), None)
         return bad or Mat(tuple(vecs), kfirst)
@@ -3137,10 +3243,6 @@ class _Interp:
         us = list(other.vecs) if isinstance(other, Mat) else self._components(
             node, other, sv, sv, 0)
         Ms = [a[k] if const_left else c[k].t() for k in range(K)]
-        if Ms[0].shape[0] != self.d and any(
-                _leaves(pc.e) & _PRODUCT_LEAVES for u in us if isinstance(u, Vec)
-                for pc in u.pieces):
-            return Pend(tuple(Ms), tuple(us), True, self._data_to_data(node))
         vecs = [self.product(node, M, u) for M, u in zip(Ms, us)]
         bad = next((v for v in vecs if isinstance(v, Bad)), None)
         return bad or Mat(tuple(vecs), True)
@@ -3218,18 +3320,32 @@ class _Interp:
     def _regather(self, node, e: Node, at: torch.Tensor):
         """``e`` read at index ``at[r]`` for row ``r``: each read of a
         coordinate a read through the table of the coordinates it reads
-        (``yg``/``wg``), each parameter a hoisted gathered copy."""
+        (``yg``/``wg``), each read of a stage's row one through the table of
+        the rows it reads (``mvg``), each parameter a hoisted gathered
+        copy."""
         ops = {x.op for x in _nodes(e)}
-        if ops & (_PRODUCT_LEAVES | {"sel", "prmd"}):
-            return self.refuse(node, "a gather of a stage's output (a product's, or a "
-                               "running sum's); the kernels read a stage's element at each "
-                               "index's own")
+        if ops & {"sel", "prmd"}:
+            return self.refuse(node, "a gather of a flattened (n, K) matrix's rows")
         if "seg" in ops:
             return self.refuse(node, "a gather of a scatter-add's output")
         params = torch.cat(self.params) if self.params else None
         new = {}
         for x in _nodes(e):
             if x.args or not x.lane:
+                continue
+            if x.op in _PRODUCT_LEAVES:
+                m = _stage_of(x.op, x.attr)
+                if x.op in ("mv", "dmv"):
+                    rows = at
+                elif x.op in ("mvx", "dmvx"):
+                    rows = (at - x.attr[2]) // x.attr[1]
+                else:
+                    rows = self.b.tables[x.attr[1]][at + x.attr[3]]
+                if int(rows.min()) < 0 or int(rows.max()) >= self.products[m].rows:
+                    return self.refuse(node, f"an index that reads rows outside [0, "
+                                       f"{self.products[m].rows}) of a product")
+                new[x.id] = self.b.mk(("d" if x.op[0] == "d" else "") + "mvg",
+                                      attr=(m, self.table(rows), at.numel(), 0))
                 continue
             if x.op == "prm":
                 vals = params[x.attr + at]
@@ -3294,11 +3410,9 @@ class _Interp:
             return vals
         if alpha != 1:
             vals = self.ew(node, "mul", [vals, alpha], lambda a, c: b.mk("mul", a, c))
-        if any(_leaves(pc.e) & (_PRODUCT_LEAVES | {"sel", "prmd", "seg"})
-               for pc in vals.pieces):
-            return self.refuse(node, "a scatter-add of a stage's output (a product's, a "
-                               "running sum's or a scatter's); the kernels add rows that "
-                               "read x, parameters and chain values")
+        if any("seg" in _leaves(pc.e) for pc in vals.pieces):
+            return self.refuse(node, "a scatter-add of a scatter-add's output; the kernels "
+                               "walk a segment of rows that read no other segment")
         order = torch.argsort(idx, stable=True)
         ptr = torch.cat([torch.zeros(1, dtype=torch.long),
                          torch.cumsum(torch.bincount(idx, minlength=m), 0)])
@@ -3398,7 +3512,11 @@ class _Interp:
 _INDEXED = {"yg", "wg", "seg"}
 """A gather's reads and a scatter-add: nodes whose index reads a table."""
 
-_TRACED = (Vec, Node, Bad, Mat, Pend, Rev)
+_NOT_MOMENTS = _FAR | _PRODUCT_LEAVES | {"seg"}
+"""Reads that keep a sum off K1's and K6's chain moments, whose Taylor terms
+read each coordinate's own ``x`` and ``v`` and coordinates 0 and 1 alone."""
+
+_TRACED = (Vec, Node, Bad, Mat, Rev)
 """The interpreter's values that depend on x (or failed to)."""
 
 
@@ -3505,15 +3623,15 @@ def lower_gradient(grad_fn, kernel: str, d: int, dtype, device="cpu") -> Lowered
         raise _refuse(f"the gradient is not a ({d},) vector")
     pieces = []
     for pc in out.pieces:
-        if pc.e.space not in (None, "c"):
-            raise _refuse(f"gradient coordinates [{pc.a}, {pc.b}) read rows of a product "
-                          "that are not coordinates")
         if pc.off not in (None, 0):
             if pc.e.fixed:
-                raise _refuse(f"gradient coordinates [{pc.a}, {pc.b}) read a product's "
-                              f"element at coordinate i + {pc.off}; the kernels read a "
-                              "product's element at each coordinate's own")
+                raise _refuse(f"gradient coordinates [{pc.a}, {pc.b}) read a flattened "
+                              f"matrix's parameter at coordinate i + {pc.off}")
             pc = Piece(pc.a, pc.b, 0, interp.b.shift(pc.e, -pc.off))
+        pc = pc._replace(e=_to_coords(interp.b, pc.e, {}))
+        if pc.e.space not in (None, "c"):
+            raise _refuse(f"gradient coordinates [{pc.a}, {pc.b}) read rows of products of "
+                          "different lengths")
         if pc.e.boolean:
             raise _refuse("the gradient is boolean")
         pieces.append(pc)
@@ -3525,8 +3643,8 @@ def lower_gradient(grad_fn, kernel: str, d: int, dtype, device="cpu") -> Lowered
     used, todo = set(), [pc.e for pc in pieces]
     while todo:
         for x in _nodes(todo.pop()):
-            st = ("mv", x.attr[0]) if x.op == "mvx" else (x.op, x.attr)
-            if x.op in ("red", "mv", "mvx") and st not in used:
+            st = ("mv", _stage_of(x.op, x.attr)) if x.op in _PRODUCT_LEAVES else (x.op, x.attr)
+            if x.op in ("red", "mv", "mvx", "mvg") and st not in used:
                 used.add(st)
                 todo += [pc.e for pc in stage_pieces(*st)]
     order = [st for st in interp.stages if st in used]
@@ -3557,32 +3675,46 @@ def lower_gradient(grad_fn, kernel: str, d: int, dtype, device="cpu") -> Lowered
             if space == "c" and (lo < 0 or hi > d):
                 raise _refuse(f"a sum over positions [{pc.a}, {pc.b}) that are not "
                               f"coordinates of x")
+    rows = {m: pr.rows for m, pr in products.items()}
     for pc in [*pieces, *(pc for r in reductions for pc in r),
                *(pc for pr in products.values() for pc in pr.vec.pieces)]:
-        check_reads(pc, d)
+        check_reads(pc, d, rows)
     params = (torch.cat(interp.params) if interp.params
               else torch.zeros(0, dtype=torch.float64))
     return Lowered(interp.b, kernel, d, dtype, pieces, stages, reductions, red_space,
                    products, params, red_kind)
 
 
-def check_reads(pc: Piece, d: int) -> None:
-    """Raise where a piece reads a coordinate outside ``[0, d)``: a neighbour
-    at offset ``k`` of its indices, or a fixed coordinate (a correct trace
-    never does: its slices are static); or an index table's entry outside
-    it (a gather's table, a scatter-add's segments), whose entries are
-    checked where they are made; a scatter-add's rows are checked at their
-    own indices."""
+def check_reads(pc: Piece, d: int, rows=None) -> None:
+    """Raise where a piece reads a coordinate outside ``[0, d)``: its own,
+    a neighbour at offset ``k`` of its indices, or a fixed coordinate (a
+    correct trace never does: its slices are static); a row outside a
+    product's ``rows[m]``; or an index table's entry outside it (a
+    gather's table, a scatter-add's segments), whose entries are checked
+    where they are made; a scatter-add's rows are checked at their own
+    indices."""
     lo, hi = _coords(pc)
+    if lo >= hi:
+        return
     for x in _nodes(pc.e, rows=False):
         n, k = ((x.attr[1], x.attr[2]) if x.op in ("yg", "wg") else
+                (x.attr[2], x.attr[3]) if x.op in ("mvg", "dmvg") else
                 (x.attr[2], x.attr[5]) if x.op == "seg" else (None, 0))
         if n is not None and (lo + k < 0 or hi + k > n):
             raise _refuse(f"positions [{pc.a}, {pc.b}) read entries [{lo + k}, {hi + k}) "
                           f"of an index table of {n}")
+        if x.op in ("y", "w") and (lo < 0 or hi > d):
+            raise _refuse(f"positions [{pc.a}, {pc.b}) read coordinates [{lo}, {hi}), "
+                          f"outside [0, {d})")
+        if rows is not None and x.op in ("mv", "dmv", "mvx", "dmvx"):
+            m, st, c = (x.attr, 1, 0) if x.op in ("mv", "dmv") else x.attr
+            ends = ((lo - c) // st, (hi - 1 - c) // st)
+            if min(ends) < 0 or max(ends) >= rows[m]:
+                raise _refuse(f"positions [{pc.a}, {pc.b}) read rows {ends} of a product "
+                              f"of {rows[m]}")
         if x.op == "seg":
             for (a, b, off), e in zip(x.attr[4], x.args):
-                check_reads(Piece(a, b, off, e), d)
+                check_reads(Piece(a, b, off, e), d, rows)
         if x.op in ("yo", "wo") and (lo + x.attr < 0 or hi + x.attr > d):
             raise _refuse(f"positions [{pc.a}, {pc.b}) read coordinates "
                           f"[{lo + x.attr}, {hi + x.attr}), outside [0, {d})")
@@ -3593,6 +3725,21 @@ def check_reads(pc: Piece, d: int) -> None:
                           f"{x.attr[1]:+d}, outside [0, {d})")
         if x.op in ("yk", "wk") and not 0 <= x.attr < d:
             raise _refuse(f"positions [{pc.a}, {pc.b}) read x[{x.attr}], outside [0, {d})")
+
+
+def _to_coords(b: Graph, n: Node, memo: dict) -> Node:
+    """``n`` read at the coordinates: a product's element at its own index
+    whose rows are data rows (``X.T @ r`` placed into a slice of x) becomes
+    a read of its row ``i`` (``mvx``), which lies in no index space; a
+    scatter-add's rows, read at their own indices, stay as they are."""
+    if n.id not in memo:
+        if n.op in ("mv", "dmv") and b.mv_space[n.attr] != "c":
+            memo[n.id] = b.mk(n.op + "x", attr=(n.attr, 1, 0))
+        elif not n.args or n.op == "seg":
+            memo[n.id] = n
+        else:
+            memo[n.id] = b.mk(n.op, *(_to_coords(b, a, memo) for a in n.args), attr=n.attr)
+    return memo[n.id]
 
 
 def lane_fits(low: Lowered) -> bool:

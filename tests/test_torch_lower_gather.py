@@ -31,7 +31,9 @@ sizes here; the card's ``chip_smoke.py`` phase 46 runs them at full size):
   fills.
 * The gather and scatter-add terms bit for bit with ``jax.grad``'s.
 * The route at full size (radon d = 87 and 89, the ICAR at d = 1024) with
-  the card mocked; ``ordered_segment_sum``'s order; refusals.
+  the card mocked; ``ordered_segment_sum``'s order; refusals (gathers of a
+  stage's output lower since ``test_torch_lower_regression.py``: here two
+  direct cases).
 
 ``test_torch_lower_gather_pallas.py`` holds these targets against JAX's
 interpreted Pallas kernel on every other kernel and mode.
@@ -185,6 +187,10 @@ DIRECT = {
     # a scatter-add into a slice of the coordinates, and onto a non-zero base
     "into_slice": lambda x: torch.cat([x[:4].index_add(0, torch.as_tensor([0, 3, 3, 1]),
                                                        x[5:] ** 2), x[4:] * 2.0]),
+    # gathers of a stage's output (refused before ``test_torch_lower_regression.py``)
+    "cumsum_gather": lambda x: x + torch.cumsum(x, 0)[torch.as_tensor(_P)],
+    "product_gather": lambda x: x * (torch.as_tensor(np.eye(9) + 0.1).to(x)
+                                     @ x)[torch.as_tensor(_P)],
 }
 
 
@@ -194,8 +200,9 @@ def test_direct_gathers_and_scatters(name):
     ``index_add`` (with ``alpha``), ``scatter_add``, ``put`` and
     ``index_put`` (accumulating), repeated and negative indices, a 0-d
     index, gathers of a slice, of hoisted parameters and of a gather, one
-    element of a gather, and
-    scatter-adds into a slice and onto a base: the pair on every kernel."""
+    element of a gather, scatter-adds into a slice and onto a base, and
+    gathers of a running sum's and of a product's output: the pair on every
+    kernel."""
     _pairs_match(DIRECT[name], 9, 13)
 
 
@@ -394,18 +401,20 @@ def test_ordered_segment_sum_order(n, m):
 _E = np.array([[0, 1], [1, 2], [2, 3], [3, 4], [4, 5], [5, 6], [6, 7], [7, 8]])
 _P = np.random.default_rng(4).permutation(9)
 REFUSED = {
-    # a gather of a stage's output
-    "aten.index": [lambda x: x + torch.cumsum(x, 0)[torch.as_tensor(_P)],
-                   lambda x: x * (torch.as_tensor(np.eye(9) + 0.1).to(x) @ x)[torch.as_tensor(_P)],
-                   # a 2-D index array, and an index that depends on x
-                   lambda x: x + torch.sum(x[torch.as_tensor(_E)], 1).sum(),
-                   lambda x: x * torch.as_tensor(np.array([1.0, 2.0])).to(x)[(x > 0).long()]],
+    # a 2-D index array, an index that depends on x, a gather of a scatter-add's output
+    "aten.index": [lambda x: x + torch.sum(x[torch.as_tensor(_E)], 1).sum(),
+                   lambda x: x * torch.as_tensor(np.array([1.0, 2.0])).to(x)[(x > 0).long()],
+                   lambda x: x + torch.zeros_like(x).index_add(
+                       0, torch.as_tensor(_P), x ** 2)[torch.as_tensor(_P)]],
     # writes that do not add, and a scatter into more than the coordinates
     "aten.index_put": [lambda x: x + torch.zeros_like(x).index_put(
         (torch.as_tensor(_P),), x[torch.as_tensor(_P)] ** 2)],
     "aten.scatter": [lambda x: x + torch.zeros_like(x).scatter(0, torch.as_tensor(_P), x ** 2)],
+    # a scatter into more than the coordinates, and one of a scatter-add's output
     "aten.index_add": [lambda x: x + torch.zeros(12).to(x).index_add(
-        0, torch.as_tensor(_P + 3), x ** 2)[:9]],
+        0, torch.as_tensor(_P + 3), x ** 2)[:9],
+                       lambda x: x + torch.zeros_like(x).index_add(
+        0, torch.as_tensor(_P), torch.zeros_like(x).index_add(0, torch.as_tensor(_P), x ** 2))],
     "aten.cumprod": [lambda x: x + 0.1 * torch.cumprod(torch.tanh(x), 0)],
     "aten.sort": [lambda x: x + torch.sort(x)[0]],
     "aten.convolution": [lambda x: x + torch.nn.functional.conv1d(
@@ -415,10 +424,11 @@ REFUSED = {
 
 @pytest.mark.parametrize("op", sorted(REFUSED))
 def test_refusals_of_gathers_and_scatters(op):
-    """A gather of a stage's output (``cumsum(x)[idx]``, ``(A @ x)[idx]``),
-    a 2-D index array (``x[E]``), an index that depends on x, ``index_put``
-    without ``accumulate``, ``scatter`` (not ``scatter_add``), a scatter into
-    a length other than d, ``cumprod``, ``sort`` and ``conv1d`` raise
+    """A 2-D index array (``x[E]``), an index that depends on x, a gather of
+    a scatter-add's output, ``index_put`` without ``accumulate``, ``scatter``
+    (not ``scatter_add``), a scatter into a length other than d, a
+    scatter-add of a scatter-add's output, ``cumprod``, ``sort`` and
+    ``conv1d`` raise
     ``LoweringError`` naming the op and ``backend='xla_stream'`` on a moment
     kernel (K1) and a walking one (K3): the interpreter refuses them before
     any kernel's form is chosen."""

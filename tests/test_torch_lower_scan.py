@@ -244,19 +244,21 @@ def test_local_level_zigzag_sample_skeleton_matches_jax(monkeypatch):
 
 
 def test_refusals_of_a_stage_output_and_of_cumprod():
-    """A ``roll`` or a ``flip`` of a matrix product's output, a ``roll`` of a
-    running sum, a ``flip`` of one read otherwise than by ``cumsum`` and a
-    second ``flip``, and a ``cumprod`` raise ``LoweringError`` naming the
-    op and ``backend='xla_stream'`` on every kernel."""
-    d = DS[0]
-    A = torch.as_tensor(np.random.default_rng(2).normal(size=(d, d)))
-    cases = {"aten.roll": [lambda x: x * torch.roll(A.to(x) @ x, 1),
-                           lambda x: x + torch.roll(torch.cumsum(x, 0), 2)],
-             "aten.flip": [lambda x: x * torch.flip(A.to(x) @ x, (0,)),
-                           lambda x: x + torch.flip(torch.cumsum(x, 0), (0,))],
-             "aten.cumprod": [lambda x: x + 0.1 * torch.cumprod(torch.tanh(x), 0)]}
+    """A ``roll`` of a flattened ``(n, K)`` matrix's parameters (read at ``i
+    / K``), a ``flip`` of a scatter-add's output and a ``cumprod`` raise
+    ``LoweringError`` naming the op and ``backend='xla_stream'`` on every
+    kernel; rolls and flips of a product's and of a running sum's output
+    lower (``test_direct_flips_and_rolls``)."""
+    d, n = DS
+    W = torch.as_tensor(np.random.default_rng(2).normal(size=(n // 3, 3)))
+    P = torch.as_tensor(np.random.default_rng(3).permutation(d))
+    cases = {"aten.roll": [(lambda x: x + torch.roll((x.reshape(n // 3, 3) * W.to(x)).reshape(-1),
+                                                     1), n)],
+             "aten.flip": [(lambda x: x + torch.flip(torch.zeros_like(x).index_add(
+                 0, P, x ** 2), (0,)), d)],
+             "aten.cumprod": [(lambda x: x + 0.1 * torch.cumprod(torch.tanh(x), 0), d)]}
     for op, grads in cases.items():
-        for grad in grads:
+        for grad, d in grads:
             for kernel in lower.SOURCES:
                 with pytest.raises(lower.LoweringError) as err:
                     lower.lower_gradient(grad, kernel, d, torch.float64)
@@ -264,6 +266,7 @@ def test_refusals_of_a_stage_output_and_of_cumprod():
 
 
 _W = np.linspace(0.5, 2.0, DS[0])
+_A = np.random.default_rng(2).normal(size=(DS[0], DS[0]))
 DIRECT = {
     # a flip of a hoisted parameter's product: the parameters reversed
     "flip_weighted": lambda x: x - 0.5 * torch.flip(torch.as_tensor(_W).to(x) * x, (0,)),
@@ -272,13 +275,20 @@ DIRECT = {
     # a roll of a weighted vector, and a flip of a flip (x itself)
     "roll_weighted": lambda x: (x + 0.3 * torch.roll(torch.as_tensor(_W).to(x) * x, 2)
                                 + torch.flip(torch.flip(x, (0,)), (0,)) ** 3),
+    # a roll and a flip of a product's and of a running sum's output (refused
+    # before ``test_torch_lower_regression.py``): reads of their rows elsewhere
+    "roll_product": lambda x: x * torch.roll(torch.as_tensor(_A).to(x) @ x, 1),
+    "roll_cumsum": lambda x: x + torch.roll(torch.cumsum(x, 0), 2),
+    "flip_product": lambda x: x * torch.flip(torch.as_tensor(_A).to(x) @ x, (0,)),
+    "flip_cumsum": lambda x: x + torch.flip(torch.cumsum(x, 0), (0,)),
 }
 
 
 @pytest.mark.parametrize("name", sorted(DIRECT))
 def test_direct_flips_and_rolls(name):
     """Gradients written directly that flip or roll hoisted parameters,
-    slices and flips: the pair against ``torch.func`` on every kernel."""
+    slices, flips, and a product's and a running sum's output: the pair
+    against ``torch.func`` on every kernel."""
     d, grad = DS[0], DIRECT[name]
     x, v = _points(13, d)
     want = _reference(grad, x, v)
